@@ -1,0 +1,158 @@
+// Paged prefill attention for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/prefill_attention/kernel.py::paged_prefill_attention
+// (def :90, body _prefill_kernel :30, pallas_call :146).  It computes the
+// same function: C query rows per sequence at absolute positions
+// q_start[b] .. q_start[b]+C-1 against the paged KV pool read through the
+// block table, masked by k_pos <= q_pos and k_pos < lengths[b] -- seeded
+// blocks are attended in full, the chunk's own rows triangularly.  GQA rows
+// are laid out (K, C*G) per kv head: row r of kv head kv is chunk row r / G
+// of query head kv*G + r % G.  Scale, softcap and the online softmax are as
+// in the decode kernel.
+//
+// What bounds it on an H100: at the shapes serving gives it the two bounds
+// are close.  A 256-row chunk of qwen2.5-3b at q_start 256 must move 2.6 MB
+// (q, out, 512 live K/V rows: 0.78 us at 3.35 TB/s) and do 0.81 GFLOP of
+// causal QK^T and PV (0.82 us at the 989 TFLOP/s bf16 peak); a longer
+// seeded history tips it to bytes, a longer chunk to operations.  This
+// first version reaches neither: plain FMA, no tensor cores.
+//
+// Design (simple and right first): one thread block per (sequence, kv head,
+// tile of 32 query rows of the C*G); the Pallas grid's sequential block axis
+// becomes a loop over pool blocks up to cdiv(min(lengths[b], last q_pos of
+// the tile + 1), bs) -- table entries past that are trash or unwritten and
+// never dereferenced.  K/V rows are staged in shared memory with 16-byte
+// loads; scores, running max / sum and the accumulator are fp32, and plain
+// FMA does the products (mma / wgmma and TMA are for a later PR).
+#include "paged_attention.cuh"
+
+namespace {
+
+using namespace paged;
+
+constexpr int TILE_ROWS = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
+    const T* __restrict__ q,              // (B, C, H, D)
+    const T* __restrict__ k_pool,         // (N, bs, K, D)
+    const T* __restrict__ v_pool,         // (N, bs, K, D)
+    const int32_t* __restrict__ tables,   // (B, mb)
+    const int32_t* __restrict__ q_start,  // (B,)
+    const int32_t* __restrict__ lengths,  // (B,)
+    T* __restrict__ out,                  // (B, C, H, D)
+    int C, int H, int K, int D, int bs, int mb, int N, float scale, float softcap) {
+  const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
+  const int G = H / K;
+  const int r0 = blockIdx.z * TILE_ROWS;
+  const int nr = min(TILE_ROWS, C * G - r0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kblk = reinterpret_cast<T*>(smem);          // (bs, D)
+  T* vblk = kblk + (size_t)bs * D;               // (bs, D)
+  float* qs = reinterpret_cast<float*>(vblk + (size_t)bs * D);  // (TILE_ROWS, D)
+  float* acc = qs + TILE_ROWS * D;               // (TILE_ROWS, D)
+  float* sc = acc + TILE_ROWS * D;               // (TILE_ROWS, bs)
+  float* m_s = sc + TILE_ROWS * bs;              // (TILE_ROWS,)
+  float* l_s = m_s + TILE_ROWS;
+  float* corr_s = l_s + TILE_ROWS;
+
+  for (int i = tid; i < nr * D; i += blockDim.x) {
+    const int rr = i / D, d = i - rr * D;
+    const int r = r0 + rr, c = r / G, g = r - c * G;
+    qs[i] = to_f(q[(((size_t)b * C + c) * H + (size_t)kv * G + g) * D + d]);
+    acc[i] = 0.f;
+  }
+  for (int rr = tid; rr < nr; rr += blockDim.x) {
+    m_s[rr] = NEG_INF;
+    l_s[rr] = 0.f;
+  }
+  const int start = q_start[b];
+  const int len = lengths[b];
+  // no row of this tile sees a key past its last query position
+  const int kv_end = min(len, start + (r0 + nr - 1) / G + 1);
+  int nblk = kv_end > 0 ? (kv_end + bs - 1) / bs : 0;
+  if (nblk > mb) nblk = mb;
+  const size_t row_stride = (size_t)K * D;
+
+  for (int ib = 0; ib < nblk; ++ib) {
+    int pb = tables[(size_t)b * mb + ib];
+    if (pb < 0 || pb >= N) pb = 0;  // never read outside the pool
+    const int nrows = min(bs, kv_end - ib * bs);
+    const size_t base = ((size_t)pb * bs * K + kv) * D;
+    __syncthreads();
+    stage_rows(kblk, k_pool + base, nrows, D, row_stride);
+    stage_rows(vblk, v_pool + base, nrows, D, row_stride);
+    __syncthreads();
+    for (int i = tid; i < nr * bs; i += blockDim.x) {
+      const int rr = i / bs, j = i - rr * bs;
+      const int q_pos = start + (r0 + rr) / G;
+      const int k_pos = ib * bs + j;
+      float s = NEG_INF;
+      if (j < nrows && k_pos <= q_pos && k_pos < len) {
+        s = dot_row(qs + rr * D, kblk + (size_t)j * D, D, j) * scale;
+        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+      }
+      sc[i] = s;
+    }
+    __syncthreads();
+    for (int rr = tid; rr < nr; rr += blockDim.x)
+      corr_s[rr] = softmax_update<T>(sc + rr * bs, bs, m_s[rr], l_s[rr]);
+    __syncthreads();
+    for (int i = tid; i < nr * D; i += blockDim.x) {
+      const int rr = i / D, d = i - rr * D;
+      const float* p = sc + rr * bs;
+      float pv = 0.f;
+      for (int j = 0; j < nrows; ++j) pv = fmaf(p[j], to_f(vblk[(size_t)j * D + d]), pv);
+      acc[i] = acc[i] * corr_s[rr] + pv;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nr * D; i += blockDim.x) {
+    const int rr = i / D, d = i - rr * D;
+    const int r = r0 + rr, c = r / G, g = r - c * G;
+    out[(((size_t)b * C + c) * H + (size_t)kv * G + g) * D + d] =
+        from_f<T>(acc[i] / fmaxf(l_s[rr], 1e-30f));
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+           const void* q_start, const void* lengths, void* out, int B, int C, int H, int K,
+           int D, int bs, int mb, int N, float scale, float softcap, cudaStream_t stream) {
+  const int G = H / K;
+  const size_t smem = 2 * (size_t)bs * D * sizeof(T) +
+                      ((size_t)2 * TILE_ROWS * D + (size_t)TILE_ROWS * bs + 3 * TILE_ROWS) *
+                          sizeof(float);
+  auto kernel = paged_prefill_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(B, K, (C * G + TILE_ROWS - 1) / TILE_ROWS);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(q_start),
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out), C, H, K, D, bs, mb, N,
+      scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
+// Returns 0 or the CUDA error of the launch.
+extern "C" int paged_prefill_attention(const void* q, const void* k_pool, const void* v_pool,
+                                       const void* tables, const void* q_start,
+                                       const void* lengths, void* out, int dtype, int B, int C,
+                                       int H, int K, int D, int bs, int mb, int N, float scale,
+                                       float softcap, void* stream) {
+  if (B == 0 || C == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K,
+                                 D, bs, mb, N, scale, softcap, s);
+  return launch<float>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K, D, bs,
+                       mb, N, scale, softcap, s);
+}

@@ -1,0 +1,138 @@
+"""The kernel table: name -> (CUDA kernel, plain PyTorch version, counts).
+
+A call with CUDA tensors launches the hand-written kernel or raises; a call
+with CPU tensors takes the plain version.  Nothing falls back: a kernel that
+fails to build or launch raises to the caller.  The one way to run the plain
+version on the card is to ask for it explicitly with :func:`plain_versions`
+(used to hold the kernels against their plain versions on the same inputs).
+
+Each :class:`Kernel` counts what ran: ``launches`` is bumped by the kernel's
+launcher exactly where the CUDA kernel is enqueued, ``plain_calls`` wherever
+the plain version runs instead, so a serving run can show that its path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+
+
+class Kernel:
+    """One kernel-table entry.  ``launch`` is the CUDA launcher (it raises on
+    anything the kernel does not take and bumps :attr:`launches`), ``plain``
+    the plain PyTorch version with the same signature."""
+
+    def __init__(self, name: str, launch: Callable, plain: Callable, *,
+                 source: str, replaces: str):
+        self.name = name
+        self.launch = launch
+        self.plain = plain
+        self.source = source          # CUDA source, relative to the repo
+        self.replaces = replaces      # the TPU kernel it replaces, file:line
+        self.launches = 0
+        self.plain_calls = 0
+
+    def __call__(self, *args, **kw):
+        device = args[0].device
+        if device.type == "cuda" and not _MODE.plain:
+            return self.launch(*args, **kw)
+        if device.type in ("cpu", "cuda"):
+            self.plain_calls += 1
+            return self.plain(*args, **kw)
+        raise RuntimeError(f"{self.name}: no kernel for device {device}")
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0
+
+
+class _Mode:
+    plain = False
+
+
+_MODE = _Mode()
+_TABLE: dict[str, Kernel] = {}
+
+
+def register_kernel(name: str, launch: Callable, plain: Callable, *,
+                    source: str, replaces: str) -> Kernel:
+    """Register a kernel's CUDA launcher and its plain version."""
+    entry = Kernel(name, launch, plain, source=source, replaces=replaces)
+    _TABLE[name] = entry
+    return entry
+
+
+def kernel_table() -> dict[str, Kernel]:
+    """Every registered kernel (importing the ops modules registers them)."""
+    import repro_torch.kernels.decode_attention.ops  # noqa: F401
+    import repro_torch.kernels.prefill_attention.ops  # noqa: F401
+    return dict(_TABLE)
+
+
+def reset_counts() -> None:
+    for entry in kernel_table().values():
+        entry.reset_counts()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run every kernel's plain version, on any device, inside the block."""
+    prev = _MODE.plain
+    _MODE.plain = True
+    try:
+        yield
+    finally:
+        _MODE.plain = prev
+
+
+def check_operand(t, name: str, *, device, dtypes, shape=None,
+                  align: int = 1) -> None:
+    """Raise unless ``t`` is a contiguous tensor on ``device`` with one of
+    ``dtypes``, (when given) ``shape``, and a data pointer that is a
+    multiple of ``align`` bytes -- what a launcher checks before handing
+    raw pointers to a kernel (the attention kernels read q and pool rows
+    with 16-byte loads, so a view at an odd element offset must not reach
+    them)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                         f"{list(dtypes)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} starts at an address that is not a "
+                         f"multiple of {align} bytes")
+
+
+# Kernel vs plain version on the card (chip_smoke.py, tests/test_torch_gpu.py).
+# fp32: the two sum in other orders; ~1e-6 is expected, 1e-4 allowed.
+FP32_ATOL = 1e-4
+# bf16: the kernel is held against the plain version evaluated in fp32 on
+# the same bf16 values (the plain version at bf16 rounds the QK^T scores
+# and each PV chunk to bf16 as well, which would swamp what is checked).
+# The kernel rounds p to bf16 before the PV product (as the Pallas kernel
+# does; <= 2^-8 relative per term, random in sign) and its output to bf16
+# (<= 2^-8 |out|).  Limit per element: 2^-7 |ref| + 2^-6 * rms(ref), the
+# rms over the (heads, head_dim) of that query token, so a row over 1056
+# keys (|out| ~ 0.05) is held as tightly as a row over one key (|out| ~ 1).
+BF16_RTOL = 2.0 ** -7
+BF16_RMS_ATOL = 2.0 ** -6
+
+
+def tolerance_ratio(out, ref) -> float:
+    """Largest ``|out - ref| / limit`` over all elements (<= 1 passes).
+    ``ref`` is the plain version in fp32; ``out`` the kernel's output of
+    shape (..., H, D), fp32 (limit ``FP32_ATOL``) or bf16 (limit above)."""
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        return (err.max() / FP32_ATOL).item()
+    ref = ref.float()
+    rms = ref.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()
+    limit = BF16_RTOL * ref.abs() + BF16_RMS_ATOL * rms
+    return (err / limit.clamp(min=1e-30)).max().item()

@@ -1,0 +1,123 @@
+"""Serving launcher for the PyTorch/CUDA port: the paged continuous-batching
+engine on one card, with throughput, serving-quality metrics (TTFT p50/p99,
+TPOT, slot occupancy) and tokens/s per watt against the card's power limit
+(counterpart of ``repro/launch/serve.py``, single replica).
+
+Example (on a machine with an NVIDIA card):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      --prompt-len 512 --prefill-chunk 256 --kv-pool-blocks 128
+  # the plain PyTorch versions of the kernels, on the CPU, at smoke size:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry as arch_registry
+from repro_torch.models.registry import fns_for
+from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.sampler import greedy, temperature
+
+
+def _fmt_ms(v: float | None) -> str:
+    return f"{v * 1e3:.1f}ms" if v is not None else "n/a"
+
+
+def card_name_and_power_limit() -> tuple[str, float]:
+    """(name, power limit in W) of card 0, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout
+    name, limit = out.strip().splitlines()[0].rsplit(",", 1)
+    return name.strip(), float(limit.strip().split()[0])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--kv-pool-blocks", type=int, default=None,
+                    help="paged KV pool size in blocks (default: worst "
+                         "case = slots x ceil(max_len / block_size))")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="C",
+                    help="prefill prompts in C-token chunks interleaved "
+                         "with decode steps (C a multiple of the 16-token "
+                         "block size; default: whole prompt in one go)")
+    ap.add_argument("--no-preemption", action="store_true",
+                    help="disable decode preemption")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable refcounted prompt-prefix block sharing")
+    ap.add_argument("--no-seeded-prefill", action="store_true",
+                    help="recompute baseline: every prompt token is re-run "
+                         "(compare prefill_tokens_computed)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain "
+                         "versions")
+    args = ap.parse_args()
+
+    cfg = (arch_registry.smoke(args.arch) if args.smoke
+           else arch_registry.config(args.arch))
+    fns = fns_for(cfg)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device; pass --device cpu (with --smoke) to run "
+                 "the plain versions on the CPU")
+    params = fns.init(cfg, torch.Generator(device).manual_seed(0))
+    max_len = args.prompt_len + args.new_tokens + 1
+    rng = np.random.default_rng(0)
+    mk_sampler = (greedy if args.temperature == 0
+                  else lambda: temperature(args.temperature, top_k=40))
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    size=args.prompt_len).astype(np.int32),
+                    max_new_tokens=args.new_tokens, sampler=mk_sampler())
+            for i in range(args.requests)]
+    eng = ServingEngine(cfg, params, max_len=max_len, batch_slots=args.slots,
+                        pool_blocks=args.kv_pool_blocks,
+                        preemption=not args.no_preemption,
+                        prefix_sharing=not args.no_prefix_sharing,
+                        prefill_chunk=args.prefill_chunk,
+                        seeded_prefill=not args.no_seeded_prefill,
+                        device=device)
+    del params                      # the engine keeps its own cast copy
+    stats = eng.serve(reqs)
+    print(f"requests={stats.requests} tokens={stats.tokens} "
+          f"wall={stats.wall_s:.2f}s tok/s={stats.tokens_per_s:.2f}")
+    print(f"ttft p50={_fmt_ms(stats.ttft_p50_s)} "
+          f"p99={_fmt_ms(stats.ttft_p99_s)}  "
+          f"tpot={_fmt_ms(stats.mean_tpot_s)}  "
+          f"slot_occupancy={stats.slot_occupancy:.2f}")
+    print(f"prefill_compiles={stats.prefill_compiles}  "
+          f"kv_blocks_peak={stats.kv_blocks_peak}  "
+          f"kv_pool_util={stats.kv_pool_util:.2f}")
+    stall = (f"{stats.decode_stall_p99_s * 1e3:.1f}ms"
+             if stats.decode_stall_p99_s is not None else "n/a")
+    print(f"prefill_tokens={stats.prefill_tokens_computed}"
+          f"/{stats.prefill_tokens_total} computed "
+          f"({stats.prefill_compute_frac:.0%})  "
+          f"decode_stall_p99={stall}")
+    if stats.preemptions or stats.prefix_shared_blocks:
+        print(f"preemptions={stats.preemptions}  "
+              f"prefix_shared_blocks={stats.prefix_shared_blocks}")
+    if device.type == "cuda":
+        name, watts = card_name_and_power_limit()
+        print(f"{name} power.limit={watts:.0f}W  "
+              f"tokens/s/W={stats.tokens_per_s / watts:.4f}")
+    else:
+        print("tokens/s/W: not measured (CPU run)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

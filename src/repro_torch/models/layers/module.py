@@ -1,0 +1,77 @@
+"""Single-source-of-truth parameter tables (counterpart of
+``repro/models/layers/module.py``).
+
+A *table* is a nested dict whose leaves are :class:`ParamDef` -- (shape,
+logical axes, init).  The initialized parameters have the reference's names
+and shapes leaf for leaf, including the stacked ``(L, ...)`` layer layout of
+:func:`stack_table`, so a JAX parameter pytree converts one to one
+(:mod:`repro_torch.interop`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch.common import (dtype_of, ones_init, truncated_normal_init,
+                                zeros_init)
+
+InitFn = Callable[[torch.Generator, tuple[int, ...], Any], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: InitFn = truncated_normal_init
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def weight(shape: tuple[int, ...], axes: tuple[str | None, ...],
+           stddev: float | None = None) -> ParamDef:
+    if stddev is None:
+        return ParamDef(tuple(shape), tuple(axes), truncated_normal_init)
+
+    def init(gen, shp, dtype, _s=stddev):
+        return truncated_normal_init(gen, shp, dtype, stddev=_s)
+    return ParamDef(tuple(shape), tuple(axes), init)
+
+
+def bias(shape: tuple[int, ...], axes: tuple[str | None, ...]) -> ParamDef:
+    return ParamDef(tuple(shape), tuple(axes), zeros_init)
+
+
+def scale(shape: tuple[int, ...], axes: tuple[str | None, ...]) -> ParamDef:
+    return ParamDef(tuple(shape), tuple(axes), ones_init)
+
+
+Table = Mapping[str, Any]  # nested dict of ParamDef
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Map ``fn`` over the leaves of a nested dict/list/tuple."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def stack_table(table: Table, num: int) -> Table:
+    """Prepend a stacked 'layers' dim to every leaf; each layer's slice is
+    initialized by the leaf's own init, as the reference's vmap does."""
+    def _stack(d: ParamDef) -> ParamDef:
+        def init(gen, shape, dtype, _d=d):
+            return torch.stack([_d.init(gen, _d.shape, dtype)
+                                for _ in range(num)])
+        return ParamDef((num, *d.shape), ("layers", *d.axes), init)
+    return tree_map(_stack, table)
+
+
+def init_table(gen: torch.Generator, table: Table, dtype) -> Any:
+    """Initialize every leaf on ``gen``'s device, in table order."""
+    dt = dtype_of(dtype)
+    return tree_map(lambda d: d.init(gen, d.shape, dt), table)

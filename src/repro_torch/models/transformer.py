@@ -1,0 +1,269 @@
+"""Decoder-only transformer LM on a paged KV pool (counterpart of
+``repro/models/transformer.py``, dense family, paged serving path).
+
+Entry points:
+  * ``init``          -- parameters from a seeded ``torch.Generator``, with
+    the reference's names and stacked ``(L, ...)`` shapes.
+  * ``prefill_paged`` -- one prompt chunk written *directly* into paged pool
+    blocks, attending over already-seeded blocks, so shared prefixes and
+    resumed histories are never recomputed.
+  * ``decode_step``   -- one token per slot against the paged pool.
+
+Both attend through the hand-written CUDA kernels
+(:mod:`repro_torch.kernels`) when the tensors are on the card, and through
+their plain PyTorch versions on the CPU.
+
+Differences from the reference: ``lax.scan`` over the stacked layers is a
+Python loop, and pool writes happen **in place** (the reference's
+``.at[].set`` returns new pools).  The functions still return the cache,
+which holds the same (updated) tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.common import dtype_of
+from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
+from repro_torch.models.layers import attention as A
+from repro_torch.models.layers.embedding import embed, embedding_table
+from repro_torch.models.layers.embedding import logits as lm_logits
+from repro_torch.models.layers.mlp import swiglu, swiglu_table
+from repro_torch.models.layers.module import init_table, stack_table, tree_map
+from repro_torch.models.layers.norms import apply_norm, norm_table
+
+
+class PagedKVCache(NamedTuple):
+    """Paged KV cache: one global pool of fixed-size blocks shared by every
+    decode slot, indexed through per-slot block tables.
+
+    k/v: (L, N_blocks, block_size, K, D) -- block 0 is the trash block that
+    retired slots write into; block_tables: (B, max_blocks) int32 physical
+    block id per logical block, 0 where unassigned; length: (B,) int32
+    valid KV rows.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    block_tables: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def max_len(self) -> int:
+        """Max addressable rows per sequence (table width x block size)."""
+        return self.block_tables.shape[1] * self.k.shape[2]
+
+
+def make_paged_cache(cfg, num_blocks: int, block_size: int, batch: int,
+                     max_blocks: int, dtype="bfloat16",
+                     num_layers: int | None = None, *, device="cuda"):
+    """Paged cache sized to ``num_blocks`` pool blocks (incl. trash block 0)
+    with ``batch`` block tables of ``max_blocks`` entries each."""
+    if dtype == "int8":
+        raise NotImplementedError(
+            "int8 paged KV pools (QuantPagedKVCache) are ported with the "
+            "int8-pool slice")
+    L = num_layers if num_layers is not None else cfg.num_layers
+    shape = (L, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dt = dtype_of(dtype)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dt, device=device),
+        v=torch.zeros(shape, dtype=dt, device=device),
+        block_tables=torch.zeros((batch, max_blocks), dtype=torch.int32,
+                                 device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# parameter tables
+# ---------------------------------------------------------------------------
+
+def block_table(cfg):
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE blocks are not ported yet")
+    t = {"ln1": norm_table(cfg), "attn": A.attention_table(cfg),
+         "mlp": swiglu_table(cfg.d_model, cfg.d_ff)}
+    if not cfg.parallel_block:
+        t["ln2"] = norm_table(cfg)
+    return t
+
+
+def lm_table(cfg):
+    return {
+        "embed": embedding_table(cfg.vocab_size, cfg.d_model,
+                                 cfg.tie_embeddings),
+        "blocks": stack_table(block_table(cfg), cfg.num_layers),
+        "ln_f": norm_table(cfg),
+    }
+
+
+def init(cfg, generator: torch.Generator):
+    """Parameters in ``cfg.param_dtype`` on ``generator``'s device."""
+    return init_table(generator, lm_table(cfg), cfg.param_dtype)
+
+
+_PRODUCT_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv",
+                    "w_gate", "w_up", "w_down")
+
+
+def prepare_params(cfg, params, device=None):
+    """Move ``params`` to ``device`` and cast every weight that enters a
+    matrix product (and the QKV biases added to its result) to the compute
+    dtype, once.  The reference casts these fp32 weights to the compute
+    dtype before every product; casting once at load gives the same
+    numbers.  Norm scales and the (tied) embedding stay in ``param_dtype``:
+    the reference computes norms and the LM head in fp32."""
+    dt = dtype_of(cfg.compute_dtype)
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        t = tree.to(device) if device is not None else tree
+        return t.to(dt) if name in _PRODUCT_WEIGHTS else t
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+def _paged_attend(cfg, q, k_new, v_new, pool_k, pool_v, block_tables,
+                  length, chunk):
+    """Paged decode attention for one layer: write the new KV row into the
+    block-table-addressed pool slot (in place), then attend over live
+    blocks only.
+
+    q/k_new/v_new: (B, 1, H|K, D); pool_k/pool_v: (N, bs, K, D) this
+    layer's pools; block_tables: (B, max_blocks); length: (B,) rows already
+    valid (the new row is written at ``length``).  The write index is
+    clipped to the table as in the reference: retired slots (all-zero
+    tables, length 0) write into the trash block every step.
+    """
+    N, bs, K, D = pool_k.shape
+    B = q.shape[0]
+    mb = block_tables.shape[1]
+    bi = torch.clamp(length // bs, 0, mb - 1).long()
+    bt = block_tables[torch.arange(B, device=q.device), bi].long()
+    off = (length % bs).long()
+    pool_k[bt, off] = k_new[:, 0].to(pool_k.dtype)
+    pool_v[bt, off] = v_new[:, 0].to(pool_v.dtype)
+    out = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v,
+                                 block_tables, length + 1,
+                                 softcap=cfg.attn_logit_softcap, chunk=chunk)
+    return out[:, None]
+
+
+def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, write_ids,
+                          table, q_start, kv_len, chunk):
+    """Paged prefill for one layer: write the chunk's KV rows straight into
+    pool blocks (in place), then attend causally over the table's blocks.
+
+    q/k_new/v_new: (1, C, H|K, D) with C a multiple of the pool block size;
+    write_ids: (C // bs,) physical block per chunk block (trash 0 for rows
+    that must not land anywhere -- bucket padding, and the
+    recompute-baseline's shared prefix; duplicate trash writes race, which
+    is harmless because no kernel reads a row at or past ``kv_len``);
+    table: (1, max_blocks) read table; q_start: (1,) absolute position of
+    the chunk's first row; kv_len: (1,) valid rows incl. this chunk.
+
+    The reference's ``write_ids=None`` (speculative verify) layout is not
+    ported yet.
+    """
+    if write_ids is None:
+        raise NotImplementedError(
+            "the verify write layout (write_ids=None) is ported with the "
+            "speculative-decoding slice")
+    N, bs, K, D = pool_k.shape
+    C = q.shape[1]
+    wid = write_ids.long()
+    pool_k[wid] = k_new[0].reshape(C // bs, bs, K, D).to(pool_k.dtype)
+    pool_v[wid] = v_new[0].reshape(C // bs, bs, K, D).to(pool_v.dtype)
+    return paged_prefill_attention(q, pool_k, pool_v, table, q_start, kv_len,
+                                   softcap=cfg.attn_logit_softcap,
+                                   chunk=chunk)
+
+
+def block_apply(cfg, p, x, positions, *, cache_k, cache_v, kv_len=None,
+                block_tables=None, paged_prefill=None, chunk=1024):
+    """One transformer block against this layer's paged pools.
+
+    Decode (``paged_prefill`` None): x is (B, 1, D) and the new KV row is
+    written at ``kv_len``.  Prefill (``paged_prefill`` a dict of
+    write_ids/table/q_start/kv_len): the chunk's KV goes straight into pool
+    blocks and attention is causal over the table's blocks.
+    """
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
+    if paged_prefill is not None:
+        attn = _paged_prefill_attend(cfg, q, k, v, cache_k, cache_v,
+                                     chunk=chunk, **paged_prefill)
+    else:
+        attn = _paged_attend(cfg, q, k, v, cache_k, cache_v, block_tables,
+                             kv_len, chunk)
+    attn = A.attn_output(cfg, p["attn"], attn)
+    if cfg.parallel_block:
+        return x + attn + swiglu(p["mlp"], h)
+    x = x + attn
+    return x + swiglu(p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def _apply_backbone(cfg, params, tokens, positions, *, cache: PagedKVCache,
+                    paged_prefill=None, chunk=1024):
+    """Embed, run every layer against its slice of the paged pools (the
+    reference's ``lax.scan`` over stacked layers), final norm."""
+    x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
+    blocks = params["blocks"]
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda leaf, i=i: leaf[i], blocks)
+        x = block_apply(cfg, p, x, positions, cache_k=cache.k[i],
+                        cache_v=cache.v[i], kv_len=cache.length,
+                        block_tables=cache.block_tables,
+                        paged_prefill=paged_prefill, chunk=chunk)
+    return apply_norm(cfg, params["ln_f"], x)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
+                  q_start, kv_len, last_idx, chunk=1024):
+    """Cache-seeded chunked prefill: write one prompt chunk straight into
+    paged pool blocks and attend over everything already seeded.
+
+    tokens: (1, C) chunk (C a multiple of the pool block size; rows past
+    the real prompt are padding whose writes land in the trash block via
+    ``write_ids``); cache: :class:`PagedKVCache`; write_ids: (C //
+    block_size,) physical block per chunk block; table: (1, max_blocks)
+    the request's read table; q_start: (1,) absolute position of the
+    chunk's first token; kv_len: (1,) valid KV rows including this chunk's
+    real tokens; last_idx: row whose logits to return.  Returns ((1, V)
+    fp32 logits at ``last_idx``, the cache with its pools updated in place).
+    """
+    B, C = tokens.shape
+    pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
+                                          device=tokens.device)[None]
+    x = _apply_backbone(cfg, params, tokens, pos.expand(B, C), cache=cache,
+                        chunk=chunk,
+                        paged_prefill=dict(write_ids=write_ids, table=table,
+                                           q_start=q_start, kv_len=kv_len))
+    last = x[torch.arange(B, device=x.device), last_idx][:, None]
+    lg = lm_logits(params["embed"], last, cfg.tie_embeddings,
+                   cfg.final_logit_softcap)
+    return lg[:, 0], cache
+
+
+def decode_step(cfg, params, tokens, cache, *, chunk=2048):
+    """One decode step. tokens: (B, 1) -> logits (B, V) fp32, and the cache
+    with the new rows written in place and ``length`` advanced by one."""
+    pos = cache.length[:, None]
+    x = _apply_backbone(cfg, params, tokens, pos, cache=cache, chunk=chunk)
+    lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
+                   cfg.final_logit_softcap)
+    return lg[:, 0], cache._replace(length=cache.length + 1)

@@ -1,0 +1,789 @@
+"""Continuous-batching LM serving engine on the paged KV pool (counterpart
+of ``repro/serving/engine.py``, paged mode).
+
+:class:`ServingEngine` is the executor for a
+:class:`~repro_torch.serving.scheduler.ContinuousScheduler`: it keeps a
+fixed-slot decode batch alive and refills a slot the moment its request
+finishes.  KV state is one global :class:`~repro_torch.serving.kv_pool.
+KVBlockPool` of fixed-size blocks shared by every slot, with per-request
+block tables and block-aware admission.  On top of the pool:
+
+  * SLO-aware scheduling -- priority admission with recompute-style
+    preemption of lower-priority decodes under block pressure;
+  * prefix sharing -- a prefix index maps the token content of full leading
+    prompt blocks to refcounted pool blocks;
+  * cache-seeded chunked prefill -- prompt KV is written straight into pool
+    blocks by ``prefill_paged`` and computation starts at the first
+    unseeded token; a ``prefill_chunk`` budget interleaves long prompts
+    with decode steps.
+
+Every attention call runs the hand-written CUDA kernels when the engine's
+device is the card (:mod:`repro_torch.kernels`).  The engine runs on
+``device="cuda"`` unless the caller passes another device; it raises when
+no card is present rather than carry on on the CPU.
+
+Not ported yet, and refused by the constructor: the contiguous layout
+(``paged=False``), speculative decoding (``draft_cfg``), the host KV tier
+(``host_blocks``), disaggregated roles and fault injection.
+"""
+from __future__ import annotations
+
+import hashlib
+import time
+from dataclasses import dataclass, field, fields
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import fns_for
+from repro_torch.models.transformer import prepare_params
+from repro_torch.serving.kv_pool import CapacityError, KVBlockPool
+from repro_torch.serving.sampler import Sampler  # noqa: F401 (re-export)
+from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
+                                           RequestState)
+
+
+# Declarative multi-replica merge spec (copied from the reference): every
+# ServeStats field MUST have a rule here — tests enforce the bijection — so
+# a new field can never silently vanish from fleet aggregation.
+#   sum      — additive counter
+#   max      — window-level maximum (wall clock)
+#   extend   — per-request / per-step sample lists, concatenated
+#   opt_sum  — None-aware sum: stays None only when every input is None
+#   derived  — a ratio recomputed inside merge_from from already-merged
+#              numerators/denominators via _DERIVED (never copied or
+#              averaged across: a ratio of sums is not a sum of ratios)
+MERGE_RULES: dict[str, str] = {
+    "requests": "sum",
+    "tokens": "sum",
+    "wall_s": "max",
+    "prefills": "sum",
+    "decode_steps": "sum",
+    "verify_steps": "sum",
+    "occupancy_sum": "sum",
+    "prefill_compiles": "sum",
+    "preemptions": "sum",
+    "prefix_shared_blocks": "sum",
+    "slo_tracked": "sum",
+    "slo_misses": "sum",
+    "prefill_tokens_total": "sum",
+    "prefill_tokens_computed": "sum",
+    "router_steals": "sum",
+    "router_affinity_hits": "sum",
+    "spec_proposed": "sum",
+    "spec_accepted": "sum",
+    "accept_rate": "derived",       # merged accepted / merged proposed
+    "kv_spills": "sum",
+    "kv_fetches": "sum",
+    "prefix_hits_host": "sum",
+    "prefix_lookups": "sum",
+    "spill_bytes": "sum",
+    "kv_hit_rate": "derived",       # merged (device + host hits) / lookups
+    "kv_blocks_peak": "opt_sum",
+    "kv_pool_capacity": "opt_sum",
+    "kv_pool_util": "derived",      # merged peak / combined capacity
+    "requests_failed": "sum",
+    "requests_retried": "sum",
+    "replica_failures": "sum",
+    "shed_rejections": "sum",
+    "faults_injected": "sum",
+    "kv_migrations": "sum",
+    "migrated_blocks": "sum",
+    "ttft": "extend",
+    "tpot": "extend",
+    "decode_gaps": "extend",
+}
+
+# Recompute functions for every "derived" rule above, applied by
+# merge_from after the field-by-field fold (tests enforce the bijection
+# with MERGE_RULES): a ratio of sums, never a copied or averaged ratio.
+_DERIVED: dict[str, Callable[["ServeStats"], float | None]] = {
+    "kv_pool_util": lambda s: (
+        s.kv_blocks_peak / s.kv_pool_capacity
+        if s.kv_blocks_peak is not None and s.kv_pool_capacity else None),
+    "accept_rate": lambda s: (
+        s.spec_accepted / s.spec_proposed if s.spec_proposed else None),
+    "kv_hit_rate": lambda s: (
+        (s.prefix_shared_blocks + s.prefix_hits_host) / s.prefix_lookups
+        if s.prefix_lookups else None),
+}
+
+
+@dataclass
+class ServeStats:
+    requests: int = 0
+    tokens: int = 0
+    wall_s: float = 0.0
+    prefills: int = 0
+    decode_steps: int = 0
+    verify_steps: int = 0               # speculative multi-token target passes
+    occupancy_sum: float = 0.0          # sum over decode-cadence steps
+                                        # (decode + verify) of active/slots
+    prefill_compiles: int = 0           # distinct padded prefill shapes
+    preemptions: int = 0                # decode evictions under queue pressure
+    prefix_shared_blocks: int = 0       # table entries mapped to shared blocks
+    slo_tracked: int = 0                # requests carrying a TTFT SLO
+    slo_misses: int = 0                 # ... whose TTFT exceeded it
+    prefill_tokens_total: int = 0       # tokens a full recompute would run
+    prefill_tokens_computed: int = 0    # tokens actually run (rest seeded)
+    router_steals: int = 0              # requests migrated to an idle replica
+    router_affinity_hits: int = 0       # requests routed onto their prefix
+    spec_proposed: int = 0              # drafter tokens offered to verify
+    spec_accepted: int = 0              # ... committed (matched target argmax)
+    accept_rate: float | None = None    # spec only: accepted / proposed
+    kv_spills: int = 0                  # tiered: blocks demoted to host tier
+    kv_fetches: int = 0                 # tiered: host blocks restored to pool
+    prefix_hits_host: int = 0           # tiered: prefix blocks seeded via fetch
+    prefix_lookups: int = 0             # full prompt blocks probed in the index
+    spill_bytes: int = 0                # tiered: bytes moved device -> host
+    kv_hit_rate: float | None = None    # (device + host prefix hits) / lookups
+    kv_blocks_peak: int | None = None   # paged only: peak pool blocks in use
+    kv_pool_capacity: int | None = None  # paged only: pool size in blocks
+    kv_pool_util: float | None = None   # paged only: peak / capacity
+    requests_failed: int = 0            # terminal FAILED (poison/deadline/
+                                        # retries exhausted)
+    requests_retried: int = 0           # reissued to a survivor replica
+    replica_failures: int = 0           # request failures charged to replicas
+    shed_rejections: int = 0            # admissions refused (queue too deep)
+    faults_injected: int = 0            # fault-plan probes that fired here
+    kv_migrations: int = 0              # disagg: prefills adopted from a peer
+    migrated_blocks: int = 0            # disagg: pool blocks landed via adopt
+    ttft: list = field(default_factory=list)    # per-request seconds
+    tpot: list = field(default_factory=list)    # per-request seconds/token
+    decode_gaps: list = field(default_factory=list)  # s between decode steps
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def slot_occupancy(self) -> float:
+        """Mean fraction of decode slots doing useful work per decode-
+        cadence step (vanilla decode or speculative verify)."""
+        steps = self.decode_steps + self.verify_steps
+        return self.occupancy_sum / steps if steps else 0.0
+
+    @property
+    def steps_per_token(self) -> float | None:
+        """Batched target-model passes (decode + verify) per generated
+        token — the raw-speed number speculative decoding moves: a verify
+        pass can commit several tokens per slot, so spec pushes this below
+        the vanilla value for the same workload."""
+        steps = self.decode_steps + self.verify_steps
+        return steps / self.tokens if self.tokens else None
+
+    @property
+    def ttft_p50_s(self) -> float | None:
+        return float(np.percentile(self.ttft, 50)) if self.ttft else None
+
+    @property
+    def ttft_p99_s(self) -> float | None:
+        return float(np.percentile(self.ttft, 99)) if self.ttft else None
+
+    @property
+    def mean_tpot_s(self) -> float | None:
+        return float(np.mean(self.tpot)) if self.tpot else None
+
+    @property
+    def prefill_compute_frac(self) -> float | None:
+        """Fraction of prefill tokens actually computed (1.0 = nothing was
+        seeded from the cache); None when no prefill happened."""
+        return (self.prefill_tokens_computed / self.prefill_tokens_total
+                if self.prefill_tokens_total else None)
+
+    @property
+    def decode_stall_p99_s(self) -> float | None:
+        """p99 wall-clock gap between consecutive decode steps while
+        decodes were active — a long un-chunked prefill of a newly
+        admitted prompt shows up here as one giant gap."""
+        return (float(np.percentile(self.decode_gaps, 99))
+                if self.decode_gaps else None)
+
+    @property
+    def slo_miss_rate(self) -> float | None:
+        """Fraction of SLO-carrying requests whose TTFT missed; None when
+        the workload carries no SLOs."""
+        return self.slo_misses / self.slo_tracked if self.slo_tracked \
+            else None
+
+    def merge_from(self, sub: "ServeStats") -> "ServeStats":
+        """Fold another window's stats into this one, field by field, under
+        :data:`MERGE_RULES`.  Raises on a field without a rule, so adding a
+        ``ServeStats`` field without deciding its fleet semantics fails the
+        first multi-replica aggregation (and the rule-coverage test)
+        instead of silently dropping the field."""
+        for f in fields(self):
+            rule = MERGE_RULES.get(f.name)
+            if rule is None:
+                raise ValueError(
+                    f"ServeStats field {f.name!r} has no merge rule; add "
+                    f"it to MERGE_RULES (sum/max/extend/opt_sum/derived)")
+            a, b = getattr(self, f.name), getattr(sub, f.name)
+            if rule == "sum":
+                setattr(self, f.name, a + b)
+            elif rule == "max":
+                setattr(self, f.name, max(a, b))
+            elif rule == "extend":
+                a.extend(b)
+            elif rule == "opt_sum":
+                if b is not None:
+                    setattr(self, f.name, (a or 0) + b)
+            elif rule == "derived":
+                pass                     # recomputed below from merged parts
+            else:
+                raise ValueError(f"unknown merge rule {rule!r} "
+                                 f"for ServeStats.{f.name}")
+        # derived ratios recompute from the merged numerators/denominators
+        # (copying or averaging per-window ratios would weight every window
+        # equally regardless of size)
+        for name, fn in _DERIVED.items():
+            setattr(self, name, fn(self))
+        return self
+
+    def fill_request_metrics(self, requests: list[Request]) -> None:
+        for r in requests:
+            if r.ttft_s is not None:
+                self.ttft.append(r.ttft_s)
+            if r.tpot_s is not None:
+                self.tpot.append(r.tpot_s)
+            if r.slo_ttft_s is not None:
+                # an SLO request that never produced a token inside the
+                # window missed by definition — excluding it would let the
+                # worst outcomes deflate the miss rate
+                self.slo_tracked += 1
+                self.slo_misses += int(r.slo_miss is not False)
+
+
+
+class WindowBase(NamedTuple):
+    """Lifetime-counter snapshot anchoring a serving measurement window
+    (:meth:`ServingEngine.begin_window` / ``collect_window``)."""
+    tokens: int
+    prefills: int
+    decode_steps: int
+    occupancy_sum: float
+    prefill_compiles: int
+    preemptions: int
+    prefix_shared: int
+    prefill_tokens_total: int
+    prefill_tokens_computed: int
+    prefix_lookups: int
+    decode_gap_n: int           # lifetime decode-gap count at window start
+                                # (incl. entries trimmed from the bounded
+                                # totals.decode_gaps list)
+
+def prefix_digests(tokens: np.ndarray, block_size: int) -> list[bytes]:
+    """One chained digest per *full* leading block of ``tokens``: digest
+    ``j`` covers the tokens of blocks 0..j.  Chaining keeps the whole key
+    list O(prompt) — slicing ``tokens[:(j+1)*bs]`` fresh per key would be
+    O(prompt^2) bytes hashed on the executor hot path.
+
+    The same digests as the reference's ``prefix_digests``, which its
+    replica router keys on too."""
+    bs = block_size
+    h = hashlib.sha1()
+    keys: list[bytes] = []
+    for j in range(len(tokens) // bs):
+        h.update(np.ascontiguousarray(tokens[j * bs:(j + 1) * bs],
+                                      dtype=np.int32).tobytes())
+        keys.append(h.digest())
+    return keys
+
+
+@dataclass
+class _PrefillJob:
+    """One slot's in-progress cache-seeded chunked prefill.  Blocks are
+    *materialized* (prefix lookup + share + alloc) lazily at the first
+    chunk, not at admission: jobs advance strictly oldest-first, so by
+    the time a job starts computing, every earlier same-step admission
+    has completed and published its prefix blocks."""
+    req: Request
+    tokens: np.ndarray          # prefill_tokens snapshot (prompt + resume)
+    nb: int                     # prompt blocks in the request's table
+    keys: list                  # prefix digests, published at completion
+    pos: int = -1               # rows already in the pool; -1 = blocks
+                                # not yet materialized
+    slot: int = -1              # engine slot
+
+
+class ServingEngine:
+    """One replica: continuous batching over a fixed-slot decode batch,
+    driven by the blocking :meth:`serve` (admit a list of requests, run
+    until all are DONE)."""
+
+    def __init__(self, cfg, params, *, max_len: int = 256,
+                 batch_slots: int = 4, chunk: int = 512,
+                 paged: bool | None = None, block_size: int = 16,
+                 pool_blocks: int | None = None,
+                 cache_dtype: str = "bfloat16",
+                 preemption: bool = True, prefix_sharing: bool = True,
+                 prefill_chunk: int | None = None,
+                 seeded_prefill: bool = True, host_blocks: int = 0,
+                 draft_cfg=None, fault_plan=None, role: str = "mixed",
+                 device="cuda"):
+        if paged is False:
+            raise ValueError("the contiguous KV layout (paged=False) is not "
+                             "ported yet; the port serves from the paged pool")
+        if draft_cfg is not None:
+            raise ValueError("speculative decoding (draft_cfg) is not ported "
+                             "yet")
+        if host_blocks > 0:
+            raise ValueError("the host KV tier (host_blocks > 0) is not "
+                             "ported yet")
+        if role != "mixed":
+            raise ValueError(f"role={role!r}: disaggregated roles are not "
+                             f"ported yet; only 'mixed' serves")
+        if fault_plan is not None:
+            raise ValueError("fault injection (fault_plan) is not ported yet")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServingEngine runs on the CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain versions of "
+                "the kernels on the CPU")
+        self.cfg = cfg
+        self.fns = fns_for(cfg)              # ValueError unless dense
+        if getattr(cfg, "sliding_window", 0):
+            # the paged attention paths are full-causal; serving a
+            # sliding-window arch through them would silently diverge
+            raise ValueError(
+                f"family {cfg.family!r} uses sliding_window="
+                f"{cfg.sliding_window}, which the paged KV attention "
+                f"paths do not mask")
+        if prefill_chunk is not None and (prefill_chunk < block_size
+                                          or prefill_chunk % block_size):
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} must be a positive "
+                f"multiple of block_size={block_size} (chunk starts "
+                f"must stay block-aligned for the pool writes)")
+        # weights cast to the compute dtype once, here (see prepare_params)
+        self.params = prepare_params(cfg, params, self.device)
+        self.max_len = max_len
+        self.slots = batch_slots
+        self.block_size = block_size
+        self.cache_dtype = cache_dtype
+        self.prefix_sharing = prefix_sharing
+        # cache-seeded prefill: computation starts at the first unseeded
+        # token; off = the recompute baseline (shared blocks still mapped,
+        # but every prompt token re-run, its rows discarded into trash)
+        self.seeded_prefill = seeded_prefill
+        self.prefill_chunk = prefill_chunk
+        # prefix index: chained digest of the tokens of each full leading
+        # block -> (block id, alloc generation); entries are validated
+        # against the pool on lookup, so a freed-and-reused block can
+        # never be shared stale
+        self._prefix_index: dict[bytes, tuple[int, int]] = {}
+        self.prefix_shared_total = 0        # lifetime shared table entries
+        # slot -> in-progress chunked prefill (insertion order = service
+        # order); drained by the executor under the prefill_chunk budget
+        self._prefilling: dict[int, _PrefillJob] = {}
+        self._last_decode_end: float | None = None
+        self._gaps_dropped = 0              # decode_gaps entries trimmed
+        worst = batch_slots * -(-max_len // block_size)
+        self.pool = KVBlockPool(pool_blocks or worst, block_size)
+        self.max_blocks = self.pool.blocks_for(max_len)
+        self._prefix_cap = 8 * self.pool.capacity
+        # host mirrors of the device block tables / lengths: growth and
+        # slot retirement are numpy writes, re-injected every step
+        self._tables = np.zeros((batch_slots, self.max_blocks), np.int32)
+        self._lengths = np.zeros((batch_slots,), np.int32)
+        self.scheduler = ContinuousScheduler(batch_slots, pool=self.pool,
+                                             preemption=preemption)
+        fns = self.fns
+        self._decode = lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk)
+        self._prefill_paged = (
+            lambda p, t, s, w, tb, qs, kl, li: fns.prefill_paged(
+                cfg, p, t, s, w, tb, q_start=qs, kv_len=kl, last_idx=li,
+                chunk=chunk))
+        # distinct padded prefill shapes: the reference jit-compiles once
+        # per shape; the same padding keeps this counter equal to its
+        self._prefill_shapes: set = set()
+        self._state = None                  # PagedKVCache, built lazily
+        self._last: np.ndarray | None = None  # (slots, V) next-token logits
+        self.totals = ServeStats()          # lifetime counters (monotonic)
+
+    # -- model plumbing --------------------------------------------------------
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct padded prefill shapes seen (the reference's jit cache
+        entries for the same workload)."""
+        return len(self._prefill_shapes)
+
+    def _check_fits(self, req: Request) -> None:
+        """Reject requests that would overrun the per-slot KV capacity or
+        whose block count exceeds the whole pool (they could never be
+        admitted, only wedge the queue)."""
+        need = len(req.prompt) + req.max_new_tokens
+        if need > self.max_len + 1:
+            raise CapacityError(
+                f"request {req.rid}: prompt {len(req.prompt)} + "
+                f"max_new_tokens {req.max_new_tokens} exceeds KV capacity "
+                f"max_len={self.max_len}")
+        self.pool.validate_rows(req.kv_rows, req.rid)
+
+    def _bucket_len(self, n: int) -> int:
+        """Smallest power-of-two multiple of block_size holding ``n``."""
+        b = self.block_size
+        while b < n:
+            b *= 2
+        return b
+
+    def _init_state(self):
+        """Batched paged decode state covering all slots."""
+        return self.fns.init_paged_state(
+            self.cfg, self.pool.total_blocks, self.block_size, self.slots,
+            self.max_blocks, self.cache_dtype, device=self.device)
+
+    def _to_device(self, a) -> torch.Tensor:
+        """Copy a host array (or list) to the engine's device."""
+        return torch.tensor(np.asarray(a), device=self.device)
+
+    # -- executor step ---------------------------------------------------------
+
+    def _sample_active(self, active: list[tuple[int, Request]]) -> dict[int, int]:
+        """Vectorized sampling: group slots by sampler batch_key, one
+        `sample` call per group (one argmax for the whole batch when all
+        slots are greedy)."""
+        groups: dict = {}
+        for slot, req in active:
+            groups.setdefault(req.sampler.batch_key, []).append((slot, req))
+        toks: dict[int, int] = {}
+        for members in groups.values():
+            rows = np.array([s for s, _ in members])
+            out = members[0][1].sampler.sample(self._last[rows])
+            for (slot, _), tok in zip(members, out):
+                toks[slot] = int(tok)
+        return toks
+
+    def _prefix_keys(self, tokens: np.ndarray) -> list[bytes]:
+        return prefix_digests(tokens, self.block_size)
+
+    def _lookup_prefix(self, keys: list[bytes]) -> list[int]:
+        """Longest run of full leading blocks already resident in the pool
+        for this token prefix.  Dead index entries (block freed, or freed
+        and re-allocated -- the generation tag catches both) are pruned on
+        the way."""
+        shared: list[int] = []
+        for key in keys:
+            ent = self._prefix_index.get(key)
+            if ent is None:
+                break
+            bid, gen = ent
+            if not self.pool.block_live(bid, gen):
+                del self._prefix_index[key]
+                break
+            shared.append(bid)
+        return shared
+
+    def _register_prefix(self, keys: list[bytes], req: Request) -> None:
+        """Publish the request's own *full* prompt blocks under their token
+        prefix so later requests with the same leading tokens share (and,
+        seeded, skip recomputing) them.  Called only once the blocks' rows
+        are in the pool.  A live publication wins; a dead entry is
+        overwritten."""
+        for j in range(req.shared_blocks, len(keys)):
+            ent = self._prefix_index.get(keys[j])
+            if ent is not None and self.pool.block_live(*ent):
+                continue
+            bid = req.block_ids[j]
+            self._prefix_index[keys[j]] = (bid, self.pool.generation(bid))
+        if len(self._prefix_index) > self._prefix_cap:
+            # two-phase trim: stale-generation entries go first, and only
+            # if that is not enough are *live* entries capped --
+            # oldest-published first (dict order)
+            live = {k: e for k, e in self._prefix_index.items()
+                    if self.pool.block_live(*e)}
+            for k in list(live)[:max(0, len(live) - self._prefix_cap)]:
+                del live[k]
+            self._prefix_index = live
+
+    def _admit_paged(self, slot: int, req: Request) -> None:
+        """Queue an admitted request's cache-seeded chunked prefill (block
+        materialization is deferred to its first chunk).  The decode-state
+        table row stays at the trash block until the prefill completes:
+        the in-flight batched decode keeps writing this slot's (discarded)
+        row, and must not corrupt half-filled prompt blocks."""
+        toks = req.prefill_tokens
+        P = len(toks)
+        nb = self.pool.blocks_for(P)
+        keys = self._prefix_keys(toks) if self.prefix_sharing else []
+        self._tables[slot] = 0
+        self._lengths[slot] = 0
+        self._prefilling[slot] = _PrefillJob(req=req, tokens=toks, nb=nb,
+                                             keys=keys, slot=slot)
+        self.totals.prefill_tokens_total += P
+
+    def _materialize_blocks(self, job: _PrefillJob) -> None:
+        """First-chunk block materialization: map shared prefix blocks
+        (seeding past them when enabled) and allocate the tail from the
+        reservation the scheduler took at admission.  The last prompt
+        token is never seeded: its logits must be computed."""
+        req = job.req
+        P = len(job.tokens)
+        bs = self.block_size
+        shared = self._lookup_prefix(job.keys)[:(P - 1) // bs]
+        ns = len(shared)
+        if ns:
+            self.pool.share(shared)
+            self.pool.unreserve(ns)          # shared blocks need no copy
+            self.prefix_shared_total += ns
+        own = self.pool.alloc_reserved(job.nb - ns)
+        req.block_ids = shared + own
+        req.shared_blocks = ns
+        req.blocks_reserved -= job.nb       # remaining = decode-growth tail
+        self.totals.prefix_lookups += len(job.keys)
+        job.pos = ns * bs if self.seeded_prefill else 0
+
+    def _advance_prefill(self, slot: int, budget: int | None = None) -> int:
+        """Run one chunk of a slot's prefill straight into its pool blocks;
+        returns the number of real prompt tokens computed.
+
+        Each call processes up to ``prefill_chunk`` tokens -- and no more
+        than ``budget`` (floored to a power-of-two block multiple) --
+        right-padded to a power-of-two bucket capped at the chunk.  Rows
+        that must not land anywhere (bucket padding past the prompt, and
+        the recompute-baseline's shared-prefix rows) write to the trash
+        block.  On the final chunk the slot's decode table/length go live
+        and the prompt's full blocks are published to the prefix index.
+        """
+        job = self._prefilling[slot]
+        req = job.req
+        if job.pos == -1:
+            self._materialize_blocks(job)
+        P = len(job.tokens)
+        start = job.pos
+        remaining = P - start
+        bucket = self._bucket_len(remaining)
+        bs = self.block_size
+        cap = self.prefill_chunk
+        if cap is not None and budget is not None and budget < cap:
+            cap = bs
+            while cap * 2 <= budget:
+                cap *= 2
+        Cpad = min(cap, bucket) if cap else bucket
+        real = min(remaining, Cpad)
+        b0 = start // bs
+        chunk_toks = np.zeros((1, Cpad), np.int32)
+        chunk_toks[0, :real] = job.tokens[start:start + real]
+        wids = np.zeros((Cpad // bs,), np.int32)
+        for j in range(Cpad // bs):
+            lb = b0 + j                      # logical block of this write
+            if req.shared_blocks <= lb < job.nb:
+                wids[j] = req.block_ids[lb]
+        # read table sliced to the blocks this chunk can see, rounded up to
+        # a power of two (the reference's compile-cache key)
+        mb_need = -(-(start + real) // bs)
+        mb_eff = 1
+        while mb_eff < mb_need:
+            mb_eff *= 2
+        mb_eff = min(mb_eff, self.max_blocks)
+        tbl = np.zeros((1, mb_eff), np.int32)
+        nb_vis = min(job.nb, mb_eff)
+        tbl[0, :nb_vis] = req.block_ids[:nb_vis]
+        self._prefill_shapes.add((1, Cpad, mb_eff))
+        last, self._state = self._prefill_paged(
+            self.params, self._to_device(chunk_toks), self._state,
+            self._to_device(wids), self._to_device(tbl),
+            self._to_device(np.array([start], np.int32)),
+            self._to_device(np.array([start + real], np.int32)), real - 1)
+        self.totals.prefill_tokens_computed += real
+        job.pos = start + real
+        if job.pos == P:                     # logits of the last real token
+            del self._prefilling[slot]
+            self._tables[slot] = 0
+            self._tables[slot, :job.nb] = req.block_ids
+            self._lengths[slot] = P
+            self._set_last(slot, last[0].cpu().numpy())
+            if self.prefix_sharing:
+                self._register_prefix(job.keys, req)
+            req.state = RequestState.DECODE
+            # a PREFILL slot just became DECODE -- i.e. preemptible -- so a
+            # queue head blocked on pool pressure is worth re-checking
+            self.scheduler.notify_capacity()
+        return real
+
+    def _set_last(self, slot: int, last1: np.ndarray) -> None:
+        """Store one slot's next-token logits (lazy-allocating the batch
+        buffer)."""
+        if self._last is None:
+            self._last = np.zeros((self.slots, last1.shape[-1]), last1.dtype)
+        self._last[slot] = last1
+
+    def _retire_slot(self, slot: int) -> None:
+        """Point a finished slot's table at the trash block before its
+        freed blocks can be reused -- the batched decode still writes a
+        (discarded) row for this slot every step."""
+        self._tables[slot] = 0
+        self._lengths[slot] = 0
+
+    def _grow_paged(self, still: list[tuple[int, Request]]) -> None:
+        """Allocate the next block for any request whose write position
+        crossed a block boundary, then re-inject the host-side tables and
+        lengths into the decode state."""
+        bs = self.block_size
+        for slot, req in still:
+            pos = len(req.prompt) + len(req.output) - 1   # row written next
+            if pos >= len(req.block_ids) * bs:
+                nb = len(req.block_ids)
+                req.block_ids.extend(self.pool.alloc_reserved(1))
+                req.blocks_reserved -= 1
+                self._tables[slot, nb] = req.block_ids[-1]
+            self._lengths[slot] = pos
+        self._state = self._state._replace(
+            block_tables=self._to_device(self._tables),
+            length=self._to_device(self._lengths))
+
+    def _step(self) -> bool:
+        """One executor iteration: refill free slots, spend the chunked
+        prefill budget, sample one token per decoding slot (vectorized),
+        advance the batched decode step.  Returns False when there was no
+        work."""
+        admitted = self.scheduler.admit()
+        # trash the tables of any slots admit() preempted *before*
+        # prefilling new prompts into the freed blocks: the victim slot
+        # keeps writing its (discarded) decode row to the trash block
+        for slot, _victim in self.scheduler.drain_preempted():
+            self._retire_slot(slot)
+            self._prefilling.pop(slot, None)
+        for slot, req in admitted:
+            self.totals.prefills += 1
+            if self._state is None:
+                self._state = self._init_state()
+            self._admit_paged(slot, req)
+            if self.prefill_chunk is None:
+                # un-chunked: finish this prompt before admitting the next,
+                # so its published prefix blocks are sharable (and
+                # seedable) by the very next admission
+                while slot in self._prefilling:
+                    self._advance_prefill(slot)
+
+        if self._prefilling:
+            # chunked mode: spend at most prefill_chunk prompt tokens per
+            # executor step, oldest admission first, then fall through to
+            # the decode step; the remaining budget caps each chunk
+            budget = self.prefill_chunk
+            while budget >= self.block_size and self._prefilling:
+                job = next(iter(self._prefilling.values()))
+                budget -= self._advance_prefill(job.slot, budget)
+
+        active = self.scheduler.decoding()
+        if not active:
+            # a prefill-only period is not a decode gap
+            self._last_decode_end = None
+            return bool(self._prefilling)
+
+        toks = self._sample_active(active)
+        now = time.monotonic()
+        feed = np.zeros((self.slots, 1), np.int32)
+        for slot, req in active:
+            tok = toks[slot]
+            feed[slot, 0] = tok
+            if req.first_token_at is None:
+                req.first_token_at = now
+            req.output.append(tok)
+            self.totals.tokens += 1
+            if len(req.output) >= req.max_new_tokens:
+                req.state = RequestState.DONE
+                req.finished_at = time.monotonic()
+                self.scheduler.release(slot)   # returns blocks to the pool
+                self._retire_slot(slot)
+                if req.on_finish is not None:
+                    req.on_finish(req)
+
+        still = self.scheduler.decoding()
+        if still:        # someone needs next-token logits
+            self._grow_paged(still)
+            last, self._state = self._decode(
+                self.params, self._to_device(feed), self._state)
+            # (slots, V) fp32 logits go to the host for sampling every step
+            self._last = last.cpu().numpy()
+            self._note_decode_cadence()
+            self.totals.decode_steps += 1
+            self.totals.occupancy_sum += len(still) / self.slots
+        else:
+            self._last_decode_end = None     # cadence broken, not stalled
+        return True
+
+    def _note_decode_cadence(self) -> None:
+        """Record the wall-clock gap since the previous decode step --
+        chunked-prefill stalls surface here as ``decode_gaps`` outliers."""
+        now = time.monotonic()
+        if self._last_decode_end is not None:
+            gaps = self.totals.decode_gaps
+            gaps.append(now - self._last_decode_end)
+            if len(gaps) > 65536:            # bound the lifetime list
+                drop = len(gaps) // 2
+                del gaps[:drop]
+                self._gaps_dropped += drop
+        self._last_decode_end = now
+
+    # -- measurement windows ---------------------------------------------------
+
+    def begin_window(self) -> WindowBase:
+        """Snapshot the lifetime counters (and reset the pool peak) so a
+        caller can scope :class:`ServeStats` to one serving window."""
+        self.pool.reset_peak()
+        return WindowBase(
+            tokens=self.totals.tokens, prefills=self.totals.prefills,
+            decode_steps=self.totals.decode_steps,
+            occupancy_sum=self.totals.occupancy_sum,
+            prefill_compiles=self.prefill_compiles,
+            preemptions=self.scheduler.preemptions,
+            prefix_shared=self.prefix_shared_total,
+            prefill_tokens_total=self.totals.prefill_tokens_total,
+            prefill_tokens_computed=self.totals.prefill_tokens_computed,
+            prefix_lookups=self.totals.prefix_lookups,
+            decode_gap_n=self._gaps_dropped + len(self.totals.decode_gaps))
+
+    def collect_window(self, base: WindowBase, requests: list[Request],
+                       wall_s: float) -> ServeStats:
+        """Stats for everything this engine did since ``base`` (a
+        :meth:`begin_window` snapshot), with per-request latency metrics
+        filled from ``requests``."""
+        stats = ServeStats(requests=len(requests), wall_s=wall_s)
+        stats.tokens = self.totals.tokens - base.tokens
+        stats.prefills = self.totals.prefills - base.prefills
+        stats.decode_steps = self.totals.decode_steps - base.decode_steps
+        stats.occupancy_sum = self.totals.occupancy_sum - base.occupancy_sum
+        stats.prefill_compiles = self.prefill_compiles - base.prefill_compiles
+        stats.preemptions = self.scheduler.preemptions - base.preemptions
+        stats.prefix_shared_blocks = (self.prefix_shared_total
+                                      - base.prefix_shared)
+        stats.prefill_tokens_total = (self.totals.prefill_tokens_total
+                                      - base.prefill_tokens_total)
+        stats.prefill_tokens_computed = (self.totals.prefill_tokens_computed
+                                         - base.prefill_tokens_computed)
+        stats.prefix_lookups = (self.totals.prefix_lookups
+                                - base.prefix_lookups)
+        if stats.prefix_lookups:
+            stats.kv_hit_rate = stats.prefix_shared_blocks / stats.prefix_lookups
+        stats.decode_gaps = list(self.totals.decode_gaps[
+            max(0, base.decode_gap_n - self._gaps_dropped):])
+        stats.kv_blocks_peak = self.pool.peak_used
+        stats.kv_pool_capacity = self.pool.capacity
+        stats.kv_pool_util = self.pool.utilization
+        stats.fill_request_metrics(requests)
+        return stats
+
+    # -- blocking mode ---------------------------------------------------------
+
+    def serve(self, requests: list[Request]) -> ServeStats:
+        """Continuous batching: admit everything, run the executor until
+        every request is DONE.  A failure escapes after poisoning the
+        scheduler, so later submits are refused instead of queueing into
+        an engine nothing drains."""
+        for r in requests:
+            self._check_fits(r)
+        base = self.begin_window()
+        t0 = time.monotonic()
+        for r in requests:
+            self.scheduler.submit(r)
+        while self.scheduler.has_work():
+            try:
+                self._step()
+            except BaseException as e:
+                self.scheduler.poison(e)
+                raise
+        return self.collect_window(base, requests, time.monotonic() - t0)

@@ -20,3 +20,8 @@ if settings is not None:
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA); skips where none is")

@@ -1,0 +1,176 @@
+"""The port's paged ServingEngine against the JAX reference's, at fp32, on
+the same weights (through ``repro_torch.interop``) and the same requests:
+greedy outputs must be identical and the deterministic counters equal --
+through chunked prefill, seeded shared prefixes and a preemption.  Plus
+the constructor's refusals: no card and no device asked for, and the
+options this port does not carry yet."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as JR
+from repro.models.registry import fns_for as jax_fns
+from repro.serving import engine as JE
+from repro.serving import sampler as JS
+from repro_torch.configs import registry as TR
+from repro_torch.interop import params_from_numpy
+from repro_torch.kernels import dispatch
+from repro_torch.serving import engine as TE
+from repro_torch.serving import sampler as TS
+
+torch.set_num_threads(1)
+
+COUNTERS = ("prefill_tokens_total", "prefill_tokens_computed",
+            "prefix_shared_blocks", "preemptions", "decode_steps",
+            "prefill_compiles", "kv_blocks_peak")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    cfg = JR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
+    jp = jax_fns(cfg).init(cfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    tcfg = TR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
+    return cfg, jp, tcfg, tp
+
+
+def _mixed(mod, sampler, vocab):
+    """Mixed lengths, three of five sharing a 32-token (4-block) prefix."""
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, vocab, 32).astype(np.int32)
+    out = []
+    for i, n in enumerate((5, 21, 3, 40, 12)):
+        tail = rng.integers(0, vocab, n).astype(np.int32)
+        prompt = np.concatenate([prefix, tail]) if i % 2 == 0 else tail
+        out.append(mod.Request(i, prompt, max_new_tokens=4 + i,
+                               sampler=sampler.greedy()))
+    return out, []
+
+
+def _preempting(mod, sampler, vocab):
+    """An anchor and a lower-priority victim share a prefix; a
+    higher-priority request arriving mid-decode finds no free slot and
+    preempts the victim, which resumes seeded from the surviving prefix."""
+    rng = np.random.default_rng(17)
+    prefix = rng.integers(0, vocab, 16).astype(np.int32)
+    tail = lambda: rng.integers(0, vocab, 4).astype(np.int32)  # noqa: E731
+    first = [mod.Request(0, np.concatenate([prefix, tail()]),
+                         max_new_tokens=24, sampler=sampler.greedy(),
+                         priority=1),
+             mod.Request(1, np.concatenate([prefix, tail()]),
+                         max_new_tokens=8, sampler=sampler.greedy())]
+    later = [mod.Request(2, np.arange(8, dtype=np.int32), max_new_tokens=2,
+                         sampler=sampler.greedy(), priority=2)]
+    return first, later
+
+
+def _drive(eng, first, later, steps_before=3):
+    """Submit ``first``, step, submit ``later``, run to completion -- the
+    same executor schedule on either engine."""
+    base = eng.begin_window()
+    for r in first + later:
+        eng._check_fits(r)
+    for r in first:
+        eng.scheduler.submit(r)
+    for _ in range(steps_before):
+        eng._step()
+    for r in later:
+        eng.scheduler.submit(r)
+    while eng.scheduler.has_work():
+        eng._step()
+    return eng.collect_window(base, first + later, 0.0)
+
+
+@pytest.mark.parametrize("workload,kw", [
+    (_mixed, dict(max_len=80, batch_slots=3, prefill_chunk=16)),
+    (_mixed, dict(max_len=80, batch_slots=3)),
+    (_preempting, dict(max_len=44, batch_slots=2, pool_blocks=10)),
+    (_preempting, dict(max_len=44, batch_slots=2, pool_blocks=10,
+                       prefill_chunk=16)),
+], ids=["mixed-chunk16", "mixed-unchunked", "preempt", "preempt-chunk16"])
+def test_engine_matches_jax_engine(weights, workload, kw):
+    cfg, jp, tcfg, tp = weights
+    kw = dict(kw, block_size=8, cache_dtype="float32")
+    jreqs = workload(JE, JS, cfg.vocab_size)
+    treqs = workload(TE, TS, cfg.vocab_size)
+    jeng = JE.ServingEngine(cfg, jp, paged=True, **kw)
+    teng = TE.ServingEngine(tcfg, tp, device="cpu", **kw)
+    js = _drive(jeng, *jreqs)
+    dispatch.reset_counts()
+    ts = _drive(teng, *treqs)
+    jout = [r.output for r in jreqs[0] + jreqs[1]]
+    tout = [r.output for r in treqs[0] + treqs[1]]
+    assert tout == jout
+    assert all(r.state is TE.RequestState.DONE for r in treqs[0] + treqs[1])
+    for name in COUNTERS:
+        assert getattr(ts, name) == getattr(js, name), name
+    assert ts.prefill_tokens_computed < ts.prefill_tokens_total  # seeded
+    if workload is _preempting:
+        assert ts.preemptions >= 1
+    assert teng.pool.leak_report() == {"unheld_blocks": 0,
+                                       "reserved_blocks": 0}
+    table = dispatch.kernel_table()
+    assert table["paged_prefill_attention"].plain_calls > 0
+    assert table["paged_decode_attention"].plain_calls > 0
+    assert all(k.launches == 0 for k in table.values())
+
+
+def test_serve_blocking_matches_jax(weights):
+    """The blocking ``serve`` entry point end to end."""
+    cfg, jp, tcfg, tp = weights
+    kw = dict(max_len=80, batch_slots=2, block_size=8, cache_dtype="float32",
+              prefill_chunk=32)
+    jreqs, _ = _mixed(JE, JS, cfg.vocab_size)
+    treqs, _ = _mixed(TE, TS, cfg.vocab_size)
+    js = JE.ServingEngine(cfg, jp, paged=True, **kw).serve(jreqs)
+    ts = TE.ServingEngine(tcfg, tp, device="cpu", **kw).serve(treqs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert ts.tokens == js.tokens and ts.requests == js.requests
+    for name in COUNTERS:
+        assert getattr(ts, name) == getattr(js, name), name
+
+
+def test_engine_defaults_to_the_card(weights, monkeypatch):
+    """With no ``device`` the engine runs on CUDA; with no card it raises
+    instead of carrying on on the CPU."""
+    _, _, tcfg, tp = weights
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TE.ServingEngine(tcfg, tp)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(paged=False), "contiguous"),
+    (dict(draft_cfg=object()), "speculative"),
+    (dict(host_blocks=4), "host KV tier"),
+    (dict(role="prefill"), "role"),
+    (dict(fault_plan=object()), "fault"),
+    (dict(prefill_chunk=24), "multiple of block_size"),
+])
+def test_constructor_refuses_what_is_not_ported(weights, kw, match):
+    _, _, tcfg, tp = weights
+    with pytest.raises(ValueError, match=match):
+        TE.ServingEngine(tcfg, tp, device="cpu", **kw)
+
+
+def test_constructor_refuses_other_families(weights):
+    _, _, _, tp = weights
+    for arch in ("zamba2-1.2b", "deepseek-moe-16b", "whisper-medium"):
+        with pytest.raises(ValueError, match="not ported"):
+            TE.ServingEngine(TR.smoke(arch), tp, device="cpu")
+
+
+def test_serve_stats_merge_rules_cover_every_field():
+    names = {f.name for f in dataclasses.fields(TE.ServeStats)}
+    assert set(TE.MERGE_RULES) == names
+    assert {n for n, r in TE.MERGE_RULES.items() if r == "derived"} \
+        == set(TE._DERIVED)
+    assert TE.MERGE_RULES == JE.MERGE_RULES
+
+
+def test_prefix_digests_match_reference():
+    toks = np.arange(50, dtype=np.int32)
+    assert TE.prefix_digests(toks, 8) == JE.prefix_digests(toks, 8)
