@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""How far ``chip_smoke.py``'s kernel gate (``dispatch.tolerance_ratio``)
-sits from a right kernel and from a wrong one.  Run from the repository
-root:
+"""How far ``chip_smoke.py``'s kernel gates (each kernel's ``tolerance``
+in ``repro_torch.kernels.dispatch``) sit from a right kernel and from a
+wrong one.  Run from the repository root:
 
     python3 kernel_gate_check.py          # on any host, CPU only
     python3 kernel_gate_check.py --card   # on a host with an NVIDIA card
@@ -12,13 +12,19 @@ emulated in fp32 PyTorch (``p`` rounded to bf16 before the PV product, the
 output rounded to bf16) and held against the plain version evaluated in
 fp32; printed are the largest err/limit of that emulation, of the same
 emulation with one 16-row pool block lost, and of the plain version run
-at bf16 (which also rounds scores and PV to bf16).
+at bf16 (which also rounds scores and PV to bf16).  Then K6 conv2d on
+chip_smoke's gate shapes at batch 1: the plain version at fp16 / bf16 --
+the kernel's own round points, an fp32 sum rounded once -- against it at
+fp32, and the same with one 16-deep chunk of K lost.
 
 ``--card``: copies ``src/`` into a temporary directory and changes one
-kernel there so that its block loop skips pool block 0 when more than two
-blocks are live; builds both kernels from the copy and runs chip_smoke's
-gate (``hold``) on every case at fp32 and bf16, printing err/limit for
-each (the gate must fail the long cases).  Once for each kernel.
+kernel there: each attention kernel's block loop skips pool block 0 when
+more than two blocks are live; the conv kernel's K loop skips its first
+16-deep chunk, or its window loses the centre tap.  Builds that kernel
+from the copy and runs chip_smoke's gate (``hold``) on its cases (fp32 and
+bf16 for attention, fp32 / fp16 / bf16 on the gate shapes for conv),
+printing err/limit for each; the gate must fail the long attention cases
+and every conv case.  Once for each broken kernel.
 """
 from __future__ import annotations
 
@@ -29,12 +35,26 @@ import sys
 import tempfile
 from pathlib import Path
 
-from chip_smoke import DECODE_CASES, PREFILL_CASES
+from chip_smoke import CONV_GATE_SHAPES, DECODE_CASES, PREFILL_CASES, conv_groups
 
 ROOT = Path(__file__).resolve().parent
 H, K, D, BS = 16, 2, 128, 16
 LOOP = "for (int ib = 0; ib < nblk; ++ib) {"
 SKIP_BLOCK_0 = "for (int ib = (nblk > 2); ib < nblk; ++ib) {"
+CONV_LOOP = "for (int k0 = 0; k0 < K; k0 += BK) {"
+CONV_SKIP_CHUNK = "for (int k0 = (K > 2 * BK) * BK; k0 < K; k0 += BK) {"
+CONV_TAP = "  return true;  // every tap contributes"
+CONV_SKIP_TAP = "  return tap != s.KH * s.KW / 2;  // the centre tap is lost"
+# (kernel, text, replacement, what the broken copy does)
+MUTANTS = (
+    ("paged_decode_attention", LOOP, SKIP_BLOCK_0,
+     "skips pool block 0 when more than two blocks are live"),
+    ("paged_prefill_attention", LOOP, SKIP_BLOCK_0,
+     "skips pool block 0 when more than two blocks are live"),
+    ("conv2d", CONV_LOOP, CONV_SKIP_CHUNK,
+     "skips its first 16-deep K chunk when K > 32"),
+    ("conv2d", CONV_TAP, CONV_SKIP_TAP, "loses the centre tap of the window"),
+)
 
 
 def emulated_kernel(torch, q, k, v, mask, softcap):
@@ -132,46 +152,100 @@ def cpu_check() -> None:
           f"plain version at bf16 {worst['plain at bf16']:.3f}")
     print(f"cpu, bf16, seed 0: emulated kernel with one block lost, err/limit "
           f"{min(lost):.2f} to {max(lost):.2f} over {len(lost)} long sequences and chunks")
+    conv_cpu_check(torch)
+
+
+def conv_cpu_check(torch) -> None:
+    """K6 on chip_smoke's gate shapes at batch 1, CPU: the plain version at
+    fp16 / bf16 (an fp32 sum rounded once, the kernel's round points)
+    against it at fp32 on the same values, and at fp32 / fp16 / bf16 with
+    K rows 0-15 (the first 16-deep chunk) of the weight zeroed."""
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.kernels.dispatch import conv_tolerance_ratio
+    shapes = {names[0]: key for key, names in conv_groups().items()
+              if names[0] in CONV_GATE_SHAPES}
+    right, lost = {}, {}
+    for name in CONV_GATE_SHAPES:
+        (B, H, W, Cin), (KH, KW, _, Cout), stride = shapes[name]
+        g = torch.Generator().manual_seed(0)
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            x = torch.randn((1, H, W, Cin), generator=g).to(dtype).float()
+            w = (torch.randn((KH, KW, Cin, Cout), generator=g)
+                 / (KH * KW * Cin) ** 0.5).to(dtype).float()
+            b = 0.1 * torch.randn((Cout,), generator=g)
+            ref = conv2d_ref(x, w, b, stride=stride)
+            w_lost = w.reshape(-1, Cout).clone()
+            w_lost[:16] = 0
+            out_lost = conv2d_ref(x, w_lost.reshape(w.shape), b, stride=stride)
+            key = str(dtype)[6:]
+            right[key] = max(right.get(key, 0.0),
+                             conv_tolerance_ratio(ref.to(dtype), ref))
+            lost[key] = min(lost.get(key, float("inf")),
+                            conv_tolerance_ratio(out_lost.to(dtype), ref))
+    print("cpu, conv2d on " + ", ".join(CONV_GATE_SHAPES) + " at batch 1: "
+          "worst err/limit of the kernel's round points "
+          + ", ".join(f"{k} {v:.3f}" for k, v in right.items())
+          + "; least err/limit with the first K chunk lost "
+          + ", ".join(f"{k} {v:.1f}" for k, v in lost.items()))
 
 
 def card_check() -> None:
     if sys.argv[2:3] == ["--mutant"]:
-        return mutant_gate(sys.argv[3])
-    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        return mutant_gate(sys.argv[3], sys.argv[4])
+    for name, text, broken, what in MUTANTS:
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree(ROOT / "src", Path(d) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
             cu = Path(d) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
-            text = cu.read_text()
-            if text.count(LOOP) != 1:
-                raise SystemExit(f"{cu.name}: block loop not found")
-            cu.write_text(text.replace(LOOP, SKIP_BLOCK_0))
-            print(f"=== mutant: {name} skips pool block 0 when more than two "
-                  f"blocks are live", flush=True)
-            subprocess.run([sys.executable, __file__, "--card", "--mutant", d],
+            source = cu.read_text()
+            if source.count(text) != 1:
+                raise SystemExit(f"{cu.name}: {text!r} not found once")
+            cu.write_text(source.replace(text, broken))
+            print(f"=== mutant: {name} {what}", flush=True)
+            subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name],
                            check=True)
 
 
-def mutant_gate(d: str) -> None:
+def mutant_gate(d: str, name: str) -> None:
     sys.path.insert(0, d + "/src")
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
-    build.build()
-    table = dispatch.kernel_table()
-    cases = [("paged_decode_attention", f"lengths={lengths}",
-              lambda dt, n=lengths: cs.decode_case(torch, n, dt), {"softcap": sc})
-             for lengths, sc in DECODE_CASES]
-    cases += [("paged_prefill_attention", f"C={C} q_start={qs}",
-               lambda dt, C=C, qs=qs: cs.prefill_case(
-                   torch, C, qs, dt, seeded_blocks=-(-qs // BS) + 3), {})
-              for C, qs in PREFILL_CASES]
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, label, make, kw in cases:
-            try:
-                cs.hold(torch, table[name], make(dtype), label, **kw)
-            except AssertionError as e:
-                print(f"  failed the gate: {e}", flush=True)
+    build.build([name])
+    kern = dispatch.kernel_table()[name]
+    if name == "conv2d":
+        shapes = {names[0]: key for key, names in cs.conv_groups().items()}
+        cases = [(label, lambda dt, xs=shapes[label][0], ws=shapes[label][1]:
+                  cs.conv_case(torch, xs, ws, dt), {"stride": shapes[label][2]})
+                 for label in CONV_GATE_SHAPES]
+        dtypes = (torch.float32, torch.float16, torch.bfloat16)
+    elif name == "paged_decode_attention":
+        cases = [(f"lengths={lengths}",
+                  lambda dt, n=lengths: cs.decode_case(torch, n, dt), {"softcap": sc})
+                 for lengths, sc in DECODE_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
+    else:
+        cases = [(f"C={C} q_start={qs}",
+                  lambda dt, C=C, qs=qs: cs.prefill_case(
+                      torch, C, qs, dt, seeded_blocks=-(-qs // BS) + 3), {})
+                 for C, qs in PREFILL_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
+    for dtype in dtypes:
+        failed = []
+        for label, make, kw in cases:
+            args = make(dtype)
+            out = kern.launch(*args, **kw)
+            ref = kern.plain(*(a.float() if a.is_floating_point() else a
+                               for a in args), **kw)
+            torch.cuda.synchronize()
+            ratio = kern.tolerance(out, ref)
+            if ratio > 1:
+                failed.append(ratio)
+            print(f"  {label} {str(dtype)[6:]}: err/limit {ratio:.2f}"
+                  f"{'' if ratio > 1 else '  (passes the gate)'}", flush=True)
+        print(f"  {str(dtype)[6:]}: {len(failed)} of {len(cases)} cases fail the "
+              f"gate, least err/limit among them {min(failed, default=0):.2f}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -25,10 +25,11 @@ class Kernel:
     the plain PyTorch version with the same signature."""
 
     def __init__(self, name: str, launch: Callable, plain: Callable, *,
-                 source: str, replaces: str):
+                 source: str, replaces: str, tolerance: Callable):
         self.name = name
         self.launch = launch
         self.plain = plain
+        self.tolerance = tolerance    # (out, fp32 ref) -> largest err/limit
         self.source = source          # CUDA source, relative to the repo
         self.replaces = replaces      # the TPU kernel it replaces, file:line
         self.launches = 0
@@ -57,15 +58,20 @@ _TABLE: dict[str, Kernel] = {}
 
 
 def register_kernel(name: str, launch: Callable, plain: Callable, *,
-                    source: str, replaces: str) -> Kernel:
-    """Register a kernel's CUDA launcher and its plain version."""
-    entry = Kernel(name, launch, plain, source=source, replaces=replaces)
+                    source: str, replaces: str,
+                    tolerance: Callable | None = None) -> Kernel:
+    """Register a kernel's CUDA launcher and its plain version, with the
+    limit it is held to on the card (default: :func:`tolerance_ratio`, the
+    attention kernels')."""
+    entry = Kernel(name, launch, plain, source=source, replaces=replaces,
+                   tolerance=tolerance or tolerance_ratio)
     _TABLE[name] = entry
     return entry
 
 
 def kernel_table() -> dict[str, Kernel]:
     """Every registered kernel (importing the ops modules registers them)."""
+    import repro_torch.kernels.conv2d.ops  # noqa: F401
     import repro_torch.kernels.decode_attention.ops  # noqa: F401
     import repro_torch.kernels.prefill_attention.ops  # noqa: F401
     return dict(_TABLE)
@@ -135,4 +141,32 @@ def tolerance_ratio(out, ref) -> float:
     ref = ref.float()
     rms = ref.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()
     limit = BF16_RTOL * ref.abs() + BF16_RMS_ATOL * rms
+    return (err / limit.clamp(min=1e-30)).max().item()
+
+
+# K6 conv2d, kernel vs plain version evaluated in fp32 on the same values.
+# The kernel sums in fp32 and rounds once to the output type, so the
+# difference is the rounding of the output (<= 2^-11 |ref| at fp16, 2^-8 at
+# bf16, none at fp32) plus the fp32 sum taken in another order (std about
+# 2^-24 sqrt(K / 6) rms(ref) for K = KH*KW*Cin terms: ~1e-6 rms at GoogLeNet's
+# largest K = 1728).  Limit per element: CONV_RTOL |ref| + CONV_RMS_ATOL *
+# rms(ref), rms over the whole output; the relative term is twice the
+# rounding bound, the rms term holds outputs near zero at the fp32 floor
+# (fp32: both 2^-14, ~10x above the order noise at 5 sigma).  A sum that
+# loses one 16-deep chunk of K moves outputs by ~sqrt(16/K) rms(ref), 0.1
+# rms or more: hundreds of limits.
+CONV_RTOL = {torch.float32: 2.0 ** -14, torch.float16: 2.0 ** -10,
+             torch.bfloat16: 2.0 ** -7}
+CONV_RMS_ATOL = {torch.float32: 2.0 ** -14, torch.float16: 2.0 ** -12,
+                 torch.bfloat16: 2.0 ** -12}
+
+
+def conv_tolerance_ratio(out, ref) -> float:
+    """Largest ``|out - ref| / limit`` over all elements (<= 1 passes) for
+    the conv kernel's output ``out`` (fp32, fp16 or bf16) against the plain
+    version in fp32 ``ref``."""
+    err = (out.float() - ref.float()).abs()
+    ref = ref.float()
+    rms = ref.pow(2).mean().sqrt()
+    limit = CONV_RTOL[out.dtype] * ref.abs() + CONV_RMS_ATOL[out.dtype] * rms
     return (err / limit.clamp(min=1e-30)).max().item()

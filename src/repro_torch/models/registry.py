@@ -1,5 +1,6 @@
 """Model API for the ported families (counterpart of
-``repro/models/registry.py:55-97``, the dense transformer's paged entries).
+``repro/models/registry.py``: the dense transformer's paged entries,
+``:55-97``, and the cnn family, ``:164-173``).
 
   init(cfg, generator)                          -> params
   init_paged_state(cfg, num_blocks, block_size, batch, max_blocks, dtype,
@@ -7,13 +8,17 @@
   prefill_paged(cfg, params, tokens, state, write_ids, table, *, q_start,
                 kv_len, last_idx, chunk)        -> (logits, state)
   decode(cfg, params, tokens, state, chunk)     -> (logits, state)
+  forward(cfg, params, batch)                   -> (logits, aux_loss)
+    (cnn only; ``batch`` holds ``images``)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from repro_torch.models import transformer
+import torch
+
+from repro_torch.models import googlenet, transformer
 
 
 @dataclass(frozen=True)
@@ -23,6 +28,7 @@ class ModelFns:
     decode: Callable[..., Any]
     init_paged_state: Callable[..., Any]
     prefill_paged: Callable[..., Any]
+    forward: Callable[..., Any] | None = None
 
 
 def _tf_decode(cfg, params, tokens, state, chunk=2048):
@@ -34,9 +40,20 @@ TRANSFORMER_FNS = ModelFns("dense", transformer.init, _tf_decode,
                            transformer.prefill_paged)
 
 
+def _gn_forward(cfg, params, batch):
+    logits = googlenet.forward(cfg, params, batch["images"])
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+GOOGLENET_FNS = ModelFns("cnn", googlenet.init, None, None, None,
+                         forward=_gn_forward)
+
+_BY_FAMILY = {"dense": TRANSFORMER_FNS, "cnn": GOOGLENET_FNS}
+
+
 def fns_for(cfg) -> ModelFns:
-    """The ported model functions; only the dense family is ported."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet; only "
-                         f"'dense' serves through repro_torch")
-    return TRANSFORMER_FNS
+    """The ported model functions: the dense and cnn families."""
+    if cfg.family not in _BY_FAMILY:
+        raise ValueError(f"family {cfg.family!r} is not ported yet; "
+                         f"repro_torch runs {sorted(_BY_FAMILY)}")
+    return _BY_FAMILY[cfg.family]

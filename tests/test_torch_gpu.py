@@ -7,11 +7,14 @@ through the kernels.  Run them on a machine with a card:
 Elsewhere every test here skips (the ``cuda`` fixture decides, at run
 time, so every pytest worker collects the same tests).
 
-Tolerances on the card (``dispatch.tolerance_ratio``): each kernel is held
-against its plain version evaluated in fp32 on the same values; fp32
-within 1e-4 (the two sum in other orders); bf16 within 2^-7 |ref| +
-2^-6 rms(ref) per element (the kernel rounds p before the PV product and
-its output to bf16).
+Tolerances on the card (each kernel's ``tolerance``, in
+``kernels/dispatch.py``): each kernel is held against its plain version
+evaluated in fp32 on the same values.  Attention: fp32 within 1e-4 (the
+two sum in other orders); bf16 within 2^-7 |ref| + 2^-6 rms(ref) per
+element (the kernel rounds p before the PV product and its output to
+bf16).  conv2d: CONV_RTOL |ref| + CONV_RMS_ATOL rms(ref) per element
+(fp32 2^-14 and 2^-14, fp16 2^-10 and 2^-12, bf16 2^-7 and 2^-12: twice
+the one rounding of the output, and the fp32 sum's order).
 """
 import numpy as np
 import pytest
@@ -75,6 +78,33 @@ def test_paged_prefill_kernel_matches_plain(cuda, dtype, C, q_start):
     assert dispatch.tolerance_ratio(out, ref) <= 1.0
 
 
+# (B, H=W, Cin, KH=KW, stride, Cout): stem1 (Cin 3, 7x7/2, asymmetric
+# padding on an even map), narrow Cin 20, 5x5 and 3x3 with ragged Cout
+# (24, 208), a 7x7 map, 1x1 convs, ragged M (odd maps, B*H*W not a
+# multiple of 64).
+CONV_CASES = [(2, 32, 3, 7, 2, 64), (2, 15, 20, 3, 2, 24), (2, 14, 16, 5, 1, 208),
+              (3, 7, 32, 3, 1, 48), (2, 9, 48, 1, 1, 8), (1, 28, 64, 1, 1, 96),
+              (2, 7, 832, 1, 1, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv2d_kernel_matches_plain(cuda, dtype, case):
+    B, H, Cin, KH, stride, Cout = case
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((B, H, H, Cin), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((KH, KH, Cin, Cout), generator=g, device=cuda)
+         / (KH * KH * Cin) ** 0.5).to(dtype)
+    k = dispatch.kernel_table()["conv2d"]
+    for b in (torch.randn((Cout,), generator=g, device=cuda),
+              torch.randn((Cout,), generator=g, device=cuda).to(dtype)):
+        out = k.launch(x, w, b, stride=stride)
+        ref = k.plain(x.float(), w.float(), b.float(), stride=stride)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == dtype
+        assert k.tolerance(out, ref) <= 1.0
+
+
 def test_engine_path_runs_the_kernels(cuda):
     """The smoke model served on the card launches both kernels and never
     their plain versions."""
@@ -89,6 +119,7 @@ def test_engine_path_runs_the_kernels(cuda):
     dispatch.reset_counts()
     eng.serve(reqs)
     table = dispatch.kernel_table()
-    assert all(k.launches > 0 and k.plain_calls == 0 for k in table.values())
+    assert all(table[n].launches > 0 and table[n].plain_calls == 0
+               for n in ("paged_decode_attention", "paged_prefill_attention"))
     assert all(len(r.output) == 5 for r in reqs)
     assert eng.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}

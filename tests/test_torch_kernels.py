@@ -10,6 +10,10 @@ over K=2 kv heads.  Tolerances: fp32 atol 1e-5 (same arithmetic, other
 summation order); bf16 atol 2e-2 (the Pallas kernel keeps scores in fp32
 where the oracles round them to bf16, plus one bf16 output rounding).
 """
+import ctypes
+import importlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,7 +148,8 @@ def test_gqa_head_order():
 
 def test_cpu_tensors_take_the_counted_plain_version():
     table = dispatch.kernel_table()
-    assert set(table) == {"paged_decode_attention", "paged_prefill_attention"}
+    assert set(table) == {"conv2d", "paged_decode_attention",
+                          "paged_prefill_attention"}
     dec = table["paged_decode_attention"]
     dispatch.reset_counts()
     _, kp, vp, tables = _pool(1, "float32")
@@ -183,7 +188,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
-    assert build.sources() == ["paged_decode_attention",
+    assert build.sources() == ["conv2d", "paged_decode_attention",
                                "paged_prefill_attention"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
@@ -234,3 +239,21 @@ def test_tolerance_ratio_holds_rounding_and_rejects_a_lost_block(dtype):
     p_lost[..., 512:528] = 0
     lost = (p_lost / p_lost.sum(-1, keepdim=True)) @ v
     assert dispatch.tolerance_ratio(lost.to(dtype), ref) > 5
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", ["conv2d", "paged_decode_attention",
+                                  "paged_prefill_attention"])
+def test_ctypes_argtypes_match_the_c_entry_point(name):
+    """Each launcher's ctypes signature has the types, in order, of its
+    kernel's ``extern "C"`` entry point (a count off by one shows only as a
+    TypeError on the card)."""
+    text = (build.CSRC / f"{name}.cu").read_text()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in m.group(1).replace("\n", " ").split(",")]
+    ops = importlib.import_module(dispatch.kernel_table()[name].launch.__module__)
+    assert ops._ARGTYPES == [_C_TYPES[p] for p in params]

@@ -95,7 +95,8 @@ def test_prefill_then_decode_matches_jax(compute_dtype):
     tl, tc = _run(T, tcfg, tp, torch.from_numpy, steps)
     counts = {n: k.plain_calls for n, k in dispatch.kernel_table().items()}
     assert counts == {"paged_prefill_attention": 3 * tcfg.num_layers,
-                      "paged_decode_attention": 3 * tcfg.num_layers}
+                      "paged_decode_attention": 3 * tcfg.num_layers,
+                      "conv2d": 0}
 
     def close(t, j):
         if compute_dtype == "float32":
