@@ -46,6 +46,30 @@ Phases (each one raises on failure; the script then exits non-zero):
    estimators (fp16 and bf16 vs fp32 over 48 images); (e) one batch-8
    forward under ``torch.profiler``: device busy share and the conv
    kernel's share of device time.
+9. zamba2 kernels: K5 ``ssm_scan``, K4 ``flash_attention`` and K3
+   ``decode_attention`` held against their plain versions (evaluated in
+   fp32 on the same values) at zamba2-1.2b widths -- K5 at B=1, H=64,
+   N=P=64, chunk 128, S 1000 and 1024, B/C as a stride-0 head view, y and
+   the final state (limit ``SSM_RTOL`` of the largest |ref|), plus per-head
+   q/k at H=4, N=P=128; K4 at B=1, H=K=32, D=64, S 1000 and 1024; K3 at
+   B=4, S=1088, lengths 1033/700/257/1200 (the last past S, as an idle
+   slot) -- at fp32 and bf16, then each timed in bf16 beside its bound,
+   its plain version and (K3, K4) ``scaled_dot_product_attention`` on the
+   same tensors.
+10. zamba2 serving: zamba2-1.2b at full width (38 layers: 6 segments of 6
+   Mamba-2 layers and the shared attention block, a 2-layer tail), bf16,
+   random weights from seed 0, through the contiguous ``ServingEngine``:
+   4 slots, ``max_len`` 1088, 8 greedy requests of 203-1000 prompt tokens
+   (none a multiple of 128), 32 new tokens each.  Launch counts zeroed
+   just before and read just after, held exactly: K5 38 per prefill, K4 6
+   per prefill, K3 6 per decode step, no plain call.  tok/s, TTFT, TPOT,
+   tok/s/W against the power limit, peak memory; then a profiled window
+   of prefills and decode steps.
+11. zamba2 path check: one 333-token request served at full width in fp32
+   by a contiguous engine through the kernels and by one through the plain
+   versions, prefill and decode logits compared at depths 6 (one segment)
+   and 13 (two segments and a 1-layer tail), gated by ``TOL_HYBRID_PATH_REL``,
+   and 38, printed.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -86,6 +110,18 @@ CONV_GATE_SHAPES = ("stem1", "stem2", "3a.b3", "4a.b2", "4b.b3r", "5b.b2")
 # but other summation orders flip roundings (~1e-3 expected, as the CPU
 # test against the JAX model reads 6.9e-4 for other round points).
 TOL_GOOGLENET = {"fp32": 1e-4, "fp16": 4e-3}
+# zamba2-1.2b: the serving phase's prompts (none a multiple of the scan's
+# 128-row chunk) and the per-slot cache; the kernels it must launch.
+ZAMBA_PROMPTS = (203, 317, 450, 511, 647, 777, 901, 1000)
+ZAMBA_MAX_LEN = 1088
+HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
+FP32_FLOPS = 67e12             # H100 SXM fp32 on the CUDA cores (K5's arithmetic)
+# fp32 path check of zamba2, kernels vs plain versions, by depth (6: one
+# segment and one shared-block application; 13: two and a 1-layer tail):
+# limits on the largest logit difference relative to the largest logit,
+# set before the first run from the transformer's path check above (2
+# attention layers read 1.3e-6, 4 layers 3.0e-4).
+TOL_HYBRID_PATH_REL = {6: 1e-4, 13: 1e-2}
 
 
 def log(*a) -> None:
@@ -177,13 +213,15 @@ def prefill_case(torch, C, q_start, dtype, *, seeded_blocks, H=16, K=2, D=128,
 def hold(torch, kern, args, label, **kw) -> float:
     """Launch ``kern`` on one case and hold it against its plain version
     evaluated in fp32 on the same values; raise past the kernel's limit
-    (``kern.tolerance``).  Returns the largest absolute error."""
+    (``kern.tolerance``).  A kernel with several outputs (K5: y and the
+    final state) is held on each.  Returns the largest absolute error."""
     out = kern.launch(*args, **kw)
     ref = kern.plain(*(a.float() if a.is_floating_point() else a for a in args), **kw)
     torch.cuda.synchronize()
-    err = (out.float() - ref).abs().max().item()
+    pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
+    err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
     ratio = kern.tolerance(out, ref)
-    log(f"{kern.name} {label} {str(out.dtype)[6:]}: max_abs_err={err:.3e} "
+    log(f"{kern.name} {label} {str(args[0].dtype)[6:]}: max_abs_err={err:.3e} "
         f"err/limit={ratio:.3f}")
     if not ratio <= 1.0:
         raise AssertionError(f"{kern.name} {label} disagrees with its plain "
@@ -466,6 +504,287 @@ def path_check(torch, np):
     torch.cuda.empty_cache()
 
 
+def ssm_case(torch, S, dtype, *, B=1, H=64, N=64, P=64, shared=True,
+             with_state=False, seed=0):
+    """Mamba-2-like scan operands: q, k (B, S, H, N) -- one group shared by
+    every head as a stride-0 view, or per head -- v (B, S, H, P), decay
+    -dt*A with dt log-uniform in [1e-3, 1e-1] and A in [1, 16], gate
+    log(dt); an fp32 initial state when asked."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    hq = 1 if shared else H
+    q, k = (torch.randn((B, S, hq, N), generator=g, device="cuda").to(dtype)
+            .expand(B, S, H, N) for _ in range(2))
+    v = torch.randn((B, S, H, P), generator=g, device="cuda").to(dtype)
+    log_dt = torch.empty((B, S, H), device="cuda").uniform_(-6.9078, -2.3026, generator=g)
+    a = 1.0 + 15.0 * (torch.arange(H, device="cuda") + 0.5) / H
+    h0 = (torch.randn((B, H, N, P), generator=g, device="cuda") if with_state
+          else None)
+    return (q, k, v, -torch.exp(log_dt) * a, log_dt), h0
+
+
+def ssm_work(S, *, B=1, H=64, N=64, P=64, chunk=128, in_bytes=2):
+    """(bytes, flops) K5 must move and do: q and k's shared (B, S, N) base,
+    v, decay and gate read once, y and the final state written once; per
+    chunk of n live rows the causal QK^T and (QK^T.W)V, q.H_prev and the
+    state update, two flops a multiply-add."""
+    nbytes = in_bytes * (2 * B * S * N + B * S * H * P) + 4 * (2 * B * S * H
+                                                              + B * S * H * P + B * H * N * P)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        flops += 2 * B * H * (n * (n + 1) // 2 * (N + P) + 2 * n * N * P)
+    return nbytes, flops
+
+
+def dense_case(torch, S, dtype, *, B=1, H=32, K=32, D=64, seed=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, K, D), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def dense_decode_case(torch, lengths, dtype, *, S=ZAMBA_MAX_LEN, H=32, K=32, D=64,
+                      seed=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    B = len(lengths)
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, K, D), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def hybrid_kernel_phase(torch, table) -> dict:
+    """Phase 9: K5, K4 and K3 against their plain versions at zamba2-1.2b
+    widths (fp32 and bf16), then each timed in bf16: kernel, plain version,
+    library call and bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dispatch import SSM_RTOL
+    ssm, fla, dec = (table[n] for n in HYBRID_KERNELS)
+    timer = Timer(torch)
+    errs = {n: {} for n in HYBRID_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = []
+        for S, with_state in ((1000, True), (1024, False)):
+            args, h0 = ssm_case(torch, S, dtype, with_state=with_state)
+            e.append(hold(torch, ssm, args, f"B=1 S={S} H=64 N=P=64 shared B/C "
+                          f"h0={with_state} (limit {SSM_RTOL} of max|ref|)",
+                          chunk=128, initial_state=h0))
+        args, h0 = ssm_case(torch, 1000, dtype, H=4, N=128, P=128, shared=False,
+                            with_state=True)
+        e.append(hold(torch, ssm, args, "B=1 S=1000 H=4 N=P=128 per-head q/k",
+                      chunk=128, initial_state=h0))
+        errs["ssm_scan"][dtype] = max(e)
+        errs["flash_attention"][dtype] = max(
+            hold(torch, fla, dense_case(torch, S, dtype), f"B=1 S={S} H=K=32 D=64 causal",
+                 causal=True) for S in (1000, 1024))
+        errs["decode_attention"][dtype] = hold(
+            torch, dec, dense_decode_case(torch, (1033, 700, 257, 1200), dtype),
+            f"B=4 S={ZAMBA_MAX_LEN} H=K=32 D=64 lengths=(1033, 700, 257, 1200)")
+    out = {}
+    # K5, bf16 operands as zamba2's prefill gives them: S = 1000, no state in
+    args, _ = ssm_case(torch, 1000, torch.bfloat16)
+    nbytes, flops = ssm_work(1000)
+    out["ssm_scan"] = dict(
+        ms=timer(lambda: ssm.launch(*args, chunk=128)),
+        plain_ms=timer(lambda: ssm.plain(*args, chunk=128)), library_ms=None,
+        bytes=nbytes, flops=flops, peak=FP32_FLOPS,
+        shape="B=1 S=1000 H=64 N=P=64 chunk 128, bf16 in, fp32 out (one Mamba layer)")
+    # K4, the shared block's prefill at S = 1000
+    q, k, v = dense_case(torch, 1000, torch.bfloat16)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    B, S, H, D = q.shape
+    out["flash_attention"] = dict(
+        ms=timer(lambda: fla.launch(q, k, v, causal=True)),
+        plain_ms=timer(lambda: fla.plain(q, k, v, causal=True)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)),
+        bytes=2 * 4 * B * S * H * D, flops=4 * H * D * B * S * (S + 1) // 2,
+        peak=BF16_FLOPS, shape="B=1 S=1000 H=K=32 D=64 causal bf16")
+    # K3, one decode step's attention over the 4 slots
+    lengths = (1033, 700, 257, 1200)
+    q, k, v, lens = dense_decode_case(torch, lengths, torch.bfloat16)
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    rows = sum(min(n, S) for n in lengths)
+    out["decode_attention"] = dict(
+        ms=timer(lambda: dec.launch(q, k, v, lens)),
+        plain_ms=timer(lambda: dec.plain(q, k, v, lens)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kh, vh, attn_mask=mask)),
+        bytes=2 * (2 * B * H * D + 2 * rows * K * D) + 4 * B,
+        flops=4 * H * D * rows, peak=BF16_FLOPS,
+        shape=f"B=4 S={ZAMBA_MAX_LEN} H=K=32 D=64 lengths={lengths} bf16")
+    for name, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], r.pop("peak"))
+        r["max_abs_err"] = errs[name][torch.bfloat16]
+        r["max_abs_err_fp32"] = errs[name][torch.float32]
+    return out
+
+
+def zamba_requests(cfg, np, Request, greedy, lens=ZAMBA_PROMPTS, new=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=new, sampler=greedy()) for i, n in enumerate(lens)]
+
+
+def hybrid_serving_phase(torch, np, table) -> dict:
+    """Phase 10: zamba2-1.2b at full width through the contiguous engine."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("zamba2-1.2b")
+    t0 = time.monotonic()
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=ZAMBA_MAX_LEN, batch_slots=4, device="cuda")
+    del params                      # the engine keeps its own cast copy
+    gc.collect()
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    log(f"zamba2 serving: L={cfg.num_layers} (every {cfg.shared_attn_every}th followed by "
+        f"the shared block) d_model={cfg.d_model} H={cfg.num_heads} D={cfg.resolved_head_dim} "
+        f"d_ff={cfg.d_ff} d_inner={s.d_inner(cfg.d_model)} ssm_heads={s.num_heads(cfg.d_model)} "
+        f"d_state={s.d_state} chunk={s.chunk_size} vocab={cfg.vocab_size}; paged={eng.paged}; "
+        f"init {time.monotonic() - t0:.1f}s")
+    eng.serve(zamba_requests(cfg, np, Request, greedy, lens=(40,), new=4, seed=9))  # warm-up
+    reqs = zamba_requests(cfg, np, Request, greedy)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = {n: (k.launches, k.plain_calls) for n, k in table.items()}
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"zamba2 request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    n_seg = cfg.num_layers // cfg.shared_attn_every
+    want = {"ssm_scan": cfg.num_layers * stats.prefills,
+            "flash_attention": n_seg * stats.prefills,
+            "decode_attention": n_seg * stats.decode_steps}
+    got = {n: counts[n][0] for n in want}
+    plain = {n: c[1] for n, c in counts.items() if c[1]}
+    if got != want or plain or stats.prefills != len(reqs):
+        raise AssertionError(f"zamba2 launches {got}, expected {want}; plain calls "
+                             f"{plain}; prefills {stats.prefills}")
+    log(f"zamba2 serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
+        f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
+        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f} "
+        f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name})")
+    log(f"zamba2 serving: prefills={stats.prefills} prefill_tokens={stats.prefill_tokens_computed} "
+        f"decode_steps={stats.decode_steps} launches={got} (= 38 x prefills, 6 x prefills, "
+        f"6 x decode steps) plain_calls=0 "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    hybrid_profile(torch, np, eng, Request, greedy)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def hybrid_profile(torch, np, eng, Request, greedy):
+    """One profiled window of prefills and decode steps: 6 requests of
+    300-600 prompt tokens, 16 new tokens each, on the 4 slots (the last two
+    prefill between decode steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = zamba_requests(eng.cfg, np, Request, greedy, lens=(333, 401, 512, 600, 450, 300),
+                          new=16, seed=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("zamba2 profile: the profiler saw no device time")
+    mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
+            ("ssm_scan_kernel", "flash_kernel", "dense_decode_kernel")}
+    log(f"zamba2 profile: wall={wall:.3f}s device_busy={busy:.3f}s "
+        f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
+        f"prefills={stats.prefills} decode_steps={stats.decode_steps}; device ms "
+        + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
+    for ms, count, key in rows[:14]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+
+
+def hybrid_path_check(torch, np):
+    """Phase 11: a 333-token request served at full width in fp32 by a
+    contiguous engine through the kernels and by one through the plain
+    versions, at depths 6, 13 and 38 (gated at 6 and 13)."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.hybrid import _segments
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import Sampler
+
+    class Record(Sampler):
+        def __init__(self):
+            self.seen = []
+
+        def sample(self, logits):
+            self.seen.append(np.array(logits[0], copy=True))
+            return np.full((len(logits),), 7)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = arch_registry.config("zamba2-1.2b").replace(compute_dtype="float32")
+    params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
+    toks = np.random.default_rng(3).integers(0, full.vocab_size, size=333).astype(np.int32)
+
+    def serve(cfg, p, chunk=512):
+        eng = ServingEngine(cfg, p, max_len=352, batch_slots=1, chunk=chunk,
+                            cache_dtype="float32", device="cuda")
+        rec = Record()
+        eng.serve([Request(0, toks, max_new_tokens=2, sampler=rec)])
+        if len(rec.seen) != 2:
+            raise AssertionError("zamba2 path check: the request did not run clean")
+        return np.stack(rec.seen)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for depth in (6, 13, full.num_layers):
+        cfg = full.replace(num_layers=depth)
+        n_seg, _, tail = _segments(cfg)
+        p = dict(params, seg_blocks=tree_map(lambda t: t[:n_seg], params["seg_blocks"]))
+        p.pop("tail_blocks")
+        if tail:
+            p["tail_blocks"] = tree_map(lambda t: t[:tail], params["tail_blocks"])
+        dispatch.reset_counts()
+        kern = serve(cfg, p)
+        table = dispatch.kernel_table()
+        launched = all(table[n].launches > 0 for n in HYBRID_KERNELS) and \
+            not any(k.plain_calls for k in table.values())
+        with dispatch.plain_versions():
+            plain = serve(cfg, p)
+            plain64 = serve(cfg, p, chunk=64)
+        tol = TOL_HYBRID_PATH_REL.get(depth)
+        r_pre, r_dec = rel(kern[0], plain[0]), rel(kern[1], plain[1])
+        log(f"zamba2 path check (fp32, full width, depth {depth}: {n_seg} segments, tail "
+            f"{tail}): kernels vs plain rel prefill={r_pre:.3e} decode={r_dec:.3e} "
+            f"top1_agree={bool((kern.argmax(-1) == plain.argmax(-1)).all())} "
+            + (f"(tol {tol}); " if tol else "(not gated); ")
+            + f"plain chunk 64 vs 512 rel prefill={rel(plain64[0], plain[0]):.3e} "
+            f"decode={rel(plain64[1], plain[1]):.3e}")
+        if not launched:
+            raise AssertionError("zamba2 path check: the kernel engine did not run "
+                                 "through the three kernels alone")
+        if tol and not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol):
+            raise AssertionError(f"zamba2 path check, depth {depth}: kernels and plain "
+                                 f"versions disagree ({r_pre}, {r_dec})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def conv_case(torch, x_shape, w_shape, dtype, seed=0):
     """Random x (B, H, W, Cin), w (KH, KW, Cin, Cout) scaled by
     1/sqrt(fan-in), both of ``dtype``, and an fp32 bias."""
@@ -675,11 +994,15 @@ def main() -> int:
     results = kernel_phase(torch, table)
     launches = serving_phase(torch, np, table)
     path_check(torch, np)
+    results.update(hybrid_kernel_phase(torch, table))
+    launches.update(hybrid_serving_phase(torch, np, table))
+    hybrid_path_check(torch, np)
     results.update(conv_phase(torch, table))
     launches["conv2d"] = googlenet_phase(torch, np, table)
 
     kernels = []
-    for name in ("paged_decode_attention", "paged_prefill_attention", "conv2d"):
+    for name in ("paged_decode_attention", "paged_prefill_attention", "decode_attention",
+                 "flash_attention", "ssm_scan", "conv2d"):
         k, r = table[name], results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
@@ -688,8 +1011,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
         log(f"{name} at {r['shape']}: kernel {r['ms']:.4f}ms plain {r['plain_ms']:.4f}ms "
-            f"library {r['library_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
+            f"library {lib} bound {r['bound_ms']:.4f}ms "
             f"({r['bound_by']}; {r['bytes']:.0f} B, {r['flops']:.0f} flop) on {card}; "
             f"launches {launches[name]}; "
             + " ".join(f"{key}={v:.3e}" for key, v in r.items()

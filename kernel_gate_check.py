@@ -18,13 +18,16 @@ the kernel's own round points, an fp32 sum rounded once -- against it at
 fp32, and the same with one 16-deep chunk of K lost.
 
 ``--card``: copies ``src/`` into a temporary directory and changes one
-kernel there: each attention kernel's block loop skips pool block 0 when
-more than two blocks are live; the conv kernel's K loop skips its first
-16-deep chunk, or its window loses the centre tap.  Builds that kernel
-from the copy and runs chip_smoke's gate (``hold``) on its cases (fp32 and
-bf16 for attention, fp32 / fp16 / bf16 on the gate shapes for conv),
-printing err/limit for each; the gate must fail the long attention cases
-and every conv case.  Once for each broken kernel.
+kernel there: each paged attention kernel's block loop skips pool block 0
+when more than two blocks are live; the conv kernel's K loop skips its
+first 16-deep chunk, or its window loses the centre tap; the scan (K5)
+drops the state carried into the next chunk; the flash kernel (K4) skips
+the diagonal KV tile; the dense decode kernel (K3) skips the last live KV
+tile.  Builds that kernel from the copy and runs chip_smoke's gate on its
+cases (fp32 and bf16 for attention and the scan, at zamba2 widths for
+K3-K5; fp32 / fp16 / bf16 on the gate shapes for conv), printing err/limit
+for each; the gate must fail the long attention cases, every conv case and
+every K3-K5 case.  Once for each broken kernel.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import sys
 import tempfile
 from pathlib import Path
 
-from chip_smoke import CONV_GATE_SHAPES, DECODE_CASES, PREFILL_CASES, conv_groups
+from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, PREFILL_CASES, ZAMBA_MAX_LEN,
+                        conv_groups)
 
 ROOT = Path(__file__).resolve().parent
 H, K, D, BS = 16, 2, 128, 16
@@ -45,6 +49,11 @@ CONV_LOOP = "for (int k0 = 0; k0 < K; k0 += BK) {"
 CONV_SKIP_CHUNK = "for (int k0 = (K > 2 * BK) * BK; k0 < K; k0 += BK) {"
 CONV_TAP = "  return true;  // every tap contributes"
 CONV_SKIP_TAP = "  return tap != s.KH * s.KW / 2;  // the centre tap is lost"
+SSM_CARRY = "hs[n * PT + p] = decay * hs[n * PT + p] + s;"
+SSM_DROP_CARRY = "hs[n * PT + p] = s;  // the carried state is dropped"
+TILE_LOOP = "for (int it = 0; it < ntile; ++it) {"
+SKIP_DIAGONAL = "for (int it = 0; it < ntile - causal; ++it) {"
+SKIP_LAST_TILE = "for (int it = 0; it < ntile - 1; ++it) {"
 # (kernel, text, replacement, what the broken copy does)
 MUTANTS = (
     ("paged_decode_attention", LOOP, SKIP_BLOCK_0,
@@ -54,6 +63,11 @@ MUTANTS = (
     ("conv2d", CONV_LOOP, CONV_SKIP_CHUNK,
      "skips its first 16-deep K chunk when K > 32"),
     ("conv2d", CONV_TAP, CONV_SKIP_TAP, "loses the centre tap of the window"),
+    ("ssm_scan", SSM_CARRY, SSM_DROP_CARRY,
+     "drops the state carried into the next chunk"),
+    ("flash_attention", TILE_LOOP, SKIP_DIAGONAL,
+     "skips the diagonal KV tile when causal"),
+    ("decode_attention", TILE_LOOP, SKIP_LAST_TILE, "skips the last live KV tile"),
 )
 
 
@@ -219,6 +233,23 @@ def mutant_gate(d: str, name: str) -> None:
                   cs.conv_case(torch, xs, ws, dt), {"stride": shapes[label][2]})
                  for label in CONV_GATE_SHAPES]
         dtypes = (torch.float32, torch.float16, torch.bfloat16)
+    elif name == "ssm_scan":
+        cases = [(f"B=1 S={S} H={H} N=P={N} {'shared' if sh else 'per-head'} q/k",
+                  lambda dt, S=S, H=H, N=N, sh=sh: cs.ssm_case(
+                      torch, S, dt, H=H, N=N, P=N, shared=sh)[0], {"chunk": 128})
+                 for S, H, N, sh in ((1000, 64, 64, True), (1024, 64, 64, True),
+                                     (1000, 4, 128, False))]
+        dtypes = (torch.float32, torch.bfloat16)
+    elif name == "flash_attention":
+        cases = [(f"B=1 S={S} H=K=32 D=64 causal",
+                  lambda dt, S=S: cs.dense_case(torch, S, dt), {"causal": True})
+                 for S in (1000, 1024)]
+        dtypes = (torch.float32, torch.bfloat16)
+    elif name == "decode_attention":
+        lengths = (1033, 700, 257, 1200)
+        cases = [(f"B=4 S={ZAMBA_MAX_LEN} lengths={lengths}",
+                  lambda dt: cs.dense_decode_case(torch, lengths, dt), {})]
+        dtypes = (torch.float32, torch.bfloat16)
     elif name == "paged_decode_attention":
         cases = [(f"lengths={lengths}",
                   lambda dt, n=lengths: cs.decode_case(torch, n, dt), {"softcap": sc})

@@ -1,0 +1,67 @@
+"""Decode attention over a contiguous KV cache (counterpart of
+``repro/distributed/collectives.py``): the single-device branch of
+``seq_sharded_decode_attention`` (``:97-120``) and its ``_write_row``
+(``:26-34``), bf16 and fp32 caches.
+
+The new token's row is written **in place** (the reference's ``.at[].set``
+returns new caches); the function still returns the caches, which hold the
+updated rows.  Attention runs through the dense decode kernel
+(:func:`repro_torch.kernels.decode_attention.ops.decode_attention`) where
+the reference calls ``chunked_attention``.  Not ported yet: the int8 cache
+branch (the int8 slice) and the sequence-sharded branch with its
+log-sum-exp merge across a mesh (Queue 1 item 13).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+
+
+def _write_row(buf, row, lengths, offset: int, s_loc: int):
+    """Write one new (B, ...) row at slot ``lengths - offset`` of each
+    sequence where that slot lies in [0, s_loc), in place; sequences whose
+    slot lies outside (an idle slot counting past the cache) keep their
+    rows.  No host sync: out-of-range sequences rewrite a clamped slot with
+    its own value, as the reference's select keeps it."""
+    B = buf.shape[0]
+    widx = lengths - offset
+    in_range = (widx >= 0) & (widx < s_loc)
+    widx_c = torch.clamp(widx, 0, s_loc - 1).long()
+    b = torch.arange(B, device=buf.device)
+    sel = in_range.reshape((B,) + (1,) * (buf.ndim - 2))
+    buf[b, widx_c] = torch.where(sel, row.to(buf.dtype), buf[b, widx_c])
+    return buf
+
+
+def seq_sharded_decode_attention(q, cache_k, cache_v, k_new, v_new, lengths,
+                                 *, k_scale=None, v_scale=None,
+                                 softcap: float = 0.0, chunk: int = 2048,
+                                 mesh=None):
+    """Decode attention against a contiguous cache, on one device.
+
+    q: (B, 1, H, D); cache_k/v: (B, S, K, D) bf16 or fp32; k_new/v_new:
+    (B, 1, K, D); lengths: (B,) current fill (the new row is written at
+    ``lengths`` and attention covers ``lengths + 1`` rows).  Returns
+    (attn_out (B, 1, H, D), cache_k, cache_v), the caches updated in place.
+    int8 caches, a softcap (the dense decode kernel has none, as the Pallas
+    one) and a mesh raise.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sequence-sharded decode (a mesh) is ported with the "
+            "distributed slice; the port decodes on one device")
+    if k_scale is not None or v_scale is not None \
+            or cache_k.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV caches are ported with the int8 slice")
+    if softcap:
+        raise NotImplementedError(
+            "softcap: the dense decode kernel has none, as the Pallas "
+            "kernel it ports")
+    S = cache_k.shape[1]
+    nk = _write_row(cache_k, k_new[:, 0], lengths, 0, S)
+    nv = _write_row(cache_v, v_new[:, 0], lengths, 0, S)
+    out = decode_attention(q[:, 0].contiguous(), nk, nv, lengths + 1,
+                           chunk=chunk)
+    return out[:, None], nk, nv

@@ -73,7 +73,9 @@ def kernel_table() -> dict[str, Kernel]:
     """Every registered kernel (importing the ops modules registers them)."""
     import repro_torch.kernels.conv2d.ops  # noqa: F401
     import repro_torch.kernels.decode_attention.ops  # noqa: F401
+    import repro_torch.kernels.flash_attention.ops  # noqa: F401
     import repro_torch.kernels.prefill_attention.ops  # noqa: F401
+    import repro_torch.kernels.ssm_scan.ops  # noqa: F401
     return dict(_TABLE)
 
 
@@ -94,13 +96,15 @@ def plain_versions():
 
 
 def check_operand(t, name: str, *, device, dtypes, shape=None,
-                  align: int = 1) -> None:
+                  align: int = 1, broadcast_dim: int | None = None) -> None:
     """Raise unless ``t`` is a contiguous tensor on ``device`` with one of
     ``dtypes``, (when given) ``shape``, and a data pointer that is a
     multiple of ``align`` bytes -- what a launcher checks before handing
     raw pointers to a kernel (the attention kernels read q and pool rows
     with 16-byte loads, so a view at an odd element offset must not reach
-    them)."""
+    them).  With ``broadcast_dim``, that one dim may instead have stride 0
+    (a view made by ``expand``) over a tensor that is contiguous in the
+    other dims; no other non-contiguous layout passes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
@@ -109,7 +113,11 @@ def check_operand(t, name: str, *, device, dtypes, shape=None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if broadcast_dim is not None and t.stride(broadcast_dim) == 0:
+        if not t.select(broadcast_dim, 0).is_contiguous():
+            raise ValueError(f"{name}: a stride-0 dim {broadcast_dim} needs "
+                             f"the other dims contiguous")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name} starts at an address that is not a "
@@ -170,3 +178,24 @@ def conv_tolerance_ratio(out, ref) -> float:
     rms = ref.pow(2).mean().sqrt()
     limit = CONV_RTOL[out.dtype] * ref.abs() + CONV_RMS_ATOL[out.dtype] * rms
     return (err / limit.clamp(min=1e-30)).max().item()
+
+
+# K5 ssm_scan, kernel vs plain version evaluated in fp32 on the same values,
+# each of y and the final state: the largest |out - ref| within SSM_RTOL of
+# the largest |ref| of that output.  Relative to the largest, because the
+# scan's outputs scale with its inputs, decay and gate (|y| near 8 on
+# Mamba-2-like operands at zamba2's widths), and the kernel's only
+# difference from the plain version is its order of summation: both read
+# the inputs as fp32 (bf16 values convert exactly) and return fp32, so bf16
+# inputs take the fp32 limit.  On an H100 that order moves results by ~3e-6
+# of the largest; dropping the state carried into a chunk moves them by
+# 1e-3 to 5e-2 of it (kernel_gate_check.py --card).
+SSM_RTOL = 1e-4
+
+
+def ssm_tolerance_ratio(out, ref) -> float:
+    """``max |out - ref| / (SSM_RTOL * max |ref|)`` over each of the
+    (y, final_state) pairs; the larger (<= 1 passes)."""
+    return max(((o.float() - r.float()).abs().max()
+                / (SSM_RTOL * r.float().abs().max().clamp(min=1e-30))).item()
+               for o, r in zip(out, ref))

@@ -1,14 +1,17 @@
-"""Serving launcher for the PyTorch/CUDA port: the paged continuous-batching
+"""Serving launcher for the PyTorch/CUDA port: the continuous-batching
 engine on one card, with throughput, serving-quality metrics (TTFT p50/p99,
 TPOT, slot occupancy) and tokens/s per watt against the card's power limit
-(counterpart of ``repro/launch/serve.py``, single replica).
+(counterpart of ``repro/launch/serve.py``, single replica).  The dense
+family serves from the paged KV pool, the hybrid (zamba2) from contiguous
+per-slot caches of ``prompt_len + new_tokens + 1`` rows.
 
 Example (on a machine with an NVIDIA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --prompt-len 512 --prefill-chunk 256 --kv-pool-blocks 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
   # the plain PyTorch versions of the kernels, on the CPU, at smoke size:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --smoke --device cpu
 """
 from __future__ import annotations
@@ -98,9 +101,13 @@ def main() -> int:
           f"p99={_fmt_ms(stats.ttft_p99_s)}  "
           f"tpot={_fmt_ms(stats.mean_tpot_s)}  "
           f"slot_occupancy={stats.slot_occupancy:.2f}")
-    print(f"prefill_compiles={stats.prefill_compiles}  "
-          f"kv_blocks_peak={stats.kv_blocks_peak}  "
-          f"kv_pool_util={stats.kv_pool_util:.2f}")
+    if eng.paged:
+        print(f"prefill_compiles={stats.prefill_compiles}  "
+              f"kv_blocks_peak={stats.kv_blocks_peak}  "
+              f"kv_pool_util={stats.kv_pool_util:.2f}")
+    else:
+        print(f"prefill_compiles={stats.prefill_compiles}  contiguous KV: "
+              f"{max_len} rows x {args.slots} slots")
     stall = (f"{stats.decode_stall_p99_s * 1e3:.1f}ms"
              if stats.decode_stall_p99_s is not None else "n/a")
     print(f"prefill_tokens={stats.prefill_tokens_computed}"

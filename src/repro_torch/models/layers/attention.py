@@ -133,7 +133,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sl = slice(i * chunk, (i + 1) * chunk)
         k_c, v_c = k[:, sl], v[:, sl]
         kp_c = kv_positions[..., sl]
-        s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_c).float()
+        # q and k of two types (an fp32 query against a bf16 cache) meet
+        # in the wider one, as the reference's einsum promotes them
+        dt = torch.promote_types(qg.dtype, k_c.dtype)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg.to(dt), k_c.to(dt)).float()
         s = s * scale_
         if softcap:
             s = softcap * torch.tanh(s / softcap)

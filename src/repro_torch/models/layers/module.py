@@ -71,6 +71,22 @@ def stack_table(table: Table, num: int) -> Table:
     return tree_map(_stack, table)
 
 
+def cast_product_weights(params: Any, names: tuple[str, ...], dtype,
+                         device=None) -> Any:
+    """Move ``params`` to ``device`` and cast every leaf whose name is in
+    ``names`` to ``dtype``, once.  The reference casts those fp32 weights
+    to the compute dtype before every product; casting once at load gives
+    the same numbers."""
+    dt = dtype_of(dtype)
+
+    def walk(tree, name=None):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, k) for k, v in tree.items()}
+        t = tree.to(device) if device is not None else tree
+        return t.to(dt) if name in names else t
+    return walk(params)
+
+
 def init_table(gen: torch.Generator, table: Table, dtype) -> Any:
     """Initialize every leaf on ``gen``'s device, in table order."""
     dt = dtype_of(dtype)

@@ -1,15 +1,26 @@
 """Model API for the ported families (counterpart of
 ``repro/models/registry.py``: the dense transformer's paged entries,
-``:55-97``, and the cnn family, ``:164-173``).
+``:55-97``, the hybrid family, ``:100-118``, and the cnn family,
+``:164-173``).
 
   init(cfg, generator)                          -> params
+  prepare_params(cfg, params, device)           -> params on the device,
+                                                   product weights cast
   init_paged_state(cfg, num_blocks, block_size, batch, max_blocks, dtype,
                    device=...)                  -> PagedKVCache
   prefill_paged(cfg, params, tokens, state, write_ids, table, *, q_start,
                 kv_len, last_idx, chunk)        -> (logits, state)
+  prefill(cfg, params, batch, max_len, chunk, cache_dtype)
+                                                -> (last_logits, state)
   decode(cfg, params, tokens, state, chunk)     -> (logits, state)
+  init_decode_state(cfg, batch, max_len, cache_dtype, device=...)
+                                                -> contiguous decode state
   forward(cfg, params, batch)                   -> (logits, aux_loss)
     (cnn only; ``batch`` holds ``images``)
+
+A family serves from the paged pool when it has ``init_paged_state``, and
+from contiguous caches when it has ``init_decode_state`` (the dense
+family's contiguous caches are not ported yet).
 """
 from __future__ import annotations
 
@@ -18,7 +29,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import googlenet, transformer
+from repro_torch.models import googlenet, hybrid, transformer
 
 
 @dataclass(frozen=True)
@@ -29,6 +40,9 @@ class ModelFns:
     init_paged_state: Callable[..., Any]
     prefill_paged: Callable[..., Any]
     forward: Callable[..., Any] | None = None
+    prefill: Callable[..., Any] | None = None
+    init_decode_state: Callable[..., Any] | None = None
+    prepare_params: Callable[..., Any] | None = None
 
 
 def _tf_decode(cfg, params, tokens, state, chunk=2048):
@@ -37,7 +51,33 @@ def _tf_decode(cfg, params, tokens, state, chunk=2048):
 
 TRANSFORMER_FNS = ModelFns("dense", transformer.init, _tf_decode,
                            transformer.make_paged_cache,
-                           transformer.prefill_paged)
+                           transformer.prefill_paged,
+                           prepare_params=transformer.prepare_params)
+
+
+def _hy_prefill(cfg, params, batch, max_len=None, chunk=1024,
+                cache_dtype="bfloat16"):
+    return hybrid.prefill(cfg, params, batch["tokens"], max_len=max_len,
+                          chunk=chunk, cache_dtype=cache_dtype)
+
+
+def _hy_decode(cfg, params, tokens, state, chunk=2048):
+    return hybrid.decode_step(cfg, params, tokens, state, chunk=chunk)
+
+
+def _hy_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
+    """Batched decode state; every slot starts idle at ``max_len - 1``, so
+    an idle slot's decode writes at most one row and then runs past the
+    cache, never over a live one."""
+    st = hybrid.init_decode_state(cfg, batch, max_len, cache_dtype,
+                                  device=device)
+    return st._replace(length=torch.full((batch,), max_len - 1,
+                                         dtype=torch.int32, device=device))
+
+
+HYBRID_FNS = ModelFns("hybrid", hybrid.init, _hy_decode, None, None,
+                      prefill=_hy_prefill, init_decode_state=_hy_state,
+                      prepare_params=hybrid.prepare_params)
 
 
 def _gn_forward(cfg, params, batch):
@@ -48,11 +88,12 @@ def _gn_forward(cfg, params, batch):
 GOOGLENET_FNS = ModelFns("cnn", googlenet.init, None, None, None,
                          forward=_gn_forward)
 
-_BY_FAMILY = {"dense": TRANSFORMER_FNS, "cnn": GOOGLENET_FNS}
+_BY_FAMILY = {"dense": TRANSFORMER_FNS, "hybrid": HYBRID_FNS,
+              "cnn": GOOGLENET_FNS}
 
 
 def fns_for(cfg) -> ModelFns:
-    """The ported model functions: the dense and cnn families."""
+    """The ported model functions: the dense, hybrid and cnn families."""
     if cfg.family not in _BY_FAMILY:
         raise ValueError(f"family {cfg.family!r} is not ported yet; "
                          f"repro_torch runs {sorted(_BY_FAMILY)}")

@@ -31,7 +31,8 @@ from repro_torch.models.layers import attention as A
 from repro_torch.models.layers.embedding import embed, embedding_table
 from repro_torch.models.layers.embedding import logits as lm_logits
 from repro_torch.models.layers.mlp import swiglu, swiglu_table
-from repro_torch.models.layers.module import init_table, stack_table, tree_map
+from repro_torch.models.layers.module import (cast_product_weights, init_table,
+                                              stack_table, tree_map)
 from repro_torch.models.layers.norms import apply_norm, norm_table
 
 
@@ -119,14 +120,8 @@ def prepare_params(cfg, params, device=None):
     dtype before every product; casting once at load gives the same
     numbers.  Norm scales and the (tied) embedding stay in ``param_dtype``:
     the reference computes norms and the LM head in fp32."""
-    dt = dtype_of(cfg.compute_dtype)
-
-    def walk(tree, name=None):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        t = tree.to(device) if device is not None else tree
-        return t.to(dt) if name in _PRODUCT_WEIGHTS else t
-    return walk(params)
+    return cast_product_weights(params, _PRODUCT_WEIGHTS, cfg.compute_dtype,
+                                device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Continuous-batching LM serving engine on the paged KV pool (counterpart
-of ``repro/serving/engine.py``, paged mode).
+"""Continuous-batching LM serving engine (counterpart of
+``repro/serving/engine.py``): the paged KV pool, and contiguous per-slot
+caches for families without one.
 
 :class:`ServingEngine` is the executor for a
 :class:`~repro_torch.serving.scheduler.ContinuousScheduler`: it keeps a
@@ -17,14 +18,20 @@ block tables and block-aware admission.  On top of the pool:
     unseeded token; a ``prefill_chunk`` budget interleaves long prompts
     with decode steps.
 
+Families with no paged state (the hybrid) serve from **contiguous** caches
+(``paged=False``, the default for them): each admitted prompt is prefilled
+whole into a batch-1 state that is written into its slot of the batched
+decode state (:func:`_merge_slot`), as the reference's contiguous path.
+
 Every attention call runs the hand-written CUDA kernels when the engine's
 device is the card (:mod:`repro_torch.kernels`).  The engine runs on
 ``device="cuda"`` unless the caller passes another device; it raises when
 no card is present rather than carry on on the CPU.
 
-Not ported yet, and refused by the constructor: the contiguous layout
-(``paged=False``), speculative decoding (``draft_cfg``), the host KV tier
-(``host_blocks``), disaggregated roles and fault injection.
+Not ported yet, and refused by the constructor: the dense family's
+contiguous caches (``paged=False`` for it), speculative decoding
+(``draft_cfg``), the host KV tier (``host_blocks``), disaggregated roles,
+fault injection, and ``prefill_chunk`` without paging.
 """
 from __future__ import annotations
 
@@ -37,7 +44,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.registry import fns_for
-from repro_torch.models.transformer import prepare_params
 from repro_torch.serving.kv_pool import CapacityError, KVBlockPool
 from repro_torch.serving.sampler import Sampler  # noqa: F401 (re-export)
 from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
@@ -256,6 +262,23 @@ class ServeStats:
 
 
 
+def _merge_slot(state, slot_state, slot: int):
+    """Write a single-request decode state into slot ``slot`` of the batched
+    state, **in place** (the reference's returns a new pytree), casting each
+    leaf to the batched leaf's type.  Both come from the same model fns
+    with the same ``max_len`` and differ only in batch size, so for every
+    leaf the batch axis is the unique axis where the shapes differ.
+    Returns ``state``."""
+    for big, small in zip(state, slot_state):
+        if big.shape == small.shape:        # num_slots == 1
+            big.copy_(small)
+            continue
+        axis = next(a for a in range(big.ndim)
+                    if big.shape[a] != small.shape[a])
+        big.narrow(axis, slot, 1).copy_(small)
+    return state
+
+
 class WindowBase(NamedTuple):
     """Lifetime-counter snapshot anchoring a serving measurement window
     (:meth:`ServingEngine.begin_window` / ``collect_window``)."""
@@ -322,9 +345,6 @@ class ServingEngine:
                  seeded_prefill: bool = True, host_blocks: int = 0,
                  draft_cfg=None, fault_plan=None, role: str = "mixed",
                  device="cuda"):
-        if paged is False:
-            raise ValueError("the contiguous KV layout (paged=False) is not "
-                             "ported yet; the port serves from the paged pool")
         if draft_cfg is not None:
             raise ValueError("speculative decoding (draft_cfg) is not ported "
                              "yet")
@@ -343,8 +363,19 @@ class ServingEngine:
                 "available; pass device='cpu' to run the plain versions of "
                 "the kernels on the CPU")
         self.cfg = cfg
-        self.fns = fns_for(cfg)              # ValueError unless dense
-        if getattr(cfg, "sliding_window", 0):
+        self.fns = fns_for(cfg)              # ValueError unless ported
+        if paged is None:                    # auto: families with paged fns
+            paged = self.fns.init_paged_state is not None
+        elif paged and self.fns.init_paged_state is None:
+            raise ValueError(f"family {cfg.family!r} has no paged-KV "
+                             f"support (ModelFns.init_paged_state is None)")
+        elif not paged and self.fns.init_decode_state is None:
+            raise ValueError(f"family {cfg.family!r}: its contiguous KV "
+                             f"caches (paged=False) are not ported yet")
+        self.paged = paged
+        if prefill_chunk is not None and not paged:
+            raise ValueError("prefill_chunk needs the paged KV engine")
+        if paged and getattr(cfg, "sliding_window", 0):
             # the paged attention paths are full-causal; serving a
             # sliding-window arch through them would silently diverge
             raise ValueError(
@@ -358,16 +389,16 @@ class ServingEngine:
                 f"multiple of block_size={block_size} (chunk starts "
                 f"must stay block-aligned for the pool writes)")
         # weights cast to the compute dtype once, here (see prepare_params)
-        self.params = prepare_params(cfg, params, self.device)
+        self.params = self.fns.prepare_params(cfg, params, self.device)
         self.max_len = max_len
         self.slots = batch_slots
         self.block_size = block_size
         self.cache_dtype = cache_dtype
-        self.prefix_sharing = prefix_sharing
+        self.prefix_sharing = prefix_sharing and paged
         # cache-seeded prefill: computation starts at the first unseeded
         # token; off = the recompute baseline (shared blocks still mapped,
         # but every prompt token re-run, its rows discarded into trash)
-        self.seeded_prefill = seeded_prefill
+        self.seeded_prefill = seeded_prefill and paged
         self.prefill_chunk = prefill_chunk
         # prefix index: chained digest of the tokens of each full leading
         # block -> (block id, alloc generation); entries are validated
@@ -380,26 +411,34 @@ class ServingEngine:
         self._prefilling: dict[int, _PrefillJob] = {}
         self._last_decode_end: float | None = None
         self._gaps_dropped = 0              # decode_gaps entries trimmed
-        worst = batch_slots * -(-max_len // block_size)
-        self.pool = KVBlockPool(pool_blocks or worst, block_size)
-        self.max_blocks = self.pool.blocks_for(max_len)
-        self._prefix_cap = 8 * self.pool.capacity
-        # host mirrors of the device block tables / lengths: growth and
-        # slot retirement are numpy writes, re-injected every step
-        self._tables = np.zeros((batch_slots, self.max_blocks), np.int32)
-        self._lengths = np.zeros((batch_slots,), np.int32)
+        fns = self.fns
+        if paged:
+            worst = batch_slots * -(-max_len // block_size)
+            self.pool = KVBlockPool(pool_blocks or worst, block_size)
+            self.max_blocks = self.pool.blocks_for(max_len)
+            self._prefix_cap = 8 * self.pool.capacity
+            # host mirrors of the device block tables / lengths: growth and
+            # slot retirement are numpy writes, re-injected every step
+            self._tables = np.zeros((batch_slots, self.max_blocks), np.int32)
+            self._lengths = np.zeros((batch_slots,), np.int32)
+            self._prefill_paged = (
+                lambda p, t, s, w, tb, qs, kl, li: fns.prefill_paged(
+                    cfg, p, t, s, w, tb, q_start=qs, kv_len=kl, last_idx=li,
+                    chunk=chunk))
+        else:
+            self.pool = None
+            # whole-prompt prefill into a batch-1 state with caches of
+            # max_len rows (one reference jit entry per prompt length)
+            self._prefill = lambda p, b: fns.prefill(
+                cfg, p, b, max_len=max_len, chunk=chunk,
+                cache_dtype=cache_dtype)
         self.scheduler = ContinuousScheduler(batch_slots, pool=self.pool,
                                              preemption=preemption)
-        fns = self.fns
         self._decode = lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk)
-        self._prefill_paged = (
-            lambda p, t, s, w, tb, qs, kl, li: fns.prefill_paged(
-                cfg, p, t, s, w, tb, q_start=qs, kv_len=kl, last_idx=li,
-                chunk=chunk))
         # distinct padded prefill shapes: the reference jit-compiles once
         # per shape; the same padding keeps this counter equal to its
         self._prefill_shapes: set = set()
-        self._state = None                  # PagedKVCache, built lazily
+        self._state = None                  # decode state, built lazily
         self._last: np.ndarray | None = None  # (slots, V) next-token logits
         self.totals = ServeStats()          # lifetime counters (monotonic)
 
@@ -412,16 +451,17 @@ class ServingEngine:
         return len(self._prefill_shapes)
 
     def _check_fits(self, req: Request) -> None:
-        """Reject requests that would overrun the per-slot KV capacity or
-        whose block count exceeds the whole pool (they could never be
-        admitted, only wedge the queue)."""
+        """Reject requests that would overrun the per-slot KV capacity
+        (``max_len`` rows) or, paged, whose block count exceeds the whole
+        pool (they could never be admitted, only wedge the queue)."""
         need = len(req.prompt) + req.max_new_tokens
         if need > self.max_len + 1:
             raise CapacityError(
                 f"request {req.rid}: prompt {len(req.prompt)} + "
                 f"max_new_tokens {req.max_new_tokens} exceeds KV capacity "
                 f"max_len={self.max_len}")
-        self.pool.validate_rows(req.kv_rows, req.rid)
+        if self.pool is not None:
+            self.pool.validate_rows(req.kv_rows, req.rid)
 
     def _bucket_len(self, n: int) -> int:
         """Smallest power-of-two multiple of block_size holding ``n``."""
@@ -430,11 +470,33 @@ class ServingEngine:
             b *= 2
         return b
 
+    def _batch_for(self, prompts: np.ndarray) -> dict:
+        """prompts: (W, S) -> model batch dict (tokens only: the M-RoPE and
+        audio families that need more are not ported)."""
+        return {"tokens": self._to_device(np.asarray(prompts, np.int32))}
+
+    def _prefill_one(self, req: Request):
+        """Dense prefill of one prompt -> ((V,) logits, batch-1 state) --
+        the contiguous-KV path (paged engines prefill straight into pool
+        blocks via :meth:`_advance_prefill`).  Uses ``req.prefill_tokens``,
+        so a resumed request re-prefills its history."""
+        prompt = req.prefill_tokens
+        self._prefill_shapes.add((1, len(prompt)))
+        last, state = self._prefill(self.params, self._batch_for(prompt[None]))
+        return last[0].cpu().numpy(), state
+
     def _init_state(self):
-        """Batched paged decode state covering all slots."""
-        return self.fns.init_paged_state(
-            self.cfg, self.pool.total_blocks, self.block_size, self.slots,
-            self.max_blocks, self.cache_dtype, device=self.device)
+        """Batched decode state covering all slots: the paged pool, or the
+        contiguous caches in ``cache_dtype`` (the reference's contiguous
+        branch builds them in its default bf16, the same type unless the
+        engine asks for another)."""
+        if self.paged:
+            return self.fns.init_paged_state(
+                self.cfg, self.pool.total_blocks, self.block_size,
+                self.slots, self.max_blocks, self.cache_dtype,
+                device=self.device)
+        return self.fns.init_decode_state(self.cfg, self.slots, self.max_len,
+                                          self.cache_dtype, device=self.device)
 
     def _to_device(self, a) -> torch.Tensor:
         """Copy a host array (or list) to the engine's device."""
@@ -651,13 +713,22 @@ class ServingEngine:
             self.totals.prefills += 1
             if self._state is None:
                 self._state = self._init_state()
-            self._admit_paged(slot, req)
-            if self.prefill_chunk is None:
-                # un-chunked: finish this prompt before admitting the next,
-                # so its published prefix blocks are sharable (and
-                # seedable) by the very next admission
-                while slot in self._prefilling:
-                    self._advance_prefill(slot)
+            if self.paged:
+                self._admit_paged(slot, req)
+                if self.prefill_chunk is None:
+                    # un-chunked: finish this prompt before admitting the
+                    # next, so its published prefix blocks are sharable
+                    # (and seedable) by the very next admission
+                    while slot in self._prefilling:
+                        self._advance_prefill(slot)
+            else:
+                last1, state1 = self._prefill_one(req)
+                self.totals.prefill_tokens_total += len(req.prefill_tokens)
+                self.totals.prefill_tokens_computed += \
+                    len(req.prefill_tokens)
+                self._state = _merge_slot(self._state, state1, slot)
+                self._set_last(slot, last1)
+                req.state = RequestState.DECODE
 
         if self._prefilling:
             # chunked mode: spend at most prefill_chunk prompt tokens per
@@ -688,13 +759,15 @@ class ServingEngine:
                 req.state = RequestState.DONE
                 req.finished_at = time.monotonic()
                 self.scheduler.release(slot)   # returns blocks to the pool
-                self._retire_slot(slot)
+                if self.paged:
+                    self._retire_slot(slot)
                 if req.on_finish is not None:
                     req.on_finish(req)
 
         still = self.scheduler.decoding()
         if still:        # someone needs next-token logits
-            self._grow_paged(still)
+            if self.paged:
+                self._grow_paged(still)
             last, self._state = self._decode(
                 self.params, self._to_device(feed), self._state)
             # (slots, V) fp32 logits go to the host for sampling every step
@@ -724,7 +797,8 @@ class ServingEngine:
     def begin_window(self) -> WindowBase:
         """Snapshot the lifetime counters (and reset the pool peak) so a
         caller can scope :class:`ServeStats` to one serving window."""
-        self.pool.reset_peak()
+        if self.pool is not None:
+            self.pool.reset_peak()
         return WindowBase(
             tokens=self.totals.tokens, prefills=self.totals.prefills,
             decode_steps=self.totals.decode_steps,
@@ -761,9 +835,10 @@ class ServingEngine:
             stats.kv_hit_rate = stats.prefix_shared_blocks / stats.prefix_lookups
         stats.decode_gaps = list(self.totals.decode_gaps[
             max(0, base.decode_gap_n - self._gaps_dropped):])
-        stats.kv_blocks_peak = self.pool.peak_used
-        stats.kv_pool_capacity = self.pool.capacity
-        stats.kv_pool_util = self.pool.utilization
+        if self.pool is not None:
+            stats.kv_blocks_peak = self.pool.peak_used
+            stats.kv_pool_capacity = self.pool.capacity
+            stats.kv_pool_util = self.pool.utilization
         stats.fill_request_metrics(requests)
         return stats
 

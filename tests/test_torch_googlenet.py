@@ -131,5 +131,6 @@ def test_fns_for_returns_the_cnn_entry(setup):
     logits, aux = fns.forward(tcfg, tparams, {"images": torch.from_numpy(images)})
     assert logits.shape == (2, 1000) and float(aux) == 0.0
     assert fns_for(TR.config("qwen2.5-3b")).family == "dense"
+    assert fns_for(TR.config("zamba2-1.2b")).family == "hybrid"
     with pytest.raises(ValueError, match="not ported"):
-        fns_for(TR.config("zamba2-1.2b"))
+        fns_for(TR.config("xlstm-125m"))

@@ -14,7 +14,9 @@ two sum in other orders); bf16 within 2^-7 |ref| + 2^-6 rms(ref) per
 element (the kernel rounds p before the PV product and its output to
 bf16).  conv2d: CONV_RTOL |ref| + CONV_RMS_ATOL rms(ref) per element
 (fp32 2^-14 and 2^-14, fp16 2^-10 and 2^-12, bf16 2^-7 and 2^-12: twice
-the one rounding of the output, and the fp32 sum's order).
+the one rounding of the output, and the fp32 sum's order).  ssm_scan: y
+and the final state each within 1e-4 of their largest |ref| (fp32 out;
+only the order of the sums differs).
 """
 import numpy as np
 import pytest
@@ -123,3 +125,83 @@ def test_engine_path_runs_the_kernels(cuda):
                for n in ("paged_decode_attention", "paged_prefill_attention"))
     assert all(len(r.output) == 5 for r in reqs)
     assert eng.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lengths", [(64, (1, 64, 33)), (100, (99, 101, 500)),
+                                       (130, (0, 64, 65))])
+def test_dense_decode_kernel_matches_plain(cuda, dtype, S, lengths):
+    """K3 with a ragged S, lengths past S and a length-0 row."""
+    g = torch.Generator(cuda).manual_seed(S)
+    q = torch.randn((3, 8, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((3, S, 2, 64), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kern = dispatch.kernel_table()["decode_attention"]
+    out = kern.launch(q, k, v, lens)
+    ref = kern.plain(q.float(), k.float(), v.float(), lens)
+    torch.cuda.synchronize()
+    assert kern.tolerance(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,K", [(1, 4, 4), (100, 8, 2), (200, 4, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, dtype, S, H, K, causal):
+    g = torch.Generator(cuda).manual_seed(S)
+    q = torch.randn((2, S, H, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, S, K, 64), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kern = dispatch.kernel_table()["flash_attention"]
+    out = kern.launch(q, k, v, causal=causal)
+    ref = kern.plain(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert kern.tolerance(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk,shared", [(100, 32, True), (128, 128, False),
+                                            (7, 128, True), (300, 64, False)])
+def test_ssm_scan_kernel_matches_plain(cuda, dtype, S, chunk, shared):
+    """K5 with a ragged S, a carried-in state, and B/C as a stride-0 head
+    view or per head."""
+    B, H, N, P = 2, 4, 32, 48
+    g = torch.Generator(cuda).manual_seed(S)
+    hq = 1 if shared else H
+    q, k = (torch.randn((B, S, hq, N), generator=g, device=cuda).to(dtype)
+            .expand(B, S, H, N) for _ in range(2))
+    v = torch.randn((B, S, H, P), generator=g, device=cuda).to(dtype)
+    dt = torch.exp(torch.empty((B, S, H), device=cuda).uniform_(
+        -6.9, -2.3, generator=g))
+    ld = -dt * torch.linspace(1.0, 16.0, H, device=cuda)
+    h0 = torch.randn((B, H, N, P), generator=g, device=cuda)
+    kern = dispatch.kernel_table()["ssm_scan"]
+    out = kern.launch(q, k, v, ld, torch.log(dt), chunk=chunk,
+                      initial_state=h0)
+    ref = kern.plain(q.float(), k.float(), v.float(), ld, torch.log(dt),
+                     chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert kern.tolerance(out, ref) <= 1.0
+
+
+def test_hybrid_engine_path_runs_the_kernels(cuda):
+    """The zamba2 smoke model served on the card through the contiguous
+    path launches K5 per Mamba layer and prompt, K4 per shared-block
+    application and prompt, K3 per application and decode step, and never
+    their plain versions."""
+    cfg = TR.smoke("zamba2-1.2b")
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=64, batch_slots=2)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 20 + 9 * i)
+                    .astype(np.int32), max_new_tokens=5, sampler=greedy())
+            for i in range(3)]
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    table = dispatch.kernel_table()
+    n_seg = cfg.num_layers // cfg.shared_attn_every
+    assert table["ssm_scan"].launches == cfg.num_layers * stats.prefills
+    assert table["flash_attention"].launches == n_seg * stats.prefills
+    assert table["decode_attention"].launches == n_seg * stats.decode_steps
+    assert all(k.plain_calls == 0 for k in table.values())
+    assert all(len(r.output) == 5 for r in reqs)

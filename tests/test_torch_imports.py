@@ -36,7 +36,11 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "repro_torch.models.transformer",
                  "repro_torch.kernels.conv2d.ops", "repro_torch.models.googlenet",
                  "repro_torch.core.offload", "repro_torch.core.power",
-                 "repro_torch.launch.offload_inference"):
+                 "repro_torch.launch.offload_inference",
+                 "repro_torch.kernels.ssm_scan.ops",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.models.layers.ssm", "repro_torch.models.hybrid",
+                 "repro_torch.distributed.collectives"):
         assert name in result["modules"]
 
 

@@ -3,6 +3,10 @@ against the JAX oracle (``ref.py``) and against the Pallas TPU kernel run
 in interpret mode, on the same numpy inputs; plus the dispatch rules
 (CPU tensors take the plain version and are counted; int8 pools and
 non-CUDA tensors at the CUDA launcher raise; a missing nvcc raises).
+The dense decode (K3) and flash (K4) plain versions are also held at a
+ragged S, which the Pallas kernels refuse, against ``chunked_attention``
+(K3 with lengths past S, as an idle serving slot has them); K5's are in
+``tests/test_torch_ssm.py``.
 
 Shapes follow the reference's kernel smoke cases
 (``benchmarks/kernel_bench.py``): pool (1 + 2*4, 16, 2, 64), H=4 query heads
@@ -20,16 +24,26 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention.kernel import \
+    decode_attention as jax_pallas_dense_decode
+from repro.kernels.decode_attention.kernel import \
     paged_decode_attention as jax_pallas_decode
 from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as jax_dense_decode_ref
+from repro.kernels.decode_attention.ref import \
     paged_decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention.kernel import \
+    flash_attention as jax_pallas_flash
+from repro.kernels.flash_attention.ref import \
+    flash_attention_ref as jax_flash_ref
 from repro.kernels.prefill_attention.kernel import \
     paged_prefill_attention as jax_pallas_prefill
 from repro.kernels.prefill_attention.ref import \
     paged_prefill_attention_ref as jax_prefill_ref
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention)
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 
 torch.set_num_threads(1)
@@ -123,6 +137,59 @@ def test_paged_prefill_plain_matches_jax(dtype, C, q_start, mb, softcap):
                                    interpret=True), dtype)
 
 
+# (S, lengths of 3 sequences, Pallas bkv or None where S is ragged)
+DENSE_DECODE_CASES = [
+    (64, (1, 37, 64), 16),
+    (64, (0, 16, 17), 32),
+    (50, (1, 37, 50), None),          # ragged S
+    (50, (49, 51, 200), None),        # lengths past S: every row live
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,lengths,bkv", DENSE_DECODE_CASES)
+def test_dense_decode_plain_matches_jax(dtype, S, lengths, bkv):
+    """K3's plain version: one token against a contiguous cache, masked at
+    ``lengths``, equals the JAX oracle and, where S divides into its
+    tiles, the Pallas kernel in interpret mode; a length-0 row gives 0."""
+    rng = np.random.default_rng(S + lengths[0])
+    q = rng.standard_normal((3, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((3, S, K, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    lens = np.asarray(lengths, np.int32)
+    jl, tl = jnp.asarray(lens), torch.from_numpy(lens)
+    out = decode_attention(tq, tk, tv, tl, chunk=16)
+    assert out.shape == (3, H, D) and out.dtype == tq.dtype
+    assert torch.isfinite(out.float()).all()
+    _close(out, jax_dense_decode_ref(jq, jk, jv, jl, chunk=16), dtype)
+    if bkv:
+        _close(out, jax_pallas_dense_decode(jq, jk, jv, jl, bkv=bkv,
+                                            interpret=True), dtype)
+    if lengths[0] == 0:
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,bq", [(64, 16), (64, 32), (45, None), (1, None)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_jax(dtype, S, bq, causal):
+    """K4's plain version: dense GQA attention over positions 0..S-1 equals
+    the JAX oracle and, where S divides into its tiles, the Pallas kernel
+    in interpret mode."""
+    rng = np.random.default_rng(S)
+    q = rng.standard_normal((2, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, K, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, chunk=16)
+    assert out.shape == (2, S, H, D) and out.dtype == tq.dtype
+    _close(out, jax_flash_ref(jq, jk, jv, causal=causal, chunk=16), dtype)
+    if bq:
+        _close(out, jax_pallas_flash(jq, jk, jv, causal=causal, bq=bq,
+                                     bkv=bq, interpret=True), dtype)
+
+
 def test_gqa_head_order():
     """Query head h reads kv head h // G: with every query head equal and
     the two kv heads' values constant and distinct, heads 0..G-1 return kv
@@ -148,8 +215,9 @@ def test_gqa_head_order():
 
 def test_cpu_tensors_take_the_counted_plain_version():
     table = dispatch.kernel_table()
-    assert set(table) == {"conv2d", "paged_decode_attention",
-                          "paged_prefill_attention"}
+    assert set(table) == {"conv2d", "decode_attention", "flash_attention",
+                          "paged_decode_attention", "paged_prefill_attention",
+                          "ssm_scan"}
     dec = table["paged_decode_attention"]
     dispatch.reset_counts()
     _, kp, vp, tables = _pool(1, "float32")
@@ -188,8 +256,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
-    assert build.sources() == ["conv2d", "paged_decode_attention",
-                               "paged_prefill_attention"]
+    assert build.sources() == ["conv2d", "decode_attention",
+                               "flash_attention", "paged_decode_attention",
+                               "paged_prefill_attention", "ssm_scan"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
 
@@ -245,8 +314,9 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-@pytest.mark.parametrize("name", ["conv2d", "paged_decode_attention",
-                                  "paged_prefill_attention"])
+@pytest.mark.parametrize("name", ["conv2d", "decode_attention",
+                                  "flash_attention", "paged_decode_attention",
+                                  "paged_prefill_attention", "ssm_scan"])
 def test_ctypes_argtypes_match_the_c_entry_point(name):
     """Each launcher's ctypes signature has the types, in order, of its
     kernel's ``extern "C"`` entry point (a count off by one shows only as a
@@ -256,4 +326,5 @@ def test_ctypes_argtypes_match_the_c_entry_point(name):
     params = [" ".join(p.split()[:-1]).replace(" *", "*")
               for p in m.group(1).replace("\n", " ").split(",")]
     ops = importlib.import_module(dispatch.kernel_table()[name].launch.__module__)
-    assert ops._ARGTYPES == [_C_TYPES[p] for p in params]
+    argtypes = ops._DENSE_ARGTYPES if name == "decode_attention" else ops._ARGTYPES
+    assert argtypes == [_C_TYPES[p] for p in params]

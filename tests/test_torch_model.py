@@ -96,7 +96,8 @@ def test_prefill_then_decode_matches_jax(compute_dtype):
     counts = {n: k.plain_calls for n, k in dispatch.kernel_table().items()}
     assert counts == {"paged_prefill_attention": 3 * tcfg.num_layers,
                       "paged_decode_attention": 3 * tcfg.num_layers,
-                      "conv2d": 0}
+                      "conv2d": 0, "decode_attention": 0,
+                      "flash_attention": 0, "ssm_scan": 0}
 
     def close(t, j):
         if compute_dtype == "float32":
