@@ -70,6 +70,33 @@ Phases (each one raises on failure; the script then exits non-zero):
    versions, prefill and decode logits compared at depths 6 (one segment)
    and 13 (two segments and a 1-layer tail), gated by ``TOL_HYBRID_PATH_REL``,
    and 38, printed.
+12. K7 matmul: the kernel held against its plain version (evaluated in fp32
+   on the same values; limit ``dispatch.matmul_tolerance_ratio``) on
+   ``K7_CASES``: the training and decode MLP products, the tied LM head
+   with y a transposed view, ragged M / N / K, and the backward's
+   transposed operands, at fp32 / bf16 (fp16 on one); its two tile shapes
+   bit for bit; then ``K7_TIMED`` timed beside the plain version, one
+   ``torch.matmul`` (cuBLAS, TF32 off) and the bound.
+13. K7's backward: ``linear.matmul`` of (512, 2048) x (2048, 11008) bf16,
+   forward, dX and dW against autograd through the plain version in fp32;
+   three launches.
+14. Training path check: qwen2.5-3b at full width cut to 2 layers, fp32,
+   one 1 x 512 microbatch: the loss and every gradient leaf through the
+   kernels vs through the plain versions (``TOL_TRAIN_LOSS_REL``,
+   ``TOL_TRAIN_GRAD_REL``).
+15. Training: qwen2.5-3b at full width (36 layers, fp32 master weights,
+   bf16 compute, remat "full", AdamW) for 4 steps of 8 x 512 tokens in 8
+   microbatches through ``repro_torch.launch.train``: every loss finite, K7
+   launches exactly 1011 a microbatch (derived from the config), no plain
+   call; step time, tokens/s, tokens/s/W against the power limit, peak
+   memory; one more step under ``torch.profiler``.
+16. Checkpoint round trip on the card (full width, 2 layers): save after 2
+   steps, restore into a fresh trainer, one more step in both; identical
+   bit for bit.
+
+K7 also carries every weight product of phases 4-11 (the serving paths and
+GoogLeNet's classifier): phases 4, 6, 8, 10 and 11 hold its launch counts
+too (exactly, where the engine's calls fix them).
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -122,6 +149,42 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 on the CUDA cores (K5's arithmeti
 # set before the first run from the transformer's path check above (2
 # attention layers read 1.3e-6, 4 layers 3.0e-4).
 TOL_HYBRID_PATH_REL = {6: 1e-4, 13: 1e-2}
+QWEN_PRODUCTS = 7       # weight products a qwen2.5-3b block makes: wq wk wv wo, gate up down
+# K7 cases held against the plain version: (label, M, K, N, layout, dtypes).
+# The three timed shapes, then ragged M / N / K and the transposed operands
+# of the backward products and the tied LM head.
+K7_CASES = (
+    ("training mlp up", 512, 2048, 11008, "rows", ("float32", "bfloat16", "float16")),
+    ("decode mlp up", 4, 2048, 11008, "rows", ("float32", "bfloat16")),
+    ("tied lm head, y = tok.T", 512, 2048, 151936, "y.T", ("float32",)),
+    ("ragged M=1", 1, 2048, 256, "rows", ("float32", "bfloat16")),
+    ("ragged M=5 K=11008", 5, 11008, 2048, "rows", ("float32", "bfloat16")),
+    ("ragged M=513", 513, 2048, 11008, "rows", ("float32", "bfloat16")),
+    ("dX = dY @ W^T", 513, 11008, 2048, "y.T", ("float32", "bfloat16")),
+    ("dW = X^T @ dY", 2048, 513, 11008, "x.T", ("float32", "bfloat16")),
+    ("both transposed", 256, 11008, 513, "both.T", ("float32", "bfloat16")),
+)
+# (label, M, K, N, layout, dtype) timed for PERF.md; the first is the kernels line's
+K7_TIMED = (("training mlp up", 512, 2048, 11008, "rows", "bfloat16"),
+            ("decode mlp up", 4, 2048, 11008, "rows", "bfloat16"),
+            ("tied lm head, y = tok.T", 512, 2048, 151936, "y.T", "float32"))
+# Training path check (fp32, full width, 2 layers, one 1 x 512 microbatch):
+# kernels vs plain versions, the loss relative and each gradient leaf
+# relative to its largest entry; and both against a third run whose weight
+# products are summed in fp64 and rounded once ("exact products").  The
+# random model's near-one-hot attention amplifies every rounding of the
+# backward: the plain versions' own gradients (cuBLAS fp32 products) sit
+# up to 7.4e-3 of a leaf's largest from the exact-products run, the
+# kernels' 6.5e-3 (NVIDIA H100 80GB HBM3), so two right fp32 paths differ
+# by ~1e-2.  Gates: the loss within 1e-5; each leaf within 2e-2 of the
+# plain versions' and no more than TOL_TRAIN_EXACT_RATIO times as far from
+# the exact products as the plain versions' is.  (Set at 1e-3 before the
+# first run, which read 9.3e-3; the exact-products run then showed the
+# plain path itself 7.4e-3 away.)
+TOL_TRAIN_LOSS_REL = 1e-5
+TOL_TRAIN_GRAD_REL = 2e-2
+TOL_TRAIN_EXACT_RATIO = 2.0
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 512
 
 
 def log(*a) -> None:
@@ -350,6 +413,14 @@ def serving_phase(torch, np, table):
     torch.cuda.synchronize()
     counts = {name: (table[name].launches, table[name].plain_calls)
               for name in LM_KERNELS}
+    k7 = (table["matmul"].launches, table["matmul"].plain_calls)
+    # every model call (a prefill chunk: one K2 launch a layer; a decode
+    # step: one K1 launch a layer) makes the blocks' products and the LM head
+    calls = (counts["paged_decode_attention"][0] + counts["paged_prefill_attention"][0]) \
+        // cfg.num_layers
+    if k7 != ((cfg.num_layers * QWEN_PRODUCTS + 1) * calls, 0):
+        raise AssertionError(f"serving: matmul launches/plain calls {k7} for {calls} "
+                             f"model calls")
     for r in reqs:
         if r.state.value != "done" or len(r.output) != 32:
             raise AssertionError(f"request {r.rid}: state {r.state}, "
@@ -374,7 +445,8 @@ def serving_phase(torch, np, table):
         f"decode_steps={stats.decode_steps} prefill_compiles={stats.prefill_compiles} "
         f"kv_blocks_peak={stats.kv_blocks_peak} preemptions={stats.preemptions} "
         f"leaks={leaks}")
-    log(f"serving: launches={ {n: c[0] for n, c in counts.items()} } "
+    log(f"serving: launches={ {n: c[0] for n, c in counts.items()} } matmul={k7[0]} "
+        f"(= {cfg.num_layers * QWEN_PRODUCTS + 1} x {calls} model calls) "
         f"plain_calls={ {n: c[1] for n, c in counts.items()} } "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
         f"card={torch.cuda.get_device_name(0)}")
@@ -479,8 +551,8 @@ def path_check(torch, np):
         dispatch.reset_counts()
         kern = serve(cfg, p)
         table = dispatch.kernel_table()
-        launched = all(table[n].launches > 0 and table[n].plain_calls == 0
-                       for n in LM_KERNELS)
+        launched = all(table[n].launches > 0 for n in LM_KERNELS + ("matmul",)) and \
+            not any(k.plain_calls for k in table.values())
         with dispatch.plain_versions():
             plain = serve(cfg, p)
             plain64 = serve(cfg, p, chunk=64)
@@ -495,7 +567,7 @@ def path_check(torch, np):
             f"top1_agree={bool((plain64.argmax(-1) == plain.argmax(-1)).all())}")
         if not launched:
             raise AssertionError("path check: the kernel engine did not run "
-                                 "through both kernels alone")
+                                 "through the attention kernels and K7 alone")
         if tol and not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol):
             raise AssertionError(f"path check, depth {depth}: kernels and plain "
                                  f"versions disagree ({r_pre}, {r_dec})")
@@ -664,9 +736,14 @@ def hybrid_serving_phase(torch, np, table) -> dict:
             raise AssertionError(f"zamba2 request {r.rid}: state {r.state}, "
                                  f"{len(r.output)} tokens")
     n_seg = cfg.num_layers // cfg.shared_attn_every
+    # each model call: in_proj and out_proj of every Mamba-2 layer; the
+    # shared block's input projection, q k v, o and its MLP's three at each
+    # application; the LM head
+    per_call = 2 * cfg.num_layers + (1 + 4 + 3) * n_seg + 1
     want = {"ssm_scan": cfg.num_layers * stats.prefills,
             "flash_attention": n_seg * stats.prefills,
-            "decode_attention": n_seg * stats.decode_steps}
+            "decode_attention": n_seg * stats.decode_steps,
+            "matmul": per_call * (stats.prefills + stats.decode_steps)}
     got = {n: counts[n][0] for n in want}
     plain = {n: c[1] for n, c in counts.items() if c[1]}
     if got != want or plain or stats.prefills != len(reqs):
@@ -679,7 +756,7 @@ def hybrid_serving_phase(torch, np, table) -> dict:
         f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name})")
     log(f"zamba2 serving: prefills={stats.prefills} prefill_tokens={stats.prefill_tokens_computed} "
         f"decode_steps={stats.decode_steps} launches={got} (= 38 x prefills, 6 x prefills, "
-        f"6 x decode steps) plain_calls=0 "
+        f"6 x decode steps, {per_call} x model calls) plain_calls=0 "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
     hybrid_profile(torch, np, eng, Request, greedy)
     del eng
@@ -761,7 +838,7 @@ def hybrid_path_check(torch, np):
         dispatch.reset_counts()
         kern = serve(cfg, p)
         table = dispatch.kernel_table()
-        launched = all(table[n].launches > 0 for n in HYBRID_KERNELS) and \
+        launched = all(table[n].launches > 0 for n in HYBRID_KERNELS + ("matmul",)) and \
             not any(k.plain_calls for k in table.values())
         with dispatch.plain_versions():
             plain = serve(cfg, p)
@@ -909,16 +986,18 @@ def googlenet_phase(torch, np, table) -> int:
         dispatch.reset_counts()
         kern = googlenet.forward(cfg, params, x8)
         torch.cuda.synchronize()
-        n_kern = (conv.launches, conv.plain_calls)
+        n_kern = (conv.launches, conv.plain_calls, table["matmul"].launches,
+                  table["matmul"].plain_calls)
         with dispatch.plain_versions():
             plain = googlenet.forward(cfg, params, x8)
         rel = ((kern - plain).abs().max() / plain.abs().max()).item()
         top1 = bool((kern.argmax(-1) == plain.argmax(-1)).all())
         log(f"googlenet {prec} path check (batch {CONV_BATCH}, {CONV_SIZE}x{CONV_SIZE}): "
             f"kernels vs plain rel={rel:.3e} (tol {TOL_GOOGLENET[prec]}) top1_agree={top1} "
-            f"max|logit|={plain.abs().max().item():.4f} conv launches/plain={n_kern}")
+            f"max|logit|={plain.abs().max().item():.4f} conv launches/plain, matmul "
+            f"launches/plain={n_kern}")
         if not (bool(torch.isfinite(kern).all()) and rel <= TOL_GOOGLENET[prec]
-                and top1 and n_kern == (57, 0)):
+                and top1 and n_kern == (57, 0, 1, 0)):
             raise AssertionError(f"googlenet {prec} path check failed: rel {rel}, "
                                  f"top1 {top1}, counts {n_kern}")
         # (b) + (c): through the offload engine at batch 1 and 8
@@ -968,6 +1047,351 @@ def googlenet_phase(torch, np, table) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# K7 matmul and the training slice (phases 12-16)
+# ---------------------------------------------------------------------------
+
+
+
+def k7_operands(torch, M, K, N, layout, dtype, seed=0):
+    """x (M, K), y (K, N) of ``dtype``, each row-major or, where ``layout``
+    says, a transposed view of a row-major tensor (as ``tok.T`` and the
+    backward's ``x.T`` / ``w.T`` reach the kernel).  y is scaled by
+    1/sqrt(K), as weights are."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if layout in ("x.T", "both.T"):
+        x = torch.randn((K, M), generator=g, device="cuda").to(dt).T
+    else:
+        x = torch.randn((M, K), generator=g, device="cuda").to(dt)
+    if layout in ("y.T", "both.T"):
+        y = (torch.randn((N, K), generator=g, device="cuda") / K ** 0.5).to(dt).T
+    else:
+        y = (torch.randn((K, N), generator=g, device="cuda") / K ** 0.5).to(dt)
+    return x, y
+
+
+def hold_matmul(torch, kern, x, y, label, **kw) -> float:
+    """K7 on one case against its plain version evaluated in fp32 on the
+    same values (``dispatch.matmul_tolerance_ratio``); raise past the limit.
+    Returns the largest absolute error."""
+    out = kern.launch(x, y, **kw)
+    ref = kern.plain(x.float(), y.float())
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    ratio = kern.tolerance(out, ref, x.shape[1])
+    log(f"matmul {label} {str(x.dtype)[6:]} M={x.shape[0]} K={x.shape[1]} N={y.shape[1]} "
+        f"x.stride={tuple(x.stride())} y.stride={tuple(y.stride())}: "
+        f"max_abs_err={err:.3e} err/limit={ratio:.3f}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"matmul {label} disagrees with its plain version: "
+                             f"err/limit {ratio}")
+    return err
+
+
+def k7_work(M, K, N, elem) -> tuple[float, float]:
+    """(bytes, flops) of one product: x and y read once, out written once."""
+    return elem * (M * K + K * N + M * N), 2.0 * M * K * N
+
+
+def matmul_phase(torch, table) -> dict:
+    """Phase 12: K7 against its plain version on every case of ``K7_CASES``,
+    the two tile shapes bit for bit, then the timed shapes: kernel, plain
+    version, one ``torch.matmul`` (cuBLAS; TF32 off at fp32) and bound."""
+    kern = table["matmul"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for label, M, K, N, layout, dtypes in K7_CASES:
+        for dtype in dtypes:
+            x, y = k7_operands(torch, M, K, N, layout, dtype)
+            errs[(label, dtype)] = hold_matmul(torch, kern, x, y, f"{label} ({layout})")
+            del x, y
+    # the order of the sum depends on k alone: both tile shapes agree bit for bit
+    for M, K, N in ((1, 2048, 256), (5, 11008, 2048), (16, 2048, 11008), (513, 2048, 300)):
+        for dtype in ("float32", "bfloat16"):
+            x, y = k7_operands(torch, M, K, N, "rows", dtype, seed=1)
+            wide = kern.launch(x, y, tile="wide")
+            narrow = kern.launch(x, y, tile="narrow")
+            same = bool(torch.equal(wide, narrow))
+            log(f"matmul tiling M={M} K={K} N={N} {dtype}: 128x128 and 16x32 tiles "
+                f"bit-identical={same}")
+            if not same:
+                raise AssertionError(f"matmul: the tile shapes disagree at M={M} K={K} "
+                                     f"N={N} {dtype}")
+    timer = Timer(torch)
+    out = {}
+    for label, M, K, N, layout, dtype in K7_TIMED:
+        x, y = k7_operands(torch, M, K, N, layout, dtype)
+        nbytes, flops = k7_work(M, K, N, x.element_size())
+        peak = FP32_FLOPS if dtype == "float32" else BF16_FLOPS
+        r = dict(ms=timer(lambda: kern.launch(x, y)),
+                 plain_ms=timer(lambda: kern.plain(x, y)),
+                 library_ms=timer(lambda: torch.matmul(x, y)),
+                 bytes=nbytes, flops=flops, max_abs_err=errs[(label, dtype)],
+                 max_abs_err_fp32=errs[(label, "float32")],
+                 shape=f"{label}: M={M} K={K} N={N} {dtype} ({layout})")
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, peak)
+        log(f"matmul timed {r['shape']}: kernel {r['ms']:.4f}ms "
+            f"({flops / r['ms'] / 1e9:.1f} TFLOP/s) plain {r['plain_ms']:.4f}ms "
+            f"torch.matmul {r['library_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
+            f"({r['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        out[label] = r
+        del x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def matmul_backward_phase(torch, table) -> None:
+    """Phase 13: ``linear.matmul`` of (512, 2048) x (2048, 11008) bf16 on the
+    card: its forward and the two backward products (dX, dW, through
+    strided views) against autograd through the plain version run in fp32
+    on the same values; three launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import linear
+    kern = table["matmul"]
+    x, w = k7_operands(torch, 512, 2048, 11008, "rows", "bfloat16", seed=2)
+    g = torch.randn((512, 11008), generator=torch.Generator("cuda").manual_seed(3),
+                    device="cuda").bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    dispatch.reset_counts()
+    out = linear.matmul(x, w)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = (kern.launches, kern.plain_calls)
+    with dispatch.plain_versions():
+        x32 = x.detach().float().requires_grad_(True)
+        w32 = w.detach().float().requires_grad_(True)
+        out32 = linear.matmul(x32, w32)
+        out32.backward(g.float())
+    for name, got, ref, k in (("out", out, out32, 2048), ("dX", x.grad, x32.grad, 11008),
+                              ("dW", w.grad, w32.grad, 512)):
+        ratio = kern.tolerance(got.detach(), ref.detach(), k)
+        err = (got.detach().float() - ref.detach()).abs().max().item()
+        log(f"matmul backward (512x2048 @ 2048x11008 bf16) {name} {tuple(got.shape)}: "
+            f"max_abs_err={err:.3e} err/limit={ratio:.3f} (K={k})")
+        if not ratio <= 1.0:
+            raise AssertionError(f"matmul backward: {name} disagrees with autograd "
+                                 f"through the plain version ({ratio})")
+    log(f"matmul backward: kernel launches/plain calls {launches} (1 forward, dX, dW)")
+    if launches != (3, 0):
+        raise AssertionError(f"matmul backward: {launches} launches / plain calls")
+    del x, w, g, out, out32, x32, w32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_path_check(torch, np) -> None:
+    """Phase 14: qwen2.5-3b at full width, 2 layers, fp32 compute: the loss
+    and every gradient leaf of one 1 x 512 microbatch (``make_loss_fn``,
+    remat "full") through the kernels, through the plain versions, and
+    with every weight product summed in fp64 and rounded once (the
+    accuracy both are held to); beside them two plain runs that differ
+    only in the attention's KV tile."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import linear
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32", num_layers=2)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in next(SyntheticTokens(cfg, 1, TRAIN_SEQ, seed=5)).items()}
+    ps = leaves(params)
+
+    def loss_and_grads(chunk=4096):
+        for p in ps:
+            p.grad = None
+            p.requires_grad_(True)
+        loss, _ = make_loss_fn(cfg, chunk=chunk)(params, batch)
+        loss.backward()
+        out = (loss.item(), [p.grad for p in ps])
+        for p in ps:
+            p.grad = None
+            p.requires_grad_(False)
+        return out
+
+    dispatch.reset_counts()
+    kern_loss, kern_g = loss_and_grads()
+    k7 = dispatch.kernel_table()["matmul"]
+    counts = (k7.launches, k7.plain_calls)
+    want = cfg.num_layers * QWEN_PRODUCTS * 2 + 1 + 2 * (cfg.num_layers * QWEN_PRODUCTS + 1)
+    with dispatch.plain_versions():
+        plain_loss, plain_g = loss_and_grads()
+        plain64_loss, plain64_g = loss_and_grads(chunk=64)
+    exact = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
+    with mock.patch.object(linear, "_k7", exact):
+        exact_loss, exact_g = loss_and_grads()
+
+    def rel(a, b):
+        return [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+                for x, y in zip(a, b)]
+    r_loss = abs(kern_loss - plain_loss) / abs(plain_loss)
+    r_grad = rel(kern_g, plain_g)
+    k_exact, p_exact = rel(kern_g, exact_g), rel(plain_g, exact_g)
+    ratio = max(k / max(p, 1e-7) for k, p in zip(k_exact, p_exact))
+    log(f"training path check (fp32, full width, 2 layers, 1 x {TRAIN_SEQ} tokens): "
+        f"loss kernels {kern_loss:.6f} plain {plain_loss:.6f} exact products "
+        f"{exact_loss:.6f}, kernels vs plain rel={r_loss:.3e} (tol {TOL_TRAIN_LOSS_REL}); "
+        f"worst gradient leaf of {len(ps)}: kernels vs plain rel={max(r_grad):.3e} (tol "
+        f"{TOL_TRAIN_GRAD_REL}), vs exact products kernels {max(k_exact):.3e} plain "
+        f"{max(p_exact):.3e}, worst ratio {ratio:.3f} (tol {TOL_TRAIN_EXACT_RATIO}); plain "
+        f"KV tile 64 vs 4096: loss rel={abs(plain64_loss - plain_loss) / abs(plain_loss):.3e}"
+        f" gradient rel={max(rel(plain64_g, plain_g)):.3e}; matmul launches/plain {counts}")
+    if counts != (want, 0):
+        raise AssertionError(f"training path check: matmul {counts}, expected ({want}, 0)")
+    finite = all(bool(torch.isfinite(g).all()) for g in kern_g)
+    if not (finite and r_loss <= TOL_TRAIN_LOSS_REL and max(r_grad) <= TOL_TRAIN_GRAD_REL
+            and ratio <= TOL_TRAIN_EXACT_RATIO):
+        raise AssertionError(f"training path check: kernels and plain versions disagree "
+                             f"(loss {r_loss}, gradients {max(r_grad)}, ratio {ratio}, "
+                             f"finite {finite})")
+    del params, ps, kern_g, plain_g, plain64_g, exact_g, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def training_phase(torch, np, table) -> int:
+    """Phase 15: qwen2.5-3b at full width (36 layers) trained for
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through
+    ``python -m repro_torch.launch.train``'s entry point, in the config's 8
+    microbatches.  Every loss finite; K7 launches exactly the count derived
+    from the config, no plain call; then one more step under the profiler.
+    Returns K7's launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.optim.optimizers import leaves
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("qwen2.5-3b")
+    L, accum = cfg.num_layers, cfg.accum_steps
+    # per microbatch: each block's products in the forward and again in the
+    # remat recompute, the LM head once, and two products in each backward
+    per_micro = L * QWEN_PRODUCTS * 2 + 1 + 2 * (L * QWEN_PRODUCTS + 1)
+    want = per_micro * accum * TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        args = train_launcher.parse(
+            ["--arch", "qwen2.5-3b", "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", d])
+        dispatch.reset_counts()
+        t0 = time.monotonic()
+        out = train_launcher.run(args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {n: (k.launches, k.plain_calls) for n, k in table.items()}
+    s = out["summary"]
+    losses = [h["loss"] for h in out["history"] if "loss" in h]
+    k7 = counts["matmul"]
+    plain = {n: c[1] for n, c in counts.items() if c[1]}
+    state_bytes = 4 * 4 * sum(p.numel() for p in leaves(out["trainer"].params))
+    log(f"training: qwen2.5-3b L={L} d_model={cfg.d_model} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} params={state_bytes / 16 / 1e9:.3f}B fp32 master "
+        f"weights, bf16 compute, remat={cfg.remat}, adamw; {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {accum} microbatches; wall {wall:.1f}s "
+        f"(init included)")
+    log(f"training: losses={[round(v, 4) for v in losses]} first_step={s['first_step_s']:.3f}s "
+        f"step={s['step_s']:.3f}s tokens/s={s['tokens_per_s']:.1f} "
+        f"tokens/s/W={s['tokens_per_s'] / watts:.4f} at power.limit {watts:.0f} W ({name}) "
+        f"max_memory_allocated={s['peak_memory_bytes'] / 2**30:.2f}GiB "
+        f"(params+grads+adamw state {state_bytes / 2**30:.2f}GiB)")
+    log(f"training: matmul launches={k7[0]} (expected {want} = {per_micro} per microbatch "
+        f"x {accum} x {TRAIN_STEPS} steps) plain_calls={plain or 0}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"training: losses {losses}")
+    if k7[0] != want or plain:
+        raise AssertionError(f"training: matmul launches {k7[0]}, expected {want}; "
+                             f"plain calls {plain}")
+    # where the time goes: one more step (8 microbatches) under the profiler
+    tr = out["trainer"]
+    batch = next(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tr._step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("training profile: the profiler saw no device time")
+    k7_ms = sum(r[0] for r in rows if "matmul_kernel" in r[2])
+    log(f"training profile (one step, {accum} microbatches): wall={wall:.3f}s "
+        f"device_busy={busy:.3f}s busy_share={busy / wall:.3f} "
+        f"idle_share={1 - busy / wall:.3f}; matmul kernel {k7_ms / 1e3:.3f}s = "
+        f"{k7_ms / 1e3 / busy:.3f} of device time")
+    for ms, count, key in rows[:14]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k7[0]
+
+
+def checkpoint_phase(torch, np) -> None:
+    """Phase 16: qwen2.5-3b at full width cut to 2 layers (bf16 compute)
+    on the card: trainer A takes 2 steps and saves (async); trainer B
+    restores that checkpoint into fresh state; both take step 3 on the same
+    batch.  The restored state and the states after step 3 must be
+    identical, bit for bit."""
+    import tempfile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizers import adamw, leaves, warmup_cosine
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = arch_registry.config("qwen2.5-3b").replace(num_layers=2, accum_steps=2)
+
+    def trainer(d, steps, skip=0, seed=0):
+        data = SyntheticTokens(cfg, 2, 128, seed=4)
+        for _ in range(skip):
+            next(data)
+        tc = TrainerConfig(num_steps=steps, ckpt_every=2, ckpt_dir=d, seed=seed,
+                           async_save=True, device="cuda")
+        return Trainer(cfg, data, tc, optimizer=adamw(warmup_cosine(3e-4, 1, 10)))
+
+    def state(tr):
+        return leaves(tr.params) + leaves(tr.opt_state)
+
+    with tempfile.TemporaryDirectory() as d:
+        a = trainer(d, 2)
+        a.train()                               # saves at step 2
+        saved = [t.clone() for t in state(a)]
+        b = trainer(d, 3, skip=2, seed=1)       # another init, then the checkpoint
+        resumed = b.try_resume()
+        same_restore = resumed and b.step == 2 and all(
+            torch.equal(x, y) for x, y in zip(saved, state(b)))
+        restored_step = b.step
+        a.tc.num_steps = 3                      # its data yields the third batch next
+        a.train()
+        b.train()
+        diff = max((x.float() - y.float()).abs().max().item()
+                   for x, y in zip(state(a), state(b)))
+        losses = (a.history[-1]["loss"], b.history[-1]["loss"])
+    log(f"checkpoint round trip (qwen2.5-3b full width, 2 layers, bf16): restored "
+        f"step {restored_step} state identical={same_restore}; step 3 losses {losses}, "
+        f"largest state difference after it {diff:.3e}")
+    if not (same_restore and diff == 0.0 and losses[0] == losses[1]):
+        raise AssertionError("checkpoint round trip: restored state or the next step "
+                             "differs")
+    del a, b, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -999,10 +1423,16 @@ def main() -> int:
     hybrid_path_check(torch, np)
     results.update(conv_phase(torch, table))
     launches["conv2d"] = googlenet_phase(torch, np, table)
+    k7 = matmul_phase(torch, table)
+    results["matmul"] = k7[K7_TIMED[0][0]]
+    matmul_backward_phase(torch, table)
+    train_path_check(torch, np)
+    launches["matmul"] = training_phase(torch, np, table)
+    checkpoint_phase(torch, np)
 
     kernels = []
     for name in ("paged_decode_attention", "paged_prefill_attention", "decode_attention",
-                 "flash_attention", "ssm_scan", "conv2d"):
+                 "flash_attention", "ssm_scan", "conv2d", "matmul"):
         k, r = table[name], results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,

@@ -15,7 +15,11 @@ emulation with one 16-row pool block lost, and of the plain version run
 at bf16 (which also rounds scores and PV to bf16).  Then K6 conv2d on
 chip_smoke's gate shapes at batch 1: the plain version at fp16 / bf16 --
 the kernel's own round points, an fp32 sum rounded once -- against it at
-fp32, and the same with one 16-deep chunk of K lost.
+fp32, and the same with one 16-deep chunk of K lost.  Then K7 matmul on
+``K7_GATE_CASES`` (chip_smoke's shapes, cut in M or N to run on a CPU in
+seconds): a product summed in fp64 and rounded once to the type (what a
+right kernel can at best return) against the plain version in fp32, and
+the same with the first 32-deep slice of K lost.
 
 ``--card``: copies ``src/`` into a temporary directory and changes one
 kernel there: each paged attention kernel's block loop skips pool block 0
@@ -23,11 +27,12 @@ when more than two blocks are live; the conv kernel's K loop skips its
 first 16-deep chunk, or its window loses the centre tap; the scan (K5)
 drops the state carried into the next chunk; the flash kernel (K4) skips
 the diagonal KV tile; the dense decode kernel (K3) skips the last live KV
-tile.  Builds that kernel from the copy and runs chip_smoke's gate on its
+tile; the matmul kernel (K7) loses its first 32-deep slice of K.  Builds that kernel from the copy and runs chip_smoke's gate on its
 cases (fp32 and bf16 for attention and the scan, at zamba2 widths for
-K3-K5; fp32 / fp16 / bf16 on the gate shapes for conv), printing err/limit
-for each; the gate must fail the long attention cases, every conv case and
-every K3-K5 case.  Once for each broken kernel.
+K3-K5; fp32 / fp16 / bf16 on the gate shapes for conv; chip_smoke's
+``K7_CASES`` for K7), printing err/limit for each; the gate must fail the
+long attention cases, every conv case and every K3-K7 case.  Once for each
+broken kernel.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ import sys
 import tempfile
 from pathlib import Path
 
-from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, PREFILL_CASES, ZAMBA_MAX_LEN,
-                        conv_groups)
+from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, K7_CASES, PREFILL_CASES,
+                        ZAMBA_MAX_LEN, conv_groups)
 
 ROOT = Path(__file__).resolve().parent
 H, K, D, BS = 16, 2, 128, 16
@@ -54,6 +59,17 @@ SSM_DROP_CARRY = "hs[n * PT + p] = s;  // the carried state is dropped"
 TILE_LOOP = "for (int it = 0; it < ntile; ++it) {"
 SKIP_DIAGONAL = "for (int it = 0; it < ntile - causal; ++it) {"
 SKIP_LAST_TILE = "for (int it = 0; it < ntile - 1; ++it) {"
+K7_ADD = "for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];"
+K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
+                 "acc[i][j] += (k0 == 0 && K > 2 * BK) ? 0.f : part[i][j];  // slice 0 lost")
+# K7 on the CPU: (label, M, K, N, layout) from chip_smoke's K7_CASES, cut
+# in M or N where a CPU would take minutes
+K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
+                 ("ragged M=1", 1, 2048, 256, "rows"),
+                 ("ragged M=5 K=11008", 5, 11008, 2048, "rows"),
+                 ("training mlp up, M cut to 64", 64, 2048, 11008, "rows"),
+                 ("dX = dY @ W^T, M cut to 33", 33, 11008, 2048, "y.T"),
+                 ("dW = X^T @ dY, N cut to 512", 2048, 513, 512, "x.T"))
 # (kernel, text, replacement, what the broken copy does)
 MUTANTS = (
     ("paged_decode_attention", LOOP, SKIP_BLOCK_0,
@@ -68,6 +84,7 @@ MUTANTS = (
     ("flash_attention", TILE_LOOP, SKIP_DIAGONAL,
      "skips the diagonal KV tile when causal"),
     ("decode_attention", TILE_LOOP, SKIP_LAST_TILE, "skips the last live KV tile"),
+    ("matmul", K7_ADD, K7_LOSE_SLICE, "loses the first 32-deep slice of K when K > 64"),
 )
 
 
@@ -167,6 +184,7 @@ def cpu_check() -> None:
     print(f"cpu, bf16, seed 0: emulated kernel with one block lost, err/limit "
           f"{min(lost):.2f} to {max(lost):.2f} over {len(lost)} long sequences and chunks")
     conv_cpu_check(torch)
+    matmul_cpu_check(torch)
 
 
 def conv_cpu_check(torch) -> None:
@@ -200,6 +218,32 @@ def conv_cpu_check(torch) -> None:
           "worst err/limit of the kernel's round points "
           + ", ".join(f"{k} {v:.3f}" for k, v in right.items())
           + "; least err/limit with the first K chunk lost "
+          + ", ".join(f"{k} {v:.1f}" for k, v in lost.items()))
+
+
+def matmul_cpu_check(torch) -> None:
+    """K7 on ``K7_GATE_CASES``, CPU: the product summed in fp64 and rounded
+    once to fp32 / bf16 (a right kernel's best) against the plain version
+    at fp32, and the same with K rows 0-31 (the first slice) lost."""
+    from repro_torch.kernels.dispatch import matmul_tolerance_ratio
+    right, lost = {}, {}
+    for label, M, K, N, layout in K7_GATE_CASES:
+        g = torch.Generator().manual_seed(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, K), generator=g).to(dtype).float()
+            y = (torch.randn((K, N), generator=g) / K ** 0.5).to(dtype).float()
+            ref = x @ y
+            exact = (x.double() @ y.double()).to(dtype)
+            x_lost = x.clone()
+            x_lost[:, :32] = 0
+            out_lost = (x_lost.double() @ y.double()).to(dtype)
+            key = str(dtype)[6:]
+            right[key] = max(right.get(key, 0.0), matmul_tolerance_ratio(exact, ref, K))
+            lost[key] = min(lost.get(key, float("inf")),
+                            matmul_tolerance_ratio(out_lost, ref, K))
+    print(f"cpu, matmul on {len(K7_GATE_CASES)} shapes: worst err/limit of an exact "
+          "sum rounded once " + ", ".join(f"{k} {v:.3f}" for k, v in right.items())
+          + "; least err/limit with the first 32-deep K slice lost "
           + ", ".join(f"{k} {v:.1f}" for k, v in lost.items()))
 
 
@@ -250,6 +294,12 @@ def mutant_gate(d: str, name: str) -> None:
         cases = [(f"B=4 S={ZAMBA_MAX_LEN} lengths={lengths}",
                   lambda dt: cs.dense_decode_case(torch, lengths, dt), {})]
         dtypes = (torch.float32, torch.bfloat16)
+    elif name == "matmul":
+        cases = [(f"{label} M={M} K={K} N={N} ({layout})",
+                  lambda dt, M=M, K=K, N=N, layout=layout: cs.k7_operands(
+                      torch, M, K, N, layout, str(dt)[6:]), {})
+                 for label, M, K, N, layout, _ in K7_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
     elif name == "paged_decode_attention":
         cases = [(f"lengths={lengths}",
                   lambda dt, n=lengths: cs.decode_case(torch, n, dt), {"softcap": sc})
@@ -269,7 +319,8 @@ def mutant_gate(d: str, name: str) -> None:
             ref = kern.plain(*(a.float() if a.is_floating_point() else a
                                for a in args), **kw)
             torch.cuda.synchronize()
-            ratio = kern.tolerance(out, ref)
+            ratio = (kern.tolerance(out, ref, args[0].shape[1]) if name == "matmul"
+                     else kern.tolerance(out, ref))
             if ratio > 1:
                 failed.append(ratio)
             print(f"  {label} {str(dtype)[6:]}: err/limit {ratio:.2f}"

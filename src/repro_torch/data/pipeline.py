@@ -1,9 +1,43 @@
-"""Deterministic synthetic image source for GoogLeNet (counterpart of
-``repro/data/pipeline.py::SyntheticImages``, numpy only).  For the same
-seed it yields the same bytes as the reference's copy."""
+"""Deterministic synthetic sources and host-side prefetch (counterpart of
+``repro/data/pipeline.py``: ``SyntheticTokens``, ``SyntheticImages`` and
+``Prefetcher``, numpy only).  For the same seed each source yields the
+same bytes as the reference's copy.  ``shard_batch`` comes with the
+distributed slice."""
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Iterator
+
 import numpy as np
+
+
+class SyntheticTokens:
+    """LM token stream: (tokens, labels) with labels = next token."""
+
+    def __init__(self, cfg, batch: int, seq_len: int, *, seed: int = 0):
+        self.cfg = cfg
+        self.batch = batch
+        self.seq_len = seq_len
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        # a deterministic, slightly-structured stream (zipfian-ish ids)
+        z = self.rng.zipf(1.3, size=(self.batch, self.seq_len + 1))
+        toks = (z % self.cfg.vocab_size).astype(np.int32)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.cfg.m_rope:
+            pos = np.broadcast_to(np.arange(self.seq_len, dtype=np.int32),
+                                  (self.batch, self.seq_len))
+            out["positions"] = np.broadcast_to(pos, (3, *pos.shape)).copy()
+        if self.cfg.family == "audio":
+            out["frames"] = self.rng.standard_normal(
+                (self.batch, self.cfg.encdec.num_encoder_frames,
+                 self.cfg.d_model), dtype=np.float32)
+        return out
 
 
 class SyntheticImages:
@@ -34,3 +68,50 @@ class SyntheticImages:
 
     def __next__(self) -> dict:
         return self.sample(self.batch)
+
+
+class Prefetcher:
+    """Background-thread prefetch of host batches (depth-bounded queue).
+    The worker is a named daemon thread that ends on :meth:`close` even
+    when the queue is full (the reference's can stay blocked in ``put``)."""
+
+    _POLL_S = 0.05
+
+    def __init__(self, it: Iterator[dict], depth: int = 2):
+        self.it = it
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="prefetch")
+        self.thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        try:
+            for item in self.it:
+                if not self._put(item):
+                    return
+        finally:
+            self._put(None)             # end of the source (or its error)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if item is None:
+            raise StopIteration
+        return item
+
+    def close(self):
+        """Stop the worker and wait for it to end."""
+        self._stop.set()
+        self.thread.join()

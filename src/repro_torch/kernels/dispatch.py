@@ -29,7 +29,7 @@ class Kernel:
         self.name = name
         self.launch = launch
         self.plain = plain
-        self.tolerance = tolerance    # (out, fp32 ref) -> largest err/limit
+        self.tolerance = tolerance    # (out, fp32 ref[, K]) -> largest err/limit
         self.source = source          # CUDA source, relative to the repo
         self.replaces = replaces      # the TPU kernel it replaces, file:line
         self.launches = 0
@@ -74,6 +74,7 @@ def kernel_table() -> dict[str, Kernel]:
     import repro_torch.kernels.conv2d.ops  # noqa: F401
     import repro_torch.kernels.decode_attention.ops  # noqa: F401
     import repro_torch.kernels.flash_attention.ops  # noqa: F401
+    import repro_torch.kernels.matmul.ops  # noqa: F401
     import repro_torch.kernels.prefill_attention.ops  # noqa: F401
     import repro_torch.kernels.ssm_scan.ops  # noqa: F401
     return dict(_TABLE)
@@ -199,3 +200,31 @@ def ssm_tolerance_ratio(out, ref) -> float:
     return max(((o.float() - r.float()).abs().max()
                 / (SSM_RTOL * r.float().abs().max().clamp(min=1e-30))).item()
                for o, r in zip(out, ref))
+
+
+# K7 matmul, kernel vs plain version evaluated in fp32 on the same values.
+# Both sum the K products of an output in fp32, in other orders: each order
+# is a chain of roundings whose error grows like 2^-24 sqrt(K) times the
+# partial sums, which are of the order of max|ref| (on an H100 the two
+# differ by 1.2e-6 of max|ref| on random operands at K = 2048, against
+# cuBLAS's fp32 product).  A low-precision output adds its one
+# rounding, at most 2^-8 |ref| (bf16) or 2^-11 |ref| (fp16).  Limit per
+# element: MATMUL_RTOL |ref| + MATMUL_K_ATOL sqrt(K) max|ref|: twice the
+# rounding bound (none at fp32), and 16x the order scale (4.3e-5 of
+# max|ref| at K = 2048, 1.0e-4 at K = 11008).  A sum that loses one
+# 32-deep slice of K moves outputs by ~sqrt(32 / K) rms(ref): 0.02 of
+# max|ref| at K = 2048, hundreds of limits.
+MATMUL_RTOL = {torch.float32: 0.0, torch.float16: 2.0 ** -10,
+               torch.bfloat16: 2.0 ** -7}
+MATMUL_K_ATOL = 2.0 ** -20
+
+
+def matmul_tolerance_ratio(out, ref, k: int) -> float:
+    """Largest ``|out - ref| / limit`` over all elements (<= 1 passes) for
+    the matmul kernel's output ``out`` (fp32, fp16 or bf16) against the
+    plain version in fp32 ``ref``, for a product over ``k`` terms."""
+    err = (out.float() - ref.float()).abs()
+    ref = ref.float()
+    floor = MATMUL_K_ATOL * max(k, 1) ** 0.5 * ref.abs().max()
+    limit = MATMUL_RTOL[out.dtype] * ref.abs() + floor
+    return (err / limit.clamp(min=1e-30)).max().item()

@@ -14,6 +14,7 @@ import torch
 from repro_torch.common import dtype_of
 from repro_torch.models.layers.conv import (conv_table, global_avg_pool, lrn,
                                             max_pool, relu_conv)
+from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.module import bias, init_table, weight
 
 # (1x1, 3x3reduce, 3x3, 5x5reduce, 5x5, pool-proj) per inception module
@@ -91,7 +92,7 @@ def forward(cfg, params, images: torch.Tensor) -> torch.Tensor:
     x = inception(params["inc5a"], x)
     x = inception(params["inc5b"], x)                    # 7x7x1024
     x = global_avg_pool(x)                               # (B, 1024)
-    return x.float() @ params["fc_w"].float() + params["fc_b"].float()
+    return matmul(x.float(), params["fc_w"].float()) + params["fc_b"].float()
 
 
 def predict(cfg, params, images: torch.Tensor):

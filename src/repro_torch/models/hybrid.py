@@ -37,6 +37,7 @@ from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import ssm as S
 from repro_torch.models.layers.embedding import embed, embedding_table
 from repro_torch.models.layers.embedding import logits as lm_logits
+from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.mlp import swiglu, swiglu_table
 from repro_torch.models.layers.module import (cast_product_weights,
                                               init_table, stack_table,
@@ -134,7 +135,7 @@ def _shared_attn(cfg, p, x, e0, positions, *, cache_k=None, cache_v=None,
     ``flash_attention``, whose queries and keys sit at positions 0..S-1
     -- the prefill's ``positions``.  Decode: the new row is written into
     the contiguous cache and attended through the dense decode kernel."""
-    z = torch.cat([x, e0], dim=-1) @ p["in_proj"].to(x.dtype)
+    z = matmul(torch.cat([x, e0], dim=-1), p["in_proj"].to(x.dtype))
     h = apply_norm(cfg, p["ln1"], z)
     q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
     if cache_k is None:

@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.module import bias, scale, weight
 from repro_torch.models.layers.norms import head_rmsnorm
 from repro_torch.models.layers.rope import apply_rope
@@ -41,7 +42,7 @@ def attention_table(cfg, d_model: int | None = None):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """'bsd,dhk->bshk' as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def qkv_project(cfg, params, x: torch.Tensor, positions: torch.Tensor | None):
@@ -158,4 +159,4 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attn_output(cfg, params, attn: torch.Tensor) -> torch.Tensor:
     """attn: (B, S, H, hd) -> (B, S, D)."""
     h, k, d = params["wo"].shape
-    return attn.flatten(-2) @ params["wo"].to(attn.dtype).reshape(h * k, d)
+    return matmul(attn.flatten(-2), params["wo"].to(attn.dtype).reshape(h * k, d))

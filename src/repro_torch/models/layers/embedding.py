@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.module import weight
 
 
@@ -22,12 +23,13 @@ def embed(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def logits(params, x: torch.Tensor, tie: bool,
            softcap: float = 0.0) -> torch.Tensor:
-    """x: (..., D) -> (..., V). Computed in fp32 for numerics."""
+    """x: (..., D) -> (..., V). Computed in fp32 for numerics; the tied
+    table's transpose reaches the kernel as a view, not a copy."""
     if tie:
         w = params["tok"].float().T
     else:
         w = params["lm_head"].float()
-    out = x.float() @ w
+    out = matmul(x.float(), w)
     if softcap:
         out = softcap * torch.tanh(out / softcap)
     return out

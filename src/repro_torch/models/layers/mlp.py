@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.module import weight
 
 
@@ -18,7 +19,7 @@ def swiglu_table(d_model: int, d_ff: int):
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d_model) -> (..., d_model).  ``.to(x.dtype)`` is a no-op
     for weights already cast at load (:func:`transformer.prepare_params`)."""
-    gate = x @ params["w_gate"].to(x.dtype)
-    up = x @ params["w_up"].to(x.dtype)
+    gate = matmul(x, params["w_gate"].to(x.dtype))
+    up = matmul(x, params["w_up"].to(x.dtype))
     h = F.silu(gate) * up
-    return h @ params["w_down"].to(x.dtype)
+    return matmul(h, params["w_down"].to(x.dtype))

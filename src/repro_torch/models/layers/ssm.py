@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.common import dtype_of, truncated_normal_init
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.module import ParamDef, bias, scale, weight
 from repro_torch.models.layers.norms import rmsnorm
 
@@ -100,7 +101,7 @@ def _mamba_split(cfg, params, u):
     d_in = s.d_inner(cfg.d_model)
     h = s.num_heads(cfg.d_model)
     n = s.d_state
-    proj = u @ params["in_proj"].to(u.dtype)
+    proj = matmul(u, params["in_proj"].to(u.dtype))
     z = proj[..., :d_in]
     xbc = proj[..., d_in:d_in + d_in + 2 * n]
     dt_raw = proj[..., -h:]
@@ -137,7 +138,7 @@ def mamba_forward(cfg, params, u, state: MambaState | None = None,
     y = y.reshape(B, S, d_in).to(u.dtype)
     y = y * F.silu(z)
     y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps)
-    out = y @ params["out_proj"].to(u.dtype)
+    out = matmul(y, params["out_proj"].to(u.dtype))
     if return_state:
         return out, MambaState(conv=conv_hist, ssm=fin)
     return out
@@ -163,7 +164,7 @@ def mamba_step(cfg, params, u, state: MambaState):
     y = y.reshape(B, 1, d_in).to(u.dtype)
     y = y * F.silu(z)
     y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps)
-    out = y @ params["out_proj"].to(u.dtype)
+    out = matmul(y, params["out_proj"].to(u.dtype))
     return out, MambaState(conv=conv_hist, ssm=new_ssm)
 
 

@@ -1,7 +1,7 @@
 """Model API for the ported families (counterpart of
 ``repro/models/registry.py``: the dense transformer's paged entries,
-``:55-97``, the hybrid family, ``:100-118``, and the cnn family,
-``:164-173``).
+``:55-97``, with the training forward, the hybrid family, ``:100-118``,
+and the cnn family, ``:164-173``).
 
   init(cfg, generator)                          -> params
   prepare_params(cfg, params, device)           -> params on the device,
@@ -15,8 +15,9 @@
   decode(cfg, params, tokens, state, chunk)     -> (logits, state)
   init_decode_state(cfg, batch, max_len, cache_dtype, device=...)
                                                 -> contiguous decode state
-  forward(cfg, params, batch)                   -> (logits, aux_loss)
-    (cnn only; ``batch`` holds ``images``)
+  forward(cfg, params, batch, ...)              -> (logits, aux_loss)
+    (dense: ``batch`` holds ``tokens`` [and ``positions``], logits (B, S,
+    V); cnn: ``batch`` holds ``images``, logits (B, classes))
 
 A family serves from the paged pool when it has ``init_paged_state``, and
 from contiguous caches when it has ``init_decode_state`` (the dense
@@ -49,9 +50,15 @@ def _tf_decode(cfg, params, tokens, state, chunk=2048):
     return transformer.decode_step(cfg, params, tokens, state, chunk=chunk)
 
 
+def _tf_forward(cfg, params, batch, *, remat=True, chunk=1024):
+    return transformer.forward(cfg, params, batch["tokens"],
+                               batch.get("positions"), remat=remat,
+                               chunk=chunk)
+
+
 TRANSFORMER_FNS = ModelFns("dense", transformer.init, _tf_decode,
                            transformer.make_paged_cache,
-                           transformer.prefill_paged,
+                           transformer.prefill_paged, forward=_tf_forward,
                            prepare_params=transformer.prepare_params)
 
 

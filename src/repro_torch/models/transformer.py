@@ -1,17 +1,24 @@
-"""Decoder-only transformer LM on a paged KV pool (counterpart of
-``repro/models/transformer.py``, dense family, paged serving path).
+"""Decoder-only transformer LM: the training forward and serving on a
+paged KV pool (counterpart of ``repro/models/transformer.py``, dense
+family: the training forward and the paged serving path).
 
 Entry points:
   * ``init``          -- parameters from a seeded ``torch.Generator``, with
     the reference's names and stacked ``(L, ...)`` shapes.
+  * ``forward``       -- training forward: full (B, S, V) fp32 logits, every
+    block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it.
   * ``prefill_paged`` -- one prompt chunk written *directly* into paged pool
     blocks, attending over already-seeded blocks, so shared prefixes and
     resumed histories are never recomputed.
   * ``decode_step``   -- one token per slot against the paged pool.
 
-Both attend through the hand-written CUDA kernels
+Serving attends through the hand-written CUDA kernels
 (:mod:`repro_torch.kernels`) when the tensors are on the card, and through
-their plain PyTorch versions on the CPU.
+their plain PyTorch versions on the CPU; every weight product, in serving
+and in training, goes through the K7 matmul kernel
+(:mod:`repro_torch.models.layers.linear`).  Training attention is the
+plain ``chunked_attention``, as the reference computes it outside any
+Pallas kernel.
 
 Differences from the reference: ``lax.scan`` over the stacked layers is a
 Python loop, and pool writes happen **in place** (the reference's
@@ -20,9 +27,10 @@ which holds the same (updated) tensors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, Mapping, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
@@ -184,18 +192,27 @@ def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, write_ids,
                                    chunk=chunk)
 
 
-def block_apply(cfg, p, x, positions, *, cache_k, cache_v, kv_len=None,
-                block_tables=None, paged_prefill=None, chunk=1024):
-    """One transformer block against this layer's paged pools.
+def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
+                kv_len=None, block_tables=None, paged_prefill=None,
+                chunk=1024):
+    """One transformer block.
 
-    Decode (``paged_prefill`` None): x is (B, 1, D) and the new KV row is
-    written at ``kv_len``.  Prefill (``paged_prefill`` a dict of
-    write_ids/table/q_start/kv_len): the chunk's KV goes straight into pool
-    blocks and attention is causal over the table's blocks.
+    Without a cache (training): causal self-attention over the whole of x
+    (B, S, D), the plain ``chunked_attention`` as in the reference.  With
+    this layer's paged pools: decode (``paged_prefill`` None) takes x of
+    (B, 1, D) and writes the new KV row at ``kv_len``; prefill
+    (``paged_prefill`` a dict of write_ids/table/q_start/kv_len) writes the
+    chunk's KV straight into pool blocks and attends causally over the
+    table's blocks.
     """
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
-    if paged_prefill is not None:
+    if cache_k is None:
+        attn = A.chunked_attention(q, k, v, causal=True, q_positions=positions,
+                                   kv_positions=positions,
+                                   softcap=cfg.attn_logit_softcap,
+                                   window=cfg.sliding_window, chunk=chunk)
+    elif paged_prefill is not None:
         attn = _paged_prefill_attend(cfg, q, k, v, cache_k, cache_v,
                                      chunk=chunk, **paged_prefill)
     else:
@@ -208,12 +225,48 @@ def block_apply(cfg, p, x, positions, *, cache_k, cache_v, kv_len=None,
     return x + swiglu(p["mlp"], apply_norm(cfg, p["ln2"], x))
 
 
-def _apply_backbone(cfg, params, tokens, positions, *, cache: PagedKVCache,
+def _unstack_layers(tree: Any, num: int) -> list:
+    """Per-layer views of the stacked ``(L, ...)`` leaves, by ``unbind``.
+    Under autograd its backward stacks the L slice gradients once, where
+    indexing each layer (``leaf[i]``) would scatter every slice into a
+    zero tensor of the whole stack: L times the bytes, and one more
+    stack-sized buffer per leaf held through the backward."""
+    if isinstance(tree, Mapping):
+        sub = {k: _unstack_layers(v, num) for k, v in tree.items()}
+        return [{k: v[i] for k, v in sub.items()} for i in range(num)]
+    return list(tree.unbind(0))
+
+
+def _scan_blocks(cfg, stacked, x, positions, *, remat, chunk=1024):
+    """The homogeneous block stack without a cache (training; the
+    reference's ``lax.scan``, ``:411-462``).  ``cfg.remat``: ``"none"`` runs
+    the blocks as they are; ``"full"`` keeps only each block's input and
+    recomputes the block in the backward (``jax.checkpoint`` with
+    ``nothing_saveable``: here ``torch.utils.checkpoint``, non-reentrant);
+    ``"dots"`` (keep the weight products) is not ported."""
+    policy = cfg.remat if remat else "none"
+    if policy == "dots":
+        raise NotImplementedError("remat='dots' is not ported; use 'full' or 'none'")
+    for p in _unstack_layers(stacked, cfg.num_layers):
+        if policy == "none":
+            x = block_apply(cfg, p, x, positions, chunk=chunk)
+        else:
+            x = checkpoint(block_apply, cfg, p, x, positions, chunk=chunk,
+                           use_reentrant=False)
+    return x
+
+
+def _apply_backbone(cfg, params, tokens, positions, *,
+                    cache: PagedKVCache | None = None, remat=False,
                     paged_prefill=None, chunk=1024):
-    """Embed, run every layer against its slice of the paged pools (the
-    reference's ``lax.scan`` over stacked layers), final norm."""
+    """Embed, run every layer -- over the whole sequence without a cache,
+    or against its slice of the paged pools (the reference's ``lax.scan``
+    over stacked layers) -- and the final norm."""
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     blocks = params["blocks"]
+    if cache is None:
+        x = _scan_blocks(cfg, blocks, x, positions, remat=remat, chunk=chunk)
+        return apply_norm(cfg, params["ln_f"], x)
     for i in range(cfg.num_layers):
         p = tree_map(lambda leaf, i=i: leaf[i], blocks)
         x = block_apply(cfg, p, x, positions, cache_k=cache.k[i],
@@ -226,6 +279,30 @@ def _apply_backbone(cfg, params, tokens, positions, *, cache: PagedKVCache,
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def default_positions(cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1 of each row ((3, B, S) for M-RoPE)."""
+    B, S = tokens.shape[0], tokens.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    if cfg.m_rope:
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
+def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
+    """Training forward.  tokens: (B, S) -> full logits (B, S, V) fp32 and
+    the aux loss (0: the dense family has no router).  ``params`` are the
+    fp32 master weights: each product casts its weight to the compute
+    dtype at use, as the reference does (under ``remat="full"`` the block's
+    casts run again in the recompute; nothing is cached across steps)."""
+    if positions is None:
+        positions = default_positions(cfg, tokens)
+    x = _apply_backbone(cfg, params, tokens, positions, remat=remat,
+                        chunk=chunk)
+    lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
+                   cfg.final_logit_softcap)
+    return lg, torch.zeros((), dtype=torch.float32, device=lg.device)
+
 
 def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
                   q_start, kv_len, last_idx, chunk=1024):

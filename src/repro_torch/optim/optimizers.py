@@ -1,0 +1,184 @@
+"""Optimizers (counterpart of ``repro/optim/optimizers.py``): AdamW and
+Adafactor, hand-rolled, with the reference's schedules.
+
+The reference returns new parameters and state; here ``update`` writes
+both in place, under ``torch.no_grad()``, so a 3B-parameter model holds one
+copy of each (fp32 master weights, fp32 moments) and a few leaf-sized
+temporaries.  Each update keeps the reference's order of operations, so
+the two round alike.  The state's logical axes (``state_axes``) come with
+the distributed slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch.models.layers.module import tree_map
+
+Pytree = Any
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Pytree], Pytree]
+    # (grads, state, params) -> (params, state, metrics), params and state
+    # updated in place
+    update: Callable[[Pytree, Pytree, Pytree], tuple[Pytree, Pytree, dict]]
+
+
+def leaves(tree: Pytree) -> list[torch.Tensor]:
+    """The tensors of a nested dict / list, in the tree's own order."""
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in leaves(v)]
+    return [tree]
+
+
+def global_norm(tree: Pytree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Pytree, max_norm: float):
+    """Scale ``grads`` in place so their global norm is at most
+    ``max_norm``; returns (grads, the norm before clipping)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
+
+
+def _next_step(state, params):
+    """Advance the host-side int32 step; returns it as float32 and the
+    device of the parameters (the per-step scalars are computed on the
+    host, in float32 as the reference does, and moved there once)."""
+    state["step"].add_(1)
+    return state["step"].float(), leaves(params)[0].device
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(schedule: Callable[[torch.Tensor], torch.Tensor], *,
+          b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, max_grad_norm: float = 1.0) -> Optimizer:
+
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        s, dev = _next_step(state, params)
+        lr = schedule(s).to(dev)
+        c1, c2 = (1.0 - b1 ** s).to(dev), (1.0 - b2 ** s).to(dev)
+        for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["mu"]),
+                              leaves(state["nu"])):
+            g = g.float()               # per-leaf cast: no full fp32 copy
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(g.square().mul_(1 - b2))
+            delta = (m / c1).div_((v / c2).sqrt_().add_(eps))
+            p32 = p.float()
+            p.copy_(p32 - delta.add_(p32 * weight_decay).mul_(lr))
+        return params, state, {"grad_norm": gnorm, "lr": lr}
+
+    return Optimizer(init=init, update=update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment over the last two dims; no momentum)
+# ---------------------------------------------------------------------------
+
+def _factored(p_shape) -> bool:
+    return len(p_shape) >= 2 and p_shape[-1] > 1 and p_shape[-2] > 1
+
+
+def adafactor(schedule: Callable[[torch.Tensor], torch.Tensor], *,
+              decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              weight_decay: float = 0.0,
+              max_grad_norm: float = 1.0) -> Optimizer:
+
+    def init(params):
+        def mk(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], **f32),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+            return {"v": torch.zeros(p.shape, **f32)}
+        return {"v": tree_map(mk, params), "step": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        s, dev = _next_step(state, params)
+        lr = schedule(s).to(dev)
+        # time-dependent decay (Adafactor beta2 schedule)
+        beta2 = (1.0 - s ** (-decay)).to(dev)
+        v_state = [leaves(v) for v in _per_param(state["v"], params)]
+        for p, g, v in zip(leaves(params), leaves(grads), v_state):
+            g = g.float()               # per-leaf cast: no full fp32 copy
+            g2 = g.square().add_(eps)
+            if _factored(p.shape):
+                vr, vc = v
+                vr.copy_(beta2 * vr + (1 - beta2) * g2.mean(-1))
+                vc.copy_(beta2 * vc + (1 - beta2) * g2.mean(-2))
+                rfac = torch.rsqrt(vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+                                   + eps)
+                cfac = torch.rsqrt(vc + eps)
+                delta = g * rfac[..., None] * cfac[..., None, :]
+            else:
+                (vv,) = v
+                vv.copy_(beta2 * vv + (1 - beta2) * g2)
+                delta = g * torch.rsqrt(vv + eps)
+            # update clipping by RMS
+            rms = torch.sqrt(delta.square().mean() + 1e-30)
+            delta = delta / torch.clamp(rms / clip_threshold, min=1.0)
+            p32 = p.float()
+            p.copy_(p32 - lr * (delta + weight_decay * p32))
+        return params, state, {"grad_norm": gnorm, "lr": lr}
+
+    return Optimizer(init=init, update=update)
+
+
+def _per_param(v_tree: Pytree, params: Pytree) -> list[Pytree]:
+    """Adafactor's state dict of each parameter, in the parameters' order
+    (each is {"vr", "vc"} or {"v"}: a dict, not a subtree to walk)."""
+    if isinstance(params, Mapping):
+        return [s for k in params for s in _per_param(v_tree[k], params[k])]
+    return [v_tree]
+
+
+# ---------------------------------------------------------------------------
+# schedules: step (int or 0-d tensor) -> 0-d float32 learning rate
+# ---------------------------------------------------------------------------
+
+def warmup_cosine(peak_lr: float, warmup: int, total: int,
+                  floor: float = 0.1):
+    def schedule(step):
+        s = torch.as_tensor(step).to(torch.float32)
+        warm = s / max(warmup, 1)
+        t = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * t))
+        return peak_lr * torch.where(s < warmup, warm, cos)
+    return schedule
+
+
+def constant(lr: float):
+    return lambda step: torch.full((), lr, dtype=torch.float32)
+
+
+def make_optimizer(cfg, *, peak_lr: float = 3e-4, warmup: int = 200,
+                   total: int = 10_000) -> Optimizer:
+    sched = warmup_cosine(peak_lr, warmup, total)
+    if cfg.optimizer == "adafactor":
+        return adafactor(sched)
+    return adamw(sched)

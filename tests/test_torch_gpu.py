@@ -16,7 +16,13 @@ bf16).  conv2d: CONV_RTOL |ref| + CONV_RMS_ATOL rms(ref) per element
 (fp32 2^-14 and 2^-14, fp16 2^-10 and 2^-12, bf16 2^-7 and 2^-12: twice
 the one rounding of the output, and the fp32 sum's order).  ssm_scan: y
 and the final state each within 1e-4 of their largest |ref| (fp32 out;
-only the order of the sums differs).
+only the order of the sums differs).  matmul (K7): MATMUL_RTOL |ref| +
+2^-20 sqrt(K) max|ref| per element (twice the output's one rounding:
+none at fp32, 2^-10 fp16, 2^-7 bf16; and the fp32 sum's order).  Training
+on the card: the smoke model's loss and gradients through the kernels
+within 1e-3 of each leaf's largest entry of those through the plain
+versions (the same fp32 arithmetic in other orders; the random model's
+near-one-hot attention amplifies rounding in the backward).
 """
 import numpy as np
 import pytest
@@ -205,3 +211,86 @@ def test_hybrid_engine_path_runs_the_kernels(cuda):
     assert table["decode_attention"].launches == n_seg * stats.decode_steps
     assert all(k.plain_calls == 0 for k in table.values())
     assert all(len(r.output) == 5 for r in reqs)
+
+
+def _k7_operands(dev, M, K, N, dtype, layout, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((K, M) if "x" in layout else (M, K), generator=g, device=dev).to(dtype)
+    y = torch.randn((N, K) if "y" in layout else (K, N), generator=g, device=dev).to(dtype)
+    return (x.T if "x" in layout else x), (y.T if "y" in layout else y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 130), (5, 37, 3), (16, 300, 33),
+                                   (129, 70, 257), (300, 1000, 200)])
+@pytest.mark.parametrize("layout", ["", "x.T", "y.T", "x.T y.T"])
+def test_matmul_kernel_matches_plain(cuda, dtype, M, K, N, layout):
+    x, y = _k7_operands(cuda, M, K, N, dtype, layout)
+    k = dispatch.kernel_table()["matmul"]
+    out = k.launch(x, y)
+    ref = k.plain(x.float(), y.float())
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and out.dtype == dtype
+    assert k.tolerance(out, ref, K) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 130), (16, 300, 33), (40, 1000, 70)])
+def test_matmul_tiles_agree_bit_for_bit(cuda, dtype, M, K, N):
+    x, y = _k7_operands(cuda, M, K, N, dtype, "")
+    k = dispatch.kernel_table()["matmul"]
+    assert torch.equal(k.launch(x, y, tile="wide"), k.launch(x, y, tile="narrow"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_backward_runs_the_kernel(cuda, dtype):
+    """dX and dW of ``linear.matmul`` through K7 (two launches on strided
+    views) against autograd through the plain version in fp32."""
+    from repro_torch.models.layers import linear
+    x, w = _k7_operands(cuda, 37, 96, 130, dtype, "")
+    x = x[:36].reshape(2, 18, 96).requires_grad_(True)
+    w.requires_grad_(True)
+    dy = torch.randn((2, 18, 130), device=cuda).to(dtype)
+    dispatch.reset_counts()
+    linear.matmul(x, w).backward(dy)
+    k = dispatch.kernel_table()["matmul"]
+    assert (k.launches, k.plain_calls) == (3, 0)
+    x32 = x.detach().float().requires_grad_(True)
+    w32 = w.detach().float().requires_grad_(True)
+    with dispatch.plain_versions():
+        linear.matmul(x32, w32).backward(dy.float())
+    assert k.tolerance(x.grad.reshape(36, 96), x32.grad.reshape(36, 96), 130) <= 1.0
+    assert k.tolerance(w.grad, w32.grad, 36) <= 1.0
+
+
+def test_training_step_runs_the_kernels(cuda):
+    """One train step of the smoke model on the card: every weight product
+    of the forward, the recompute and the backward through K7, no plain
+    call; loss and gradients agree with the plain versions."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizers import adamw, constant, leaves
+    from repro_torch.training.train_step import make_train_step
+    cfg = TR.smoke("qwen2.5-3b").replace(compute_dtype="float32", accum_steps=2)
+    batch = next(SyntheticTokens(cfg, 4, 16, seed=1))
+    runs = []
+    for plain in (False, True):
+        params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+        grads = []
+        step = make_train_step(cfg, adamw(constant(1e-3)),
+                               grad_transform=lambda g: grads.append(
+                                   [t.clone() for t in leaves(g)]) or g)
+        dispatch.reset_counts()
+        if plain:
+            with dispatch.plain_versions():
+                _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+        else:
+            _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+            k = dispatch.kernel_table()["matmul"]
+            L = cfg.num_layers
+            assert k.launches == 2 * (7 * L * 2 + 1 + 2 * (7 * L + 1))
+            assert all(t.plain_calls == 0 for t in dispatch.kernel_table().values())
+        runs.append((float(m["loss"]), grads[0]))
+    assert np.isfinite(runs[0][0])
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()

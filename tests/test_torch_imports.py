@@ -40,7 +40,12 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "repro_torch.kernels.ssm_scan.ops",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.models.layers.ssm", "repro_torch.models.hybrid",
-                 "repro_torch.distributed.collectives"):
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.kernels.matmul.ops", "repro_torch.models.layers.linear",
+                 "repro_torch.training.losses", "repro_torch.training.train_step",
+                 "repro_torch.training.trainer", "repro_torch.optim.optimizers",
+                 "repro_torch.checkpoint.checkpoint", "repro_torch.distributed.fault",
+                 "repro_torch.data.pipeline", "repro_torch.launch.train"):
         assert name in result["modules"]
 
 

@@ -216,8 +216,8 @@ def test_gqa_head_order():
 def test_cpu_tensors_take_the_counted_plain_version():
     table = dispatch.kernel_table()
     assert set(table) == {"conv2d", "decode_attention", "flash_attention",
-                          "paged_decode_attention", "paged_prefill_attention",
-                          "ssm_scan"}
+                          "matmul", "paged_decode_attention",
+                          "paged_prefill_attention", "ssm_scan"}
     dec = table["paged_decode_attention"]
     dispatch.reset_counts()
     _, kp, vp, tables = _pool(1, "float32")
@@ -257,7 +257,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     assert build.sources() == ["conv2d", "decode_attention",
-                               "flash_attention", "paged_decode_attention",
+                               "flash_attention", "matmul",
+                               "paged_decode_attention",
                                "paged_prefill_attention", "ssm_scan"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
@@ -315,7 +316,8 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
 
 
 @pytest.mark.parametrize("name", ["conv2d", "decode_attention",
-                                  "flash_attention", "paged_decode_attention",
+                                  "flash_attention", "matmul",
+                                  "paged_decode_attention",
                                   "paged_prefill_attention", "ssm_scan"])
 def test_ctypes_argtypes_match_the_c_entry_point(name):
     """Each launcher's ctypes signature has the types, in order, of its

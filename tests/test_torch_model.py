@@ -97,7 +97,9 @@ def test_prefill_then_decode_matches_jax(compute_dtype):
     assert counts == {"paged_prefill_attention": 3 * tcfg.num_layers,
                       "paged_decode_attention": 3 * tcfg.num_layers,
                       "conv2d": 0, "decode_attention": 0,
-                      "flash_attention": 0, "ssm_scan": 0}
+                      "flash_attention": 0, "ssm_scan": 0,
+                      # 7 products a layer and the LM head, per call
+                      "matmul": 6 * (7 * tcfg.num_layers + 1)}
 
     def close(t, j):
         if compute_dtype == "float32":
