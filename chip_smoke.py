@@ -28,7 +28,9 @@ Phases (each one raises on failure; the script then exits non-zero):
 6. Path check: one request served at full width in fp32 by an engine
    through the kernels and by one through the plain versions; its prefill
    and decode logits are compared at depths 1, 2 and 4 (gated) and 36
-   (printed beside two plain runs that differ only in summation order).
+   (printed beside two plain runs that differ only in summation order),
+   and each side's distance from a run whose weight products are summed
+   in fp64 and rounded once is printed.
 7. K6 conv2d: the kernel held against its plain version (evaluated in fp32
    on the same values; limits ``CONV_RTOL`` / ``CONV_RMS_ATOL`` in
    ``repro_torch.kernels.dispatch``) on every distinct conv shape of
@@ -51,18 +53,22 @@ Phases (each one raises on failure; the script then exits non-zero):
    fp32 on the same values) at zamba2-1.2b widths -- K5 at B=1, H=64,
    N=P=64, chunk 128, S 1000 and 1024, B/C as a stride-0 head view, y and
    the final state (limit ``SSM_RTOL`` of the largest |ref|), plus per-head
-   q/k at H=4, N=P=128; K4 at B=1, H=K=32, D=64, S 1000 and 1024; K3 at
+   q/k at H=4, N=P=128; K4 at S 1000 and 1024 on ``K4_SHAPES`` (zamba2's
+   H=K=32, D=64 and qwen2.5-3b's H=16, K=2, D=128; bf16 on the
+   tensor-core body, fp32 on the FMA body); K3 at
    B=4, S=1088, lengths 1033/700/257/1200 (the last past S, as an idle
    slot) -- at fp32 and bf16, then each timed in bf16 beside its bound,
    its plain version and (K3, K4) ``scaled_dot_product_attention`` on the
-   same tensors.
+   same tensors; K4 also at qwen2.5-3b's heads, S=1024, printed.
 10. zamba2 serving: zamba2-1.2b at full width (38 layers: 6 segments of 6
    Mamba-2 layers and the shared attention block, a 2-layer tail), bf16,
    random weights from seed 0, through the contiguous ``ServingEngine``:
    4 slots, ``max_len`` 1088, 8 greedy requests of 203-1000 prompt tokens
    (none a multiple of 128), 32 new tokens each.  Launch counts zeroed
    just before and read just after, held exactly: K5 38 per prefill, K4 6
-   per prefill, K3 6 per decode step, no plain call.  tok/s, TTFT, TPOT,
+   per prefill (every one on the tensor-core body), K3 6 per decode step,
+   K7 by body (the bf16 products on wgmma, the fp32 LM head on FMA), no
+   plain call.  tok/s, TTFT, TPOT,
    tok/s/W against the power limit, peak memory; then a profiled window
    of prefills and decode steps.
 11. zamba2 path check: one 333-token request served at full width in fp32
@@ -73,30 +79,37 @@ Phases (each one raises on failure; the script then exits non-zero):
 12. K7 matmul: the kernel held against its plain version (evaluated in fp32
    on the same values; limit ``dispatch.matmul_tolerance_ratio``) on
    ``K7_CASES``: the training and decode MLP products, the tied LM head
-   with y a transposed view, ragged M / N / K, and the backward's
-   transposed operands, at fp32 / bf16 (fp16 on one); its two tile shapes
-   bit for bit; then ``K7_TIMED`` timed beside the plain version, one
-   ``torch.matmul`` (cuBLAS, TF32 off) and the bound.
+   with y a transposed view, the K/V projection, ragged M / N / K, the
+   backward's transposed operands, a row of 600 bytes (16-bit on FMA)
+   and zamba2-1.2b's products at M = 1000 and 4, at fp32 / bf16 (fp16 on
+   three), each printed with the body it ran (fp16 / bf16 operands that
+   TMA can read: wgmma; the rest: FMA); its two tile shapes bit for bit on
+   ``K7_TILING``, each bf16 case on the body it names; then ``K7_TIMED``
+   timed beside the plain version, one ``torch.matmul`` (cuBLAS, TF32 off)
+   and the bound; then the host's time per launch on ``K7_HOST`` (wgmma
+   and FMA bodies, the route alone, ``torch.matmul``), printed.
 13. K7's backward: ``linear.matmul`` of (512, 2048) x (2048, 11008) bf16,
    forward, dX and dW against autograd through the plain version in fp32;
-   three launches.
+   three launches, all on the wgmma body (dX and dW from autograd's
+   thread).
 14. Training path check: qwen2.5-3b at full width cut to 2 layers, fp32,
    one 1 x 512 microbatch: the loss and every gradient leaf through the
    kernels vs through the plain versions (``TOL_TRAIN_LOSS_REL``,
    ``TOL_TRAIN_GRAD_REL``).
 15. Training: qwen2.5-3b at full width (36 layers, fp32 master weights,
    bf16 compute, remat "full", AdamW) for 4 steps of 8 x 512 tokens in 8
-   microbatches through ``repro_torch.launch.train``: every loss finite, K7
-   launches exactly 1011 a microbatch (derived from the config), no plain
-   call; step time, tokens/s, tokens/s/W against the power limit, peak
-   memory; one more step under ``torch.profiler``.
+   microbatches (``--accum 8``) through ``repro_torch.launch.train``: every
+   loss finite, K7 launches exactly 1011 a microbatch (derived from the
+   config): 1008 bf16 block products on wgmma and the fp32 LM head's 3 on
+   FMA; no plain call; step time, tokens/s, tokens/s/W against the power
+   limit, peak memory; one more step under ``torch.profiler``.
 16. Checkpoint round trip on the card (full width, 2 layers): save after 2
    steps, restore into a fresh trainer, one more step in both; identical
    bit for bit.
 
 K7 also carries every weight product of phases 4-11 (the serving paths and
 GoogLeNet's classifier): phases 4, 6, 8, 10 and 11 hold its launch counts
-too (exactly, where the engine's calls fix them).
+too (exactly, where the engine's calls fix them; phases 4 and 10 by body).
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -119,8 +132,17 @@ DECODE_CASES = (((1, 15, 16, 17), 0.0), ((300, 1056, 16, 1), 0.0),
                 ((1, 15, 300, 1056), 30.0))
 PREFILL_CASES = ((16, 0), (16, 9), (16, 256), (256, 0), (256, 9), (256, 256))
 # fp32 path check, kernels vs plain versions, by depth: limits on the
-# largest logit difference relative to the largest logit (see path_check).
-TOL_PATH_REL = {1: 1e-5, 2: 1e-4, 4: 1e-2}
+# largest logit difference relative to the largest logit (see path_check);
+# and at those depths each side's distance from the exact-products run:
+# the kernels' no more than TOL_PATH_EXACT_RATIO times the plain versions'
+# (floored at 1e-7).  Depth 1 was gated at 1e-5 until the exact-products
+# run showed the plain versions themselves (cuBLAS fp32 products) 1.10e-5
+# from it at depth 1 and the kernels 2.24e-6 (NVIDIA H100 80GB HBM3): the
+# 1e-5 limit measured cuBLAS's rounding, so it is 2e-5, about twice the
+# plain side's own distance, and the ratio holds the kernels to the exact
+# products.
+TOL_PATH_REL = {1: 2e-5, 2: 1e-4, 4: 1e-2}
+TOL_PATH_EXACT_RATIO = 2.0
 LM_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 # K6: GoogLeNet's batch-8 forward at 224.  Peak rate for each type timed
 # (H100 SXM data sheet, dense): fp32 on the CUDA cores, fp16 / bf16 on the
@@ -152,22 +174,49 @@ TOL_HYBRID_PATH_REL = {6: 1e-4, 13: 1e-2}
 QWEN_PRODUCTS = 7       # weight products a qwen2.5-3b block makes: wq wk wv wo, gate up down
 # K7 cases held against the plain version: (label, M, K, N, layout, dtypes).
 # The three timed shapes, then ragged M / N / K and the transposed operands
-# of the backward products and the tied LM head.
+# of the backward products and the tied LM head, a row TMA cannot read
+# (16-bit on the FMA body), and zamba2-1.2b's weight products.
 K7_CASES = (
     ("training mlp up", 512, 2048, 11008, "rows", ("float32", "bfloat16", "float16")),
     ("decode mlp up", 4, 2048, 11008, "rows", ("float32", "bfloat16")),
     ("tied lm head, y = tok.T", 512, 2048, 151936, "y.T", ("float32",)),
+    ("k/v projection", 512, 2048, 256, "rows", ("float32", "bfloat16", "float16")),
+    ("training dW = X^T @ dY", 2048, 512, 11008, "x.T", ("float32", "bfloat16")),
     ("ragged M=1", 1, 2048, 256, "rows", ("float32", "bfloat16")),
     ("ragged M=5 K=11008", 5, 11008, 2048, "rows", ("float32", "bfloat16")),
     ("ragged M=513", 513, 2048, 11008, "rows", ("float32", "bfloat16")),
     ("dX = dY @ W^T", 513, 11008, 2048, "y.T", ("float32", "bfloat16")),
     ("dW = X^T @ dY", 2048, 513, 11008, "x.T", ("float32", "bfloat16")),
     ("both transposed", 256, 11008, 513, "both.T", ("float32", "bfloat16")),
-)
+    ("row of 600 bytes (16-bit on FMA)", 513, 2048, 300, "rows",
+     ("float32", "bfloat16", "float16")),
+) + tuple(
+    # zamba2-1.2b's products at its longest prompt and at decode (4 slots)
+    (f"zamba2 {label}", M, K, N, "rows", ("float32", "bfloat16"))
+    for M in (1000, 4)
+    for label, K, N in (("mamba in_proj", 2048, 8384),
+                        ("mamba out_proj, shared in_proj", 4096, 2048),
+                        ("attention q/k/v/o", 2048, 2048), ("mlp gate/up", 2048, 8192),
+                        ("mlp down", 8192, 2048)))
 # (label, M, K, N, layout, dtype) timed for PERF.md; the first is the kernels line's
 K7_TIMED = (("training mlp up", 512, 2048, 11008, "rows", "bfloat16"),
             ("decode mlp up", 4, 2048, 11008, "rows", "bfloat16"),
-            ("tied lm head, y = tok.T", 512, 2048, 151936, "y.T", "float32"))
+            ("tied lm head, y = tok.T", 512, 2048, 151936, "y.T", "float32"),
+            ("k/v projection", 512, 2048, 256, "rows", "bfloat16"),
+            ("training dW = X^T @ dY", 2048, 512, 11008, "x.T", "bfloat16"))
+# K7's host cost per launch, at the decode products of qwen2.5-3b and
+# zamba2-1.2b: (label, M, K, N); launches timed back to back.
+K7_HOST = (("qwen mlp up", 4, 2048, 11008), ("qwen k/v projection", 4, 2048, 256),
+           ("zamba2 mamba in_proj", 4, 2048, 8384), ("zamba2 mlp down", 4, 8192, 2048))
+HOST_REPS = 200
+# The two tiles bit for bit: (M, K, N, the body the bf16 case must take).
+# N = 300 is a row of 600 bytes, which TMA cannot read: the FMA body.
+K7_TILING = ((1, 2048, 256, "wgmma"), (5, 11008, 2048, "wgmma"), (16, 2048, 11008, "wgmma"),
+             (513, 2048, 300, "fma"), (513, 2048, 11008, "wgmma"))
+# K4 cases: (B, S, H, K, D) -- zamba2's shared block (G = 1, D = 64) and
+# qwen2.5-3b's heads (G = 8, D = 128) -- held at fp32 and bf16, each S.
+K4_SHAPES = ((1, 32, 32, 64), (1, 16, 2, 128))
+K4_S = (1000, 1024)
 # Training path check (fp32, full width, 2 layers, one 1 x 512 microbatch):
 # kernels vs plain versions, the loss relative and each gradient leaf
 # relative to its largest entry; and both against a third run whose weight
@@ -421,6 +470,11 @@ def serving_phase(torch, np, table):
     if k7 != ((cfg.num_layers * QWEN_PRODUCTS + 1) * calls, 0):
         raise AssertionError(f"serving: matmul launches/plain calls {k7} for {calls} "
                              f"model calls")
+    # every bf16 block product on the tensor cores, the fp32 LM head on FMA
+    k7_bodies = dict(table["matmul"].body_launches)
+    if k7_bodies != {"wgmma": cfg.num_layers * QWEN_PRODUCTS * calls, "fma": calls}:
+        raise AssertionError(f"serving: matmul launches by body {k7_bodies} for {calls} "
+                             f"model calls")
     for r in reqs:
         if r.state.value != "done" or len(r.output) != 32:
             raise AssertionError(f"request {r.rid}: state {r.state}, "
@@ -446,7 +500,8 @@ def serving_phase(torch, np, table):
         f"kv_blocks_peak={stats.kv_blocks_peak} preemptions={stats.preemptions} "
         f"leaks={leaks}")
     log(f"serving: launches={ {n: c[0] for n, c in counts.items()} } matmul={k7[0]} "
-        f"(= {cfg.num_layers * QWEN_PRODUCTS + 1} x {calls} model calls) "
+        f"(= {cfg.num_layers * QWEN_PRODUCTS + 1} x {calls} model calls; by body "
+        f"{k7_bodies}) "
         f"plain_calls={ {n: c[1] for n, c in counts.items()} } "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
         f"card={torch.cuda.get_device_name(0)}")
@@ -504,16 +559,23 @@ def path_check(torch, np):
     The request's sampler records the prefill and the decode logits and
     answers a fixed token, so both engines decode the same token.
 
-    Depths 1, 2 and 4 are gated (``TOL_PATH_REL``).  The reference's
+    Depths 1, 2 and 4 are gated (``TOL_PATH_REL``, ``TOL_PATH_EXACT_RATIO``).  The reference's
     random init takes fan-in from the head axis, so attention logits have a
     std of several hundred and the softmax is near one-hot: every layer
     multiplies a rounding difference by a large factor.  So each depth also
     prints a second plain run that differs from the first only in its
     summation order (the plain versions' KV tile, ``chunk`` 64 against
-    512): how far two correct fp32 paths drift apart at that depth.  Depth
-    36 is printed, not gated."""
+    512): how far two correct fp32 paths drift apart at that depth.  And
+    each depth prints how far the kernels and the plain versions each sit
+    from a third run, the plain attention with every weight product summed
+    in fp64 and rounded once ("exact products", as ``train_path_check``
+    makes it): the accuracy both are held to.  Depth 36 is printed, not
+    gated."""
+    from unittest import mock
+
     from repro_torch.configs import registry as arch_registry
     from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import linear
     from repro_torch.models.layers.module import tree_map
     from repro_torch.models.registry import fns_for
     from repro_torch.serving.engine import Request, ServingEngine
@@ -553,24 +615,35 @@ def path_check(torch, np):
         table = dispatch.kernel_table()
         launched = all(table[n].launches > 0 for n in LM_KERNELS + ("matmul",)) and \
             not any(k.plain_calls for k in table.values())
+        exact_product = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
         with dispatch.plain_versions():
             plain = serve(cfg, p)
             plain64 = serve(cfg, p, chunk=64)
+            with mock.patch.object(linear, "_k7", exact_product):
+                exact = serve(cfg, p)
         tol = TOL_PATH_REL.get(depth)
         r_pre, r_dec = rel(kern[0], plain[0]), rel(kern[1], plain[1])
+        to_exact = [(rel(kern[i], exact[i]), rel(plain[i], exact[i])) for i in (0, 1)]
+        ratio = max(k / max(p, 1e-7) for k, p in to_exact)
         log(f"path check (fp32, full width, depth {depth}): kernels vs plain "
             f"rel prefill={r_pre:.3e} decode={r_dec:.3e} "
             f"top1_agree={bool((kern.argmax(-1) == plain.argmax(-1)).all())} "
             + (f"(tol {tol}); " if tol else "(not gated); ")
             + f"plain chunk 64 vs 512 rel prefill={rel(plain64[0], plain[0]):.3e} "
             f"decode={rel(plain64[1], plain[1]):.3e} "
-            f"top1_agree={bool((plain64.argmax(-1) == plain.argmax(-1)).all())}")
+            f"top1_agree={bool((plain64.argmax(-1) == plain.argmax(-1)).all())}; "
+            f"vs exact products: kernels rel prefill={to_exact[0][0]:.3e} "
+            f"decode={to_exact[1][0]:.3e}, plain rel prefill={to_exact[0][1]:.3e} "
+            f"decode={to_exact[1][1]:.3e}, worst ratio {ratio:.3f}"
+            + (f" (tol {TOL_PATH_EXACT_RATIO})" if tol else ""))
         if not launched:
             raise AssertionError("path check: the kernel engine did not run "
                                  "through the attention kernels and K7 alone")
-        if tol and not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol):
+        if tol and not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol
+                        and ratio <= TOL_PATH_EXACT_RATIO):
             raise AssertionError(f"path check, depth {depth}: kernels and plain "
-                                 f"versions disagree ({r_pre}, {r_dec})")
+                                 f"versions disagree ({r_pre}, {r_dec}; ratio to the exact "
+                                 f"products' distance {ratio})")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -632,6 +705,7 @@ def hybrid_kernel_phase(torch, table) -> dict:
     library call and bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.dispatch import SSM_RTOL
+    from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     ssm, fla, dec = (table[n] for n in HYBRID_KERNELS)
     timer = Timer(torch)
     errs = {n: {} for n in HYBRID_KERNELS}
@@ -647,9 +721,13 @@ def hybrid_kernel_phase(torch, table) -> dict:
         e.append(hold(torch, ssm, args, "B=1 S=1000 H=4 N=P=128 per-head q/k",
                       chunk=128, initial_state=h0))
         errs["ssm_scan"][dtype] = max(e)
-        errs["flash_attention"][dtype] = max(
-            hold(torch, fla, dense_case(torch, S, dtype), f"B=1 S={S} H=K=32 D=64 causal",
-                 causal=True) for S in (1000, 1024))
+        e = []
+        for B, H, K, D in K4_SHAPES:
+            for S in K4_S:
+                args = dense_case(torch, S, dtype, B=B, H=H, K=K, D=D)
+                e.append(hold(torch, fla, args, f"B={B} S={S} H={H} K={K} D={D} causal "
+                              f"body={flash_body_for(args[0])}", causal=True))
+        errs["flash_attention"][dtype] = max(e)
         errs["decode_attention"][dtype] = hold(
             torch, dec, dense_decode_case(torch, (1033, 700, 257, 1200), dtype),
             f"B=4 S={ZAMBA_MAX_LEN} H=K=32 D=64 lengths=(1033, 700, 257, 1200)")
@@ -671,7 +749,22 @@ def hybrid_kernel_phase(torch, table) -> dict:
         plain_ms=timer(lambda: fla.plain(q, k, v, causal=True)),
         library_ms=timer(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)),
         bytes=2 * 4 * B * S * H * D, flops=4 * H * D * B * S * (S + 1) // 2,
-        peak=BF16_FLOPS, shape="B=1 S=1000 H=K=32 D=64 causal bf16")
+        peak=BF16_FLOPS, shape=f"B=1 S=1000 H=K=32 D=64 causal bf16 body={flash_body_for(q)}")
+    # K4 at qwen2.5-3b's heads (G = 8, D = 128), S = 1024: printed beside
+    # SDPA with its own GQA (kv heads not repeated) and the bound
+    q, k, v = dense_case(torch, 1024, torch.bfloat16, H=16, K=2, D=128)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    ms = timer(lambda: fla.launch(q, k, v, causal=True))
+    plain_ms = timer(lambda: fla.plain(q, k, v, causal=True))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                          enable_gqa=True))
+    nbytes, flops = 2 * 2 * B * S * (H + K) * D, 4 * H * D * B * S * (S + 1) // 2
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
+    log(f"flash_attention timed B=1 S=1024 H=16 K=2 D=128 causal bf16 "
+        f"body={flash_body_for(q)}: kernel {ms:.4f}ms plain {plain_ms:.4f}ms "
+        f"library {lib_ms:.4f}ms bound {bms:.5f}ms ({by}; {nbytes} B, {flops} flop)")
     # K3, one decode step's attention over the 4 slots
     lengths = (1033, 700, 257, 1200)
     q, k, v, lens = dense_decode_case(torch, lengths, torch.bfloat16)
@@ -749,6 +842,14 @@ def hybrid_serving_phase(torch, np, table) -> dict:
     if got != want or plain or stats.prefills != len(reqs):
         raise AssertionError(f"zamba2 launches {got}, expected {want}; plain calls "
                              f"{plain}; prefills {stats.prefills}")
+    # bf16 products on the tensor cores, the fp32 LM head on FMA; every K4
+    # launch (D = 64, bf16) on the tensor-core body
+    calls = stats.prefills + stats.decode_steps
+    bodies = {n: dict(table[n].body_launches) for n in ("matmul", "flash_attention")}
+    want_bodies = {"matmul": {"wgmma": (per_call - 1) * calls, "fma": calls},
+                   "flash_attention": {"mma": want["flash_attention"]}}
+    if bodies != want_bodies:
+        raise AssertionError(f"zamba2 launches by body {bodies}, expected {want_bodies}")
     log(f"zamba2 serving: requests={stats.requests} tokens={stats.tokens} "
         f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
         f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
@@ -756,7 +857,7 @@ def hybrid_serving_phase(torch, np, table) -> dict:
         f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name})")
     log(f"zamba2 serving: prefills={stats.prefills} prefill_tokens={stats.prefill_tokens_computed} "
         f"decode_steps={stats.decode_steps} launches={got} (= 38 x prefills, 6 x prefills, "
-        f"6 x decode steps, {per_call} x model calls) plain_calls=0 "
+        f"6 x decode steps, {per_call} x model calls) by body {bodies} plain_calls=0 "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
     hybrid_profile(torch, np, eng, Request, greedy)
     del eng
@@ -782,7 +883,8 @@ def hybrid_profile(torch, np, eng, Request, greedy):
     if not busy:
         raise AssertionError("zamba2 profile: the profiler saw no device time")
     mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
-            ("ssm_scan_kernel", "flash_kernel", "dense_decode_kernel")}
+            ("ssm_scan_kernel", "flash_mma_kernel", "flash_kernel", "dense_decode_kernel",
+             "matmul_wgmma_kernel", "matmul_kernel")}
     log(f"zamba2 profile: wall={wall:.3f}s device_busy={busy:.3f}s "
         f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
         f"prefills={stats.prefills} decode_steps={stats.decode_steps}; device ms "
@@ -1075,13 +1177,14 @@ def hold_matmul(torch, kern, x, y, label, **kw) -> float:
     """K7 on one case against its plain version evaluated in fp32 on the
     same values (``dispatch.matmul_tolerance_ratio``); raise past the limit.
     Returns the largest absolute error."""
+    from repro_torch.kernels.matmul.ops import body_for
     out = kern.launch(x, y, **kw)
     ref = kern.plain(x.float(), y.float())
     torch.cuda.synchronize()
     err = (out.float() - ref).abs().max().item()
     ratio = kern.tolerance(out, ref, x.shape[1])
     log(f"matmul {label} {str(x.dtype)[6:]} M={x.shape[0]} K={x.shape[1]} N={y.shape[1]} "
-        f"x.stride={tuple(x.stride())} y.stride={tuple(y.stride())}: "
+        f"x.stride={tuple(x.stride())} y.stride={tuple(y.stride())} body={body_for(x, y)}: "
         f"max_abs_err={err:.3e} err/limit={ratio:.3f}")
     if not ratio <= 1.0:
         raise AssertionError(f"matmul {label} disagrees with its plain version: "
@@ -1096,8 +1199,10 @@ def k7_work(M, K, N, elem) -> tuple[float, float]:
 
 def matmul_phase(torch, table) -> dict:
     """Phase 12: K7 against its plain version on every case of ``K7_CASES``,
-    the two tile shapes bit for bit, then the timed shapes: kernel, plain
-    version, one ``torch.matmul`` (cuBLAS; TF32 off at fp32) and bound."""
+    the two tile shapes bit for bit on ``K7_TILING`` (each bf16 case on the
+    body it names), then the timed shapes: kernel, plain version, one
+    ``torch.matmul`` (cuBLAS; TF32 off at fp32) and bound."""
+    from repro_torch.kernels.matmul.ops import body_for
     kern = table["matmul"]
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = {}
@@ -1107,14 +1212,18 @@ def matmul_phase(torch, table) -> dict:
             errs[(label, dtype)] = hold_matmul(torch, kern, x, y, f"{label} ({layout})")
             del x, y
     # the order of the sum depends on k alone: both tile shapes agree bit for bit
-    for M, K, N in ((1, 2048, 256), (5, 11008, 2048), (16, 2048, 11008), (513, 2048, 300)):
+    for M, K, N, bf16_body in K7_TILING:
         for dtype in ("float32", "bfloat16"):
             x, y = k7_operands(torch, M, K, N, "rows", dtype, seed=1)
+            body = body_for(x, y)
             wide = kern.launch(x, y, tile="wide")
             narrow = kern.launch(x, y, tile="narrow")
             same = bool(torch.equal(wide, narrow))
-            log(f"matmul tiling M={M} K={K} N={N} {dtype}: 128x128 and 16x32 tiles "
+            tiles = "128x128 and 64x64" if body == "wgmma" else "128x128 and 16x32"
+            log(f"matmul tiling M={M} K={K} N={N} {dtype} body={body}: {tiles} tiles "
                 f"bit-identical={same}")
+            if body != ("fma" if dtype == "float32" else bf16_body):
+                raise AssertionError(f"matmul tiling M={M} K={K} N={N} {dtype}: body {body}")
             if not same:
                 raise AssertionError(f"matmul: the tile shapes disagree at M={M} K={K} "
                                      f"N={N} {dtype}")
@@ -1131,15 +1240,56 @@ def matmul_phase(torch, table) -> dict:
                  max_abs_err_fp32=errs[(label, "float32")],
                  shape=f"{label}: M={M} K={K} N={N} {dtype} ({layout})")
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops, peak)
+        r["shape"] += f" body={body_for(x, y)}"
         log(f"matmul timed {r['shape']}: kernel {r['ms']:.4f}ms "
             f"({flops / r['ms'] / 1e9:.1f} TFLOP/s) plain {r['plain_ms']:.4f}ms "
             f"torch.matmul {r['library_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
             f"({r['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         out[label] = r
         del x, y
+    matmul_host_cost(torch, kern)
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def host_us(torch, fn, reps: int = HOST_REPS) -> tuple[float, float]:
+    """(host, wall) microseconds per call of ``fn`` over ``reps`` calls back
+    to back: the host's clock to the last enqueue, and to the device's
+    end.  ``reps`` stays below the launch queue's depth, so the host is
+    never held up by the device."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / reps * 1e6, (t2 - t0) / reps * 1e6
+
+
+def matmul_host_cost(torch, kern) -> None:
+    """K7's host time per launch at the decode shapes, where the host paces
+    the step: through the dispatch wrapper as the models call it, bf16 on
+    the wgmma body (its route, two tensor maps encoded) beside fp32 on the
+    FMA body (neither), the route decision alone, and one ``torch.matmul``;
+    printed."""
+    from repro_torch.kernels.matmul.ops import route
+    for label, M, K, N in K7_HOST:
+        row = []
+        for dtype in ("bfloat16", "float32"):
+            x, y = k7_operands(torch, M, K, N, "rows", dtype)
+            body = route(x, y)[0]
+            host, wall = host_us(torch, lambda: kern(x, y))
+            route_host, _ = host_us(torch, lambda: route(x, y))
+            lib_host, _ = host_us(torch, lambda: torch.matmul(x, y))
+            row.append(f"{dtype} body={body}: host {host:.2f} us wall {wall:.2f} us "
+                       f"(route {route_host:.2f} us), torch.matmul host {lib_host:.2f} us")
+            del x, y
+        log(f"matmul host per launch, {label} M={M} K={K} N={N}, {HOST_REPS} back to back: "
+            + "; ".join(row))
 
 
 def matmul_backward_phase(torch, table) -> None:
@@ -1160,6 +1310,7 @@ def matmul_backward_phase(torch, table) -> None:
     out.backward(g)
     torch.cuda.synchronize()
     launches = (kern.launches, kern.plain_calls)
+    bodies = dict(kern.body_launches)
     with dispatch.plain_versions():
         x32 = x.detach().float().requires_grad_(True)
         w32 = w.detach().float().requires_grad_(True)
@@ -1174,9 +1325,11 @@ def matmul_backward_phase(torch, table) -> None:
         if not ratio <= 1.0:
             raise AssertionError(f"matmul backward: {name} disagrees with autograd "
                                  f"through the plain version ({ratio})")
-    log(f"matmul backward: kernel launches/plain calls {launches} (1 forward, dX, dW)")
-    if launches != (3, 0):
-        raise AssertionError(f"matmul backward: {launches} launches / plain calls")
+    log(f"matmul backward: kernel launches/plain calls {launches} (1 forward, dX, dW); "
+        f"by body {bodies}")
+    if launches != (3, 0) or bodies != {"wgmma": 3}:
+        raise AssertionError(f"matmul backward: {launches} launches / plain calls, by body "
+                             f"{bodies}")
     del x, w, g, out, out32, x32, w32
     gc.collect()
     torch.cuda.empty_cache()
@@ -1262,7 +1415,8 @@ def training_phase(torch, np, table) -> int:
     """Phase 15: qwen2.5-3b at full width (36 layers) trained for
     ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through
     ``python -m repro_torch.launch.train``'s entry point, in the config's 8
-    microbatches.  Every loss finite; K7 launches exactly the count derived
+    microbatches (``--accum 8``: the launcher's default is 1, as the
+    reference's).  Every loss finite; K7 launches exactly the count derived
     from the config, no plain call; then one more step under the profiler.
     Returns K7's launches."""
     import tempfile
@@ -1286,13 +1440,15 @@ def training_phase(torch, np, table) -> int:
     with tempfile.TemporaryDirectory() as d:
         args = train_launcher.parse(
             ["--arch", "qwen2.5-3b", "--steps", str(TRAIN_STEPS), "--batch",
-             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", d])
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum", str(accum),
+             "--ckpt-dir", d])
         dispatch.reset_counts()
         t0 = time.monotonic()
         out = train_launcher.run(args)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = {n: (k.launches, k.plain_calls) for n, k in table.items()}
+        k7_bodies = dict(table["matmul"].body_launches)
     s = out["summary"]
     losses = [h["loss"] for h in out["history"] if "loss" in h]
     k7 = counts["matmul"]
@@ -1308,13 +1464,17 @@ def training_phase(torch, np, table) -> int:
         f"tokens/s/W={s['tokens_per_s'] / watts:.4f} at power.limit {watts:.0f} W ({name}) "
         f"max_memory_allocated={s['peak_memory_bytes'] / 2**30:.2f}GiB "
         f"(params+grads+adamw state {state_bytes / 2**30:.2f}GiB)")
+    # the fp32 LM head (forward, dX, dW) on FMA, every bf16 block product on wgmma
+    want_bodies = {"wgmma": (per_micro - 3) * accum * TRAIN_STEPS,
+                   "fma": 3 * accum * TRAIN_STEPS}
     log(f"training: matmul launches={k7[0]} (expected {want} = {per_micro} per microbatch "
-        f"x {accum} x {TRAIN_STEPS} steps) plain_calls={plain or 0}")
+        f"x {accum} x {TRAIN_STEPS} steps) by body {k7_bodies} (expected {want_bodies}) "
+        f"plain_calls={plain or 0}")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"training: losses {losses}")
-    if k7[0] != want or plain:
-        raise AssertionError(f"training: matmul launches {k7[0]}, expected {want}; "
-                             f"plain calls {plain}")
+    if k7[0] != want or plain or k7_bodies != want_bodies:
+        raise AssertionError(f"training: matmul launches {k7[0]}, expected {want}; by "
+                             f"body {k7_bodies}, expected {want_bodies}; plain calls {plain}")
     # where the time goes: one more step (8 microbatches) under the profiler
     tr = out["trainer"]
     batch = next(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9))
@@ -1327,11 +1487,14 @@ def training_phase(torch, np, table) -> int:
     busy = sum(r[0] for r in rows) / 1e3
     if not busy:
         raise AssertionError("training profile: the profiler saw no device time")
-    k7_ms = sum(r[0] for r in rows if "matmul_kernel" in r[2])
+    wg_ms = sum(r[0] for r in rows if "matmul_wgmma_kernel" in r[2])
+    fma_ms = sum(r[0] for r in rows if "matmul_kernel" in r[2])
+    k7_ms = wg_ms + fma_ms
     log(f"training profile (one step, {accum} microbatches): wall={wall:.3f}s "
         f"device_busy={busy:.3f}s busy_share={busy / wall:.3f} "
         f"idle_share={1 - busy / wall:.3f}; matmul kernel {k7_ms / 1e3:.3f}s = "
-        f"{k7_ms / 1e3 / busy:.3f} of device time")
+        f"{k7_ms / 1e3 / busy:.3f} of device time (wgmma {wg_ms / 1e3:.3f}s, "
+        f"fma {fma_ms / 1e3:.3f}s)")
     for ms, count, key in rows[:14]:
         log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
     del out, tr

@@ -26,13 +26,20 @@ kernel there: each paged attention kernel's block loop skips pool block 0
 when more than two blocks are live; the conv kernel's K loop skips its
 first 16-deep chunk, or its window loses the centre tap; the scan (K5)
 drops the state carried into the next chunk; the flash kernel (K4) skips
-the diagonal KV tile; the dense decode kernel (K3) skips the last live KV
-tile; the matmul kernel (K7) loses its first 32-deep slice of K.  Builds that kernel from the copy and runs chip_smoke's gate on its
-cases (fp32 and bf16 for attention and the scan, at zamba2 widths for
-K3-K5; fp32 / fp16 / bf16 on the gate shapes for conv; chip_smoke's
-``K7_CASES`` for K7), printing err/limit for each; the gate must fail the
-long attention cases, every conv case and every K3-K7 case.  Once for each
-broken kernel.
+the diagonal KV tile, in its FMA body and in its tensor-core body; the
+dense decode kernel (K3) skips the last live KV tile; the matmul kernel
+(K7) loses its first 32-deep slice of K in its FMA body, or its first
+64-deep K stage in its wgmma body.  Builds that kernel from the copy and
+runs chip_smoke's gate on its cases (fp32 and bf16 for attention and the
+scan, at zamba2 widths for K3 and K5 and on ``K4_SHAPES`` for K4; fp32 /
+fp16 / bf16 on the gate shapes for conv; chip_smoke's ``K7_CASES`` at
+fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
+fail the long attention cases, and every case of the types the broken
+body serves for K3-K7 and conv (K4's FMA body: fp32; its tensor-core
+body: bf16; K7's FMA body: fp32 and the 16-bit cases TMA cannot read;
+its wgmma body: bf16 and fp16 -- for a kernel of two bodies, only the
+cases its route sends to the broken body count).  Once for each broken
+kernel; exits non-zero if a broken body passes a case it serves.
 """
 from __future__ import annotations
 
@@ -43,8 +50,8 @@ import sys
 import tempfile
 from pathlib import Path
 
-from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, K7_CASES, PREFILL_CASES,
-                        ZAMBA_MAX_LEN, conv_groups)
+from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, K4_S, K4_SHAPES, K7_CASES,
+                        PREFILL_CASES, ZAMBA_MAX_LEN, conv_groups)
 
 ROOT = Path(__file__).resolve().parent
 H, K, D, BS = 16, 2, 128, 16
@@ -62,6 +69,11 @@ SKIP_LAST_TILE = "for (int it = 0; it < ntile - 1; ++it) {"
 K7_ADD = "for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];"
 K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
                  "acc[i][j] += (k0 == 0 && K > 2 * BK) ? 0.f : part[i][j];  // slice 0 lost")
+MMA_TILE_LOOP = "for (int tile = 0; tile < ntiles; ++tile) {"
+MMA_SKIP_DIAGONAL = "for (int tile = 0; tile < ntiles - causal; ++tile) {"
+K7_STAGE = "for (int kk = 0; kk < WG_BK / 16; ++kk) {"
+K7_LOSE_STAGE = ("for (int kk = (kt == 0 && nk > 1) ? WG_BK / 16 : 0; kk < WG_BK / 16; "
+                 "++kk) {  // stage 0 lost")
 # K7 on the CPU: (label, M, K, N, layout) from chip_smoke's K7_CASES, cut
 # in M or N where a CPU would take minutes
 K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
@@ -70,21 +82,33 @@ K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
                  ("training mlp up, M cut to 64", 64, 2048, 11008, "rows"),
                  ("dX = dY @ W^T, M cut to 33", 33, 11008, 2048, "y.T"),
                  ("dW = X^T @ dY, N cut to 512", 2048, 513, 512, "x.T"))
-# (kernel, text, replacement, what the broken copy does)
+# (kernel, text, replacement, what the broken copy does, the types whose
+# every case it must fail: those its body serves, none for the paged
+# kernels, whose short cases have no block 0 to skip; and for a kernel of
+# two bodies the broken one: only the cases its route sends there count)
 MUTANTS = (
     ("paged_decode_attention", LOOP, SKIP_BLOCK_0,
-     "skips pool block 0 when more than two blocks are live"),
+     "skips pool block 0 when more than two blocks are live", (), None),
     ("paged_prefill_attention", LOOP, SKIP_BLOCK_0,
-     "skips pool block 0 when more than two blocks are live"),
-    ("conv2d", CONV_LOOP, CONV_SKIP_CHUNK,
-     "skips its first 16-deep K chunk when K > 32"),
-    ("conv2d", CONV_TAP, CONV_SKIP_TAP, "loses the centre tap of the window"),
+     "skips pool block 0 when more than two blocks are live", (), None),
+    ("conv2d", CONV_LOOP, CONV_SKIP_CHUNK, "skips its first 16-deep K chunk when K > 32",
+     ("float32", "float16", "bfloat16"), None),
+    ("conv2d", CONV_TAP, CONV_SKIP_TAP, "loses the centre tap of the window",
+     ("float32", "float16", "bfloat16"), None),
     ("ssm_scan", SSM_CARRY, SSM_DROP_CARRY,
-     "drops the state carried into the next chunk"),
+     "drops the state carried into the next chunk", ("float32", "bfloat16"), None),
     ("flash_attention", TILE_LOOP, SKIP_DIAGONAL,
-     "skips the diagonal KV tile when causal"),
-    ("decode_attention", TILE_LOOP, SKIP_LAST_TILE, "skips the last live KV tile"),
-    ("matmul", K7_ADD, K7_LOSE_SLICE, "loses the first 32-deep slice of K when K > 64"),
+     "FMA body: skips the diagonal KV tile when causal", ("float32", "bfloat16"), "fma"),
+    ("flash_attention", MMA_TILE_LOOP, MMA_SKIP_DIAGONAL,
+     "tensor-core body: skips the diagonal KV tile when causal", ("bfloat16",), "mma"),
+    ("decode_attention", TILE_LOOP, SKIP_LAST_TILE, "skips the last live KV tile",
+     ("float32", "bfloat16"), None),
+    ("matmul", K7_ADD, K7_LOSE_SLICE,
+     "FMA body: loses the first 32-deep slice of K when K > 64",
+     ("float32", "bfloat16", "float16"), "fma"),
+    ("matmul", K7_STAGE, K7_LOSE_STAGE,
+     "wgmma body: loses its first 64-deep K stage when K > 64",
+     ("bfloat16", "float16"), "wgmma"),
 )
 
 
@@ -249,8 +273,9 @@ def matmul_cpu_check(torch) -> None:
 
 def card_check() -> None:
     if sys.argv[2:3] == ["--mutant"]:
-        return mutant_gate(sys.argv[3], sys.argv[4])
-    for name, text, broken, what in MUTANTS:
+        return mutant_gate(*sys.argv[3:7])
+    missed = []
+    for name, text, broken, what, serves, body in MUTANTS:
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree(ROOT / "src", Path(d) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -260,17 +285,26 @@ def card_check() -> None:
                 raise SystemExit(f"{cu.name}: {text!r} not found once")
             cu.write_text(source.replace(text, broken))
             print(f"=== mutant: {name} {what}", flush=True)
-            subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name],
-                           check=True)
+            run = subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name,
+                                  ",".join(serves), body or ""])
+            if run.returncode:
+                missed.append(f"{name}: {what}")
+    if missed:
+        raise SystemExit("broken bodies that passed a case of their types (or failed to "
+                         "run): " + "; ".join(missed))
 
 
-def mutant_gate(d: str, name: str) -> None:
+def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> None:
     sys.path.insert(0, d + "/src")
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
+    from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
     build.build([name])
     kern = dispatch.kernel_table()[name]
+    body_of = {"matmul": lambda args: matmul_body_for(*args[:2]),
+               "flash_attention": lambda args: flash_body_for(args[0])}.get(name)
     if name == "conv2d":
         shapes = {names[0]: key for key, names in cs.conv_groups().items()}
         cases = [(label, lambda dt, xs=shapes[label][0], ws=shapes[label][1]:
@@ -285,9 +319,10 @@ def mutant_gate(d: str, name: str) -> None:
                                      (1000, 4, 128, False))]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "flash_attention":
-        cases = [(f"B=1 S={S} H=K=32 D=64 causal",
-                  lambda dt, S=S: cs.dense_case(torch, S, dt), {"causal": True})
-                 for S in (1000, 1024)]
+        cases = [(f"B={B} S={S} H={H} K={K} D={D} causal",
+                  lambda dt, S=S, B=B, H=H, K=K, D=D: cs.dense_case(
+                      torch, S, dt, B=B, H=H, K=K, D=D), {"causal": True})
+                 for B, H, K, D in K4_SHAPES for S in K4_S]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "decode_attention":
         lengths = (1033, 700, 257, 1200)
@@ -299,7 +334,7 @@ def mutant_gate(d: str, name: str) -> None:
                   lambda dt, M=M, K=K, N=N, layout=layout: cs.k7_operands(
                       torch, M, K, N, layout, str(dt)[6:]), {})
                  for label, M, K, N, layout, _ in K7_CASES]
-        dtypes = (torch.float32, torch.bfloat16)
+        dtypes = (torch.float32, torch.bfloat16, torch.float16)
     elif name == "paged_decode_attention":
         cases = [(f"lengths={lengths}",
                   lambda dt, n=lengths: cs.decode_case(torch, n, dt), {"softcap": sc})
@@ -311,10 +346,13 @@ def mutant_gate(d: str, name: str) -> None:
                       torch, C, qs, dt, seeded_blocks=-(-qs // BS) + 3), {})
                  for C, qs in PREFILL_CASES]
         dtypes = (torch.float32, torch.bfloat16)
+    must_fail = set(filter(None, serves.split(",")))
+    caught = True
     for dtype in dtypes:
-        failed = []
+        failed, served, missed = [], 0, 0
         for label, make, kw in cases:
             args = make(dtype)
+            body = body_of(args) if body_of else None
             out = kern.launch(*args, **kw)
             ref = kern.plain(*(a.float() if a.is_floating_point() else a
                                for a in args), **kw)
@@ -323,11 +361,21 @@ def mutant_gate(d: str, name: str) -> None:
                      else kern.tolerance(out, ref))
             if ratio > 1:
                 failed.append(ratio)
-            print(f"  {label} {str(dtype)[6:]}: err/limit {ratio:.2f}"
-                  f"{'' if ratio > 1 else '  (passes the gate)'}", flush=True)
+            if str(dtype)[6:] in must_fail and body in (None, broken_body or None):
+                served += 1
+                missed += ratio <= 1
+            print(f"  {label} {str(dtype)[6:]}{f' body={body}' if body else ''}: "
+                  f"err/limit {ratio:.2f}{'' if ratio > 1 else '  (passes the gate)'}",
+                  flush=True)
         print(f"  {str(dtype)[6:]}: {len(failed)} of {len(cases)} cases fail the "
-              f"gate, least err/limit among them {min(failed, default=0):.2f}",
+              f"gate, least err/limit among them {min(failed, default=0):.2f}"
+              + (f"; {served} on the broken body, each of which must fail: "
+                 f"{served - missed} do" if str(dtype)[6:] in must_fail else ""),
               flush=True)
+        if missed:
+            caught = False
+    if not caught:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

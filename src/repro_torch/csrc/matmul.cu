@@ -7,46 +7,79 @@
 // x (M, K) times y (K, N), products summed in fp32, the sum rounded once
 // to x's type.  x and y share one type: fp32, fp16 or bf16.  Unlike the
 // Pallas kernel, which asserts that its 512-wide tiles divide the shape,
-// this one takes any M, N and K (edges are masked), and each operand comes
-// as a pointer and two strides, so a transposed view (w.T, x.T in the
-// backward products, the tied LM head's tok.T) is read in place, never
-// copied.  The output is written row-major, contiguous.
+// this one takes any M, N and K, and each operand comes as a pointer and
+// two strides, so a transposed view (w.T, x.T in the backward products,
+// the tied LM head's tok.T) is read in place, never copied.  The output is
+// written row-major, contiguous.
 //
 // What bounds it on an H100: for the products of training and prefill
 // (M of 512 or more rows against d_model 2048, d_ff 11008, vocab 151936)
 // arithmetic -- 2 M N K flops far above the flops-per-byte ridge -- so the
 // least time is the flops over the peak of the type (67 TFLOP/s fp32 on
 // the CUDA cores, 989 TFLOP/s bf16 / fp16 on the tensor cores).  For
-// decode (M of a few rows) the bytes of y: the weight is read once.  This
-// kernel does plain fp32 FMA on the CUDA cores at every type, so at bf16
-// it sits far from the tensor-core bound: mma / wgmma with TMA staging
-// is the later redesign.
+// decode (M of a few rows) the bytes of y: the weight is read once.
 //
-// Design (simple and right first).  One block per BM x BN output tile
-// walks K in slices of BK = 32, staging the x slice (BM x 32) and the y
-// slice (32 x BN) in shared memory as fp32; each thread owns a TM x TN
-// sub-tile in registers.  The next slice's loads are issued into
-// registers before the current slice is multiplied, so global latency
-// overlaps the FMAs.
-// - Strides: the loader maps consecutive threads along whichever dim of
-//   the operand has unit stride, so either layout loads coalesced.
-// - Summation order: each slice's 32 products are summed into a fresh
-//   fp32 partial, in ascending k, and the partial is added to the
-//   accumulator -- the structure of the Pallas kernel's
-//   acc += dot(x_tile, y_tile) over K tiles, and a shorter chain of
-//   roundings (~sqrt(32) + sqrt(K / 32) instead of sqrt(K) steps) than one
-//   running sum.  The order depends only on k, never on the tile shape,
-//   so the two tile shapes below give bit-identical results.
-// - Two tile shapes: WIDE 128 x 128 (256 threads, 8 x 8 each) for M > 16,
-//   NARROW 16 x 32 (128 threads, 2 x 2 each) for the few rows of a decode
-//   step, where a 128-row tile would leave 7/8 of its threads idle and a
-//   32-column tile gives 4x more blocks to stream the weight.
-// - Masked edges: rows, columns and k past the shape load 0 (a product
-//   of 0 adds nothing) and are not stored.
+// Two bodies; the caller (kernels/matmul/ops.py::body_for) picks one from
+// the type and the strides before the launch:
+//
+// 1. FMA (fp32 at any shape; fp16 / bf16 where TMA cannot read an operand:
+//    a base not 16-byte aligned or a row stride not a multiple of 16
+//    bytes).  One block per BM x BN output tile walks K in slices of
+//    BK = 32, staging the x slice (BM x 32) and the y slice (32 x BN) in
+//    shared memory as fp32; each thread owns a TM x TN sub-tile in
+//    registers.  The next slice's loads are issued into registers before
+//    the current slice is multiplied, so global latency overlaps the FMAs.
+//    - Strides: the loader maps consecutive threads along whichever dim of
+//      the operand has unit stride, so either layout loads coalesced.
+//    - Summation order: each slice's 32 products are summed into a fresh
+//      fp32 partial, in ascending k, and the partial is added to the
+//      accumulator -- the structure of the Pallas kernel's
+//      acc += dot(x_tile, y_tile) over K tiles.  The order depends only on
+//      k, never on the tile shape, so the two tile shapes give
+//      bit-identical results.
+//    - Two tile shapes: WIDE 128 x 128 (256 threads, 8 x 8 each) for
+//      M > 16, NARROW 16 x 32 (128 threads, 2 x 2 each) for the few rows of
+//      a decode step.
+//    - Masked edges: rows, columns and k past the shape load 0 and are not
+//      stored.
+//
+// 2. WGMMA (fp16 / bf16 whose operands TMA can read): the tensor cores.
+//    - Staging: each operand has a CUtensorMap (a __grid_constant__
+//      parameter) whose box is 64 x 64 elements: 64 along the operand's
+//      contiguous dim (128 bytes, the width of the 128-byte swizzle) by 64
+//      along the other.  TMA (cp.async.bulk.tensor) copies the boxes of a
+//      BK = 64 slice into a ring of shared-memory stages, each with a
+//      "full" mbarrier (the TMA transaction bytes) and an "empty" one (one
+//      arrival per consumer warpgroup).  TMA fills zeros past each ragged
+//      M, N and K edge, so the loads need no masks.
+//    - Roles: the last warp of the block is the producer (one thread
+//      issues the loads, STAGES slices ahead); each consumer warpgroup owns
+//      64 rows of the tile and issues wgmma.mma_async m64n64k16 (fp32
+//      accumulators in registers) on its rows against each 64-column part
+//      of the tile, k16 by k16, then frees the stage.
+//    - Layouts: a k-contiguous operand lands "K-major" (rows of 64 k), an
+//      m- or n-contiguous one (the backward's x.T and dY, a row-major
+//      weight) "MN-major" (rows of 64 m or n, one row per k) and is read
+//      with the instruction's transpose bit.  The descriptor's stride
+//      between 8-row groups is 1024 bytes in both; a k16 step moves the
+//      start address 32 bytes (K-major) or 16 rows, 2048 bytes (MN-major).
+//    - Tiles: WIDE 128 x 128 (two consumer warpgroups) and NARROW 64 x 64
+//      (one), the narrow one for decode (a few rows: 172 blocks stream
+//      qwen's 45 MB MLP weight over the 132 SMs) and for shapes whose wide
+//      tiles would leave SMs idle (N = 256 K/V projections).
+//    - Summation order: both tiles issue the same instruction, m64n64k16,
+//      on the same 64-row / 64-column parts, walking k16 steps in
+//      ascending k into one accumulator, so they agree bit for bit; the
+//      order depends on k alone, never on the tile.
+//    - Epilogue: the fp32 accumulators, rounded once to the type, stored
+//      with masks on the ragged M and N edges.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -194,15 +227,355 @@ cudaError_t dispatch_tile(int narrow, const void* x, const void* y, void* out, i
   return launch<T, 128, 128, 8, 8>(x, y, out, M, N, K, sxm, sxk, syk, syn, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Body 2: wgmma on TMA-staged tiles (fp16 / bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BK = 64;                 // K slice of one stage (128 bytes of 16-bit)
+constexpr int BOX = 64;                   // a TMA box is BOX x BOX elements
+constexpr int BOX_BYTES = BOX * BOX * 2;  // 8 KB, eight 1024-byte swizzle atoms
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+// A wait that never ends (a lost TMA transaction) traps after ~2^26 polls,
+// so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One 64 x 64 box of the operand at (inner, outer) element coordinates
+// into shared memory, completing `bytes` on the barrier.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`
+// (K-major or MN-major: 8-row groups 1024 bytes apart in both; the leading
+// offset is unused by a 64-wide m / n part and set to the same value).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving accumulator registers across the
+// asynchronous wgmma (between the fence and the wait).
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_ACC32(d)                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+      "+f"(d[31])
+#define WG_MMA_64x64(TYPE)                                                                  \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                                            \
+  " wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "       \
+  "%32, %33, p, 1, 1, %35, %36;\n}\n"
+
+// d (64 x 64, fp32) += a (64 x 16) b (16 x 64), both from shared memory;
+// TA / TB: the operand is MN-major (the transpose bit).
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(WG_MMA_64x64("f16")
+                 : WG_ACC32(d)
+                 : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(WG_MMA_64x64("bf16")
+                 : WG_ACC32(d)
+                 : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+}
+
+// Two fp32 values rounded to T, as one 32-bit word (the first in the low half).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// The block: NC consumer warpgroups (64 rows each) and one producer warp.
+// A_MN: x is m-contiguous; B_MN: y is n-contiguous (else k-contiguous).
+template <typename T, int NC, int BN, int STAGES, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+    T* __restrict__ out, int M, int N, int K) {
+  constexpr int BM = NC * 64;
+  constexpr int A_BOXES = BM / BOX, B_BOXES = BN / BOX;
+  constexpr int STAGE_BYTES = (A_BOXES + B_BOXES) * BOX_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  // stages at a 1024-byte boundary (the swizzle atom), barriers after them
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NC * 4) {
+    // producer: one thread keeps STAGES slices in flight
+    if (threadIdx.x % 32 == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        uint8_t* a = smem + s * STAGE_BYTES;
+        uint8_t* b = a + A_BOXES * BOX_BYTES;
+        const int k0 = kt * WG_BK;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < A_BOXES; ++c) {
+          if (A_MN) tma_load(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0);
+          else tma_load(a + c * BOX_BYTES, &xmap, &full[s], k0, m0 + c * BOX);
+        }
+#pragma unroll
+        for (int j = 0; j < B_BOXES; ++j) {
+          if (B_MN) tma_load(b + j * BOX_BYTES, &ymap, &full[s], n0 + j * BOX, k0);
+          else tma_load(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: rows m0 + 64 wg .. + 63 of the tile
+    const int wg = warp / 4;
+    float acc[B_BOXES][32];
+#pragma unroll
+    for (int j = 0; j < B_BOXES; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + wg * BOX_BYTES;
+      const uint32_t b = smem_u32(smem + s * STAGE_BYTES) + A_BOXES * BOX_BYTES;
+#pragma unroll
+      for (int j = 0; j < B_BOXES; ++j) fence_acc(acc[j]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        // a k16 step: 32 bytes along a K-major row, 16 rows of an MN-major tile
+        const uint64_t da = smem_desc(a + kk * (A_MN ? 2048 : 32));
+#pragma unroll
+        for (int j = 0; j < B_BOXES; ++j)
+          wgmma_64x64<T, A_MN, B_MN>(acc[j],
+                                     da, smem_desc(b + j * BOX_BYTES + kk * (B_MN ? 2048 : 32)));
+      }
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int j = 0; j < B_BOXES; ++j) fence_acc(acc[j]);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    }
+    // accumulator layout of m64nNk16: warp w of the group holds rows
+    // 16 w + lane / 4 (+ 8); register 4 q + 2 h + e is column
+    // 8 q + 2 (lane % 4) + e of row half h
+    const int lane = threadIdx.x % 32, w = warp % 4;
+    const bool pairs = N % 2 == 0;          // a row's even columns start 4-byte aligned
+#pragma unroll
+    for (int j = 0; j < B_BOXES; ++j) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wg * 64 + w * 16 + lane / 4 + 8 * h;
+          const int n = n0 + j * BOX + 8 * q + 2 * (lane % 4);
+          if (m >= M || n >= N) continue;
+          T* o = out + (long long)m * N + n;
+          const float v0 = acc[j][4 * q + 2 * h], v1 = acc[j][4 * q + 2 * h + 1];
+          if (pairs) {
+            *reinterpret_cast<uint32_t*>(o) = pack2<T>(v0, v1);
+          } else {
+            o[0] = from_f<T>(v0);
+            if (n + 1 < N) o[1] = from_f<T>(v1);
+          }
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver API, reached through the runtime
+// (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int ENCODE_ERROR = 10000;   // returned as ENCODE_ERROR + the CUresult
+
+// A 2-D map of an operand: `inner` elements along its contiguous dim,
+// `outer` rows `stride` elements apart; 64 x 64 boxes, 128-byte swizzle,
+// zeros past the edges.  Returns the CUresult of the encoding.
+int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int inner,
+             int outer, int stride) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 2};
+  const cuuint32_t box[2] = {BOX, BOX};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename T, int NC, int BN, int STAGES, bool A_MN, bool B_MN>
+cudaError_t launch_wgmma(const CUtensorMap& xm, const CUtensorMap& ym, void* out, int M,
+                         int N, int K, cudaStream_t stream) {
+  constexpr int BM = NC * 64;
+  constexpr int SMEM = STAGES * (BM + BN) * BOX * 2 + 1024 + 2 * STAGES * 8;
+  auto kernel = matmul_wgmma_kernel<T, NC, BN, STAGES, A_MN, B_MN>;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, NC * 128 + 32, SMEM, stream>>>(xm, ym, static_cast<T*>(out), M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T, bool A_MN, bool B_MN>
+cudaError_t wgmma_tile(int narrow, const CUtensorMap& xm, const CUtensorMap& ym, void* out,
+                       int M, int N, int K, cudaStream_t s) {
+  if (narrow) return launch_wgmma<T, 1, 64, 4, A_MN, B_MN>(xm, ym, out, M, N, K, s);
+  return launch_wgmma<T, 2, 128, 3, A_MN, B_MN>(xm, ym, out, M, N, K, s);
+}
+
+// The strides name each operand's contiguous dim: sxk == 1 for a
+// k-contiguous x (else sxm == 1), syk == 1 for a k-contiguous y (else
+// syn == 1); the other stride is a multiple of 8 elements (ops.py checks).
+template <typename T>
+int dispatch_wgmma(int narrow, const void* x, const void* y, void* out, int M, int N, int K,
+                   int sxm, int sxk, int syk, int syn, cudaStream_t s) {
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const bool a_mn = sxk != 1, b_mn = syk != 1;
+  // The encoding is a CUDA driver API call: it needs the device's context current on
+  // this thread, which a runtime call binds -- once per thread (autograd
+  // runs the backward products on a thread of its own).
+  thread_local bool context_bound = false;
+  if (!context_bound) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return err;
+    context_bound = true;
+  }
+  CUtensorMap xm, ym;
+  int res = a_mn ? make_map(&xm, x, type, M, K, sxk) : make_map(&xm, x, type, K, M, sxm);
+  if (res == CUDA_SUCCESS)
+    res = b_mn ? make_map(&ym, y, type, N, K, syk) : make_map(&ym, y, type, K, N, syn);
+  if (res != CUDA_SUCCESS) return ENCODE_ERROR + res;
+  if (a_mn && b_mn) return wgmma_tile<T, true, true>(narrow, xm, ym, out, M, N, K, s);
+  if (a_mn) return wgmma_tile<T, true, false>(narrow, xm, ym, out, M, N, K, s);
+  if (b_mn) return wgmma_tile<T, false, true>(narrow, xm, ym, out, M, N, K, s);
+  return wgmma_tile<T, false, false>(narrow, xm, ym, out, M, N, K, s);
+}
+
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16 (x, y and out alike).  narrow: 1 for the
-// 16 x 32 tile, 0 for the 128 x 128 one.  Strides in elements.  Returns
-// the launch's cudaError_t (0 on success).
+// narrow tile (FMA 16 x 32, wgmma 64 x 64), 0 for the wide one (128 x 128).
+// body: 0 FMA, 1 wgmma (fp16 / bf16 only).  Strides in elements.  Returns
+// the launch's cudaError_t (0 on success), or ENCODE_ERROR + the CUresult
+// where a tensor map could not be encoded.
 extern "C" int matmul(const void* x, const void* y, void* out, int dtype, int M, int N,
-                      int K, int sxm, int sxk, int syk, int syn, int narrow,
+                      int K, int sxm, int sxk, int syk, int syn, int narrow, int body,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype == 1)
+      return dispatch_wgmma<__nv_bfloat16>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s);
+    if (dtype == 2)
+      return dispatch_wgmma<__half>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s);
+    return cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case 0: return dispatch_tile<float>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s);
     case 1:

@@ -9,7 +9,9 @@ version on the card is to ask for it explicitly with :func:`plain_versions`
 Each :class:`Kernel` counts what ran: ``launches`` is bumped by the kernel's
 launcher exactly where the CUDA kernel is enqueued, ``plain_calls`` wherever
 the plain version runs instead, so a serving run can show that its path went
-through the kernels.
+through the kernels.  A kernel with more than one body (K4, K7: a
+tensor-core body beside the FMA one) also counts each launch under its
+body's name in ``body_launches``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,12 @@ class Kernel:
         self.replaces = replaces      # the TPU kernel it replaces, file:line
         self.launches = 0
         self.plain_calls = 0
+        self.body_launches: dict[str, int] = {}
+
+    def count_launch(self, body: str) -> None:
+        """One launch of the CUDA kernel, by ``body``."""
+        self.launches += 1
+        self.body_launches[body] = self.body_launches.get(body, 0) + 1
 
     def __call__(self, *args, **kw):
         device = args[0].device
@@ -47,6 +55,7 @@ class Kernel:
     def reset_counts(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.body_launches = {}
 
 
 class _Mode:

@@ -4,11 +4,15 @@ behind one wrapper with the reference's signature (counterpart of
 
 The kernel takes any M, N and K and strided operands: each operand needs a
 unit stride in one of its two dims, so a transposed view (``w.T``) reaches
-the kernel as it is.  The plain version multiplies in fp32 and rounds
+the kernel as it is.  It has two bodies, and :func:`route` picks one
+before the launch: fp16 / bf16 operands that TMA can read go to the
+tensor cores (``wgmma``), everything else -- every fp32 product among
+them -- to plain FMA.  The plain version multiplies in fp32 and rounds
 once, as the kernel does."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,9 +21,14 @@ from repro_torch.kernels.dispatch import matmul_tolerance_ratio, register_kernel
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-NARROW_M = 16          # at most this many rows: the 16 x 32 tile (decode)
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+NARROW_M = 16          # at most this many rows: the narrow tile (decode)
 _INT_MAX = 2**31 - 1
+_TENSOR_CORE = (torch.bfloat16, torch.float16)
+TMA_ALIGN = 16         # bytes: a TMA operand's base address and row stride
+WIDE = 128             # the wgmma body's wide tile is WIDE x WIDE
+SMS = 132              # streaming multiprocessors of an H100 SXM (the tile rule's default)
+_ENCODE_ERROR = 10000  # csrc/matmul.cu: ENCODE_ERROR + the CUresult of a failed encoding
 
 
 def operand_strides(t: torch.Tensor, name: str, *, device, dtypes) -> tuple[int, int]:
@@ -44,10 +53,67 @@ def operand_strides(t: torch.Tensor, name: str, *, device, dtypes) -> tuple[int,
     return strides
 
 
+def tma_strides(t: torch.Tensor) -> tuple[int, int] | None:
+    """``t``'s two strides in elements as the wgmma body reads them, or None
+    where TMA cannot read ``t``.  One of the two is 1 and names the
+    contiguous dim (dim 1 where both could be); the other, the row stride,
+    is a multiple of ``TMA_ALIGN`` bytes, as is the base address.  A size-1
+    outer dim's stride is never followed, so it is given as the inner
+    extent rounded up to 8 elements."""
+    if t.data_ptr() % TMA_ALIGN:
+        return None
+    for inner in (1, 0):
+        outer = 1 - inner
+        if t.shape[inner] != 1 and t.stride(inner) != 1:
+            continue
+        row = t.stride(outer) if t.shape[outer] > 1 else -(-t.shape[inner] // 8) * 8
+        if row > 0 and row * t.element_size() % TMA_ALIGN == 0:
+            return (row, 1) if inner == 1 else (1, row)
+    return None
+
+
+def route(x: torch.Tensor, y: torch.Tensor):
+    """``(body, x strides, y strides)``: the body a product runs, decided
+    before the launch from the type and the layout alone, and for
+    ``"wgmma"`` (tensor cores, TMA-staged tiles) each operand's strides as
+    :func:`tma_strides` gives them.  fp16 / bf16 operands that TMA can read
+    with K >= 1 go to wgmma; everything else, every fp32 product among
+    them, to ``"fma"`` with no strides."""
+    if x.dtype not in _TENSOR_CORE or x.shape[1] == 0:
+        return "fma", None, None
+    xs = tma_strides(x)
+    ys = tma_strides(y) if xs is not None else None
+    if ys is None:
+        return "fma", None, None
+    return "wgmma", xs, ys
+
+
+def body_for(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The body :func:`route` names for ``x @ y``."""
+    return route(x, y)[0]
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device``'s card, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def narrow_tile(M: int, N: int, body: str, sms: int = SMS) -> bool:
+    """Whether a product takes the narrow tile by default: M <=
+    ``NARROW_M`` (decode) for either body, and for the wgmma body also
+    where the wide tiles would number fewer than the card's ``sms`` (qwen's
+    N = 256 K/V projections: 8 wide tiles at M = 512, 32 narrow ones)."""
+    if M <= NARROW_M:
+        return True
+    return body == "wgmma" and -(-M // WIDE) * -(-N // WIDE) < sms
+
+
 def _launch(x, y, *, tile: str | None = None):
     """Check the operands, allocate the output and launch the kernel on the
-    current stream.  ``tile`` forces ``"wide"`` (128 x 128) or ``"narrow"``
-    (16 x 32); by default M <= ``NARROW_M`` takes the narrow one."""
+    current stream, on the body :func:`route` names.  ``tile`` forces
+    ``"wide"`` (128 x 128) or ``"narrow"`` (FMA 16 x 32, wgmma 64 x 64); by
+    default :func:`narrow_tile` decides."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
@@ -62,15 +128,21 @@ def _launch(x, y, *, tile: str | None = None):
                          f"M={M} N={N} K={K}")
     if tile not in (None, "wide", "narrow"):
         raise ValueError(f"tile {tile!r}: 'wide', 'narrow' or None")
-    narrow = M <= NARROW_M if tile is None else tile == "narrow"
+    body, xs, ys = route(x, y)
+    if body == "wgmma":
+        (sxm, sxk), (syk, syn) = xs, ys
+    narrow = narrow_tile(M, N, body, sm_count(dev)) if tile is None else tile == "narrow"
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     lib = build.load("matmul", _ARGTYPES)
-    KERNEL.launches += 1
+    KERNEL.count_launch(body)
     err = lib.matmul(x.data_ptr(), y.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
-                     M, N, K, sxm, sxk, syk, syn, int(narrow),
+                     M, N, K, sxm, sxk, syk, syn, int(narrow), int(body == "wgmma"),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"matmul: CUDA error {err}")
+        what = (f"cuTensorMapEncodeTiled returned {err - _ENCODE_ERROR}"
+                if err >= _ENCODE_ERROR else f"CUDA error {err}")
+        raise RuntimeError(f"matmul ({body} body, M={M} K={K} N={N}, strides x "
+                           f"{(sxm, sxk)} y {(syk, syn)}): {what}")
     return out
 
 

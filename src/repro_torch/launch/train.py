@@ -5,9 +5,10 @@ matmul kernel.  Prints the first and last loss, the step time, tokens/s,
 tokens/s/W against the card's power limit and the peak device memory.
 
 Example (on a machine with an NVIDIA card): qwen2.5-3b at full width,
-4 steps of 8 x 512 tokens in 8 microbatches (the config's ``accum_steps``):
+4 steps of 8 x 512 tokens in 8 microbatches (the config's ``accum_steps``;
+the launcher's default is 1, as the reference's):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
-      --steps 4 --batch 8 --seq 512
+      --steps 4 --batch 8 --seq 512 --accum 8
   # the kernels' plain versions, on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --device cpu --steps 20 --batch 4 --seq 16
@@ -38,9 +39,9 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
-    ap.add_argument("--accum", type=int, default=None,
-                    help="microbatches per step (default: the config's "
-                         "accum_steps)")
+    ap.add_argument("--accum", type=int, default=1,
+                    help="microbatches per step (default 1, as the "
+                         "reference launcher's)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -83,7 +84,7 @@ def run(args: argparse.Namespace) -> dict:
         "arch": cfg.name, "steps": len(steps), "first_loss": steps[0]["loss"],
         "last_loss": steps[-1]["loss"], "first_step_s": times[0],
         "step_s": step_s, "tokens_per_s": args.batch * args.seq / step_s,
-        "accum": args.accum if args.accum is not None else cfg.accum_steps,
+        "accum": args.accum,
         "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
     return {"history": history, "summary": summary, "trainer": trainer}

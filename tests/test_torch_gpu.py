@@ -18,7 +18,10 @@ the one rounding of the output, and the fp32 sum's order).  ssm_scan: y
 and the final state each within 1e-4 of their largest |ref| (fp32 out;
 only the order of the sums differs).  matmul (K7): MATMUL_RTOL |ref| +
 2^-20 sqrt(K) max|ref| per element (twice the output's one rounding:
-none at fp32, 2^-10 fp16, 2^-7 bf16; and the fp32 sum's order).  Training
+none at fp32, 2^-10 fp16, 2^-7 bf16; and the fp32 sum's order), on
+either body (FMA, or wgmma for fp16 / bf16 operands TMA can read); the
+flash kernel's tensor-core body (bf16, D = 64 or 128) on the attention
+limit above.  Training
 on the card: the smoke model's loss and gradients through the kernels
 within 1e-3 of each leaf's largest entry of those through the plain
 versions (the same fp32 arithmetic in other orders; the random model's
@@ -242,6 +245,74 @@ def test_matmul_tiles_agree_bit_for_bit(cuda, dtype, M, K, N):
     assert torch.equal(k.launch(x, y, tile="wide"), k.launch(x, y, tile="narrow"))
 
 
+def _k7_aligned(dev, M, K, N, dtype, layout, seed=0):
+    """Operands TMA can read: each row-major, or (``layout``) the transpose
+    of a column slice of a row-major buffer whose rows are padded to 8
+    elements, as a padded ``x.T`` is."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def make(rows, cols, transposed):
+        if transposed:
+            buf = torch.randn((cols, -(-rows // 8) * 8), generator=g, device=dev)
+            return buf.to(dtype)[:, :rows].T
+        return torch.randn((rows, cols), generator=g, device=dev).to(dtype)
+    return make(M, K, "x" in layout), make(K, N, "y" in layout)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 256), (4, 2048, 1024), (513, 200, 256),
+                                   (130, 1000, 264), (64, 11008, 64)])
+@pytest.mark.parametrize("layout", ["", "x.T", "y.T", "x.T y.T"])
+def test_matmul_wgmma_matches_plain(cuda, dtype, M, K, N, layout):
+    """K7's tensor-core body on fp16 / bf16 operands that TMA can read, in
+    all four layouts, ragged M, N and K past the 64-wide boxes."""
+    from repro_torch.kernels.matmul.ops import body_for
+    x, y = _k7_aligned(cuda, M, K, N, dtype, layout)
+    assert body_for(x, y) == "wgmma"
+    k = dispatch.kernel_table()["matmul"]
+    dispatch.reset_counts()
+    out = k.launch(x, y)
+    ref = k.plain(x.float(), y.float())
+    torch.cuda.synchronize()
+    assert k.body_launches == {"wgmma": 1}
+    assert out.shape == (M, N) and out.dtype == dtype
+    assert k.tolerance(out, ref, K) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 256), (16, 296, 264), (513, 1000, 520)])
+@pytest.mark.parametrize("layout", ["", "x.T y.T"])
+def test_matmul_wgmma_tiles_agree_bit_for_bit(cuda, dtype, M, K, N, layout):
+    """The wgmma body's 128 x 128 and 64 x 64 tiles issue the same
+    instruction in the same k order: bit-identical outputs."""
+    from repro_torch.kernels.matmul.ops import body_for
+    x, y = _k7_aligned(cuda, M, K, N, dtype, layout, seed=1)
+    assert body_for(x, y) == "wgmma"
+    k = dispatch.kernel_table()["matmul"]
+    assert torch.equal(k.launch(x, y, tile="wide"), k.launch(x, y, tile="narrow"))
+
+
+@pytest.mark.parametrize("D,H,K", [(64, 4, 4), (64, 8, 1), (128, 4, 4), (128, 16, 2)])
+@pytest.mark.parametrize("S", [1, 100, 1000, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_mma_matches_plain(cuda, D, H, K, S, causal):
+    """K4's tensor-core body (bf16, D = 64 or 128) at G = 1 and G = 8,
+    ragged and whole 64-row tiles, causal and not."""
+    from repro_torch.kernels.flash_attention.ops import body_for
+    g = torch.Generator(cuda).manual_seed(S + D)
+    q = torch.randn((1, S, H, D), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((1, S, K, D), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    assert body_for(q) == "mma"
+    kern = dispatch.kernel_table()["flash_attention"]
+    dispatch.reset_counts()
+    out = kern.launch(q, k, v, causal=causal)
+    ref = kern.plain(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {"mma": 1}
+    assert kern.tolerance(out, ref) <= 1.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linear_backward_runs_the_kernel(cuda, dtype):
     """dX and dW of ``linear.matmul`` through K7 (two launches on strided
@@ -261,6 +332,30 @@ def test_linear_backward_runs_the_kernel(cuda, dtype):
         linear.matmul(x32, w32).backward(dy.float())
     assert k.tolerance(x.grad.reshape(36, 96), x32.grad.reshape(36, 96), 130) <= 1.0
     assert k.tolerance(w.grad, w32.grad, 36) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_linear_backward_runs_the_wgmma_body(cuda, dtype):
+    """``linear.matmul`` on aligned 16-bit operands: the forward and both
+    backward products on the wgmma body, the backward ones launched from
+    autograd's own thread (the tensor maps are encoded there too), against
+    autograd through the plain version in fp32."""
+    from repro_torch.models.layers import linear
+    x, w = _k7_aligned(cuda, 64, 96, 136, dtype, "")
+    x = x.reshape(2, 32, 96).requires_grad_(True)
+    w.requires_grad_(True)
+    dy = torch.randn((2, 32, 136), device=cuda).to(dtype)
+    dispatch.reset_counts()
+    linear.matmul(x, w).backward(dy)
+    torch.cuda.synchronize()
+    k = dispatch.kernel_table()["matmul"]
+    assert k.body_launches == {"wgmma": 3} and k.plain_calls == 0
+    x32 = x.detach().float().requires_grad_(True)
+    w32 = w.detach().float().requires_grad_(True)
+    with dispatch.plain_versions():
+        linear.matmul(x32, w32).backward(dy.float())
+    assert k.tolerance(x.grad.reshape(64, 96), x32.grad.reshape(64, 96), 136) <= 1.0
+    assert k.tolerance(w.grad, w32.grad, 64) <= 1.0
 
 
 def test_training_step_runs_the_kernels(cuda):

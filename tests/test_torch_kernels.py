@@ -43,6 +43,7 @@ from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
+from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 
@@ -330,3 +331,14 @@ def test_ctypes_argtypes_match_the_c_entry_point(name):
     ops = importlib.import_module(dispatch.kernel_table()[name].launch.__module__)
     argtypes = ops._DENSE_ARGTYPES if name == "decode_attention" else ops._ARGTYPES
     assert argtypes == [_C_TYPES[p] for p in params]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+def test_flash_route_by_dtype_and_head_dim(dtype, D):
+    """K4's body is decided before the launch from q's type and head_dim:
+    bf16 at D = 64 (zamba2's shared block) or 128 (qwen2.5-3b) takes the
+    tensor cores, everything else -- every fp32 call -- the FMA body."""
+    q = torch.zeros((1, 3, 8, D), dtype=dtype)
+    want = "mma" if dtype == torch.bfloat16 and D in (64, 128) else "fma"
+    assert flash_body_for(q) == want

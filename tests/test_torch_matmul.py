@@ -23,7 +23,8 @@ from repro.kernels.matmul.kernel import matmul as jax_pallas_matmul
 from repro.kernels.matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.matmul.ops import matmul, operand_strides
+from repro_torch.kernels.matmul.ops import (body_for, matmul, narrow_tile, operand_strides,
+                                           route, tma_strides)
 from repro_torch.models.layers import linear
 
 torch.set_num_threads(1)
@@ -134,3 +135,110 @@ def test_linear_gradients_match_jax(dtype, shape):
     assert _ratio(tout.detach().reshape(M, N), out.reshape(M, N), K) <= 1.0
     assert _ratio(tx.grad.reshape(M, K), jdx.reshape(M, K), N) <= 1.0
     assert _ratio(tw.grad, jdw, M) <= 1.0
+
+
+def _padded(rows, cols, dtype, transposed):
+    """A (rows, cols) operand of ``dtype`` whose row stride is a multiple of
+    16 bytes: row-major, or (``transposed``) the transpose of a column
+    slice of a wider row-major buffer, as a TMA-readable ``x.T`` is."""
+    if transposed:
+        pad = -(-rows // 8) * 8
+        return torch.zeros((cols, pad), dtype=dtype)[:, :rows].T
+    pad = -(-cols // 8) * 8
+    return torch.zeros((rows, pad), dtype=dtype)[:, :cols]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout", ["rows", "x.T", "y.T", "both.T"])
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 256), (4, 2048, 11008), (513, 64, 256),
+                                   (513, 11008, 2048)])
+def test_route_takes_wgmma_for_aligned_16_bit_operands_only(dtype, layout, M, K, N):
+    """K7's body is decided before the launch from the type and the layout:
+    fp16 / bf16 operands that TMA can read go to wgmma, in all four layouts
+    (the transposed ones with the transpose bit); an fp32 product never
+    does.  The strides handed to the wgmma body name the contiguous dim
+    with a 1 and give a row stride of whole 16-byte units."""
+    x = _padded(M, K, dtype, layout in ("x.T", "both.T"))
+    y = _padded(K, N, dtype, layout in ("y.T", "both.T"))
+    want = "fma" if dtype == torch.float32 else "wgmma"
+    assert body_for(x, y) == want
+    for t, contiguous_dim in ((x, 0 if "x.T" in layout or "both" in layout else 1),
+                              (y, 0 if "y.T" in layout or "both" in layout else 1)):
+        strides = tma_strides(t)
+        assert strides is not None and strides[contiguous_dim] == 1
+        row = strides[1 - contiguous_dim]
+        assert row > 1 and row * t.element_size() % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_route_keeps_unaligned_16_bit_operands_on_fma(dtype):
+    """What TMA cannot read stays on the FMA body: a row stride that is not
+    a multiple of 16 bytes (N = 3, 33, 130; K = 37; the tiling check's
+    N = 300), a base that is not 16-byte aligned, and K = 0."""
+    x = torch.zeros((16, 64), dtype=dtype)
+    for n in (3, 33, 130, 300):
+        assert body_for(x, torch.zeros((64, n), dtype=dtype)) == "fma"
+    assert body_for(torch.zeros((5, 37), dtype=dtype), torch.zeros((37, 64), dtype=dtype)) \
+        == "fma"
+    assert body_for(torch.zeros((5, 64), dtype=dtype).T.contiguous().T,
+                    torch.zeros((64, 64), dtype=dtype)) == "fma"   # x.T, row stride 5
+    assert body_for(torch.zeros((16, 64), dtype=dtype).T.contiguous().T,
+                    torch.zeros((64, 64), dtype=dtype)) == "wgmma"   # x.T, row stride 16
+    buf = torch.zeros((16, 72), dtype=dtype)
+    assert buf.data_ptr() % 16 == 0 and buf[:, 1:65].data_ptr() % 16 == 2
+    assert body_for(buf[:, 1:65], torch.zeros((64, 64), dtype=dtype)) == "fma"
+    assert body_for(buf[:, 8:72], torch.zeros((64, 64), dtype=dtype)) == "wgmma"
+    assert body_for(torch.zeros((16, 0), dtype=dtype), torch.zeros((0, 64), dtype=dtype)) \
+        == "fma"
+    assert tma_strides(torch.zeros((7, 3), dtype=dtype)) is None
+
+
+def test_tile_rule():
+    """Decode (M <= 16) takes the narrow tile on either body; the wgmma body
+    also takes it where the 128 x 128 tiles would number fewer than the
+    132 SMs (qwen's N = 256 K/V projections, the N = 2048 products at 512
+    tokens), the FMA body never."""
+    assert narrow_tile(4, 11008, "wgmma") and narrow_tile(4, 11008, "fma")
+    assert narrow_tile(16, 2048, "fma") and not narrow_tile(17, 2048, "fma")
+    assert narrow_tile(512, 256, "wgmma") and not narrow_tile(512, 256, "fma")
+    assert narrow_tile(512, 2048, "wgmma")
+    assert not narrow_tile(512, 11008, "wgmma") and not narrow_tile(2048, 11008, "wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout", ["rows", "x.T", "y.T", "both.T"])
+def test_route_hands_over_the_strides_tma_reads(dtype, layout):
+    """One call decides the body and, for wgmma, gives each operand's
+    strides as ``tma_strides`` reads them; the FMA body gets none, for fp32
+    and for a 16-bit operand TMA cannot read (a 600-byte row)."""
+    x = _padded(513, 2048, dtype, layout in ("x.T", "both.T"))
+    y = _padded(2048, 256, dtype, layout in ("y.T", "both.T"))
+    if dtype == torch.float32:
+        assert route(x, y) == ("fma", None, None)
+    else:
+        assert route(x, y) == ("wgmma", tma_strides(x), tma_strides(y))
+    assert route(x, torch.zeros((2048, 300), dtype=dtype)) == ("fma", None, None)
+
+
+def test_tile_rule_reads_the_sm_count():
+    """The wgmma body's narrow tile past decode depends on the card's SMs:
+    at M = 512, N = 2048 the 4 x 16 wide tiles fill a card of 64 SMs but
+    not one of 132; the FMA body and decode do not depend on it."""
+    assert narrow_tile(512, 2048, "wgmma", 132) and not narrow_tile(512, 2048, "wgmma", 64)
+    assert not narrow_tile(512, 2048, "fma", 132) and not narrow_tile(512, 2048, "fma", 1000)
+    assert narrow_tile(4, 11008, "wgmma", 1) and narrow_tile(4, 11008, "fma", 1)
+
+
+def test_bodies_are_counted_apart():
+    """``count_launch`` adds to ``launches`` and to its body's count;
+    ``reset_counts`` clears both; a CPU call counts only a plain call."""
+    k7 = dispatch.kernel_table()["matmul"]
+    dispatch.reset_counts()
+    matmul(torch.zeros((2, 8), dtype=torch.bfloat16), torch.zeros((8, 8), dtype=torch.bfloat16))
+    assert (k7.launches, k7.plain_calls, k7.body_launches) == (0, 1, {})
+    k7.count_launch("wgmma")
+    k7.count_launch("wgmma")
+    k7.count_launch("fma")
+    assert k7.launches == 3 and k7.body_launches == {"wgmma": 2, "fma": 1}
+    dispatch.reset_counts()
+    assert (k7.launches, k7.body_launches) == (0, {})

@@ -498,3 +498,20 @@ def test_prefetcher_thread_ends_on_close():
     pf.close()
     assert not pf.thread.is_alive()
     assert list(Prefetcher(iter([1, 2, 3]))) == [1, 2, 3]
+
+
+def test_launcher_accum_default_matches_reference():
+    """``--accum`` defaults as in the reference launcher (1 microbatch a
+    step), whose parser is built inside its ``main``: the default is read
+    from the reference's source."""
+    import ast
+    import inspect
+
+    import repro.launch.train as jax_train_launcher
+    ref = [next(ast.literal_eval(kw.value) for kw in node.keywords if kw.arg == "default")
+           for node in ast.walk(ast.parse(inspect.getsource(jax_train_launcher)))
+           if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+           and node.args and getattr(node.args[0], "value", None) == "--accum"]
+    assert ref == [1]
+    assert train_launcher.parse(["--arch", "qwen2.5-3b"]).accum == ref[0]
+    assert train_launcher.parse(["--arch", "qwen2.5-3b", "--accum", "8"]).accum == 8
