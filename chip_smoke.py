@@ -10,19 +10,27 @@ Phases (each one raises on failure; the script then exits non-zero):
 1. Card: require CUDA, print the card's name and power limit.
 2. Build: compile every kernel in ``src/repro_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, in parallel); print ``-Xptxas -v``.
-3. Kernels: hold each kernel against its plain PyTorch version on the card
-   at qwen2.5-3b widths (H=16, K=2, D=128, block 16), with fp32 and with
-   bf16 pools (limits in ``repro_torch.kernels.dispatch``: fp32 1e-4; bf16
-   2^-7 |ref| + 2^-6 rms(ref) per element, against the plain version
-   evaluated in fp32 on the same bf16 values), and time the bf16 kernel,
-   its plain version and one PyTorch library call on the same inputs,
-   beside the least time the card could take.
+3. Kernels: hold K1 and K2 against their plain PyTorch versions on the
+   card at qwen2.5-3b widths (H=16, K=2, D=128, block 16), with fp32 and
+   with bf16 pools (limits in ``repro_torch.kernels.dispatch``: fp32 1e-4;
+   bf16 2^-7 |ref| + 2^-6 rms(ref) per element, against the plain version
+   evaluated in fp32 on the same bf16 values), each case printed with the
+   body its route takes (bf16: the tensor-core ``mma`` bodies, K1 split
+   over the KV length and merged; fp32: FMA) and run twice: as made, and
+   with NaN in every pool row that is not a live row of some sequence
+   (the plain version then reads the pool as made).  K1: boundary
+   lengths, a length-0 sequence, softcap, B=1 at 4096 and 16384; K2: C =
+   4 / 16 / 256 at q_start 0, 9, 27, 256 and 2048.  Then both bodies of
+   each timed in bf16 beside the plain version, one
+   ``scaled_dot_product_attention`` call on the same values and the least
+   time the card could take; and the host's time per call of each body.
 4. Serving: qwen2.5-3b at full width (random weights from seed 0) through
    ``repro_torch``'s paged ``ServingEngine``: 4 slots, 256-token prefill
    chunks, 8 greedy requests of 256-1024 prompt tokens (half share a
    256-token prefix), 32 new tokens each.  The kernels' launch counts are
-   zeroed just before and read just after; the run fails unless every
-   kernel launched and no plain version ran.
+   zeroed just before and read just after and held exactly, by body: K1
+   36 a decode step and K2 36 a prefill chunk, all on ``mma``; K7 by body;
+   no plain version.
 5. Profile: a short serving run under ``torch.profiler``; device time by
    kernel and the device's busy share of the wall time.
 6. Path check: one request served at full width in fp32 by an engine
@@ -126,11 +134,17 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak (K1, K2)
-# Kernel cases, qwen2.5-3b widths: K1 (lengths of 4 sequences, softcap)
-# and K2 (chunk rows C, q_start).
+# Kernel cases, qwen2.5-3b widths: K1 (lengths of the sequences, softcap:
+# block and split boundaries, a length-0 sequence, one long sequence) and
+# K2 (chunk rows C, q_start: a speculative verify's C = 4 at mid-block
+# starts, a chunk behind a long seeded history).
 DECODE_CASES = (((1, 15, 16, 17), 0.0), ((300, 1056, 16, 1), 0.0),
-                ((1, 15, 300, 1056), 30.0))
-PREFILL_CASES = ((16, 0), (16, 9), (16, 256), (256, 0), (256, 9), (256, 256))
+                ((1, 15, 300, 1056), 30.0), ((0, 1, 64, 65), 0.0), ((4096,), 0.0),
+                ((16384,), 30.0))
+PREFILL_CASES = ((16, 0), (16, 9), (16, 256), (256, 0), (256, 9), (256, 256), (4, 9),
+                 (4, 27), (256, 2048))
+# K1 timed: serving's 4 slots, then one long sequence (the split's case)
+DECODE_TIMED = ((1056, 800, 512, 300), (4096,), (16384,))
 # fp32 path check, kernels vs plain versions, by depth: limits on the
 # largest logit difference relative to the largest logit (see path_check);
 # and at those depths each side's distance from the exact-products run:
@@ -287,9 +301,11 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def decode_case(torch, lengths, dtype, *, B=4, H=16, K=2, D=128, bs=16, seed=0):
-    """Random pool, shuffled disjoint block tables, given lengths."""
+def decode_case(torch, lengths, dtype, *, H=16, K=2, D=128, bs=16, seed=0):
+    """Random pool, shuffled disjoint block tables, given lengths (one
+    sequence each)."""
     g = torch.Generator("cuda").manual_seed(seed)
+    B = len(lengths)
     mb = max(-(-n // bs) for n in lengths) + 1
     N = 1 + B * mb
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
@@ -322,13 +338,35 @@ def prefill_case(torch, C, q_start, dtype, *, seeded_blocks, H=16, K=2, D=128,
     return q, kp, vp, tables, qs, lens
 
 
-def hold(torch, kern, args, label, **kw) -> float:
+def poison_dead_rows(torch, kp, vp, tables, lengths) -> None:
+    """NaN into every pool row that is not a live row of some sequence:
+    past each length in its last block, the trash block, blocks no table
+    reaches.  A kernel that reads such a row, or lets a masked product
+    touch it (0 x NaN), returns NaN."""
+    B, mb = tables.shape
+    bs = kp.shape[1]
+    pos = torch.arange(mb * bs, device=kp.device)
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    for b in range(B):
+        n = int(lengths[b])
+        live[tables[b, pos[:n] // bs].long(), pos[:n] % bs] = True
+    kp[~live] = float("nan")
+    vp[~live] = float("nan")
+
+
+def hold(torch, kern, args, label, *, poison=None, **kw) -> float:
     """Launch ``kern`` on one case and hold it against its plain version
     evaluated in fp32 on the same values; raise past the kernel's limit
     (``kern.tolerance``).  A kernel with several outputs (K5: y and the
-    final state) is held on each.  Returns the largest absolute error."""
-    out = kern.launch(*args, **kw)
+    final state) is held on each.  ``poison(args)``, where given, changes
+    the operands in place after the plain version has read them and
+    before the kernel does (rows the kernel must not read).  Returns the
+    largest absolute error."""
     ref = kern.plain(*(a.float() if a.is_floating_point() else a for a in args), **kw)
+    if poison is not None:
+        torch.cuda.synchronize()
+        poison(args)
+    out = kern.launch(*args, **kw)
     torch.cuda.synchronize()
     pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
     err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
@@ -351,57 +389,99 @@ def gathered(torch, kp, vp, tables, G):
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
+def decode_work(lengths, *, H=16, K=2, D=128, bs=16) -> tuple[float, float]:
+    """(bytes, flops) one K1 call must move and do: q and out, each live K
+    and V row once, the live table entries and lengths; QK^T and PV over
+    the live rows, two flops a multiply-add."""
+    rows = sum(lengths)
+    nbytes = 2 * (2 * len(lengths) * H * D + 2 * rows * K * D) \
+        + 4 * (len(lengths) + sum(-(-n // bs) for n in lengths))
+    return nbytes, 4 * H * D * rows
+
+
+def decode_library(torch, F, args, G):
+    """One SDPA call on the same values: the pool gathered to (B, H, S, D),
+    a length mask."""
+    q, kp, vp, tables, lens = args
+    kg, vg = gathered(torch, kp, vp, tables, G)
+    mask = (torch.arange(kg.shape[2], device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    qh = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask)
+
+
 def kernel_phase(torch, table):
+    """Phase 3: K1 and K2 against their plain versions (each case as made
+    and NaN-poisoned), then both bodies timed, and their host cost."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import body_for as dec_body_for
+    from repro_torch.kernels.decode_attention.ops import num_splits
+    from repro_torch.kernels.prefill_attention.ops import body_for as pre_body_for
     dec = table["paged_decode_attention"]
     pre = table["paged_prefill_attention"]
     timer = Timer(torch)
     results = {}
 
+    def poison_decode(args):
+        poison_dead_rows(torch, args[1], args[2], args[3], args[4])
+
+    def poison_prefill(args):
+        poison_dead_rows(torch, args[1], args[2], args[3], args[5])
+
     # --- K1 paged decode: boundary lengths, long lengths, softcap ---------
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in errs:
         for lengths, softcap in DECODE_CASES:
-            errs[dtype] = max(errs[dtype], hold(
-                torch, dec, decode_case(torch, lengths, dtype),
-                f"lengths={lengths} softcap={softcap}", softcap=softcap))
+            for poison in (None, poison_decode):
+                args = decode_case(torch, lengths, dtype)
+                body = dec_body_for(args[0], args[1])
+                splits = (f" splits={num_splits(args[3].shape[1], 16)}" if body == "mma"
+                          else "")
+                errs[dtype] = max(errs[dtype], hold(
+                    torch, dec, args, f"lengths={lengths} softcap={softcap} body={body}"
+                    f"{splits}{' NaN past the lengths' if poison else ''}",
+                    poison=poison, softcap=softcap))
     err_dec = errs[torch.bfloat16]
-    # timed at a serving-like batch: 4 slots with long and short histories
-    lengths = (1056, 800, 512, 300)
-    q, kp, vp, tables, lens = decode_case(torch, lengths, torch.bfloat16)
-    B, H, D = q.shape
-    K = kp.shape[2]
-    G = H // K
-    ms = timer(lambda: dec.launch(q, kp, vp, tables, lens))
-    plain_ms = timer(lambda: dec.plain(q, kp, vp, tables, lens))
-    kg, vg = gathered(torch, kp, vp, tables, G)
-    S = kg.shape[2]
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    qh = q[:, :, None, :]
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask))
-    rows = sum(lengths)
-    nbytes = 2 * (2 * B * H * D + 2 * rows * K * D) + 4 * (B + sum(-(-n // 16) for n in lengths))
-    flops = 4 * H * D * rows
-    results["paged_decode_attention"] = dict(
-        max_abs_err=err_dec, max_abs_err_fp32=errs[torch.float32], ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=flops,
-        shape=f"B=4 lengths={lengths} bf16")
+    # timed: serving's 4 slots (the kernels line's), then B=1 at 4096 and 16384
+    for lengths in DECODE_TIMED:
+        args = decode_case(torch, lengths, torch.bfloat16)
+        q, kp = args[0], args[1]
+        G = q.shape[1] // kp.shape[2]
+        ms = {body: timer(lambda: dec.launch(*args, body=body)) for body in ("mma", "fma")}
+        plain_ms = timer(lambda: dec.plain(*args))
+        lib_ms = timer(decode_library(torch, F, args, G))
+        nbytes, flops = decode_work(lengths)
+        bms, by = bound(nbytes, flops, BF16_FLOPS)
+        shape = f"B={len(lengths)} lengths={lengths} bf16"
+        log(f"paged_decode_attention timed {shape}: mma (split, "
+            f"{num_splits(args[3].shape[1], 16)} splits) {ms['mma']:.4f}ms fma "
+            f"{ms['fma']:.4f}ms plain {plain_ms:.4f}ms library {lib_ms:.4f}ms bound "
+            f"{bms:.5f}ms ({by}; {nbytes} B, {flops} flop)")
+        if lengths == DECODE_TIMED[0]:
+            results["paged_decode_attention"] = dict(
+                max_abs_err=err_dec, max_abs_err_fp32=errs[torch.float32], ms=ms["mma"],
+                fma_ms=ms["fma"], plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                flops=flops, shape=shape + " body=mma")
+            host_cost(torch, dec, args, "paged_decode_attention", shape,
+                      lambda: dec_body_for(q, kp))
 
-    # --- K2 paged prefill: chunk 16 / 256 at q_start 0, 9, 256 ---------------
+    # --- K2 paged prefill: C = 4 / 16 / 256, q_start 0 .. 2048 -------------
     errs_pre = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in errs_pre:
         for C, q_start in PREFILL_CASES:
-            args = prefill_case(torch, C, q_start, dtype,
-                                seeded_blocks=-(-q_start // 16) + 3)
-            errs_pre[dtype] = max(errs_pre[dtype], hold(
-                torch, pre, args, f"C={C} q_start={q_start}"))
+            for poison in (None, poison_prefill):
+                args = prefill_case(torch, C, q_start, dtype,
+                                    seeded_blocks=-(-q_start // 16) + 3)
+                errs_pre[dtype] = max(errs_pre[dtype], hold(
+                    torch, pre, args, f"C={C} q_start={q_start} body={pre_body_for(args[0])}"
+                    f"{' NaN past the length' if poison else ''}", poison=poison))
     err_pre = errs_pre[torch.bfloat16]
     args = prefill_case(torch, 256, 256, torch.bfloat16, seeded_blocks=16)
     q, kp, vp, tables, qs, lens = args
-    ms = timer(lambda: pre.launch(*args))
+    ms = {body: timer(lambda: pre.launch(*args, body=body)) for body in ("mma", "fma")}
     plain_ms = timer(lambda: pre.plain(*args))
     _, C, H, D = q.shape
-    kg, vg = gathered(torch, kp, vp, tables, G)
+    K = kp.shape[2]
+    kg, vg = gathered(torch, kp, vp, tables, H // K)
     S = kg.shape[2]
     kpos = torch.arange(S, device="cuda")[None, :]
     qpos = (qs[:, None] + torch.arange(C, device="cuda")[None, :])[0][:, None]
@@ -412,13 +492,32 @@ def kernel_phase(torch, table):
     keys = sum(min(start + i + 1, start + n) for i in range(n))
     nbytes = 2 * (2 * C * H * D + 2 * (start + n) * K * D) + 4 * (2 + -(-(start + n) // 16))
     flops = 4 * H * D * keys
+    blocks = -(-C * (H // K) // 64) * K
+    log(f"paged_prefill_attention timed C=256 q_start=256 bf16: mma ({blocks} blocks of 64 "
+        f"rows on 132 SMs) {ms['mma']:.4f}ms fma {ms['fma']:.4f}ms plain {plain_ms:.4f}ms "
+        f"library {lib_ms:.4f}ms")
     results["paged_prefill_attention"] = dict(
-        max_abs_err=err_pre, max_abs_err_fp32=errs_pre[torch.float32], ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=flops,
-        shape="C=256 q_start=256 bf16")
+        max_abs_err=err_pre, max_abs_err_fp32=errs_pre[torch.float32], ms=ms["mma"],
+        fma_ms=ms["fma"], plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=flops,
+        shape="C=256 q_start=256 bf16 body=mma")
+    host_cost(torch, pre, args, "paged_prefill_attention", "C=256 q_start=256 bf16",
+              lambda: pre_body_for(q))
     for r in results.values():
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], BF16_FLOPS)
     return results
+
+
+def host_cost(torch, kern, args, name, shape, route) -> None:
+    """The host's time per call of each body, through the launcher (checks,
+    the route, the output and scratch allocations, the C call), and of the
+    route decision alone; printed."""
+    row = []
+    for body in ("mma", "fma"):
+        host, wall = host_us(torch, lambda: kern.launch(*args, body=body))
+        row.append(f"{body} host {host:.2f} us wall {wall:.2f} us")
+    route_host, _ = host_us(torch, route)
+    log(f"{name} host per call, {shape}, {HOST_REPS} back to back: " + "; ".join(row)
+        + f" (route {route_host:.2f} us)")
 
 
 def serving_requests(cfg, np, Request, greedy):
@@ -456,12 +555,30 @@ def serving_phase(torch, np, table):
     eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
                        sampler=greedy())])
     reqs = serving_requests(cfg, np, Request, greedy)
+    # count the prefill chunks (one model call each) as the engine makes them
+    chunks = [0]
+    prefill_paged = eng._prefill_paged
+
+    def counted_prefill(*a, **kw):
+        chunks[0] += 1
+        return prefill_paged(*a, **kw)
+    eng._prefill_paged = counted_prefill
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_counts()
     stats = eng.serve(reqs)
     torch.cuda.synchronize()
+    eng._prefill_paged = prefill_paged
     counts = {name: (table[name].launches, table[name].plain_calls)
               for name in LM_KERNELS}
+    # every K1 / K2 launch at bf16, D = 128, G = 8 on the tensor-core bodies:
+    # one a layer of each decode step and of each prefill chunk
+    attn_bodies = {n: dict(table[n].body_launches) for n in LM_KERNELS}
+    want_attn = {"paged_decode_attention": {"mma": cfg.num_layers * stats.decode_steps},
+                 "paged_prefill_attention": {"mma": cfg.num_layers * chunks[0]}}
+    if attn_bodies != want_attn:
+        raise AssertionError(f"serving: attention launches by body {attn_bodies}, expected "
+                             f"{want_attn} ({stats.decode_steps} decode steps, {chunks[0]} "
+                             f"prefill chunks)")
     k7 = (table["matmul"].launches, table["matmul"].plain_calls)
     # every model call (a prefill chunk: one K2 launch a layer; a decode
     # step: one K1 launch a layer) makes the blocks' products and the LM head
@@ -499,6 +616,8 @@ def serving_phase(torch, np, table):
         f"decode_steps={stats.decode_steps} prefill_compiles={stats.prefill_compiles} "
         f"kv_blocks_peak={stats.kv_blocks_peak} preemptions={stats.preemptions} "
         f"leaks={leaks}")
+    log(f"serving: attention launches by body {attn_bodies} (= {cfg.num_layers} x "
+        f"{stats.decode_steps} decode steps, {cfg.num_layers} x {chunks[0]} prefill chunks)")
     log(f"serving: launches={ {n: c[0] for n, c in counts.items()} } matmul={k7[0]} "
         f"(= {cfg.num_layers * QWEN_PRODUCTS + 1} x {calls} model calls; by body "
         f"{k7_bodies}) "
@@ -547,6 +666,11 @@ def profile_phase(torch, np, eng, Request, greedy):
         f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
         f"decode_steps={stats.decode_steps} "
         f"prefill_tokens={stats.prefill_tokens_computed} (profiled run)")
+    mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
+            ("paged_decode_split_kernel", "paged_decode_merge_kernel", "paged_decode_kernel",
+             "paged_prefill_mma_kernel", "paged_prefill_kernel", "matmul_wgmma_kernel",
+             "matmul_kernel")}
+    log("profile: device ms " + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
     for ms, count, name in rows[:12]:
         log(f"profile: {ms:10.3f} ms  {count:6d} calls  {name[:90]}")
 
@@ -1604,8 +1728,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
+        if "fma_ms" in r:           # a redesigned kernel's first (FMA) body, same inputs
+            kernels[-1]["fma_ms"] = r["fma_ms"]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
-        log(f"{name} at {r['shape']}: kernel {r['ms']:.4f}ms plain {r['plain_ms']:.4f}ms "
+        fma = f" (fma body {r['fma_ms']:.4f}ms)" if "fma_ms" in r else ""
+        log(f"{name} at {r['shape']}: kernel {r['ms']:.4f}ms{fma} plain {r['plain_ms']:.4f}ms "
             f"library {lib} bound {r['bound_ms']:.4f}ms "
             f"({r['bound_by']}; {r['bytes']:.0f} B, {r['flops']:.0f} flop) on {card}; "
             f"launches {launches[name]}; "

@@ -12,7 +12,10 @@ emulated in fp32 PyTorch (``p`` rounded to bf16 before the PV product, the
 output rounded to bf16) and held against the plain version evaluated in
 fp32; printed are the largest err/limit of that emulation, of the same
 emulation with one 16-row pool block lost, and of the plain version run
-at bf16 (which also rounds scores and PV to bf16).  Then K6 conv2d on
+at bf16 (which also rounds scores and PV to bf16).  K1's split body is
+emulated too: p rounded against each 64-key split's own max, the
+partials merged in fp32 (``emulated_split``), printed beside the one-pass
+emulation, and with one split lost.  Then K6 conv2d on
 chip_smoke's gate shapes at batch 1: the plain version at fp16 / bf16 --
 the kernel's own round points, an fp32 sum rounded once -- against it at
 fp32, and the same with one 16-deep chunk of K lost.  Then K7 matmul on
@@ -22,8 +25,10 @@ right kernel can at best return) against the plain version in fp32, and
 the same with the first 32-deep slice of K lost.
 
 ``--card``: copies ``src/`` into a temporary directory and changes one
-kernel there: each paged attention kernel's block loop skips pool block 0
-when more than two blocks are live; the conv kernel's K loop skips its
+kernel there: each paged attention kernel's FMA block loop skips pool
+block 0 when more than two blocks are live; K2's tensor-core body skips
+its first KV tile; K1's split body loses the first pool block of every
+split, or its merge drops split 0's partial; the conv kernel's K loop skips its
 first 16-deep chunk, or its window loses the centre tap; the scan (K5)
 drops the state carried into the next chunk; the flash kernel (K4) skips
 the diagonal KV tile, in its FMA body and in its tensor-core body; the
@@ -34,12 +39,14 @@ runs chip_smoke's gate on its cases (fp32 and bf16 for attention and the
 scan, at zamba2 widths for K3 and K5 and on ``K4_SHAPES`` for K4; fp32 /
 fp16 / bf16 on the gate shapes for conv; chip_smoke's ``K7_CASES`` at
 fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
-fail the long attention cases, and every case of the types the broken
-body serves for K3-K7 and conv (K4's FMA body: fp32; its tensor-core
-body: bf16; K7's FMA body: fp32 and the 16-bit cases TMA cannot read;
-its wgmma body: bf16 and fp16 -- for a kernel of two bodies, only the
-cases its route sends to the broken body count).  Once for each broken
-kernel; exits non-zero if a broken body passes a case it serves.
+fail every case of the types the broken body serves (K1/K2's FMA bodies:
+the fp32 cases with more than two live pool blocks, the only ones their
+broken loop changes; their tensor-core bodies: bf16; K4's FMA body: fp32;
+its tensor-core body: bf16; K7's FMA body: fp32 and the 16-bit cases TMA
+cannot read; its wgmma body: bf16 and fp16 -- for a kernel of two
+bodies, only the cases its route sends to the broken body count).  Once
+for each broken kernel; exits non-zero if a broken body passes a case it
+serves.
 """
 from __future__ import annotations
 
@@ -74,6 +81,13 @@ MMA_SKIP_DIAGONAL = "for (int tile = 0; tile < ntiles - causal; ++tile) {"
 K7_STAGE = "for (int kk = 0; kk < WG_BK / 16; ++kk) {"
 K7_LOSE_STAGE = ("for (int kk = (kt == 0 && nk > 1) ? WG_BK / 16 : 0; kk < WG_BK / 16; "
                  "++kk) {  // stage 0 lost")
+K2_TILE_STEP = "mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
+K2_SKIP_TILE_0 = ("if (tile > 0) mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
+                  "  // tile 0 lost")
+K1_SPLIT_MASK = "if (key >= nrows) x = NEG_INF;"
+K1_SKIP_POOL_BLOCK = "if (key >= nrows || key < bs) x = NEG_INF;  // first pool block lost"
+K1_MERGE_LOOP = "for (int i = 0; i < ns; ++i) {"
+K1_DROP_SPLIT_0 = "for (int i = 1; i < ns; ++i) {  // split 0 lost"
 # K7 on the CPU: (label, M, K, N, layout) from chip_smoke's K7_CASES, cut
 # in M or N where a CPU would take minutes
 K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
@@ -83,14 +97,21 @@ K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
                  ("dX = dY @ W^T, M cut to 33", 33, 11008, 2048, "y.T"),
                  ("dW = X^T @ dY, N cut to 512", 2048, 513, 512, "x.T"))
 # (kernel, text, replacement, what the broken copy does, the types whose
-# every case it must fail: those its body serves, none for the paged
-# kernels, whose short cases have no block 0 to skip; and for a kernel of
-# two bodies the broken one: only the cases its route sends there count)
+# every case it must fail: those its body serves -- for the paged kernels'
+# FMA bodies only the cases with more than two live pool blocks, since the
+# short ones have no block 0 to skip; and for a kernel of two bodies the
+# broken one: only the cases its route sends there count)
 MUTANTS = (
     ("paged_decode_attention", LOOP, SKIP_BLOCK_0,
-     "skips pool block 0 when more than two blocks are live", (), None),
+     "FMA body: skips pool block 0 when more than two blocks are live", ("float32",), "fma"),
+    ("paged_decode_attention", K1_SPLIT_MASK, K1_SKIP_POOL_BLOCK,
+     "split body: every split loses its first pool block", ("bfloat16",), "mma"),
+    ("paged_decode_attention", K1_MERGE_LOOP, K1_DROP_SPLIT_0,
+     "split body: the merge drops split 0's partial", ("bfloat16",), "mma"),
     ("paged_prefill_attention", LOOP, SKIP_BLOCK_0,
-     "skips pool block 0 when more than two blocks are live", (), None),
+     "FMA body: skips pool block 0 when more than two blocks are live", ("float32",), "fma"),
+    ("paged_prefill_attention", K2_TILE_STEP, K2_SKIP_TILE_0,
+     "tensor-core body: skips its first KV tile", ("bfloat16",), "mma"),
     ("conv2d", CONV_LOOP, CONV_SKIP_CHUNK, "skips its first 16-deep K chunk when K > 32",
      ("float32", "float16", "bfloat16"), None),
     ("conv2d", CONV_TAP, CONV_SKIP_TAP, "loses the centre tap of the window",
@@ -128,6 +149,33 @@ def emulated_kernel(torch, q, k, v, mask, softcap):
     return o.bfloat16()
 
 
+def emulated_split(torch, q, k, v, mask, softcap, lose=None):
+    """K1's split body on one sequence: q (1, H, D), k/v (S, K, D) fp32
+    holding bf16 values, mask (1, S).  Each run of 64 keys gives a partial
+    (m, l, acc) with p rounded to bf16 against that split's own max; the
+    partials are merged in fp32 (M = max m, weights exp(min(m - M, 0)),
+    l floored at 1e-30), skipping split ``lose``.  Returns bf16."""
+    G = H // K
+    kk, vv = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    s = torch.einsum("qhd,shd->hqs", q, kk) / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~mask[None], -1e30)
+    parts = []
+    for i, j in enumerate(range(0, s.shape[-1], 64)):
+        si = s[..., j:j + 64]
+        m = si.amax(-1, keepdim=True)
+        p = torch.exp(si - m.clamp(min=-5e29))
+        acc = torch.einsum("hqs,shd->hqd", p.bfloat16().float(), vv[j:j + 64])
+        if i != lose:
+            parts.append((m, p.sum(-1, keepdim=True), acc))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp((m - big_m).clamp(max=0.0)) for m, _, _ in parts]
+    num = sum(acc * wi for (_, _, acc), wi in zip(parts, w))
+    den = sum(l * wi for (_, l, _), wi in zip(parts, w))
+    return (num / den.clamp(min=1e-30)).transpose(0, 1).bfloat16()
+
+
 def cpu_check() -> None:
     import torch
     sys.path.insert(0, str(ROOT / "src"))
@@ -159,6 +207,7 @@ def cpu_check() -> None:
         return (kp[table.long()].reshape(-1, K, D), vp[table.long()].reshape(-1, K, D))
 
     worst = {"emulated": 0.0, "plain at bf16": 0.0}
+    split_worst = [0.0] * 6       # K1's split body, by seed
     for seed in range(6):
         for lengths, softcap in DECODE_CASES:
             q, kp, vp, tables, lens = decode(seed, lengths)
@@ -171,6 +220,8 @@ def cpu_check() -> None:
                 mask = torch.arange(k.shape[0])[None] < n
                 out = emulated_kernel(torch, q[b][None], k, v, mask, softcap)[0]
                 worst["emulated"] = max(worst["emulated"], tolerance_ratio(out, ref[b]))
+                out = emulated_split(torch, q[b][None], k, v, mask, softcap)[0]
+                split_worst[seed] = max(split_worst[seed], tolerance_ratio(out, ref[b]))
         for C, q_start in PREFILL_CASES:
             q, kp, vp, tables, qs = prefill(seed, C, q_start)
             ref = paged_prefill_attention_ref(q, kp, vp, tables, qs, qs + C)[0]
@@ -183,6 +234,16 @@ def cpu_check() -> None:
             out = emulated_kernel(torch, q[0], k, v, mask, 0.0)
             worst["emulated"] = max(worst["emulated"], tolerance_ratio(out, ref))
 
+    split_lost = []    # seed 0: split 1 of each sequence past 128 rows lost in the merge
+    for lengths, softcap in DECODE_CASES:
+        q, kp, vp, tables, lens = decode(0, lengths)
+        ref = paged_decode_attention_ref(q, kp, vp, tables, lens, softcap=softcap)
+        for b, n in enumerate(lengths):
+            if n > 128:
+                k, v = rows(kp, vp, tables[b])
+                mask = torch.arange(k.shape[0])[None] < n
+                out = emulated_split(torch, q[b][None], k, v, mask, softcap, lose=1)[0]
+                split_lost.append(tolerance_ratio(out, ref[b]))
     lost = []          # seed 0, no softcap: one 16-row block of each long row dropped
     for lengths in ((300, 1056, 16, 1), (1, 15, 300, 1056)):
         q, kp, vp, tables, lens = decode(0, lengths)
@@ -207,6 +268,10 @@ def cpu_check() -> None:
           f"plain version at bf16 {worst['plain at bf16']:.3f}")
     print(f"cpu, bf16, seed 0: emulated kernel with one block lost, err/limit "
           f"{min(lost):.2f} to {max(lost):.2f} over {len(lost)} long sequences and chunks")
+    print("cpu, bf16, K1's split body (p rounded against each 64-key split's max, fp32 "
+          "merge): worst err/limit by seed " + ", ".join(f"{v:.3f}" for v in split_worst)
+          + f"; with split 1 lost, err/limit {min(split_lost):.2f} to {max(split_lost):.2f} "
+          f"over {len(split_lost)} sequences past 128 rows")
     conv_cpu_check(torch)
     matmul_cpu_check(torch)
 
@@ -299,12 +364,19 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.decode_attention.ops import body_for as decode_body_for
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
+    from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
     build.build([name])
     kern = dispatch.kernel_table()[name]
     body_of = {"matmul": lambda args: matmul_body_for(*args[:2]),
-               "flash_attention": lambda args: flash_body_for(args[0])}.get(name)
+               "flash_attention": lambda args: flash_body_for(args[0]),
+               "paged_decode_attention": lambda args: decode_body_for(args[0], args[1]),
+               "paged_prefill_attention": lambda args: prefill_body_for(args[0])}.get(name)
+    # a paged FMA body's broken loop changes only cases with a row that sees
+    # more than two pool blocks (the lengths are the last operand)
+    paged_fma = name.startswith("paged_") and broken_body == "fma"
     if name == "conv2d":
         shapes = {names[0]: key for key, names in cs.conv_groups().items()}
         cases = [(label, lambda dt, xs=shapes[label][0], ws=shapes[label][1]:
@@ -361,7 +433,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
                      else kern.tolerance(out, ref))
             if ratio > 1:
                 failed.append(ratio)
-            if str(dtype)[6:] in must_fail and body in (None, broken_body or None):
+            long = not paged_fma or int(args[-1].max()) > 2 * BS
+            if str(dtype)[6:] in must_fail and body in (None, broken_body or None) and long:
                 served += 1
                 missed += ratio <= 1
             print(f"  {label} {str(dtype)[6:]}{f' body={body}' if body else ''}: "

@@ -39,7 +39,10 @@
 //      operand;
 //    - tiles past the diagonal are never visited; the diagonal tile (and
 //      the ragged edge past S) is masked to NEG_INF.
-#include "paged_attention.cuh"
+//    The core (fragments, swizzle, the step on one tile) is
+//    mma_attention.cuh, which the paged prefill kernel's tensor-core body
+//    shares; only the K/V loader (contiguous rows here) is this file's.
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -142,23 +145,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }
 
 // ---------------------------------------------------------------------------
-// Body 2: tensor cores (mma.sync m16n8k16), bf16, D = 64 or 128
+// Body 2: tensor cores (mma.sync m16n8k16), bf16, D = 64 or 128; the core
+// (fragments, the online-softmax step on a 64-key tile) is mma_attention.cuh,
+// shared with the paged prefill kernel; the dense K/V loader is here.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // four warps, 16 query rows each
-constexpr int KV_ROWS = 64;       // K/V rows of one staged tile
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element offset of 16-byte chunk c of row r in a staged (KV_ROWS, D)
-// tile: the chunk index is XORed with the row's low 3 bits, so the eight
-// rows an ldmatrix reads at one chunk fall in eight different bank groups.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
+using mma_attn::KV_ROWS;
+using mma_attn::MMA_THREADS;
 
 // Rows [0, nrows) of a K or V tile into shared memory with cp.async (16
 // bytes each); rows past nrows are filled with zeros.
@@ -170,48 +163,10 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
     const int r = i / CH, c = i - r * CH;
     const bool live = r < nrows;
     const __nv_bfloat16* g = src + (live ? (size_t)r * row_stride : 0) + c * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     smem_addr(dst + swz<D>(r, c))),
-                 "l"(g), "r"(live ? 16 : 0)
-                 : "memory");
+    mma_attn::cp_async16(dst + mma_attn::swz<D>(r, c), g, live ? 16 : 0);
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16 operands
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, c = lane % 4): A registers
-// 0-3 hold (row g, cols 2c..2c+1), (g + 8, 2c..), (g, 2c + 8..), (g + 8,
-// 2c + 8..); B registers 0-1 hold (rows 2c..2c+1, col g), (2c + 8.., g);
-// the accumulator holds (g, 2c..2c+1) and (g + 8, 2c..2c+1).
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q,   // (B, S, H, D)
@@ -219,9 +174,6 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ v,   // (B, S, K, D)
     __nv_bfloat16* __restrict__ out,       // (B, S, H, D)
     int S, int H, int K, int causal, float scale) {
-  constexpr int KC = D / 16;        // k16 steps of QK^T
-  constexpr int DN = D / 8;         // n8 blocks of the output
-  constexpr int KN = KV_ROWS / 8;   // n8 blocks of a score tile
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KV_ROWS * D]
   __nv_bfloat16* vs = ks + 2 * KV_ROWS * D;                      // [2][KV_ROWS * D]
@@ -230,7 +182,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
   const int rows = S * G;
   const int r0 = (gridDim.z - 1 - blockIdx.z) * TILE_ROWS;   // longest causal rows first
   const int nr = min(TILE_ROWS, rows - r0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, cq = lane % 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4;
   const int ra = r0 + warp * 16 + gq, rb = ra + 8;           // this thread's two rows
   const int pa = ra / G, pb = rb / G;                        // their positions
   auto head_row = [&](int r) -> size_t {   // element offset of row r's head in q / out
@@ -238,19 +190,9 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
     return (((size_t)b * S + s) * H + (size_t)kv * G + g) * D;
   };
 
-  uint32_t qf[KC][4];                 // Q as A fragments, zeros past the rows
-  {
-    const __nv_bfloat16* qa = ra < rows ? q + head_row(ra) : nullptr;
-    const __nv_bfloat16* qb = rb < rows ? q + head_row(rb) : nullptr;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int d = 16 * kc + 2 * cq;
-      qf[kc][0] = qa ? ld32(qa + d) : 0u;
-      qf[kc][1] = qb ? ld32(qb + d) : 0u;
-      qf[kc][2] = qa ? ld32(qa + d + 8) : 0u;
-      qf[kc][3] = qb ? ld32(qb + d + 8) : 0u;
-    }
-  }
+  uint32_t qf[D / 16][4];             // Q as A fragments, zeros past the rows
+  mma_attn::load_q<D>(qf, ra < rows ? q + head_row(ra) : nullptr,
+                      rb < rows ? q + head_row(rb) : nullptr);
 
   // with causality no row of this tile sees a key past its last position
   const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S;
@@ -258,12 +200,15 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
   const size_t row_stride = (size_t)K * D;
   const __nv_bfloat16* kbase = k + ((size_t)b * S * K + kv) * D;
   const __nv_bfloat16* vbase = v + ((size_t)b * S * K + kv) * D;
+  // scale, then the causal mask and the ragged edge past S
+  auto score = [&](float raw, int key, int pos) {
+    float s = raw * scale;
+    if (key >= S || (causal && key > pos)) s = NEG_INF;
+    return s;
+  };
 
-  float o[DN][4];
-#pragma unroll
-  for (int i = 0; i < DN; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;   // l: this thread's part
-
+  mma_attn::Rows<D> st;
+  st.init();
   stage_tile<D>(ks, kbase, min(KV_ROWS, kv_end), row_stride);
   stage_tile<D>(vs, vbase, min(KV_ROWS, kv_end), row_stride);
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -278,100 +223,12 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
     asm volatile("cp.async.commit_group;" ::: "memory");
     asm volatile("cp.async.wait_group 1;" ::: "memory");   // this tile has landed
     __syncthreads();
-    const __nv_bfloat16* kt = ks + buf * KV_ROWS * D;
-    const __nv_bfloat16* vt = vs + buf * KV_ROWS * D;
-
-    // S = Q K^T on the tensor cores, 16 rows x 64 keys a warp
-    float sc[KN][4];
-#pragma unroll
-    for (int nb = 0; nb < KN; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; kc += 2) {
-#pragma unroll
-      for (int nb = 0; nb < KN; ++nb) {
-        uint32_t bk[4];   // B of k16 steps kc and kc + 1 for keys nb * 8 ..
-        const int key = nb * 8 + (lane & 7);
-        ldsm_x4(bk, kt + swz<D>(key, 2 * kc + (lane >> 3)));
-        mma16816(sc[nb], qf[kc], bk[0], bk[1]);
-        mma16816(sc[nb], qf[kc + 1], bk[2], bk[3]);
-      }
-    }
-    // scale, mask (causal, ragged edge), and the online-softmax update of
-    // the reference: m_new, m_safe, p = exp(s - m_safe), corr, l
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-    for (int nb = 0; nb < KN; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = base + nb * 8 + 2 * cq + (e & 1);
-        const int pos = e < 2 ? pa : pb;
-        float s = sc[nb][e] * scale;
-        if (key >= S || (causal && key > pos)) s = NEG_INF;
-        sc[nb][e] = s;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(sc[nb][0], sc[nb][1]));
-      mx_b = fmaxf(mx_b, fmaxf(sc[nb][2], sc[nb][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {   // the four threads of a row
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float ms_a = fmaxf(mn_a, NEG_INF / 2), ms_b = fmaxf(mn_b, NEG_INF / 2);
-    const float corr_a = __expf(fminf(m_a - mn_a, 0.f));
-    const float corr_b = __expf(fminf(m_b - mn_b, 0.f));
-    m_a = mn_a;
-    m_b = mn_b;
-    uint32_t pf[KN / 2][4];   // p rounded to bf16: the A fragments of P V
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < KN; ++nb) {
-      const float p0 = __expf(sc[nb][0] - ms_a), p1 = __expf(sc[nb][1] - ms_a);
-      const float p2 = __expf(sc[nb][2] - ms_b), p3 = __expf(sc[nb][3] - ms_b);
-      sum_a += p0 + p1;
-      sum_b += p2 + p3;
-      pf[nb / 2][(nb & 1) * 2] = pack_bf16(p0, p1);
-      pf[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l_a = l_a * corr_a + sum_a;
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int i = 0; i < DN; ++i) {
-      o[i][0] *= corr_a;
-      o[i][1] *= corr_a;
-      o[i][2] *= corr_b;
-      o[i][3] *= corr_b;
-    }
-    // O += P V on the tensor cores; V's B fragments through ldmatrix.trans
-#pragma unroll
-    for (int j = 0; j < KN / 2; ++j) {
-#pragma unroll
-      for (int dn = 0; dn < DN; dn += 2) {
-        uint32_t bv[4];   // B of d blocks dn and dn + 1 for keys 16 j ..
-        const int key = 16 * j + ((lane >> 3) & 1) * 8 + (lane & 7);
-        ldsm_x4_trans(bv, vt + swz<D>(key, dn + (lane >> 4)));
-        mma16816(o[dn], pf[j], bv[0], bv[1]);
-        mma16816(o[dn + 1], pf[j], bv[2], bv[3]);
-      }
-    }
+    mma_attn::tile_step<D>(st, qf, ks + buf * KV_ROWS * D, vs + buf * KV_ROWS * D, base, pa,
+                           pb, score);
     __syncthreads();   // this buffer is consumed before it is staged again
   }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
-  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
-  __nv_bfloat16* oa = ra < rows ? out + head_row(ra) : nullptr;
-  __nv_bfloat16* ob = rb < rows ? out + head_row(rb) : nullptr;
-#pragma unroll
-  for (int i = 0; i < DN; ++i) {
-    const int d = 8 * i + 2 * cq;
-    if (oa) *reinterpret_cast<uint32_t*>(oa + d) = pack_bf16(o[i][0] / den_a, o[i][1] / den_a);
-    if (ob) *reinterpret_cast<uint32_t*>(ob + d) = pack_bf16(o[i][2] / den_b, o[i][3] / den_b);
-  }
+  mma_attn::store_rows<D>(st, ra < rows ? out + head_row(ra) : nullptr,
+                          rb < rows ? out + head_row(rb) : nullptr);
 }
 
 template <int D>

@@ -15,17 +15,36 @@
 // are close.  A 256-row chunk of qwen2.5-3b at q_start 256 must move 2.6 MB
 // (q, out, 512 live K/V rows: 0.78 us at 3.35 TB/s) and do 0.81 GFLOP of
 // causal QK^T and PV (0.82 us at the 989 TFLOP/s bf16 peak); a longer
-// seeded history tips it to bytes, a longer chunk to operations.  This
-// first version reaches neither: plain FMA, no tensor cores.
+// seeded history tips it to bytes, a longer chunk to operations.
 //
-// Design (simple and right first): one thread block per (sequence, kv head,
-// tile of 32 query rows of the C*G); the Pallas grid's sequential block axis
-// becomes a loop over pool blocks up to cdiv(min(lengths[b], last q_pos of
-// the tile + 1), bs) -- table entries past that are trash or unwritten and
-// never dereferenced.  K/V rows are staged in shared memory with 16-byte
-// loads; scores, running max / sum and the accumulator are fp32, and plain
-// FMA does the products (mma / wgmma and TMA are for a later PR).
-#include "paged_attention.cuh"
+// Two bodies; the caller (kernels/prefill_attention/ops.py::body_for) picks
+// one from the type and D before the launch.
+//
+// 1. FMA (fp32, and bf16 at a D other than 64 and 128), the first
+//    version: one thread block per (sequence, kv head, tile of 32 query
+//    rows of the C*G); the Pallas grid's sequential block axis becomes a
+//    loop over pool blocks up to cdiv(min(lengths[b], last q_pos of the
+//    tile + 1), bs) -- table entries past that are trash or unwritten and
+//    never dereferenced.  K/V rows are staged in shared memory with
+//    16-byte loads; scores, running max / sum and the accumulator are
+//    fp32, and plain FMA does the products.
+// 2. Tensor cores (bf16, D = 64 or 128): the dense flash kernel's mma body
+//    (mma_attention.cuh, shared with it) on a paged K/V loader.  One block
+//    of four warps per (sequence, kv head, tile of 64 of the C*G rows),
+//    the longest causal rows first; Q in registers as m16n8k16 A
+//    fragments; S = Q K^T and O += P V on mma.sync with fp32 accumulators,
+//    the row max and sum over each quad with shuffles, p rounded to bf16
+//    in registers.  A 64-key tile spans 64 / bs pool blocks: each key row
+//    is found through the block table and copied with cp.async into the
+//    XOR-swizzled double buffer that ldmatrix(.trans) reads, the next tile
+//    loading while this one is used.  Keys at or past kv_end = min(
+//    lengths[b], last q_pos of the tile + 1) are neither looked up nor
+//    read: their rows are zero-filled, since an unwritten pool row can
+//    hold NaN and 0 x NaN is NaN on the tensor cores.  Tiles wholly past
+//    kv_end are never visited.  With a trivial table, q_start = 0 and
+//    lengths = C, the pool is the dense kernel's cache and the two bodies
+//    agree bit for bit.
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -139,17 +158,127 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Body 2: tensor cores (mma.sync m16n8k16), bf16, D = 64 or 128
+// ---------------------------------------------------------------------------
+
+using mma_attn::KV_ROWS;
+using mma_attn::MMA_THREADS;
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) paged_prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,       // (B, C, H, D)
+    const __nv_bfloat16* __restrict__ k_pool,  // (N, bs, K, D)
+    const __nv_bfloat16* __restrict__ v_pool,  // (N, bs, K, D)
+    const int32_t* __restrict__ tables,        // (B, mb)
+    const int32_t* __restrict__ q_start,       // (B,)
+    const int32_t* __restrict__ lengths,       // (B,)
+    __nv_bfloat16* __restrict__ out,           // (B, C, H, D)
+    int C, int H, int K, int bs, int mb, int N, float scale, float softcap) {
+  constexpr int ROWS = mma_attn::TILE_ROWS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KV_ROWS * D]
+  __nv_bfloat16* vs = ks + 2 * KV_ROWS * D;                      // [2][KV_ROWS * D]
+
+  const int b = blockIdx.x, kv = blockIdx.y, G = H / K;
+  const int rows = C * G;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * ROWS;   // longest causal rows first
+  const int nr = min(ROWS, rows - r0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4;
+  const int ra = r0 + warp * 16 + gq, rb = ra + 8;      // this thread's two rows
+  const int start = q_start[b], len = lengths[b];
+  const int pa = start + ra / G, pb = start + rb / G;   // their absolute positions
+  auto head_row = [&](int r) -> size_t {   // element offset of row r's head in q / out
+    const int c = r / G, g = r - c * G;
+    return (((size_t)b * C + c) * H + (size_t)kv * G + g) * D;
+  };
+
+  uint32_t qf[D / 16][4];             // Q as A fragments, zeros past the rows
+  mma_attn::load_q<D>(qf, ra < rows ? q + head_row(ra) : nullptr,
+                      rb < rows ? q + head_row(rb) : nullptr);
+
+  // no row of this tile sees a key past its last position, past
+  // lengths[b], or past the table
+  const int kv_end = min(min(len, start + (r0 + nr - 1) / G + 1), mb * bs);
+  const int ntiles = kv_end > 0 ? (kv_end + KV_ROWS - 1) / KV_ROWS : 0;
+  const int32_t* table = tables + (size_t)b * mb;
+  // scale, softcap, then k_pos <= q_pos and k_pos < lengths[b]
+  auto score = [&](float raw, int key, int pos) {
+    float s = raw * scale;
+    if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+    if (key > pos || key >= len) s = NEG_INF;
+    return s;
+  };
+
+  mma_attn::Rows<D> st;
+  st.init();
+  mma_attn::stage_paged<D>(ks, vs, k_pool, v_pool, table, 0, kv_end, bs, K, kv, N);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int base = tile * KV_ROWS, buf = tile & 1;
+    if (tile + 1 < ntiles)
+      mma_attn::stage_paged<D>(ks + (buf ^ 1) * KV_ROWS * D, vs + (buf ^ 1) * KV_ROWS * D,
+                               k_pool, v_pool, table, base + KV_ROWS, kv_end, bs, K, kv, N);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");   // this tile has landed
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + buf * KV_ROWS * D;
+    const __nv_bfloat16* vt = vs + buf * KV_ROWS * D;
+    mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);
+    __syncthreads();   // this buffer is consumed before it is staged again
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  mma_attn::store_rows<D>(st, ra < rows ? out + head_row(ra) : nullptr,
+                          rb < rows ? out + head_row(rb) : nullptr);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+               const void* q_start, const void* lengths, void* out, int B, int C, int H,
+               int K, int bs, int mb, int N, float scale, float softcap, cudaStream_t stream) {
+  const int G = H / K;
+  const size_t smem = 4 * (size_t)KV_ROWS * D * sizeof(__nv_bfloat16);
+  auto kernel = paged_prefill_mma_kernel<D>;
+  static bool ready = false;
+  if (!ready && smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int ROWS = mma_attn::TILE_ROWS;
+  const dim3 grid(B, K, (C * G + ROWS - 1) / ROWS);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool), static_cast<const int32_t*>(tables),
+      static_cast<const int32_t*>(q_start), static_cast<const int32_t*>(lengths),
+      static_cast<__nv_bfloat16*>(out), C, H, K, bs, mb, N, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).  body: 0
+// the FMA body (any D), 1 the tensor-core body (bf16, D = 64 or 128).
 // Returns 0 or the CUDA error of the launch.
 extern "C" int paged_prefill_attention(const void* q, const void* k_pool, const void* v_pool,
                                        const void* tables, const void* q_start,
                                        const void* lengths, void* out, int dtype, int B, int C,
                                        int H, int K, int D, int bs, int mb, int N, float scale,
-                                       float softcap, void* stream) {
+                                       float softcap, int body, void* stream) {
   if (B == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_mma<64>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K, bs,
+                            mb, N, scale, softcap, s);
+    if (D == 128)
+      return launch_mma<128>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K, bs,
+                             mb, N, scale, softcap, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K,
                                  D, bs, mb, N, scale, softcap, s);

@@ -1,7 +1,14 @@
 """Decode attention, dense and paged: the CUDA kernels
 ``csrc/decode_attention.cu`` and ``csrc/paged_decode_attention.cu``, each
 beside its plain version behind one wrapper with the reference's signature
-(counterpart of ``repro/kernels/decode_attention/ops.py``)."""
+(counterpart of ``repro/kernels/decode_attention/ops.py``).
+
+The paged kernel has two bodies, and :func:`body_for` picks one before the
+launch: bf16 at head_dim 64 or 128 with at most 8 query heads per kv head
+splits the KV length over many blocks and merges them (``mma``: two
+launches from one call, the products on the tensor cores), everything
+else -- every fp32 call among them -- runs the first, one-block-per-group
+FMA body."""
 from __future__ import annotations
 
 import ctypes
@@ -14,17 +21,41 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
 from repro_torch.kernels.dispatch import check_operand, register_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 \
-    + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 \
+    + [ctypes.c_int, ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_void_p]
+MMA_HEAD_DIMS = (64, 128)    # the split body's template instances
+MMA_MAX_GROUP = 8            # query heads per kv head: the n = 8 side of m16n8k16
+SPLIT_KEYS = 64              # keys one block of the split body takes
+
+
+def body_for(q: torch.Tensor, k_pool: torch.Tensor) -> str:
+    """The body a paged call runs, decided before the launch from the type,
+    head_dim and group size G = H / K alone: ``"mma"`` (split over the KV
+    length, tensor cores) for bf16 at head_dim 64 or 128 and G <= 8,
+    ``"fma"`` for everything else, every fp32 call among them."""
+    G = q.shape[1] // k_pool.shape[2]
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in MMA_HEAD_DIMS
+            and G <= MMA_MAX_GROUP):
+        return "mma"
+    return "fma"
+
+
+def num_splits(max_blocks: int, block_size: int) -> int:
+    """Blocks of the split body per (sequence, kv head): the table's
+    max_blocks * block_size keys in runs of ``SPLIT_KEYS``.  From the table
+    width, never from ``lengths`` (a device value)."""
+    return -(-max_blocks * block_size // SPLIT_KEYS)
 
 
 def _launch(q, k_pool, v_pool, block_tables, lengths, *, softcap=0.0,
-            chunk=1024):
-    """Check the operands, allocate the output and launch the kernel on the
-    current stream.  ``chunk`` is the plain version's KV tile and is unused
-    here: the kernel walks the pool one block at a time."""
+            chunk=1024, body=None):
+    """Check the operands, allocate the output (and, for the split body, its
+    fp32 scratch in one allocation) and launch the kernel on the current
+    stream, on the body :func:`body_for` names; ``body`` overrides that
+    route, to time one body against the other on the same inputs.
+    ``chunk`` is the plain version's KV tile and is unused here."""
     del chunk
     B, H, D = q.shape
     N, bs, K, _ = k_pool.shape
@@ -44,14 +75,23 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, *, softcap=0.0,
         raise ValueError(f"num_heads {H} is not a multiple of kv heads {K}")
     if (D * q.element_size()) % 16:
         raise ValueError(f"head_dim {D}: rows must be a multiple of 16 bytes")
+    route = body_for(q, k_pool)
+    body = body or route
+    if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
+        raise ValueError(f"paged_decode_attention: no {body!r} body for "
+                         f"{q.dtype} at head_dim {D}, G {H // K}")
     out = torch.empty_like(q)
+    ns = num_splits(mb, bs)
+    scratch = (torch.empty(B * H * ns * (D + 2), dtype=torch.float32,
+                           device=dev) if body == "mma" else None)
     lib = build.load("paged_decode_attention", _ARGTYPES)
-    KERNEL.launches += 1
+    KERNEL.count_launch(body)
     err = lib.paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, H, K, D, bs, mb, N,
-        1.0 / (D ** 0.5), float(softcap),
+        None if scratch is None else scratch.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, H, K, D, bs, mb, N, ns,
+        1.0 / (D ** 0.5), float(softcap), int(body == "mma"),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention: CUDA error {err}")

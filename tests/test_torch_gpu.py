@@ -21,7 +21,10 @@ only the order of the sums differs).  matmul (K7): MATMUL_RTOL |ref| +
 none at fp32, 2^-10 fp16, 2^-7 bf16; and the fp32 sum's order), on
 either body (FMA, or wgmma for fp16 / bf16 operands TMA can read); the
 flash kernel's tensor-core body (bf16, D = 64 or 128) on the attention
-limit above.  Training
+limit above, as are the paged kernels' tensor-core bodies (K2 on mma, K1
+split over the KV length and merged), with NaN in every pool row that is
+not live (the plain version reads the pool as made); K2's tensor-core
+body equals K4's bit for bit on a trivial block table.  Training
 on the card: the smoke model's loss and gradients through the kernels
 within 1e-3 of each leaf's largest entry of those through the plain
 versions (the same fp32 arithmetic in other orders; the random model's
@@ -116,10 +119,12 @@ def test_conv2d_kernel_matches_plain(cuda, dtype, case):
         assert k.tolerance(out, ref) <= 1.0
 
 
-def test_engine_path_runs_the_kernels(cuda):
-    """The smoke model served on the card launches both kernels and never
-    their plain versions."""
-    cfg = TR.smoke("qwen2.5-3b")
+@pytest.mark.parametrize("head_dim,body", [(16, "fma"), (64, "mma")])
+def test_engine_path_runs_the_kernels(cuda, head_dim, body):
+    """The smoke model (bf16) served on the card launches both paged
+    kernels and never their plain versions; every launch on the body the
+    route names for its head_dim (16: FMA; 64: the tensor-core bodies)."""
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=head_dim)
     params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
     eng = ServingEngine(cfg, params, max_len=64, batch_slots=2,
                         prefill_chunk=16)
@@ -131,6 +136,8 @@ def test_engine_path_runs_the_kernels(cuda):
     eng.serve(reqs)
     table = dispatch.kernel_table()
     assert all(table[n].launches > 0 and table[n].plain_calls == 0
+               for n in ("paged_decode_attention", "paged_prefill_attention"))
+    assert all(table[n].body_launches == {body: table[n].launches}
                for n in ("paged_decode_attention", "paged_prefill_attention"))
     assert all(len(r.output) == 5 for r in reqs)
     assert eng.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}
@@ -389,3 +396,101 @@ def test_training_step_runs_the_kernels(cuda):
     assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+def _poison_dead_rows(kp, vp, tables, lengths):
+    """NaN into every pool row that is not a live row of some sequence."""
+    bs = kp.shape[1]
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    for b, n in enumerate(lengths.tolist()):
+        pos = torch.arange(n, device=kp.device)
+        live[tables[b, pos // bs].long(), pos % bs] = True
+    kp[~live] = float("nan")
+    vp[~live] = float("nan")
+
+
+@pytest.mark.parametrize("D,H,K", [(128, 16, 2), (64, 8, 2), (64, 4, 4), (128, 6, 2)])
+@pytest.mark.parametrize("lengths", [(0, 1, 64, 65), (1056, 800, 512, 300), (4096,)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_decode_split_matches_plain(cuda, D, H, K, lengths, softcap):
+    """K1's split body (bf16, D = 64 or 128, G = 8, 4, 1 and a padded 3):
+    a length-0 sequence, split boundaries, serving's lengths and one long
+    sequence, with NaN in every row that is not live."""
+    from repro_torch.kernels.decode_attention.ops import body_for
+    B, bs = len(lengths), 16
+    mb = max(-(-n // bs) for n in lengths) + 1
+    g = torch.Generator(cuda).manual_seed(sum(lengths) + D)
+    q = torch.randn((B, H, D), generator=g, device=cuda).bfloat16()
+    kp, vp = (torch.randn((1 + B * mb, bs, K, D), generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    tables = (1 + torch.randperm(B * mb, generator=g, device=cuda)).reshape(B, mb).int()
+    for b, n in enumerate(lengths):
+        tables[b, -(-n // bs):] = 0
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    assert body_for(q, kp) == "mma"
+    kern = dispatch.kernel_table()["paged_decode_attention"]
+    ref = kern.plain(q.float(), kp.float(), vp.float(), tables, lens, softcap=softcap)
+    _poison_dead_rows(kp, vp, tables, lens)
+    dispatch.reset_counts()
+    out = kern.launch(q, kp, vp, tables, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {"mma": 1}
+    assert torch.isfinite(out.float()).all()
+    assert kern.tolerance(out, ref) <= 1.0
+    if lengths[0] == 0:
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("D,H,K", [(128, 16, 2), (64, 8, 2), (64, 4, 4)])
+@pytest.mark.parametrize("C,q_start", [(4, 9), (4, 27), (64, 27), (256, 0), (256, 2048)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_prefill_mma_matches_plain(cuda, D, H, K, C, q_start, softcap):
+    """K2's tensor-core body: a speculative verify's C = 4 at mid-block
+    starts, a ragged last query tile, a chunk behind a long seeded history,
+    with NaN in every row that is not live."""
+    from repro_torch.kernels.prefill_attention.ops import body_for
+    bs = 16
+    mb = -(-(q_start + C) // bs) + 2
+    g = torch.Generator(cuda).manual_seed(C + q_start + D)
+    q = torch.randn((1, C, H, D), generator=g, device=cuda).bfloat16()
+    kp, vp = (torch.randn((1 + mb, bs, K, D), generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    tables = (1 + torch.randperm(mb, generator=g, device=cuda)).reshape(1, mb).int()
+    tables[0, -(-(q_start + C) // bs):] = 0
+    qs = torch.tensor([q_start], dtype=torch.int32, device=cuda)
+    lens = qs + C
+    assert body_for(q) == "mma"
+    kern = dispatch.kernel_table()["paged_prefill_attention"]
+    ref = kern.plain(q.float(), kp.float(), vp.float(), tables, qs, lens, softcap=softcap)
+    _poison_dead_rows(kp, vp, tables, lens)
+    dispatch.reset_counts()
+    out = kern.launch(q, kp, vp, tables, qs, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {"mma": 1}
+    assert torch.isfinite(out.float()).all()
+    assert kern.tolerance(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("S,H,K,D", [(1024, 16, 2, 128), (1000, 32, 32, 64), (100, 8, 2, 64),
+                                     (17, 16, 2, 128)])
+def test_paged_prefill_mma_equals_flash_mma_on_a_trivial_table(cuda, S, H, K, D):
+    """With physical block i for logical block i, q_start = 0 and lengths
+    = S, the pool is the dense kernel's cache (padded to whole blocks):
+    K2's tensor-core body and K4's give the same bits."""
+    bs = 16
+    nb = -(-S // bs)
+    g = torch.Generator(cuda).manual_seed(S)
+    q = torch.randn((1, S, H, D), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((1, S, K, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    kp, vp = (torch.cat([t[0], t.new_zeros((nb * bs - S, K, D))]).reshape(nb, bs, K, D)
+              for t in (k, v))
+    tables = torch.arange(nb, dtype=torch.int32, device=cuda)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    table = dispatch.kernel_table()
+    dispatch.reset_counts()
+    dense = table["flash_attention"].launch(q, k, v, causal=True)
+    paged = table["paged_prefill_attention"].launch(q, kp, vp, tables, zero, zero + S)
+    torch.cuda.synchronize()
+    assert table["flash_attention"].body_launches == {"mma": 1}
+    assert table["paged_prefill_attention"].body_launches == {"mma": 1}
+    assert torch.equal(paged, dense)

@@ -6,7 +6,10 @@ non-CUDA tensors at the CUDA launcher raise; a missing nvcc raises).
 The dense decode (K3) and flash (K4) plain versions are also held at a
 ragged S, which the Pallas kernels refuse, against ``chunked_attention``
 (K3 with lengths past S, as an idle serving slot has them); K5's are in
-``tests/test_torch_ssm.py``.
+``tests/test_torch_ssm.py``.  The arithmetic of K1's split body (64-key
+splits, each with its own max, merged by log-sum-exp) is emulated in fp32
+and held against the Pallas kernel; the routes of K1, K2 and K4 (which
+body a call runs) are pinned by dtype, head_dim and group size.
 
 Shapes follow the reference's kernel smoke cases
 (``benchmarks/kernel_bench.py``): pool (1 + 2*4, 16, 2, 64), H=4 query heads
@@ -41,10 +44,14 @@ from repro.kernels.prefill_attention.ref import \
     paged_prefill_attention_ref as jax_prefill_ref
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import build, dispatch
+from repro_torch.kernels.decode_attention.ops import SPLIT_KEYS
+from repro_torch.kernels.decode_attention.ops import body_for as decode_body_for
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      num_splits,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 
 torch.set_num_threads(1)
@@ -342,3 +349,119 @@ def test_flash_route_by_dtype_and_head_dim(dtype, D):
     q = torch.zeros((1, 3, 8, D), dtype=dtype)
     want = "mma" if dtype == torch.bfloat16 and D in (64, 128) else "fma"
     assert flash_body_for(q) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+def test_paged_prefill_route_by_dtype_and_head_dim(dtype, D):
+    """K2's body is decided before the launch from q's type and head_dim:
+    bf16 at D = 64 or 128 takes the tensor cores at any group size,
+    everything else -- every fp32 call -- the FMA body."""
+    for H in (2, 8, 16):
+        q = torch.zeros((1, 4, H, D), dtype=dtype)
+        want = "mma" if dtype == torch.bfloat16 and D in (64, 128) else "fma"
+        assert prefill_body_for(q) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 8, 16])
+def test_paged_decode_route_by_dtype_head_dim_and_group(dtype, D, G):
+    """K1's body is decided before the launch from the type, head_dim and
+    G = H / K alone: bf16 at D = 64 or 128 with G <= 8 (the n = 8 side of
+    the tensor-core product) splits the KV length (``mma``), everything
+    else -- every fp32 call -- runs the FMA body."""
+    K = 2
+    q = torch.zeros((3, G * K, D), dtype=dtype)
+    pool = torch.zeros((5, 16, K, D), dtype=dtype)
+    want = ("mma" if dtype == torch.bfloat16 and D in (64, 128) and G <= 8
+            else "fma")
+    assert decode_body_for(q, pool) == want
+
+
+@pytest.mark.parametrize("mb,bs,want", [(66, 16, 17), (1, 16, 1), (4, 16, 1),
+                                        (5, 16, 2), (1025, 16, 257), (3, 32, 2),
+                                        (1, 128, 2)])
+def test_split_count_comes_from_the_table_width(mb, bs, want):
+    """K1's split body runs cdiv(max_blocks * block_size, 64) blocks per
+    (sequence, kv head): serving's 66-block tables give 17 splits, so 4
+    sequences and 2 kv heads fill 136 blocks."""
+    assert SPLIT_KEYS == 64
+    assert num_splits(mb, bs) == want
+
+
+def _split_merge(q, kp, vp, tables, lengths, softcap, split=SPLIT_KEYS):
+    """K1's split body in fp32 plain PyTorch: per (sequence, kv head) each
+    run of ``split`` keys of the table gives (m, l, acc) -- the max of its
+    live scores, l = sum p and acc = p V with p = exp(s - max(m,
+    NEG_INF / 2)); a split past the length gives (NEG_INF, 0, 0) -- and
+    the merge takes M = max m, w = exp(min(m - M, 0)), out = sum w acc /
+    max(sum w l, 1e-30)."""
+    neg_inf = -1e30
+    B, H, D = q.shape
+    _, bs, K, _ = kp.shape
+    G = H // K
+    mb = tables.shape[1]
+    n_split = num_splits(mb, bs)
+    out = torch.zeros((B, H, D))
+    for b in range(B):
+        n = min(int(lengths[b]), mb * bs)
+        keys = torch.arange(n_split * split)
+        blk = tables[b, (keys // bs).clamp(max=mb - 1)].long()
+        k_rows = kp[blk, keys % bs].float()                   # (S', K, D)
+        v_rows = vp[blk, keys % bs].float()
+        for kv in range(K):
+            qg = q[b, kv * G:(kv + 1) * G].float()            # (G, D)
+            parts = []
+            for i in range(n_split):
+                lo = i * split
+                if lo >= n:
+                    parts.append((torch.full((G,), neg_inf), torch.zeros(G),
+                                  torch.zeros((G, D))))
+                    continue
+                live = slice(lo, min(lo + split, n))
+                s = qg @ k_rows[live, kv].T / D ** 0.5
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                m = s.amax(-1)
+                p = torch.exp(s - m.clamp(min=neg_inf / 2)[:, None])
+                parts.append((m, p.sum(-1), p @ v_rows[live, kv]))
+            big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+            num, den = torch.zeros((G, D)), torch.zeros(G)
+            for m, l, acc in parts:
+                w = torch.exp((m - big_m).clamp(max=0.0))
+                num += w[:, None] * acc
+                den += w * l
+            out[b, kv * G:(kv + 1) * G] = num / den.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_split_and_merge_arithmetic_matches_the_pallas_kernel(softcap):
+    """K1's split body's arithmetic, emulated in fp32, equals the Pallas
+    kernel (interpret mode) at lengths 0, 1, 16, 17, 64, 65 and a full
+    table of 10 blocks of 16 (3 splits, the last of 32 keys); trash and
+    past-length entries hold poison that no split may attend."""
+    mb = 10
+    rng = np.random.default_rng(11)
+    lengths = [0, 1, 16, 17, 64, 65, mb * BS]
+    B = len(lengths)
+    N = 1 + B * mb
+    kp = rng.standard_normal((N, BS, K, D)).astype(np.float32)
+    vp = rng.standard_normal((N, BS, K, D)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    tables = (1 + rng.permutation(B * mb).reshape(B, mb)).astype(np.int32)
+    for b, n in enumerate(lengths):
+        tables[b, -(-n // BS):] = 0          # past the live blocks: trash
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    assert num_splits(mb, BS) == 3
+    out = _split_merge(torch.from_numpy(q), torch.from_numpy(kp),
+                       torch.from_numpy(vp), torch.from_numpy(tables),
+                       torch.from_numpy(lens), softcap)
+    ref = jax_pallas_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                            jnp.asarray(tables), jnp.asarray(lens),
+                            softcap=softcap, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL["float32"],
+                               rtol=0)
+    assert (out[0] == 0).all()                   # length 0 -> 0, not NaN
