@@ -42,17 +42,25 @@ Phases (each one raises on failure; the script then exits non-zero):
 7. K6 conv2d: the kernel held against its plain version (evaluated in fp32
    on the same values; limits ``CONV_RTOL`` / ``CONV_RMS_ATOL`` in
    ``repro_torch.kernels.dispatch``) on every distinct conv shape of
-   GoogLeNet's batch-8 forward at 224, at fp32, fp16 and bf16; then each of
-   the 57 convolutions timed at fp32 and fp16 beside its plain version, one
-   ``F.conv2d`` call (cuDNN, channels_last, TF32 off) and its bound.
+   GoogLeNet's batch-8 forward at 224: at fp32 on the FMA body, at fp16
+   and bf16 on both bodies (the tensor-core ``mma`` body is the route's
+   at 16 bits), each case printed with its K slices
+   (split-K where the output tiles are fewer than the SMs) and, where
+   split, launched twice and required to give the same bits; then each of
+   the 57 convolutions timed at fp32 (FMA) and fp16 (the route's body and
+   the FMA body) beside its plain version, one ``F.conv2d`` call (cuDNN,
+   channels_last, TF32 off) and its bound; and the host's time per call.
 8. GoogLeNet: full width (224x224x3, 1000 classes, 9 inception modules),
    random weights from seed 0, ``SyntheticImages``, at fp32 and fp16:
    (a) batch-8 logits through the kernels vs through the plain versions
    (gated: largest difference over the largest logit, ``TOL_GOOGLENET``,
-   and the same top-1); (b) img/s, time per batch and img/W against the
+   and the same top-1); (a') the batch-8 forward's host time: enqueue
+   alone (median of 20) and 20 forwards back to back, one sync, without
+   the engine; (b) img/s, time per batch and img/W against the
    power limit through ``OffloadEngine([TorchTarget])`` at batch 1 and 8,
    with (c) the conv kernel's counts zeroed before and read after each
-   run: 57 launches per forward, no plain call; (d) the paper's fig 7
+   run: 57 launches per forward by body (fp32: 57 FMA; fp16: 57 mma), no
+   plain call; (d) the paper's fig 7
    estimators (fp16 and bf16 vs fp32 over 48 images); (e) one batch-8
    forward under ``torch.profiler``: device busy share and the conv
    kernel's share of device time.
@@ -63,18 +71,23 @@ Phases (each one raises on failure; the script then exits non-zero):
    the final state (limit ``SSM_RTOL`` of the largest |ref|), plus per-head
    q/k at H=4, N=P=128; K4 at S 1000 and 1024 on ``K4_SHAPES`` (zamba2's
    H=K=32, D=64 and qwen2.5-3b's H=16, K=2, D=128; bf16 on the
-   tensor-core body, fp32 on the FMA body); K3 at
-   B=4, S=1088, lengths 1033/700/257/1200 (the last past S, as an idle
-   slot) -- at fp32 and bf16, then each timed in bf16 beside its bound,
-   its plain version and (K3, K4) ``scaled_dot_product_attention`` on the
-   same tensors; K4 also at qwen2.5-3b's heads, S=1024, printed.
+   tensor-core body, fp32 on the FMA body); K3 on ``DENSE_DECODE_CASES``
+   (zamba2's B=4, S=1088, lengths 1033/700/257/1200, the last past S as
+   an idle slot; a length-0 row; S not a multiple of 64; qwen2.5-3b's
+   heads) -- bf16 on the split body, fp32 on the FMA body, each as made
+   and with NaN in every cache row at or past the length -- at fp32 and
+   bf16, then each timed in bf16 beside its bound, its plain version and
+   (K3, K4) ``scaled_dot_product_attention`` on the same tensors (K3 on
+   both bodies, and its host time per call); K4 also at qwen2.5-3b's
+   heads, S=1024, printed.
 10. zamba2 serving: zamba2-1.2b at full width (38 layers: 6 segments of 6
    Mamba-2 layers and the shared attention block, a 2-layer tail), bf16,
    random weights from seed 0, through the contiguous ``ServingEngine``:
    4 slots, ``max_len`` 1088, 8 greedy requests of 203-1000 prompt tokens
    (none a multiple of 128), 32 new tokens each.  Launch counts zeroed
    just before and read just after, held exactly: K5 38 per prefill, K4 6
-   per prefill (every one on the tensor-core body), K3 6 per decode step,
+   per prefill (every one on the tensor-core body), K3 6 per decode step
+   (every one on the split body),
    K7 by body (the bf16 products on wgmma, the fp32 LM head on FMA), no
    plain call.  tok/s, TTFT, TPOT,
    tok/s/W against the power limit, peak memory; then a profiled window
@@ -173,11 +186,22 @@ CONV_GATE_SHAPES = ("stem1", "stem2", "3a.b3", "4a.b2", "4b.b3r", "5b.b2")
 # but other summation orders flip roundings (~1e-3 expected, as the CPU
 # test against the JAX model reads 6.9e-4 for other round points).
 TOL_GOOGLENET = {"fp32": 1e-4, "fp16": 4e-3}
+# K6 launches of one GoogLeNet forward by body: fp32 all on FMA, fp16 all on
+# the tensor cores (stem1's 3-channel pixels gathered element by element).
+CONV_BODIES = {"fp32": {"fma": 57}, "fp16": {"mma": 57}}
 # zamba2-1.2b: the serving phase's prompts (none a multiple of the scan's
 # 128-row chunk) and the per-slot cache; the kernels it must launch.
 ZAMBA_PROMPTS = (203, 317, 450, 511, 647, 777, 901, 1000)
 ZAMBA_MAX_LEN = 1088
 HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
+# K3 cases (lengths, S, H, K, D): zamba2's decode step (the last slot past
+# S, as an idle slot), a length-0 row and split boundaries, S not a
+# multiple of 64, and qwen2.5-3b's heads (G = 8, D = 128) on a contiguous
+# cache.  The first is the timed one.
+DENSE_DECODE_CASES = (((1033, 700, 257, 1200), ZAMBA_MAX_LEN, 32, 32, 64),
+                      ((0, 1, 64, 65), ZAMBA_MAX_LEN, 32, 32, 64),
+                      ((999, 1000, 5, 2000), 1000, 32, 32, 64),
+                      ((1033, 700, 257, 1200), ZAMBA_MAX_LEN, 16, 2, 128))
 FP32_FLOPS = 67e12             # H100 SXM fp32 on the CUDA cores (K5's arithmetic)
 # fp32 path check of zamba2, kernels vs plain versions, by depth (6: one
 # segment and one shared-block application; 13: two and a 1-layer tail):
@@ -354,19 +378,20 @@ def poison_dead_rows(torch, kp, vp, tables, lengths) -> None:
     vp[~live] = float("nan")
 
 
-def hold(torch, kern, args, label, *, poison=None, **kw) -> float:
+def hold(torch, kern, args, label, *, poison=None, body=None, **kw) -> float:
     """Launch ``kern`` on one case and hold it against its plain version
     evaluated in fp32 on the same values; raise past the kernel's limit
     (``kern.tolerance``).  A kernel with several outputs (K5: y and the
     final state) is held on each.  ``poison(args)``, where given, changes
     the operands in place after the plain version has read them and
-    before the kernel does (rows the kernel must not read).  Returns the
-    largest absolute error."""
+    before the kernel does (rows the kernel must not read).  ``body``, where
+    given, overrides the kernel's route.  Returns the largest absolute
+    error."""
     ref = kern.plain(*(a.float() if a.is_floating_point() else a for a in args), **kw)
     if poison is not None:
         torch.cuda.synchronize()
         poison(args)
-    out = kern.launch(*args, **kw)
+    out = kern.launch(*args, **kw, **({"body": body} if body else {}))
     torch.cuda.synchronize()
     pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
     err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
@@ -667,7 +692,7 @@ def profile_phase(torch, np, eng, Request, greedy):
         f"decode_steps={stats.decode_steps} "
         f"prefill_tokens={stats.prefill_tokens_computed} (profiled run)")
     mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
-            ("paged_decode_split_kernel", "paged_decode_merge_kernel", "paged_decode_kernel",
+            ("decode_split_kernel", "decode_merge_kernel", "paged_decode_kernel",
              "paged_prefill_mma_kernel", "paged_prefill_kernel", "matmul_wgmma_kernel",
              "matmul_kernel")}
     log("profile: device ms " + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
@@ -823,15 +848,30 @@ def dense_decode_case(torch, lengths, dtype, *, S=ZAMBA_MAX_LEN, H=32, K=32, D=6
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
+def poison_cache_rows(torch, q, k, v, lengths) -> None:
+    """NaN into every cache row at or past its sequence's length: a kernel
+    that reads such a row, or lets a masked product touch it, returns
+    NaN."""
+    S = k.shape[1]
+    for b, n in enumerate(lengths.tolist()):
+        k[b, max(min(n, S), 0):] = float("nan")
+        v[b, max(min(n, S), 0):] = float("nan")
+
+
 def hybrid_kernel_phase(torch, table) -> dict:
     """Phase 9: K5, K4 and K3 against their plain versions at zamba2-1.2b
     widths (fp32 and bf16), then each timed in bf16: kernel, plain version,
     library call and bound."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import dense_body_for
     from repro_torch.kernels.dispatch import SSM_RTOL
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     ssm, fla, dec = (table[n] for n in HYBRID_KERNELS)
     timer = Timer(torch)
+
+    def poison_cache(args):
+        poison_cache_rows(torch, *args)
+
     errs = {n: {} for n in HYBRID_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         e = []
@@ -852,9 +892,14 @@ def hybrid_kernel_phase(torch, table) -> dict:
                 e.append(hold(torch, fla, args, f"B={B} S={S} H={H} K={K} D={D} causal "
                               f"body={flash_body_for(args[0])}", causal=True))
         errs["flash_attention"][dtype] = max(e)
-        errs["decode_attention"][dtype] = hold(
-            torch, dec, dense_decode_case(torch, (1033, 700, 257, 1200), dtype),
-            f"B=4 S={ZAMBA_MAX_LEN} H=K=32 D=64 lengths=(1033, 700, 257, 1200)")
+        e = []
+        for lengths, S, H, K, D in DENSE_DECODE_CASES:
+            for poison in (None, poison_cache):
+                args = dense_decode_case(torch, lengths, dtype, S=S, H=H, K=K, D=D)
+                e.append(hold(torch, dec, args, f"B={len(lengths)} S={S} H={H} K={K} D={D} "
+                              f"lengths={lengths} body={dense_body_for(args[0], args[1])}"
+                              f"{' NaN past the lengths' if poison else ''}", poison=poison))
+        errs["decode_attention"][dtype] = max(e)
     out = {}
     # K5, bf16 operands as zamba2's prefill gives them: S = 1000, no state in
     args, _ = ssm_case(torch, 1000, torch.bfloat16)
@@ -889,22 +934,26 @@ def hybrid_kernel_phase(torch, table) -> dict:
     log(f"flash_attention timed B=1 S=1024 H=16 K=2 D=128 causal bf16 "
         f"body={flash_body_for(q)}: kernel {ms:.4f}ms plain {plain_ms:.4f}ms "
         f"library {lib_ms:.4f}ms bound {bms:.5f}ms ({by}; {nbytes} B, {flops} flop)")
-    # K3, one decode step's attention over the 4 slots
-    lengths = (1033, 700, 257, 1200)
+    # K3, one decode step's attention over the 4 slots, both bodies
+    lengths = DENSE_DECODE_CASES[0][0]
     q, k, v, lens = dense_decode_case(torch, lengths, torch.bfloat16)
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     rows = sum(min(n, S) for n in lengths)
+    shape = f"B=4 S={ZAMBA_MAX_LEN} H=K=32 D=64 lengths={lengths} bf16"
     out["decode_attention"] = dict(
-        ms=timer(lambda: dec.launch(q, k, v, lens)),
+        ms=timer(lambda: dec.launch(q, k, v, lens, body="mma")),
+        fma_ms=timer(lambda: dec.launch(q, k, v, lens, body="fma")),
         plain_ms=timer(lambda: dec.plain(q, k, v, lens)),
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             q[:, :, None, :], kh, vh, attn_mask=mask)),
         bytes=2 * (2 * B * H * D + 2 * rows * K * D) + 4 * B,
         flops=4 * H * D * rows, peak=BF16_FLOPS,
-        shape=f"B=4 S={ZAMBA_MAX_LEN} H=K=32 D=64 lengths={lengths} bf16")
+        shape=f"{shape} body={dense_body_for(q, k)} ({-(-S // 64)} splits)")
+    host_cost(torch, dec, (q, k, v, lens), "decode_attention", shape,
+              lambda: dense_body_for(q, k))
     for name, r in out.items():
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], r.pop("peak"))
         r["max_abs_err"] = errs[name][torch.bfloat16]
@@ -967,11 +1016,14 @@ def hybrid_serving_phase(torch, np, table) -> dict:
         raise AssertionError(f"zamba2 launches {got}, expected {want}; plain calls "
                              f"{plain}; prefills {stats.prefills}")
     # bf16 products on the tensor cores, the fp32 LM head on FMA; every K4
-    # launch (D = 64, bf16) on the tensor-core body
+    # launch (D = 64, bf16) on the tensor-core body, every K3 launch (D = 64,
+    # G = 1, bf16) on the split body
     calls = stats.prefills + stats.decode_steps
-    bodies = {n: dict(table[n].body_launches) for n in ("matmul", "flash_attention")}
+    bodies = {n: dict(table[n].body_launches)
+              for n in ("matmul", "flash_attention", "decode_attention")}
     want_bodies = {"matmul": {"wgmma": (per_call - 1) * calls, "fma": calls},
-                   "flash_attention": {"mma": want["flash_attention"]}}
+                   "flash_attention": {"mma": want["flash_attention"]},
+                   "decode_attention": {"mma": want["decode_attention"]}}
     if bodies != want_bodies:
         raise AssertionError(f"zamba2 launches by body {bodies}, expected {want_bodies}")
     log(f"zamba2 serving: requests={stats.requests} tokens={stats.tokens} "
@@ -1007,8 +1059,9 @@ def hybrid_profile(torch, np, eng, Request, greedy):
     if not busy:
         raise AssertionError("zamba2 profile: the profiler saw no device time")
     mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
-            ("ssm_scan_kernel", "flash_mma_kernel", "flash_kernel", "dense_decode_kernel",
-             "matmul_wgmma_kernel", "matmul_kernel")}
+            ("ssm_scan_kernel", "flash_mma_kernel", "flash_kernel", "decode_split_kernel",
+             "decode_merge_kernel", "dense_decode_kernel", "matmul_wgmma_kernel",
+             "matmul_kernel")}
     log(f"zamba2 profile: wall={wall:.3f}s device_busy={busy:.3f}s "
         f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
         f"prefills={stats.prefills} decode_steps={stats.decode_steps}; device ms "
@@ -1126,32 +1179,71 @@ def library_conv(torch, F, x, w, b, stride):
     return lambda: F.conv2d(xc, wc, bc, stride=stride, padding=(pt, pl))
 
 
+def conv_slices(x, w, stride, body) -> int:
+    """K slices a K6 call on ``body`` runs (1: unsplit), by the wrapper's
+    rule."""
+    from repro_torch.kernels.conv2d.ops import FMA_BK, MMA_BK, conv_splits, conv_tile
+    B, H, W, Cin = x.shape
+    KH, KW, _, Cout = w.shape
+    M = B * -(-H // stride) * -(-W // stride)
+    bm, bn = conv_tile(body, M, Cout)
+    return conv_splits(M, Cout, KH * KW * Cin, bm, bn, MMA_BK if body == "mma" else FMA_BK)
+
+
 def conv_phase(torch, table) -> dict:
     """K6 against its plain version on every distinct conv shape of the
-    batch-8 forward at 224 (fp32, fp16, bf16), then the 57 convolutions
-    timed at fp32 and fp16: kernel, plain version, one F.conv2d call, bound.
-    Sums are over the 57 launches of one forward."""
+    batch-8 forward at 224: fp32 on the FMA body, fp16 and bf16 on both
+    bodies (the route takes the tensor cores); a split
+    case launched twice must give the same bits.  Then the 57 convolutions
+    timed at fp32 and fp16: the route's body, the FMA body, the plain
+    version, one F.conv2d call, the bound; sums are over the 57 launches of
+    one forward.  Then the host's time per call."""
     import torch.nn.functional as F
+    from repro_torch.kernels.conv2d.ops import body_for
     conv = table["conv2d"]
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version: full fp32 products
     torch.backends.cudnn.allow_tf32 = False         # library call at fp32: no TF32
     groups = conv_groups()
-    errs = {}
+    errs, cases = {}, {}
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
-        errs[dtype] = max(
-            hold(torch, conv, conv_case(torch, xs, ws, dtype),
-                 f"{names[0]} x{xs} w{ws} /{stride}", stride=stride)
-            for (xs, ws, stride), names in groups.items())
+        errs[dtype] = 0.0
+        for (xs, ws, stride), names in groups.items():
+            args = conv_case(torch, xs, ws, dtype)
+            route = body_for(*args[:2])
+            for body in (("mma", "fma") if route == "mma" else ("fma",)):
+                sp = conv_slices(*args[:2], stride, body)
+                errs[dtype] = max(errs[dtype], hold(
+                    torch, conv, args, f"{names[0]} x{xs} w{ws} /{stride} body={body} "
+                    f"splits={sp}", body=body, stride=stride))
+                if sp > 1:      # deterministic: the partials summed in slice order
+                    first = conv.launch(*args, stride=stride, body=body)
+                    again = conv.launch(*args, stride=stride, body=body)
+                    torch.cuda.synchronize()
+                    if not torch.equal(first, again):
+                        raise AssertionError(f"conv2d {names[0]} {dtype} body={body}: two "
+                                             f"launches of {sp} K slices differ")
+                key = (str(dtype)[6:], body, "split" if sp > 1 else "unsplit")
+                cases[key] = cases.get(key, 0) + 1
+    log("conv2d cases held, by (type, body, K split): "
+        + ", ".join(f"{'/'.join(k)} {n}" for k, n in sorted(cases.items())))
+    for dtype in ("float16", "bfloat16"):
+        for body in ("mma", "fma"):
+            if not all(cases.get((dtype, body, sp)) for sp in ("split", "unsplit")):
+                raise AssertionError(f"conv2d {dtype} {body}: split and unsplit cases not "
+                                     f"both held")
     timer = Timer(torch, reps=10)
     out = {}
     for dtype in (torch.float32, torch.float16):
         dname = str(dtype)[6:]
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+        tot = dict(ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, flops=0.0, bytes=0.0)
         for (xs, ws, stride), names in groups.items():
             x, w, b = conv_case(torch, xs, ws, dtype)
             n = len(names)
+            route = body_for(x, w)
             ms = timer(lambda: conv.launch(x, w, b, stride=stride))
+            fma_ms = ms if route == "fma" else timer(
+                lambda: conv.launch(x, w, b, stride=stride, body="fma"))
             plain_ms = timer(lambda: conv.plain(x, w, b, stride=stride))
             lib_ms = timer(library_conv(torch, F, x, w, b, stride))
             B, H, W, Cin = xs
@@ -1160,24 +1252,36 @@ def conv_phase(torch, table) -> dict:
             flops = 2.0 * M * Cout * KH * KW * Cin
             nbytes = x.element_size() * (x.numel() + w.numel() + M * Cout) + 4 * Cout
             bms, by = bound(nbytes, flops, PEAK_FLOPS[dname])
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                           ("bound_ms", bms), ("flops", flops), ("bytes", nbytes),
-                           ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
+            for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("bound_ms", bms), ("flops", flops),
+                           ("bytes", nbytes), ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
                            ("ops_ms", flops / PEAK_FLOPS[dname] * 1e3)):
                 tot[key] += n * v
-            log(f"conv2d {dname} {','.join(names)}: x{xs} w{ws} /{stride} "
-                f"kernel {ms:.4f}ms plain {plain_ms:.4f}ms library {lib_ms:.4f}ms "
-                f"bound {bms:.5f}ms ({by}) {flops / ms / 1e9:.1f} TFLOP/s")
+            log(f"conv2d {dname} {','.join(names)}: x{xs} w{ws} /{stride} kernel "
+                f"({route}, {conv_slices(x, w, stride, route)} K slices) {ms:.4f}ms fma "
+                f"{fma_ms:.4f}ms plain {plain_ms:.4f}ms library {lib_ms:.4f}ms bound "
+                f"{bms:.5f}ms ({by}) {flops / ms / 1e9:.1f} TFLOP/s")
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
         log(f"conv2d {dname}, 57 launches of one batch-{CONV_BATCH} forward at "
-            f"{CONV_SIZE}: kernel {tot['ms']:.4f}ms plain {tot['plain_ms']:.4f}ms "
+            f"{CONV_SIZE}: kernel {tot['ms']:.4f}ms (route's bodies) fma body "
+            f"{tot['fma_ms']:.4f}ms plain {tot['plain_ms']:.4f}ms "
             f"library {tot['library_ms']:.4f}ms bound {tot['bound_ms']:.4f}ms "
             f"({tot['bound_by']}, {tot['flops'] / 1e9:.2f} GFLOP, "
             f"{tot['bytes'] / 1e6:.1f} MB; peak {PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s)")
         out[dname] = tot
-    r = dict(out["float32"], max_abs_err=errs[torch.float32],
-             max_abs_err_fp16=errs[torch.float16], max_abs_err_bf16=errs[torch.bfloat16],
-             shape=f"57 convs of GoogLeNet, batch {CONV_BATCH} at {CONV_SIZE}, fp32")
+    for label in ("5a.b3r", "stem2"):      # split on the mma body, and not
+        xs, ws, stride = next(k for k, names in groups.items() if names[0] == label)
+        x, w, b = conv_case(torch, xs, ws, torch.float16)
+        host_cost(torch, conv, (x, w, b), "conv2d", f"{label} fp16 (splits: mma "
+                  f"{conv_slices(x, w, stride, 'mma')}, fma {conv_slices(x, w, stride, 'fma')})",
+                  lambda: body_for(x, w))
+    f32 = out["float32"]
+    r = dict(out["float16"], max_abs_err=errs[torch.float16],
+             max_abs_err_fp32=errs[torch.float32], max_abs_err_bf16=errs[torch.bfloat16],
+             fp32_ms=f32["ms"], fp32_plain_ms=f32["plain_ms"],
+             fp32_library_ms=f32["library_ms"], fp32_bound_ms=f32["bound_ms"],
+             shape=f"57 convs of GoogLeNet, batch {CONV_BATCH} at {CONV_SIZE}, fp16, "
+                   f"body=mma")
     return {"conv2d": r}
 
 
@@ -1214,6 +1318,7 @@ def googlenet_phase(torch, np, table) -> int:
         torch.cuda.synchronize()
         n_kern = (conv.launches, conv.plain_calls, table["matmul"].launches,
                   table["matmul"].plain_calls)
+        bodies = dict(conv.body_launches)
         with dispatch.plain_versions():
             plain = googlenet.forward(cfg, params, x8)
         rel = ((kern - plain).abs().max() / plain.abs().max()).item()
@@ -1221,11 +1326,28 @@ def googlenet_phase(torch, np, table) -> int:
         log(f"googlenet {prec} path check (batch {CONV_BATCH}, {CONV_SIZE}x{CONV_SIZE}): "
             f"kernels vs plain rel={rel:.3e} (tol {TOL_GOOGLENET[prec]}) top1_agree={top1} "
             f"max|logit|={plain.abs().max().item():.4f} conv launches/plain, matmul "
-            f"launches/plain={n_kern}")
+            f"launches/plain={n_kern}, conv launches by body {bodies}")
         if not (bool(torch.isfinite(kern).all()) and rel <= TOL_GOOGLENET[prec]
-                and top1 and n_kern == (57, 0, 1, 0)):
+                and top1 and n_kern == (57, 0, 1, 0) and bodies == CONV_BODIES[prec]):
             raise AssertionError(f"googlenet {prec} path check failed: rel {rel}, "
-                                 f"top1 {top1}, counts {n_kern}")
+                                 f"top1 {top1}, counts {n_kern}, by body {bodies}")
+        # (a') the forward's host time: its launches enqueued, and forwards
+        # back to back (paced by the host or the device, whichever is slower)
+        enqueue = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            googlenet.forward(cfg, params, x8)
+            enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            googlenet.forward(cfg, params, x8)
+        torch.cuda.synchronize()
+        b2b = (time.perf_counter() - t0) / 20
+        log(f"googlenet {prec} batch-{CONV_BATCH} forward, host: enqueue median "
+            f"{sorted(enqueue)[10] * 1e3:.3f} ms; 20 back to back {b2b * 1e3:.3f} ms a forward "
+            f"({CONV_BATCH / b2b:.1f} img/s without the engine)")
         # (b) + (c): through the offload engine at batch 1 and 8
         for B, nb in ((1, 32), (CONV_BATCH, 16)):
             batches = [src.sample(B)["images"] for _ in range(nb)]
@@ -1234,12 +1356,15 @@ def googlenet_phase(torch, np, table) -> int:
             log(f"googlenet {prec} batch {B} through OffloadEngine([TorchTarget]): "
                 f"{r['img_s']:.2f} img/s, {r['batch_ms']:.3f} ms per batch over "
                 f"{r['batches']} batches, {rep.items_per_watt:.4f} img/W at "
-                f"power.limit {watts:.0f} W; conv launches {r['launches']} "
-                f"plain calls {r['plain_calls']}")
-            if r["launches"] != 57 * nb or r["plain_calls"] != 0:
+                f"power.limit {watts:.0f} W; conv launches {r['launches']} by body "
+                f"{r['body_launches']} plain calls {r['plain_calls']}")
+            want = {body: n * nb for body, n in CONV_BODIES[prec].items()}
+            if (r["launches"] != 57 * nb or r["body_launches"] != want
+                    or r["plain_calls"] != 0):
                 raise AssertionError(f"googlenet {prec} batch {B}: {r['launches']} conv "
-                                     f"launches and {r['plain_calls']} plain calls "
-                                     f"for {nb} forwards")
+                                     f"launches ({r['body_launches']} by body, expected "
+                                     f"{want}) and {r['plain_calls']} plain calls for {nb} "
+                                     f"forwards")
             launches += r["launches"]
         # (e) one batch-8 forward under the profiler
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1249,13 +1374,16 @@ def googlenet_phase(torch, np, table) -> int:
             wall = time.monotonic() - t0
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows) / 1e3
-        k6 = sum(r[0] for r in rows if "conv2d_kernel" in r[2]) / 1e3
+        k6 = sum(r[0] for r in rows if "conv2d_" in r[2]) / 1e3     # both bodies, the reduction
         if not busy:
             raise AssertionError("googlenet profile: the profiler saw no device time")
         log(f"googlenet {prec} profile (one batch-{CONV_BATCH} forward): wall "
             f"{wall * 1e3:.3f}ms device_busy {busy * 1e3:.3f}ms busy_share "
             f"{busy / wall:.3f} conv2d kernel {k6 * 1e3:.3f}ms = {k6 / busy:.3f} of "
-            f"device time")
+            f"device time ("
+            + ", ".join(f"{n} {sum(r[0] for r in rows if n in r[2]):.3f}ms" for n in
+                        ("conv2d_mma_kernel", "conv2d_fma_kernel", "conv2d_reduce_kernel"))
+            + ")")
         for ms, count, key in rows[:6]:
             log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
     # (d) fig 7's estimators on the card

@@ -18,35 +18,40 @@ partials merged in fp32 (``emulated_split``), printed beside the one-pass
 emulation, and with one split lost.  Then K6 conv2d on
 chip_smoke's gate shapes at batch 1: the plain version at fp16 / bf16 --
 the kernel's own round points, an fp32 sum rounded once -- against it at
-fp32, and the same with one 16-deep chunk of K lost.  Then K7 matmul on
-``K7_GATE_CASES`` (chip_smoke's shapes, cut in M or N to run on a CPU in
-seconds): a product summed in fp64 and rounded once to the type (what a
-right kernel can at best return) against the plain version in fp32, and
-the same with the first 32-deep slice of K lost.
+fp32, and the same with the FMA body's first 32-deep chunk of K lost.
+Then K7 matmul on ``K7_GATE_CASES`` (chip_smoke's shapes, cut in M or N to
+run on a CPU in seconds): a product summed in fp64 and rounded once to
+the type (what a right kernel can at best return) against the plain
+version in fp32, and the same with the first 32-deep slice of K lost.
 
 ``--card``: copies ``src/`` into a temporary directory and changes one
-kernel there: each paged attention kernel's FMA block loop skips pool
-block 0 when more than two blocks are live; K2's tensor-core body skips
-its first KV tile; K1's split body loses the first pool block of every
-split, or its merge drops split 0's partial; the conv kernel's K loop skips its
-first 16-deep chunk, or its window loses the centre tap; the scan (K5)
-drops the state carried into the next chunk; the flash kernel (K4) skips
-the diagonal KV tile, in its FMA body and in its tensor-core body; the
-dense decode kernel (K3) skips the last live KV tile; the matmul kernel
+source file there (a kernel's ``.cu``, or a ``.cuh`` that several kernels
+share), as ``MUTANTS`` lists: each paged attention kernel's FMA block loop
+skips pool block 0 when more than two blocks are live; K2's tensor-core
+body skips its first KV tile; the split body of the decode kernels
+(``decode_split.cuh``, K1's and K3's) loses the first 16 rows of every
+split, or its merge drops split 0's partial; the conv kernel's FMA body
+loses its first 32-deep K chunk, its tensor-core body its first 64-deep
+chunk, its split-K reduction slice 0's partial, or its loader (both
+bodies) the centre tap of the window; the scan (K5) drops the state
+carried into the next chunk; the flash kernel (K4) skips the diagonal KV
+tile, in its FMA body and in its tensor-core body; the dense decode
+kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
-64-deep K stage in its wgmma body.  Builds that kernel from the copy and
-runs chip_smoke's gate on its cases (fp32 and bf16 for attention and the
-scan, at zamba2 widths for K3 and K5 and on ``K4_SHAPES`` for K4; fp32 /
-fp16 / bf16 on the gate shapes for conv; chip_smoke's ``K7_CASES`` at
+64-deep K stage in its wgmma body.  Builds each kernel the file feeds
+from the copy and runs chip_smoke's gate on that kernel's cases (fp32
+and bf16 for attention and the scan, at zamba2 widths for K5, on
+``DENSE_DECODE_CASES`` for K3 and on ``K4_SHAPES`` for K4; fp32 / fp16 /
+bf16 on the gate shapes at batch 8 for conv; chip_smoke's ``K7_CASES`` at
 fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
 fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
-broken loop changes; their tensor-core bodies: bf16; K4's FMA body: fp32;
-its tensor-core body: bf16; K7's FMA body: fp32 and the 16-bit cases TMA
-cannot read; its wgmma body: bf16 and fp16 -- for a kernel of two
-bodies, only the cases its route sends to the broken body count).  Once
-for each broken kernel; exits non-zero if a broken body passes a case it
-serves.
+broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
+for conv; K4's, K3's and K6's FMA bodies: fp32; K6's reduction: the cases
+cut into K slices; K7's FMA body: fp32
+and the 16-bit cases TMA cannot read; its wgmma body: bf16 and fp16 --
+for a kernel of two bodies, only the cases its route sends to the broken
+body count).  Exits non-zero if a broken body passes a case it serves.
 """
 from __future__ import annotations
 
@@ -57,15 +62,22 @@ import sys
 import tempfile
 from pathlib import Path
 
-from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, K4_S, K4_SHAPES, K7_CASES,
-                        PREFILL_CASES, ZAMBA_MAX_LEN, conv_groups)
+from chip_smoke import (CONV_GATE_SHAPES, DECODE_CASES, DENSE_DECODE_CASES, K4_S, K4_SHAPES,
+                        K7_CASES, PREFILL_CASES, conv_groups)
 
 ROOT = Path(__file__).resolve().parent
 H, K, D, BS = 16, 2, 128, 16
 LOOP = "for (int ib = 0; ib < nblk; ++ib) {"
 SKIP_BLOCK_0 = "for (int ib = (nblk > 2); ib < nblk; ++ib) {"
-CONV_LOOP = "for (int k0 = 0; k0 < K; k0 += BK) {"
-CONV_SKIP_CHUNK = "for (int k0 = (K > 2 * BK) * BK; k0 < K; k0 += BK) {"
+FMA_CHUNK = "    fma_chunk<T>(acc, as, as + FMA_BM * F::A_LD, tx, ty);"
+FMA_LOSE_CHUNK = ("    if (kc0 + i > 0 || s.K <= 2 * FMA_BK) fma_chunk<T>(acc, as, as + FMA_BM * "
+                  "F::A_LD, tx, ty);  // chunk 0 lost")
+MMA_CHUNK = "    mma_chunk<T, BM>(acc, as, as + A_ELEMS, warp_m, warp_n, lane);"
+MMA_LOSE_CHUNK = ("    if (kc0 + i > 0 || s.K <= MMA_BK) mma_chunk<T, BM>(acc, as, as + A_ELEMS, "
+                  "warp_m, warp_n, lane);  // chunk 0 lost")
+CONV_REDUCE = "for (int z = 0; z < splits; ++z) sum += part[(size_t)z * mn + i];"
+CONV_DROP_SLICE_0 = ("for (int z = (splits > 1); z < splits; ++z) sum += part[(size_t)z * mn + i];"
+                     "  // slice 0 lost")
 CONV_TAP = "  return true;  // every tap contributes"
 CONV_SKIP_TAP = "  return tap != s.KH * s.KW / 2;  // the centre tap is lost"
 SSM_CARRY = "hs[n * PT + p] = decay * hs[n * PT + p] + s;"
@@ -84,10 +96,10 @@ K7_LOSE_STAGE = ("for (int kk = (kt == 0 && nk > 1) ? WG_BK / 16 : 0; kk < WG_BK
 K2_TILE_STEP = "mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
 K2_SKIP_TILE_0 = ("if (tile > 0) mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
                   "  // tile 0 lost")
-K1_SPLIT_MASK = "if (key >= nrows) x = NEG_INF;"
-K1_SKIP_POOL_BLOCK = "if (key >= nrows || key < bs) x = NEG_INF;  // first pool block lost"
-K1_MERGE_LOOP = "for (int i = 0; i < ns; ++i) {"
-K1_DROP_SPLIT_0 = "for (int i = 1; i < ns; ++i) {  // split 0 lost"
+SPLIT_MASK = "if (key >= nrows) x = NEG_INF;"
+SPLIT_SKIP_ROWS = "if (key >= nrows || key < 16) x = NEG_INF;  // first 16 rows lost"
+MERGE_LOOP = "for (int i = 0; i < ns; ++i) {"
+MERGE_DROP_SPLIT_0 = "for (int i = 1; i < ns; ++i) {  // split 0 lost"
 # K7 on the CPU: (label, M, K, N, layout) from chip_smoke's K7_CASES, cut
 # in M or N where a CPU would take minutes
 K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
@@ -96,40 +108,57 @@ K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
                  ("training mlp up, M cut to 64", 64, 2048, 11008, "rows"),
                  ("dX = dY @ W^T, M cut to 33", 33, 11008, 2048, "y.T"),
                  ("dW = X^T @ dY, N cut to 512", 2048, 513, 512, "x.T"))
-# (kernel, text, replacement, what the broken copy does, the types whose
-# every case it must fail: those its body serves -- for the paged kernels'
-# FMA bodies only the cases with more than two live pool blocks, since the
-# short ones have no block 0 to skip; and for a kernel of two bodies the
-# broken one: only the cases its route sends there count)
+# (source file in csrc/, text, replacement, what the broken copy does, the
+# kernels it feeds: (kernel, the types whose every case it must fail, the
+# cases that count)).  The cases that count are those the route sends to
+# the broken body (None: every case; "split": K6's cases cut into K
+# slices), and for the paged kernels' FMA bodies only the cases with more
+# than two live pool blocks, since the short ones have no block 0 to skip.
+ALL = ("float32", "float16", "bfloat16")
 MUTANTS = (
-    ("paged_decode_attention", LOOP, SKIP_BLOCK_0,
-     "FMA body: skips pool block 0 when more than two blocks are live", ("float32",), "fma"),
-    ("paged_decode_attention", K1_SPLIT_MASK, K1_SKIP_POOL_BLOCK,
-     "split body: every split loses its first pool block", ("bfloat16",), "mma"),
-    ("paged_decode_attention", K1_MERGE_LOOP, K1_DROP_SPLIT_0,
-     "split body: the merge drops split 0's partial", ("bfloat16",), "mma"),
-    ("paged_prefill_attention", LOOP, SKIP_BLOCK_0,
-     "FMA body: skips pool block 0 when more than two blocks are live", ("float32",), "fma"),
-    ("paged_prefill_attention", K2_TILE_STEP, K2_SKIP_TILE_0,
-     "tensor-core body: skips its first KV tile", ("bfloat16",), "mma"),
-    ("conv2d", CONV_LOOP, CONV_SKIP_CHUNK, "skips its first 16-deep K chunk when K > 32",
-     ("float32", "float16", "bfloat16"), None),
-    ("conv2d", CONV_TAP, CONV_SKIP_TAP, "loses the centre tap of the window",
-     ("float32", "float16", "bfloat16"), None),
-    ("ssm_scan", SSM_CARRY, SSM_DROP_CARRY,
-     "drops the state carried into the next chunk", ("float32", "bfloat16"), None),
-    ("flash_attention", TILE_LOOP, SKIP_DIAGONAL,
-     "FMA body: skips the diagonal KV tile when causal", ("float32", "bfloat16"), "fma"),
-    ("flash_attention", MMA_TILE_LOOP, MMA_SKIP_DIAGONAL,
-     "tensor-core body: skips the diagonal KV tile when causal", ("bfloat16",), "mma"),
-    ("decode_attention", TILE_LOOP, SKIP_LAST_TILE, "skips the last live KV tile",
-     ("float32", "bfloat16"), None),
-    ("matmul", K7_ADD, K7_LOSE_SLICE,
+    ("paged_decode_attention.cu", LOOP, SKIP_BLOCK_0,
+     "FMA body: skips pool block 0 when more than two blocks are live",
+     (("paged_decode_attention", ("float32",), "fma"),)),
+    ("decode_split.cuh", SPLIT_MASK, SPLIT_SKIP_ROWS,
+     "split body: every split loses its first 16 rows (K1: a pool block of 16)",
+     (("paged_decode_attention", ("bfloat16",), "mma"),
+      ("decode_attention", ("bfloat16",), "mma"))),
+    ("decode_split.cuh", MERGE_LOOP, MERGE_DROP_SPLIT_0,
+     "split body: the merge drops split 0's partial",
+     (("paged_decode_attention", ("bfloat16",), "mma"),
+      ("decode_attention", ("bfloat16",), "mma"))),
+    ("paged_prefill_attention.cu", LOOP, SKIP_BLOCK_0,
+     "FMA body: skips pool block 0 when more than two blocks are live",
+     (("paged_prefill_attention", ("float32",), "fma"),)),
+    ("paged_prefill_attention.cu", K2_TILE_STEP, K2_SKIP_TILE_0,
+     "tensor-core body: skips its first KV tile",
+     (("paged_prefill_attention", ("bfloat16",), "mma"),)),
+    ("conv2d.cu", FMA_CHUNK, FMA_LOSE_CHUNK,
+     "FMA body: loses its first 32-deep K chunk when K > 64", (("conv2d", ("float32",), "fma"),)),
+    ("conv2d.cu", MMA_CHUNK, MMA_LOSE_CHUNK,
+     "tensor-core body: loses its first 64-deep K chunk when K > 64",
+     (("conv2d", ("float16", "bfloat16"), "mma"),)),
+    ("conv2d.cu", CONV_REDUCE, CONV_DROP_SLICE_0,
+     "split-K reduction: drops slice 0's partial", (("conv2d", ALL, "split"),)),
+    ("conv2d.cu", CONV_TAP, CONV_SKIP_TAP, "both bodies' loader: loses the centre tap of "
+     "the window", (("conv2d", ALL, None),)),
+    ("ssm_scan.cu", SSM_CARRY, SSM_DROP_CARRY,
+     "drops the state carried into the next chunk",
+     (("ssm_scan", ("float32", "bfloat16"), None),)),
+    ("flash_attention.cu", TILE_LOOP, SKIP_DIAGONAL,
+     "FMA body: skips the diagonal KV tile when causal",
+     (("flash_attention", ("float32", "bfloat16"), "fma"),)),
+    ("flash_attention.cu", MMA_TILE_LOOP, MMA_SKIP_DIAGONAL,
+     "tensor-core body: skips the diagonal KV tile when causal",
+     (("flash_attention", ("bfloat16",), "mma"),)),
+    ("decode_attention.cu", TILE_LOOP, SKIP_LAST_TILE, "FMA body: skips the last live KV tile",
+     (("decode_attention", ("float32", "bfloat16"), "fma"),)),
+    ("matmul.cu", K7_ADD, K7_LOSE_SLICE,
      "FMA body: loses the first 32-deep slice of K when K > 64",
-     ("float32", "bfloat16", "float16"), "fma"),
-    ("matmul", K7_STAGE, K7_LOSE_STAGE,
+     (("matmul", ("float32", "bfloat16", "float16"), "fma"),)),
+    ("matmul.cu", K7_STAGE, K7_LOSE_STAGE,
      "wgmma body: loses its first 64-deep K stage when K > 64",
-     ("bfloat16", "float16"), "wgmma"),
+     (("matmul", ("bfloat16", "float16"), "wgmma"),)),
 )
 
 
@@ -280,7 +309,8 @@ def conv_cpu_check(torch) -> None:
     """K6 on chip_smoke's gate shapes at batch 1, CPU: the plain version at
     fp16 / bf16 (an fp32 sum rounded once, the kernel's round points)
     against it at fp32 on the same values, and at fp32 / fp16 / bf16 with
-    K rows 0-15 (the first 16-deep chunk) of the weight zeroed."""
+    K rows 0-31 (the FMA body's first chunk; the mma body's is 64 deep) of
+    the weight zeroed."""
     from repro_torch.kernels.conv2d.ref import conv2d_ref
     from repro_torch.kernels.dispatch import conv_tolerance_ratio
     shapes = {names[0]: key for key, names in conv_groups().items()
@@ -296,7 +326,7 @@ def conv_cpu_check(torch) -> None:
             b = 0.1 * torch.randn((Cout,), generator=g)
             ref = conv2d_ref(x, w, b, stride=stride)
             w_lost = w.reshape(-1, Cout).clone()
-            w_lost[:16] = 0
+            w_lost[:32] = 0
             out_lost = conv2d_ref(x, w_lost.reshape(w.shape), b, stride=stride)
             key = str(dtype)[6:]
             right[key] = max(right.get(key, 0.0),
@@ -306,7 +336,7 @@ def conv_cpu_check(torch) -> None:
     print("cpu, conv2d on " + ", ".join(CONV_GATE_SHAPES) + " at batch 1: "
           "worst err/limit of the kernel's round points "
           + ", ".join(f"{k} {v:.3f}" for k, v in right.items())
-          + "; least err/limit with the first K chunk lost "
+          + "; least err/limit with the first 32-deep K chunk lost "
           + ", ".join(f"{k} {v:.1f}" for k, v in lost.items()))
 
 
@@ -340,20 +370,21 @@ def card_check() -> None:
     if sys.argv[2:3] == ["--mutant"]:
         return mutant_gate(*sys.argv[3:7])
     missed = []
-    for name, text, broken, what, serves, body in MUTANTS:
+    for source, text, broken, what, feeds in MUTANTS:
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree(ROOT / "src", Path(d) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
-            cu = Path(d) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
-            source = cu.read_text()
-            if source.count(text) != 1:
-                raise SystemExit(f"{cu.name}: {text!r} not found once")
-            cu.write_text(source.replace(text, broken))
-            print(f"=== mutant: {name} {what}", flush=True)
-            run = subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name,
-                                  ",".join(serves), body or ""])
-            if run.returncode:
-                missed.append(f"{name}: {what}")
+            path = Path(d) / "src" / "repro_torch" / "csrc" / source
+            code = path.read_text()
+            if code.count(text) != 1:
+                raise SystemExit(f"{source}: {text!r} not found once")
+            path.write_text(code.replace(text, broken))
+            for name, serves, body in feeds:
+                print(f"=== mutant: {source} {what}; held on {name}", flush=True)
+                run = subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name,
+                                      ",".join(serves), body or ""])
+                if run.returncode:
+                    missed.append(f"{source} ({name}): {what}")
     if missed:
         raise SystemExit("broken bodies that passed a case of their types (or failed to "
                          "run): " + "; ".join(missed))
@@ -364,16 +395,26 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.conv2d.ops import body_for as conv_body_for
     from repro_torch.kernels.decode_attention.ops import body_for as decode_body_for
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
     from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
     build.build([name])
     kern = dispatch.kernel_table()[name]
-    body_of = {"matmul": lambda args: matmul_body_for(*args[:2]),
-               "flash_attention": lambda args: flash_body_for(args[0]),
-               "paged_decode_attention": lambda args: decode_body_for(args[0], args[1]),
-               "paged_prefill_attention": lambda args: prefill_body_for(args[0])}.get(name)
+
+    def conv_tags(args, kw):
+        body = conv_body_for(*args[:2])
+        split = cs.conv_slices(*args[:2], kw["stride"], body) > 1
+        return {body} | ({"split"} if split else set())
+
+    # what a case runs: its body, and for K6 whether K is split
+    tags_of = {"matmul": lambda args, kw: {matmul_body_for(*args[:2])},
+               "flash_attention": lambda args, kw: {flash_body_for(args[0])},
+               "decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
+               "paged_decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
+               "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0])},
+               "conv2d": conv_tags}.get(name, lambda args, kw: set())
     # a paged FMA body's broken loop changes only cases with a row that sees
     # more than two pool blocks (the lengths are the last operand)
     paged_fma = name.startswith("paged_") and broken_body == "fma"
@@ -397,9 +438,10 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
                  for B, H, K, D in K4_SHAPES for S in K4_S]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "decode_attention":
-        lengths = (1033, 700, 257, 1200)
-        cases = [(f"B=4 S={ZAMBA_MAX_LEN} lengths={lengths}",
-                  lambda dt: cs.dense_decode_case(torch, lengths, dt), {})]
+        cases = [(f"B={len(n)} S={S} H={H} K={K} D={D} lengths={n}",
+                  lambda dt, n=n, S=S, H=H, K=K, D=D: cs.dense_decode_case(
+                      torch, n, dt, S=S, H=H, K=K, D=D), {})
+                 for n, S, H, K, D in DENSE_DECODE_CASES]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "matmul":
         cases = [(f"{label} M={M} K={K} N={N} ({layout})",
@@ -424,7 +466,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
         failed, served, missed = [], 0, 0
         for label, make, kw in cases:
             args = make(dtype)
-            body = body_of(args) if body_of else None
+            tags = tags_of(args, kw)
             out = kern.launch(*args, **kw)
             ref = kern.plain(*(a.float() if a.is_floating_point() else a
                                for a in args), **kw)
@@ -434,10 +476,11 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
             if ratio > 1:
                 failed.append(ratio)
             long = not paged_fma or int(args[-1].max()) > 2 * BS
-            if str(dtype)[6:] in must_fail and body in (None, broken_body or None) and long:
+            if str(dtype)[6:] in must_fail and (not broken_body or broken_body in tags) \
+                    and long:
                 served += 1
                 missed += ratio <= 1
-            print(f"  {label} {str(dtype)[6:]}{f' body={body}' if body else ''}: "
+            print(f"  {label} {str(dtype)[6:]}{f' runs {sorted(tags)}' if tags else ''}: "
                   f"err/limit {ratio:.2f}{'' if ratio > 1 else '  (passes the gate)'}",
                   flush=True)
         print(f"  {str(dtype)[6:]}: {len(failed)} of {len(cases)} cases fail the "

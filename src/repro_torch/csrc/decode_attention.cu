@@ -16,15 +16,27 @@
 // reads its live K and V rows once and does 2 * G flops per element read,
 // far below the card's ~295 flops/byte ridge.
 //
-// Design (simple and right first): it is the paged decode kernel with the
-// cache read directly, and shares paged_attention.cuh with it.  One thread
-// block per (sequence, kv head) holds all G query heads of the group; the
-// Pallas grid's sequential KV axis becomes a loop inside the block over
-// the min(cdiv(len, 64), cdiv(S, 64)) live 64-row tiles only.  K/V rows are
-// staged in shared memory with 16-byte loads; scores, running max / sum
-// and the accumulator stay fp32.  A split over the cache with a
-// log-sum-exp merge (the sequence-sharded decode's partials) is later work.
-#include "paged_attention.cuh"
+// Two bodies; the caller (kernels/decode_attention/ops.py::dense_body_for)
+// picks one from the type, D and G before the launch.
+//
+// 1. FMA (fp32, and bf16 at a D other than 64 and 128 or G > 8), the first
+//    version: the paged decode kernel's FMA body with the cache read
+//    directly.  One thread block per (sequence, kv head) holds all G query
+//    heads of the group; the Pallas grid's sequential KV axis becomes a
+//    loop inside the block over the min(cdiv(len, 64), cdiv(S, 64)) live
+//    64-row tiles only.  K/V rows are staged in shared memory with 16-byte
+//    loads; scores, running max / sum and the accumulator stay fp32.  At
+//    zamba2's 4 slots and 32 kv heads that is 128 blocks, each walking up
+//    to 17 tiles in series with scalar dot products.
+// 2. Split over the cache, then a merge (bf16, D = 64 or 128, G <= 8): the
+//    paged decode kernel's split body (decode_split.cuh) on a loader that
+//    reads row j of kv head kv at ((b * S + j) * K + kv) * D, rows at or
+//    past min(lengths[b], S) zero-filled and never read.  NS = cdiv(S, 64)
+//    from the cache length on the host; a split past the length writes an
+//    empty partial.  zamba2's G = 1 pads the n = 8 side with zero heads,
+//    which costs nothing in a kernel bound by bytes.  On a cache read as
+//    a pool through a trivial table the two kernels give the same bits.
+#include "decode_split.cuh"
 
 namespace {
 
@@ -116,13 +128,31 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, cache and out share it).
-// Returns 0 or the CUDA error of the launch.
+// dtype: 0 = float32, 1 = bfloat16 (q, cache and out share it).  body: 0
+// the FMA body (any D, G), 1 the split body (bf16, D = 64 or 128, G <= 8),
+// which takes `splits` = cdiv(S, 64) and fp32 scratch of B * H * splits *
+// (D + 2) floats: m, then l, then acc.  Returns 0 or the CUDA error of a
+// launch.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out, int dtype, int B, int S,
-                                int H, int K, int D, float scale, void* stream) {
+                                const void* lengths, void* out, void* scratch, int dtype, int B,
+                                int S, int H, int K, int D, int splits, float scale, int body,
+                                void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1 || H / K > 8 || (long long)splits * decode_split::SPLIT_KEYS < S)
+      return (int)cudaErrorInvalidValue;
+    const auto* kc = static_cast<const __nv_bfloat16*>(k);
+    const auto* vc = static_cast<const __nv_bfloat16*>(v);
+    float* f = static_cast<float*>(scratch);
+    if (D == 64)
+      return decode_split::launch_split<64>(q, decode_split::DenseRows<64>{kc, vc, S, K},
+                                            lengths, out, f, B, H, K, splits, scale, 0.f, s);
+    if (D == 128)
+      return decode_split::launch_split<128>(q, decode_split::DenseRows<128>{kc, vc, S, K},
+                                             lengths, out, f, B, H, K, splits, scale, 0.f, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, lengths, out, B, S, H, K, D, scale, s);
   return launch<float>(q, k, v, lengths, out, B, S, H, K, D, scale, s);

@@ -1,10 +1,12 @@
 // Tensor-core core of the attention kernels (flash_attention.cu's and
-// paged_prefill_attention.cu's mma bodies, paged_decode_attention.cu's
-// split body): mma.sync m16n8k16 on bf16 operands with fp32 accumulators,
-// fragments read with ldmatrix from XOR-swizzled shared memory, and the
-// reference's online-softmax step on a 64-key tile held in registers.
-// The kernels differ only in how they stage K/V rows (a contiguous cache,
-// or pool rows through a block table) and which scores they mask.
+// paged_prefill_attention.cu's mma bodies, the split body of the decode
+// kernels in decode_split.cuh): mma.sync m16n8k16 on bf16 operands with
+// fp32 accumulators, fragments read with ldmatrix from XOR-swizzled shared
+// memory, and the reference's online-softmax step on a 64-key tile held in
+// registers.  The kernels differ only in how they stage K/V rows (a
+// contiguous cache, or pool rows through a block table) and which scores
+// they mask.  conv2d.cu's tensor-core body uses the fragment helpers, the
+// swizzle and the .f16 form of the product.
 #pragma once
 
 #include "paged_attention.cuh"
@@ -65,6 +67,26 @@ __device__ __forceinline__ void stage_paged(__nv_bfloat16* dk, __nv_bfloat16* dv
   }
 }
 
+// Rows [0, KV_ROWS) of a K and a V tile of a contiguous (B, S, K, D)
+// cache: tile row r is key base + r of sequence b, at ((b * S + j) * K +
+// kv) * D.  Keys at or past kv_end are not read: their rows are filled with
+// zeros (a cache row past the length may hold NaN).
+template <int D>
+__device__ __forceinline__ void stage_dense(__nv_bfloat16* dk, __nv_bfloat16* dv,
+                                            const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                            int b, int S, int base, int kv_end, int K, int kv) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < KV_ROWS * CH; i += MMA_THREADS) {
+    const int r = i / CH, c = i - r * CH;
+    const int j = base + r;
+    const bool live = j < kv_end;
+    size_t at = (size_t)c * 8;
+    if (live) at += (((size_t)b * S + j) * K + kv) * D;
+    cp_async16(dk + swz<D>(r, c), k + at, live ? 16 : 0);
+    cp_async16(dv + swz<D>(r, c), v + at, live ? 16 : 0);
+  }
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -82,6 +104,16 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same product on fp16 operands
+__device__ __forceinline__ void mma16816_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -3,12 +3,14 @@
 beside its plain version behind one wrapper with the reference's signature
 (counterpart of ``repro/kernels/decode_attention/ops.py``).
 
-The paged kernel has two bodies, and :func:`body_for` picks one before the
-launch: bf16 at head_dim 64 or 128 with at most 8 query heads per kv head
-splits the KV length over many blocks and merges them (``mma``: two
-launches from one call, the products on the tensor cores), everything
-else -- every fp32 call among them -- runs the first, one-block-per-group
-FMA body."""
+Each kernel has two bodies, and :func:`body_for` (paged) or
+:func:`dense_body_for` (dense) picks one before the launch: bf16 at
+head_dim 64 or 128 with at most 8 query heads per kv head splits the KV
+length over many blocks and merges them (``mma``: two launches from one
+call, the products on the tensor cores; one split body,
+``csrc/decode_split.cuh``, behind two row loaders), everything else --
+every fp32 call among them -- runs the first, one-block-per-group FMA
+body."""
 from __future__ import annotations
 
 import ctypes
@@ -23,8 +25,8 @@ from repro_torch.kernels.dispatch import check_operand, register_kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 \
     + [ctypes.c_int, ctypes.c_void_p]
-_DENSE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-    + [ctypes.c_float, ctypes.c_void_p]
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 MMA_HEAD_DIMS = (64, 128)    # the split body's template instances
 MMA_MAX_GROUP = 8            # query heads per kv head: the n = 8 side of m16n8k16
 SPLIT_KEYS = 64              # keys one block of the split body takes
@@ -40,6 +42,13 @@ def body_for(q: torch.Tensor, k_pool: torch.Tensor) -> str:
             and G <= MMA_MAX_GROUP):
         return "mma"
     return "fma"
+
+
+def dense_body_for(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The body a dense call runs: K1's rule on the cache's kv heads
+    (``k``: (B, S, K, D)), decided before the launch from the type,
+    head_dim and G alone."""
+    return body_for(q, k)
 
 
 def num_splits(max_blocks: int, block_size: int) -> int:
@@ -122,9 +131,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                   softcap=softcap, chunk=chunk)
 
 
-def _launch_dense(q, k, v, lengths, *, chunk=1024):
-    """Check the operands, allocate the output and launch the dense kernel
-    on the current stream (``chunk`` only tiles the plain version).  q and
+def _launch_dense(q, k, v, lengths, *, chunk=1024, body=None):
+    """Check the operands, allocate the output (and, for the split body, its
+    fp32 scratch in one allocation) and launch the dense kernel on the
+    current stream, on the body :func:`dense_body_for` names; ``body``
+    overrides that route.  ``chunk`` only tiles the plain version.  q and
     the cache must share a type: a cache in another type than q raises."""
     del chunk
     B, H, D = q.shape
@@ -142,13 +153,22 @@ def _launch_dense(q, k, v, lengths, *, chunk=1024):
         raise ValueError(f"num_heads {H} is not a multiple of kv heads {K}")
     if (D * q.element_size()) % 16:
         raise ValueError(f"head_dim {D}: rows must be a multiple of 16 bytes")
+    route = dense_body_for(q, k)
+    body = body or route
+    if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
+        raise ValueError(f"decode_attention: no {body!r} body for {q.dtype} "
+                         f"at head_dim {D}, G {H // K}")
     out = torch.empty_like(q)
+    ns = max(1, num_splits(1, S))    # S = 0: one empty split, the output 0
+    scratch = (torch.empty(B * H * ns * (D + 2), dtype=torch.float32,
+                           device=dev) if body == "mma" else None)
     lib = build.load("decode_attention", _DENSE_ARGTYPES)
-    DENSE_KERNEL.launches += 1
+    DENSE_KERNEL.count_launch(body)
     err = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, K, D, 1.0 / (D ** 0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, S, H, K, D, ns, 1.0 / (D ** 0.5),
+        int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention: CUDA error {err}")
     return out

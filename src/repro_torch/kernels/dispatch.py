@@ -9,7 +9,7 @@ version on the card is to ask for it explicitly with :func:`plain_versions`
 Each :class:`Kernel` counts what ran: ``launches`` is bumped by the kernel's
 launcher exactly where the CUDA kernel is enqueued, ``plain_calls`` wherever
 the plain version runs instead, so a serving run can show that its path went
-through the kernels.  A kernel with more than one body (K1, K2, K4, K7: a
+through the kernels.  A kernel with more than one body (all but K5: a
 tensor-core body beside the FMA one) also counts each launch under its
 body's name in ``body_launches``.
 """

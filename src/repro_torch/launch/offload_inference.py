@@ -55,7 +55,7 @@ def serve_batches(cfg, params, batches, device) -> dict:
     return {"labels": labels, "img_s": stats.throughput * B,
             "batch_ms": stats.wall_s / stats.items * 1e3,
             "batches": stats.items, "launches": k.launches,
-            "plain_calls": k.plain_calls}
+            "body_launches": dict(k.body_launches), "plain_calls": k.plain_calls}
 
 
 def precision_deltas(cfg32, params, images, labels, device, *,

@@ -1,8 +1,10 @@
 """The port's conv2d kernel wrapper and conv layers on the CPU: the plain
 version of K6 against the JAX oracle (``repro/kernels/conv2d/ref.py``) and
 against the Pallas TPU kernel in interpret mode, on the same numpy inputs;
-the pooling and LRN layers against ``repro.models.layers.conv``; and the
-launcher's refusals.
+the pooling and LRN layers against ``repro.models.layers.conv``; the
+launcher's refusals; the kernel's route (which body a call runs), its
+split-K rule on GoogLeNet's shapes, and the split-K arithmetic emulated in
+fp32 against the JAX oracle and the Pallas kernel.
 
 Tolerances.  fp32: 1e-5 relative, plus 1e-5 of the largest |output| for
 outputs near zero (the three sum the same products in other orders).
@@ -25,8 +27,11 @@ from repro.kernels.conv2d.ref import conv2d_ref as jax_conv_ref
 from repro.models.layers import conv as jconv
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.conv2d.ops import conv2d
+from repro_torch.kernels.conv2d.ops import (FMA_BK, MIN_SLICE_CHUNKS, MMA_BK, SMS,
+                                            body_for, conv2d, conv_splits, conv_tile,
+                                            x_in_pieces)
 from repro_torch.kernels.conv2d.ref import same_padding
+from repro_torch.models.googlenet import conv_shapes
 from repro_torch.models.layers import conv as tconv
 
 torch.set_num_threads(1)
@@ -202,3 +207,118 @@ def test_conv_tolerance_holds_rounding_and_rejects_a_lost_chunk(dtype):
     w_lost = w.clone()
     w_lost[0, 0, :16] = 0                   # K rows 0..15: tap 0, channels 0..15
     assert dispatch.conv_tolerance_ratio(conv2d(x, w_lost, b).to(dtype), ref) > 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(3, 64), (8, 8), (16, 24), (24, 20), (20, 64),
+                                      (832, 32), (192, 13)])
+def test_conv_route_by_dtype_cin_cout_and_alignment(dtype, cin, cout):
+    """K6's body is decided before the launch from the type, Cout and w's
+    alignment alone: fp16 / bf16 with Cout a multiple of 8 (a 16-byte piece
+    of w inside a row) take the tensor cores, everything else -- every
+    fp32 call, a w that does not start 16-byte aligned -- the FMA body.
+    x goes in 16-byte pieces where Cin is a multiple of the piece (a piece
+    inside one tap) and x is aligned, else element by element (stem1's
+    Cin = 3): on either body."""
+    x = torch.zeros((1, 5, 5, cin), dtype=dtype)
+    w = torch.zeros((3, 3, cin, cout), dtype=dtype)
+    want = "mma" if dtype != torch.float32 and cout % 8 == 0 else "fma"
+    assert body_for(x, w) == want
+    assert x_in_pieces(x, w) == (cin % (16 // x.element_size()) == 0)
+    odd_x = torch.zeros(1 + x.numel(), dtype=dtype)[1:].view(x.shape)
+    odd_w = torch.zeros(1 + w.numel(), dtype=dtype)[1:].view(w.shape)
+    assert body_for(odd_x, w) == want and not x_in_pieces(odd_x, w)
+    assert body_for(x, odd_w) == "fma"
+
+
+def _gemm(batch, xs, ws, stride):
+    """(M, N, K) of one conv's implicit GEMM."""
+    _, H, W, Cin = xs
+    KH, KW, _, Cout = ws
+    return batch * -(-H // stride) * -(-W // stride), Cout, KH * KW * Cin
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("body", ["mma", "fma"])
+def test_conv_splits_on_googlenet_shapes(batch, body):
+    """The split-K rule on GoogLeNet's 57 convs: no split where the output
+    tiles already give every SM a block; otherwise enough K slices to do so
+    as long as each keeps MIN_SLICE_CHUNKS chunks.  Every slice, as the
+    kernel deals them (slice z: chunks z * nk // splits up to (z + 1) * nk
+    // splits), is non-empty and at least that long.  At batch 8 and at
+    batch 1 every conv of stages 4 and 5 is split; at batch 1 every conv
+    past the stem but those with fewer than two slices' worth of chunks."""
+    bk = MMA_BK if body == "mma" else FMA_BK
+    split = {}
+    for name, xs, ws, stride in conv_shapes(batch, 224):
+        M, N, K = _gemm(batch, xs, ws, stride)
+        bm, bn = conv_tile(body, M, N)
+        splits = conv_splits(M, N, K, bm, bn, bk)
+        tiles, nk = -(-M // bm) * -(-N // bn), -(-K // bk)
+        sizes = [(z + 1) * nk // splits - z * nk // splits for z in range(splits)]
+        assert sum(sizes) == nk and min(sizes) >= 1
+        if tiles >= SMS:
+            assert splits == 1, name
+        elif splits > 1:
+            assert min(sizes) >= MIN_SLICE_CHUNKS, name
+            assert tiles * splits >= SMS or splits == nk // MIN_SLICE_CHUNKS, name
+        else:
+            assert nk < 2 * MIN_SLICE_CHUNKS or tiles * 2 > SMS, name
+        split[name] = splits
+    assert all(split[n] > 1 for n in split if n[0] in "45")
+    if batch == 8:
+        assert split["stem1"] == split["stem2"] == 1
+    else:
+        short = {n for n, xs, ws, stride in conv_shapes(batch, 224)
+                 if -(-_gemm(batch, xs, ws, stride)[2] // bk) < 2 * MIN_SLICE_CHUNKS}
+        assert all(split[n] > 1 for n in split if not n.startswith("stem") and n not in short)
+    if body == "mma" and batch == 8:       # 7 tiles of 64 x 64, 13 chunks of 64
+        assert (split["5a.b3r"], split["4a.b2"], split["5b.b2"]) == (6, 2, 4)
+
+
+def _split_k_conv(x, w, b, stride, bk, splits):
+    """K6's split-K arithmetic in fp32 plain PyTorch: the implicit GEMM over
+    K = KH * KW * Cin in the kernel's k order (tap-major, channel-minor),
+    the cdiv(K, bk) chunks dealt into ``splits`` slices as conv2d.cu's
+    slice_of deals them, each slice's partial summed on its own, the
+    partials added in slice order, the bias added once in fp32, one
+    rounding to x's type."""
+    B, H, W, Cin = x.shape
+    KH, KW, _, Cout = w.shape
+    hout, wout = -(-H // stride), -(-W // stride)
+    (pt, pb), (pl, pr) = same_padding(H, KH, stride), same_padding(W, KW, stride)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pl, pr, pt, pb))
+    taps = [xp[:, i:i + (hout - 1) * stride + 1:stride, j:j + (wout - 1) * stride + 1:stride]
+            for i in range(KH) for j in range(KW)]
+    a = torch.cat(taps, -1).reshape(B * hout * wout, KH * KW * Cin)
+    wk = w.float().reshape(KH * KW * Cin, Cout)
+    K = a.shape[1]
+    nk = -(-K // bk)
+    total = torch.zeros((a.shape[0], Cout))
+    for z in range(splits):
+        lo, hi = z * nk // splits * bk, min((z + 1) * nk // splits * bk, K)
+        total = total + a[:, lo:hi] @ wk[lo:hi]
+    return (total + b.float()).reshape(B, hout, wout, Cout).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("H,KH,stride,Cout,bc", [(7, 3, 1, 40, 8), (9, 5, 2, 20, 4),
+                                                 (8, 1, 1, 72, 8)])
+def test_split_k_arithmetic_matches_jax_ref_and_pallas(dtype, H, KH, stride, Cout, bc):
+    """K6's split-K emulated in fp32 (partials per K slice summed in slice
+    order, the bias once, one rounding) at Cin = 24 (a chunk spans taps)
+    and a Cout that is not a multiple of the 64-wide tile, at the FMA
+    body's 32-deep and the mma body's 64-deep chunks and 1-3 slices, equals
+    the JAX oracle and the Pallas kernel in interpret mode."""
+    x, w, b = _case(H, KH, 24, Cout, seed=H)
+    (jx, tx), (jw, tw) = _both(x, dtype), _both(w, dtype)
+    jb, tb = jnp.asarray(b), torch.from_numpy(b)
+    ref = jax_conv_ref(jx, jw, jb, stride=stride)
+    pallas = jax_pallas_conv(jx, jw, jb, stride=stride, bc=bc, interpret=True)
+    K = KH * KH * 24
+    for bk in (FMA_BK, MMA_BK):
+        for splits in range(1, min(3, -(-K // bk)) + 1):
+            out = _split_k_conv(tx, tw, tb, stride, bk, splits)
+            assert out.dtype == tx.dtype
+            _close(out, ref, dtype)
+            _close(out, pallas, dtype)

@@ -24,7 +24,13 @@ flash kernel's tensor-core body (bf16, D = 64 or 128) on the attention
 limit above, as are the paged kernels' tensor-core bodies (K2 on mma, K1
 split over the KV length and merged), with NaN in every pool row that is
 not live (the plain version reads the pool as made); K2's tensor-core
-body equals K4's bit for bit on a trivial block table.  Training
+body equals K4's bit for bit on a trivial block table.  K6 on its route's
+body (the tensor cores at fp16 / bf16) on every
+distinct GoogLeNet conv shape at batch 1 and 8, split and unsplit, and a
+split conv gives the same bits launch after launch; K3's split body on
+the attention limit with NaN in every cache row at or past the length,
+and equal to K1's bit for bit on the cache read as a pool through a
+trivial table.  Training
 on the card: the smoke model's loss and gradients through the kernels
 within 1e-3 of each leaf's largest entry of those through the plain
 versions (the same fp32 arithmetic in other orders; the random model's
@@ -36,6 +42,7 @@ import torch
 
 from repro_torch.configs import registry as TR
 from repro_torch.kernels import dispatch
+from repro_torch.models.googlenet import conv_shapes
 from repro_torch.models.registry import fns_for
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.sampler import greedy
@@ -494,3 +501,119 @@ def test_paged_prefill_mma_equals_flash_mma_on_a_trivial_table(cuda, S, H, K, D)
     assert table["flash_attention"].body_launches == {"mma": 1}
     assert table["paged_prefill_attention"].body_launches == {"mma": 1}
     assert torch.equal(paged, dense)
+
+
+def _googlenet_convs():
+    """GoogLeNet's distinct conv shapes at batch 1 and 8, each once:
+    (name, x shape, w shape, stride)."""
+    seen = {}
+    for batch in (1, 8):
+        for name, xs, ws, stride in conv_shapes(batch, 224):
+            seen.setdefault((xs, ws, stride), name)
+    return [(name, xs, ws, stride) for (xs, ws, stride), name in seen.items()]
+
+
+def _conv_operands(dev, xs, ws, dtype, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(xs, generator=g, device=dev).to(dtype)
+    w = (torch.randn(ws, generator=g, device=dev) / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+    return x, w, 0.1 * torch.randn((ws[3],), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("name,xs,ws,stride", _googlenet_convs(),
+                         ids=[f"{n}-b{xs[0]}" for n, xs, _, _ in _googlenet_convs()])
+def test_conv2d_route_body_matches_plain_on_googlenet_shapes(cuda, dtype, name, xs, ws,
+                                                            stride):
+    """K6 at fp16 / bf16 on the body its route names -- the tensor cores,
+    stem1's 3-channel pixels gathered element by element -- on every
+    distinct GoogLeNet conv shape at batch 1 and 8, K split into slices or
+    not as the wrapper decides."""
+    from repro_torch.kernels.conv2d.ops import body_for
+    x, w, b = _conv_operands(cuda, xs, ws, dtype)
+    body = body_for(x, w)
+    assert body == "mma"
+    k = dispatch.kernel_table()["conv2d"]
+    ref = k.plain(x.float(), w.float(), b, stride=stride)
+    dispatch.reset_counts()
+    out = k.launch(x, w, b, stride=stride)
+    torch.cuda.synchronize()
+    assert k.body_launches == {body: 1}
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert k.tolerance(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("name", ["4a.b2", "5a.b3r", "5b.b2"])
+def test_conv2d_split_k_is_bit_identical_across_launches(cuda, dtype, name):
+    """A conv cut into K slices sums the partials in slice order: two
+    launches on the same inputs give the same bits (no float atomics)."""
+    from repro_torch.kernels.conv2d.ops import (FMA_BK, MMA_BK, body_for, conv_splits,
+                                                conv_tile)
+    _, xs, ws, stride = next(c for c in conv_shapes(8, 224) if c[0] == name)
+    x, w, b = _conv_operands(cuda, xs, ws, dtype)
+    body = body_for(x, w)
+    M, N = xs[0] * -(-xs[1] // stride) * -(-xs[2] // stride), ws[3]
+    assert conv_splits(M, N, ws[0] * ws[1] * ws[2], *conv_tile(body, M, N),
+                       MMA_BK if body == "mma" else FMA_BK) > 1
+    k = dispatch.kernel_table()["conv2d"]
+    first = k.launch(x, w, b, stride=stride)
+    again = k.launch(x, w, b, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def _dense_case(dev, lengths, S, H, K, D, seed=0):
+    g = torch.Generator(dev).manual_seed(seed + S + D)
+    B = len(lengths)
+    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, K, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("D,H,K", [(64, 32, 32), (128, 16, 2), (64, 8, 2), (128, 6, 2)])
+@pytest.mark.parametrize("S,lengths", [(1088, (1033, 700, 257, 1200)), (1000, (0, 1, 64, 65)),
+                                       (17, (17, 3, 0, 100))])
+def test_dense_decode_split_matches_plain(cuda, D, H, K, S, lengths):
+    """K3's split body (bf16, D = 64 or 128, G = 1, 8, 4 and a padded 3):
+    zamba2's decode step with a slot past S, a length-0 row and split
+    boundaries, a cache shorter than one split, with NaN in every cache row
+    at or past the length."""
+    from repro_torch.kernels.decode_attention.ops import dense_body_for
+    q, k, v, lens = _dense_case(cuda, lengths, S, H, K, D)
+    assert dense_body_for(q, k) == "mma"
+    kern = dispatch.kernel_table()["decode_attention"]
+    ref = kern.plain(q.float(), k.float(), v.float(), lens)
+    for b, n in enumerate(lengths):
+        k[b, min(n, S):] = float("nan")
+        v[b, min(n, S):] = float("nan")
+    dispatch.reset_counts()
+    out = kern.launch(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {"mma": 1}
+    assert torch.isfinite(out.float()).all()
+    assert kern.tolerance(out, ref) <= 1.0
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert (out[b] == 0).all()
+
+
+@pytest.mark.parametrize("D,H,K,S,lengths", [(64, 32, 32, 1088, (1033, 700, 257, 1200)),
+                                             (128, 16, 2, 1024, (0, 17, 1024, 5000)),
+                                             (64, 4, 4, 96, (95, 1, 64, 96))])
+def test_dense_decode_split_equals_paged_split_on_a_trivial_table(cuda, D, H, K, S, lengths):
+    """The cache (B, S, K, D) read as a pool (B * S / 16, 16, K, D) through a
+    table of physical block i for logical block i: K3's split body and K1's
+    give the same bits (one split body, two row loaders)."""
+    q, k, v, lens = _dense_case(cuda, lengths, S, H, K, D)
+    B, bs = len(lengths), 16
+    kp, vp = (t.reshape(B * S // bs, bs, K, D) for t in (k, v))
+    tables = torch.arange(B * S // bs, dtype=torch.int32, device=cuda).reshape(B, S // bs)
+    table = dispatch.kernel_table()
+    dispatch.reset_counts()
+    dense = table["decode_attention"].launch(q, k, v, lens)
+    paged = table["paged_decode_attention"].launch(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert table["decode_attention"].body_launches == {"mma": 1}
+    assert table["paged_decode_attention"].body_launches == {"mma": 1}
+    assert torch.equal(dense, paged)

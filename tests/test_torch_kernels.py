@@ -8,8 +8,10 @@ ragged S, which the Pallas kernels refuse, against ``chunked_attention``
 (K3 with lengths past S, as an idle serving slot has them); K5's are in
 ``tests/test_torch_ssm.py``.  The arithmetic of K1's split body (64-key
 splits, each with its own max, merged by log-sum-exp) is emulated in fp32
-and held against the Pallas kernel; the routes of K1, K2 and K4 (which
-body a call runs) are pinned by dtype, head_dim and group size.
+and held against the Pallas kernel, and so is K3's (the same body on the
+cache read as a pool through a trivial table) against the dense Pallas
+kernel; the routes of K1, K2, K3 and K4 (which body a call runs) are
+pinned by dtype, head_dim and group size.
 
 Shapes follow the reference's kernel smoke cases
 (``benchmarks/kernel_bench.py``): pool (1 + 2*4, 16, 2, 64), H=4 query heads
@@ -47,6 +49,7 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.decode_attention.ops import SPLIT_KEYS
 from repro_torch.kernels.decode_attention.ops import body_for as decode_body_for
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      dense_body_for,
                                                       num_splits,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
@@ -465,3 +468,45 @@ def test_split_and_merge_arithmetic_matches_the_pallas_kernel(softcap):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL["float32"],
                                rtol=0)
     assert (out[0] == 0).all()                   # length 0 -> 0, not NaN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 8, 16])
+def test_dense_decode_route_by_dtype_head_dim_and_group(dtype, D, G):
+    """K3's body is decided before the launch from the type, head_dim and
+    G = H / K alone, by K1's rule: bf16 at D = 64 (zamba2, G = 1) or 128
+    (qwen2.5-3b, G = 8) with G <= 8 takes the split body, everything else
+    -- every fp32 call -- the FMA body."""
+    K = 4
+    q = torch.zeros((3, G * K, D), dtype=dtype)
+    cache = torch.zeros((3, 100, K, D), dtype=dtype)
+    want = ("mma" if dtype == torch.bfloat16 and D in (64, 128) and G <= 8
+            else "fma")
+    assert dense_body_for(q, cache) == want
+
+
+@pytest.mark.parametrize("S,lengths", [(80, (0, 17, 80, 200)), (64, (1, 63, 64, 65)),
+                                       (208, (0, 130, 207, 1000))])
+def test_dense_split_and_merge_matches_the_pallas_kernel(S, lengths):
+    """K3's split body is K1's on the cache read as a pool of 16-row blocks
+    through a trivial table: cdiv(S, 64) splits from the cache length
+    (S = 80 and 208: the last split ragged), lengths past S attending all
+    S rows, a length-0 row giving 0.  Emulated in fp32, it equals the dense
+    Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(S)
+    B = len(lengths)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, K, D)).astype(np.float32) for _ in range(2))
+    lens = np.asarray(lengths, np.int32)
+    tables = np.arange(B * S // BS, dtype=np.int32).reshape(B, S // BS)
+    assert num_splits(S // BS, BS) == -(-S // SPLIT_KEYS)
+    out = _split_merge(torch.from_numpy(q), torch.from_numpy(k).reshape(-1, BS, K, D),
+                       torch.from_numpy(v).reshape(-1, BS, K, D), torch.from_numpy(tables),
+                       torch.from_numpy(lens), 0.0)
+    ref = jax_pallas_dense_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(lens), bkv=16, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL["float32"], rtol=0)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert (out[b] == 0).all()
