@@ -24,6 +24,18 @@ Phases (each one raises on failure; the script then exits non-zero):
    each timed in bf16 beside the plain version, one
    ``scaled_dot_product_attention`` call on the same values and the least
    time the card could take; and the host's time per call of each body.
+3b. int8 kernels: K1 and K2 on int8 pools (``quantize_kv`` of phase 3's
+   cases: fp32 scales per (block, row, kv head)), with fp32 and bf16 q, on
+   the body the route takes (bf16: ``mma_i8``, fp32: ``fma_i8``) and on
+   ``fma_i8`` for bf16 q too, each held against the plain version
+   evaluated in fp32 on the same dequantized values (phase 3's limits),
+   as made and with NaN in the scales of every dead row; and each must
+   give the bits of the bf16 / fp32 body on the dequantized pool.  Then
+   both int8 bodies timed at phase 3's timed shapes beside the bf16 bodies
+   on the dequantized pool, the plain version, SDPA on the dequantized
+   bf16 tensors (not the same function: no library call dequantizes), the
+   bound from the int8 bytes (rows and scales), and the host's time per
+   call.
 4. Serving: qwen2.5-3b at full width (random weights from seed 0) through
    ``repro_torch``'s paged ``ServingEngine``: 4 slots, 256-token prefill
    chunks, 8 greedy requests of 256-1024 prompt tokens (half share a
@@ -31,14 +43,27 @@ Phases (each one raises on failure; the script then exits non-zero):
    zeroed just before and read just after and held exactly, by body: K1
    36 a decode step and K2 36 a prefill chunk, all on ``mma``; K7 by body;
    no plain version.
+4b. int8 serving: phase 4 again with ``cache_dtype="int8"``: K1 36 a
+   decode step and K2 36 a prefill chunk, all on ``mma_i8``; K7 as in
+   phase 4; tok/s, TTFT, TPOT, tok/s/W, peak memory, the KV pool's bytes
+   beside phase 4's; greedy tokens against phase 4's printed, not gated.
 5. Profile: a short serving run under ``torch.profiler``; device time by
-   kernel and the device's busy share of the wall time.
+   kernel and the device's busy share of the wall time (after phase 4,
+   and after phase 4b on the int8 pool).
 6. Path check: one request served at full width in fp32 by an engine
    through the kernels and by one through the plain versions; its prefill
    and decode logits are compared at depths 1, 2 and 4 (gated) and 36
    (printed beside two plain runs that differ only in summation order),
    and each side's distance from a run whose weight products are summed
    in fp64 and rounded once is printed.
+6b. int8 path check: phase 6's request in fp32 on an int8 pool, kernels
+   vs plain versions at depths 1, 2 and 4: after one layer the freely
+   running sides' int8 pools equal or one step apart (``TOL_INT8_APART``)
+   and their scales within ``TOL_INT8_SCALE_REL``; the kernels' logits
+   within phase 6's limits of a plain run that stores the kernel run's
+   quantized rows; printed: the free-running logits, the values one step
+   apart and how far one step moves the logits (measured on the plain
+   side).
 7. K6 conv2d: the kernel held against its plain version (evaluated in fp32
    on the same values; limits ``CONV_RTOL`` / ``CONV_RMS_ATOL`` in
    ``repro_torch.kernels.dispatch``) on every distinct conv shape of
@@ -134,7 +159,9 @@ too (exactly, where the engine's calls fix them; phases 4 and 10 by body).
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it is the kernel table (``{"kernels": [...]}``).
+the line before it is the kernel table (``{"kernels": [...]}``), with K1's
+and K2's int8 bodies as entries of their own (``...:int8``: their
+launches from phase 4b, no library call).
 """
 from __future__ import annotations
 
@@ -170,6 +197,13 @@ DECODE_TIMED = ((1056, 800, 512, 300), (4096,), (16384,))
 # products.
 TOL_PATH_REL = {1: 2e-5, 2: 1e-4, 4: 1e-2}
 TOL_PATH_EXACT_RATIO = 2.0
+# The int8 path check (int8_path_check): after one layer the two sides'
+# int8 pools may differ only by one step, in at most this share of their
+# values (a value moves a step when one ulp of K / V crosses a rounding
+# edge: about 127 x 2^-24 = 7.6e-6 of the values at fp32), and their
+# scales (absmax / 127 of rows equal to an ulp or two) by this much.
+TOL_INT8_APART = 1e-4
+TOL_INT8_SCALE_REL = 1e-5
 LM_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 # K6: GoogLeNet's batch-8 forward at 224.  Peak rate for each type timed
 # (H100 SXM data sheet, dense): fp32 on the CUDA cores, fp16 / bf16 on the
@@ -506,13 +540,7 @@ def kernel_phase(torch, table):
     plain_ms = timer(lambda: pre.plain(*args))
     _, C, H, D = q.shape
     K = kp.shape[2]
-    kg, vg = gathered(torch, kp, vp, tables, H // K)
-    S = kg.shape[2]
-    kpos = torch.arange(S, device="cuda")[None, :]
-    qpos = (qs[:, None] + torch.arange(C, device="cuda")[None, :])[0][:, None]
-    mask = ((kpos <= qpos) & (kpos < lens[0]))[None, None]
-    qh = q.transpose(1, 2)
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask))
+    lib_ms = timer(prefill_library(torch, F, args))
     start, n = 256, 256
     keys = sum(min(start + i + 1, start + n) for i in range(n))
     nbytes = 2 * (2 * C * H * D + 2 * (start + n) * K * D) + 4 * (2 + -(-(start + n) // 16))
@@ -545,6 +573,159 @@ def host_cost(torch, kern, args, name, shape, route) -> None:
         + f" (route {route_host:.2f} us)")
 
 
+def quantized(torch, args, dtype):
+    """Phase 3b's operands from a phase 3 case: its pools quantized by
+    ``quantize_kv`` (int8 rows, fp32 scales per (block, row, kv head)) and
+    the same pools dequantized to q's type ``dtype`` -- the values every
+    int8 body computes on."""
+    from repro_torch.models.transformer import dequantize_kv, quantize_kv
+    (k8, ks), (v8, vs) = quantize_kv(args[1]), quantize_kv(args[2])
+    deq = (dequantize_kv(k8, ks, dtype), dequantize_kv(v8, vs, dtype))
+    return (args[0], k8, v8) + tuple(args[3:]), (ks, vs), deq
+
+
+def hold_int8(torch, kern, args, scales, deq, label, *, lengths, poison, body,
+              **kw) -> float:
+    """Launch int8 body ``body`` of ``kern`` on ``args`` (int8 pools, their
+    ``scales``) and hold it against the plain version evaluated in fp32 on
+    the same dequantized values ``deq`` (the pools dequantized to q's
+    type), under the kernel's limit; with ``poison``, NaN into the scales
+    of every dead row after the plain version has read them.  The same
+    body on the bf16 / fp32 pools ``deq`` (NaN in the same dead rows) must
+    give the same bits: the int8 loaders stage the values the plain
+    loaders read.  Returns the largest absolute error."""
+    ks, vs = scales
+    q, tables = args[0], args[3]
+    ref = kern.plain(q.float(), deq[0].float(), deq[1].float(), *args[3:], **kw)
+    twin_args = (q, deq[0].clone(), deq[1].clone()) + tuple(args[3:])
+    if poison:
+        torch.cuda.synchronize()
+        poison_dead_rows(torch, ks, vs, tables, lengths)
+        poison_dead_rows(torch, twin_args[1], twin_args[2], tables, lengths)
+    out = kern.launch(*args, k_scale=ks, v_scale=vs, body=body, **kw)
+    twin = kern.launch(*twin_args, body=body.removesuffix("_i8"), **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    ratio = kern.tolerance(out, ref)
+    same = torch.equal(out, twin)
+    log(f"{kern.name} int8 pool {label} body={body} q {str(q.dtype)[6:]}"
+        f"{' NaN scales past the lengths' if poison else ''}: max_abs_err={err:.3e} "
+        f"err/limit={ratio:.3f} bits equal to {body.removesuffix('_i8')} on the "
+        f"dequantized pool: {same}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{kern.name} {label} {body}: disagrees with its plain "
+                             f"version: err/limit {ratio}")
+    if not same:
+        raise AssertionError(f"{kern.name} {label} {body}: differs from the "
+                             f"{body.removesuffix('_i8')} body on the dequantized pool")
+    return err
+
+
+def int8_work(lengths_or_rows, q_rows, *, H=16, K=2, D=128, bs=16, keys) -> tuple:
+    """(bytes, flops) of an int8-pool call: q and out in bf16, each live K
+    and V row once as int8 with its fp32 scale, the live table entries and
+    lengths; QK^T and PV over ``keys`` (query, key) pairs, two flops a
+    multiply-add."""
+    rows = sum(lengths_or_rows)
+    nbytes = 2 * 2 * q_rows * H * D + 2 * rows * K * (D + 4) \
+        + 4 * (len(lengths_or_rows) + sum(-(-n // bs) for n in lengths_or_rows))
+    return nbytes, 4 * H * D * keys
+
+
+def int8_kernel_phase(torch, table) -> dict:
+    """Phase 3b: K1 and K2 on int8 pools at qwen2.5-3b widths."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import body_for as dec_body_for
+    from repro_torch.kernels.prefill_attention.ops import body_for as pre_body_for
+    dec = table["paged_decode_attention"]
+    pre = table["paged_prefill_attention"]
+    timer = Timer(torch)
+    results = {}
+    errs = {"decode": 0.0, "prefill": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for lengths, softcap in DECODE_CASES:
+            base = decode_case(torch, lengths, dtype)
+            route = dec_body_for(*quantized(torch, base, dtype)[0][:2])
+            for body in dict.fromkeys((route, "fma_i8")):
+                for poison in (False, True):
+                    args, scales, deq = quantized(torch, base, dtype)
+                    err = hold_int8(torch, dec, args, scales, deq,
+                                    f"lengths={lengths} softcap={softcap}", lengths=args[4],
+                                    poison=poison, body=body, softcap=softcap)
+                    if dtype == torch.bfloat16 and body == route:
+                        errs["decode"] = max(errs["decode"], err)
+        for C, q_start in PREFILL_CASES:
+            base = prefill_case(torch, C, q_start, dtype, seeded_blocks=-(-q_start // 16) + 3)
+            route = pre_body_for(*quantized(torch, base, dtype)[0][:2])
+            for body in dict.fromkeys((route, "fma_i8")):
+                for poison in (False, True):
+                    args, scales, deq = quantized(torch, base, dtype)
+                    err = hold_int8(torch, pre, args, scales, deq, f"C={C} q_start={q_start}",
+                                    lengths=args[5], poison=poison, body=body)
+                    if dtype == torch.bfloat16 and body == route:
+                        errs["prefill"] = max(errs["prefill"], err)
+
+    def timed(kern, name, args, scales, deq, nbytes, flops, library, shape):
+        ks, vs = scales
+        ms = {b: timer(lambda: kern.launch(*args, k_scale=ks, v_scale=vs, body=b))
+              for b in ("mma_i8", "fma_i8")}
+        twin = (args[0], deq[0], deq[1]) + tuple(args[3:])
+        bf16_ms = {b: timer(lambda: kern.launch(*twin, body=b)) for b in ("mma", "fma")}
+        plain_ms = timer(lambda: kern.plain(*args, k_scale=ks, v_scale=vs))
+        sdpa_ms = timer(library(twin))
+        bms, by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"{name} int8 pool timed {shape}: mma_i8 {ms['mma_i8']:.4f}ms fma_i8 "
+            f"{ms['fma_i8']:.4f}ms; on the dequantized bf16 pool mma {bf16_ms['mma']:.4f}ms "
+            f"fma {bf16_ms['fma']:.4f}ms; plain (gather, dequantize, attend) {plain_ms:.4f}ms; "
+            f"SDPA on the dequantized bf16 tensors (not the same function: no library call "
+            f"dequantizes) {sdpa_ms:.4f}ms; bound {bms:.5f}ms ({by}; {nbytes} B of int8 rows, "
+            f"scales, q and out, {flops} flop)")
+        row = []
+        for b in ("mma_i8", "fma_i8"):
+            host, wall = host_us(torch, lambda: kern.launch(*args, k_scale=ks, v_scale=vs,
+                                                            body=b))
+            row.append(f"{b} host {host:.2f} us wall {wall:.2f} us")
+        log(f"{name} int8 pool host per call, {shape}, {HOST_REPS} back to back: "
+            + "; ".join(row))
+        return dict(ms=ms["mma_i8"], fma_ms=ms["fma_i8"], bf16_body_ms=bf16_ms["mma"],
+                    plain_ms=plain_ms, library_ms=None, sdpa_dequantized_ms=sdpa_ms,
+                    bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
+                    shape=shape + " body=mma_i8")
+
+    lengths = DECODE_TIMED[0]
+    args, scales, deq = quantized(torch, decode_case(torch, lengths, torch.bfloat16),
+                                  torch.bfloat16)
+    nbytes, flops = int8_work(lengths, len(lengths), keys=sum(lengths))
+    results["paged_decode_attention:int8"] = dict(
+        timed(dec, "paged_decode_attention", args, scales, deq, nbytes, flops,
+              lambda a: decode_library(torch, F, a, 8),
+              f"B={len(lengths)} lengths={lengths} bf16 q"),
+        max_abs_err=errs["decode"])
+    C, start = 256, 256
+    args, scales, deq = quantized(torch, prefill_case(torch, C, start, torch.bfloat16,
+                                                      seeded_blocks=16), torch.bfloat16)
+    keys = sum(min(start + i + 1, start + C) for i in range(C))
+    nbytes, flops = int8_work((start + C,), C, keys=keys)
+    results["paged_prefill_attention:int8"] = dict(
+        timed(pre, "paged_prefill_attention", args, scales, deq, nbytes, flops,
+              lambda a: prefill_library(torch, F, a), f"C={C} q_start={start} bf16 q"),
+        max_abs_err=errs["prefill"])
+    return results
+
+
+def prefill_library(torch, F, args):
+    """One SDPA call on a K2 case's values: the pool gathered to (B, H, S,
+    D), the causal and length mask."""
+    q, kp, vp, tables, qs, lens = args
+    _, C, H, D = q.shape
+    kg, vg = gathered(torch, kp, vp, tables, H // kp.shape[2])
+    kpos = torch.arange(kg.shape[2], device="cuda")[None, :]
+    qpos = (qs[:, None] + torch.arange(C, device="cuda")[None, :])[0][:, None]
+    mask = ((kpos <= qpos) & (kpos < lens[0]))[None, None]
+    qh = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask)
+
+
 def serving_requests(cfg, np, Request, greedy):
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, size=256).astype(np.int32)
@@ -558,22 +739,31 @@ def serving_requests(cfg, np, Request, greedy):
     return reqs
 
 
-def serving_phase(torch, np, table):
+def serving_phase(torch, np, table, cache_dtype="bfloat16", baseline=None):
+    """Phase 4 (and 5, its profile) on the bf16 pool; phase 4b, with
+    ``cache_dtype="int8"``, the same requests on the int8 pool, its KV pool
+    bytes and greedy tokens printed beside phase 4's (``baseline``, what
+    phase 4 returned).  Returns (launches by kernel, this run's pool bytes
+    and outputs)."""
     from repro_torch.configs import registry as arch_registry
     from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
     from repro_torch.models.registry import fns_for
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import greedy
 
+    int8 = cache_dtype == "int8"
+    tag = "int8 serving" if int8 else "serving"
+    card, watts = card_name_and_power_limit()
     cfg = arch_registry.config("qwen2.5-3b")
     t0 = time.monotonic()
     params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
     eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4,
-                        prefill_chunk=256, device="cuda")
+                        prefill_chunk=256, cache_dtype=cache_dtype, device="cuda")
     del params                      # the engine keeps its own cast copy
     gc.collect()
     torch.cuda.synchronize()
-    log(f"serving: qwen2.5-3b L={cfg.num_layers} d_model={cfg.d_model} "
+    log(f"{tag}: qwen2.5-3b L={cfg.num_layers} d_model={cfg.d_model} "
         f"H={cfg.num_heads} K={cfg.num_kv_heads} D={cfg.resolved_head_dim} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}; init {time.monotonic() - t0:.1f}s")
     # warm-up: one short request (cuBLAS handles, kernel loading)
@@ -595,13 +785,15 @@ def serving_phase(torch, np, table):
     eng._prefill_paged = prefill_paged
     counts = {name: (table[name].launches, table[name].plain_calls)
               for name in LM_KERNELS}
-    # every K1 / K2 launch at bf16, D = 128, G = 8 on the tensor-core bodies:
-    # one a layer of each decode step and of each prefill chunk
+    # every K1 / K2 launch at bf16, D = 128, G = 8 on the tensor-core bodies
+    # (their int8 loaders on an int8 pool): one a layer of each decode step
+    # and of each prefill chunk
+    mma = "mma_i8" if int8 else "mma"
     attn_bodies = {n: dict(table[n].body_launches) for n in LM_KERNELS}
-    want_attn = {"paged_decode_attention": {"mma": cfg.num_layers * stats.decode_steps},
-                 "paged_prefill_attention": {"mma": cfg.num_layers * chunks[0]}}
+    want_attn = {"paged_decode_attention": {mma: cfg.num_layers * stats.decode_steps},
+                 "paged_prefill_attention": {mma: cfg.num_layers * chunks[0]}}
     if attn_bodies != want_attn:
-        raise AssertionError(f"serving: attention launches by body {attn_bodies}, expected "
+        raise AssertionError(f"{tag}: attention launches by body {attn_bodies}, expected "
                              f"{want_attn} ({stats.decode_steps} decode steps, {chunks[0]} "
                              f"prefill chunks)")
     k7 = (table["matmul"].launches, table["matmul"].plain_calls)
@@ -610,12 +802,12 @@ def serving_phase(torch, np, table):
     calls = (counts["paged_decode_attention"][0] + counts["paged_prefill_attention"][0]) \
         // cfg.num_layers
     if k7 != ((cfg.num_layers * QWEN_PRODUCTS + 1) * calls, 0):
-        raise AssertionError(f"serving: matmul launches/plain calls {k7} for {calls} "
+        raise AssertionError(f"{tag}: matmul launches/plain calls {k7} for {calls} "
                              f"model calls")
     # every bf16 block product on the tensor cores, the fp32 LM head on FMA
     k7_bodies = dict(table["matmul"].body_launches)
     if k7_bodies != {"wgmma": cfg.num_layers * QWEN_PRODUCTS * calls, "fma": calls}:
-        raise AssertionError(f"serving: matmul launches by body {k7_bodies} for {calls} "
+        raise AssertionError(f"{tag}: matmul launches by body {k7_bodies} for {calls} "
                              f"model calls")
     for r in reqs:
         if r.state.value != "done" or len(r.output) != 32:
@@ -632,28 +824,74 @@ def serving_phase(torch, np, table):
     leaks = eng.pool.leak_report()
     if any(leaks.values()):
         raise AssertionError(f"KV pool leak: {leaks}")
-    log(f"serving: requests={stats.requests} tokens={stats.tokens} "
+    state = eng._state
+    if int8 != (state.k.dtype == torch.int8):
+        raise AssertionError(f"{tag}: the pool is {state.k.dtype}")
+    pool_bytes = sum(t.numel() * t.element_size() for t in state if t.dim() > 2)
+    pool_rows = state.k.shape[1] * state.k.shape[2]
+    log(f"{tag}: requests={stats.requests} tokens={stats.tokens} "
         f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
         f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
-        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f}")
-    log(f"serving: prefill_tokens={stats.prefill_tokens_computed}/"
+        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f} "
+        f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({card})")
+    outputs = [list(r.output) for r in reqs]
+    log(f"{tag}: KV pool {pool_bytes} B ({pool_rows} rows of {pool_bytes // pool_rows} B, "
+        f"every layer's K and V" + (" with their scales" if int8 else "") + ")"
+        + (f"; {pool_bytes / baseline['pool_bytes']:.4f}x the bf16 pool's "
+           f"{baseline['pool_bytes']} B; greedy tokens equal to the bf16 pool's in "
+           f"{sum(a == b for a, b in zip(outputs, baseline['outputs']))} of {len(reqs)} "
+           f"requests (printed, not gated: the random model at 36 layers is chaotic)"
+           if baseline else ""))
+    if int8:
+        kv_write_host_cost(torch, cfg)
+    log(f"{tag}: prefill_tokens={stats.prefill_tokens_computed}/"
         f"{stats.prefill_tokens_total} prefix_shared_blocks={stats.prefix_shared_blocks} "
         f"decode_steps={stats.decode_steps} prefill_compiles={stats.prefill_compiles} "
         f"kv_blocks_peak={stats.kv_blocks_peak} preemptions={stats.preemptions} "
         f"leaks={leaks}")
-    log(f"serving: attention launches by body {attn_bodies} (= {cfg.num_layers} x "
+    log(f"{tag}: attention launches by body {attn_bodies} (= {cfg.num_layers} x "
         f"{stats.decode_steps} decode steps, {cfg.num_layers} x {chunks[0]} prefill chunks)")
-    log(f"serving: launches={ {n: c[0] for n, c in counts.items()} } matmul={k7[0]} "
+    log(f"{tag}: launches={ {n: c[0] for n, c in counts.items()} } matmul={k7[0]} "
         f"(= {cfg.num_layers * QWEN_PRODUCTS + 1} x {calls} model calls; by body "
         f"{k7_bodies}) "
         f"plain_calls={ {n: c[1] for n, c in counts.items()} } "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
         f"card={torch.cuda.get_device_name(0)}")
-    profile_phase(torch, np, eng, Request, greedy)
-    del eng
+    profile_phase(torch, np, eng, Request, greedy, tag)
+    del eng, state
     gc.collect()
     torch.cuda.empty_cache()
-    return {n: c[0] for n, c in counts.items()}
+    return ({n: c[0] for n, c in counts.items()},
+            {"pool_bytes": pool_bytes, "outputs": outputs})
+
+
+def kv_write_host_cost(torch, cfg) -> None:
+    """The host's time per layer of a decode step's KV write at serving's
+    shape (4 slots): the bf16 pool's two index writes against the int8
+    pool's two ``quantize_kv`` calls and four index writes (rows and
+    scales); printed."""
+    from repro_torch.models.transformer import quantize_kv
+    B, K, D = 4, cfg.num_kv_heads, cfg.resolved_head_dim
+    row = torch.randn((B, K, D), device="cuda").bfloat16()
+    bt = torch.arange(1, B + 1, device="cuda")
+    off = torch.arange(B, device="cuda")
+    pools = [torch.zeros((B + 1, 16, K, D), device="cuda", dtype=dt)
+             for dt in (torch.bfloat16, torch.bfloat16, torch.int8, torch.int8)]
+    scales = [torch.zeros((B + 1, 16, K), device="cuda") for _ in range(2)]
+
+    def write_bf16():
+        pools[0][bt, off] = row
+        pools[1][bt, off] = row
+
+    def write_int8():
+        (kq, ks), (vq, vs) = quantize_kv(row), quantize_kv(row)
+        pools[2][bt, off], scales[0][bt, off] = kq, ks
+        pools[3][bt, off], scales[1][bt, off] = vq, vs
+    bf16, _ = host_us(torch, write_bf16)
+    int8, _ = host_us(torch, write_int8)
+    log(f"int8 serving: host per layer of a decode step's KV write, {HOST_REPS} back to back: "
+        f"bf16 pool {bf16:.2f} us, int8 pool {int8:.2f} us (x {cfg.num_layers} layers: "
+        f"{(int8 - bf16) * cfg.num_layers / 1e3:.2f} ms more a decode step)")
 
 
 def device_rows(prof) -> list[tuple[float, int, str]]:
@@ -671,7 +909,7 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
-def profile_phase(torch, np, eng, Request, greedy):
+def profile_phase(torch, np, eng, Request, greedy, tag="serving"):
     """Where the time goes: 4 requests of 512 prompt tokens, 16 new tokens
     each, under torch.profiler; device time by kernel name and the device's
     busy share of the wall time (one stream, so kernels do not overlap)."""
@@ -687,7 +925,8 @@ def profile_phase(torch, np, eng, Request, greedy):
         wall = time.monotonic() - t0
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"profile: wall={wall:.3f}s device_busy={busy:.3f}s "
+    label = "profile" if tag == "serving" else f"profile ({tag})"
+    log(f"{label}: wall={wall:.3f}s device_busy={busy:.3f}s "
         f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
         f"decode_steps={stats.decode_steps} "
         f"prefill_tokens={stats.prefill_tokens_computed} (profiled run)")
@@ -695,9 +934,9 @@ def profile_phase(torch, np, eng, Request, greedy):
             ("decode_split_kernel", "decode_merge_kernel", "paged_decode_kernel",
              "paged_prefill_mma_kernel", "paged_prefill_kernel", "matmul_wgmma_kernel",
              "matmul_kernel")}
-    log("profile: device ms " + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
+    log(f"{label}: device ms " + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
     for ms, count, name in rows[:12]:
-        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {name[:90]}")
+        log(f"{label}: {ms:10.3f} ms  {count:6d} calls  {name[:90]}")
 
 
 def path_check(torch, np):
@@ -793,6 +1032,139 @@ def path_check(torch, np):
             raise AssertionError(f"path check, depth {depth}: kernels and plain "
                                  f"versions disagree ({r_pre}, {r_dec}; ratio to the exact "
                                  f"products' distance {ratio})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8_path_check(torch, np):
+    """Phase 6b: phase 6's request served at full width in fp32 with an
+    int8 pool, by an engine through the kernels and by ones through the
+    plain versions, at depths 1, 2 and 4.
+
+    The int8 path is not continuous in its inputs: a one-ulp difference in
+    a K or V element (K7's products against cuBLAS's) can move ``x /
+    scale`` across a .5 and the stored int8 by one whole step (amax / 127),
+    and the random model carries one step far (measured here).  So the
+    gates rest on what is exact.
+    - After one layer (depth 1), the pools of the two sides run freely:
+      their int8 values equal or one step apart, in at most
+      ``TOL_INT8_APART`` of them, and their scales within
+      ``TOL_INT8_SCALE_REL``.
+    - At each depth, the kernels' logits against a plain run that stores
+      the kernel run's quantized rows (every ``quantize_kv`` call answered
+      with the kernel run's int8 values and scales, in call order): both
+      then read the same pools, and phase 6's limits hold unchanged.
+    Printed beside them, not gated: the free-running plain run's logits,
+    the values one step apart over all layers and in layer 0 (n0), and how
+    far one step moves the logits (s: the largest of six plain runs, each
+    with one K or V value of layer 0 a step higher, at positions 0, 128
+    and 255 of the first chunk), with the limit TOL + depth x n0 x s they
+    would give."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import Sampler
+
+    class Record(Sampler):
+        def __init__(self):
+            self.seen = []
+
+        def sample(self, logits):
+            self.seen.append(np.array(logits[0], copy=True))
+            return np.full((len(logits),), 7)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32")
+    params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
+    toks = np.random.default_rng(1).integers(0, full.vocab_size, size=300).astype(np.int32)
+    quantize = transformer.quantize_kv
+
+    def serve(cfg, p, *, record=None, replay=None, moved=None):
+        """(prefill and decode logits (2, V), the int8 pools and scales).
+        ``record``: a list the quantize_kv calls' (values, scales) are
+        appended to; ``replay``: such a list, whose entries answer the calls
+        in order; ``moved`` = (call, position): that quantize_kv call of the
+        first chunk's layer 0 (1: K, 2: V) stores one value a step higher
+        at that position (dim 0 of kv head 0)."""
+        calls = [0]
+
+        def hooked(x):
+            calls[0] += 1
+            if replay is not None:
+                q, scale = replay[calls[0] - 1]
+                if q.shape != x.shape:
+                    raise AssertionError("int8 path check: the replayed schedule differs")
+                return q.clone(), scale.clone()
+            q, scale = quantize(x)
+            if record is not None:
+                record.append((q.clone(), scale.clone()))
+            if moved and calls[0] == moved[0]:
+                at = q[moved[1] // q.shape[1], moved[1] % q.shape[1], 0]
+                at[0] += 1 if at[0] < 127 else -1
+            return q, scale
+        eng = ServingEngine(cfg, p, max_len=320, batch_slots=1, prefill_chunk=256,
+                            cache_dtype="int8", device="cuda")
+        rec = Record()
+        with mock.patch.object(transformer, "quantize_kv", hooked):
+            eng.serve([Request(0, toks, max_new_tokens=2, sampler=rec)])
+        if any(eng.pool.leak_report().values()) or len(rec.seen) != 2:
+            raise AssertionError("int8 path check: the request did not run clean")
+        st = eng._state      # blocks 1.. hold the request's rows (0 is the trash block)
+        return np.stack(rec.seen), [t[:, 1:].clone() for t in (st.k, st.v, st.k_scale,
+                                                                st.v_scale)]
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for depth in (1, 2, 4):
+        cfg = full.replace(num_layers=depth)
+        p = dict(params, blocks=tree_map(lambda t: t[:depth], params["blocks"]))
+        dispatch.reset_counts()
+        recorded = []
+        kern, kpools = serve(cfg, p, record=recorded)
+        table = dispatch.kernel_table()
+        bodies = {n: dict(table[n].body_launches) for n in LM_KERNELS}
+        plain_calls = sum(k.plain_calls for k in table.values())
+        with dispatch.plain_versions():
+            forced, _ = serve(cfg, p, replay=recorded)
+            plain, ppools = serve(cfg, p)
+            step = max(rel(serve(cfg, p, moved=(call, pos))[0], plain)
+                       for call in (1, 2) for pos in (0, 128, 255))
+        apart = [(a.int() - b.int()).abs() for a, b in zip(kpools[:2], ppools[:2])]
+        n = int(sum((d > 0).sum() for d in apart))
+        n0 = int(sum((d[0] > 0).sum() for d in apart))
+        worst0 = int(max(d[0].max() for d in apart))
+        values = sum(d[0].numel() for d in apart)
+        scale_rel0 = max(float(((a[0] - b[0]).abs() / b[0].abs().clamp(min=1e-30)).max())
+                         for a, b in zip(kpools[2:], ppools[2:]))
+        tol = TOL_PATH_REL[depth]
+        r_pre, r_dec = rel(kern[0], forced[0]), rel(kern[1], forced[1])
+        f_pre, f_dec = rel(kern[0], plain[0]), rel(kern[1], plain[1])
+        log(f"int8 path check (fp32, full width, depth {depth}): kernels vs plain reading "
+            f"the kernels' int8 rows rel prefill={r_pre:.3e} decode={r_dec:.3e} "
+            f"top1_agree={bool((kern.argmax(-1) == forced.argmax(-1)).all())} (tol {tol}); "
+            f"layer 0: {n0} of {values} int8 values one step apart (largest {worst0}, "
+            f"tol share {TOL_INT8_APART}), scales rel {scale_rel0:.3e} (tol "
+            f"{TOL_INT8_SCALE_REL}); free-running plain: {n} values apart over {depth} "
+            f"layer(s), logits rel prefill={f_pre:.3e} decode={f_dec:.3e}, one step moves "
+            f"them by up to {step:.3e}, so TOL + depth x n0 x s = "
+            f"{tol + depth * n0 * step:.3e} (not gated); attention launches by body {bodies}")
+        if not all(set(b) == {"fma_i8"} for b in bodies.values()) or plain_calls:
+            raise AssertionError("int8 path check: the kernel engine did not run "
+                                 "through the int8 FMA bodies (fp32 q) alone")
+        if depth == 1 and not (worst0 <= 1 and n0 <= TOL_INT8_APART * values
+                               and scale_rel0 <= TOL_INT8_SCALE_REL):
+            raise AssertionError(f"int8 path check: layer 0's int8 pools differ by up to "
+                                 f"{worst0} steps in {n0} values, scales by {scale_rel0}")
+        if not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol):
+            raise AssertionError(f"int8 path check, depth {depth}: kernels and plain "
+                                 f"versions on the same int8 rows disagree ({r_pre}, {r_dec})")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1831,8 +2203,12 @@ def main() -> int:
 
     table = dispatch.kernel_table()
     results = kernel_phase(torch, table)
-    launches = serving_phase(torch, np, table)
+    results.update(int8_kernel_phase(torch, table))
+    launches, bf16_serving = serving_phase(torch, np, table)
+    int8_launches, _ = serving_phase(torch, np, table, "int8", bf16_serving)
+    launches.update({f"{n}:int8": c for n, c in int8_launches.items()})
     path_check(torch, np)
+    int8_path_check(torch, np)
     results.update(hybrid_kernel_phase(torch, table))
     launches.update(hybrid_serving_phase(torch, np, table))
     hybrid_path_check(torch, np)
@@ -1846,9 +2222,10 @@ def main() -> int:
     checkpoint_phase(torch, np)
 
     kernels = []
-    for name in ("paged_decode_attention", "paged_prefill_attention", "decode_attention",
-                 "flash_attention", "ssm_scan", "conv2d", "matmul"):
-        k, r = table[name], results[name]
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "paged_decode_attention:int8", "paged_prefill_attention:int8",
+                 "decode_attention", "flash_attention", "ssm_scan", "conv2d", "matmul"):
+        k, r = table[name.split(":")[0]], results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
@@ -1856,9 +2233,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
-        if "fma_ms" in r:           # a redesigned kernel's first (FMA) body, same inputs
-            kernels[-1]["fma_ms"] = r["fma_ms"]
+        for extra in ("fma_ms", "bf16_body_ms", "sdpa_dequantized_ms"):
+            if extra in r:   # the FMA body, the bf16 body on the dequantized pool, SDPA on it
+                kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
+        if "sdpa_dequantized_ms" in r:
+            lib += (f" (SDPA on the dequantized bf16 tensors, not the same function, "
+                    f"{r['sdpa_dequantized_ms']:.4f}ms; the bf16 body on them "
+                    f"{r['bf16_body_ms']:.4f}ms)")
         fma = f" (fma body {r['fma_ms']:.4f}ms)" if "fma_ms" in r else ""
         log(f"{name} at {r['shape']}: kernel {r['ms']:.4f}ms{fma} plain {r['plain_ms']:.4f}ms "
             f"library {lib} bound {r['bound_ms']:.4f}ms "

@@ -28,7 +28,10 @@ version in fp32, and the same with the first 32-deep slice of K lost.
 source file there (a kernel's ``.cu``, or a ``.cuh`` that several kernels
 share), as ``MUTANTS`` lists: each paged attention kernel's FMA block loop
 skips pool block 0 when more than two blocks are live; K2's tensor-core
-body skips its first KV tile; the split body of the decode kernels
+body skips its first KV tile; the int8 tile loader that K1's split body
+and K2's tensor-core body share (``mma_attention.cuh``) stages the first
+row of each 64-key tile, or the whole first tile, without the rows'
+scales (as if each were 1); the split body of the decode kernels
 (``decode_split.cuh``, K1's and K3's) loses the first 16 rows of every
 split, or its merge drops split 0's partial; the conv kernel's FMA body
 loses its first 32-deep K chunk, its tensor-core body its first 64-deep
@@ -40,7 +43,9 @@ kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
 64-deep K stage in its wgmma body.  Builds each kernel the file feeds
 from the copy and runs chip_smoke's gate on that kernel's cases (fp32
-and bf16 for attention and the scan, at zamba2 widths for K5, on
+and bf16 for attention and the scan -- for an int8 loader the paged
+kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
+against the plain version in fp32 on the dequantized values -- at zamba2 widths for K5, on
 ``DENSE_DECODE_CASES`` for K3 and on ``K4_SHAPES`` for K4; fp32 / fp16 /
 bf16 on the gate shapes at batch 8 for conv; chip_smoke's ``K7_CASES`` at
 fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
@@ -100,6 +105,13 @@ SPLIT_MASK = "if (key >= nrows) x = NEG_INF;"
 SPLIT_SKIP_ROWS = "if (key >= nrows || key < 16) x = NEG_INF;  // first 16 rows lost"
 MERGE_LOOP = "for (int i = 0; i < ns; ++i) {"
 MERGE_DROP_SPLIT_0 = "for (int i = 1; i < ns; ++i) {  // split 0 lost"
+INT8_SCALES = "ksc[it] = __ldg(k_scale + row), vsc[it] = __ldg(v_scale + row);"
+INT8_IGNORE_ROW_0_SCALE = ("ksc[it] = r ? __ldg(k_scale + row) : 1.f, "
+                           "vsc[it] = r ? __ldg(v_scale + row) : 1.f;  // row 0's scale ignored")
+INT8_DROP_TILE_0_SCALES = ("ksc[it] = base ? __ldg(k_scale + row) : 1.f, "
+                           "vsc[it] = base ? __ldg(v_scale + row) : 1.f;  // tile 0's scales dropped")
+INT8_MMA = (("paged_decode_attention", ("bfloat16",), "mma_i8"),
+            ("paged_prefill_attention", ("bfloat16",), "mma_i8"))
 # K7 on the CPU: (label, M, K, N, layout) from chip_smoke's K7_CASES, cut
 # in M or N where a CPU would take minutes
 K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
@@ -133,6 +145,12 @@ MUTANTS = (
     ("paged_prefill_attention.cu", K2_TILE_STEP, K2_SKIP_TILE_0,
      "tensor-core body: skips its first KV tile",
      (("paged_prefill_attention", ("bfloat16",), "mma"),)),
+    ("mma_attention.cuh", INT8_SCALES, INT8_IGNORE_ROW_0_SCALE,
+     "int8 tile loader (K1's split body, K2's tensor-core body): ignores the scales of "
+     "the first row of each 64-key tile (K1: of each split)", INT8_MMA),
+    ("mma_attention.cuh", INT8_SCALES, INT8_DROP_TILE_0_SCALES,
+     "int8 tile loader (K1's split body, K2's tensor-core body): drops the scales of its "
+     "first 64-key tile (K1: split 0)", INT8_MMA),
     ("conv2d.cu", FMA_CHUNK, FMA_LOSE_CHUNK,
      "FMA body: loses its first 32-deep K chunk when K > 64", (("conv2d", ("float32",), "fma"),)),
     ("conv2d.cu", MMA_CHUNK, MMA_LOSE_CHUNK,
@@ -413,11 +431,13 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
                "flash_attention": lambda args, kw: {flash_body_for(args[0])},
                "decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
                "paged_decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
-               "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0])},
+               "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0],
+                                                                             args[1])},
                "conv2d": conv_tags}.get(name, lambda args, kw: set())
     # a paged FMA body's broken loop changes only cases with a row that sees
     # more than two pool blocks (the lengths are the last operand)
     paged_fma = name.startswith("paged_") and broken_body == "fma"
+    int8 = broken_body.endswith("_i8")
     if name == "conv2d":
         shapes = {names[0]: key for key, names in cs.conv_groups().items()}
         cases = [(label, lambda dt, xs=shapes[label][0], ws=shapes[label][1]:
@@ -460,16 +480,26 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
                       torch, C, qs, dt, seeded_blocks=-(-qs // BS) + 3), {})
                  for C, qs in PREFILL_CASES]
         dtypes = (torch.float32, torch.bfloat16)
+    if int8:   # the same cases on int8 pools; the plain version on the dequantized values
+        def on_int8(make):
+            def made(dt):
+                args, (ks, vs), deq = cs.quantized(torch, make(dt), dt)
+                return args, {"k_scale": ks, "v_scale": vs}, (args[0],) + deq + args[3:]
+            return made
+        cases = [(label + " int8 pool", on_int8(make), kw) for label, make, kw in cases]
     must_fail = set(filter(None, serves.split(",")))
     caught = True
     for dtype in dtypes:
         failed, served, missed = [], 0, 0
         for label, make, kw in cases:
             args = make(dtype)
+            scales, plain_args = {}, args
+            if int8:
+                args, scales, plain_args = args
             tags = tags_of(args, kw)
-            out = kern.launch(*args, **kw)
+            out = kern.launch(*args, **kw, **scales)
             ref = kern.plain(*(a.float() if a.is_floating_point() else a
-                               for a in args), **kw)
+                               for a in plain_args), **kw)
             torch.cuda.synchronize()
             ratio = (kern.tolerance(out, ref, args[0].shape[1]) if name == "matmul"
                      else kern.tolerance(out, ref))

@@ -1,8 +1,9 @@
 // Split-KV decode attention on the tensor cores, shared by the paged
 // decode kernel (paged_decode_attention.cu, K1: rows through a block
-// table) and the dense one (decode_attention.cu, K3: a contiguous cache).
-// The two differ only in their row loader; on a cache read as a pool
-// through a trivial table they give the same bits.
+// table, from a bf16 pool or dequantized from an int8 one) and the dense
+// one (decode_attention.cu, K3: a contiguous cache).  They differ only in
+// their row loader; on a cache read as a pool through a trivial table K1
+// and K3 give the same bits.
 //
 // Two launches from one call, on one stream (bf16, D = 64 or 128, G <= 8):
 // - split pass, grid (B, K, NS): each block takes SPLIT_KEYS = 64 keys of
@@ -11,9 +12,10 @@
 //   the host, never from lengths (reading them would sync the stream every
 //   decode step).  A split starting past the length writes m = NEG_INF,
 //   l = 0, acc = 0 and reads nothing.  All 64 K and V rows are fetched at
-//   once with cp.async (32 KB in flight at D = 128), rows at or past the
-//   length zero-filled (a row past the length may hold NaN; 0 x NaN is
-//   NaN).  The G query heads fill the n = 8 side of m16n8k16 when the keys
+//   once, with cp.async from a bf16 pool or cache (32 KB in flight at D =
+//   128), through registers from an int8 pool (16 KB and the scales), rows
+//   at or past the length zero-filled (a row past the length may hold NaN,
+//   an int8 row's scale too; 0 x NaN is NaN).  The G query heads fill the n = 8 side of m16n8k16 when the keys
 //   take the m side: S^T = K Q^T (a warp per 16 keys, Q^T as B fragments
 //   in registers, zeros for heads past G), the max and sum per head over
 //   the 64 keys (quad shuffles, then the four warps through shared
@@ -52,6 +54,28 @@ struct PagedRows {
                                         int base, int len) const {
     mma_attn::stage_paged<D>(ks, vs, k_pool, v_pool, tables + (size_t)b * mb, base, len, bs, K,
                              kv, N);
+  }
+};
+
+// K1's rows from an int8 pool, dequantized to bf16 as they are staged
+// (mma_attn::stage_paged_i8, K2's loader too): the tiles stay bf16, so
+// shared memory is the bf16 loader's, 33.4 KB static at D = 128.
+template <int D>
+struct QuantPagedRows {
+  const int8_t* k_pool;   // (N, bs, K, D)
+  const int8_t* v_pool;   // (N, bs, K, D)
+  const float* k_scale;   // (N, bs, K)
+  const float* v_scale;   // (N, bs, K)
+  const int32_t* tables;  // (B, mb)
+  int bs, mb, N, K;
+
+  __device__ __forceinline__ int length(const int32_t* lengths, int b) const {
+    return min(lengths[b], mb * bs);
+  }
+  __device__ __forceinline__ void stage(__nv_bfloat16* ks, __nv_bfloat16* vs, int b, int kv,
+                                        int base, int len) const {
+    mma_attn::stage_paged_i8<D>(ks, vs, k_pool, v_pool, k_scale, v_scale,
+                                tables + (size_t)b * mb, base, len, bs, K, kv, N);
   }
 };
 

@@ -4,8 +4,8 @@
 // fp32 accumulators, fragments read with ldmatrix from XOR-swizzled shared
 // memory, and the reference's online-softmax step on a 64-key tile held in
 // registers.  The kernels differ only in how they stage K/V rows (a
-// contiguous cache, or pool rows through a block table) and which scores
-// they mask.  conv2d.cu's tensor-core body uses the fragment helpers, the
+// contiguous cache, or pool rows through a block table, as they are or
+// dequantized from an int8 pool) and which scores they mask.  conv2d.cu's tensor-core body uses the fragment helpers, the
 // swizzle and the .f16 form of the product.
 #pragma once
 
@@ -126,6 +126,74 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Bytes 2h, 2h + 1 of `w` (int8 values, the lower byte first) times `s`,
+// each in one fp32 multiply, rounded to bf16 (nearest even), packed.
+__device__ __forceinline__ uint32_t dequant_pair(int w, int h, float s) {
+  return pack_bf16(__fmul_rn((float)(signed char)(w >> (16 * h)), s),
+                   __fmul_rn((float)(signed char)(w >> (16 * h + 8)), s));
+}
+
+// Piece c of an int8 row -- 16 values, `raw` -- dequantized with the row's
+// scale `s` into row r of a staged (KV_ROWS, D) bf16 tile: its chunks 2c
+// and 2c + 1, at their swizzled places.  A dead row is raw = 0, s = 0,
+// which stores zeros.
+template <int D>
+__device__ __forceinline__ void store_dequant(__nv_bfloat16* tile, int r, int c, int4 raw,
+                                              float s) {
+  *reinterpret_cast<uint4*>(tile + swz<D>(r, 2 * c)) =
+      make_uint4(dequant_pair(raw.x, 0, s), dequant_pair(raw.x, 1, s),
+                 dequant_pair(raw.y, 0, s), dequant_pair(raw.y, 1, s));
+  *reinterpret_cast<uint4*>(tile + swz<D>(r, 2 * c + 1)) =
+      make_uint4(dequant_pair(raw.z, 0, s), dequant_pair(raw.z, 1, s),
+                 dequant_pair(raw.w, 0, s), dequant_pair(raw.w, 1, s));
+}
+
+// Rows [0, KV_ROWS) of a K and a V tile of int8 pool rows, read through
+// one sequence's block table as stage_paged reads them and dequantized to
+// bf16 as they are staged: each value float(int8) times its row's scale
+// (k_scale / v_scale: (N, bs, K) fp32) in one fp32 multiply, rounded once
+// -- the reference's (int8 -> f32 * scale).astype(q.dtype).  Each thread
+// loads its 16-byte pieces (16 values) and their scales (one 4-byte read
+// each: a kv head's scales are K floats apart, never 16 bytes) into
+// registers, then stores them dequantized (store_dequant); cp.async cannot
+// convert on the way, so nothing stays in flight.  Keys at or past kv_end
+// are neither looked up nor read, scales included: their rows are zeros
+// (a dead row's scale may be NaN).  K1's split body (decode_split.cuh)
+// and K2's tensor-core body share it.
+template <int D>
+__device__ __forceinline__ void stage_paged_i8(__nv_bfloat16* dk, __nv_bfloat16* dv,
+                                               const int8_t* k_pool, const int8_t* v_pool,
+                                               const float* k_scale, const float* v_scale,
+                                               const int32_t* __restrict__ table, int base,
+                                               int kv_end, int bs, int K, int kv, int N) {
+  constexpr int CH = D / 16;                        // pieces of a row
+  constexpr int PER = KV_ROWS * CH / MMA_THREADS;   // pieces a thread stages
+  static_assert(KV_ROWS * CH % MMA_THREADS == 0, "whole pieces per thread");
+  int4 kr[PER], vr[PER];
+  float ksc[PER], vsc[PER];
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * MMA_THREADS, r = i / CH, c = i - r * CH;
+    const int j = base + r;
+    kr[it] = vr[it] = make_int4(0, 0, 0, 0);
+    ksc[it] = vsc[it] = 0.f;
+    if (j < kv_end) {
+      int pb = __ldg(table + j / bs);
+      if (pb < 0 || pb >= N) pb = 0;   // never read outside the pool
+      const size_t row = ((size_t)pb * bs + j % bs) * K + kv;
+      kr[it] = __ldg(reinterpret_cast<const int4*>(k_pool + row * D) + c);
+      vr[it] = __ldg(reinterpret_cast<const int4*>(v_pool + row * D) + c);
+      ksc[it] = __ldg(k_scale + row), vsc[it] = __ldg(v_scale + row);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * MMA_THREADS, r = i / CH, c = i - r * CH;
+    store_dequant<D>(dk, r, c, kr[it], ksc[it]);
+    store_dequant<D>(dv, r, c, vr[it], vsc[it]);
+  }
 }
 
 // Fragment layout of m16n8k16 (g = lane / 4, c = lane % 4): A registers

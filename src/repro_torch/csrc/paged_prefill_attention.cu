@@ -9,7 +9,9 @@
 // blocks are attended in full, the chunk's own rows triangularly.  GQA rows
 // are laid out (K, C*G) per kv head: row r of kv head kv is chunk row r / G
 // of query head kv*G + r % G.  Scale, softcap and the online softmax are as
-// in the decode kernel.
+// in the decode kernel, and so is an int8 pool (the Pallas body's quant
+// branch): each staged row dequantized to q's type, float(int8) * scale in
+// one fp32 multiply and one rounding, before both products.
 //
 // What bounds it on an H100: at the shapes serving gives it the two bounds
 // are close.  A 256-row chunk of qwen2.5-3b at q_start 256 must move 2.6 MB
@@ -26,8 +28,9 @@
 //    loop over pool blocks up to cdiv(min(lengths[b], last q_pos of the
 //    tile + 1), bs) -- table entries past that are trash or unwritten and
 //    never dereferenced.  K/V rows are staged in shared memory with
-//    16-byte loads; scores, running max / sum and the accumulator are
-//    fp32, and plain FMA does the products.
+//    16-byte loads (from an int8 pool: dequantized on the way); scores,
+//    running max / sum and the accumulator are fp32, and plain FMA does
+//    the products.
 // 2. Tensor cores (bf16, D = 64 or 128): the dense flash kernel's mma body
 //    (mma_attention.cuh, shared with it) on a paged K/V loader.  One block
 //    of four warps per (sequence, kv head, tile of 64 of the C*G rows),
@@ -43,7 +46,12 @@
 //    hold NaN and 0 x NaN is NaN on the tensor cores.  Tiles wholly past
 //    kv_end are never visited.  With a trivial table, q_start = 0 and
 //    lengths = C, the pool is the dense kernel's cache and the two bodies
-//    agree bit for bit.
+//    agree bit for bit.  From an int8 pool (QuantTiles) each 16-byte piece
+//    of 16 values and its row's scale are loaded into registers and stored
+//    dequantized into the same swizzled tile: the next tile is staged
+//    before this one is used, but is not in flight while it is.
+#include <type_traits>
+
 #include "mma_attention.cuh"
 
 namespace {
@@ -52,11 +60,14 @@ using namespace paged;
 
 constexpr int TILE_ROWS = 32;
 
-template <typename T>
+// T: q's (and out's) type; P: the pool's, T or int8_t (then with scales)
+template <typename T, typename P>
 __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     const T* __restrict__ q,              // (B, C, H, D)
-    const T* __restrict__ k_pool,         // (N, bs, K, D)
-    const T* __restrict__ v_pool,         // (N, bs, K, D)
+    const P* __restrict__ k_pool,         // (N, bs, K, D)
+    const P* __restrict__ v_pool,         // (N, bs, K, D)
+    const float* __restrict__ k_scale,    // (N, bs, K), int8 pools only
+    const float* __restrict__ v_scale,    // (N, bs, K), int8 pools only
     const int32_t* __restrict__ tables,   // (B, mb)
     const int32_t* __restrict__ q_start,  // (B,)
     const int32_t* __restrict__ lengths,  // (B,)
@@ -100,8 +111,14 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     const int nrows = min(bs, kv_end - ib * bs);
     const size_t base = ((size_t)pb * bs * K + kv) * D;
     __syncthreads();
-    stage_rows(kblk, k_pool + base, nrows, D, row_stride);
-    stage_rows(vblk, v_pool + base, nrows, D, row_stride);
+    if constexpr (std::is_same<P, int8_t>::value) {
+      const size_t srow = (size_t)pb * bs * K + kv;   // row 0's scale
+      stage_rows_i8(kblk, k_pool + base, k_scale + srow, nrows, D, row_stride, K);
+      stage_rows_i8(vblk, v_pool + base, v_scale + srow, nrows, D, row_stride, K);
+    } else {
+      stage_rows(kblk, k_pool + base, nrows, D, row_stride);
+      stage_rows(vblk, v_pool + base, nrows, D, row_stride);
+    }
     __syncthreads();
     for (int i = tid; i < nr * bs; i += blockDim.x) {
       const int rr = i / bs, j = i - rr * bs;
@@ -135,15 +152,16 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-           const void* q_start, const void* lengths, void* out, int B, int C, int H, int K,
-           int D, int bs, int mb, int N, float scale, float softcap, cudaStream_t stream) {
+template <typename T, typename P>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+           const void* v_scale, const void* tables, const void* q_start, const void* lengths,
+           void* out, int B, int C, int H, int K, int D, int bs, int mb, int N, float scale,
+           float softcap, cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 2 * (size_t)bs * D * sizeof(T) +
                       ((size_t)2 * TILE_ROWS * D + (size_t)TILE_ROWS * bs + 3 * TILE_ROWS) *
                           sizeof(float);
-  auto kernel = paged_prefill_kernel<T>;
+  auto kernel = paged_prefill_kernel<T, P>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -151,7 +169,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   }
   const dim3 grid(B, K, (C * G + TILE_ROWS - 1) / TILE_ROWS);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const T*>(q), static_cast<const P*>(k_pool), static_cast<const P*>(v_pool),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(q_start),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), C, H, K, D, bs, mb, N,
       scale, softcap);
@@ -165,16 +184,48 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
 using mma_attn::KV_ROWS;
 using mma_attn::MMA_THREADS;
 
+// A K and a V tile of 64 keys from a bf16 pool: key base + r at pool row
+// (table[j / bs] * bs + j % bs), fetched with cp.async (mma_attn::stage_paged).
 template <int D>
+struct Tiles {
+  const __nv_bfloat16* k_pool;   // (N, bs, K, D)
+  const __nv_bfloat16* v_pool;   // (N, bs, K, D)
+  int bs, K, N;
+
+  __device__ __forceinline__ void stage(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                        const int32_t* table, int base, int kv_end,
+                                        int kv) const {
+    mma_attn::stage_paged<D>(ks, vs, k_pool, v_pool, table, base, kv_end, bs, K, kv, N);
+  }
+};
+
+// The same tiles from an int8 pool, dequantized to bf16 as they are staged
+// (mma_attn::stage_paged_i8, K1's split loader too).
+template <int D>
+struct QuantTiles {
+  const int8_t* k_pool;   // (N, bs, K, D)
+  const int8_t* v_pool;   // (N, bs, K, D)
+  const float* k_scale;   // (N, bs, K)
+  const float* v_scale;   // (N, bs, K)
+  int bs, K, N;
+
+  __device__ __forceinline__ void stage(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                        const int32_t* table, int base, int kv_end,
+                                        int kv) const {
+    mma_attn::stage_paged_i8<D>(ks, vs, k_pool, v_pool, k_scale, v_scale, table, base, kv_end,
+                                bs, K, kv, N);
+  }
+};
+
+template <int D, typename Loader>
 __global__ void __launch_bounds__(MMA_THREADS) paged_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,       // (B, C, H, D)
-    const __nv_bfloat16* __restrict__ k_pool,  // (N, bs, K, D)
-    const __nv_bfloat16* __restrict__ v_pool,  // (N, bs, K, D)
+    Loader tiles,                              // the pool's K / V tiles
     const int32_t* __restrict__ tables,        // (B, mb)
     const int32_t* __restrict__ q_start,       // (B,)
     const int32_t* __restrict__ lengths,       // (B,)
     __nv_bfloat16* __restrict__ out,           // (B, C, H, D)
-    int C, int H, int K, int bs, int mb, int N, float scale, float softcap) {
+    int C, int H, int K, int bs, int mb, float scale, float softcap) {
   constexpr int ROWS = mma_attn::TILE_ROWS;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KV_ROWS * D]
@@ -212,14 +263,14 @@ __global__ void __launch_bounds__(MMA_THREADS) paged_prefill_mma_kernel(
 
   mma_attn::Rows<D> st;
   st.init();
-  mma_attn::stage_paged<D>(ks, vs, k_pool, v_pool, table, 0, kv_end, bs, K, kv, N);
+  tiles.stage(ks, vs, table, 0, kv_end, kv);
   asm volatile("cp.async.commit_group;" ::: "memory");
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int base = tile * KV_ROWS, buf = tile & 1;
     if (tile + 1 < ntiles)
-      mma_attn::stage_paged<D>(ks + (buf ^ 1) * KV_ROWS * D, vs + (buf ^ 1) * KV_ROWS * D,
-                               k_pool, v_pool, table, base + KV_ROWS, kv_end, bs, K, kv, N);
+      tiles.stage(ks + (buf ^ 1) * KV_ROWS * D, vs + (buf ^ 1) * KV_ROWS * D, table,
+                  base + KV_ROWS, kv_end, kv);
     asm volatile("cp.async.commit_group;" ::: "memory");
     asm volatile("cp.async.wait_group 1;" ::: "memory");   // this tile has landed
     __syncthreads();
@@ -233,13 +284,13 @@ __global__ void __launch_bounds__(MMA_THREADS) paged_prefill_mma_kernel(
                           rb < rows ? out + head_row(rb) : nullptr);
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-               const void* q_start, const void* lengths, void* out, int B, int C, int H,
-               int K, int bs, int mb, int N, float scale, float softcap, cudaStream_t stream) {
+template <int D, typename Loader>
+int launch_mma(const void* q, Loader tiles, const void* tables, const void* q_start,
+               const void* lengths, void* out, int B, int C, int H, int K, int bs, int mb,
+               float scale, float softcap, cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 4 * (size_t)KV_ROWS * D * sizeof(__nv_bfloat16);
-  auto kernel = paged_prefill_mma_kernel<D>;
+  auto kernel = paged_prefill_mma_kernel<D, Loader>;
   static bool ready = false;
   if (!ready && smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -250,38 +301,68 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool, const void
   const int ROWS = mma_attn::TILE_ROWS;
   const dim3 grid(B, K, (C * G + ROWS - 1) / ROWS);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), static_cast<const int32_t*>(tables),
+      static_cast<const __nv_bfloat16*>(q), tiles, static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(q_start), static_cast<const int32_t*>(lengths),
-      static_cast<__nv_bfloat16*>(out), C, H, K, bs, mb, N, scale, softcap);
+      static_cast<__nv_bfloat16*>(out), C, H, K, bs, mb, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+               const void* v_scale, const void* tables, const void* q_start,
+               const void* lengths, void* out, int pool, int B, int C, int H, int K, int bs,
+               int mb, int N, float scale, float softcap, cudaStream_t stream) {
+  if (pool == 1)
+    return launch_mma<D>(
+        q,
+        QuantTiles<D>{static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool),
+                      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                      bs, K, N},
+        tables, q_start, lengths, out, B, C, H, K, bs, mb, scale, softcap, stream);
+  return launch_mma<D>(q,
+                       Tiles<D>{static_cast<const __nv_bfloat16*>(k_pool),
+                                static_cast<const __nv_bfloat16*>(v_pool), bs, K, N},
+                       tables, q_start, lengths, out, B, C, H, K, bs, mb, scale, softcap,
+                       stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).  body: 0
-// the FMA body (any D), 1 the tensor-core body (bf16, D = 64 or 128).
-// Returns 0 or the CUDA error of the launch.
+// dtype: q's (and out's) type, 0 = float32, 1 = bfloat16.  pool: 0 = the
+// pools are in q's type (k_scale / v_scale unused), 1 = int8 pools with
+// fp32 scales (N, bs, K).  body: 0 the FMA body (any D), 1 the tensor-core
+// body (bf16, D = 64 or 128).  Returns 0 or the CUDA error of the launch.
 extern "C" int paged_prefill_attention(const void* q, const void* k_pool, const void* v_pool,
+                                       const void* k_scale, const void* v_scale,
                                        const void* tables, const void* q_start,
-                                       const void* lengths, void* out, int dtype, int B, int C,
-                                       int H, int K, int D, int bs, int mb, int N, float scale,
-                                       float softcap, int body, void* stream) {
+                                       const void* lengths, void* out, int dtype, int pool,
+                                       int B, int C, int H, int K, int D, int bs, int mb,
+                                       int N, float scale, float softcap, int body,
+                                       void* stream) {
   if (B == 0 || C == 0) return 0;
+  if (pool != 0 && pool != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     if (D == 64)
-      return launch_mma<64>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K, bs,
-                            mb, N, scale, softcap, s);
+      return launch_mma<64>(q, k_pool, v_pool, k_scale, v_scale, tables, q_start, lengths, out,
+                            pool, B, C, H, K, bs, mb, N, scale, softcap, s);
     if (D == 128)
-      return launch_mma<128>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K, bs,
-                             mb, N, scale, softcap, s);
+      return launch_mma<128>(q, k_pool, v_pool, k_scale, v_scale, tables, q_start, lengths,
+                             out, pool, B, C, H, K, bs, mb, N, scale, softcap, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype == 1 && pool == 1)
+    return launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables, q_start,
+                                         lengths, out, B, C, H, K, D, bs, mb, N, scale, softcap,
+                                         s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K,
-                                 D, bs, mb, N, scale, softcap, s);
-  return launch<float>(q, k_pool, v_pool, tables, q_start, lengths, out, B, C, H, K, D, bs,
-                       mb, N, scale, softcap, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                                 q_start, lengths, out, B, C, H, K, D, bs, mb,
+                                                 N, scale, softcap, s);
+  if (pool == 1)
+    return launch<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables, q_start, lengths,
+                                 out, B, C, H, K, D, bs, mb, N, scale, softcap, s);
+  return launch<float, float>(q, k_pool, v_pool, k_scale, v_scale, tables, q_start, lengths,
+                              out, B, C, H, K, D, bs, mb, N, scale, softcap, s);
 }

@@ -8,9 +8,11 @@ Each kernel has two bodies, and :func:`body_for` (paged) or
 head_dim 64 or 128 with at most 8 query heads per kv head splits the KV
 length over many blocks and merges them (``mma``: two launches from one
 call, the products on the tensor cores; one split body,
-``csrc/decode_split.cuh``, behind two row loaders), everything else --
+``csrc/decode_split.cuh``, behind its row loaders), everything else --
 every fp32 call among them -- runs the first, one-block-per-group FMA
-body."""
+body.  The paged kernel also reads int8 pools with fp32 scales per (block,
+row, kv head), on the same two bodies by the same rule (``mma_i8``,
+``fma_i8``): each row is dequantized to q's type as it is staged."""
 from __future__ import annotations
 
 import ctypes
@@ -20,10 +22,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       paged_decode_attention_ref)
-from repro_torch.kernels.dispatch import check_operand, register_kernel
+from repro_torch.kernels.dispatch import (check_operand, check_scales,
+                                          register_kernel)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 \
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 \
     + [ctypes.c_int, ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -33,15 +36,18 @@ SPLIT_KEYS = 64              # keys one block of the split body takes
 
 
 def body_for(q: torch.Tensor, k_pool: torch.Tensor) -> str:
-    """The body a paged call runs, decided before the launch from the type,
-    head_dim and group size G = H / K alone: ``"mma"`` (split over the KV
-    length, tensor cores) for bf16 at head_dim 64 or 128 and G <= 8,
-    ``"fma"`` for everything else, every fp32 call among them."""
+    """The body a paged call runs, decided before the launch from the
+    types, head_dim and group size G = H / K alone: ``"mma"`` (split over
+    the KV length, tensor cores) for bf16 at head_dim 64 or 128 and G <= 8,
+    ``"fma"`` for everything else, every fp32 call among them; on an int8
+    pool the same rule names the int8 bodies, ``"mma_i8"`` and
+    ``"fma_i8"``."""
     G = q.shape[1] // k_pool.shape[2]
+    body = "fma"
     if (q.dtype == torch.bfloat16 and q.shape[-1] in MMA_HEAD_DIMS
             and G <= MMA_MAX_GROUP):
-        return "mma"
-    return "fma"
+        body = "mma"
+    return body + "_i8" if k_pool.dtype == torch.int8 else body
 
 
 def dense_body_for(q: torch.Tensor, k: torch.Tensor) -> str:
@@ -58,8 +64,8 @@ def num_splits(max_blocks: int, block_size: int) -> int:
     return -(-max_blocks * block_size // SPLIT_KEYS)
 
 
-def _launch(q, k_pool, v_pool, block_tables, lengths, *, softcap=0.0,
-            chunk=1024, body=None):
+def _launch(q, k_pool, v_pool, block_tables, lengths, *, k_scale=None,
+            v_scale=None, softcap=0.0, chunk=1024, body=None):
     """Check the operands, allocate the output (and, for the split body, its
     fp32 scratch in one allocation) and launch the kernel on the current
     stream, on the body :func:`body_for` names; ``body`` overrides that
@@ -72,35 +78,47 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, *, softcap=0.0,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
+    quant = check_scales(k_pool, k_scale, v_scale)
     check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE), align=16)
     for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
-        check_operand(pool, name, device=dev, dtypes=(q.dtype,),
+        check_operand(pool, name, device=dev,
+                      dtypes=(torch.int8,) if quant else (q.dtype,),
                       shape=(N, bs, K, D), align=16)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if quant:
+            check_operand(sc, name, device=dev, dtypes=(torch.float32,),
+                          shape=(N, bs, K), align=4)
     check_operand(block_tables, "block_tables", device=dev,
                   dtypes=(torch.int32,), shape=(B, mb))
     check_operand(lengths, "lengths", device=dev, dtypes=(torch.int32,),
                   shape=(B,))
     if H % K:
         raise ValueError(f"num_heads {H} is not a multiple of kv heads {K}")
-    if (D * q.element_size()) % 16:
-        raise ValueError(f"head_dim {D}: rows must be a multiple of 16 bytes")
+    if (D * q.element_size()) % 16 or (quant and D % 16):
+        raise ValueError(f"head_dim {D}: q and pool rows must be a multiple "
+                         f"of 16 bytes")
     route = body_for(q, k_pool)
     body = body or route
-    if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
+    bodies = ("mma_i8", "fma_i8") if quant else ("mma", "fma")
+    if body not in bodies or (body == bodies[0] and route != bodies[0]):
         raise ValueError(f"paged_decode_attention: no {body!r} body for "
-                         f"{q.dtype} at head_dim {D}, G {H // K}")
+                         f"{q.dtype} on a {k_pool.dtype} pool at head_dim {D}, "
+                         f"G {H // K}")
+    split = body == bodies[0]
     out = torch.empty_like(q)
     ns = num_splits(mb, bs)
     scratch = (torch.empty(B * H * ns * (D + 2), dtype=torch.float32,
-                           device=dev) if body == "mma" else None)
+                           device=dev) if split else None)
     lib = build.load("paged_decode_attention", _ARGTYPES)
     KERNEL.count_launch(body)
     err = lib.paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, H, K, D, bs, mb, N, ns,
-        1.0 / (D ** 0.5), float(softcap), int(body == "mma"),
+        _DTYPE_CODE[q.dtype], int(quant), B, H, K, D, bs, mb, N, ns,
+        1.0 / (D ** 0.5), float(softcap), int(split),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention: CUDA error {err}")
@@ -118,17 +136,16 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            chunk: int = 1024):
     """One query token per sequence against the paged KV pool.
 
-    q: (B, H, D); k_pool/v_pool: (N, bs, K, D); block_tables: (B, max_blocks)
-    int32; lengths: (B,) int32 valid rows.  Returns (B, H, D).  CUDA tensors
-    run the kernel, CPU tensors the plain version.  int8 pools (``k_scale``
-    / ``v_scale``) are not ported yet and raise.
+    q: (B, H, D); k_pool/v_pool: (N, bs, K, D), in q's type or int8 with
+    k_scale/v_scale (N, bs, K) fp32 (each row dequantized to q's type
+    before both products, as the reference does); block_tables: (B,
+    max_blocks) int32; lengths: (B,) int32 valid rows.  Returns (B, H, D).
+    CUDA tensors run the kernel, CPU tensors the plain version.  An int8
+    pool without scales, or scales beside another pool, raises.
     """
-    if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 paged KV pools: the dequant branch is ported with the "
-            "int8-pool slice")
-    return KERNEL(q, k_pool, v_pool, block_tables, lengths,
-                  softcap=softcap, chunk=chunk)
+    check_scales(k_pool, k_scale, v_scale)
+    return KERNEL(q, k_pool, v_pool, block_tables, lengths, k_scale=k_scale,
+                  v_scale=v_scale, softcap=softcap, chunk=chunk)
 
 
 def _launch_dense(q, k, v, lengths, *, chunk=1024, body=None):

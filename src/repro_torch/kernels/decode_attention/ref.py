@@ -22,18 +22,33 @@ def decode_attention_ref(q, k, v, lengths, *, chunk=1024):
     return out[:, 0]
 
 
+def gather_pool(q, k_pool, v_pool, block_tables, k_scale=None,
+                v_scale=None):
+    """The pool's rows in logical order, in q's type: (B, mb * bs, K, D)
+    each.  An int8 pool is dequantized first, as the reference does: one
+    fp32 multiply by the row's scale (k_scale/v_scale: (N, bs, K)), then one
+    rounding to q's type."""
+    B, D = q.shape[0], q.shape[-1]
+    _, bs, K, _ = k_pool.shape
+    idx = block_tables.long()
+    k, v = k_pool[idx], v_pool[idx]                  # (B, mb, bs, K, D)
+    if k_scale is not None:
+        k = (k.float() * k_scale[idx][..., None]).to(q.dtype)
+        v = (v.float() * v_scale[idx][..., None]).to(q.dtype)
+    S = idx.shape[1] * bs
+    return (k.reshape(B, S, K, D).to(q.dtype), v.reshape(B, S, K, D).to(q.dtype))
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
-                               softcap=0.0, chunk=1024):
+                               k_scale=None, v_scale=None, softcap=0.0,
+                               chunk=1024):
     """q: (B, H, D); k_pool/v_pool: (N, bs, K, D) global pool; block_tables:
     (B, max_blocks) physical block per logical block; lengths: (B,) valid
-    rows per sequence.  Returns (B, H, D)."""
-    B, H, D = q.shape
-    N, bs, K, _ = k_pool.shape
-    mb = block_tables.shape[1]
-    idx = block_tables.long()
-    S = mb * bs
-    k = k_pool[idx].reshape(B, S, K, D).to(q.dtype)    # (B, mb*bs, K, D)
-    v = v_pool[idx].reshape(B, S, K, D).to(q.dtype)
+    rows per sequence; k_scale/v_scale: (N, bs, K) fp32 for an int8 pool.
+    Returns (B, H, D)."""
+    B = q.shape[0]
+    k, v = gather_pool(q, k_pool, v_pool, block_tables, k_scale, v_scale)
+    S = k.shape[1]
     out = chunked_attention(
         q[:, None], k, v, causal=False,
         q_positions=torch.zeros((B, 1), dtype=torch.int32, device=q.device),

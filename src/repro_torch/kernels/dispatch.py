@@ -134,6 +134,23 @@ def check_operand(t, name: str, *, device, dtypes, shape=None,
                          f"multiple of {align} bytes")
 
 
+def check_scales(k_pool, k_scale, v_scale) -> bool:
+    """Whether a paged attention call reads an int8 pool: an int8 pool
+    comes with both fp32 scale arrays, any other pool with neither (the
+    reference tells the two apart by ``k_scale is not None`` alone, so a
+    mismatch would dequantize the wrong rows or none).  Raises on a
+    mismatch."""
+    quant = k_pool.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if quant and k_scale is None:
+        raise ValueError("an int8 pool needs its k_scale and v_scale")
+    if not quant and k_scale is not None:
+        raise ValueError(f"k_scale / v_scale are for an int8 pool, not a "
+                         f"{k_pool.dtype} one")
+    return quant
+
+
 # Kernel vs plain version on the card (chip_smoke.py, tests/test_torch_gpu.py).
 # fp32: the two sum in other orders; ~1e-6 is expected, 1e-4 allowed.
 FP32_ATOL = 1e-4

@@ -6,23 +6,23 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention.ref import gather_pool
 from repro_torch.models.layers.attention import chunked_attention
 
 
 def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, q_start,
-                                lengths, *, softcap=0.0, chunk=1024):
+                                lengths, *, k_scale=None, v_scale=None,
+                                softcap=0.0, chunk=1024):
     """q: (B, C, H, D), row ``o`` at absolute position ``q_start[b] + o``;
     k_pool/v_pool: (N, bs, K, D); block_tables: (B, max_blocks); q_start:
     (B,); lengths: (B,) valid rows including this chunk's.  Causality
     against absolute positions lets row ``o`` see every seeded row and the
-    chunk rows at or before it.  Returns (B, C, H, D)."""
-    B, C, H, D = q.shape
-    N, bs, K, _ = k_pool.shape
-    mb = block_tables.shape[1]
-    idx = block_tables.long()
-    S = mb * bs
-    k = k_pool[idx].reshape(B, S, K, D).to(q.dtype)
-    v = v_pool[idx].reshape(B, S, K, D).to(q.dtype)
+    chunk rows at or before it.  k_scale/v_scale: (N, bs, K) fp32 for an
+    int8 pool (dequantized to q's type before attending, as in the decode
+    version).  Returns (B, C, H, D)."""
+    C = q.shape[1]
+    k, v = gather_pool(q, k_pool, v_pool, block_tables, k_scale, v_scale)
+    S = k.shape[1]
     q_pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
                                             device=q.device)[None]
     return chunked_attention(

@@ -7,7 +7,9 @@ and the cnn family, ``:164-173``).
   prepare_params(cfg, params, device)           -> params on the device,
                                                    product weights cast
   init_paged_state(cfg, num_blocks, block_size, batch, max_blocks, dtype,
-                   device=...)                  -> PagedKVCache
+                   device=...)                  -> PagedKVCache, or
+                                                   QuantPagedKVCache for
+                                                   dtype "int8"
   prefill_paged(cfg, params, tokens, state, write_ids, table, *, q_start,
                 kv_len, last_idx, chunk)        -> (logits, state)
   prefill(cfg, params, batch, max_len, chunk, cache_dtype)

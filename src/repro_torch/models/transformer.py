@@ -12,6 +12,11 @@ Entry points:
     resumed histories are never recomputed.
   * ``decode_step``   -- one token per slot against the paged pool.
 
+The paged pool is bf16 / fp32 (:class:`PagedKVCache`) or int8 with one
+fp32 absmax scale per (block, row, kv head) (:class:`QuantPagedKVCache`):
+rows are quantized on write (:func:`quantize_kv`) and dequantized to the
+compute dtype inside the attention kernels, as the reference does.
+
 Serving attends through the hand-written CUDA kernels
 (:mod:`repro_torch.kernels`) when the tensors are on the card, and through
 their plain PyTorch versions on the CPU; every weight product, in serving
@@ -34,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.dispatch import check_scales
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers.embedding import embed, embedding_table
@@ -68,25 +74,66 @@ class PagedKVCache(NamedTuple):
         return self.block_tables.shape[1] * self.k.shape[2]
 
 
+class QuantPagedKVCache(NamedTuple):
+    """int8 variant of :class:`PagedKVCache`: the pools are int8 with absmax
+    scales per (block, row, kv head).  k/v: (L, N, bs, K, D) int8;
+    k_scale/v_scale: (L, N, bs, K) fp32."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    block_tables: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def max_len(self) -> int:
+        return self.block_tables.shape[1] * self.k.shape[2]
+
+
+def quantize_kv(x: torch.Tensor):
+    """x: (..., D) -> (int8 (..., D), scale (...,) fp32), the reference's
+    bits: scale = max(amax, 1e-6) / 127 in fp32, round(x / scale) half to
+    even, clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 (..., D) and its scales (...,) -> ``dtype``: one fp32 multiply,
+    then one rounding."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def make_paged_cache(cfg, num_blocks: int, block_size: int, batch: int,
                      max_blocks: int, dtype="bfloat16",
                      num_layers: int | None = None, *, device="cuda"):
     """Paged cache sized to ``num_blocks`` pool blocks (incl. trash block 0)
-    with ``batch`` block tables of ``max_blocks`` entries each."""
-    if dtype == "int8":
-        raise NotImplementedError(
-            "int8 paged KV pools (QuantPagedKVCache) are ported with the "
-            "int8-pool slice")
+    with ``batch`` block tables of ``max_blocks`` entries each; ``dtype``
+    "int8" gives a :class:`QuantPagedKVCache`."""
     L = num_layers if num_layers is not None else cfg.num_layers
     shape = (L, num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
+    tables = torch.zeros((batch, max_blocks), dtype=torch.int32,
+                         device=device)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if dtype == "int8":
+        return QuantPagedKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            block_tables=tables, length=length)
     dt = dtype_of(dtype)
-    return PagedKVCache(
-        k=torch.zeros(shape, dtype=dt, device=device),
-        v=torch.zeros(shape, dtype=dt, device=device),
-        block_tables=torch.zeros((batch, max_blocks), dtype=torch.int32,
-                                 device=device),
-        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+    return PagedKVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                        v=torch.zeros(shape, dtype=dt, device=device),
+                        block_tables=tables, length=length)
 
 
 # ---------------------------------------------------------------------------
@@ -136,17 +183,20 @@ def prepare_params(cfg, params, device=None):
 # block application
 # ---------------------------------------------------------------------------
 
-def _paged_attend(cfg, q, k_new, v_new, pool_k, pool_v, block_tables,
-                  length, chunk):
+def _paged_attend(cfg, q, k_new, v_new, pool_k, pool_v, scales,
+                  block_tables, length, chunk):
     """Paged decode attention for one layer: write the new KV row into the
     block-table-addressed pool slot (in place), then attend over live
     blocks only.
 
     q/k_new/v_new: (B, 1, H|K, D); pool_k/pool_v: (N, bs, K, D) this
-    layer's pools; block_tables: (B, max_blocks); length: (B,) rows already
-    valid (the new row is written at ``length``).  The write index is
-    clipped to the table as in the reference: retired slots (all-zero
-    tables, length 0) write into the trash block every step.
+    layer's pools; scales: None, or this layer's (k_scale, v_scale) of
+    shape (N, bs, K) for int8 pools (the row is quantized, written with
+    its scales, and dequantized inside the kernel); block_tables: (B,
+    max_blocks); length: (B,) rows already valid (the new row is written at
+    ``length``).  The write index is clipped to the table as in the
+    reference: retired slots (all-zero tables, length 0) write into the
+    trash block every step.
     """
     N, bs, K, D = pool_k.shape
     B = q.shape[0]
@@ -154,20 +204,30 @@ def _paged_attend(cfg, q, k_new, v_new, pool_k, pool_v, block_tables,
     bi = torch.clamp(length // bs, 0, mb - 1).long()
     bt = block_tables[torch.arange(B, device=q.device), bi].long()
     off = (length % bs).long()
-    pool_k[bt, off] = k_new[:, 0].to(pool_k.dtype)
-    pool_v[bt, off] = v_new[:, 0].to(pool_v.dtype)
+    k_scale, v_scale = scales if scales is not None else (None, None)
+    if check_scales(pool_k, k_scale, v_scale):
+        kq, ks = quantize_kv(k_new[:, 0])
+        vq, vs = quantize_kv(v_new[:, 0])
+        pool_k[bt, off], k_scale[bt, off] = kq, ks
+        pool_v[bt, off], v_scale[bt, off] = vq, vs
+    else:
+        pool_k[bt, off] = k_new[:, 0].to(pool_k.dtype)
+        pool_v[bt, off] = v_new[:, 0].to(pool_v.dtype)
     out = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v,
-                                 block_tables, length + 1,
+                                 block_tables, length + 1, k_scale=k_scale,
+                                 v_scale=v_scale,
                                  softcap=cfg.attn_logit_softcap, chunk=chunk)
     return out[:, None]
 
 
-def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, write_ids,
-                          table, q_start, kv_len, chunk):
+def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, scales,
+                          write_ids, table, q_start, kv_len, chunk):
     """Paged prefill for one layer: write the chunk's KV rows straight into
     pool blocks (in place), then attend causally over the table's blocks.
 
     q/k_new/v_new: (1, C, H|K, D) with C a multiple of the pool block size;
+    scales: None, or this layer's (k_scale, v_scale) (N, bs, K) for int8
+    pools (whole chunk blocks quantized and written with their scales);
     write_ids: (C // bs,) physical block per chunk block (trash 0 for rows
     that must not land anywhere -- bucket padding, and the
     recompute-baseline's shared prefix; duplicate trash writes race, which
@@ -185,16 +245,26 @@ def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, write_ids,
     N, bs, K, D = pool_k.shape
     C = q.shape[1]
     wid = write_ids.long()
-    pool_k[wid] = k_new[0].reshape(C // bs, bs, K, D).to(pool_k.dtype)
-    pool_v[wid] = v_new[0].reshape(C // bs, bs, K, D).to(pool_v.dtype)
+    kb = k_new[0].reshape(C // bs, bs, K, D)
+    vb = v_new[0].reshape(C // bs, bs, K, D)
+    k_scale, v_scale = scales if scales is not None else (None, None)
+    if check_scales(pool_k, k_scale, v_scale):
+        kq, ks = quantize_kv(kb)
+        vq, vs = quantize_kv(vb)
+        pool_k[wid], k_scale[wid] = kq, ks
+        pool_v[wid], v_scale[wid] = vq, vs
+    else:
+        pool_k[wid] = kb.to(pool_k.dtype)
+        pool_v[wid] = vb.to(pool_v.dtype)
     return paged_prefill_attention(q, pool_k, pool_v, table, q_start, kv_len,
+                                   k_scale=k_scale, v_scale=v_scale,
                                    softcap=cfg.attn_logit_softcap,
                                    chunk=chunk)
 
 
 def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
-                kv_len=None, block_tables=None, paged_prefill=None,
-                chunk=1024):
+                cache_scales=None, kv_len=None, block_tables=None,
+                paged_prefill=None, chunk=1024):
     """One transformer block.
 
     Without a cache (training): causal self-attention over the whole of x
@@ -203,7 +273,8 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
     (B, 1, D) and writes the new KV row at ``kv_len``; prefill
     (``paged_prefill`` a dict of write_ids/table/q_start/kv_len) writes the
     chunk's KV straight into pool blocks and attends causally over the
-    table's blocks.
+    table's blocks.  ``cache_scales``: this layer's (k_scale, v_scale) when
+    the pools are int8.
     """
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
@@ -214,10 +285,11 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
                                    window=cfg.sliding_window, chunk=chunk)
     elif paged_prefill is not None:
         attn = _paged_prefill_attend(cfg, q, k, v, cache_k, cache_v,
-                                     chunk=chunk, **paged_prefill)
+                                     cache_scales, chunk=chunk,
+                                     **paged_prefill)
     else:
-        attn = _paged_attend(cfg, q, k, v, cache_k, cache_v, block_tables,
-                             kv_len, chunk)
+        attn = _paged_attend(cfg, q, k, v, cache_k, cache_v, cache_scales,
+                             block_tables, kv_len, chunk)
     attn = A.attn_output(cfg, p["attn"], attn)
     if cfg.parallel_block:
         return x + attn + swiglu(p["mlp"], h)
@@ -257,20 +329,24 @@ def _scan_blocks(cfg, stacked, x, positions, *, remat, chunk=1024):
 
 
 def _apply_backbone(cfg, params, tokens, positions, *,
-                    cache: PagedKVCache | None = None, remat=False,
-                    paged_prefill=None, chunk=1024):
+                    cache: PagedKVCache | QuantPagedKVCache | None = None,
+                    remat=False, paged_prefill=None, chunk=1024):
     """Embed, run every layer -- over the whole sequence without a cache,
-    or against its slice of the paged pools (the reference's ``lax.scan``
-    over stacked layers) -- and the final norm."""
+    or against its slice of the paged pools and, for an int8 pool, of its
+    scales (the reference's ``lax.scan`` over stacked layers) -- and the
+    final norm."""
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     blocks = params["blocks"]
     if cache is None:
         x = _scan_blocks(cfg, blocks, x, positions, remat=remat, chunk=chunk)
         return apply_norm(cfg, params["ln_f"], x)
+    quant = isinstance(cache, QuantPagedKVCache)
     for i in range(cfg.num_layers):
         p = tree_map(lambda leaf, i=i: leaf[i], blocks)
+        scales = (cache.k_scale[i], cache.v_scale[i]) if quant else None
         x = block_apply(cfg, p, x, positions, cache_k=cache.k[i],
-                        cache_v=cache.v[i], kv_len=cache.length,
+                        cache_v=cache.v[i], cache_scales=scales,
+                        kv_len=cache.length,
                         block_tables=cache.block_tables,
                         paged_prefill=paged_prefill, chunk=chunk)
     return apply_norm(cfg, params["ln_f"], x)
@@ -311,7 +387,8 @@ def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
 
     tokens: (1, C) chunk (C a multiple of the pool block size; rows past
     the real prompt are padding whose writes land in the trash block via
-    ``write_ids``); cache: :class:`PagedKVCache`; write_ids: (C //
+    ``write_ids``); cache: :class:`PagedKVCache` or
+    :class:`QuantPagedKVCache`; write_ids: (C //
     block_size,) physical block per chunk block; table: (1, max_blocks)
     the request's read table; q_start: (1,) absolute position of the
     chunk's first token; kv_len: (1,) valid KV rows including this chunk's

@@ -18,10 +18,14 @@ block tables and block-aware admission.  On top of the pool:
     unseeded token; a ``prefill_chunk`` budget interleaves long prompts
     with decode steps.
 
-Families with no paged state (the hybrid) serve from **contiguous** caches
-(``paged=False``, the default for them): each admitted prompt is prefilled
-whole into a batch-1 state that is written into its slot of the batched
-decode state (:func:`_merge_slot`), as the reference's contiguous path.
+The pool is in ``cache_dtype``: bf16, fp32, or int8 with fp32 scales per
+(block, row, kv head) (``QuantPagedKVCache``).  Families with no paged
+state (the hybrid) serve from **contiguous** caches (``paged=False``, the
+default for them): each admitted prompt is prefilled whole into a batch-1
+state that is written into its slot of the batched decode state
+(:func:`_merge_slot`), as the reference's contiguous path.  Contiguous
+caches are never int8: ``cache_dtype="int8"`` gives them in bf16, as the
+reference's contiguous engine builds them whatever ``cache_dtype`` says.
 
 Every attention call runs the hand-written CUDA kernels when the engine's
 device is the card (:mod:`repro_torch.kernels`).  The engine runs on
@@ -394,6 +398,9 @@ class ServingEngine:
         self.slots = batch_slots
         self.block_size = block_size
         self.cache_dtype = cache_dtype
+        # the contiguous caches' type: never int8 (see the module docstring)
+        self._state_dtype = ("bfloat16" if cache_dtype == "int8" and not paged
+                             else cache_dtype)
         self.prefix_sharing = prefix_sharing and paged
         # cache-seeded prefill: computation starts at the first unseeded
         # token; off = the recompute baseline (shared blocks still mapped,
@@ -431,7 +438,7 @@ class ServingEngine:
             # max_len rows (one reference jit entry per prompt length)
             self._prefill = lambda p, b: fns.prefill(
                 cfg, p, b, max_len=max_len, chunk=chunk,
-                cache_dtype=cache_dtype)
+                cache_dtype=self._state_dtype)
         self.scheduler = ContinuousScheduler(batch_slots, pool=self.pool,
                                              preemption=preemption)
         self._decode = lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk)
@@ -486,17 +493,17 @@ class ServingEngine:
         return last[0].cpu().numpy(), state
 
     def _init_state(self):
-        """Batched decode state covering all slots: the paged pool, or the
-        contiguous caches in ``cache_dtype`` (the reference's contiguous
-        branch builds them in its default bf16, the same type unless the
-        engine asks for another)."""
+        """Batched decode state covering all slots: the paged pool in
+        ``cache_dtype``, or the contiguous caches (the reference's
+        contiguous branch builds them in its default bf16: the same type
+        unless the engine asks for fp32; int8 gives bf16 here too)."""
         if self.paged:
             return self.fns.init_paged_state(
                 self.cfg, self.pool.total_blocks, self.block_size,
                 self.slots, self.max_blocks, self.cache_dtype,
                 device=self.device)
         return self.fns.init_decode_state(self.cfg, self.slots, self.max_len,
-                                          self.cache_dtype, device=self.device)
+                                          self._state_dtype, device=self.device)
 
     def _to_device(self, a) -> torch.Tensor:
         """Copy a host array (or list) to the engine's device."""

@@ -1,9 +1,12 @@
 """The port's paged ServingEngine against the JAX reference's, at fp32, on
 the same weights (through ``repro_torch.interop``) and the same requests:
 greedy outputs must be identical and the deterministic counters equal --
-through chunked prefill, seeded shared prefixes and a preemption.  Plus
-the constructor's refusals: no card and no device asked for, and the
-options this port does not carry yet."""
+through chunked prefill, seeded shared prefixes and a preemption, with an
+fp32 and with an int8 KV pool.  The reference's int8 engine tests
+mirrored at its bf16 smoke config: greedy streams within one top-1 flip
+of the bf16 pool's, and seeded prefill equal to full recompute token for
+token.  Plus the constructor's refusals: no card and no device asked for,
+and the options this port does not carry yet."""
 import dataclasses
 
 import jax
@@ -18,6 +21,7 @@ from repro.serving import sampler as JS
 from repro_torch.configs import registry as TR
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import dispatch
+from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
 from repro_torch.serving import sampler as TS
 
@@ -84,16 +88,25 @@ def _drive(eng, first, later, steps_before=3):
     return eng.collect_window(base, first + later, 0.0)
 
 
-@pytest.mark.parametrize("workload,kw", [
+WORKLOADS = [
     (_mixed, dict(max_len=80, batch_slots=3, prefill_chunk=16)),
     (_mixed, dict(max_len=80, batch_slots=3)),
     (_preempting, dict(max_len=44, batch_slots=2, pool_blocks=10)),
     (_preempting, dict(max_len=44, batch_slots=2, pool_blocks=10,
                        prefill_chunk=16)),
-], ids=["mixed-chunk16", "mixed-unchunked", "preempt", "preempt-chunk16"])
+]
+WORKLOAD_IDS = ["mixed-chunk16", "mixed-unchunked", "preempt", "preempt-chunk16"]
+
+
+@pytest.mark.parametrize(
+    "workload,kw",
+    WORKLOADS + [(w, dict(kw, cache_dtype="int8")) for w, kw in WORKLOADS],
+    ids=WORKLOAD_IDS + [f"{i}-int8" for i in WORKLOAD_IDS])
 def test_engine_matches_jax_engine(weights, workload, kw):
+    """The fp32 pool, and the int8 pool (both engines quantize the same
+    rows on write and dequantize them in the attention)."""
     cfg, jp, tcfg, tp = weights
-    kw = dict(kw, block_size=8, cache_dtype="float32")
+    kw = dict(dict(block_size=8, cache_dtype="float32"), **kw)
     jreqs = workload(JE, JS, cfg.vocab_size)
     treqs = workload(TE, TS, cfg.vocab_size)
     jeng = JE.ServingEngine(cfg, jp, paged=True, **kw)
@@ -116,6 +129,75 @@ def test_engine_matches_jax_engine(weights, workload, kw):
     assert table["paged_prefill_attention"].plain_calls > 0
     assert table["paged_decode_attention"].plain_calls > 0
     assert all(k.launches == 0 for k in table.values())
+    quant = kw["cache_dtype"] == "int8"
+    assert isinstance(teng._state, TT.QuantPagedKVCache) == quant
+    assert teng._state.k.dtype == (torch.int8 if quant else torch.float32)
+
+
+def _smoke_bf16():
+    """The reference's int8 engine tests' setting: the smoke config as it
+    is (bf16 compute), weights from PRNGKey(0)."""
+    cfg = JR.smoke("qwen2.5-3b")
+    jp = jax_fns(cfg).init(cfg, jax.random.PRNGKey(0))
+    return TR.smoke("qwen2.5-3b"), params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp))
+
+
+def test_paged_engine_int8_cache_top1_stable():
+    """Mirror of ``tests/test_paged_kv.py::
+    test_paged_engine_int8_cache_top1_stable``: greedy streams of the int8
+    pool match the bf16 pool's up to at most one top-1 flip event (the
+    first divergence of a request; what follows decodes another context)."""
+    tcfg, tp = _smoke_bf16()
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, tcfg.vocab_size, size=10).astype(np.int32)
+               for _ in range(2)]
+    mk = lambda: [TE.Request(i, p, max_new_tokens=4,  # noqa: E731
+                             sampler=TS.greedy()) for i, p in enumerate(prompts)]
+    bf = TE.ServingEngine(tcfg, tp, max_len=16, batch_slots=2, device="cpu")
+    q8 = TE.ServingEngine(tcfg, tp, max_len=16, batch_slots=2,
+                          cache_dtype="int8", device="cpu")
+    rb, rq = mk(), mk()
+    bf.serve(rb)
+    q8.serve(rq)
+    flips = sum(any(a != b for a, b in zip(ra.output, rb_.output))
+                for ra, rb_ in zip(rb, rq))
+    assert flips <= 1
+    assert q8._state.k.dtype == torch.int8
+    assert q8._state.k_scale.dtype == torch.float32
+
+
+def _prefix_workload(vocab, n=4, prefix_tokens=32, seed=11):
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, size=prefix_tokens).astype(np.int32)
+    return [TE.Request(i, np.concatenate(
+                [prefix, rng.integers(0, vocab, size=5).astype(np.int32)]),
+                max_new_tokens=4, sampler=TS.greedy()) for i in range(n)]
+
+
+def test_int8_seeded_prefill_matches_recompute_exactly():
+    """Mirror of ``tests/test_paged_prefill.py::
+    test_seeded_prefill_matches_recompute_exactly[int8]``: a seeded prefill
+    (the shared prefix read from the int8 pool, never re-run) gives greedy
+    continuations identical to the full-recompute baseline, where both
+    read the same quantized prefix rows."""
+    tcfg, tp = _smoke_bf16()
+    kw = dict(max_len=48, batch_slots=4, paged=True, block_size=8,
+              cache_dtype="int8", device="cpu")
+    seeded = TE.ServingEngine(tcfg, tp, **kw)
+    recomp = TE.ServingEngine(tcfg, tp, seeded_prefill=False, **kw)
+    rs = _prefix_workload(tcfg.vocab_size)
+    rr = _prefix_workload(tcfg.vocab_size)
+    ss = seeded.serve(rs)
+    sr = recomp.serve(rr)
+    assert [r.output for r in rs] == [r.output for r in rr]
+    assert sr.prefill_tokens_computed == sr.prefill_tokens_total
+    assert ss.prefill_tokens_total == sr.prefill_tokens_total
+    assert ss.prefill_tokens_computed == ss.prefill_tokens_total - 3 * 32
+    assert ss.prefix_shared_blocks == sr.prefix_shared_blocks == 12
+    assert seeded.pool.leak_report() == {"unheld_blocks": 0,
+                                         "reserved_blocks": 0}
+    assert seeded.pool.free_blocks == seeded.pool.capacity
 
 
 def test_serve_blocking_matches_jax(weights):

@@ -30,7 +30,10 @@ distinct GoogLeNet conv shape at batch 1 and 8, split and unsplit, and a
 split conv gives the same bits launch after launch; K3's split body on
 the attention limit with NaN in every cache row at or past the length,
 and equal to K1's bit for bit on the cache read as a pool through a
-trivial table.  Training
+trivial table.  K1 and K2 on int8 pools (``mma_i8`` / ``fma_i8``): on the
+attention limit against the plain version in fp32 on the dequantized
+values, with NaN in the scales of every dead row, and bit for bit equal
+to the bf16 / fp32 body on the pool dequantized to q's type.  Training
 on the card: the smoke model's loss and gradients through the kernels
 within 1e-3 of each leaf's largest entry of those through the plain
 versions (the same fp32 arithmetic in other orders; the random model's
@@ -617,3 +620,96 @@ def test_dense_decode_split_equals_paged_split_on_a_trivial_table(cuda, D, H, K,
     assert table["decode_attention"].body_launches == {"mma": 1}
     assert table["paged_decode_attention"].body_launches == {"mma": 1}
     assert torch.equal(dense, paged)
+
+
+def _int8_operands(kp, vp, dtype):
+    from repro_torch.models.transformer import dequantize_kv, quantize_kv
+    (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+    return k8, v8, ks, vs, dequantize_kv(k8, ks, dtype), dequantize_kv(v8, vs, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,K", [(128, 16, 2), (64, 8, 2), (64, 32, 2)])
+@pytest.mark.parametrize("lengths", [(0, 1, 64, 65), (1056, 800, 512, 300)])
+def test_int8_paged_decode_matches_plain(cuda, dtype, D, H, K, lengths):
+    """K1 on an int8 pool, on the body its route takes (bf16 at G <= 8:
+    the split body; G = 16 and fp32: FMA), with NaN in the scales of every
+    dead row; the same bits as that body on the dequantized pool."""
+    from repro_torch.kernels.decode_attention.ops import body_for
+    B, bs = len(lengths), 16
+    mb = max(-(-n // bs) for n in lengths) + 1
+    g = torch.Generator(cuda).manual_seed(sum(lengths) + D + H)
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn((1 + B * mb, bs, K, D), generator=g, device=cuda)
+              for _ in range(2))
+    tables = (1 + torch.randperm(B * mb, generator=g, device=cuda)).reshape(B, mb).int()
+    for b, n in enumerate(lengths):
+        tables[b, -(-n // bs):] = 0
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    k8, v8, ks, vs, kd, vd = _int8_operands(kp, vp, dtype)
+    body = body_for(q, k8)
+    assert body == ("mma_i8" if dtype == torch.bfloat16 and H // K <= 8 else "fma_i8")
+    kern = dispatch.kernel_table()["paged_decode_attention"]
+    ref = kern.plain(q.float(), kd.float(), vd.float(), tables, lens)
+    _poison_dead_rows(ks, vs, tables, lens)
+    _poison_dead_rows(kd, vd, tables, lens)
+    dispatch.reset_counts()
+    out = kern.launch(q, k8, v8, tables, lens, k_scale=ks, v_scale=vs)
+    twin = kern.launch(q, kd, vd, tables, lens, body=body.removesuffix("_i8"))
+    torch.cuda.synchronize()
+    assert kern.body_launches == {body: 1, body.removesuffix("_i8"): 1}
+    assert torch.isfinite(out.float()).all()
+    assert kern.tolerance(out, ref) <= 1.0
+    assert torch.equal(out, twin)
+    if lengths[0] == 0:
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,K", [(128, 16, 2), (64, 8, 2)])
+@pytest.mark.parametrize("C,q_start", [(4, 9), (64, 27), (256, 256)])
+def test_int8_paged_prefill_matches_plain(cuda, dtype, D, H, K, C, q_start):
+    """K2 on an int8 pool, on the body its route takes (bf16: tensor
+    cores; fp32: FMA), with NaN in the scales of every dead row; the same
+    bits as that body on the dequantized pool."""
+    from repro_torch.kernels.prefill_attention.ops import body_for
+    bs = 16
+    mb = -(-(q_start + C) // bs) + 2
+    g = torch.Generator(cuda).manual_seed(C + q_start + D)
+    q = torch.randn((1, C, H, D), generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn((1 + mb, bs, K, D), generator=g, device=cuda) for _ in range(2))
+    tables = (1 + torch.randperm(mb, generator=g, device=cuda)).reshape(1, mb).int()
+    tables[0, -(-(q_start + C) // bs):] = 0
+    qs = torch.tensor([q_start], dtype=torch.int32, device=cuda)
+    lens = qs + C
+    k8, v8, ks, vs, kd, vd = _int8_operands(kp, vp, dtype)
+    body = body_for(q, k8)
+    assert body == ("mma_i8" if dtype == torch.bfloat16 else "fma_i8")
+    kern = dispatch.kernel_table()["paged_prefill_attention"]
+    ref = kern.plain(q.float(), kd.float(), vd.float(), tables, qs, lens)
+    _poison_dead_rows(ks, vs, tables, lens)
+    _poison_dead_rows(kd, vd, tables, lens)
+    out = kern.launch(q, k8, v8, tables, qs, lens, k_scale=ks, v_scale=vs)
+    twin = kern.launch(q, kd, vd, tables, qs, lens, body=body.removesuffix("_i8"))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert kern.tolerance(out, ref) <= 1.0
+    assert torch.equal(out, twin)
+
+
+def test_int8_launches_refuse_mismatched_operands(cuda):
+    """An int8 pool without scales, scales of the wrong shape or type, or a
+    bf16 body forced on an int8 pool raise before any launch."""
+    g, kp, vp, tables = _pool(cuda, torch.float32)
+    lens = torch.tensor([1, 16, 77], dtype=torch.int32, device=cuda)
+    q = torch.zeros((3, 8, 64), device=cuda, dtype=torch.bfloat16)
+    k8, v8, ks, vs, _, _ = _int8_operands(kp, vp, torch.bfloat16)
+    kern = dispatch.kernel_table()["paged_decode_attention"]
+    with pytest.raises(ValueError, match="int8 pool needs"):
+        kern.launch(q, k8, v8, tables, lens)
+    with pytest.raises(ValueError, match="k_scale has shape"):
+        kern.launch(q, k8, v8, tables, lens, k_scale=ks[:, :8], v_scale=vs)
+    with pytest.raises(ValueError, match="k_scale has dtype"):
+        kern.launch(q, k8, v8, tables, lens, k_scale=ks.double(), v_scale=vs)
+    with pytest.raises(ValueError, match="no 'mma' body"):
+        kern.launch(q, k8, v8, tables, lens, k_scale=ks, v_scale=vs, body="mma")

@@ -233,6 +233,28 @@ def test_contiguous_engine_matches_jax_engine(weights, slots):
     assert table["paged_decode_attention"].plain_calls == 0
 
 
+def test_contiguous_engine_int8_builds_bf16_caches_as_the_reference(weights):
+    """``cache_dtype="int8"`` on the contiguous path: the reference's
+    engine builds bf16 caches whatever ``cache_dtype`` says, and so does the
+    port (it never reaches the int8 refusal of the contiguous decode
+    attention); greedy tokens and counters equal the JAX engine's."""
+    cfg, jp, tcfg, tp = weights
+    je = JE.ServingEngine(cfg, jp, max_len=64, batch_slots=2, chunk=16,
+                          cache_dtype="int8")
+    jr = _requests(JE, JS, cfg.vocab_size)
+    js = je.serve(jr)
+    te = TE.ServingEngine(tcfg, tp, max_len=64, batch_slots=2, chunk=16,
+                          cache_dtype="int8", device="cpu")
+    tr = _requests(TE, TS, tcfg.vocab_size)
+    ts = te.serve(tr)
+    assert not te.paged
+    assert je._state.kv_k.dtype == jnp.bfloat16
+    assert te._state.kv_k.dtype == te._state.kv_v.dtype == torch.bfloat16
+    assert [r.output for r in tr] == [r.output for r in jr]
+    for name in COUNTERS:
+        assert getattr(ts, name) == getattr(js, name), name
+
+
 def test_engine_refuses_what_the_contiguous_path_does_not_carry(weights):
     _, _, tcfg, tp = weights
     with pytest.raises(ValueError, match="paged-KV"):

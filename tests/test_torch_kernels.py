@@ -1,8 +1,13 @@
 """The port's kernel wrappers on the CPU: each kernel's plain PyTorch version
 against the JAX oracle (``ref.py``) and against the Pallas TPU kernel run
 in interpret mode, on the same numpy inputs; plus the dispatch rules
-(CPU tensors take the plain version and are counted; int8 pools and
-non-CUDA tensors at the CUDA launcher raise; a missing nvcc raises).
+(CPU tensors take the plain version and are counted; an int8 pool without
+its scales, scales beside another pool, and non-CUDA tensors at the CUDA
+launcher raise; a missing nvcc raises).  K1 and K2 on int8 pools with fp32
+scales (``quantize_kv`` of the same numpy pool) are held against the
+Pallas kernels' quant branch and the JAX oracles at fp32 (atol 2e-5, the
+reference's own limit for its int8 paged kernels) and bf16 (2e-2), and
+their int8 routes (``mma_i8`` / ``fma_i8``) are pinned.
 The dense decode (K3) and flash (K4) plain versions are also held at a
 ragged S, which the Pallas kernels refuse, against ``chunked_attention``
 (K3 with lengths past S, as an idle serving slot has them); K5's are in
@@ -56,6 +61,7 @@ from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
+from repro_torch.models.transformer import quantize_kv
 
 torch.set_num_threads(1)
 
@@ -247,20 +253,138 @@ def test_cpu_tensors_take_the_counted_plain_version():
 
 
 def test_int8_pools_and_cpu_launches_raise():
+    """An int8 pool needs both its scales, and scales need an int8 pool
+    (the reference's ``quant = k_scale is not None`` cannot tell the cases
+    apart, so the port refuses them); CPU tensors at the CUDA launcher
+    raise."""
     _, kp, vp, tables = _pool(1, "float32")
     q = torch.zeros((2, H, D))
     lens = torch.tensor([3, 4], dtype=torch.int32)
     k8 = torch.zeros(kp.shape, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_decode_attention(q, k8, k8, torch.from_numpy(tables), lens)
-    with pytest.raises(NotImplementedError, match="int8"):
+    sc = torch.ones(kp.shape[:3])
+    tt = torch.from_numpy(tables)
+    with pytest.raises(ValueError, match="int8 pool needs"):
+        paged_decode_attention(q, k8, k8, tt, lens)
+    with pytest.raises(ValueError, match="int8 pool needs"):
+        paged_prefill_attention(q[:, None], k8, k8, tt, lens, lens)
+    with pytest.raises(ValueError, match="for an int8 pool"):
         paged_prefill_attention(q[:, None], torch.from_numpy(kp),
-                                torch.from_numpy(vp), torch.from_numpy(tables),
-                                lens, lens, k_scale=torch.ones(kp.shape[:3]))
+                                torch.from_numpy(vp), tt, lens, lens,
+                                k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="for an int8 pool"):
+        paged_decode_attention(q, torch.from_numpy(kp), torch.from_numpy(vp),
+                               tt, lens, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="come together"):
+        paged_decode_attention(q, k8, k8, tt, lens, k_scale=sc)
     dec = dispatch.kernel_table()["paged_decode_attention"]
     with pytest.raises(ValueError, match="on the card"):
-        dec.launch(q, torch.from_numpy(kp), torch.from_numpy(vp),
-                   torch.from_numpy(tables), lens)
+        dec.launch(q, torch.from_numpy(kp), torch.from_numpy(vp), tt, lens)
+    pre = dispatch.kernel_table()["paged_prefill_attention"]
+    with pytest.raises(ValueError, match="on the card"):
+        pre.launch(q[:, None], k8, k8, tt, lens, lens, k_scale=sc, v_scale=sc)
+
+
+def _quant_pool(kp, vp):
+    """The same numpy pool quantized by the reference and by the port:
+    ((jax k, v, k_scale, v_scale), (torch ...)), bit for bit equal."""
+    from repro.models.transformer import quantize_kv as jax_quantize_kv
+    jk, jks = jax_quantize_kv(jnp.asarray(kp))
+    jv, jvs = jax_quantize_kv(jnp.asarray(vp))
+    tk, tks = quantize_kv(torch.from_numpy(kp))
+    tv, tvs = quantize_kv(torch.from_numpy(vp))
+    for j, t in ((jk, tk), (jks, tks), (jv, tv), (jvs, tvs)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    return (jk, jv, jks, jvs), (tk, tv, tks, tvs)
+
+
+# (lengths of 3 sequences, H, D): block boundaries and a length-0 row at
+# the smoke heads (G = 2, D = 64: K1's split route at bf16); qwen2.5-3b's
+# heads (G = 8, D = 128, the serving route); G = 16 (K1's FMA route at bf16)
+INT8_DECODE_CASES = [((37, 0, 64), 4, 64), ((15, 16, 17), 16, 128),
+                     ((1, 33, 64), 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths,heads,hd", INT8_DECODE_CASES)
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_int8_paged_decode_plain_matches_jax(dtype, lengths, heads, hd,
+                                             softcap):
+    """K1's plain version on an int8 pool (rows dequantized to q's type
+    before both products) equals the JAX oracle and the Pallas kernel's
+    quant branch (interpret mode): ragged lengths, a length-0 row, trash
+    entries past the live blocks in a poisoned trash block."""
+    rng = np.random.default_rng(sum(lengths) + heads)
+    B, N = len(lengths), 1 + len(lengths) * MB
+    kp = rng.standard_normal((N, BS, K, hd)).astype(np.float32)
+    vp = rng.standard_normal((N, BS, K, hd)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4                  # the trash block: never attended
+    tables = (1 + rng.permutation(B * MB).reshape(B, MB)).astype(np.int32)
+    for b, n in enumerate(lengths):
+        tables[b, -(-n // BS):] = 0
+    q = rng.standard_normal((B, heads, hd)).astype(np.float32)
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _quant_pool(kp, vp)
+    jq, tq = _both(q, dtype)
+    lens = np.asarray(lengths, np.int32)
+    jt, tt = jnp.asarray(tables), torch.from_numpy(tables)
+    jl, tl = jnp.asarray(lens), torch.from_numpy(lens)
+    out = paged_decode_attention(tq, tk, tv, tt, tl, k_scale=tks, v_scale=tvs,
+                                 softcap=softcap)
+    assert out.shape == (B, heads, hd) and out.dtype == tq.dtype
+    assert torch.isfinite(out.float()).all()
+    _close(out, jax_decode_ref(jq, jk, jv, jt, jl, k_scale=jks, v_scale=jvs,
+                               softcap=softcap), dtype)
+    _close(out, jax_pallas_decode(jq, jk, jv, jt, jl, k_scale=jks, v_scale=jvs,
+                                  softcap=softcap, interpret=True), dtype)
+    for b, n in enumerate(lengths):
+        if n == 0:                           # fully masked row -> 0, not NaN
+            assert (out[b] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,q_start,mb", PREFILL_CASES)
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_int8_paged_prefill_plain_matches_jax(dtype, C, q_start, mb, softcap):
+    """K2's plain version on an int8 pool equals the JAX oracle and the
+    Pallas kernel's quant branch (interpret mode): causal against absolute
+    positions over a partly seeded table, trash entries poisoned."""
+    rng, kp, vp, tables = _pool(5, dtype)
+    tables = np.ascontiguousarray(tables[:, :mb])
+    qs = np.asarray(q_start, np.int32)
+    lens = qs + C
+    for b, n in enumerate(lens):
+        tables[b, -(-n // BS):] = 0
+    q = rng.standard_normal((2, C, H, D)).astype(np.float32)
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _quant_pool(kp, vp)
+    jq, tq = _both(q, dtype)
+    jt, tt = jnp.asarray(tables), torch.from_numpy(tables)
+    args_j = (jt, jnp.asarray(qs), jnp.asarray(lens))
+    args_t = (tt, torch.from_numpy(qs), torch.from_numpy(lens))
+    out = paged_prefill_attention(tq, tk, tv, *args_t, k_scale=tks,
+                                  v_scale=tvs, softcap=softcap)
+    assert out.shape == (2, C, H, D) and out.dtype == tq.dtype
+    _close(out, jax_prefill_ref(jq, jk, jv, *args_j, k_scale=jks,
+                                v_scale=jvs, softcap=softcap), dtype)
+    _close(out, jax_pallas_prefill(jq, jk, jv, *args_j, k_scale=jks,
+                                   v_scale=jvs, softcap=softcap,
+                                   interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 8, 16])
+def test_int8_routes_by_dtype_head_dim_and_group(dtype, D, G):
+    """On an int8 pool K1 and K2 take their int8 bodies by their own rules:
+    K1 bf16 at D = 64 or 128 with G <= 8 on the split body (``mma_i8``),
+    K2 bf16 at D = 64 or 128 on the tensor cores (``mma_i8``), everything
+    else -- every fp32 call -- on the FMA bodies (``fma_i8``)."""
+    K = 2
+    pool = torch.zeros((5, 16, K, D), dtype=torch.int8)
+    mma = dtype == torch.bfloat16 and D in (64, 128)
+    q = torch.zeros((3, G * K, D), dtype=dtype)
+    assert decode_body_for(q, pool) == ("mma_i8" if mma and G <= 8 else "fma_i8")
+    qc = torch.zeros((1, 4, G * K, D), dtype=dtype)
+    assert prefill_body_for(qc, pool) == ("mma_i8" if mma else "fma_i8")
+    assert prefill_body_for(qc, pool.to(dtype)) == prefill_body_for(qc)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -4,7 +4,12 @@ two prompts -- the second seeded from the first one's prefix blocks --
 then batched decode steps, comparing logits *and* pool contents.
 
 Tolerances: fp32 compute with an fp32 pool, rtol 1e-4 (same arithmetic,
-other summation order).  bf16 compute with a bf16 pool: within 5e-2 of
+other summation order).  fp32 compute with an int8 pool: logits the same
+(rtol 1e-4, atol 1e-4), the int8 pools equal or one quantization step
+apart where a K/V element sat on a rounding edge (the count is asserted
+against and reported), the scales to rtol 1e-5 (absmax of K/V rows that
+differ in their last bits).  ``quantize_kv`` / ``dequantize_kv`` are
+held bit for bit.  bf16 compute with a bf16 pool: within 5e-2 of
 the largest magnitude (logits, pool rows).  Relative, because one bf16
 ulp at the logits' magnitude (~10) is 0.0625: XLA's fused elementwise ops
 (e.g. silu) round at other points than PyTorch's, and each one-ulp flip
@@ -22,7 +27,7 @@ from repro.configs import registry as JR
 from repro.models import transformer as JT
 from repro.models.registry import fns_for as jax_fns
 from repro_torch.configs import registry as TR
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import fns_for
@@ -37,12 +42,12 @@ def _f32(a):
                       else jnp.asarray(a).astype(jnp.float32))
 
 
-def _run(mod, cfg, params, tensor, steps):
+def _run(mod, cfg, params, tensor, steps, cache_dtype=None):
     """Drive ``mod`` (the JAX or the torch transformer) through the same
-    chunk / decode schedule; ``tensor`` makes its int arrays."""
+    chunk / decode schedule; ``tensor`` makes its int arrays.  The pool is
+    in the compute dtype unless ``cache_dtype`` names another."""
     cache = mod.make_paged_cache(cfg, 1 + 10, BS, 2, MB,
-                                 "float32" if cfg.compute_dtype == "float32"
-                                 else "bfloat16", **(
+                                 cache_dtype or cfg.compute_dtype, **(
                                      {"device": "cpu"} if mod is T else {}))
     logits = []
     for tokens, wids, table, q_start, kv_len, last in steps["prefill"]:
@@ -150,12 +155,91 @@ def test_bf16_crosses_by_bitcast():
 
 
 def test_int8_cache_and_verify_layout_raise():
+    """An int8 pool reaching the decode or prefill attention without its
+    scales raises (the cache's layers must hand them over), and so does
+    the verify write layout (``write_ids=None``), not ported yet."""
     cfg = TR.smoke("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="int8"):
-        T.make_paged_cache(cfg, 4, BS, 1, 2, "int8", device="cpu")
-    cache = T.make_paged_cache(cfg, 4, BS, 1, 2, "float32", device="cpu")
+    q8 = T.make_paged_cache(cfg, 4, BS, 1, 2, "int8", device="cpu")
     x = torch.zeros((1, BS, cfg.num_heads, cfg.resolved_head_dim))
+    kv = torch.ones((1, BS, cfg.num_kv_heads, cfg.resolved_head_dim))
+    with pytest.raises(ValueError, match="int8 pool needs"):
+        T._paged_attend(cfg, x[:, :1], kv[:, :1], kv[:, :1], q8.k[0],
+                        q8.v[0], None, q8.block_tables, q8.length, 1024)
+    with pytest.raises(ValueError, match="int8 pool needs"):
+        T._paged_prefill_attend(cfg, x, kv, kv, q8.k[0], q8.v[0], None,
+                                torch.tensor([1]), q8.block_tables,
+                                q8.length, q8.length + BS, 1024)
+    assert not q8.k.any()                    # refused before any write
+    cache = T.make_paged_cache(cfg, 4, BS, 1, 2, "float32", device="cpu")
     with pytest.raises(NotImplementedError, match="write_ids=None"):
         T._paged_prefill_attend(cfg, x, x, x, cache.k[0], cache.v[0], None,
-                                cache.block_tables, cache.length,
+                                None, cache.block_tables, cache.length,
                                 cache.length, 1024)
+
+
+def _int8_inputs():
+    """fp32 rows with exact .5 ties of x / scale (scale 1: amax 127), an
+    all-zero row (scale 1e-6 / 127), rows at +-amax, random rows."""
+    rng = np.random.default_rng(4)
+    x = (3 * rng.standard_normal((5, 3, 64))).astype(np.float32)
+    x[0, 0] = 0.0
+    x[0, 1, 0], x[0, 1, 1:] = 127.0, np.arange(63) % 9 - 4.5
+    x[0, 2, 0], x[0, 2, 1] = -12.7, 12.7
+    x[1, 0] = np.where(np.arange(64) % 2, 5.0, -5.0)
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quantize_kv_matches_reference_bit_for_bit(dtype):
+    """``quantize_kv`` gives the reference's int8 values and fp32 scales bit
+    for bit on the same input (round half to even, the 1e-6 floor, the
+    clip), and ``dequantize_kv`` its values."""
+    x = jnp.asarray(_int8_inputs()).astype(dtype)
+    jq, js = JT.quantize_kv(x)
+    tq, ts = T.quantize_kv(tensor_from_numpy(np.asarray(x)))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    assert tq[0, 0].abs().max() == 0 and ts[0, 0] == np.float32(1e-6) / 127
+    np.testing.assert_array_equal(tq[0, 1, :10].numpy(),
+                                  [127, -4, -4, -2, -2, 0, 0, 2, 2, 4])
+    for out in (jnp.float32, jnp.bfloat16):
+        jd = JT.dequantize_kv(jq, js, out)
+        td = T.dequantize_kv(tq, ts, torch.float32 if out == jnp.float32
+                             else torch.bfloat16)
+        np.testing.assert_array_equal(_f32(td), _f32(jd))
+
+
+def test_int8_prefill_then_decode_matches_jax():
+    """The int8 pool through the same chunked prefill (a seeded prefix) and
+    decode schedule as above, fp32 compute: logits, the quantized pools and
+    their scales against the reference's ``QuantPagedKVCache``."""
+    jcfg = JR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
+    tcfg = TR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
+    jp = jax_fns(jcfg).init(jcfg, jax.random.PRNGKey(0))
+    tp = T.prepare_params(tcfg, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp)))
+    steps = _schedule(jcfg.vocab_size)
+    jl, jc = _run(JT, jcfg, jp, jnp.asarray, steps, "int8")
+    dispatch.reset_counts()
+    tl, tc = _run(T, tcfg, tp, torch.from_numpy, steps, "int8")
+    assert isinstance(tc, T.QuantPagedKVCache) and tc.k.dtype == torch.int8
+    table = dispatch.kernel_table()
+    assert table["paged_prefill_attention"].plain_calls == 3 * tcfg.num_layers
+    assert table["paged_decode_attention"].plain_calls == 3 * tcfg.num_layers
+    for t, j in zip(tl, jl):
+        np.testing.assert_allclose(_f32(t), _f32(j), rtol=1e-4, atol=1e-4)
+    # every block but the trash block (padding rows race there)
+    for name in ("k", "v"):
+        t = getattr(tc, name)[:, 1:].numpy().astype(np.int32)
+        j = np.asarray(getattr(jc, name))[:, 1:].astype(np.int32)
+        steps_apart = np.abs(t - j)
+        print(f"int8 {name} pool: {int((steps_apart > 0).sum())} of "
+              f"{t.size} values one step apart")
+        assert steps_apart.max() <= 1 and (steps_apart > 0).mean() < 1e-3
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(getattr(tc, name)[:, 1:].numpy(),
+                                   np.asarray(getattr(jc, name))[:, 1:],
+                                   rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
