@@ -94,7 +94,9 @@ Phases (each one raises on failure; the script then exits non-zero):
    fp32 on the same values) at zamba2-1.2b widths -- K5 at B=1, H=64,
    N=P=64, chunk 128, S 1000 and 1024, B/C as a stride-0 head view, y and
    the final state (limit ``SSM_RTOL`` of the largest |ref|), plus per-head
-   q/k at H=4, N=P=128; K4 at S 1000 and 1024 on ``K4_SHAPES`` (zamba2's
+   q/k at H=4, N=P=128; fp32 on the FMA body, bf16 on both (the route's
+   tensor-core ``mma`` body, launched twice for the same bits, and FMA);
+   K4 at S 1000 and 1024 on ``K4_SHAPES`` (zamba2's
    H=K=32, D=64 and qwen2.5-3b's H=16, K=2, D=128; bf16 on the
    tensor-core body, fp32 on the FMA body); K3 on ``DENSE_DECODE_CASES``
    (zamba2's B=4, S=1088, lengths 1033/700/257/1200, the last past S as
@@ -102,16 +104,16 @@ Phases (each one raises on failure; the script then exits non-zero):
    heads) -- bf16 on the split body, fp32 on the FMA body, each as made
    and with NaN in every cache row at or past the length -- at fp32 and
    bf16, then each timed in bf16 beside its bound, its plain version and
-   (K3, K4) ``scaled_dot_product_attention`` on the same tensors (K3 on
-   both bodies, and its host time per call); K4 also at qwen2.5-3b's
-   heads, S=1024, printed.
+   (K3, K4) ``scaled_dot_product_attention`` on the same tensors (K3 and
+   K5 on both bodies and their host time per call, K5's bound per body's
+   rate); K4 also at qwen2.5-3b's heads, S=1024, printed.
 10. zamba2 serving: zamba2-1.2b at full width (38 layers: 6 segments of 6
    Mamba-2 layers and the shared attention block, a 2-layer tail), bf16,
    random weights from seed 0, through the contiguous ``ServingEngine``:
    4 slots, ``max_len`` 1088, 8 greedy requests of 203-1000 prompt tokens
    (none a multiple of 128), 32 new tokens each.  Launch counts zeroed
-   just before and read just after, held exactly: K5 38 per prefill, K4 6
-   per prefill (every one on the tensor-core body), K3 6 per decode step
+   just before and read just after, held exactly: K5 38 per prefill and
+   K4 6 per prefill (every one on the tensor-core body), K3 6 per decode step
    (every one on the split body),
    K7 by body (the bf16 products on wgmma, the fp32 LM head on FMA), no
    plain call.  tok/s, TTFT, TPOT,
@@ -236,7 +238,7 @@ DENSE_DECODE_CASES = (((1033, 700, 257, 1200), ZAMBA_MAX_LEN, 32, 32, 64),
                       ((0, 1, 64, 65), ZAMBA_MAX_LEN, 32, 32, 64),
                       ((999, 1000, 5, 2000), 1000, 32, 32, 64),
                       ((1033, 700, 257, 1200), ZAMBA_MAX_LEN, 16, 2, 128))
-FP32_FLOPS = 67e12             # H100 SXM fp32 on the CUDA cores (K5's arithmetic)
+FP32_FLOPS = 67e12             # H100 SXM fp32 on the CUDA cores (K5's FMA body)
 # fp32 path check of zamba2, kernels vs plain versions, by depth (6: one
 # segment and one shared-block application; 13: two and a 1-layer tail):
 # limits on the largest logit difference relative to the largest logit,
@@ -1238,6 +1240,7 @@ def hybrid_kernel_phase(torch, table) -> dict:
     from repro_torch.kernels.decode_attention.ops import dense_body_for
     from repro_torch.kernels.dispatch import SSM_RTOL
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
+    from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
     ssm, fla, dec = (table[n] for n in HYBRID_KERNELS)
     timer = Timer(torch)
 
@@ -1245,18 +1248,33 @@ def hybrid_kernel_phase(torch, table) -> dict:
         poison_cache_rows(torch, *args)
 
     errs = {n: {} for n in HYBRID_KERNELS}
+    ssm_cases = [(f"B=1 S={S} H=64 N=P=64 shared B/C h0={with_state}", S,
+                  dict(with_state=with_state)) for S, with_state in ((1000, True),
+                                                                      (1024, False))]
+    ssm_cases.append(("B=1 S=1000 H=4 N=P=128 per-head q/k", 1000,
+                      dict(H=4, N=128, P=128, shared=False, with_state=True)))
     for dtype in (torch.float32, torch.bfloat16):
-        e = []
-        for S, with_state in ((1000, True), (1024, False)):
-            args, h0 = ssm_case(torch, S, dtype, with_state=with_state)
-            e.append(hold(torch, ssm, args, f"B=1 S={S} H=64 N=P=64 shared B/C "
-                          f"h0={with_state} (limit {SSM_RTOL} of max|ref|)",
-                          chunk=128, initial_state=h0))
-        args, h0 = ssm_case(torch, 1000, dtype, H=4, N=128, P=128, shared=False,
-                            with_state=True)
-        e.append(hold(torch, ssm, args, "B=1 S=1000 H=4 N=P=128 per-head q/k",
-                      chunk=128, initial_state=h0))
+        e, e_fma = [], []
+        for label, S, case in ssm_cases:
+            args, h0 = ssm_case(torch, S, dtype, **case)
+            route = ssm_body_for(*args[:3])
+            if (route == "mma") != (dtype == torch.bfloat16):
+                raise AssertionError(f"ssm_scan {label} {dtype}: route {route}")
+            label += f" (limit {SSM_RTOL} of max|ref|)"
+            e.append(hold(torch, ssm, args, f"{label} body={route}", chunk=128,
+                          initial_state=h0))
+            if route == "mma":
+                e_fma.append(hold(torch, ssm, args, f"{label} body=fma", chunk=128,
+                                  initial_state=h0, body="fma"))
+                twice = [ssm.launch(*args, chunk=128, initial_state=h0) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*twice)):
+                    raise AssertionError(f"ssm_scan {label}: two launches of the mma body "
+                                         f"differ")
+                log(f"ssm_scan {label} body=mma: two launches, the same bits")
         errs["ssm_scan"][dtype] = max(e)
+        if e_fma:
+            errs["ssm_scan"]["fma bf16"] = max(e_fma)
         e = []
         for B, H, K, D in K4_SHAPES:
             for S in K4_S:
@@ -1273,14 +1291,21 @@ def hybrid_kernel_phase(torch, table) -> dict:
                               f"{' NaN past the lengths' if poison else ''}", poison=poison))
         errs["decode_attention"][dtype] = max(e)
     out = {}
-    # K5, bf16 operands as zamba2's prefill gives them: S = 1000, no state in
+    # K5, bf16 operands as zamba2's prefill gives them: S = 1000, no state
+    # in; both bodies, each with the bound at its own rate (the route's, the
+    # tensor cores' bf16, in bound_ms; the FMA body's fp32, computed and
+    # printed beside it, not in the kernel line), and the host's time a call
     args, _ = ssm_case(torch, 1000, torch.bfloat16)
     nbytes, flops = ssm_work(1000)
+    shape = "B=1 S=1000 H=64 N=P=64 chunk 128, bf16 in, fp32 out (one Mamba layer)"
     out["ssm_scan"] = dict(
         ms=timer(lambda: ssm.launch(*args, chunk=128)),
+        fma_ms=timer(lambda: ssm.launch(*args, chunk=128, body="fma")),
         plain_ms=timer(lambda: ssm.plain(*args, chunk=128)), library_ms=None,
-        bytes=nbytes, flops=flops, peak=FP32_FLOPS,
-        shape="B=1 S=1000 H=64 N=P=64 chunk 128, bf16 in, fp32 out (one Mamba layer)")
+        bytes=nbytes, flops=flops, peak=BF16_FLOPS,
+        fma_bound_ms=bound(nbytes, flops, FP32_FLOPS)[0],
+        shape=f"{shape} body={ssm_body_for(*args[:3])}")
+    host_cost(torch, ssm, args, "ssm_scan", shape, lambda: ssm_body_for(*args[:3]))
     # K4, the shared block's prefill at S = 1000
     q, k, v = dense_case(torch, 1000, torch.bfloat16)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1330,6 +1355,7 @@ def hybrid_kernel_phase(torch, table) -> dict:
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], r.pop("peak"))
         r["max_abs_err"] = errs[name][torch.bfloat16]
         r["max_abs_err_fp32"] = errs[name][torch.float32]
+    out["ssm_scan"]["max_abs_err_fma_bf16"] = errs["ssm_scan"]["fma bf16"]
     return out
 
 
@@ -1387,13 +1413,15 @@ def hybrid_serving_phase(torch, np, table) -> dict:
     if got != want or plain or stats.prefills != len(reqs):
         raise AssertionError(f"zamba2 launches {got}, expected {want}; plain calls "
                              f"{plain}; prefills {stats.prefills}")
-    # bf16 products on the tensor cores, the fp32 LM head on FMA; every K4
-    # launch (D = 64, bf16) on the tensor-core body, every K3 launch (D = 64,
-    # G = 1, bf16) on the split body
+    # bf16 products on the tensor cores, the fp32 LM head on FMA; every K5
+    # launch (bf16, N = P = 64) and every K4 launch (D = 64, bf16) on the
+    # tensor-core body, every K3 launch (D = 64, G = 1, bf16) on the split
+    # body
     calls = stats.prefills + stats.decode_steps
     bodies = {n: dict(table[n].body_launches)
-              for n in ("matmul", "flash_attention", "decode_attention")}
+              for n in ("matmul", "ssm_scan", "flash_attention", "decode_attention")}
     want_bodies = {"matmul": {"wgmma": (per_call - 1) * calls, "fma": calls},
+                   "ssm_scan": {"mma": want["ssm_scan"]},
                    "flash_attention": {"mma": want["flash_attention"]},
                    "decode_attention": {"mma": want["decode_attention"]}}
     if bodies != want_bodies:
@@ -1431,7 +1459,8 @@ def hybrid_profile(torch, np, eng, Request, greedy):
     if not busy:
         raise AssertionError("zamba2 profile: the profiler saw no device time")
     mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
-            ("ssm_scan_kernel", "flash_mma_kernel", "flash_kernel", "decode_split_kernel",
+            ("ssd_sums_kernel", "ssd_pass_kernel", "ssd_out_kernel", "ssm_scan_kernel",
+             "flash_mma_kernel", "flash_kernel", "decode_split_kernel",
              "decode_merge_kernel", "dense_decode_kernel", "matmul_wgmma_kernel",
              "matmul_kernel")}
     log(f"zamba2 profile: wall={wall:.3f}s device_busy={busy:.3f}s "
@@ -2242,6 +2271,8 @@ def main() -> int:
                     f"{r['sdpa_dequantized_ms']:.4f}ms; the bf16 body on them "
                     f"{r['bf16_body_ms']:.4f}ms)")
         fma = f" (fma body {r['fma_ms']:.4f}ms)" if "fma_ms" in r else ""
+        if "fma_bound_ms" in r:
+            fma = f" (fma body {r['fma_ms']:.4f}ms, its bound {r['fma_bound_ms']:.4f}ms)"
         log(f"{name} at {r['shape']}: kernel {r['ms']:.4f}ms{fma} plain {r['plain_ms']:.4f}ms "
             f"library {lib} bound {r['bound_ms']:.4f}ms "
             f"({r['bound_by']}; {r['bytes']:.0f} B, {r['flops']:.0f} flop) on {card}; "

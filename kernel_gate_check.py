@@ -36,8 +36,11 @@ scales (as if each were 1); the split body of the decode kernels
 split, or its merge drops split 0's partial; the conv kernel's FMA body
 loses its first 32-deep K chunk, its tensor-core body its first 64-deep
 chunk, its split-K reduction slice 0's partial, or its loader (both
-bodies) the centre tap of the window; the scan (K5) drops the state
-carried into the next chunk; the flash kernel (K4) skips the diagonal KV
+bodies) the centre tap of the window; the scan's (K5's) FMA body drops
+the state carried into the next chunk, its tensor-core body drops it in
+the state passing (phase (b)), or loses the lo half of the weighted
+scores (Q K^T o W as bf16 hi alone: a precision loss, no lost term), each
+of those two required to fail every case by 8x or more; the flash kernel (K4) skips the diagonal KV
 tile, in its FMA body and in its tensor-core body; the dense decode
 kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
@@ -52,7 +55,7 @@ fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
 fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
 broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
-for conv; K4's, K3's and K6's FMA bodies: fp32; K6's reduction: the cases
+for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; K6's reduction: the cases
 cut into K slices; K7's FMA body: fp32
 and the 16-bit cases TMA cannot read; its wgmma body: bf16 and fp16 --
 for a kernel of two bodies, only the cases its route sends to the broken
@@ -87,6 +90,10 @@ CONV_TAP = "  return true;  // every tap contributes"
 CONV_SKIP_TAP = "  return tap != s.KH * s.KW / 2;  // the centre tap is lost"
 SSM_CARRY = "hs[n * PT + p] = decay * hs[n * PT + p] + s;"
 SSM_DROP_CARRY = "hs[n * PT + p] = s;  // the carried state is dropped"
+SSD_CARRY = "h = expf(totals[at]) * h + s;"
+SSD_DROP_CARRY = "h = s;  // the carried state is dropped"
+SSD_PARTS = "for (int part = 0; part < 2; ++part) {"
+SSD_LOSE_LO = "for (int part = 0; part < 1; ++part) {  // the lo half is lost"
 TILE_LOOP = "for (int it = 0; it < ntile; ++it) {"
 SKIP_DIAGONAL = "for (int it = 0; it < ntile - causal; ++it) {"
 SKIP_LAST_TILE = "for (int it = 0; it < ntile - 1; ++it) {"
@@ -122,10 +129,11 @@ K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
                  ("dW = X^T @ dY, N cut to 512", 2048, 513, 512, "x.T"))
 # (source file in csrc/, text, replacement, what the broken copy does, the
 # kernels it feeds: (kernel, the types whose every case it must fail, the
-# cases that count)).  The cases that count are those the route sends to
-# the broken body (None: every case; "split": K6's cases cut into K
-# slices), and for the paged kernels' FMA bodies only the cases with more
-# than two live pool blocks, since the short ones have no block 0 to skip.
+# cases that count[, the least err/limit that counts as failing, 1 if not
+# given])).  The cases that count are those the route sends to the broken
+# body (None: every case; "split": K6's cases cut into K slices), and for
+# the paged kernels' FMA bodies only the cases with more than two live
+# pool blocks, since the short ones have no block 0 to skip.
 ALL = ("float32", "float16", "bfloat16")
 MUTANTS = (
     ("paged_decode_attention.cu", LOOP, SKIP_BLOCK_0,
@@ -161,8 +169,14 @@ MUTANTS = (
     ("conv2d.cu", CONV_TAP, CONV_SKIP_TAP, "both bodies' loader: loses the centre tap of "
      "the window", (("conv2d", ALL, None),)),
     ("ssm_scan.cu", SSM_CARRY, SSM_DROP_CARRY,
-     "drops the state carried into the next chunk",
-     (("ssm_scan", ("float32", "bfloat16"), None),)),
+     "FMA body: drops the state carried into the next chunk",
+     (("ssm_scan", ("float32",), "fma"),)),
+    ("ssm_scan.cu", SSD_CARRY, SSD_DROP_CARRY,
+     "tensor-core body: the state passing drops the state carried into each chunk",
+     (("ssm_scan", ("bfloat16",), "mma", 8),)),
+    ("ssm_scan.cu", SSD_PARTS, SSD_LOSE_LO,
+     "tensor-core body: the weighted scores lose their lo half (bf16 hi alone)",
+     (("ssm_scan", ("bfloat16",), "mma", 8),)),
     ("flash_attention.cu", TILE_LOOP, SKIP_DIAGONAL,
      "FMA body: skips the diagonal KV tile when causal",
      (("flash_attention", ("float32", "bfloat16"), "fma"),)),
@@ -386,7 +400,7 @@ def matmul_cpu_check(torch) -> None:
 
 def card_check() -> None:
     if sys.argv[2:3] == ["--mutant"]:
-        return mutant_gate(*sys.argv[3:7])
+        return mutant_gate(*sys.argv[3:8])
     missed = []
     for source, text, broken, what, feeds in MUTANTS:
         with tempfile.TemporaryDirectory() as d:
@@ -397,10 +411,11 @@ def card_check() -> None:
             if code.count(text) != 1:
                 raise SystemExit(f"{source}: {text!r} not found once")
             path.write_text(code.replace(text, broken))
-            for name, serves, body in feeds:
+            for name, serves, body, *least in feeds:
                 print(f"=== mutant: {source} {what}; held on {name}", flush=True)
                 run = subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name,
-                                      ",".join(serves), body or ""])
+                                      ",".join(serves), body or "", str(least[0] if least
+                                                                        else 1)])
                 if run.returncode:
                     missed.append(f"{source} ({name}): {what}")
     if missed:
@@ -408,7 +423,8 @@ def card_check() -> None:
                          "run): " + "; ".join(missed))
 
 
-def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> None:
+def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
+                least: str = "1") -> None:
     sys.path.insert(0, d + "/src")
     import torch
     import chip_smoke as cs
@@ -418,6 +434,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
     from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
+    from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
     build.build([name])
     kern = dispatch.kernel_table()[name]
 
@@ -433,6 +450,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
                "paged_decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
                "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0],
                                                                              args[1])},
+               "ssm_scan": lambda args, kw: {ssm_body_for(*args[:3])},
                "conv2d": conv_tags}.get(name, lambda args, kw: set())
     # a paged FMA body's broken loop changes only cases with a row that sees
     # more than two pool blocks (the lengths are the last operand)
@@ -488,6 +506,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
             return made
         cases = [(label + " int8 pool", on_int8(make), kw) for label, make, kw in cases]
     must_fail = set(filter(None, serves.split(",")))
+    least = float(least)
     caught = True
     for dtype in dtypes:
         failed, served, missed = [], 0, 0
@@ -509,14 +528,15 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "") -> N
             if str(dtype)[6:] in must_fail and (not broken_body or broken_body in tags) \
                     and long:
                 served += 1
-                missed += ratio <= 1
+                missed += not (ratio > 1 and ratio >= least)
             print(f"  {label} {str(dtype)[6:]}{f' runs {sorted(tags)}' if tags else ''}: "
                   f"err/limit {ratio:.2f}{'' if ratio > 1 else '  (passes the gate)'}",
                   flush=True)
         print(f"  {str(dtype)[6:]}: {len(failed)} of {len(cases)} cases fail the "
               f"gate, least err/limit among them {min(failed, default=0):.2f}"
-              + (f"; {served} on the broken body, each of which must fail: "
-                 f"{served - missed} do" if str(dtype)[6:] in must_fail else ""),
+              + (f"; {served} on the broken body, each of which must fail"
+                 + (f" by {least:g}x or more" if least > 1 else "")
+                 + f": {served - missed} do" if str(dtype)[6:] in must_fail else ""),
               flush=True)
         if missed:
             caught = False

@@ -21,24 +21,54 @@
 // B and C, one group shared by every head, arrive as a stride-0 head view
 // instead of a copy per head.
 //
-// What bounds it on an H100: operations.  At zamba2-1.2b's prefill (B=1,
-// S=1000, H=64, N=P=64, chunk 128) one layer does ~3.2 GFLOP of fp32
-// products on ~27 MB of inputs and outputs: 0.05 ms at the 67 TFLOP/s fp32
-// rate, 0.008 ms of bytes.
+// What bounds it on an H100.  At zamba2-1.2b's prefill (B=1, S=1000, H=64,
+// N=P=64, chunk 128) one layer does 2.08 GFLOP of products on 26.4 MB of
+// inputs and outputs: on the CUDA cores' fp32 rate (67 TFLOP/s) the
+// operations bound it at 0.031 ms; on the tensor cores' bf16 rate the
+// bytes do, 0.008 ms.
 //
-// Design (simple and right first): the Pallas grid's sequential chunk axis
-// becomes a loop inside one block per (sequence, head, 32 columns of P):
-// the columns of the state are independent in both y and the update, so
-// splitting P gives 128 blocks at zamba2's B=1 where one block per head
-// would give 64.  Per chunk the block stages q (Q x N), k transposed
-// (N x Q, padded a column against bank conflicts), its v columns (Q x 32)
-// and the scores (Q x Q) in shared memory as fp32, and keeps its (N x 32)
-// slice of the state there across chunks.  Every product is fp32 FMA on
-// the CUDA cores; tensor cores, TMA and a chunk-parallel scan are later
-// work.
+// Two bodies; the wrapper (kernels/ssm_scan/ops.py::body_for) picks one
+// before the launch.
+//
+// FMA body (every fp32 call; simple and right first): the Pallas grid's
+// sequential chunk axis becomes a loop inside one block per (sequence,
+// head, 32 columns of P): the columns of the state are independent in both
+// y and the update, so splitting P gives 128 blocks at zamba2's B=1 where
+// one block per head would give 64.  Per chunk the block stages q (Q x N),
+// k transposed (N x Q, padded a column against bank conflicts), its v
+// columns (Q x 32) and the scores (Q x Q) in shared memory as fp32, and
+// keeps its (N x 32) slice of the state there across chunks.  Every
+// product is fp32 FMA on the CUDA cores.
+//
+// Tensor-core body (bf16 q/k/v at N = P in {16, 32, 64, 128}): the SSD
+// decomposition (Dao & Gu 2024, sec. 6), so no block walks the chunks in
+// order.  One call enqueues three launches on the stream:
+//   (a) chunk sums: one block per (chunk, head) computes S_c = (k o wk)^T v
+//       (N x P) and total_c;
+//   (b) state passing: one thread per state element walks the chunks,
+//       H_c = exp(total_c) H_{c-1} + S_c, in the reference's order, and
+//       writes the state entering each chunk and the final state;
+//   (c) chunk outputs: one block per (chunk, head) computes
+//       y = (Q K^T o W) V + diag(exp(min(cum, 30))) Q H_{c-1}.
+// At zamba2's prefill that is 512 (chunk, head) tiles in (a) and (c)
+// against the FMA body's 128 serial blocks.  Every product runs as
+// mma.sync m16n8k16 on bf16 operands into fp32.  Q K^T is exact that way
+// (bf16 x bf16 products are exact in fp32); the other three products each
+// have an fp32 operand -- Q K^T o W, the state H_{c-1}, k o wk -- which one
+// rounding to bf16 would move by 2^-9 a term (~20x the 1e-4 limit of
+// max|ref|), so each is split into bf16 hi + lo (lo = bf16(x - hi)) and
+// both halves go through the tensor cores into one fp32 accumulator: 2^-18
+// a term.  q/k/v tiles land in swizzled shared memory by 16-byte cp.async;
+// a stride-0 q/k head view is read through its strides, each block
+// staging its chunk's rows of the one shared group.  The per-chunk states
+// (fp32 sums, and the entering states as bf16 hi/lo) go through device
+// memory, 8.4 MB each at zamba2's prefill.  No atomics: every output is
+// written by one thread, so a launch gives the same bits as the last.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -172,8 +202,8 @@ __global__ void __launch_bounds__(THREADS) ssm_scan_kernel(
   }
 }
 
-// Shared memory of one block, in bytes (ops.py::smem_bytes computes the
-// same and checks it against the 227 KB a block may use).
+// Shared memory of one block, in bytes (ssm_smem_bytes gives it to the
+// wrapper, which checks it against the 227 KB a block may use).
 size_t smem_bytes(int N, int chunk) {
   return sizeof(float) * ((size_t)chunk * N + (size_t)N * (chunk + 1) + (size_t)chunk * PT +
                           (size_t)chunk * chunk + (size_t)N * PT + 3 * (size_t)chunk);
@@ -199,18 +229,415 @@ int launch(const void* q, const void* k, const void* v, const void* ld, const vo
   return (int)cudaGetLastError();
 }
 
+
+namespace ssd {
+
+using mma_attn::cp_async16;
+using mma_attn::ldsm_x4;
+using mma_attn::ldsm_x4_trans;
+using mma_attn::mma16816;
+using mma_attn::pack_bf16;
+using mma_attn::smem_addr;
+typedef __nv_bfloat16 bf16;
+
+constexpr int TC_THREADS = 128;     // four warps
+constexpr int WARPS = TC_THREADS / 32;
+constexpr int PASS_THREADS = 256;   // phase (b)
+
+// Element offset of 16-byte piece c of row r in a staged tile of W bf16 a
+// row: the piece index is XORed with the row's low bits (three of them
+// where the row has eight pieces or more), so the eight rows an ldmatrix
+// reads at one piece fall in different bank groups.
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int M = W / 8 < 8 ? W / 8 - 1 : 7;
+  return r * W + ((c ^ (r & M)) << 3);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [0, rows) of a (rows, W) tile: row r < live from src + r * stride
+// (elements), the rest zeros.
+template <int W>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, size_t stride, int live,
+                                           int rows) {
+  constexpr int CH = W / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += TC_THREADS) {
+    const int r = i / CH, c = i - r * CH;
+    const bool in = r < live;
+    cp_async16(dst + swz<W>(r, c), src + (in ? r * stride + c * 8 : 0), in ? 16 : 0);
+  }
+}
+
+// One head's log decay and log gate over the chunk's rows (at + r * H),
+// zeros past the live rows.
+__device__ __forceinline__ void stage_rows(float* dec, float* gate, const float* ld,
+                                           const float* lg, size_t at, int H, int live,
+                                           int rows) {
+  for (int r = threadIdx.x; r < rows; r += TC_THREADS) {
+    const bool in = r < live;
+    const size_t o = in ? at + (size_t)r * H : at;
+    cp_async4(dec + r, ld + o, in ? 4 : 0);
+    cp_async4(gate + r, lg + o, in ? 4 : 0);
+  }
+}
+
+// Once a head's rows have landed: dec becomes the inclusive cumsum of the
+// decay over the chunk (one warp, four rows a lane, then a scan across the
+// lanes; rows <= 128), and the gate of each row past the live ones -1e30,
+// the reference's identity steps.  The caller syncs after.
+__device__ __forceinline__ void prepare_rows(float* dec, float* gate, int live, int rows) {
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    const int r0 = tid * 4;
+    float loc[4];
+    float run = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      run += (r0 + e < rows) ? dec[r0 + e] : 0.f;
+      loc[e] = run;
+    }
+    float incl = run;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (tid >= off) incl += o;
+    }
+    const float excl = incl - run;
+    for (int e = 0; e < 4; ++e)
+      if (r0 + e < rows) dec[r0 + e] = excl + loc[e];
+  }
+  for (int r = live + tid; r < rows; r += TC_THREADS) gate[r] = NEG_INF;
+}
+
+// x0, x1 (fp32) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), packed
+// the way an mma fragment register holds two neighbours (x0 low).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// Shared memory of one block of phase (a) (out = false) or (c) (out =
+// true), in bytes, in the order `tiles` lays it out: the chunk's q ((c)
+// only) and k tiles, its v tile, (c) the entering state as bf16 hi and lo,
+// and the decay and gate rows.
+__host__ __device__ constexpr int tile_bytes(bool out, int N, int P, int rows) {
+  return (out ? 2 : 1) * rows * N * 2 + rows * P * 2 + (out ? 2 * N * P * 2 : 0) + 2 * rows * 4;
+}
+
+struct Tiles {
+  bf16 *q, *k, *v, *hhi, *hlo;
+  float *dec, *gate;
+};
+
+__device__ __forceinline__ Tiles tiles(unsigned char* smem, bool out, int N, int P, int rows) {
+  Tiles s;
+  s.q = reinterpret_cast<bf16*>(smem);
+  s.k = s.q + (out ? rows * N : 0);
+  s.v = s.k + rows * N;
+  s.hhi = s.v + rows * P;
+  s.hlo = s.hhi + N * P;
+  s.dec = reinterpret_cast<float*>(out ? s.hlo + N * P : s.hhi);
+  s.gate = s.dec + rows;
+  return s;
+}
+
+// Phase (a): per (chunk, head), wk_j = exp(min(total - cum_j + g_j, 30)) and
+// S_c = sum_j (k_j wk_j) v_j^T, (k o wk)^T as the A operand split into hi
+// and lo.  Warp w takes the 16-row strips w, w + 4, .. of N.
+template <int N, int P>
+__global__ void __launch_bounds__(TC_THREADS) ssd_sums_kernel(
+    const bf16* __restrict__ k, const bf16* __restrict__ v, const float* __restrict__ ld,
+    const float* __restrict__ lg, float* __restrict__ sums, float* __restrict__ totals, int S,
+    int H, int chunk, int C, int k_sb, int k_ss, int k_sh) {
+  const int c = blockIdx.x % C, bh = blockIdx.x / C, b = bh / H, h = bh - b * H;
+  const int c0 = c * chunk, live = min(chunk, S - c0), rows = (chunk + 15) & ~15;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles s = tiles(smem, false, N, P, rows);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, cq = lane % 4;
+
+  stage_tile<N>(s.k, k + (size_t)b * k_sb + (size_t)c0 * k_ss + (size_t)h * k_sh, k_ss, live,
+                rows);
+  stage_tile<P>(s.v, v + (((size_t)b * S + c0) * H + h) * P, (size_t)H * P, live, rows);
+  stage_rows(s.dec, s.gate, ld, lg, ((size_t)b * S + c0) * H + h, H, live, rows);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  prepare_rows(s.dec, s.gate, live, rows);
+  __syncthreads();
+  const float total = s.dec[rows - 1];
+  for (int r = threadIdx.x; r < rows; r += TC_THREADS)   // gate -> wk, in place
+    s.gate[r] = expf(fminf(total - s.dec[r] + s.gate[r], 30.f));
+  if (threadIdx.x == 0) totals[(size_t)bh * C + c] = total;
+  __syncthreads();
+  const float* wk = s.gate;
+  for (int sn = warp; sn < N / 16; sn += WARPS) {
+    float acc[P / 8][4];
+#pragma unroll
+    for (int i = 0; i < P / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int kc = 0; kc < rows / 16; ++kc) {
+      const int j0 = 16 * kc, mi = lane >> 3;
+      // A = k^T of rows n 16 sn .., keys j0 ..: registers 0-3 hold (n = g,
+      // j = 2cq, 2cq + 1), (g + 8, same j), (g, j + 8), (g + 8, j + 8)
+      uint32_t a[4], hi[4], lo[4];
+      ldsm_x4_trans(a, s.k + swz<N>(j0 + (lane & 7) + ((mi >> 1) << 3), 2 * sn + (mi & 1)));
+      const float w0 = wk[j0 + 2 * cq], w1 = wk[j0 + 2 * cq + 1];
+      const float w8 = wk[j0 + 2 * cq + 8], w9 = wk[j0 + 2 * cq + 9];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a[r]);
+        const float wl = r < 2 ? w0 : w8, wh = r < 2 ? w1 : w9;
+        split2(__low2float(x) * wl, __high2float(x) * wh, hi[r], lo[r]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < P / 8; dn += 2) {
+        uint32_t bv[4];   // B of columns 8 dn .. and 8 (dn + 1) .. for keys j0 ..
+        ldsm_x4_trans(bv, s.v + swz<P>(j0 + ((lane >> 3) & 1) * 8 + (lane & 7), dn + (lane >> 4)));
+        mma16816(acc[dn], hi, bv[0], bv[1]);
+        mma16816(acc[dn + 1], hi, bv[2], bv[3]);
+        mma16816(acc[dn], lo, bv[0], bv[1]);
+        mma16816(acc[dn + 1], lo, bv[2], bv[3]);
+      }
+    }
+    float* out = sums + (((size_t)bh * C + c) * N + 16 * sn) * P;
+#pragma unroll
+    for (int dn = 0; dn < P / 8; ++dn) {
+      const int p = 8 * dn + 2 * cq;
+      *reinterpret_cast<float2*>(out + g * P + p) = make_float2(acc[dn][0], acc[dn][1]);
+      *reinterpret_cast<float2*>(out + (g + 8) * P + p) = make_float2(acc[dn][2], acc[dn][3]);
+    }
+  }
+}
+
+// Phase (b): one thread per element of one (sequence, head)'s state walks
+// the chunks in order, as the reference's loop does: it writes the state
+// entering chunk c (as bf16 hi and lo, the B operand of phase (c)), then
+// H = exp(total_c) H + S_c; the state after the last chunk is the final
+// state.
+__global__ void __launch_bounds__(PASS_THREADS) ssd_pass_kernel(
+    const float* __restrict__ sums, const float* __restrict__ totals,
+    const float* __restrict__ h0, float* __restrict__ hT, bf16* __restrict__ hin, int C,
+    int NP) {
+  const size_t bh = blockIdx.x;
+  const int e = blockIdx.y * PASS_THREADS + threadIdx.x;
+  if (e >= NP) return;
+  float h = h0 ? h0[bh * NP + e] : 0.f;
+  for (int c = 0; c < C; ++c) {
+    const size_t at = bh * C + c;
+    const float s = sums[at * NP + e];
+    const bf16 hi = __float2bfloat16_rn(h);
+    hin[at * 2 * NP + e] = hi;
+    hin[at * 2 * NP + NP + e] = __float2bfloat16_rn(h - __bfloat162float(hi));
+    h = expf(totals[at]) * h + s;
+  }
+  hT[bh * NP + e] = h;
+}
+
+// Phase (c): per (chunk, head), y = exp(min(cum_i, 30)) q_i . H_prev
+// (H_prev as hi + lo) + sum_{j<=i} (q_i.k_j) w_ij v_j (the weighted scores
+// split into hi + lo).  A warp takes 16-row strips w and 7 - w of the
+// chunk: strip s walks s + 1 key tiles of 16, so each warp does 9 at
+// chunk 128.
+template <int N, int P>
+__global__ void __launch_bounds__(TC_THREADS) ssd_out_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ lg, const bf16* __restrict__ hin,
+    float* __restrict__ y, int S, int H, int chunk, int C, int q_sb, int q_ss, int q_sh, int k_sb,
+    int k_ss, int k_sh) {
+  const int c = blockIdx.x % C, bh = blockIdx.x / C, b = bh / H, h = bh - b * H;
+  const int c0 = c * chunk, live = min(chunk, S - c0), rows = (chunk + 15) & ~15;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles s = tiles(smem, true, N, P, rows);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, cq = lane % 4;
+
+  stage_tile<N>(s.q, q + (size_t)b * q_sb + (size_t)c0 * q_ss + (size_t)h * q_sh, q_ss, live,
+                rows);
+  stage_tile<N>(s.k, k + (size_t)b * k_sb + (size_t)c0 * k_ss + (size_t)h * k_sh, k_ss, live,
+                rows);
+  stage_tile<P>(s.v, v + (((size_t)b * S + c0) * H + h) * P, (size_t)H * P, live, rows);
+  const bf16* st = hin + ((size_t)bh * C + c) * 2 * N * P;
+  stage_tile<P>(s.hhi, st, P, N, N);
+  stage_tile<P>(s.hlo, st + N * P, P, N, N);
+  stage_rows(s.dec, s.gate, ld, lg, ((size_t)b * S + c0) * H + h, H, live, rows);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  prepare_rows(s.dec, s.gate, live, rows);
+  __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    const int sr = pass ? 2 * WARPS - 1 - warp : warp, i0 = 16 * sr;
+    if (i0 >= rows || i0 >= live) continue;
+    uint32_t qf[N / 16][4];   // A of the strip's 16 rows, each k16 step of N
+#pragma unroll
+    for (int kc = 0; kc < N / 16; ++kc) {
+      const int mi = lane >> 3;
+      ldsm_x4(qf[kc], s.q + swz<N>(i0 + (lane & 7) + ((mi & 1) << 3), 2 * kc + (mi >> 1)));
+    }
+    float acc[P / 8][4];
+#pragma unroll
+    for (int i = 0; i < P / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    // q . H_prev, H_prev (N x P) as B in two halves
+#pragma unroll
+    for (int kc = 0; kc < N / 16; ++kc) {
+#pragma unroll
+      for (int dn = 0; dn < P / 8; dn += 2) {
+        const int at = swz<P>(16 * kc + ((lane >> 3) & 1) * 8 + (lane & 7), dn + (lane >> 4));
+        uint32_t hhi[4], hlo[4];
+        ldsm_x4_trans(hhi, s.hhi + at);
+        ldsm_x4_trans(hlo, s.hlo + at);
+        mma16816(acc[dn], qf[kc], hhi[0], hhi[1]);
+        mma16816(acc[dn + 1], qf[kc], hhi[2], hhi[3]);
+        mma16816(acc[dn], qf[kc], hlo[0], hlo[1]);
+        mma16816(acc[dn + 1], qf[kc], hlo[2], hlo[3]);
+      }
+    }
+    const int ia = i0 + g, ib = ia + 8;   // this thread's rows
+    const float ca = s.dec[ia], cb = s.dec[ib];
+    const float wa = expf(fminf(ca, 30.f)), wb = expf(fminf(cb, 30.f));
+#pragma unroll
+    for (int i = 0; i < P / 8; ++i) {
+      acc[i][0] *= wa;
+      acc[i][1] *= wa;
+      acc[i][2] *= wb;
+      acc[i][3] *= wb;
+    }
+    // the causal key tiles, the diagonal one last
+    for (int jt = 0; jt <= sr; ++jt) {
+      const int j0 = 16 * jt;
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kc = 0; kc < N / 16; ++kc) {
+        uint32_t bk[4];   // B of keys j0 .. j0 + 7 and j0 + 8 .. for k16 step kc
+        ldsm_x4(bk, s.k + swz<N>(j0 + (lane & 7) + ((lane >> 4) << 3), 2 * kc + ((lane >> 3) & 1)));
+        mma16816(sc[0], qf[kc], bk[0], bk[1]);
+        mma16816(sc[1], qf[kc], bk[2], bk[3]);
+      }
+      // (q_i.k_j) w_ij, w_ij = exp(min(cum_i - cum_j + g_j, 30)) for j <= i,
+      // else 0; as A fragments of keys j0 .., hi in m[0] and lo in m[1]
+      uint32_t m[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const int j = j0 + 8 * nb + 2 * cq;
+        const float x0 = j <= ia ? sc[nb][0] * expf(fminf(ca - s.dec[j] + s.gate[j], 30.f)) : 0.f;
+        const float x1 =
+            j + 1 <= ia ? sc[nb][1] * expf(fminf(ca - s.dec[j + 1] + s.gate[j + 1], 30.f)) : 0.f;
+        const float x2 = j <= ib ? sc[nb][2] * expf(fminf(cb - s.dec[j] + s.gate[j], 30.f)) : 0.f;
+        const float x3 =
+            j + 1 <= ib ? sc[nb][3] * expf(fminf(cb - s.dec[j + 1] + s.gate[j + 1], 30.f)) : 0.f;
+        split2(x0, x1, m[0][2 * nb], m[1][2 * nb]);
+        split2(x2, x3, m[0][2 * nb + 1], m[1][2 * nb + 1]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < P / 8; dn += 2) {
+        uint32_t bv[4];   // B of columns 8 dn .. and 8 (dn + 1) .. for keys j0 ..
+        ldsm_x4_trans(bv, s.v + swz<P>(j0 + ((lane >> 3) & 1) * 8 + (lane & 7), dn + (lane >> 4)));
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {   // the weighted scores' hi, then lo
+          mma16816(acc[dn], m[part], bv[0], bv[1]);
+          mma16816(acc[dn + 1], m[part], bv[2], bv[3]);
+        }
+      }
+    }
+    float* ya = y + (((size_t)b * S + c0 + ia) * H + h) * P;
+    float* yb = y + (((size_t)b * S + c0 + ib) * H + h) * P;
+#pragma unroll
+    for (int dn = 0; dn < P / 8; ++dn) {
+      const int p = 8 * dn + 2 * cq;
+      if (ia < live) *reinterpret_cast<float2*>(ya + p) = make_float2(acc[dn][0], acc[dn][1]);
+      if (ib < live) *reinterpret_cast<float2*>(yb + p) = make_float2(acc[dn][2], acc[dn][3]);
+    }
+  }
+}
+
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int N, int P>
+int launch(const void* q, const void* k, const void* v, const void* ld, const void* lg,
+           const void* h0, void* y, void* hT, void* sums, void* totals, void* hin, int B, int S,
+           int H, int chunk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+           cudaStream_t stream) {
+  const int rows = (chunk + 15) & ~15, C = (S + chunk - 1) / chunk;
+  const int sa = tile_bytes(false, N, P, rows), sc = tile_bytes(true, N, P, rows);
+  int err = allow_smem(ssd_sums_kernel<N, P>, sa);
+  if (!err) err = allow_smem(ssd_out_kernel<N, P>, sc);
+  if (err) return err;
+  const int blocks = C * B * H;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const float *ldf = static_cast<const float*>(ld), *lgf = static_cast<const float*>(lg);
+  ssd_sums_kernel<N, P><<<blocks, TC_THREADS, sa, stream>>>(
+      kb, vb, ldf, lgf, static_cast<float*>(sums), static_cast<float*>(totals), S, H, chunk, C,
+      k_sb, k_ss, k_sh);
+  ssd_pass_kernel<<<dim3(B * H, (N * P + PASS_THREADS - 1) / PASS_THREADS), PASS_THREADS, 0,
+                    stream>>>(static_cast<const float*>(sums), static_cast<const float*>(totals),
+                              static_cast<const float*>(h0), static_cast<float*>(hT),
+                              static_cast<bf16*>(hin), C, N * P);
+  ssd_out_kernel<N, P><<<blocks, TC_THREADS, sc, stream>>>(
+      qb, kb, vb, ldf, lgf, static_cast<const bf16*>(hin), static_cast<float*>(y), S, H, chunk,
+      C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ssd
+
 }  // namespace
+
+// Shared memory one block of a body uses, in bytes (body 0 = FMA; 1 =
+// tensor cores, the larger of its two tiled phases), or -1 for a width
+// the tensor-core body has no instance of.  The wrapper checks it against
+// what a block may use before it launches.
+extern "C" int ssm_smem_bytes(int body, int N, int P, int chunk) {
+  if (body != 1) return (int)smem_bytes(N, chunk);
+  const int rows = (chunk + 15) & ~15;
+  if (N != P || (N != 16 && N != 32 && N != 64 && N != 128)) return -1;
+  const int a = ssd::tile_bytes(false, N, P, rows), c = ssd::tile_bytes(true, N, P, rows);
+  return a > c ? a : c;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it; the decay, gate,
 // states and y are fp32).  h0 may be null (a zero state).  chunk <= 128.
-// Returns 0 or the CUDA error of the launch.
+// body: 0 = FMA, 1 = tensor cores (bf16, N = P in {16, 32, 64, 128}; sums
+// (B, H, C, N, P) fp32, totals (B, H, C) fp32 and hin (B, H, C, 2, N, P)
+// bf16 its scratch, C = cdiv(S, chunk); q, k, v 16-byte aligned).  Returns
+// 0 or the CUDA error of a launch.
 extern "C" int ssm_scan(const void* q, const void* k, const void* v, const void* ld,
-                        const void* lg, const void* h0, void* y, void* hT, int dtype, int B,
-                        int S, int H, int N, int P, int chunk, int q_sb, int q_ss, int q_sh,
-                        int k_sb, int k_ss, int k_sh, void* stream) {
+                        const void* lg, const void* h0, void* y, void* hT, void* sums,
+                        void* totals, void* hin, int dtype, int B, int S, int H, int N, int P,
+                        int chunk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+                        int body, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1 || N != P) return (int)cudaErrorInvalidValue;
+    auto run = [&](auto launch) {
+      return launch(q, k, v, ld, lg, h0, y, hT, sums, totals, hin, B, S, H, chunk, q_sb, q_ss,
+                    q_sh, k_sb, k_ss, k_sh, s);
+    };
+    switch (N) {
+      case 16: return run(ssd::launch<16, 16>);
+      case 32: return run(ssd::launch<32, 32>);
+      case 64: return run(ssd::launch<64, 64>);
+      case 128: return run(ssd::launch<128, 128>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, ld, lg, h0, y, hT, B, S, H, N, P, chunk, q_sb, q_ss,
                                  q_sh, k_sb, k_ss, k_sh, s);

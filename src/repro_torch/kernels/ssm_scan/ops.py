@@ -1,7 +1,13 @@
 """Chunked SSD scan: the CUDA kernel ``csrc/ssm_scan.cu`` beside its plain
 version, behind one wrapper (counterpart of ``repro/kernels/ssm_scan/
 ops.py``, with the oracle's carried state: ``initial_state`` in, the final
-state out)."""
+state out).
+
+The kernel has two bodies, and :func:`body_for` picks one before the
+launch: bf16 q/k/v with N = P in ``MMA_WIDTHS`` run the chunk-parallel SSD
+decomposition on the tensor cores (``mma``: chunk sums, state passing and
+chunk outputs, three launches of one call), everything else -- every fp32
+call among them -- the chunk loop on plain FMA."""
 from __future__ import annotations
 
 import ctypes
@@ -14,22 +20,33 @@ from repro_torch.kernels.dispatch import (check_operand, register_kernel,
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 MAX_CHUNK = 128
 SMEM_LIMIT = 232_448          # shared memory one block may use on Hopper
+MMA_WIDTHS = (16, 32, 64, 128)    # the tensor-core body's instances, N = P
 
 
-def smem_bytes(N: int, chunk: int) -> int:
-    """Shared memory one block of the kernel uses (see ``ssm_scan.cu``)."""
-    return 4 * (chunk * N + N * (chunk + 1) + chunk * 32 + chunk * chunk
-                + N * 32 + 3 * chunk)
+def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The body a call runs, decided before the launch from the operands
+    alone: ``"mma"`` (tensor cores) for bf16 with d_state N equal to head_dim
+    P and one of ``MMA_WIDTHS``, each of q, k, v starting on 16 bytes (its
+    tiles are staged in 16-byte pieces); ``"fma"`` for everything else,
+    every fp32 call among them."""
+    N, P = k.shape[-1], v.shape[-1]
+    if (q.dtype == torch.bfloat16 and N == P and N in MMA_WIDTHS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "mma"
+    return "fma"
 
 
-def _launch(q, k, v, log_decay, log_gate, *, chunk=128, initial_state=None):
-    """Check the operands, allocate y and the final state, and launch the
-    kernel on the current stream.  q and k may be contiguous or a stride-0
-    head view over a contiguous (B, S, N) tensor; everything else must be
-    contiguous."""
+def _launch(q, k, v, log_decay, log_gate, *, chunk=128, initial_state=None,
+            body=None):
+    """Check the operands, allocate y, the final state and (tensor-core
+    body) the per-chunk scratch, and launch the kernel on the current
+    stream, on the body :func:`body_for` names; ``body`` overrides that
+    route, to time one body against the other on the same inputs.  q and k
+    may be contiguous or a stride-0 head view over a contiguous (B, S, N)
+    tensor; everything else must be contiguous."""
     B, S, H, N = k.shape
     P = v.shape[-1]
     dev = q.device
@@ -48,27 +65,43 @@ def _launch(q, k, v, log_decay, log_gate, *, chunk=128, initial_state=None):
     if initial_state is not None:
         check_operand(initial_state, "initial_state", device=dev,
                       dtypes=(torch.float32,), shape=(B, H, N, P))
+    route = body_for(q, k, v)
+    body = body or route
+    if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
+        raise ValueError(f"ssm_scan: no {body!r} body for {q.dtype} q/k/v at "
+                         f"N={N} P={P}")
     chunk = min(chunk, S)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk={chunk}: the kernel takes 1..{MAX_CHUNK}")
-    if smem_bytes(N, chunk) > SMEM_LIMIT:
-        raise ValueError(f"d_state N={N} at chunk {chunk} needs "
-                         f"{smem_bytes(N, chunk)} bytes of shared memory, "
-                         f"over the {SMEM_LIMIT} a block may use")
+    lib = build.load("ssm_scan", _ARGTYPES)
+    smem = lib.ssm_smem_bytes(int(body == "mma"), N, P, chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"d_state N={N} at chunk {chunk} needs {smem} bytes "
+                         f"of shared memory, over the {SMEM_LIMIT} a block "
+                         f"may use")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     final = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
     strides = q.stride()[:3] + k.stride()[:3]
-    if max(strides) >= 2**31 or B * H >= 2**31:
-        raise ValueError("q/k strides or B*H do not fit the kernel's int")
-    lib = build.load("ssm_scan", _ARGTYPES)
-    KERNEL.launches += 1
+    if max(strides) >= 2**31 or B * H * -(-S // chunk) >= 2**31:
+        raise ValueError("q/k strides or the block count do not fit the "
+                         "kernel's int")
+    scratch = [None] * 3
+    if body == "mma":
+        # one fp32 allocation: chunk sums (B, H, C, N, P), the entering
+        # states as bf16 hi and lo (B, H, C, 2, N, P), totals (B, H, C)
+        n = B * H * -(-S // chunk)
+        base = torch.empty(n * (2 * N * P + 1), dtype=torch.float32, device=dev)
+        at = base.data_ptr()
+        scratch = [at, at + 8 * n * N * P, at + 4 * n * N * P]
+    KERNEL.count_launch(body)
     err = lib.ssm_scan(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
         log_gate.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), final.data_ptr(), _DTYPE_CODE[q.dtype],
-        B, S, H, N, P, chunk, *strides,
-        torch.cuda.current_stream(dev).cuda_stream)
+        y.data_ptr(), final.data_ptr(),
+        *scratch,
+        _DTYPE_CODE[q.dtype], B, S, H, N, P, chunk, *strides,
+        int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan: CUDA error {err}")
     return y, final

@@ -16,10 +16,12 @@ bf16).  conv2d: CONV_RTOL |ref| + CONV_RMS_ATOL rms(ref) per element
 (fp32 2^-14 and 2^-14, fp16 2^-10 and 2^-12, bf16 2^-7 and 2^-12: twice
 the one rounding of the output, and the fp32 sum's order).  ssm_scan: y
 and the final state each within 1e-4 of their largest |ref| (fp32 out;
-only the order of the sums differs).  matmul (K7): MATMUL_RTOL |ref| +
-2^-20 sqrt(K) max|ref| per element (twice the output's one rounding:
-none at fp32, 2^-10 fp16, 2^-7 bf16; and the fp32 sum's order), on
-either body (FMA, or wgmma for fp16 / bf16 operands TMA can read); the
+the FMA body differs only in the order of the sums, the tensor-core body
+also by its fp32 operands split into bf16 hi + lo, 2^-18 a term), on
+either body, and the tensor-core body bit for bit from launch to launch.
+matmul (K7): MATMUL_RTOL |ref| + 2^-20 sqrt(K) max|ref| per element
+(twice the output's one rounding: none at fp32, 2^-10 fp16, 2^-7 bf16;
+and the fp32 sum's order), on either body (FMA, or wgmma for fp16 / bf16 operands TMA can read); the
 flash kernel's tensor-core body (bf16, D = 64 or 128) on the attention
 limit above, as are the paged kernels' tensor-core bodies (K2 on mma, K1
 split over the KV length and merged), with NaN in every pool row that is
@@ -45,6 +47,7 @@ import torch
 
 from repro_torch.configs import registry as TR
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
 from repro_torch.models.googlenet import conv_shapes
 from repro_torch.models.registry import fns_for
 from repro_torch.serving.engine import Request, ServingEngine
@@ -185,29 +188,70 @@ def test_flash_kernel_matches_plain(cuda, dtype, S, H, K, causal):
     assert kern.tolerance(out, ref) <= 1.0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,chunk,shared", [(100, 32, True), (128, 128, False),
-                                            (7, 128, True), (300, 64, False)])
-def test_ssm_scan_kernel_matches_plain(cuda, dtype, S, chunk, shared):
-    """K5 with a ragged S, a carried-in state, and B/C as a stride-0 head
-    view or per head."""
-    B, H, N, P = 2, 4, 32, 48
-    g = torch.Generator(cuda).manual_seed(S)
+def _ssm_operands(dev, dtype, S, N, P, shared, *, B=2, H=4):
+    g = torch.Generator(dev).manual_seed(S)
     hq = 1 if shared else H
-    q, k = (torch.randn((B, S, hq, N), generator=g, device=cuda).to(dtype)
+    q, k = (torch.randn((B, S, hq, N), generator=g, device=dev).to(dtype)
             .expand(B, S, H, N) for _ in range(2))
-    v = torch.randn((B, S, H, P), generator=g, device=cuda).to(dtype)
-    dt = torch.exp(torch.empty((B, S, H), device=cuda).uniform_(
+    v = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.exp(torch.empty((B, S, H), device=dev).uniform_(
         -6.9, -2.3, generator=g))
-    ld = -dt * torch.linspace(1.0, 16.0, H, device=cuda)
-    h0 = torch.randn((B, H, N, P), generator=g, device=cuda)
+    ld = -dt * torch.linspace(1.0, 16.0, H, device=dev)
+    h0 = torch.randn((B, H, N, P), generator=g, device=dev)
+    return (q, k, v, ld, torch.log(dt)), h0
+
+
+# (body, dtype, N, P): the FMA body at fp32 and bf16 with N != P, the
+# tensor-core body at each of its widths (zamba2-1.2b's 64, its smoke
+# model's 16)
+@pytest.mark.parametrize("body,dtype,N,P", [
+    ("fma", torch.float32, 32, 48), ("fma", torch.bfloat16, 32, 48),
+    ("mma", torch.bfloat16, 64, 64), ("mma", torch.bfloat16, 16, 16),
+    ("mma", torch.bfloat16, 32, 32), ("mma", torch.bfloat16, 128, 128)])
+@pytest.mark.parametrize("S,chunk,shared", [(100, 32, True), (128, 128, False),
+                                            (7, 128, True), (300, 64, False),
+                                            (45, 32, True)])
+def test_ssm_scan_kernel_matches_plain(cuda, body, dtype, N, P, S, chunk, shared):
+    """K5 on the body its route takes, with a ragged S (S < 16 and S not a
+    multiple of 16 among them), a carried-in state, and B/C as a stride-0
+    head view or per head."""
+    args, h0 = _ssm_operands(cuda, dtype, S, N, P, shared)
     kern = dispatch.kernel_table()["ssm_scan"]
-    out = kern.launch(q, k, v, ld, torch.log(dt), chunk=chunk,
-                      initial_state=h0)
-    ref = kern.plain(q.float(), k.float(), v.float(), ld, torch.log(dt),
-                     chunk=chunk, initial_state=h0)
+    assert ssm_body_for(*args[:3]) == body
+    kern.reset_counts()
+    out = kern.launch(*args, chunk=chunk, initial_state=h0)
+    ref = kern.plain(*(a.float() for a in args), chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
+    assert kern.body_launches == {body: 1}
     assert kern.tolerance(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssm_scan_mma_body_gives_the_same_bits(cuda, shared):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    args, h0 = _ssm_operands(cuda, torch.bfloat16, 300, 64, 64, shared)
+    kern = dispatch.kernel_table()["ssm_scan"]
+    first = kern.launch(*args, chunk=64, initial_state=h0, body="mma")
+    second = kern.launch(*args, chunk=64, initial_state=h0, body="mma")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ssm_scan_shared_memory_fits_each_instance(cuda):
+    """The kernel's own count of a block's shared memory: the tensor-core
+    body fits a block at every width and chunk (per-head N = P = 128 at
+    chunk 128 the largest, 164,864 bytes), the FMA body at zamba2's width;
+    a width with no tensor-core instance reads -1."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssm_scan import ops
+    lib = build.load("ssm_scan", ops._ARGTYPES)
+    for n in ops.MMA_WIDTHS:
+        for chunk in (7, 32, 64, 128):
+            assert 0 < lib.ssm_smem_bytes(1, n, n, chunk) <= ops.SMEM_LIMIT
+    assert lib.ssm_smem_bytes(1, 128, 128, 128) == 164_864
+    assert lib.ssm_smem_bytes(1, 64, 64, 128) == 66_560
+    assert lib.ssm_smem_bytes(0, 64, 64, 128) == 157_440
+    assert lib.ssm_smem_bytes(1, 32, 48, 128) == -1
 
 
 def test_hybrid_engine_path_runs_the_kernels(cuda):
@@ -227,6 +271,7 @@ def test_hybrid_engine_path_runs_the_kernels(cuda):
     table = dispatch.kernel_table()
     n_seg = cfg.num_layers // cfg.shared_attn_every
     assert table["ssm_scan"].launches == cfg.num_layers * stats.prefills
+    assert table["ssm_scan"].body_launches == {"mma": cfg.num_layers * stats.prefills}
     assert table["flash_attention"].launches == n_seg * stats.prefills
     assert table["decode_attention"].launches == n_seg * stats.decode_steps
     assert all(k.plain_calls == 0 for k in table.values())

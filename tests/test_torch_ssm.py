@@ -12,12 +12,19 @@ on the same inputs and weights (made with numpy, handed over through
   ``zamba2-1.2b-smoke`` widths, within 1e-5 of the largest |ref|.
 * The launcher's operand check: B and C reach the kernel as a stride-0
   head view, which it admits, and no other non-contiguous layout.
+* The kernel's route (``body_for``), and a plain emulation of the
+  tensor-core body's rounding (``_emulated_mma``): its three products
+  with an fp32 operand take the operand split into bf16 hi + lo, which
+  holds the card's limit
+  (``SSM_RTOL`` of the largest |ref|) with room to spare at Mamba-2-like
+  operands, where one bf16 rounding of the same operands fails it.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import registry as JR
 from repro.kernels.ssm_scan.kernel import ssm_scan as pallas_ssm_scan
@@ -26,6 +33,7 @@ from repro.models.layers.module import init_table
 from repro_torch.configs import registry as TR
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models.layers import ssm as TS
@@ -137,6 +145,128 @@ def test_ssm_tolerance_holds_order_noise_and_rejects_a_lost_state():
              for c in (0, 32, 64)]
     lost = (torch.cat([p[0] for p in parts], dim=1), parts[-1][1])
     assert dispatch.ssm_tolerance_ratio(lost, ref) > 100
+
+
+def _bf16_view(shape, *, offset=0):
+    """A bf16 tensor of ``shape``, ``offset`` elements past a 16-byte
+    aligned start."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=torch.bfloat16)[offset:offset + n].view(shape)
+
+
+@pytest.mark.parametrize("dtype,N,P,shared,offset,body", [
+    (torch.bfloat16, 64, 64, True, 0, "mma"),      # zamba2-1.2b
+    (torch.bfloat16, 16, 16, True, 0, "mma"),      # its smoke widths
+    (torch.bfloat16, 128, 128, False, 0, "mma"),   # per-head q/k
+    (torch.bfloat16, 32, 32, False, 0, "mma"),
+    (torch.float32, 64, 64, True, 0, "fma"),       # every fp32 call
+    (torch.float32, 16, 16, False, 0, "fma"),
+    (torch.bfloat16, 32, 48, False, 0, "fma"),     # N != P
+    (torch.bfloat16, 256, 256, True, 0, "fma"),    # not instantiated
+    (torch.bfloat16, 8, 8, True, 0, "fma"),
+    (torch.bfloat16, 64, 64, True, 1, "fma"),      # not on 16 bytes
+])
+def test_body_for_routes_each_case(dtype, N, P, shared, offset, body):
+    B, S, H = 2, 9, 4
+    hq = 1 if shared else H
+    q, k = (_bf16_view((B, S, hq, N), offset=offset).to(dtype).expand(B, S, H, N)
+            for _ in range(2))
+    v = _bf16_view((B, S, H, P)).to(dtype)
+    assert (q.stride(2) == 0) == shared
+    assert ssm_ops.body_for(q, k, v) == body
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def _split(x, terms):
+    """x as the tensor cores see it: one bf16 rounding (terms 1), or bf16
+    hi + lo with lo = bf16(x - hi) (terms 2)."""
+    hi = _bf16(x)
+    return hi if terms == 1 else hi + _bf16(x - hi)
+
+
+def _emulated_mma(q, k, v, ld, lg, *, chunk, initial_state=None, terms=2):
+    """The tensor-core body's arithmetic in fp32 PyTorch: per chunk the
+    weighted scores (q_i.k_j) w_ij, the entering state H_{c-1} and k o wk
+    each through :func:`_split` before their product with an exact bf16
+    operand; q.H_prev scaled by exp(min(cum, 30)) after the product; the
+    states passed chunk by chunk in fp32.  Any S (identity steps pad it)."""
+    B, S, H, N = k.shape
+    P = v.shape[-1]
+    q, k, v, ld, g = (t.float() for t in (q, k, v, ld, lg))
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        q, k, v, g, ld = (F.pad(a, [0, 0] * (a.ndim - 2) + [0, pad])
+                          for a in (q, k, v, g, ld))
+        g[:, S:] = -1e30
+    C = (S + pad) // chunk
+    qc, kc, vc, dc, gc = (a.reshape(B, C, chunk, *a.shape[2:])
+                          for a in (q, k, v, ld, g))
+    cum = torch.cumsum(dc, 2)
+    total = cum[:, :, -1]
+    cum_t = cum.transpose(2, 3)
+    logw = cum_t[..., :, None] - cum_t[..., None, :] + gc.transpose(2, 3)[..., None, :]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    w = torch.where(causal, torch.exp(logw.clamp(max=30.0)), torch.zeros(()))
+    m = torch.einsum("bcihn,bcjhn->bchij", qc, kc) * w
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", _split(m, terms), vc)
+    wk = torch.exp((total[:, :, None] - cum + gc).clamp(max=30.0))
+    sums = torch.einsum("bcjhn,bcjhp->bchnp", _split(kc * wk[..., None], terms), vc)
+    h = (torch.zeros((B, H, N, P)) if initial_state is None
+         else initial_state.float())
+    entering = []
+    for c in range(C):
+        entering.append(h)
+        h = torch.exp(total[:, c])[..., None, None] * h + sums[:, c]
+    y_off = torch.einsum("bcihn,bchnp->bcihp", qc,
+                         _split(torch.stack(entering, 1), terms))
+    y_off = y_off * torch.exp(cum.clamp(max=30.0))[..., None]
+    return (y_diag + y_off).reshape(B, C * chunk, H, P)[:, :S], h
+
+
+def _zamba_operands(seed, S, H, N, *, shared=True, with_state=False):
+    """chip_smoke.ssm_case's distribution from a numpy seed, bf16 values:
+    q, k one group for every head (a stride-0 view) or per head; decay
+    -dt*A with dt log-uniform in [1e-3, 1e-1] and A over [1, 16] by head;
+    gate log(dt)."""
+    rng = np.random.default_rng(seed)
+    hq = 1 if shared else H
+    q, k = (_bf16(torch.from_numpy(rng.standard_normal((1, S, hq, N), np.float32)))
+            .expand(1, S, H, N) for _ in range(2))
+    v = _bf16(torch.from_numpy(rng.standard_normal((1, S, H, N), np.float32)))
+    log_dt = torch.from_numpy(rng.uniform(-6.9078, -2.3026, (1, S, H)).astype(np.float32))
+    a = 1.0 + 15.0 * (torch.arange(H) + 0.5) / H
+    h0 = (torch.from_numpy(rng.standard_normal((1, H, N, N), np.float32))
+          if with_state else None)
+    return (q, k, v, -torch.exp(log_dt) * a, log_dt), h0
+
+
+_ZAMBA_CASES = [(1000, 8, 64, True, False), (1000, 8, 64, True, True),
+                (1024, 8, 64, True, False), (1000, 4, 128, False, True),
+                (77, 4, 16, True, True), (300, 4, 32, False, True)]
+
+
+@pytest.mark.parametrize("S,H,N,shared,with_state", _ZAMBA_CASES)
+def test_mma_body_rounding_holds_the_limit(S, H, N, shared, with_state):
+    """bf16 hi + lo on each fp32 operand: within half the card's limit."""
+    args, h0 = _zamba_operands(S, S, H, N, shared=shared, with_state=with_state)
+    chunk = 32 if N == 16 else 128
+    ref = ssm_scan_ref(*args, chunk=chunk, initial_state=h0)
+    out = _emulated_mma(*args, chunk=chunk, initial_state=h0)
+    assert dispatch.ssm_tolerance_ratio(out, ref) <= 0.5
+
+
+@pytest.mark.parametrize("S,H,N,shared,with_state", _ZAMBA_CASES[:4])
+def test_one_bf16_rounding_fails_the_limit(S, H, N, shared, with_state):
+    """The same operands each rounded once to bf16 fail the card's limit:
+    why the tensor-core body splits them."""
+    args, h0 = _zamba_operands(S, S, H, N, shared=shared, with_state=with_state)
+    ref = ssm_scan_ref(*args, chunk=128, initial_state=h0)
+    out = _emulated_mma(*args, chunk=128, initial_state=h0, terms=1)
+    assert dispatch.ssm_tolerance_ratio(out, ref) > 1
 
 
 @pytest.fixture(scope="module")
