@@ -155,15 +155,52 @@ Phases (each one raises on failure; the script then exits non-zero):
    steps, restore into a fresh trainer, one more step in both; identical
    bit for bit.
 
-K7 also carries every weight product of phases 4-11 (the serving paths and
-GoogLeNet's classifier): phases 4, 6, 8, 10 and 11 hold its launch counts
-too (exactly, where the engine's calls fix them; phases 4 and 10 by body).
+17. Dense contiguous serving: qwen2.5-3b at full width, bf16, random
+   weights from seed 0, through ``ServingEngine(paged=False)``: 4 slots of
+   1056 rows, phase 4's 8 requests, 32 new tokens each.  Launch counts
+   zeroed just before and read just after, held exactly by body: K4 36 a
+   prefill and K3 36 a decode step (qwen's 8 query heads a kv head, D =
+   128), all on the tensor-core bodies; K7 by body; K1, K2 and every plain
+   version zero.  tok/s, TTFT p50/p99, TPOT, tok/s/W, peak memory and the
+   caches' bytes beside phase 4's; greedy tokens beside phase 4's (not
+   gated); a profiled window.  Then phase 6's fp32 path check through the
+   contiguous engine at depths 1, 2 and 4 (phase 6's limits), and the int8
+   branch as phase 6b holds the pool: a prompt prefilled through K4 into
+   ``make_cache(..., "int8")``, 4 decode steps through the contiguous
+   decode's int8 branch (K3 on the dequantized cache), kernels vs plain at
+   depths 1, 2 and 4: layer 0's int8 rows equal or one step apart
+   (``TOL_INT8_APART``), scales within ``TOL_INT8_SCALE_REL``, logits within
+   phase 6's limits of a plain run that stores the kernel run's rows.
+18. Speculative decoding: first K2 at the verify shape (``VERIFY_CASES``:
+   4 sequences of C = 4 rows at mid-block q_starts and a padding sequence
+   on an all-trash table), bf16 on ``mma`` and fp32 on FMA, as made and
+   with NaN in every dead pool row, against the plain version (phase 3's
+   limits), and timed.  Then qwen2.5-3b at full width, bf16,
+   self-speculation (``spec_k`` 3, the drafter on the engine's own
+   weights) on phase 4's paged engine and requests: launch counts held
+   exactly from the engine's counters (K2 36 a verify pass, a drafter seed
+   and a target prefill chunk; K1 36 a drafter step; all ``mma``; K7 by
+   body), both pools leak-free, accept rate, verify steps, steps per token,
+   TPOT and tok/s beside phase 4's; a profiled window.  Then the gate: at
+   depth 2 in fp32 the speculative engine's greedy tokens equal the
+   vanilla engine's for phase 4's requests, through the kernels, on an
+   fp32 pool and on an int8 pool (on a mismatch the first differing step
+   and its logit margins are printed).  Printed, not gated: bf16
+   self-speculation's accept rate at depths ``SPEC_BF16_DEPTHS``.
+
+K7 also carries every weight product of phases 4-11, 17 and 18 (the
+serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
+18 hold its launch counts too (exactly, where the engine's calls fix them;
+phases 4, 10, 17 and 18 by body).
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernel table (``{"kernels": [...]}``), with K1's
 and K2's int8 bodies as entries of their own (``...:int8``: their
-launches from phase 4b, no library call).
+launches from phase 4b, no library call).  Each entry's ``launches`` sums
+the served and trained paths that ran it: K1 and K2 phases 4 and 18, K3
+and K4 phases 10 and 17, K5 phase 10, K6 phase 8, K7 phases 4, 4b, 10,
+15, 17 and 18.
 """
 from __future__ import annotations
 
@@ -185,6 +222,13 @@ DECODE_CASES = (((1, 15, 16, 17), 0.0), ((300, 1056, 16, 1), 0.0),
                 ((16384,), 30.0))
 PREFILL_CASES = ((16, 0), (16, 9), (16, 256), (256, 0), (256, 9), (256, 256), (4, 9),
                  (4, 27), (256, 2048))
+# Phase 18: the drafter's proposals per round, and K2 at the verify shape
+# (q_start of each live sequence; C = SPEC_K + 1 rows; one more sequence
+# pads the batch on an all-trash table): mid-block starts, a block's last
+# row, and the table's last rows (1052 + 4 = 1056 = max_len).
+SPEC_K = 3
+SPEC_BF16_DEPTHS = (1, 3, 9)
+VERIFY_CASES = ((9, 27, 300, 1040), (0, 15, 16, 1052))
 # K1 timed: serving's 4 slots, then one long sequence (the split's case)
 DECODE_TIMED = ((1056, 800, 512, 300), (4096,), (16384,))
 # fp32 path check, kernels vs plain versions, by depth: limits on the
@@ -745,8 +789,8 @@ def serving_phase(torch, np, table, cache_dtype="bfloat16", baseline=None):
     """Phase 4 (and 5, its profile) on the bf16 pool; phase 4b, with
     ``cache_dtype="int8"``, the same requests on the int8 pool, its KV pool
     bytes and greedy tokens printed beside phase 4's (``baseline``, what
-    phase 4 returned).  Returns (launches by kernel, this run's pool bytes
-    and outputs)."""
+    phase 4 returned).  Returns (launches by kernel, this run's pool bytes,
+    outputs, stats and K7 launches)."""
     from repro_torch.configs import registry as arch_registry
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import card_name_and_power_limit
@@ -864,7 +908,8 @@ def serving_phase(torch, np, table, cache_dtype="bfloat16", baseline=None):
     gc.collect()
     torch.cuda.empty_cache()
     return ({n: c[0] for n, c in counts.items()},
-            {"pool_bytes": pool_bytes, "outputs": outputs})
+            {"pool_bytes": pool_bytes, "outputs": outputs, "stats": stats,
+             "matmul": k7[0]})
 
 
 def kv_write_host_cost(torch, cfg) -> None:
@@ -911,15 +956,16 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
-def profile_phase(torch, np, eng, Request, greedy, tag="serving"):
-    """Where the time goes: 4 requests of 512 prompt tokens, 16 new tokens
-    each, under torch.profiler; device time by kernel name and the device's
-    busy share of the wall time (one stream, so kernels do not overlap)."""
+def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=4, new=16):
+    """Where the time goes: ``n`` requests of 512 prompt tokens, ``new`` new
+    tokens each, under torch.profiler; device time by kernel name and the
+    device's busy share of the wall time (one stream, so kernels do not
+    overlap)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
     reqs = [Request(200 + i, rng.integers(0, eng.cfg.vocab_size, size=512)
-                    .astype(np.int32), max_new_tokens=16, sampler=greedy())
-            for i in range(4)]
+                    .astype(np.int32), max_new_tokens=new, sampler=greedy())
+            for i in range(n)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         stats = eng.serve(reqs)
@@ -930,22 +976,25 @@ def profile_phase(torch, np, eng, Request, greedy, tag="serving"):
     label = "profile" if tag == "serving" else f"profile ({tag})"
     log(f"{label}: wall={wall:.3f}s device_busy={busy:.3f}s "
         f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
-        f"decode_steps={stats.decode_steps} "
+        f"decode_steps={stats.decode_steps} verify_steps={stats.verify_steps} "
         f"prefill_tokens={stats.prefill_tokens_computed} (profiled run)")
     mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
             ("decode_split_kernel", "decode_merge_kernel", "paged_decode_kernel",
              "paged_prefill_mma_kernel", "paged_prefill_kernel", "matmul_wgmma_kernel",
-             "matmul_kernel")}
+             "matmul_kernel") + (("flash_mma_kernel",) if tag == "contiguous serving" else ())}
     log(f"{label}: device ms " + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
     for ms, count, name in rows[:12]:
         log(f"{label}: {ms:10.3f} ms  {count:6d} calls  {name[:90]}")
 
 
-def path_check(torch, np):
+def path_check(torch, np, contiguous=False):
     """One 300-token request (a 256-row prefill chunk, then 44 rows seeded
     past it, then one decode step) served at full width in fp32 by a
     ``ServingEngine`` through the kernels and by one through the plain
     versions (``dispatch.plain_versions()``), at depths 1, 2, 4 and 36.
+    ``contiguous`` (phase 17): the same request through the contiguous
+    engine (the whole prompt prefilled through K4, the decode step through
+    K3), at depths 1, 2 and 4, gated as phase 6.
     The request's sampler records the prefill and the decode logits and
     answers a fixed token, so both engines decode the same token.
 
@@ -984,27 +1033,34 @@ def path_check(torch, np):
     params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
     toks = np.random.default_rng(1).integers(0, full.vocab_size, size=300).astype(np.int32)
 
+    engine_kw = (dict(paged=False) if contiguous else dict(prefill_chunk=256))
+    kernels = ("flash_attention", "decode_attention") if contiguous else LM_KERNELS
+    label = "contiguous path check" if contiguous else "path check"
+
     def serve(cfg, p, chunk=512):
         """(prefill logits, decode logits) of the request, (2, V)."""
         eng = ServingEngine(cfg, p, max_len=320, batch_slots=1, chunk=chunk,
-                            prefill_chunk=256, cache_dtype="float32", device="cuda")
+                            cache_dtype="float32", device="cuda", **engine_kw)
         rec = Record()
         eng.serve([Request(0, toks, max_new_tokens=2, sampler=rec)])
-        if any(eng.pool.leak_report().values()) or len(rec.seen) != 2:
-            raise AssertionError("path check: the request did not run clean")
+        leaks = eng.pool.leak_report() if eng.pool is not None else {}
+        if any(leaks.values()) or len(rec.seen) != 2:
+            raise AssertionError(f"{label}: the request did not run clean")
         return np.stack(rec.seen)
 
     def rel(a, b):
         return float(np.abs(a - b).max() / np.abs(b).max())
 
-    for depth in (1, 2, 4, full.num_layers):
+    for depth in (1, 2, 4) if contiguous else (1, 2, 4, full.num_layers):
         cfg = full.replace(num_layers=depth)
         p = dict(params, blocks=tree_map(lambda t: t[:depth], params["blocks"]))
         dispatch.reset_counts()
         kern = serve(cfg, p)
         table = dispatch.kernel_table()
-        launched = all(table[n].launches > 0 for n in LM_KERNELS + ("matmul",)) and \
+        launched = all(table[n].launches > 0 for n in kernels + ("matmul",)) and \
             not any(k.plain_calls for k in table.values())
+        if contiguous:      # and no paged kernel
+            launched = launched and not any(table[n].launches for n in LM_KERNELS)
         exact_product = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
         with dispatch.plain_versions():
             plain = serve(cfg, p)
@@ -1015,7 +1071,7 @@ def path_check(torch, np):
         r_pre, r_dec = rel(kern[0], plain[0]), rel(kern[1], plain[1])
         to_exact = [(rel(kern[i], exact[i]), rel(plain[i], exact[i])) for i in (0, 1)]
         ratio = max(k / max(p, 1e-7) for k, p in to_exact)
-        log(f"path check (fp32, full width, depth {depth}): kernels vs plain "
+        log(f"{label} (fp32, full width, depth {depth}): kernels vs plain "
             f"rel prefill={r_pre:.3e} decode={r_dec:.3e} "
             f"top1_agree={bool((kern.argmax(-1) == plain.argmax(-1)).all())} "
             + (f"(tol {tol}); " if tol else "(not gated); ")
@@ -1027,11 +1083,11 @@ def path_check(torch, np):
             f"decode={to_exact[1][1]:.3e}, worst ratio {ratio:.3f}"
             + (f" (tol {TOL_PATH_EXACT_RATIO})" if tol else ""))
         if not launched:
-            raise AssertionError("path check: the kernel engine did not run "
-                                 "through the attention kernels and K7 alone")
+            raise AssertionError(f"{label}: the kernel engine did not run "
+                                 f"through {kernels} and K7 alone")
         if tol and not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol
                         and ratio <= TOL_PATH_EXACT_RATIO):
-            raise AssertionError(f"path check, depth {depth}: kernels and plain "
+            raise AssertionError(f"{label}, depth {depth}: kernels and plain "
                                  f"versions disagree ({r_pre}, {r_dec}; ratio to the exact "
                                  f"products' distance {ratio})")
     del params
@@ -2208,6 +2264,472 @@ def checkpoint_phase(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Dense contiguous serving and speculative decoding (phases 17-18)
+# ---------------------------------------------------------------------------
+
+
+def serving_summary(stats) -> str:
+    return (f"tok/s={stats.tokens_per_s:.2f} ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms "
+            f"ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms tpot={stats.mean_tpot_s * 1e3:.2f}ms "
+            f"steps_per_token={stats.steps_per_token:.4f}")
+
+
+def launched_bodies(table) -> tuple[dict, dict]:
+    """(launches by body of every kernel that launched, plain calls of
+    every kernel that took its plain version) since the last reset."""
+    return ({n: dict(k.body_launches) for n, k in table.items() if k.launches},
+            {n: k.plain_calls for n, k in table.items() if k.plain_calls})
+
+
+def contiguous_serving_phase(torch, np, table, baseline) -> dict:
+    """Phase 17: qwen2.5-3b at full width, bf16, random weights from seed 0,
+    through the contiguous engine (``paged=False``): 4 slots of 1056 rows,
+    phase 4's requests.  Launch counts zeroed just before and read just
+    after, held exactly by body: K4 36 a prefill and K3 36 a decode step,
+    all on the tensor-core bodies; K7 by body; no other kernel and no plain
+    call.  Printed beside phase 4's (``baseline``): tok/s, TTFT, TPOT,
+    tok/s/W, the caches' bytes against the paged pool's, greedy tokens (not
+    gated).  Returns the launches by kernel."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.registry import fns_for
+    from repro_torch.models.transformer import KVCache
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("qwen2.5-3b")
+    t0 = time.monotonic()
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    eng = ServingEngine(cfg, params, paged=False, max_len=1024 + 32, batch_slots=4,
+                        device="cuda")
+    del params                      # the engine keeps its own cast copy
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"contiguous serving: qwen2.5-3b L={cfg.num_layers} paged={eng.paged}, 4 slots of "
+        f"{eng.max_len} rows; init {time.monotonic() - t0:.1f}s")
+    eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                       sampler=greedy())])
+    reqs = serving_requests(cfg, np, Request, greedy)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    calls = stats.prefills + stats.decode_steps
+    want = {"flash_attention": {"mma": L * stats.prefills},
+            "decode_attention": {"mma": L * stats.decode_steps},
+            "matmul": {"wgmma": L * QWEN_PRODUCTS * calls, "fma": calls}}
+    bodies, plain = launched_bodies(table)
+    if bodies != want or plain or stats.prefills != len(reqs):
+        raise AssertionError(f"contiguous serving: launches by body {bodies}, expected "
+                             f"{want}; plain calls {plain}; prefills {stats.prefills}")
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"contiguous request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    state = eng._state
+    if not isinstance(state, KVCache) or state.k.dtype != torch.bfloat16:
+        raise AssertionError(f"contiguous serving: state {type(state).__name__} "
+                             f"{state.k.dtype}")
+    cache_bytes = 2 * state.k.numel() * state.k.element_size()
+    rows = state.k.shape[1] * state.k.shape[2]
+    outputs = [list(r.output) for r in reqs]
+    base = baseline["stats"]
+    log(f"contiguous serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s {serving_summary(stats)} "
+        f"occupancy={stats.slot_occupancy:.2f} tok/s/W={stats.tokens_per_s / watts:.4f} "
+        f"at power.limit {watts:.0f} W ({card})")
+    log(f"contiguous serving: phase 4 (paged, bf16 pool, the same requests) "
+        f"{serving_summary(base)} tok/s/W={base.tokens_per_s / watts:.4f}")
+    log(f"contiguous serving: KV caches {cache_bytes} B ({rows} rows of {cache_bytes // rows} "
+        f"B) against the paged pool's {baseline['pool_bytes']} B; prefills={stats.prefills} "
+        f"decode_steps={stats.decode_steps} prefill_compiles={stats.prefill_compiles}; "
+        f"greedy tokens equal to phase 4's in "
+        f"{sum(a == b for a, b in zip(outputs, baseline['outputs']))} of {len(reqs)} requests "
+        f"(printed, not gated: the random model at 36 layers is chaotic)")
+    log(f"contiguous serving: launches by body {bodies} (= {L} x {stats.prefills} prefills, "
+        f"{L} x {stats.decode_steps} decode steps, {L * QWEN_PRODUCTS + 1} x {calls} model "
+        f"calls) plain_calls=0 max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    profile_phase(torch, np, eng, Request, greedy, "contiguous serving")
+    del eng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(b.values()) for n, b in bodies.items()}
+
+
+def contiguous_int8_check(torch, np):
+    """Phase 17's int8 branch, as phase 6b holds the pool: a 300-token
+    prompt prefilled at full width in fp32 through K4, its rows quantized
+    into ``make_cache(..., "int8")``, then 4 decode steps through the
+    contiguous decode's int8 branch (``quantize_kv`` of the new row, K3 on
+    the cache dequantized to fp32), by the kernels and by the plain
+    versions, at depths 1, 2 and 4.  Gated: after one layer the freely
+    running sides' int8 rows equal or one step apart in at most
+    ``TOL_INT8_APART`` of them, their scales within ``TOL_INT8_SCALE_REL``;
+    at each depth the kernels' logits within phase 6's limit
+    (``TOL_PATH_REL``) of a plain run that stores the kernel run's
+    quantized rows (every ``quantize_kv`` call answered with the kernel
+    run's values and scales, in call order).  The free-running plain
+    logits are printed beside them."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.models.registry import fns_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32")
+    params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
+    S, steps, max_len = 300, 4, 320
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, full.vocab_size, size=S + steps).astype(np.int32)).cuda()[None]
+    quantize = transformer.quantize_kv
+
+    def run(cfg, p, *, record=None, replay=None):
+        """(decode logits (steps, V), the QuantKVCache after the steps)."""
+        calls = [0]
+
+        def hooked(x):
+            calls[0] += 1
+            if replay is not None:
+                q, scale = replay[calls[0] - 1]
+                if q.shape != x.shape:
+                    raise AssertionError("contiguous int8 check: the replayed schedule "
+                                         "differs")
+                return q.clone(), scale.clone()
+            q, scale = quantize(x)
+            if record is not None:
+                record.append((q.clone(), scale.clone()))
+            return q, scale
+        with mock.patch.object(transformer, "quantize_kv", hooked):
+            _, st = transformer.prefill(cfg, p, toks[:, :S], cache_dtype="float32",
+                                        max_len=max_len)
+            qc = transformer.make_cache(cfg, 1, max_len, "int8", length=st.length,
+                                        device="cuda")
+            for src, dst, sc in ((st.k, qc.k, qc.k_scale), (st.v, qc.v, qc.v_scale)):
+                q, scale = transformer.quantize_kv(src[:, :, :S])
+                dst[:, :, :S], sc[:, :, :S] = q, scale
+            del st
+            logits = []
+            for i in range(steps):
+                lg, qc = transformer.decode_step(cfg, p, toks[:, S + i:S + i + 1], qc)
+                logits.append(lg[0].cpu().numpy())
+        return np.stack(logits), qc
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for depth in (1, 2, 4):
+        cfg = full.replace(num_layers=depth)
+        p = dict(params, blocks=tree_map(lambda t: t[:depth], params["blocks"]))
+        dispatch.reset_counts()
+        recorded = []
+        kern, kc = run(cfg, p, record=recorded)
+        table = dispatch.kernel_table()
+        bodies = {n: dict(k.body_launches) for n, k in table.items()
+                  if k.launches and n != "matmul"}
+        plain_calls = sum(k.plain_calls for k in table.values())
+        with dispatch.plain_versions():
+            forced, _ = run(cfg, p, replay=recorded)
+            plain, pc = run(cfg, p)
+        written = slice(0, S + steps)        # layer 0's rows: the prompt's and the steps'
+        apart = [(getattr(kc, n)[0, :, written].int() - getattr(pc, n)[0, :, written].int()
+                  ).abs() for n in "kv"]
+        n0 = int(sum((d > 0).sum() for d in apart))
+        worst0 = int(max(d.max() for d in apart))
+        values = sum(d.numel() for d in apart)
+        scale_rel0 = max(float(((getattr(kc, n)[0, :, written] - getattr(pc, n)[0, :, written])
+                                .abs() / getattr(pc, n)[0, :, written].abs().clamp(min=1e-30)
+                                ).max()) for n in ("k_scale", "v_scale"))
+        tol = TOL_PATH_REL[depth]
+        r = rel(kern, forced)
+        log(f"contiguous int8 check (fp32, full width, depth {depth}, {steps} decode steps "
+            f"on a QuantKVCache of {max_len} rows): kernels vs plain reading the kernels' "
+            f"int8 rows rel={r:.3e} top1_agree={bool((kern.argmax(-1) == forced.argmax(-1)).all())} "
+            f"(tol {tol}); layer 0: {n0} of {values} int8 values one step apart (largest "
+            f"{worst0}, tol share {TOL_INT8_APART}), scales rel {scale_rel0:.3e} (tol "
+            f"{TOL_INT8_SCALE_REL}); free-running plain logits rel={rel(kern, plain):.3e} "
+            f"(not gated); launches by body {bodies}")
+        want = {"flash_attention": {"fma": depth}, "decode_attention": {"fma": depth * steps}}
+        if bodies != want or plain_calls:
+            raise AssertionError(f"contiguous int8 check: launches by body {bodies}, "
+                                 f"expected {want}; {plain_calls} plain calls")
+        if depth == 1 and not (worst0 <= 1 and n0 <= TOL_INT8_APART * values
+                               and scale_rel0 <= TOL_INT8_SCALE_REL):
+            raise AssertionError(f"contiguous int8 check: layer 0's int8 rows differ by up "
+                                 f"to {worst0} steps in {n0} values, scales by {scale_rel0}")
+        if not (np.isfinite(kern).all() and r <= tol):
+            raise AssertionError(f"contiguous int8 check, depth {depth}: kernels and plain "
+                                 f"versions on the same int8 rows disagree ({r})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def verify_case(torch, q_starts, C, dtype, *, H=16, K=2, D=128, bs=16, seed=0):
+    """K2 at the verify shape: one sequence per ``q_starts`` entry (C
+    candidate rows there, shuffled disjoint tables over the rows they
+    reach) and one padding sequence on an all-trash table at q_start 0,
+    length C -- as the engine's verify pass pads its batch."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    live = len(q_starts)
+    mb = max(-(-(s + C) // bs) for s in q_starts) + 1
+    N = 1 + live * mb
+    q = torch.randn((live + 1, C, H, D), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((N, bs, K, D), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((N, bs, K, D), generator=g, device="cuda").to(dtype)
+    tables = torch.zeros((live + 1, mb), dtype=torch.int32, device="cuda")
+    tables[:live] = (1 + torch.randperm(live * mb, generator=g, device="cuda")
+                     ).reshape(live, mb).int()
+    for b, s in enumerate(q_starts):          # past the candidate rows: trash
+        tables[b, -(-(s + C) // bs):] = 0
+    qs = torch.tensor(list(q_starts) + [0], dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables, qs, qs + C
+
+
+def verify_library(torch, F, args):
+    """One SDPA call on a verify case's values: the pool gathered to (B, H,
+    S, D), each sequence's causal and length mask."""
+    q, kp, vp, tables, qs, lens = args
+    _, C, H, D = q.shape
+    kg, vg = gathered(torch, kp, vp, tables, H // kp.shape[2])
+    kpos = torch.arange(kg.shape[2], device="cuda")[None, None, :]
+    qpos = (qs[:, None] + torch.arange(C, device="cuda")[None, :])[:, :, None]
+    mask = ((kpos <= qpos) & (kpos < lens[:, None, None]))[:, None]
+    qh = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask)
+
+
+def verify_kernel_phase(torch, table) -> None:
+    """Phase 18, first: K2 at the verify shape (``VERIFY_CASES``: 4
+    sequences of C = spec_k + 1 rows at mid-block q_starts and a padding
+    sequence), bf16 on the tensor-core body and fp32 on FMA, each as made
+    and with NaN in every pool row that is not live, held against the plain
+    version (phase 3's limits); then the first case timed in bf16 beside
+    the FMA body, the plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.prefill_attention.ops import body_for
+    pre = table["paged_prefill_attention"]
+    C = SPEC_K + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_starts in VERIFY_CASES:
+            for poison in (None, lambda a: poison_dead_rows(torch, a[1], a[2], a[3], a[5])):
+                args = verify_case(torch, q_starts, C, dtype)
+                hold(torch, pre, args, f"verify B={len(q_starts)}+1 padding C={C} "
+                     f"q_start={q_starts} body={body_for(args[0])}"
+                     f"{' NaN in the dead rows' if poison else ''}", poison=poison)
+    timer = Timer(torch)
+    args = verify_case(torch, VERIFY_CASES[0], C, torch.bfloat16)
+    q, kp, _, tables, qs, lens = args
+    B, _, H, D = q.shape
+    K = kp.shape[2]
+    ms = {body: timer(lambda: pre.launch(*args, body=body)) for body in ("mma", "fma")}
+    plain_ms = timer(lambda: pre.plain(*args))
+    lib_ms = timer(verify_library(torch, F, args))
+    keys = sum(int(s) + i + 1 for s in qs.tolist() for i in range(C))
+    nbytes = 2 * (2 * B * C * H * D + 2 * int(lens.sum()) * K * D) \
+        + 4 * (2 * B + sum(-(-int(n) // 16) for n in lens.tolist()))
+    flops = 4 * H * D * keys
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
+    log(f"paged_prefill_attention timed at the verify shape B={B} (one padding) C={C} "
+        f"q_start={VERIFY_CASES[0]} bf16: mma {ms['mma']:.4f}ms fma {ms['fma']:.4f}ms plain "
+        f"{plain_ms:.4f}ms library {lib_ms:.4f}ms bound {bms:.5f}ms ({by}; {nbytes} B, "
+        f"{flops} flop)")
+
+
+def spec_serving_phase(torch, np, table, baseline) -> dict:
+    """Phase 18: qwen2.5-3b at full width, bf16, random weights from seed 0,
+    speculative decoding with the target drafting for itself (``spec_k``
+    3, the drafter on the engine's own prepared weights) on the paged
+    engine of phase 4 (4 slots, 256-token prefill chunks), phase 4's
+    requests.  Launch counts held exactly by body from the engine's own
+    counters: K2 36 a verify pass, a drafter seed and a target prefill
+    chunk; K1 36 a drafter step and a vanilla decode step; all on the
+    tensor-core bodies; K7 by body; no other kernel, no plain call.  Both
+    pools leak-free.  Printed beside phase 4's: accept rate, verify steps,
+    steps per token, TPOT, tok/s; greedy tokens (not gated).  Returns the
+    launches by kernel."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("qwen2.5-3b")
+    t0 = time.monotonic()
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        draft_cfg=cfg, draft_params=params, spec_k=SPEC_K, device="cuda")
+    del params                      # the engine (and its drafter) keep one cast copy
+    gc.collect()
+    torch.cuda.synchronize()
+    drafter = eng._drafter
+    if drafter.params is not eng.params:
+        raise AssertionError("spec serving: the drafter holds a second copy of the weights")
+    log(f"spec serving: qwen2.5-3b L={cfg.num_layers} spec_k={eng.spec_k} (self-speculation, "
+        f"shared weights), pool {eng.pool.capacity} blocks, table {eng.max_blocks} blocks, "
+        f"drafter pool {drafter.pool.capacity} blocks; init {time.monotonic() - t0:.1f}s")
+    eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                       sampler=greedy())])
+    reqs = serving_requests(cfg, np, Request, greedy)
+    # count the model calls the engine and its drafter make
+    n = {"chunks": 0, "seeds": 0, "steps": 0}
+    wrapped = {"chunks": (eng, "_prefill_paged"), "seeds": (drafter, "_prefill"),
+               "steps": (drafter, "_decode")}
+    originals = {k: getattr(o, a) for k, (o, a) in wrapped.items()}
+
+    def counted(key):
+        def call(*a, **kw):
+            n[key] += 1
+            return originals[key](*a, **kw)
+        return call
+    for key, (obj, attr) in wrapped.items():
+        setattr(obj, attr, counted(key))
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    for key, (obj, attr) in wrapped.items():
+        setattr(obj, attr, originals[key])
+    L = cfg.num_layers
+    calls = n["chunks"] + n["seeds"] + n["steps"] + stats.verify_steps + stats.decode_steps
+    want = {"paged_prefill_attention": {"mma": L * (stats.verify_steps + n["seeds"]
+                                                    + n["chunks"])},
+            "paged_decode_attention": {"mma": L * (n["steps"] + stats.decode_steps)},
+            "matmul": {"wgmma": L * QWEN_PRODUCTS * calls, "fma": calls}}
+    bodies, plain = launched_bodies(table)
+    if bodies != want or plain:
+        raise AssertionError(f"spec serving: launches by body {bodies}, expected {want}; "
+                             f"plain calls {plain}; counts {n}, {stats.verify_steps} verify "
+                             f"and {stats.decode_steps} decode steps")
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"spec request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    leaks = {"target": eng.pool.leak_report(), "drafter": drafter.pool.leak_report()}
+    if any(v for d in leaks.values() for v in d.values()):
+        raise AssertionError(f"spec serving: KV pool leak {leaks}")
+    if not stats.verify_steps or stats.decode_steps or n["seeds"] != len(reqs):
+        # every request is greedy, so every slot decodes speculatively
+        raise AssertionError(f"spec serving: {stats.verify_steps} verify steps, "
+                             f"{stats.decode_steps} vanilla decode steps, {n['seeds']} "
+                             f"drafter seeds for {len(reqs)} requests")
+    outputs = [list(r.output) for r in reqs]
+    base = baseline["stats"]
+    log(f"spec serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s {serving_summary(stats)} "
+        f"occupancy={stats.slot_occupancy:.2f} tok/s/W={stats.tokens_per_s / watts:.4f} "
+        f"at power.limit {watts:.0f} W ({card})")
+    log(f"spec serving: accept_rate={stats.accept_rate:.4f} "
+        f"({stats.spec_accepted} of {stats.spec_proposed} drafts) "
+        f"verify_steps={stats.verify_steps} decode_steps={stats.decode_steps} drafter "
+        f"steps={n['steps']} drafter seeds={n['seeds']} target prefill chunks={n['chunks']} "
+        f"prefill_compiles={stats.prefill_compiles} preemptions={stats.preemptions} "
+        f"leaks={leaks}")
+    log(f"spec serving: phase 4 (vanilla decode, the same engine and requests) "
+        f"{serving_summary(base)} decode_steps={base.decode_steps}; greedy tokens equal to "
+        f"phase 4's in {sum(a == b for a, b in zip(outputs, baseline['outputs']))} of "
+        f"{len(reqs)} requests (printed, not gated: bf16 at 36 layers is chaotic)")
+    log(f"spec serving: launches by body {bodies} plain_calls=0 max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    # a shorter window than phase 5's: a round makes k + 1 model calls, and
+    # reading the profile back takes minutes at phase 5's window
+    profile_phase(torch, np, eng, Request, greedy, "spec serving", n=2, new=4)
+    del eng, drafter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n_: sum(b.values()) for n_, b in bodies.items()}
+
+
+def spec_gate(torch, np) -> None:
+    """Phase 18's gate: qwen2.5-3b at full width cut to 2 layers (random
+    weights from seed 0), fp32, phase 4's requests on the paged engine,
+    vanilla and speculative (self-speculation, spec_k 3): the greedy tokens
+    must be equal, through the kernels (K1 and K2 on their FMA bodies, or
+    ``fma_i8``), on an fp32 pool and on an int8 pool.  On a mismatch the
+    first differing step is printed with the logit margins of the
+    distribution that chose it (a fresh prefill of the common prefix
+    through the kernels): top-1 over top-2, and vanilla's token over the
+    speculative one's."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32", num_layers=2)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    for cache_dtype in ("float32", "int8"):
+        runs = {}
+        for spec in (False, True):
+            kw = dict(draft_cfg=cfg, draft_params=params, spec_k=SPEC_K) if spec else {}
+            eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4,
+                                prefill_chunk=256, cache_dtype=cache_dtype, device="cuda",
+                                **kw)
+            reqs = serving_requests(cfg, np, Request, greedy)
+            dispatch.reset_counts()
+            st = eng.serve(reqs)
+            torch.cuda.synchronize()
+            bodies, plain = launched_bodies(dispatch.kernel_table())
+            leaks = [eng.pool.leak_report()] + (
+                [eng._drafter.pool.leak_report()] if spec else [])
+            fma = "fma_i8" if cache_dtype == "int8" else "fma"
+            if plain or any(v for d in leaks for v in d.values()) or set(bodies) != {
+                    "paged_decode_attention", "paged_prefill_attention", "matmul"} or any(
+                    set(bodies[k]) != {fma} for k in LM_KERNELS):
+                raise AssertionError(f"spec gate ({cache_dtype}, spec={spec}): launches by "
+                                     f"body {bodies}, plain calls {plain}, leaks {leaks}")
+            runs[spec] = ([list(r.output) for r in reqs], st, reqs)
+            del eng
+        (van, vst, vreqs), (spc, sst, _) = runs[False], runs[True]
+        equal = van == spc
+        log(f"spec gate (fp32, full width, depth 2, {cache_dtype} pool): speculative greedy "
+            f"tokens equal to vanilla's: {equal} ({sum(len(o) for o in spc)} tokens, "
+            f"{len(spc)} requests); accept_rate={sst.accept_rate:.4f} "
+            f"verify_steps={sst.verify_steps} steps_per_token={sst.steps_per_token:.4f} "
+            f"(vanilla {vst.steps_per_token:.4f}, {vst.decode_steps} decode steps)")
+        if not equal:
+            i, req = next((i, r) for i, r in enumerate(vreqs) if van[i] != spc[i])
+            j = next(j for j, (a, b) in enumerate(zip(van[i], spc[i])) if a != b)
+            ctx = np.concatenate([req.prompt, np.asarray(van[i][:j], np.int32)])
+            lg, _ = transformer.prefill(cfg, params,
+                                        torch.from_numpy(ctx[None]).cuda())
+            lg = lg[0].cpu().numpy()
+            top = np.sort(lg)[-2:]
+            raise AssertionError(
+                f"spec gate ({cache_dtype}): request {i} differs first at step {j}: vanilla "
+                f"{van[i][j]}, speculative {spc[i][j]}; margins there: top-1 over top-2 "
+                f"{top[1] - top[0]:.3e}, vanilla's over speculative's "
+                f"{lg[van[i][j]] - lg[spc[i][j]]:.3e} (of max |logit| {np.abs(lg).max():.3e})")
+    del params
+    # printed, not gated: bf16 self-speculation's accept rate by depth (the
+    # drafter's K1 and the verify's K2 round differently; how far the
+    # random model carries that is its depth's to say)
+    for depth in SPEC_BF16_DEPTHS:
+        cfg = arch_registry.config("qwen2.5-3b").replace(num_layers=depth)
+        params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+        eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4,
+                            prefill_chunk=256, draft_cfg=cfg, draft_params=params,
+                            spec_k=SPEC_K, device="cuda")
+        st = eng.serve(serving_requests(cfg, np, Request, greedy))
+        log(f"spec serving at depth {depth} (bf16, printed, not gated): accept_rate="
+            f"{st.accept_rate:.4f} ({st.spec_accepted} of {st.spec_proposed}) "
+            f"verify_steps={st.verify_steps} tpot={st.mean_tpot_s * 1e3:.2f}ms")
+        del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2231,24 +2753,45 @@ def main() -> int:
         log(f"--- nvcc -Xptxas -v: {name} ({how}) ---\n{text.strip()}")
 
     table = dispatch.kernel_table()
-    results = kernel_phase(torch, table)
-    results.update(int8_kernel_phase(torch, table))
-    launches, bf16_serving = serving_phase(torch, np, table)
-    int8_launches, _ = serving_phase(torch, np, table, "int8", bf16_serving)
+    start = time.monotonic()
+
+    def timed(label, fn, *args, **kw):
+        """Run one phase; log its wall time and the total so far."""
+        t = time.monotonic()
+        out = fn(*args, **kw)
+        log(f"[time] {label}: {time.monotonic() - t:.1f}s (total {time.monotonic() - start:.1f}s)")
+        return out
+    results = timed("3 kernels", kernel_phase, torch, table)
+    results.update(timed("3b int8 kernels", int8_kernel_phase, torch, table))
+    launches, bf16_serving = timed("4-5 serving", serving_phase, torch, np, table)
+    int8_launches, int8_serving = timed("4b int8 serving", serving_phase, torch, np, table,
+                                        "int8", bf16_serving)
     launches.update({f"{n}:int8": c for n, c in int8_launches.items()})
-    path_check(torch, np)
-    int8_path_check(torch, np)
-    results.update(hybrid_kernel_phase(torch, table))
-    launches.update(hybrid_serving_phase(torch, np, table))
-    hybrid_path_check(torch, np)
-    results.update(conv_phase(torch, table))
-    launches["conv2d"] = googlenet_phase(torch, np, table)
-    k7 = matmul_phase(torch, table)
+    timed("6 path check", path_check, torch, np)
+    timed("6b int8 path check", int8_path_check, torch, np)
+    results.update(timed("9 zamba2 kernels", hybrid_kernel_phase, torch, table))
+    hybrid = timed("10 zamba2 serving", hybrid_serving_phase, torch, np, table)
+    launches.update(hybrid)
+    timed("11 zamba2 path check", hybrid_path_check, torch, np)
+    results.update(timed("7 conv", conv_phase, torch, table))
+    launches["conv2d"] = timed("8 googlenet", googlenet_phase, torch, np, table)
+    k7 = timed("12 matmul", matmul_phase, torch, table)
     results["matmul"] = k7[K7_TIMED[0][0]]
-    matmul_backward_phase(torch, table)
-    train_path_check(torch, np)
-    launches["matmul"] = training_phase(torch, np, table)
-    checkpoint_phase(torch, np)
+    timed("13 matmul backward", matmul_backward_phase, torch, table)
+    timed("14 training path check", train_path_check, torch, np)
+    launches["matmul"] = timed("15 training", training_phase, torch, np, table)
+    timed("16 checkpoint", checkpoint_phase, torch, np)
+    contiguous = timed("17 contiguous serving", contiguous_serving_phase, torch, np, table,
+                       bf16_serving)
+    timed("17 contiguous path check", path_check, torch, np, contiguous=True)
+    timed("17 contiguous int8", contiguous_int8_check, torch, np)
+    timed("18 verify kernels", verify_kernel_phase, torch, table)
+    spec = timed("18 spec serving", spec_serving_phase, torch, np, table, bf16_serving)
+    timed("18 spec gate", spec_gate, torch, np)
+    # each entry counts every served or trained path that ran it
+    launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
+    for name, count in list(contiguous.items()) + list(spec.items()):
+        launches[name] += count
 
     kernels = []
     for name in ("paged_decode_attention", "paged_prefill_attention",

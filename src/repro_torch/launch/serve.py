@@ -2,13 +2,20 @@
 engine on one card, with throughput, serving-quality metrics (TTFT p50/p99,
 TPOT, slot occupancy) and tokens/s per watt against the card's power limit
 (counterpart of ``repro/launch/serve.py``, single replica).  The dense
-family serves from the paged KV pool, the hybrid (zamba2) from contiguous
-per-slot caches of ``prompt_len + new_tokens + 1`` rows.
+family serves from the paged KV pool (from contiguous per-slot caches with
+``--contiguous-kv``), the hybrid (zamba2) from contiguous per-slot caches;
+contiguous caches hold ``prompt_len + new_tokens + 1`` rows.  With
+``--draft-model`` greedy requests decode speculatively on the paged pool.
 
 Example (on a machine with an NVIDIA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --prompt-len 512 --prefill-chunk 256 --kv-pool-blocks 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --contiguous-kv
+  # speculative decoding, the target drafting for itself (shared weights):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --draft-model qwen2.5-3b --spec-k 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
   # the plain PyTorch versions of the kernels, on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
@@ -51,6 +58,9 @@ def main() -> int:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--contiguous-kv", action="store_true",
+                    help="disable the paged KV pool (worst-case per-slot "
+                         "cache, per-prompt-length prefill shapes)")
     ap.add_argument("--kv-pool-blocks", type=int, default=None,
                     help="paged KV pool size in blocks (default: worst "
                          "case = slots x ceil(max_len / block_size))")
@@ -65,6 +75,20 @@ def main() -> int:
     ap.add_argument("--no-seeded-prefill", action="store_true",
                     help="recompute baseline: every prompt token is re-run "
                          "(compare prefill_tokens_computed)")
+    ap.add_argument("--draft-model", default=None, metavar="ARCH",
+                    help="enable speculative decoding with this arch as "
+                         "the drafter (paged KV only); greedy requests "
+                         "propose --spec-k tokens per step and the target "
+                         "verifies them in one batched pass -- outputs are "
+                         "vanilla greedy's.  Same arch as --arch = "
+                         "self-speculation (shares the target's weights)")
+    ap.add_argument("--spec-k", type=int, default=3, metavar="K",
+                    help="drafter tokens proposed per speculative round "
+                         "(each verify pass scores K+1 positions and "
+                         "commits 1..K+1 tokens)")
+    ap.add_argument("--no-spec", action="store_true",
+                    help="ignore --draft-model: run vanilla decode (the "
+                         "A/B baseline for speculative decoding)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -86,14 +110,27 @@ def main() -> int:
                                     size=args.prompt_len).astype(np.int32),
                     max_new_tokens=args.new_tokens, sampler=mk_sampler())
             for i in range(args.requests)]
-    eng = ServingEngine(cfg, params, max_len=max_len, batch_slots=args.slots,
-                        pool_blocks=args.kv_pool_blocks,
-                        preemption=not args.no_preemption,
-                        prefix_sharing=not args.no_prefix_sharing,
-                        prefill_chunk=args.prefill_chunk,
-                        seeded_prefill=not args.no_seeded_prefill,
-                        device=device)
-    del params                      # the engine keeps its own cast copy
+    kw = dict(max_len=max_len, batch_slots=args.slots,
+              paged=False if args.contiguous_kv else None,
+              pool_blocks=args.kv_pool_blocks,
+              preemption=not args.no_preemption,
+              prefix_sharing=not args.no_prefix_sharing,
+              prefill_chunk=args.prefill_chunk,
+              seeded_prefill=not args.no_seeded_prefill, device=device)
+    if args.draft_model and not args.no_spec:
+        if args.contiguous_kv:
+            ap.error("--draft-model needs the paged KV pool; "
+                     "drop --contiguous-kv")
+        if args.draft_model == args.arch:        # self-speculation
+            kw.update(draft_cfg=cfg, draft_params=params)
+        else:
+            dcfg = (arch_registry.smoke(args.draft_model) if args.smoke
+                    else arch_registry.config(args.draft_model))
+            kw.update(draft_cfg=dcfg, draft_params=fns_for(dcfg).init(
+                dcfg, torch.Generator(device).manual_seed(1)))
+        kw["spec_k"] = args.spec_k
+    eng = ServingEngine(cfg, params, **kw)
+    del params, kw                  # the engine keeps its own cast copies
     stats = eng.serve(reqs)
     print(f"requests={stats.requests} tokens={stats.tokens} "
           f"wall={stats.wall_s:.2f}s tok/s={stats.tokens_per_s:.2f}")
@@ -114,6 +151,12 @@ def main() -> int:
           f"/{stats.prefill_tokens_total} computed "
           f"({stats.prefill_compute_frac:.0%})  "
           f"decode_stall_p99={stall}")
+    if stats.spec_proposed:
+        spt = (f"{stats.steps_per_token:.2f}"
+               if stats.steps_per_token is not None else "n/a")
+        print(f"spec: accept_rate={stats.accept_rate:.2f}  "
+              f"verify_steps={stats.verify_steps}  "
+              f"decode_steps={stats.decode_steps}  steps/token={spt}")
     if stats.preemptions or stats.prefix_shared_blocks:
         print(f"preemptions={stats.preemptions}  "
               f"prefix_shared_blocks={stats.prefix_shared_blocks}")

@@ -1,7 +1,7 @@
 """Model API for the ported families (counterpart of
-``repro/models/registry.py``: the dense transformer's paged entries,
-``:55-97``, with the training forward, the hybrid family, ``:100-118``,
-and the cnn family, ``:164-173``).
+``repro/models/registry.py``: the dense transformer, ``:55-97``, with the
+training forward, the hybrid family, ``:100-118``, and the cnn family,
+``:164-173``).
 
   init(cfg, generator)                          -> params
   prepare_params(cfg, params, device)           -> params on the device,
@@ -12,6 +12,8 @@ and the cnn family, ``:164-173``).
                                                    dtype "int8"
   prefill_paged(cfg, params, tokens, state, write_ids, table, *, q_start,
                 kv_len, last_idx, chunk)        -> (logits, state)
+  verify_paged(cfg, params, tokens, state, table, *, q_start, kv_len,
+               chunk)                           -> ((B, C, V) logits, state)
   prefill(cfg, params, batch, max_len, chunk, cache_dtype)
                                                 -> (last_logits, state)
   decode(cfg, params, tokens, state, chunk)     -> (logits, state)
@@ -22,8 +24,9 @@ and the cnn family, ``:164-173``).
     V); cnn: ``batch`` holds ``images``, logits (B, classes))
 
 A family serves from the paged pool when it has ``init_paged_state``, and
-from contiguous caches when it has ``init_decode_state`` (the dense
-family's contiguous caches are not ported yet).
+from contiguous caches when it has ``init_decode_state``; the dense family
+has both, and ``verify_paged`` (speculative decoding) besides.  The dense
+``prefill`` reads logits at ``batch["last_pos"]`` when the batch has it.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ class ModelFns:
     prefill: Callable[..., Any] | None = None
     init_decode_state: Callable[..., Any] | None = None
     prepare_params: Callable[..., Any] | None = None
+    verify_paged: Callable[..., Any] | None = None
 
 
 def _tf_decode(cfg, params, tokens, state, chunk=2048):
@@ -58,10 +62,30 @@ def _tf_forward(cfg, params, batch, *, remat=True, chunk=1024):
                                chunk=chunk)
 
 
+def _tf_prefill(cfg, params, batch, max_len=None, chunk=1024,
+                cache_dtype="bfloat16"):
+    return transformer.prefill(cfg, params, batch["tokens"],
+                               batch.get("positions"), max_len=max_len,
+                               chunk=chunk, cache_dtype=cache_dtype,
+                               last_pos=batch.get("last_pos"))
+
+
+def _tf_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
+    """Batched contiguous caches; every slot starts idle at ``max_len - 1``,
+    so an idle slot's decode writes at most one row and then runs past the
+    cache, never over a live one."""
+    return transformer.make_cache(
+        cfg, batch, max_len, cache_dtype,
+        length=torch.full((batch,), max_len - 1, dtype=torch.int32,
+                          device=device), device=device)
+
+
 TRANSFORMER_FNS = ModelFns("dense", transformer.init, _tf_decode,
                            transformer.make_paged_cache,
                            transformer.prefill_paged, forward=_tf_forward,
-                           prepare_params=transformer.prepare_params)
+                           prefill=_tf_prefill, init_decode_state=_tf_state,
+                           prepare_params=transformer.prepare_params,
+                           verify_paged=transformer.verify_paged)
 
 
 def _hy_prefill(cfg, params, batch, max_len=None, chunk=1024,

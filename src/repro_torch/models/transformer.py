@@ -1,34 +1,44 @@
-"""Decoder-only transformer LM: the training forward and serving on a
-paged KV pool (counterpart of ``repro/models/transformer.py``, dense
-family: the training forward and the paged serving path).
+"""Decoder-only transformer LM: the training forward and serving from
+contiguous caches or a paged KV pool (counterpart of
+``repro/models/transformer.py``, dense family).
 
 Entry points:
   * ``init``          -- parameters from a seeded ``torch.Generator``, with
     the reference's names and stacked ``(L, ...)`` shapes.
   * ``forward``       -- training forward: full (B, S, V) fp32 logits, every
     block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it.
+  * ``prefill``       -- the whole prompt from position 0: last-position
+    logits and a contiguous :class:`KVCache` grown to ``max_len`` rows.
   * ``prefill_paged`` -- one prompt chunk written *directly* into paged pool
     blocks, attending over already-seeded blocks, so shared prefixes and
     resumed histories are never recomputed.
-  * ``decode_step``   -- one token per slot against the paged pool.
+  * ``verify_paged``  -- the speculative-decoding verify pass: ``k + 1``
+    candidate rows per sequence scored in one call, logits at every row.
+  * ``decode_step``   -- one token per slot against any of the four caches.
 
-The paged pool is bf16 / fp32 (:class:`PagedKVCache`) or int8 with one
-fp32 absmax scale per (block, row, kv head) (:class:`QuantPagedKVCache`):
-rows are quantized on write (:func:`quantize_kv`) and dequantized to the
-compute dtype inside the attention kernels, as the reference does.
+Contiguous caches are bf16 / fp32 (:class:`KVCache`, ``(L, B, S, K, D)``)
+or int8 with one fp32 absmax scale per (slot, row, kv head)
+(:class:`QuantKVCache`).  The paged pool is bf16 / fp32
+(:class:`PagedKVCache`) or int8 with one scale per (block, row, kv head)
+(:class:`QuantPagedKVCache`).  int8 rows are quantized on write
+(:func:`quantize_kv`) and dequantized to the compute dtype before the
+attention, as the reference does.
 
 Serving attends through the hand-written CUDA kernels
 (:mod:`repro_torch.kernels`) when the tensors are on the card, and through
-their plain PyTorch versions on the CPU; every weight product, in serving
+their plain PyTorch versions on the CPU: ``prefill`` through the dense
+flash kernel (K4), a contiguous decode through the dense decode kernel
+(K3), the paged paths through K1 and K2.  Every weight product, in serving
 and in training, goes through the K7 matmul kernel
 (:mod:`repro_torch.models.layers.linear`).  Training attention is the
 plain ``chunked_attention``, as the reference computes it outside any
-Pallas kernel.
+Pallas kernel: the caller picks the kernel by the branch of
+``_apply_backbone`` it takes, never by the device.
 
 Differences from the reference: ``lax.scan`` over the stacked layers is a
-Python loop, and pool writes happen **in place** (the reference's
-``.at[].set`` returns new pools).  The functions still return the cache,
-which holds the same (updated) tensors.
+Python loop, and cache and pool writes happen **in place** (the
+reference's ``.at[].set`` returns new arrays).  The functions still return
+the cache, which holds the same (updated) tensors.
 """
 from __future__ import annotations
 
@@ -38,16 +48,45 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
+from repro_torch.distributed.collectives import seq_sharded_decode_attention
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.dispatch import check_scales
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers.embedding import embed, embedding_table
 from repro_torch.models.layers.embedding import logits as lm_logits
 from repro_torch.models.layers.mlp import swiglu, swiglu_table
 from repro_torch.models.layers.module import (cast_product_weights, init_table,
-                                              stack_table, tree_map)
+                                              stack_table)
 from repro_torch.models.layers.norms import apply_norm, norm_table
+
+
+class KVCache(NamedTuple):
+    """Stacked per-layer contiguous KV cache.  k/v: (L, B, S, K, D);
+    length: (B,) int32 valid rows (the next row is written there)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+class QuantKVCache(NamedTuple):
+    """int8 variant of :class:`KVCache`, quantized per (slot, row, kv head)
+    with absmax scales.  k/v: (L, B, S, K, D) int8; k_scale/v_scale: (L, B,
+    S, K) fp32."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
 
 
 class PagedKVCache(NamedTuple):
@@ -109,6 +148,28 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     """int8 (..., D) and its scales (...,) -> ``dtype``: one fp32 multiply,
     then one rounding."""
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
+               num_layers: int | None = None,
+               length: torch.Tensor | None = None, *, device="cuda"):
+    """Contiguous caches of ``max_len`` rows for ``batch`` slots, zeros;
+    ``length`` (B,) int32 (default 0); ``dtype`` "int8" gives a
+    :class:`QuantKVCache`."""
+    L = num_layers if num_layers is not None else cfg.num_layers
+    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    ln = (torch.zeros((batch,), dtype=torch.int32, device=device)
+          if length is None else length)
+    if dtype == "int8":
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            length=ln)
+    dt = dtype_of(dtype)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device), length=ln)
 
 
 def make_paged_cache(cfg, num_blocks: int, block_size: int, batch: int,
@@ -227,7 +288,7 @@ def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, scales,
 
     q/k_new/v_new: (1, C, H|K, D) with C a multiple of the pool block size;
     scales: None, or this layer's (k_scale, v_scale) (N, bs, K) for int8
-    pools (whole chunk blocks quantized and written with their scales);
+    pools (the rows quantized and written with their scales);
     write_ids: (C // bs,) physical block per chunk block (trash 0 for rows
     that must not land anywhere -- bucket padding, and the
     recompute-baseline's shared prefix; duplicate trash writes race, which
@@ -235,54 +296,84 @@ def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, scales,
     table: (1, max_blocks) read table; q_start: (1,) absolute position of
     the chunk's first row; kv_len: (1,) valid rows incl. this chunk.
 
-    The reference's ``write_ids=None`` (speculative verify) layout is not
-    ported yet.
+    ``write_ids=None`` is the *verify* write layout (speculative decoding):
+    q/k_new/v_new are (B, C) candidate rows starting at any in-block offset
+    ``q_start`` per sequence, so each row is scattered on its own through
+    ``table`` -- row ``q_start + j`` lands at block ``table[b, pos // bs]``,
+    offset ``pos % bs``.  Padding sequences carry all-trash tables, so
+    their rows (and any duplicate trash hits) are harmless garbage.
     """
-    if write_ids is None:
-        raise NotImplementedError(
-            "the verify write layout (write_ids=None) is ported with the "
-            "speculative-decoding slice")
     N, bs, K, D = pool_k.shape
     C = q.shape[1]
-    wid = write_ids.long()
-    kb = k_new[0].reshape(C // bs, bs, K, D)
-    vb = v_new[0].reshape(C // bs, bs, K, D)
+    if write_ids is None:
+        pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
+                                              device=q.device)[None]
+        bi = torch.clamp(pos // bs, 0, table.shape[1] - 1).long()
+        idx = (torch.gather(table, 1, bi).long(), (pos % bs).long())
+        rows_k, rows_v = k_new, v_new                # (B, C, K, D)
+    else:
+        idx = (write_ids.long(),)
+        rows_k = k_new[0].reshape(C // bs, bs, K, D)
+        rows_v = v_new[0].reshape(C // bs, bs, K, D)
     k_scale, v_scale = scales if scales is not None else (None, None)
     if check_scales(pool_k, k_scale, v_scale):
-        kq, ks = quantize_kv(kb)
-        vq, vs = quantize_kv(vb)
-        pool_k[wid], k_scale[wid] = kq, ks
-        pool_v[wid], v_scale[wid] = vq, vs
+        kq, ks = quantize_kv(rows_k)
+        vq, vs = quantize_kv(rows_v)
+        pool_k[idx], k_scale[idx] = kq, ks
+        pool_v[idx], v_scale[idx] = vq, vs
     else:
-        pool_k[wid] = kb.to(pool_k.dtype)
-        pool_v[wid] = vb.to(pool_v.dtype)
+        pool_k[idx] = rows_k.to(pool_k.dtype)
+        pool_v[idx] = rows_v.to(pool_v.dtype)
     return paged_prefill_attention(q, pool_k, pool_v, table, q_start, kv_len,
                                    k_scale=k_scale, v_scale=v_scale,
                                    softcap=cfg.attn_logit_softcap,
                                    chunk=chunk)
 
 
+def _flash_prefill_attend(cfg, q, k, v, chunk):
+    """The prompt's causal attention through the dense flash kernel (K4),
+    queries and keys at rows 0..S-1 -- the prefill's positions.  K4 has
+    neither a window nor a softcap, as the Pallas kernel it ports."""
+    if cfg.sliding_window or cfg.attn_logit_softcap:
+        raise NotImplementedError(
+            "prefill through the flash kernel: no sliding window or softcap")
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True, chunk=chunk)
+
+
 def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
                 cache_scales=None, kv_len=None, block_tables=None,
-                paged_prefill=None, chunk=1024):
+                paged_prefill=None, kv_out=None, chunk=1024):
     """One transformer block.
 
-    Without a cache (training): causal self-attention over the whole of x
-    (B, S, D), the plain ``chunked_attention`` as in the reference.  With
-    this layer's paged pools: decode (``paged_prefill`` None) takes x of
-    (B, 1, D) and writes the new KV row at ``kv_len``; prefill
-    (``paged_prefill`` a dict of write_ids/table/q_start/kv_len) writes the
-    chunk's KV straight into pool blocks and attends causally over the
-    table's blocks.  ``cache_scales``: this layer's (k_scale, v_scale) when
-    the pools are int8.
+    Without a cache: causal self-attention over the whole of x (B, S, D) --
+    the plain ``chunked_attention`` for training, as in the reference, or,
+    when ``kv_out`` is a list (prefill), the flash kernel, with this
+    layer's (k, v) appended to ``kv_out``.  With this layer's paged pools
+    (``block_tables`` given): decode (``paged_prefill`` None) takes x of
+    (B, 1, D) and writes the new KV row at ``kv_len``; prefill and verify
+    (``paged_prefill`` a dict of write_ids/table/q_start/kv_len) write the
+    chunk's KV rows straight into pool blocks and attend causally over the
+    table's blocks.  With this layer's contiguous caches (no
+    ``block_tables``): decode through ``seq_sharded_decode_attention``.
+    ``cache_scales``: this layer's (k_scale, v_scale) when the cache or
+    pool is int8.
     """
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
-    if cache_k is None:
+    if cache_k is None and kv_out is not None:
+        attn = _flash_prefill_attend(cfg, q, k, v, chunk)
+        kv_out.append((k, v))
+    elif cache_k is None:
         attn = A.chunked_attention(q, k, v, causal=True, q_positions=positions,
                                    kv_positions=positions,
                                    softcap=cfg.attn_logit_softcap,
                                    window=cfg.sliding_window, chunk=chunk)
+    elif block_tables is None:
+        ks, vs = cache_scales if cache_scales is not None else (None, None)
+        attn = seq_sharded_decode_attention(
+            q, cache_k, cache_v, k, v, kv_len, k_scale=ks, v_scale=vs,
+            softcap=cfg.attn_logit_softcap, chunk=chunk)[0]
     elif paged_prefill is not None:
         attn = _paged_prefill_attend(cfg, q, k, v, cache_k, cache_v,
                                      cache_scales, chunk=chunk,
@@ -328,28 +419,42 @@ def _scan_blocks(cfg, stacked, x, positions, *, remat, chunk=1024):
     return x
 
 
-def _apply_backbone(cfg, params, tokens, positions, *,
-                    cache: PagedKVCache | QuantPagedKVCache | None = None,
-                    remat=False, paged_prefill=None, chunk=1024):
-    """Embed, run every layer -- over the whole sequence without a cache,
-    or against its slice of the paged pools and, for an int8 pool, of its
-    scales (the reference's ``lax.scan`` over stacked layers) -- and the
-    final norm."""
+def _apply_backbone(cfg, params, tokens, positions, *, cache=None,
+                    remat=False, collect_kv=False, paged_prefill=None,
+                    chunk=1024):
+    """Embed, run every layer, and the final norm.  Returns (x, KVCache or
+    None).
+
+    Without a cache the layers run over the whole sequence: the training
+    stack, or with ``collect_kv`` the prefill, whose attention runs the
+    flash kernel and whose layers' fresh K/V come back stacked as a
+    :class:`KVCache` of the prompt's rows.  With a cache each layer runs
+    against its slice of the contiguous caches or paged pools and, int8,
+    of their scales (the reference's ``lax.scan`` over stacked layers)."""
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     blocks = params["blocks"]
-    if cache is None:
+    if cache is None and not collect_kv:
         x = _scan_blocks(cfg, blocks, x, positions, remat=remat, chunk=chunk)
-        return apply_norm(cfg, params["ln_f"], x)
-    quant = isinstance(cache, QuantPagedKVCache)
-    for i in range(cfg.num_layers):
-        p = tree_map(lambda leaf, i=i: leaf[i], blocks)
+        return apply_norm(cfg, params["ln_f"], x), None
+    if cache is None:
+        kv: list = []
+        for p in _unstack_layers(blocks, cfg.num_layers):
+            x = block_apply(cfg, p, x, positions, kv_out=kv, chunk=chunk)
+        B, S = tokens.shape
+        return apply_norm(cfg, params["ln_f"], x), KVCache(
+            k=torch.stack([k for k, _ in kv]),
+            v=torch.stack([v for _, v in kv]),
+            length=torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device))
+    quant = isinstance(cache, (QuantKVCache, QuantPagedKVCache))
+    tables = getattr(cache, "block_tables", None)
+    for i, p in enumerate(_unstack_layers(blocks, cfg.num_layers)):
         scales = (cache.k_scale[i], cache.v_scale[i]) if quant else None
         x = block_apply(cfg, p, x, positions, cache_k=cache.k[i],
                         cache_v=cache.v[i], cache_scales=scales,
-                        kv_len=cache.length,
-                        block_tables=cache.block_tables,
+                        kv_len=cache.length, block_tables=tables,
                         paged_prefill=paged_prefill, chunk=chunk)
-    return apply_norm(cfg, params["ln_f"], x)
+    return apply_norm(cfg, params["ln_f"], x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -373,11 +478,41 @@ def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
     casts run again in the recompute; nothing is cached across steps)."""
     if positions is None:
         positions = default_positions(cfg, tokens)
-    x = _apply_backbone(cfg, params, tokens, positions, remat=remat,
-                        chunk=chunk)
+    x, _ = _apply_backbone(cfg, params, tokens, positions, remat=remat,
+                           chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg, torch.zeros((), dtype=torch.float32, device=lg.device)
+
+
+def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",
+            max_len: int | None = None, chunk=1024, last_pos=None):
+    """Prefill the prompts ``tokens`` (B, S) from position 0: logits (B, V)
+    fp32 at the last position, or at ``last_pos`` (B,) (a prompt
+    right-padded to a bucket has its last real token there; causality keeps
+    its logits independent of the padding), and a :class:`KVCache` in
+    ``cache_dtype`` grown to ``max_len`` rows (default S) with ``length``
+    S.  The causal attention is the flash kernel's, which masks by row:
+    ``positions`` (RoPE's) must be each row's index, as the default is."""
+    if positions is None:
+        positions = default_positions(cfg, tokens)
+    x, cache = _apply_backbone(cfg, params, tokens, positions,
+                               collect_kv=True, chunk=chunk)
+    B, Sq = tokens.shape
+    max_len = max_len or Sq
+    cdt = dtype_of(cache_dtype)
+
+    def grow(c):
+        out = torch.zeros((*c.shape[:2], max_len, *c.shape[3:]), dtype=cdt,
+                          device=c.device)
+        out[:, :, :Sq] = c
+        return out
+    cache = cache._replace(k=grow(cache.k), v=grow(cache.v))
+    last = (x[:, -1:] if last_pos is None
+            else x[torch.arange(B, device=x.device), last_pos][:, None])
+    lg = lm_logits(params["embed"], last, cfg.tie_embeddings,
+                   cfg.final_logit_softcap)
+    return lg[:, 0], cache
 
 
 def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
@@ -398,21 +533,55 @@ def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
     B, C = tokens.shape
     pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=tokens.device)[None]
-    x = _apply_backbone(cfg, params, tokens, pos.expand(B, C), cache=cache,
-                        chunk=chunk,
-                        paged_prefill=dict(write_ids=write_ids, table=table,
-                                           q_start=q_start, kv_len=kv_len))
+    x, _ = _apply_backbone(cfg, params, tokens, pos.expand(B, C),
+                           cache=cache, chunk=chunk,
+                           paged_prefill=dict(write_ids=write_ids,
+                                              table=table, q_start=q_start,
+                                              kv_len=kv_len))
     last = x[torch.arange(B, device=x.device), last_idx][:, None]
     lg = lm_logits(params["embed"], last, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg[:, 0], cache
 
 
+def verify_paged(cfg, params, tokens, cache, table, *, q_start, kv_len,
+                 chunk=1024):
+    """Speculative-decode verify pass: score ``k + 1`` candidate tokens per
+    sequence in one batched call.
+
+    tokens: (B, C) per slot ``[t_0, d_1 .. d_k]`` -- the pending greedy
+    token and the drafter's proposals; cache: :class:`PagedKVCache` or
+    :class:`QuantPagedKVCache`; table: (B, max_blocks) per-slot read tables
+    (grown to cover the candidate rows; padding slots all trash); q_start:
+    (B,) committed rows per slot (candidate row ``j`` sits at position
+    ``q_start + j``); kv_len: (B,) ``q_start + C``.
+
+    Returns logits at *every* candidate row, (B, C, V) fp32: row ``j`` is
+    the target's distribution after ``t_0, d_1 .. d_j``.  The candidates'
+    KV rows are scattered through ``table`` in place (the ``write_ids=None``
+    layout of :func:`_paged_prefill_attend`), so accepted rows are already
+    where they belong; the rejected tail's rows are overwritten later.
+    """
+    B, C = tokens.shape
+    pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
+                                          device=tokens.device)[None]
+    x, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
+                           chunk=chunk,
+                           paged_prefill=dict(write_ids=None, table=table,
+                                              q_start=q_start,
+                                              kv_len=kv_len))
+    lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
+                   cfg.final_logit_softcap)
+    return lg, cache
+
+
 def decode_step(cfg, params, tokens, cache, *, chunk=2048):
-    """One decode step. tokens: (B, 1) -> logits (B, V) fp32, and the cache
-    with the new rows written in place and ``length`` advanced by one."""
+    """One decode step against any of the four caches.  tokens: (B, 1) ->
+    logits (B, V) fp32, and the cache with the new rows written in place
+    and ``length`` advanced by one."""
     pos = cache.length[:, None]
-    x = _apply_backbone(cfg, params, tokens, pos, cache=cache, chunk=chunk)
+    x, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
+                           chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg[:, 0], cache._replace(length=cache.length + 1)

@@ -21,21 +21,31 @@ block tables and block-aware admission.  On top of the pool:
 The pool is in ``cache_dtype``: bf16, fp32, or int8 with fp32 scales per
 (block, row, kv head) (``QuantPagedKVCache``).  Families with no paged
 state (the hybrid) serve from **contiguous** caches (``paged=False``, the
-default for them): each admitted prompt is prefilled whole into a batch-1
-state that is written into its slot of the batched decode state
-(:func:`_merge_slot`), as the reference's contiguous path.  Contiguous
-caches are never int8: ``cache_dtype="int8"`` gives them in bf16, as the
-reference's contiguous engine builds them whatever ``cache_dtype`` says.
+default for them), and so does the dense family with ``paged=False``: each
+admitted prompt is prefilled whole into a batch-1 state that is written
+into its slot of the batched decode state (:func:`_merge_slot`), as the
+reference's contiguous path.  Contiguous caches are never int8:
+``cache_dtype="int8"`` gives them in bf16, as the reference's contiguous
+engine builds them whatever ``cache_dtype`` says.
+
+Speculative decoding (``draft_cfg``, paged only): greedy slots run a
+draft-and-verify round instead of the vanilla decode step.  A
+:class:`_Drafter` with its own worst-case paged pool proposes ``spec_k``
+tokens per slot; the target scores the pending token and every draft in
+one batched ``verify_paged`` pass and commits the longest prefix of drafts
+that matches its own argmax chain, so the output is vanilla greedy's.
+Under self-speculation (``draft_cfg is cfg``) the drafter shares the
+engine's prepared weights.
 
 Every attention call runs the hand-written CUDA kernels when the engine's
 device is the card (:mod:`repro_torch.kernels`).  The engine runs on
 ``device="cuda"`` unless the caller passes another device; it raises when
 no card is present rather than carry on on the CPU.
 
-Not ported yet, and refused by the constructor: the dense family's
-contiguous caches (``paged=False`` for it), speculative decoding
-(``draft_cfg``), the host KV tier (``host_blocks``), disaggregated roles,
-fault injection, and ``prefill_chunk`` without paging.
+Not ported yet, and refused by the constructor: the host KV tier
+(``host_blocks``), disaggregated roles and fault injection; refused as
+the reference refuses them: ``prefill_chunk`` and speculative decoding
+without paging.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ import torch
 from repro_torch.models.registry import fns_for
 from repro_torch.serving.kv_pool import CapacityError, KVBlockPool
 from repro_torch.serving.sampler import Sampler  # noqa: F401 (re-export)
+from repro_torch.serving.sampler import greedy_accept_prefix
 from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
                                            RequestState)
 
@@ -289,6 +300,9 @@ class WindowBase(NamedTuple):
     tokens: int
     prefills: int
     decode_steps: int
+    verify_steps: int
+    spec_proposed: int
+    spec_accepted: int
     occupancy_sum: float
     prefill_compiles: int
     preemptions: int
@@ -334,6 +348,153 @@ class _PrefillJob:
     slot: int = -1              # engine slot
 
 
+class _Drafter:
+    """The drafter side of speculative decoding: a model with its own paged
+    KV pool, mirrored per engine slot (the reference's ``_Drafter``).
+
+    The pool is sized worst-case (every slot at ``max_len`` plus the
+    speculative overhang), so drafter allocation never fails and never
+    meets the target pool's admission control.  Per-slot host block tables
+    and valid-row counts are re-injected before every batched drafter
+    step.  The drafter lags the target by at most one committed token (only
+    after a round that accepted all ``k`` drafts was the last committed
+    token never fed to it), and :meth:`propose` feeds that gap before the
+    pending token, so its KV stays a prefix of the committed stream.
+
+    ``params`` are already prepared for ``device`` (under self-speculation
+    the engine's own).  Its decode steps run K1, its seeds K2.
+    """
+
+    def __init__(self, cfg, params, *, slots: int, max_len: int,
+                 block_size: int, spec_k: int, chunk: int, cache_dtype: str,
+                 device):
+        self.cfg = cfg
+        self.params = params
+        self.fns = fns_for(cfg)
+        if self.fns.init_paged_state is None or self.fns.prefill_paged is None:
+            raise ValueError(f"draft family {cfg.family!r} has no paged-KV "
+                             f"support; speculative decoding needs it")
+        self.device = device
+        self.slots = slots
+        self.block_size = block_size
+        self.spec_k = spec_k
+        self.max_blocks = -(-(max_len + spec_k + 1) // block_size)
+        self.pool = KVBlockPool(slots * self.max_blocks, block_size)
+        self._tables = np.zeros((slots, self.max_blocks), np.int32)
+        self._lens = np.zeros((slots,), np.int32)
+        self._blocks: dict[int, list[int]] = {}
+        self._state = self.fns.init_paged_state(
+            cfg, self.pool.total_blocks, block_size, slots, self.max_blocks,
+            cache_dtype, device=device)
+        self._decode = lambda p, t, s: self.fns.decode(cfg, p, t, s,
+                                                       chunk=chunk)
+        self._prefill = (
+            lambda p, t, s, w, tb, qs, kl, li: self.fns.prefill_paged(
+                cfg, p, t, s, w, tb, q_start=qs, kv_len=kl, last_idx=li,
+                chunk=chunk))
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), device=self.device)
+
+    def seed(self, slot: int, tokens: np.ndarray, rows: int) -> None:
+        """(Re-)prefill the drafter's mirror of a slot: allocate blocks for
+        ``rows`` worst-case KV rows (committed budget + overhang) and run
+        the prompt in one call -- when the target's prefill completes, also
+        after a preemption resume (``tokens`` then carries the folded
+        output, as the target's re-prefill does)."""
+        self.drop(slot)
+        bs = self.block_size
+        nb = self.pool.blocks_for(rows)
+        took = self.pool.reserve(nb)
+        assert took, "drafter pool is sized worst-case; reserve cannot fail"
+        ids = self.pool.alloc_reserved(nb)
+        self._blocks[slot] = ids
+        self._tables[slot] = 0
+        self._tables[slot, :nb] = ids
+        P = len(tokens)
+        bucket = bs
+        while bucket < P:
+            bucket *= 2
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :P] = tokens
+        nbp = self.pool.blocks_for(P)
+        wids = np.zeros((bucket // bs,), np.int32)
+        wids[:nbp] = ids[:nbp]              # padding blocks write to trash
+        mb_eff = 1
+        while mb_eff < nbp:
+            mb_eff *= 2
+        mb_eff = min(mb_eff, self.max_blocks)
+        tbl = np.zeros((1, mb_eff), np.int32)
+        tbl[0, :min(nbp, mb_eff)] = ids[:min(nbp, mb_eff)]
+        _, self._state = self._prefill(
+            self.params, self._to_device(toks), self._state,
+            self._to_device(wids), self._to_device(tbl),
+            self._to_device(np.array([0], np.int32)),
+            self._to_device(np.array([P], np.int32)), P - 1)
+        self._lens[slot] = P
+
+    def drop(self, slot: int) -> None:
+        """Release a slot's drafter blocks (finish, preemption, re-seed).
+        Idempotent: a slot preempted while the target was still prefilling
+        was never seeded."""
+        ids = self._blocks.pop(slot, None)
+        if ids:
+            self.pool.free(ids)
+        self._tables[slot] = 0   # trash redirect before the next write
+        self._lens[slot] = 0
+
+    def set_len(self, slot: int, rows: int) -> None:
+        """After acceptance: ``rows`` drafter KV rows hold committed-stream
+        tokens (the rejected tail past them is overwritten by the next
+        round)."""
+        self._lens[slot] = rows
+
+    def length(self, slot: int) -> int:
+        return int(self._lens[slot])
+
+    def propose(self, jobs: list[tuple[int, list[int]]]) -> dict[int, list[int]]:
+        """Batched greedy proposal: for each ``(slot, queue)`` job -- the
+        committed tokens the drafter has not seen yet plus the slot's
+        pending token ``t_0`` -- feed the queue, then the drafter's own
+        argmax continuations until ``k`` proposals exist.  All jobs advance
+        in lock-step batched (slots, 1) decode steps; slots done early (or
+        not in ``jobs``) write to the trash block.  The argmax is taken on
+        the device: only (slots,) token ids come back per step."""
+        k = self.spec_k
+        queues = {slot: list(q) for slot, q in jobs}
+        drafts: dict[int, list[int]] = {slot: [] for slot, _ in jobs}
+        write_pos = {slot: int(self._lens[slot]) for slot, _ in jobs}
+        steps = max(len(q) for _, q in jobs) + k - 1
+        for _ in range(steps):
+            feed = np.zeros((self.slots, 1), np.int32)
+            tbl = np.zeros_like(self._tables)
+            lens = np.zeros((self.slots,), np.int32)
+            live = []
+            for slot, _ in jobs:
+                if queues[slot]:
+                    tok = queues[slot].pop(0)
+                elif len(drafts[slot]) < k:
+                    tok = drafts[slot][-1]
+                else:
+                    continue                 # done: stays trash-targeted
+                feed[slot, 0] = tok
+                tbl[slot] = self._tables[slot]
+                lens[slot] = write_pos[slot]
+                write_pos[slot] += 1
+                live.append(slot)
+            self._state = self._state._replace(
+                block_tables=self._to_device(tbl),
+                length=self._to_device(lens))
+            last, self._state = self._decode(self.params,
+                                             self._to_device(feed),
+                                             self._state)
+            nxt = last.argmax(-1).cpu().numpy()
+            for slot in live:
+                if not queues[slot] and len(drafts[slot]) < k:
+                    drafts[slot].append(int(nxt[slot]))
+        return drafts
+
+
 class ServingEngine:
     """One replica: continuous batching over a fixed-slot decode batch,
     driven by the blocking :meth:`serve` (admit a list of requests, run
@@ -347,11 +508,8 @@ class ServingEngine:
                  preemption: bool = True, prefix_sharing: bool = True,
                  prefill_chunk: int | None = None,
                  seeded_prefill: bool = True, host_blocks: int = 0,
-                 draft_cfg=None, fault_plan=None, role: str = "mixed",
-                 device="cuda"):
-        if draft_cfg is not None:
-            raise ValueError("speculative decoding (draft_cfg) is not ported "
-                             "yet")
+                 draft_cfg=None, draft_params=None, spec_k: int = 3,
+                 fault_plan=None, role: str = "mixed", device="cuda"):
         if host_blocks > 0:
             raise ValueError("the host KV tier (host_blocks > 0) is not "
                              "ported yet")
@@ -373,10 +531,25 @@ class ServingEngine:
         elif paged and self.fns.init_paged_state is None:
             raise ValueError(f"family {cfg.family!r} has no paged-KV "
                              f"support (ModelFns.init_paged_state is None)")
-        elif not paged and self.fns.init_decode_state is None:
-            raise ValueError(f"family {cfg.family!r}: its contiguous KV "
-                             f"caches (paged=False) are not ported yet")
         self.paged = paged
+        # speculative decoding: on iff a drafter model is given.  Greedy
+        # slots then run a multi-token verify step instead of the vanilla
+        # decode; non-greedy slots (and spec-off engines) are untouched.
+        spec = draft_cfg is not None
+        if spec:
+            if not paged:
+                raise ValueError("speculative decoding needs the paged KV "
+                                 "engine (candidate rows are provisional "
+                                 "pool blocks)")
+            if spec_k < 1:
+                raise ValueError(f"spec_k={spec_k} must be >= 1")
+            if self.fns.verify_paged is None:
+                raise ValueError(f"family {cfg.family!r} has no verify pass "
+                                 f"(ModelFns.verify_paged is None)")
+        self.spec_k = spec_k if spec else 0
+        # worst-case provisional rows a verify step may write past a slot's
+        # committed length: the pending token plus k draft candidates
+        self.spec_rows = (spec_k + 1) if spec else 0
         if prefill_chunk is not None and not paged:
             raise ValueError("prefill_chunk needs the paged KV engine")
         if paged and getattr(cfg, "sliding_window", 0):
@@ -420,9 +593,12 @@ class ServingEngine:
         self._gaps_dropped = 0              # decode_gaps entries trimmed
         fns = self.fns
         if paged:
-            worst = batch_slots * -(-max_len // block_size)
+            worst = batch_slots * -(-(max_len + self.spec_rows) // block_size)
             self.pool = KVBlockPool(pool_blocks or worst, block_size)
-            self.max_blocks = self.pool.blocks_for(max_len)
+            # the table width covers the speculative overhang: a verify pass
+            # writes up to spec_rows rows past the committed length before
+            # acceptance trims them back
+            self.max_blocks = self.pool.blocks_for(max_len + self.spec_rows)
             self._prefix_cap = 8 * self.pool.capacity
             # host mirrors of the device block tables / lengths: growth and
             # slot retirement are numpy writes, re-injected every step
@@ -439,8 +615,25 @@ class ServingEngine:
             self._prefill = lambda p, b: fns.prefill(
                 cfg, p, b, max_len=max_len, chunk=chunk,
                 cache_dtype=self._state_dtype)
+        self._drafter = None
+        if spec:
+            # self-speculation shares the engine's prepared weights: no
+            # second cast copy of the model
+            shared = draft_cfg is cfg and (draft_params is None
+                                           or draft_params is params)
+            dparams = (self.params if shared else
+                       fns_for(draft_cfg).prepare_params(
+                           draft_cfg, draft_params, self.device))
+            self._drafter = _Drafter(
+                draft_cfg, dparams, slots=batch_slots, max_len=max_len,
+                block_size=block_size, spec_k=spec_k, chunk=chunk,
+                cache_dtype=cache_dtype, device=self.device)
+            self._verify = lambda p, t, s, tb, qs, kl: fns.verify_paged(
+                cfg, p, t, s, tb, q_start=qs, kv_len=kl, chunk=chunk)
+        self._spec_on: set = set()          # slots decoding speculatively
         self.scheduler = ContinuousScheduler(batch_slots, pool=self.pool,
-                                             preemption=preemption)
+                                             preemption=preemption,
+                                             spec_rows=self.spec_rows)
         self._decode = lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk)
         # distinct padded prefill shapes: the reference jit-compiles once
         # per shape; the same padding keeps this counter equal to its
@@ -468,7 +661,7 @@ class ServingEngine:
                 f"max_new_tokens {req.max_new_tokens} exceeds KV capacity "
                 f"max_len={self.max_len}")
         if self.pool is not None:
-            self.pool.validate_rows(req.kv_rows, req.rid)
+            self.pool.validate_rows(req.kv_rows + self.spec_rows, req.rid)
 
     def _bucket_len(self, n: int) -> int:
         """Smallest power-of-two multiple of block_size holding ``n``."""
@@ -662,8 +855,20 @@ class ServingEngine:
         if job.pos == P:                     # logits of the last real token
             del self._prefilling[slot]
             self._tables[slot] = 0
-            self._tables[slot, :job.nb] = req.block_ids
-            self._lengths[slot] = P
+            if slot in self._spec_on:
+                # speculative slots never join the batched vanilla decode:
+                # their table row stays at trash (the decode step's write for
+                # this slot must keep landing nowhere) and the verify pass
+                # addresses the real blocks through its own table.  Seed the
+                # drafter's mirror now -- after a preemption resume
+                # ``job.tokens`` carries the folded committed output.
+                self._lengths[slot] = 0
+                self._drafter.seed(
+                    slot, job.tokens,
+                    len(req.prompt) + req.max_new_tokens + self.spec_k)
+            else:
+                self._tables[slot, :job.nb] = req.block_ids
+                self._lengths[slot] = P
             self._set_last(slot, last[0].cpu().numpy())
             if self.prefix_sharing:
                 self._register_prefix(job.keys, req)
@@ -716,10 +921,22 @@ class ServingEngine:
         for slot, _victim in self.scheduler.drain_preempted():
             self._retire_slot(slot)
             self._prefilling.pop(slot, None)
+            if self._drafter is not None:
+                # the victim's drafter mirror dies with its target KV; a
+                # resume re-seeds it from the folded committed output
+                self._drafter.drop(slot)
+                self._spec_on.discard(slot)
         for slot, req in admitted:
             self.totals.prefills += 1
             if self._state is None:
                 self._state = self._init_state()
+            if self._drafter is not None:
+                # only greedy samplers have the argmax-chain acceptance that
+                # keeps outputs equal to vanilla decode's
+                if req.sampler.batch_key == "greedy":
+                    self._spec_on.add(slot)
+                else:
+                    self._spec_on.discard(slot)
             if self.paged:
                 self._admit_paged(slot, req)
                 if self.prefill_chunk is None:
@@ -752,6 +969,14 @@ class ServingEngine:
             self._last_decode_end = None
             return bool(self._prefilling)
 
+        spec = [(s, r) for s, r in active if s in self._spec_on]
+        spec_slots = {s for s, _ in spec}    # before the verify retires any
+        if spec:
+            self._verify_step(spec)
+        active = [(s, r) for s, r in active if s not in spec_slots]
+        if not active:
+            return True
+
         toks = self._sample_active(active)
         now = time.monotonic()
         feed = np.zeros((self.slots, 1), np.int32)
@@ -771,14 +996,22 @@ class ServingEngine:
                 if req.on_finish is not None:
                     req.on_finish(req)
 
-        still = self.scheduler.decoding()
+        still = [(s, r) for s, r in self.scheduler.decoding()
+                 if s not in self._spec_on]
         if still:        # someone needs next-token logits
             if self.paged:
                 self._grow_paged(still)
             last, self._state = self._decode(
                 self.params, self._to_device(feed), self._state)
             # (slots, V) fp32 logits go to the host for sampling every step
-            self._last = last.cpu().numpy()
+            last = last.cpu().numpy()
+            if self._spec_on:
+                # speculative slots fed 0 against trash tables: their rows
+                # of this decode are garbage, and their real next-token
+                # logits (set by the verify pass) must survive it
+                keep = sorted(self._spec_on)
+                last[keep] = self._last[keep]
+            self._last = last
             self._note_decode_cadence()
             self.totals.decode_steps += 1
             self.totals.occupancy_sum += len(still) / self.slots
@@ -799,6 +1032,110 @@ class ServingEngine:
                 self._gaps_dropped += drop
         self._last_decode_end = now
 
+    def _verify_step(self, spec: list[tuple[int, Request]]) -> None:
+        """One draft-and-verify round for every speculative decoding slot:
+        propose ``k`` drafter tokens per slot, score the pending greedy
+        token and all drafts in one batched target pass, commit the longest
+        prefix of drafts matching the target's argmax chain, and roll back
+        the rejected tail's provisional blocks.
+
+        Invariant (as vanilla decode's): entering with ``n`` committed
+        output tokens, KV rows ``0 .. P+n-1`` are written and
+        ``self._last[slot]`` holds the target distribution after the
+        committed stream.  The verify feeds ``[t_0, d_1 .. d_k]`` with
+        ``t_0 = argmax(_last)`` at ``q_start = P+n``, so row ``j``'s
+        logits condition on exactly the tokens vanilla greedy would have
+        committed, and every committed token's KV row was written by the
+        pass that scored it.  Each round commits at least ``t_0``.
+        """
+        k = self.spec_k
+        C = k + 1
+        bs = self.block_size
+        # 1. drafter proposals, seeded with any committed tokens the drafter
+        # has not ingested yet (a lag of at most 1 after an all-accept round)
+        pending: dict[int, int] = {}
+        jobs: list[tuple[int, list[int]]] = []
+        for slot, req in spec:
+            P = len(req.prompt)
+            t0 = int(req.sampler.sample(self._last[slot][None])[0])
+            pending[slot] = t0
+            dlen = self._drafter.length(slot)
+            gap = [int(t) for t in req.output[dlen - P:]]
+            jobs.append((slot, gap + [t0]))
+        drafts = self._drafter.propose(jobs)
+        # 2. provisional growth, then one batched verify over all spec slots
+        tokens = np.zeros((self.slots, C), np.int32)
+        qs = np.zeros((self.slots,), np.int32)
+        kl = np.full((self.slots,), C, np.int32)  # padding rows see only
+        mb_need = 1                               # trash-block garbage
+        for slot, req in spec:
+            q0 = len(req.prompt) + len(req.output)
+            nb_need = -(-(q0 + C) // bs)
+            grow = nb_need - len(req.block_ids)
+            if grow > 0:
+                # provisional blocks out of the admission reservation, which
+                # budgeted spec_rows for exactly this
+                req.block_ids.extend(self.pool.alloc_reserved(grow))
+                req.blocks_reserved -= grow
+            tokens[slot, 0] = pending[slot]
+            tokens[slot, 1:] = drafts[slot]
+            qs[slot] = q0
+            kl[slot] = q0 + C
+            mb_need = max(mb_need, nb_need)
+        mb_eff = 1
+        while mb_eff < mb_need:
+            mb_eff *= 2
+        mb_eff = min(mb_eff, self.max_blocks)
+        tbl = np.zeros((self.slots, mb_eff), np.int32)
+        for slot, req in spec:
+            tbl[slot, :len(req.block_ids)] = req.block_ids
+        self._prefill_shapes.add((self.slots, C, mb_eff))
+        logits, self._state = self._verify(
+            self.params, self._to_device(tokens), self._state,
+            self._to_device(tbl), self._to_device(qs), self._to_device(kl))
+        logits = logits.cpu().numpy()            # (slots, C, V)
+        # 3. vectorized longest-prefix acceptance
+        rows = np.array([s for s, _ in spec])
+        accepted, _ = greedy_accept_prefix(
+            logits[rows], np.array([drafts[s] for s, _ in spec]))
+        now = time.monotonic()
+        for (slot, req), m in zip(spec, accepted):
+            commit = [pending[slot]] + drafts[slot][:int(m)]
+            commit = commit[:req.max_new_tokens - len(req.output)]
+            self.totals.spec_proposed += k
+            self.totals.spec_accepted += len(commit) - 1
+            if req.first_token_at is None:
+                req.first_token_at = now
+            req.output.extend(commit)
+            self.totals.tokens += len(commit)
+            # next-token logits after the last committed token: verify row
+            # j conditions on commit[0..j]
+            self._set_last(slot, logits[slot, len(commit) - 1])
+            # trim the rejected tail's blocks back into the reservation
+            nb_keep = -(-(len(req.prompt) + len(req.output)) // bs)
+            tail = req.block_ids[nb_keep:]
+            if tail:
+                self.pool.release_provisional(tail)
+                req.blocks_reserved += len(tail)
+                del req.block_ids[nb_keep:]
+            if len(req.output) >= req.max_new_tokens:
+                req.state = RequestState.DONE
+                req.finished_at = time.monotonic()
+                self.scheduler.release(slot)
+                self._retire_slot(slot)
+                self._drafter.drop(slot)
+                self._spec_on.discard(slot)
+                if req.on_finish is not None:
+                    req.on_finish(req)
+            else:
+                # drafter rows holding committed tokens: the fed t_0 and the
+                # accepted drafts, up to q_start + min(len(commit), k) - 1
+                # (d_k is proposed but never fed back)
+                self._drafter.set_len(slot, int(qs[slot]) + min(len(commit), k))
+        self._note_decode_cadence()
+        self.totals.verify_steps += 1
+        self.totals.occupancy_sum += len(spec) / self.slots
+
     # -- measurement windows ---------------------------------------------------
 
     def begin_window(self) -> WindowBase:
@@ -809,6 +1146,9 @@ class ServingEngine:
         return WindowBase(
             tokens=self.totals.tokens, prefills=self.totals.prefills,
             decode_steps=self.totals.decode_steps,
+            verify_steps=self.totals.verify_steps,
+            spec_proposed=self.totals.spec_proposed,
+            spec_accepted=self.totals.spec_accepted,
             occupancy_sum=self.totals.occupancy_sum,
             prefill_compiles=self.prefill_compiles,
             preemptions=self.scheduler.preemptions,
@@ -827,6 +1167,11 @@ class ServingEngine:
         stats.tokens = self.totals.tokens - base.tokens
         stats.prefills = self.totals.prefills - base.prefills
         stats.decode_steps = self.totals.decode_steps - base.decode_steps
+        stats.verify_steps = self.totals.verify_steps - base.verify_steps
+        stats.spec_proposed = self.totals.spec_proposed - base.spec_proposed
+        stats.spec_accepted = self.totals.spec_accepted - base.spec_accepted
+        if stats.spec_proposed:
+            stats.accept_rate = stats.spec_accepted / stats.spec_proposed
         stats.occupancy_sum = self.totals.occupancy_sum - base.occupancy_sum
         stats.prefill_compiles = self.prefill_compiles - base.prefill_compiles
         stats.preemptions = self.scheduler.preemptions - base.preemptions

@@ -14,6 +14,8 @@ Lifecycle per request:
   * admission: ``reserve(n)`` the worst-case block count (prompt + budget)
   * prefill:   ``alloc_reserved`` the prompt's blocks
   * decode:    ``alloc_reserved(1)`` each time generation crosses a block
+  * verify:    ``alloc_reserved`` the blocks a speculative verify's candidate
+               rows reach, then ``release_provisional`` the rejected tail's
   * release:   ``free`` the allocated ids + ``unreserve`` the unused tail
 
 Blocks are **refcounted** so a full prompt-prefix block can be shared by
@@ -201,6 +203,38 @@ class KVBlockPool:
                 # (reclaimable_count), so a cached blocked head is re-checked
                 self._avail_epoch += 1
         return released
+
+    def release_provisional(self, ids: list[int]) -> None:
+        """Return *provisionally grown* blocks -- the rejected tail of a
+        speculative verify step -- and re-promise them to the caller.
+
+        The rollback half of a grow-then-reject cycle: the engine
+        ``alloc_reserved``s blocks for candidate KV rows before the verify
+        pass, then hands back the ones past the accepted prefix.  Unlike
+        :meth:`free`, the cycle is invisible: each block's generation goes
+        back to its pre-grow value (a provisional block never held
+        published rows, so no prefix-index entry can alias it) and the
+        blocks go back to being reserved rather than free, so no other
+        request can shrink the caller's worst-case budget.
+
+        Provisional blocks are unshared: a block with refcount != 1 (or a
+        free block) raises before anything changes.
+        """
+        with self._lock:
+            for b in ids:
+                refs = self._refs.get(b)
+                if refs is None:
+                    raise ValueError(
+                        f"release_provisional of unallocated KV block {b}")
+                if refs != 1:
+                    raise ValueError(
+                        f"release_provisional of shared KV block {b} "
+                        f"(refcount {refs})")
+            for b in ids:
+                del self._refs[b]
+                self._gen[b] -= 1
+                self._free.append(b)
+            self._reserved += len(ids)
 
     # -- prefix-index support ----------------------------------------------------
 

@@ -1,5 +1,5 @@
-"""Token samplers (host-side, numpy) -- a copy of ``repro/serving/sampler.py``
-without the speculative-decoding acceptance helper.
+"""Token samplers (host-side, numpy) -- a copy of ``repro/serving/sampler.py``,
+with its speculative-decoding acceptance helper.
 
 Samplers are small objects with two entry points:
 
@@ -57,6 +57,26 @@ class Temperature(Sampler):
             x = np.where(x < kth, -np.inf, x)
         g = self.rng.gumbel(size=x.shape)
         return np.argmax(x + g, axis=-1)
+
+
+def greedy_accept_prefix(verify_logits: np.ndarray, drafts: np.ndarray):
+    """Vectorized longest-prefix greedy acceptance for speculative decoding.
+
+    verify_logits: (B, k+1, V) target logits after feeding ``[t_0,
+    d_1 .. d_k]`` per slot -- row ``j`` is the target distribution given
+    the context plus ``t_0, d_1 .. d_j``.  drafts: (B, k) the drafter's
+    proposals.  Draft ``d_{j+1}`` is accepted iff it equals the target's
+    argmax at row ``j`` *and* every earlier draft was accepted -- exactly
+    the tokens vanilla greedy decode would have produced.
+
+    Returns ``(accepted, targets)``: accepted (B,) counts of accepted
+    drafts in [0, k]; targets (B, k+1) the target argmax chain.
+    """
+    targets = np.argmax(verify_logits, axis=-1)
+    match = drafts == targets[:, :-1]
+    k = drafts.shape[1]
+    accepted = np.where(match.all(axis=1), k, np.argmax(~match, axis=1))
+    return accepted.astype(np.int64), targets
 
 
 def greedy() -> Sampler:

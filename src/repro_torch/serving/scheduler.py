@@ -1,6 +1,6 @@
 r"""Continuous-batching scheduler: SLO-aware admission + fixed decode slots
-(a copy of ``repro/serving/scheduler.py`` without work stealing, deadlines,
-speculative-row budgets and the disaggregated PREFILLED state).
+(a copy of ``repro/serving/scheduler.py`` without work stealing, deadlines
+and the disaggregated PREFILLED state).
 
 The paper keeps every NCS stick saturated by split-phase load/collect; the
 LM-serving analogue is keeping every *decode slot* saturated.  This module
@@ -137,14 +137,20 @@ class ContinuousScheduler:
 
     ``preemption=False`` disables eviction (the FIFO-era behaviour under
     block pressure: the head of the queue waits for blocks to free).
+    ``spec_rows``: the provisional KV rows a speculative verify step may
+    write past a slot's committed length, budgeted into every admission.
     """
 
     def __init__(self, num_slots: int, pool: KVBlockPool | None = None, *,
-                 preemption: bool = True):
+                 preemption: bool = True, spec_rows: int = 0):
         assert num_slots >= 1
         self.num_slots = num_slots
         self.pool = pool
         self.preemption = preemption
+        # speculative decoding: each slot may hold up to ``spec_rows``
+        # provisional rows (the pending token + k drafts) past its
+        # committed KV, so admission reserves them on top of kv_rows
+        self.spec_rows = spec_rows
         self.slots: list[Request | None] = \
             [None] * num_slots               # guarded-by: self._lock
         # heap of (-priority, slo deadline, arrival seq, request); the seq
@@ -181,7 +187,7 @@ class ContinuousScheduler:
 
     def submit(self, req: Request) -> None:
         if self.pool is not None:
-            self.pool.validate_rows(req.kv_rows, req.rid)
+            self.pool.validate_rows(req.kv_rows + self.spec_rows, req.rid)
         with self._work:
             if self._poisoned is not None:
                 raise ExecutorCrash(
@@ -261,7 +267,7 @@ class ContinuousScheduler:
                     break
                 slot = next((i for i, r in enumerate(self.slots)
                              if r is None), None)
-                need = (self.pool.blocks_for(req.kv_rows)
+                need = (self.pool.blocks_for(req.kv_rows + self.spec_rows)
                         if self.pool is not None else 0)
                 # NB: reserve only once a slot exists, so a blocked head
                 # never strands a reservation it cannot use yet

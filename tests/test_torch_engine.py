@@ -6,7 +6,9 @@ fp32 and with an int8 KV pool.  The reference's int8 engine tests
 mirrored at its bf16 smoke config: greedy streams within one top-1 flip
 of the bf16 pool's, and seeded prefill equal to full recompute token for
 token.  Plus the constructor's refusals: no card and no device asked for,
-and the options this port does not carry yet."""
+and the options this port does not carry yet (contiguous dense serving and
+speculative decoding are held in ``test_torch_contiguous.py`` and
+``test_torch_spec.py``)."""
 import dataclasses
 
 import jax
@@ -225,8 +227,6 @@ def test_engine_defaults_to_the_card(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(paged=False), "contiguous"),
-    (dict(draft_cfg=object()), "speculative"),
     (dict(host_blocks=4), "host KV tier"),
     (dict(role="prefill"), "role"),
     (dict(fault_plan=object()), "fault"),

@@ -758,3 +758,99 @@ def test_int8_launches_refuse_mismatched_operands(cuda):
         kern.launch(q, k8, v8, tables, lens, k_scale=ks.double(), v_scale=vs)
     with pytest.raises(ValueError, match="no 'mma' body"):
         kern.launch(q, k8, v8, tables, lens, k_scale=ks, v_scale=vs, body="mma")
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+@pytest.mark.parametrize("q_starts", [(9, 27, 300, 1040), (0, 15, 16, 1052)])
+def test_paged_prefill_at_the_verify_shape(cuda, dtype, body, q_starts):
+    """K2 as a speculative verify calls it: C = 4 candidate rows for each
+    of 4 sequences at their own mid-block q_start, and a padding sequence
+    on an all-trash table (q_start 0, length C); NaN in every row that is
+    not live."""
+    from repro_torch.kernels.prefill_attention.ops import body_for
+    bs, C, H, K, D = 16, 4, 16, 2, 128
+    live = len(q_starts)
+    mb = max(-(-(s + C) // bs) for s in q_starts) + 1
+    g = torch.Generator(cuda).manual_seed(sum(q_starts))
+    q = torch.randn((live + 1, C, H, D), generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn((1 + live * mb, bs, K, D), generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    tables = torch.zeros((live + 1, mb), dtype=torch.int32, device=cuda)
+    tables[:live] = (1 + torch.randperm(live * mb, generator=g, device=cuda)
+                     ).reshape(live, mb).int()
+    for b, s in enumerate(q_starts):
+        tables[b, -(-(s + C) // bs):] = 0
+    qs = torch.tensor(list(q_starts) + [0], dtype=torch.int32, device=cuda)
+    lens = qs + C
+    assert body_for(q) == body
+    kern = dispatch.kernel_table()["paged_prefill_attention"]
+    ref = kern.plain(q.float(), kp.float(), vp.float(), tables, qs, lens)
+    _poison_dead_rows(kp, vp, tables, lens)
+    dispatch.reset_counts()
+    out = kern.launch(q, kp, vp, tables, qs, lens)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {body: 1}
+    assert torch.isfinite(out.float()).all()
+    assert kern.tolerance(out, ref) <= 1.0
+
+
+def _smoke_requests(cfg, n=3):
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(0, cfg.vocab_size, 20 + 9 * i).astype(np.int32),
+                    max_new_tokens=5, sampler=greedy()) for i in range(n)]
+
+
+def test_contiguous_dense_engine_runs_the_kernels(cuda):
+    """The qwen smoke model (bf16, head_dim 64 to reach the tensor-core
+    bodies) served from contiguous caches: K4 once a layer of each
+    prefill, K3 once a layer of each decode step, all on the tensor-core
+    bodies; no paged kernel and no plain call."""
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=64)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, paged=False, max_len=64, batch_slots=2)
+    reqs = _smoke_requests(cfg)
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    table = dispatch.kernel_table()
+    L = cfg.num_layers
+    assert table["flash_attention"].body_launches == {"mma": L * stats.prefills}
+    assert table["decode_attention"].body_launches == {"mma": L * stats.decode_steps}
+    assert table["paged_decode_attention"].launches == 0
+    assert table["paged_prefill_attention"].launches == 0
+    assert all(k.plain_calls == 0 for k in table.values())
+    assert all(len(r.output) == 5 for r in reqs)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_speculative_engine_runs_the_kernels(cuda, cache_dtype):
+    """The qwen smoke model (bf16, head_dim 64) decoding speculatively on
+    the card: K2 once a layer of each verify pass, drafter seed and target
+    prefill chunk, K1 once a layer of each drafter step, all on the
+    tensor-core bodies (``_i8`` on an int8 pool); both pools leak-free."""
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=64)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=64, batch_slots=2, prefill_chunk=16,
+                        cache_dtype=cache_dtype, draft_cfg=cfg, draft_params=params,
+                        spec_k=3)
+    n = {"chunks": 0, "seeds": 0, "steps": 0}
+    for key, obj, attr in (("chunks", eng, "_prefill_paged"),
+                           ("seeds", eng._drafter, "_prefill"),
+                           ("steps", eng._drafter, "_decode")):
+        def counted(*a, _f=getattr(obj, attr), _k=key, **kw):
+            n[_k] += 1
+            return _f(*a, **kw)
+        setattr(obj, attr, counted)
+    reqs = _smoke_requests(cfg)
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    table = dispatch.kernel_table()
+    L = cfg.num_layers
+    mma = "mma_i8" if cache_dtype == "int8" else "mma"
+    assert stats.verify_steps > 0 and stats.decode_steps == 0
+    assert table["paged_prefill_attention"].body_launches == {
+        mma: L * (stats.verify_steps + n["seeds"] + n["chunks"])}
+    assert table["paged_decode_attention"].body_launches == {mma: L * n["steps"]}
+    assert all(k.plain_calls == 0 for k in table.values())
+    assert all(len(r.output) == 5 for r in reqs)
+    assert eng.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}
+    assert eng._drafter.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}

@@ -169,7 +169,9 @@ def test_contiguous_decode_attention_refuses_what_is_not_ported():
     lens = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="mesh"):
         TC.seq_sharded_decode_attention(q, c, c, n, n, lens, mesh=object())
-    with pytest.raises(NotImplementedError, match="int8"):
+    # the int8 branch is ported (test_torch_contiguous.py); an int8 cache
+    # without its scales is refused
+    with pytest.raises(ValueError, match="int8 pool needs"):
         TC.seq_sharded_decode_attention(q, c.to(torch.int8), c.to(torch.int8),
                                         n, n, lens)
     with pytest.raises(NotImplementedError, match="softcap"):

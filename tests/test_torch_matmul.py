@@ -99,19 +99,33 @@ def test_launcher_checks_operands():
         k7.launch(x, x.T)
 
 
-def test_cpu_calls_take_the_counted_plain_version():
+def _fp32_sum_within_bound(got, terms):
+    """``got`` (fp32) against the float64 sum of ``terms`` over their last
+    axis, within the fp32 summation bound n 2^-24 sum|terms| per element
+    (any order of n - 1 fp32 additions and the one rounding of the
+    result).  A relative limit alone cannot hold a sum of mixed signs
+    near 0."""
+    terms = terms.astype(np.float64)
+    want = terms.sum(-1)
+    limit = terms.shape[-1] * 2.0 ** -24 * np.abs(terms).sum(-1)
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= limit).all(), float((err / np.maximum(limit, 1e-300)).max())
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_cpu_calls_take_the_counted_plain_version(seed):
     k7 = dispatch.kernel_table()["matmul"]
     dispatch.reset_counts()
+    torch.manual_seed(seed)
     x = torch.randn((3, 5, 8), requires_grad=True)
     w = torch.randn((8, 4), requires_grad=True)
     linear.matmul(x, w).sum().backward()     # an expanded (0, 0)-strided dY
     assert (k7.launches, k7.plain_calls) == (0, 3)   # forward, dX, dW
-    np.testing.assert_allclose(x.grad.numpy(),
-                               np.broadcast_to(w.sum(1).detach().numpy(), (3, 5, 8)),
-                               rtol=1e-6)
-    np.testing.assert_allclose(w.grad.numpy(),
-                               np.broadcast_to(x.sum((0, 1)).detach().numpy()[:, None],
-                                               (8, 4)), rtol=1e-5)
+    xs, ws = x.detach().numpy(), w.detach().numpy()
+    # dX[b, s, i] = sum_j w[i, j]; dW[i, j] = sum_(b, s) x[b, s, i]
+    _fp32_sum_within_bound(x.grad.numpy(), np.broadcast_to(ws, (3, 5, 8, 4)))
+    _fp32_sum_within_bound(w.grad.numpy(), np.broadcast_to(
+        xs.reshape(15, 8).T[:, None, :], (8, 4, 15)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -156,8 +156,9 @@ def test_bf16_crosses_by_bitcast():
 
 def test_int8_cache_and_verify_layout_raise():
     """An int8 pool reaching the decode or prefill attention without its
-    scales raises (the cache's layers must hand them over), and so does
-    the verify write layout (``write_ids=None``), not ported yet."""
+    scales raises (the cache's layers must hand them over).  The verify
+    write layout (``write_ids=None``) is ported: ``test_torch_spec.py``
+    holds it against the reference."""
     cfg = TR.smoke("qwen2.5-3b")
     q8 = T.make_paged_cache(cfg, 4, BS, 1, 2, "int8", device="cpu")
     x = torch.zeros((1, BS, cfg.num_heads, cfg.resolved_head_dim))
@@ -170,11 +171,6 @@ def test_int8_cache_and_verify_layout_raise():
                                 torch.tensor([1]), q8.block_tables,
                                 q8.length, q8.length + BS, 1024)
     assert not q8.k.any()                    # refused before any write
-    cache = T.make_paged_cache(cfg, 4, BS, 1, 2, "float32", device="cpu")
-    with pytest.raises(NotImplementedError, match="write_ids=None"):
-        T._paged_prefill_attend(cfg, x, x, x, cache.k[0], cache.v[0], None,
-                                None, cache.block_tables, cache.length,
-                                cache.length, 1024)
 
 
 def _int8_inputs():
