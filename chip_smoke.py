@@ -187,6 +187,35 @@ Phases (each one raises on failure; the script then exits non-zero):
    fp32 pool and on an int8 pool (on a mismatch the first differing step
    and its logit margins are printed).  Printed, not gated: bf16
    self-speculation's accept rate at depths ``SPEC_BF16_DEPTHS``.
+19. The host KV tier, faults and service mode: qwen2.5-3b at full width,
+   bf16, random weights from seed 0, phase 4's engine (4 slots, 256-token
+   chunks, max_len 1056).  19a: a 264-block pool with a 256-block host
+   tier on churn traffic (``tier_waves``: 3 prefixes of 512 tokens, each
+   visited twice with a fresh 64-token tail and 16 new tokens, a wave of 4
+   fillers of 1024 tokens and 32 new between), as three ``serve`` calls,
+   then untiered, then tiered on an int8 pool.  Gated exactly from the
+   shapes (``TIER_*``): 211 spills, 96 fetches and host prefix hits, the
+   spill bytes (589,824 B a block in bf16, 304,128 int8), prompt tokens
+   computed (6016 tiered, 7552 untiered); launches by body from the
+   engine's calls (K2 36 a prefill chunk, K1 36 a decode step, all
+   ``mma`` / ``mma_i8``; K7 by body); every restored block equal bit for
+   bit to the rows cloned at its spill (k, v and the int8 scales); pools
+   leak-free after ``drain_tier_io``.  Printed: the revisits' TTFT beside
+   the untiered run's, the copy times of a block each way, the executor's
+   host time per spill capture and per fetch commit, tokens tiered vs
+   untiered.  19b, on 19a's tiered engine and traffic: ``FAULT_PLAN``
+   fires every request-level and transfer site, every request ends DONE
+   or FAILED, leak-free; two requests past ``deadline_s=0`` fail with
+   ``DeadlineExceeded``; ``replica.executor:raise:4`` in blocking
+   ``serve`` fails every request, surfaces and refuses later submits.
+   19c: phase 4's requests in service mode (``start``, submits from the
+   main thread, ``on_finish``, ``stop``): all DONE, launches exact by body
+   with every model call on the executor thread, leak-free; a crash there
+   surfaces through ``stop()`` once, a second ``stop()`` is silent and a
+   later submit refused; TTFT, TPOT, tok/s and tokens beside phase 4's.
+   The gate, at depth 2 in fp32 through the kernels: 19a tiered tokens
+   equal untiered (and the exact counts), 19b's DONE requests equal the
+   no-fault run's, 19c's tokens equal blocking ``serve``'s.
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -197,17 +226,20 @@ The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernel table (``{"kernels": [...]}``), with K1's
 and K2's int8 bodies as entries of their own (``...:int8``: their
-launches from phase 4b, no library call).  Each entry's ``launches`` sums
-the served and trained paths that ran it: K1 and K2 phases 4 and 18, K3
-and K4 phases 10 and 17, K5 phase 10, K6 phase 8, K7 phases 4, 4b, 10,
-15, 17 and 18.
+launches from phases 4b and 19a's int8 run, no library call).  Each
+entry's ``launches`` sums the served and trained paths that ran it: K1
+and K2 phases 4, 18, 19a (tiered and untiered) and 19c, K3 and K4 phases
+10 and 17, K5 phase 10, K6 phase 8, K7 phases 4, 4b, 10, 15, 17, 18, 19a
+and 19c.
 """
 from __future__ import annotations
 
 import gc
 import json
+import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -228,6 +260,27 @@ PREFILL_CASES = ((16, 0), (16, 9), (16, 256), (256, 0), (256, 9), (256, 256), (4
 # row, and the table's last rows (1052 + 4 = 1056 = max_len).
 SPEC_K = 3
 SPEC_BF16_DEPTHS = (1, 3, 9)
+# Phase 19's churn traffic (19a) on phase 4's engine with a 264-block pool
+# and a 256-block host tier: 3 prefixes of 512 tokens, each visited twice
+# with a fresh 64-token tail and 16 new tokens (37 blocks reserved a
+# visit), a wave of 4 fillers of 1024 tokens and 32 new (66 blocks each,
+# the whole pool) between the visits.  From the shapes: the first visits
+# publish 3 x 36 blocks, which the fillers demote (108 spills); the
+# revisits' 111 blocks demote 103 of the fillers' 256 held ones; each
+# revisit restores its 32 prefix blocks (96 fetches) and computes its tail.
+TIER_POOL_BLOCKS, TIER_HOST_BLOCKS = 264, 256
+TIER_PREFIX, TIER_TAIL, TIER_NEW = 512, 64, 16
+TIER_FILLER, TIER_FILLER_NEW = 1024, 32
+TIER_SPILLS, TIER_FETCHES = 108 + 103, 3 * TIER_PREFIX // 16
+TIER_COMPUTED = {True: 3 * 576 + 4 * 1024 + 3 * TIER_TAIL,     # tiered
+                 False: 2 * 3 * 576 + 4 * 1024}                # recompute
+# a spilled block: 36 layers x 16 rows x 2 kv heads x 128 of K and of V
+# (bf16: 2 B; int8: 1 B and an fp32 scale a row and head)
+TIER_BLOCK_BYTES = {"bfloat16": 589_824, "int8": 304_128}
+# 19b: a plan that fires every request-level and transfer site
+FAULT_PLAN = ("kv.spill:drop:1:2,kv.fetch:drop:1:2,engine.decode:raise:40:1,"
+              "engine.prefill:raise:3:1")
+FAULT_SITES = {"engine.prefill", "engine.decode", "kv.spill", "kv.fetch"}
 VERIFY_CASES = ((9, 27, 300, 1040), (0, 15, 16, 1052))
 # K1 timed: serving's 4 slots, then one long sequence (the split's case)
 DECODE_TIMED = ((1056, 800, 512, 300), (4096,), (16384,))
@@ -2661,7 +2714,6 @@ def spec_gate(torch, np) -> None:
     speculative one's."""
     from repro_torch.configs import registry as arch_registry
     from repro_torch.kernels import dispatch
-    from repro_torch.models import transformer
     from repro_torch.models.registry import fns_for
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.sampler import greedy
@@ -2699,18 +2751,8 @@ def spec_gate(torch, np) -> None:
             f"verify_steps={sst.verify_steps} steps_per_token={sst.steps_per_token:.4f} "
             f"(vanilla {vst.steps_per_token:.4f}, {vst.decode_steps} decode steps)")
         if not equal:
-            i, req = next((i, r) for i, r in enumerate(vreqs) if van[i] != spc[i])
-            j = next(j for j, (a, b) in enumerate(zip(van[i], spc[i])) if a != b)
-            ctx = np.concatenate([req.prompt, np.asarray(van[i][:j], np.int32)])
-            lg, _ = transformer.prefill(cfg, params,
-                                        torch.from_numpy(ctx[None]).cuda())
-            lg = lg[0].cpu().numpy()
-            top = np.sort(lg)[-2:]
-            raise AssertionError(
-                f"spec gate ({cache_dtype}): request {i} differs first at step {j}: vanilla "
-                f"{van[i][j]}, speculative {spc[i][j]}; margins there: top-1 over top-2 "
-                f"{top[1] - top[0]:.3e}, vanilla's over speculative's "
-                f"{lg[van[i][j]] - lg[spc[i][j]]:.3e} (of max |logit| {np.abs(lg).max():.3e})")
+            raise token_mismatch(torch, np, cfg, params, [r.prompt for r in vreqs], van,
+                                 spc, f"spec gate ({cache_dtype})", "vanilla", "speculative")
     del params
     # printed, not gated: bf16 self-speculation's accept rate by depth (the
     # drafter's K1 and the verify's K2 round differently; how far the
@@ -2726,6 +2768,563 @@ def spec_gate(torch, np) -> None:
             f"{st.accept_rate:.4f} ({st.spec_accepted} of {st.spec_proposed}) "
             f"verify_steps={st.verify_steps} tpot={st.mean_tpot_s * 1e3:.2f}ms")
         del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def token_mismatch(torch, np, cfg, params, prompts, want, got, label, want_name,
+                   got_name) -> AssertionError:
+    """The error for two greedy token lists that should be equal: the first
+    request and step where they part, with the logit margins of the
+    distribution that chose there (a fresh prefill of the common prefix
+    through the kernels): top-1 over top-2, and ``want``'s token over
+    ``got``'s."""
+    from repro_torch.models import transformer
+
+    i = next(i for i in range(len(want)) if want[i] != got[i])
+    j = next((j for j, (a, b) in enumerate(zip(want[i], got[i])) if a != b), None)
+    if j is None:
+        return AssertionError(f"{label}: request {i} has {len(want[i])} {want_name} tokens "
+                              f"and {len(got[i])} {got_name} tokens, equal as far as both go")
+    ctx = np.concatenate([prompts[i], np.asarray(want[i][:j], np.int32)])
+    lg, _ = transformer.prefill(cfg, params, torch.from_numpy(ctx[None]).cuda())
+    lg = lg[0].cpu().numpy()
+    top = np.sort(lg)[-2:]
+    return AssertionError(
+        f"{label}: request {i} differs first at step {j}: {want_name} {want[i][j]}, "
+        f"{got_name} {got[i][j]}; margins there: top-1 over top-2 {top[1] - top[0]:.3e}, "
+        f"{want_name}'s over {got_name}'s {lg[want[i][j]] - lg[got[i][j]]:.3e} "
+        f"(of max |logit| {np.abs(lg).max():.3e})")
+
+
+# ---------------------------------------------------------------------------
+# Fault tolerance, the host KV tier and service mode (phase 19)
+# ---------------------------------------------------------------------------
+
+
+def tier_waves(cfg, np, Request, greedy, seed=19) -> list:
+    """19a's traffic as its three serve calls: the first visits of the 3
+    prefixes (rids 0-2), the 4 fillers (10-13), the revisits (3-5)."""
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    prefixes = [rng.integers(0, V, TIER_PREFIX).astype(np.int32) for _ in range(3)]
+
+    def visit(v):
+        return [Request(3 * v + g, np.concatenate(
+                    [p, rng.integers(0, V, TIER_TAIL).astype(np.int32)]),
+                        max_new_tokens=TIER_NEW, sampler=greedy())
+                for g, p in enumerate(prefixes)]
+    first = visit(0)
+    fillers = [Request(10 + i, rng.integers(0, V, TIER_FILLER).astype(np.int32),
+                       max_new_tokens=TIER_FILLER_NEW, sampler=greedy()) for i in range(4)]
+    return [first, fillers, visit(1)]
+
+
+def tier_engine(ServingEngine, cfg, params, host_blocks, cache_dtype="bfloat16", **kw):
+    """Phase 4's engine (4 slots, 256-token chunks, max_len 1056) on a
+    264-block pool with a ``host_blocks`` host tier."""
+    return ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                         pool_blocks=TIER_POOL_BLOCKS, host_blocks=host_blocks,
+                         cache_dtype=cache_dtype, device="cuda", **kw)
+
+
+class CallCounter:
+    """Counts the calls of one model function of an engine (a prefill
+    chunk: one K2 launch a layer) and the threads that made them."""
+
+    def __init__(self, obj, attr):
+        self.obj, self.attr, self.orig = obj, attr, getattr(obj, attr)
+        self.n = 0
+        self.threads: set = set()
+        setattr(obj, attr, self)
+
+    def __call__(self, *a, **kw):
+        self.n += 1
+        self.threads.add(threading.get_ident())
+        return self.orig(*a, **kw)
+
+    def restore(self) -> None:
+        setattr(self.obj, self.attr, self.orig)
+
+
+class SpillRecorder:
+    """Keeps the clone each spill takes (the leaves the transfer worker
+    copies to the host), by prefix digest, to hold restored blocks
+    against."""
+
+    def __init__(self, eng):
+        self.leaves: dict = {}
+        self._last = None
+        self._read, self._spill = eng._read_block_slices, eng._spill_block
+        eng._read_block_slices, eng._spill_block = self.read, self.spill
+
+    def read(self, bid):
+        self._last = self._read(bid)
+        return self._last
+
+    def spill(self, bid, key):
+        queued = self._spill(bid, key)
+        if queued:
+            self.leaves.setdefault(key, self._last)
+        return queued
+
+
+def bits(torch, t):
+    """A tensor's bytes, for bit-for-bit comparison."""
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def check_restored(torch, eng, rec, revisits, tag) -> int:
+    """Every revisit's 32 prefix blocks, restored from the host tier into
+    the pool (the prefix index names them after the serve), equal bit for
+    bit the rows cloned when the first visit's blocks were spilled, leaf
+    by leaf (k, v and an int8 pool's scales).  Returns the blocks held."""
+    n = 0
+    for r in revisits:
+        for key in eng._prefix_keys(r.prompt)[:TIER_PREFIX // eng.block_size]:
+            bid, gen = eng._prefix_index[key]
+            want = rec.leaves.get(key)
+            if want is None or not eng.pool.block_live(bid, gen):
+                raise AssertionError(f"{tag}: request {r.rid}'s prefix block was not spilled "
+                                     f"or is not live")
+            for name, t in want.items():
+                if not torch.equal(bits(torch, getattr(eng._state, name)[:, bid]),
+                                   bits(torch, t)):
+                    raise AssertionError(f"{tag}: request {r.rid}: restored block {bid}'s "
+                                         f"{name} differs from the rows cloned at its spill")
+            n += 1
+    return n
+
+
+def serve_waves(torch, eng, waves) -> dict:
+    """Serve 19a's three waves on ``eng``, one ``serve`` call each, with the
+    kernels' counts zeroed just before and read just after."""
+    from repro_torch.kernels import dispatch
+
+    chunks = CallCounter(eng, "_prefill_paged")
+    dispatch.reset_counts()
+    t0 = time.monotonic()
+    stats = [eng.serve(w) for w in waves]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    chunks.restore()
+    bodies, plain = launched_bodies(dispatch.kernel_table())
+    total = {k: sum(getattr(s, k) for s in stats)
+             for k in ("kv_spills", "kv_fetches", "prefix_hits_host", "spill_bytes",
+                       "prefill_tokens_computed", "prefill_tokens_total", "decode_steps",
+                       "tokens", "requests_failed", "faults_injected")}
+    return {"stats": stats, "total": total, "bodies": bodies, "plain": plain,
+            "chunks": chunks.n, "wall": wall,
+            "outputs": [list(r.output) for w in waves for r in w]}
+
+
+def want_bodies(cfg, run, mma) -> dict:
+    """The launches by body a served run must show: K2 one a layer of each
+    prefill chunk, K1 one a layer of each decode step, K7 the blocks'
+    products of every model call on wgmma and the fp32 LM head on FMA."""
+    L, calls = cfg.num_layers, run["chunks"] + run["total"]["decode_steps"]
+    return {"paged_prefill_attention": {mma: L * run["chunks"]},
+            "paged_decode_attention": {mma: L * run["total"]["decode_steps"]},
+            "matmul": {"wgmma": L * QWEN_PRODUCTS * calls, "fma": calls}}
+
+
+def leak_free(eng, tag) -> dict:
+    eng.drain_tier_io()
+    leaks = eng.pool.leak_report()
+    if any(leaks.values()):
+        raise AssertionError(f"{tag}: KV pool leak {leaks}")
+    return leaks
+
+
+def block_copy_ms(torch, eng, bid, reps=20) -> tuple[float, float]:
+    """One pool block's device-to-host copy (as the transfer worker makes
+    it: ``host_leaf`` of a clone, pageable memory) and its host-to-device
+    copy into the pool (``_write_blocks``), median ms of ``reps`` each on
+    an idle card."""
+    from repro_torch.core.offload import host_leaf
+
+    leaves = eng._read_block_slices(bid)
+    torch.cuda.synchronize()
+    d2h, h2d = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        host = {k: host_leaf(v) for k, v in leaves.items()}
+        d2h.append(time.perf_counter() - t0)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._write_blocks([bid], [host])        # the same bytes back
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+    return statistics.median(d2h) * 1e3, statistics.median(h2d) * 1e3
+
+
+def close(torch, *engines) -> None:
+    for eng in engines:
+        eng.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def qwen_full(torch):
+    """qwen2.5-3b's full-width config and random weights from seed 0."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.models.registry import fns_for
+
+    cfg = arch_registry.config("qwen2.5-3b")
+    return cfg, fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+
+
+def tier_phase(torch, np, cfg, params) -> dict:
+    """Phase 19a: qwen2.5-3b at full width, bf16, through the host KV tier
+    on churn traffic (``tier_waves``), then the same traffic untiered, then
+    tiered on an int8 pool.  Gated exactly: spills, fetches and host
+    prefix hits, spill bytes, prompt tokens computed (``TIER_*``); the
+    launches by body from the engine's calls (all ``mma``, ``mma_i8`` on
+    the int8 pool); each restored block equal bit for bit to the rows
+    cloned at its spill; leak-free pools and a drained tier.  Printed: the
+    revisits' TTFT beside the untiered run's, the copy times, the
+    executor's host time per spill capture and per fetch commit, and
+    whether the greedy tokens equal the untiered run's.  Returns the
+    launches by kernel (the int8 run's under ``name:int8``)."""
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    runs, launches = {}, {}
+    for label, host_blocks, cache_dtype in (("tiered", TIER_HOST_BLOCKS, "bfloat16"),
+                                            ("untiered", 0, "bfloat16"),
+                                            ("tiered int8", TIER_HOST_BLOCKS, "int8")):
+        tiered = host_blocks > 0
+        eng = tier_engine(ServingEngine, cfg, params, host_blocks, cache_dtype)
+        rec = SpillRecorder(eng) if tiered else None
+        waves = tier_waves(cfg, np, Request, greedy)
+        run = serve_waves(torch, eng, waves)
+        tag = f"19a {label}"
+        tot = run["total"]
+        int8 = cache_dtype == "int8"
+        want = want_bodies(cfg, run, "mma_i8" if int8 else "mma")
+        if run["bodies"] != want or run["plain"]:
+            raise AssertionError(f"{tag}: launches by body {run['bodies']}, expected {want}; "
+                                 f"plain calls {run['plain']}")
+        bad = [r.rid for w in waves for r in w
+               if r.state.value != "done" or len(r.output) != r.max_new_tokens]
+        if bad:
+            raise AssertionError(f"{tag}: requests {bad} did not finish")
+        got = {"kv_spills": tot["kv_spills"], "kv_fetches": tot["kv_fetches"],
+               "prefix_hits_host": tot["prefix_hits_host"],
+               "spill_bytes": tot["spill_bytes"],
+               "prefill_tokens_computed": tot["prefill_tokens_computed"]}
+        spills = TIER_SPILLS if tiered else 0
+        fetches = TIER_FETCHES if tiered else 0
+        expect = {"kv_spills": spills, "kv_fetches": fetches, "prefix_hits_host": fetches,
+                  "spill_bytes": spills * TIER_BLOCK_BYTES[cache_dtype],
+                  "prefill_tokens_computed": TIER_COMPUTED[tiered]}
+        if got != expect:
+            raise AssertionError(f"{tag}: counters {got}, expected {expect}")
+        leaks = leak_free(eng, tag)
+        line = (f"{tag}: {tot['prefill_tokens_computed']} of {tot['prefill_tokens_total']} "
+                f"prompt tokens computed, {run['chunks']} prefill chunks, "
+                f"{tot['decode_steps']} decode steps, {tot['tokens']} tokens in "
+                f"{run['wall']:.3f}s; revisits {serving_summary(run['stats'][2])}; "
+                f"leaks={leaks}")
+        if tiered:
+            held = check_restored(torch, eng, rec, waves[2], tag)
+            target = eng._kv_target
+            line += (f"; spills={tot['kv_spills']} fetches={tot['kv_fetches']} "
+                     f"host_hits={tot['prefix_hits_host']} spill_bytes={tot['spill_bytes']} "
+                     f"({tot['spill_bytes'] // tot['kv_spills']} B a block); {held} restored "
+                     f"blocks equal bit for bit to their spill-time clones; executor host "
+                     f"time {eng.spill_capture_s / tot['kv_spills'] * 1e6:.1f} us a spill "
+                     f"capture, {eng.fetch_commit_s / tot['kv_fetches'] * 1e6:.1f} us a fetch "
+                     f"commit; transfer worker {target.copy_s / target.copies * 1e3:.4f} ms a "
+                     f"block's device-to-host copy (stream wait included, {target.copies} "
+                     f"copies)")
+            d2h, h2d = block_copy_ms(torch, eng, eng._prefix_index[
+                eng._prefix_keys(waves[2][0].prompt)[0]][0])
+            nbytes = TIER_BLOCK_BYTES[cache_dtype]
+            line += (f"; one block on an idle card: device-to-host {d2h:.4f} ms "
+                     f"({nbytes / d2h / 1e6:.2f} GB/s), host-to-device into the pool "
+                     f"{h2d:.4f} ms ({nbytes / h2d / 1e6:.2f} GB/s)")
+        log(line + f" ({card}, {watts:.0f} W)")
+        if not int8:
+            for name, b in run["bodies"].items():
+                launches[name] = launches.get(name, 0) + sum(b.values())
+        else:
+            for name, b in run["bodies"].items():
+                key = name if name == "matmul" else f"{name}:int8"
+                launches[key] = launches.get(key, 0) + sum(b.values())
+        runs[label] = run
+        close(torch, eng)
+        del eng, rec
+    t, u = runs["tiered"], runs["untiered"]
+    ttft = {k: statistics.median(r["stats"][2].ttft) * 1e3 for k, r in runs.items()}
+    churn = {k: r["total"]["prefill_tokens_computed"] - 4 * TIER_FILLER for k, r in runs.items()}
+    log(f"19a: revisits' TTFT p50 {ttft['tiered']:.1f} ms tiered, {ttft['untiered']:.1f} ms "
+        f"untiered, {ttft['tiered int8']:.1f} ms tiered int8; the six churn requests computed "
+        f"{churn['tiered']} of {churn['untiered']} prompt tokens "
+        f"({churn['tiered'] / churn['untiered']:.4f}x); K2 launches "
+        f"{sum(t['bodies']['paged_prefill_attention'].values())} tiered against "
+        f"{sum(u['bodies']['paged_prefill_attention'].values())} untiered; greedy tokens "
+        f"equal to the untiered run's: {t['outputs'] == u['outputs']} (printed: bf16 at 36 "
+        f"layers; gated at depth 2 in fp32); int8 against bf16 tiered equal in "
+        f"{sum(a == b for a, b in zip(runs['tiered int8']['outputs'], t['outputs']))} of "
+        f"{len(t['outputs'])} requests")
+    return launches
+
+
+def fault_phase(torch, np, cfg, params) -> None:
+    """Phase 19b, on 19a's tiered engine and traffic: ``FAULT_PLAN`` fires
+    every request-level and transfer site; every request ends DONE or
+    FAILED, the pool leak-free and the tier drained.  Then ``deadline_s=0``
+    on two requests fails both with ``DeadlineExceeded``; then a
+    ``replica.executor:raise:4`` crash in blocking ``serve`` fails every
+    request, surfaces, refuses later submits; pools leak-free."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.faults import (DeadlineExceeded, ExecutorCrash, FaultError,
+                                            FaultPlan)
+    from repro_torch.serving.sampler import greedy
+
+    plan = FaultPlan.parse(FAULT_PLAN)
+    fired = {}
+    fire = plan.fire
+
+    def counted_fire(site, **kw):
+        spec = fire(site, **kw)
+        if spec is not None:
+            fired[site] = fired.get(site, 0) + 1
+        return spec
+    plan.fire = counted_fire
+    eng = tier_engine(ServingEngine, cfg, params, TIER_HOST_BLOCKS, fault_plan=plan)
+    waves = tier_waves(cfg, np, Request, greedy)
+    stats = [eng.serve(w) for w in waves]
+    torch.cuda.synchronize()
+    reqs = [r for w in waves for r in w]
+    states = {r.rid: r.state.value for r in reqs}
+    if any(v not in ("done", "failed") for v in states.values()):
+        raise AssertionError(f"19b: a request is not terminal: {states}")
+    leaks = leak_free(eng, "19b")
+    if set(fired) != FAULT_SITES or plan.fired < len(FAULT_SITES):
+        raise AssertionError(f"19b: sites fired {fired} ({plan.fired} in all), expected "
+                             f"each of {sorted(FAULT_SITES)}")
+    failed = sorted(r.rid for r in reqs if r.state.value == "failed")
+    log(f"19b faults ({FAULT_PLAN}): fired {fired}, {plan.fired} in all; failed requests "
+        f"{failed} ({sorted({type(r.error).__name__ for r in reqs if r.error})}); "
+        f"requests_failed={sum(s.requests_failed for s in stats)} "
+        f"faults_injected={sum(s.faults_injected for s in stats)} "
+        f"spills={sum(s.kv_spills for s in stats)} fetches={sum(s.kv_fetches for s in stats)} "
+        f"prompt tokens computed {sum(s.prefill_tokens_computed for s in stats)}; "
+        f"leaks={leaks}")
+    # deadlines: two requests already past theirs, one without
+    rng = np.random.default_rng(190)
+    dl = [Request(20 + i, rng.integers(0, cfg.vocab_size, 300).astype(np.int32),
+                  max_new_tokens=16, sampler=greedy(), deadline_s=0.0 if i < 2 else None)
+          for i in range(3)]
+    st = eng.serve(dl)
+    if [r.state.value for r in dl] != ["failed", "failed", "done"] or not all(
+            isinstance(r.error, DeadlineExceeded) for r in dl[:2]):
+        raise AssertionError(f"19b deadlines: states {[r.state.value for r in dl]}, errors "
+                             f"{[type(r.error).__name__ for r in dl]}")
+    leaks = leak_free(eng, "19b deadlines")
+    log(f"19b deadlines: 2 requests with deadline_s=0 failed with DeadlineExceeded, the "
+        f"third done ({len(dl[2].output)} tokens); requests_failed={st.requests_failed}; "
+        f"leaks={leaks}")
+    close(torch, eng)
+    del eng
+    # a crash in blocking serve
+    eng = tier_engine(ServingEngine, cfg, params, TIER_HOST_BLOCKS,
+                      fault_plan=FaultPlan.parse("replica.executor:raise:4"))
+    first = tier_waves(cfg, np, Request, greedy)[0]
+    try:
+        eng.serve(first)
+    except FaultError:
+        pass
+    else:
+        raise AssertionError("19b crash: serve returned")
+    if not all(r.state.value == "failed" for r in first) or not isinstance(
+            eng.failure, FaultError):
+        raise AssertionError(f"19b crash: states {[r.state.value for r in first]}, failure "
+                             f"{eng.failure!r}")
+    try:
+        eng.submit(tier_waves(cfg, np, Request, greedy)[0][0])
+    except ExecutorCrash:
+        pass
+    else:
+        raise AssertionError("19b crash: a submit after the crash was taken")
+    leaks = leak_free(eng, "19b crash")
+    log(f"19b crash (replica.executor:raise:4 in blocking serve): all {len(first)} requests "
+        f"FAILED ({first[0].error!r}), the crash surfaced, a later submit refused with "
+        f"ExecutorCrash; leaks={leaks}")
+    close(torch, eng)
+
+
+def serve_service(torch, eng, reqs):
+    """start(); submit ``reqs`` from this thread; wait for every
+    ``on_finish``; stop().  Returns (stats of the window, the prefill
+    counter, the decode counter)."""
+    done = threading.Semaphore(0)
+    chunks = CallCounter(eng, "_prefill_paged")
+    steps = CallCounter(eng, "_decode")
+    base = eng.begin_window()
+    t0 = time.monotonic()
+    eng.start()
+    try:
+        for r in reqs:
+            eng.submit(r, on_finish=lambda r: done.release())
+        for r in reqs:
+            if not done.acquire(timeout=300):
+                raise AssertionError("service mode: a request never finished")
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    stats = eng.collect_window(base, reqs, time.monotonic() - t0)
+    chunks.restore()
+    steps.restore()
+    return stats, chunks, steps
+
+
+def service_phase(torch, np, cfg, params, baseline) -> dict:
+    """Phase 19c: phase 4's engine and requests in service mode --
+    ``start()``, the 8 requests submitted from the main thread, each
+    ``on_finish`` waited for, ``stop()``.  Gated: all DONE; K1 / K2 / K7
+    launches exact by body, every model call made on the executor thread;
+    leak-free.  Then a crash in service mode: ``stop()`` raises
+    ``ExecutorCrash`` once, a second ``stop()`` is silent, a later submit
+    raises ``ExecutorCrash``, leak-free.  Printed beside phase 4's
+    blocking run: TTFT, TPOT, tok/s, tokens.  Returns the launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.faults import ExecutorCrash, FaultPlan
+    from repro_torch.serving.sampler import greedy
+
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        device="cuda")
+    eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                       sampler=greedy())])          # warm-up, as phase 4's
+    reqs = serving_requests(cfg, np, Request, greedy)
+    dispatch.reset_counts()
+    stats, chunks, steps = serve_service(torch, eng, reqs)
+    bodies, plain = launched_bodies(dispatch.kernel_table())
+    run = {"chunks": chunks.n, "total": {"decode_steps": stats.decode_steps}}
+    want = want_bodies(cfg, run, "mma")
+    threads = chunks.threads | steps.threads
+    if bodies != want or plain or steps.n != stats.decode_steps:
+        raise AssertionError(f"19c: launches by body {bodies}, expected {want}; plain calls "
+                             f"{plain}; {steps.n} decode calls, {stats.decode_steps} steps")
+    if not threads or threading.get_ident() in threads:
+        raise AssertionError(f"19c: model calls on threads {threads}, the main thread is "
+                             f"{threading.get_ident()}")
+    bad = [r.rid for r in reqs if r.state.value != "done" or len(r.output) != 32]
+    if bad:
+        raise AssertionError(f"19c: requests {bad} did not finish")
+    leaks = leak_free(eng, "19c")
+    outputs = [list(r.output) for r in reqs]
+    base = baseline["stats"]
+    log(f"19c service mode: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s {serving_summary(stats)}; every model call on the "
+        f"executor thread ({len(threads)} thread, not the main one); launches by body "
+        f"{bodies}; leaks={leaks}")
+    log(f"19c: phase 4 (blocking serve, the same engine and requests) {serving_summary(base)}; "
+        f"greedy tokens equal to phase 4's in "
+        f"{sum(a == b for a, b in zip(outputs, baseline['outputs']))} of {len(reqs)} "
+        f"requests (printed; gated at depth 2 in fp32)")
+    # a crash in service mode
+    eng.fault_plan = FaultPlan.parse("replica.executor:raise:2")
+    crashed = serving_requests(cfg, np, Request, greedy)[:2]
+    done = threading.Semaphore(0)
+    for r in crashed:           # queued before the executor runs, so both are in
+        eng.submit(r, on_finish=lambda r: done.release())   # when it dies
+    eng.start()
+    for r in crashed:
+        if not done.acquire(timeout=120):
+            raise AssertionError("19c crash: a request never reached a terminal state")
+    raised = 0
+    for _ in range(2):
+        try:
+            eng.stop()
+        except ExecutorCrash:
+            raised += 1
+    try:
+        eng.submit(serving_requests(cfg, np, Request, greedy)[2])
+        refused = False
+    except ExecutorCrash:
+        refused = True
+    if raised != 1 or not refused or any(r.state.value != "failed" for r in crashed):
+        raise AssertionError(f"19c crash: stop() raised {raised} times, submit refused "
+                             f"{refused}, states {[r.state.value for r in crashed]}")
+    leaks = leak_free(eng, "19c crash")
+    log(f"19c crash (replica.executor:raise:2 in service mode): both requests FAILED, stop() "
+        f"raised ExecutorCrash once and was silent the second time, a later submit refused; "
+        f"leaks={leaks}")
+    close(torch, eng)
+    return {n: sum(b.values()) for n, b in bodies.items()}
+
+
+def tier_gate(torch, np) -> None:
+    """Phase 19's gate at depth 2 in fp32 through the kernels (FMA bodies):
+    19a's traffic tiered gives the untiered run's greedy tokens (and 19a's
+    exact counters); under 19b's plan every DONE request gives the
+    no-fault run's tokens; service mode gives blocking ``serve``'s tokens
+    for phase 4's requests.  On a mismatch the first differing step and
+    its logit margins are printed."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.sampler import greedy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32", num_layers=2)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    out = {}
+    for label, host, plan in (("untiered", 0, None), ("tiered", TIER_HOST_BLOCKS, None),
+                              ("faults", TIER_HOST_BLOCKS, FaultPlan.parse(FAULT_PLAN))):
+        eng = tier_engine(ServingEngine, cfg, params, host, "float32", fault_plan=plan)
+        waves = tier_waves(cfg, np, Request, greedy)
+        stats = [eng.serve(w) for w in waves]
+        leak_free(eng, f"19 gate {label}")
+        reqs = [r for w in waves for r in w]
+        out[label] = (reqs, stats)
+        close(torch, eng)
+    prompts = [r.prompt for r in out["untiered"][0]]
+    toks = {k: [list(r.output) for r in reqs] for k, (reqs, _) in out.items()}
+    if toks["tiered"] != toks["untiered"]:
+        raise token_mismatch(torch, np, cfg, params, prompts, toks["untiered"], toks["tiered"],
+                             "19 gate (19a)", "untiered", "tiered")
+    tiered = out["tiered"][1]
+    counts = (sum(s.kv_spills for s in tiered), sum(s.kv_fetches for s in tiered),
+              sum(s.prefill_tokens_computed for s in tiered))
+    if counts != (TIER_SPILLS, TIER_FETCHES, TIER_COMPUTED[True]):
+        raise AssertionError(f"19 gate (19a): spills, fetches, computed {counts}")
+    done = [i for i, r in enumerate(out["faults"][0]) if r.state.value == "done"]
+    if [toks["faults"][i] for i in done] != [toks["untiered"][i] for i in done]:
+        raise token_mismatch(torch, np, cfg, params, [prompts[i] for i in done],
+                             [toks["untiered"][i] for i in done],
+                             [toks["faults"][i] for i in done], "19 gate (19b)", "no-fault",
+                             "faulted")
+    # service mode against blocking serve, phase 4's requests
+    blocking = serving_requests(cfg, np, Request, greedy)
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        cache_dtype="float32", device="cuda")
+    eng.serve(blocking)
+    close(torch, eng)
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        cache_dtype="float32", device="cuda")
+    service = serving_requests(cfg, np, Request, greedy)
+    serve_service(torch, eng, service)
+    leak_free(eng, "19 gate (19c)")
+    close(torch, eng)
+    a, b = [list(r.output) for r in blocking], [list(r.output) for r in service]
+    if a != b:
+        raise token_mismatch(torch, np, cfg, params, [r.prompt for r in blocking], a, b,
+                             "19 gate (19c)", "blocking", "service")
+    log(f"19 gate (fp32, full width, depth 2): tiered greedy tokens equal to untiered "
+        f"({sum(map(len, toks['tiered']))} tokens; spills {counts[0]}, fetches {counts[1]}, "
+        f"computed {counts[2]} of {sum(s.prefill_tokens_total for s in tiered)}); under "
+        f"the fault plan {len(done)} of {len(toks['faults'])} requests done, each with the "
+        f"no-fault tokens; service mode equal to blocking serve ({sum(map(len, b))} tokens)")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2788,9 +3387,18 @@ def main() -> int:
     timed("18 verify kernels", verify_kernel_phase, torch, table)
     spec = timed("18 spec serving", spec_serving_phase, torch, np, table, bf16_serving)
     timed("18 spec gate", spec_gate, torch, np)
+    cfg, params = qwen_full(torch)
+    tier = timed("19a host tier", tier_phase, torch, np, cfg, params)
+    timed("19b faults", fault_phase, torch, np, cfg, params)
+    service = timed("19c service mode", service_phase, torch, np, cfg, params, bf16_serving)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("19 gate", tier_gate, torch, np)
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
-    for name, count in list(contiguous.items()) + list(spec.items()):
+    for name, count in (list(contiguous.items()) + list(spec.items()) + list(tier.items())
+                        + list(service.items())):
         launches[name] += count
 
     kernels = []

@@ -1,7 +1,8 @@
 """The paper's contribution, generalized: split-phase co-processor offload
 (counterpart of ``repro/core/offload.py``; :class:`TorchTarget` takes the
-place of its ``JaxTarget``, and its ``KVBlockTarget`` waits for the port's
-host KV tier).
+place of its ``JaxTarget``, and :class:`KVBlockTarget` carries the serving
+engine's host KV tier: spills and fetches, the migration payload waiting
+for the replica router).
 
 NCSw (paper section 3) maps onto this module as follows:
 
@@ -32,6 +33,8 @@ Two collection disciplines coexist:
 Targets:
   * :class:`TorchTarget` -- runs a PyTorch function on a device (real
     compute: the card, or the CPU when asked).
+  * :class:`KVBlockTarget` -- the serving engine's host KV tier driven as a
+    split-phase device (KV blocks spilled to host memory and fetched back).
   * :class:`SimTarget` -- calibrated latency model of a paper device (Myriad
     2 VPU / Xeon / Quadro), used to reproduce the paper's scaling figures.
 """
@@ -224,6 +227,62 @@ class TorchTarget(Target):
                 return x.cpu().numpy()
             return x
         return tree_map(get, out)
+
+
+def host_leaf(t: torch.Tensor) -> np.ndarray:
+    """One KV-block leaf (a tensor on any device) -> host numpy.  numpy has
+    no bf16, so bf16 rows travel as their int16 bit patterns (bitcast, not
+    converted: restoring them is a ``.view(torch.bfloat16)``), as
+    ``repro_torch.interop`` carries bf16 across frameworks."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+class KVBlockTarget(Target):
+    """KV-block transfer endpoint: the serving tier hierarchy's host tier
+    driven as a split-phase offload device (paper Fig-4 applied to KV
+    cache blocks instead of weight tensors).
+
+    ``tier`` is duck-typed (``repro_torch.serving.kv_pool.HostTier`` in
+    practice) so the core layer stays free of serving imports.  Payloads:
+
+      ``("spill", key, leaves)`` -- materialize one block's leaves (a dict
+          of per-leaf tensors the engine *cloned* on its stream before the
+          block id was freed: the pools are written in place, so a view
+          would read whatever reuses the block) into host numpy (bf16 as
+          int16 bits, :func:`host_leaf`) and store them under ``key``;
+          result = bytes moved.  The device->host copy -- the blocking
+          part -- runs here on the worker, stream-ordered after the clone,
+          so the engine's executor never waits on it.
+      ``("fetch", key)`` -- load ``key``'s payload (dict of numpy arrays),
+          or None if the tier has since evicted it (the engine falls back
+          to recompute).
+
+    One worker drains the queue FIFO, so a fetch submitted behind its own
+    spill always finds the stored payload.  ``copy_s`` / ``copies`` total
+    the worker's device->host materialization time and count (written by
+    the worker alone; read once the engine's tier IO is drained).
+    """
+
+    def __init__(self, tier, name: str = "kv_host", tdp_watts: float = 0.0):
+        self.tier = tier
+        self.name = name
+        self.tdp_watts = tdp_watts
+        self.copy_s = 0.0
+        self.copies = 0
+
+    def execute(self, staged):
+        if staged[0] == "spill":
+            _, key, leaves = staged
+            t0 = time.perf_counter()
+            host = {k: host_leaf(v) for k, v in leaves.items()}
+            self.copy_s += time.perf_counter() - t0
+            self.copies += 1
+            self.tier.store(key, host)
+            return sum(int(a.nbytes) for a in host.values())
+        _, key = staged
+        return self.tier.load(key)
 
 
 class SimTarget(Target):

@@ -5,7 +5,9 @@ TPOT, slot occupancy) and tokens/s per watt against the card's power limit
 family serves from the paged KV pool (from contiguous per-slot caches with
 ``--contiguous-kv``), the hybrid (zamba2) from contiguous per-slot caches;
 contiguous caches hold ``prompt_len + new_tokens + 1`` rows.  With
-``--draft-model`` greedy requests decode speculatively on the paged pool.
+``--draft-model`` greedy requests decode speculatively on the paged pool;
+``--host-blocks`` adds the host KV tier, ``--inject-faults`` a fault plan
+and ``--deadline-s`` a deadline on every request.
 
 Example (on a machine with an NVIDIA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
@@ -17,9 +19,14 @@ Example (on a machine with an NVIDIA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --draft-model qwen2.5-3b --spec-k 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+  # the host KV tier and a seeded fault plan:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      --host-blocks 256 --inject-faults seed=3
   # the plain PyTorch versions of the kernels, on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+      --smoke --device cpu --host-blocks 16 --inject-faults seed=3
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 from repro_torch.configs import registry as arch_registry
 from repro_torch.models.registry import fns_for
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.sampler import greedy, temperature
 
 
@@ -72,6 +80,15 @@ def main() -> int:
                     help="disable decode preemption")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable refcounted prompt-prefix block sharing")
+    ap.add_argument("--host-blocks", type=int, default=0, metavar="N",
+                    help="tiered KV cache: spill cold pool blocks (idle "
+                         "shared prefixes, preemption victims' histories) "
+                         "to an N-block host tier and restore them "
+                         "asynchronously through the split-phase offload "
+                         "protocol instead of recomputing (0 = untiered)")
+    ap.add_argument("--no-kv-tiering", action="store_true",
+                    help="ignore --host-blocks: run the untiered pool "
+                         "(the recompute A/B baseline for tiering)")
     ap.add_argument("--no-seeded-prefill", action="store_true",
                     help="recompute baseline: every prompt token is re-run "
                          "(compare prefill_tokens_computed)")
@@ -89,6 +106,19 @@ def main() -> int:
     ap.add_argument("--no-spec", action="store_true",
                     help="ignore --draft-model: run vanilla decode (the "
                          "A/B baseline for speculative decoding)")
+    ap.add_argument("--deadline-s", type=float, default=None, metavar="S",
+                    help="per-request completion deadline: a request "
+                         "still queued or mid-decode after S seconds is "
+                         "cancelled with a typed DeadlineExceeded and its "
+                         "KV blocks reclaimed")
+    ap.add_argument("--inject-faults", default=None, metavar="PLAN",
+                    help="deterministic fault injection for chaos runs: "
+                         "comma-separated site[:action[:after[:count]]] "
+                         "specs (sites: target.compute engine.prefill "
+                         "engine.decode kv.spill kv.fetch "
+                         "replica.executor; actions: raise drop delay) or "
+                         "seed=<int> for a random seeded plan -- e.g. "
+                         "'replica.executor:raise:4,kv.fetch:drop'")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -110,13 +140,20 @@ def main() -> int:
                                     size=args.prompt_len).astype(np.int32),
                     max_new_tokens=args.new_tokens, sampler=mk_sampler())
             for i in range(args.requests)]
+    if args.deadline_s is not None:
+        for r in reqs:
+            r.deadline_s = args.deadline_s
+    fault_plan = (FaultPlan.parse(args.inject_faults)
+                  if args.inject_faults else None)
     kw = dict(max_len=max_len, batch_slots=args.slots,
               paged=False if args.contiguous_kv else None,
               pool_blocks=args.kv_pool_blocks,
               preemption=not args.no_preemption,
               prefix_sharing=not args.no_prefix_sharing,
               prefill_chunk=args.prefill_chunk,
-              seeded_prefill=not args.no_seeded_prefill, device=device)
+              seeded_prefill=not args.no_seeded_prefill,
+              host_blocks=0 if args.no_kv_tiering else args.host_blocks,
+              fault_plan=fault_plan, device=device)
     if args.draft_model and not args.no_spec:
         if args.contiguous_kv:
             ap.error("--draft-model needs the paged KV pool; "
@@ -145,18 +182,35 @@ def main() -> int:
     else:
         print(f"prefill_compiles={stats.prefill_compiles}  contiguous KV: "
               f"{max_len} rows x {args.slots} slots")
-    stall = (f"{stats.decode_stall_p99_s * 1e3:.1f}ms"
-             if stats.decode_stall_p99_s is not None else "n/a")
-    print(f"prefill_tokens={stats.prefill_tokens_computed}"
-          f"/{stats.prefill_tokens_total} computed "
-          f"({stats.prefill_compute_frac:.0%})  "
-          f"decode_stall_p99={stall}")
+    if stats.prefill_tokens_total:       # none when every request failed
+        stall = (f"{stats.decode_stall_p99_s * 1e3:.1f}ms"
+                 if stats.decode_stall_p99_s is not None else "n/a")
+        print(f"prefill_tokens={stats.prefill_tokens_computed}"
+              f"/{stats.prefill_tokens_total} computed "
+              f"({stats.prefill_compute_frac:.0%})  "
+              f"decode_stall_p99={stall}")
     if stats.spec_proposed:
         spt = (f"{stats.steps_per_token:.2f}"
                if stats.steps_per_token is not None else "n/a")
         print(f"spec: accept_rate={stats.accept_rate:.2f}  "
               f"verify_steps={stats.verify_steps}  "
               f"decode_steps={stats.decode_steps}  steps/token={spt}")
+    if stats.kv_spills or stats.kv_fetches:
+        hit = (f"{stats.kv_hit_rate:.2f}"
+               if stats.kv_hit_rate is not None else "n/a")
+        print(f"tiering: spills={stats.kv_spills}  "
+              f"fetches={stats.kv_fetches}  "
+              f"host_hits={stats.prefix_hits_host}  "
+              f"spill_bytes={stats.spill_bytes}  kv_hit_rate={hit}")
+    if (stats.requests_failed or stats.shed_rejections
+            or stats.faults_injected):
+        # the reference's line: retries and replica failures stay 0 on
+        # one replica
+        print(f"faults: injected={stats.faults_injected}  "
+              f"failed={stats.requests_failed}  "
+              f"retried={stats.requests_retried}  "
+              f"replica_failures={stats.replica_failures}  "
+              f"shed={stats.shed_rejections}")
     if stats.preemptions or stats.prefix_shared_blocks:
         print(f"preemptions={stats.preemptions}  "
               f"prefix_shared_blocks={stats.prefix_shared_blocks}")

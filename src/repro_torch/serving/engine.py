@@ -37,19 +37,47 @@ that matches its own argmax chain, so the output is vanilla greedy's.
 Under self-speculation (``draft_cfg is cfg``) the drafter shares the
 engine's prepared weights.
 
+Tiered KV (``host_blocks > 0``, paged with prefix sharing): the prefix
+index holds every block it publishes, and when admission needs more than
+the free list, the pool demotes idle held blocks -- their rows spill to a
+:class:`~repro_torch.serving.kv_pool.HostTier` through an
+``OffloadEngine([KVBlockTarget])`` transfer worker -- and a later prompt
+with the same leading tokens (or a preempted request's resume) fetches
+them back instead of recomputing them.  The port's pools are written in
+place, so a spill *clones* the block's rows on the executor's stream
+before its id can return to the free list; the worker's device-to-host
+copy then reads the clone, never the reused block.
+
+Fault tolerance (the reference's): a :class:`~repro_torch.serving.faults.
+FaultPlan` fires at the executor step, each prefill chunk and decode
+commit, and the tier's transfers; a request whose prefill or decode
+raises fails alone (blocks freed, reservation returned); an exception
+that escapes a step fails every queued and active request, frees their
+blocks, poisons the scheduler and surfaces (re-raised by blocking
+:meth:`ServingEngine.serve`, by :meth:`ServingEngine.stop` once in
+service mode); requests past their ``deadline_s`` fail with
+:class:`~repro_torch.serving.faults.DeadlineExceeded`.
+
+Service mode: :meth:`ServingEngine.start` runs the executor on a thread
+of its own, :meth:`ServingEngine.submit` admits from any thread (refusing
+with ``ExecutorCrash`` after a crash and ``ShedError`` past
+``shed_queue_depth``), :meth:`ServingEngine.stop` joins it.  The kernels
+then launch from that thread.
+
 Every attention call runs the hand-written CUDA kernels when the engine's
 device is the card (:mod:`repro_torch.kernels`).  The engine runs on
 ``device="cuda"`` unless the caller passes another device; it raises when
 no card is present rather than carry on on the CPU.
 
-Not ported yet, and refused by the constructor: the host KV tier
-(``host_blocks``), disaggregated roles and fault injection; refused as
-the reference refuses them: ``prefill_chunk`` and speculative decoding
-without paging.
+Not ported yet, and refused by the constructor: disaggregated roles (they
+come with the replica router); refused as the reference refuses them:
+``prefill_chunk``, speculative decoding and the host tier without paging,
+and the host tier without prefix sharing.
 """
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from dataclasses import dataclass, field, fields
 from typing import Callable, NamedTuple
@@ -57,12 +85,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.offload import KVBlockTarget, OffloadEngine, WorkError
 from repro_torch.models.registry import fns_for
+from repro_torch.serving.faults import (DeadlineExceeded, ExecutorCrash,
+                                        FaultError, FaultPlan, ShedError)
 from repro_torch.serving.kv_pool import CapacityError, KVBlockPool
 from repro_torch.serving.sampler import Sampler  # noqa: F401 (re-export)
 from repro_torch.serving.sampler import greedy_accept_prefix
-from repro_torch.serving.scheduler import (ContinuousScheduler, Request,
-                                           RequestState)
+from repro_torch.serving.scheduler import (ContinuousScheduler, LoadSnapshot,
+                                           Request, RequestState)
 
 
 # Declarative multi-replica merge spec (copied from the reference): every
@@ -313,6 +344,13 @@ class WindowBase(NamedTuple):
     decode_gap_n: int           # lifetime decode-gap count at window start
                                 # (incl. entries trimmed from the bounded
                                 # totals.decode_gaps list)
+    kv_spills: int = 0          # tiering lifetime counters (0 when untiered)
+    kv_fetches: int = 0
+    prefix_hits_host: int = 0
+    spill_bytes: int = 0
+    requests_failed: int = 0    # fault-tolerance lifetime counters
+    shed_rejections: int = 0
+    faults_injected: int = 0
 
 def prefix_digests(tokens: np.ndarray, block_size: int) -> list[bytes]:
     """One chained digest per *full* leading block of ``tokens``: digest
@@ -344,8 +382,17 @@ class _PrefillJob:
     nb: int                     # prompt blocks in the request's table
     keys: list                  # prefix digests, published at completion
     pos: int = -1               # rows already in the pool; -1 = blocks
-                                # not yet materialized
-    slot: int = -1              # engine slot
+                                # not yet materialized; -2 = materialized
+                                # but host-tier fetches still inbound (the
+                                # slot is skipped, like a mid-prefill slot,
+                                # until _drain_tier commits the last one)
+    slot: int = -1              # engine slot (fetch commits validate the
+                                # job is still this slot's live prefill)
+    prefetch: dict = field(default_factory=dict)   # key -> WorkItem
+    pending_n: int = 0          # registered fetches not yet committed
+    fetched_ok: set = field(default_factory=set)   # logical blocks restored
+    seed_base: int = 0          # device-shared leading blocks (fetch run
+                                # extends the seed window past this)
 
 
 class _Drafter:
@@ -496,9 +543,16 @@ class _Drafter:
 
 
 class ServingEngine:
-    """One replica: continuous batching over a fixed-slot decode batch,
-    driven by the blocking :meth:`serve` (admit a list of requests, run
-    until all are DONE)."""
+    """One replica: continuous batching over a fixed-slot decode batch.
+
+    Two driving modes share the same executor step:
+
+      * :meth:`serve` -- blocking: admit a list of requests, run until all
+        are DONE or FAILED.
+      * :meth:`start` / :meth:`submit` / :meth:`stop` -- service mode: a
+        background executor thread drains the admission queue as requests
+        stream in.
+    """
 
     def __init__(self, cfg, params, *, max_len: int = 256,
                  batch_slots: int = 4, chunk: int = 512,
@@ -509,15 +563,19 @@ class ServingEngine:
                  prefill_chunk: int | None = None,
                  seeded_prefill: bool = True, host_blocks: int = 0,
                  draft_cfg=None, draft_params=None, spec_k: int = 3,
-                 fault_plan=None, role: str = "mixed", device="cuda"):
-        if host_blocks > 0:
-            raise ValueError("the host KV tier (host_blocks > 0) is not "
-                             "ported yet")
+                 name: str = "", fault_plan: FaultPlan | None = None,
+                 shed_queue_depth: int | None = None,
+                 role: str = "mixed", device="cuda"):
         if role != "mixed":
             raise ValueError(f"role={role!r}: disaggregated roles are not "
                              f"ported yet; only 'mixed' serves")
-        if fault_plan is not None:
-            raise ValueError("fault injection (fault_plan) is not ported yet")
+        # fault tolerance: the replica's name (the fault plan's replica
+        # filter), the injection plan, and the admission shed threshold
+        # (queue depth beyond which submit() refuses with ShedError rather
+        # than guarantee an SLO miss)
+        self.name = name
+        self.fault_plan = fault_plan
+        self.shed_queue_depth = shed_queue_depth
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -552,6 +610,15 @@ class ServingEngine:
         self.spec_rows = (spec_k + 1) if spec else 0
         if prefill_chunk is not None and not paged:
             raise ValueError("prefill_chunk needs the paged KV engine")
+        # tiered KV: cold blocks spill to a host tier and restore through
+        # the split-phase offload protocol instead of being recomputed
+        if host_blocks > 0 and not paged:
+            raise ValueError("KV tiering (host_blocks > 0) needs the paged "
+                             "KV engine")
+        if host_blocks > 0 and not prefix_sharing:
+            raise ValueError("KV tiering keys host-resident blocks by the "
+                             "prefix digests; it needs prefix_sharing=True")
+        self.tiered = paged and host_blocks > 0
         if paged and getattr(cfg, "sliding_window", 0):
             # the paged attention paths are full-causal; serving a
             # sliding-window arch through them would silently diverge
@@ -584,17 +651,18 @@ class ServingEngine:
         # block -> (block id, alloc generation); entries are validated
         # against the pool on lookup, so a freed-and-reused block can
         # never be shared stale
-        self._prefix_index: dict[bytes, tuple[int, int]] = {}
-        self.prefix_shared_total = 0        # lifetime shared table entries
+        self._prefix_index: dict[bytes, tuple[int, int]] = {}  # owned-by: executor-thread
+        self.prefix_shared_total = 0  # owned-by: executor-thread; lifetime shared entries
         # slot -> in-progress chunked prefill (insertion order = service
         # order); drained by the executor under the prefill_chunk budget
-        self._prefilling: dict[int, _PrefillJob] = {}
-        self._last_decode_end: float | None = None
-        self._gaps_dropped = 0              # decode_gaps entries trimmed
+        self._prefilling: dict[int, _PrefillJob] = {}  # owned-by: executor-thread
+        self._last_decode_end: float | None = None  # owned-by: executor-thread
+        self._gaps_dropped = 0  # owned-by: executor-thread; decode_gaps entries trimmed
         fns = self.fns
         if paged:
             worst = batch_slots * -(-(max_len + self.spec_rows) // block_size)
-            self.pool = KVBlockPool(pool_blocks or worst, block_size)
+            self.pool = KVBlockPool(pool_blocks or worst, block_size,
+                                    host_blocks=host_blocks)
             # the table width covers the speculative overhang: a verify pass
             # writes up to spec_rows rows past the committed length before
             # acceptance trims them back
@@ -602,8 +670,10 @@ class ServingEngine:
             self._prefix_cap = 8 * self.pool.capacity
             # host mirrors of the device block tables / lengths: growth and
             # slot retirement are numpy writes, re-injected every step
-            self._tables = np.zeros((batch_slots, self.max_blocks), np.int32)
-            self._lengths = np.zeros((batch_slots,), np.int32)
+            self._tables = np.zeros((batch_slots, self.max_blocks),
+                                    np.int32)   # owned-by: executor-thread
+            self._lengths = np.zeros((batch_slots,),
+                                     np.int32)  # owned-by: executor-thread
             self._prefill_paged = (
                 lambda p, t, s, w, tb, qs, kl, li: fns.prefill_paged(
                     cfg, p, t, s, w, tb, q_start=qs, kv_len=kl, last_idx=li,
@@ -615,6 +685,29 @@ class ServingEngine:
             self._prefill = lambda p, b: fns.prefill(
                 cfg, p, b, max_len=max_len, chunk=chunk,
                 cache_dtype=self._state_dtype)
+        # executor host time of the tier's two executor-side halves (the
+        # device-to-host copy itself runs on the transfer worker)
+        self.spill_capture_s = 0.0  # owned-by: executor-thread
+        self.fetch_commit_s = 0.0   # owned-by: executor-thread
+        if self.tiered:
+            # host tier driven as a split-phase offload device: one FIFO
+            # worker (spill-before-fetch ordering for a given key is free),
+            # spills fire-and-forget via submit(), fetches via submit_async
+            # so _drain_tier collects them out of order between decode steps
+            self._kv_target = KVBlockTarget(self.pool.host)
+            if fault_plan is not None:
+                # kv.spill / kv.fetch probe sites fire on the transfer
+                # worker, mapped from the payload kind by _kv_fault_hook
+                self._kv_target.fault_hook = self._kv_fault_hook
+            self._kv_io = OffloadEngine([self._kv_target])
+            self._kv_io.__enter__()           # daemon worker; see close()
+            self.pool.on_demote = self._on_demote
+            self._held_digests: dict[int, bytes] = {}  # owned-by: executor-thread; bid -> key
+            self._fetch_refs: dict[int, tuple] = {}    # owned-by: executor-thread; seq -> ref
+            self._staged: dict[int, object] = {}       # owned-by: executor-thread; early done
+            self._claimed: set[int] = set()            # owned-by: executor-thread; pre-drain
+        else:
+            self._kv_io = None
         self._drafter = None
         if spec:
             # self-speculation shares the engine's prepared weights: no
@@ -630,17 +723,29 @@ class ServingEngine:
                 cache_dtype=cache_dtype, device=self.device)
             self._verify = lambda p, t, s, tb, qs, kl: fns.verify_paged(
                 cfg, p, t, s, tb, q_start=qs, kv_len=kl, chunk=chunk)
-        self._spec_on: set = set()          # slots decoding speculatively
+        self._spec_on: set = set()  # owned-by: executor-thread; slots decoding speculatively
         self.scheduler = ContinuousScheduler(batch_slots, pool=self.pool,
                                              preemption=preemption,
                                              spec_rows=self.spec_rows)
         self._decode = lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk)
         # distinct padded prefill shapes: the reference jit-compiles once
         # per shape; the same padding keeps this counter equal to its
-        self._prefill_shapes: set = set()
-        self._state = None                  # decode state, built lazily
-        self._last: np.ndarray | None = None  # (slots, V) next-token logits
+        self._prefill_shapes: set = set()  # owned-by: executor-thread
+        self._state = None  # owned-by: executor-thread; decode state, built lazily
+        self._last: np.ndarray | None = None  # owned-by: executor-thread; (slots, V) logits
         self.totals = ServeStats()          # lifetime counters (monotonic)
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        # control-plane state shared with traffic threads: the captured
+        # executor failure and whether stop() already surfaced it
+        self._ctl_lock = threading.Lock()
+        self._failure: BaseException | None = None  # guarded-by: self._ctl_lock
+        self._failure_raised = False                # guarded-by: self._ctl_lock
+        # True once any submitted request carried a deadline_s -- lets the
+        # executor skip the per-step deadline sweep for deadline-free
+        # workloads (monotonic bool; racing the writer only delays the
+        # first sweep by one step)
+        self._has_deadlines = False
 
     # -- model plumbing --------------------------------------------------------
 
@@ -662,6 +767,136 @@ class ServingEngine:
                 f"max_len={self.max_len}")
         if self.pool is not None:
             self.pool.validate_rows(req.kv_rows + self.spec_rows, req.rid)
+        if req.deadline_s is not None:
+            # monotonic enable flag for the executor's deadline sweep;
+            # both admission paths (blocking serve, service submit) pass
+            # through here before the scheduler sees the request
+            self._has_deadlines = True
+
+    # -- fault tolerance -------------------------------------------------------
+
+    @property
+    def failure(self) -> BaseException | None:
+        """The exception that killed the executor, if any (thread-safe)."""
+        with self._ctl_lock:
+            return self._failure
+
+    def _fault(self, site: str, rid=None) -> str | None:
+        """Fire the fault plan's probe at ``site``: returns None (no
+        fault) or the action that fired -- ``delay`` already slept here,
+        ``raise`` already raised :class:`FaultError`, ``drop`` is the
+        caller's to interpret (lost result / lost transfer).  Called from
+        the executor thread and from the KV transfer worker."""
+        plan = self.fault_plan
+        if plan is None:
+            return None
+        spec = plan.fire(site, rid=rid, replica=self.name)
+        if spec is None:
+            return None
+        with self._ctl_lock:          # probe fires on two threads
+            self.totals.faults_injected += 1
+        if spec.action == "delay":
+            time.sleep(spec.delay_s)
+            return "delay"
+        if spec.action == "raise":
+            raise FaultError(site, f"rid={rid}" if rid is not None else "")
+        return "drop"
+
+    def _kv_fault_hook(self, item) -> bool:
+        """Transfer-worker probe (installed on the KVBlockTarget): map the
+        payload kind to its site; True drops the transfer -- a spill that
+        never lands (the pin is released via _spill_done) or a fetch that
+        reports a tier miss (the engine recomputes the block)."""
+        site = "kv.spill" if item.payload[0] == "spill" else "kv.fetch"
+        return self._fault(site) == "drop"
+
+    def _finish_failed(self, req: Request, exc: BaseException) -> None:
+        """Move ``req`` to its terminal FAILED state and notify."""
+        req.state = RequestState.FAILED
+        req.error = exc
+        req.finished_at = time.monotonic()
+        self.totals.requests_failed += 1
+        if req.on_finish is not None:
+            try:
+                req.on_finish(req)
+            except Exception:  # fault-ok: a raising completion callback must not take down the failure path reporting the failure
+                pass
+
+    def _fail_slot(self, slot: int, req: Request, exc: BaseException) -> None:
+        """Poison-request isolation: one request's prefill chunk or decode
+        commit raised, so *that request* fails -- blocks freed, reservation
+        returned, drafter mirror dropped, slot refilled next step -- and
+        the executor loop lives on.
+
+        Popping the prefill job is enough for in-flight host-tier fetches
+        (the drain's job-alive guard discards commits for a dead job);
+        only admission prefetches that never reached materialization need
+        explicit discarding."""
+        job = self._prefilling.pop(slot, None)
+        if job is not None and job.pos == -1:
+            for item in job.prefetch.values():
+                self._discard_fetch(item)
+        if self._drafter is not None:
+            self._drafter.drop(slot)
+            self._spec_on.discard(slot)
+        self.scheduler.release(slot)       # blocks + reservation tail back
+        if self.paged:
+            self._retire_slot(slot)
+        self._finish_failed(req, exc)
+        self.scheduler.notify_capacity()   # a slot just opened
+
+    def _record_crash(self, exc: BaseException) -> None:
+        """Executor crash capture (runs on the dying executor thread): a
+        non-request fault escaped :meth:`_step`.  Capture it so it
+        surfaces through :attr:`failure` / :meth:`stop`, poison the
+        scheduler against late submits, and fail every request this
+        executor will now never serve, returning their blocks."""
+        with self._ctl_lock:
+            if self._failure is None:
+                self._failure = exc
+        self.scheduler.poison(exc)
+        failed = self.scheduler.drain_queue()
+        for slot, req in self.scheduler.active():
+            try:
+                self._fail_slot(slot, req, exc)
+            except Exception:  # fault-ok: crash-path cleanup is best-effort — the pool may be mid-mutation from the very fault being handled
+                self._finish_failed(req, exc)
+        for req in failed:
+            self._finish_failed(req, exc)
+
+    def _raise_failure_once(self) -> None:
+        """Surface a captured executor crash exactly once (stop() calls
+        this; a second stop() is then silent -- idempotent teardown).  A
+        stop() before any crash leaves the flag alone, so a crash after a
+        clean stop-and-restart still surfaces (the reference marks it
+        surfaced on every call, and so swallows that later crash)."""
+        with self._ctl_lock:
+            failure = self._failure
+            raised = self._failure_raised
+            if failure is not None:
+                self._failure_raised = True
+        if failure is not None and not raised:
+            raise ExecutorCrash(
+                "executor thread died mid-serve") from failure
+
+    def _sweep_deadlines(self) -> None:
+        """Fail queued and active requests whose hard deadline elapsed --
+        decoding them further would deliver tokens the caller has already
+        abandoned.  Skipped entirely for deadline-free workloads."""
+        if not self._has_deadlines:
+            return
+        now = time.monotonic()
+        for req in self.scheduler.expire_deadlines(now):
+            self._finish_failed(
+                req, DeadlineExceeded(
+                    f"request {req.rid}: deadline {req.deadline_s}s "
+                    f"elapsed while queued"))
+        for slot, req in self.scheduler.active():
+            if req.deadline_elapsed(now):
+                self._fail_slot(
+                    slot, req, DeadlineExceeded(
+                        f"request {req.rid}: deadline {req.deadline_s}s "
+                        f"elapsed after {len(req.output)} tokens"))
 
     def _bucket_len(self, n: int) -> int:
         """Smallest power-of-two multiple of block_size holding ``n``."""
@@ -737,6 +972,10 @@ class ServingEngine:
                 del self._prefix_index[key]
                 break
             shared.append(bid)
+        if self.tiered and shared:
+            # a hit refreshes demotion LRU: blocks just seeded from are
+            # the worst possible eviction victims
+            self.pool.touch(shared)
         return shared
 
     def _register_prefix(self, keys: list[bytes], req: Request) -> None:
@@ -751,6 +990,21 @@ class ServingEngine:
                 continue
             bid = req.block_ids[j]
             self._prefix_index[keys[j]] = (bid, self.pool.generation(bid))
+            if self.tiered and bid not in self._held_digests:
+                # the index itself holds the block: when its requests all
+                # leave it turns *demotable* (spill-then-free on demand)
+                # instead of vanishing into the free list
+                self.pool.hold(bid)
+                self._held_digests[bid] = keys[j]
+        if self.tiered:
+            # tiered mode un-caps the index by recency: live entries are
+            # bounded by pool capacity (each holds a distinct block) and
+            # dead ones are just tombstones -- prune those, keep the rest
+            if len(self._prefix_index) > self._prefix_cap:
+                self._prefix_index = {
+                    k: e for k, e in self._prefix_index.items()
+                    if self.pool.block_live(*e)}
+            return
         if len(self._prefix_index) > self._prefix_cap:
             # two-phase trim: stale-generation entries go first, and only
             # if that is not enough are *live* entries capped --
@@ -760,6 +1014,195 @@ class ServingEngine:
             for k in list(live)[:max(0, len(live) - self._prefix_cap)]:
                 del live[k]
             self._prefix_index = live
+
+    # -- KV tiering: host-offloaded blocks over the split-phase protocol ------
+
+    def _read_block_slices(self, bid: int) -> dict:
+        """Per-leaf *copies* of one pool block's rows, captured on the
+        executor thread before the block id can be reused.  The pools are
+        written in place, so a view would read whatever a later prefill
+        writes into the reused block; the clone is enqueued on this
+        thread's stream ahead of any such write, so stream order makes it
+        read the old rows, and the transfer worker materializes it to host
+        memory at its leisure.  Runs under the pool lock from
+        :meth:`_on_demote`: it touches no pool state."""
+        leaves = {}
+        for name in ("k", "v", "k_scale", "v_scale"):
+            arr = getattr(self._state, name, None)
+            if arr is not None:
+                leaves[name] = arr[:, bid].clone()
+        return leaves
+
+    def _write_block(self, bid: int, payload: dict) -> None:
+        """Restore one fetched block's rows into pool block ``bid``."""
+        self._write_blocks([bid], [payload])
+
+    def _write_blocks(self, bids: list[int], payloads: list[dict]) -> None:
+        """Land ``payloads[i]`` (host numpy leaves; bf16 as int16 bits)
+        into pool block ``bids[i]``, in place: one host-to-device copy and
+        one ``index_copy_`` per pool leaf, on the executor's stream (so the
+        in-flight decode step, enqueued before, reads the old rows)."""
+        if not bids:
+            return
+        idx = torch.tensor(bids, dtype=torch.long, device=self.device)
+        for name in payloads[0]:
+            arr = getattr(self._state, name)
+            host = torch.from_numpy(np.ascontiguousarray(
+                np.stack([p[name] for p in payloads], axis=1)))
+            if arr.dtype == torch.bfloat16 and host.dtype == torch.int16:
+                host = host.view(torch.bfloat16)
+            arr.index_copy_(1, idx, host.to(self.device, arr.dtype))
+
+    def _spill_block(self, bid: int, key: bytes) -> bool:
+        """Queue one block's device->host copy under ``key`` unless the
+        tier already holds (or is receiving) it; returns True if queued.
+        The copy itself runs on the offload worker, overlapped with
+        decode steps -- only the block's clone is enqueued here."""
+        host = self.pool.host
+        if key in host:
+            return False
+        t0 = time.perf_counter()
+        host.begin_store(key)           # pin: tier eviction skips pendings
+        leaves = self._read_block_slices(bid)
+        self._kv_io.submit(("spill", key, leaves),
+                           on_done=lambda item, key=key:
+                           self._spill_done(key, item))
+        self.spill_capture_s += time.perf_counter() - t0
+        self.totals.kv_spills += 1
+        self.totals.spill_bytes += sum(int(v.nbytes) for v in leaves.values())
+        return True
+
+    def _spill_done(self, key: bytes, item) -> None:
+        """Spill completion hook (transfer-worker thread): a dropped or
+        failed spill leaves a pinned pending placeholder nothing will
+        ever fill -- release it, so the tier does not leak and a later
+        fetch of the key cleanly misses into recompute."""
+        if item.result is None or isinstance(item.result, WorkError):
+            self.pool.host.drop(key)
+
+    # assumes-lock: KVBlockPool._lock
+    def _on_demote(self, ids: list[int]) -> None:
+        """Pool demotion hook (runs under the pool lock -- must not
+        re-enter the pool): an idle index-held block is about to return
+        to the free list, so its content spills to the host tier first.
+        The clone in :meth:`_read_block_slices` makes the free
+        race-safe."""
+        for bid in ids:
+            key = self._held_digests.pop(bid, None)
+            if key is not None:
+                self._spill_block(bid, key)
+
+    def _spill_victim(self, req: Request) -> None:
+        """Preemption demote-on-evict: the victim's freed history blocks
+        (prompt + generated, folded) spill keyed by the same chained
+        digests re-admission will look up -- resume then *restores* the
+        history instead of recomputing it.  Runs in the drain_preempted
+        handler, before any post-eviction prefill can write the freed
+        ids."""
+        ids, req.evicted_block_ids = req.evicted_block_ids, []
+        if not self.tiered or not ids:
+            return
+        keys = self._prefix_keys(req.prefill_tokens)
+        for j in range(min(len(keys), len(ids))):
+            ent = self._prefix_index.get(keys[j])
+            if ent is not None and self.pool.block_live(*ent):
+                continue                # still device-resident via the index
+            self._spill_block(ids[j], keys[j])
+
+    def _seed_pos(self, job: _PrefillJob) -> int:
+        """First unseeded row once fetches settle: the device-shared run
+        plus the contiguous restored run after it (a failed fetch caps
+        the run; recompute overwrites the own blocks past it)."""
+        if not self.seeded_prefill:
+            return 0
+        j = job.seed_base
+        while j in job.fetched_ok:
+            j += 1
+        return j * self.block_size
+
+    def _commit_fetch(self, job: _PrefillJob, j: int, bid: int,
+                      payload: dict) -> None:
+        """Restore logical block ``j`` of ``job`` into pool block ``bid``."""
+        t0 = time.perf_counter()
+        self._write_block(bid, payload)
+        self.fetch_commit_s += time.perf_counter() - t0
+        job.fetched_ok.add(j)
+        self.totals.kv_fetches += 1
+        self.totals.prefix_hits_host += 1
+
+    def _drain_tier(self, timeout: float | None = 0.0) -> None:
+        """Collect completed host-tier fetches and commit them into their
+        jobs' pool blocks.  Runs on the executor thread between decode
+        steps (and blocking briefly when a prefill has nothing else to
+        do).  A commit is guarded three ways: the job must still be its
+        slot's live prefill (not preempted since), the target block must
+        still be this allocation (generation tag -- the spill->free->
+        realloc->fetch race), and the payload non-None (the tier may
+        have evicted the key after the prefetch probe)."""
+        if not self.tiered:
+            return
+        while True:
+            item = self._kv_io.next_done(timeout=timeout)
+            if item is None:
+                return
+            timeout = 0.0                # only block for the first item
+            if item.seq in self._claimed:
+                self._claimed.discard(item.seq)
+                continue
+            ref = self._fetch_refs.pop(item.seq, None)
+            if ref is None:
+                # prefetch finished before its job materialized blocks:
+                # park it -- _materialize_blocks consumes it from here
+                self._staged[item.seq] = item
+                continue
+            job, j, bid, gen = ref
+            job.pending_n -= 1
+            alive = self._prefilling.get(job.slot) is job
+            result = item.result
+            if isinstance(result, WorkError):  # failed transfer = tier miss
+                result = None
+            if (result is not None and alive
+                    and self.pool.block_live(bid, gen)):
+                self._commit_fetch(job, j, bid, result)
+            if alive and job.pending_n == 0 and job.pos == -2:
+                job.pos = self._seed_pos(job)
+
+    def _discard_fetch(self, item) -> None:
+        """Drop an unused fetch item (prefetch past the seed window, or a
+        dead job's leftovers) without leaking drain-side state."""
+        if item.seq in self._staged:
+            del self._staged[item.seq]   # already popped from the done-q
+        else:
+            self._claimed.add(item.seq)  # done-q will deliver; drain drops
+
+    def drain_tier_io(self, timeout: float = 10.0) -> None:
+        """Quiesce the host-tier transfer engine: block until every
+        in-flight spill and fetch has landed (or been dropped) and the
+        drain-side staging state is empty.  Call it after a serve -- or
+        after a crash, when nobody else will ever drain -- so a leak check
+        never misreads a transient pending pin or a parked fetch as a
+        leak."""
+        if not self.tiered:
+            return
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            self._drain_tier(timeout=0.01)
+            for seq in list(self._staged):       # orphans with no live job
+                self._staged.pop(seq)
+            if (not self._fetch_refs and not self._staged
+                    and self.pool.host.pending_count == 0):
+                return
+        raise TimeoutError("host-tier IO did not quiesce within "
+                           f"{timeout}s: {self.pool.leak_report()}")
+
+    def close(self) -> None:
+        """Shut the host tier's transfer worker down (after
+        :meth:`drain_tier_io`).  The worker otherwise lives as long as the
+        process and keeps the engine -- its pools and weights -- reachable
+        through the fault hook and the tier.  Idempotent; the engine must
+        not serve tiered traffic afterwards."""
+        if self._kv_io is not None and self._kv_io._open:
+            self._kv_io.__exit__(None, None, None)
 
     def _admit_paged(self, slot: int, req: Request) -> None:
         """Queue an admitted request's cache-seeded chunked prefill (block
@@ -773,9 +1216,20 @@ class ServingEngine:
         keys = self._prefix_keys(toks) if self.prefix_sharing else []
         self._tables[slot] = 0
         self._lengths[slot] = 0
-        self._prefilling[slot] = _PrefillJob(req=req, tokens=toks, nb=nb,
-                                             keys=keys, slot=slot)
+        job = _PrefillJob(req=req, tokens=toks, nb=nb, keys=keys, slot=slot)
+        self._prefilling[slot] = job
         self.totals.prefill_tokens_total += P
+        if self.tiered and self.seeded_prefill:
+            # prefetch-at-admission: fetches for the host-resident run
+            # past the device-resident run start moving now, overlapped
+            # with everything between admission and this job's first
+            # chunk (materialization claims or re-probes them)
+            host = self.pool.host
+            ndev = len(self._lookup_prefix(keys))
+            for key in keys[ndev:]:
+                if key not in host:
+                    break
+                job.prefetch[key] = self._kv_io.submit_async(("fetch", key))
 
     def _materialize_blocks(self, job: _PrefillJob) -> None:
         """First-chunk block materialization: map shared prefix blocks
@@ -796,7 +1250,44 @@ class ServingEngine:
         req.shared_blocks = ns
         req.blocks_reserved -= job.nb       # remaining = decode-growth tail
         self.totals.prefix_lookups += len(job.keys)
-        job.pos = ns * bs if self.seeded_prefill else 0
+        job.seed_base = ns
+        if not (self.tiered and self.seeded_prefill):
+            job.pos = ns * bs if self.seeded_prefill else 0
+            return
+        # host-restorable run: own blocks past the device-shared run whose
+        # content the host tier holds -- claim the admission prefetches (or
+        # probe late for keys that demoted since), committing into the
+        # just-allocated blocks as each fetch lands
+        host = self.pool.host
+        used: set[int] = set()
+        for j in range(ns, (P - 1) // bs):
+            key = job.keys[j]
+            item = job.prefetch.get(key)
+            if item is None:
+                if key not in host:
+                    break
+                item = self._kv_io.submit_async(("fetch", key))
+                job.prefetch[key] = item
+            used.add(item.seq)
+            bid, gen = req.block_ids[j], self.pool.generation(req.block_ids[j])
+            if item.done.is_set():           # landed before materialization
+                result = item.result
+                if isinstance(result, WorkError):
+                    result = None            # failed transfer = tier miss
+                if result is None:
+                    self._discard_fetch(item)
+                    break                    # evicted since the probe: the
+                                             # seed run caps here, recompute
+                                             # overwrites the blocks past it
+                self._commit_fetch(job, j, bid, result)
+                self._discard_fetch(item)    # retire its drain-side state
+            else:
+                self._fetch_refs[item.seq] = (job, j, bid, gen)
+                job.pending_n += 1
+        for item in job.prefetch.values():   # prefetches past the run/cap
+            if item.seq not in used and item.seq not in self._fetch_refs:
+                self._discard_fetch(item)
+        job.pos = -2 if job.pending_n else self._seed_pos(job)
 
     def _advance_prefill(self, slot: int, budget: int | None = None) -> int:
         """Run one chunk of a slot's prefill straight into its pool blocks;
@@ -812,8 +1303,18 @@ class ServingEngine:
         """
         job = self._prefilling[slot]
         req = job.req
+        if self._fault("engine.prefill", rid=req.rid) == "drop":
+            raise FaultError("engine.prefill",
+                             f"dropped prefill chunk of {req.rid}")
         if job.pos == -1:
             self._materialize_blocks(job)
+        if job.pos == -2:
+            # host-tier fetches still inbound: try a non-blocking drain,
+            # then skip this slot for the step (like a mid-prefill slot)
+            # rather than stall the batch on the transfer
+            self._drain_tier(timeout=0.0)
+            if job.pos == -2:
+                return 0
         P = len(job.tokens)
         start = job.pos
         remaining = P - start
@@ -914,12 +1415,18 @@ class ServingEngine:
         prefill budget, sample one token per decoding slot (vectorized),
         advance the batched decode step.  Returns False when there was no
         work."""
+        # a raise here is a *replica* fault, not a request fault: it
+        # escapes _step, kills the executor, and exercises the crash
+        # capture path (_record_crash / failure / stop)
+        self._fault("replica.executor")
+        self._sweep_deadlines()
         admitted = self.scheduler.admit()
         # trash the tables of any slots admit() preempted *before*
         # prefilling new prompts into the freed blocks: the victim slot
         # keeps writing its (discarded) decode row to the trash block
-        for slot, _victim in self.scheduler.drain_preempted():
+        for slot, victim in self.scheduler.drain_preempted():
             self._retire_slot(slot)
+            self._spill_victim(victim)
             self._prefilling.pop(slot, None)
             if self._drafter is not None:
                 # the victim's drafter mirror dies with its target KV; a
@@ -937,36 +1444,67 @@ class ServingEngine:
                     self._spec_on.add(slot)
                 else:
                     self._spec_on.discard(slot)
-            if self.paged:
-                self._admit_paged(slot, req)
-                if self.prefill_chunk is None:
-                    # un-chunked: finish this prompt before admitting the
-                    # next, so its published prefix blocks are sharable
-                    # (and seedable) by the very next admission
-                    while slot in self._prefilling:
-                        self._advance_prefill(slot)
-            else:
-                last1, state1 = self._prefill_one(req)
-                self.totals.prefill_tokens_total += len(req.prefill_tokens)
-                self.totals.prefill_tokens_computed += \
-                    len(req.prefill_tokens)
-                self._state = _merge_slot(self._state, state1, slot)
-                self._set_last(slot, last1)
-                req.state = RequestState.DECODE
+            try:
+                if self.paged:
+                    self._admit_paged(slot, req)
+                    if self.prefill_chunk is None:
+                        # un-chunked: finish this prompt before admitting
+                        # the next, so its published prefix blocks are
+                        # sharable (and seedable) by the very next
+                        # admission; a zero advance means the job is
+                        # waiting on host-tier fetches -- block briefly on
+                        # the drain, there is nothing else to overlap
+                        # them with here
+                        while slot in self._prefilling:
+                            if self._advance_prefill(slot) == 0:
+                                self._drain_tier(timeout=0.005)
+                else:
+                    if self._fault("engine.prefill", rid=req.rid) == "drop":
+                        raise FaultError("engine.prefill",
+                                         f"dropped prefill of {req.rid}")
+                    last1, state1 = self._prefill_one(req)
+                    self.totals.prefill_tokens_total += \
+                        len(req.prefill_tokens)
+                    self.totals.prefill_tokens_computed += \
+                        len(req.prefill_tokens)
+                    self._state = _merge_slot(self._state, state1, slot)
+                    self._set_last(slot, last1)
+                    req.state = RequestState.DECODE
+            except Exception as e:  # noqa: BLE001 -- poison isolation:
+                # one request's raising prefill fails that request, not
+                # the executor (crash faults escape one level up)
+                self._fail_slot(slot, req, e)
 
         if self._prefilling:
             # chunked mode: spend at most prefill_chunk prompt tokens per
             # executor step, oldest admission first, then fall through to
             # the decode step; the remaining budget caps each chunk
+            self._drain_tier(timeout=0.0)    # commit landed fetches first
             budget = self.prefill_chunk
-            while budget >= self.block_size and self._prefilling:
-                job = next(iter(self._prefilling.values()))
-                budget -= self._advance_prefill(job.slot, budget)
+            while budget >= self.block_size:
+                # oldest admission first, skipping slots whose blocks are
+                # still inbound from the host tier (the fetch overlaps
+                # the chunks and decode steps below)
+                job = next((j for j in self._prefilling.values()
+                            if j.pos != -2), None)
+                if job is None:
+                    break
+                try:
+                    budget -= self._advance_prefill(job.slot, budget)
+                except Exception as e:  # noqa: BLE001 -- poison isolation
+                    self._fail_slot(job.slot, job.req, e)
 
         active = self.scheduler.decoding()
         if not active:
             # a prefill-only period is not a decode gap
             self._last_decode_end = None
+            if (self._prefilling
+                    and all(j.pos == -2
+                            for j in self._prefilling.values())):
+                # every job is waiting on inbound blocks and there is no
+                # decode to overlap with: block briefly on the drain
+                # instead of spinning the executor
+                self._drain_tier(timeout=0.005)
             return bool(self._prefilling)
 
         spec = [(s, r) for s, r in active if s in self._spec_on]
@@ -982,6 +1520,15 @@ class ServingEngine:
         feed = np.zeros((self.slots, 1), np.int32)
         for slot, req in active:
             tok = toks[slot]
+            try:
+                if self._fault("engine.decode", rid=req.rid) == "drop":
+                    raise FaultError("engine.decode",
+                                     f"dropped decode commit of {req.rid}")
+            except Exception as e:  # noqa: BLE001 -- poison isolation: the
+                # failed slot leaves `feed` at 0 against a trashed table,
+                # exactly like a retired speculative slot
+                self._fail_slot(slot, req, e)
+                continue
             feed[slot, 0] = tok
             if req.first_token_at is None:
                 req.first_token_at = now
@@ -1100,6 +1647,15 @@ class ServingEngine:
             logits[rows], np.array([drafts[s] for s, _ in spec]))
         now = time.monotonic()
         for (slot, req), m in zip(spec, accepted):
+            try:
+                if self._fault("engine.decode", rid=req.rid) == "drop":
+                    raise FaultError("engine.decode",
+                                     f"dropped verify commit of {req.rid}")
+            except Exception as e:  # noqa: BLE001 -- poison isolation:
+                # provisional rows already live in req.block_ids, so the
+                # slot teardown frees them with the rest of the table
+                self._fail_slot(slot, req, e)
+                continue
             commit = [pending[slot]] + drafts[slot][:int(m)]
             commit = commit[:req.max_new_tokens - len(req.output)]
             self.totals.spec_proposed += k
@@ -1156,7 +1712,14 @@ class ServingEngine:
             prefill_tokens_total=self.totals.prefill_tokens_total,
             prefill_tokens_computed=self.totals.prefill_tokens_computed,
             prefix_lookups=self.totals.prefix_lookups,
-            decode_gap_n=self._gaps_dropped + len(self.totals.decode_gaps))
+            decode_gap_n=self._gaps_dropped + len(self.totals.decode_gaps),
+            kv_spills=self.totals.kv_spills,
+            kv_fetches=self.totals.kv_fetches,
+            prefix_hits_host=self.totals.prefix_hits_host,
+            spill_bytes=self.totals.spill_bytes,
+            requests_failed=self.totals.requests_failed,
+            shed_rejections=self.totals.shed_rejections,
+            faults_injected=self.totals.faults_injected)
 
     def collect_window(self, base: WindowBase, requests: list[Request],
                        wall_s: float) -> ServeStats:
@@ -1183,8 +1746,21 @@ class ServingEngine:
                                          - base.prefill_tokens_computed)
         stats.prefix_lookups = (self.totals.prefix_lookups
                                 - base.prefix_lookups)
+        stats.kv_spills = self.totals.kv_spills - base.kv_spills
+        stats.kv_fetches = self.totals.kv_fetches - base.kv_fetches
+        stats.prefix_hits_host = (self.totals.prefix_hits_host
+                                  - base.prefix_hits_host)
+        stats.spill_bytes = self.totals.spill_bytes - base.spill_bytes
+        stats.requests_failed = (self.totals.requests_failed
+                                 - base.requests_failed)
+        stats.shed_rejections = (self.totals.shed_rejections
+                                 - base.shed_rejections)
+        stats.faults_injected = (self.totals.faults_injected
+                                 - base.faults_injected)
         if stats.prefix_lookups:
-            stats.kv_hit_rate = stats.prefix_shared_blocks / stats.prefix_lookups
+            stats.kv_hit_rate = ((stats.prefix_shared_blocks
+                                  + stats.prefix_hits_host)
+                                 / stats.prefix_lookups)
         stats.decode_gaps = list(self.totals.decode_gaps[
             max(0, base.decode_gap_n - self._gaps_dropped):])
         if self.pool is not None:
@@ -1198,9 +1774,10 @@ class ServingEngine:
 
     def serve(self, requests: list[Request]) -> ServeStats:
         """Continuous batching: admit everything, run the executor until
-        every request is DONE.  A failure escapes after poisoning the
-        scheduler, so later submits are refused instead of queueing into
-        an engine nothing drains."""
+        every request is DONE or FAILED.  A crash fails every queued and
+        active request (returning their blocks), poisons the scheduler
+        against later submits, and escapes."""
+        assert self._thread is None, "engine already running in service mode"
         for r in requests:
             self._check_fits(r)
         base = self.begin_window()
@@ -1210,7 +1787,94 @@ class ServingEngine:
         while self.scheduler.has_work():
             try:
                 self._step()
-            except BaseException as e:
-                self.scheduler.poison(e)
+            except Exception as e:  # noqa: BLE001 -- crash capture: fail
+                # every in-flight request (freeing its blocks) before the
+                # crash surfaces, so the pool stays leak-free even when
+                # the executor dies mid-batch
+                self._record_crash(e)
                 raise
         return self.collect_window(base, requests, time.monotonic() - t0)
+
+    # -- service mode ----------------------------------------------------------
+
+    def start(self) -> None:
+        """Run the executor on a thread of its own (idempotent)."""
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._service_loop,
+                                        name="serving-executor", daemon=True)
+        self._thread.start()
+
+    def _service_loop(self) -> None:
+        try:
+            while not self._stop.is_set():
+                if not self.scheduler.wait_for_work(timeout=0.02):
+                    continue
+                self._step()
+        except Exception as e:  # noqa: BLE001 -- crash capture: the
+            # executor must not die silently; record the failure, fail
+            # every in-flight request (freeing its KV blocks), and poison
+            # the scheduler so later submitters see ExecutorCrash instead
+            # of a hang.  stop()/failure re-surface the exception.
+            self._record_crash(e)
+
+    def submit(self, req: Request,
+               on_finish: Callable[[Request], None] | None = None) -> None:
+        """Thread-safe admission; ``on_finish`` fires from the executor
+        thread the moment the request is DONE or FAILED.
+
+        Raises :class:`ExecutorCrash` (chained to the original failure)
+        if the executor has died, and :class:`ShedError` when the queue
+        is already ``shed_queue_depth`` deep -- an admission there could
+        only miss its SLO, so shedding it early is the graceful
+        degradation mode."""
+        crash = self.failure
+        if crash is not None:
+            raise ExecutorCrash(
+                "executor is dead; submit refused") from crash
+        if self.shed_queue_depth is not None:
+            depth = self.scheduler.queued
+            if depth >= self.shed_queue_depth:
+                with self._ctl_lock:
+                    self.totals.shed_rejections += 1
+                raise ShedError(
+                    f"queue depth {depth} >= shed threshold "
+                    f"{self.shed_queue_depth}")
+        self._check_fits(req)
+        req.replica = self.name
+        if on_finish is not None:
+            req.on_finish = on_finish
+        self.scheduler.submit(req)
+
+    def stop(self, timeout: float = 10.0, *,
+             raise_failure: bool = True) -> None:
+        """Stop the service-mode executor thread; idempotent, safe to
+        call twice and after a crash.  Raises if a live thread does not
+        exit within ``timeout`` -- and keeps the handle, so a later
+        :meth:`start` cannot race two executors over the decode state.
+        If the executor died on a non-request fault, that crash is
+        re-raised here exactly once (``raise_failure=False`` suppresses
+        it)."""
+        thread = self._thread
+        if thread is not None:
+            self._stop.set()
+            thread.join(timeout=timeout)
+            if thread.is_alive():
+                raise RuntimeError(
+                    f"executor thread did not stop within {timeout}s; "
+                    f"handle retained -- a second start() would race two "
+                    f"executors over the decode state")
+            self._thread = None
+        if raise_failure:
+            self._raise_failure_once()
+
+    @property
+    def load(self) -> int:
+        return self.scheduler.load
+
+    def load_snapshot(self) -> LoadSnapshot:
+        """Block-aware load triple (free slots, free KV blocks, queued
+        prefill tokens) -- the raw request count in :attr:`load` hides
+        pool starvation."""
+        return self.scheduler.load_snapshot()

@@ -1,14 +1,15 @@
 r"""Continuous-batching scheduler: SLO-aware admission + fixed decode slots
-(a copy of ``repro/serving/scheduler.py`` without work stealing, deadlines
-and the disaggregated PREFILLED state).
+(a copy of ``repro/serving/scheduler.py`` without work stealing and the
+disaggregated PREFILLED state, which wait for the replica router).
 
 The paper keeps every NCS stick saturated by split-phase load/collect; the
 LM-serving analogue is keeping every *decode slot* saturated.  This module
 owns the request lifecycle
 
     QUEUED -> PREFILL -> DECODE -> DONE
-                ^___________|
-                (preemption re-queues a decode)
+                ^___________|   \___ FAILED   (poison fault, deadline
+                (preemption re-queues         or executor crash)
+                 a decode)
 
 and the slot bookkeeping: a fixed number of decode slots per replica, an
 admission queue feeding them, and thread-safe submit so a replica pull-loop
@@ -39,6 +40,12 @@ queue to be re-prefilled when space frees.  The executor learns about
 evictions via :meth:`ContinuousScheduler.drain_preempted` so it can retire
 the victim's block table before the freed blocks are reused.
 
+:meth:`ContinuousScheduler.load_snapshot` exposes the block-aware load
+triple (free slots, free KV blocks, queued prefill tokens) a placement
+layer reads instead of the raw request count; :meth:`drain_queue` and
+:meth:`expire_deadlines` hand the executor the queued requests a crash or
+an elapsed deadline fails.
+
 The scheduler is pure bookkeeping: the :class:`~repro_torch.serving.engine.
 ServingEngine` executor owns params, KV state, and the decode step.
 """
@@ -50,7 +57,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -64,6 +71,8 @@ class RequestState(Enum):
     PREFILL = "prefill"    # assigned a slot; prompt being prefilled
     DECODE = "decode"      # occupying a decode slot
     DONE = "done"          # all tokens emitted
+    FAILED = "failed"      # terminal: poison fault / deadline / executor
+    #                        crash -- req.error says which
 
 
 @dataclass
@@ -74,6 +83,7 @@ class Request:
     sampler: Sampler = field(default_factory=greedy)
     priority: int = 0               # higher serves first; preempts lower
     slo_ttft_s: float | None = None  # TTFT target; orders within a priority
+    deadline_s: float | None = None  # hard wall from submit; elapsed -> FAILED
     # filled by the scheduler/engine:
     state: RequestState = RequestState.QUEUED
     output: list = field(default_factory=list)
@@ -82,12 +92,20 @@ class Request:
     finished_at: float | None = None
     on_finish: Callable[["Request"], None] | None = None
     preempted_count: int = 0        # times evicted from a decode slot
+    error: BaseException | None = None   # set iff state is FAILED
+    replica: str | None = None      # engine that owns the request (stamped
+    #                                 at service-mode submit)
     # paged-KV bookkeeping (engine/scheduler-owned; empty when contiguous).
     # block_ids[:shared_blocks] are prefix-shared (refcounted, read-only);
     # blocks_reserved is the *remaining* unallocated reservation tail.
     block_ids: list = field(default_factory=list)
     blocks_reserved: int = 0
     shared_blocks: int = 0
+    # eviction leaves the freed ids here (block_ids is cleared) so the
+    # engine can spill the victim's still-intact rows to the host tier
+    # before any new prefill overwrites them; the engine consumes and
+    # clears it in its drain_preempted handler
+    evicted_block_ids: list = field(default_factory=list)
     arrival_seq: int | None = None  # per-scheduler heap tiebreak (private)
 
     @property
@@ -127,6 +145,45 @@ class Request:
             return None
         return ((self.finished_at - self.first_token_at)
                 / (len(self.output) - 1))
+
+    def clone(self) -> "Request":
+        """Fresh-output copy (for a retry on another replica): the same
+        prompt, budget, sampler, priority, SLO, deadline and arrival."""
+        return Request(rid=self.rid, prompt=self.prompt,
+                       max_new_tokens=self.max_new_tokens,
+                       sampler=self.sampler, priority=self.priority,
+                       slo_ttft_s=self.slo_ttft_s,
+                       deadline_s=self.deadline_s,
+                       submitted_at=self.submitted_at)
+
+    def deadline_elapsed(self, now: float) -> bool:
+        """True once the per-request hard deadline has passed (always
+        False without one or before submission)."""
+        return (self.deadline_s is not None
+                and self.submitted_at is not None
+                and now - self.submitted_at > self.deadline_s)
+
+
+class LoadSnapshot(NamedTuple):
+    """One replica's load at a glance, for placement across replicas: a
+    replica with two queued requests and no free KV blocks is worse off
+    than one with four queued and half its pool free, which the raw
+    request count hides."""
+    free_slots: int
+    free_blocks: int | None     # None for contiguous (pool-less) engines
+    queued: int                 # requests in the admission queue
+    queued_tokens: int          # prompt(+resume) tokens awaiting prefill
+    # hot vs restorable: free_blocks is immediately-free device headroom;
+    # restorable_blocks counts index-held blocks the pool can demote to
+    # the host tier on demand -- admission capacity is their sum, but a
+    # replica serving out of restorable headroom pays spill traffic
+    restorable_blocks: int | None = None
+
+    @property
+    def idle(self) -> bool:
+        """Nothing queued and at least one slot open."""
+        return self.queued == 0 and self.free_slots > 0
+
 
 class ContinuousScheduler:
     """Priority admission queue feeding a fixed set of decode slots.
@@ -227,8 +284,9 @@ class ContinuousScheduler:
     # assumes-lock: self._lock
     def _capacity_version(self) -> tuple[int, int]:
         """Changes iff admission capacity may have grown since last read:
-        scheduler events (submit / release / notify_capacity) and
-        pool headroom growth (free / unreserve).
+        scheduler events (submit / release / drain / expiry /
+        notify_capacity) and pool headroom growth (free / unreserve /
+        newly demotable).
         Capacity-*shrinking* events (reserve, alloc) are deliberately
         excluded — a cached "head does not fit" stays correct through
         them."""
@@ -318,8 +376,10 @@ class ContinuousScheduler:
         if not victims:
             return False
         # gain: a victim's block comes back to the preemptor if no other
-        # request shares it (refcount 1).  The reservation tail always
-        # returns.  Conservative when two
+        # *request* shares it -- either straight to the free list
+        # (refcount 1) or as a demotable index-held block (refcount 2
+        # with the prefix index's hold; reserve() demotes it on demand).
+        # The reservation tail always returns.  Conservative when two
         # victims share a block (counted for neither) — declining is
         # always safe, evicting-for-nothing is not.
         gain = sum(self.pool.reclaimable_count(r.block_ids)
@@ -341,6 +401,12 @@ class ContinuousScheduler:
         blocks — it learns the slot via :meth:`drain_preempted`."""
         self.slots[slot] = None
         if victim.block_ids:
+            # leave the freed ids on the victim so a tiered engine can
+            # spill their contents to the host tier before the pool
+            # re-scatters them (the engine consumes and clears this list
+            # in its drain_preempted handler, which runs before any
+            # post-eviction allocation touches the device state)
+            victim.evicted_block_ids = list(victim.block_ids)
             self.pool.free(victim.block_ids)
         if victim.blocks_reserved:
             self.pool.unreserve(victim.blocks_reserved)
@@ -360,6 +426,38 @@ class ContinuousScheduler:
         with self._lock:
             out, self._preempted = self._preempted, []
         return out
+
+    def drain_queue(self) -> list[Request]:
+        """Remove and return every still-QUEUED request -- the executor's
+        crash path reclaims work a dead replica will never serve.  Active
+        slots are *not* touched (their pool state needs the engine's
+        retirement path)."""
+        with self._lock:
+            out = [e[3] for e in self._heap]
+            self._heap = []
+            self._blocked_sig = None
+            self._event_epoch += 1
+        return out
+
+    def expire_deadlines(self, now: float) -> list[Request]:
+        """Remove and return queued requests whose hard ``deadline_s``
+        has already elapsed.  Active slots are checked by the executor
+        (which owns their pool state)."""
+        with self._lock:
+            expired = [e[3] for e in self._heap
+                       if e[3].deadline_elapsed(now)]
+            if expired:
+                dead = set(map(id, expired))
+                self._heap = [e for e in self._heap
+                              if id(e[3]) not in dead]
+                heapq.heapify(self._heap)
+                self._blocked_sig = None
+                self._event_epoch += 1
+        return expired
+
+    def active(self) -> list[tuple[int, Request]]:
+        with self._lock:
+            return [(i, r) for i, r in enumerate(self.slots) if r is not None]
 
     def decoding(self) -> list[tuple[int, Request]]:
         """Slots whose request is past prefill — the only ones the batched
@@ -395,6 +493,47 @@ class ContinuousScheduler:
             req.shared_blocks = 0
         return req
 
+    # -- introspection ---------------------------------------------------------
+
+    def load_snapshot(self) -> LoadSnapshot:
+        """Block-aware load for placement (racy by design: the executor
+        keeps running; a placement layer treats it as a hint)."""
+        with self._lock:
+            free_slots = sum(r is None for r in self.slots)
+            queued = len(self._heap)
+            queued_tokens = sum(len(e[3].prompt) + len(e[3].output)
+                                for e in self._heap)
+        free_blocks = (self.pool.free_blocks if self.pool is not None
+                       else None)
+        restorable = (self.pool.demotable_count if self.pool is not None
+                      else None)
+        return LoadSnapshot(free_slots=free_slots, free_blocks=free_blocks,
+                            queued=queued, queued_tokens=queued_tokens,
+                            restorable_blocks=restorable)
+
+    @property
+    def queued(self) -> int:
+        with self._lock:
+            return len(self._heap)
+
+    @property
+    def occupied(self) -> int:
+        with self._lock:
+            return sum(r is not None for r in self.slots)
+
+    @property
+    def load(self) -> int:
+        """Queue depth analogue for least-loaded dispatch across replicas."""
+        with self._lock:
+            return len(self._heap) + sum(r is not None for r in self.slots)
+
     def has_work(self) -> bool:
         with self._lock:
             return bool(self._heap) or any(r is not None for r in self.slots)
+
+    def wait_for_work(self, timeout: float | None = None) -> bool:
+        with self._work:
+            if self.has_work():
+                return True
+            self._work.wait(timeout)
+            return self.has_work()

@@ -6,9 +6,12 @@ fp32 and with an int8 KV pool.  The reference's int8 engine tests
 mirrored at its bf16 smoke config: greedy streams within one top-1 flip
 of the bf16 pool's, and seeded prefill equal to full recompute token for
 token.  Plus the constructor's refusals: no card and no device asked for,
-and the options this port does not carry yet (contiguous dense serving and
+the option this port does not carry yet (disaggregated roles), and the
+reference's own (a host tier without paging or without prefix sharing, a
+chunk that is not a block multiple).  Contiguous dense serving and
 speculative decoding are held in ``test_torch_contiguous.py`` and
-``test_torch_spec.py``)."""
+``test_torch_spec.py``, faults and the host tier in
+``test_torch_faults.py`` and ``test_torch_tiering.py``."""
 import dataclasses
 
 import jax
@@ -125,8 +128,8 @@ def test_engine_matches_jax_engine(weights, workload, kw):
     assert ts.prefill_tokens_computed < ts.prefill_tokens_total  # seeded
     if workload is _preempting:
         assert ts.preemptions >= 1
-    assert teng.pool.leak_report() == {"unheld_blocks": 0,
-                                       "reserved_blocks": 0}
+    assert teng.pool.leak_report() == {"unheld_blocks": 0, "held_with_extra_refs": 0,
+                                       "reserved_blocks": 0, "host_pending": 0}
     table = dispatch.kernel_table()
     assert table["paged_prefill_attention"].plain_calls > 0
     assert table["paged_decode_attention"].plain_calls > 0
@@ -197,8 +200,8 @@ def test_int8_seeded_prefill_matches_recompute_exactly():
     assert ss.prefill_tokens_total == sr.prefill_tokens_total
     assert ss.prefill_tokens_computed == ss.prefill_tokens_total - 3 * 32
     assert ss.prefix_shared_blocks == sr.prefix_shared_blocks == 12
-    assert seeded.pool.leak_report() == {"unheld_blocks": 0,
-                                         "reserved_blocks": 0}
+    assert seeded.pool.leak_report() == {"unheld_blocks": 0, "held_with_extra_refs": 0,
+                                         "reserved_blocks": 0, "host_pending": 0}
     assert seeded.pool.free_blocks == seeded.pool.capacity
 
 
@@ -227,9 +230,9 @@ def test_engine_defaults_to_the_card(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(host_blocks=4), "host KV tier"),
+    (dict(paged=False, host_blocks=4), "tier"),
     (dict(role="prefill"), "role"),
-    (dict(fault_plan=object()), "fault"),
+    (dict(prefix_sharing=False, host_blocks=4), "tier"),
     (dict(prefill_chunk=24), "multiple of block_size"),
 ])
 def test_constructor_refuses_what_is_not_ported(weights, kw, match):

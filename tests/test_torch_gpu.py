@@ -55,6 +55,10 @@ from repro_torch.serving.sampler import greedy
 
 pytestmark = pytest.mark.gpu
 
+# a drained pool's leak report
+CLEAN = {"unheld_blocks": 0, "held_with_extra_refs": 0, "reserved_blocks": 0,
+         "host_pending": 0}
+
 
 @pytest.fixture
 def cuda():
@@ -153,7 +157,7 @@ def test_engine_path_runs_the_kernels(cuda, head_dim, body):
     assert all(table[n].body_launches == {body: table[n].launches}
                for n in ("paged_decode_attention", "paged_prefill_attention"))
     assert all(len(r.output) == 5 for r in reqs)
-    assert eng.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}
+    assert eng.pool.leak_report() == CLEAN
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -852,5 +856,124 @@ def test_speculative_engine_runs_the_kernels(cuda, cache_dtype):
     assert table["paged_decode_attention"].body_launches == {mma: L * n["steps"]}
     assert all(k.plain_calls == 0 for k in table.values())
     assert all(len(r.output) == 5 for r in reqs)
-    assert eng.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}
-    assert eng._drafter.pool.leak_report() == {"unheld_blocks": 0, "reserved_blocks": 0}
+    assert eng.pool.leak_report() == CLEAN
+    assert eng._drafter.pool.leak_report() == CLEAN
+
+
+# -- phase 19: kernels off the main thread, the host tier, service mode -------
+
+def _on_a_thread(fn):
+    """Run ``fn`` on a new thread (as the service-mode executor runs the
+    kernels) and return its result, synchronised."""
+    import threading
+    out = {}
+
+    def run():
+        out["v"] = fn()
+        torch.cuda.synchronize()
+    t = threading.Thread(target=run, name="kernel-thread", daemon=True)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "v" in out
+    return out["v"]
+
+
+@pytest.mark.parametrize("name", ["paged_decode_attention", "paged_prefill_attention",
+                                  "matmul"])
+def test_kernels_launched_from_another_thread_equal_the_main_threads(cuda, name):
+    """K1, K2 (bf16, the tensor-core bodies) and K7 on wgmma (a TMA tensor
+    map encoded on that thread), launched from a thread that is not the
+    main one, give the main thread's bits, and count their launches."""
+    k = dispatch.kernel_table()[name]
+    g = torch.Generator(cuda).manual_seed(0)
+    if name == "matmul":
+        x = torch.randn((4, 2048), generator=g, device=cuda).to(torch.bfloat16)
+        y = torch.randn((2048, 256), generator=g, device=cuda).to(torch.bfloat16)
+        args, kw, body = (x, y), {}, "wgmma"
+    else:
+        _, kp, vp, tables = _pool(cuda, torch.bfloat16, B=2, H=16, K=2, D=128, mb=8)
+        if name == "paged_decode_attention":
+            q = torch.randn((2, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+            lens = torch.tensor([100, 128], dtype=torch.int32, device=cuda)
+            args = (q, kp, vp, tables, lens)
+        else:
+            q = torch.randn((2, 16, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+            qs = torch.tensor([9, 100], dtype=torch.int32, device=cuda)
+            args = (q, kp, vp, tables, qs, qs + 16)
+        kw, body = {}, "mma"
+    k.reset_counts()
+    main = k.launch(*args, **kw)
+    torch.cuda.synchronize()
+    other = _on_a_thread(lambda: k.launch(*args, **kw))
+    assert main.dtype == other.dtype and torch.equal(main.view(torch.int16),
+                                                     other.view(torch.int16))
+    assert k.body_launches == {body: 2}
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_full_width_block_spill_and_restore_is_bit_identical(cuda, cache_dtype):
+    """A pool block at qwen2.5-3b's full width (36 layers, 2 kv heads of
+    128, block 16), spilled through ``KVBlockTarget`` on its worker thread
+    (bf16 as int16 bits; int8 with both scale leaves) and restored into
+    another block, is bit-identical -- and the capture is a copy: the
+    source block is overwritten before the worker runs."""
+    from repro_torch.core.offload import KVBlockTarget, OffloadEngine
+    from repro_torch.serving.kv_pool import HostTier
+    cfg = TR.config("qwen2.5-3b")
+    state = fns_for(cfg).init_paged_state(cfg, 8, 16, 1, 4, cache_dtype, device=cuda)
+    g = torch.Generator(cuda).manual_seed(0)
+    for t in state[:4 if cache_dtype == "int8" else 2]:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=cuda))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    eng = ServingEngine.__new__(ServingEngine)   # the tier methods alone
+    eng._state, eng.device = state, cuda
+    names = ("k", "v", "k_scale", "v_scale") if cache_dtype == "int8" else ("k", "v")
+    before = {n: getattr(state, n)[:, 3].clone() for n in names}
+    leaves = eng._read_block_slices(3)
+    for n in names:
+        getattr(state, n)[:, 3] = getattr(state, n)[:, 4]     # reuse of the block
+    tier = HostTier(4)
+    with OffloadEngine([KVBlockTarget(tier)]) as io:
+        tier.begin_store(b"blk")
+        io.submit(("spill", b"blk", leaves))
+        item = io.submit_async(("fetch", b"blk"))
+        assert io.next_done(timeout=60) is item
+    eng._write_blocks([5], [item.result])
+    torch.cuda.synchronize()
+    for n in names:
+        got = getattr(state, n)[:, 5]
+        assert got.dtype == before[n].dtype
+        assert torch.equal(got.contiguous().view(torch.uint8),
+                           before[n].contiguous().view(torch.uint8)), n
+
+
+def test_service_mode_serves_on_the_card(cuda):
+    """start / submit / stop on the card: 2 requests DONE, both paged
+    kernels launched (from the executor thread), the pool leak-free."""
+    import threading
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=64)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=64, batch_slots=2, prefill_chunk=16,
+                        host_blocks=8)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 20 + 9 * i).astype(np.int32),
+                    max_new_tokens=5, sampler=greedy()) for i in range(2)]
+    done = threading.Semaphore(0)
+    dispatch.reset_counts()
+    eng.start()
+    try:
+        for r in reqs:
+            eng.submit(r, on_finish=lambda r: done.release())
+        for _ in reqs:
+            assert done.acquire(timeout=120)
+    finally:
+        eng.stop()
+    table = dispatch.kernel_table()
+    assert all(table[n].body_launches == {"mma": table[n].launches} and table[n].launches
+               for n in ("paged_decode_attention", "paged_prefill_attention"))
+    assert all(r.state.value == "done" and len(r.output) == 5 for r in reqs)
+    eng.drain_tier_io()
+    assert eng.pool.leak_report() == CLEAN
+    eng.close()

@@ -50,7 +50,8 @@ from repro_torch.serving import scheduler as TSch
 
 torch.set_num_threads(1)
 
-CLEAN = {"unheld_blocks": 0, "reserved_blocks": 0}
+CLEAN = {"unheld_blocks": 0, "held_with_extra_refs": 0, "reserved_blocks": 0,
+         "host_pending": 0}
 SPEC_COUNTERS = ("verify_steps", "decode_steps", "spec_proposed",
                  "spec_accepted", "accept_rate", "tokens", "prefills",
                  "prefill_compiles", "kv_blocks_peak", "preemptions")
@@ -121,7 +122,7 @@ def test_release_provisional_matches_reference():
     for pool in (tp, jp):
         pool.release_provisional(ids[2:])
     assert _pool_state(tp, n) == _pool_state(jp, n)
-    assert tp.leak_report() == {"unheld_blocks": 2, "reserved_blocks": 4}
+    assert tp.leak_report() == dict(CLEAN, unheld_blocks=2, reserved_blocks=4)
     assert (jp.used_blocks, jp.reserved_blocks) == (2, 4)
     # the released blocks are handed out again, generations as before
     assert [p.alloc_reserved(2) for p in (tp, jp)] == [ids[2:][::-1]] * 2
