@@ -216,6 +216,35 @@ Phases (each one raises on failure; the script then exits non-zero):
    The gate, at depth 2 in fp32 through the kernels: 19a tiered tokens
    equal untiered (and the exact counts), 19b's DONE requests equal the
    no-fault run's, 19c's tokens equal blocking ``serve``'s.
+20. The replica router, disaggregated prefill/decode and wave mode, on
+   19's weights: fleets of two phase-4 engines on the one card, each
+   with its own executor thread, behind ``ReplicaRouter``, on phase 4's
+   requests; every fleet run's launches held exactly by body from the
+   engines' own calls (K2 36 a prefill chunk, K1 36 a decode step, K7 by
+   body), no plain call inside it (the plain versions are switched
+   process-wide, so a comparison never wraps a running fleet), every
+   model call on an executor thread.  20a: affinity and stealing on;
+   ``FLEET_AFFINITY`` exactly; tok/s, TTFT, TPOT, steals, a profiled
+   window's busy share and peak memory beside phase 4's and beside one of
+   the engines behind a one-replica router (one executor thread).  20b:
+   ``prefill,decode`` on a bf16 and an int8 pool: 8 migrations of
+   ``FLEET_MIGRATED_BLOCKS`` blocks and their bytes, no prompt token
+   computed on the decode replica and no decode step on the prefill
+   replica, every adopted block bit for bit its handoff clone (int8 with
+   both scales), leak-free pools after ``drain_migrations``; the
+   migration worker's copy time a block and the adopting executor's host
+   time an adoption.  20c: the mixed fleet under ``FLEET_CRASH`` (one
+   replica DEAD, no request failed, retries, all DONE, the survivor
+   leak-free) and the disaggregated one under ``FLEET_DROP`` (one
+   migration failure, that request retried once from its bare prompt --
+   on the decode replica, as the reference's retry prefers a replica
+   other than the one charged -- and DONE, 7 adoptions).  20d:
+   ``serve_wave``, 8 prompts of 512 in 2 waves of 4: K4 72, K3 2232, all
+   ``mma``, no K1 / K2; TTFT and TPOT beside phase 17's.
+   The gate, at depth 2 in fp32: the fleets' tokens (fp32 and int8
+   pools, both fault runs) equal a single engine's on the same pool;
+   wave mode's equal the contiguous engine's on bf16 caches (the waves
+   keep bf16 caches whatever ``cache_dtype`` says, as the reference's).
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -226,11 +255,11 @@ The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernel table (``{"kernels": [...]}``), with K1's
 and K2's int8 bodies as entries of their own (``...:int8``: their
-launches from phases 4b and 19a's int8 run, no library call).  Each
-entry's ``launches`` sums the served and trained paths that ran it: K1
-and K2 phases 4, 18, 19a (tiered and untiered) and 19c, K3 and K4 phases
-10 and 17, K5 phase 10, K6 phase 8, K7 phases 4, 4b, 10, 15, 17, 18, 19a
-and 19c.
+launches from phases 4b, 19a's and 20b's int8 runs, no library call).
+Each entry's ``launches`` sums the served and trained paths that ran it:
+K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
+K3 and K4 phases 10, 17 and 20d, K5 phase 10, K6 phase 8, K7 phases 4, 4b,
+10, 15, 17, 18, 19a, 19c and 20a-d.
 """
 from __future__ import annotations
 
@@ -277,6 +306,17 @@ TIER_COMPUTED = {True: 3 * 576 + 4 * 1024 + 3 * TIER_TAIL,     # tiered
 # a spilled block: 36 layers x 16 rows x 2 kv heads x 128 of K and of V
 # (bf16: 2 B; int8: 1 B and an fp32 scale a row and head)
 TIER_BLOCK_BYTES = {"bfloat16": 589_824, "int8": 304_128}
+# Phase 20 on phase 4's engine (4 slots, 256-token chunks, max_len 1056)
+# and requests.  Affinity: requests 2, 4 and 6 follow request 0's 16
+# shared 256-token blocks (3 hits, 48 blocks).  Migration: every prompt's
+# blocks, ceil(P / 16) summed over the 8 prompts, each TIER_BLOCK_BYTES.
+FLEET_AFFINITY = {"affinity_hits": 3, "affinity_blocks": 48}
+FLEET_MIGRATED_BLOCKS = sum(-(-n // 16) for n in (1024, 300, 768, 512, 640, 256, 900, 400))
+FLEET_CRASH = "replica.executor:raise:4"      # 20c: one replica of the fleet dies
+FLEET_DROP = "kv.migrate:drop:1"              # 20c: the second migration is lost
+# 20d: serve_wave, 8 prompts of one length in 2 waves of 4; a wave decodes
+# its 32 tokens in 31 steps (the first comes from the prefill)
+WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 8, 512, 32
 # 19b: a plan that fires every request-level and transfer site
 FAULT_PLAN = ("kv.spill:drop:1:2,kv.fetch:drop:1:2,engine.decode:raise:40:1,"
               "engine.prefill:raise:3:1")
@@ -2343,7 +2383,7 @@ def contiguous_serving_phase(torch, np, table, baseline) -> dict:
     all on the tensor-core bodies; K7 by body; no other kernel and no plain
     call.  Printed beside phase 4's (``baseline``): tok/s, TTFT, TPOT,
     tok/s/W, the caches' bytes against the paged pool's, greedy tokens (not
-    gated).  Returns the launches by kernel."""
+    gated).  Returns the launches by kernel and the run's stats."""
     from repro_torch.configs import registry as arch_registry
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import card_name_and_power_limit
@@ -2411,7 +2451,7 @@ def contiguous_serving_phase(torch, np, table, baseline) -> dict:
     del eng, state
     gc.collect()
     torch.cuda.empty_cache()
-    return {n: sum(b.values()) for n, b in bodies.items()}
+    return {n: sum(b.values()) for n, b in bodies.items()}, stats
 
 
 def contiguous_int8_check(torch, np):
@@ -3329,6 +3369,516 @@ def tier_gate(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The replica router, disaggregated prefill/decode and wave mode (phase 20)
+# ---------------------------------------------------------------------------
+
+
+def fleet_engines(ServingEngine, cfg, params, roles, cache_dtype="bfloat16", plan=None):
+    """Phase 4's engine once per role, named ``replica{i}``, one fault plan
+    shared by all (so a count in it counts across the fleet)."""
+    return [ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                          cache_dtype=cache_dtype, name=f"replica{i}", role=role,
+                          fault_plan=plan, device="cuda")
+            for i, role in enumerate(roles)]
+
+
+def warm(np, engines, Request, greedy) -> None:
+    """One short blocking request on each engine (as phase 4's warm-up),
+    before a router installs its hooks."""
+    for eng in engines:
+        eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                           sampler=greedy())])
+
+
+def serve_fleet(torch, router, reqs) -> dict:
+    """``router.serve(reqs)`` with the kernels' counts zeroed just before and
+    read just after; each engine's prefill chunks and decode calls counted
+    (with the threads that made them) and its stats window collected."""
+    from repro_torch.kernels import dispatch
+
+    engines = router.replicas
+    counters = [(CallCounter(e, "_prefill_paged"), CallCounter(e, "_decode")) for e in engines]
+    bases = [e.begin_window() for e in engines]
+    dispatch.reset_counts()
+    t0 = time.monotonic()
+    stats = router.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    bodies, plain = launched_bodies(dispatch.kernel_table())
+    for chunks, steps in counters:
+        chunks.restore()
+        steps.restore()
+    windows = [e.collect_window(b, [], wall) for e, b in zip(engines, bases)]
+    return {"stats": stats, "bodies": bodies, "plain": plain, "wall": wall,
+            "chunks": [c.n for c, _ in counters], "decodes": [d.n for _, d in counters],
+            "threads": set().union(*(c.threads | d.threads for c, d in counters)),
+            "windows": windows, "outputs": [list(r.output) for r in reqs]}
+
+
+def fleet_bodies(cfg, run, mma) -> dict:
+    """The launches by body a fleet run must show: K2 one a layer of each
+    prefill chunk and K1 one a layer of each decode step, of every engine;
+    K7 the blocks' products of every model call on wgmma, the LM head on
+    FMA."""
+    L = cfg.num_layers
+    chunks, steps = sum(run["chunks"]), sum(w.decode_steps for w in run["windows"])
+    want = {"matmul": {"wgmma": L * QWEN_PRODUCTS * (chunks + steps), "fma": chunks + steps}}
+    if chunks:
+        want["paged_prefill_attention"] = {mma: L * chunks}
+    if steps:
+        want["paged_decode_attention"] = {mma: L * steps}
+    return want
+
+
+def check_fleet(cfg, run, mma, tag) -> None:
+    """Gates every fleet run shares: launches exact by body from the
+    engines' own calls (each decode call a decode step), no plain call,
+    every model call on an executor thread, every request DONE with 32
+    tokens."""
+    want = fleet_bodies(cfg, run, mma)
+    steps = [w.decode_steps for w in run["windows"]]
+    if run["bodies"] != want or run["plain"] or run["decodes"] != steps:
+        raise AssertionError(f"{tag}: launches by body {run['bodies']}, expected {want}; plain "
+                             f"calls {run['plain']}; decode calls {run['decodes']}, steps {steps}")
+    if not run["threads"] or threading.get_ident() in run["threads"]:
+        raise AssertionError(f"{tag}: model calls on threads {run['threads']}, the main "
+                             f"thread is {threading.get_ident()}")
+    bad = [i for i, o in enumerate(run["outputs"]) if len(o) != 32]
+    states = set(run["states"])
+    if bad or states != {"done"}:
+        raise AssertionError(f"{tag}: requests {bad} did not finish ({states})")
+
+
+def fleet_profile(torch, np, router, Request, greedy) -> str:
+    """The device's busy share of a short fleet window (2 requests of 512
+    tokens, 8 new), under torch.profiler: every kernel of both executors
+    (one stream, so kernels do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(20)
+    reqs = [Request(300 + i, rng.integers(0, router.replicas[0].cfg.vocab_size, size=512)
+                    .astype(np.int32), max_new_tokens=8, sampler=greedy()) for i in range(2)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        router.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    return (f"profiled window (2 requests of 512 tokens, 8 new): wall={wall:.3f}s "
+            f"device_busy={busy:.3f}s busy_share={busy / wall:.3f} "
+            f"({sum(r[1] for r in rows)} kernel launches in the trace)")
+
+
+def mixed_fleet_phase(torch, np, cfg, params, baseline) -> tuple:
+    """Phase 20a: two phase-4 engines behind ``ReplicaRouter`` (affinity and
+    stealing on) on phase 4's requests, then the same requests on one of
+    the engines behind a one-replica router.  Gated: every request DONE, 256
+    tokens delivered; ``FLEET_AFFINITY`` exactly; K1 / K2 / K7 launches
+    exact by body from both engines' calls, no plain call, model calls on
+    the two executor threads only; both pools leak-free.  Printed beside
+    phase 4's and the one-replica router's: tok/s, TTFT, TPOT, steals,
+    the busy share of a profiled window, peak memory; greedy tokens equal
+    to phase 4's (not gated).
+    Returns (the launches by kernel, the two engines)."""
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    torch.cuda.reset_peak_memory_stats()
+    engines = fleet_engines(ServingEngine, cfg, params, ("mixed", "mixed"))
+    warm(np, engines, Request, greedy)
+    router = ReplicaRouter(engines)
+    reqs = serving_requests(cfg, np, Request, greedy)
+    run = serve_fleet(torch, router, reqs)
+    run["states"] = [r.state.value for r in reqs]
+    check_fleet(cfg, run, "mma", "20a")
+    stats = run["stats"]
+    placed = {"affinity_hits": router.stats.affinity_hits,
+              "affinity_blocks": router.stats.affinity_blocks}
+    if placed != FLEET_AFFINITY or stats.tokens != 256 or len(run["threads"]) != 2:
+        raise AssertionError(f"20a: placement {placed}, expected {FLEET_AFFINITY}; "
+                             f"{stats.tokens} tokens delivered; model calls on "
+                             f"{len(run['threads'])} threads")
+    leaks = [leak_free(e, f"20a replica{i}") for i, e in enumerate(engines)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = fleet_profile(torch, np, router, Request, greedy)
+    router.close()
+    # the same requests on one of the engines behind a one-replica router:
+    # service mode and the router's threads, but one executor thread
+    alone = ReplicaRouter(engines[:1])
+    one = alone.serve(serving_requests(cfg, np, Request, greedy))
+    torch.cuda.synchronize()
+    alone.close()
+    base = baseline["stats"]
+    w = run["windows"]
+    log(f"20a mixed fleet (2 replicas on one card, affinity and stealing on): "
+        f"requests={stats.requests} tokens={stats.tokens} wall={stats.wall_s:.3f}s "
+        f"{serving_summary(stats)} tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit "
+        f"{watts:.0f} W for the card ({card}); steals={stats.router_steals} "
+        f"affinity_hits={placed['affinity_hits']} affinity_blocks={placed['affinity_blocks']}; "
+        f"per replica: prefill chunks {run['chunks']}, decode steps "
+        f"{[x.decode_steps for x in w]}, prompt tokens computed "
+        f"{[x.prefill_tokens_computed for x in w]} of {[x.prefill_tokens_total for x in w]}; "
+        f"max_memory_allocated={peak:.2f}GiB (the fp32 weights, two bf16 cast copies, two "
+        f"pools); leaks={leaks}")
+    log(f"20a: launches by body {run['bodies']} from {len(run['threads'])} executor threads, "
+        f"plain calls 0; {prof}")
+    log(f"20a: one engine behind a one-replica router (one executor thread), the same "
+        f"requests: {serving_summary(one)}; fleet / that tok/s "
+        f"{stats.tokens_per_s / one.tokens_per_s:.3f}x")
+    log(f"20a: phase 4 (one engine, blocking serve, the same requests) {serving_summary(base)}; "
+        f"fleet / phase 4 tok/s {stats.tokens_per_s / base.tokens_per_s:.3f}x; greedy tokens "
+        f"equal to phase 4's in {sum(a == b for a, b in zip(run['outputs'], baseline['outputs']))}"
+        f" of {len(reqs)} requests (printed; gated at depth 2 in fp32)")
+    return {n: sum(b.values()) for n, b in run["bodies"].items()}, engines
+
+
+class HandoffRecorder:
+    """Keeps the clones a prefill replica's handoffs take (the leaves the
+    migration worker copies) by request, and the rows the decode replica
+    landed for each adoption (gathered on its stream right after the
+    write), to hold the two against each other after the run."""
+
+    def __init__(self, pre, dec):
+        self.clones: dict = {}
+        self.landed: dict = {}
+        self._pre, self._dec = pre, dec
+        self._read, self._handoff = pre._read_block_slices, pre._handoff
+        self._adopt = dec._adopt_slot
+        self._taking = None
+        pre._read_block_slices, pre._handoff = self.read, self.handoff
+        dec._adopt_slot = self.adopt
+
+    def read(self, bid):
+        leaves = self._read(bid)
+        if self._taking is not None:
+            self._taking.append(leaves)
+        return leaves
+
+    def handoff(self, slot, job, req, last1):
+        self._taking = self.clones.setdefault(req.rid, [])
+        self._taking.clear()
+        try:
+            return self._handoff(slot, job, req, last1)
+        finally:
+            self._taking = None
+
+    def adopt(self, slot, req, adoption):
+        self._adopt(slot, req, adoption)
+        n = len(adoption.blocks)
+        ids = req.block_ids[:n]
+        self.landed[req.rid] = {name: getattr(self._dec._state, name)[:, ids]
+                                for name in adoption.blocks[0]}
+
+    def restore(self) -> None:
+        self._pre._read_block_slices, self._pre._handoff = self._read, self._handoff
+        self._dec._adopt_slot = self._adopt
+
+    def check(self, torch, tag) -> tuple[int, int]:
+        """Every landed block equals bit for bit its handoff clone, leaf by
+        leaf.  Returns (blocks held, bytes the clones hold)."""
+        n = nbytes = 0
+        if sorted(self.landed) != sorted(self.clones):
+            raise AssertionError(f"{tag}: adopted {sorted(self.landed)}, handed off "
+                                 f"{sorted(self.clones)}")
+        for rid, clones in self.clones.items():
+            for i, want in enumerate(clones):
+                for name, t in want.items():
+                    if not torch.equal(bits(torch, self.landed[rid][name][:, i]),
+                                       bits(torch, t)):
+                        raise AssertionError(f"{tag}: request {rid}: adopted block {i}'s "
+                                             f"{name} differs from its handoff clone")
+                    nbytes += t.numel() * t.element_size()
+                n += 1
+        return n, nbytes
+
+
+def disagg_phase(torch, np, cfg, params) -> tuple:
+    """Phase 20b: a ``prefill,decode`` fleet of phase-4 engines on phase 4's
+    requests, on a bf16 pool and again on an int8 pool.  Gated: 8
+    migrations of ``FLEET_MIGRATED_BLOCKS`` blocks and their bytes
+    (``TIER_BLOCK_BYTES`` a block); the decode replica computes no prompt
+    token and makes no prefill chunk, the prefill replica makes no decode
+    step; K1 (``mma`` / ``mma_i8``) 36 a decode step of the decode
+    replica, K2 36 a prefill chunk of the prefill replica, K7 by body;
+    every adopted block bit for bit its handoff clone (int8 with both
+    scales); after ``drain_migrations`` both pools leak-free (no export
+    pin left).  Printed: the migration worker's device-to-host ms a block,
+    the adopting executor's host ms an adoption, TTFT (the first token at
+    handoff), TPOT.  Returns (launches by kernel, the bf16 fleet's
+    engines)."""
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    launches, keep = {}, None
+    for cache_dtype in ("bfloat16", "int8"):
+        int8 = cache_dtype == "int8"
+        tag = f"20b disaggregated {'int8' if int8 else 'bf16'}"
+        engines = fleet_engines(ServingEngine, cfg, params, ("prefill", "decode"), cache_dtype)
+        pre, dec = engines
+        warm(np, engines, Request, greedy)
+        router = ReplicaRouter(engines)
+        rec = HandoffRecorder(pre, dec)
+        reqs = serving_requests(cfg, np, Request, greedy)
+        run = serve_fleet(torch, router, reqs)
+        rec.restore()
+        run["states"] = [r.state.value for r in reqs]
+        check_fleet(cfg, run, "mma_i8" if int8 else "mma", tag)
+        wp, wd = run["windows"]
+        blocks, nbytes = rec.check(torch, tag)
+        target = router._mig_io.targets[0]
+        got = {"kv_migrations": wd.kv_migrations, "migrated_blocks": wd.migrated_blocks,
+               "migrated_bytes": nbytes, "held_blocks": blocks, "worker_blocks": target.copies,
+               "decode_computed": wd.prefill_tokens_computed, "decode_chunks": run["chunks"][1],
+               "prefill_decode_steps": wp.decode_steps,
+               "migrations": router.stats.migrations,
+               "migration_failures": router.stats.migration_failures}
+        expect = {"kv_migrations": 8, "migrated_blocks": FLEET_MIGRATED_BLOCKS,
+                  "migrated_bytes": FLEET_MIGRATED_BLOCKS * TIER_BLOCK_BYTES[cache_dtype],
+                  "held_blocks": FLEET_MIGRATED_BLOCKS, "worker_blocks": FLEET_MIGRATED_BLOCKS,
+                  "decode_computed": 0, "decode_chunks": 0, "prefill_decode_steps": 0,
+                  "migrations": 8, "migration_failures": 0}
+        if got != expect:
+            raise AssertionError(f"{tag}: {got}, expected {expect}")
+        leaks = [leak_free(e, f"{tag} {e.role}") for e in engines]
+        stats = run["stats"]
+        log(f"{tag}: requests={stats.requests} tokens={stats.tokens} wall={stats.wall_s:.3f}s "
+            f"{serving_summary(stats)} tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit "
+            f"{watts:.0f} W for the card ({card}); migrations={wd.kv_migrations} "
+            f"migrated_blocks={wd.migrated_blocks} migrated_bytes={nbytes} "
+            f"({nbytes // blocks} B a block); prefill replica: {run['chunks'][0]} chunks, "
+            f"{wp.prefill_tokens_computed} of {wp.prefill_tokens_total} prompt tokens computed; "
+            f"decode replica: {wd.decode_steps} decode steps, 0 prompt tokens computed; "
+            f"{blocks} adopted blocks equal bit for bit to their handoff clones; migration "
+            f"worker {target.copy_s / target.copies * 1e3:.4f} ms a block device to host "
+            f"(stream wait included); adopting executor {dec.adopt_commit_s / 8 * 1e3:.3f} ms "
+            f"of host an adoption (one batched host-to-device write, {blocks / 8:.1f} blocks "
+            f"on average); launches by body {run['bodies']}; leaks={leaks}")
+        key = ":int8" if int8 else ""
+        for name, b in run["bodies"].items():
+            k = name if name == "matmul" else f"{name}{key}"
+            launches[k] = launches.get(k, 0) + sum(b.values())
+        if int8:
+            router.close()
+            close(torch, *engines)
+            del engines, pre, dec, rec
+        else:
+            router.close()
+            keep = engines
+            del rec
+    return launches, keep
+
+
+def fleet_fault_phase(torch, np, cfg, mixed, disagg) -> dict:
+    """Phase 20c, on 20a's and 20b's bf16 engines.  The mixed fleet under
+    ``FLEET_CRASH`` (one plan, shared) with ``max_retries=2``: one replica
+    DEAD, ``replica_failures == 1``, no request FAILED, at least one
+    retried, every request DONE, the survivor's pool leak-free.  The
+    disaggregated fleet under ``FLEET_DROP``: one migration failure, that
+    request (request 1, the second handoff) retried once from its bare
+    prompt on the decode replica and DONE there, 7 adoptions, both pools
+    leak-free.  Launches exact by body in both.
+    Returns the launches."""
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.router import ReplicaHealth, ReplicaRouter
+    from repro_torch.serving.sampler import greedy
+
+    launches = {}
+    plan = FaultPlan.parse(FLEET_CRASH)
+    for e in mixed:
+        e.fault_plan = plan
+    router = ReplicaRouter(mixed, max_retries=2)
+    reqs = serving_requests(cfg, np, Request, greedy)
+    run = serve_fleet(torch, router, reqs)
+    run["states"] = [r.state.value for r in reqs]
+    health = router.health()
+    router.close()
+    stats = run["stats"]
+    dead = [i for i, h in enumerate(health) if h is ReplicaHealth.DEAD]
+    got = (stats.replica_failures, len(dead), stats.requests_failed, plan.fired)
+    if got != (1, 1, 0, 1) or stats.requests_retried < 1:
+        raise AssertionError(f"20c crash: replica_failures, dead, requests_failed, fired {got}; "
+                             f"retried {stats.requests_retried}")
+    check_fleet(cfg, run, "mma", "20c crash")
+    survivor = mixed[1 - dead[0]]
+    leaks = leak_free(survivor, "20c crash survivor")
+    log(f"20c crash ({FLEET_CRASH}, max_retries=2): replica{dead[0]} DEAD ({health}), "
+        f"replica_failures={stats.replica_failures} requests_failed={stats.requests_failed} "
+        f"requests_retried={stats.requests_retried}; all {len(reqs)} requests DONE with 32 "
+        f"tokens; {serving_summary(stats)}; the survivor's pool leaks={leaks}, the dead "
+        f"replica's {mixed[dead[0]].pool.leak_report()}; launches by body {run['bodies']}")
+    for name, b in run["bodies"].items():
+        launches[name] = launches.get(name, 0) + sum(b.values())
+    plan = FaultPlan.parse(FLEET_DROP)
+    for e in disagg:
+        e.fault_plan = plan
+    router = ReplicaRouter(disagg, max_retries=2)
+    reqs = serving_requests(cfg, np, Request, greedy)
+    run = serve_fleet(torch, router, reqs)
+    run["states"] = [r.state.value for r in reqs]
+    failures = router.stats.migration_failures
+    router.close()
+    stats = run["stats"]
+    wd = run["windows"][1]
+    got = (failures, stats.requests_retried, stats.requests_failed, wd.kv_migrations,
+           wd.prefill_tokens_computed, plan.fired)
+    # the second handoff is request 1's (300 tokens; the prefill replica
+    # finishes prompts in arrival order); its failure is charged to the
+    # prefill replica, so the retry prefers the other one, the decode
+    # replica, which serves it whole (roles are policy, as the reference's)
+    if got != (1, 1, 0, 7, 300, 1):
+        raise AssertionError(f"20c drop: migration_failures, retried, failed, adoptions, decode "
+                             f"replica's computed tokens, fired {got}")
+    check_fleet(cfg, run, "mma", "20c drop")
+    leaks = [leak_free(e, f"20c drop {e.role}") for e in disagg]
+    log(f"20c drop ({FLEET_DROP}): migration_failures={failures}, the request retried from "
+        f"its bare prompt once (on the decode replica, which computed its "
+        f"{wd.prefill_tokens_computed} prompt tokens) and DONE; {wd.kv_migrations} adoptions "
+        f"of {wd.migrated_blocks} blocks; prefill replica computed "
+        f"{run['windows'][0].prefill_tokens_computed} prompt tokens; {serving_summary(stats)}; "
+        f"leaks={leaks}; launches by body {run['bodies']}")
+    for name, b in run["bodies"].items():
+        launches[name] = launches.get(name, 0) + sum(b.values())
+    return launches
+
+
+def wave_requests(cfg, np, Request, greedy):
+    rng = np.random.default_rng(20)
+    return [Request(i, rng.integers(0, cfg.vocab_size, WAVE_PROMPT).astype(np.int32),
+                    max_new_tokens=WAVE_NEW, sampler=greedy()) for i in range(WAVE_REQUESTS)]
+
+
+def wave_phase(torch, np, cfg, params, contiguous) -> dict:
+    """Phase 20d: ``serve_wave`` on one phase-4 engine, 8 requests of 512
+    tokens in 2 waves of 4, 32 new each.  Gated: 2 prefills and 62 decode
+    steps; K4 36 a wave (72), K3 36 a decode step (2232), all ``mma``; K7
+    by body; no K1 / K2 launch and no plain call.  Printed: TTFT, TPOT
+    beside phase 17's (``contiguous``: contiguous continuous batching of
+    phase 4's requests).  Returns the launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        device="cuda")
+    reqs = wave_requests(cfg, np, Request, greedy)
+    dispatch.reset_counts()
+    stats = eng.serve_wave(reqs)
+    torch.cuda.synchronize()
+    bodies, plain = launched_bodies(dispatch.kernel_table())
+    L, calls = cfg.num_layers, stats.prefills + stats.decode_steps
+    waves = WAVE_REQUESTS // 4
+    want = {"flash_attention": {"mma": L * waves},
+            "decode_attention": {"mma": L * waves * (WAVE_NEW - 1)},
+            "matmul": {"wgmma": L * QWEN_PRODUCTS * calls, "fma": calls}}
+    if (stats.prefills, stats.decode_steps) != (waves, waves * (WAVE_NEW - 1)) \
+            or bodies != want or plain:
+        raise AssertionError(f"20d: prefills {stats.prefills}, decode steps "
+                             f"{stats.decode_steps}; launches by body {bodies}, expected "
+                             f"{want}; plain calls {plain}")
+    if any(r.state.value != "done" or len(r.output) != WAVE_NEW for r in reqs):
+        raise AssertionError("20d: a request did not finish")
+    log(f"20d wave mode ({WAVE_REQUESTS} requests of {WAVE_PROMPT} tokens, {waves} waves of "
+        f"4, {WAVE_NEW} new): requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s {serving_summary(stats)} "
+        f"occupancy={stats.slot_occupancy:.2f} tok/s/W={stats.tokens_per_s / watts:.4f} at "
+        f"power.limit {watts:.0f} W ({card}); launches by body {bodies}, no K1 / K2")
+    log(f"20d: phase 17 (contiguous continuous batching, phase 4's requests) "
+        f"{serving_summary(contiguous)}")
+    close(torch, eng)
+    return {n: sum(b.values()) for n, b in bodies.items()}
+
+
+def fleet_gate(torch, np) -> None:
+    """Phase 20's gate at depth 2 in fp32 through the kernels (FMA bodies):
+    the greedy tokens of the mixed fleet, the disaggregated fleet on an
+    fp32 and an int8 pool, every request of both fault runs (the retried
+    ones included) and wave mode each equal a blocking single-engine
+    ``serve`` of the same requests: phase 4's engine on the same pool for
+    the fleets; for the waves, which keep their caches in bf16 whatever
+    ``cache_dtype`` says, the contiguous engine on bf16 caches.  On a
+    mismatch the first differing step and its logit margins are
+    printed."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.sampler import greedy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32", num_layers=2)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    prompts = [r.prompt for r in serving_requests(cfg, np, Request, greedy)]
+
+    def single(cache_dtype, reqs=None, paged=True):
+        reqs = reqs or serving_requests(cfg, np, Request, greedy)
+        eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, paged=paged,
+                            prefill_chunk=256 if paged else None, cache_dtype=cache_dtype,
+                            device="cuda")
+        eng.serve(reqs)
+        if paged:
+            leak_free(eng, f"20 gate single engine {cache_dtype}")
+        close(torch, eng)
+        return [list(r.output) for r in reqs]
+
+    def fleet(label, roles, cache_dtype, plan=None):
+        engines = fleet_engines(ServingEngine, cfg, params, roles, cache_dtype, plan)
+        router = ReplicaRouter(engines, max_retries=2)
+        reqs = serving_requests(cfg, np, Request, greedy)
+        stats = router.serve(reqs)
+        router.close()
+        if any(r.state.value != "done" for r in reqs):
+            raise AssertionError(f"20 gate ({label}): states {[r.state.value for r in reqs]}")
+        for e, role in zip(engines, roles):
+            if not (plan is not None and e.failure is not None):
+                leak_free(e, f"20 gate ({label}) {role}")
+        close(torch, *engines)
+        return [list(r.output) for r in reqs], stats
+
+    want = {"float32": single("float32"), "int8": single("int8")}
+    runs = {"mixed fleet": (("mixed", "mixed"), "float32", None),
+            "disaggregated fp32": (("prefill", "decode"), "float32", None),
+            "disaggregated int8": (("prefill", "decode"), "int8", None),
+            "crash": (("mixed", "mixed"), "float32", FLEET_CRASH),
+            "migration drop": (("prefill", "decode"), "float32", FLEET_DROP)}
+    retried = 0
+    for label, (roles, cache_dtype, plan) in runs.items():
+        got, stats = fleet(label, roles, cache_dtype, plan and FaultPlan.parse(plan))
+        retried += stats.requests_retried if plan else 0
+        if got != want[cache_dtype]:
+            raise token_mismatch(torch, np, cfg, params, prompts, want[cache_dtype], got,
+                                 f"20 gate ({label})", "single engine", label)
+    # wave mode against the contiguous engine on bf16 caches
+    wave = wave_requests(cfg, np, Request, greedy)
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        cache_dtype="float32", device="cuda")
+    eng.serve_wave(wave)
+    close(torch, eng)
+    got = [list(r.output) for r in wave]
+    ref = single("bfloat16", wave_requests(cfg, np, Request, greedy), paged=False)
+    if got != ref:
+        raise token_mismatch(torch, np, cfg, params, [r.prompt for r in wave], ref, got,
+                             "20 gate (wave)", "contiguous", "wave")
+    log(f"20 gate (fp32, full width, depth 2): the mixed fleet, the disaggregated fleet on "
+        f"fp32 and int8 pools, the crash ({FLEET_CRASH}) and migration drop ({FLEET_DROP}) "
+        f"runs ({retried} requests retried) each gave the single engine's greedy tokens for "
+        f"phase 4's {len(prompts)} requests ({sum(map(len, want['float32']))} tokens); wave "
+        f"mode gave the contiguous engine's on bf16 caches ({sum(map(len, got))} tokens)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3380,8 +3930,8 @@ def main() -> int:
     timed("14 training path check", train_path_check, torch, np)
     launches["matmul"] = timed("15 training", training_phase, torch, np, table)
     timed("16 checkpoint", checkpoint_phase, torch, np)
-    contiguous = timed("17 contiguous serving", contiguous_serving_phase, torch, np, table,
-                       bf16_serving)
+    contiguous, contiguous_stats = timed("17 contiguous serving", contiguous_serving_phase,
+                                         torch, np, table, bf16_serving)
     timed("17 contiguous path check", path_check, torch, np, contiguous=True)
     timed("17 contiguous int8", contiguous_int8_check, torch, np)
     timed("18 verify kernels", verify_kernel_phase, torch, table)
@@ -3391,14 +3941,23 @@ def main() -> int:
     tier = timed("19a host tier", tier_phase, torch, np, cfg, params)
     timed("19b faults", fault_phase, torch, np, cfg, params)
     service = timed("19c service mode", service_phase, torch, np, cfg, params, bf16_serving)
+    fleet, mixed = timed("20a mixed fleet", mixed_fleet_phase, torch, np, cfg, params,
+                         bf16_serving)
+    disagg, pair = timed("20b disaggregated fleet", disagg_phase, torch, np, cfg, params)
+    faults = timed("20c fleet faults", fleet_fault_phase, torch, np, cfg, mixed, pair)
+    close(torch, *mixed, *pair)
+    del mixed, pair
+    wave = timed("20d wave mode", wave_phase, torch, np, cfg, params, contiguous_stats)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     timed("19 gate", tier_gate, torch, np)
+    timed("20 gate", fleet_gate, torch, np)
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
     for name, count in (list(contiguous.items()) + list(spec.items()) + list(tier.items())
-                        + list(service.items())):
+                        + list(service.items()) + list(fleet.items()) + list(disagg.items())
+                        + list(faults.items()) + list(wave.items())):
         launches[name] += count
 
     kernels = []

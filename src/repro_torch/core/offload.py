@@ -1,8 +1,8 @@
 """The paper's contribution, generalized: split-phase co-processor offload
 (counterpart of ``repro/core/offload.py``; :class:`TorchTarget` takes the
 place of its ``JaxTarget``, and :class:`KVBlockTarget` carries the serving
-engine's host KV tier: spills and fetches, the migration payload waiting
-for the replica router).
+engine's host KV tier -- spills and fetches -- and the replica router's
+KV migration between a prefill and a decode replica).
 
 NCSw (paper section 3) maps onto this module as follows:
 
@@ -258,11 +258,19 @@ class KVBlockTarget(Target):
       ``("fetch", key)`` -- load ``key``'s payload (dict of numpy arrays),
           or None if the tier has since evicted it (the engine falls back
           to recompute).
+      ``("migrate", rid, keys, tables, leaves, gens)`` -- move one
+          finished prefill's whole block set (per-block leaf dicts in
+          table order, cloned on the source executor's stream, plus the
+          chained prefix digests and source generation tags that make the
+          payload self-describing) to a peer replica via the tier's
+          ``adopt`` hook; result = whatever ``adopt`` returns (None = the
+          receiver declined).  The device->host copy happens here on the
+          worker, so the source replica's executor never blocks on it.
 
     One worker drains the queue FIFO, so a fetch submitted behind its own
     spill always finds the stored payload.  ``copy_s`` / ``copies`` total
-    the worker's device->host materialization time and count (written by
-    the worker alone; read once the engine's tier IO is drained).
+    the worker's device->host materialization time and the blocks it
+    copied (written by the worker alone; read once its IO is drained).
     """
 
     def __init__(self, tier, name: str = "kv_host", tdp_watts: float = 0.0):
@@ -281,6 +289,14 @@ class KVBlockTarget(Target):
             self.copies += 1
             self.tier.store(key, host)
             return sum(int(a.nbytes) for a in host.values())
+        if staged[0] == "migrate":
+            _, rid, keys, tables, leaves, gens = staged
+            t0 = time.perf_counter()
+            host = [{k: host_leaf(v) for k, v in blk.items()}
+                    for blk in leaves]
+            self.copy_s += time.perf_counter() - t0
+            self.copies += len(host)
+            return self.tier.adopt(rid, keys, tables, host, gens)
         _, key = staged
         return self.tier.load(key)
 

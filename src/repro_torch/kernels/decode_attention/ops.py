@@ -152,14 +152,22 @@ def _launch_dense(q, k, v, lengths, *, chunk=1024, body=None):
     """Check the operands, allocate the output (and, for the split body, its
     fp32 scratch in one allocation) and launch the dense kernel on the
     current stream, on the body :func:`dense_body_for` names; ``body``
-    overrides that route.  ``chunk`` only tiles the plain version.  q and
-    the cache must share a type: a cache in another type than q raises."""
+    overrides that route.  ``chunk`` only tiles the plain version.  The
+    kernel reads q and the cache in one type: a cache in a narrower type
+    than q (bf16 caches under an fp32 model, as the wave path builds them)
+    is widened to q's first, exactly; p then stays in q's type where the
+    plain version, as the reference's attention, rounds it to the cache's,
+    so on such a pair the two are one rounding of p apart.  A cache in a
+    wider type than q raises."""
     del chunk
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
+    if (k.dtype != q.dtype and k.dtype in _DTYPE_CODE
+            and k.element_size() < q.element_size()):
+        k, v = k.to(q.dtype), v.to(q.dtype)
     check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE), align=16)
     for name, t in (("k", k), ("v", v)):
         check_operand(t, name, device=dev, dtypes=(q.dtype,),

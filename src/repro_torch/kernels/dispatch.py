@@ -16,6 +16,7 @@ each launch under its body's name in ``body_launches`` too.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable
 
 import torch
@@ -34,28 +35,35 @@ class Kernel:
         self.tolerance = tolerance    # (out, fp32 ref[, K]) -> largest err/limit
         self.source = source          # CUDA source, relative to the repo
         self.replaces = replaces      # the TPU kernel it replaces, file:line
-        self.launches = 0
-        self.plain_calls = 0
-        self.body_launches: dict[str, int] = {}
+        # the counts are bumped from every thread that runs a model (the
+        # executors of a replica fleet launch at once): a read-modify-write
+        # without the lock loses increments
+        self._lock = threading.Lock()
+        self.launches = 0                          # guarded-by: self._lock
+        self.plain_calls = 0                       # guarded-by: self._lock
+        self.body_launches: dict[str, int] = {}    # guarded-by: self._lock
 
     def count_launch(self, body: str) -> None:
         """One launch of the CUDA kernel, by ``body``."""
-        self.launches += 1
-        self.body_launches[body] = self.body_launches.get(body, 0) + 1
+        with self._lock:
+            self.launches += 1
+            self.body_launches[body] = self.body_launches.get(body, 0) + 1
 
     def __call__(self, *args, **kw):
         device = args[0].device
         if device.type == "cuda" and not _MODE.plain:
             return self.launch(*args, **kw)
         if device.type in ("cpu", "cuda"):
-            self.plain_calls += 1
+            with self._lock:
+                self.plain_calls += 1
             return self.plain(*args, **kw)
         raise RuntimeError(f"{self.name}: no kernel for device {device}")
 
     def reset_counts(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
-        self.body_launches = {}
+        with self._lock:
+            self.launches = 0
+            self.plain_calls = 0
+            self.body_launches = {}
 
 
 class _Mode:
@@ -96,7 +104,12 @@ def reset_counts() -> None:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run every kernel's plain version, on any device, inside the block."""
+    """Run every kernel's plain version, on any device, inside the block.
+
+    The switch is process-wide: it turns every thread to the plain versions
+    at once, the executors of a running replica fleet included.  So a
+    comparison enters it before a fleet starts and leaves it after the
+    fleet's ``stop()``, never around one call while a fleet runs."""
     prev = _MODE.plain
     _MODE.plain = True
     try:

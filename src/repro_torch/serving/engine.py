@@ -64,15 +64,31 @@ with ``ExecutorCrash`` after a crash and ``ShedError`` past
 ``shed_queue_depth``), :meth:`ServingEngine.stop` joins it.  The kernels
 then launch from that thread.
 
+Disaggregated roles (``role="prefill"|"decode"``, paged only): a
+prefill-role replica under a :class:`~repro_torch.serving.router.
+ReplicaRouter` runs its chunks at full budget and, at a prompt's last
+chunk, samples and delivers the first token, export-pins the prompt's
+blocks, *clones* them on the executor's stream (:meth:`_handoff`) and
+hands them to the router's migration channel; the decode replica lands
+them with one batched write (:meth:`adopt_blocks` / :meth:`_adopt_slot`)
+and decodes without recomputing a prompt token.  Roles are placement
+policy: an engine of any role serves a request alone.
+
 Every attention call runs the hand-written CUDA kernels when the engine's
 device is the card (:mod:`repro_torch.kernels`).  The engine runs on
 ``device="cuda"`` unless the caller passes another device; it raises when
-no card is present rather than carry on on the CPU.
+no card is present rather than carry on on the CPU.  The replicas of a
+fleet on one card all enqueue on its current stream, so their kernels run
+in one order -- a migration's clone before the source's later writes, the
+worker's copy after the clone, the adopter's write after that.
 
-Not ported yet, and refused by the constructor: disaggregated roles (they
-come with the replica router); refused as the reference refuses them:
-``prefill_chunk``, speculative decoding and the host tier without paging,
-and the host tier without prefix sharing.
+Refused as the reference refuses them: ``prefill_chunk``, speculative
+decoding, the host tier and disaggregated roles without paging, and the
+host tier without prefix sharing.
+
+:meth:`ServingEngine.serve_wave` keeps the reference's lock-step wave
+decode (prompts of one length prefilled together through K4, decoded
+together through K3, on contiguous caches in bf16) for A/B comparison.
 """
 from __future__ import annotations
 
@@ -351,6 +367,9 @@ class WindowBase(NamedTuple):
     requests_failed: int = 0    # fault-tolerance lifetime counters
     shed_rejections: int = 0
     faults_injected: int = 0
+    kv_migrations: int = 0      # disagg lifetime counters (0 when mixed)
+    migrated_blocks: int = 0
+
 
 def prefix_digests(tokens: np.ndarray, block_size: int) -> list[bytes]:
     """One chained digest per *full* leading block of ``tokens``: digest
@@ -368,6 +387,19 @@ def prefix_digests(tokens: np.ndarray, block_size: int) -> list[bytes]:
                                       dtype=np.int32).tobytes())
         keys.append(h.digest())
     return keys
+
+
+@dataclass
+class _Adoption:
+    """One migrated prefill staged for executor-side landing: the payload
+    :meth:`ServingEngine.adopt_blocks` parks (on the migration worker)
+    until :meth:`ServingEngine._admit_paged` pops it at admission and
+    lands the rows into freshly allocated pool blocks."""
+    req: Request
+    keys: list                  # chained prefix digests, full blocks only
+    tokens: np.ndarray          # the prefilled token stream (the prompt)
+    blocks: list                # per-block host leaf dicts, table order
+    last: np.ndarray            # final-chunk next-token logits (V,)
 
 
 @dataclass
@@ -566,9 +598,25 @@ class ServingEngine:
                  name: str = "", fault_plan: FaultPlan | None = None,
                  shed_queue_depth: int | None = None,
                  role: str = "mixed", device="cuda"):
-        if role != "mixed":
-            raise ValueError(f"role={role!r}: disaggregated roles are not "
-                             f"ported yet; only 'mixed' serves")
+        # disaggregated fleet role.  "mixed" (default) serves both phases;
+        # "prefill" runs chunked prefill only and hands each finished
+        # prompt's KV blocks to the router's migration channel via the
+        # _on_prefilled hook; "decode" is a normal engine the router never
+        # routes fresh prompts to (adopted requests land via adopt_blocks).
+        # Roles are *policy*: a prefill replica without a hook installed
+        # (standalone use) decodes its own requests.
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"role={role!r} must be 'prefill', 'decode' "
+                             f"or 'mixed'")
+        self.role = role
+        # router-installed migration hook: called on the executor thread
+        # with (req, keys, block_ids, gens, leaves, tokens, last) when a
+        # prefill-role replica finishes a prompt
+        self._on_prefilled = None
+        # rid -> staged adoption payload, written by adopt_blocks on the
+        # migration worker and consumed by _admit_paged on the executor
+        self._adoptions: dict = {}               # guarded-by: self._adopt_lock
+        self._adopt_lock = threading.Lock()
         # fault tolerance: the replica's name (the fault plan's replica
         # filter), the injection plan, and the admission shed threshold
         # (queue depth beyond which submit() refuses with ShedError rather
@@ -590,6 +638,9 @@ class ServingEngine:
             raise ValueError(f"family {cfg.family!r} has no paged-KV "
                              f"support (ModelFns.init_paged_state is None)")
         self.paged = paged
+        if self.role != "mixed" and not paged:
+            raise ValueError("disaggregated roles need the paged KV engine "
+                             "(migration moves pool blocks)")
         # speculative decoding: on iff a drafter model is given.  Greedy
         # slots then run a multi-token verify step instead of the vanilla
         # decode; non-greedy slots (and spec-off engines) are untouched.
@@ -656,6 +707,10 @@ class ServingEngine:
         # slot -> in-progress chunked prefill (insertion order = service
         # order); drained by the executor under the prefill_chunk budget
         self._prefilling: dict[int, _PrefillJob] = {}  # owned-by: executor-thread
+        # slot -> first output token sampled at a disaggregated handoff but
+        # not yet fed through *this* pool: the adopting decode step feeds
+        # it forward without re-sampling or re-delivering it
+        self._adopted_feed: dict[int, int] = {}  # owned-by: executor-thread
         self._last_decode_end: float | None = None  # owned-by: executor-thread
         self._gaps_dropped = 0  # owned-by: executor-thread; decode_gaps entries trimmed
         fns = self.fns
@@ -680,15 +735,19 @@ class ServingEngine:
                     chunk=chunk))
         else:
             self.pool = None
-            # whole-prompt prefill into a batch-1 state with caches of
-            # max_len rows (one reference jit entry per prompt length)
-            self._prefill = lambda p, b: fns.prefill(
-                cfg, p, b, max_len=max_len, chunk=chunk,
-                cache_dtype=self._state_dtype)
+        # whole-prompt prefill into a state with caches of max_len rows (one
+        # reference jit entry per shape): the contiguous path's, in
+        # _state_dtype, and the wave path's, in bf16 whatever cache_dtype
+        # says, as the reference's fns.prefill builds them
+        self._prefill = lambda p, b, cache_dtype=self._state_dtype: \
+            fns.prefill(cfg, p, b, max_len=max_len, chunk=chunk,
+                        cache_dtype=cache_dtype)
         # executor host time of the tier's two executor-side halves (the
         # device-to-host copy itself runs on the transfer worker)
         self.spill_capture_s = 0.0  # owned-by: executor-thread
         self.fetch_commit_s = 0.0   # owned-by: executor-thread
+        # executor host time of landing migrated blocks (disaggregation)
+        self.adopt_commit_s = 0.0   # owned-by: executor-thread
         if self.tiered:
             # host tier driven as a split-phase offload device: one FIFO
             # worker (spill-before-fetch ordering for a given key is free),
@@ -812,6 +871,12 @@ class ServingEngine:
 
     def _finish_failed(self, req: Request, exc: BaseException) -> None:
         """Move ``req`` to its terminal FAILED state and notify."""
+        with self._adopt_lock:
+            # a staged-but-never-landed adoption (deadline/crash before
+            # admission) must not pin its host payload forever
+            staged = self._adoptions.get(req.rid)
+            if staged is not None and staged.req is req:
+                del self._adoptions[req.rid]
         req.state = RequestState.FAILED
         req.error = exc
         req.finished_at = time.monotonic()
@@ -1209,7 +1274,22 @@ class ServingEngine:
         materialization is deferred to its first chunk).  The decode-state
         table row stays at the trash block until the prefill completes:
         the in-flight batched decode keeps writing this slot's (discarded)
-        row, and must not corrupt half-filled prompt blocks."""
+        row, and must not corrupt half-filled prompt blocks.
+
+        A request whose KV arrived by migration skips prefill entirely: its
+        staged adoption payload lands here instead.  A *preempted* adopted
+        request finds its payload already consumed and falls through to the
+        normal recompute path -- roles are placement policy, not an engine
+        capability split."""
+        with self._adopt_lock:
+            adoption = self._adoptions.get(req.rid)
+            if adoption is not None and adoption.req is req:
+                del self._adoptions[req.rid]
+            else:
+                adoption = None
+        if adoption is not None:
+            self._adopt_slot(slot, req, adoption)
+            return
         toks = req.prefill_tokens
         P = len(toks)
         nb = self.pool.blocks_for(P)
@@ -1351,11 +1431,24 @@ class ServingEngine:
             self._to_device(wids), self._to_device(tbl),
             self._to_device(np.array([start], np.int32)),
             self._to_device(np.array([start + real], np.int32)), real - 1)
+        if self.role == "prefill" and self.device.type == "cuda":
+            # full-budget chunks enqueue back to back, and on a card shared
+            # with a decode replica an unforced run piles up queued compute
+            # that the decode replica's next step waits behind -- wait for
+            # each chunk so the convoy never forms (the reference blocks on
+            # the chunk's logits the same way)
+            torch.cuda.current_stream(self.device).synchronize()
         self.totals.prefill_tokens_computed += real
         job.pos = start + real
         if job.pos == P:                     # logits of the last real token
             del self._prefilling[slot]
             self._tables[slot] = 0
+            if self.role == "prefill" and self._on_prefilled is not None:
+                # disaggregated fleet: this replica's work ends at the last
+                # prompt token -- hand the blocks to the router's migration
+                # channel instead of entering decode
+                self._handoff(slot, job, req, last[0].cpu().numpy())
+                return real
             if slot in self._spec_on:
                 # speculative slots never join the batched vanilla decode:
                 # their table row stays at trash (the decode step's write for
@@ -1379,6 +1472,116 @@ class ServingEngine:
             self.scheduler.notify_capacity()
         return real
 
+    def _handoff(self, slot: int, job: _PrefillJob, req: Request,
+                 last1: np.ndarray) -> None:
+        """Disaggregated prefill completion (executor thread): export-pin
+        the prompt's blocks, clone their rows, release the slot, and fire
+        the router's migration hook.
+
+        :meth:`KVBlockPool.export_blocks` adds a holder per block *before*
+        ``release()`` drops the request's holders, so the ids stay
+        allocated (and their generations frozen) until the router's
+        completion hook frees the export.  The pools are written in place,
+        so the rows are *cloned* (:meth:`_read_block_slices`) on this
+        thread's stream: a later write to a block is enqueued behind its
+        clone, and the migration worker's device-to-host copy behind both.
+
+        The first token is sampled and delivered here, from the final
+        chunk's logits: migration latency leaves the TTFT path.  The
+        adopting replica feeds it forward without re-sampling it (the
+        sampler's stream advances exactly once)."""
+        tok = int(req.sampler.sample(last1[None])[0])
+        req.output.append(tok)
+        if req.first_token_at is None:
+            req.first_token_at = time.monotonic()
+        self.totals.tokens += 1
+        if len(req.output) >= req.max_new_tokens:
+            # single-token request: DONE at handoff -- nothing to migrate
+            if self.prefix_sharing:
+                self._register_prefix(job.keys, req)
+            self._spec_on.discard(slot)
+            req.state = RequestState.DONE
+            req.finished_at = time.monotonic()
+            self.scheduler.release(slot)
+            self._retire_slot(slot)
+            self.scheduler.notify_capacity()
+            if req.on_finish is not None:
+                req.on_finish(req)
+            return
+        ids = list(req.block_ids)
+        gens = self.pool.export_blocks(ids)
+        leaves = [self._read_block_slices(b) for b in ids]
+        if self.prefix_sharing:
+            # publish locally too: a later prompt sharing this prefix
+            # prefills cache-seeded on this replica
+            self._register_prefix(job.keys, req)
+        self._spec_on.discard(slot)   # drafter was never seeded: the slot
+        #                               retires before its decode begins
+        req.state = RequestState.PREFILLED
+        self.scheduler.release(slot)  # request holders drop; exports stay
+        self._retire_slot(slot)
+        self.scheduler.notify_capacity()   # slot + blocks just came back
+        self._on_prefilled(req, list(job.keys), ids, gens, leaves,
+                           np.asarray(job.tokens), last1)
+
+    def _adopt_slot(self, slot: int, req: Request,
+                    adoption: _Adoption) -> None:
+        """Land a migrated prefill straight into this pool (executor
+        thread): allocate blocks from the admission reservation, write the
+        payload rows with one batched :meth:`_write_blocks` (enqueued
+        behind the in-flight decode step, like a prefill chunk's write),
+        and enter DECODE *after* the handoff-sampled first token -- the
+        next decode step feeds that token forward instead of sampling, so
+        greedy outputs equal a local prefill's and no sampler stream
+        advances twice."""
+        tokens = adoption.tokens
+        P = len(tokens)
+        nb = self.pool.blocks_for(P)
+        own = self.pool.alloc_reserved(nb)
+        req.block_ids = own
+        req.shared_blocks = 0
+        req.blocks_reserved -= nb       # remaining = decode-growth tail
+        # generation-safe: `own` was alloc_reserved just above -- private
+        # refcount-1 blocks no other slot can reference, so no generation
+        # check is needed before writing
+        t0 = time.perf_counter()
+        self._write_blocks(own, adoption.blocks)
+        self.adopt_commit_s += time.perf_counter() - t0
+        self._tables[slot] = 0
+        if slot in self._spec_on:
+            # same contract as prefill completion: speculative slots stay
+            # off the batched vanilla decode; the drafter re-prefills the
+            # migrated history through its own mirror
+            self._lengths[slot] = 0
+            self._drafter.seed(slot, tokens,
+                               len(req.prompt) + req.max_new_tokens
+                               + self.spec_k)
+            # the verify invariant wants ``_last`` = distribution after the
+            # committed stream with every committed row written; the
+            # handoff-sampled token has neither, so hand it back to the
+            # verify pass as its pending ``t_0`` (no re-sample) and
+            # pre-compensate the commit's recount of a token the handoff
+            # already delivered
+            self._adopted_feed[slot] = req.output.pop()
+            self.totals.tokens -= 1
+        else:
+            self._tables[slot, :nb] = own
+            self._lengths[slot] = P
+            # the handoff already sampled and delivered ``output[-1]``; the
+            # next decode step feeds it forward (writing KV row P and
+            # producing next-token logits) without re-sampling it
+            self._adopted_feed[slot] = req.output[-1]
+        self._set_last(slot, adoption.last)
+        if self.prefix_sharing:
+            self._register_prefix(adoption.keys, req)
+        self.totals.kv_migrations += 1
+        self.totals.migrated_blocks += nb
+        # the whole prompt arrives precomputed: total rises, computed does
+        # not -- prefill_compute_frac is the zero-recompute evidence
+        self.totals.prefill_tokens_total += P
+        req.state = RequestState.DECODE
+        self.scheduler.notify_capacity()
+
     def _set_last(self, slot: int, last1: np.ndarray) -> None:
         """Store one slot's next-token logits (lazy-allocating the batch
         buffer)."""
@@ -1392,6 +1595,9 @@ class ServingEngine:
         (discarded) row for this slot every step."""
         self._tables[slot] = 0
         self._lengths[slot] = 0
+        # a handoff-sampled token pending for a slot that dies before its
+        # feed step must not leak into the slot's next occupant
+        self._adopted_feed.pop(slot, None)
 
     def _grow_paged(self, still: list[tuple[int, Request]]) -> None:
         """Allocate the next block for any request whose write position
@@ -1478,9 +1684,13 @@ class ServingEngine:
         if self._prefilling:
             # chunked mode: spend at most prefill_chunk prompt tokens per
             # executor step, oldest admission first, then fall through to
-            # the decode step; the remaining budget caps each chunk
+            # the decode step; the remaining budget caps each chunk.  A
+            # prefill-role replica has no decode slots to protect: it keeps
+            # the chunk-sized shapes but runs them back to back at full
+            # budget instead of one per step.
             self._drain_tier(timeout=0.0)    # commit landed fetches first
-            budget = self.prefill_chunk
+            budget = (self.prefill_chunk if self.role != "prefill"
+                      else (1 << 30))
             while budget >= self.block_size:
                 # oldest admission first, skipping slots whose blocks are
                 # still inbound from the host tier (the fetch overlaps
@@ -1515,11 +1725,13 @@ class ServingEngine:
         if not active:
             return True
 
-        toks = self._sample_active(active)
+        toks = self._sample_active(
+            [(s, r) for s, r in active if s not in self._adopted_feed])
         now = time.monotonic()
         feed = np.zeros((self.slots, 1), np.int32)
         for slot, req in active:
-            tok = toks[slot]
+            pend = self._adopted_feed.pop(slot, None)
+            tok = toks[slot] if pend is None else pend
             try:
                 if self._fault("engine.decode", rid=req.rid) == "drop":
                     raise FaultError("engine.decode",
@@ -1530,6 +1742,12 @@ class ServingEngine:
                 self._fail_slot(slot, req, e)
                 continue
             feed[slot, 0] = tok
+            if pend is not None:
+                # adopted slot: this token was sampled and delivered at the
+                # prefill replica's handoff -- feed it forward, but do not
+                # deliver it twice (it cannot be the request's final token
+                # either: single-token requests finish at handoff)
+                continue
             if req.first_token_at is None:
                 req.first_token_at = now
             req.output.append(tok)
@@ -1604,7 +1822,12 @@ class ServingEngine:
         jobs: list[tuple[int, list[int]]] = []
         for slot, req in spec:
             P = len(req.prompt)
-            t0 = int(req.sampler.sample(self._last[slot][None])[0])
+            # an adopted slot's t_0 was already sampled (and delivered) at
+            # the prefill replica's handoff -- committing it below restores
+            # the verify invariant without re-sampling
+            pend = self._adopted_feed.pop(slot, None)
+            t0 = (pend if pend is not None
+                  else int(req.sampler.sample(self._last[slot][None])[0]))
             pending[slot] = t0
             dlen = self._drafter.length(slot)
             gap = [int(t) for t in req.output[dlen - P:]]
@@ -1719,7 +1942,9 @@ class ServingEngine:
             spill_bytes=self.totals.spill_bytes,
             requests_failed=self.totals.requests_failed,
             shed_rejections=self.totals.shed_rejections,
-            faults_injected=self.totals.faults_injected)
+            faults_injected=self.totals.faults_injected,
+            kv_migrations=self.totals.kv_migrations,
+            migrated_blocks=self.totals.migrated_blocks)
 
     def collect_window(self, base: WindowBase, requests: list[Request],
                        wall_s: float) -> ServeStats:
@@ -1757,6 +1982,10 @@ class ServingEngine:
                                  - base.shed_rejections)
         stats.faults_injected = (self.totals.faults_injected
                                  - base.faults_injected)
+        stats.kv_migrations = (self.totals.kv_migrations
+                               - base.kv_migrations)
+        stats.migrated_blocks = (self.totals.migrated_blocks
+                                 - base.migrated_blocks)
         if stats.prefix_lookups:
             stats.kv_hit_rate = ((stats.prefix_shared_blocks
                                   + stats.prefix_hits_host)
@@ -1847,6 +2076,43 @@ class ServingEngine:
             req.on_finish = on_finish
         self.scheduler.submit(req)
 
+    def adopt_blocks(self, req: Request, keys: list, tokens: np.ndarray,
+                     blocks: list, last: np.ndarray) -> int:
+        """Thread-safe admission of a *migrated* prefill -- the receiver
+        half of the disaggregated handoff, called on the migration worker.
+        Stages the payload and queues the request; the executor lands the
+        rows into freshly allocated pool blocks at admission
+        (:meth:`_adopt_slot`) and enters DECODE without recomputing a
+        single prompt token.
+
+        Unlike :meth:`submit` there is no shed check: the prefill compute
+        is already spent (the request was shed-checked at its original
+        admission).  Raises ``CapacityError`` / :class:`ExecutorCrash` like
+        submit; the migration completion hook turns either into the
+        retry-from-bare-prompt path.  Returns the number of blocks staged
+        -- the migrate payload's success result."""
+        req.replica = self.name    # before any raise: failures inside the
+        #                            adopt are charged to *this* replica
+        crash = self.failure
+        if crash is not None:
+            raise ExecutorCrash(
+                "executor is dead; adopt refused") from crash
+        self._check_fits(req)
+        # the seq was minted by the source scheduler's heap; this one must
+        # assign its own tiebreak, exactly like a stolen request
+        req.arrival_seq = None
+        with self._adopt_lock:
+            self._adoptions[req.rid] = _Adoption(
+                req=req, keys=keys, tokens=tokens, blocks=blocks,
+                last=last)
+        try:
+            self.scheduler.submit(req)
+        except BaseException:
+            with self._adopt_lock:
+                self._adoptions.pop(req.rid, None)
+            raise
+        return len(blocks)
+
     def stop(self, timeout: float = 10.0, *,
              raise_failure: bool = True) -> None:
         """Stop the service-mode executor thread; idempotent, safe to
@@ -1878,3 +2144,85 @@ class ServingEngine:
         prefill tokens) -- the raw request count in :attr:`load` hides
         pool starvation."""
         return self.scheduler.load_snapshot()
+
+    # -- lock-step wave decode (the reference's, kept for A/B comparison) ----
+
+    def serve_wave(self, requests: list[Request]) -> ServeStats:
+        """The reference's lock-step path: bucket by prompt length, prefill
+        each wave of up to ``slots`` equal-length prompts in one batched
+        call (K4), decode until every wave member finishes (K3 on the
+        wave's contiguous caches, built in bf16 whatever ``cache_dtype``
+        says).  A finished slot idles until the slowest request in its
+        wave completes -- kept only as the baseline continuous batching is
+        compared against."""
+        for r in requests:
+            self._check_fits(r)
+        stats = ServeStats(requests=len(requests))
+        compiles0 = self.prefill_compiles
+        t0 = time.monotonic()
+        for r in requests:          # wave path bypasses scheduler.submit()
+            if r.submitted_at is None:
+                r.submitted_at = t0
+        buckets: dict[int, list[Request]] = {}
+        for r in requests:
+            buckets.setdefault(len(r.prompt), []).append(r)
+        for _, bucket in sorted(buckets.items()):
+            for w0 in range(0, len(bucket), self.slots):
+                wave = bucket[w0:w0 + self.slots]
+                prompts = np.stack([r.prompt for r in wave])
+                self._prefill_shapes.add(prompts.shape)
+                last, state = self._prefill(self.params,
+                                            self._batch_for(prompts),
+                                            "bfloat16")
+                last = last.cpu().numpy()
+                stats.prefills += 1
+                active = np.ones(len(wave), bool)
+                n_steps = max(r.max_new_tokens for r in wave)
+                for _ in range(n_steps):
+                    toks = []
+                    for i, r in enumerate(wave):
+                        tok = int(r.sampler(last[i]))
+                        if active[i]:
+                            if r.first_token_at is None:
+                                r.first_token_at = time.monotonic()
+                            r.output.append(tok)
+                            stats.tokens += 1
+                            if len(r.output) >= r.max_new_tokens:
+                                active[i] = False
+                                r.state = RequestState.DONE
+                                r.finished_at = time.monotonic()
+                        toks.append(tok)
+                    if not active.any():
+                        break
+                    last, state = self._decode(
+                        self.params,
+                        self._to_device(np.asarray(toks, np.int32)[:, None]),
+                        state)
+                    last = last.cpu().numpy()
+                    stats.decode_steps += 1
+                    stats.occupancy_sum += active.sum() / self.slots
+        stats.wall_s = time.monotonic() - t0
+        stats.prefill_compiles = self.prefill_compiles - compiles0
+        stats.fill_request_metrics(requests)
+        return stats
+
+
+# -- moved to repro_torch.serving.router (deprecation shim) -------------------
+
+_MOVED_TO_ROUTER = ("MultiReplicaEngine", "ReplicaTarget")
+
+
+def __getattr__(name: str):
+    """PEP-562 shim, as the reference's: the multi-replica classes live in
+    :mod:`repro_torch.serving.router`; importing them from here still works
+    but warns."""
+    if name in _MOVED_TO_ROUTER:
+        import warnings
+        warnings.warn(
+            f"repro_torch.serving.engine.{name} moved to "
+            f"repro_torch.serving.router; update the import -- this shim "
+            f"will be removed in a later PR",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.serving import router
+        return getattr(router, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
 """Paged KV-cache block pool: fixed-size blocks, per-request block tables
-(a copy of ``repro/serving/kv_pool.py`` without the migration export).
+(counterpart of ``repro/serving/kv_pool.py``).
 
 Instead of reserving a worst-case ``(L, B, max_len, K, D)`` cache slice per
 decode slot, the engine owns one global pool of ``num_blocks`` fixed-size KV
@@ -527,6 +527,31 @@ class KVBlockPool:
                 self._gen[b] -= 1
                 self._free.append(b)
             self._reserved += len(ids)
+
+    # -- migration export --------------------------------------------------------
+
+    def export_blocks(self, ids: list[int]) -> list[int]:
+        """Pin ``ids`` for an in-flight prefill->decode migration and
+        return their generation tags, in order.
+
+        Adds one holder per block (like :meth:`share`) so the source pool
+        can neither free nor re-allocate a migrating block while its rows
+        are in flight -- the export hold keeps the generations frozen as
+        evidence the receiver checks, instead of a race against the
+        releasing request.  The caller drops the export with a plain
+        :meth:`free` once the transfer commits or fails.  Exporting the
+        trash block or an unallocated id raises without mutating.
+        """
+        with self._lock:
+            for b in ids:
+                if b == self.TRASH:
+                    raise ValueError("export of trash KV block 0")
+                if b not in self._refs:
+                    raise ValueError(f"export of unallocated KV block {b}")
+            for b in ids:
+                self._refs[b] += 1
+                self._demotable.pop(b, None)
+            return [self._gen[b] for b in ids]
 
     # -- prefix-index support ----------------------------------------------------
 

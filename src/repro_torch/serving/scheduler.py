@@ -1,15 +1,18 @@
 r"""Continuous-batching scheduler: SLO-aware admission + fixed decode slots
-(a copy of ``repro/serving/scheduler.py`` without work stealing and the
-disaggregated PREFILLED state, which wait for the replica router).
+(counterpart of ``repro/serving/scheduler.py``).
 
 The paper keeps every NCS stick saturated by split-phase load/collect; the
 LM-serving analogue is keeping every *decode slot* saturated.  This module
 owns the request lifecycle
 
     QUEUED -> PREFILL -> DECODE -> DONE
-                ^___________|   \___ FAILED   (poison fault, deadline
-                (preemption re-queues         or executor crash)
-                 a decode)
+                ^___________|   \___ FAILED   (poison fault, deadline,
+                (preemption re-queues         executor crash or retries
+                 a decode)                    exhausted)
+
+and, on a prefill-role replica of a disaggregated fleet, PREFILL ->
+PREFILLED (the prompt's KV blocks migrate to a decode replica, where the
+request re-enters QUEUED)
 
 and the slot bookkeeping: a fixed number of decode slots per replica, an
 admission queue feeding them, and thread-safe submit so a replica pull-loop
@@ -24,7 +27,8 @@ Admission is a **priority queue**, not FIFO: requests are ordered by
 ``priority`` (higher serves first), then by TTFT-SLO deadline
 (``submitted_at + slo_ttft_s``; requests without an SLO sort last within
 their priority), then by arrival.  ``submit`` stamps ``submitted_at`` at
-actual submission (unless the caller already set it), so
+actual submission (unless the caller already set it: a retried or stolen
+request keeps its first arrival), so
 TTFT always measures queueing + prefill, never pre-construction time.
 
 With a :class:`~repro_torch.serving.kv_pool.KVBlockPool` attached, admission is
@@ -40,9 +44,13 @@ queue to be re-prefilled when space frees.  The executor learns about
 evictions via :meth:`ContinuousScheduler.drain_preempted` so it can retire
 the victim's block table before the freed blocks are reused.
 
-:meth:`ContinuousScheduler.load_snapshot` exposes the block-aware load
-triple (free slots, free KV blocks, queued prefill tokens) a placement
-layer reads instead of the raw request count; :meth:`drain_queue` and
+Across replicas, the scheduler is the work-stealing substrate: an idle
+peer pulls still-QUEUED requests off the back of this queue via
+:meth:`ContinuousScheduler.steal` (heap invariants and ``submitted_at``
+preserved), and :meth:`ContinuousScheduler.load_snapshot` exposes the
+block-aware load triple the :class:`~repro_torch.serving.router.
+ReplicaRouter` places on -- free slots, free KV blocks, queued prefill
+tokens -- instead of the raw request count.  :meth:`drain_queue` and
 :meth:`expire_deadlines` hand the executor the queued requests a crash or
 an elapsed deadline fails.
 
@@ -69,10 +77,14 @@ from repro_torch.serving.sampler import Sampler, greedy
 class RequestState(Enum):
     QUEUED = "queued"      # in the admission queue
     PREFILL = "prefill"    # assigned a slot; prompt being prefilled
+    PREFILLED = "prefilled"  # prefill done on a prefill-role replica;
+    #                          KV blocks migrating to a decode replica
+    #                          (terminal *on the source* -- the request
+    #                          re-enters QUEUED on the receiver)
     DECODE = "decode"      # occupying a decode slot
     DONE = "done"          # all tokens emitted
     FAILED = "failed"      # terminal: poison fault / deadline / executor
-    #                        crash -- req.error says which
+    #                        crash / retries exhausted -- req.error says which
 
 
 @dataclass
@@ -93,8 +105,11 @@ class Request:
     on_finish: Callable[["Request"], None] | None = None
     preempted_count: int = 0        # times evicted from a decode slot
     error: BaseException | None = None   # set iff state is FAILED
-    replica: str | None = None      # engine that owns the request (stamped
-    #                                 at service-mode submit)
+    # engine that currently owns the request -- stamped at submit and
+    # re-stamped by adopt_blocks when a migration hands it to a decode
+    # replica, so failure attribution follows the request, not the
+    # dispatch target
+    replica: str | None = None
     # paged-KV bookkeeping (engine/scheduler-owned; empty when contiguous).
     # block_ids[:shared_blocks] are prefix-shared (refcounted, read-only);
     # blocks_reserved is the *remaining* unallocated reservation tail.
@@ -493,11 +508,70 @@ class ContinuousScheduler:
             req.shared_blocks = 0
         return req
 
+    # -- cross-replica work stealing -------------------------------------------
+
+    def steal(self, max_items: int = 1, *,
+              can_take: Callable[[Request], bool] | None = None
+              ) -> list[Request]:
+        """Remove up to ``max_items`` still-QUEUED requests so an idle peer
+        scheduler can take them over (cross-replica work stealing).
+
+        Victims come from the *back* of the queue -- the lowest-ranked
+        entries by (priority, SLO deadline, arrival), i.e. the requests
+        this replica would serve last -- so the local heap's service order
+        for everything that stays is untouched.  While other entries are
+        queued, the head (the request this replica serves next, typically
+        with its prefix blocks already resident) is never stolen -- a
+        ``can_take``-filtered scan cannot walk forward into it past
+        rejected candidates.  A *sole* queued request is fair game: the
+        donor has no capacity for it now (else it would be admitted), so
+        moving it to an idle peer strictly helps its TTFT.  The surviving
+        heap is re-heapified, preserving its invariants.
+
+        Stolen requests keep their ``submitted_at`` stamp (TTFT spans the
+        move: re-submission on the thief preserves a pre-stamped arrival)
+        plus priority and SLO; only the per-scheduler ``arrival_seq`` is
+        cleared, so the thief's heap assigns its own tiebreak and never
+        compares seqs minted by two schedulers.
+
+        ``can_take`` filters candidates by the *thief's* admission
+        capacity (its ``max_len``, block size, and free blocks -- this
+        scheduler's own pool geometry says nothing about the thief's): a
+        request the thief could not admit must stay here, or it would
+        ping-pong between queues instead of ever decoding.
+        """
+        stolen: list[Request] = []
+        with self._lock:
+            take: set[int] = set()
+            # back of the queue first: largest heap key = served last; the
+            # final (smallest-key) index is the head -- sliced off (when it
+            # has company) so a filtered scan can never walk forward into it
+            order = sorted(range(len(self._heap)),
+                           key=lambda i: self._heap[i][:3], reverse=True)
+            if len(order) > 1:
+                order = order[:-1]
+            for i in order:
+                if len(stolen) >= max_items:
+                    break
+                req = self._heap[i][3]
+                if can_take is not None and not can_take(req):
+                    continue
+                take.add(i)
+                stolen.append(req)
+            if take:
+                self._heap = [e for i, e in enumerate(self._heap)
+                              if i not in take]
+                heapq.heapify(self._heap)
+                for req in stolen:
+                    req.arrival_seq = None
+                self._event_epoch += 1  # queue shrank: head identity/rank moved
+        return stolen
+
     # -- introspection ---------------------------------------------------------
 
     def load_snapshot(self) -> LoadSnapshot:
-        """Block-aware load for placement (racy by design: the executor
-        keeps running; a placement layer treats it as a hint)."""
+        """Block-aware load for cross-replica placement (racy by design:
+        the executor keeps running; the router treats it as a hint)."""
         with self._lock:
             free_slots = sum(r is None for r in self.slots)
             queued = len(self._heap)

@@ -1,14 +1,21 @@
 """The reference's lock and fault-routing lint over the port's threaded
 files: ``repro.analysis.run_all(..., only={"locks", "faultok"})`` on an
 ``AnalysisConfig`` of ``src/repro_torch/serving/{scheduler,kv_pool,engine,
-faults}.py`` and ``src/repro_torch/core/offload.py`` must find nothing.
+router,faults}.py``, ``src/repro_torch/core/offload.py`` and the kernel
+table's launch counters (``src/repro_torch/kernels/dispatch.py``, bumped
+from every executor thread of a fleet) must find nothing.
 
 The configuration is the reference's (``repro/analysis/config.py``) cut to
 what the port carries: the same attribute types, the pool's ``on_demote``
-call edge into the engine (the demotion hook runs under the pool lock), and
-the engine's entry points that run off the executor thread -- service-mode
-``submit`` / ``stop`` / ``load``, the captured ``failure``, and the transfer
-worker's ``_spill_done`` / ``_kv_fault_hook``.  The port's sources carry
+call edge into the engine (the demotion hook runs under the pool lock), the
+migration path's edges (a prefill replica's ``_handoff`` calls the router's
+``_migrate``; the migration worker's ``KVBlockTarget.execute`` calls
+``_MigrationAdapter.adopt``, which calls the decode replica's
+``adopt_blocks``), the engine's entry points that run off the executor
+thread -- service-mode ``submit`` / ``stop`` / ``load``, the captured
+``failure``, the transfer worker's ``_spill_done`` / ``_kv_fault_hook``,
+the migration worker's ``adopt_blocks`` -- and the router's that run off
+the dispatch thread (rebalance, failure routing, migration).  The port's sources carry
 the reference's ``# guarded-by:`` / ``# assumes-lock:`` / ``# owned-by:`` /
 ``# fault-ok:`` annotations; the checkers hold them."""
 from pathlib import Path
@@ -25,7 +32,8 @@ def port_config(root: Path = ROOT) -> AnalysisConfig:
     return AnalysisConfig(
         repo_root=root,
         lock_files=[f"{SERVING}/scheduler.py", f"{SERVING}/kv_pool.py",
-                    f"{SERVING}/engine.py", OFFLOAD],
+                    f"{SERVING}/engine.py", f"{SERVING}/router.py", OFFLOAD,
+                    "src/repro_torch/kernels/dispatch.py"],
         attr_types={
             ("ContinuousScheduler", "pool"): "KVBlockPool",
             ("ServingEngine", "pool"): "KVBlockPool",
@@ -35,13 +43,26 @@ def port_config(root: Path = ROOT) -> AnalysisConfig:
             ("ServingEngine", "_drafter"): "_Drafter",
             ("_Drafter", "pool"): "KVBlockPool",
             ("KVBlockPool", "host"): "HostTier",
+            ("ReplicaTarget", "engine"): "ServingEngine",
             ("KVBlockTarget", "tier"): "HostTier",
+            ("_MigrationAdapter", "engine"): "ServingEngine",
+            ("_MigrationAdapter", "router"): "ReplicaRouter",
         },
         extra_call_edges={
             # pool.on_demote is installed by the tiered engine at
             # construction; _demote_locked invokes it under the pool lock
             ("KVBlockPool", "_demote_locked"):
                 [("ServingEngine", "_on_demote")],
+            # the router installs _on_prefilled on prefill-role engines, so
+            # prefill completion calls back into the router, which submits
+            # a migrate payload whose KVBlockTarget "tier" is a
+            # _MigrationAdapter that lands the blocks via adopt_blocks
+            ("ServingEngine", "_handoff"):
+                [("ReplicaRouter", "_migrate")],
+            ("KVBlockTarget", "execute"):
+                [("_MigrationAdapter", "adopt")],
+            ("_MigrationAdapter", "adopt"):
+                [("ServingEngine", "adopt_blocks")],
         },
         entry_points={
             # ServingEngine state is confined to the executor thread;
@@ -49,12 +70,23 @@ def port_config(root: Path = ROOT) -> AnalysisConfig:
             "ServingEngine": {"submit", "_check_fits", "load_snapshot",
                               "load", "start", "stop", "failure",
                               "_raise_failure_once", "_spill_done",
-                              "_kv_fault_hook"},
+                              "_kv_fault_hook", "adopt_blocks"},
+            # the rebalance loop runs on the steal thread, failure routing
+            # on whichever replica thread terminated the request, and the
+            # migration path on source executor threads (_migrate) and the
+            # migration worker (_mig_done, _place_migration);
+            # dispatch-thread state (the fleet prefix index) must stay off
+            # all of them
+            "ReplicaRouter": {"_rebalance_once", "_steal_loop",
+                              "_heartbeat", "_on_request_failed",
+                              "_migrate", "_select_decode", "_mig_done",
+                              "_place_migration", "drain_migrations"},
         },
-        thread_files=[f"{SERVING}/engine.py", OFFLOAD],
+        thread_files=[f"{SERVING}/engine.py", f"{SERVING}/router.py",
+                      OFFLOAD],
         fault_files=[f"{SERVING}/scheduler.py", f"{SERVING}/kv_pool.py",
-                     f"{SERVING}/engine.py", f"{SERVING}/faults.py",
-                     OFFLOAD],
+                     f"{SERVING}/engine.py", f"{SERVING}/router.py",
+                     f"{SERVING}/faults.py", OFFLOAD],
     )
 
 

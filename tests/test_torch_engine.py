@@ -231,7 +231,7 @@ def test_engine_defaults_to_the_card(weights, monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(paged=False, host_blocks=4), "tier"),
-    (dict(role="prefill"), "role"),
+    (dict(paged=False, role="prefill"), "role"),
     (dict(prefix_sharing=False, host_blocks=4), "tier"),
     (dict(prefill_chunk=24), "multiple of block_size"),
 ])

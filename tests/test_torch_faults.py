@@ -1,6 +1,6 @@
 """The port's fault tolerance against the JAX package: every test of
-``tests/test_faults.py`` but the two replica-router ones, mirrored on
-``repro_torch``.  Where a test drives an engine, the JAX engine runs the
+``tests/test_faults.py`` but the two replica-router ones (those are in
+``tests/test_torch_router.py``), mirrored on ``repro_torch``.  Where a test drives an engine, the JAX engine runs the
 same requests under the same plan (``qwen2.5-3b-smoke`` at fp32, an fp32
 KV pool, the same weights through ``repro_torch.interop``), and the two
 must end in equal states, equal outputs and equal counters:

@@ -32,7 +32,9 @@ distinct GoogLeNet conv shape at batch 1 and 8, split and unsplit, and a
 split conv gives the same bits launch after launch; K3's split body on
 the attention limit with NaN in every cache row at or past the length,
 and equal to K1's bit for bit on the cache read as a pool through a
-trivial table.  K1 and K2 on int8 pools (``mma_i8`` / ``fma_i8``): on the
+trivial table; on an fp32 q with a bf16 cache (the wave path's caches
+under an fp32 model) the launcher widens the cache, within the fp32 limit
+of the plain version on the widened values.  K1 and K2 on int8 pools (``mma_i8`` / ``fma_i8``): on the
 attention limit against the plain version in fp32 on the dequantized
 values, with NaN in the scales of every dead row, and bit for bit equal
 to the bf16 / fp32 body on the pool dequantized to q's type.  Training
@@ -650,6 +652,26 @@ def test_dense_decode_split_matches_plain(cuda, D, H, K, S, lengths):
             assert (out[b] == 0).all()
 
 
+def test_dense_decode_widens_a_bf16_cache_for_fp32_q(cuda):
+    """fp32 q against a bf16 cache (the wave path's caches under an fp32
+    model): the launcher widens the cache to fp32 and runs the FMA body,
+    within the fp32 limit of the plain version on the widened values, and
+    one rounding of p (2^-8 of the largest output) from the plain version
+    on the pair itself, which rounds p to bf16 as the reference does."""
+    q, k, v, lens = _dense_case(cuda, (1033, 700, 257, 1200), 1088, 16, 2, 128)
+    q = q.float()
+    kern = dispatch.kernel_table()["decode_attention"]
+    dispatch.reset_counts()
+    out = kern.launch(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {"fma": 1} and out.dtype == torch.float32
+    assert kern.tolerance(out, kern.plain(q, k.float(), v.float(), lens)) <= 1.0
+    mixed = kern.plain(q, k, v, lens)
+    assert (out - mixed).abs().max() <= 2 ** -8 * mixed.abs().max()
+    with pytest.raises(ValueError, match="dtype"):
+        kern.launch(q.bfloat16(), k.float(), v.float(), lens)
+
+
 @pytest.mark.parametrize("D,H,K,S,lengths", [(64, 32, 32, 1088, (1033, 700, 257, 1200)),
                                              (128, 16, 2, 1024, (0, 17, 1024, 5000)),
                                              (64, 4, 4, 96, (95, 1, 64, 96))])
@@ -977,3 +999,122 @@ def test_service_mode_serves_on_the_card(cuda):
     eng.drain_tier_io()
     assert eng.pool.leak_report() == CLEAN
     eng.close()
+
+
+# -- phase 20: replica fleets, disaggregated migration, wave mode ------------
+
+def _counting(eng, attr, n, threads):
+    """Count an engine's calls of one model function (and the threads that
+    made them) into ``n[attr]`` / ``threads``."""
+    import threading
+    f = getattr(eng, attr)
+
+    def counted(*a, **kw):
+        n[attr] += 1
+        threads.add(threading.get_ident())
+        return f(*a, **kw)
+    setattr(eng, attr, counted)
+
+
+def test_two_replica_fleet_launches_from_two_executor_threads(cuda):
+    """Two replicas of the qwen smoke model (bf16, head_dim 64) behind the
+    router on one card: every model call is made on one of the two
+    executor threads, K1 / K2 launch exactly once a layer of each decode
+    step / prefill chunk of both engines on the tensor-core bodies, K7 on
+    wgmma from both threads (each binds its own tensor-map context), and
+    no kernel takes its plain version inside the fleet run."""
+    import threading
+    from repro_torch.serving.router import ReplicaRouter
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=64)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    engines = [ServingEngine(cfg, params, max_len=96, batch_slots=2, prefill_chunk=16,
+                             name=f"replica{i}") for i in range(2)]
+    n = [{"_prefill_paged": 0, "_decode": 0} for _ in engines]
+    threads = [set(), set()]
+    for e, c, t in zip(engines, n, threads):
+        for attr in c:
+            _counting(e, attr, c, t)
+    router = ReplicaRouter(engines, affinity=False, steal=False)
+    reqs = _smoke_requests(cfg, n=6)
+    dispatch.reset_counts()
+    stats = router.serve(reqs)
+    router.stop()
+    torch.cuda.synchronize()
+    table = dispatch.kernel_table()
+    L = cfg.num_layers
+    assert all(len(r.output) == 5 for r in reqs) and stats.tokens == 30
+    assert all(c["_prefill_paged"] for c in n), n       # both replicas served
+    assert len(threads[0] | threads[1]) == 2
+    assert threading.get_ident() not in threads[0] | threads[1]
+    assert table["paged_prefill_attention"].body_launches == {
+        "mma": L * sum(c["_prefill_paged"] for c in n)}
+    assert table["paged_decode_attention"].body_launches == {
+        "mma": L * sum(c["_decode"] for c in n)}
+    assert table["matmul"].body_launches.get("wgmma", 0) > 0
+    assert all(k.plain_calls == 0 for k in table.values())
+    for e in engines:
+        assert e.pool.leak_report() == CLEAN
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_adopted_blocks_equal_their_handoff_clones_on_the_card(cuda, cache_dtype):
+    """A prefill + decode fleet of the qwen smoke model on the card: every
+    block the decode replica lands equals bit for bit the clone its source
+    took at the handoff (int8: with both scales); the decode replica
+    computes no prompt token; both pools leak-free."""
+    from repro_torch.serving.router import ReplicaRouter
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=64)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    kw = dict(max_len=64, batch_slots=2, prefill_chunk=16, cache_dtype=cache_dtype)
+    pre = ServingEngine(cfg, params, name="pre", role="prefill", **kw)
+    dec = ServingEngine(cfg, params, name="dec", role="decode", **kw)
+    clones, checked = {}, []
+    handoff, adopt = pre._handoff, dec._adopt_slot
+
+    def capture(slot, job, req, last1):
+        clones[req.rid] = [pre._read_block_slices(b) for b in req.block_ids]
+        return handoff(slot, job, req, last1)
+
+    def check(slot, req, adoption):
+        adopt(slot, req, adoption)
+        for bid, want in zip(req.block_ids, clones[req.rid]):
+            for name, t in want.items():
+                got = getattr(dec._state, name)[:, bid]
+                assert torch.equal(got.contiguous().view(torch.uint8),
+                                   t.contiguous().view(torch.uint8)), (req.rid, name)
+        checked.append(req.rid)
+    pre._handoff, dec._adopt_slot = capture, check
+    router = ReplicaRouter([pre, dec], affinity=False, steal=False)
+    reqs = _smoke_requests(cfg)
+    base = dec.begin_window()
+    stats = router.serve(reqs)
+    router.stop()
+    w = dec.collect_window(base, [], stats.wall_s)
+    assert sorted(checked) == [0, 1, 2]
+    assert w.kv_migrations == 3 and w.prefill_tokens_computed == 0
+    assert all(len(r.output) == 5 for r in reqs)
+    assert pre.pool.leak_report() == CLEAN and dec.pool.leak_report() == CLEAN
+
+
+def test_wave_mode_runs_flash_and_dense_decode_only(cuda):
+    """``serve_wave`` on the card (the qwen smoke model, bf16, head_dim
+    64): K4 once a layer of each wave's prefill, K3 once a layer of each
+    decode step, on the tensor-core bodies; no paged kernel, no plain
+    call."""
+    cfg = TR.smoke("qwen2.5-3b").replace(head_dim=64)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=64, batch_slots=2)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 24).astype(np.int32),
+                    max_new_tokens=5, sampler=greedy()) for i in range(4)]
+    dispatch.reset_counts()
+    stats = eng.serve_wave(reqs)
+    table = dispatch.kernel_table()
+    L = cfg.num_layers
+    assert (stats.prefills, stats.decode_steps) == (2, 8)
+    assert table["flash_attention"].body_launches == {"mma": L * 2}
+    assert table["decode_attention"].body_launches == {"mma": L * 8}
+    assert table["paged_decode_attention"].launches == 0
+    assert table["paged_prefill_attention"].launches == 0
+    assert all(k.plain_calls == 0 for k in table.values())
+    assert all(len(r.output) == 5 for r in reqs)

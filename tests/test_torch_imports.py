@@ -31,7 +31,8 @@ def test_import_loads_no_jax_and_no_reference_module():
                          capture_output=True, text=True, timeout=300)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    for name in ("repro_torch.serving.engine", "repro_torch.launch.serve",
+    for name in ("repro_torch.serving.engine", "repro_torch.serving.router",
+                 "repro_torch.launch.serve",
                  "repro_torch.kernels.build", "repro_torch.interop",
                  "repro_torch.models.transformer",
                  "repro_torch.kernels.conv2d.ops", "repro_torch.models.googlenet",
