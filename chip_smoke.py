@@ -143,14 +143,19 @@ Phases (each one raises on failure; the script then exits non-zero):
 14. Training path check: qwen2.5-3b at full width cut to 2 layers, fp32,
    one 1 x 512 microbatch: the loss and every gradient leaf through the
    kernels vs through the plain versions (``TOL_TRAIN_LOSS_REL``,
-   ``TOL_TRAIN_GRAD_REL``).
+   ``TOL_TRAIN_GRAD_REL``); K4 launched 4 times and its backward kernel
+   twice, on FMA.
 15. Training: qwen2.5-3b at full width (36 layers, fp32 master weights,
    bf16 compute, remat "full", AdamW) for 4 steps of 8 x 512 tokens in 8
    microbatches (``--accum 8``) through ``repro_torch.launch.train``: every
    loss finite, K7 launches exactly 1011 a microbatch (derived from the
    config): 1008 bf16 block products on wgmma and the fp32 LM head's 3 on
-   FMA; no plain call; step time, tokens/s, tokens/s/W against the power
-   limit, peak memory; one more step under ``torch.profiler``.
+   FMA; the attention through K4, 72 a microbatch (36 and the remat
+   recompute) on mma, and K4's backward kernel, 36 on FMA; no plain call;
+   step time (beside the step measured when this attention was the
+   plain version), tokens/s,
+   tokens/s/W against the power limit, peak memory; one more step under
+   ``torch.profiler``.
 16. Checkpoint round trip on the card (full width, 2 layers): save after 2
    steps, restore into a fresh trainer, one more step in both; identical
    bit for bit.
@@ -246,6 +251,29 @@ Phases (each one raises on failure; the script then exits non-zero):
    wave mode's equal the contiguous engine's on bf16 caches (the waves
    keep bf16 caches whatever ``cache_dtype`` says, as the reference's).
 
+21. zamba2-1.2b training and the two backward kernels.  21a: K4 with its
+   log-sum-exp (the output bit for bit the one without) and K4's backward
+   kernel against their plain versions in fp32 on the same values
+   (``dispatch.grad_tolerance_ratio``: each gradient within 2^-14 of its
+   largest at fp32, 2^-8 at bf16) on ``K4_BWD_CASES``, then timed at
+   qwen2.5-3b's training heads beside SDPA's backward (autograd of
+   ``scaled_dot_product_attention``, measured, never used) and the bound,
+   and at zamba2's shared block's, printed.  21b: K5's backward likewise
+   on ``K5_BWD_CASES`` (zamba2's widths, B and C stride-0 head views, S
+   512 and a ragged 1000, fp32 with an initial state and d_final), timed
+   at S = 512.  21c: zamba2-1.2b at full width cut to 7 layers (one
+   segment, a 1-layer tail), fp32, one 1 x 512 microbatch: loss and every
+   gradient leaf through the kernels, the plain versions and fp64-summed
+   products (phase 14's gate), launches exact by body, no plain call.
+   21d: zamba2-1.2b at full width (38 layers, fp32 master weights, bf16
+   compute, remat "full", AdamW), 3 steps of 8 x 512 in 8 microbatches
+   through ``repro_torch.launch.train``: every loss finite; K5 74 a
+   microbatch (38 and the 36 of the checkpointed segments' recompute) on
+   mma, its backward 38 on FMA, K4 12 on mma, its backward 6 on FMA, K7
+   495 (492 wgmma, the fp32 LM head's 3 on FMA); no plain call; step time,
+   tokens/s, tokens/s/W, peak memory; one profiled step's device time by
+   kernel and busy share.
+
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
 18 hold its launch counts too (exactly, where the engine's calls fix them;
@@ -258,8 +286,12 @@ and K2's int8 bodies as entries of their own (``...:int8``: their
 launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
-K3 and K4 phases 10, 17 and 20d, K5 phase 10, K6 phase 8, K7 phases 4, 4b,
-10, 15, 17, 18, 19a, 19c and 20a-d.
+K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d and 21d, K4's backward
+15 and 21d, K5 10 and 21d, K5's backward 21d, K6 phase 8, K7 phases 4, 4b,
+10, 15, 17, 18, 19a, 19c, 20a-d and 21d.  The two backward kernels replace
+no Pallas kernel (the reference differentiates its plain functions): their
+entries name the forward's Pallas kernel under ``replaces`` and say so
+under ``note``.
 """
 from __future__ import annotations
 
@@ -445,6 +477,28 @@ TOL_TRAIN_LOSS_REL = 1e-5
 TOL_TRAIN_GRAD_REL = 2e-2
 TOL_TRAIN_EXACT_RATIO = 2.0
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 512
+# phase 15's step when its attention was the plain version (two runs of
+# this script on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed
+# beside this run's step through K4
+PLAIN_ATTENTION_STEP_S = "4.618 / 5.405 s"
+
+# Phase 21, zamba2-1.2b training.  21a: K4's backward on (B, S, H, K, D,
+# dtype) -- qwen2.5-3b's training heads (G = 8, D = 128), zamba2's shared
+# block (G = 1, D = 64), a ragged S, fp32 -- the first timed beside SDPA's
+# backward.  21b: K5's backward on (S, dtype, initial state and d_final)
+# at zamba2's widths (H=64, N=P=64, chunk 128, B and C as stride-0 head
+# views), the first timed.  21c: the fp32 path check at 7 layers (one
+# segment, a 1-layer tail), phase 14's three-way gate.  21d: 3 steps of
+# 8 x 512 in 8 microbatches at full width.
+K4_BWD_CASES = ((1, 512, 16, 2, 128, "bfloat16"), (1, 512, 32, 32, 64, "bfloat16"),
+                (1, 333, 32, 32, 64, "bfloat16"), (1, 333, 32, 32, 64, "float32"),
+                (1, 512, 16, 2, 128, "float32"))
+K5_BWD_CASES = ((512, "bfloat16", False), (1000, "bfloat16", False),
+                (1000, "float32", True), (512, "bfloat16", True))
+ZAMBA_TRAIN_STEPS = 3
+ZAMBA_CHECK_LAYERS = 7
+MAMBA_PRODUCTS = 2      # weight products a Mamba-2 layer makes: in_proj, out_proj
+SHARED_PRODUCTS = 8     # the shared block's: in_proj, wq wk wv wo, gate up down
 
 
 def log(*a) -> None:
@@ -560,14 +614,16 @@ def hold(torch, kern, args, label, *, poison=None, body=None, **kw) -> float:
     before the kernel does (rows the kernel must not read).  ``body``, where
     given, overrides the kernel's route.  Returns the largest absolute
     error."""
-    ref = kern.plain(*(a.float() if a.is_floating_point() else a for a in args), **kw)
+    ref = kern.plain(*(a.float() if a is not None and a.is_floating_point() else a
+                       for a in args), **kw)
     if poison is not None:
         torch.cuda.synchronize()
         poison(args)
     out = kern.launch(*args, **kw, **({"body": body} if body else {}))
     torch.cuda.synchronize()
     pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
-    err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
+    err = max((o.float() - r.float()).abs().max().item() for o, r in pairs
+              if o is not None)
     ratio = kern.tolerance(out, ref)
     log(f"{kern.name} {label} {str(args[0].dtype)[6:]}: max_abs_err={err:.3e} "
         f"err/limit={ratio:.3f}")
@@ -2143,7 +2199,8 @@ def train_path_check(torch, np) -> None:
     remat "full") through the kernels, through the plain versions, and
     with every weight product summed in fp64 and rounded once (the
     accuracy both are held to); beside them two plain runs that differ
-    only in the attention's KV tile."""
+    only in the plain attention's KV tile.  K4 and its backward kernel
+    carry the kernel run's attention, their launches held exactly."""
     from unittest import mock
 
     from repro_torch.configs import registry as arch_registry
@@ -2175,9 +2232,16 @@ def train_path_check(torch, np) -> None:
 
     dispatch.reset_counts()
     kern_loss, kern_g = loss_and_grads()
-    k7 = dispatch.kernel_table()["matmul"]
+    table = dispatch.kernel_table()
+    k7 = table["matmul"]
     counts = (k7.launches, k7.plain_calls)
     want = cfg.num_layers * QWEN_PRODUCTS * 2 + 1 + 2 * (cfg.num_layers * QWEN_PRODUCTS + 1)
+    # K4 once a layer and again in the remat recompute, its backward once;
+    # fp32, so both on FMA
+    k4 = {n: (dict(table[n].body_launches), table[n].plain_calls)
+          for n in ("flash_attention", "flash_attention_backward")}
+    want_k4 = {"flash_attention": ({"fma": 2 * cfg.num_layers}, 0),
+               "flash_attention_backward": ({"fma": cfg.num_layers}, 0)}
     with dispatch.plain_versions():
         plain_loss, plain_g = loss_and_grads()
         plain64_loss, plain64_g = loss_and_grads(chunk=64)
@@ -2199,9 +2263,11 @@ def train_path_check(torch, np) -> None:
         f"{TOL_TRAIN_GRAD_REL}), vs exact products kernels {max(k_exact):.3e} plain "
         f"{max(p_exact):.3e}, worst ratio {ratio:.3f} (tol {TOL_TRAIN_EXACT_RATIO}); plain "
         f"KV tile 64 vs 4096: loss rel={abs(plain64_loss - plain_loss) / abs(plain_loss):.3e}"
-        f" gradient rel={max(rel(plain64_g, plain_g)):.3e}; matmul launches/plain {counts}")
-    if counts != (want, 0):
-        raise AssertionError(f"training path check: matmul {counts}, expected ({want}, 0)")
+        f" gradient rel={max(rel(plain64_g, plain_g)):.3e}; matmul launches/plain {counts}; "
+        f"K4 launches by body / plain {k4}")
+    if counts != (want, 0) or k4 != want_k4:
+        raise AssertionError(f"training path check: matmul {counts}, expected ({want}, 0); "
+                             f"K4 {k4}, expected {want_k4}")
     finite = all(bool(torch.isfinite(g).all()) for g in kern_g)
     if not (finite and r_loss <= TOL_TRAIN_LOSS_REL and max(r_grad) <= TOL_TRAIN_GRAD_REL
             and ratio <= TOL_TRAIN_EXACT_RATIO):
@@ -2213,14 +2279,16 @@ def train_path_check(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
-def training_phase(torch, np, table) -> int:
+def training_phase(torch, np, table) -> dict:
     """Phase 15: qwen2.5-3b at full width (36 layers) trained for
     ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens through
     ``python -m repro_torch.launch.train``'s entry point, in the config's 8
     microbatches (``--accum 8``: the launcher's default is 1, as the
-    reference's).  Every loss finite; K7 launches exactly the count derived
-    from the config, no plain call; then one more step under the profiler.
-    Returns K7's launches."""
+    reference's).  Every loss finite; K7, K4 and K4's backward launch
+    exactly the counts derived from the config, by body, no plain call;
+    then one more step under the profiler.  The step time is printed
+    beside ``PLAIN_ATTENTION_STEP_S``, measured with the plain attention.
+    Returns the launches by kernel."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2251,6 +2319,8 @@ def training_phase(torch, np, table) -> int:
         wall = time.monotonic() - t0
         counts = {n: (k.launches, k.plain_calls) for n, k in table.items()}
         k7_bodies = dict(table["matmul"].body_launches)
+        k4_bodies = {n: dict(table[n].body_launches)
+                     for n in ("flash_attention", "flash_attention_backward")}
     s = out["summary"]
     losses = [h["loss"] for h in out["history"] if "loss" in h]
     k7 = counts["matmul"]
@@ -2269,14 +2339,22 @@ def training_phase(torch, np, table) -> int:
     # the fp32 LM head (forward, dX, dW) on FMA, every bf16 block product on wgmma
     want_bodies = {"wgmma": (per_micro - 3) * accum * TRAIN_STEPS,
                    "fma": 3 * accum * TRAIN_STEPS}
+    # attention: K4 a layer and again in the recompute (bf16, D = 128: mma),
+    # its backward kernel a layer (FMA)
+    micro = accum * TRAIN_STEPS
+    want_k4 = {"flash_attention": {"mma": 2 * L * micro},
+               "flash_attention_backward": {"fma": L * micro}}
     log(f"training: matmul launches={k7[0]} (expected {want} = {per_micro} per microbatch "
-        f"x {accum} x {TRAIN_STEPS} steps) by body {k7_bodies} (expected {want_bodies}) "
-        f"plain_calls={plain or 0}")
+        f"x {accum} x {TRAIN_STEPS} steps) by body {k7_bodies} (expected {want_bodies}); "
+        f"K4 by body {k4_bodies} (expected {want_k4}); plain_calls={plain or 0}; step "
+        f"{s['step_s']:.3f}s with K4 attention beside {PLAIN_ATTENTION_STEP_S} with the "
+        f"plain attention")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"training: losses {losses}")
-    if k7[0] != want or plain or k7_bodies != want_bodies:
+    if k7[0] != want or plain or k7_bodies != want_bodies or k4_bodies != want_k4:
         raise AssertionError(f"training: matmul launches {k7[0]}, expected {want}; by "
-                             f"body {k7_bodies}, expected {want_bodies}; plain calls {plain}")
+                             f"body {k7_bodies}, expected {want_bodies}; K4 {k4_bodies}, "
+                             f"expected {want_k4}; plain calls {plain}")
     # where the time goes: one more step (8 microbatches) under the profiler
     tr = out["trainer"]
     batch = next(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9))
@@ -2292,17 +2370,21 @@ def training_phase(torch, np, table) -> int:
     wg_ms = sum(r[0] for r in rows if "matmul_wgmma_kernel" in r[2])
     fma_ms = sum(r[0] for r in rows if "matmul_kernel" in r[2])
     k7_ms = wg_ms + fma_ms
+    k4_ms = sum(r[0] for r in rows if "flash" in r[2])
+    k4b_ms = sum(r[0] for r in rows if "fa_bwd_" in r[2])
     log(f"training profile (one step, {accum} microbatches): wall={wall:.3f}s "
         f"device_busy={busy:.3f}s busy_share={busy / wall:.3f} "
         f"idle_share={1 - busy / wall:.3f}; matmul kernel {k7_ms / 1e3:.3f}s = "
         f"{k7_ms / 1e3 / busy:.3f} of device time (wgmma {wg_ms / 1e3:.3f}s, "
-        f"fma {fma_ms / 1e3:.3f}s)")
+        f"fma {fma_ms / 1e3:.3f}s); K4 forward {k4_ms / 1e3:.3f}s, backward "
+        f"{k4b_ms / 1e3:.3f}s")
     for ms, count, key in rows[:14]:
         log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
     del out, tr
     gc.collect()
     torch.cuda.empty_cache()
-    return k7[0]
+    return {"matmul": k7[0], "flash_attention": counts["flash_attention"][0],
+            "flash_attention_backward": counts["flash_attention_backward"][0]}
 
 
 def checkpoint_phase(torch, np) -> None:
@@ -3879,6 +3961,329 @@ def fleet_gate(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# zamba2-1.2b training, and the two backward kernels (phase 21)
+# ---------------------------------------------------------------------------
+
+
+def attention_grad_case(torch, B, S, H, K, D, dtype, seed=0):
+    """q, k, v as ``dense_case`` makes them, K4's output and log-sum-exp on
+    them, and a random output gradient."""
+    q, k, v = dense_case(torch, S, dtype, B=B, H=H, K=K, D=D, seed=seed)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    do = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def attention_backward_work(B, S, H, K, D, elem) -> tuple[float, float, float]:
+    """(bytes, flops, the FMA body's flops) of K4's causal backward: q, out,
+    dout and dq (B, S, H, D), k, v, dk and dv (B, S, K, D) once each, the
+    fp32 lse; the least work is five products over the causal half (S
+    recomputed, dV, dP, dQ, dK), the FMA body does seven (S and dP in each
+    of its two passes)."""
+    pairs = B * S * (S + 1) // 2 * H * D
+    return elem * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S, 10 * pairs, 14 * pairs
+
+
+def attention_backward_phase(torch, table) -> dict:
+    """Phase 21a: K4 with its log-sum-exp, then its backward kernel, each
+    against its plain version evaluated in fp32 on the same values, on
+    ``K4_BWD_CASES``; then the backward timed at qwen2.5-3b's training
+    shape beside its plain version, SDPA's backward (autograd of
+    ``scaled_dot_product_attention`` on the same tensors, measured only)
+    and its bound, and at zamba2's shared block's, printed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dispatch import GRAD_RTOL
+    fwd, bwd = table["flash_attention"], table["flash_attention_backward"]
+    timer = Timer(torch)
+    errs = {}
+    for B, S, H, K, D, dt in K4_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, do = attention_grad_case(torch, B, S, H, K, D, dtype)
+        out, lse = fwd.launch(q, k, v, causal=True, with_lse=True)
+        ref_lse = fwd.plain(q.float(), k.float(), v.float(), causal=True, with_lse=True)[1]
+        same = torch.equal(out, fwd.launch(q, k, v, causal=True))
+        lse_rel = ((lse - ref_lse).abs().max() / ref_lse.abs().max().clamp(min=1.0)).item()
+        label = (f"B={B} S={S} H={H} K={K} D={D} causal (limit {GRAD_RTOL[dtype]:.2e} of "
+                 f"each gradient's max|ref|)")
+        log(f"flash_attention {label} {dt}: the output with lse equals the one without: "
+            f"{same}; lse vs plain rel={lse_rel:.3e} (tol 1e-5)")
+        if not (same and lse_rel <= 1e-5):
+            raise AssertionError(f"flash_attention {label}: lse or output off")
+        errs.setdefault(dtype, []).append(
+            hold(torch, bwd, (q, k, v, out, do, lse), label, causal=True))
+    out_r = {}
+    for (B, S, H, K, D), key in (((1, TRAIN_SEQ, 16, 2, 128), "qwen"),
+                                 ((1, TRAIN_SEQ, 32, 32, 64), "zamba2")):
+        q, k, v, do = attention_grad_case(torch, B, S, H, K, D, torch.bfloat16)
+        out, lse = fwd.launch(q, k, v, causal=True, with_lse=True)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        y = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=H != K)
+        dyh = do.transpose(1, 2).contiguous()
+        nbytes, flops, fma_flops = attention_backward_work(B, S, H, K, D, 2)
+        r = dict(ms=timer(lambda: bwd.launch(q, k, v, out, do, lse, causal=True)),
+                 plain_ms=timer(lambda: bwd.plain(q, k, v, out, do, lse, causal=True)),
+                 library_ms=timer(lambda: torch.autograd.grad(y, (qh, kh, vh), dyh,
+                                                              retain_graph=True)),
+                 bytes=nbytes, flops=flops,
+                 fp32_rate_bound_ms=bound(nbytes, fma_flops, FP32_FLOPS)[0],
+                 shape=f"B={B} S={S} H={H} K={K} D={D} causal bf16 body=fma")
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        log(f"flash_attention_backward timed {r['shape']}: kernel {r['ms']:.4f}ms plain "
+            f"{r['plain_ms']:.4f}ms SDPA backward {r['library_ms']:.4f}ms (kernel / SDPA "
+            f"{r['ms'] / r['library_ms']:.2f}) bound {r['bound_ms']:.5f}ms ({r['bound_by']}; "
+            f"{nbytes} B, {flops} flop; the FMA body's own at 67 TFLOP/s fp32 "
+            f"{r['fp32_rate_bound_ms']:.4f}ms)")
+        out_r[key] = r
+        del y, qh, kh, vh
+    r = out_r["qwen"]
+    r["max_abs_err"] = max(errs[torch.bfloat16])
+    r["max_abs_err_fp32"] = max(errs[torch.float32])
+    return {"flash_attention_backward": r}
+
+
+def scan_backward_work(S, *, B=1, H=64, N=64, P=64, chunk=128, elem=2) -> tuple:
+    """(bytes, flops) of K5's backward: q and k's shared (B, S, N) base, v,
+    the decay, gate and dy read once; dq, dk (B, S, H, N), dv, the decay's
+    and gate's gradients written once.  Per chunk of n live rows, the least
+    products: the causal q.k and dy.v recomputed, dA K, dA^T Q and (QK^T
+    o W)^T dY (n(n+1)/2 terms of N or P each), and the chunk sums S_c, U_c,
+    H_{c-1} dy, G_c v and G_c^T k (n N P each); two flops a multiply-add."""
+    nbytes = elem * (2 * B * S * N + 2 * B * S * H * N + 2 * B * S * H * P) + 4 * (
+        4 * B * S * H + B * S * H * P)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        flops += 2 * B * H * (n * (n + 1) // 2 * (3 * N + 2 * P) + 5 * n * N * P)
+    return nbytes, flops
+
+
+def scan_backward_phase(torch, table) -> dict:
+    """Phase 21b: K5's backward against its plain version evaluated in fp32
+    on the same values, on ``K5_BWD_CASES`` (B and C as stride-0 head
+    views), then timed at zamba2-1.2b's training shape beside its plain
+    version and its bound (no library call computes it)."""
+    from repro_torch.kernels.dispatch import GRAD_RTOL
+    bwd = table["ssm_scan_backward"]
+    timer = Timer(torch)
+    errs = {}
+    for S, dt, with_state in K5_BWD_CASES:
+        dtype = getattr(torch, dt)
+        args, h0 = ssm_case(torch, S, dtype, with_state=with_state)
+        g = torch.Generator("cuda").manual_seed(S + 7)
+        dy = torch.randn((1, S, 64, 64), generator=g, device="cuda")
+        df = torch.randn((1, 64, 64, 64), generator=g, device="cuda") if with_state else None
+        label = (f"B=1 S={S} H=64 N=P=64 chunk 128 shared B/C h0/d_final={with_state} "
+                 f"(limit {GRAD_RTOL[dtype]:.2e} of each gradient's max|ref|, fp32 "
+                 f"gradients {GRAD_RTOL[torch.float32]:.2e})")
+        errs.setdefault(dtype, []).append(
+            hold(torch, bwd, (*args, dy, df), label, chunk=128, initial_state=h0))
+    args, _ = ssm_case(torch, TRAIN_SEQ, torch.bfloat16)
+    dy = torch.randn((1, TRAIN_SEQ, 64, 64), device="cuda")
+    nbytes, flops = scan_backward_work(TRAIN_SEQ)
+    r = dict(ms=timer(lambda: bwd.launch(*args, dy, chunk=128)),
+             plain_ms=timer(lambda: bwd.plain(*args, dy, chunk=128)), library_ms=None,
+             bytes=nbytes, flops=flops,
+             shape=f"B=1 S={TRAIN_SEQ} H=64 N=P=64 chunk 128, bf16 q/k/v (B and C "
+                   f"stride-0 head views), fp32 dy, body=fma (one Mamba layer)")
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+    r["fp32_rate_bound_ms"] = bound(nbytes, flops, FP32_FLOPS)[0]
+    log(f"ssm_scan_backward timed {r['shape']}: kernel {r['ms']:.4f}ms plain "
+        f"{r['plain_ms']:.4f}ms bound {r['bound_ms']:.5f}ms ({r['bound_by']}; {nbytes} B, "
+        f"{flops} flop; at 67 TFLOP/s fp32 {r['fp32_rate_bound_ms']:.4f}ms)")
+    r["max_abs_err"] = max(errs[torch.bfloat16])
+    r["max_abs_err_fp32"] = max(errs[torch.float32])
+    return {"ssm_scan_backward": r}
+
+
+def zamba_counts(cfg, micro: int) -> dict:
+    """Launches by body of ``micro`` microbatches of zamba2 training under
+    remat "full", from the config: K5 once a Mamba layer and again in the
+    recompute of each checkpointed segment (the tail is not checkpointed),
+    K4 once a shared-block application and again in its recompute, each
+    backward once; K7 for every weight product, again in the recompute and
+    twice in the backward (dX, dW).  bf16 compute puts K5 and K4 on their
+    tensor-core bodies and every block product on wgmma, the fp32 LM head
+    (forward, dX, dW) on FMA; fp32 compute puts everything on FMA."""
+    from repro_torch.models.hybrid import _segments
+    n_seg, e, tail = _segments(cfg)
+    layers = n_seg * e + tail
+    fwd = MAMBA_PRODUCTS * layers + SHARED_PRODUCTS * n_seg + 1
+    again = MAMBA_PRODUCTS * n_seg * e + SHARED_PRODUCTS * n_seg
+    products = fwd + again + 2 * fwd
+    bf16 = cfg.compute_dtype == "bfloat16"
+    tc = "mma" if bf16 else "fma"
+    return {"ssm_scan": {tc: (layers + n_seg * e) * micro},
+            "ssm_scan_backward": {"fma": layers * micro},
+            "flash_attention": {tc: 2 * n_seg * micro},
+            "flash_attention_backward": {"fma": n_seg * micro},
+            "matmul": ({"wgmma": (products - 3) * micro, "fma": 3 * micro} if bf16
+                       else {"fma": products * micro})}
+
+
+def hybrid_train_path_check(torch, np) -> None:
+    """Phase 21c: zamba2-1.2b at full width cut to ``ZAMBA_CHECK_LAYERS``
+    layers (one segment of 6 Mamba-2 layers and the shared block, a 1-layer
+    tail), fp32 compute, remat "full", one 1 x 512 microbatch: the loss and
+    every gradient leaf through the kernels (K5, K4, their backward kernels,
+    K7), through the plain versions, and with every weight product summed
+    in fp64 and rounded once -- phase 14's three-way gate and limits.  The
+    kernel run's launches are held exactly, with no plain call."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import linear
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = arch_registry.config("zamba2-1.2b").replace(compute_dtype="float32",
+                                                       num_layers=ZAMBA_CHECK_LAYERS)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in next(SyntheticTokens(cfg, 1, TRAIN_SEQ, seed=5)).items()}
+    ps = leaves(params)
+
+    def loss_and_grads():
+        for p in ps:
+            p.grad = None
+            p.requires_grad_(True)
+        loss, _ = make_loss_fn(cfg)(params, batch)
+        loss.backward()
+        out = (loss.item(), [p.grad for p in ps])
+        for p in ps:
+            p.grad = None
+            p.requires_grad_(False)
+        return out
+
+    dispatch.reset_counts()
+    kern_loss, kern_g = loss_and_grads()
+    table = dispatch.kernel_table()
+    got = {n: dict(table[n].body_launches) for n in zamba_counts(cfg, 1)}
+    plain_calls = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    with dispatch.plain_versions():
+        plain_loss, plain_g = loss_and_grads()
+    exact = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
+    with mock.patch.object(linear, "_k7", exact):
+        exact_loss, exact_g = loss_and_grads()
+
+    def rel(a, b):
+        return [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+                for x, y in zip(a, b)]
+    r_loss = abs(kern_loss - plain_loss) / abs(plain_loss)
+    r_grad = rel(kern_g, plain_g)
+    k_exact, p_exact = rel(kern_g, exact_g), rel(plain_g, exact_g)
+    ratio = max(k / max(p, 1e-7) for k, p in zip(k_exact, p_exact))
+    log(f"zamba2 training path check (fp32, full width, {cfg.num_layers} layers, 1 x "
+        f"{TRAIN_SEQ} tokens): loss kernels {kern_loss:.6f} plain {plain_loss:.6f} exact "
+        f"products {exact_loss:.6f}, kernels vs plain rel={r_loss:.3e} (tol "
+        f"{TOL_TRAIN_LOSS_REL}); worst gradient leaf of {len(ps)}: kernels vs plain "
+        f"rel={max(r_grad):.3e} (tol {TOL_TRAIN_GRAD_REL}), vs exact products kernels "
+        f"{max(k_exact):.3e} plain {max(p_exact):.3e}, worst ratio {ratio:.3f} (tol "
+        f"{TOL_TRAIN_EXACT_RATIO}); launches by body {got}; plain calls {plain_calls or 0}")
+    if got != zamba_counts(cfg, 1) or plain_calls:
+        raise AssertionError(f"zamba2 training path check: launches {got}, expected "
+                             f"{zamba_counts(cfg, 1)}; plain calls {plain_calls}")
+    finite = all(bool(torch.isfinite(g).all()) for g in kern_g)
+    if not (finite and r_loss <= TOL_TRAIN_LOSS_REL and max(r_grad) <= TOL_TRAIN_GRAD_REL
+            and ratio <= TOL_TRAIN_EXACT_RATIO):
+        raise AssertionError(f"zamba2 training path check: kernels and plain versions "
+                             f"disagree (loss {r_loss}, gradients {max(r_grad)}, ratio "
+                             f"{ratio}, finite {finite})")
+    del params, ps, kern_g, plain_g, exact_g, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_training_phase(torch, np, table) -> dict:
+    """Phase 21d: zamba2-1.2b at full width (38 layers: 6 segments and a
+    2-layer tail; fp32 master weights, bf16 compute, remat "full", AdamW)
+    trained for ``ZAMBA_TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens in the config's 8 microbatches through
+    ``python -m repro_torch.launch.train``'s entry point.  Every loss
+    finite; K5, K4, their backward kernels and K7 launch exactly the counts
+    ``zamba_counts`` derives, by body; no plain call.  Step time, tokens/s,
+    tokens/s/W against the power limit, peak memory; then one more step
+    under the profiler: device time by kernel and the busy share.  Returns
+    the launches by kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.optim.optimizers import leaves
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("zamba2-1.2b")
+    accum = cfg.accum_steps
+    want = zamba_counts(cfg, accum * ZAMBA_TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        args = train_launcher.parse(
+            ["--arch", "zamba2-1.2b", "--steps", str(ZAMBA_TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum", str(accum),
+             "--ckpt-dir", d])
+        dispatch.reset_counts()
+        t0 = time.monotonic()
+        out = train_launcher.run(args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {n: dict(table[n].body_launches) for n in want}
+        plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    s = out["summary"]
+    losses = [h["loss"] for h in out["history"] if "loss" in h]
+    state_bytes = 4 * 4 * sum(p.numel() for p in leaves(out["trainer"].params))
+    log(f"zamba2 training: L={cfg.num_layers} d_model={cfg.d_model} vocab={cfg.vocab_size} "
+        f"params={state_bytes / 16 / 1e9:.3f}B fp32 master weights, bf16 compute, "
+        f"remat={cfg.remat}, adamw; {ZAMBA_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {accum} microbatches; wall {wall:.1f}s (init included)")
+    log(f"zamba2 training: losses={[round(v, 4) for v in losses]} "
+        f"first_step={s['first_step_s']:.3f}s step={s['step_s']:.3f}s "
+        f"tokens/s={s['tokens_per_s']:.1f} tokens/s/W={s['tokens_per_s'] / watts:.4f} at "
+        f"power.limit {watts:.0f} W ({name}) max_memory_allocated="
+        f"{s['peak_memory_bytes'] / 2**30:.2f}GiB (params+grads+adamw state "
+        f"{state_bytes / 2**30:.2f}GiB)")
+    log(f"zamba2 training: launches by body {got} (expected {want}); plain_calls="
+        f"{plain or 0}")
+    if len(losses) != ZAMBA_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"zamba2 training: losses {losses}")
+    if got != want or plain:
+        raise AssertionError(f"zamba2 training: launches {got}, expected {want}; plain "
+                             f"calls {plain}")
+    tr = out["trainer"]
+    batch = next(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tr._step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("zamba2 training profile: the profiler saw no device time")
+    by = {"K7 matmul": ("matmul_wgmma_kernel", "matmul_kernel"),
+          "K5 ssm_scan": ("ssd_", "ssm_scan_kernel"), "K5 backward": ("ssm_bwd_",),
+          "K4 flash_attention": ("flash",), "K4 backward": ("fa_bwd_",)}
+    parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
+             for k, v in by.items()}
+    log(f"zamba2 training profile (one step, {accum} microbatches): wall={wall:.3f}s "
+        f"device_busy={busy:.3f}s busy_share={busy / wall:.3f} idle_share="
+        f"{1 - busy / wall:.3f}; " + ", ".join(f"{k} {v:.3f}s ({v / busy:.3f} of device "
+                                               f"time)" for k, v in parts.items()))
+    for ms, count, key in rows[:16]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in got.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3928,7 +4333,8 @@ def main() -> int:
     results["matmul"] = k7[K7_TIMED[0][0]]
     timed("13 matmul backward", matmul_backward_phase, torch, table)
     timed("14 training path check", train_path_check, torch, np)
-    launches["matmul"] = timed("15 training", training_phase, torch, np, table)
+    trained = timed("15 training", training_phase, torch, np, table)
+    launches["matmul"] = trained.pop("matmul")
     timed("16 checkpoint", checkpoint_phase, torch, np)
     contiguous, contiguous_stats = timed("17 contiguous serving", contiguous_serving_phase,
                                          torch, np, table, bf16_serving)
@@ -3953,6 +4359,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("19 gate", tier_gate, torch, np)
     timed("20 gate", fleet_gate, torch, np)
+    results.update(timed("21a attention backward", attention_backward_phase, torch, table))
+    results.update(timed("21b scan backward", scan_backward_phase, torch, table))
+    timed("21c zamba2 training path check", hybrid_train_path_check, torch, np)
+    zamba_trained = timed("21d zamba2 training", hybrid_training_phase, torch, np, table)
+    # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
+    # zamba2's K5, K4, their backward kernels and K7 (21d)
+    launches["flash_attention"] += trained["flash_attention"]
+    launches["flash_attention_backward"] = trained["flash_attention_backward"]
+    launches["ssm_scan_backward"] = 0
+    for name, count in zamba_trained.items():
+        launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
     for name, count in (list(contiguous.items()) + list(spec.items()) + list(tier.items())
@@ -3963,7 +4380,8 @@ def main() -> int:
     kernels = []
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "paged_decode_attention:int8", "paged_prefill_attention:int8",
-                 "decode_attention", "flash_attention", "ssm_scan", "conv2d", "matmul"):
+                 "decode_attention", "flash_attention", "flash_attention_backward",
+                 "ssm_scan", "ssm_scan_backward", "conv2d", "matmul"):
         k, r = table[name.split(":")[0]], results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
@@ -3972,6 +4390,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]})
+        if k.note:
+            kernels[-1]["note"] = k.note
         for extra in ("fma_ms", "bf16_body_ms", "sdpa_dequantized_ms"):
             if extra in r:   # the FMA body, the bf16 body on the dequantized pool, SDPA on it
                 kernels[-1][extra] = r[extra]

@@ -24,7 +24,8 @@ run on a CPU in seconds): a product summed in fp64 and rounded once to
 the type (what a right kernel can at best return) against the plain
 version in fp32, and the same with the first 32-deep slice of K lost.
 
-``--card``: copies ``src/`` into a temporary directory and changes one
+``--card`` (``--card --only a.cu,b.cu``: only the mutants of those
+sources): copies ``src/`` into a temporary directory and changes one
 source file there (a kernel's ``.cu``, or a ``.cuh`` that several kernels
 share), as ``MUTANTS`` lists: each paged attention kernel's FMA block loop
 skips pool block 0 when more than two blocks are live; K2's tensor-core
@@ -41,7 +42,10 @@ the state carried into the next chunk, its tensor-core body drops it in
 the state passing (phase (b)), or loses the lo half of the weighted
 scores (Q K^T o W as bf16 hi alone: a precision loss, no lost term), each
 of those two required to fail every case by 8x or more; the flash kernel (K4) skips the diagonal KV
-tile, in its FMA body and in its tensor-core body; the dense decode
+tile, in its FMA body and in its tensor-core body; K4's backward skips
+the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
+pass; K5's backward drops the gradient carried back over the chunks in
+its state pass, or loses dq's inter-chunk term; the dense decode
 kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
 64-deep K stage in its wgmma body.  Builds each kernel the file feeds
@@ -49,13 +53,16 @@ from the copy and runs chip_smoke's gate on that kernel's cases (fp32
 and bf16 for attention and the scan -- for an int8 loader the paged
 kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
 against the plain version in fp32 on the dequantized values -- at zamba2 widths for K5, on
-``DENSE_DECODE_CASES`` for K3 and on ``K4_SHAPES`` for K4; fp32 / fp16 /
+``DENSE_DECODE_CASES`` for K3 and on ``K4_SHAPES`` for K4; the backward
+kernels on ``K4B_GATE_CASES`` and zamba2's widths at ``K5B_GATE_S``, fp32
+and bf16, the plain version in fp32 on the same values; fp32 / fp16 /
 bf16 on the gate shapes at batch 8 for conv; chip_smoke's ``K7_CASES`` at
 fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
 fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
 broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
-for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; K6's reduction: the cases
+for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; the backward
+kernels' one body: fp32 and bf16; K6's reduction: the cases
 cut into K slices; K7's FMA body: fp32
 and the 16-bit cases TMA cannot read; its wgmma body: bf16 and fp16 --
 for a kernel of two bodies, only the cases its route sends to the broken
@@ -97,6 +104,20 @@ SSD_LOSE_LO = "for (int part = 0; part < 1; ++part) {  // the lo half is lost"
 TILE_LOOP = "for (int it = 0; it < ntile; ++it) {"
 SKIP_DIAGONAL = "for (int it = 0; it < ntile - causal; ++it) {"
 SKIP_LAST_TILE = "for (int it = 0; it < ntile - 1; ++it) {"
+K4B_DKDV_LOOP = "for (int i0 = causal ? j0 : 0; i0 < S; i0 += BT) {"
+K4B_DKDV_SKIP_DIAGONAL = ("for (int i0 = causal ? j0 + BT : 0; i0 < S; i0 += BT) {"
+                          "  // the diagonal q tile lost")
+K4B_DQ_ADD = "mm(dq_acc, dst, LDT, 1, ks, LD, 1, nj);   // dQ += dS K"
+K4B_DQ_SKIP_TILE_0 = ("if (j0 > 0) mm(dq_acc, dst, LDT, 1, ks, LD, 1, nj);"
+                      "  // kv tile 0 lost")
+K5B_CARRY = "g = decay * g + u;"
+K5B_DROP_CARRY = "g = u;  // the gradient carried back is dropped"
+K5B_INTER = "dq_acc[a][c] = fmaf(wq, z[a][c], dq_acc[a][c]);"
+K5B_LOSE_INTER = "(void)wq;  // the inter-chunk term of dq is lost"
+# the backward kernels' cases: K4's on chip_smoke's phase 21a shapes, K5's
+# at zamba2's widths with a carried state and d_final
+K4B_GATE_CASES = ((1, 512, 16, 2, 128), (1, 512, 32, 32, 64), (1, 333, 32, 32, 64))
+K5B_GATE_S = (512, 1000)
 K7_ADD = "for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];"
 K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
                  "acc[i][j] += (k0 == 0 && K > 2 * BK) ? 0.f : part[i][j];  // slice 0 lost")
@@ -183,6 +204,18 @@ MUTANTS = (
     ("flash_attention.cu", MMA_TILE_LOOP, MMA_SKIP_DIAGONAL,
      "tensor-core body: skips the diagonal KV tile when causal",
      (("flash_attention", ("bfloat16",), "mma"),)),
+    ("flash_attention_backward.cu", K4B_DKDV_LOOP, K4B_DKDV_SKIP_DIAGONAL,
+     "K4's backward: the dK / dV pass skips the diagonal q tile",
+     (("flash_attention_backward", ("float32", "bfloat16"), "fma"),)),
+    ("flash_attention_backward.cu", K4B_DQ_ADD, K4B_DQ_SKIP_TILE_0,
+     "K4's backward: the dQ pass loses kv tile 0",
+     (("flash_attention_backward", ("float32", "bfloat16"), "fma"),)),
+    ("ssm_scan_backward.cu", K5B_CARRY, K5B_DROP_CARRY,
+     "K5's backward: the state pass drops the gradient carried back into each chunk",
+     (("ssm_scan_backward", ("float32", "bfloat16"), "fma"),)),
+    ("ssm_scan_backward.cu", K5B_INTER, K5B_LOSE_INTER,
+     "K5's backward: dq loses its inter-chunk term",
+     (("ssm_scan_backward", ("float32", "bfloat16"), "fma"),)),
     ("decode_attention.cu", TILE_LOOP, SKIP_LAST_TILE, "FMA body: skips the last live KV tile",
      (("decode_attention", ("float32", "bfloat16"), "fma"),)),
     ("matmul.cu", K7_ADD, K7_LOSE_SLICE,
@@ -401,8 +434,11 @@ def matmul_cpu_check(torch) -> None:
 def card_check() -> None:
     if sys.argv[2:3] == ["--mutant"]:
         return mutant_gate(*sys.argv[3:8])
+    only = sys.argv[3].split(",") if sys.argv[2:3] == ["--only"] else None
     missed = []
     for source, text, broken, what, feeds in MUTANTS:
+        if only and source not in only:
+            continue
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree(ROOT / "src", Path(d) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -451,6 +487,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0],
                                                                              args[1])},
                "ssm_scan": lambda args, kw: {ssm_body_for(*args[:3])},
+               "flash_attention_backward": lambda args, kw: {"fma"},
+               "ssm_scan_backward": lambda args, kw: {"fma"},
                "conv2d": conv_tags}.get(name, lambda args, kw: set())
     # a paged FMA body's broken loop changes only cases with a row that sees
     # more than two pool blocks (the lengths are the last operand)
@@ -468,6 +506,27 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                       torch, S, dt, H=H, N=N, P=N, shared=sh)[0], {"chunk": 128})
                  for S, H, N, sh in ((1000, 64, 64, True), (1024, 64, 64, True),
                                      (1000, 4, 128, False))]
+        dtypes = (torch.float32, torch.bfloat16)
+    elif name == "flash_attention_backward":
+        def k4b_case(dt, B, S, H, K, D):
+            q, k, v, do = cs.attention_grad_case(torch, B, S, H, K, D, dt)
+            out, lse = dispatch.kernel_table()["flash_attention"].plain(
+                q.float(), k.float(), v.float(), causal=True, with_lse=True)
+            return q, k, v, out.to(dt).contiguous(), do, lse
+        cases = [("B={} S={} H={} K={} D={} causal".format(*c),
+                  lambda dt, c=c: k4b_case(dt, *c), {"causal": True})
+                 for c in K4B_GATE_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
+    elif name == "ssm_scan_backward":
+        def k5b_case(dt, S):
+            args, _ = cs.ssm_case(torch, S, dt)
+            g = torch.Generator("cuda").manual_seed(S + 7)
+            dy = torch.randn((1, S, 64, 64), generator=g, device="cuda")
+            df = torch.randn((1, 64, 64, 64), generator=g, device="cuda")
+            return (*args, dy, df)
+        cases = [(f"B=1 S={S} H=64 N=P=64 shared B/C, d_final",
+                  lambda dt, S=S: k5b_case(dt, S), {"chunk": 128})
+                 for S in K5B_GATE_S]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "flash_attention":
         cases = [(f"B={B} S={S} H={H} K={K} D={D} causal",

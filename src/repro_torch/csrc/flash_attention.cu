@@ -8,7 +8,10 @@
 // q_pos) or not, online softmax in fp32 with the Pallas kernel's NEG_INF,
 // m_safe and l >= 1e-30, p rounded to the input type before the PV
 // product.  Any S: the ragged edge is masked, where the Pallas kernel
-// asserts S % 512 == 0.
+// asserts S % 512 == 0.  Beyond the Pallas kernel, each row's log-sum-exp
+// of its scaled scores is written out when asked (training keeps it for
+// the backward kernel, flash_attention_backward.cu); the output is the
+// same bits either way.
 //
 // What bounds it on an H100: operations.  zamba2-1.2b's shared-block
 // prefill at S=1000 (H=K=32, D=64, bf16) does ~4.1 GFLOP of causal QK^T
@@ -51,12 +54,19 @@ using namespace paged;
 constexpr int TILE_ROWS = 64;   // query rows per block
 constexpr int KV_TILE = 64;     // K/V rows staged per step
 
+// A row's log-sum-exp from its running max and sum, as the output divides
+// by them: p = exp(s - m_safe) / max(l, 1e-30) = exp(s - lse).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return fmaxf(m, NEG_INF / 2) + logf(fmaxf(l, 1e-30f));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q,     // (B, S, H, D)
     const T* __restrict__ k,     // (B, S, K, D)
     const T* __restrict__ v,     // (B, S, K, D)
     T* __restrict__ out,         // (B, S, H, D)
+    float* __restrict__ lse,     // (B, H, S) or null
     int S, int H, int K, int D, int causal, float scale) {
   const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
   const int G = H / K;
@@ -122,11 +132,16 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     out[(((size_t)b * S + s) * H + (size_t)kv * G + g) * D + d] =
         from_f<T>(acc[i] / fmaxf(l_s[rr], 1e-30f));
   }
+  if (lse)
+    for (int rr = tid; rr < nr; rr += blockDim.x) {
+      const int r = r0 + rr, s = r / G, g = r - s * G;
+      lse[((size_t)b * H + (size_t)kv * G + g) * S + s] = row_lse(m_s[rr], l_s[rr]);
+    }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-           int K, int D, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int H, int K, int D, int causal, float scale, cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 2 * (size_t)KV_TILE * D * sizeof(T) +
                       ((size_t)2 * TILE_ROWS * D + (size_t)TILE_ROWS * KV_TILE +
@@ -140,7 +155,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const dim3 grid(B, K, (S * G + TILE_ROWS - 1) / TILE_ROWS);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, K, D, causal, scale);
+      static_cast<T*>(out), lse, S, H, K, D, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -173,6 +188,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ k,   // (B, S, K, D)
     const __nv_bfloat16* __restrict__ v,   // (B, S, K, D)
     __nv_bfloat16* __restrict__ out,       // (B, S, H, D)
+    float* __restrict__ lse,               // (B, H, S) or null
     int S, int H, int K, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KV_ROWS * D]
@@ -229,11 +245,20 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
   }
   mma_attn::store_rows<D>(st, ra < rows ? out + head_row(ra) : nullptr,
                           rb < rows ? out + head_row(rb) : nullptr);
+  // store_rows has summed l over the four threads of each row
+  if (lse && lane % 4 == 0) {
+    auto lse_at = [&](int r) -> size_t {   // row r's entry of the (B, H, S) lse
+      const int s = r / G, g = r - s * G;
+      return ((size_t)b * H + (size_t)kv * G + g) * S + s;
+    };
+    if (ra < rows) lse[lse_at(ra)] = row_lse(st.m_a, st.l_a);
+    if (rb < rows) lse[lse_at(rb)] = row_lse(st.m_b, st.l_b);
+  }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-               int K, int causal, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int S, int H, int K, int causal, float scale, cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 4 * (size_t)KV_ROWS * D * sizeof(__nv_bfloat16);
   auto kernel = flash_mma_kernel<D>;
@@ -247,28 +272,32 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(B, K, (S * G + TILE_ROWS - 1) / TILE_ROWS);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, K,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H, K,
       causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  body: 0
-// the FMA body (any D), 1 the tensor-core body (bf16, D = 64 or 128).
-// Returns 0 or the CUDA error of the launch.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  lse: null,
+// or a (B, H, S) fp32 output that takes each row's log-sum-exp of its
+// scaled scores, m_safe + log(max(l, 1e-30)) -- what the backward
+// (flash_attention_backward.cu) rebuilds P from; out is the same either
+// way.  body: 0 the FMA body (any D), 1 the tensor-core body (bf16, D = 64
+// or 128).  Returns 0 or the CUDA error of the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               int dtype, int B, int S, int H, int K, int D, int causal,
-                               float scale, int body, void* stream) {
+                               void* lse, int dtype, int B, int S, int H, int K, int D,
+                               int causal, float scale, int body, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (body == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (D == 64) return launch_mma<64>(q, k, v, out, B, S, H, K, causal, scale, s);
-    if (D == 128) return launch_mma<128>(q, k, v, out, B, S, H, K, causal, scale, s);
+    if (D == 64) return launch_mma<64>(q, k, v, out, l, B, S, H, K, causal, scale, s);
+    if (D == 128) return launch_mma<128>(q, k, v, out, l, B, S, H, K, causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, H, K, D, causal, scale, s);
-  return launch<float>(q, k, v, out, B, S, H, K, D, causal, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, out, l, B, S, H, K, D, causal, scale, s);
+  return launch<float>(q, k, v, out, l, B, S, H, K, D, causal, scale, s);
 }

@@ -7,6 +7,9 @@ covers the sources and the flags, so an edited kernel is rebuilt and a
 built one is reused, with the ``-Xptxas -v`` output of its build read back
 from ``<name>-<digest>.log``.  :func:`build` starts one ``nvcc`` per
 source, all at once.  A failed build raises with nvcc's output.
+:func:`load` may first be called from any thread (autograd runs a
+backward on a thread of its own): one lock covers a library's first build
+and load, and a build's temporary file is named by process and thread.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -24,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LOGS: dict[str, str] = {}            # name -> nvcc output (kept beside the .so)
 CACHED: set[str] = set()             # names whose .so was built by an earlier run
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}  # guarded-by: _LOCK (written)
+_LOCK = threading.Lock()
 
 
 def sources() -> list[str]:
@@ -61,7 +66,7 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
             LOGS[name] = log.read_text() if log.exists() else ""
             CACHED.add(name)
             continue
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -84,10 +89,14 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
     """The built library of kernel ``name`` (building it on first use),
     with the C entry point ``name`` typed as ``argtypes -> int``."""
     lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib

@@ -2,7 +2,10 @@
 
 A call with CUDA tensors launches the hand-written kernel or raises; a call
 with CPU tensors takes the plain version.  Nothing falls back: a kernel that
-fails to build or launch raises to the caller.  The one way to run the plain
+fails to build or launch raises to the caller.  A kernel writes through raw
+pointers, so its output has no ``grad_fn``: a call on the card with grad on
+and an input that requires grad raises, naming the differentiable wrapper
+that carries the kernel's gradient (K4, K5, K7) or saying it has none.  The one way to run the plain
 version on the card is to ask for it explicitly with :func:`plain_versions`
 (used to hold the kernels against their plain versions on the same inputs).
 
@@ -28,13 +31,16 @@ class Kernel:
     the plain PyTorch version with the same signature."""
 
     def __init__(self, name: str, launch: Callable, plain: Callable, *,
-                 source: str, replaces: str, tolerance: Callable):
+                 source: str, replaces: str, tolerance: Callable,
+                 note: str = "", gradient: str = ""):
         self.name = name
         self.launch = launch
         self.plain = plain
         self.tolerance = tolerance    # (out, fp32 ref[, K]) -> largest err/limit
         self.source = source          # CUDA source, relative to the repo
         self.replaces = replaces      # the TPU kernel it replaces, file:line
+        self.note = note              # what ``replaces`` cannot say (a backward)
+        self.gradient = gradient      # the differentiable wrapper, if any
         # the counts are bumped from every thread that runs a model (the
         # executors of a replica fleet launch at once): a read-modify-write
         # without the lock loses increments
@@ -52,6 +58,16 @@ class Kernel:
     def __call__(self, *args, **kw):
         device = args[0].device
         if device.type == "cuda" and not _MODE.plain:
+            if torch.is_grad_enabled() and any(
+                    isinstance(a, torch.Tensor) and a.requires_grad
+                    for a in (*args, *kw.values())):
+                # the kernel writes through raw pointers: its output has no
+                # grad_fn, and the gradients upstream would be lost silently
+                where = (f"its gradient comes through {self.gradient}"
+                         if self.gradient else "it has no backward kernel")
+                raise RuntimeError(
+                    f"{self.name}: an input requires grad, and {where}; call "
+                    f"it under torch.no_grad() or on inputs that do not")
             return self.launch(*args, **kw)
         if device.type in ("cpu", "cuda"):
             with self._lock:
@@ -76,12 +92,16 @@ _TABLE: dict[str, Kernel] = {}
 
 def register_kernel(name: str, launch: Callable, plain: Callable, *,
                     source: str, replaces: str,
-                    tolerance: Callable | None = None) -> Kernel:
+                    tolerance: Callable | None = None, note: str = "",
+                    gradient: str = "") -> Kernel:
     """Register a kernel's CUDA launcher and its plain version, with the
     limit it is held to on the card (default: :func:`tolerance_ratio`, the
-    attention kernels')."""
+    attention kernels').  ``gradient`` names the differentiable wrapper
+    that carries the kernel's gradient; a direct call on the card with an
+    input that requires grad raises."""
     entry = Kernel(name, launch, plain, source=source, replaces=replaces,
-                   tolerance=tolerance or tolerance_ratio)
+                   tolerance=tolerance or tolerance_ratio, note=note,
+                   gradient=gradient)
     _TABLE[name] = entry
     return entry
 
@@ -271,3 +291,35 @@ def matmul_tolerance_ratio(out, ref, k: int) -> float:
     floor = MATMUL_K_ATOL * max(k, 1) ** 0.5 * ref.abs().max()
     limit = MATMUL_RTOL[out.dtype] * ref.abs() + floor
     return (err / limit.clamp(min=1e-30)).max().item()
+
+
+# The backward kernels (K4's, K5's) against their plain versions evaluated
+# in fp32 on the same values, each gradient: the largest |out - ref| within
+# GRAD_RTOL of the largest |ref| of that gradient (a gradient's entries
+# span orders of magnitude, and what is checked is the sums, which both
+# take in fp32 in other orders).  The plain versions' own fp32 rounding,
+# measured against the same formulas in fp64 on the CPU at the card's
+# shapes (K4 at qwen2.5-3b's and zamba2-1.2b's heads, S 512 and 333; K5
+# at zamba2's widths, S 512 and 1000; tests/test_torch_backward.py), is
+# 2.6e-7 to 1.4e-6 of the largest, so two right fp32 sums differ by a few
+# 1e-6: the fp32 limit 2^-14 (6.1e-5) is ~20x that.  A bf16 gradient adds its one rounding, at most
+# 2^-9 of the largest: limit 2^-8.  A lost kv or q tile, chunk or state
+# moves a gradient by a large share of its largest.  A gradient that is 0
+# in exact arithmetic (attention over one key: dq = dk = 0, since dP = D
+# there) is left with the rounding of dP - D alone, of the scale of the
+# call's other gradients: each gradient's largest is floored at
+# GRAD_FLOOR of the largest gradient of the call.
+GRAD_RTOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -8}
+GRAD_FLOOR = 2.0 ** -6
+
+
+def grad_tolerance_ratio(outs, refs) -> float:
+    """``max |out - ref| / (GRAD_RTOL[out.dtype] * max(max |ref|,
+    GRAD_FLOOR * the call's largest |ref|))`` over each pair of gradients
+    (None where the call returns none); the largest (<= 1 passes)."""
+    pairs = [(o, r.float()) for o, r in zip(outs, refs) if o is not None]
+    top = max(r.abs().max() for _, r in pairs)
+    return max(((o.float() - r).abs().max()
+                / (GRAD_RTOL[o.dtype] * torch.maximum(r.abs().max(), GRAD_FLOOR * top)
+                   .clamp(min=1e-30))).item()
+               for o, r in pairs)

@@ -150,7 +150,8 @@ KERNEL = register_kernel(
     "matmul", _launch, matmul_ref,
     source="src/repro_torch/csrc/matmul.cu",
     replaces="src/repro/kernels/matmul/kernel.py:36",
-    tolerance=matmul_tolerance_ratio)
+    tolerance=matmul_tolerance_ratio,
+    gradient="repro_torch.models.layers.linear.matmul")
 
 
 def matmul(x, y):

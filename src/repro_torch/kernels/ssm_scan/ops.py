@@ -7,7 +7,13 @@ The kernel has two bodies, and :func:`body_for` picks one before the
 launch: bf16 q/k/v with N = P in ``MMA_WIDTHS`` run the chunk-parallel SSD
 decomposition on the tensor cores (``mma``: chunk sums, state passing and
 chunk outputs, three launches of one call), everything else -- every fp32
-call among them -- the chunk loop on plain FMA."""
+call among them -- the chunk loop on plain FMA.
+
+The backward is the CUDA kernel ``csrc/ssm_scan_backward.cu`` beside its
+plain version, one FMA body (``fma``).  :func:`ssm_scan` is
+differentiable: a call whose inputs require grad goes through
+:class:`_SsmScan`; every other call -- the serving paths -- launches the
+forward as it is."""
 from __future__ import annotations
 
 import ctypes
@@ -15,12 +21,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import (check_operand, register_kernel,
-                                          ssm_tolerance_ratio)
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.dispatch import (check_operand, grad_tolerance_ratio,
+                                          register_kernel, ssm_tolerance_ratio)
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_backward_ref, ssm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_BWD_THREADS = 256            # csrc/ssm_scan_backward.cu's block
 MAX_CHUNK = 128
 SMEM_LIMIT = 232_448          # shared memory one block may use on Hopper
 MMA_WIDTHS = (16, 32, 64, 128)    # the tensor-core body's instances, N = P
@@ -111,7 +119,104 @@ KERNEL = register_kernel(
     "ssm_scan", _launch, ssm_scan_ref,
     source="src/repro_torch/csrc/ssm_scan.cu",
     replaces="src/repro/kernels/ssm_scan/kernel.py:64",
-    tolerance=ssm_tolerance_ratio)
+    tolerance=ssm_tolerance_ratio,
+    gradient="repro_torch.kernels.ssm_scan.ops.ssm_scan")
+
+
+def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
+                     chunk=128, initial_state=None):
+    """Check the operands, allocate the gradients and the fp32 scratch, and
+    launch the backward on the current stream.  q and k as the forward
+    takes them (contiguous or a stride-0 head view); dq and dk come back
+    contiguous (B, S, H, N), one row a head, for autograd to sum."""
+    B, S, H, N = k.shape
+    P = v.shape[-1]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
+    check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE),
+                  shape=(B, S, H, N), broadcast_dim=2)
+    check_operand(k, "k", device=dev, dtypes=(q.dtype,), shape=(B, S, H, N),
+                  broadcast_dim=2)
+    check_operand(v, "v", device=dev, dtypes=(q.dtype,), shape=(B, S, H, P))
+    gate = log_gate if log_gate is not None else torch.zeros_like(log_decay)
+    for name, t in (("log_decay", log_decay), ("log_gate", gate)):
+        check_operand(t, name, device=dev, dtypes=(torch.float32,), shape=(B, S, H))
+    check_operand(dy, "dy", device=dev, dtypes=(torch.float32,), shape=(B, S, H, P))
+    for name, t in (("initial_state", initial_state), ("d_final", d_final)):
+        if t is not None:
+            check_operand(t, name, device=dev, dtypes=(torch.float32,),
+                          shape=(B, H, N, P))
+    chunk = min(chunk, S)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk={chunk}: the kernel takes 1..{MAX_CHUNK}")
+    lib = build.load("ssm_scan_backward", _BWD_ARGTYPES)
+    smem = lib.ssm_backward_smem_bytes(N, P, chunk)
+    if not 0 <= smem <= SMEM_LIMIT:
+        raise ValueError(f"the backward takes N and P up to 128 in at most "
+                         f"{SMEM_LIMIT} bytes of shared memory a block: N={N} P={P} "
+                         f"chunk {chunk} ({smem})")
+    strides = q.stride()[:3] + k.stride()[:3]
+    if max(strides) >= 2**31 or B * S * H * max(N, P) >= 2**31:
+        raise ValueError("q/k strides or the gradients' sizes do not fit the "
+                         "kernel's int")
+    dq = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(v)
+    d_decay = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    d_gate = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    d_init = None if initial_state is None else torch.empty_like(initial_state)
+    # S_c then H_{c-1}, U_c then G_c (B, H, C, N, P); totals (B, H, C); the
+    # state pass's per-block shares of dT (B, H, C, cdiv(N P, 256)); row
+    # sums, column sums and summary terms (B, H, C, chunk)
+    bhc = B * H * -(-S // chunk)
+    nb = -(-(N * P) // _BWD_THREADS)
+    scratch = torch.empty(bhc * (2 * N * P + 1 + nb + 3 * chunk),
+                          dtype=torch.float32, device=dev)
+    BACKWARD.count_launch("fma")
+    err = lib.ssm_scan_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
+        gate.data_ptr(), None if initial_state is None else initial_state.data_ptr(),
+        dy.data_ptr(), None if d_final is None else d_final.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d_decay.data_ptr(),
+        d_gate.data_ptr(), None if d_init is None else d_init.data_ptr(),
+        scratch.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, N, P, chunk, *strides,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssm_scan_backward: CUDA error {err}")
+    return dq, dk, dv, d_decay, None if log_gate is None else d_gate, d_init
+
+
+BACKWARD = register_kernel(
+    "ssm_scan_backward", _launch_backward, ssm_scan_backward_ref,
+    source="src/repro_torch/csrc/ssm_scan_backward.cu",
+    replaces="src/repro/kernels/ssm_scan/kernel.py:64",
+    note="backward, no Pallas counterpart: the reference differentiates its "
+         "plain function, src/repro/models/layers/ssm.py:27",
+    tolerance=grad_tolerance_ratio)
+
+
+class _SsmScan(torch.autograd.Function):
+    """K5 with its gradient: the forward as it is, the backward
+    :data:`BACKWARD` (the kernels on the card, their plain versions on the
+    CPU).  An output nothing used comes back as zeros (autograd's
+    default), the final state's in training."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, log_gate, initial_state, chunk):
+        y, final = KERNEL(q, k, v, log_decay, log_gate, chunk=chunk,
+                          initial_state=initial_state)
+        ctx.save_for_backward(q, k, v, log_decay, log_gate, initial_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        q, k, v, log_decay, log_gate, initial_state = ctx.saved_tensors
+        grads = BACKWARD(q, k, v, log_decay, log_gate, dy.contiguous(),
+                         d_final.contiguous(), chunk=ctx.chunk,
+                         initial_state=initial_state)
+        return (*grads, None)
 
 
 def ssm_scan(q, k, v, log_decay, log_gate=None, *, chunk: int = 128,
@@ -122,7 +227,12 @@ def ssm_scan(q, k, v, log_decay, log_gate=None, *, chunk: int = 128,
     H, P) bf16 or fp32; log_decay, log_gate: (B, S, H) fp32 (``log_gate``
     None -> 0); initial_state: (B, H, N, P) fp32 or None.  Any S.  Returns
     (y (B, S, H, P) fp32, final_state (B, H, N, P) fp32).  CUDA tensors run
-    the kernel, CPU tensors the plain version.
+    the kernel, CPU tensors the plain version.  Differentiable: where grad
+    is on and an input requires it, through :class:`_SsmScan`.
     """
+    inputs = (q, k, v, log_decay, log_gate, initial_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return _SsmScan.apply(*inputs, chunk)
     return KERNEL(q, k, v, log_decay, log_gate, chunk=chunk,
                   initial_state=initial_state)

@@ -1,8 +1,10 @@
 """Training launcher for the PyTorch/CUDA port (counterpart of
 ``repro/launch/train.py``, with ``--device``): the ported Trainer on one
 card, every weight product of the forward and backward through the K7
-matmul kernel.  Prints the first and last loss, the step time, tokens/s,
-tokens/s/W against the card's power limit and the peak device memory.
+matmul kernel, attention through K4 and (zamba2's Mamba-2 layers) the
+scan through K5, each with its backward kernel.  Prints the first and
+last loss, the step time, tokens/s, tokens/s/W against the card's power
+limit and the peak device memory.
 
 Example (on a machine with an NVIDIA card): qwen2.5-3b at full width,
 4 steps of 8 x 512 tokens in 8 microbatches (the config's ``accum_steps``;
@@ -12,6 +14,9 @@ the launcher's default is 1, as the reference's):
   # the kernels' plain versions, on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --device cpu --steps 20 --batch 4 --seq 16
+  # zamba2-1.2b at full width, 3 steps of 8 x 512 in 8 microbatches:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --steps 3 --batch 8 --seq 512 --accum 8
 """
 from __future__ import annotations
 

@@ -10,25 +10,30 @@ contiguous KV cache.  Decode state: per-layer Mamba states plus one KV
 cache per shared-block application.
 
 Kernels on the path (the CUDA kernels on the card, their plain versions on
-the CPU): the Mamba-2 prefill scan through ``ssm_scan`` (K5, one launch
-per Mamba layer), the shared block's causal prefill attention through
-``flash_attention`` (K4, one per application) and its decode attention
-through the dense ``decode_attention`` (K3, one per application and
-step).  The reference computes all three with its plain functions
-(``chunked_linear_attn``, ``chunked_attention``).
+the CPU): the Mamba-2 scan through ``ssm_scan`` (K5, one launch per Mamba
+layer), the shared block's causal attention through ``flash_attention``
+(K4, one per application) and its decode attention through the dense
+``decode_attention`` (K3, one per application and step).  The reference
+computes all three with its plain functions (``chunked_linear_attn``,
+``chunked_attention``).  Training (:func:`forward`) runs K5 and K4 through
+their differentiable wrappers, whose backward is a hand-written kernel
+each, where the reference differentiates its plain functions.
 
 Differences from the reference: ``lax.scan`` over the stacked layers is a
 Python loop; decode writes the KV rows and the SSM states **in place**
 (the reference returns new arrays) and returns the state, which holds the
 updated tensors.  The conv histories come back as new tensors in the type
-the step computes them in, as the reference's scan returns them.
-Training (``forward``) waits for the training slice.
+the step computes them in, as the reference's scan returns them.  Under
+``remat`` each segment (its Mamba layers and the shared block) runs under
+``torch.utils.checkpoint`` where the reference ``jax.checkpoint``s its
+``seg_body``; the tail layers do not, as in the reference.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.distributed.collectives import seq_sharded_decode_attention
@@ -44,6 +49,7 @@ from repro_torch.models.layers.module import (cast_product_weights,
                                               tree_map, weight)
 from repro_torch.models.layers.norms import apply_norm, norm_table
 from repro_torch.models.transformer import _PRODUCT_WEIGHTS as _TF_WEIGHTS
+from repro_torch.models.transformer import _unstack_layers, check_row_positions
 
 
 class HybridState(NamedTuple):
@@ -162,29 +168,50 @@ def _stacked(leaves, lead, empty):
     return torch.stack(leaves).reshape(*lead, *leaves[0].shape)
 
 
-def _forward_core(cfg, params, tokens, positions, *, collect=False,
-                  chunk=1024):
+def _segment(cfg, layers, shared_p, x, e0, positions, chunk):
+    """One segment of the training forward: its Mamba layers, then the
+    shared block (the reference's ``seg_body`` without the states)."""
+    for p in layers:
+        x, _ = _mamba_residual(cfg, p, x)
+    return _shared_attn(cfg, shared_p, x, e0, positions, chunk=chunk)[0]
+
+
+def _forward_core(cfg, params, tokens, positions, *, remat=False,
+                  collect=False, chunk=1024):
     """Embed, the segments (Mamba layers then the shared block), the tail,
     the final norm.  Returns (x, HybridState or None); the state's KV
-    caches are the prompt's rows only (:func:`prefill` grows them)."""
+    caches are the prompt's rows only (:func:`prefill` grows them).
+
+    ``remat`` (training) with ``cfg.remat == "full"`` runs each segment
+    under ``torch.utils.checkpoint`` (non-reentrant): only its input is
+    kept, and the backward runs it again, K5 and K4 included (the
+    reference's ``nothing_saveable``).  ``"dots"`` is not ported."""
+    policy = cfg.remat if remat else "none"
+    if policy == "dots":
+        raise NotImplementedError("remat='dots' is not ported; use 'full' or 'none'")
+    if collect and policy != "none":
+        raise ValueError("the decode state is collected without remat")
     n_seg, e, tail = _segments(cfg)
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     e0 = x
     shared_p = params["shared"]
     states, ks, vs = [], [], []
-    for i in range(n_seg):
-        for j in range(e):
-            x, st = _mamba_residual(cfg, _layer(params["seg_blocks"], i, j),
-                                    x, want_state=collect)
+    for seg in _unstack_layers(params["seg_blocks"], n_seg):
+        layers = _unstack_layers(seg, e)
+        if policy != "none":
+            x = checkpoint(_segment, cfg, layers, shared_p, x, e0, positions,
+                           chunk, use_reentrant=False)
+            continue
+        for p in layers:
+            x, st = _mamba_residual(cfg, p, x, want_state=collect)
             states.append(st)
         x, nk, nv = _shared_attn(cfg, shared_p, x, e0, positions,
                                  chunk=chunk)
         ks.append(nk)
         vs.append(nv)
     tail_states = []
-    for j in range(tail):
-        x, st = _mamba_residual(cfg, _layer(params["tail_blocks"], j), x,
-                                want_state=collect)
+    for p in (_unstack_layers(params["tail_blocks"], tail) if tail else []):
+        x, st = _mamba_residual(cfg, p, x, want_state=collect)
         tail_states.append(st)
     x = apply_norm(cfg, params["ln_f"], x)
     if not collect:
@@ -204,6 +231,26 @@ def _forward_core(cfg, params, tokens, positions, *, collect=False,
         kv_k=torch.stack(ks), kv_v=torch.stack(vs),
         length=torch.full((B,), tokens.shape[1], dtype=torch.int32,
                           device=tokens.device))
+
+
+def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
+    """Training forward.  tokens: (B, S) -> full logits (B, S, V) fp32 and
+    the aux loss (0, as the reference's).  ``params`` are the fp32 master
+    weights, each product weight cast to the compute dtype at use; the
+    Mamba scans run K5 and the shared block's attention K4, both with
+    their backward kernels.  Given ``positions`` must be 0..S-1 (K4 masks
+    by row)."""
+    if positions is None:
+        B, Sq = tokens.shape
+        positions = torch.arange(Sq, dtype=torch.int32,
+                                 device=tokens.device).expand(B, Sq)
+    else:
+        check_row_positions(positions)
+    x, _ = _forward_core(cfg, params, tokens, positions, remat=remat,
+                         chunk=chunk)
+    lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
+                   cfg.final_logit_softcap)
+    return lg, torch.zeros((), dtype=torch.float32, device=lg.device)
 
 
 def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",

@@ -20,8 +20,9 @@ training forward, the hybrid family, ``:100-118``, and the cnn family,
   init_decode_state(cfg, batch, max_len, cache_dtype, device=...)
                                                 -> contiguous decode state
   forward(cfg, params, batch, ...)              -> (logits, aux_loss)
-    (dense: ``batch`` holds ``tokens`` [and ``positions``], logits (B, S,
-    V); cnn: ``batch`` holds ``images``, logits (B, classes))
+    (dense and hybrid: ``batch`` holds ``tokens`` [and ``positions``],
+    logits (B, S, V); cnn: ``batch`` holds ``images``, logits (B,
+    classes))
 
 A family serves from the paged pool when it has ``init_paged_state``, and
 from contiguous caches when it has ``init_decode_state``; the dense family
@@ -88,6 +89,11 @@ TRANSFORMER_FNS = ModelFns("dense", transformer.init, _tf_decode,
                            verify_paged=transformer.verify_paged)
 
 
+def _hy_forward(cfg, params, batch, *, remat=True, chunk=1024):
+    return hybrid.forward(cfg, params, batch["tokens"], batch.get("positions"),
+                          remat=remat, chunk=chunk)
+
+
 def _hy_prefill(cfg, params, batch, max_len=None, chunk=1024,
                 cache_dtype="bfloat16"):
     return hybrid.prefill(cfg, params, batch["tokens"], max_len=max_len,
@@ -109,7 +115,8 @@ def _hy_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
 
 
 HYBRID_FNS = ModelFns("hybrid", hybrid.init, _hy_decode, None, None,
-                      prefill=_hy_prefill, init_decode_state=_hy_state,
+                      forward=_hy_forward, prefill=_hy_prefill,
+                      init_decode_state=_hy_state,
                       prepare_params=hybrid.prepare_params)
 
 

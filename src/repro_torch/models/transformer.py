@@ -30,10 +30,11 @@ their plain PyTorch versions on the CPU: ``prefill`` through the dense
 flash kernel (K4), a contiguous decode through the dense decode kernel
 (K3), the paged paths through K1 and K2.  Every weight product, in serving
 and in training, goes through the K7 matmul kernel
-(:mod:`repro_torch.models.layers.linear`).  Training attention is the
-plain ``chunked_attention``, as the reference computes it outside any
-Pallas kernel: the caller picks the kernel by the branch of
-``_apply_backbone`` it takes, never by the device.
+(:mod:`repro_torch.models.layers.linear`).  Training attention goes
+through K4 as well, differentiable: its backward is a hand-written kernel
+(``csrc/flash_attention_backward.cu``), where the reference differentiates
+its plain ``chunked_attention``.  The caller picks the kernel by the
+branch of ``_apply_backbone`` it takes, never by the device.
 
 Differences from the reference: ``lax.scan`` over the stacked layers is a
 Python loop, and cache and pool writes happen **in place** (the
@@ -330,13 +331,14 @@ def _paged_prefill_attend(cfg, q, k_new, v_new, pool_k, pool_v, scales,
                                    chunk=chunk)
 
 
-def _flash_prefill_attend(cfg, q, k, v, chunk):
-    """The prompt's causal attention through the dense flash kernel (K4),
-    queries and keys at rows 0..S-1 -- the prefill's positions.  K4 has
-    neither a window nor a softcap, as the Pallas kernel it ports."""
+def _flash_attend(cfg, q, k, v, chunk):
+    """Causal self-attention through the dense flash kernel (K4) -- the
+    prompt's in prefill, the whole sequence's in training -- queries and
+    keys at rows 0..S-1.  K4 has neither a window nor a softcap, as the
+    Pallas kernel it ports."""
     if cfg.sliding_window or cfg.attn_logit_softcap:
         raise NotImplementedError(
-            "prefill through the flash kernel: no sliding window or softcap")
+            "attention through the flash kernel: no sliding window or softcap")
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True, chunk=chunk)
 
@@ -346,10 +348,12 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
                 paged_prefill=None, kv_out=None, chunk=1024):
     """One transformer block.
 
-    Without a cache: causal self-attention over the whole of x (B, S, D) --
-    the plain ``chunked_attention`` for training, as in the reference, or,
-    when ``kv_out`` is a list (prefill), the flash kernel, with this
-    layer's (k, v) appended to ``kv_out``.  With this layer's paged pools
+    Without a cache: causal self-attention over the whole of x (B, S, D)
+    through the flash kernel (K4; differentiable, so training's backward
+    runs K4's backward kernel where the reference differentiates its plain
+    ``chunked_attention``), and when ``kv_out`` is a list (prefill) this
+    layer's (k, v) appended to it.  K4 masks by row index: ``positions``
+    must be 0..S-1 (:func:`forward` checks it).  With this layer's paged pools
     (``block_tables`` given): decode (``paged_prefill`` None) takes x of
     (B, 1, D) and writes the new KV row at ``kv_len``; prefill and verify
     (``paged_prefill`` a dict of write_ids/table/q_start/kv_len) write the
@@ -361,14 +365,10 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
     """
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
-    if cache_k is None and kv_out is not None:
-        attn = _flash_prefill_attend(cfg, q, k, v, chunk)
-        kv_out.append((k, v))
-    elif cache_k is None:
-        attn = A.chunked_attention(q, k, v, causal=True, q_positions=positions,
-                                   kv_positions=positions,
-                                   softcap=cfg.attn_logit_softcap,
-                                   window=cfg.sliding_window, chunk=chunk)
+    if cache_k is None:
+        attn = _flash_attend(cfg, q, k, v, chunk)
+        if kv_out is not None:
+            kv_out.append((k, v))
     elif block_tables is None:
         ks, vs = cache_scales if cache_scales is not None else (None, None)
         attn = seq_sharded_decode_attention(
@@ -470,14 +470,28 @@ def default_positions(cfg, tokens: torch.Tensor) -> torch.Tensor:
     return pos
 
 
+def check_row_positions(positions: torch.Tensor) -> None:
+    """Raise unless ``positions`` (..., S) holds each row's index 0..S-1:
+    the flash kernel masks by row index, not by position."""
+    S = positions.shape[-1]
+    rows = torch.arange(S, dtype=positions.dtype, device=positions.device)
+    if not bool((positions == rows).all()):
+        raise ValueError("training attention runs the flash kernel, which masks "
+                         "by row: positions must be 0..S-1 in every row")
+
+
 def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
     """Training forward.  tokens: (B, S) -> full logits (B, S, V) fp32 and
     the aux loss (0: the dense family has no router).  ``params`` are the
     fp32 master weights: each product casts its weight to the compute
     dtype at use, as the reference does (under ``remat="full"`` the block's
-    casts run again in the recompute; nothing is cached across steps)."""
+    casts run again in the recompute; nothing is cached across steps).
+    Attention runs K4 and its backward kernel; given ``positions`` must be
+    0..S-1, as every training batch's are."""
     if positions is None:
         positions = default_positions(cfg, tokens)
+    else:
+        check_row_positions(positions)
     x, _ = _apply_backbone(cfg, params, tokens, positions, remat=remat,
                            chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,

@@ -8,9 +8,10 @@ it restores the last committed checkpoint (losing at most
 with the distributed slice: here ``on_device_loss`` is called, then the
 state restored, as for a crash.
 
-It trains the dense family (the transformer LMs); the hybrid and the CNN
-need backward kernels for K5 and K6 first and raise.  State lives on
-``TrainerConfig.device``, the card by default.
+It trains the dense family (the transformer LMs) and the hybrid (zamba2:
+K5 and K4 with their backward kernels); the CNN waits for a K6 backward
+kernel and raises.  State lives on ``TrainerConfig.device``, the card by
+default.
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ from repro_torch.models.registry import fns_for
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.training.train_step import make_train_step
 
-TRAINED_FAMILIES = ("dense",)
+TRAINED_FAMILIES = ("dense", "hybrid")
+# what a family that is not trained yet waits for
+_WAITS_FOR = {"cnn": "a backward kernel for K6 (conv2d: dgrad with stride 2 "
+                     "and wgrad)"}
 
 
 def _default_ckpt_dir() -> str:
@@ -65,9 +69,11 @@ class Trainer:
                  accum: int | None = None,
                  on_device_loss: Callable[[], None] | None = None):
         if cfg.family not in TRAINED_FAMILIES:
+            waits = _WAITS_FOR.get(cfg.family)
             raise NotImplementedError(
-                f"training the {cfg.family!r} family is not ported; the port "
-                f"trains {list(TRAINED_FAMILIES)}")
+                f"training the {cfg.family!r} family is not ported"
+                + (f": it waits for {waits}" if waits else "")
+                + f"; the port trains {list(TRAINED_FAMILIES)}")
         self.cfg = cfg
         self.tc = tc
         self.device = training_device(tc.device)

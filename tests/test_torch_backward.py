@@ -1,0 +1,371 @@
+"""The backward kernels' plain versions, and the differentiable wrappers
+around K4 and K5, against the JAX package on the CPU at fp32.
+
+* K5's backward (``ssm_scan_backward_ref``) against ``jax.vjp`` of the
+  reference scan ``chunked_linear_attn`` (B=2, H=4, N=P=16, chunk 32; S 64
+  and a ragged 45; with and without the gate, an initial state and a
+  nonzero final-state gradient; a gate past the clamp at 30), and against
+  ``torch.autograd`` of the plain forward ``ssm_scan_ref``.
+* K4's backward (``flash_attention_backward_ref``) against ``jax.vjp`` of
+  the reference attention ``chunked_attention`` (causal and full, G = 1, 2,
+  4, D = 16, S 37 and 64), and the forward's log-sum-exp.
+* Each output within 1e-5 of its own largest entry: the same fp32
+  formulas summed in other orders (1e-7 to 1e-6 is read).
+* The Mamba-2 mixer's gradients through the differentiable ``ssm_scan``
+  (q and k as stride-0 head views, summed over heads by autograd) against
+  ``jax.grad`` of the reference mixer.
+* The differentiable wrappers (K4, K5, K7) keep a ``grad_fn`` and count
+  their plain calls; ``build.load`` builds and loads a library once when
+  two threads ask for it at once.
+"""
+import ctypes
+import threading
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as JR
+from repro.models.layers import ssm as JS
+from repro.models.layers.attention import chunked_attention
+from repro.models.layers.module import init_table
+from repro_torch.configs import registry as TR
+from repro_torch.interop import params_from_numpy
+from repro_torch.kernels import build, dispatch
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (attention_lse,
+                                                     flash_attention_backward_ref,
+                                                     flash_attention_ref)
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_backward_ref, ssm_scan_ref
+from repro_torch.models.layers import ssm as TS
+from repro_torch.models.layers.linear import matmul
+
+torch.set_num_threads(1)
+
+RTOL = 1e-5     # each gradient, of its largest entry
+
+
+def _rel(t, j):
+    t = t.detach().double().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    j = np.asarray(j, dtype=np.float64)
+    assert t.shape == j.shape
+    return float(np.abs(t - j).max() / max(np.abs(j).max(), 1e-30))
+
+
+def _scan_operands(S, *, gate=True, clamp=False, seed=0, B=2, H=4, N=16, P=16):
+    rng = np.random.default_rng(seed)
+    q = (0.5 * rng.standard_normal((B, S, H, N))).astype(np.float32)
+    k = (0.5 * rng.standard_normal((B, S, H, N))).astype(np.float32)
+    v = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    ld = (-0.3 * np.abs(rng.standard_normal((B, S, H)))).astype(np.float32)
+    lg = (0.5 * rng.standard_normal((B, S, H))).astype(np.float32)
+    if clamp:       # every 7th step's gate past 30: its weights clamp
+        lg[:, ::7] += 31.0
+    h0 = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    df = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    return q, k, v, ld, lg if gate else None, h0, dy, df
+
+
+SCAN_CASES = [  # (S, gate, initial state and d_final, a gate past the clamp)
+    (64, True, True, False), (45, True, True, False), (64, False, False, False),
+    (45, False, True, False), (64, True, False, False), (45, True, True, True),
+    (64, True, False, True)]
+
+
+@pytest.mark.parametrize("S,gate,state,clamp", SCAN_CASES)
+def test_scan_backward_matches_jax_vjp(S, gate, state, clamp):
+    q, k, v, ld, lg, h0, dy, df = _scan_operands(S, gate=gate, clamp=clamp)
+
+    def f(q, k, v, ld, lg, h0):
+        return JS.chunked_linear_attn(q, k, v, ld, lg, chunk=32, initial_state=h0,
+                                      return_final_state=True)
+    args = [jnp.asarray(a) if a is not None else None for a in (q, k, v, ld, lg)]
+    j0 = jnp.asarray(h0) if state else None
+    live = [i for i, a in enumerate(args + [j0]) if a is not None]
+
+    def g(*xs):
+        full = list(args + [j0])
+        for i, x in zip(live, xs):
+            full[i] = x
+        return f(*full)
+    (y, fin), vjp = jax.vjp(g, *[(args + [j0])[i] for i in live])
+    jd = vjp((jnp.asarray(dy), jnp.asarray(df) if state else jnp.zeros_like(fin)))
+    T = torch.from_numpy
+    td = ssm_scan_backward_ref(T(q), T(k), T(v), T(ld), None if lg is None else T(lg),
+                               T(dy), T(df) if state else None, chunk=32,
+                               initial_state=T(h0) if state else None)
+    assert (td[4] is None) == (not gate) and (td[5] is None) == (not state)
+    td = [t for t in td if t is not None]
+    assert len(td) == len(jd)
+    for t, j in zip(td, jd):
+        assert _rel(t, j) <= RTOL
+    if clamp:       # a step's own weight exp(min(g, 30)) clamps
+        assert (lg > 30.0).any()
+
+
+@pytest.mark.parametrize("S,state", [(45, True), (64, False)])
+def test_scan_backward_matches_autograd_of_the_plain_forward(S, state):
+    q, k, v, ld, lg, h0, dy, df = _scan_operands(S, clamp=True, seed=3)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v, ld, lg)]
+    t0 = torch.from_numpy(h0).requires_grad_(True) if state else None
+    y, fin = ssm_scan_ref(*ts, chunk=32, initial_state=t0)
+    loss = (y * torch.from_numpy(dy)).sum()
+    if state:
+        loss = loss + (fin * torch.from_numpy(df)).sum()
+    loss.backward()
+    want = [t.grad for t in ts] + ([t0.grad] if state else [])
+    T = torch.from_numpy
+    got = ssm_scan_backward_ref(T(q), T(k), T(v), T(ld), T(lg), T(dy),
+                                T(df) if state else None, chunk=32,
+                                initial_state=T(h0) if state else None)
+    got = [g for g in got if g is not None]
+    for g, w in zip(got, want):
+        assert _rel(g, w.numpy()) <= RTOL
+
+
+def test_scan_clamp_derivative_is_zero_above_30():
+    """With no decay every weight of step j is exp(min(g_j, 30)): where the
+    gate is past 30 all of them clamp, and the gate's gradient is exactly
+    0 (the reference's minimum), where exp(g) would give it one."""
+    q, k, v, ld, lg, h0, dy, df = _scan_operands(32, clamp=True, seed=5)
+    ld[:] = 0.0
+    T = torch.from_numpy
+    d = ssm_scan_backward_ref(T(q), T(k), T(v), T(ld), T(lg), T(dy), chunk=32)
+    clamped = lg > 30.0
+    assert clamped.any() and (~clamped).any()
+    np.testing.assert_array_equal(d[4].numpy()[clamped], 0.0)
+    assert (d[4].numpy()[~clamped] != 0.0).all()
+    _, vjp = jax.vjp(lambda g: JS.chunked_linear_attn(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ld), g, chunk=32)[0],
+        jnp.asarray(lg))
+    np.testing.assert_array_equal(np.asarray(vjp(jnp.asarray(dy))[0])[clamped], 0.0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("S", [37, 64])
+def test_attention_backward_matches_jax_vjp(causal, G, S):
+    rng = np.random.default_rng(S * 10 + G)
+    B, K, D = 2, 2, 16
+    H = K * G
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, K, D)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    out, vjp = jax.vjp(lambda q, k, v: chunked_attention(q, k, v, causal=causal, chunk=16),
+                       *map(jnp.asarray, (q, k, v)))
+    jd = vjp(jnp.asarray(do))
+    T = torch.from_numpy
+    o, lse = flash_attention_ref(T(q), T(k), T(v), causal=causal, chunk=16, with_lse=True)
+    assert _rel(o, out) <= RTOL
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    td = flash_attention_backward_ref(T(q), T(k), T(v), o, T(do), lse, causal=causal)
+    for t, j in zip(td, jd):
+        assert _rel(t, j) <= RTOL
+
+
+def test_attention_lse_is_each_rows_normaliser():
+    """exp(s - lse) sums to 1 over each row's visible keys."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 9, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 9, 2, 16)).astype(np.float32))
+    lse = attention_lse(q, k, causal=True)
+    kk = k.repeat_interleave(2, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / 4.0
+    s = s.masked_fill(torch.ones(9, 9, dtype=torch.bool).triu(1), -1e30)
+    torch.testing.assert_close(torch.exp(s - lse[..., None]).sum(-1),
+                               torch.ones(1, 4, 9), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind,S,H,K,D", [("attention", 512, 16, 2, 128),
+                                          ("attention", 512, 32, 32, 64),
+                                          ("attention", 333, 32, 32, 64),
+                                          ("scan", 512, 64, 0, 64), ("scan", 1000, 64, 0, 64)])
+def test_plain_backwards_round_well_inside_the_card_limit(kind, S, H, K, D):
+    """The plain backwards' own fp32 rounding at the card's shapes (K4 at
+    qwen2.5-3b's and zamba2-1.2b's training heads, K5 at zamba2's widths
+    with B and C shared by every head, the second case with a state and
+    d_final): against the same formulas carried in fp64, each gradient
+    within 1/16 of ``dispatch.GRAD_RTOL``'s fp32 limit, so two right fp32
+    sums sit well inside it (2.6e-7 to 1.4e-6 of the largest is read)."""
+    g = torch.Generator().manual_seed(1)
+    if kind == "attention":
+        q = torch.randn((1, S, H, D), generator=g)
+        k, v = (torch.randn((1, S, K, D), generator=g) for _ in range(2))
+        do = torch.randn((1, S, H, D), generator=g)
+        out, lse = flash_attention_ref(q, k, v, with_lse=True)
+        args, kw, fn = (q, k, v, out, do, lse), {}, flash_attention_backward_ref
+    else:
+        q, k = (torch.randn((1, S, 1, D), generator=g).expand(1, S, H, D) for _ in range(2))
+        v = torch.randn((1, S, H, D), generator=g)
+        log_dt = torch.empty((1, S, H)).uniform_(-6.9078, -2.3026, generator=g)
+        ld = -torch.exp(log_dt) * (1.0 + 15.0 * (torch.arange(H) + 0.5) / H)
+        state = S == 1000
+        h0, df = ((torch.randn((1, H, D, D), generator=g) for _ in range(2)) if state
+                  else (None, None))
+        dy = torch.randn((1, S, H, D), generator=g)
+        args, kw, fn = (q, k, v, ld, log_dt, dy, df), {"initial_state": h0}, \
+            ssm_scan_backward_ref
+    f32 = fn(*args, **kw)
+
+    def wide(t):
+        return None if t is None else t.double()
+    f64 = fn(*map(wide, args), **{n: wide(t) for n, t in kw.items()})
+    for a, b in zip(f32, f64):
+        if a is not None:
+            assert _rel(a, b.numpy()) <= dispatch.GRAD_RTOL[torch.float32] / 16
+
+
+# ---------------------------------------------------------------------------
+# the differentiable wrappers
+# ---------------------------------------------------------------------------
+
+def test_wrappers_keep_a_grad_fn_and_count_plain_calls():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 8, 4, 16), generator=g, requires_grad=True)
+    k = torch.randn((1, 8, 2, 16), generator=g, requires_grad=True)
+    v = torch.randn((1, 8, 2, 16), generator=g, requires_grad=True)
+    dispatch.reset_counts()
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert all(t.grad is not None for t in (q, k, v))
+    sq = torch.randn((1, 8, 1, 16), generator=g, requires_grad=True)
+    sv = torch.randn((1, 8, 4, 16), generator=g, requires_grad=True)
+    ld = -torch.rand((1, 8, 4), generator=g)
+    y, fin = ssm_scan(sq.expand(1, 8, 4, 16), sq.expand(1, 8, 4, 16), sv, ld, chunk=4)
+    assert y.grad_fn is not None and fin.grad_fn is not None
+    y.sum().backward()
+    assert sq.grad.shape == (1, 8, 1, 16) and sv.grad is not None
+    x = torch.randn((3, 16), generator=g, requires_grad=True)
+    w = torch.randn((16, 5), generator=g, requires_grad=True)
+    assert matmul(x, w).grad_fn is not None
+    table = dispatch.kernel_table()
+    assert [table[n].plain_calls for n in ("flash_attention", "flash_attention_backward",
+                                           "ssm_scan", "ssm_scan_backward", "matmul")] \
+        == [1, 1, 1, 1, 1]
+    # without grad the wrappers call the kernel entry as before
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+        assert ssm_scan(sq.expand(1, 8, 4, 16), sq.expand(1, 8, 4, 16), sv, ld,
+                        chunk=4)[0].grad_fn is None
+    assert table["flash_attention"].plain_calls == 2 and table["ssm_scan"].plain_calls == 2
+    assert table["flash_attention_backward"].plain_calls == 1
+
+
+def test_scan_wrapper_gradient_matches_the_plain_backward():
+    """Through ``_SsmScan``: a stride-0 q/k view's gradient is the plain
+    backward's per-head gradient summed over heads; d_final reaches it."""
+    q, k, v, ld, lg, h0, dy, df = _scan_operands(45, seed=7, H=3)
+    T = torch.from_numpy
+    bq = T(q[:, :, :1].copy()).requires_grad_(True)
+    bk = T(k[:, :, :1].copy()).requires_grad_(True)
+    tv, tld, tlg, th0 = (T(a).requires_grad_(True) for a in (v, ld, lg, h0))
+    y, fin = ssm_scan(bq.expand(2, 45, 3, 16), bk.expand(2, 45, 3, 16), tv, tld, tlg,
+                      chunk=32, initial_state=th0)
+    ((y * T(dy)).sum() + (fin * T(df)).sum()).backward()
+    ref = ssm_scan_backward_ref(bq.detach().expand(2, 45, 3, 16),
+                                bk.detach().expand(2, 45, 3, 16), T(v), T(ld), T(lg),
+                                T(dy), T(df), chunk=32, initial_state=T(h0))
+    torch.testing.assert_close(bq.grad, ref[0].sum(2, keepdim=True))
+    torch.testing.assert_close(bk.grad, ref[1].sum(2, keepdim=True))
+    for t, r in zip((tv, tld, tlg, th0), ref[2:]):
+        torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    cfg = JR.smoke("zamba2-1.2b").replace(compute_dtype="float32")
+    tcfg = TR.smoke("zamba2-1.2b").replace(compute_dtype="float32")
+    jp = init_table(jax.random.PRNGKey(1), JS.mamba_table(cfg), "float32")
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    return cfg, jp, tcfg, tp
+
+
+@pytest.mark.parametrize("S", [45, 64])
+def test_mixer_gradients_match_jax(mamba, S):
+    """The Mamba-2 mixer's input and weight gradients: the scan's q / k are
+    B and C, one group shared by every head (stride-0 views here, a
+    broadcast in the reference); their per-head gradients are summed."""
+    cfg, jp, tcfg, tp = mamba
+    rng = np.random.default_rng(S)
+    u = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    jg = jax.grad(lambda p, u: (JS.mamba_forward(cfg, p, u) * w).sum(), argnums=(0, 1))(
+        jp, jnp.asarray(u))
+    tu = torch.from_numpy(u).requires_grad_(True)
+    for p in tp.values():
+        p.grad = None
+        p.requires_grad_(True)
+    dispatch.reset_counts()
+    (TS.mamba_forward(tcfg, tp, tu) * torch.from_numpy(w)).sum().backward()
+    table = dispatch.kernel_table()
+    assert (table["ssm_scan"].plain_calls, table["ssm_scan_backward"].plain_calls) == (1, 1)
+    assert _rel(tu.grad, jg[1]) <= 1e-4
+    for name, g in jg[0].items():
+        assert _rel(tp[name].grad, g) <= 1e-4, name
+    for p in tp.values():
+        p.requires_grad_(False)
+        p.grad = None
+
+
+# ---------------------------------------------------------------------------
+# the first build and load from two threads
+# ---------------------------------------------------------------------------
+
+def test_load_from_two_threads_builds_and_loads_once(tmp_path, monkeypatch):
+    """Two threads that first ask for one library at once: one nvcc, one
+    ``CDLL``, both get the same library; the temporary file names the
+    thread."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    started, tmps = [], []
+    gate = threading.Barrier(2)
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            out = cmd[cmd.index("-o") + 1]
+            tmps.append(out)
+            open(out, "w").close()
+
+        def communicate(self):
+            return "ptxas info", None
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+            self.fn = mock.MagicMock()
+
+        def __getattr__(self, name):
+            return self.fn
+
+    libs = []
+
+    def cdll(path):
+        libs.append(path)
+        return FakeLib(path)
+
+    monkeypatch.setattr(build.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(build.ctypes, "CDLL", cdll)
+    got, idents = [], set()
+
+    def ask():
+        idents.add(threading.get_ident())
+        gate.wait()
+        got.append(build.load("flash_attention_backward", [ctypes.c_int]))
+    threads = [threading.Thread(target=ask) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(started) == 1 and len(libs) == 1
+    assert got[0] is got[1]
+    assert any(tmps[0].endswith(f".{i}.tmp") for i in idents)

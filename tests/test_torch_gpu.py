@@ -41,7 +41,12 @@ to the bf16 / fp32 body on the pool dequantized to q's type.  Training
 on the card: the smoke model's loss and gradients through the kernels
 within 1e-3 of each leaf's largest entry of those through the plain
 versions (the same fp32 arithmetic in other orders; the random model's
-near-one-hot attention amplifies rounding in the backward).
+near-one-hot attention amplifies rounding in the backward).  The backward
+kernels (K4's, K5's) against their plain versions evaluated in fp32 on the
+same values: each gradient within ``GRAD_RTOL`` of its largest entry (fp32
+2^-14, a bf16 gradient 2^-8); K4's log-sum-exp on both bodies within 1e-5
+of the plain one.  A kernel called on the card with an input that requires
+grad raises, naming where its gradient is (or that it has none).
 """
 import numpy as np
 import pytest
@@ -1118,3 +1123,129 @@ def test_wave_mode_runs_flash_and_dense_decode_only(cuda):
     assert table["paged_prefill_attention"].launches == 0
     assert all(k.plain_calls == 0 for k in table.values())
     assert all(len(r.output) == 5 for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (K4's and K5's) and the detached-output guard
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,K,D", [(512, 16, 2, 128), (333, 32, 32, 64), (1, 4, 4, 64),
+                                     (100, 8, 2, 16), (130, 6, 3, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, S, H, K, D, causal):
+    """K4 with its log-sum-exp (either body), then the backward kernel, each
+    against its plain version in fp32 on the same values."""
+    g = torch.Generator(cuda).manual_seed(S + D)
+    q = torch.randn((1, S, H, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, S, K, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((1, S, H, D), generator=g, device=cuda).to(dtype)
+    fwd = dispatch.kernel_table()["flash_attention"]
+    bwd = dispatch.kernel_table()["flash_attention_backward"]
+    dispatch.reset_counts()
+    out, lse = fwd.launch(q, k, v, causal=causal, with_lse=True)
+    assert torch.equal(out, fwd.launch(q, k, v, causal=causal))
+    ref_out, ref_lse = fwd.plain(q.float(), k.float(), v.float(), causal=causal,
+                                 with_lse=True)
+    assert (lse - ref_lse).abs().max() <= 1e-5 * ref_lse.abs().max().clamp(min=1.0)
+    grads = bwd.launch(q, k, v, out, do, lse, causal=causal)
+    ref = bwd.plain(*(t.float() for t in (q, k, v, out, do)), lse, causal=causal)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in grads] == [dtype] * 3
+    assert bwd.body_launches == {"fma": 1}
+    assert bwd.tolerance(grads, ref) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk,shared,state", [(512, 128, True, False),
+                                                  (1000, 128, True, True),
+                                                  (45, 32, False, True), (7, 128, True, False),
+                                                  (300, 64, False, False)])
+@pytest.mark.parametrize("N,P", [(64, 64), (16, 16), (32, 48), (128, 128)])
+def test_ssm_scan_backward_kernel_matches_plain(cuda, dtype, S, chunk, shared, state, N, P):
+    """K5's backward on q / k as stride-0 head views or per head, ragged S,
+    with and without a carried state and a final-state gradient."""
+    (q, k, v, ld, lg), h0 = _ssm_operands(cuda, dtype, S, N, P, shared, B=1, H=8)
+    g = torch.Generator(cuda).manual_seed(S + 1)
+    dy = torch.randn((1, S, 8, P), generator=g, device=cuda)
+    df = torch.randn((1, 8, N, P), generator=g, device=cuda) if state else None
+    h0 = h0[:1] if state else None
+    bwd = dispatch.kernel_table()["ssm_scan_backward"]
+    bwd.reset_counts()
+    grads = bwd.launch(q, k, v, ld, lg, dy, df, chunk=chunk, initial_state=h0)
+    ref = bwd.plain(q.float(), k.float(), v.float(), ld, lg, dy, df, chunk=chunk,
+                    initial_state=h0)
+    torch.cuda.synchronize()
+    assert bwd.body_launches == {"fma": 1}
+    assert [t is None for t in grads] == [t is None for t in ref]
+    assert grads[0].dtype == grads[1].dtype == grads[2].dtype == dtype
+    assert bwd.tolerance(grads, ref) <= 1.0
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """Each kernel entry writes through raw pointers: called with grad on
+    and an input that requires it, it raises (K4, K5, K7 naming their
+    differentiable wrappers) instead of dropping the gradient."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.layers.linear import matmul
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((8, 64), generator=g, device=cuda, requires_grad=True)
+    w = torch.randn((64, 32), generator=g, device=cuda)
+    table = dispatch.kernel_table()
+    with pytest.raises(RuntimeError, match="linear.matmul"):
+        table["matmul"](x, w)
+    assert matmul(x, w).grad_fn is not None
+    with torch.no_grad():
+        table["matmul"](x, w)
+    q = torch.randn((1, 8, 4, 64), generator=g, device=cuda, requires_grad=True)
+    k, v = (torch.randn((1, 8, 4, 64), generator=g, device=cuda) for _ in range(2))
+    with pytest.raises(RuntimeError, match="flash_attention.ops.flash_attention"):
+        table["flash_attention"](q, k, v)
+    assert flash_attention(q, k, v).grad_fn is not None
+    lengths = torch.tensor([8], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        table["decode_attention"](q[:, 0], k, v, lengths)
+    xs = torch.randn((1, 8, 8, 16), generator=g, device=cuda, requires_grad=True)
+    ws = torch.randn((3, 3, 16, 16), generator=g, device=cuda)
+    with pytest.raises(RuntimeError, match="conv2d: an input requires grad"):
+        table["conv2d"](xs, ws, None, stride=1)
+
+
+def test_hybrid_training_step_runs_the_kernels(cuda):
+    """One train step of the zamba2 smoke model on the card: K5, K4, their
+    backward kernels and K7 launched exactly as the config says, no plain
+    call; loss and gradients agree with the plain versions."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import hybrid
+    from repro_torch.optim.optimizers import adamw, constant, leaves
+    from repro_torch.training.train_step import make_train_step
+    cfg = TR.smoke("zamba2-1.2b").replace(compute_dtype="float32", accum_steps=2)
+    batch = next(SyntheticTokens(cfg, 4, 40, seed=1))
+    n_seg, e, tail = hybrid._segments(cfg)
+    layers = n_seg * e + tail
+    fwd = 2 * layers + 8 * n_seg + 1
+    want = {"ssm_scan": layers + n_seg * e, "ssm_scan_backward": layers,
+            "flash_attention": 2 * n_seg, "flash_attention_backward": n_seg,
+            "matmul": 3 * fwd + 2 * e * n_seg + 8 * n_seg}
+    runs = []
+    for plain in (False, True):
+        params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+        grads = []
+        step = make_train_step(cfg, adamw(constant(1e-3)),
+                               grad_transform=lambda g: grads.append(
+                                   [t.clone() for t in leaves(g)]) or g)
+        dispatch.reset_counts()
+        if plain:
+            with dispatch.plain_versions():
+                _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+        else:
+            _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+            table = dispatch.kernel_table()
+            assert {n: table[n].launches for n in want} == {n: 2 * c for n, c in want.items()}
+            assert all(t.plain_calls == 0 for t in table.values())
+        runs.append((float(m["loss"]), grads[0]))
+    assert np.isfinite(runs[0][0])
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()

@@ -103,6 +103,7 @@ def test_prefill_then_decode_matches_jax(compute_dtype):
                       "paged_decode_attention": 3 * tcfg.num_layers,
                       "conv2d": 0, "decode_attention": 0,
                       "flash_attention": 0, "ssm_scan": 0,
+                      "flash_attention_backward": 0, "ssm_scan_backward": 0,
                       # 7 products a layer and the LM head, per call
                       "matmul": 6 * (7 * tcfg.num_layers + 1)}
 
