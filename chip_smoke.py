@@ -273,6 +273,34 @@ Phases (each one raises on failure; the script then exits non-zero):
    495 (492 wgmma, the fp32 LM head's 3 on FMA); no plain call; step time,
    tokens/s, tokens/s/W, peak memory; one profiled step's device time by
    kernel and busy share.
+22. GoogLeNet training and remat "dots".  22a: K6's backward kernel (dgrad
+   where x needs its gradient, wgrad and db; split-K by the forward's rule,
+   the partials summed in slice order) against its plain version evaluated
+   in fp32 on the same values (``dispatch.grad_tolerance_ratio``: 2^-14 of
+   each gradient's largest at fp32, 2^-10 at fp16) on every distinct conv
+   shape of GoogLeNet's batch-8 forward at 224 (dx for every conv but
+   stem1) and on ``CONV_BWD_EXTRA`` (stem1 with dx at stride 2, odd maps),
+   at fp32 and fp16, split cases launched twice for the same bits; then
+   one batch-8 backward of the 57 convs at fp32 timed beside its plain
+   version, cuDNN's backward (autograd of ``F.conv2d`` in NCHW, TF32 off;
+   measured, never used) and its bound (operations at 67 TFLOP/s fp32,
+   bytes at 3.35 TB/s).  22b: GoogLeNet at full width, fp32, one batch-8
+   microbatch: on one forward graph, every gradient leaf through the
+   backward kernels within ``grad_tolerance_ratio`` of the same graph's
+   backward through the plain versions; two whole runs, the loss within
+   ``TOL_TRAIN_LOSS_REL`` and every leaf within ``TOL_TRAIN_GRAD_REL``,
+   printed beside a run whose convs and products are summed in fp64;
+   launches exact, no plain call.  22c: GoogLeNet trained by the port's
+   ``Trainer`` from ``SyntheticImages`` (4 steps of 32 images in 4
+   microbatches, AdamW with the launcher's recipe): losses finite, a
+   microbatch's launches exact by body (K6 57 on FMA, its backward 56
+   dgrad and 57 wgrad, K7 3), no plain call; step time, img/s, img/s/W,
+   peak memory, one profiled step's busy share.  22d: qwen2.5-3b under
+   remat "dots" (phase 15's batches, 2 steps): K7 759 a microbatch (the
+   recompute reuses the kept products; 1011 under "full"), K4 72 and its
+   backward 36, no plain call; step time and peak memory beside phase
+   15's; then one zamba2-1.2b microbatch under "dots", whose counts equal
+   phase 21d's (the hybrid runs "dots" as "full", as the reference).
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -286,12 +314,13 @@ and K2's int8 bodies as entries of their own (``...:int8``: their
 launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
-K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d and 21d, K4's backward
-15 and 21d, K5 10 and 21d, K5's backward 21d, K6 phase 8, K7 phases 4, 4b,
-10, 15, 17, 18, 19a, 19c, 20a-d and 21d.  The two backward kernels replace
-no Pallas kernel (the reference differentiates its plain functions): their
-entries name the forward's Pallas kernel under ``replaces`` and say so
-under ``note``.
+K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d, 21d and 22d, K4's
+backward 15, 21d and 22d, K5 10, 21d and 22d, K5's backward 21d and 22d,
+K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17, 18,
+19a, 19c, 20a-d, 21d, 22c and 22d.  The three backward kernels replace no
+Pallas kernel (the reference differentiates its plain functions and
+``lax.conv_general_dilated``): their entries name the forward's Pallas
+kernel under ``replaces`` and say so under ``note``.
 """
 from __future__ import annotations
 
@@ -499,6 +528,20 @@ ZAMBA_TRAIN_STEPS = 3
 ZAMBA_CHECK_LAYERS = 7
 MAMBA_PRODUCTS = 2      # weight products a Mamba-2 layer makes: in_proj, out_proj
 SHARED_PRODUCTS = 8     # the shared block's: in_proj, wq wk wv wo, gate up down
+
+# Phase 22, GoogLeNet training and remat "dots".  22a: K6's backward on
+# every distinct conv shape of the batch-8 forward at 224, with dx wherever
+# the training path asks for it (every conv but stem1, whose images need
+# no gradient), and on CONV_BWD_EXTRA: stem1 with dx (stride 2, 7x7, SAME
+# padding 2 before and 3 after), odd maps at strides 1 and 2, a Cout and
+# Cin no tile divides.  22c: GOOGLENET_TRAIN_STEPS steps of GOOGLENET_BATCH
+# images in GOOGLENET_ACCUM microbatches.  22d: qwen2.5-3b under remat
+# "dots" for DOTS_TRAIN_STEPS steps of phase 15's batches.
+CONV_BWD_EXTRA = (((8, 224, 224, 3), (7, 7, 3, 64), 2), ((3, 13, 11, 5), (3, 3, 5, 7), 2),
+                  ((2, 9, 9, 3), (7, 7, 3, 10), 2), ((1, 15, 17, 24), (5, 5, 24, 40), 1),
+                  ((2, 10, 10, 33), (1, 1, 33, 17), 2))
+GOOGLENET_TRAIN_STEPS, GOOGLENET_BATCH, GOOGLENET_ACCUM = 4, 32, 4
+DOTS_TRAIN_STEPS = 2
 
 
 def log(*a) -> None:
@@ -2384,7 +2427,8 @@ def training_phase(torch, np, table) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"matmul": k7[0], "flash_attention": counts["flash_attention"][0],
-            "flash_attention_backward": counts["flash_attention_backward"][0]}
+            "flash_attention_backward": counts["flash_attention_backward"][0],
+            "full": (s["step_s"], s["peak_memory_bytes"])}
 
 
 def checkpoint_phase(torch, np) -> None:
@@ -4284,6 +4328,414 @@ def hybrid_training_phase(torch, np, table) -> dict:
     return {n: sum(c.values()) for n, c in got.items()}
 
 
+# ---------------------------------------------------------------------------
+# GoogLeNet training and remat "dots" (phase 22)
+# ---------------------------------------------------------------------------
+
+
+def conv_grad_out(torch, x_shape, w_shape, stride, dtype, seed=1):
+    """A random output gradient (B, Hout, Wout, Cout) for a conv case."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    B, H, W, _ = x_shape
+    shape = (B, -(-H // stride), -(-W // stride), w_shape[3])
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def conv_backward_work(x_shape, w_shape, stride, need_dx, elem) -> tuple[float, float]:
+    """(bytes, flops) of K6's backward: x, w and dy read once, dw, db (fp32)
+    and, with ``need_dx``, dx written once; each of dgrad and wgrad does the
+    forward's multiply-adds, and db one add an output element."""
+    B, H, W, Cin = x_shape
+    KH, KW, _, Cout = w_shape
+    M = B * -(-H // stride) * -(-W // stride)
+    macs = M * KH * KW * Cin * Cout
+    nbytes = elem * (B * H * W * Cin * (2 if need_dx else 1) + 2 * KH * KW * Cin * Cout
+                     + M * Cout) + 4 * Cout
+    return nbytes, 2.0 * macs * (2 if need_dx else 1) + M * Cout
+
+
+def library_conv_backward(torch, F, x, w, b, dy, stride, need_dx):
+    """Autograd of one ``F.conv2d`` call (cuDNN, NCHW, TF32 off) on the same
+    values: the gradients of the inputs the training path asks for, from
+    the retained graph.  Where SAME pads asymmetrically (stem1) the map is
+    padded first and the call pads nothing."""
+    from repro_torch.kernels.conv2d.ref import same_padding
+    (pt, pb), (pl, pr) = (same_padding(x.shape[1], w.shape[0], stride),
+                          same_padding(x.shape[2], w.shape[1], stride))
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    if (pt, pl) != (pb, pr):
+        xc = F.pad(xc, (pl, pr, pt, pb))
+        pt = pl = 0
+    xc = xc.detach().requires_grad_(need_dx)
+    wc = w.permute(3, 2, 0, 1).contiguous().requires_grad_(True)     # OIHW
+    bc = b.clone().requires_grad_(True)
+    y = F.conv2d(xc, wc, bc, stride=stride, padding=(pt, pl))
+    dyc = dy.permute(0, 3, 1, 2).contiguous()
+    inputs = (xc, wc, bc) if need_dx else (wc, bc)
+    return lambda: torch.autograd.grad(y, inputs, dyc, retain_graph=True)
+
+
+def conv_backward_phase(torch, table) -> dict:
+    """Phase 22a: K6's backward against its plain version evaluated in fp32
+    on the same values (``dispatch.grad_tolerance_ratio``) on every distinct
+    conv shape of GoogLeNet's batch-8 forward at 224 and on
+    ``CONV_BWD_EXTRA``, at fp32 and fp16; a case whose dgrad or wgrad splits
+    K is launched twice and must give the same bits.  Then one batch-8
+    backward of the 57 convolutions at fp32 (dx for every conv but stem1,
+    as training asks) timed beside its plain version, cuDNN's backward
+    (measured, never used) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d.ops import backward_splits
+    from repro_torch.kernels.dispatch import GRAD_RTOL
+    bwd = table["conv2d_backward"]
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: full fp32 products
+    torch.backends.cudnn.allow_tf32 = False         # cuDNN at fp32: no TF32
+    groups = conv_groups()
+    cases = [(xs, ws, stride, names[0], names[0] != "stem1")
+             for (xs, ws, stride), names in groups.items()]
+    cases += [(xs, ws, stride, "extra", True) for xs, ws, stride in CONV_BWD_EXTRA]
+    errs, split = {}, 0
+    for dtype in (torch.float32, torch.float16):
+        for xs, ws, stride, name, need_dx in cases:
+            x, w, b = conv_case(torch, xs, ws, dtype)
+            dy = conv_grad_out(torch, xs, ws, stride, dtype)
+            sp = backward_splits(xs, ws, stride)
+            label = (f"{name} x{xs} w{ws} /{stride} dx={need_dx} K slices (dgrad, wgrad) "
+                     f"{sp} (limit {GRAD_RTOL[dtype]:.2e} of each gradient's max|ref|)")
+            errs[dtype] = max(errs.get(dtype, 0.0), hold(
+                torch, bwd, (x, w, b, dy), label, stride=stride, need_dx=need_dx))
+            if max(sp) > 1:     # deterministic: the partials summed in slice order
+                split += 1
+                first = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
+                again = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
+                torch.cuda.synchronize()
+                if not all(torch.equal(u, v) for u, v in zip(first, again) if u is not None):
+                    raise AssertionError(f"conv2d_backward {label}: two launches differ")
+    log(f"conv2d_backward: {2 * len(cases)} cases held, {split} of them split and "
+        f"launched twice for the same bits")
+    timer = Timer(torch, reps=10)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    for (xs, ws, stride), names in groups.items():
+        need_dx = names[0] != "stem1"
+        x, w, b = conv_case(torch, xs, ws, torch.float32)
+        dy = conv_grad_out(torch, xs, ws, stride, torch.float32)
+        n = len(names)
+        ms = timer(lambda: bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx))
+        plain_ms = timer(lambda: bwd.plain(x, w, b, dy, stride=stride, need_dx=need_dx))
+        lib_ms = timer(library_conv_backward(torch, F, x, w, b, dy, stride, need_dx))
+        nbytes, flops = conv_backward_work(xs, ws, stride, need_dx, 4)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bytes", nbytes), ("flops", flops)):
+            tot[key] += n * v
+        log(f"conv2d_backward fp32 {','.join(names)}: x{xs} w{ws} /{stride} dx={need_dx} "
+            f"K slices {backward_splits(xs, ws, stride)} kernel {ms:.4f}ms plain "
+            f"{plain_ms:.4f}ms cuDNN {lib_ms:.4f}ms bound "
+            f"{bound(nbytes, flops, FP32_FLOPS)[0]:.5f}ms {flops / ms / 1e9:.1f} TFLOP/s")
+    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"], FP32_FLOPS)
+    log(f"conv2d_backward fp32, the 57 convs of one batch-{CONV_BATCH} backward at "
+        f"{CONV_SIZE} (dgrad 56, wgrad 57): kernel {tot['ms']:.4f}ms plain "
+        f"{tot['plain_ms']:.4f}ms cuDNN {tot['library_ms']:.4f}ms (kernel / cuDNN "
+        f"{tot['ms'] / tot['library_ms']:.2f}) bound {tot['bound_ms']:.4f}ms "
+        f"({tot['bound_by']}; {tot['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s fp32, "
+        f"{tot['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
+    return {"conv2d_backward": dict(
+        tot, max_abs_err=errs[torch.float32], max_abs_err_fp16=errs[torch.float16],
+        shape=f"the 57 convs of GoogLeNet's backward, batch {CONV_BATCH} at {CONV_SIZE}, "
+              f"fp32, body=fma (dgrad 56, wgrad 57)")}
+
+
+def googlenet_counts(micro: int) -> dict:
+    """Launches by body of ``micro`` fp32 GoogLeNet training microbatches:
+    K6 once a conv (FMA), its backward's wgrad once a conv and dgrad once a
+    conv but stem1 (the images need no gradient), K7 for the classifier's
+    forward, dX and dW (FMA)."""
+    return {"conv2d": {"fma": 57 * micro},
+            "conv2d_backward": {"dgrad": 56 * micro, "wgrad": 57 * micro},
+            "matmul": {"fma": 3 * micro}}
+
+
+def googlenet_train_path_check(torch, np) -> None:
+    """Phase 22b: GoogLeNet at full width (224, 1000 classes), fp32, one
+    batch-8 microbatch of ``SyntheticImages``.  (1) The backward on one
+    forward graph: the gradient of every leaf through the backward kernels
+    (K6's, K7's) and, from the same retained graph -- the same ReLU masks
+    and max-pool choices -- through their plain versions, held leaf by leaf
+    to ``dispatch.grad_tolerance_ratio`` (the per-conv limit of 22a).
+    (2) Two whole runs, through the kernels and through the plain versions:
+    the loss within ``TOL_TRAIN_LOSS_REL``, every gradient leaf within
+    ``TOL_TRAIN_GRAD_REL`` of its largest entry (phase 14's limit: two fp32
+    paths part where a pre-activation near 0 or a near-tie in a max-pool
+    window goes the other way), and both printed beside a run with every
+    conv and product summed in fp64 and rounded once.  The kernel run's
+    launches held exactly, with no plain call."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.ref import conv2d_backward_ref, conv2d_ref
+    from repro_torch.models.layers import linear
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = arch_registry.config("googlenet")
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in SyntheticImages(
+        cfg.vocab_size, CONV_BATCH, CONV_SIZE, seed=5).sample(CONV_BATCH).items()}
+    ps = leaves(params)
+    loss_fn = make_loss_fn(cfg)
+
+    def loss_and_grads():
+        for p in ps:
+            p.requires_grad_(True)
+        loss, _ = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, ps)
+        for p in ps:
+            p.requires_grad_(False)
+        return loss.item(), grads
+
+    def exact_conv(x, w, b, *, stride=1):
+        return conv2d_ref(x.double(), w.double(), b.double(), stride=stride).to(x.dtype)
+
+    def exact_backward(x, w, b, dy, *, stride=1, need_dx=True):
+        dx, dw, db = conv2d_backward_ref(x.double(), w.double(), b.double(), dy.double(),
+                                         stride=stride, need_dx=need_dx)
+        return None if dx is None else dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype)
+
+    table = dispatch.kernel_table()
+    want = googlenet_counts(1)
+    # (1) one forward through the kernels; its backward through the kernels,
+    # then again through the plain versions
+    for p in ps:
+        p.requires_grad_(True)
+    dispatch.reset_counts()
+    loss, _ = loss_fn(params, batch)
+    kern_g = torch.autograd.grad(loss, ps, retain_graph=True)
+    got = {n: dict(table[n].body_launches) for n in want}
+    plain_calls = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    with dispatch.plain_versions():
+        same_g = torch.autograd.grad(loss, ps)
+    for p in ps:
+        p.requires_grad_(False)
+    kern_loss = loss.item()
+    del loss
+    ratios = [dispatch.grad_tolerance_ratio([k], [g]) for k, g in zip(kern_g, same_g)]
+    # (2) whole runs through the plain versions and through fp64 sums
+    with dispatch.plain_versions():
+        plain_loss, plain_g = loss_and_grads()
+        with mock.patch.object(conv_ops.KERNEL, "plain", exact_conv), \
+                mock.patch.object(conv_ops.BACKWARD, "plain", exact_backward), \
+                mock.patch.object(linear, "_k7",
+                                  lambda x, y: (x.double() @ y.double()).to(x.dtype)):
+            exact_loss, exact_g = loss_and_grads()
+
+    def rel(a, b):
+        return [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+                for x, y in zip(a, b)]
+    r_loss = abs(kern_loss - plain_loss) / abs(plain_loss)
+    r_grad = rel(kern_g, plain_g)
+    k_exact, p_exact = rel(kern_g, exact_g), rel(plain_g, exact_g)
+    log(f"googlenet training path check (fp32, 224, batch {CONV_BATCH}, {len(ps)} gradient "
+        f"leaves): one forward graph, backward kernels vs plain versions: worst leaf "
+        f"err/limit {max(ratios):.3f} (grad_tolerance_ratio, fp32 2^-14 of a leaf's max), "
+        f"median {statistics.median(ratios):.3f}; launches by body {got}; plain calls "
+        f"{plain_calls or 0}")
+    log(f"googlenet training path check, whole runs: loss kernels {kern_loss:.7f} plain "
+        f"{plain_loss:.7f} fp64 sums {exact_loss:.7f}, kernels vs plain rel={r_loss:.3e} "
+        f"(tol {TOL_TRAIN_LOSS_REL}); worst gradient leaf, of its max: kernels vs plain "
+        f"{max(r_grad):.3e} (tol {TOL_TRAIN_GRAD_REL}), vs fp64 sums kernels "
+        f"{max(k_exact):.3e} plain {max(p_exact):.3e}")
+    if got != want or plain_calls:
+        raise AssertionError(f"googlenet training path check: launches {got}, expected "
+                             f"{want}; plain calls {plain_calls}")
+    finite = all(bool(torch.isfinite(g).all()) for g in kern_g)
+    if not (finite and max(ratios) <= 1.0 and r_loss <= TOL_TRAIN_LOSS_REL
+            and max(r_grad) <= TOL_TRAIN_GRAD_REL):
+        raise AssertionError(f"googlenet training path check: kernels and plain versions "
+                             f"disagree (one graph: worst err/limit {max(ratios)}; whole "
+                             f"runs: loss {r_loss}, gradients {max(r_grad)}; finite {finite})")
+    del params, ps, kern_g, same_g, plain_g, exact_g, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def googlenet_training_phase(torch, np, table) -> dict:
+    """Phase 22c: GoogLeNet at full width (224x224x3, 1000 classes, fp32)
+    trained by the port's ``Trainer`` from ``SyntheticImages``, as the
+    reference trains it (its launcher feeds only tokens):
+    ``GOOGLENET_TRAIN_STEPS`` steps of ``GOOGLENET_BATCH`` images in
+    ``GOOGLENET_ACCUM`` microbatches, AdamW with the launcher's recipe.
+    Every loss finite; launches exact by body (``googlenet_counts``), no
+    plain call.  Step time, img/s, img/s/W against the power limit, peak
+    memory; one more step under the profiler.  Returns the launches by
+    kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.optim.optimizers import adamw, leaves, warmup_cosine
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("googlenet")
+    want = googlenet_counts(GOOGLENET_ACCUM * GOOGLENET_TRAIN_STEPS)
+    data = SyntheticImages(cfg.vocab_size, GOOGLENET_BATCH, CONV_SIZE, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(num_steps=GOOGLENET_TRAIN_STEPS, ckpt_every=50, ckpt_dir=d,
+                           device="cuda")
+        tr = Trainer(cfg, iter(data), tc, accum=GOOGLENET_ACCUM,
+                     optimizer=adamw(warmup_cosine(3e-3, 20, GOOGLENET_TRAIN_STEPS)))
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counts()
+        t0 = time.monotonic()
+        hist = tr.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {n: dict(table[n].body_launches) for n in want}
+        plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist if "loss" in h]
+    times = [h["step_time_s"] for h in hist if "loss" in h]
+    step = statistics.mean(times[1:])
+    state_bytes = 4 * 4 * sum(p.numel() for p in leaves(tr.params))
+    log(f"googlenet training: 57 convs, 1000 classes, {state_bytes / 16 / 1e6:.3f}M params, "
+        f"fp32, adamw; {GOOGLENET_TRAIN_STEPS} steps of {GOOGLENET_BATCH} images at "
+        f"{CONV_SIZE} in {GOOGLENET_ACCUM} microbatches; wall {wall:.1f}s (init included)")
+    log(f"googlenet training: losses={[round(v, 4) for v in losses]} first_step="
+        f"{times[0]:.3f}s step={step:.4f}s img/s={GOOGLENET_BATCH / step:.1f} img/s/W="
+        f"{GOOGLENET_BATCH / step / watts:.4f} at power.limit {watts:.0f} W ({name}) "
+        f"max_memory_allocated={peak / 2**30:.2f}GiB (params+grads+adamw state "
+        f"{state_bytes / 2**30:.3f}GiB)")
+    log(f"googlenet training: launches by body {got} (expected {want}: a microbatch "
+        f"{googlenet_counts(1)}); plain_calls={plain or 0}")
+    if len(losses) != GOOGLENET_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"googlenet training: losses {losses}")
+    if got != want or plain:
+        raise AssertionError(f"googlenet training: launches {got}, expected {want}; "
+                             f"plain calls {plain}")
+    batch = data.sample(GOOGLENET_BATCH)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tr._step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("googlenet training profile: the profiler saw no device time")
+    by = {"K6 conv2d": ("conv2d_fma", "conv2d_mma", "conv2d_reduce"),
+          "K6 backward": ("conv_dgrad", "conv_wgrad", "conv_bwd_reduce"),
+          "K7 matmul": ("matmul_kernel", "matmul_wgmma_kernel")}
+    parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
+             for k, v in by.items()}
+    log(f"googlenet training profile (one step, {GOOGLENET_ACCUM} microbatches): wall="
+        f"{wall:.3f}s device_busy={busy:.3f}s busy_share={busy / wall:.3f} idle_share="
+        f"{1 - busy / wall:.3f}; " + ", ".join(f"{k} {v:.4f}s ({v / busy:.3f} of device "
+                                               f"time)" for k, v in parts.items()))
+    for ms, count, key in rows[:12]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in got.items()}
+
+
+def dots_training_phase(torch, np, table, full) -> dict:
+    """Phase 22d: qwen2.5-3b at full width under remat "dots" (each block's
+    weight products kept, the rest recomputed) for ``DOTS_TRAIN_STEPS``
+    steps of phase 15's 8 x 512 tokens in 8 microbatches; step time and
+    peak memory beside phase 15's "full" (``full``: its step seconds and
+    peak bytes).  Launches exact by body: K7 without the recompute's block
+    products, K4 72 and its backward 36 a microbatch as under "full"; no
+    plain call.  Then one zamba2-1.2b microbatch (1 x 512) under "dots":
+    its counts are phase 21d's, since the hybrid runs "dots" as "full" (as
+    the reference does).  Returns the launches by kernel."""
+    import tempfile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import adamw, leaves, warmup_cosine
+    from repro_torch.training.train_step import make_loss_fn
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = arch_registry.config("qwen2.5-3b").replace(remat="dots")
+    L, accum = cfg.num_layers, cfg.accum_steps
+    micro = accum * DOTS_TRAIN_STEPS
+    # per microbatch: each block's products once (kept for the recompute),
+    # the LM head once, two products in each backward
+    per_micro = L * QWEN_PRODUCTS + 1 + 2 * (L * QWEN_PRODUCTS + 1)
+    want = {"matmul": {"wgmma": (per_micro - 3) * micro, "fma": 3 * micro},
+            "flash_attention": {"mma": 2 * L * micro},
+            "flash_attention_backward": {"fma": L * micro}}
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(num_steps=DOTS_TRAIN_STEPS, ckpt_every=50, ckpt_dir=d,
+                           device="cuda")
+        tr = Trainer(cfg, iter(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ)), tc,
+                     accum=accum, optimizer=adamw(warmup_cosine(3e-3, 20, DOTS_TRAIN_STEPS)))
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counts()
+        hist = tr.train()
+        torch.cuda.synchronize()
+        got = {n: dict(table[n].body_launches) for n in want}
+        plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist if "loss" in h]
+    times = [h["step_time_s"] for h in hist if "loss" in h]
+    log(f"qwen2.5-3b training under remat=dots: {DOTS_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {accum} microbatches: losses={[round(v, 4) for v in losses]} "
+        f"step times {[round(t, 3) for t in times]}s (the last "
+        f"{TRAIN_BATCH * TRAIN_SEQ / times[-1]:.1f} tokens/s) max_memory_allocated="
+        f"{peak / 2**30:.2f}GiB; phase 15 under remat=full: step {full[0]:.3f}s "
+        f"max_memory_allocated {full[1] / 2**30:.2f}GiB")
+    log(f"qwen2.5-3b training under remat=dots: launches by body {got} (expected {want}: "
+        f"K7 {per_micro} a microbatch against 1011 under full); plain_calls={plain or 0}")
+    if len(losses) != DOTS_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"remat=dots training: losses {losses}")
+    if got != want or plain:
+        raise AssertionError(f"remat=dots training: launches {got}, expected {want}; "
+                             f"plain calls {plain}")
+    out = {n: sum(c.values()) for n, c in got.items()}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = arch_registry.config("zamba2-1.2b").replace(remat="dots")
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in next(SyntheticTokens(cfg, 1, TRAIN_SEQ, seed=5)).items()}
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    zwant = zamba_counts(cfg, 1)
+    dispatch.reset_counts()
+    loss, _ = make_loss_fn(cfg)(params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    zgot = {n: dict(table[n].body_launches) for n in zwant}
+    plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    log(f"zamba2-1.2b, one 1 x {TRAIN_SEQ} microbatch under remat=dots: loss "
+        f"{loss.item():.4f}; launches by body {zgot} (expected phase 21d's {zwant}); "
+        f"plain_calls={plain or 0}")
+    if zgot != zwant or plain or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"zamba2 remat=dots: launches {zgot}, expected {zwant}; plain "
+                             f"calls {plain}; loss {loss.item()}")
+    for n, c in zgot.items():
+        out[n] = out.get(n, 0) + sum(c.values())
+    del params, ps, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4363,12 +4815,22 @@ def main() -> int:
     results.update(timed("21b scan backward", scan_backward_phase, torch, table))
     timed("21c zamba2 training path check", hybrid_train_path_check, torch, np)
     zamba_trained = timed("21d zamba2 training", hybrid_training_phase, torch, np, table)
+    results.update(timed("22a conv backward", conv_backward_phase, torch, table))
+    timed("22b googlenet training path check", googlenet_train_path_check, torch, np)
+    googlenet_trained = timed("22c googlenet training", googlenet_training_phase, torch, np,
+                              table)
+    dots_trained = timed("22d remat dots", dots_training_phase, torch, np, table,
+                         trained["full"])
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
     launches["flash_attention_backward"] = trained["flash_attention_backward"]
     launches["ssm_scan_backward"] = 0
     for name, count in zamba_trained.items():
+        launches[name] += count
+    # GoogLeNet training's K6, its backward and K7 (22c); remat "dots" (22d)
+    launches["conv2d_backward"] = 0
+    for name, count in list(googlenet_trained.items()) + list(dots_trained.items()):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -4381,7 +4843,7 @@ def main() -> int:
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "paged_decode_attention:int8", "paged_prefill_attention:int8",
                  "decode_attention", "flash_attention", "flash_attention_backward",
-                 "ssm_scan", "ssm_scan_backward", "conv2d", "matmul"):
+                 "ssm_scan", "ssm_scan_backward", "conv2d", "conv2d_backward", "matmul"):
         k, r = table[name.split(":")[0]], results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,

@@ -45,7 +45,9 @@ of those two required to fail every case by 8x or more; the flash kernel (K4) sk
 tile, in its FMA body and in its tensor-core body; K4's backward skips
 the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
 pass; K5's backward drops the gradient carried back over the chunks in
-its state pass, or loses dq's inter-chunk term; the dense decode
+its state pass, or loses dq's inter-chunk term; K6's backward loses
+dgrad's parity test (at a stride, a tap counts where it should not) or
+drops wgrad's last slice of pixels where it splits K; the dense decode
 kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
 64-deep K stage in its wgmma body.  Builds each kernel the file feeds
@@ -55,14 +57,18 @@ kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
 against the plain version in fp32 on the dequantized values -- at zamba2 widths for K5, on
 ``DENSE_DECODE_CASES`` for K3 and on ``K4_SHAPES`` for K4; the backward
 kernels on ``K4B_GATE_CASES`` and zamba2's widths at ``K5B_GATE_S``, fp32
-and bf16, the plain version in fp32 on the same values; fp32 / fp16 /
+and bf16, K6's on the conv gate shapes at batch 8 and chip_smoke's
+``CONV_BWD_EXTRA``, fp32 and fp16, the plain version in fp32 on the same
+values; fp32 / fp16 /
 bf16 on the gate shapes at batch 8 for conv; chip_smoke's ``K7_CASES`` at
 fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
 fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
 broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
 for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; the backward
-kernels' one body: fp32 and bf16; K6's reduction: the cases
+kernels' one body: fp32 and bf16 (K6's: fp32 and fp16, dgrad's broken
+parity on the cases that ask for dx at stride 2, wgrad's dropped slice on
+the cases it splits); K6's reduction: the cases
 cut into K slices; K7's FMA body: fp32
 and the 16-bit cases TMA cannot read; its wgmma body: bf16 and fp16 --
 for a kernel of two bodies, only the cases its route sends to the broken
@@ -113,9 +119,16 @@ K4B_DQ_SKIP_TILE_0 = ("if (j0 > 0) mm(dq_acc, dst, LDT, 1, ks, LD, 1, nj);"
 K5B_CARRY = "g = decay * g + u;"
 K5B_DROP_CARRY = "g = u;  // the gradient carried back is dropped"
 K5B_INTER = "dq_acc[a][c] = fmaf(wq, z[a][c], dq_acc[a][c]);"
+K6B_PARITY = "if (oh * g.stride == nh && ow * g.stride == nw && oh < g.Hout && ow < g.Wout)"
+K6B_NO_PARITY = "if (oh < g.Hout && ow < g.Wout)  // the parity test lost"
+K6B_SLICE = "const int2 sl = slice_of(K, splits);     // this block's pixels"
+K6B_DROP_SLICE = ("const int2 sl = splits > 1 && blockIdx.z == splits - 1 ? make_int2(0, 0) "
+                  ": slice_of(K, splits);  // the last slice of pixels dropped")
 K5B_LOSE_INTER = "(void)wq;  // the inter-chunk term of dq is lost"
 # the backward kernels' cases: K4's on chip_smoke's phase 21a shapes, K5's
-# at zamba2's widths with a carried state and d_final
+# at zamba2's widths with a carried state and d_final; K6's on the conv
+# gate shapes at batch 8 (dx where training asks for it) and phase 22a's
+# extra cases (stride 2 with dx, odd maps)
 K4B_GATE_CASES = ((1, 512, 16, 2, 128), (1, 512, 32, 32, 64), (1, 333, 32, 32, 64))
 K5B_GATE_S = (512, 1000)
 K7_ADD = "for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];"
@@ -216,6 +229,12 @@ MUTANTS = (
     ("ssm_scan_backward.cu", K5B_INTER, K5B_LOSE_INTER,
      "K5's backward: dq loses its inter-chunk term",
      (("ssm_scan_backward", ("float32", "bfloat16"), "fma"),)),
+    ("conv2d_backward.cu", K6B_PARITY, K6B_NO_PARITY,
+     "K6's backward: dgrad loses its parity test (a tap counts where h + pt - i is not a "
+     "multiple of the stride)", (("conv2d_backward", ("float32", "float16"), "dgrad_s2"),)),
+    ("conv2d_backward.cu", K6B_SLICE, K6B_DROP_SLICE,
+     "K6's backward: wgrad drops its last slice of pixels where it splits K",
+     (("conv2d_backward", ("float32", "float16"), "wgrad_split"),)),
     ("decode_attention.cu", TILE_LOOP, SKIP_LAST_TILE, "FMA body: skips the last live KV tile",
      (("decode_attention", ("float32", "bfloat16"), "fma"),)),
     ("matmul.cu", K7_ADD, K7_LOSE_SLICE,
@@ -465,6 +484,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.conv2d.ops import backward_splits
     from repro_torch.kernels.conv2d.ops import body_for as conv_body_for
     from repro_torch.kernels.decode_attention.ops import body_for as decode_body_for
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
@@ -479,7 +499,15 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         split = cs.conv_slices(*args[:2], kw["stride"], body) > 1
         return {body} | ({"split"} if split else set())
 
-    # what a case runs: its body, and for K6 whether K is split
+    def conv_bwd_tags(args, kw):
+        dx_splits, dw_splits = backward_splits(args[0].shape, args[1].shape, kw["stride"])
+        dgrad = kw["need_dx"]
+        return ({"wgrad"} | ({"dgrad"} if dgrad else set())
+                | ({"dgrad_s2"} if dgrad and kw["stride"] > 1 else set())
+                | ({"wgrad_split"} if dw_splits > 1 else set()))
+
+    # what a case runs: its body, and for K6 whether K is split (its
+    # backward: which passes, dgrad at a stride, wgrad split)
     tags_of = {"matmul": lambda args, kw: {matmul_body_for(*args[:2])},
                "flash_attention": lambda args, kw: {flash_body_for(args[0])},
                "decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
@@ -489,6 +517,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                "ssm_scan": lambda args, kw: {ssm_body_for(*args[:3])},
                "flash_attention_backward": lambda args, kw: {"fma"},
                "ssm_scan_backward": lambda args, kw: {"fma"},
+               "conv2d_backward": conv_bwd_tags,
                "conv2d": conv_tags}.get(name, lambda args, kw: set())
     # a paged FMA body's broken loop changes only cases with a row that sees
     # more than two pool blocks (the lengths are the last operand)
@@ -500,6 +529,18 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                   cs.conv_case(torch, xs, ws, dt), {"stride": shapes[label][2]})
                  for label in CONV_GATE_SHAPES]
         dtypes = (torch.float32, torch.float16, torch.bfloat16)
+    elif name == "conv2d_backward":
+        shapes = {names[0]: key for key, names in cs.conv_groups().items()}
+        specs = [(label, *shapes[label], label != "stem1") for label in CONV_GATE_SHAPES]
+        specs += [("extra", xs, ws, st, True) for xs, ws, st in cs.CONV_BWD_EXTRA]
+
+        def k6b_case(dt, xs, ws, st):
+            x, w, b = cs.conv_case(torch, xs, ws, dt)
+            return x, w, b, cs.conv_grad_out(torch, xs, ws, st, dt)
+        cases = [(f"{label} x{xs} w{ws} /{st} dx={dx}",
+                  lambda dt, xs=xs, ws=ws, st=st: k6b_case(dt, xs, ws, st),
+                  {"stride": st, "need_dx": dx}) for label, xs, ws, st, dx in specs]
+        dtypes = (torch.float32, torch.float16)
     elif name == "ssm_scan":
         cases = [(f"B=1 S={S} H={H} N=P={N} {'shared' if sh else 'per-head'} q/k",
                   lambda dt, S=S, H=H, N=N, sh=sh: cs.ssm_case(

@@ -1,6 +1,6 @@
 // fp32 products of small tiles in shared memory on the CUDA cores, for the
-// backward kernels (flash_attention_backward.cu, ssm_scan_backward.cu),
-// whose gradients are held to fp32 sums.  Plain C++ and CUDA runtime only.
+// backward kernels (flash_attention_backward.cu, ssm_scan_backward.cu,
+// conv2d_backward.cu), whose gradients are held to fp32 sums.  Plain C++ and CUDA runtime only.
 //
 // A block of 256 threads is a 16 x 16 grid (ty = tid / 16, tx = tid % 16);
 // a thread owns the outputs (ty + 16 i, tx + 16 j) of a (16 TM) x (16 TN)
@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace fma_tile {
@@ -21,10 +22,14 @@ constexpr int THREADS = 256;   // 16 x 16
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ int ty() { return threadIdx.x / 16; }

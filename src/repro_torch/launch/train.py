@@ -4,7 +4,10 @@ card, every weight product of the forward and backward through the K7
 matmul kernel, attention through K4 and (zamba2's Mamba-2 layers) the
 scan through K5, each with its backward kernel.  Prints the first and
 last loss, the step time, tokens/s, tokens/s/W against the card's power
-limit and the peak device memory.
+limit and the peak device memory.  It feeds ``SyntheticTokens``, as the
+reference's does; GoogLeNet, whose forward reads images, trains as the
+reference trains it: ``Trainer(cfg, iter(SyntheticImages(...)), tc)``
+(``chip_smoke.py`` phase 22c), every conv through K6 and its backward.
 
 Example (on a machine with an NVIDIA card): qwen2.5-3b at full width,
 4 steps of 8 x 512 tokens in 8 microbatches (the config's ``accum_steps``;

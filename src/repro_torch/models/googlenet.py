@@ -5,7 +5,9 @@ GoogLeNet, Szegedy et al. CVPR'15), in PyTorch, NHWC (counterpart of
 Parameters have the reference's names and shapes leaf for leaf, so a JAX
 parameter tree crosses with :func:`repro_torch.interop.params_from_numpy`.
 Auxiliary classifier heads are training-time only in the original and are
-omitted, as in the reference.  All 57 convolutions run the conv2d kernel.
+omitted, as in the reference.  All 57 convolutions run the conv2d kernel,
+and in training its backward kernel (dgrad for every conv but ``stem1``,
+whose images need no gradient; wgrad for all).
 """
 from __future__ import annotations
 

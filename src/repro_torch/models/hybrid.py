@@ -182,13 +182,13 @@ def _forward_core(cfg, params, tokens, positions, *, remat=False,
     the final norm.  Returns (x, HybridState or None); the state's KV
     caches are the prompt's rows only (:func:`prefill` grows them).
 
-    ``remat`` (training) with ``cfg.remat == "full"`` runs each segment
-    under ``torch.utils.checkpoint`` (non-reentrant): only its input is
-    kept, and the backward runs it again, K5 and K4 included (the
-    reference's ``nothing_saveable``).  ``"dots"`` is not ported."""
+    ``remat`` (training) with any ``cfg.remat`` but ``"none"`` runs each
+    segment under ``torch.utils.checkpoint`` (non-reentrant): only its
+    input is kept, and the backward runs it again, K5 and K4 included.
+    The reference checkpoints its segments with ``nothing_saveable``
+    whatever the policy's name, so ``"dots"`` trains exactly as ``"full"``
+    does there, and here."""
     policy = cfg.remat if remat else "none"
-    if policy == "dots":
-        raise NotImplementedError("remat='dots' is not ported; use 'full' or 'none'")
     if collect and policy != "none":
         raise ValueError("the decode state is collected without remat")
     n_seg, e, tail = _segments(cfg)

@@ -3,8 +3,10 @@
 
 NHWC layout and HWIO kernels at every public function, as in the
 reference.  Every convolution goes through the conv2d kernel
-(:mod:`repro_torch.kernels.conv2d.ops`); pooling and LRN are plain PyTorch,
-as the reference computes them outside any Pallas kernel.  SAME pooling
+(:mod:`repro_torch.kernels.conv2d.ops`), and in training through its
+backward kernel; pooling and LRN are plain PyTorch, differentiated by
+autograd, as the reference computes them outside any Pallas kernel and
+XLA differentiates them.  SAME pooling
 pads explicitly (``-inf`` for max, 0 for average) with the odd pixel after,
 because ``F.max_pool2d`` pads symmetrically.
 """

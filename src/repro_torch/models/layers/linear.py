@@ -7,12 +7,54 @@ backward (nothing in the reference wraps it in a ``custom_vjp``: JAX
 differentiates its einsums), so the backward here is two more launches of
 the same kernel, each on strided views: ``dX = dY @ W^T`` and
 ``dW = X^T @ dY``.  On the CPU the same Function calls the plain version.
+
+Under :func:`keep_products` (``remat="dots"``: the reference's
+``dots_with_no_batch_dims_saveable``, which keeps the outputs of the
+products without batch dimensions -- the weight products) each product
+keeps its output in a :class:`KeptProducts`, and when
+``torch.utils.checkpoint`` runs the block again in the backward, the
+products hand those outputs back in order instead of launching K7 again.
+A selective-checkpoint policy cannot do this: it sees dispatcher ops, and
+K7 is a ctypes launch inside an autograd Function.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from repro_torch.kernels.matmul.ops import matmul as _k7
+
+# the store of the block running on this thread (the recompute of a
+# checkpointed block runs on autograd's thread, and enters it there)
+_ACTIVE = threading.local()
+
+
+class KeptProducts:
+    """The outputs of one block's weight products, in the order the block
+    makes them: recorded by the block's first run, handed back to each
+    later run (the checkpoint's recompute)."""
+
+    def __init__(self):
+        self.outputs: list[torch.Tensor] = []
+        self.recorded = False
+        self.next = 0
+
+
+@contextlib.contextmanager
+def keep_products(kept: KeptProducts):
+    """Inside the block, every :func:`matmul` records its output in
+    ``kept`` (the first run) or returns the next recorded one without a
+    launch (every later run)."""
+    prev = getattr(_ACTIVE, "kept", None)
+    kept.next = 0
+    _ACTIVE.kept = kept
+    try:
+        yield
+    finally:
+        _ACTIVE.kept = prev
+        kept.recorded = True
 
 
 def _unit_strided(t: torch.Tensor) -> torch.Tensor:
@@ -30,7 +72,14 @@ class _Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        out = _k7(x, w)
+        kept = getattr(_ACTIVE, "kept", None)
+        if kept is not None and kept.recorded:      # the recompute: no launch
+            out = kept.outputs[kept.next].detach()
+            kept.next += 1
+        else:
+            out = _k7(x, w)
+            if kept is not None:
+                kept.outputs.append(out.detach())
         ctx.save_for_backward(x, w)
         return out
 

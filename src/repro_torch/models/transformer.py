@@ -55,6 +55,7 @@ from repro_torch.kernels.dispatch import check_scales
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 from repro_torch.models.layers import attention as A
+from repro_torch.models.layers import linear
 from repro_torch.models.layers.embedding import embed, embedding_table
 from repro_torch.models.layers.embedding import logits as lm_logits
 from repro_torch.models.layers.mlp import swiglu, swiglu_table
@@ -406,17 +407,29 @@ def _scan_blocks(cfg, stacked, x, positions, *, remat, chunk=1024):
     the blocks as they are; ``"full"`` keeps only each block's input and
     recomputes the block in the backward (``jax.checkpoint`` with
     ``nothing_saveable``: here ``torch.utils.checkpoint``, non-reentrant);
-    ``"dots"`` (keep the weight products) is not ported."""
+    ``"dots"`` (``dots_with_no_batch_dims_saveable``) keeps each weight
+    product's output as well (:func:`linear.keep_products`): the recompute
+    runs the norms, RoPE, activations and K4 again but launches no K7.  A
+    value the reference does not know runs as ``"full"``, as its
+    ``_REMAT_POLICIES.get(cfg.remat, full)`` does."""
     policy = cfg.remat if remat else "none"
-    if policy == "dots":
-        raise NotImplementedError("remat='dots' is not ported; use 'full' or 'none'")
     for p in _unstack_layers(stacked, cfg.num_layers):
         if policy == "none":
             x = block_apply(cfg, p, x, positions, chunk=chunk)
+        elif policy == "dots":
+            x = checkpoint(_block_keeping_products, linear.KeptProducts(), cfg, p, x,
+                           positions, chunk, use_reentrant=False)
         else:
             x = checkpoint(block_apply, cfg, p, x, positions, chunk=chunk,
                            use_reentrant=False)
     return x
+
+
+def _block_keeping_products(kept, cfg, p, x, positions, chunk):
+    """``block_apply`` with its weight products' outputs kept in ``kept``
+    (``remat="dots"``)."""
+    with linear.keep_products(kept):
+        return block_apply(cfg, p, x, positions, chunk=chunk)
 
 
 def _apply_backbone(cfg, params, tokens, positions, *, cache=None,

@@ -41,10 +41,13 @@ to the bf16 / fp32 body on the pool dequantized to q's type.  Training
 on the card: the smoke model's loss and gradients through the kernels
 within 1e-3 of each leaf's largest entry of those through the plain
 versions (the same fp32 arithmetic in other orders; the random model's
-near-one-hot attention amplifies rounding in the backward).  The backward
-kernels (K4's, K5's) against their plain versions evaluated in fp32 on the
-same values: each gradient within ``GRAD_RTOL`` of its largest entry (fp32
-2^-14, a bf16 gradient 2^-8); K4's log-sum-exp on both bodies within 1e-5
+near-one-hot attention amplifies rounding in the backward); GoogLeNet's
+backward through the kernels against the plain versions' on one forward
+graph (the same ReLU masks and max-pool choices), on
+``grad_tolerance_ratio``.  The backward kernels (K4's, K5's, K6's)
+against their plain versions evaluated in fp32 on the same values: each
+gradient within ``GRAD_RTOL`` of its largest entry (fp32 2^-14, a bf16
+gradient 2^-8, fp16 2^-10); K4's log-sum-exp on both bodies within 1e-5
 of the plain one.  A kernel called on the card with an input that requires
 grad raises, naming where its gradient is (or that it has none).
 """
@@ -1185,7 +1188,7 @@ def test_ssm_scan_backward_kernel_matches_plain(cuda, dtype, S, chunk, shared, s
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):
     """Each kernel entry writes through raw pointers: called with grad on
-    and an input that requires it, it raises (K4, K5, K7 naming their
+    and an input that requires it, it raises (K4, K5, K6, K7 naming their
     differentiable wrappers) instead of dropping the gradient."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models.layers.linear import matmul
@@ -1208,7 +1211,7 @@ def test_kernels_refuse_inputs_that_require_grad(cuda):
         table["decode_attention"](q[:, 0], k, v, lengths)
     xs = torch.randn((1, 8, 8, 16), generator=g, device=cuda, requires_grad=True)
     ws = torch.randn((3, 3, 16, 16), generator=g, device=cuda)
-    with pytest.raises(RuntimeError, match="conv2d: an input requires grad"):
+    with pytest.raises(RuntimeError, match="conv2d: an input requires grad.*conv2d.ops.conv2d"):
         table["conv2d"](xs, ws, None, stride=1)
 
 
@@ -1249,3 +1252,109 @@ def test_hybrid_training_step_runs_the_kernels(cuda):
     assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+def _conv_backward_cases():
+    """Phase 22a's cases: every distinct conv shape of GoogLeNet's batch-8
+    forward at 224 (dx where training asks for it: every conv but stem1),
+    stem1 with dx (stride 2, SAME padding 2 before and 3 after), odd maps
+    at strides 1 and 2."""
+    seen, cases = set(), []
+    for name, xs, ws, stride in conv_shapes(8, 224):
+        if (xs, ws, stride) not in seen:
+            seen.add((xs, ws, stride))
+            cases.append((xs, ws, stride, name != "stem1"))
+    return cases + [((8, 224, 224, 3), (7, 7, 3, 64), 2, True),
+                    ((3, 13, 11, 5), (3, 3, 5, 7), 2, True),
+                    ((2, 9, 9, 3), (7, 7, 3, 10), 2, True),
+                    ((1, 15, 17, 24), (5, 5, 24, 40), 1, True),
+                    ((2, 10, 10, 33), (1, 1, 33, 17), 2, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("xs,ws,stride,need_dx", _conv_backward_cases())
+def test_conv2d_backward_kernel_matches_plain(cuda, dtype, xs, ws, stride, need_dx):
+    """K6's backward (dgrad where asked, wgrad and db) against its plain
+    version evaluated in fp32 on the same values, each gradient within
+    ``GRAD_RTOL`` of its largest entry; split passes give the same bits
+    launch after launch; counted by pass."""
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(xs, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(ws, generator=g, device=cuda) / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+    b = 0.1 * torch.randn((ws[3],), generator=g, device=cuda)
+    dy = torch.randn((xs[0], -(-xs[1] // stride), -(-xs[2] // stride), ws[3]),
+                     generator=g, device=cuda).to(dtype)
+    bwd = dispatch.kernel_table()["conv2d_backward"]
+    ref = bwd.plain(x.float(), w.float(), b, dy.float(), stride=stride, need_dx=need_dx)
+    dispatch.reset_counts()
+    out = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
+    again = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert bwd.body_launches == ({"dgrad": 2, "wgrad": 2} if need_dx else {"wgrad": 2})
+    assert (out[0] is None) == (not need_dx)
+    assert [t.dtype for t in out[1:]] == [dtype, torch.float32]
+    assert dispatch.grad_tolerance_ratio(out, ref) <= 1.0
+    assert all(torch.equal(u, v) for u, v in zip(out, again) if u is not None)
+
+
+def test_googlenet_train_step_runs_the_kernels(cuda):
+    """One fp32 train step of GoogLeNet (the full graph at 64 x 64, batch
+    4 in 2 microbatches) on the card: K6, its backward (dgrad for every
+    conv but stem1, wgrad for all 57) and K7 launched exactly, no plain
+    call; on one forward graph, the backward through the kernels within
+    ``grad_tolerance_ratio`` of the backward through the plain versions."""
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.optim.optimizers import adamw, constant, leaves
+    from repro_torch.training.train_step import make_loss_fn, make_train_step
+    cfg = TR.smoke("googlenet")
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    batch = SyntheticImages(cfg.vocab_size, 4, 64, seed=2).sample(4)
+    step = make_train_step(cfg, adamw(constant(1e-3)), accum=2)
+    dispatch.reset_counts()
+    _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+    table = dispatch.kernel_table()
+    assert {n: dict(table[n].body_launches) for n in
+            ("conv2d", "conv2d_backward", "matmul")} == {
+        "conv2d": {"fma": 114}, "conv2d_backward": {"dgrad": 112, "wgrad": 114},
+        "matmul": {"fma": 6}}
+    assert all(t.plain_calls == 0 for t in table.values()) and np.isfinite(float(m["loss"]))
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss, _ = make_loss_fn(cfg)(params, {k: torch.as_tensor(v).to(cuda)
+                                         for k, v in batch.items()})
+    kern = torch.autograd.grad(loss, ps, retain_graph=True)
+    with dispatch.plain_versions():
+        plain = torch.autograd.grad(loss, ps)
+    for p in ps:
+        p.requires_grad_(False)
+    assert max(dispatch.grad_tolerance_ratio([k], [p]) for k, p in zip(kern, plain)) <= 1.0
+
+
+def test_dots_step_launches_no_recompute_products(cuda):
+    """qwen2.5-3b-smoke under remat "dots" on the card: K7 as often as
+    under "none" (the recompute reuses the kept products), K4 again in the
+    recompute; the loss and gradients equal "full"'s bit for bit."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import leaves
+    cfg = TR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    ps = leaves(params)
+    L, runs = cfg.num_layers, {}
+    for policy in ("dots", "full"):
+        for p in ps:
+            p.requires_grad_(True)
+        dispatch.reset_counts()
+        loss = T.forward(cfg.replace(remat=policy), params, tokens)[0].square().mean()
+        grads = torch.autograd.grad(loss, ps)
+        table = dispatch.kernel_table()
+        runs[policy] = (loss.item(), grads, table["matmul"].launches,
+                        table["flash_attention"].launches)
+    for p in ps:
+        p.requires_grad_(False)
+    assert runs["dots"][2:] == (3 * (7 * L + 1), 2 * L)
+    assert runs["full"][2:] == (7 * L * 2 + 1 + 2 * (7 * L + 1), 2 * L)
+    assert runs["dots"][0] == runs["full"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["dots"][1], runs["full"][1]))

@@ -11,8 +11,9 @@ and the same numpy data.
   of its own largest entry, as the dense family's test holds them) and
   the updated parameters, with the plain-call counts of the five kernel
   entries on the path held exactly.
-* ``remat="full"`` against ``"none"``: loss and gradients bit for bit;
-  ``"dots"`` is not ported.
+* ``remat="full"`` and ``"dots"`` against ``"none"``: loss and gradients
+  bit for bit; ``"dots"`` runs as ``"full"``, as the reference's hybrid
+  runs every policy but ``"none"``; its step equals the reference's.
 * The Trainer takes ``zamba2-1.2b``, and the launcher trains it at smoke
   size on the CPU with a falling loss.
 """
@@ -86,11 +87,12 @@ def _want_counts(cfg, remat=True):
     """Plain calls of one microbatch's forward and backward, from the
     config: K5 once a Mamba layer, K4 once a shared-block application, each
     again in the recompute of a checkpointed segment (the tail is not
-    checkpointed); each backward once; K7 for every weight product (two a
-    Mamba layer, eight a shared-block application, the LM head), again in
-    the recompute, and twice in the backward (dX, dW)."""
+    checkpointed; any policy but "none" checkpoints); each backward once;
+    K7 for every weight product (two a Mamba layer, eight a shared-block
+    application, the LM head), again in the recompute, and twice in the
+    backward (dX, dW)."""
     n_seg, e, tail = TH._segments(cfg)
-    full = remat and cfg.remat == "full"
+    full = remat and cfg.remat != "none"
     layers = n_seg * e + tail
     fwd = 2 * layers + 8 * n_seg + 1
     again = (2 * e * n_seg + 8 * n_seg) if full else 0
@@ -124,9 +126,12 @@ def test_forward_refuses_positions_that_are_not_the_rows():
     TH.forward(tcfg, tp, tokens, pos - 3)
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_loss_and_gradients_match_jax(accum):
+def _train_step_vs_jax(accum, remat="full"):
+    """One train step of the port and of the reference at ``remat``: loss,
+    metrics, every gradient leaf, the updated parameters; the five kernel
+    entries' plain calls exact."""
     jcfg, jp, tcfg, tp = _setup()
+    jcfg, tcfg = jcfg.replace(remat=remat), tcfg.replace(remat=remat)
     batch = next(JaxSyntheticTokens(jcfg, 4, 40, seed=3))
     captured = {}
 
@@ -162,15 +167,26 @@ def test_train_step_loss_and_gradients_match_jax(accum):
     assert all(not p.requires_grad and p.grad is None for p in _flat(tp2).values())
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_loss_and_gradients_match_jax(accum):
+    _train_step_vs_jax(accum)
+
+
+def test_dots_train_step_matches_jax():
+    """``remat="dots"``: the reference checkpoints each segment with
+    ``nothing_saveable`` whatever the policy, and so does the port."""
+    _train_step_vs_jax(1, "dots")
+
+
 def test_remat_policies():
-    """``full`` recomputes each segment exactly (same loss and gradients as
-    ``none``, bit for bit), with K5 and K4 launched again in the recompute;
-    ``dots`` is not ported."""
+    """``full`` and ``dots`` recompute each segment exactly (same loss and
+    gradients as ``none``, bit for bit), with K5 and K4 launched again in
+    the recompute: the hybrid runs ``dots`` as ``full``."""
     _, _, tcfg, tp = _setup(seed=1)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, tcfg.vocab_size, (2, 45)).astype(np.int32))
     grads = {}
-    for policy in ("full", "none"):
+    for policy in ("full", "dots", "none"):
         cfg = tcfg.replace(remat=policy)
         for p in _flat(tp).values():
             p.grad = None
@@ -183,11 +199,10 @@ def test_remat_policies():
     for p in _flat(tp).values():
         p.requires_grad_(False)
         p.grad = None
-    assert grads["full"][0] == grads["none"][0]
-    for k, g in grads["full"][1].items():
-        torch.testing.assert_close(g, grads["none"][1][k], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="dots"):
-        TH.forward(tcfg.replace(remat="dots"), tp, tokens)
+    for policy in ("full", "dots"):
+        assert grads[policy][0] == grads["none"][0]
+        for k, g in grads[policy][1].items():
+            torch.testing.assert_close(g, grads["none"][1][k], rtol=0, atol=0)
 
 
 def test_trainer_trains_the_hybrid(tmp_path):

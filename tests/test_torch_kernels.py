@@ -232,8 +232,8 @@ def test_gqa_head_order():
 
 def test_cpu_tensors_take_the_counted_plain_version():
     table = dispatch.kernel_table()
-    assert set(table) == {"conv2d", "decode_attention", "flash_attention",
-                          "flash_attention_backward", "matmul",
+    assert set(table) == {"conv2d", "conv2d_backward", "decode_attention",
+                          "flash_attention", "flash_attention_backward", "matmul",
                           "paged_decode_attention", "paged_prefill_attention",
                           "ssm_scan", "ssm_scan_backward"}
     dec = table["paged_decode_attention"]
@@ -392,7 +392,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
-    assert build.sources() == ["conv2d", "decode_attention",
+    assert build.sources() == ["conv2d", "conv2d_backward", "decode_attention",
                                "flash_attention", "flash_attention_backward",
                                "matmul", "paged_decode_attention",
                                "paged_prefill_attention", "ssm_scan",

@@ -14,6 +14,7 @@ retries beyond the first and per-replica splits depend on timing; those
 tests assert only what the reference's assert."""
 import dataclasses
 import math
+import threading
 import time
 
 import jax
@@ -517,30 +518,82 @@ def test_replica_death_quarantines_and_retries_bit_identical(weights):
     assert th == jh
 
 
+def _crash_after_submits(eng, k: int) -> None:
+    """Fix where a one-replica fleet's crash falls among its submits: the
+    executor's first step, at whose top ``replica.executor`` fires, waits
+    until ``k`` submits have returned, and every later submit waits until
+    the crash is recorded.  A request queued before the crash is failed by
+    the crash capture with the fault's own error (``FaultError``); one
+    submitted after it is refused with ``ExecutorCrash`` -- on both sides.
+    Left to the threads, the third request's side of that line is a race
+    on each side, and the two sides' types could differ."""
+    queued = threading.Event()
+    done = [0]
+    step, submit = eng._step, eng.submit
+
+    def gated_step():
+        assert queued.wait(timeout=30)
+        return step()
+
+    def gated_submit(req, on_finish=None):
+        if done[0] >= k:
+            deadline = time.monotonic() + 30
+            while eng.failure is None:
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
+        try:
+            return submit(req, on_finish=on_finish)
+        finally:
+            done[0] += 1
+            if done[0] == k:
+                queued.set()
+
+    eng._step = gated_step
+    eng.submit = gated_submit
+
+
+def _dead_fleet(weights, jax_side: bool, crash_after: int):
+    """Three requests through a one-replica router whose executor raises at
+    its first step, ``crash_after`` of them queued before it does: (error
+    type names, requests_failed, health)."""
+    mod, smod, fmod, Router = ((JE, JS, JF, JRT.ReplicaRouter) if jax_side
+                               else (TE, TS, TF, ReplicaRouter))
+    plan = fmod.FaultPlan([fmod.FaultSpec("replica.executor", "raise")])
+    eng = _engine(weights, jax_side, max_len=16, batch_slots=2,
+                  name="replica0", fault_plan=plan)
+    _crash_after_submits(eng, crash_after)
+    router = Router([eng], steal=False, max_retries=1)
+    reqs = _reqs(mod, smod, weights[0].vocab_size, 3, seed=11)
+    stats = router.serve(reqs)
+    health = [h.value for h in router.health()]
+    router.stop()
+    router.stop()                        # idempotent fleet teardown
+    if not jax_side:
+        _leak_free(eng)
+        assert all(r.state is RequestState.FAILED and r.error is not None
+                   for r in reqs)
+    return [type(r.error).__name__ for r in reqs], stats.requests_failed, health
+
+
 def test_whole_fleet_dead_fails_typed_never_hangs(weights):
-    vocab = weights[0].vocab_size
-    out = {}
-    for jax_side, (mod, smod, fmod, Router) in (
-            (True, (JE, JS, JF, JRT.ReplicaRouter)),
-            (False, (TE, TS, TF, ReplicaRouter))):
-        plan = fmod.FaultPlan([fmod.FaultSpec("replica.executor", "raise")])
-        eng = _engine(weights, jax_side, max_len=16, batch_slots=2,
-                      name="replica0", fault_plan=plan)
-        router = Router([eng], steal=False, max_retries=1)
-        reqs = _reqs(mod, smod, vocab, 3, seed=11)
-        stats = router.serve(reqs)
-        out[jax_side] = (reqs, stats, [h.value for h in router.health()])
-        router.stop()
-        router.stop()                    # idempotent fleet teardown
-        if not jax_side:
-            _leak_free(eng)
-    treqs, tst, th = out[False]
-    assert all(r.state is RequestState.FAILED for r in treqs)
-    assert all(r.error is not None for r in treqs)
-    assert tst.requests_failed == 3 == out[True][1].requests_failed
-    assert th == [ReplicaHealth.DEAD.value] == out[True][2]
-    assert [type(r.error).__name__ for r in treqs] == \
-        [type(r.error).__name__ for r in out[True][0]]
+    """The whole fleet dies with all three requests queued: each fails
+    typed, with the JAX fleet's error types, failure count and health."""
+    port = _dead_fleet(weights, False, crash_after=3)
+    assert port == _dead_fleet(weights, True, crash_after=3)
+    assert port == (["FaultError"] * 3, 3, [ReplicaHealth.DEAD.value])
+
+
+@pytest.mark.parametrize("crash_after", [1, 2])
+def test_whole_fleet_dead_error_type_follows_the_crash_point(weights, crash_after):
+    """Requests queued before the executor's crash fail with the fault's
+    error, later ones are refused with ``ExecutorCrash``, on both sides.
+    ``crash_after=2`` is the order that made the comparison flicker when
+    one side's third request landed after the crash and the other's
+    before it."""
+    port = _dead_fleet(weights, False, crash_after)
+    want = ["FaultError"] * crash_after + ["ExecutorCrash"] * (3 - crash_after)
+    assert port == _dead_fleet(weights, True, crash_after)
+    assert port == (want, 3, [ReplicaHealth.DEAD.value])
 
 
 # -- multi-replica and wave serving (tests/test_serving.py) --------------------

@@ -49,6 +49,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import transformer as T
+from repro_torch.models.registry import fns_for
 from repro_torch.optim import optimizers as TO
 from repro_torch.training import losses as TL
 from repro_torch.training.train_step import _split_microbatches, make_train_step
@@ -115,13 +116,16 @@ def test_forward_logits_match_jax(remat):
 
 def test_remat_policies():
     """``full`` recomputes each block exactly (same loss and gradients as
-    ``none``); ``dots`` is not ported."""
+    ``none``, bit for bit); ``dots`` too, with the block's weight products
+    kept: K7 runs as often as under ``none``, K4 again in the recompute; a
+    policy the reference does not know (its config's "offloadable-dots")
+    runs as ``full``."""
     _, tcfg = _cfgs()
     _, tp = _params(JR.smoke("qwen2.5-3b"))
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, tcfg.vocab_size, (2, 16)).astype(np.int32))
     grads = {}
-    for policy in ("full", "none"):
+    for policy in ("full", "dots", "offloadable-dots", "none"):
         cfg = tcfg.replace(remat=policy)
         for p in _flat(tp).values():
             p.grad = None
@@ -135,18 +139,18 @@ def test_remat_policies():
                 table["flash_attention_backward"].plain_calls)
         grads[policy] = (loss.item(), {k: p.grad.clone() for k, p in _flat(tp).items()})
         L = cfg.num_layers
-        want = 7 * L * 2 + 1 + 2 * (7 * L + 1) if policy == "full" else 3 * (7 * L + 1)
+        full = policy in ("full", "offloadable-dots")
+        want = 7 * L * 2 + 1 + 2 * (7 * L + 1) if full else 3 * (7 * L + 1)
         assert calls == want
-        # K4 once a layer, again in the recompute under "full"; its backward once
-        assert attn == ((2 * L if policy == "full" else L), L)
+        # K4 once a layer, again in any recompute; its backward once
+        assert attn == ((L if policy == "none" else 2 * L), L)
     for p in _flat(tp).values():
         p.requires_grad_(False)
         p.grad = None
-    assert grads["full"][0] == grads["none"][0]
-    for k, g in grads["full"][1].items():
-        torch.testing.assert_close(g, grads["none"][1][k], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="dots"):
-        T.forward(tcfg.replace(remat="dots"), tp, tokens)
+    for policy in ("full", "dots", "offloadable-dots"):
+        assert grads[policy][0] == grads["none"][0]
+        for k, g in grads[policy][1].items():
+            torch.testing.assert_close(g, grads["none"][1][k], rtol=0, atol=0)
 
 
 def test_lm_cross_entropy_matches_jax():
@@ -239,9 +243,11 @@ def test_schedules_and_clipping_match_jax():
 # one train step against the reference's
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_loss_and_gradients_match_jax(accum):
-    jcfg, tcfg = _cfgs()
+def _train_step_vs_jax(accum, remat="full"):
+    """One train step of the port and of the reference at ``remat``: loss,
+    metrics, every gradient leaf, the updated parameters; K7's and K4's
+    plain calls exact."""
+    jcfg, tcfg = (c.replace(remat=remat) for c in _cfgs())
     jp, tp = _params(jcfg)
     batch = next(JaxSyntheticTokens(jcfg, 4, 16, seed=3))
     captured = {}
@@ -262,9 +268,10 @@ def test_train_step_loss_and_gradients_match_jax(accum):
     topt = TO.adamw(TO.constant(1e-3))
     tp2, ts, tm = tstep(tp, topt.init(tp), batch)
     L = tcfg.num_layers
-    # remat "full": 7 products a layer twice (forward, recompute), the LM
-    # head once, and two products in the backward of each
-    per_micro = 7 * L * 2 + 1 + 2 * (7 * L + 1)
+    # 7 products a layer, again in the recompute under "full" (under "dots"
+    # the recompute reuses them), the LM head once, and two products in
+    # the backward of each
+    per_micro = 7 * L * (2 if remat == "full" else 1) + 1 + 2 * (7 * L + 1)
     table = dispatch.kernel_table()
     assert table["matmul"].plain_calls == accum * per_micro
     # attention through K4: forward and recompute, and its backward, a layer
@@ -284,6 +291,18 @@ def test_train_step_loss_and_gradients_match_jax(accum):
         np.testing.assert_allclose(_np(_flat(tp2)[k])[live], _np(p)[live],
                                    rtol=1e-5, atol=1e-6)
     assert all(not p.requires_grad and p.grad is None for p in _flat(tp2).values())
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_loss_and_gradients_match_jax(accum):
+    _train_step_vs_jax(accum)
+
+
+def test_dots_train_step_matches_jax():
+    """``remat="dots"`` against the reference's
+    ``dots_with_no_batch_dims_saveable`` step: the same loss, gradients
+    and update, with K7 launched as often as without remat."""
+    _train_step_vs_jax(1, "dots")
 
 
 def test_split_microbatches_matches_jax():
@@ -467,9 +486,11 @@ def test_straggler_fault_is_nonfatal():
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg = TR.smoke("qwen2.5-3b")
     data = iter(SyntheticTokens(cfg, batch=2, seq_len=8))
-    for arch in ("googlenet",):
-        with pytest.raises(NotImplementedError, match="not ported: it waits for a backward "
-                                                      "kernel for K6"):
+    for arch in ("xlstm-125m",):         # the ssm family: no model functions yet
+        with pytest.raises(ValueError, match="family 'ssm' is not ported"):
+            fns_for(TR.smoke(arch))
+        with pytest.raises(NotImplementedError, match="training the 'ssm' family is not "
+                                                      "ported"):
             Trainer(TR.smoke(arch), data, TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
