@@ -151,7 +151,7 @@ Phases (each one raises on failure; the script then exits non-zero):
    loss finite, K7 launches exactly 1011 a microbatch (derived from the
    config): 1008 bf16 block products on wgmma and the fp32 LM head's 3 on
    FMA; the attention through K4, 72 a microbatch (36 and the remat
-   recompute) on mma, and K4's backward kernel, 36 on FMA; no plain call;
+   recompute) on mma, and K4's backward kernel, 36 on mma; no plain call;
    step time (beside the step measured when this attention was the
    plain version), tokens/s,
    tokens/s/W against the power limit, peak memory; one more step under
@@ -255,10 +255,13 @@ Phases (each one raises on failure; the script then exits non-zero):
    log-sum-exp (the output bit for bit the one without) and K4's backward
    kernel against their plain versions in fp32 on the same values
    (``dispatch.grad_tolerance_ratio``: each gradient within 2^-14 of its
-   largest at fp32, 2^-8 at bf16) on ``K4_BWD_CASES``, then timed at
-   qwen2.5-3b's training heads beside SDPA's backward (autograd of
-   ``scaled_dot_product_attention``, measured, never used) and the bound,
-   and at zamba2's shared block's, printed.  21b: K5's backward likewise
+   largest at fp32, 2^-8 at bf16) on ``K4_BWD_CASES``, the backward on
+   the body its route picks (bf16 at D 64 / 128 on "mma": P and dS as
+   bf16 hi + lo pairs; fp32 on "fma") and each bf16 case on "fma" too,
+   the route's body launched twice for the same bits; then both bodies
+   timed at qwen2.5-3b's and zamba2's training heads beside SDPA's
+   backward (autograd of ``scaled_dot_product_attention``, measured,
+   never used) and the bound.  21b: K5's backward likewise
    on ``K5_BWD_CASES`` (zamba2's widths, B and C stride-0 head views, S
    512 and a ragged 1000, fp32 with an initial state and d_final), timed
    at S = 512.  21c: zamba2-1.2b at full width cut to 7 layers (one
@@ -269,22 +272,28 @@ Phases (each one raises on failure; the script then exits non-zero):
    compute, remat "full", AdamW), 3 steps of 8 x 512 in 8 microbatches
    through ``repro_torch.launch.train``: every loss finite; K5 74 a
    microbatch (38 and the 36 of the checkpointed segments' recompute) on
-   mma, its backward 38 on FMA, K4 12 on mma, its backward 6 on FMA, K7
+   mma, its backward 38 on FMA, K4 12 on mma, its backward 6 on mma, K7
    495 (492 wgmma, the fp32 LM head's 3 on FMA); no plain call; step time,
    tokens/s, tokens/s/W, peak memory; one profiled step's device time by
    kernel and busy share.
 22. GoogLeNet training and remat "dots".  22a: K6's backward kernel (dgrad
-   where x needs its gradient, wgrad and db; split-K by the forward's rule,
-   the partials summed in slice order) against its plain version evaluated
+   where x needs its gradient, wgrad and db, each pass on the body its
+   route picks: the cp.async-ring bodies "fma" (fp32) and "mma" (fp16) --
+   dgrad at stride 1 as the SAME conv of dy by the flipped weight -- or
+   "gather" (the one dgrad at a stride, a Cout the 16-byte pieces do not
+   fit); split-K by the forward's rule on the body's tile and chunk, the
+   partials summed in slice order) against its plain version evaluated
    in fp32 on the same values (``dispatch.grad_tolerance_ratio``: 2^-14 of
    each gradient's largest at fp32, 2^-10 at fp16) on every distinct conv
    shape of GoogLeNet's batch-8 forward at 224 (dx for every conv but
-   stem1) and on ``CONV_BWD_EXTRA`` (stem1 with dx at stride 2, odd maps),
-   at fp32 and fp16, split cases launched twice for the same bits; then
-   one batch-8 backward of the 57 convs at fp32 timed beside its plain
-   version, cuDNN's backward (autograd of ``F.conv2d`` in NCHW, TF32 off;
+   stem1) and on ``CONV_BWD_EXTRA`` (stem1 with dx at stride 2, odd maps,
+   a 4x2 window whose pads the flipped dgrad swaps), at fp32 and fp16,
+   split cases launched twice for the same bits; then one batch-8
+   backward of the 57 convs timed at fp32 beside its plain version,
+   cuDNN's backward (autograd of ``F.conv2d`` in NCHW, TF32 off;
    measured, never used) and its bound (operations at 67 TFLOP/s fp32,
-   bytes at 3.35 TB/s).  22b: GoogLeNet at full width, fp32, one batch-8
+   bytes at 3.35 TB/s), and at fp16 beside cuDNN's fp16 backward and its
+   bound (989 TFLOP/s).  22b: GoogLeNet at full width, fp32, one batch-8
    microbatch: on one forward graph, every gradient leaf through the
    backward kernels within ``grad_tolerance_ratio`` of the same graph's
    backward through the plain versions; two whole runs, the loss within
@@ -294,11 +303,11 @@ Phases (each one raises on failure; the script then exits non-zero):
    ``Trainer`` from ``SyntheticImages`` (4 steps of 32 images in 4
    microbatches, AdamW with the launcher's recipe): losses finite, a
    microbatch's launches exact by body (K6 57 on FMA, its backward 56
-   dgrad and 57 wgrad, K7 3), no plain call; step time, img/s, img/s/W,
+   ``dgrad_fma`` and 57 ``wgrad_fma``, K7 3), no plain call; step time, img/s, img/s/W,
    peak memory, one profiled step's busy share.  22d: qwen2.5-3b under
    remat "dots" (phase 15's batches, 2 steps): K7 759 a microbatch (the
    recompute reuses the kept products; 1011 under "full"), K4 72 and its
-   backward 36, no plain call; step time and peak memory beside phase
+   backward 36, all on mma, no plain call; step time and peak memory beside phase
    15's; then one zamba2-1.2b microbatch under "dots", whose counts equal
    phase 21d's (the hybrid runs "dots" as "full", as the reference).
 
@@ -534,12 +543,13 @@ SHARED_PRODUCTS = 8     # the shared block's: in_proj, wq wk wv wo, gate up down
 # the training path asks for it (every conv but stem1, whose images need
 # no gradient), and on CONV_BWD_EXTRA: stem1 with dx (stride 2, 7x7, SAME
 # padding 2 before and 3 after), odd maps at strides 1 and 2, a Cout and
-# Cin no tile divides.  22c: GOOGLENET_TRAIN_STEPS steps of GOOGLENET_BATCH
+# Cin no tile divides, and a 4x2 window at stride 1 (SAME pads 1 / 2 and
+# 0 / 1: the flipped dgrad swaps them).  22c: GOOGLENET_TRAIN_STEPS steps of GOOGLENET_BATCH
 # images in GOOGLENET_ACCUM microbatches.  22d: qwen2.5-3b under remat
 # "dots" for DOTS_TRAIN_STEPS steps of phase 15's batches.
 CONV_BWD_EXTRA = (((8, 224, 224, 3), (7, 7, 3, 64), 2), ((3, 13, 11, 5), (3, 3, 5, 7), 2),
                   ((2, 9, 9, 3), (7, 7, 3, 10), 2), ((1, 15, 17, 24), (5, 5, 24, 40), 1),
-                  ((2, 10, 10, 33), (1, 1, 33, 17), 2))
+                  ((2, 10, 10, 33), (1, 1, 33, 17), 2), ((2, 9, 10, 16), (4, 2, 16, 24), 1))
 GOOGLENET_TRAIN_STEPS, GOOGLENET_BATCH, GOOGLENET_ACCUM = 4, 32, 4
 DOTS_TRAIN_STEPS = 2
 
@@ -2382,11 +2392,11 @@ def training_phase(torch, np, table) -> dict:
     # the fp32 LM head (forward, dX, dW) on FMA, every bf16 block product on wgmma
     want_bodies = {"wgmma": (per_micro - 3) * accum * TRAIN_STEPS,
                    "fma": 3 * accum * TRAIN_STEPS}
-    # attention: K4 a layer and again in the recompute (bf16, D = 128: mma),
-    # its backward kernel a layer (FMA)
+    # attention: K4 a layer and again in the recompute, its backward kernel
+    # a layer (bf16, D = 128: both on mma)
     micro = accum * TRAIN_STEPS
     want_k4 = {"flash_attention": {"mma": 2 * L * micro},
-               "flash_attention_backward": {"fma": L * micro}}
+               "flash_attention_backward": {"mma": L * micro}}
     log(f"training: matmul launches={k7[0]} (expected {want} = {per_micro} per microbatch "
         f"x {accum} x {TRAIN_STEPS} steps) by body {k7_bodies} (expected {want_bodies}); "
         f"K4 by body {k4_bodies} (expected {want_k4}); plain_calls={plain or 0}; step "
@@ -4032,12 +4042,17 @@ def attention_backward_work(B, S, H, K, D, elem) -> tuple[float, float, float]:
 def attention_backward_phase(torch, table) -> dict:
     """Phase 21a: K4 with its log-sum-exp, then its backward kernel, each
     against its plain version evaluated in fp32 on the same values, on
-    ``K4_BWD_CASES``; then the backward timed at qwen2.5-3b's training
-    shape beside its plain version, SDPA's backward (autograd of
+    ``K4_BWD_CASES``: the backward on the body its route picks
+    (``backward_body_for``: bf16 at D 64 / 128 on "mma", P and dS carried
+    as bf16 hi + lo pairs; fp32 on "fma"), each bf16 case on "fma" too,
+    every ratio printed, and the route's body launched twice for the same
+    bits.  Then both bodies timed at qwen2.5-3b's and zamba2's training
+    shapes beside the plain version, SDPA's backward (autograd of
     ``scaled_dot_product_attention`` on the same tensors, measured only)
-    and its bound, and at zamba2's shared block's, printed."""
+    and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.dispatch import GRAD_RTOL
+    from repro_torch.kernels.flash_attention.ops import backward_body_for
     fwd, bwd = table["flash_attention"], table["flash_attention_backward"]
     timer = Timer(torch)
     errs = {}
@@ -4054,8 +4069,17 @@ def attention_backward_phase(torch, table) -> dict:
             f"{same}; lse vs plain rel={lse_rel:.3e} (tol 1e-5)")
         if not (same and lse_rel <= 1e-5):
             raise AssertionError(f"flash_attention {label}: lse or output off")
-        errs.setdefault(dtype, []).append(
-            hold(torch, bwd, (q, k, v, out, do, lse), label, causal=True))
+        args = (q, k, v, out, do, lse)
+        route = backward_body_for(q)
+        for body in dict.fromkeys((route, "fma")):
+            errs.setdefault((dtype, body), []).append(
+                hold(torch, bwd, args, f"{label} body={body}", causal=True, body=body))
+        first = bwd.launch(*args, causal=True)
+        again = bwd.launch(*args, causal=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, w) for u, w in zip(first, again)):
+            raise AssertionError(f"flash_attention_backward {label} body={route}: two "
+                                 f"launches differ")
     out_r = {}
     for (B, S, H, K, D), key in (((1, TRAIN_SEQ, 16, 2, 128), "qwen"),
                                  ((1, TRAIN_SEQ, 32, 32, 64), "zamba2")):
@@ -4065,24 +4089,29 @@ def attention_backward_phase(torch, table) -> dict:
         y = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=H != K)
         dyh = do.transpose(1, 2).contiguous()
         nbytes, flops, fma_flops = attention_backward_work(B, S, H, K, D, 2)
-        r = dict(ms=timer(lambda: bwd.launch(q, k, v, out, do, lse, causal=True)),
-                 plain_ms=timer(lambda: bwd.plain(q, k, v, out, do, lse, causal=True)),
+        args = (q, k, v, out, do, lse)
+        r = dict(ms=timer(lambda: bwd.launch(*args, causal=True)),
+                 fma_ms=timer(lambda: bwd.launch(*args, causal=True, body="fma")),
+                 plain_ms=timer(lambda: bwd.plain(*args, causal=True)),
                  library_ms=timer(lambda: torch.autograd.grad(y, (qh, kh, vh), dyh,
                                                               retain_graph=True)),
                  bytes=nbytes, flops=flops,
                  fp32_rate_bound_ms=bound(nbytes, fma_flops, FP32_FLOPS)[0],
-                 shape=f"B={B} S={S} H={H} K={K} D={D} causal bf16 body=fma")
+                 shape=f"B={B} S={S} H={H} K={K} D={D} causal bf16 "
+                       f"body={backward_body_for(q)}")
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
-        log(f"flash_attention_backward timed {r['shape']}: kernel {r['ms']:.4f}ms plain "
-            f"{r['plain_ms']:.4f}ms SDPA backward {r['library_ms']:.4f}ms (kernel / SDPA "
-            f"{r['ms'] / r['library_ms']:.2f}) bound {r['bound_ms']:.5f}ms ({r['bound_by']}; "
-            f"{nbytes} B, {flops} flop; the FMA body's own at 67 TFLOP/s fp32 "
-            f"{r['fp32_rate_bound_ms']:.4f}ms)")
+        log(f"flash_attention_backward timed {r['shape']}: mma body {r['ms']:.4f}ms fma body "
+            f"{r['fma_ms']:.4f}ms plain {r['plain_ms']:.4f}ms SDPA backward "
+            f"{r['library_ms']:.4f}ms (mma / SDPA {r['ms'] / r['library_ms']:.2f}, fma / SDPA "
+            f"{r['fma_ms'] / r['library_ms']:.2f}) bound {r['bound_ms']:.5f}ms "
+            f"({r['bound_by']}; {nbytes} B, {flops} flop; the FMA body's own at 67 TFLOP/s "
+            f"fp32 {r['fp32_rate_bound_ms']:.4f}ms)")
         out_r[key] = r
         del y, qh, kh, vh
     r = out_r["qwen"]
-    r["max_abs_err"] = max(errs[torch.bfloat16])
-    r["max_abs_err_fp32"] = max(errs[torch.float32])
+    r["max_abs_err"] = max(errs[(torch.bfloat16, "mma")])
+    r["max_abs_err_bf16_fma"] = max(errs[(torch.bfloat16, "fma")])
+    r["max_abs_err_fp32"] = max(errs[(torch.float32, "fma")])
     return {"flash_attention_backward": r}
 
 
@@ -4147,8 +4176,9 @@ def zamba_counts(cfg, micro: int) -> dict:
     K4 once a shared-block application and again in its recompute, each
     backward once; K7 for every weight product, again in the recompute and
     twice in the backward (dX, dW).  bf16 compute puts K5 and K4 on their
-    tensor-core bodies and every block product on wgmma, the fp32 LM head
-    (forward, dX, dW) on FMA; fp32 compute puts everything on FMA."""
+    tensor-core bodies (K4's backward too) and every block product on
+    wgmma, the fp32 LM head (forward, dX, dW) on FMA; fp32 compute puts
+    everything on FMA."""
     from repro_torch.models.hybrid import _segments
     n_seg, e, tail = _segments(cfg)
     layers = n_seg * e + tail
@@ -4160,7 +4190,7 @@ def zamba_counts(cfg, micro: int) -> dict:
     return {"ssm_scan": {tc: (layers + n_seg * e) * micro},
             "ssm_scan_backward": {"fma": layers * micro},
             "flash_attention": {tc: 2 * n_seg * micro},
-            "flash_attention_backward": {"fma": n_seg * micro},
+            "flash_attention_backward": {tc: n_seg * micro},
             "matmul": ({"wgmma": (products - 3) * micro, "fma": 3 * micro} if bf16
                        else {"fma": products * micro})}
 
@@ -4368,7 +4398,7 @@ def library_conv_backward(torch, F, x, w, b, dy, stride, need_dx):
         pt = pl = 0
     xc = xc.detach().requires_grad_(need_dx)
     wc = w.permute(3, 2, 0, 1).contiguous().requires_grad_(True)     # OIHW
-    bc = b.clone().requires_grad_(True)
+    bc = b.to(x.dtype).requires_grad_(True)   # cuDNN takes the bias in x's type
     y = F.conv2d(xc, wc, bc, stride=stride, padding=(pt, pl))
     dyc = dy.permute(0, 3, 1, 2).contiguous()
     inputs = (xc, wc, bc) if need_dx else (wc, bc)
@@ -4379,13 +4409,15 @@ def conv_backward_phase(torch, table) -> dict:
     """Phase 22a: K6's backward against its plain version evaluated in fp32
     on the same values (``dispatch.grad_tolerance_ratio``) on every distinct
     conv shape of GoogLeNet's batch-8 forward at 224 and on
-    ``CONV_BWD_EXTRA``, at fp32 and fp16; a case whose dgrad or wgrad splits
-    K is launched twice and must give the same bits.  Then one batch-8
-    backward of the 57 convolutions at fp32 (dx for every conv but stem1,
-    as training asks) timed beside its plain version, cuDNN's backward
-    (measured, never used) and its bound."""
+    ``CONV_BWD_EXTRA``, at fp32 and fp16, each pass on the body its route
+    picks (``backward_body_for``); a case whose dgrad or wgrad splits K is
+    launched twice and must give the same bits.  Then one batch-8 backward
+    of the 57 convolutions (dx for every conv but stem1, as training asks)
+    timed at fp32 beside its plain version, cuDNN's backward (measured,
+    never used) and its bound, and at fp16 beside cuDNN's fp16 backward
+    and its bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels.conv2d.ops import backward_splits
+    from repro_torch.kernels.conv2d.ops import backward_body_for, backward_splits
     from repro_torch.kernels.dispatch import GRAD_RTOL
     bwd = table["conv2d_backward"]
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version: full fp32 products
@@ -4394,16 +4426,20 @@ def conv_backward_phase(torch, table) -> dict:
     cases = [(xs, ws, stride, names[0], names[0] != "stem1")
              for (xs, ws, stride), names in groups.items()]
     cases += [(xs, ws, stride, "extra", True) for xs, ws, stride in CONV_BWD_EXTRA]
-    errs, split = {}, 0
+    errs, split, served = {}, 0, {}
     for dtype in (torch.float32, torch.float16):
         for xs, ws, stride, name, need_dx in cases:
             x, w, b = conv_case(torch, xs, ws, dtype)
             dy = conv_grad_out(torch, xs, ws, stride, dtype)
-            sp = backward_splits(xs, ws, stride)
-            label = (f"{name} x{xs} w{ws} /{stride} dx={need_dx} K slices (dgrad, wgrad) "
-                     f"{sp} (limit {GRAD_RTOL[dtype]:.2e} of each gradient's max|ref|)")
+            bodies = backward_body_for(x, w, dy, stride)
+            sp = backward_splits(xs, ws, stride, bodies)
+            label = (f"{name} x{xs} w{ws} /{stride} dx={need_dx} bodies (dgrad, wgrad) "
+                     f"{bodies} K slices {sp} (limit {GRAD_RTOL[dtype]:.2e} of each "
+                     f"gradient's max|ref|)")
             errs[dtype] = max(errs.get(dtype, 0.0), hold(
                 torch, bwd, (x, w, b, dy), label, stride=stride, need_dx=need_dx))
+            for tag in ([f"dgrad_{bodies[0]}"] if need_dx else []) + [f"wgrad_{bodies[1]}"]:
+                served[tag] = served.get(tag, 0) + 1
             if max(sp) > 1:     # deterministic: the partials summed in slice order
                 split += 1
                 first = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
@@ -4411,46 +4447,58 @@ def conv_backward_phase(torch, table) -> dict:
                 torch.cuda.synchronize()
                 if not all(torch.equal(u, v) for u, v in zip(first, again) if u is not None):
                     raise AssertionError(f"conv2d_backward {label}: two launches differ")
-    log(f"conv2d_backward: {2 * len(cases)} cases held, {split} of them split and "
-        f"launched twice for the same bits")
+    log(f"conv2d_backward: {2 * len(cases)} cases held, passes by body {served}, {split} of "
+        f"them split and launched twice for the same bits")
     timer = Timer(torch, reps=10)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
-    for (xs, ws, stride), names in groups.items():
-        need_dx = names[0] != "stem1"
-        x, w, b = conv_case(torch, xs, ws, torch.float32)
-        dy = conv_grad_out(torch, xs, ws, stride, torch.float32)
-        n = len(names)
-        ms = timer(lambda: bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx))
-        plain_ms = timer(lambda: bwd.plain(x, w, b, dy, stride=stride, need_dx=need_dx))
-        lib_ms = timer(library_conv_backward(torch, F, x, w, b, dy, stride, need_dx))
-        nbytes, flops = conv_backward_work(xs, ws, stride, need_dx, 4)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                       ("bytes", nbytes), ("flops", flops)):
-            tot[key] += n * v
-        log(f"conv2d_backward fp32 {','.join(names)}: x{xs} w{ws} /{stride} dx={need_dx} "
-            f"K slices {backward_splits(xs, ws, stride)} kernel {ms:.4f}ms plain "
-            f"{plain_ms:.4f}ms cuDNN {lib_ms:.4f}ms bound "
-            f"{bound(nbytes, flops, FP32_FLOPS)[0]:.5f}ms {flops / ms / 1e9:.1f} TFLOP/s")
-    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"], FP32_FLOPS)
-    log(f"conv2d_backward fp32, the 57 convs of one batch-{CONV_BATCH} backward at "
-        f"{CONV_SIZE} (dgrad 56, wgrad 57): kernel {tot['ms']:.4f}ms plain "
-        f"{tot['plain_ms']:.4f}ms cuDNN {tot['library_ms']:.4f}ms (kernel / cuDNN "
-        f"{tot['ms'] / tot['library_ms']:.2f}) bound {tot['bound_ms']:.4f}ms "
-        f"({tot['bound_by']}; {tot['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s fp32, "
-        f"{tot['bytes'] / 1e6:.1f} MB at 3.35 TB/s)")
+    tots = {}
+    for dtype, elem, peak in ((torch.float32, 4, FP32_FLOPS), (torch.float16, 2, BF16_FLOPS)):
+        tot = tots[dtype] = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+        tag = str(dtype)[6:]
+        for (xs, ws, stride), names in groups.items():
+            need_dx = names[0] != "stem1"
+            x, w, b = conv_case(torch, xs, ws, dtype)
+            dy = conv_grad_out(torch, xs, ws, stride, dtype)
+            bodies = backward_body_for(x, w, dy, stride)
+            n = len(names)
+            ms = timer(lambda: bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx))
+            plain_ms = (timer(lambda: bwd.plain(x, w, b, dy, stride=stride, need_dx=need_dx))
+                        if dtype == torch.float32 else 0.0)
+            lib_ms = timer(library_conv_backward(torch, F, x, w, b, dy, stride, need_dx))
+            nbytes, flops = conv_backward_work(xs, ws, stride, need_dx, elem)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bytes", nbytes), ("flops", flops)):
+                tot[key] += n * v
+            log(f"conv2d_backward {tag} {','.join(names)}: x{xs} w{ws} /{stride} dx={need_dx} "
+                f"bodies {bodies} K slices {backward_splits(xs, ws, stride, bodies)} kernel "
+                f"{ms:.4f}ms" + (f" plain {plain_ms:.4f}ms" if plain_ms else "")
+                + f" cuDNN {lib_ms:.4f}ms bound {bound(nbytes, flops, peak)[0]:.5f}ms "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+        tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"], peak)
+        log(f"conv2d_backward {tag}, the 57 convs of one batch-{CONV_BATCH} backward at "
+            f"{CONV_SIZE} (dgrad 56, wgrad 57): kernel {tot['ms']:.4f}ms"
+            + (f" plain {tot['plain_ms']:.4f}ms" if tot["plain_ms"] else "")
+            + f" cuDNN {tot['library_ms']:.4f}ms (kernel / cuDNN "
+            f"{tot['ms'] / tot['library_ms']:.2f}) bound {tot['bound_ms']:.4f}ms "
+            f"({tot['bound_by']}; {tot['flops'] / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
+            f"{tot['bytes'] / 1e6:.1f} MB at 3.35 TB/s; {tot['flops'] / tot['ms'] / 1e9:.1f} "
+            f"TFLOP/s)")
+    tot, half = tots[torch.float32], tots[torch.float16]
     return {"conv2d_backward": dict(
         tot, max_abs_err=errs[torch.float32], max_abs_err_fp16=errs[torch.float16],
+        fp16_ms=half["ms"], fp16_library_ms=half["library_ms"],
+        fp16_bound_ms=half["bound_ms"],
         shape=f"the 57 convs of GoogLeNet's backward, batch {CONV_BATCH} at {CONV_SIZE}, "
-              f"fp32, body=fma (dgrad 56, wgrad 57)")}
+              f"fp32, bodies dgrad_fma 56, wgrad_fma 57 (fp16: dgrad_mma, wgrad_mma)")}
 
 
 def googlenet_counts(micro: int) -> dict:
     """Launches by body of ``micro`` fp32 GoogLeNet training microbatches:
     K6 once a conv (FMA), its backward's wgrad once a conv and dgrad once a
-    conv but stem1 (the images need no gradient), K7 for the classifier's
-    forward, dX and dW (FMA)."""
+    conv but stem1 (the images need no gradient), both on the fp32 ring
+    body (every dgrad asked for is at stride 1, every Cout a multiple of 4),
+    K7 for the classifier's forward, dX and dW (FMA)."""
     return {"conv2d": {"fma": 57 * micro},
-            "conv2d_backward": {"dgrad": 56 * micro, "wgrad": 57 * micro},
+            "conv2d_backward": {"dgrad_fma": 56 * micro, "wgrad_fma": 57 * micro},
             "matmul": {"fma": 3 * micro}}
 
 
@@ -4631,7 +4679,7 @@ def googlenet_training_phase(torch, np, table) -> dict:
     if not busy:
         raise AssertionError("googlenet training profile: the profiler saw no device time")
     by = {"K6 conv2d": ("conv2d_fma", "conv2d_mma", "conv2d_reduce"),
-          "K6 backward": ("conv_dgrad", "conv_wgrad", "conv_bwd_reduce"),
+          "K6 backward": ("conv_dgrad", "conv_wgrad", "conv_bwd_"),
           "K7 matmul": ("matmul_kernel", "matmul_wgmma_kernel")}
     parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
              for k, v in by.items()}
@@ -4675,7 +4723,7 @@ def dots_training_phase(torch, np, table, full) -> dict:
     per_micro = L * QWEN_PRODUCTS + 1 + 2 * (L * QWEN_PRODUCTS + 1)
     want = {"matmul": {"wgmma": (per_micro - 3) * micro, "fma": 3 * micro},
             "flash_attention": {"mma": 2 * L * micro},
-            "flash_attention_backward": {"fma": L * micro}}
+            "flash_attention_backward": {"mma": L * micro}}
     with tempfile.TemporaryDirectory() as d:
         tc = TrainerConfig(num_steps=DOTS_TRAIN_STEPS, ckpt_every=50, ckpt_dir=d,
                            device="cuda")
@@ -4854,8 +4902,11 @@ def main() -> int:
             "shape": r["shape"]})
         if k.note:
             kernels[-1]["note"] = k.note
-        for extra in ("fma_ms", "bf16_body_ms", "sdpa_dequantized_ms"):
-            if extra in r:   # the FMA body, the bf16 body on the dequantized pool, SDPA on it
+        for extra in ("fma_ms", "bf16_body_ms", "sdpa_dequantized_ms", "fp16_ms",
+                      "fp16_library_ms", "fp16_bound_ms"):
+            # the FMA body, the bf16 body on the dequantized pool, SDPA on it;
+            # K6's backward at fp16 beside cuDNN's and its bound
+            if extra in r:
                 kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
         if "sdpa_dequantized_ms" in r:

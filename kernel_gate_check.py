@@ -44,10 +44,15 @@ scores (Q K^T o W as bf16 hi alone: a precision loss, no lost term), each
 of those two required to fail every case by 8x or more; the flash kernel (K4) skips the diagonal KV
 tile, in its FMA body and in its tensor-core body; K4's backward skips
 the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
-pass; K5's backward drops the gradient carried back over the chunks in
-its state pass, or loses dq's inter-chunk term; K6's backward loses
-dgrad's parity test (at a stride, a tap counts where it should not) or
-drops wgrad's last slice of pixels where it splits K; the dense decode
+pass, each in its FMA body and in its tensor-core body, whose P and dS
+may also lose their lo halves (bf16 hi alone); K5's backward drops the
+gradient carried back over the chunks in its state pass, or loses dq's
+inter-chunk term; K6's backward loses dgrad's parity test (at a stride,
+a tap counts where it should not), drops its wgrad gather body's last
+slice of pixels where it splits K, loses each slice's last K chunk in
+its ring bodies (dgrad and wgrad, fp32 and fp16), or keeps the forward's
+pads in the ring dgrad's flipped conv (held on the cases whose SAME pads
+differ before and after); the dense decode
 kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
 64-deep K stage in its wgmma body.  Builds each kernel the file feeds
@@ -65,10 +70,12 @@ fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
 fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
 broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
-for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; the backward
-kernels' one body: fp32 and bf16 (K6's: fp32 and fp16, dgrad's broken
-parity on the cases that ask for dx at stride 2, wgrad's dropped slice on
-the cases it splits); K6's reduction: the cases
+for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; K4's backward:
+its FMA body fp32, its tensor-core body bf16; K5's backward: fp32 and
+bf16; K6's: fp32 and fp16, dgrad's broken parity on the cases that ask
+for dx at stride 2, the gather wgrad's dropped slice on the cases it
+splits, the ring bodies' lost chunk on every case a ring body runs, the
+unswapped pads on the ring dgrads with uneven pads); K6's reduction: the cases
 cut into K slices; K7's FMA body: fp32
 and the 16-bit cases TMA cannot read; its wgmma body: bf16 and fp16 --
 for a kernel of two bodies, only the cases its route sends to the broken
@@ -125,6 +132,19 @@ K6B_SLICE = "const int2 sl = slice_of(K, splits);     // this block's pixels"
 K6B_DROP_SLICE = ("const int2 sl = splits > 1 && blockIdx.z == splits - 1 ? make_int2(0, 0) "
                   ": slice_of(K, splits);  // the last slice of pixels dropped")
 K5B_LOSE_INTER = "(void)wq;  // the inter-chunk term of dq is lost"
+K4B_MMA_START = "const int i_first = causal ? j0 : 0;   // a multiple of QT"
+K4B_MMA_SKIP_DIAGONAL = ("const int i_first = causal ? j0 + QT : 0;   // the diagonal q tile "
+                         "lost")
+K4B_MMA_DQ_ADD = "add_product<D>(dq_acc, sh, sl, kt, j, lane);   // dQ += dS K"
+K4B_MMA_DQ_SKIP_TILE_0 = ("if (t > 0) add_product<D>(dq_acc, sh, sl, kt, j, lane);"
+                          "  // kv tile 0 lost")
+K4B_MMA_LO = "lo = mma_attn::pack_bf16(a - __low2float(h), b - __high2float(h));"
+K4B_MMA_NO_LO = "lo = 0u;  // the lo half lost: P and dS as bf16 alone"
+K6B_RING_LOOP = "for (int i = 0; i < nks; ++i) {"
+K6B_RING_LOSE_LAST = "for (int i = 0; i < nks - 1; ++i) {  // each slice's last chunk lost"
+K6B_FLIP_PADS = ("v = make_int4(b, h - (g.KH - 1 - g.pt), rem - h * g.W - (g.KW - 1 - g.pl), "
+                 "0);")
+K6B_SAME_PADS = "v = make_int4(b, h - g.pt, rem - h * g.W - g.pl, 0);  // the pads not swapped"
 # the backward kernels' cases: K4's on chip_smoke's phase 21a shapes, K5's
 # at zamba2's widths with a carried state and d_final; K6's on the conv
 # gate shapes at batch 8 (dx where training asks for it) and phase 22a's
@@ -233,8 +253,23 @@ MUTANTS = (
      "K6's backward: dgrad loses its parity test (a tap counts where h + pt - i is not a "
      "multiple of the stride)", (("conv2d_backward", ("float32", "float16"), "dgrad_s2"),)),
     ("conv2d_backward.cu", K6B_SLICE, K6B_DROP_SLICE,
-     "K6's backward: wgrad drops its last slice of pixels where it splits K",
-     (("conv2d_backward", ("float32", "float16"), "wgrad_split"),)),
+     "K6's backward, wgrad's gather body: drops its last slice of pixels where it splits K",
+     (("conv2d_backward", ("float32", "float16"), "wgrad_gather_split"),)),
+    ("flash_attention_backward.cu", K4B_MMA_START, K4B_MMA_SKIP_DIAGONAL,
+     "K4's backward, tensor-core body: the dK / dV pass skips the diagonal q tile",
+     (("flash_attention_backward", ("bfloat16",), "mma"),)),
+    ("flash_attention_backward.cu", K4B_MMA_DQ_ADD, K4B_MMA_DQ_SKIP_TILE_0,
+     "K4's backward, tensor-core body: the dQ pass loses kv tile 0",
+     (("flash_attention_backward", ("bfloat16",), "mma"),)),
+    ("flash_attention_backward.cu", K4B_MMA_LO, K4B_MMA_NO_LO,
+     "K4's backward, tensor-core body: P and dS lose their lo halves (bf16 hi alone)",
+     (("flash_attention_backward", ("bfloat16",), "mma"),)),
+    ("conv2d_backward.cu", K6B_RING_LOOP, K6B_RING_LOSE_LAST,
+     "K6's backward, ring bodies (dgrad and wgrad, fma and mma): each slice loses its last "
+     "K chunk", (("conv2d_backward", ("float32", "float16"), "ring"),)),
+    ("conv2d_backward.cu", K6B_FLIP_PADS, K6B_SAME_PADS,
+     "K6's backward, ring dgrad: the flipped conv keeps the forward's pads instead of "
+     "swapping them", (("conv2d_backward", ("float32", "float16"), "dgrad_asym"),)),
     ("decode_attention.cu", TILE_LOOP, SKIP_LAST_TILE, "FMA body: skips the last live KV tile",
      (("decode_attention", ("float32", "bfloat16"), "fma"),)),
     ("matmul.cu", K7_ADD, K7_LOSE_SLICE,
@@ -484,9 +519,12 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.conv2d.ops import backward_body_for as conv_backward_body_for
     from repro_torch.kernels.conv2d.ops import backward_splits
     from repro_torch.kernels.conv2d.ops import body_for as conv_body_for
     from repro_torch.kernels.decode_attention.ops import body_for as decode_body_for
+    from repro_torch.kernels.flash_attention.ops import backward_body_for as \
+        flash_backward_body_for
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
     from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
@@ -500,11 +538,17 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         return {body} | ({"split"} if split else set())
 
     def conv_bwd_tags(args, kw):
-        dx_splits, dw_splits = backward_splits(args[0].shape, args[1].shape, kw["stride"])
-        dgrad = kw["need_dx"]
-        return ({"wgrad"} | ({"dgrad"} if dgrad else set())
+        x, w, _, dy = args
+        bodies = conv_backward_body_for(x, w, dy, kw["stride"])
+        _, dw_splits = backward_splits(x.shape, w.shape, kw["stride"], bodies)
+        dgrad, ring = kw["need_dx"], ("fma", "mma")
+        asym = (w.shape[0] - 1) % 2 or (w.shape[1] - 1) % 2   # SAME pads before != after
+        return ({f"wgrad_{bodies[1]}"} | ({f"dgrad_{bodies[0]}"} if dgrad else set())
+                | ({"ring"} if bodies[1] in ring or (dgrad and bodies[0] in ring) else set())
+                | ({"dgrad_asym"} if dgrad and bodies[0] in ring and asym else set())
                 | ({"dgrad_s2"} if dgrad and kw["stride"] > 1 else set())
-                | ({"wgrad_split"} if dw_splits > 1 else set()))
+                | ({"wgrad_gather_split"} if bodies[1] == "gather" and dw_splits > 1
+                   else set()))
 
     # what a case runs: its body, and for K6 whether K is split (its
     # backward: which passes, dgrad at a stride, wgrad split)
@@ -515,7 +559,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0],
                                                                              args[1])},
                "ssm_scan": lambda args, kw: {ssm_body_for(*args[:3])},
-               "flash_attention_backward": lambda args, kw: {"fma"},
+               "flash_attention_backward": lambda args, kw: {flash_backward_body_for(args[0])},
                "ssm_scan_backward": lambda args, kw: {"fma"},
                "conv2d_backward": conv_bwd_tags,
                "conv2d": conv_tags}.get(name, lambda args, kw: set())

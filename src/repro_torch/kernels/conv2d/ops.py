@@ -13,10 +13,16 @@ than the card's SMs (split-K: each slice's fp32 partial goes to scratch,
 and a second launch of the same call sums them in slice order).
 
 Its backward, the CUDA kernel ``csrc/conv2d_backward.cu`` beside its
-plain version, has one body, FMA, launched per pass: ``"dgrad"`` (dx)
-and ``"wgrad"`` (dw, and db from the same dy tiles), each with split-K by
-the same rule.  :func:`conv2d` is differentiable: a call whose inputs
-require grad goes through :class:`_Conv2d`; every other call -- the
+plain version, runs two passes, dgrad (dx) and wgrad (dw, and db from
+the same dy tiles), and :func:`backward_body_for` picks each pass's body
+before the launch: the ring bodies ``"mma"`` (fp16 / bf16) and ``"fma"``
+(fp32), which stage 16-byte pieces -- dgrad at stride 1 only, as a SAME
+conv of dy by the flipped weight -- or the ``"gather"`` body for what
+the pieces do not fit; each launch is counted as ``<pass>_<body>``.
+:func:`backward_tile` and :func:`backward_splits` follow the body's tile
+and chunk, split-K by the forward's rule.  :func:`conv2d` is
+differentiable: a call whose inputs require grad goes through
+:class:`_Conv2d`; every other call -- the
 serving and offload paths -- launches the forward as it is."""
 from __future__ import annotations
 
@@ -31,10 +37,11 @@ from repro_torch.kernels.dispatch import (check_operand, conv_tolerance_ratio,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 SMS = 132                     # the H100's SMs: one block each fills the card
 MMA_BK, FMA_BK = 64, 32       # K depth of one chunk, by body
-BWD_TILE, BWD_BK = 64, 32     # the backward's output tile (both passes) and chunk
+BWD_BK = {"mma": 64, "fma": 32, "gather": 32}   # the backward's chunk, by body
+_BWD_BODY_CODE = {"gather": 0, "fma": 1, "mma": 2}
 MIN_SLICE_CHUNKS = 2          # chunks each K slice keeps at the least
 
 
@@ -134,23 +141,49 @@ KERNEL = register_kernel(
     gradient="repro_torch.kernels.conv2d.ops.conv2d")
 
 
-def backward_splits(x_shape, w_shape, stride: int) -> tuple[int, int]:
+def backward_body_for(x, w, dy, stride: int) -> tuple[str, str]:
+    """(dgrad's body, wgrad's body), decided before the launch from the
+    type, Cin, Cout, alignment and stride alone.  A ring body stages dy's
+    rows in 16-byte pieces, so it needs Cout a multiple of the piece (4
+    fp32, 8 16-bit values) and dy 16-byte aligned: ``"mma"`` for fp16 /
+    bf16, ``"fma"`` for fp32.  dgrad takes it only at stride 1 (a SAME
+    conv of dy by the flipped weight, whose rows it reads in pieces too: w
+    aligned), wgrad at any stride (x in pieces where :func:`x_in_pieces`,
+    else gathered).  Everything else runs the ``"gather"`` body: the one
+    dgrad at a stride (stem1), a Cout the pieces do not fit."""
+    ring = "fma" if x.dtype == torch.float32 else "mma"
+    pieces = w.shape[3] % (16 // x.element_size()) == 0 and dy.data_ptr() % 16 == 0
+    dgrad = ring if pieces and stride == 1 and w.data_ptr() % 16 == 0 else "gather"
+    return dgrad, ring if pieces else "gather"
+
+
+def backward_tile(body: str, M: int, N: int) -> int:
+    """Rows of a block's output tile in a backward pass on ``body`` (64
+    columns): the ring bodies take 128 where that still gives every SM a
+    tile, else 64; the gather body always 64."""
+    if body != "gather" and -(-M // 128) * -(-N // 64) >= SMS:
+        return 128
+    return 64
+
+
+def backward_splits(x_shape, w_shape, stride: int,
+                    bodies: tuple[str, str]) -> tuple[int, int]:
     """(dgrad's, wgrad's) K slices, by :func:`conv_splits` on each pass's
-    GEMM: dgrad M = B*H*W, N = Cin, K = KH*KW*Cout; wgrad M = KH*KW*Cin,
-    N = Cout, K = B*Hout*Wout."""
+    GEMM with its body's tile and chunk: dgrad M = B*H*W, N = Cin, K =
+    KH*KW*Cout; wgrad M = KH*KW*Cin, N = Cout, K = B*Hout*Wout."""
     B, H, W, Cin = x_shape
     KH, KW, _, Cout = w_shape
     pixels = B * -(-H // stride) * -(-W // stride)
-    t, bk = BWD_TILE, BWD_BK
-    return (conv_splits(B * H * W, Cin, KH * KW * Cout, t, t, bk),
-            conv_splits(KH * KW * Cin, Cout, pixels, t, t, bk))
+    return tuple(conv_splits(M, N, K, backward_tile(body, M, N), 64, BWD_BK[body])
+                 for body, (M, N, K) in zip(bodies, ((B * H * W, Cin, KH * KW * Cout),
+                                                     (KH * KW * Cin, Cout, pixels))))
 
 
 def _launch_backward(x, w, b, dy, *, stride: int = 1, need_dx: bool = True):
     """Check the operands, allocate dx (with ``need_dx``), dw, db and the
     fp32 scratch of the split passes' partials, and launch the backward on
-    the current stream: dgrad (with ``need_dx``) then wgrad, each counted
-    under its pass's name."""
+    the current stream: dgrad (with ``need_dx``) then wgrad, on the bodies
+    :func:`backward_body_for` names, each counted as ``<pass>_<body>``."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
@@ -168,7 +201,10 @@ def _launch_backward(x, w, b, dy, *, stride: int = 1, need_dx: bool = True):
     check_operand(dy, "dy", device=dev, dtypes=(x.dtype,), shape=(B, hout, wout, Cout))
     if max(B * H * W * Cin, B * hout * wout * Cout, KH * KW * Cin * Cout) >= 2**31:
         raise ValueError("the kernel indexes pixels and K with int32")
-    dx_splits, dw_splits = backward_splits(x.shape, w.shape, stride)
+    bodies = backward_body_for(x, w, dy, stride)
+    dx_splits, dw_splits = backward_splits(x.shape, w.shape, stride, bodies)
+    tiles = (backward_tile(bodies[0], B * H * W, Cin),
+             backward_tile(bodies[1], KH * KW * Cin, Cout))
     dx = torch.empty_like(x) if need_dx else None
     dw, db = torch.empty_like(w), torch.empty_like(b)
     dx_part = (torch.empty(dx_splits * B * H * W * Cin, dtype=torch.float32, device=dev)
@@ -177,13 +213,14 @@ def _launch_backward(x, w, b, dy, *, stride: int = 1, need_dx: bool = True):
                            device=dev) if dw_splits > 1 else None)
     lib = build.load("conv2d_backward", _BWD_ARGTYPES)
     if need_dx:
-        BACKWARD.count_launch("dgrad")
-    BACKWARD.count_launch("wgrad")
+        BACKWARD.count_launch(f"dgrad_{bodies[0]}")
+    BACKWARD.count_launch(f"wgrad_{bodies[1]}")
     err = lib.conv2d_backward(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(), None if dx is None else dx.data_ptr(),
         dw.data_ptr(), db.data_ptr(), None if dx_part is None else dx_part.data_ptr(),
         None if dw_part is None else dw_part.data_ptr(), _DTYPE_CODE[x.dtype],
-        int(b.dtype == torch.float32), dx_splits, dw_splits, B, H, W, Cin, KH, KW, Cout,
+        int(b.dtype == torch.float32), _BWD_BODY_CODE[bodies[0]], _BWD_BODY_CODE[bodies[1]],
+        *tiles, dx_splits, dw_splits, int(x_in_pieces(x, w)), B, H, W, Cin, KH, KW, Cout,
         stride, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"conv2d_backward: CUDA error {err}")

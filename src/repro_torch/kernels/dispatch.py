@@ -302,11 +302,17 @@ def matmul_tolerance_ratio(out, ref, k: int) -> float:
 # shapes (K4 at qwen2.5-3b's and zamba2-1.2b's heads, S 512 and 333; K5
 # at zamba2's widths, S 512 and 1000; tests/test_torch_backward.py), is
 # 2.6e-7 to 1.4e-6 of the largest, so two right fp32 sums differ by a few
-# 1e-6: the fp32 limit 2^-14 (6.1e-5) is ~20x that.  A bf16 gradient adds its one rounding, at most
-# 2^-9 of the largest: limit 2^-8.  A lost kv or q tile, chunk or state
-# moves a gradient by a large share of its largest.  A gradient that is 0
-# in exact arithmetic (attention over one key: dq = dk = 0, since dP = D
-# there) is left with the rounding of dP - D alone, of the scale of the
+# 1e-6: the fp32 limit 2^-14 (6.1e-5) is ~20x that.  A bf16 gradient adds
+# its one rounding: bf16 keeps 8 significant bits, so that rounding can
+# reach 2^-8 of the largest, the whole limit 2^-8, and the margin is thin
+# (K4's backward reads 0.68 to 0.78 of it on the card; modelled on the CPU
+# against fp64, exact products read up to 0.79 and K4's "mma" body, P and
+# dS carried as bf16 hi + lo pairs, 0.56 to 0.73, while P and dS rounded to
+# bf16 alone read up to 1.16; tests/test_torch_backward.py).  A lost kv
+# or q tile, chunk or state moves a gradient by a large share of its
+# largest.  A gradient that is 0 in exact arithmetic (attention over one
+# key: dq = dk = 0, since dP = D there) is left with the rounding of dP -
+# D alone, of the scale of the
 # call's other gradients: each gradient's largest is floored at
 # GRAD_FLOOR of the largest gradient of the call.  K6's backward
 # takes fp16 too: at GoogLeNet's shapes the plain backward's fp32 sums sit

@@ -7,8 +7,10 @@ its plain version.
 The forward has two bodies, and :func:`body_for` picks one before the
 launch: bf16 at head_dim 64 or 128 runs on the tensor cores (``mma``),
 everything else -- every fp32 call among them -- on plain FMA.  The
-backward has one, FMA (``fma``).  :func:`flash_attention` is
-differentiable: a call whose inputs require grad goes through
+backward has two as well, picked by :func:`backward_body_for` by the
+same rule: ``mma`` (P and dS carried as bf16 hi + lo pairs) and
+``fma``.  :func:`flash_attention` is differentiable: a call whose inputs
+require grad goes through
 :class:`_FlashAttention` (the forward writes each row's log-sum-exp too,
 the backward kernel rebuilds P from it); every other call -- the serving
 paths -- launches the forward as it is."""
@@ -28,7 +30,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] \
     + [ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] \
-    + [ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_void_p]
 MMA_HEAD_DIMS = (64, 128)    # the tensor-core body's template instances
 BWD_MAX_HEAD_DIM = 128       # the backward's tiles of 64 rows x D in shared memory
 
@@ -40,6 +42,14 @@ def body_for(q: torch.Tensor) -> str:
     if q.dtype == torch.bfloat16 and q.shape[-1] in MMA_HEAD_DIMS:
         return "mma"
     return "fma"
+
+
+def backward_body_for(q: torch.Tensor) -> str:
+    """The body the backward runs, decided before the launch from q's type
+    and head_dim alone, as :func:`body_for` decides the forward's:
+    ``"mma"`` (tensor cores) for bf16 at head_dim 64 or 128, ``"fma"``
+    for everything else, every fp32 call among them."""
+    return body_for(q)
 
 
 def _launch(q, k, v, *, causal=True, chunk=512, with_lse=False):
@@ -86,20 +96,30 @@ KERNEL = register_kernel(
     gradient="repro_torch.kernels.flash_attention.ops.flash_attention")
 
 
-def _launch_backward(q, k, v, out, dout, lse, *, causal=True):
+def _launch_backward(q, k, v, out, dout, lse, *, causal=True, body=None):
     """Check the operands, allocate dq / dk / dv and the fp32 scratch
     (delta (B, H, S); for G > 1 the per-query-head dk / dv shares, (B, S,
-    H, D) each) and launch the backward on the current stream."""
+    H, D) each) and launch the backward on the current stream, on the body
+    :func:`backward_body_for` names; ``body`` overrides that route, to
+    time one body against the other on the same inputs."""
     B, S, H, D = q.shape
     K = k.shape[2]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
-    check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE))
+    route = backward_body_for(q)
+    body = body or route
+    if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
+        raise ValueError(f"flash_attention_backward: no {body!r} body for {q.dtype} at "
+                         f"head_dim {D}")
+    align = 16 if body == "mma" else 1   # the tensor-core body stages rows with cp.async
+    check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE), align=align)
     for name, t in (("k", k), ("v", v)):
-        check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S, K, D))
+        check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S, K, D),
+                      align=align)
     for name, t in (("out", out), ("dout", dout)):
-        check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S, H, D))
+        check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S, H, D),
+                      align=align)
     check_operand(lse, "lse", device=dev, dtypes=(torch.float32,), shape=(B, H, S))
     if H % K:
         raise ValueError(f"num_heads {H} is not a multiple of kv heads {K}")
@@ -111,12 +131,12 @@ def _launch_backward(q, k, v, out, dout, lse, *, causal=True):
     scratch = torch.empty(B * H * S + (2 * B * S * H * D if H != K else 0),
                           dtype=torch.float32, device=dev)
     lib = build.load("flash_attention_backward", _BWD_ARGTYPES)
-    BACKWARD.count_launch("fma")
+    BACKWARD.count_launch(body)
     err = lib.flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
         _DTYPE_CODE[q.dtype], B, S, H, K, D, int(bool(causal)), 1.0 / (D ** 0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_backward: CUDA error {err}")
     return dq, dk, dv

@@ -14,11 +14,16 @@ around K4 and K5, against the JAX package on the CPU at fp32.
 * The Mamba-2 mixer's gradients through the differentiable ``ssm_scan``
   (q and k as stride-0 head views, summed over heads by autograd) against
   ``jax.grad`` of the reference mixer.
+* K4's backward on the tensor cores: its rounding (P and dS carried as
+  bf16 hi + lo pairs) modelled in fp32 at the card's training heads,
+  within 0.9 of the bf16 limit against fp64, and past it without the lo
+  halves; its route; the ctypes signatures of K4 and its backward.
 * The differentiable wrappers (K4, K5, K7) keep a ``grad_fn`` and count
   their plain calls; ``build.load`` builds and loads a library once when
   two threads ask for it at once.
 """
 import ctypes
+import re
 import threading
 from unittest import mock
 
@@ -218,6 +223,112 @@ def test_plain_backwards_round_well_inside_the_card_limit(kind, S, H, K, D):
     for a, b in zip(f32, f64):
         if a is not None:
             assert _rel(a, b.numpy()) <= dispatch.GRAD_RTOL[torch.float32] / 16
+
+
+# ---------------------------------------------------------------------------
+# K4's backward on the tensor cores ("mma"): its rounding, its route, its
+# C signature
+# ---------------------------------------------------------------------------
+
+def _bf16_attention_case(S, H, K, D, seed):
+    """bf16 q / k / v / dout from numpy, K4's output (rounded to bf16) and
+    log-sum-exp from the plain forward, as the training path hands them to
+    the backward."""
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((1, S, H, D), dtype=np.float32)).bfloat16()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, S, K, D), dtype=np.float32)).bfloat16()
+            for _ in range(2))
+    out, lse = flash_attention_ref(q.float(), k.float(), v.float(), with_lse=True)
+    return q, k, v, out.bfloat16(), do, lse
+
+
+def _mma_backward_model(q, k, v, out, do, lse, *, lo=True):
+    """The rounding of the "mma" body, in fp32: S and dP from the bf16
+    operands, P = exp(scale S - lse) and dS = P o (dP - D) in fp32, each
+    carried into its product as a bf16 hi + lo pair (``lo=False``: bf16
+    alone, flash-attention-2's rounding), every product summed in fp32,
+    each gradient rounded once to bf16."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G, scale = H // K, 1.0 / D ** 0.5
+
+    def pair(t):
+        hi = t.bfloat16().float()
+        return hi, (t - hi).bfloat16().float() if lo else torch.zeros_like(t)
+    qh, doh = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kh, vh = (t.float().repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
+    p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse[..., None])
+    p = p.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), 0.0)
+    delta = (doh * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ph, pl = pair(p)
+    sh, sl = pair(p * (doh @ vh.transpose(-1, -2) - delta))
+    dq = (sh @ kh + sl @ kh) * scale
+    dk = (sh.transpose(-1, -2) @ qh + sl.transpose(-1, -2) @ qh) * scale
+    dv = ph.transpose(-1, -2) @ doh + pl.transpose(-1, -2) @ doh
+
+    def per_kv(t):
+        return t.transpose(1, 2).reshape(B, S, K, G, D).sum(3)
+    return (dq.transpose(1, 2).bfloat16(), per_kv(dk).bfloat16(), per_kv(dv).bfloat16())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("S,H,K,D", [(512, 16, 2, 128), (512, 32, 32, 64), (333, 32, 32, 64)])
+def test_mma_backward_rounding_sits_inside_the_bf16_limit(S, H, K, D, seed):
+    """The "mma" body's rounding modelled on the CPU at qwen2.5-3b's and
+    zamba2-1.2b's training heads, against the same gradients carried in
+    fp64 from the same bf16 values: within 0.9 of ``grad_tolerance_ratio``'s
+    bf16 limit (2^-8 of each gradient's largest; 0.56 to 0.73 is read,
+    most of it the gradient's own one rounding to bf16)."""
+    args = _bf16_attention_case(S, H, K, D, seed)
+    ref = flash_attention_backward_ref(*(t.double() for t in args))
+    assert dispatch.grad_tolerance_ratio(_mma_backward_model(*args), ref) <= 0.9
+
+
+def test_mma_backward_needs_the_lo_halves():
+    """Carried as bf16 alone (flash-attention-2's rounding), P and dS put
+    zamba2's heads at S 333 past the bf16 limit (1.16 is read), where
+    the hi + lo pairs stay inside it (0.67): why the body makes two
+    products of each."""
+    args = _bf16_attention_case(333, 32, 32, 64, 0)
+    ref = flash_attention_backward_ref(*(t.double() for t in args))
+    assert dispatch.grad_tolerance_ratio(_mma_backward_model(*args, lo=False), ref) > 1.0
+    assert dispatch.grad_tolerance_ratio(_mma_backward_model(*args), ref) <= 0.9
+
+
+def test_backward_route_on_the_training_paths():
+    """``backward_body_for``: the tensor cores for bf16 at head_dim 64 and
+    128 (zamba2's shared block, qwen2.5-3b's heads), FMA for every fp32
+    call and for bf16 at another head_dim; the launcher refuses a body
+    the route does not allow before it reaches the card."""
+    from repro_torch.kernels.flash_attention import ops
+
+    def q(D, dtype):
+        return torch.zeros((1, 4, 2, D), dtype=dtype)
+    for cfg in (TR.config("qwen2.5-3b"), TR.config("zamba2-1.2b")):
+        assert ops.backward_body_for(q(cfg.head_dim, torch.bfloat16)) == "mma"
+        assert ops.backward_body_for(q(cfg.head_dim, torch.float32)) == "fma"
+    assert ops.backward_body_for(q(TR.smoke("qwen2.5-3b").head_dim, torch.bfloat16)) == "fma"
+    assert [ops.backward_body_for(q(D, torch.bfloat16)) for D in (16, 32, 96, 64, 128)] \
+        == ["fma", "fma", "fma", "mma", "mma"]
+    with pytest.raises(ValueError, match="on the card"):
+        ops._launch_backward(*(torch.zeros((1, 4, 2, 64)) for _ in range(5)),
+                             torch.zeros((1, 2, 4)))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_backward"])
+def test_flash_argtypes_match_the_c_entry_point(name):
+    """The ctypes signatures of K4 and its backward against the C entry
+    points' parameter lists (a missing int would shift the stream)."""
+    from repro_torch.kernels.flash_attention import ops
+    text = (build.CSRC / f"{name}.cu").read_text()
+    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+    names = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in m.group(1).replace("\n", " ").split(",")]
+    want = ops._ARGTYPES if name == "flash_attention" else ops._BWD_ARGTYPES
+    assert want == [names[p] for p in params]
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,11 @@ Function that carries K6's gradient.
   fp16 limit the card holds the kernel to.
 * ``ops.conv2d``: through ``_Conv2d`` only where grad is on and an input
   requires it, dgrad only where x needs its gradient; the counts; the
-  launcher's ctypes signature; the split plan of both passes.
+  launcher's ctypes signature; the route of each pass
+  (``backward_body_for``), its tile and the split plan of both passes.
+* The identity the ring dgrad rests on: at stride 1, dx is the plain
+  forward conv of dy by the flipped, transposed weight with the pads
+  swapped (fp64, against ``conv2d_backward_ref``).
 """
 import ctypes
 import re
@@ -29,7 +33,7 @@ import torch
 from repro.kernels.conv2d.ref import conv2d_ref as jax_conv2d_ref
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.conv2d import ops
-from repro_torch.kernels.conv2d.ref import conv2d_backward_ref, conv2d_ref
+from repro_torch.kernels.conv2d.ref import conv2d_backward_ref, conv2d_ref, same_padding
 from repro_torch.kernels.dispatch import GRAD_RTOL
 from repro_torch.models.googlenet import conv_shapes
 
@@ -162,16 +166,86 @@ def test_backward_argtypes_match_the_c_entry_point():
 
 def test_backward_splits_on_googlenet_shapes():
     """Each pass is split only where its output tiles are fewer than the
-    SMs, by the forward's rule, and each slice keeps two chunks."""
-    for name, xs, ws, stride in conv_shapes(8, 224):
-        B, H, W, Cin = xs
-        KH, KW, _, Cout = ws
-        pixels = B * -(-H // stride) * -(-W // stride)
-        for splits, (M, N, K) in zip(ops.backward_splits(xs, ws, stride),
-                                     ((B * H * W, Cin, KH * KW * Cout),
-                                      (KH * KW * Cin, Cout, pixels))):
-            tiles = -(-M // 64) * -(-N // 64)
-            assert splits == ops.conv_splits(M, N, K, 64, 64, 32)
-            assert splits == 1 or (tiles < ops.SMS and -(-K // 32) >= 2 * splits)
-    assert ops.backward_splits((8, 224, 224, 3), (7, 7, 3, 64), 2) == (1, 44)
-    assert ops.backward_splits((8, 7, 7, 192), (3, 3, 192, 384), 1) == (7, 1)
+    SMs, by the forward's rule on the pass's body's tile and chunk, and
+    each slice keeps two chunks."""
+    for bodies in (("fma", "fma"), ("mma", "mma"), ("gather", "gather")):
+        for name, xs, ws, stride in conv_shapes(8, 224):
+            B, H, W, Cin = xs
+            KH, KW, _, Cout = ws
+            pixels = B * -(-H // stride) * -(-W // stride)
+            for body, splits, (M, N, K) in zip(
+                    bodies, ops.backward_splits(xs, ws, stride, bodies),
+                    ((B * H * W, Cin, KH * KW * Cout), (KH * KW * Cin, Cout, pixels))):
+                bm, bk = ops.backward_tile(body, M, N), ops.BWD_BK[body]
+                tiles = -(-M // bm) * -(-N // 64)
+                assert bm == (128 if body != "gather" and -(-M // 128) * -(-N // 64) >= ops.SMS
+                              else 64)
+                assert splits == ops.conv_splits(M, N, K, bm, 64, bk)
+                assert splits == 1 or (tiles < ops.SMS and -(-K // bk) >= 2 * splits)
+    assert ops.backward_splits((8, 224, 224, 3), (7, 7, 3, 64), 2, ("gather", "fma")) == (1, 44)
+    assert ops.backward_splits((8, 7, 7, 192), (3, 3, 192, 384), 1, ("fma", "fma")) == (7, 1)
+    assert ops.backward_splits((8, 224, 224, 3), (7, 7, 3, 64), 2, ("gather", "mma")) == (1, 44)
+
+
+def test_backward_route_on_the_training_shapes():
+    """``backward_body_for`` on GoogLeNet's training convs: every dgrad the
+    path asks for (stride 1) and every wgrad on the ring bodies -- "fma" at
+    fp32, "mma" at fp16 / bf16 -- stem1's 3-channel x gathered inside
+    wgrad's ring body; the gather body for a dgrad at a stride, a Cout the
+    16-byte pieces do not fit, or an unaligned dy or w."""
+    for dtype, ring in ((torch.float32, "fma"), (torch.float16, "mma"),
+                        (torch.bfloat16, "mma")):
+        for name, xs, ws, stride in conv_shapes(2, 32):
+            x, w = torch.zeros(xs, dtype=dtype), torch.zeros(ws, dtype=dtype)
+            dy = torch.zeros((xs[0], -(-xs[1] // stride), -(-xs[2] // stride), ws[3]),
+                             dtype=dtype)
+            assert ops.backward_body_for(x, w, dy, stride) == (
+                "gather" if stride > 1 else ring, ring), name
+            assert ops.x_in_pieces(x, w) == (name != "stem1")
+        x, w = torch.zeros((2, 9, 9, 16), dtype=dtype), torch.zeros((3, 3, 16, 12), dtype=dtype)
+        dy = torch.zeros((2, 9, 9, 12), dtype=dtype)
+        assert ops.backward_body_for(x, w, dy, 1) == (
+            ("fma", "fma") if dtype == torch.float32 else ("gather", "gather"))
+        wa = torch.zeros((3 * 3 * 16 * 16 + 1,), dtype=dtype)[1:].view(3, 3, 16, 16)
+        dya = torch.zeros((2 * 9 * 9 * 16 + 1,), dtype=dtype)[1:].view(2, 9, 9, 16)
+        assert ops.backward_body_for(x, wa, dya[:, :, :, :16], 1) == ("gather", "gather")
+        assert ops.backward_body_for(x, wa, torch.zeros((2, 9, 9, 16), dtype=dtype), 1) == \
+            ("gather", ring)
+
+
+def _flipped_dgrad(dy, w, H, W):
+    """dx at stride 1 as the ring dgrad computes it: the plain forward conv
+    (``conv2d_ref``) of dy by w flipped in both taps and transposed (ci and
+    co swapped), whose pads are the forward's swapped -- the forward's
+    after-pad goes before.  ``conv2d_ref`` pads SAME (s = (KH - 1) // 2
+    before), so dy is first zero-padded by KH on each side and the window
+    is cut where row h of dx reads dy from h - pb on."""
+    KH, KW = w.shape[:2]
+    _, pb = same_padding(H, KH, 1)
+    _, pr = same_padding(W, KW, 1)
+    wf = w.flip(0, 1).transpose(2, 3).contiguous()
+    padded = torch.nn.functional.pad(dy, (0, 0, KW, KW, KH, KH))
+    full = conv2d_ref(padded, wf, torch.zeros(wf.shape[3], dtype=dy.dtype))
+    h0, w0 = (KH - 1) // 2 + KH - pb, (KW - 1) // 2 + KW - pr
+    return full[:, h0:h0 + H, w0:w0 + W, :]
+
+
+@pytest.mark.parametrize("name", ["stem2r", "stem2", "3a.b3", "4a.b2", "5b.b3", "4x2", "2x2"])
+def test_flipped_weight_dgrad_equals_the_plain_backward(name):
+    """The identity the ring dgrad rests on: at stride 1, dx is the SAME
+    conv of dy by the flipped, transposed weight with the before and after
+    pads swapped.  On GoogLeNet's stride-1 windows (1x1, 3x3, 5x5; their
+    pads are even, so the swap is a no-op there) and on even windows whose
+    pads differ (4x2: 1 / 2 and 0 / 1; 2x2), held in fp64 against
+    ``conv2d_backward_ref``'s dx."""
+    shapes = {n: (xs, ws) for n, xs, ws, stride in conv_shapes(2, 32) if stride == 1}
+    shapes.update({"4x2": ((2, 9, 10, 6), (4, 2, 6, 5)), "2x2": ((1, 7, 8, 3), (2, 2, 3, 4))})
+    xs, ws = shapes[name]
+    x, w, b, dy = (torch.from_numpy(t).double()
+                   for t in _case(xs[0], xs[1], xs[2], xs[3], ws[0], ws[3], 1))
+    if ws[1] != ws[0]:
+        w = torch.from_numpy(np.random.default_rng(3).standard_normal(ws))
+    want = conv2d_backward_ref(x, w, b, dy)[0]
+    got = _flipped_dgrad(dy, w, xs[1], xs[2])
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want.numpy()) <= 1e-12

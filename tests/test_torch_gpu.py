@@ -45,10 +45,13 @@ near-one-hot attention amplifies rounding in the backward); GoogLeNet's
 backward through the kernels against the plain versions' on one forward
 graph (the same ReLU masks and max-pool choices), on
 ``grad_tolerance_ratio``.  The backward kernels (K4's, K5's, K6's)
-against their plain versions evaluated in fp32 on the same values: each
+against their plain versions evaluated in fp32 on the same values, on
+the body their route picks (K4's "mma" for bf16 at D 64 / 128, both of
+its bodies on those calls; K6's ring and gather bodies by pass): each
 gradient within ``GRAD_RTOL`` of its largest entry (fp32 2^-14, a bf16
-gradient 2^-8, fp16 2^-10); K4's log-sum-exp on both bodies within 1e-5
-of the plain one.  A kernel called on the card with an input that requires
+gradient 2^-8, fp16 2^-10), two launches the same bits; K4's
+log-sum-exp on both bodies within 1e-5 of the plain one; the launch
+counts by body of a GoogLeNet and a qwen2.5-3b microbatch.  A kernel called on the card with an input that requires
 grad raises, naming where its gradient is (or that it has none).
 """
 import numpy as np
@@ -1137,8 +1140,10 @@ def test_wave_mode_runs_flash_and_dense_decode_only(cuda):
                                      (100, 8, 2, 16), (130, 6, 3, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, S, H, K, D, causal):
-    """K4 with its log-sum-exp (either body), then the backward kernel, each
-    against its plain version in fp32 on the same values."""
+    """K4 with its log-sum-exp (either body), then the backward kernel on
+    the body its route picks, each against its plain version in fp32 on
+    the same values; two launches give the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention.ops import backward_body_for
     g = torch.Generator(cuda).manual_seed(S + D)
     q = torch.randn((1, S, H, D), generator=g, device=cuda).to(dtype)
     k, v = (torch.randn((1, S, K, D), generator=g, device=cuda).to(dtype)
@@ -1153,11 +1158,40 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, S, H, K, D, causal):
                                  with_lse=True)
     assert (lse - ref_lse).abs().max() <= 1e-5 * ref_lse.abs().max().clamp(min=1.0)
     grads = bwd.launch(q, k, v, out, do, lse, causal=causal)
+    again = bwd.launch(q, k, v, out, do, lse, causal=causal)
     ref = bwd.plain(*(t.float() for t in (q, k, v, out, do)), lse, causal=causal)
     torch.cuda.synchronize()
     assert [t.dtype for t in grads] == [dtype] * 3
-    assert bwd.body_launches == {"fma": 1}
+    assert bwd.body_launches == {backward_body_for(q): 2}
     assert bwd.tolerance(grads, ref) <= 1.0
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("S,H,K,D", [(512, 16, 2, 128), (512, 32, 32, 64), (333, 32, 32, 64),
+                                     (77, 8, 4, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_bodies_both_match_plain_on_bf16(cuda, S, H, K, D, causal):
+    """Both bodies of K4's backward on the bf16 calls the tensor-core body
+    serves (D 64 / 128, the training heads of qwen2.5-3b and zamba2, a
+    ragged S): each within ``GRAD_RTOL`` of the plain version, the "mma"
+    body (P and dS as bf16 hi + lo pairs) no further from it than twice
+    the FMA body's reach plus a tenth of the limit."""
+    g = torch.Generator(cuda).manual_seed(S + H)
+    q = torch.randn((1, S, H, D), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((1, S, K, D), generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn((1, S, H, D), generator=g, device=cuda).to(torch.bfloat16)
+    fwd = dispatch.kernel_table()["flash_attention"]
+    bwd = dispatch.kernel_table()["flash_attention_backward"]
+    out, lse = fwd.launch(q, k, v, causal=causal, with_lse=True)
+    ref = bwd.plain(*(t.float() for t in (q, k, v, out, do)), lse, causal=causal)
+    dispatch.reset_counts()
+    ratios = {body: bwd.tolerance(bwd.launch(q, k, v, out, do, lse, causal=causal,
+                                             body=body), ref) for body in ("mma", "fma")}
+    torch.cuda.synchronize()
+    assert bwd.body_launches == {"mma": 1, "fma": 1}
+    assert max(ratios.values()) <= 1.0
+    assert ratios["mma"] <= 2 * ratios["fma"] + 0.1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1258,7 +1292,8 @@ def _conv_backward_cases():
     """Phase 22a's cases: every distinct conv shape of GoogLeNet's batch-8
     forward at 224 (dx where training asks for it: every conv but stem1),
     stem1 with dx (stride 2, SAME padding 2 before and 3 after), odd maps
-    at strides 1 and 2."""
+    at strides 1 and 2, a 4 x 2 window at stride 1 (uneven pads, which the
+    ring dgrad's flipped conv swaps)."""
     seen, cases = set(), []
     for name, xs, ws, stride in conv_shapes(8, 224):
         if (xs, ws, stride) not in seen:
@@ -1268,16 +1303,19 @@ def _conv_backward_cases():
                     ((3, 13, 11, 5), (3, 3, 5, 7), 2, True),
                     ((2, 9, 9, 3), (7, 7, 3, 10), 2, True),
                     ((1, 15, 17, 24), (5, 5, 24, 40), 1, True),
-                    ((2, 10, 10, 33), (1, 1, 33, 17), 2, True)]
+                    ((2, 10, 10, 33), (1, 1, 33, 17), 2, True),
+                    ((2, 9, 10, 16), (4, 2, 16, 24), 1, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("xs,ws,stride,need_dx", _conv_backward_cases())
 def test_conv2d_backward_kernel_matches_plain(cuda, dtype, xs, ws, stride, need_dx):
-    """K6's backward (dgrad where asked, wgrad and db) against its plain
-    version evaluated in fp32 on the same values, each gradient within
-    ``GRAD_RTOL`` of its largest entry; split passes give the same bits
-    launch after launch; counted by pass."""
+    """K6's backward (dgrad where asked, wgrad and db) on the bodies its
+    route picks against its plain version evaluated in fp32 on the same
+    values, each gradient within ``GRAD_RTOL`` of its largest entry; split
+    passes give the same bits launch after launch; counted by pass and
+    body."""
+    from repro_torch.kernels.conv2d.ops import backward_body_for
     g = torch.Generator(cuda).manual_seed(0)
     x = torch.randn(xs, generator=g, device=cuda).to(dtype)
     w = (torch.randn(ws, generator=g, device=cuda) / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
@@ -1290,7 +1328,13 @@ def test_conv2d_backward_kernel_matches_plain(cuda, dtype, xs, ws, stride, need_
     out = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
     again = bwd.launch(x, w, b, dy, stride=stride, need_dx=need_dx)
     torch.cuda.synchronize()
-    assert bwd.body_launches == ({"dgrad": 2, "wgrad": 2} if need_dx else {"wgrad": 2})
+    dgrad, wgrad = backward_body_for(x, w, dy, stride)
+    assert bwd.body_launches == ({f"dgrad_{dgrad}": 2, f"wgrad_{wgrad}": 2} if need_dx
+                                 else {f"wgrad_{wgrad}": 2})
+    assert (dgrad, wgrad) == ((("fma" if dtype == torch.float32 else "mma") if stride == 1
+                               and ws[3] % 8 == 0 else "gather"),
+                              ("fma" if dtype == torch.float32 else "mma") if ws[3] % 8 == 0
+                              else "gather")
     assert (out[0] is None) == (not need_dx)
     assert [t.dtype for t in out[1:]] == [dtype, torch.float32]
     assert dispatch.grad_tolerance_ratio(out, ref) <= 1.0
@@ -1300,7 +1344,8 @@ def test_conv2d_backward_kernel_matches_plain(cuda, dtype, xs, ws, stride, need_
 def test_googlenet_train_step_runs_the_kernels(cuda):
     """One fp32 train step of GoogLeNet (the full graph at 64 x 64, batch
     4 in 2 microbatches) on the card: K6, its backward (dgrad for every
-    conv but stem1, wgrad for all 57) and K7 launched exactly, no plain
+    conv but stem1, wgrad for all 57, both on the fp32 ring body) and K7
+    launched exactly, no plain
     call; on one forward graph, the backward through the kernels within
     ``grad_tolerance_ratio`` of the backward through the plain versions."""
     from repro_torch.data.pipeline import SyntheticImages
@@ -1315,7 +1360,7 @@ def test_googlenet_train_step_runs_the_kernels(cuda):
     table = dispatch.kernel_table()
     assert {n: dict(table[n].body_launches) for n in
             ("conv2d", "conv2d_backward", "matmul")} == {
-        "conv2d": {"fma": 114}, "conv2d_backward": {"dgrad": 112, "wgrad": 114},
+        "conv2d": {"fma": 114}, "conv2d_backward": {"dgrad_fma": 112, "wgrad_fma": 114},
         "matmul": {"fma": 6}}
     assert all(t.plain_calls == 0 for t in table.values()) and np.isfinite(float(m["loss"]))
     ps = leaves(params)
@@ -1358,3 +1403,33 @@ def test_dots_step_launches_no_recompute_products(cuda):
     assert runs["full"][2:] == (7 * L * 2 + 1 + 2 * (7 * L + 1), 2 * L)
     assert runs["dots"][0] == runs["full"][0]
     assert all(torch.equal(a, b) for a, b in zip(runs["dots"][1], runs["full"][1]))
+
+
+def test_qwen_microbatch_runs_the_backward_tensor_core_body(cuda):
+    """One microbatch of qwen2.5-3b at full width, cut to 2 layers, bf16
+    compute, remat "full", 1 x 256 tokens: K4 twice a layer (forward and
+    recompute) and its backward once a layer, all on "mma", no plain call;
+    the loss finite and every gradient leaf finite."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+    cfg = TR.config("qwen2.5-3b").replace(num_layers=2)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    batch = {k: torch.as_tensor(v).to(cuda)
+             for k, v in next(SyntheticTokens(cfg, 1, 256, seed=5)).items()}
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    dispatch.reset_counts()
+    loss, _ = make_loss_fn(cfg)(params, batch)
+    grads = torch.autograd.grad(loss, ps)
+    torch.cuda.synchronize()
+    for p in ps:
+        p.requires_grad_(False)
+    table = dispatch.kernel_table()
+    L = cfg.num_layers
+    assert {n: dict(table[n].body_launches) for n in
+            ("flash_attention", "flash_attention_backward")} == {
+        "flash_attention": {"mma": 2 * L}, "flash_attention_backward": {"mma": L}}
+    assert all(t.plain_calls == 0 for t in table.values())
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)

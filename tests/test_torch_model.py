@@ -86,10 +86,17 @@ def _schedule(vocab):
                        for _ in range(3)]}
 
 
+# the dense family's smoke configs: GQA with QKV bias (qwen2.5-3b), qk_norm
+# (qwen3-32b), bf16 params and a 128k-vocab-style head (llama3-405b), the
+# parallel block with LayerNorm and tied embeddings (command-r-plus-104b)
+DENSE = ["qwen2.5-3b", "qwen3-32b", "llama3-405b", "command-r-plus-104b"]
+
+
+@pytest.mark.parametrize("arch", DENSE)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_prefill_then_decode_matches_jax(compute_dtype):
-    jcfg = JR.smoke("qwen2.5-3b").replace(compute_dtype=compute_dtype)
-    tcfg = TR.smoke("qwen2.5-3b").replace(compute_dtype=compute_dtype)
+def test_prefill_then_decode_matches_jax(compute_dtype, arch):
+    jcfg = JR.smoke(arch).replace(compute_dtype=compute_dtype)
+    tcfg = TR.smoke(arch).replace(compute_dtype=compute_dtype)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     jp = jax_fns(jcfg).init(jcfg, jax.random.PRNGKey(0))
     tp = T.prepare_params(tcfg, params_from_numpy(

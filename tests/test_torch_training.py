@@ -73,9 +73,17 @@ def _close_rel(t, j, rel=REL):
     assert np.abs(t - j).max() <= rel * max(np.abs(j).max(), 1e-30)
 
 
-def _cfgs():
-    jcfg = JR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
-    tcfg = TR.smoke("qwen2.5-3b").replace(compute_dtype="float32")
+# the dense family's smoke configs: GQA with QKV bias (qwen2.5-3b), qk_norm
+# (qwen3-32b), llama3-405b, the parallel block with LayerNorm and tied
+# embeddings (command-r-plus-104b)
+DENSE = ["qwen2.5-3b", "qwen3-32b", "llama3-405b", "command-r-plus-104b"]
+
+
+def _cfgs(arch="qwen2.5-3b"):
+    """The smoke config at fp32 compute and fp32 params (llama3-405b's
+    configured bf16 params have their own test)."""
+    jcfg = JR.smoke(arch).replace(compute_dtype="float32", param_dtype="float32")
+    tcfg = TR.smoke(arch).replace(compute_dtype="float32", param_dtype="float32")
     return jcfg, tcfg
 
 
@@ -243,11 +251,11 @@ def test_schedules_and_clipping_match_jax():
 # one train step against the reference's
 # ---------------------------------------------------------------------------
 
-def _train_step_vs_jax(accum, remat="full"):
+def _train_step_vs_jax(accum, remat="full", arch="qwen2.5-3b"):
     """One train step of the port and of the reference at ``remat``: loss,
     metrics, every gradient leaf, the updated parameters; K7's and K4's
     plain calls exact."""
-    jcfg, tcfg = (c.replace(remat=remat) for c in _cfgs())
+    jcfg, tcfg = (c.replace(remat=remat) for c in _cfgs(arch))
     jp, tp = _params(jcfg)
     batch = next(JaxSyntheticTokens(jcfg, 4, 16, seed=3))
     captured = {}
@@ -293,9 +301,63 @@ def _train_step_vs_jax(accum, remat="full"):
     assert all(not p.requires_grad and p.grad is None for p in _flat(tp2).values())
 
 
+@pytest.mark.parametrize("arch", DENSE)
 @pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_loss_and_gradients_match_jax(accum):
-    _train_step_vs_jax(accum)
+def test_train_step_loss_and_gradients_match_jax(accum, arch):
+    _train_step_vs_jax(accum, arch=arch)
+
+
+def test_llama3_405b_configured_step_matches_jax():
+    """llama3-405b-smoke's own recipe -- bf16 master parameters (gradients
+    kept in bf16, as the reference accumulates them) and Adafactor with
+    its factored fp32 statistics -- one step at fp32 compute against the
+    reference's.  Loss and metrics at rtol 1e-5 and the global norm at
+    ``GRAD_REL``, as for fp32 params.  Each bf16 gradient leaf within 2^-6
+    of its largest: both sides sum in fp32 and round to bf16, the port
+    once a use of the weight, the reference where its casts put it, so two
+    roundings may part them (up to 1.25 x 2^-7 is read).  The updated bf16
+    parameters, where |g| is live, within 2^-5 of each entry: four bf16
+    steps, for an update computed from gradients one or two roundings
+    apart (three steps are read)."""
+    jcfg, tcfg = JR.smoke("llama3-405b"), TR.smoke("llama3-405b")
+    jcfg, tcfg = (c.replace(compute_dtype="float32") for c in (jcfg, tcfg))
+    assert (tcfg.param_dtype, tcfg.optimizer, tcfg.accum_steps) == ("bfloat16", "adafactor", 1)
+    jp, tp = _params(jcfg)
+    assert all(p.dtype == torch.bfloat16 for p in _flat(tp).values())
+    batch = next(JaxSyntheticTokens(jcfg, 4, 16, seed=3))
+    captured = {}
+
+    def grab(key):
+        def hook(g):
+            captured[key] = jax.tree_util.tree_map(np.array, g) if key == "jax" \
+                else {k: v.clone() for k, v in _flat(g).items()}
+            return g
+        return hook
+    jopt, topt = JO.adafactor(JO.constant(1e-3)), TO.adafactor(TO.constant(1e-3))
+    jp2, _, jm = jax_make_train_step(jcfg, jopt, grad_transform=grab("jax"))(
+        jp, jopt.init(jp), jax.tree_util.tree_map(jnp.asarray, batch))
+    dispatch.reset_counts()
+    tp2, _, tm = make_train_step(tcfg, topt, grad_transform=grab("torch"))(
+        tp, topt.init(tp), batch)
+    L = tcfg.num_layers
+    table = dispatch.kernel_table()
+    assert table["matmul"].plain_calls == 7 * L * 2 + 1 + 2 * (7 * L + 1)
+    assert table["flash_attention_backward"].plain_calls == L
+    for k in ("loss", "nll", "accuracy", "aux_loss", "lr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=GRAD_REL)
+    jflat = _flat(captured["jax"])
+    assert set(jflat) == set(captured["torch"])
+    for k, g in jflat.items():
+        assert captured["torch"][k].dtype == torch.bfloat16 and g.dtype == jnp.bfloat16
+        _close_rel(captured["torch"][k], g, 2.0 ** -6)
+    for k, p in _flat(jp2).items():
+        g = np.abs(_np(jflat[k]))
+        live = g > 1e-3 * g.max()
+        got = _flat(tp2)[k]
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got)[live], _np(p)[live], rtol=2.0 ** -5, atol=0)
 
 
 def test_dots_train_step_matches_jax():
