@@ -263,16 +263,20 @@ Phases (each one raises on failure; the script then exits non-zero):
    backward (autograd of ``scaled_dot_product_attention``, measured,
    never used) and the bound.  21b: K5's backward likewise
    on ``K5_BWD_CASES`` (zamba2's widths, B and C stride-0 head views, S
-   512 and a ragged 1000, fp32 with an initial state and d_final), timed
-   at S = 512.  21c: zamba2-1.2b at full width cut to 7 layers (one
-   segment, a 1-layer tail), fp32, one 1 x 512 microbatch: loss and every
+   512 and a ragged 1000, fp32 with an initial state and d_final): bf16
+   on "mma" (the fp32 operands as bf16 hi + lo pairs) and on "fma", fp32
+   on "fma", the route's body twice for the same bits; both bodies timed
+   at S = 512 beside the plain version and the bound, and each body's
+   five launches timed apart under the profiler.  21c: zamba2-1.2b at
+   full width cut to 7 layers (one segment, a 1-layer tail), fp32, one 1
+   x 512 microbatch: loss and every
    gradient leaf through the kernels, the plain versions and fp64-summed
    products (phase 14's gate), launches exact by body, no plain call.
    21d: zamba2-1.2b at full width (38 layers, fp32 master weights, bf16
    compute, remat "full", AdamW), 3 steps of 8 x 512 in 8 microbatches
    through ``repro_torch.launch.train``: every loss finite; K5 74 a
    microbatch (38 and the 36 of the checkpointed segments' recompute) on
-   mma, its backward 38 on FMA, K4 12 on mma, its backward 6 on mma, K7
+   mma, its backward 38 on mma, K4 12 on mma, its backward 6 on mma, K7
    495 (492 wgmma, the fp32 LM head's 3 on FMA); no plain call; step time,
    tokens/s, tokens/s/W, peak memory; one profiled step's device time by
    kernel and busy share.
@@ -4131,12 +4135,48 @@ def scan_backward_work(S, *, B=1, H=64, N=64, P=64, chunk=128, elem=2) -> tuple:
     return nbytes, flops
 
 
+def pass_times(torch, fn, tag: str, reps: int = 10) -> dict[str, tuple[float, int]]:
+    """Device ms per launch of each kernel ``fn`` launches whose name holds
+    ``tag``, keyed by the name from ``tag`` on, with the launches the
+    profiler recorded: ``reps`` calls under torch.profiler, the L2 flushed
+    before each, the device spinning ~5 ms before the first so every call
+    runs inside the collecting window.  Late in the whole script the
+    profiler has still recorded as few as 1-2 of 10 launches, so the mean
+    is over the launches recorded, and their count comes with it."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(Timer.SPIN_CYCLES)
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for ms, n, name in device_rows(prof):
+        m = re.search(rf"{tag}\w*", name)
+        if m:
+            total[m.group(0)] = total.get(m.group(0), 0.0) + ms
+            count[m.group(0)] = count.get(m.group(0), 0) + n
+    if not total:
+        raise AssertionError(f"pass_times: the profiler saw no {tag} kernel")
+    return {name: (total[name] / count[name], count[name]) for name in total}
+
+
 def scan_backward_phase(torch, table) -> dict:
     """Phase 21b: K5's backward against its plain version evaluated in fp32
     on the same values, on ``K5_BWD_CASES`` (B and C as stride-0 head
-    views), then timed at zamba2-1.2b's training shape beside its plain
-    version and its bound (no library call computes it)."""
+    views): each case on the body its route picks (``backward_body_for``:
+    bf16 at N = P 64 on "mma", the fp32 operands as bf16 hi + lo pairs;
+    fp32 on "fma"), each bf16 case on "fma" too, the route's body launched
+    twice for the same bits.  Then both bodies timed at zamba2-1.2b's
+    training shape beside the plain version and the bound (no library call
+    computes it), and each body's five launches timed apart under the
+    profiler."""
     from repro_torch.kernels.dispatch import GRAD_RTOL
+    from repro_torch.kernels.ssm_scan.ops import backward_body_for
     bwd = table["ssm_scan_backward"]
     timer = Timer(torch)
     errs = {}
@@ -4149,23 +4189,44 @@ def scan_backward_phase(torch, table) -> dict:
         label = (f"B=1 S={S} H=64 N=P=64 chunk 128 shared B/C h0/d_final={with_state} "
                  f"(limit {GRAD_RTOL[dtype]:.2e} of each gradient's max|ref|, fp32 "
                  f"gradients {GRAD_RTOL[torch.float32]:.2e})")
-        errs.setdefault(dtype, []).append(
-            hold(torch, bwd, (*args, dy, df), label, chunk=128, initial_state=h0))
+        route = backward_body_for(*args[:3])
+        for body in dict.fromkeys((route, "fma")):
+            errs.setdefault((dtype, body), []).append(
+                hold(torch, bwd, (*args, dy, df), f"{label} body={body}", body=body,
+                     chunk=128, initial_state=h0))
+        first = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+        again = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, w) for u, w in zip(first, again) if u is not None):
+            raise AssertionError(f"ssm_scan_backward {label} body={route}: two launches "
+                                 f"differ")
+        log(f"ssm_scan_backward {label} body={route}: two launches give the same bits")
     args, _ = ssm_case(torch, TRAIN_SEQ, torch.bfloat16)
     dy = torch.randn((1, TRAIN_SEQ, 64, 64), device="cuda")
     nbytes, flops = scan_backward_work(TRAIN_SEQ)
+    route = backward_body_for(*args[:3])
     r = dict(ms=timer(lambda: bwd.launch(*args, dy, chunk=128)),
+             fma_ms=timer(lambda: bwd.launch(*args, dy, chunk=128, body="fma")),
              plain_ms=timer(lambda: bwd.plain(*args, dy, chunk=128)), library_ms=None,
              bytes=nbytes, flops=flops,
              shape=f"B=1 S={TRAIN_SEQ} H=64 N=P=64 chunk 128, bf16 q/k/v (B and C "
-                   f"stride-0 head views), fp32 dy, body=fma (one Mamba layer)")
+                   f"stride-0 head views), fp32 dy, body={route} (the fma body beside it; "
+                   f"one Mamba layer)")
     r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
     r["fp32_rate_bound_ms"] = bound(nbytes, flops, FP32_FLOPS)[0]
-    log(f"ssm_scan_backward timed {r['shape']}: kernel {r['ms']:.4f}ms plain "
-        f"{r['plain_ms']:.4f}ms bound {r['bound_ms']:.5f}ms ({r['bound_by']}; {nbytes} B, "
-        f"{flops} flop; at 67 TFLOP/s fp32 {r['fp32_rate_bound_ms']:.4f}ms)")
-    r["max_abs_err"] = max(errs[torch.bfloat16])
-    r["max_abs_err_fp32"] = max(errs[torch.float32])
+    log(f"ssm_scan_backward timed {r['shape']}: {route} body {r['ms']:.4f}ms fma body "
+        f"{r['fma_ms']:.4f}ms plain {r['plain_ms']:.4f}ms bound {r['bound_ms']:.5f}ms "
+        f"({r['bound_by']}, tensor cores; {nbytes} B, {flops} flop; the fma body's own at "
+        f"67 TFLOP/s fp32 {r['fp32_rate_bound_ms']:.4f}ms)")
+    for body in dict.fromkeys((route, "fma")):
+        t = pass_times(torch, lambda: bwd.launch(*args, dy, chunk=128, body=body), "ssm_bwd_")
+        log(f"ssm_scan_backward {body} body by launch (profiler, 10 calls, L2 flushed; mean "
+            f"over the launches recorded): "
+            + ", ".join(f"{name} {ms:.4f}ms ({n})" for name, (ms, n) in t.items())
+            + f"; sum {sum(ms for ms, _ in t.values()):.4f}ms")
+    r["max_abs_err"] = max(errs[(torch.bfloat16, route)])
+    r["max_abs_err_bf16_fma"] = max(errs[(torch.bfloat16, "fma")])
+    r["max_abs_err_fp32"] = max(errs[(torch.float32, "fma")])
     return {"ssm_scan_backward": r}
 
 
@@ -4176,7 +4237,7 @@ def zamba_counts(cfg, micro: int) -> dict:
     K4 once a shared-block application and again in its recompute, each
     backward once; K7 for every weight product, again in the recompute and
     twice in the backward (dX, dW).  bf16 compute puts K5 and K4 on their
-    tensor-core bodies (K4's backward too) and every block product on
+    tensor-core bodies (both backward kernels too) and every block product on
     wgmma, the fp32 LM head (forward, dX, dW) on FMA; fp32 compute puts
     everything on FMA."""
     from repro_torch.models.hybrid import _segments
@@ -4188,7 +4249,7 @@ def zamba_counts(cfg, micro: int) -> dict:
     bf16 = cfg.compute_dtype == "bfloat16"
     tc = "mma" if bf16 else "fma"
     return {"ssm_scan": {tc: (layers + n_seg * e) * micro},
-            "ssm_scan_backward": {"fma": layers * micro},
+            "ssm_scan_backward": {tc: layers * micro},
             "flash_attention": {tc: 2 * n_seg * micro},
             "flash_attention_backward": {tc: n_seg * micro},
             "matmul": ({"wgmma": (products - 3) * micro, "fma": 3 * micro} if bf16

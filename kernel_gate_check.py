@@ -46,8 +46,9 @@ tile, in its FMA body and in its tensor-core body; K4's backward skips
 the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
 pass, each in its FMA body and in its tensor-core body, whose P and dS
 may also lose their lo halves (bf16 hi alone); K5's backward drops the
-gradient carried back over the chunks in its state pass, or loses dq's
-inter-chunk term; K6's backward loses dgrad's parity test (at a stride,
+gradient carried back over the chunks in the state pass its two bodies
+share, or loses dq's inter-chunk term, in its FMA body and in its
+tensor-core body, whose dy may also lose its lo halves; K6's backward loses dgrad's parity test (at a stride,
 a tap counts where it should not), drops its wgrad gather body's last
 slice of pixels where it splits K, loses each slice's last K chunk in
 its ring bodies (dgrad and wgrad, fp32 and fp16), or keeps the forward's
@@ -71,8 +72,8 @@ fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
 broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
 for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; K4's backward:
-its FMA body fp32, its tensor-core body bf16; K5's backward: fp32 and
-bf16; K6's: fp32 and fp16, dgrad's broken parity on the cases that ask
+its FMA body fp32, its tensor-core body bf16; K5's backward: its
+state pass fp32 and bf16, its FMA body fp32, its tensor-core body bf16; K6's: fp32 and fp16, dgrad's broken parity on the cases that ask
 for dx at stride 2, the gather wgrad's dropped slice on the cases it
 splits, the ring bodies' lost chunk on every case a ring body runs, the
 unswapped pads on the ring dgrads with uneven pads); K6's reduction: the cases
@@ -123,8 +124,8 @@ K4B_DKDV_SKIP_DIAGONAL = ("for (int i0 = causal ? j0 + BT : 0; i0 < S; i0 += BT)
 K4B_DQ_ADD = "mm(dq_acc, dst, LDT, 1, ks, LD, 1, nj);   // dQ += dS K"
 K4B_DQ_SKIP_TILE_0 = ("if (j0 > 0) mm(dq_acc, dst, LDT, 1, ks, LD, 1, nj);"
                       "  // kv tile 0 lost")
-K5B_CARRY = "g = decay * g + u;"
-K5B_DROP_CARRY = "g = u;  // the gradient carried back is dropped"
+K5B_CARRY = "g = decay * g + u[i];"
+K5B_DROP_CARRY = "g = u[i];  // the gradient carried back is dropped"
 K5B_INTER = "dq_acc[a][c] = fmaf(wq, z[a][c], dq_acc[a][c]);"
 K6B_PARITY = "if (oh * g.stride == nh && ow * g.stride == nw && oh < g.Hout && ow < g.Wout)"
 K6B_NO_PARITY = "if (oh < g.Hout && ow < g.Wout)  // the parity test lost"
@@ -132,6 +133,11 @@ K6B_SLICE = "const int2 sl = slice_of(K, splits);     // this block's pixels"
 K6B_DROP_SLICE = ("const int2 sl = splits > 1 && blockIdx.z == splits - 1 ? make_int2(0, 0) "
                   ": slice_of(K, splits);  // the last slice of pixels dropped")
 K5B_LOSE_INTER = "(void)wq;  // the inter-chunk term of dq is lost"
+K5B_MMA_DY_LO = "*reinterpret_cast<uint4*>(lo + swz<W>(r, c)) = l;"
+K5B_MMA_NO_DY_LO = ("*reinterpret_cast<uint4*>(lo + swz<W>(r, c)) = make_uint4(0u, 0u, 0u, 0u);"
+                    "  // dy's lo halves lost")
+K5B_MMA_INTER = "scale4(acc[dn], wa, wb);   // dq_i = wq_i z_i"
+K5B_MMA_LOSE_INTER = "scale4(acc[dn], 0.f, 0.f);  // dq's inter-chunk term lost"
 K4B_MMA_START = "const int i_first = causal ? j0 : 0;   // a multiple of QT"
 K4B_MMA_SKIP_DIAGONAL = ("const int i_first = causal ? j0 + QT : 0;   // the diagonal q tile "
                          "lost")
@@ -244,11 +250,17 @@ MUTANTS = (
      "K4's backward: the dQ pass loses kv tile 0",
      (("flash_attention_backward", ("float32", "bfloat16"), "fma"),)),
     ("ssm_scan_backward.cu", K5B_CARRY, K5B_DROP_CARRY,
-     "K5's backward: the state pass drops the gradient carried back into each chunk",
-     (("ssm_scan_backward", ("float32", "bfloat16"), "fma"),)),
+     "K5's backward: the state pass (both bodies') drops the gradient carried back into "
+     "each chunk", (("ssm_scan_backward", ("float32", "bfloat16"), None),)),
     ("ssm_scan_backward.cu", K5B_INTER, K5B_LOSE_INTER,
-     "K5's backward: dq loses its inter-chunk term",
-     (("ssm_scan_backward", ("float32", "bfloat16"), "fma"),)),
+     "K5's backward, FMA body: dq loses its inter-chunk term",
+     (("ssm_scan_backward", ("float32",), "fma"),)),
+    ("ssm_scan_backward.cu", K5B_MMA_DY_LO, K5B_MMA_NO_DY_LO,
+     "K5's backward, tensor-core body: dy loses its lo halves (bf16 hi alone)",
+     (("ssm_scan_backward", ("bfloat16",), "mma"),)),
+    ("ssm_scan_backward.cu", K5B_MMA_INTER, K5B_MMA_LOSE_INTER,
+     "K5's backward, tensor-core body: dq loses its inter-chunk term",
+     (("ssm_scan_backward", ("bfloat16",), "mma"),)),
     ("conv2d_backward.cu", K6B_PARITY, K6B_NO_PARITY,
      "K6's backward: dgrad loses its parity test (a tap counts where h + pt - i is not a "
      "multiple of the stride)", (("conv2d_backward", ("float32", "float16"), "dgrad_s2"),)),
@@ -528,6 +540,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
     from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
     from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
+    from repro_torch.kernels.ssm_scan.ops import backward_body_for as ssm_backward_body_for
     from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
     build.build([name])
     kern = dispatch.kernel_table()[name]
@@ -560,7 +573,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                                                                              args[1])},
                "ssm_scan": lambda args, kw: {ssm_body_for(*args[:3])},
                "flash_attention_backward": lambda args, kw: {flash_backward_body_for(args[0])},
-               "ssm_scan_backward": lambda args, kw: {"fma"},
+               "ssm_scan_backward": lambda args, kw: {ssm_backward_body_for(*args[:3])},
                "conv2d_backward": conv_bwd_tags,
                "conv2d": conv_tags}.get(name, lambda args, kw: set())
     # a paged FMA body's broken loop changes only cases with a row that sees

@@ -6,8 +6,8 @@
 // registers.  The kernels differ only in how they stage K/V rows (a
 // contiguous cache, or pool rows through a block table, as they are or
 // dequantized from an int8 pool) and which scores they mask.  conv2d.cu's tensor-core body uses the fragment helpers, the
-// swizzle and the .f16 form of the product; ssm_scan.cu's the fragment
-// helpers and cp_async16.
+// swizzle and the .f16 form of the product; ssd_tile.cuh (K5 and its
+// backward) the fragment helpers and cp_async16.
 #pragma once
 
 #include "paged_attention.cuh"

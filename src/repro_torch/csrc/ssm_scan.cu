@@ -60,7 +60,9 @@
 // both halves go through the tensor cores into one fp32 accumulator: 2^-18
 // a term.  q/k/v tiles land in swizzled shared memory by 16-byte cp.async;
 // a stride-0 q/k head view is read through its strides, each block
-// staging its chunk's rows of the one shared group.  The per-chunk states
+// staging its chunk's rows of the one shared group (the staging and
+// fragment loaders in ssd_tile.cuh, shared with the backward's "mma"
+// body).  The per-chunk states
 // (fp32 sums, and the entering states as bf16 hi/lo) go through device
 // memory, 8.4 MB each at zamba2's prefill.  No atomics: every output is
 // written by one thread, so a launch gives the same bits as the last.
@@ -68,7 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_attention.cuh"
+#include "ssd_tile.cuh"
 
 namespace {
 
@@ -232,102 +234,22 @@ int launch(const void* q, const void* k, const void* v, const void* ld, const vo
 
 namespace ssd {
 
-using mma_attn::cp_async16;
-using mma_attn::ldsm_x4;
-using mma_attn::ldsm_x4_trans;
 using mma_attn::mma16816;
-using mma_attn::pack_bf16;
-using mma_attn::smem_addr;
-typedef __nv_bfloat16 bf16;
+using ssd_tile::bf16;
+using ssd_tile::cp_async_commit;
+using ssd_tile::cp_async_wait;
+using ssd_tile::frag_a;
+using ssd_tile::frag_at_scaled;
+using ssd_tile::frag_b;
+using ssd_tile::frag_bt;
+using ssd_tile::prepare_rows;
+using ssd_tile::split2;
+using ssd_tile::stage_rows;
+using ssd_tile::stage_tile;
+using ssd_tile::TC_THREADS;
+using ssd_tile::WARPS;
 
-constexpr int TC_THREADS = 128;     // four warps
-constexpr int WARPS = TC_THREADS / 32;
 constexpr int PASS_THREADS = 256;   // phase (b)
-
-// Element offset of 16-byte piece c of row r in a staged tile of W bf16 a
-// row: the piece index is XORed with the row's low bits (three of them
-// where the row has eight pieces or more), so the eight rows an ldmatrix
-// reads at one piece fall in different bank groups.
-template <int W>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int M = W / 8 < 8 ? W / 8 - 1 : 7;
-  return r * W + ((c ^ (r & M)) << 3);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Rows [0, rows) of a (rows, W) tile: row r < live from src + r * stride
-// (elements), the rest zeros.
-template <int W>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, size_t stride, int live,
-                                           int rows) {
-  constexpr int CH = W / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += TC_THREADS) {
-    const int r = i / CH, c = i - r * CH;
-    const bool in = r < live;
-    cp_async16(dst + swz<W>(r, c), src + (in ? r * stride + c * 8 : 0), in ? 16 : 0);
-  }
-}
-
-// One head's log decay and log gate over the chunk's rows (at + r * H),
-// zeros past the live rows.
-__device__ __forceinline__ void stage_rows(float* dec, float* gate, const float* ld,
-                                           const float* lg, size_t at, int H, int live,
-                                           int rows) {
-  for (int r = threadIdx.x; r < rows; r += TC_THREADS) {
-    const bool in = r < live;
-    const size_t o = in ? at + (size_t)r * H : at;
-    cp_async4(dec + r, ld + o, in ? 4 : 0);
-    cp_async4(gate + r, lg + o, in ? 4 : 0);
-  }
-}
-
-// Once a head's rows have landed: dec becomes the inclusive cumsum of the
-// decay over the chunk (one warp, four rows a lane, then a scan across the
-// lanes; rows <= 128), and the gate of each row past the live ones -1e30,
-// the reference's identity steps.  The caller syncs after.
-__device__ __forceinline__ void prepare_rows(float* dec, float* gate, int live, int rows) {
-  const int tid = threadIdx.x;
-  if (tid < 32) {
-    const int r0 = tid * 4;
-    float loc[4];
-    float run = 0.f;
-    for (int e = 0; e < 4; ++e) {
-      run += (r0 + e < rows) ? dec[r0 + e] : 0.f;
-      loc[e] = run;
-    }
-    float incl = run;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, incl, off);
-      if (tid >= off) incl += o;
-    }
-    const float excl = incl - run;
-    for (int e = 0; e < 4; ++e)
-      if (r0 + e < rows) dec[r0 + e] = excl + loc[e];
-  }
-  for (int r = live + tid; r < rows; r += TC_THREADS) gate[r] = NEG_INF;
-}
-
-// x0, x1 (fp32) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), packed
-// the way an mma fragment register holds two neighbours (x0 low).
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
 
 // Shared memory of one block of phase (a) (out = false) or (c) (out =
 // true), in bytes, in the order `tiles` lays it out: the chunk's q ((c)
@@ -388,23 +310,13 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_sums_kernel(
 #pragma unroll
     for (int i = 0; i < P / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     for (int kc = 0; kc < rows / 16; ++kc) {
-      const int j0 = 16 * kc, mi = lane >> 3;
-      // A = k^T of rows n 16 sn .., keys j0 ..: registers 0-3 hold (n = g,
-      // j = 2cq, 2cq + 1), (g + 8, same j), (g, j + 8), (g + 8, j + 8)
-      uint32_t a[4], hi[4], lo[4];
-      ldsm_x4_trans(a, s.k + swz<N>(j0 + (lane & 7) + ((mi >> 1) << 3), 2 * sn + (mi & 1)));
-      const float w0 = wk[j0 + 2 * cq], w1 = wk[j0 + 2 * cq + 1];
-      const float w8 = wk[j0 + 2 * cq + 8], w9 = wk[j0 + 2 * cq + 9];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a[r]);
-        const float wl = r < 2 ? w0 : w8, wh = r < 2 ? w1 : w9;
-        split2(__low2float(x) * wl, __high2float(x) * wh, hi[r], lo[r]);
-      }
+      const int j0 = 16 * kc;
+      uint32_t hi[4], lo[4];   // A = (k o wk)^T of rows n 16 sn .., keys j0 ..
+      frag_at_scaled<N>(hi, lo, s.k, wk, j0, sn);
 #pragma unroll
       for (int dn = 0; dn < P / 8; dn += 2) {
         uint32_t bv[4];   // B of columns 8 dn .. and 8 (dn + 1) .. for keys j0 ..
-        ldsm_x4_trans(bv, s.v + swz<P>(j0 + ((lane >> 3) & 1) * 8 + (lane & 7), dn + (lane >> 4)));
+        frag_bt<P>(bv, s.v, j0, dn);
         mma16816(acc[dn], hi, bv[0], bv[1]);
         mma16816(acc[dn + 1], hi, bv[2], bv[3]);
         mma16816(acc[dn], lo, bv[0], bv[1]);
@@ -481,10 +393,7 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_out_kernel(
     if (i0 >= rows || i0 >= live) continue;
     uint32_t qf[N / 16][4];   // A of the strip's 16 rows, each k16 step of N
 #pragma unroll
-    for (int kc = 0; kc < N / 16; ++kc) {
-      const int mi = lane >> 3;
-      ldsm_x4(qf[kc], s.q + swz<N>(i0 + (lane & 7) + ((mi & 1) << 3), 2 * kc + (mi >> 1)));
-    }
+    for (int kc = 0; kc < N / 16; ++kc) frag_a<N>(qf[kc], s.q, i0, kc);
     float acc[P / 8][4];
 #pragma unroll
     for (int i = 0; i < P / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -493,10 +402,9 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_out_kernel(
     for (int kc = 0; kc < N / 16; ++kc) {
 #pragma unroll
       for (int dn = 0; dn < P / 8; dn += 2) {
-        const int at = swz<P>(16 * kc + ((lane >> 3) & 1) * 8 + (lane & 7), dn + (lane >> 4));
         uint32_t hhi[4], hlo[4];
-        ldsm_x4_trans(hhi, s.hhi + at);
-        ldsm_x4_trans(hlo, s.hlo + at);
+        frag_bt<P>(hhi, s.hhi, 16 * kc, dn);
+        frag_bt<P>(hlo, s.hlo, 16 * kc, dn);
         mma16816(acc[dn], qf[kc], hhi[0], hhi[1]);
         mma16816(acc[dn + 1], qf[kc], hhi[2], hhi[3]);
         mma16816(acc[dn], qf[kc], hlo[0], hlo[1]);
@@ -520,7 +428,7 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_out_kernel(
 #pragma unroll
       for (int kc = 0; kc < N / 16; ++kc) {
         uint32_t bk[4];   // B of keys j0 .. j0 + 7 and j0 + 8 .. for k16 step kc
-        ldsm_x4(bk, s.k + swz<N>(j0 + (lane & 7) + ((lane >> 4) << 3), 2 * kc + ((lane >> 3) & 1)));
+        frag_b<N>(bk, s.k, j0, kc);
         mma16816(sc[0], qf[kc], bk[0], bk[1]);
         mma16816(sc[1], qf[kc], bk[2], bk[3]);
       }
@@ -542,7 +450,7 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_out_kernel(
 #pragma unroll
       for (int dn = 0; dn < P / 8; dn += 2) {
         uint32_t bv[4];   // B of columns 8 dn .. and 8 (dn + 1) .. for keys j0 ..
-        ldsm_x4_trans(bv, s.v + swz<P>(j0 + ((lane >> 3) & 1) * 8 + (lane & 7), dn + (lane >> 4)));
+        frag_bt<P>(bv, s.v, j0, dn);
 #pragma unroll
         for (int part = 0; part < 2; ++part) {   // the weighted scores' hi, then lo
           mma16816(acc[dn], m[part], bv[0], bv[1]);

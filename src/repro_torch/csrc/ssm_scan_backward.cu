@@ -35,30 +35,57 @@
 //
 // What bounds it on an H100.  At zamba2-1.2b's training shape (B=1, S=512,
 // H=64, N=P=64, chunk 128) the gradient needs 2.7 GFLOP of products on
-// 25.8 MB: the bytes bound it at 0.0077 ms on the tensor cores' side.
-// This body runs every product as fp32 FMA on the CUDA cores (tensor
-// cores come later), so the 67 TFLOP/s fp32 rate bounds it at 0.040 ms.
+// 25.8 MB: the bytes bound it at 0.0077 ms on the tensor cores' side, the
+// 67 TFLOP/s fp32 rate at 0.040 ms on the CUDA cores'.
 //
 // Five launches of one call, on the caller's stream; nothing walks the
 // chunks in order except the state passing, and no atomics (each output is
-// written by one thread, every sum taken in a fixed order):
-//   (1) sums: one block per (chunk, head): S_c, U_c (N x P) and T_c;
+// written by one thread, every sum taken in a fixed order), so two
+// launches give the same bits:
+//   (1) sums: per (chunk, head): S_c, U_c (N x P) and T_c;
 //   (2) pass: one thread per state element walks the chunks forward
-//       (H_{c-1} over S_c in place) and back (G_c over U_c in place), and
-//       each block sums its elements' G_c o H_{c-1} for dT_c;
-//   (3) rows: one block per (chunk, head, tile of rows i): dq and the row
-//       sums of dl, and the inter-chunk term;
-//   (4) cols: one block per (chunk, head, tile of rows j): dk, dv, the
-//       column sums of dl, and the summary terms;
-//   (5) finish: one block per (chunk, head): dT_c, the reverse cumsum,
-//       d log_decay and d log_gate.
-// Tiles of 64 rows are staged as fp32 in shared memory (rows padded to an
-// odd stride) and every product is a register-tiled fp32 product on them
-// (fma_tile.cuh); N and P are compiled in two classes, up to 64 and up to
-// 128 (a narrower width is zero-padded).  q and k are read through their
-// strides (a stride-0 head view of Mamba-2's one group), the gradients
-// written contiguous (B, S, H, .).
+//       (H_{c-1} over S_c in place) and back (G_c over U_c), and each
+//       warp sums its elements' G_c o H_{c-1} for dT_c;
+//   (3) rows: dq and the row sums of dl, and the inter-chunk term;
+//   (4) cols: dk, dv, the column sums of dl, and the summary terms;
+//   (5) finish: one warp per (chunk, head): dT_c, then the reverse cumsum
+//       as a scan across the lanes (four rows a lane), d log_decay and
+//       d log_gate.
+// Passes (2) and (5) are one code for both bodies; the wrapper
+// (kernels/ssm_scan/ops.py::backward_body_for, the forward's rule) picks
+// the body of (1), (3) and (4) before the launch.
+//
+// FMA body (every fp32 call, and any call forced onto it): tiles of 64
+// rows staged as fp32 in shared memory (rows padded to an odd stride), one
+// block per (chunk, head, tile of rows) in (3) and (4), every product a
+// register-tiled fp32 product on them (fma_tile.cuh); N and P compiled in
+// two classes, up to 64 and up to 128 (a narrower width is zero-padded).
+//
+// Tensor-core body "mma" (bf16 q/k/v at N = P in {16, 32, 64, 128}, each
+// 16-byte aligned: every call whose forward ran on the SSD body): blocks
+// of four warps, one per (chunk, head) in (3) and (4), two in (1) (S_c's
+// and U_c's, each staging only its operands), the forward's staging and
+// fragment loaders (ssd_tile.cuh): q/k/v by 16-byte cp.async
+// into swizzled shared memory (q and k through their strides), fragments
+// by ldmatrix, every product mma.sync m16n8k16 on bf16 into fp32.  A bf16
+// x bf16 product is exact that way; every fp32 operand -- dy, the states
+// H_{c-1} and G_c, k o wk, q o wq, dA and (QK^T o W) -- is carried as a
+// bf16 pair hi = bf16(x), lo = bf16(x - hi), and a product of two fp32
+// operands takes three products (hi hi + hi lo + lo hi): modelled on the
+// CPU against fp64 (tests/test_torch_backward.py), dropping lo x hi of
+// such a product, or carrying the fp32 operands as bf16 alone, puts the
+// fp32 gradients 26-67x past their limit, where the pairs leave them at
+// ~0.1 of it.  dy lands as fp32 and is split into hi and lo tiles as it
+// is staged; (2) writes H_{c-1} and G_c as hi / lo pairs for (3) and (4)
+// to stage by cp.async.  Each warp takes the 16-row strips w and 7 - w of
+// the chunk, so the causal triangle's tiles split evenly (9 a warp at
+// chunk 128).  The row sums of dl and of the inter-chunk and summary terms
+// are taken on the fp32 accumulators.
+//
+// q and k are read through their strides (a stride-0 head view of
+// Mamba-2's one group), the gradients written contiguous (B, S, H, .).
 #include "fma_tile.cuh"
+#include "ssd_tile.cuh"
 
 namespace {
 
@@ -197,47 +224,76 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_sums_kernel(
 }
 
 // ---- (2) pass ----------------------------------------------------------
+// x as a bf16 pair: hi at dst[at], lo = bf16(x - hi) at dst[at + lo_at].
+__device__ __forceinline__ void put_pair(__nv_bfloat16* dst, size_t at, size_t lo_at, float x) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+  dst[at] = hi;
+  dst[at + lo_at] = __float2bfloat16_rn(x - __bfloat162float(hi));
+}
+
 // sums[c] <- H_{c-1} (the state entering chunk c), ubuf[c] <- G_c; dtp[c,
-// block] = exp(T_c) * this block's share of sum(G_c o H_{c-1}); dh0 =
-// G_{-1} (when given).
+// warp] = exp(T_c) * this warp's share of sum(G_c o H_{c-1}) (no block
+// barrier); dh0 = G_{-1} (when given).  The "mma" body's hin / gin (else
+// null) get H_{c-1} and G_c as bf16 hi / lo pairs (B, H, C, 2, N, P)
+// instead: G_c is then not written back over U_c.  Each walk loads PF
+// chunks' operands at once, ahead of the stores, so their latencies
+// overlap instead of adding up chunk after chunk.
+constexpr int PF = 4;
+
 __global__ void __launch_bounds__(THREADS) ssm_bwd_pass_kernel(
     float* __restrict__ sums, float* __restrict__ ubuf, const float* __restrict__ totals,
     const float* __restrict__ h0, const float* __restrict__ dfin, float* __restrict__ dh0,
-    float* __restrict__ dtp, int C, int NP) {
-  __shared__ float red[THREADS / 32];
+    float* __restrict__ dtp, __nv_bfloat16* __restrict__ hin, __nv_bfloat16* __restrict__ gin,
+    int C, int NP) {
   const size_t bh = blockIdx.x;
-  const int e = blockIdx.y * THREADS + threadIdx.x, nb = gridDim.y;
+  const int e = blockIdx.y * THREADS + threadIdx.x;
+  const int nw = gridDim.y * (THREADS / 32), w = blockIdx.y * (THREADS / 32) + threadIdx.x / 32;
   const bool live = e < NP;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   float hs = live && h0 ? h0[bh * NP + e] : 0.f;
-  for (int c = 0; c < C; ++c) {
-    const size_t at = (bh * C + c) * NP + e;
-    if (live) {
-      const float s = sums[at];
-      sums[at] = hs;
-      hs = expf(totals[bh * C + c]) * hs + s;
+  for (int c0 = 0; c0 < C; c0 += PF) {
+    float s[PF];
+#pragma unroll
+    for (int i = 0; i < PF; ++i)
+      s[i] = live && c0 + i < C ? sums[(bh * C + c0 + i) * NP + e] : 0.f;
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int c = c0 + i;
+      if (c < C) {
+        if (live) {
+          sums[(bh * C + c) * NP + e] = hs;
+          if (hin) put_pair(hin, (bh * C + c) * 2 * NP + e, NP, hs);
+        }
+        hs = expf(totals[bh * C + c]) * hs + s[i];
+      }
     }
   }
   float g = live && dfin ? dfin[bh * NP + e] : 0.f;
-  for (int c = C - 1; c >= 0; --c) {
-    const size_t at = (bh * C + c) * NP + e;
-    const float decay = expf(totals[bh * C + c]);
-    float prod = 0.f, u = 0.f;
-    if (live) {
-      prod = g * sums[at];
-      u = ubuf[at];
-      ubuf[at] = g;
+  for (int c1 = C - 1; c1 >= 0; c1 -= PF) {
+    float hp[PF], u[PF];
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const bool in = live && c1 - i >= 0;
+      hp[i] = in ? sums[(bh * C + c1 - i) * NP + e] : 0.f;
+      u[i] = in ? ubuf[(bh * C + c1 - i) * NP + e] : 0.f;
     }
-    for (int off = 16; off; off >>= 1) prod += __shfl_xor_sync(0xffffffffu, prod, off);
-    if (lane == 0) red[warp] = prod;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float s = 0.f;
-      for (int i = 0; i < THREADS / 32; ++i) s += red[i];
-      dtp[(bh * C + c) * nb + blockIdx.y] = decay * s;
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int c = c1 - i;
+      if (c >= 0) {
+        const size_t at = (bh * C + c) * NP + e;
+        const float decay = expf(totals[bh * C + c]);
+        if (live) {
+          if (gin)
+            put_pair(gin, (bh * C + c) * 2 * NP + e, NP, g);
+          else
+            ubuf[at] = g;
+        }
+        float prod = g * hp[i];
+        for (int off = 16; off; off >>= 1) prod += __shfl_xor_sync(0xffffffffu, prod, off);
+        if (threadIdx.x % 32 == 0) dtp[(bh * C + c) * nw + w] = decay * prod;
+        g = decay * g + u[i];
+      }
     }
-    __syncthreads();
-    g = decay * g + u;
   }
   if (live && dh0) dh0[bh * NP + e] = g;
 }
@@ -436,26 +492,47 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_cols_kernel(
 
 // ---- (5) finish --------------------------------------------------------
 // dcum_i = rsum_i - csum_i - lk_i (+ dT_c on the chunk's last row); d log
-// decay its reverse cumsum, d log gate csum + lk.  One thread walks the
-// chunk (at most 128 rows) in order.
-__global__ void ssm_bwd_finish_kernel(const float* __restrict__ rsum,
-                                      const float* __restrict__ csum,
-                                      const float* __restrict__ lks, const float* __restrict__ dtp,
-                                      float* __restrict__ dld, float* __restrict__ dlg, int S,
-                                      int H, int chunk, int C, int nb) {
+// decay its reverse cumsum, d log gate csum + lk.  One warp per chunk:
+// dT_c (the pass's nw warp shares and the lk) summed across the lanes, then each lane takes four consecutive rows
+// (chunk <= 128), sums them from the last, and the lanes' sums are
+// scanned from the last lane down; every sum in a fixed order.
+__global__ void __launch_bounds__(32) ssm_bwd_finish_kernel(
+    const float* __restrict__ rsum, const float* __restrict__ csum,
+    const float* __restrict__ lks, const float* __restrict__ dtp, float* __restrict__ dld,
+    float* __restrict__ dlg, int S, int H, int chunk, int C, int nw) {
   const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
-  if (threadIdx.x != 0) return;
+  const int lane = threadIdx.x;
   const float* rs = rsum + ck.bhc * chunk;
   const float* cs = csum + ck.bhc * chunk;
   const float* lk = lks + ck.bhc * chunk;
   float dt = 0.f;
-  for (int i = 0; i < nb; ++i) dt += dtp[ck.bhc * nb + i];
-  for (int j = 0; j < ck.nrow; ++j) dt += lk[j];
-  float run = dt;   // dT_c lands on the chunk's last row (padding included): every row sees it
-  for (int t = ck.nrow - 1; t >= 0; --t) {
-    run += rs[t] - cs[t] - lk[t];
+  for (int i = lane; i < nw; i += 32) dt += dtp[ck.bhc * nw + i];
+  for (int j = lane; j < ck.nrow; j += 32) dt += lk[j];
+  // a butterfly: every lane adds the same two operands at each step, so
+  // every lane ends with the same dT_c
+  for (int off = 16; off; off >>= 1) dt += __shfl_xor_sync(0xffffffffu, dt, off);
+  // dT_c lands on the chunk's last row (padding included): every row sees it
+  const int t0 = 4 * lane;
+  float loc[4], run = 0.f;
+#pragma unroll
+  for (int e = 3; e >= 0; --e) {
+    const int t = t0 + e;
+    run += t < ck.nrow ? rs[t] - cs[t] - lk[t] : 0.f;
+    loc[e] = run;
+  }
+  float incl = run;   // the sum of this lane's rows and every later lane's
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, incl, off);
+    if (lane + off < 32) incl += o;
+  }
+  float after = __shfl_down_sync(0xffffffffu, incl, 1);   // every later lane's
+  if (lane == 31) after = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int t = t0 + e;
+    if (t >= ck.nrow) break;
     const size_t at = ((size_t)ck.b * S + ck.c0 + t) * H + ck.h;
-    dld[at] = run;
+    dld[at] = dt + (after + loc[e]);
     dlg[at] = cs[t] + lk[t];
   }
 }
@@ -490,8 +567,8 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
   float* sums = scratch;                 // (B, H, C, N, P): S_c, then H_{c-1}
   float* ubuf = sums + bhc * NP;         // (B, H, C, N, P): U_c, then G_c
   float* totals = ubuf + bhc * NP;       // (B, H, C)
-  float* dtp = totals + bhc;             // (B, H, C, nb)
-  float* rsum = dtp + bhc * nb;          // (B, H, C, chunk) each
+  float* dtp = totals + bhc;             // (B, H, C, nb * 8): the warps' shares of dT_c
+  float* rsum = dtp + bhc * nb * (THREADS / 32);   // (B, H, C, chunk) each
   float* csum = rsum + bhc * chunk;
   float* lks = csum + bhc * chunk;
   const size_t s1 = sums_smem(WN, chunk), s3 = rows_smem(WN), s4 = cols_smem(WN);
@@ -505,7 +582,8 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
       qt, kt, vt, ld, lg, dy, sums, ubuf, totals, S, H, N, P, chunk, C, q_sb, q_ss, q_sh, k_sb,
       k_ss, k_sh);
   ssm_bwd_pass_kernel<<<dim3(B * H, nb), THREADS, 0, stream>>>(sums, ubuf, totals, h0, dfin,
-                                                               dh0, dtp, C, NP);
+                                                               dh0, dtp, nullptr, nullptr, C,
+                                                               NP);
   ssm_bwd_rows_kernel<T, WN><<<dim3((unsigned)bhc, tiles), THREADS, s3, stream>>>(
       qt, kt, vt, ld, lg, dy, sums, static_cast<T*>(dq), rsum, S, H, N, P, chunk, C, q_sb, q_ss,
       q_sh, k_sb, k_ss, k_sh);
@@ -513,7 +591,7 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
       qt, kt, vt, ld, lg, dy, ubuf, static_cast<T*>(dk), static_cast<T*>(dv), csum, lks, S, H,
       N, P, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
   ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(rsum, csum, lks, dtp, dld, dlg, S,
-                                                          H, chunk, C, nb);
+                                                          H, chunk, C, nb * (THREADS / 32));
   return (int)cudaGetLastError();
 }
 
@@ -530,12 +608,581 @@ int launch_w(const void* q, const void* k, const void* v, const float* ld, const
                         S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream);
 }
 
+
+// ---- the tensor-core body ("mma") ---------------------------------------
+namespace bmma {
+
+using mma_attn::mma16816;
+using ssd_tile::bf16;
+using ssd_tile::cp_async_commit;
+using ssd_tile::cp_async_wait;
+using ssd_tile::frag_a;
+using ssd_tile::frag_at_scaled;
+using ssd_tile::frag_b;
+using ssd_tile::frag_bt;
+using ssd_tile::prepare_rows;
+using ssd_tile::split2;
+using ssd_tile::stage_rows;
+using ssd_tile::stage_tile;
+using ssd_tile::swz;
+using ssd_tile::TC_THREADS;
+using ssd_tile::WARPS;
+
+// Shared memory of one block of (3) or (4), in bytes, in the order
+// `tiles` lays it out: the chunk's q and k (N wide) and v (P wide) as
+// bf16, dy as bf16 hi and lo tiles, a state (H_{c-1} or G_c, N x P) as
+// bf16 hi and lo, the decay and gate rows.
+__host__ __device__ constexpr int tile_bytes(int N, int P, int rows) {
+  return rows * (2 * N + 3 * P) * 2 + 2 * N * P * 2 + 2 * rows * 4;
+}
+
+struct Tiles {
+  bf16 *q, *k, *v, *dyh, *dyl, *sth, *stl;
+  float *dec, *gate;
+};
+
+__device__ __forceinline__ Tiles tiles(unsigned char* smem, int N, int P, int rows) {
+  Tiles s;
+  s.q = reinterpret_cast<bf16*>(smem);
+  s.k = s.q + rows * N;
+  s.v = s.k + rows * N;
+  s.dyh = s.v + rows * P;
+  s.dyl = s.dyh + rows * P;
+  s.sth = s.dyl + rows * P;
+  s.stl = s.sth + N * P;
+  s.dec = reinterpret_cast<float*>(s.stl + N * P);
+  s.gate = s.dec + rows;
+  return s;
+}
+
+// Rows [0, rows) of an fp32 (rows, W) tile -- row r < live from src + r *
+// stride, 16-byte aligned, the rest zeros -- as bf16 hi and lo tiles,
+// swizzled as stage_tile lays them (a 16-byte piece of each from two
+// 16-byte loads).  Synchronous: it overlaps the cp.async copies in flight.
+template <int W>
+__device__ __forceinline__ void stage_split(bf16* hi, bf16* lo, const float* __restrict__ src,
+                                            size_t stride, int live, int rows) {
+  constexpr int CH = W / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += TC_THREADS) {
+    const int r = i / CH, c = i - r * CH;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (r < live) {
+      const float4* p = reinterpret_cast<const float4*>(src + r * stride + c * 8);
+      a = __ldg(p);
+      b = __ldg(p + 1);
+    }
+    uint4 h, l;
+    split2(a.x, a.y, h.x, l.x);
+    split2(a.z, a.w, h.y, l.y);
+    split2(b.x, b.y, h.z, l.z);
+    split2(b.z, b.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + swz<W>(r, c)) = h;
+    *reinterpret_cast<uint4*>(lo + swz<W>(r, c)) = l;
+  }
+}
+
+// d0 (the columns of b[0], b[1]) and d1 (of b[2], b[3]) += A B, for the
+// four ways an operand is carried: one product of exact operands (mma1),
+// A as a hi / lo pair (mma2a), B as one (mma2b), both (mma3: hi hi + hi lo
+// + lo hi; lo lo is below fp32's rounding of the sum).
+__device__ __forceinline__ void mma1(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[4]) {
+  mma16816(d0, a, b[0], b[1]);
+  mma16816(d1, a, b[2], b[3]);
+}
+__device__ __forceinline__ void mma2a(float (&d0)[4], float (&d1)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], const uint32_t (&b)[4]) {
+  mma1(d0, d1, ah, b);
+  mma1(d0, d1, al, b);
+}
+__device__ __forceinline__ void mma2b(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&bh)[4], const uint32_t (&bl)[4]) {
+  mma1(d0, d1, a, bh);
+  mma1(d0, d1, a, bl);
+}
+__device__ __forceinline__ void mma3(float (&d0)[4], float (&d1)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[4],
+                                     const uint32_t (&bl)[4]) {
+  mma1(d0, d1, ah, bh);
+  mma1(d0, d1, ah, bl);
+  mma1(d0, d1, al, bh);
+}
+
+// A 16 x 16 block held as two accumulator tiles (columns 0-7 in x[0],
+// 8-15 in x[1]) as an A operand, split into bf16 hi and lo.
+__device__ __forceinline__ void acc_split(const float (&x)[2][4], uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb) {
+    split2(x[nb][0], x[nb][1], hi[2 * nb], lo[2 * nb]);
+    split2(x[nb][2], x[nb][3], hi[2 * nb + 1], lo[2 * nb + 1]);
+  }
+}
+
+// An accumulator tile's rows g (entries 0, 1) and g + 8 (2, 3) times a and b.
+__device__ __forceinline__ void scale4(float (&d)[4], float a, float b) {
+  d[0] *= a;
+  d[1] *= a;
+  d[2] *= b;
+  d[3] *= b;
+}
+
+// The sum over a quad (the four lanes that hold one accumulator row), in
+// a fixed order; every lane of the quad gets it.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// t[r][c] and t[r][c + 1] of a staged bf16 tile, c even, as fp32.
+template <int W>
+__device__ __forceinline__ float2 pair_at(const bf16* t, int r, int c) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(t + swz<W>(r, c >> 3) + (c & 7));
+  return make_float2(__low2float(x), __high2float(x));
+}
+
+// Stages the chunk's q, k, v (cp.async) and dy (split), the decay and gate
+// rows, and the state st as hi (N x P) then lo; then the decay's cumsum.
+// Ends synced.
+template <int N, int P>
+__device__ __forceinline__ void stage_chunk(const Tiles& s, const bf16* q, const bf16* k,
+                                            const bf16* v, const float* ld, const float* lg,
+                                            const float* dy, const bf16* st, const Chunk& ck,
+                                            int S, int H, int rows, int q_sb, int q_ss, int q_sh,
+                                            int k_sb, int k_ss, int k_sh) {
+  const size_t vrow = (((size_t)ck.b * S + ck.c0) * H + ck.h) * P, vss = (size_t)H * P;
+  stage_tile<N>(s.q, q + (size_t)ck.b * q_sb + (size_t)ck.c0 * q_ss + (size_t)ck.h * q_sh, q_ss,
+                ck.nrow, rows);
+  stage_tile<N>(s.k, k + (size_t)ck.b * k_sb + (size_t)ck.c0 * k_ss + (size_t)ck.h * k_sh, k_ss,
+                ck.nrow, rows);
+  stage_tile<P>(s.v, v + vrow, vss, ck.nrow, rows);
+  stage_tile<P>(s.sth, st, P, N, N);
+  stage_tile<P>(s.stl, st + N * P, P, N, N);
+  stage_rows(s.dec, s.gate, ld, lg, ((size_t)ck.b * S + ck.c0) * H + ck.h, H, ck.nrow, rows);
+  cp_async_commit();
+  stage_split<P>(s.dyh, s.dyl, dy + vrow, vss, ck.nrow, rows);
+  cp_async_wait<0>();
+  __syncthreads();
+  prepare_rows(s.dec, s.gate, ck.nrow, rows);
+  __syncthreads();
+}
+
+// ---- (1) sums: S_c = (k o wk)^T v (two products: k o wk as hi + lo, v
+// exact) in the blocks of blockIdx.y = 0, U_c = (q o wq)^T dy (three) in
+// those of blockIdx.y = 1, each staging only its own operands (the A
+// operand's rows a, the B operand's b, or b and its lo half bl for dy).
+// Warp w takes items w, w + 4, ..: (16-row strip of N, half of P's
+// columns; all of them at P = 16).
+__host__ __device__ constexpr int sums_bytes(int N, int P, int rows) {
+  return rows * (N + 2 * P) * 2 + 2 * rows * 4;
+}
+
+template <int N, int P>
+__global__ void __launch_bounds__(TC_THREADS) ssm_bwd_sums_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ lg, const float* __restrict__ dy,
+    float* __restrict__ sums, float* __restrict__ ubuf, float* __restrict__ totals, int S, int H,
+    int chunk, int C, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh) {
+  constexpr int PH = P >= 32 ? 2 : 1, PB = P / 8 / PH;   // halves of P; 8-column blocks a half
+  const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const bool u = blockIdx.y == 1;
+  const int rows = (chunk + 15) & ~15;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* a = reinterpret_cast<bf16*>(smem);   // (rows, N): k, or q
+  bf16* b = a + rows * N;                    // (rows, P): v, or dy's hi
+  bf16* bl = b + rows * P;                   // (rows, P): dy's lo
+  float* dec = reinterpret_cast<float*>(bl + rows * P);
+  float* gate = dec + rows;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, cq = lane % 4;
+  const size_t vrow = (((size_t)ck.b * S + ck.c0) * H + ck.h) * P, vss = (size_t)H * P;
+  if (u)
+    stage_tile<N>(a, q + (size_t)ck.b * q_sb + (size_t)ck.c0 * q_ss + (size_t)ck.h * q_sh, q_ss,
+                  ck.nrow, rows);
+  else
+    stage_tile<N>(a, k + (size_t)ck.b * k_sb + (size_t)ck.c0 * k_ss + (size_t)ck.h * k_sh, k_ss,
+                  ck.nrow, rows);
+  if (!u) stage_tile<P>(b, v + vrow, vss, ck.nrow, rows);
+  stage_rows(dec, gate, ld, lg, ((size_t)ck.b * S + ck.c0) * H + ck.h, H, ck.nrow, rows);
+  cp_async_commit();
+  if (u) stage_split<P>(b, bl, dy + vrow, vss, ck.nrow, rows);
+  cp_async_wait<0>();
+  __syncthreads();
+  prepare_rows(dec, gate, ck.nrow, rows);
+  __syncthreads();
+  const float total = dec[rows - 1];
+  if (threadIdx.x == 0 && !u) totals[ck.bhc] = total;
+  for (int r = threadIdx.x; r < rows; r += TC_THREADS)   // gate -> wk (S) or wq (U), in place
+    gate[r] = expf(fminf(u ? dec[r] : total - dec[r] + gate[r], 30.f));
+  __syncthreads();
+  for (int it = warp; it < N / 16 * PH; it += WARPS) {
+    const int sn = it / PH, d0 = (it % PH) * PB;
+    float acc[PB][4];
+#pragma unroll
+    for (int i = 0; i < PB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int kc = 0; kc < rows / 16; ++kc) {
+      const int j0 = 16 * kc;
+      uint32_t ah[4], al[4];   // A = (k o wk)^T or (q o wq)^T of rows n 16 sn .., rows j0 ..
+      frag_at_scaled<N>(ah, al, a, gate, j0, sn);
+#pragma unroll
+      for (int dd = 0; dd < PB; dd += 2) {
+        uint32_t bh[4];
+        frag_bt<P>(bh, b, j0, d0 + dd);
+        if (!u) {
+          mma2a(acc[dd], acc[dd + 1], ah, al, bh);
+        } else {
+          uint32_t bo[4];
+          frag_bt<P>(bo, bl, j0, d0 + dd);
+          mma3(acc[dd], acc[dd + 1], ah, al, bh, bo);
+        }
+      }
+    }
+    float* out = (u ? ubuf : sums) + (ck.bhc * N + 16 * sn) * P;
+#pragma unroll
+    for (int dd = 0; dd < PB; ++dd) {
+      const int p = 8 * (d0 + dd) + 2 * cq;
+      *reinterpret_cast<float2*>(out + g * P + p) = make_float2(acc[dd][0], acc[dd][1]);
+      *reinterpret_cast<float2*>(out + (g + 8) * P + p) = make_float2(acc[dd][2], acc[dd][3]);
+    }
+  }
+}
+
+// ---- (3) rows: for the 16 rows i of a strip, z_i = H_{c-1} dy_i (three
+// products), dq_i = wq_i z_i + sum_j dA_ij k_j (dA as hi + lo, two), dA_ij
+// = (dy_i.v_j) W_ij from dy as hi + lo (two) and q_i.k_j (one), and
+// rsum_i = sum_j dl_ij + [cum_i < 30] wq_i q_i.z_i.
+template <int N, int P>
+__global__ void __launch_bounds__(TC_THREADS) ssm_bwd_rows_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ lg, const float* __restrict__ dy,
+    const bf16* __restrict__ hin, bf16* __restrict__ dq, float* __restrict__ rsum, int S, int H,
+    int chunk, int C, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh) {
+  const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const int rows = (chunk + 15) & ~15;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles s = tiles(smem, N, P, rows);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, cq = lane % 4;
+  stage_chunk<N, P>(s, q, k, v, ld, lg, dy, hin + ck.bhc * 2 * N * P, ck, S, H, rows, q_sb,
+                    q_ss, q_sh, k_sb, k_ss, k_sh);
+  for (int pass = 0; pass < 2; ++pass) {
+    const int sr = pass ? 2 * WARPS - 1 - warp : warp, i0 = 16 * sr;
+    if (i0 >= ck.nrow) continue;
+    const int ia = i0 + g, ib = ia + 8;   // this thread's rows
+    const float ca = s.dec[ia], cb = s.dec[ib];
+    float acc[N / 8][4];
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    // the inter-chunk term first: z = dY H_{c-1}^T (i, n)
+    for (int kc = 0; kc < P / 16; ++kc) {
+      uint32_t ah[4], al[4];
+      frag_a<P>(ah, s.dyh, i0, kc);
+      frag_a<P>(al, s.dyl, i0, kc);
+#pragma unroll
+      for (int dn = 0; dn < N / 8; dn += 2) {
+        uint32_t bh[4], bl[4];   // B of state rows n = 8 dn .., columns p = 16 kc ..
+        frag_b<P>(bh, s.sth, 8 * dn, kc);
+        frag_b<P>(bl, s.stl, 8 * dn, kc);
+        mma3(acc[dn], acc[dn + 1], ah, al, bh, bl);
+      }
+    }
+    const float wa = expf(fminf(ca, 30.f)), wb = expf(fminf(cb, 30.f));
+    float za = 0.f, zb = 0.f;   // q_i . z_i
+#pragma unroll
+    for (int dn = 0; dn < N / 8; ++dn) {
+      const float2 qa = pair_at<N>(s.q, ia, 8 * dn + 2 * cq);
+      const float2 qb = pair_at<N>(s.q, ib, 8 * dn + 2 * cq);
+      za += qa.x * acc[dn][0] + qa.y * acc[dn][1];
+      zb += qb.x * acc[dn][2] + qb.y * acc[dn][3];
+      scale4(acc[dn], wa, wb);   // dq_i = wq_i z_i
+    }
+    float ra = 0.f, rb = 0.f;   // sum_j dl_ij
+    for (int jt = 0; jt <= sr; ++jt) {
+      const int j0 = 16 * jt;
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float dm[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kc = 0; kc < N / 16; ++kc) {   // q_i . k_j
+        uint32_t a[4], b[4];
+        frag_a<N>(a, s.q, i0, kc);
+        frag_b<N>(b, s.k, j0, kc);
+        mma1(sc[0], sc[1], a, b);
+      }
+#pragma unroll
+      for (int kc = 0; kc < P / 16; ++kc) {   // dy_i . v_j
+        uint32_t ah[4], al[4], b[4];
+        frag_a<P>(ah, s.dyh, i0, kc);
+        frag_a<P>(al, s.dyl, i0, kc);
+        frag_b<P>(b, s.v, j0, kc);
+        mma2a(dm[0], dm[1], ah, al, b);
+      }
+      // dA_ij = (dy_i.v_j) W_ij for j <= i < nrow, else 0; dl_ij = dA_ij
+      // (q_i.k_j) where the clamp lets the derivative through
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib, j = j0 + 8 * nb + 2 * cq + (e & 1);
+          float da = 0.f;
+          if (j <= i && i < ck.nrow) {
+            const float lw = s.dec[i] - s.dec[j] + s.gate[j];
+            da = dm[nb][e] * expf(fminf(lw, 30.f));
+            if (lw < 30.f) {
+              if (e < 2)
+                ra = fmaf(da, sc[nb][e], ra);
+              else
+                rb = fmaf(da, sc[nb][e], rb);
+            }
+          }
+          dm[nb][e] = da;
+        }
+      uint32_t ah[4], al[4];
+      acc_split(dm, ah, al);
+#pragma unroll
+      for (int dn = 0; dn < N / 8; dn += 2) {   // dq += dA K_j
+        uint32_t b[4];
+        frag_bt<N>(b, s.k, j0, dn);
+        mma2a(acc[dn], acc[dn + 1], ah, al, b);
+      }
+    }
+    ra = quad_sum(ra);
+    rb = quad_sum(rb);
+    za = quad_sum(za);
+    zb = quad_sum(zb);
+    if (cq == 0) {
+      float* rs = rsum + ck.bhc * chunk;
+      if (ia < ck.nrow) rs[ia] = ra + (ca < 30.f ? za * wa : 0.f);
+      if (ib < ck.nrow) rs[ib] = rb + (cb < 30.f ? zb * wb : 0.f);
+    }
+    bf16* qa = dq + (((size_t)ck.b * S + ck.c0 + ia) * H + ck.h) * N;
+    bf16* qb = qa + (size_t)8 * H * N;
+#pragma unroll
+    for (int dn = 0; dn < N / 8; ++dn) {
+      const int n = 8 * dn + 2 * cq;
+      if (ia < ck.nrow)
+        *reinterpret_cast<__nv_bfloat162*>(qa + n) = __floats2bfloat162_rn(acc[dn][0], acc[dn][1]);
+      if (ib < ck.nrow)
+        *reinterpret_cast<__nv_bfloat162*>(qb + n) = __floats2bfloat162_rn(acc[dn][2], acc[dn][3]);
+    }
+  }
+}
+
+// ---- (4) cols: for the 16 rows j of a strip, the summary terms gv_j =
+// G_c v_j and G_c^T k_j (G as hi + lo, two products each), then dk_j +=
+// sum_i dA_ij q_i (dA^T as hi + lo, two) and dv_j += sum_i (q_i.k_j) W_ij
+// dy_i ((QK^T o W)^T and dy both as pairs, three), k_j.q_i (one) and
+// v_j.dy_i (two) recomputed; csum_j = sum_i dl_ij and lk_j = [.. < 30]
+// wk_j k_j.gv_j.
+template <int N, int P>
+__global__ void __launch_bounds__(TC_THREADS) ssm_bwd_cols_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ lg, const float* __restrict__ dy,
+    const bf16* __restrict__ gin, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ csum, float* __restrict__ lks, int S, int H, int chunk, int C, int q_sb,
+    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh) {
+  const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const int rows = (chunk + 15) & ~15;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles s = tiles(smem, N, P, rows);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, cq = lane % 4;
+  stage_chunk<N, P>(s, q, k, v, ld, lg, dy, gin + ck.bhc * 2 * N * P, ck, S, H, rows, q_sb,
+                    q_ss, q_sh, k_sb, k_ss, k_sh);
+  const float total = s.dec[rows - 1];
+  for (int pass = 0; pass < 2; ++pass) {
+    const int sr = pass ? 2 * WARPS - 1 - warp : warp, j0 = 16 * sr;
+    if (j0 >= ck.nrow) continue;
+    const int ja = j0 + g, jb = ja + 8;   // this thread's rows
+    float dka[N / 8][4], dva[P / 8][4];
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < P / 8; ++i) dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+    // the chunk summary first: gv = V_j G_c^T (j, n) into dk, G_c^T k_j (j, p) into dv
+    for (int kc = 0; kc < P / 16; ++kc) {
+      uint32_t a[4];
+      frag_a<P>(a, s.v, j0, kc);
+#pragma unroll
+      for (int dn = 0; dn < N / 8; dn += 2) {
+        uint32_t bh[4], bl[4];   // B of state rows n = 8 dn .., columns p = 16 kc ..
+        frag_b<P>(bh, s.sth, 8 * dn, kc);
+        frag_b<P>(bl, s.stl, 8 * dn, kc);
+        mma2b(dka[dn], dka[dn + 1], a, bh, bl);
+      }
+    }
+    for (int kc = 0; kc < N / 16; ++kc) {
+      uint32_t a[4];
+      frag_a<N>(a, s.k, j0, kc);
+#pragma unroll
+      for (int dn = 0; dn < P / 8; dn += 2) {
+        uint32_t bh[4], bl[4];   // B of state rows n = 16 kc .., columns p = 8 dn ..
+        frag_bt<P>(bh, s.sth, 16 * kc, dn);
+        frag_bt<P>(bl, s.stl, 16 * kc, dn);
+        mma2b(dva[dn], dva[dn + 1], a, bh, bl);
+      }
+    }
+    const float lka = total - s.dec[ja] + s.gate[ja], lkb = total - s.dec[jb] + s.gate[jb];
+    const float wka = expf(fminf(lka, 30.f)), wkb = expf(fminf(lkb, 30.f));
+    float ka = 0.f, kb = 0.f;   // k_j . gv_j
+#pragma unroll
+    for (int dn = 0; dn < N / 8; ++dn) {
+      const float2 xa = pair_at<N>(s.k, ja, 8 * dn + 2 * cq);
+      const float2 xb = pair_at<N>(s.k, jb, 8 * dn + 2 * cq);
+      ka += xa.x * dka[dn][0] + xa.y * dka[dn][1];
+      kb += xb.x * dka[dn][2] + xb.y * dka[dn][3];
+      scale4(dka[dn], wka, wkb);
+    }
+#pragma unroll
+    for (int dn = 0; dn < P / 8; ++dn) scale4(dva[dn], wka, wkb);
+    float csa = 0.f, csb = 0.f;   // sum_i dl_ij
+    for (int it = sr; 16 * it < ck.nrow; ++it) {
+      const int i0 = 16 * it;
+      float sa[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float dmt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kc = 0; kc < N / 16; ++kc) {   // k_j . q_i
+        uint32_t a[4], b[4];
+        frag_a<N>(a, s.k, j0, kc);
+        frag_b<N>(b, s.q, i0, kc);
+        mma1(sa[0], sa[1], a, b);
+      }
+#pragma unroll
+      for (int kc = 0; kc < P / 16; ++kc) {   // v_j . dy_i
+        uint32_t a[4], bh[4], bl[4];
+        frag_a<P>(a, s.v, j0, kc);
+        frag_b<P>(bh, s.dyh, i0, kc);
+        frag_b<P>(bl, s.dyl, i0, kc);
+        mma2b(dmt[0], dmt[1], a, bh, bl);
+      }
+      // rows j by columns i: (q_i.k_j) W_ij and dA_ij for j <= i < nrow
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e < 2 ? ja : jb, i = i0 + 8 * nb + 2 * cq + (e & 1);
+          float m = 0.f, da = 0.f;
+          if (j <= i && i < ck.nrow) {
+            const float lw = s.dec[i] - s.dec[j] + s.gate[j];
+            const float wgt = expf(fminf(lw, 30.f));
+            m = sa[nb][e] * wgt;
+            da = dmt[nb][e] * wgt;
+            if (lw < 30.f) {
+              if (e < 2)
+                csa = fmaf(da, sa[nb][e], csa);
+              else
+                csb = fmaf(da, sa[nb][e], csb);
+            }
+          }
+          sa[nb][e] = m;
+          dmt[nb][e] = da;
+        }
+      uint32_t mh[4], ml[4], dh[4], dl[4];
+      acc_split(sa, mh, ml);
+      acc_split(dmt, dh, dl);
+#pragma unroll
+      for (int dn = 0; dn < N / 8; dn += 2) {   // dk += dA^T Q_i
+        uint32_t b[4];
+        frag_bt<N>(b, s.q, i0, dn);
+        mma2a(dka[dn], dka[dn + 1], dh, dl, b);
+      }
+#pragma unroll
+      for (int dn = 0; dn < P / 8; dn += 2) {   // dv += (QK^T o W)^T dY_i
+        uint32_t bh[4], bl[4];
+        frag_bt<P>(bh, s.dyh, i0, dn);
+        frag_bt<P>(bl, s.dyl, i0, dn);
+        mma3(dva[dn], dva[dn + 1], mh, ml, bh, bl);
+      }
+    }
+    csa = quad_sum(csa);
+    csb = quad_sum(csb);
+    ka = quad_sum(ka);
+    kb = quad_sum(kb);
+    if (cq == 0) {
+      const size_t at = ck.bhc * chunk;
+      if (ja < ck.nrow) {
+        csum[at + ja] = csa;
+        lks[at + ja] = lka < 30.f ? ka * wka : 0.f;
+      }
+      if (jb < ck.nrow) {
+        csum[at + jb] = csb;
+        lks[at + jb] = lkb < 30.f ? kb * wkb : 0.f;
+      }
+    }
+    const size_t ra = ((size_t)ck.b * S + ck.c0 + ja) * H + ck.h, rb = ra + (size_t)8 * H;
+#pragma unroll
+    for (int dn = 0; dn < N / 8; ++dn) {
+      const int n = 8 * dn + 2 * cq;
+      if (ja < ck.nrow)
+        *reinterpret_cast<__nv_bfloat162*>(dk + ra * N + n) =
+            __floats2bfloat162_rn(dka[dn][0], dka[dn][1]);
+      if (jb < ck.nrow)
+        *reinterpret_cast<__nv_bfloat162*>(dk + rb * N + n) =
+            __floats2bfloat162_rn(dka[dn][2], dka[dn][3]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < P / 8; ++dn) {
+      const int p = 8 * dn + 2 * cq;
+      if (ja < ck.nrow)
+        *reinterpret_cast<__nv_bfloat162*>(dv + ra * P + p) =
+            __floats2bfloat162_rn(dva[dn][0], dva[dn][1]);
+      if (jb < ck.nrow)
+        *reinterpret_cast<__nv_bfloat162*>(dv + rb * P + p) =
+            __floats2bfloat162_rn(dva[dn][2], dva[dn][3]);
+    }
+  }
+}
+
+template <int N, int P>
+int launch(const void* q, const void* k, const void* v, const float* ld, const float* lg,
+           const float* h0, const float* dy, const float* dfin, void* dq, void* dk, void* dv,
+           float* dld, float* dlg, float* dh0, void* scratch, int B, int S, int H, int chunk,
+           int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream) {
+  constexpr int NP = N * P;
+  const int C = (S + chunk - 1) / chunk, rows = (chunk + 15) & ~15;
+  const int nb = (NP + THREADS - 1) / THREADS;
+  const size_t bhc = (size_t)B * H * C;
+  bf16* hin = static_cast<bf16*>(scratch);   // (B, H, C, 2, N, P): H_{c-1} as hi, lo
+  bf16* gin = hin + bhc * 2 * NP;            // (B, H, C, 2, N, P): G_c as hi, lo
+  float* sums = reinterpret_cast<float*>(gin + bhc * 2 * NP);   // (B, H, C, N, P): S_c, H_{c-1}
+  float* ubuf = sums + bhc * NP;             // (B, H, C, N, P): U_c
+  float* totals = ubuf + bhc * NP;           // (B, H, C)
+  float* dtp = totals + bhc;                 // (B, H, C, nb * 8): the warps' shares of dT_c
+  float* rsum = dtp + bhc * nb * (THREADS / 32);   // (B, H, C, chunk) each
+  float* csum = rsum + bhc * chunk;
+  float* lks = csum + bhc * chunk;
+  const int s1 = sums_bytes(N, P, rows), s3 = tile_bytes(N, P, rows);
+  int err = allow_smem(ssm_bwd_sums_mma_kernel<N, P>, s1);
+  if (!err) err = allow_smem(ssm_bwd_rows_mma_kernel<N, P>, s3);
+  if (!err) err = allow_smem(ssm_bwd_cols_mma_kernel<N, P>, s3);
+  if (err) return err;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  ssm_bwd_sums_mma_kernel<N, P><<<dim3((unsigned)bhc, 2), TC_THREADS, s1, stream>>>(
+      qb, kb, vb, ld, lg, dy, sums, ubuf, totals, S, H, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss,
+      k_sh);
+  ssm_bwd_pass_kernel<<<dim3(B * H, nb), THREADS, 0, stream>>>(sums, ubuf, totals, h0, dfin,
+                                                               dh0, dtp, hin, gin, C, NP);
+  ssm_bwd_rows_mma_kernel<N, P><<<(unsigned)bhc, TC_THREADS, s3, stream>>>(
+      qb, kb, vb, ld, lg, dy, hin, static_cast<bf16*>(dq), rsum, S, H, chunk, C, q_sb, q_ss, q_sh,
+      k_sb, k_ss, k_sh);
+  ssm_bwd_cols_mma_kernel<N, P><<<(unsigned)bhc, TC_THREADS, s3, stream>>>(
+      qb, kb, vb, ld, lg, dy, gin, static_cast<bf16*>(dk), static_cast<bf16*>(dv), csum, lks, S,
+      H, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(rsum, csum, lks, dtp, dld, dlg, S,
+                                                          H, chunk, C, nb * (THREADS / 32));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bmma
+
 }  // namespace
 
-// Shared memory the largest of the call's blocks uses, in bytes, or -1
-// for N or P over 128; the wrapper checks it before it launches.
-extern "C" int ssm_backward_smem_bytes(int N, int P, int chunk) {
+// Shared memory the largest of a body's blocks uses, in bytes (body 0 =
+// FMA, 1 = "mma"), or -1 for N or P over 128, or a width the "mma" body
+// has no instance of; the wrapper checks it before it launches.
+extern "C" int ssm_backward_smem_bytes(int body, int N, int P, int chunk) {
   if (N > 128 || P > 128) return -1;
+  if (body == 1) {
+    if (N != P || (N != 16 && N != 32 && N != 64 && N != 128)) return -1;
+    return bmma::tile_bytes(N, P, (chunk + 15) & ~15);
+  }
   const int wn = width_class(N, P);
   size_t a = sums_smem(wn, chunk), b = rows_smem(wn), c = cols_smem(wn);
   size_t m = a > b ? a : b;
@@ -547,20 +1194,35 @@ extern "C" int ssm_backward_smem_bytes(int N, int P, int chunk) {
 // fp32; h0, dfin (B, H, N, P) fp32 or null; dy (B, S, H, P) fp32.  Writes
 // dq, dk (B, S, H, N) and dv (B, S, H, P) in the inputs' dtype, dld, dlg
 // (B, S, H) fp32 and (when h0 is given) dh0 (B, H, N, P) fp32.  scratch:
-// fp32, 2 B H C N P + B H C (1 + cdiv(N P, 256) + 3 chunk) floats, C =
-// cdiv(S, chunk).  chunk <= 128, N and P <= 128.  Returns 0 or the CUDA
-// error of a launch.
+// 2 B H C N P + B H C (1 + 8 cdiv(N P, 256) + 3 chunk) floats, C = cdiv(S,
+// chunk), and for body 1 ("mma": bf16, N = P in {16, 32, 64, 128}; q, k,
+// v, dy and scratch 16-byte aligned) 2 B H C N P floats more.  chunk <=
+// 128, N and P <= 128.  Returns 0 or the CUDA error of a launch.
 extern "C" int ssm_scan_backward(const void* q, const void* k, const void* v, const void* ld,
                                  const void* lg, const void* h0, const void* dy,
                                  const void* dfin, void* dq, void* dk, void* dv, void* dld,
                                  void* dlg, void* dh0, void* scratch, int dtype, int B, int S,
                                  int H, int N, int P, int chunk, int q_sb, int q_ss, int q_sh,
-                                 int k_sb, int k_ss, int k_sh, void* stream) {
+                                 int k_sb, int k_ss, int k_sh, int body, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (chunk < 1 || chunk > MAX_CHUNK || N > 128 || P > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
+  if (body == 1) {
+    if (dtype != 1 || N != P) return (int)cudaErrorInvalidValue;
+    auto run = [&](auto launch) {
+      return launch(q, k, v, f(ld), f(lg), f(h0), f(dy), f(dfin), dq, dk, dv, w(dld), w(dlg),
+                    w(dh0), scratch, B, S, H, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
+    };
+    switch (N) {
+      case 16: return run(bmma::launch<16, 16>);
+      case 32: return run(bmma::launch<32, 32>);
+      case 64: return run(bmma::launch<64, 64>);
+      case 128: return run(bmma::launch<128, 128>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (dtype == 1)
     return launch_w<__nv_bfloat16>(q, k, v, f(ld), f(lg), f(h0), f(dy), f(dfin), dq, dk, dv,
                                    w(dld), w(dlg), w(dh0), w(scratch), B, S, H, N, P, chunk,

@@ -10,7 +10,10 @@ chunk outputs, three launches of one call), everything else -- every fp32
 call among them -- the chunk loop on plain FMA.
 
 The backward is the CUDA kernel ``csrc/ssm_scan_backward.cu`` beside its
-plain version, one FMA body (``fma``).  :func:`ssm_scan` is
+plain version, with two bodies by the same rule
+(:func:`backward_body_for`): every call whose forward ran on ``mma`` takes
+its gradient on the tensor cores too (``mma``: the fp32 operands as bf16
+hi + lo pairs), the rest on FMA.  :func:`ssm_scan` is
 differentiable: a call whose inputs require grad goes through
 :class:`_SsmScan`; every other call -- the serving paths -- launches the
 forward as it is."""
@@ -27,7 +30,7 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_backward_ref, ssm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _BWD_THREADS = 256            # csrc/ssm_scan_backward.cu's block
 MAX_CHUNK = 128
 SMEM_LIMIT = 232_448          # shared memory one block may use on Hopper
@@ -45,6 +48,15 @@ def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
         return "mma"
     return "fma"
+
+
+def backward_body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The body of the backward, decided before the launch by the
+    forward's rule (:func:`body_for`), so a call whose forward ran on
+    ``"mma"`` has its backward there too: ``"mma"`` for bf16 q/k/v at N =
+    P in ``MMA_WIDTHS``, each 16-byte aligned; ``"fma"`` for everything
+    else, every fp32 call among them."""
+    return body_for(q, k, v)
 
 
 def _launch(q, k, v, log_decay, log_gate, *, chunk=128, initial_state=None,
@@ -124,9 +136,11 @@ KERNEL = register_kernel(
 
 
 def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
-                     chunk=128, initial_state=None):
-    """Check the operands, allocate the gradients and the fp32 scratch, and
-    launch the backward on the current stream.  q and k as the forward
+                     chunk=128, initial_state=None, body=None):
+    """Check the operands, allocate the gradients and the scratch, and
+    launch the backward on the current stream, on the body
+    :func:`backward_body_for` names; ``body`` overrides that route, to time
+    one body against the other on the same inputs.  q and k as the forward
     takes them (contiguous or a stride-0 head view); dq and dk come back
     contiguous (B, S, H, N), one row a head, for autograd to sum."""
     B, S, H, N = k.shape
@@ -147,15 +161,22 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
         if t is not None:
             check_operand(t, name, device=dev, dtypes=(torch.float32,),
                           shape=(B, H, N, P))
+    route = backward_body_for(q, k, v)
+    body = body or route
+    if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
+        raise ValueError(f"ssm_scan_backward: no {body!r} body for {q.dtype} q/k/v "
+                         f"at N={N} P={P}")
     chunk = min(chunk, S)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk={chunk}: the kernel takes 1..{MAX_CHUNK}")
     lib = build.load("ssm_scan_backward", _BWD_ARGTYPES)
-    smem = lib.ssm_backward_smem_bytes(N, P, chunk)
+    smem = lib.ssm_backward_smem_bytes(int(body == "mma"), N, P, chunk)
     if not 0 <= smem <= SMEM_LIMIT:
         raise ValueError(f"the backward takes N and P up to 128 in at most "
                          f"{SMEM_LIMIT} bytes of shared memory a block: N={N} P={P} "
                          f"chunk {chunk} ({smem})")
+    if body == "mma" and dy.data_ptr() % 16:
+        dy = dy.clone()     # the body reads dy in 16-byte pieces
     strides = q.stride()[:3] + k.stride()[:3]
     if max(strides) >= 2**31 or B * S * H * max(N, P) >= 2**31:
         raise ValueError("q/k strides or the gradients' sizes do not fit the "
@@ -167,13 +188,15 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
     d_gate = torch.empty((B, S, H), dtype=torch.float32, device=dev)
     d_init = None if initial_state is None else torch.empty_like(initial_state)
     # S_c then H_{c-1}, U_c then G_c (B, H, C, N, P); totals (B, H, C); the
-    # state pass's per-block shares of dT (B, H, C, cdiv(N P, 256)); row
-    # sums, column sums and summary terms (B, H, C, chunk)
+    # state pass's per-warp shares of dT (B, H, C, 8 cdiv(N P, 256)); row
+    # sums, column sums and summary terms (B, H, C, chunk); "mma" first
+    # H_{c-1} and G_c as bf16 hi / lo pairs (B, H, C, 2, N, P) each
     bhc = B * H * -(-S // chunk)
-    nb = -(-(N * P) // _BWD_THREADS)
-    scratch = torch.empty(bhc * (2 * N * P + 1 + nb + 3 * chunk),
+    shares = -(-(N * P) // _BWD_THREADS) * (_BWD_THREADS // 32)
+    pairs = 2 * bhc * N * P if body == "mma" else 0
+    scratch = torch.empty(pairs + bhc * (2 * N * P + 1 + shares + 3 * chunk),
                           dtype=torch.float32, device=dev)
-    BACKWARD.count_launch("fma")
+    BACKWARD.count_launch(body)
     err = lib.ssm_scan_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
         gate.data_ptr(), None if initial_state is None else initial_state.data_ptr(),
@@ -181,7 +204,7 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d_decay.data_ptr(),
         d_gate.data_ptr(), None if d_init is None else d_init.data_ptr(),
         scratch.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, N, P, chunk, *strides,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan_backward: CUDA error {err}")
     return dq, dk, dv, d_decay, None if log_gate is None else d_gate, d_init

@@ -18,6 +18,11 @@ around K4 and K5, against the JAX package on the CPU at fp32.
   bf16 hi + lo pairs) modelled in fp32 at the card's training heads,
   within 0.9 of the bf16 limit against fp64, and past it without the lo
   halves; its route; the ctypes signatures of K4 and its backward.
+* K5's backward on the tensor cores: its rounding (every fp32 operand
+  as a bf16 hi + lo pair, a product of two fp32 operands as three
+  products) modelled in fp32 at zamba2-1.2b's widths, within 0.9 of the
+  limit against fp64, and past it with the fp32 operands as bf16 alone or
+  a fp32 x fp32 product as two; its route; its ctypes signature.
 * The differentiable wrappers (K4, K5, K7) keep a ``grad_fn`` and count
   their plain calls; ``build.load`` builds and loads a library once when
   two threads ask for it at once.
@@ -32,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import registry as JR
 from repro.models.layers import ssm as JS
@@ -329,6 +335,184 @@ def test_flash_argtypes_match_the_c_entry_point(name):
               for p in m.group(1).replace("\n", " ").split(",")]
     want = ops._ARGTYPES if name == "flash_attention" else ops._BWD_ARGTYPES
     assert want == [names[p] for p in params]
+
+
+# ---------------------------------------------------------------------------
+# K5's backward on the tensor cores ("mma"): its rounding, its route, its
+# C signature
+# ---------------------------------------------------------------------------
+
+def _mma_scan_backward_model(q, k, v, log_decay, log_gate, dy, d_final=None, *,
+                             chunk=128, initial_state=None, carry="pairs"):
+    """The rounding of K5's "mma" backward, in fp32: ``ssm_scan_backward_ref``
+    with each product taken as the body takes it.  bf16 q / k / v are exact;
+    every fp32 operand (dy, the states H_{c-1} and G_c, k o wk, q o wq, dA,
+    (QK^T o W)) is carried as bf16 hi = bf16(x) and lo = bf16(x - hi), a
+    product with one such operand as two products (hi, lo), a product of
+    two as three (hi hi + hi lo + lo hi), all summed in fp32; dq / dk / dv
+    rounded once to bf16.  ``carry="two"``: a product of two fp32 operands
+    drops the lo of its B operand (hi hi + lo hi); ``"bf16"``: every fp32
+    operand as bf16 hi alone."""
+    B, S, H, N = k.shape
+    P = v.shape[-1]
+
+    def halves(t, b_side):
+        hi = t.bfloat16().float()
+        if carry == "bf16" or (carry == "two" and b_side):
+            return [hi]
+        return [hi, (t - hi).bfloat16().float()]
+
+    def prod(eq, a, b, a32, b32):
+        xs, ys = halves(a, False) if a32 else [a], halves(b, True) if b32 else [b]
+        return sum(torch.einsum(eq, x, y) for i, x in enumerate(xs)
+                   for j, y in enumerate(ys) if i + j < 2)
+    qf, kf, vf, ld, dyf = (t.float() for t in (q, k, v, log_decay, dy))
+    g = log_gate.float()
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        def zpad(a):
+            return F.pad(a, [0, 0] * (a.ndim - 2) + [0, pad])
+        qf, kf, vf, g, ld, dyf = map(zpad, (qf, kf, vf, g, ld, dyf))
+        g[:, S:] = -1e30
+    C = (S + pad) // chunk
+
+    def cs(a):
+        return a.reshape(B, C, chunk, *a.shape[2:])
+    qc, kc, vc, dc, gc, dyc = map(cs, (qf, kf, vf, ld, g, dyf))
+    cum = torch.cumsum(dc, 2)
+    total = cum[:, :, -1]
+    scores = torch.einsum("bcihn,bcjhn->bchij", qc, kc)
+    cum_t = cum.transpose(2, 3)
+    logw = cum_t[..., :, None] - cum_t[..., None, :] + gc.transpose(2, 3)[..., None, :]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    w = torch.where(causal, torch.exp(logw.clamp(max=30.0)), torch.zeros(()))
+    lk = total[:, :, None] - cum + gc
+    wk, wq = torch.exp(lk.clamp(max=30.0)), torch.exp(cum.clamp(max=30.0))
+    s_c = prod("bcjhn,bcjhp->bchnp", kc * wk[..., None], vc, True, False)
+    h = torch.zeros((B, H, N, P)) if initial_state is None else initial_state.float()
+    h_prev = []
+    for c in range(C):
+        h_prev.append(h)
+        h = torch.exp(total[:, c])[..., None, None] * h + s_c[:, c]
+    h_prev = torch.stack(h_prev, 1)
+    u_c = prod("bcihn,bcihp->bchnp", qc * wq[..., None], dyc, True, True)
+    gst = torch.zeros((B, H, N, P)) if d_final is None else d_final.float()
+    g_c, d_total = [None] * C, []
+    for c in reversed(range(C)):
+        g_c[c] = gst
+        decay = torch.exp(total[:, c])
+        d_total.append(decay * (gst * h_prev[:, c]).sum((-2, -1)))
+        gst = decay[..., None, None] * gst + u_c[:, c]
+    g_c, d_total = torch.stack(g_c, 1), torch.stack(d_total[::-1], 1)
+    z = prod("bcihp,bchnp->bcihn", dyc, h_prev, True, True)         # A dy, B H^T
+    dq = wq[..., None] * z
+    d_cum = torch.where(cum < 30.0, (qc * z).sum(-1) * wq, torch.zeros(()))
+    gv = prod("bcjhp,bchnp->bcjhn", vc, g_c, False, True)
+    dk = wk[..., None] * gv
+    dv = wk[..., None] * prod("bcjhn,bchnp->bcjhp", kc, g_c, False, True)
+    d_lk = torch.where(lk < 30.0, (kc * gv).sum(-1) * wk, torch.zeros(()))
+    d_total, d_cum, d_g = d_total + d_lk.sum(2), d_cum - d_lk, d_lk
+    d_a = prod("bcihp,bcjhp->bchij", dyc, vc, True, False) * w
+    dv = dv + prod("bchji,bcihp->bcjhp", (scores * w).transpose(-1, -2), dyc, True, True)
+    dq = dq + prod("bchij,bcjhn->bcihn", d_a, kc, True, False)
+    dk = dk + prod("bchji,bcihn->bcjhn", d_a.transpose(-1, -2), qc, True, False)
+    d_logw = torch.where(causal & (logw < 30.0), d_a * scores, torch.zeros(()))
+    d_cum = d_cum + (d_logw.sum(-1) - d_logw.sum(-2)).transpose(2, 3)
+    d_g = d_g + d_logw.sum(-2).transpose(2, 3)
+    d_cum[:, :, -1] += d_total
+    d_decay = torch.flip(torch.cumsum(torch.flip(d_cum, [2]), 2), [2])
+
+    def back(a):
+        return a.reshape(B, C * chunk, *a.shape[3:])[:, :S]
+    return (back(dq).bfloat16(), back(dk).bfloat16(), back(dv).bfloat16(),
+            back(d_decay).contiguous(), back(d_g).contiguous(),
+            None if initial_state is None else gst)
+
+
+def _bf16_scan_case(S, H, N, state, seed=0):
+    """chip_smoke's scan operands at zamba2-1.2b's widths from a numpy seed:
+    bf16 q / k one group for every head (a stride-0 view), bf16 v, decay
+    -dt*A with dt log-uniform in [1e-3, 1e-1] and A over [1, 16] by head,
+    gate log(dt); fp32 dy, and an initial state and d_final when asked."""
+    rng = np.random.default_rng(seed)
+    T = torch.from_numpy
+    q, k = (T(rng.standard_normal((1, S, 1, N), np.float32)).bfloat16().expand(1, S, H, N)
+            for _ in range(2))
+    v = T(rng.standard_normal((1, S, H, N), np.float32)).bfloat16()
+    log_dt = T(rng.uniform(-6.9078, -2.3026, (1, S, H)).astype(np.float32))
+    ld = -torch.exp(log_dt) * (1.0 + 15.0 * (torch.arange(H) + 0.5) / H)
+    dy = T(rng.standard_normal((1, S, H, N), np.float32))
+    h0, df = ((T(rng.standard_normal((1, H, N, N), np.float32)) for _ in range(2)) if state
+              else (None, None))
+    return (q, k, v, ld, log_dt, dy, df), h0
+
+
+def _scan_ratio(S, H, N, state, carry):
+    args, h0 = _bf16_scan_case(S, H, N, state)
+    ref = ssm_scan_backward_ref(*(None if t is None else t.double() for t in args),
+                                initial_state=None if h0 is None else h0.double())
+    return dispatch.grad_tolerance_ratio(
+        _mma_scan_backward_model(*args, initial_state=h0, carry=carry), ref)
+
+
+_SCAN_MMA_CASES = [(512, 4, 64, False), (512, 4, 64, True), (1000, 2, 64, True),
+                   (300, 2, 128, True)]
+
+
+@pytest.mark.parametrize("S,H,N,state", _SCAN_MMA_CASES)
+def test_mma_scan_backward_rounding_sits_inside_the_limit(S, H, N, state):
+    """K5's "mma" backward modelled at zamba2-1.2b's widths (N = P = 64,
+    B and C shared by every head; a ragged S, N = P = 128), with and
+    without h0 / d_final, against the same gradients carried in fp64 from
+    the same bf16 values: within 0.9 of ``grad_tolerance_ratio`` (0.65 to
+    0.80 is read, the bf16 gradients' own rounding; the fp32 ones ~0.1 of
+    their limit)."""
+    assert _scan_ratio(S, H, N, state, "pairs") <= 0.9
+
+
+@pytest.mark.parametrize("carry", ["two", "bf16"])
+@pytest.mark.parametrize("S,H,N,state", _SCAN_MMA_CASES[:2])
+def test_mma_scan_backward_needs_every_pair_and_three_products(S, H, N, state, carry):
+    """The fp32 operands as bf16 alone, or a product of two fp32 operands
+    as two products (the B operand's lo dropped), put the fp32 gradients
+    far past their limit (26x and more is read): why the body carries
+    every fp32 operand as a pair and takes three products of two."""
+    assert _scan_ratio(S, H, N, state, carry) > 1.0
+
+
+def test_scan_backward_route_on_the_training_path():
+    """``backward_body_for`` follows the forward's rule: zamba2-1.2b's
+    Mamba-2 widths at bf16 on "mma", fp32 on "fma", N != P or a width
+    outside ``MMA_WIDTHS`` on "fma"; the launcher refuses a CPU tensor and
+    a body the route does not allow before it reaches the card."""
+    from repro_torch.kernels.ssm_scan import ops
+    ssm = TR.config("zamba2-1.2b").ssm
+
+    def qkv(N, P, dtype):
+        return (torch.zeros((1, 4, 2, N), dtype=dtype), torch.zeros((1, 4, 2, N), dtype=dtype),
+                torch.zeros((1, 4, 2, P), dtype=dtype))
+    assert ops.backward_body_for(*qkv(ssm.d_state, ssm.head_dim, torch.bfloat16)) == "mma"
+    assert ops.backward_body_for(*qkv(ssm.d_state, ssm.head_dim, torch.float32)) == "fma"
+    assert [ops.backward_body_for(*qkv(N, P, torch.bfloat16))
+            for N, P in ((16, 16), (32, 48), (48, 48), (128, 128), (256, 256))] \
+        == ["mma", "fma", "fma", "mma", "fma"]
+    q, k, v = qkv(64, 64, torch.float32)
+    ld = torch.zeros((1, 4, 2))
+    with pytest.raises(ValueError, match="on the card"):
+        ops._launch_backward(q, k, v, ld, ld, torch.zeros((1, 4, 2, 64)))
+
+
+def test_scan_backward_argtypes_match_the_c_entry_point():
+    """The ctypes signature of K5's backward against its C entry point's
+    parameter list (a missing int would shift the stream)."""
+    from repro_torch.kernels.ssm_scan import ops
+    text = (build.CSRC / "ssm_scan_backward.cu").read_text()
+    m = re.search(r'extern "C" int ssm_scan_backward\(([^)]*)\)', text)
+    names = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in m.group(1).replace("\n", " ").split(",")]
+    assert ops._BWD_ARGTYPES == [names[p] for p in params]
 
 
 # ---------------------------------------------------------------------------

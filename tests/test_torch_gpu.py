@@ -1194,30 +1194,69 @@ def test_flash_backward_bodies_both_match_plain_on_bf16(cuda, S, H, K, D, causal
     assert ratios["mma"] <= 2 * ratios["fma"] + 0.1
 
 
+def _ssm_grad_case(cuda, dtype, S, N, P, shared, state):
+    (q, k, v, ld, lg), h0 = _ssm_operands(cuda, dtype, S, N, P, shared, B=1, H=8)
+    g = torch.Generator(cuda).manual_seed(S + 1)
+    dy = torch.randn((1, S, 8, P), generator=g, device=cuda)
+    df = torch.randn((1, 8, N, P), generator=g, device=cuda) if state else None
+    return (q, k, v, ld, lg, dy, df), h0[:1] if state else None
+
+
+@pytest.mark.parametrize("body", [None, "fma"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,chunk,shared,state", [(512, 128, True, False),
                                                   (1000, 128, True, True),
                                                   (45, 32, False, True), (7, 128, True, False),
                                                   (300, 64, False, False)])
 @pytest.mark.parametrize("N,P", [(64, 64), (16, 16), (32, 48), (128, 128)])
-def test_ssm_scan_backward_kernel_matches_plain(cuda, dtype, S, chunk, shared, state, N, P):
+def test_ssm_scan_backward_kernel_matches_plain(cuda, dtype, S, chunk, shared, state, N, P,
+                                                body):
     """K5's backward on q / k as stride-0 head views or per head, ragged S,
-    with and without a carried state and a final-state gradient."""
-    (q, k, v, ld, lg), h0 = _ssm_operands(cuda, dtype, S, N, P, shared, B=1, H=8)
-    g = torch.Generator(cuda).manual_seed(S + 1)
-    dy = torch.randn((1, S, 8, P), generator=g, device=cuda)
-    df = torch.randn((1, 8, N, P), generator=g, device=cuda) if state else None
-    h0 = h0[:1] if state else None
+    with and without a carried state and a final-state gradient, on the
+    body its route picks (``body`` None: bf16 at N = P 16, 64, 128 on
+    "mma", the rest on "fma") and on the FMA body forced."""
+    from repro_torch.kernels.ssm_scan.ops import backward_body_for
+    args, h0 = _ssm_grad_case(cuda, dtype, S, N, P, shared, state)
     bwd = dispatch.kernel_table()["ssm_scan_backward"]
     bwd.reset_counts()
-    grads = bwd.launch(q, k, v, ld, lg, dy, df, chunk=chunk, initial_state=h0)
-    ref = bwd.plain(q.float(), k.float(), v.float(), ld, lg, dy, df, chunk=chunk,
+    grads = bwd.launch(*args, chunk=chunk, initial_state=h0, **({"body": body} if body else {}))
+    ref = bwd.plain(*(t.float() if t is not None else t for t in args), chunk=chunk,
                     initial_state=h0)
     torch.cuda.synchronize()
-    assert bwd.body_launches == {"fma": 1}
+    route = backward_body_for(*args[:3])
+    assert route == ("mma" if dtype == torch.bfloat16 and N == P else "fma")
+    assert bwd.body_launches == {body or route: 1}
     assert [t is None for t in grads] == [t is None for t in ref]
     assert grads[0].dtype == grads[1].dtype == grads[2].dtype == dtype
     assert bwd.tolerance(grads, ref) <= 1.0
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssm_scan_backward_mma_body_gives_the_same_bits(cuda, shared):
+    """No atomics: two launches of the "mma" body on the same inputs (a
+    ragged S, an initial state and d_final) agree bit for bit."""
+    args, h0 = _ssm_grad_case(cuda, torch.bfloat16, 1000, 64, 64, shared, True)
+    bwd = dispatch.kernel_table()["ssm_scan_backward"]
+    first = bwd.launch(*args, chunk=128, initial_state=h0, body="mma")
+    second = bwd.launch(*args, chunk=128, initial_state=h0, body="mma")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second) if a is not None)
+
+
+def test_ssm_scan_backward_shared_memory_fits_each_instance(cuda):
+    """The backward's own count of a block's shared memory: the "mma" body
+    fits a block at every width and chunk (N = P = 128 at chunk 128 the
+    largest, 230,400 bytes); a width it has no instance of reads -1."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssm_scan import ops
+    lib = build.load("ssm_scan_backward", ops._BWD_ARGTYPES)
+    for n in ops.MMA_WIDTHS:
+        for chunk in (7, 32, 64, 128):
+            assert 0 < lib.ssm_backward_smem_bytes(1, n, n, chunk) <= ops.SMEM_LIMIT
+    assert lib.ssm_backward_smem_bytes(1, 128, 128, 128) == 230_400
+    assert lib.ssm_backward_smem_bytes(1, 64, 64, 128) == 99_328
+    assert lib.ssm_backward_smem_bytes(1, 32, 48, 128) == -1
+    assert 0 < lib.ssm_backward_smem_bytes(0, 32, 48, 128) <= ops.SMEM_LIMIT
 
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):
@@ -1281,6 +1320,8 @@ def test_hybrid_training_step_runs_the_kernels(cuda):
             table = dispatch.kernel_table()
             assert {n: table[n].launches for n in want} == {n: 2 * c for n, c in want.items()}
             assert all(t.plain_calls == 0 for t in table.values())
+            # fp32 compute: K5's backward on the body its route gives fp32, FMA
+            assert table["ssm_scan_backward"].body_launches == {"fma": 2 * layers}
         runs.append((float(m["loss"]), grads[0]))
     assert np.isfinite(runs[0][0])
     assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
