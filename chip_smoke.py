@@ -315,6 +315,27 @@ Phases (each one raises on failure; the script then exits non-zero):
    15's; then one zamba2-1.2b microbatch under "dots", whose counts equal
    phase 21d's (the hybrid runs "dots" as "full", as the reference).
 
+23. xlstm-125m at full width (12 blocks: 9 mLSTM, 3 sLSTM; d_model 768,
+   vocab 50304, fp32 parameters from seed 0, bf16 compute).  23a: K5 at
+   its mLSTM scan's widths (B=1, H=4, N=384 and, with the normalizer's
+   ones column, P=385, per-head q/k, chunk 128) on the FMA body its route
+   takes (N staged in six slices of 64), ``XLSTM_SCAN_CASES`` at fp32 and
+   bf16 (ragged S, carried-in states) against the plain version
+   (``ssm_tolerance_ratio``), each launched twice for the same bits; the
+   bf16 prefill shape timed beside the plain version and the bound; the
+   sLSTM's recurrent product timed as one K7 launch on the block-diagonal
+   weight and as 4 per-head launches (not gated; ``slstm_product_timing``).
+   xlstm-125m's weight products are K7 cases of phase 12.
+   23b: served through the contiguous engine, 4 slots, zamba2's 8
+   prompts (203-1000 tokens), 32 new each: tok/s, TTFT, TPOT, tok/s/W,
+   peak memory; launches exact by body (K5 9 "fma" a prefill; K7 by
+   ``xlstm_counts``: the sLSTM's recurrent product once a token, a
+   decode step in fp32 from the first block's conv on, as the
+   reference's); no plain call, no other kernel; a profiled window's busy
+   share.  23c: the last-token logits of prompts of 333 and 1000 tokens
+   in fp32, kernels against plain versions at depths 4 and 12
+   (``TOL_XLSTM_PATH_REL``).
+
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
 18 hold its launch counts too (exactly, where the engine's calls fix them;
@@ -328,9 +349,11 @@ launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
 K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d, 21d and 22d, K4's
-backward 15, 21d and 22d, K5 10, 21d and 22d, K5's backward 21d and 22d,
-K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17, 18,
-19a, 19c, 20a-d, 21d, 22c and 22d.  The three backward kernels replace no
+backward 15, 21d and 22d, K5 10, 21d, 22d and 23b, K5's backward 21d and
+22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
+18, 19a, 19c, 20a-d, 21d, 22c, 22d and 23b.  K5's entry also carries its
+time at xlstm-125m's prefill shape (``xlstm_ms``, ``xlstm_plain_ms``,
+``xlstm_bound_ms``, ``xlstm_bound_by``, ``xlstm_shape``).  The three backward kernels replace no
 Pallas kernel (the reference differentiates its plain functions and
 ``lax.conv_general_dilated``): their entries name the forward's Pallas
 kernel under ``replaces`` and say so under ``note``.
@@ -450,6 +473,19 @@ DENSE_DECODE_CASES = (((1033, 700, 257, 1200), ZAMBA_MAX_LEN, 32, 32, 64),
                       ((999, 1000, 5, 2000), 1000, 32, 32, 64),
                       ((1033, 700, 257, 1200), ZAMBA_MAX_LEN, 16, 2, 128))
 FP32_FLOPS = 67e12             # H100 SXM fp32 on the CUDA cores (K5's FMA body)
+# xlstm-125m (phase 23): its mLSTM scan's widths (d_inner 1536 over 4 heads,
+# v widened by the normalizer's ones column) and K5's cases there, (S,
+# initial state): the timed prefill shape first, a ragged one, chunk
+# multiples; every case past one chunk or carrying a state in, so a lost
+# carry shows.  The serving phase takes zamba2's prompts and cache length.
+XLSTM_H, XLSTM_N, XLSTM_P = 4, 384, 385
+XLSTM_SCAN_CASES = ((1000, False), (203, True), (777, True), (1024, False), (256, True))
+XLSTM_PRODUCTS = 7      # weight products an mLSTM block makes: up, q k v, w_i w_f, down
+# the fp32 path check's limits on the largest logit difference relative to
+# the largest logit, by depth, set before its first run: the hybrid path
+# check's (TOL_HYBRID_PATH_REL), 4 blocks (the first sLSTM and three
+# mLSTM) at its 6-layer limit, the full 12 at its 13-layer one
+TOL_XLSTM_PATH_REL = {4: 1e-4, 12: 1e-2}
 # fp32 path check of zamba2, kernels vs plain versions, by depth (6: one
 # segment and one shared-block application; 13: two and a 1-layer tail):
 # limits on the largest logit difference relative to the largest logit,
@@ -460,7 +496,7 @@ QWEN_PRODUCTS = 7       # weight products a qwen2.5-3b block makes: wq wk wv wo,
 # K7 cases held against the plain version: (label, M, K, N, layout, dtypes).
 # The three timed shapes, then ragged M / N / K and the transposed operands
 # of the backward products and the tied LM head, a row TMA cannot read
-# (16-bit on the FMA body), and zamba2-1.2b's weight products.
+# (16-bit on the FMA body), and zamba2-1.2b's and xlstm-125m's weight products.
 K7_CASES = (
     ("training mlp up", 512, 2048, 11008, "rows", ("float32", "bfloat16", "float16")),
     ("decode mlp up", 4, 2048, 11008, "rows", ("float32", "bfloat16")),
@@ -482,7 +518,19 @@ K7_CASES = (
     for label, K, N in (("mamba in_proj", 2048, 8384),
                         ("mamba out_proj, shared in_proj", 4096, 2048),
                         ("attention q/k/v/o", 2048, 2048), ("mlp gate/up", 2048, 8192),
-                        ("mlp down", 8192, 2048)))
+                        ("mlp down", 8192, 2048))
+) + tuple(
+    # xlstm-125m's products at its longest prompt, at a prefill's one row
+    # (the sLSTM's fp32 recurrent product a token, on the block-diagonal
+    # (768, 3072) weight, and the LM head) and at decode (4 slots)
+    (f"xlstm {label}", M, K, N, "rows", ("float32", "bfloat16"))
+    for M in (1000, 1, 4)
+    for label, K, N in (("mLSTM up_proj, sLSTM w_in and recurrent", 768, 3072),
+                        ("mLSTM wq/wk/wv", 1536, 1536), ("mLSTM w_i/w_f", 1536, 4),
+                        ("mLSTM down_proj", 1536, 768), ("sLSTM up_gate/up", 768, 1024),
+                        ("sLSTM down", 1024, 768))
+) + tuple(("xlstm tied lm head, y = tok.T", M, 768, 50304, "y.T", ("float32",))
+          for M in (1, 4))
 # (label, M, K, N, layout, dtype) timed for PERF.md; the first is the kernels line's
 K7_TIMED = (("training mlp up", 512, 2048, 11008, "rows", "bfloat16"),
             ("decode mlp up", 4, 2048, 11008, "rows", "bfloat16"),
@@ -1452,13 +1500,14 @@ def ssm_case(torch, S, dtype, *, B=1, H=64, N=64, P=64, shared=True,
     return (q, k, v, -torch.exp(log_dt) * a, log_dt), h0
 
 
-def ssm_work(S, *, B=1, H=64, N=64, P=64, chunk=128, in_bytes=2):
-    """(bytes, flops) K5 must move and do: q and k's shared (B, S, N) base,
-    v, decay and gate read once, y and the final state written once; per
-    chunk of n live rows the causal QK^T and (QK^T.W)V, q.H_prev and the
-    state update, two flops a multiply-add."""
-    nbytes = in_bytes * (2 * B * S * N + B * S * H * P) + 4 * (2 * B * S * H
-                                                              + B * S * H * P + B * H * N * P)
+def ssm_work(S, *, B=1, H=64, N=64, P=64, chunk=128, in_bytes=2, shared=True):
+    """(bytes, flops) K5 must move and do: q and k (their shared (B, S, N)
+    base, or per head), v, decay and gate read once, y and the final state
+    written once; per chunk of n live rows the causal QK^T and (QK^T.W)V,
+    q.H_prev and the state update, two flops a multiply-add."""
+    qk = 2 * B * S * N * (1 if shared else H)
+    nbytes = in_bytes * (qk + B * S * H * P) + 4 * (2 * B * S * H + B * S * H * P
+                                                   + B * H * N * P)
     flops = 0
     for c0 in range(0, S, chunk):
         n = min(chunk, S - c0)
@@ -4845,6 +4894,304 @@ def dots_training_phase(torch, np, table, full) -> dict:
     return out
 
 
+def mlstm_case(torch, S, dtype, *, B=1, H=XLSTM_H, N=XLSTM_N, with_state=False, seed=0):
+    """mLSTM-like scan operands at xlstm-125m's widths
+    (``repro_torch/models/layers/xlstm.py``): q, k per head, k / sqrt(N);
+    v with the normalizer's ones column (P = N + 1); log forget gates
+    log_sigmoid of N(0, 1) plus the bias's linspace [3, 6]; log input gates
+    N(0, 1) clipped to [-30, 15]; an fp32 initial state when asked."""
+    import torch.nn.functional as F
+    g = torch.Generator("cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, N), generator=g, device="cuda")
+    k = torch.randn((B, S, H, N), generator=g, device="cuda") / N ** 0.5
+    v = torch.cat([torch.randn((B, S, H, N), generator=g, device="cuda"),
+                   torch.ones((B, S, H, 1), device="cuda")], dim=-1)
+    f = torch.randn((B, S, H), generator=g, device="cuda") + torch.linspace(
+        3.0, 6.0, H, device="cuda")
+    log_i = torch.randn((B, S, H), generator=g, device="cuda").clamp(-30.0, 15.0)
+    h0 = (torch.randn((B, H, N, N + 1), generator=g, device="cuda") if with_state
+          else None)
+    return (q.to(dtype), k.to(dtype), v.to(dtype), F.logsigmoid(f), log_i), h0
+
+
+def xlstm_kernel_phase(torch, table) -> dict:
+    """Phase 23a: K5 at xlstm-125m's mLSTM widths (B=1, H=4, N=384, P=385,
+    per-head q/k, chunk 128) on the body its route takes (FMA, N staged in
+    slices of 64) against the plain version, fp32 and bf16, each case
+    launched twice for the same bits; then the prefill shape timed in bf16
+    beside the plain version and its bound, and the sLSTM's recurrent
+    product both ways (:func:`slstm_product_timing`)."""
+    from repro_torch.kernels.dispatch import SSM_RTOL
+    from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
+    ssm = table["ssm_scan"]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = []
+        for S, with_state in XLSTM_SCAN_CASES:
+            args, h0 = mlstm_case(torch, S, dtype, with_state=with_state, seed=S)
+            route = ssm_body_for(*args[:3])
+            if route != "fma":
+                raise AssertionError(f"ssm_scan at xlstm's widths, S={S} {dtype}: route "
+                                     f"{route}, expected fma")
+            label = (f"B=1 S={S} H={XLSTM_H} N={XLSTM_N} P={XLSTM_P} per-head q/k "
+                     f"h0={with_state} (limit {SSM_RTOL} of max|ref|) body=fma")
+            e.append(hold(torch, ssm, args, label, chunk=128, initial_state=h0))
+            twice = [ssm.launch(*args, chunk=128, initial_state=h0) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*twice)):
+                raise AssertionError(f"ssm_scan {label}: two launches of the FMA body "
+                                     f"differ")
+        log(f"ssm_scan fma at xlstm's widths {str(dtype)[6:]}: {len(XLSTM_SCAN_CASES)} cases "
+            f"held, each launched twice for the same bits")
+        errs[dtype] = max(e)
+    timer = Timer(torch)
+    args, _ = mlstm_case(torch, 1000, torch.bfloat16)
+    nbytes, flops = ssm_work(1000, H=XLSTM_H, N=XLSTM_N, P=XLSTM_P, shared=False)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+    shape = (f"B=1 S=1000 H={XLSTM_H} N={XLSTM_N} P={XLSTM_P} per-head q/k chunk 128, bf16 "
+             f"in, fp32 out (one xlstm-125m mLSTM prefill) body={ssm_body_for(*args[:3])}")
+    out = dict(xlstm_ms=timer(lambda: ssm.launch(*args, chunk=128)),
+               xlstm_plain_ms=timer(lambda: ssm.plain(*args, chunk=128)),
+               xlstm_bound_ms=bound_ms, xlstm_bound_by=bound_by,
+               xlstm_fp32_bound_ms=bound(nbytes, flops, FP32_FLOPS)[0], xlstm_shape=shape,
+               max_abs_err_xlstm=errs[torch.bfloat16],
+               max_abs_err_xlstm_fp32=errs[torch.float32])
+    log(f"ssm_scan timed {shape}: kernel {out['xlstm_ms']:.4f}ms plain "
+        f"{out['xlstm_plain_ms']:.4f}ms library none bound {bound_ms:.5f}ms ({bound_by}; "
+        f"{nbytes} B, {flops} flop; at the fp32 rate {out['xlstm_fp32_bound_ms']:.4f}ms)")
+    host_us_, wall_us = host_us(torch, lambda: ssm.launch(*args, chunk=128))
+    log(f"ssm_scan host per call, {shape}, {HOST_REPS} back to back: host "
+        f"{host_us_:.2f} us wall {wall_us:.2f} us")
+    slstm_product_timing(torch)
+    return out
+
+
+def slstm_product_timing(torch, steps=300) -> None:
+    """Not gated: the sLSTM's head-block-diagonal recurrent product h_{t-1}
+    @ r at xlstm-125m's widths (H = 4 heads of 192, fp32) two ways -- one
+    K7 launch on the block-diagonal (768, 3072) weight, as the port makes
+    it, and one launch a head on its (192, 768) block, the heads' outputs
+    laid out as (M, 4, 768) -- at M = 1 (a prefill's step) and M = 4 (a
+    decode step over 4 slots): the time a token of ``steps`` products
+    issued back to back, between two CUDA events (the host's pace where it
+    is the slower), and the wall time of a
+    ``steps``-token loop of sLSTM cell steps (``xlstm._slstm_cell``), each
+    step's product feeding the next, as a prefill issues them; every
+    product through ``linear.matmul``, as the model calls K7.  The two
+    give the same bits (the zeros add exactly)."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.models.layers import xlstm
+    from repro_torch.models.layers.linear import matmul
+    cfg = arch_registry.config("xlstm-125m")
+    H, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    g = torch.Generator("cuda").manual_seed(4)
+    r = 0.02 * torch.randn((H, dh, 4, dh), generator=g, device="cuda")
+    r_bd = xlstm.recurrent_weight(r)
+    r_h = [r[i].reshape(dh, 4 * dh) for i in range(H)]
+
+    def diagonal(h):
+        return matmul(h, r_bd).reshape(h.shape[0], 4, H * dh)
+
+    def per_head(h):
+        outs = [matmul(h[:, i * dh:(i + 1) * dh], r_h[i]) for i in range(H)]
+        return torch.stack(outs, 1).reshape(h.shape[0], H, 4, dh).transpose(1, 2) \
+            .reshape(h.shape[0], 4, H * dh)
+
+    ways = {"block-diagonal, 1 launch": diagonal, "per head, 4 launches": per_head}
+    for M in (1, 4):
+        h = torch.randn((M, H * dh), generator=g, device="cuda")
+        wx = torch.randn((steps, M, 4, H * dh), generator=g, device="cuda")
+        same = torch.equal(diagonal(h), per_head(h))
+        for way, product in ways.items():
+            product(h)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(steps):
+                product(h)
+            end.record()
+            torch.cuda.synchronize()
+            device_us = start.elapsed_time(end) * 1e3 / steps
+            st = xlstm.slstm_init_state(cfg, M)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for t in range(steps):
+                st = xlstm._slstm_cell(wx[t] + product(st.h), st)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+            log(f"slstm recurrent product M={M} K={H * dh} N={4 * H * dh} fp32, {way}: "
+                f"{device_us:.2f} us a token back to back; {steps} cell steps "
+                f"{wall_ms:.2f} ms wall ({wall_ms * 1e3 / steps:.1f} us a step); the two "
+                f"ways the same bits {same}")
+
+
+def xlstm_counts(cfg, prefills, prompt_tokens, decode_steps):
+    """K5 and K7 launches by body of an xlstm-125m serving run in bf16:
+    per prefill each mLSTM block's scan on FMA (N = 384, P = 385) and
+    its products (up, q k v and down on wgmma; w_i, w_f, whose 4 columns
+    TMA cannot read, on FMA), each sLSTM block's w_in, up_gate, up, down
+    on wgmma and its fp32 recurrent product once a token on FMA, the fp32
+    LM head on FMA.  A decode step computes in fp32 from the first mLSTM
+    block's conv on (the batched state's fp32 conv history promotes it, as
+    the reference's): that block's up and v products on wgmma, the other
+    77 on FMA."""
+    n_s = sum(i % cfg.xlstm.slstm_every == 1 for i in range(cfg.num_layers))
+    n_m = cfg.num_layers - n_s
+    return {"ssm_scan": {"fma": n_m * prefills},
+            "matmul": {"wgmma": (5 * n_m + 4 * n_s) * prefills + 2 * decode_steps,
+                       "fma": (2 * n_m + 1) * prefills + n_s * prompt_tokens
+                       + (XLSTM_PRODUCTS * n_m + 5 * n_s + 1 - 2) * decode_steps}}
+
+
+def xlstm_serving_phase(torch, np, table) -> dict:
+    """Phase 23b: xlstm-125m at full width through the contiguous engine."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("xlstm-125m")
+    t0 = time.monotonic()
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for b in params["blocks"] for t in b["core"].values()) \
+        + params["embed"]["tok"].numel()
+    eng = ServingEngine(cfg, params, max_len=ZAMBA_MAX_LEN, batch_slots=4, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    log(f"xlstm serving: L={cfg.num_layers} (block i an sLSTM where i % "
+        f"{cfg.xlstm.slstm_every} == 1) d_model={cfg.d_model} H={cfg.num_heads} mLSTM "
+        f"d_inner={int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)} (scan N={XLSTM_N} "
+        f"P={XLSTM_P}) vocab={cfg.vocab_size} params={n_params} "
+        f"({cfg.param_dtype}, compute {cfg.compute_dtype}); paged={eng.paged}; init "
+        f"{time.monotonic() - t0:.1f}s")
+    eng.serve(zamba_requests(cfg, np, Request, greedy, lens=(60,), new=4, seed=9))  # warm-up
+    reqs = zamba_requests(cfg, np, Request, greedy)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    got = {n: dict(table[n].body_launches) for n in ("ssm_scan", "matmul")}
+    plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    others = {n: k.launches for n, k in table.items()
+              if k.launches and n not in ("ssm_scan", "matmul")}
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"xlstm request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    want = xlstm_counts(cfg, stats.prefills, stats.prefill_tokens_total, stats.decode_steps)
+    log(f"xlstm serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
+        f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
+        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f} "
+        f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name})")
+    log(f"xlstm serving: prefills={stats.prefills} prefill_tokens={stats.prefill_tokens_total} "
+        f"decode_steps={stats.decode_steps} launches by body {got} (expected {want}: K5 9 a "
+        f"prefill) other kernels {others or 0} plain_calls={plain or 0} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB")
+    if got != want or plain or others or stats.prefills != len(reqs):
+        raise AssertionError(f"xlstm launches {got}, expected {want}; plain calls {plain}; "
+                             f"other kernels {others}; prefills {stats.prefills}")
+    xlstm_profile(torch, np, eng, Request, greedy)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in got.items()}
+
+
+def xlstm_profile(torch, np, eng, Request, greedy):
+    """One profiled window: two prompts of 256 and 300 tokens prefilled,
+    then 4 decode steps each."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = zamba_requests(eng.cfg, np, Request, greedy, lens=(256, 300), new=4, seed=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("xlstm profile: the profiler saw no device time")
+    mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
+            ("ssm_scan_kernel", "matmul_wgmma_kernel", "matmul_kernel")}
+    log(f"xlstm profile: wall={wall:.3f}s device_busy={busy:.3f}s "
+        f"busy_share={busy / wall:.3f} idle_share={1 - busy / wall:.3f} "
+        f"prefills={stats.prefills} decode_steps={stats.decode_steps}; device ms "
+        + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
+    for ms, count, key in rows[:12]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+
+
+def xlstm_path_rel(torch, np) -> dict:
+    """The last-token logits of two prompts (333 and 1000 tokens) prefilled
+    at full width in fp32 through the kernels and through the plain
+    versions, at each depth of ``TOL_XLSTM_PATH_REL``: by depth, the
+    largest difference relative to the largest plain logit, whether the
+    kernels' logits are finite and agree on the top token, and whether the
+    kernels' run launched K5 on FMA once per mLSTM block and prompt, K7,
+    and no plain version."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import fns_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = arch_registry.config("xlstm-125m").replace(compute_dtype="float32")
+    fns = fns_for(full)
+    params = fns.init(full, torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [torch.from_numpy(rng.integers(0, full.vocab_size, size=(1, n))
+                                .astype(np.int64)).cuda() for n in (333, 1000)]
+    table = dispatch.kernel_table()
+
+    def run(cfg, p):
+        with torch.no_grad():
+            return torch.cat([fns.prefill(cfg, p, {"tokens": t})[0] for t in prompts])
+
+    out = {}
+    for depth in sorted(TOL_XLSTM_PATH_REL):
+        cfg = full.replace(num_layers=depth)
+        p = dict(params, blocks=params["blocks"][:depth])
+        dispatch.reset_counts()
+        kern = run(cfg, p)
+        torch.cuda.synchronize()
+        scans = dict(table["ssm_scan"].body_launches)
+        n_m = sum(i % cfg.xlstm.slstm_every != 1 for i in range(depth))
+        k7 = table["matmul"].launches
+        clean = scans == {"fma": n_m * len(prompts)} and k7 > 0 and \
+            not any(k.plain_calls for k in table.values())
+        with dispatch.plain_versions():
+            plain = run(cfg, p)
+        out[depth] = dict(
+            rel=((kern - plain).abs().max() / plain.abs().max()).item(),
+            finite=bool(torch.isfinite(kern).all()),
+            top1=bool((kern.argmax(-1) == plain.argmax(-1)).all()), scans=scans,
+            k7=k7, clean=clean)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_path_check(torch, np):
+    """Phase 23c: :func:`xlstm_path_rel` at depths 4 and 12, each gated at
+    ``TOL_XLSTM_PATH_REL``; the kernels' run launches K5 on FMA 9 times a
+    prompt at depth 12 and calls no plain version."""
+    for depth, r in xlstm_path_rel(torch, np).items():
+        tol = TOL_XLSTM_PATH_REL[depth]
+        log(f"xlstm path check (fp32, full width, depth {depth}, prompts 333 and 1000): "
+            f"kernels vs plain rel {r['rel']:.3e} (tol {tol}) top1_agree={r['top1']}; "
+            f"K5 {r['scans']}, K7 {r['k7']} launches")
+        if not r["clean"]:
+            raise AssertionError(f"xlstm path check: the kernels' run launched K5 "
+                                 f"{r['scans']} or called a plain version")
+        if not (r["finite"] and r["rel"] <= tol):
+            raise AssertionError(f"xlstm path check, depth {depth}: kernels and plain "
+                                 f"versions disagree ({r['rel']})")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4930,6 +5277,9 @@ def main() -> int:
                               table)
     dots_trained = timed("22d remat dots", dots_training_phase, torch, np, table,
                          trained["full"])
+    results["ssm_scan"].update(timed("23a xlstm scan", xlstm_kernel_phase, torch, table))
+    xlstm = timed("23b xlstm serving", xlstm_serving_phase, torch, np, table)
+    timed("23c xlstm path check", xlstm_path_check, torch, np)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -4939,7 +5289,8 @@ def main() -> int:
         launches[name] += count
     # GoogLeNet training's K6, its backward and K7 (22c); remat "dots" (22d)
     launches["conv2d_backward"] = 0
-    for name, count in list(googlenet_trained.items()) + list(dots_trained.items()):
+    for name, count in (list(googlenet_trained.items()) + list(dots_trained.items())
+                        + list(xlstm.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -4964,9 +5315,11 @@ def main() -> int:
         if k.note:
             kernels[-1]["note"] = k.note
         for extra in ("fma_ms", "bf16_body_ms", "sdpa_dequantized_ms", "fp16_ms",
-                      "fp16_library_ms", "fp16_bound_ms"):
+                      "fp16_library_ms", "fp16_bound_ms", "xlstm_ms", "xlstm_plain_ms",
+                      "xlstm_bound_ms", "xlstm_bound_by", "xlstm_shape"):
             # the FMA body, the bf16 body on the dequantized pool, SDPA on it;
-            # K6's backward at fp16 beside cuDNN's and its bound
+            # K6's backward at fp16 beside cuDNN's and its bound; K5 at
+            # xlstm-125m's widths
             if extra in r:
                 kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
@@ -4977,6 +5330,10 @@ def main() -> int:
         fma = f" (fma body {r['fma_ms']:.4f}ms)" if "fma_ms" in r else ""
         if "fma_bound_ms" in r:
             fma = f" (fma body {r['fma_ms']:.4f}ms, its bound {r['fma_bound_ms']:.4f}ms)"
+        if "xlstm_ms" in r:
+            fma += (f" (at {r['xlstm_shape']}: {r['xlstm_ms']:.4f}ms, plain "
+                    f"{r['xlstm_plain_ms']:.4f}ms, bound {r['xlstm_bound_ms']:.5f}ms "
+                    f"({r['xlstm_bound_by']}))")
         log(f"{name} at {r['shape']}: kernel {r['ms']:.4f}ms{fma} plain {r['plain_ms']:.4f}ms "
             f"library {lib} bound {r['bound_ms']:.4f}ms "
             f"({r['bound_by']}; {r['bytes']:.0f} B, {r['flops']:.0f} flop) on {card}; "

@@ -40,8 +40,13 @@ chunk, its split-K reduction slice 0's partial, or its loader (both
 bodies) the centre tap of the window; the scan's (K5's) FMA body drops
 the state carried into the next chunk, its tensor-core body drops it in
 the state passing (phase (b)), or loses the lo half of the weighted
-scores (Q K^T o W as bf16 hi alone: a precision loss, no lost term), each
-of those two required to fail every case by 8x or more; the flash kernel (K4) skips the diagonal KV
+scores (Q K^T o W as bf16 hi alone: a precision loss, no lost term), and
+its FMA body loses the first 64-column slice of N from the scores (all
+of N where N <= 64), each of those four required to fail every case of
+its body by 8x or more (the FMA body's: fp32 at zamba2's widths, fp32
+and bf16 at xlstm-125m's N = 384, P = 385); each FMA mutant, and K7's
+FMA one, must also fail chip_smoke's fp32 xlstm-125m path check (phase
+23c) at every depth; the flash kernel (K4) skips the diagonal KV
 tile, in its FMA body and in its tensor-core body; K4's backward skips
 the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
 pass, each in its FMA body and in its tensor-core body, whose P and dS
@@ -60,7 +65,8 @@ kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 from the copy and runs chip_smoke's gate on that kernel's cases (fp32
 and bf16 for attention and the scan -- for an int8 loader the paged
 kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
-against the plain version in fp32 on the dequantized values -- at zamba2 widths for K5, on
+against the plain version in fp32 on the dequantized values -- at zamba2 widths and on
+chip_smoke's ``XLSTM_SCAN_CASES`` at xlstm-125m's for K5, on
 ``DENSE_DECODE_CASES`` for K3 and on ``K4_SHAPES`` for K4; the backward
 kernels on ``K4B_GATE_CASES`` and zamba2's widths at ``K5B_GATE_S``, fp32
 and bf16, K6's on the conv gate shapes at batch 8 and chip_smoke's
@@ -71,7 +77,8 @@ fp32 / bf16 / fp16 for K7), printing err/limit for each; the gate must
 fail every case of the types the broken body serves (K1/K2's FMA bodies:
 the fp32 cases with more than two live pool blocks, the only ones their
 broken loop changes; a tensor-core or split body: bf16, or fp16 / bf16
-for conv; K4's, K3's, K5's and K6's FMA bodies: fp32; K4's backward:
+for conv; K4's, K3's and K6's FMA bodies: fp32; K5's FMA body: fp32,
+and bf16 at xlstm-125m's widths; K4's backward:
 its FMA body fp32, its tensor-core body bf16; K5's backward: its
 state pass fp32 and bf16, its FMA body fp32, its tensor-core body bf16; K6's: fp32 and fp16, dgrad's broken parity on the cases that ask
 for dx at stride 2, the gather wgrad's dropped slice on the cases it
@@ -109,8 +116,11 @@ CONV_DROP_SLICE_0 = ("for (int z = (splits > 1); z < splits; ++z) sum += part[(s
                      "  // slice 0 lost")
 CONV_TAP = "  return true;  // every tap contributes"
 CONV_SKIP_TAP = "  return tap != s.KH * s.KW / 2;  // the centre tap is lost"
-SSM_CARRY = "hs[n * PT + p] = decay * hs[n * PT + p] + s;"
-SSM_DROP_CARRY = "hs[n * PT + p] = s;  // the carried state is dropped"
+SSM_CARRY = "hs[(n0 + n) * PT + p] = decay * hs[(n0 + n) * PT + p] + s;"
+SSM_DROP_CARRY = "hs[(n0 + n) * PT + p] = s;  // the carried state is dropped"
+SSM_SCORES = "for (int n = 0; n < nt; ++n) s = fmaf(qi[n], kj[n * KLD], s);"
+SSM_LOSE_SLICE_0 = ("for (int n = 0; n < (n0 > 0 ? nt : 0); ++n) s = fmaf(qi[n], kj[n * KLD], "
+                    "s);  // slice 0 of the scores lost")
 SSD_CARRY = "h = expf(totals[at]) * h + s;"
 SSD_DROP_CARRY = "h = s;  // the carried state is dropped"
 SSD_PARTS = "for (int part = 0; part < 2; ++part) {"
@@ -190,11 +200,14 @@ K7_GATE_CASES = (("decode mlp up", 4, 2048, 11008, "rows"),
 # (source file in csrc/, text, replacement, what the broken copy does, the
 # kernels it feeds: (kernel, the types whose every case it must fail, the
 # cases that count[, the least err/limit that counts as failing, 1 if not
-# given])).  The cases that count are those the route sends to the broken
+# given]), or XLSTM_PATH).  The cases that count are those the route sends to the broken
 # body (None: every case; "split": K6's cases cut into K slices), and for
 # the paged kernels' FMA bodies only the cases with more than two live
 # pool blocks, since the short ones have no block 0 to skip.
 ALL = ("float32", "float16", "bfloat16")
+# chip_smoke's phase 23c on a broken build: xlstm-125m's fp32 path check
+# (K5 and K7 both on FMA), which must fail at every depth it runs
+XLSTM_PATH = ("xlstm_path", (), None)
 MUTANTS = (
     ("paged_decode_attention.cu", LOOP, SKIP_BLOCK_0,
      "FMA body: skips pool block 0 when more than two blocks are live",
@@ -230,13 +243,16 @@ MUTANTS = (
      "the window", (("conv2d", ALL, None),)),
     ("ssm_scan.cu", SSM_CARRY, SSM_DROP_CARRY,
      "FMA body: drops the state carried into the next chunk",
-     (("ssm_scan", ("float32",), "fma"),)),
+     (("ssm_scan", ("float32", "bfloat16"), "fma", 8), XLSTM_PATH)),
     ("ssm_scan.cu", SSD_CARRY, SSD_DROP_CARRY,
      "tensor-core body: the state passing drops the state carried into each chunk",
      (("ssm_scan", ("bfloat16",), "mma", 8),)),
     ("ssm_scan.cu", SSD_PARTS, SSD_LOSE_LO,
      "tensor-core body: the weighted scores lose their lo half (bf16 hi alone)",
      (("ssm_scan", ("bfloat16",), "mma", 8),)),
+    ("ssm_scan.cu", SSM_SCORES, SSM_LOSE_SLICE_0,
+     "FMA body: the scores lose the first 64-column slice of N (all of N where N <= 64)",
+     (("ssm_scan", ("float32", "bfloat16"), "fma", 8), XLSTM_PATH)),
     ("flash_attention.cu", TILE_LOOP, SKIP_DIAGONAL,
      "FMA body: skips the diagonal KV tile when causal",
      (("flash_attention", ("float32", "bfloat16"), "fma"),)),
@@ -286,7 +302,7 @@ MUTANTS = (
      (("decode_attention", ("float32", "bfloat16"), "fma"),)),
     ("matmul.cu", K7_ADD, K7_LOSE_SLICE,
      "FMA body: loses the first 32-deep slice of K when K > 64",
-     (("matmul", ("float32", "bfloat16", "float16"), "fma"),)),
+     (("matmul", ("float32", "bfloat16", "float16"), "fma"), XLSTM_PATH)),
     ("matmul.cu", K7_STAGE, K7_LOSE_STAGE,
      "wgmma body: loses its first 64-deep K stage when K > 64",
      (("matmul", ("bfloat16", "float16"), "wgmma"),)),
@@ -531,6 +547,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, dispatch
+    if name == "xlstm_path":
+        return path_gate(torch, cs, build)
     from repro_torch.kernels.conv2d.ops import backward_body_for as conv_backward_body_for
     from repro_torch.kernels.conv2d.ops import backward_splits
     from repro_torch.kernels.conv2d.ops import body_for as conv_body_for
@@ -604,6 +622,14 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                       torch, S, dt, H=H, N=N, P=N, shared=sh)[0], {"chunk": 128})
                  for S, H, N, sh in ((1000, 64, 64, True), (1024, 64, 64, True),
                                      (1000, 4, 128, False))]
+        # xlstm-125m's widths (the FMA body), a carried-in state where the
+        # case has one (the same seed draws the same state at either type)
+        cases += [(f"B=1 S={S} H={cs.XLSTM_H} N={cs.XLSTM_N} P={cs.XLSTM_P} per-head q/k "
+                   f"h0={ws}", lambda dt, S=S, ws=ws: cs.mlstm_case(
+                       torch, S, dt, with_state=ws, seed=S)[0],
+                   {"chunk": 128, "initial_state": cs.mlstm_case(
+                       torch, S, torch.float32, with_state=ws, seed=S)[1]})
+                  for S, ws in cs.XLSTM_SCAN_CASES]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "flash_attention_backward":
         def k4b_case(dt, B, S, H, K, D):
@@ -698,6 +724,24 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         if missed:
             caught = False
     if not caught:
+        raise SystemExit(1)
+
+
+def path_gate(torch, cs, build) -> None:
+    """Phase 23c of chip_smoke on the broken build: the fp32 path check
+    must fail (the kernels' logits past ``TOL_XLSTM_PATH_REL`` of the plain
+    versions', or not finite) at every depth."""
+    import numpy as np
+    build.build(["ssm_scan", "matmul"])
+    missed = 0
+    for depth, r in cs.xlstm_path_rel(torch, np).items():
+        tol = cs.TOL_XLSTM_PATH_REL[depth]
+        fails = not (r["finite"] and r["rel"] <= tol)
+        missed += not fails
+        print(f"  xlstm path check depth {depth}: rel {r['rel']:.3e} (tol {tol}, "
+              f"{r['rel'] / tol:.1f}x) finite={r['finite']} top1_agree={r['top1']} "
+              f"K5 {r['scans']}: {'fails' if fails else 'passes'} the gate", flush=True)
+    if missed:
         raise SystemExit(1)
 
 

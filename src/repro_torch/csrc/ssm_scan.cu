@@ -30,15 +30,27 @@
 // Two bodies; the wrapper (kernels/ssm_scan/ops.py::body_for) picks one
 // before the launch.
 //
-// FMA body (every fp32 call; simple and right first): the Pallas grid's
-// sequential chunk axis becomes a loop inside one block per (sequence,
-// head, 32 columns of P): the columns of the state are independent in both
-// y and the update, so splitting P gives 128 blocks at zamba2's B=1 where
-// one block per head would give 64.  Per chunk the block stages q (Q x N),
-// k transposed (N x Q, padded a column against bank conflicts), its v
-// columns (Q x 32) and the scores (Q x Q) in shared memory as fp32, and
-// keeps its (N x 32) slice of the state there across chunks.  Every
-// product is fp32 FMA on the CUDA cores.
+// FMA body (every fp32 call, and every call the tensor-core body has no
+// instance for; simple and right first): the Pallas grid's sequential
+// chunk axis becomes a loop inside one block per (sequence, head, 32
+// columns of P): the columns of the state are independent in both y and
+// the update, so splitting P gives 128 blocks at zamba2's B=1 where one
+// block per head would give 64.  The block keeps its (N x 32) slice of the
+// state resident in shared memory across chunks, and per chunk stages its
+// v columns (Q x 32) and the scores (Q x Q) as fp32.  q and k it stages a
+// slice of NT = 64 columns of N at a time (q as Q x NT, k transposed as
+// NT x (Q + 1), padded a column against bank conflicts), so any N fits:
+// per chunk it walks the slices twice, first summing the scores q_i.k_j
+// over them into the (Q x Q) tile, then, slice by slice, adding
+// q_i[slice] . H_prev[slice] to each output's carried sum and updating
+// those rows of the state; where N <= NT the one slice stays staged from
+// the first walk, and at N > NT each output's sum q_i . H_prev so far is
+// kept in shared memory between slices.  Every sum runs over n (and j) in
+// order, one fmaf a term.  xlstm-125m's mLSTM (N = 384 and, with the ones
+// column that carries the normalizer, P = 385) takes 214,784 B a block at
+// chunk 128; its prefill (B = 1, H = 4) runs 52 blocks, each redoing the
+// chunk's scores for its column tile.  Every product is fp32 FMA on the
+// CUDA cores.
 //
 // Tensor-core body (bf16 q/k/v at N = P in {16, 32, 64, 128}): the SSD
 // decomposition (Dao & Gu 2024, sec. 6), so no block walks the chunks in
@@ -82,7 +94,87 @@ constexpr float NEG_INF = -1e30f;  // the reference's padded-step gate
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// The block's columns [p0, p0 + pt) of the (N x P) state, into and out of
+// its (N x PT) shared tile; a null state loads zeros.  `at` is the state at
+// column p0.
+__device__ __forceinline__ void load_state(float* hs, const float* at, int N, int P, int pt) {
+  for (int i = threadIdx.x; i < N * pt; i += THREADS) {
+    const int n = i / pt, p = i - n * pt;
+    hs[n * PT + p] = at ? at[(size_t)n * P + p] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_state(float* at, const float* hs, int N, int P, int pt) {
+  for (int i = threadIdx.x; i < N * pt; i += THREADS) {
+    const int n = i / pt, p = i - n * pt;
+    at[(size_t)n * P + p] = hs[n * PT + p];
+  }
+}
+
+// Stage a chunk's rows of v's block columns, the decay (into `cum`, before
+// its cumsum) and the gate as fp32; rows at or past S are identity steps
+// (v 0, decay 0, gate -1e30).
 template <typename T>
+__device__ __forceinline__ void stage_chunk_rows(float* vs, float* cum, float* gs, const T* v,
+                                                 const float* ld, const float* lg, int b, int h,
+                                                 int S, int H, int P, int c0, int p0, int pt,
+                                                 int nrow, int chunk) {
+  for (int i = threadIdx.x; i < chunk * pt; i += THREADS) {
+    const int r = i / pt, p = i - r * pt;
+    vs[r * PT + p] = r < nrow
+        ? to_f(v[(((size_t)b * S + c0 + r) * H + h) * P + p0 + p]) : 0.f;
+  }
+  for (int r = threadIdx.x; r < chunk; r += THREADS) {
+    const size_t at = ((size_t)b * S + c0 + r) * H + h;
+    cum[r] = r < nrow ? ld[at] : 0.f;
+    gs[r] = r < nrow ? lg[at] : NEG_INF;
+  }
+}
+
+// Inclusive cumsum of cum[0, chunk) in place, by one warp: each lane sums
+// 4 consecutive rows, then the lanes' totals are scanned across the warp.
+__device__ __forceinline__ void chunk_cumsum(float* cum, int chunk) {
+  const int lane = threadIdx.x;
+  const int r0 = lane * 4;
+  float loc[4];
+  float run = 0.f;
+  for (int e = 0; e < 4; ++e) {
+    run += (r0 + e < chunk) ? cum[r0 + e] : 0.f;
+    loc[e] = run;
+  }
+  float incl = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const float excl = incl - run;
+  for (int e = 0; e < 4; ++e)
+    if (r0 + e < chunk) cum[r0 + e] = excl + loc[e];
+}
+
+constexpr int NT = 64;                               // columns of N a slice, at most
+
+// Stage rows [0, chunk) of q and k, columns [n0, n0 + nt), as fp32: q as
+// (chunk, sw), k transposed as (sw, KLD); rows at or past S are zeros.
+template <typename T>
+__device__ __forceinline__ void stage_slice(float* qs, float* kt, const T* qb, const T* kb,
+                                            int c0, int nrow, int chunk, int n0, int nt,
+                                            int sw, int KLD, int q_ss, int k_ss) {
+  for (int i = threadIdx.x; i < chunk * nt; i += THREADS) {
+    const int r = i / nt, n = i - r * nt;
+    float qv = 0.f, kv = 0.f;
+    if (r < nrow) {
+      qv = to_f(qb[(size_t)(c0 + r) * q_ss + n0 + n]);
+      kv = to_f(kb[(size_t)(c0 + r) * k_ss + n0 + n]);
+    }
+    qs[r * sw + n] = qv;
+    kt[n * KLD + r] = kv;
+  }
+}
+
+// SLICED: N > NT, q and k walked in slices; else N <= NT, one slice whose
+// walk the compiler unrolls away.
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(THREADS) ssm_scan_kernel(
     const T* __restrict__ q,            // (B, S, H, N) through strides
     const T* __restrict__ k,            // (B, S, H, N) through strides
@@ -98,117 +190,106 @@ __global__ void __launch_bounds__(THREADS) ssm_scan_kernel(
   const int p0 = blockIdx.y * PT;
   const int pt = min(PT, P - p0);
   const int tid = threadIdx.x;
-  const int KLD = chunk + 1;                  // row length of the k^T tile
+  const int sw = SLICED ? NT : N;             // columns of a staged slice
+  const int slices = SLICED ? (N + NT - 1) / NT : 1;
+  const int KLD = chunk + 1;                  // row length of the k^T slice
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                           // (chunk, N)
-  float* kt = qs + chunk * N;                 // (N, KLD)
-  float* vs = kt + N * KLD;                   // (chunk, PT)
-  float* sc = vs + chunk * PT;                // (chunk, chunk) scores * w
-  float* hs = sc + chunk * chunk;             // (N, PT) the state's columns
-  float* cum = hs + N * PT;                   // (chunk,)
+  float* hs = smem;                           // (N, PT) the state's columns
+  float* sc = hs + N * PT;                    // (chunk, chunk) scores * w
+  float* vs = sc + chunk * chunk;             // (chunk, PT)
+  float* qs = vs + chunk * PT;                // (chunk, sw) a slice of q
+  float* kt = qs + chunk * sw;                // (sw, KLD) a slice of k^T
+  float* cum = kt + sw * KLD;                 // (chunk,)
   float* gs = cum + chunk;                    // (chunk,)
   float* wk = gs + chunk;                     // (chunk,)
+  float* ys = wk + chunk;                     // (chunk, PT) q . H_prev so far; N > NT only
 
   const size_t state_base = ((size_t)b * H + h) * N * P + p0;
-  for (int i = tid; i < N * pt; i += THREADS) {
-    const int n = i / pt, p = i - n * pt;
-    hs[n * PT + p] = h0 ? h0[state_base + (size_t)n * P + p] : 0.f;
-  }
+  load_state(hs, h0 ? h0 + state_base : nullptr, N, P, pt);
   const T* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
   const T* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
 
   for (int c0 = 0; c0 < S; c0 += chunk) {
     const int nrow = min(chunk, S - c0);      // rows at or past S: padding
     __syncthreads();                          // the last chunk's reads are done
-    for (int i = tid; i < chunk * N; i += THREADS) {
-      const int r = i / N, n = i - r * N;
-      float qv = 0.f, kv = 0.f;
-      if (r < nrow) {
-        qv = to_f(qb[(size_t)(c0 + r) * q_ss + n]);
-        kv = to_f(kb[(size_t)(c0 + r) * k_ss + n]);
-      }
-      qs[r * N + n] = qv;
-      kt[n * KLD + r] = kv;
-    }
-    for (int i = tid; i < chunk * pt; i += THREADS) {
-      const int r = i / pt, p = i - r * pt;
-      vs[r * PT + p] = r < nrow
-          ? to_f(v[(((size_t)b * S + c0 + r) * H + h) * P + p0 + p]) : 0.f;
-    }
-    for (int r = tid; r < chunk; r += THREADS) {
-      const size_t at = ((size_t)b * S + c0 + r) * H + h;
-      cum[r] = r < nrow ? ld[at] : 0.f;
-      gs[r] = r < nrow ? lg[at] : NEG_INF;
-    }
+    stage_chunk_rows(vs, cum, gs, v, ld, lg, b, h, S, H, P, c0, p0, pt, nrow, chunk);
+    stage_slice(qs, kt, qb, kb, c0, nrow, chunk, 0, sw, sw, KLD, q_ss, k_ss);
     __syncthreads();
-    if (tid < 32) {
-      // inclusive cumsum of the decay: each lane sums 4 consecutive rows,
-      // then the lanes' totals are scanned across the warp
-      const int r0 = tid * 4;
-      float loc[4];
-      float run = 0.f;
-      for (int e = 0; e < 4; ++e) {
-        run += (r0 + e < chunk) ? cum[r0 + e] : 0.f;
-        loc[e] = run;
-      }
-      float incl = run;
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += o;
-      }
-      const float excl = incl - run;
-      for (int e = 0; e < 4; ++e)
-        if (r0 + e < chunk) cum[r0 + e] = excl + loc[e];
-    }
+    if (tid < 32) chunk_cumsum(cum, chunk);
     __syncthreads();
     const float total = cum[chunk - 1];
     for (int r = tid; r < chunk; r += THREADS)
       wk[r] = expf(fminf(total - cum[r] + gs[r], 30.f));
-    // scores of the live lower triangle: sc[i][j] = (q_i.k_j) w_ij, j <= i
-    for (int e = tid; e < nrow * chunk; e += THREADS) {
-      const int i = e / chunk, j = e - i * chunk;
-      if (j > i) continue;
-      const float* qi = qs + i * N;
-      const float* kj = kt + j;
-      float s = 0.f;
-      for (int n = 0; n < N; ++n) s = fmaf(qi[n], kj[n * KLD], s);
-      sc[i * chunk + j] = s * expf(fminf(cum[i] - cum[j] + gs[j], 30.f));
+    // (1) the scores of the live lower triangle, summed over the slices:
+    // sc[i][j] = (q_i.k_j) w_ij, j <= i, weighted after the last slice
+    for (int sl = 0; sl < slices; ++sl) {
+      const int n0 = sl * NT, nt = min(sw, N - n0);
+      const bool last = sl == slices - 1;
+      if (n0) {
+        stage_slice(qs, kt, qb, kb, c0, nrow, chunk, n0, nt, sw, KLD, q_ss, k_ss);
+        __syncthreads();
+      }
+      for (int e = tid; e < nrow * chunk; e += THREADS) {
+        const int i = e / chunk, j = e - i * chunk;
+        if (j > i) continue;
+        const float* qi = qs + i * sw;
+        const float* kj = kt + j;
+        float s = n0 ? sc[e] : 0.f;
+        for (int n = 0; n < nt; ++n) s = fmaf(qi[n], kj[n * KLD], s);
+        sc[e] = last ? s * expf(fminf(cum[i] - cum[j] + gs[j], 30.f)) : s;
+      }
+      __syncthreads();                        // the slice is read
     }
-    __syncthreads();
-    // y = intra-chunk term + exp(min(cum_i, 30)) q_i . H_prev
-    for (int e = tid; e < nrow * pt; e += THREADS) {
-      const int i = e / pt, p = e - i * pt;
-      const float* si = sc + i * chunk;
-      float yd = 0.f;
-      for (int j = 0; j <= i; ++j) yd = fmaf(si[j], vs[j * PT + p], yd);
-      const float* qi = qs + i * N;
-      float yo = 0.f;
-      for (int n = 0; n < N; ++n) yo = fmaf(qi[n], hs[n * PT + p], yo);
-      y[(((size_t)b * S + c0 + i) * H + h) * P + p0 + p] =
-          yd + expf(fminf(cum[i], 30.f)) * yo;
-    }
-    __syncthreads();                          // H_prev is read; update it
+    // (2) slice by slice: q_i . H_prev[slice] into each output's sum so far
+    // (ys), then those rows of H = decay H + (k o wk)^T v; at the last
+    // slice y = intra-chunk term + exp(min(cum_i, 30)) q_i . H_prev
     const float decay = expf(total);
-    for (int e = tid; e < N * pt; e += THREADS) {
-      const int n = e / pt, p = e - n * pt;
-      const float* kn = kt + n * KLD;
-      float s = 0.f;
-      for (int j = 0; j < nrow; ++j) s = fmaf(kn[j] * wk[j], vs[j * PT + p], s);
-      hs[n * PT + p] = decay * hs[n * PT + p] + s;
+    for (int sl = 0; sl < slices; ++sl) {
+      const int n0 = sl * NT, nt = min(sw, N - n0);
+      const bool last = sl == slices - 1;
+      if (SLICED) {                           // else the one slice is still staged
+        stage_slice(qs, kt, qb, kb, c0, nrow, chunk, n0, nt, sw, KLD, q_ss, k_ss);
+        __syncthreads();
+      }
+      for (int e = tid; e < nrow * pt; e += THREADS) {
+        const int i = e / pt, p = e - i * pt;
+        const float* qi = qs + i * sw;
+        const float* hn = hs + n0 * PT + p;
+        float yo = 0.f;
+        if (n0) yo = ys[i * PT + p];
+        for (int n = 0; n < nt; ++n) yo = fmaf(qi[n], hn[n * PT], yo);
+        if (!last) {
+          ys[i * PT + p] = yo;
+          continue;
+        }
+        const float* si = sc + i * chunk;
+        float yd = 0.f;
+        for (int j = 0; j <= i; ++j) yd = fmaf(si[j], vs[j * PT + p], yd);
+        y[(((size_t)b * S + c0 + i) * H + h) * P + p0 + p] =
+            yd + expf(fminf(cum[i], 30.f)) * yo;
+      }
+      __syncthreads();                        // H_prev's rows are read; update them
+      for (int e = tid; e < nt * pt; e += THREADS) {
+        const int n = e / pt, p = e - n * pt;
+        const float* kn = kt + n * KLD;
+        float s = 0.f;
+        for (int j = 0; j < nrow; ++j) s = fmaf(kn[j] * wk[j], vs[j * PT + p], s);
+        hs[(n0 + n) * PT + p] = decay * hs[(n0 + n) * PT + p] + s;
+      }
+      if (!last) __syncthreads();             // the slice is read before the next
     }
   }
   __syncthreads();
-  for (int i = tid; i < N * pt; i += THREADS) {
-    const int n = i / pt, p = i - n * pt;
-    hT[state_base + (size_t)n * P + p] = hs[n * PT + p];
-  }
+  store_state(hT + state_base, hs, N, P, pt);
 }
 
 // Shared memory of one block, in bytes (ssm_smem_bytes gives it to the
 // wrapper, which checks it against the 227 KB a block may use).
 size_t smem_bytes(int N, int chunk) {
-  return sizeof(float) * ((size_t)chunk * N + (size_t)N * (chunk + 1) + (size_t)chunk * PT +
-                          (size_t)chunk * chunk + (size_t)N * PT + 3 * (size_t)chunk);
+  const size_t sw = N < NT ? N : NT;
+  return sizeof(float) * ((size_t)N * PT + (size_t)chunk * chunk + (size_t)chunk * PT +
+                          (size_t)chunk * sw + sw * (chunk + 1) + 3 * (size_t)chunk +
+                          (N > NT ? (size_t)chunk * PT : 0));
 }
 
 template <typename T>
@@ -216,7 +297,7 @@ int launch(const void* q, const void* k, const void* v, const void* ld, const vo
            const void* h0, void* y, void* hT, int B, int S, int H, int N, int P, int chunk,
            int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream) {
   const size_t smem = smem_bytes(N, chunk);
-  auto kernel = ssm_scan_kernel<T>;
+  auto kernel = N > NT ? ssm_scan_kernel<T, true> : ssm_scan_kernel<T, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -230,7 +311,6 @@ int launch(const void* q, const void* k, const void* v, const void* ld, const vo
       P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
   return (int)cudaGetLastError();
 }
-
 
 namespace ssd {
 
@@ -507,11 +587,12 @@ int launch(const void* q, const void* k, const void* v, const void* ld, const vo
 }  // namespace
 
 // Shared memory one block of a body uses, in bytes (body 0 = FMA; 1 =
-// tensor cores, the larger of its two tiled phases), or -1 for a width
-// the tensor-core body has no instance of.  The wrapper checks it against
-// what a block may use before it launches.
+// tensor cores, the larger of its two tiled phases), or -1 for a width the
+// tensor-core body has no instance of or an unknown body.  The wrapper
+// checks it against what a block may use before it launches.
 extern "C" int ssm_smem_bytes(int body, int N, int P, int chunk) {
-  if (body != 1) return (int)smem_bytes(N, chunk);
+  if (body == 0) return (int)smem_bytes(N, chunk);
+  if (body != 1) return -1;
   const int rows = (chunk + 15) & ~15;
   if (N != P || (N != 16 && N != 32 && N != 64 && N != 128)) return -1;
   const int a = ssd::tile_bytes(false, N, P, rows), c = ssd::tile_bytes(true, N, P, rows);
@@ -520,10 +601,10 @@ extern "C" int ssm_smem_bytes(int body, int N, int P, int chunk) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it; the decay, gate,
 // states and y are fp32).  h0 may be null (a zero state).  chunk <= 128.
-// body: 0 = FMA, 1 = tensor cores (bf16, N = P in {16, 32, 64, 128}; sums
-// (B, H, C, N, P) fp32, totals (B, H, C) fp32 and hin (B, H, C, 2, N, P)
-// bf16 its scratch, C = cdiv(S, chunk); q, k, v 16-byte aligned).  Returns
-// 0 or the CUDA error of a launch.
+// body: 0 = FMA (any N and P, any alignment), 1 = tensor cores (bf16, N =
+// P in {16, 32, 64, 128}; sums (B, H, C, N, P) fp32, totals (B, H, C) fp32
+// and hin (B, H, C, 2, N, P) bf16 its scratch, C = cdiv(S, chunk); q, k,
+// v 16-byte aligned).  Returns 0 or the CUDA error of a launch.
 extern "C" int ssm_scan(const void* q, const void* k, const void* v, const void* ld,
                         const void* lg, const void* h0, void* y, void* hT, void* sums,
                         void* totals, void* hin, int dtype, int B, int S, int H, int N, int P,
@@ -546,6 +627,7 @@ extern "C" int ssm_scan(const void* q, const void* k, const void* v, const void*
       default: return (int)cudaErrorInvalidValue;
     }
   }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, ld, lg, h0, y, hT, B, S, H, N, P, chunk, q_sb, q_ss,
                                  q_sh, k_sb, k_ss, k_sh, s);

@@ -6,14 +6,16 @@ state out).
 The kernel has two bodies, and :func:`body_for` picks one before the
 launch: bf16 q/k/v with N = P in ``MMA_WIDTHS`` run the chunk-parallel SSD
 decomposition on the tensor cores (``mma``: chunk sums, state passing and
-chunk outputs, three launches of one call), everything else -- every fp32
-call among them -- the chunk loop on plain FMA.
+chunk outputs, three launches of one call); everything else -- every fp32
+call, and xlstm-125m's mLSTM at N = 384, P = 385 -- the chunk loop on
+plain FMA, which walks N in slices of 64 columns, so any width fits
+(``fma``).
 
 The backward is the CUDA kernel ``csrc/ssm_scan_backward.cu`` beside its
 plain version, with two bodies by the same rule
 (:func:`backward_body_for`): every call whose forward ran on ``mma`` takes
 its gradient on the tensor cores too (``mma``: the fp32 operands as bf16
-hi + lo pairs), the rest on FMA.  :func:`ssm_scan` is
+hi + lo pairs), the rest on FMA, for N and P up to 128.  :func:`ssm_scan` is
 differentiable: a call whose inputs require grad goes through
 :class:`_SsmScan`; every other call -- the serving paths -- launches the
 forward as it is."""
@@ -174,7 +176,9 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
     if not 0 <= smem <= SMEM_LIMIT:
         raise ValueError(f"the backward takes N and P up to 128 in at most "
                          f"{SMEM_LIMIT} bytes of shared memory a block: N={N} P={P} "
-                         f"chunk {chunk} ({smem})")
+                         f"chunk {chunk} ({smem}); wider scans (xlstm-125m's "
+                         f"mLSTM, N=384 P=385) get their backward with the "
+                         f"ssm family's training, the next part of the port")
     if body == "mma" and dy.data_ptr() % 16:
         dy = dy.clone()     # the body reads dy in 16-byte pieces
     strides = q.stride()[:3] + k.stride()[:3]

@@ -3,7 +3,8 @@ engine on one card, with throughput, serving-quality metrics (TTFT p50/p99,
 TPOT, slot occupancy) and tokens/s per watt against the card's power limit
 (counterpart of ``repro/launch/serve.py``, every flag of it).  The dense
 family serves from the paged KV pool (from contiguous per-slot caches with
-``--contiguous-kv``), the hybrid (zamba2) from contiguous per-slot caches;
+``--contiguous-kv``), the hybrid (zamba2) and the recurrent xLSTM from
+contiguous per-slot state;
 contiguous caches hold ``prompt_len + new_tokens + 1`` rows.  With
 ``--draft-model`` greedy requests decode speculatively on the paged pool;
 ``--host-blocks`` adds the host KV tier, ``--inject-faults`` a fault plan
@@ -24,6 +25,7 @@ Example (on a machine with an NVIDIA card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --draft-model qwen2.5-3b --spec-k 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
   # the host KV tier and a seeded fault plan:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --host-blocks 256 --inject-faults seed=3
@@ -37,6 +39,8 @@ Example (on a machine with an NVIDIA card):
       --mode wave
   # the plain PyTorch versions of the kernels, on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --smoke --device cpu --host-blocks 16 --inject-faults seed=3

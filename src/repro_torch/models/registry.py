@@ -1,7 +1,7 @@
 """Model API for the ported families (counterpart of
 ``repro/models/registry.py``: the dense transformer, ``:55-97``, with the
-training forward, the hybrid family, ``:100-118``, and the cnn family,
-``:164-173``).
+training forward, the hybrid family, ``:100-118``, the recurrent (ssm)
+family, ``:121-140``, and the cnn family, ``:164-173``).
 
   init(cfg, generator)                          -> params
   prepare_params(cfg, params, device)           -> params on the device,
@@ -26,7 +26,8 @@ training forward, the hybrid family, ``:100-118``, and the cnn family,
 
 A family serves from the paged pool when it has ``init_paged_state``, and
 from contiguous caches when it has ``init_decode_state``; the dense family
-has both, and ``verify_paged`` (speculative decoding) besides.  The dense
+has both, and ``verify_paged`` (speculative decoding) besides; the hybrid
+and ssm families only the contiguous state.  The dense
 ``prefill`` reads logits at ``batch["last_pos"]`` when the batch has it.
 """
 from __future__ import annotations
@@ -36,7 +37,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import googlenet, hybrid, transformer
+from repro_torch.models import googlenet, hybrid, recurrent, transformer
 
 
 @dataclass(frozen=True)
@@ -120,6 +121,37 @@ HYBRID_FNS = ModelFns("hybrid", hybrid.init, _hy_decode, None, None,
                       prepare_params=hybrid.prepare_params)
 
 
+def _rc_forward(cfg, params, batch, *, remat=True, chunk=1024):
+    del remat, chunk
+    return recurrent.forward(cfg, params, batch["tokens"])
+
+
+def _rc_prefill(cfg, params, batch, max_len=None, chunk=1024,
+                cache_dtype="bfloat16"):
+    return recurrent.prefill(cfg, params, batch["tokens"], max_len=max_len,
+                             cache_dtype=cache_dtype)
+
+
+def _rc_decode(cfg, params, tokens, state, chunk=2048):
+    return recurrent.decode_step(cfg, params, tokens, state, chunk=chunk)
+
+
+def _rc_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
+    """Batched decode state; every slot starts idle at ``max_len - 1``, as
+    the reference's."""
+    st = recurrent.init_decode_state(cfg, batch, max_len, cache_dtype,
+                                     device=device)
+    st["length"] = torch.full((batch,), max_len - 1, dtype=torch.int32,
+                              device=device)
+    return st
+
+
+RECURRENT_FNS = ModelFns("ssm", recurrent.init, _rc_decode, None, None,
+                         forward=_rc_forward, prefill=_rc_prefill,
+                         init_decode_state=_rc_state,
+                         prepare_params=recurrent.prepare_params)
+
+
 def _gn_forward(cfg, params, batch, *, remat=True, chunk=1024):
     del remat, chunk            # the reference's takes and ignores them too
     logits = googlenet.forward(cfg, params, batch["images"])
@@ -130,11 +162,12 @@ GOOGLENET_FNS = ModelFns("cnn", googlenet.init, None, None, None,
                          forward=_gn_forward)
 
 _BY_FAMILY = {"dense": TRANSFORMER_FNS, "hybrid": HYBRID_FNS,
-              "cnn": GOOGLENET_FNS}
+              "ssm": RECURRENT_FNS, "cnn": GOOGLENET_FNS}
 
 
 def fns_for(cfg) -> ModelFns:
-    """The ported model functions: the dense, hybrid and cnn families."""
+    """The ported model functions: the dense, hybrid, ssm and cnn
+    families."""
     if cfg.family not in _BY_FAMILY:
         raise ValueError(f"family {cfg.family!r} is not ported yet; "
                          f"repro_torch runs {sorted(_BY_FAMILY)}")

@@ -20,11 +20,11 @@ block tables and block-aware admission.  On top of the pool:
 
 The pool is in ``cache_dtype``: bf16, fp32, or int8 with fp32 scales per
 (block, row, kv head) (``QuantPagedKVCache``).  Families with no paged
-state (the hybrid) serve from **contiguous** caches (``paged=False``, the
-default for them), and so does the dense family with ``paged=False``: each
-admitted prompt is prefilled whole into a batch-1 state that is written
-into its slot of the batched decode state (:func:`_merge_slot`), as the
-reference's contiguous path.  Contiguous caches are never int8:
+state (the hybrid, the recurrent xLSTM) serve from **contiguous** caches
+(``paged=False``, the default for them), and so does the dense family
+with ``paged=False``: each admitted prompt is prefilled whole into a
+batch-1 state that is written into its slot of the batched decode state
+(:func:`_merge_slot`), as the reference's contiguous path.  Contiguous caches are never int8:
 ``cache_dtype="int8"`` gives them in bf16, as the reference's contiguous
 engine builds them whatever ``cache_dtype`` says.
 
@@ -324,14 +324,30 @@ class ServeStats:
 
 
 
+def _leaf_pairs(big, small):
+    """The tensors of two states of one structure (nested dicts, lists,
+    tuples and NamedTuples), leaf beside leaf, as the reference's
+    ``tree_map`` pairs them."""
+    if isinstance(big, torch.Tensor):
+        yield big, small
+    elif isinstance(big, dict):
+        for key in big:
+            yield from _leaf_pairs(big[key], small[key])
+    else:
+        for b, s in zip(big, small, strict=True):
+            yield from _leaf_pairs(b, s)
+
+
 def _merge_slot(state, slot_state, slot: int):
     """Write a single-request decode state into slot ``slot`` of the batched
     state, **in place** (the reference's returns a new pytree), casting each
     leaf to the batched leaf's type.  Both come from the same model fns
     with the same ``max_len`` and differ only in batch size, so for every
-    leaf the batch axis is the unique axis where the shapes differ.
-    Returns ``state``."""
-    for big, small in zip(state, slot_state):
+    leaf the batch axis is the unique axis where the shapes differ.  A
+    state is a NamedTuple of tensors (the hybrid, the dense caches) or
+    nested dicts and lists of them (the recurrent family's).  Returns
+    ``state``."""
+    for big, small in _leaf_pairs(state, slot_state):
         if big.shape == small.shape:        # num_slots == 1
             big.copy_(small)
             continue

@@ -132,5 +132,7 @@ def test_fns_for_returns_the_cnn_entry(setup):
     assert logits.shape == (2, 1000) and float(aux) == 0.0
     assert fns_for(TR.config("qwen2.5-3b")).family == "dense"
     assert fns_for(TR.config("zamba2-1.2b")).family == "hybrid"
-    with pytest.raises(ValueError, match="not ported"):
-        fns_for(TR.config("xlstm-125m"))
+    assert fns_for(TR.config("xlstm-125m")).family == "ssm"
+    for arch in ("deepseek-moe-16b", "whisper-medium"):    # MoE, audio
+        with pytest.raises(ValueError, match="not ported"):
+            fns_for(TR.config(arch))

@@ -51,9 +51,16 @@ its bodies on those calls; K6's ring and gather bodies by pass): each
 gradient within ``GRAD_RTOL`` of its largest entry (fp32 2^-14, a bf16
 gradient 2^-8, fp16 2^-10), two launches the same bits; K4's
 log-sum-exp on both bodies within 1e-5 of the plain one; the launch
-counts by body of a GoogLeNet and a qwen2.5-3b microbatch.  A kernel called on the card with an input that requires
+counts by body of a GoogLeNet and a qwen2.5-3b microbatch.  K5's FMA
+body at xlstm-125m's widths (N = 384, P = 385, staged in slices of N) on
+the scan's limit, the same bits launch after launch; K5's bodies keep
+the bits they gave before the FMA body walked N in slices (sha1
+digests); an xlstm-125m prefill and the xlstm smoke engine launch
+exactly the kernels their configs say.  A kernel called on the card with an input that requires
 grad raises, naming where its gradient is (or that it has none).
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -291,6 +298,173 @@ def test_hybrid_engine_path_runs_the_kernels(cuda):
     assert table["ssm_scan"].body_launches == {"mma": cfg.num_layers * stats.prefills}
     assert table["flash_attention"].launches == n_seg * stats.prefills
     assert table["decode_attention"].launches == n_seg * stats.decode_steps
+    assert all(k.plain_calls == 0 for k in table.values())
+    assert all(len(r.output) == 5 for r in reqs)
+
+
+def _mlstm_operands(dev, dtype, S, *, N=384, H=4, with_state=False, seed=0):
+    """mLSTM-like scan operands at xlstm-125m's widths: q, k per head (k /
+    sqrt(N)), v with the normalizer's ones column (P = N + 1), log forget
+    gates log_sigmoid(N(0, 1) + linspace(3, 6)), log input gates N(0, 1)
+    clipped to [-30, 15], an fp32 initial state when asked."""
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((1, S, H, N), generator=g, device=dev)
+    k = torch.randn((1, S, H, N), generator=g, device=dev) / N ** 0.5
+    v = torch.cat([torch.randn((1, S, H, N), generator=g, device=dev),
+                   torch.ones((1, S, H, 1), device=dev)], dim=-1)
+    f = torch.randn((1, S, H), generator=g, device=dev) + torch.linspace(3.0, 6.0, H,
+                                                                         device=dev)
+    log_i = torch.randn((1, S, H), generator=g, device=dev).clamp(-30.0, 15.0)
+    h0 = torch.randn((1, H, N, N + 1), generator=g, device=dev) if with_state else None
+    return (q.to(dtype), k.to(dtype), v.to(dtype),
+            torch.nn.functional.logsigmoid(f), log_i), h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,with_state", [(1000, False), (203, True), (256, True)])
+def test_ssm_scan_fma_body_matches_plain_at_the_mlstm_widths(cuda, dtype, S, with_state):
+    """K5 at xlstm-125m's mLSTM prefill widths (B=1, H=4, N=384, P=385,
+    per-head q/k, chunk 128) on the FMA body its route takes (six slices
+    of N), with a ragged S and a carried-in state: y and the final state
+    within ``ssm_tolerance_ratio``, two launches the same bits."""
+    args, h0 = _mlstm_operands(cuda, dtype, S, with_state=with_state, seed=S)
+    kern = dispatch.kernel_table()["ssm_scan"]
+    assert ssm_body_for(*args[:3]) == "fma"
+    kern.reset_counts()
+    out = kern.launch(*args, chunk=128, initial_state=h0)
+    again = kern.launch(*args, chunk=128, initial_state=h0)
+    ref = kern.plain(*(a.float() for a in args), chunk=128, initial_state=h0)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {"fma": 2}
+    assert kern.tolerance(out, ref) <= 1.0
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def _zamba_bits_case(dev, dtype, N, shared, S=300, H=8, seed=17):
+    """Mamba-2-like operands made with numpy (so the same on every
+    machine): q, k one group shared by every head or per head, decay
+    -dt*A, gate log(dt), an initial state."""
+    rng = np.random.default_rng(seed)
+    hq = 1 if shared else H
+    q = rng.standard_normal((1, S, hq, N), np.float32)
+    k = rng.standard_normal((1, S, hq, N), np.float32)
+    v = rng.standard_normal((1, S, H, N), np.float32)
+    log_dt = rng.uniform(-6.9, -2.3, (1, S, H)).astype(np.float32)
+    a = (1.0 + 15.0 * (np.arange(H, dtype=np.float32) + 0.5) / H).astype(np.float32)
+    ld = (-np.exp(log_dt) * a).astype(np.float32)
+    h0 = rng.standard_normal((1, H, N, N), np.float32)
+    qt, kt = (torch.from_numpy(t).to(dev).to(dtype).expand(1, S, H, N) for t in (q, k))
+    vt = torch.from_numpy(v).to(dev).to(dtype)
+    return ((qt, kt, vt, torch.from_numpy(ld).to(dev), torch.from_numpy(log_dt).to(dev)),
+            torch.from_numpy(h0).to(dev))
+
+
+# sha1 of y's and the final state's bytes, from the kernel as it was before
+# its FMA body walked N in slices (whole q and k tiles staged), on an NVIDIA
+# H100 80GB HBM3
+_OLD_BITS = [
+    (torch.bfloat16, 64, True, None, "mma", "001bac23a719a56e970c37f1f512e5ba9f0f4b1a"),
+    (torch.bfloat16, 64, True, "fma", "fma", "59db06d6c5e9fe7444a1c5fcc11c2b33af8d1386"),
+    (torch.float32, 64, True, None, "fma", "281b7fe8d5d1ad4524e17150d17f9146991304bd"),
+    (torch.bfloat16, 128, False, None, "mma", "bb5153f9ded813ee5021cd05174764d54d5167df"),
+    (torch.float32, 128, False, None, "fma", "dd92c70eb9654a8632045f98f49786171b77bc62")]
+
+
+@pytest.mark.parametrize("dtype,N,shared,force,body,digest", _OLD_BITS)
+def test_ssm_scan_old_bodies_keep_their_bits(cuda, dtype, N, shared, force, body, digest):
+    """zamba2-like calls (S = 300, ragged against chunk 128, a carried-in
+    state) still take their old body and give its old bits."""
+    import hashlib
+    args, h0 = _zamba_bits_case(cuda, dtype, N, shared)
+    kern = dispatch.kernel_table()["ssm_scan"]
+    kern.reset_counts()
+    y, fin = kern.launch(*args, chunk=128, initial_state=h0,
+                         **({"body": force} if force else {}))
+    torch.cuda.synchronize()
+    assert kern.body_launches == {body: 1}
+    got = hashlib.sha1(y.cpu().numpy().tobytes() + fin.cpu().numpy().tobytes()).hexdigest()
+    assert got == digest
+
+
+def test_ssm_scan_refuses_the_tensor_core_body_at_the_mlstm_widths(cuda):
+    """At N = 384, P = 385 the tensor-core body has no instance and raises
+    before a launch; the FMA body runs at any chunk (shared memory 214,784
+    bytes at chunk 128); an N whose state tile would not fit (1024: 296,704
+    bytes) raises before a launch."""
+    args, _ = _mlstm_operands(cuda, torch.bfloat16, 256)
+    kern = dispatch.kernel_table()["ssm_scan"]
+    with pytest.raises(ValueError, match="no 'mma' body"):
+        kern.launch(*args, chunk=128, body="mma")
+    kern.reset_counts()
+    for chunk in (53, 128):
+        y, _ = kern.launch(*args, chunk=chunk)
+        ref, _ = kern.plain(*(a.float() for a in args), chunk=chunk)
+        torch.cuda.synchronize()
+        assert kern.tolerance((y,), (ref,)) <= 1.0
+    assert kern.body_launches == {"fma": 2}
+    big, _ = _mlstm_operands(cuda, torch.bfloat16, 128, N=1024)
+    with pytest.raises(ValueError, match="N=1024 at chunk 128 needs 296704 bytes"):
+        kern.launch(*big, chunk=128)
+
+
+def test_ssm_scan_fma_shared_memory(cuda):
+    """The library's count of an FMA block's shared memory: at N <= 64 what
+    it was when the block staged the whole of q and k (one slice), at
+    xlstm-125m's N = 384 214,784 bytes (six slices, and each output's
+    partial sum between them); an unknown body reads -1."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssm_scan import ops
+    lib = build.load("ssm_scan", ops._ARGTYPES)
+    for n in (16, 32, 64):
+        for chunk in (7, 53, 128):
+            whole = 4 * (chunk * n + n * (chunk + 1) + chunk * 32 + chunk * chunk
+                         + n * 32 + 3 * chunk)
+            assert lib.ssm_smem_bytes(0, n, n + 1, chunk) == whole
+    assert lib.ssm_smem_bytes(0, 384, 385, 128) == 214_784
+    assert lib.ssm_smem_bytes(0, 128, 128, 128) == 182_016
+    assert lib.ssm_smem_bytes(2, 64, 64, 128) == -1
+
+
+def test_xlstm_prefill_runs_the_kernels(cuda):
+    """One xlstm-125m prefill at full width (bf16 compute, 300 tokens):
+    exactly 9 K5 launches, all on FMA (one per mLSTM block), K7 on every
+    product (76 and the sLSTMs' 3 x 300 recurrent products), no plain call,
+    finite logits."""
+    cfg = TR.config("xlstm-125m")
+    fns = fns_for(cfg)
+    params = fns.prepare_params(cfg, fns.init(cfg, torch.Generator(cuda).manual_seed(0)),
+                                cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 300))).to(cuda)
+    dispatch.reset_counts()
+    with torch.no_grad():
+        logits, state = fns.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    table = dispatch.kernel_table()
+    assert table["ssm_scan"].body_launches == {"fma": 9}
+    assert table["matmul"].launches == 76 + 3 * 300
+    assert all(k.plain_calls == 0 for k in table.values())
+    assert logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert state["states"][0].mem.shape == (1, 4, 384, 385)
+
+
+def test_xlstm_engine_path_runs_the_kernels(cuda):
+    """The xlstm smoke model served on the card through the contiguous
+    path: K5 once per mLSTM block and prompt (N = 32, P = 33: the FMA
+    body), K7 on every product, never a plain version."""
+    cfg = TR.smoke("xlstm-125m")
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_len=64, batch_slots=2)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 20 + 9 * i)
+                    .astype(np.int32), max_new_tokens=5, sampler=greedy())
+            for i in range(3)]
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    table = dispatch.kernel_table()
+    assert table["ssm_scan"].body_launches == {"fma": 3 * stats.prefills}
+    assert table["matmul"].launches == (26 * (stats.prefills + stats.decode_steps)
+                                        + stats.prefill_tokens_total + stats.decode_steps)
     assert all(k.plain_calls == 0 for k in table.values())
     assert all(len(r.output) == 5 for r in reqs)
 

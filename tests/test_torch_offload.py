@@ -138,8 +138,11 @@ def test_async_on_done_callback_fires_once():
 
 
 def test_multi_device_scaling():
+    # items of 40 ms compute and 10 ms transfer: a thread's wake-up late by a
+    # few ms under a loaded host (six test workers) is a few per cent of an
+    # item, where at 4 + 1 ms it took the 4-target ratio from ~4 to 2.42
     def mk(n):
-        return [SimTarget(f"v{i}", compute_s=0.004, transfer_s=0.001)
+        return [SimTarget(f"v{i}", compute_s=0.04, transfer_s=0.01)
                 for i in range(n)]
     with OffloadEngine(mk(1)) as eng:
         _, s1 = eng.run(list(range(30)))

@@ -12,6 +12,12 @@ on the same inputs and weights (made with numpy, handed over through
   ``zamba2-1.2b-smoke`` widths, within 1e-5 of the largest |ref|.
 * The launcher's operand check: B and C reach the kernel as a stride-0
   head view, which it admits, and no other non-contiguous layout.
+* At the mLSTM's widths, P = N + 1 (the normalizer's ones column; N = 32
+  and xlstm-125m's N = 384): ``ssm_scan_ref`` against
+  ``chunked_linear_attn`` with and without a state, and against the
+  Pallas scan in interpret mode, within the same 1e-5; the route sends
+  them to the FMA body (which walks N in slices, so any width fits), never
+  to the tensor cores.
 * The kernel's route (``body_for``), and a plain emulation of the
   tensor-core body's rounding (``_emulated_mma``): its three products
   with an fp32 operand take the operand split into bf16 hi + lo, which
@@ -331,3 +337,66 @@ def test_linear_attn_step_and_init_state_match_reference(mamba):
     tz = TS.mamba_init_state(tcfg, 3, "bfloat16", device="cpu")
     assert tz.conv.shape == jz.conv.shape and tz.conv.dtype == torch.bfloat16
     assert tz.ssm.shape == jz.ssm.shape and tz.ssm.dtype == torch.float32
+
+
+def _mlstm_operands(seed, S, H, N):
+    """mLSTM-like operands (repro/models/layers/xlstm.py): q, k ~ N(0, 1)
+    with k / sqrt(N), v with the ones column (P = N + 1), forget gates
+    log_sigmoid of a bias in [3, 6] plus noise, input gates clipped to
+    [-30, 15]."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, S, H, N))
+    k = rng.standard_normal((1, S, H, N)) / np.sqrt(N)
+    v = np.concatenate([rng.standard_normal((1, S, H, N)),
+                        np.ones((1, S, H, 1))], axis=-1)
+    f = rng.standard_normal((1, S, H)) + np.linspace(3.0, 6.0, H)
+    ld = -np.logaddexp(0.0, -f)                       # log_sigmoid
+    lg = np.clip(3.0 * rng.standard_normal((1, S, H)), -30.0, 15.0)
+    h0 = rng.standard_normal((1, H, N, N + 1))
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return tuple(map(f32, (q, k, v, ld, lg, h0)))
+
+
+@pytest.mark.parametrize("N", [32, 384])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_plain_scan_takes_the_mlstm_widths(N, with_state):
+    """P = N + 1, S = 256 over two chunks of 128, against the oracle."""
+    q, k, v, ld, lg, h0 = _mlstm_operands(N, 256, 1, N)
+    init = h0 if with_state else None
+    jy, jf = JS.chunked_linear_attn(
+        *map(jnp.asarray, (q, k, v, ld, lg)), chunk=128,
+        initial_state=None if init is None else jnp.asarray(init),
+        return_final_state=True)
+    ty, tf = ssm_scan(*map(torch.from_numpy, (q, k, v, ld, lg)), chunk=128,
+                      initial_state=None if init is None
+                      else torch.from_numpy(init))
+    assert ty.shape == (1, 256, 1, N + 1) and tf.shape == (1, 1, N, N + 1)
+    assert _rel(ty, jy) <= RTOL and _rel(tf, jf) <= RTOL
+
+
+@pytest.mark.parametrize("N", [32, 384])
+def test_plain_scan_matches_pallas_interpret_at_the_mlstm_widths(N):
+    q, k, v, ld, lg, _ = _mlstm_operands(N + 1, 256, 1, N)
+    jy = pallas_ssm_scan(*map(jnp.asarray, (q, k, v, ld, lg)), chunk=128,
+                         interpret=True)
+    ty, _ = ssm_scan_ref(*map(torch.from_numpy, (q, k, v, ld, lg)),
+                         chunk=128)
+    assert _rel(ty, jy) <= RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,N", [
+    (1000, 384),    # xlstm-125m's prefill
+    (256, 384),
+    (54, 384),
+    (7, 384),       # S under the chunk
+    (256, 32),      # its smoke widths
+])
+def test_body_for_routes_the_mlstm_widths(dtype, S, N):
+    """P = N + 1 never takes the tensor-core body (N != P, and a bf16 row
+    of 385 is not 16-byte aligned): the FMA body, at any S; the
+    backward's route stays FMA."""
+    q, k = (torch.zeros((1, S, 4, N), dtype=dtype) for _ in range(2))
+    v = torch.zeros((1, S, 4, N + 1), dtype=dtype)
+    assert ssm_ops.body_for(q, k, v) == "fma"
+    assert ssm_ops.backward_body_for(q, k, v) == "fma"
