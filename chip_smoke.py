@@ -486,6 +486,43 @@ XLSTM_PRODUCTS = 7      # weight products an mLSTM block makes: up, q k v, w_i w
 # check's (TOL_HYBRID_PATH_REL), 4 blocks (the first sLSTM and three
 # mLSTM) at its 6-layer limit, the full 12 at its 13-layer one
 TOL_XLSTM_PATH_REL = {4: 1e-4, 12: 1e-2}
+# Phase 24, xlstm-125m training.  24a: K5's backward at the mLSTM's widths
+# (FMA body, N and P walked in slices of 64), (S, h0 and d_final): the
+# training length, a ragged S with and without a carried state, S under
+# one chunk.  24b: the fp32 and bf16 train path check at full width cut to
+# 2 blocks (an mLSTM, an sLSTM), 1 x XLSTM_CHECK_SEQ tokens.  On one
+# forward graph the backward through the kernels against the backward
+# through the plain versions, each leaf against its own largest entry:
+# every leaf but the mLSTM's b_i within 2^-14 (fp32) or
+# TOL_XLSTM_BF16_GRAD_REL (bf16), set before the first run: a bf16
+# gradient's one rounding moves an entry up to 2^-8 of the largest
+# (GRAD_RTOL's bf16 limit), and a leaf's gradient passes through two such
+# products (K5's backward or a dX, then the dW) on each side, so 4x that.
+# b_i (4 entries: d log_gate summed over the sequence) cancels 1e4-1e6
+# fold (sum |d log_gate| over |the sum|, PR 29 run F), so rounding that
+# moves no other leaf past 1e-2 of its largest moves b_i by 1e-3 (fp32) to
+# 0.15 (bf16) of its own: at bf16 the upstream products' bf16 dX differ
+# from an fp64-backed run's in 377 of the 462,000 entries of the scan's
+# dy, and those flips alone move b_i by 0.11 of its largest (the scan in
+# fp64 on both runs' dy), the plain run's b_i 0.149 from the fp64 one.
+# So b_i is held twice: in the graph within TOL_XLSTM_BI_REL of its
+# largest (fp32 2^-8 over readings of 8e-4-1.7e-3, bf16 2^-1 over 0.10-
+# 0.11: a zero or sign-flipped b_i fails by 2x-4x there), and the scan's
+# part on the graph's own inputs: K5's backward launched again on the
+# operands its launch in the graph received, its d log_gate summed over
+# the sequence per head against the plain version's sums on the same
+# operands, within TOL_XLSTM_BI_SCAN_REL of their largest (readings 3e-4-
+# 2.2e-3, run F: a zero or sign-flipped sum fails by 64x-128x), with that
+# launch's every output within grad_tolerance_ratio.  Then whole fp32
+# runs: loss and leaves at phase 14's limits.
+# 24c: xlstm-125m trained for XLSTM_TRAIN_STEPS steps of 4 x TRAIN_SEQ
+# tokens in 4 microbatches (the 8 x 512 / 8 recipe's 1 x 512 microbatch).
+XLSTM_BWD_CASES = ((512, False), (300, True), (300, False), (7, True))
+XLSTM_CHECK_SEQ = 300
+TOL_XLSTM_BF16_GRAD_REL = 2.0 ** -6
+TOL_XLSTM_BI_REL = {"float32": 2.0 ** -8, "bfloat16": 2.0 ** -1}
+TOL_XLSTM_BI_SCAN_REL = 2.0 ** -6
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_ACCUM = 3, 4, 4
 # fp32 path check of zamba2, kernels vs plain versions, by depth (6: one
 # segment and one shared-block application; 13: two and a 1-layer tail):
 # limits on the largest logit difference relative to the largest logit,
@@ -4168,14 +4205,18 @@ def attention_backward_phase(torch, table) -> dict:
     return {"flash_attention_backward": r}
 
 
-def scan_backward_work(S, *, B=1, H=64, N=64, P=64, chunk=128, elem=2) -> tuple:
-    """(bytes, flops) of K5's backward: q and k's shared (B, S, N) base, v,
-    the decay, gate and dy read once; dq, dk (B, S, H, N), dv, the decay's
-    and gate's gradients written once.  Per chunk of n live rows, the least
-    products: the causal q.k and dy.v recomputed, dA K, dA^T Q and (QK^T
-    o W)^T dY (n(n+1)/2 terms of N or P each), and the chunk sums S_c, U_c,
-    H_{c-1} dy, G_c v and G_c^T k (n N P each); two flops a multiply-add."""
-    nbytes = elem * (2 * B * S * N + 2 * B * S * H * N + 2 * B * S * H * P) + 4 * (
+def scan_backward_work(S, *, B=1, H=64, N=64, P=64, chunk=128, elem=2,
+                       shared=True) -> tuple:
+    """(bytes, flops) of K5's backward: q and k (``shared``: their one
+    (B, S, N) base each, Mamba-2's B and C as stride-0 head views; else
+    (B, S, H, N) each, xlstm's per-head q and k), v, the decay, gate and dy
+    read once; dq, dk (B, S, H, N), dv, the decay's and gate's gradients
+    written once.  Per chunk of n live rows, the least products: the causal
+    q.k and dy.v recomputed, dA K, dA^T Q and (QK^T o W)^T dY (n(n+1)/2
+    terms of N or P each), and the chunk sums S_c, U_c, H_{c-1} dy, G_c v
+    and G_c^T k (n N P each); two flops a multiply-add."""
+    qk = 2 * B * S * N * (1 if shared else H)
+    nbytes = elem * (qk + 2 * B * S * H * N + 2 * B * S * H * P) + 4 * (
         4 * B * S * H + B * S * H * P)
     flops = 0
     for c0 in range(0, S, chunk):
@@ -5192,6 +5233,323 @@ def xlstm_path_check(torch, np):
                                  f"versions disagree ({r['rel']})")
 
 
+# ---------------------------------------------------------------------------
+# xlstm-125m training (phase 24)
+# ---------------------------------------------------------------------------
+
+
+def xlstm_scan_backward_phase(torch, table) -> dict:
+    """Phase 24a: K5's backward at xlstm-125m's mLSTM widths (B=1, H=4,
+    N=384, P=385, per-head q/k, chunk 128) on the body its route takes (FMA,
+    N and P walked in slices of 64, the last P slice the normalizer's one
+    column) against its plain version evaluated in fp32 on the same values,
+    on ``XLSTM_BWD_CASES`` at fp32 and bf16, each case launched twice for
+    the same bits; then the training shape timed in bf16 beside the plain
+    version and the bound (no library call computes it), and its launches
+    timed apart under the profiler."""
+    from repro_torch.kernels.dispatch import GRAD_RTOL
+    from repro_torch.kernels.ssm_scan.ops import backward_body_for, backward_sliced
+    bwd = table["ssm_scan_backward"]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, with_state in XLSTM_BWD_CASES:
+            args, h0 = mlstm_case(torch, S, dtype, with_state=with_state, seed=S)
+            g = torch.Generator("cuda").manual_seed(S + 7)
+            dy = torch.randn((1, S, XLSTM_H, XLSTM_P), generator=g, device="cuda")
+            df = (torch.randn((1, XLSTM_H, XLSTM_N, XLSTM_P), generator=g, device="cuda")
+                  if with_state else None)
+            route = backward_body_for(*args[:3])
+            if route != "fma" or not backward_sliced(XLSTM_N, XLSTM_P):
+                raise AssertionError(f"ssm_scan_backward at xlstm's widths: route {route}, "
+                                     f"expected the sliced fma body")
+            label = (f"B=1 S={S} H={XLSTM_H} N={XLSTM_N} P={XLSTM_P} per-head q/k chunk 128 "
+                     f"h0/d_final={with_state} (limit {GRAD_RTOL[dtype]:.2e} of each "
+                     f"gradient's max|ref|, fp32 gradients {GRAD_RTOL[torch.float32]:.2e}) "
+                     f"body=fma, sliced")
+            errs.setdefault(dtype, []).append(
+                hold(torch, bwd, (*args, dy, df), label, chunk=128, initial_state=h0))
+            first = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+            again = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, w) for u, w in zip(first, again) if u is not None):
+                raise AssertionError(f"ssm_scan_backward {label}: two launches differ")
+        log(f"ssm_scan_backward sliced fma at xlstm's widths {str(dtype)[6:]}: "
+            f"{len(XLSTM_BWD_CASES)} cases held, each launched twice for the same bits")
+    timer = Timer(torch)
+    args, _ = mlstm_case(torch, TRAIN_SEQ, torch.bfloat16)
+    dy = torch.randn((1, TRAIN_SEQ, XLSTM_H, XLSTM_P), device="cuda")
+    nbytes, flops = scan_backward_work(TRAIN_SEQ, H=XLSTM_H, N=XLSTM_N, P=XLSTM_P,
+                                       shared=False)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+    shape = (f"B=1 S={TRAIN_SEQ} H={XLSTM_H} N={XLSTM_N} P={XLSTM_P} per-head q/k chunk "
+             f"128, bf16 q/k/v, fp32 dy (one xlstm-125m mLSTM block of a training "
+             f"microbatch) body={backward_body_for(*args[:3])}, sliced")
+    out = dict(xlstm_ms=timer(lambda: bwd.launch(*args, dy, chunk=128)),
+               xlstm_plain_ms=timer(lambda: bwd.plain(*args, dy, chunk=128)),
+               xlstm_bound_ms=bound_ms, xlstm_bound_by=bound_by,
+               xlstm_fp32_bound_ms=bound(nbytes, flops, FP32_FLOPS)[0], xlstm_shape=shape,
+               max_abs_err_xlstm=max(errs[torch.bfloat16]),
+               max_abs_err_xlstm_fp32=max(errs[torch.float32]))
+    log(f"ssm_scan_backward timed {shape}: kernel {out['xlstm_ms']:.4f}ms plain "
+        f"{out['xlstm_plain_ms']:.4f}ms library none bound {bound_ms:.5f}ms ({bound_by}, "
+        f"tensor cores; {nbytes} B, {flops} flop; at the 67 TFLOP/s fp32 rate "
+        f"{out['xlstm_fp32_bound_ms']:.4f}ms)")
+    t = pass_times(torch, lambda: bwd.launch(*args, dy, chunk=128), "ssm_bwd_")
+    log(f"ssm_scan_backward sliced fma body by launch (profiler, 10 calls, L2 flushed; mean "
+        f"over the launches recorded): "
+        + ", ".join(f"{name} {ms:.4f}ms ({n})" for name, (ms, n) in t.items())
+        + f"; sum {sum(ms for ms, _ in t.values()):.4f}ms")
+    return out
+
+
+def xlstm_train_counts(cfg, seq: int, micro: int) -> dict:
+    """Launches by body of ``micro`` xlstm training microbatches of ``seq``
+    tokens, from the config (``models.recurrent.training_launches``): K5
+    and its backward on FMA (N = 384, P = 385; the backward's sliced
+    layout); K7's wide products on wgmma at bf16 compute, forward and
+    backward, its narrow ones (w_i and w_f, 4 columns: rows TMA cannot
+    read; the fp32 recurrent products; the fp32 LM head) on FMA; fp32
+    compute puts everything on FMA."""
+    from repro_torch.models.recurrent import training_launches
+    n = training_launches(cfg, seq)
+    wide, narrow = (micro * n["matmul"][c] for c in ("wide", "narrow"))
+    k7 = ({"wgmma": wide, "fma": narrow} if cfg.compute_dtype == "bfloat16"
+          else {"fma": wide + narrow})
+    return {"ssm_scan": {"fma": n["ssm_scan"] * micro},
+            "ssm_scan_backward": {"fma": n["ssm_scan_backward"] * micro}, "matmul": k7}
+
+
+def xlstm_train_rel(torch, np) -> dict:
+    """xlstm-125m at full width cut to 2 blocks (an mLSTM, then an sLSTM),
+    one 1 x ``XLSTM_CHECK_SEQ`` microbatch, at fp32 and at bf16 compute.
+    On one forward graph through the kernels, the backward through the
+    kernels (K5's sliced backward, K7's) and, from the same retained graph,
+    through their plain versions: ``leaves``, the worst leaf but b_i
+    against its own largest entry over 2^-14 (fp32) or
+    ``TOL_XLSTM_BF16_GRAD_REL`` (bf16); ``b_i``, b_i's over
+    ``TOL_XLSTM_BI_REL``; ``b_i_scan``, K5's backward launched again on the
+    operands its launch in the graph received, its d log_gate summed over
+    the sequence per head against the plain version's sums, over
+    ``TOL_XLSTM_BI_SCAN_REL``; ``scan``, that launch's outputs'
+    ``grad_tolerance_ratio``; ``graph``, the largest of the four (<= 1
+    passes).  At fp32 also two whole runs, kernels and plain versions: the
+    loss's and the leaves' relative differences.  By compute dtype, with
+    the kernel run's launches by body, its plain calls and whether
+    everything was finite."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    def rel(a, b):
+        return [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+                for x, y in zip(a, b)]
+
+    bwd = ssm_ops.BACKWARD
+    launch, calls = bwd.launch, []
+
+    def record(*args, **kw):        # K5's backward launched as it is, its operands kept
+        calls.append((args, kw))
+        return launch(*args, **kw)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    table = dispatch.kernel_table()
+    out = {}
+    for compute in ("float32", "bfloat16"):
+        cfg = arch_registry.config("xlstm-125m").replace(compute_dtype=compute, num_layers=2)
+        params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+        batch = {k: torch.as_tensor(v).cuda() for k, v in
+                 next(SyntheticTokens(cfg, 1, XLSTM_CHECK_SEQ, seed=5)).items()}
+        ps = leaves(params)
+        b_i = {id(b["core"]["b_i"]) for b in params["blocks"] if "b_i" in b["core"]}
+        loss_fn = make_loss_fn(cfg)
+        for p in ps:
+            p.requires_grad_(True)
+        dispatch.reset_counts()
+        loss, _ = loss_fn(params, batch)
+        calls.clear()
+        with mock.patch.object(bwd, "launch", record):
+            kern_g = torch.autograd.grad(loss, ps, retain_graph=True)
+        torch.cuda.synchronize()
+        r = dict(launches={n: dict(table[n].body_launches)
+                           for n in xlstm_train_counts(cfg, XLSTM_CHECK_SEQ, 1)},
+                 plain_calls={n: k.plain_calls for n, k in table.items() if k.plain_calls},
+                 want=xlstm_train_counts(cfg, XLSTM_CHECK_SEQ, 1), loss=loss.item(),
+                 n_leaves=len(ps))
+        with dispatch.plain_versions():
+            same_g = torch.autograd.grad(loss, ps)
+        del loss
+        each = rel(kern_g, same_g)
+        limit = dispatch.GRAD_RTOL[torch.float32] if compute == "float32" \
+            else TOL_XLSTM_BF16_GRAD_REL
+        r["leaves"] = max(e for e, p in zip(each, ps) if id(p) not in b_i) / limit
+        r["b_i"] = max(e for e, p in zip(each, ps) if id(p) in b_i) / TOL_XLSTM_BI_REL[compute]
+        (args, kw), = calls
+        with torch.no_grad():
+            kern_s = bwd.launch(*args, **kw)
+            plain_s = bwd.plain(*args, **kw)
+        r["scan"] = dispatch.grad_tolerance_ratio(kern_s, plain_s)
+        r["b_i_scan"] = rel([kern_s[4].double().sum((0, 1))],
+                            [plain_s[4].double().sum((0, 1))])[0] / TOL_XLSTM_BI_SCAN_REL
+        r["graph"] = max(r["leaves"], r["b_i"], r["scan"], r["b_i_scan"])
+        r["finite"] = all(bool(torch.isfinite(g).all()) for g in kern_g)
+        del calls[:], args, kw, kern_s, plain_s
+        if compute == "float32":
+            with dispatch.plain_versions():
+                plain_loss, _ = loss_fn(params, batch)
+                plain_g = torch.autograd.grad(plain_loss, ps)
+            r["loss_rel"] = abs(r["loss"] - plain_loss.item()) / abs(plain_loss.item())
+            r["grad_rel"] = max(rel(kern_g, plain_g))
+            del plain_g, plain_loss
+        for p in ps:
+            p.requires_grad_(False)
+        out[compute] = r
+        del params, ps, kern_g, same_g, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_train_fails(r: dict) -> bool:
+    """Whether a run of :func:`xlstm_train_rel` fails phase 24b's limits."""
+    return not all(v["finite"] and v["graph"] <= 1.0 for v in r.values()) or not (
+        r["float32"]["loss_rel"] <= TOL_TRAIN_LOSS_REL
+        and r["float32"]["grad_rel"] <= TOL_TRAIN_GRAD_REL)
+
+
+def xlstm_train_path_check(torch, np) -> None:
+    """Phase 24b: :func:`xlstm_train_rel`, gated: at each compute dtype the
+    one-graph backward within its limit, at fp32 the whole runs within
+    ``TOL_TRAIN_LOSS_REL`` (loss) and ``TOL_TRAIN_GRAD_REL`` (each leaf, of
+    its largest entry); the kernels' runs launch exactly what
+    :func:`xlstm_train_counts` derives and no plain version."""
+    r = xlstm_train_rel(torch, np)
+    for compute, v in r.items():
+        limit = 2.0 ** -14 if compute == "float32" else TOL_XLSTM_BF16_GRAD_REL
+        whole = (f"; whole runs: loss kernels vs plain rel={v['loss_rel']:.3e} (tol "
+                 f"{TOL_TRAIN_LOSS_REL}), worst leaf rel={v['grad_rel']:.3e} (tol "
+                 f"{TOL_TRAIN_GRAD_REL})" if "loss_rel" in v else "")
+        log(f"xlstm training path check ({compute} compute, full width, 2 blocks, 1 x "
+            f"{XLSTM_CHECK_SEQ} tokens, {v['n_leaves']} gradient leaves): loss {v['loss']:.6f}; "
+            f"one forward graph, backward kernels vs plain versions, err/limit: worst leaf "
+            f"but b_i {v['leaves']:.3f} ({limit:.2e} of its own max), b_i {v['b_i']:.3f} "
+            f"({TOL_XLSTM_BI_REL[compute]:.2e} of its own max); K5's backward on the "
+            f"graph's own operands: outputs {v['scan']:.3f} (grad_tolerance_ratio), d "
+            f"log_gate's per-head sums {v['b_i_scan']:.3f} ({TOL_XLSTM_BI_SCAN_REL:.2e} of "
+            f"their max){whole}; launches by body {v['launches']}; plain calls "
+            f"{v['plain_calls'] or 0}")
+        if v["launches"] != v["want"] or v["plain_calls"]:
+            raise AssertionError(f"xlstm training path check ({compute}): launches "
+                                 f"{v['launches']}, expected {v['want']}; plain calls "
+                                 f"{v['plain_calls']}")
+    if xlstm_train_fails(r):
+        raise AssertionError(f"xlstm training path check: kernels and plain versions "
+                             f"disagree: {r}")
+
+
+def xlstm_training_phase(torch, np, table) -> dict:
+    """Phase 24c: xlstm-125m at full width (12 blocks, 9 mLSTM and 3 sLSTM;
+    fp32 master weights, bf16 compute, AdamW) trained for
+    ``XLSTM_TRAIN_STEPS`` steps of ``XLSTM_TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens in ``XLSTM_TRAIN_ACCUM`` microbatches (1 x 512 each, as the 8 x
+    512 / 8 recipe's) through ``python -m repro_torch.launch.train``'s entry
+    point.  Every loss finite; K5, its backward and K7 launch exactly what
+    :func:`xlstm_train_counts` derives, by body; no plain call.  Step time
+    (the mean of the steps after the first), tokens/s, tokens/s/W against
+    the power limit, peak memory; then one microbatch under the profiler
+    (device activity only): device time by kernel and the busy share.
+    Returns the launches by kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("xlstm-125m")
+    want = xlstm_train_counts(cfg, TRAIN_SEQ, XLSTM_TRAIN_ACCUM * XLSTM_TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        args = train_launcher.parse(
+            ["--arch", "xlstm-125m", "--steps", str(XLSTM_TRAIN_STEPS), "--batch",
+             str(XLSTM_TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
+             str(XLSTM_TRAIN_ACCUM), "--ckpt-dir", d])
+        dispatch.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = train_launcher.run(args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {n: dict(table[n].body_launches) for n in want}
+        plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    s = out["summary"]
+    losses = [h["loss"] for h in out["history"] if "loss" in h]
+    tr = out["trainer"]
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    log(f"xlstm training: L={cfg.num_layers} (9 mLSTM, 3 sLSTM) d_model={cfg.d_model} "
+        f"H={cfg.num_heads} (scan N={XLSTM_N} P={XLSTM_P}) vocab={cfg.vocab_size} tied "
+        f"params={n_params} fp32 master weights, {cfg.compute_dtype} compute, adamw; "
+        f"{XLSTM_TRAIN_STEPS} steps of {XLSTM_TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{XLSTM_TRAIN_ACCUM} microbatches; wall {wall:.1f}s (init included)")
+    log(f"xlstm training: losses={[round(v, 4) for v in losses]} "
+        f"first_step={s['first_step_s']:.3f}s step={s['step_s']:.3f}s "
+        f"tokens/s={s['tokens_per_s']:.1f} tokens/s/W={s['tokens_per_s'] / watts:.4f} at "
+        f"power.limit {watts:.0f} W ({name}) max_memory_allocated="
+        f"{s['peak_memory_bytes'] / 2**30:.2f}GiB (params+grads+adamw state "
+        f"{16 * n_params / 2**30:.2f}GiB)")
+    log(f"xlstm training: launches by body {got} (expected {want}); plain_calls="
+        f"{plain or 0}")
+    if len(losses) != XLSTM_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"xlstm training: losses {losses}")
+    if got != want or plain:
+        raise AssertionError(f"xlstm training: launches {got}, expected {want}; plain "
+                             f"calls {plain}")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             next(SyntheticTokens(cfg, 1, TRAIN_SEQ, seed=9)).items()}
+    ps = leaves(tr.params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss_fn = make_loss_fn(cfg)
+    # device activity alone: a microbatch issues ~100,000 host ops, whose
+    # records the profiler would read back for a minute
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        loss, _ = loss_fn(tr.params, batch)
+        torch.autograd.grad(loss, ps)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    for p in ps:
+        p.requires_grad_(False)
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("xlstm training profile: the profiler saw no device time")
+    by = {"K7 matmul": ("matmul_wgmma_kernel", "matmul_kernel"),
+          "K5 ssm_scan": ("ssm_scan_kernel",), "K5 backward": ("ssm_bwd_",)}
+    parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
+             for k, v in by.items()}
+    log(f"xlstm training profile (one 1 x {TRAIN_SEQ} microbatch, forward and backward): "
+        f"wall={wall:.3f}s device_busy={busy:.3f}s busy_share={busy / wall:.3f} idle_share="
+        f"{1 - busy / wall:.3f}; " + ", ".join(f"{k} {v:.3f}s ({v / busy:.3f} of device "
+                                               f"time)" for k, v in parts.items()))
+    for ms, count, key in rows[:12]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+    del out, tr, ps, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in got.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5280,6 +5638,10 @@ def main() -> int:
     results["ssm_scan"].update(timed("23a xlstm scan", xlstm_kernel_phase, torch, table))
     xlstm = timed("23b xlstm serving", xlstm_serving_phase, torch, np, table)
     timed("23c xlstm path check", xlstm_path_check, torch, np)
+    results["ssm_scan_backward"].update(timed("24a xlstm scan backward",
+                                              xlstm_scan_backward_phase, torch, table))
+    timed("24b xlstm training path check", xlstm_train_path_check, torch, np)
+    xlstm_trained = timed("24c xlstm training", xlstm_training_phase, torch, np, table)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -5290,7 +5652,7 @@ def main() -> int:
     # GoogLeNet training's K6, its backward and K7 (22c); remat "dots" (22d)
     launches["conv2d_backward"] = 0
     for name, count in (list(googlenet_trained.items()) + list(dots_trained.items())
-                        + list(xlstm.items())):
+                        + list(xlstm.items()) + list(xlstm_trained.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]

@@ -53,7 +53,13 @@ pass, each in its FMA body and in its tensor-core body, whose P and dS
 may also lose their lo halves (bf16 hi alone); K5's backward drops the
 gradient carried back over the chunks in the state pass its two bodies
 share, or loses dq's inter-chunk term, in its FMA body and in its
-tensor-core body, whose dy may also lose its lo halves; K6's backward loses dgrad's parity test (at a stride,
+tensor-core body, whose dy may also lose its lo halves; its FMA body's
+sliced layout (N or P over 128) loses the last slice of P from the
+scores' dy.v (the normalizer's one column at xlstm-125m's P = 385), or
+its finish leaves partial 1 out of the cross-slice sums -- each FMA
+mutant must also fail chip_smoke's ``XLSTM_BWD_CASES`` at xlstm-125m's
+widths, fp32 and bf16, by 8x or more, and chip_smoke's phase 24b (the
+xlstm training path check); K6's backward loses dgrad's parity test (at a stride,
 a tap counts where it should not), drops its wgrad gather body's last
 slice of pixels where it splits K, loses each slice's last K chunk in
 its ring bodies (dgrad and wgrad, fp32 and fp16), or keeps the forward's
@@ -143,6 +149,12 @@ K6B_SLICE = "const int2 sl = slice_of(K, splits);     // this block's pixels"
 K6B_DROP_SLICE = ("const int2 sl = splits > 1 && blockIdx.z == splits - 1 ? make_int2(0, 0) "
                   ": slice_of(K, splits);  // the last slice of pixels dropped")
 K5B_LOSE_INTER = "(void)wq;  // the inter-chunk term of dq is lost"
+K5B_LAST_P = "mm(dm, as, LDS, 1, bs, 1, LDS, pw);"
+K5B_LOSE_LAST_P = ("if (p0 + ST < P) mm(dm, as, LDS, 1, bs, 1, LDS, pw);"
+                   "  // the last P slice of dy.v lost")
+K5B_PARTS = "for (int i = 1; i < n; ++i) s += p[(size_t)i * chunk + t];"
+K5B_DROP_PART = ("for (int i = 2; i < n; ++i) s += p[(size_t)i * chunk + t];"
+                 "  // partial 1 lost")
 K5B_MMA_DY_LO = "*reinterpret_cast<uint4*>(lo + swz<W>(r, c)) = l;"
 K5B_MMA_NO_DY_LO = ("*reinterpret_cast<uint4*>(lo + swz<W>(r, c)) = make_uint4(0u, 0u, 0u, 0u);"
                     "  // dy's lo halves lost")
@@ -208,6 +220,12 @@ ALL = ("float32", "float16", "bfloat16")
 # chip_smoke's phase 23c on a broken build: xlstm-125m's fp32 path check
 # (K5 and K7 both on FMA), which must fail at every depth it runs
 XLSTM_PATH = ("xlstm_path", (), None)
+# chip_smoke's phase 24b on a broken build: xlstm-125m's fp32 and bf16
+# training path check (K5's sliced backward, K7's), which must fail
+XLSTM_TRAIN = ("xlstm_train", (), None)
+# K5's backward at xlstm-125m's widths (N = 384, P = 385, the sliced FMA
+# body): chip_smoke's XLSTM_BWD_CASES, fp32 and bf16, each must fail by 8x
+K5B_XLSTM = ("ssm_scan_backward@xlstm", ("float32", "bfloat16"), "fma", 8)
 MUTANTS = (
     ("paged_decode_attention.cu", LOOP, SKIP_BLOCK_0,
      "FMA body: skips pool block 0 when more than two blocks are live",
@@ -267,10 +285,17 @@ MUTANTS = (
      (("flash_attention_backward", ("float32", "bfloat16"), "fma"),)),
     ("ssm_scan_backward.cu", K5B_CARRY, K5B_DROP_CARRY,
      "K5's backward: the state pass (both bodies') drops the gradient carried back into "
-     "each chunk", (("ssm_scan_backward", ("float32", "bfloat16"), None),)),
+     "each chunk", (("ssm_scan_backward", ("float32", "bfloat16"), None), K5B_XLSTM,
+                    XLSTM_TRAIN)),
     ("ssm_scan_backward.cu", K5B_INTER, K5B_LOSE_INTER,
-     "K5's backward, FMA body: dq loses its inter-chunk term",
-     (("ssm_scan_backward", ("float32",), "fma"),)),
+     "K5's backward, FMA body (whole rows and sliced): dq loses its inter-chunk term",
+     (("ssm_scan_backward", ("float32",), "fma"), K5B_XLSTM, XLSTM_TRAIN)),
+    ("ssm_scan_backward.cu", K5B_LAST_P, K5B_LOSE_LAST_P,
+     "K5's backward, sliced FMA body: the scores' dy.v loses the last slice of P (at P = "
+     "385 the normalizer's one column)", (K5B_XLSTM, XLSTM_TRAIN)),
+    ("ssm_scan_backward.cu", K5B_PARTS, K5B_DROP_PART,
+     "K5's backward, sliced FMA body: the finish's cross-slice sums leave out partial 1 "
+     "(rsum's and lk's N slice 1, csum's row tile 1)", (K5B_XLSTM, XLSTM_TRAIN)),
     ("ssm_scan_backward.cu", K5B_MMA_DY_LO, K5B_MMA_NO_DY_LO,
      "K5's backward, tensor-core body: dy loses its lo halves (bf16 hi alone)",
      (("ssm_scan_backward", ("bfloat16",), "mma"),)),
@@ -549,6 +574,9 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     from repro_torch.kernels import build, dispatch
     if name == "xlstm_path":
         return path_gate(torch, cs, build)
+    if name == "xlstm_train":
+        return train_gate(torch, cs, build)
+    name, _, widths = name.partition("@")
     from repro_torch.kernels.conv2d.ops import backward_body_for as conv_backward_body_for
     from repro_torch.kernels.conv2d.ops import backward_splits
     from repro_torch.kernels.conv2d.ops import body_for as conv_body_for
@@ -641,6 +669,20 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                   lambda dt, c=c: k4b_case(dt, *c), {"causal": True})
                  for c in K4B_GATE_CASES]
         dtypes = (torch.float32, torch.bfloat16)
+    elif name == "ssm_scan_backward" and widths == "xlstm":
+        def k5b_xlstm_case(dt, S, ws):
+            args, _ = cs.mlstm_case(torch, S, dt, with_state=ws, seed=S)
+            g = torch.Generator("cuda").manual_seed(S + 7)
+            dy = torch.randn((1, S, cs.XLSTM_H, cs.XLSTM_P), generator=g, device="cuda")
+            df = (torch.randn((1, cs.XLSTM_H, cs.XLSTM_N, cs.XLSTM_P), generator=g,
+                              device="cuda") if ws else None)
+            return (*args, dy, df)
+        cases = [(f"B=1 S={S} H={cs.XLSTM_H} N={cs.XLSTM_N} P={cs.XLSTM_P} per-head q/k "
+                  f"h0/d_final={ws}", lambda dt, S=S, ws=ws: k5b_xlstm_case(dt, S, ws),
+                  {"chunk": 128, "initial_state": cs.mlstm_case(
+                      torch, S, torch.float32, with_state=ws, seed=S)[1]})
+                 for S, ws in cs.XLSTM_BWD_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
     elif name == "ssm_scan_backward":
         def k5b_case(dt, S):
             args, _ = cs.ssm_case(torch, S, dt)
@@ -700,7 +742,7 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                 args, scales, plain_args = args
             tags = tags_of(args, kw)
             out = kern.launch(*args, **kw, **scales)
-            ref = kern.plain(*(a.float() if a.is_floating_point() else a
+            ref = kern.plain(*(a.float() if a is not None and a.is_floating_point() else a
                                for a in plain_args), **kw)
             torch.cuda.synchronize()
             ratio = (kern.tolerance(out, ref, args[0].shape[1]) if name == "matmul"
@@ -742,6 +784,23 @@ def path_gate(torch, cs, build) -> None:
               f"{r['rel'] / tol:.1f}x) finite={r['finite']} top1_agree={r['top1']} "
               f"K5 {r['scans']}: {'fails' if fails else 'passes'} the gate", flush=True)
     if missed:
+        raise SystemExit(1)
+
+
+def train_gate(torch, cs, build) -> None:
+    """Phase 24b of chip_smoke on the broken build: xlstm-125m's training
+    path check (:func:`chip_smoke.xlstm_train_rel`) must fail its limits."""
+    import numpy as np
+    build.build(["ssm_scan", "ssm_scan_backward", "matmul"])
+    r = cs.xlstm_train_rel(torch, np)
+    for compute, v in r.items():
+        whole = (f", whole runs loss rel {v['loss_rel']:.3e} leaf rel {v['grad_rel']:.3e}"
+                 if "loss_rel" in v else "")
+        print(f"  xlstm training path check {compute}: one graph worst err/limit "
+              f"{v['graph']:.2f}{whole} finite={v['finite']}", flush=True)
+    fails = cs.xlstm_train_fails(r)
+    print(f"  xlstm training path check: {'fails' if fails else 'passes'} the gate", flush=True)
+    if not fails:
         raise SystemExit(1)
 
 

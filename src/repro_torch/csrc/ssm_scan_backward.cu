@@ -36,9 +36,12 @@
 // What bounds it on an H100.  At zamba2-1.2b's training shape (B=1, S=512,
 // H=64, N=P=64, chunk 128) the gradient needs 2.7 GFLOP of products on
 // 25.8 MB: the bytes bound it at 0.0077 ms on the tensor cores' side, the
-// 67 TFLOP/s fp32 rate at 0.040 ms on the CUDA cores'.
+// 67 TFLOP/s fp32 rate at 0.040 ms on the CUDA cores'.  At xlstm-125m's
+// (B=1, S=512, H=4, N=384, P=385, per-head q/k) 3.54 GFLOP on 12.6 MB:
+// the bytes at 0.0038 ms, the fp32 rate at 0.053 ms.
 //
-// Five launches of one call, on the caller's stream; nothing walks the
+// Five launches of one call (six where N or P is over 128), on the
+// caller's stream; nothing walks the
 // chunks in order except the state passing, and no atomics (each output is
 // written by one thread, every sum taken in a fixed order), so two
 // launches give the same bits:
@@ -47,7 +50,9 @@
 //       (H_{c-1} over S_c in place) and back (G_c over U_c), and each
 //       warp sums its elements' G_c o H_{c-1} for dT_c;
 //   (3) rows: dq and the row sums of dl, and the inter-chunk term;
-//   (4) cols: dk, dv, the column sums of dl, and the summary terms;
+//   (4) cols: dk, dv, the column sums of dl, and the summary terms
+//       (where N or P is over 128, (S) scores before (3) computes dA and
+//       dl's sums once for both);
 //   (5) finish: one warp per (chunk, head): dT_c, then the reverse cumsum
 //       as a scan across the lanes (four rows a lane), d log_decay and
 //       d log_gate.
@@ -55,11 +60,17 @@
 // (kernels/ssm_scan/ops.py::backward_body_for, the forward's rule) picks
 // the body of (1), (3) and (4) before the launch.
 //
-// FMA body (every fp32 call, and any call forced onto it): tiles of 64
-// rows staged as fp32 in shared memory (rows padded to an odd stride), one
-// block per (chunk, head, tile of rows) in (3) and (4), every product a
-// register-tiled fp32 product on them (fma_tile.cuh); N and P compiled in
-// two classes, up to 64 and up to 128 (a narrower width is zero-padded).
+// FMA body (every fp32 call, every width the "mma" body has no instance
+// of, and any call forced onto it): tiles of 64 rows staged as fp32 in
+// shared memory (rows padded to an odd stride), every product a
+// register-tiled fp32 product on them (fma_tile.cuh).  At N and P up to
+// 128 each tile holds whole rows, N and P compiled in two classes, up to
+// 64 and up to 128 (a narrower width is zero-padded), one block per
+// (chunk, head, tile of rows) in (3) and (4).  Wider (xlstm-125m's mLSTM:
+// N = 384, P = 385) it walks N and P in slices of 64 columns, with the
+// chunk's scores computed once by a launch of its own and the sums over
+// all of N taken as partials that (5) adds in order: six launches; see
+// "the FMA body at N or P over 128" below.
 //
 // Tensor-core body "mma" (bf16 q/k/v at N = P in {16, 32, 64, 128}, each
 // 16-byte aligned: every call whose forward ran on the SSD body): blocks
@@ -175,6 +186,8 @@ __device__ __forceinline__ float weight(const float* cum, const float* gs, int i
 }
 
 // ---- (1) sums ----------------------------------------------------------
+// One block per (chunk, head, WN x WN tile of the N x P sums): blockIdx.y
+// walks the tiles N-major (one tile where N, P <= WN).
 template <typename T, int WN>
 __global__ void __launch_bounds__(THREADS) ssm_bwd_sums_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -184,6 +197,9 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_sums_kernel(
     int k_sh) {
   constexpr int LD = WN + 1, TW = WN / 16;
   const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const int ns = (N + WN - 1) / WN;
+  const int n0 = (blockIdx.y % ns) * WN, p0 = (blockIdx.y / ns) * WN;
+  const int nw = min(WN, N - n0), pw = min(WN, P - p0);
   extern __shared__ __align__(16) float smem[];
   float* cum = smem;                 // (MAX_CHUNK,)
   float* gs = cum + MAX_CHUNK;
@@ -192,18 +208,18 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_sums_kernel(
   float* bs = as + chunk * LD;       // (chunk, LD): v (dy) rows
   load_decay(cum, gs, ld, lg, ck, S, H, chunk);
   const float total = cum[chunk - 1];
-  if (threadIdx.x == 0) totals[ck.bhc] = total;
+  if (threadIdx.x == 0 && blockIdx.y == 0) totals[ck.bhc] = total;
   const size_t vsb = (size_t)S * H * P, vss = (size_t)H * P;
   for (int half = 0; half < 2; ++half) {
     // S_c = sum_j wk_j k_j v_j^T, then U_c = sum_i wq_i q_i dy_i^T
     for (int r = threadIdx.x; r < chunk; r += THREADS)
       w[r] = half == 0 ? expf(fminf(total - cum[r] + gs[r], 30.f)) : expf(fminf(cum[r], 30.f));
     if (half == 0) {
-      stage_rows(as, k, ck, 0, ck.nrow, N, chunk, LD, k_sb, k_ss, k_sh);
-      stage_rows(bs, v, ck, 0, ck.nrow, P, chunk, LD, vsb, vss, P);
+      stage_rows(as, k + n0, ck, 0, ck.nrow, nw, chunk, LD, k_sb, k_ss, k_sh);
+      stage_rows(bs, v + p0, ck, 0, ck.nrow, pw, chunk, LD, vsb, vss, P);
     } else {
-      stage_rows(as, q, ck, 0, ck.nrow, N, chunk, LD, q_sb, q_ss, q_sh);
-      stage_rows(bs, dy, ck, 0, ck.nrow, P, chunk, LD, vsb, vss, P);
+      stage_rows(as, q + n0, ck, 0, ck.nrow, nw, chunk, LD, q_sb, q_ss, q_sh);
+      stage_rows(bs, dy + p0, ck, 0, ck.nrow, pw, chunk, LD, vsb, vss, P);
     }
     __syncthreads();
     for (int i = threadIdx.x; i < chunk * LD; i += THREADS) as[i] *= w[i / LD];
@@ -211,13 +227,13 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_sums_kernel(
     float acc[TW][TW];
     fma_tile::zero(acc);
     mm(acc, as, 1, LD, bs, LD, 1, ck.nrow);   // (n, p) = sum_j as[j][n] bs[j][p]
-    float* dst = (half == 0 ? sums : ubuf) + ck.bhc * N * P;
+    float* dst = (half == 0 ? sums : ubuf) + ck.bhc * N * P + (size_t)n0 * P + p0;
 #pragma unroll
     for (int a = 0; a < TW; ++a)
 #pragma unroll
       for (int c = 0; c < TW; ++c) {
         const int n = ty() + 16 * a, p = tx() + 16 * c;
-        if (n < N && p < P) dst[n * P + p] = acc[a][c];
+        if (n < nw && p < pw) dst[n * P + p] = acc[a][c];
       }
     __syncthreads();   // as / bs / w are read before the second half restages them
   }
@@ -299,6 +315,31 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_pass_kernel(
 }
 
 // ---- (3) rows ----------------------------------------------------------
+// dq's inter-chunk term and the row's share of rsum, for the rows i0 ..
+// i0 + ni - 1 of a tile: z = H_{c-1} dy_i over the thread's columns of
+// the (staged) q columns qs; dq_i += wq_i z_i, and rsum[i] = sum_j dl_ij
+// (rs, the thread's share) + [cum_i < 30] wq_i q_i.z_i, each summed across
+// the thread's row in a fixed order.
+template <int TW>
+__device__ __forceinline__ void dq_inter(float (&dq_acc)[4][TW], const float (&z)[4][TW],
+                                         const float* qs, int ld, const float* cum, int i0,
+                                         int ni, const float (&rs)[4], float* rsum) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int ii = ty() + 16 * a, i = i0 + min(ii, ni - 1);
+    const float wq = expf(fminf(cum[i], 30.f));
+    float dwq = 0.f;
+#pragma unroll
+    for (int c = 0; c < TW; ++c) {
+      dwq = fmaf(qs[ii * ld + tx() + 16 * c], z[a][c], dwq);
+      dq_acc[a][c] = fmaf(wq, z[a][c], dq_acc[a][c]);
+    }
+    const float dl = row_sum(rs[a]);
+    dwq = row_sum(dwq);
+    if (tx() == 0 && ii < ni) rsum[i] = dl + (cum[i] < 30.f ? dwq * wq : 0.f);
+  }
+}
+
 // For the rows i of one tile: dq_i (intra-chunk and inter-chunk terms) and
 // rsum_i = sum_j dl_ij + [cum_i < 30] wq_i q_i.(H_{c-1} dy_i).
 template <typename T, int WN>
@@ -361,21 +402,7 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_rows_kernel(
   float z[4][TW];
   fma_tile::zero(z);
   mm(z, dys, LD, 1, hs, 1, LD, P);   // (i, n) = sum_p dy_i[p] H[n][p]
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int ii = ty() + 16 * a, i = i0 + min(ii, ni - 1);
-    const float wq = expf(fminf(cum[i], 30.f));
-    float dwq = 0.f;
-#pragma unroll
-    for (int c = 0; c < TW; ++c) {
-      dwq = fmaf(qs[ii * LD + tx() + 16 * c], z[a][c], dwq);
-      dq_acc[a][c] = fmaf(wq, z[a][c], dq_acc[a][c]);
-    }
-    const float dl = row_sum(rs[a]);
-    dwq = row_sum(dwq);
-    if (tx() == 0 && ii < ni)
-      rsum[ck.bhc * chunk + i] = dl + (cum[i] < 30.f ? dwq * wq : 0.f);
-  }
+  dq_inter(dq_acc, z, qs, LD, cum, i0, ni, rs, rsum + ck.bhc * chunk);
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -491,23 +518,34 @@ __global__ void __launch_bounds__(THREADS) ssm_bwd_cols_kernel(
 }
 
 // ---- (5) finish --------------------------------------------------------
+// Row t's sum of n partials laid out `chunk` apart (n = 1: the value itself),
+// in order.
+__device__ __forceinline__ float parts(const float* p, int n, int chunk, int t) {
+  float s = p[t];
+  for (int i = 1; i < n; ++i) s += p[(size_t)i * chunk + t];
+  return s;
+}
+
 // dcum_i = rsum_i - csum_i - lk_i (+ dT_c on the chunk's last row); d log
-// decay its reverse cumsum, d log gate csum + lk.  One warp per chunk:
-// dT_c (the pass's nw warp shares and the lk) summed across the lanes, then each lane takes four consecutive rows
-// (chunk <= 128), sums them from the last, and the lanes' sums are
-// scanned from the last lane down; every sum in a fixed order.
+// decay its reverse cumsum, d log gate csum + lk.  rsum, csum and lk come
+// as nr, nc and nl partials a row (one each where the body does not walk N
+// and P in slices), each summed in order first.  One warp per chunk: dT_c
+// (the pass's nw warp shares and the lk) summed across the lanes, then
+// each lane takes four consecutive rows (chunk <= 128), sums them from the
+// last, and the lanes' sums are scanned from the last lane down; every sum
+// in a fixed order.
 __global__ void __launch_bounds__(32) ssm_bwd_finish_kernel(
     const float* __restrict__ rsum, const float* __restrict__ csum,
     const float* __restrict__ lks, const float* __restrict__ dtp, float* __restrict__ dld,
-    float* __restrict__ dlg, int S, int H, int chunk, int C, int nw) {
+    float* __restrict__ dlg, int S, int H, int chunk, int C, int nw, int nr, int nc, int nl) {
   const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
   const int lane = threadIdx.x;
-  const float* rs = rsum + ck.bhc * chunk;
-  const float* cs = csum + ck.bhc * chunk;
-  const float* lk = lks + ck.bhc * chunk;
+  const float* rs = rsum + ck.bhc * nr * chunk;
+  const float* cs = csum + ck.bhc * nc * chunk;
+  const float* lk = lks + ck.bhc * nl * chunk;
   float dt = 0.f;
   for (int i = lane; i < nw; i += 32) dt += dtp[ck.bhc * nw + i];
-  for (int j = lane; j < ck.nrow; j += 32) dt += lk[j];
+  for (int j = lane; j < ck.nrow; j += 32) dt += parts(lk, nl, chunk, j);
   // a butterfly: every lane adds the same two operands at each step, so
   // every lane ends with the same dT_c
   for (int off = 16; off; off >>= 1) dt += __shfl_xor_sync(0xffffffffu, dt, off);
@@ -517,7 +555,9 @@ __global__ void __launch_bounds__(32) ssm_bwd_finish_kernel(
 #pragma unroll
   for (int e = 3; e >= 0; --e) {
     const int t = t0 + e;
-    run += t < ck.nrow ? rs[t] - cs[t] - lk[t] : 0.f;
+    run += t < ck.nrow
+               ? parts(rs, nr, chunk, t) - parts(cs, nc, chunk, t) - parts(lk, nl, chunk, t)
+               : 0.f;
     loc[e] = run;
   }
   float incl = run;   // the sum of this lane's rows and every later lane's
@@ -533,7 +573,7 @@ __global__ void __launch_bounds__(32) ssm_bwd_finish_kernel(
     if (t >= ck.nrow) break;
     const size_t at = ((size_t)ck.b * S + ck.c0 + t) * H + ck.h;
     dld[at] = dt + (after + loc[e]);
-    dlg[at] = cs[t] + lk[t];
+    dlg[at] = parts(cs, nc, chunk, t) + parts(lk, nl, chunk, t);
   }
 }
 
@@ -590,8 +630,351 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
   ssm_bwd_cols_kernel<T, WN><<<dim3((unsigned)bhc, tiles), THREADS, s4, stream>>>(
       qt, kt, vt, ld, lg, dy, ubuf, static_cast<T*>(dk), static_cast<T*>(dv), csum, lks, S, H,
       N, P, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
-  ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(rsum, csum, lks, dtp, dld, dlg, S,
-                                                          H, chunk, C, nb * (THREADS / 32));
+  ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(
+      rsum, csum, lks, dtp, dld, dlg, S, H, chunk, C, nb * (THREADS / 32), 1, 1, 1);
+  return (int)cudaGetLastError();
+}
+
+// ---- the FMA body at N or P over 128: N and P walked in slices --------
+// No row of q, k, v or dy is staged whole: every tile holds ST = 64 of
+// its columns.  (1) sums runs as the narrow code at WN = ST, one block a
+// (chunk, head, 64 x 64 tile of S_c and U_c).  Then, instead of each
+// rows / cols block recomputing the scores for its output slice, a launch
+// of its own (S) computes them once a (chunk, head, tile pair): q_i.k_j
+// summed over N and dy_i.v_j over P slice by slice, into dA = (dy.v) o W
+// and M = (q.k) o W (chunk x chunk fp32 each in scratch), with dl's row and
+// column sums over the tile pair.  (3) rows: one block a (chunk, head, row
+// tile, N slice): dq's slice from the dA tiles and k's slice, then H_{c-1}
+// dy_i over P slice by slice.  (4) cols: one block a (chunk, head, row
+// tile, N or P slice): dk's N slice (dA^T Q, then G_c v_j over P slices)
+// or dv's P slice ((QK^T o W)^T dY, then G_c^T k_j over N slices).  The
+// row terms that sum over all of N -- q_i.z_i in rsum and k_j.(G_c v_j) in
+// lk -- and dl's sums over the tiles are written as one partial a slice or
+// tile, and (5) sums each row's partials in order: no atomics, so two
+// launches still give the same bits.  P = 385 ends on a slice one column
+// wide (the ones column that carries the mLSTM's normalizer), zero-padded
+// like any ragged slice.  The layout takes any width, but at N = P = 64 it
+// runs 26-36% slower than whole rows (k5_backward_probe.py layouts: its
+// cols pass takes dk and dv in blocks apart, and (S) is a sixth launch), so
+// N and P up to 128 keep the whole-row layout.
+constexpr int ST = BT;             // columns of N or P a slice
+constexpr int LDS = ST + 1;        // row stride of a staged slice
+
+__host__ __device__ constexpr int slices(int w) { return (w + ST - 1) / ST; }
+bool sliced(int N, int P) { return N > 128 || P > 128; }
+
+// Partials a row of each sum: rsum's N slices, then its row tiles j
+// (dl_ij); csum's tiles i; lk's N slices.
+struct Parts {
+  int nr, nc, nl;
+};
+__host__ __device__ inline Parts parts_of(int N, int chunk) {
+  const int tiles = (chunk + BT - 1) / BT;
+  return {slices(N) + tiles, tiles, slices(N)};
+}
+
+// (S): one block per (chunk, head, row tile i, row tile j).  dam and mat
+// (B, H, C, chunk, chunk) get dA and M on the causal triangle's live rows
+// (zero above the diagonal); rpart (B, H, C, nr, chunk) slot ns + j-tile
+// and cpart (B, H, C, nc, chunk) slot i-tile get dl's sums over the pair
+// (zero for a pair above the triangle or past the chunk's rows).
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ssm_bwd_scores_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ lg, const float* __restrict__ dy,
+    float* __restrict__ dam, float* __restrict__ mat, float* __restrict__ rpart,
+    float* __restrict__ cpart, int S, int H, int N, int P, int chunk, int C, int q_sb, int q_ss,
+    int q_sh, int k_sb, int k_ss, int k_sh) {
+  const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const Parts np = parts_of(N, chunk);
+  const int tiles = np.nc, it = blockIdx.y / tiles, jt = blockIdx.y % tiles;
+  const int i0 = it * BT, j0 = jt * BT;
+  const int ni = min(BT, ck.nrow - i0), nj = min(BT, ck.nrow - j0);
+  float* rp = rpart + (ck.bhc * np.nr + slices(N) + jt) * chunk;
+  float* cp = cpart + (ck.bhc * np.nc + it) * chunk;
+  if (jt > it || ni <= 0) {   // no live pair: the pair's partials are 0
+    for (int r = threadIdx.x; r < BT; r += THREADS) {
+      if (jt > it && r < ni) rp[i0 + r] = 0.f;
+      if (r < nj) cp[j0 + r] = 0.f;
+    }
+    return;
+  }
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                 // (MAX_CHUNK,)
+  float* gs = cum + MAX_CHUNK;
+  float* as = gs + MAX_CHUNK;        // (BT, LDS) a slice of q (then dy) rows i
+  float* bs = as + BT * LDS;         // (BT, LDS) a slice of k (then v) rows j
+  float* dls = bs + BT * LDS;        // (BT, LDT) dl: rows i by rows j
+  load_decay(cum, gs, ld, lg, ck, S, H, chunk);
+  const size_t vsb = (size_t)S * H * P, vss = (size_t)H * P;
+  float sa[4][4], dm[4][4];          // q_i.k_j and dy_i.v_j
+  fma_tile::zero(sa);
+  fma_tile::zero(dm);
+  for (int n0 = 0; n0 < N; n0 += ST) {
+    const int nw = min(ST, N - n0);
+    stage_rows(as, q + n0, ck, i0, ni, nw, BT, LDS, q_sb, q_ss, q_sh);
+    stage_rows(bs, k + n0, ck, j0, nj, nw, BT, LDS, k_sb, k_ss, k_sh);
+    __syncthreads();
+    mm(sa, as, LDS, 1, bs, 1, LDS, nw);
+    __syncthreads();
+  }
+  for (int p0 = 0; p0 < P; p0 += ST) {
+    const int pw = min(ST, P - p0);
+    stage_rows(as, dy + p0, ck, i0, ni, pw, BT, LDS, vsb, vss, P);
+    stage_rows(bs, v + p0, ck, j0, nj, pw, BT, LDS, vsb, vss, P);
+    __syncthreads();
+    mm(dm, as, LDS, 1, bs, 1, LDS, pw);
+    __syncthreads();
+  }
+  const size_t at = ck.bhc * chunk * chunk + (size_t)i0 * chunk + j0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int ii = ty() + 16 * a, jj = tx() + 16 * c;
+      float m = 0.f, da = 0.f, dl = 0.f;
+      if (ii < ni && jj < nj && j0 + jj <= i0 + ii) {
+        bool live;
+        const float wgt = weight(cum, gs, i0 + ii, j0 + jj, live);
+        m = sa[a][c] * wgt;
+        da = dm[a][c] * wgt;
+        if (live) dl = da * sa[a][c];
+      }
+      if (ii < ni && jj < nj) {
+        dam[at + (size_t)ii * chunk + jj] = da;
+        mat[at + (size_t)ii * chunk + jj] = m;
+      }
+      dls[ii * LDT + jj] = dl;
+    }
+  __syncthreads();
+  // dl's sums over the pair: threads 0-63 a row each, 64-127 a column
+  const int r = threadIdx.x;
+  if (r < BT && r < ni) {
+    float sum = 0.f;
+    for (int jj = 0; jj < BT; ++jj) sum += dls[r * LDT + jj];
+    rp[i0 + r] = sum;
+  } else if (r >= BT && r < 2 * BT && r - BT < nj) {
+    float sum = 0.f;
+    for (int ii = 0; ii < BT; ++ii) sum += dls[ii * LDT + r - BT];
+    cp[j0 + r - BT] = sum;
+  }
+}
+
+// (3) rows, sliced: one block per (chunk, head, row tile, N slice): dq_i
+// over the slice, sum_j dA_ij k_j + wq_i H_{c-1} dy_i, and rsum's partial
+// of the slice, [cum_i < 30] wq_i q_i.(H_{c-1} dy_i) over its columns.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ssm_bwd_rows_sliced_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ ld,
+    const float* __restrict__ lg, const float* __restrict__ dy,
+    const float* __restrict__ hprev, const float* __restrict__ dam, T* __restrict__ dq,
+    float* __restrict__ rpart, int S, int H, int N, int P, int chunk, int C, int q_sb,
+    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh) {
+  const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const int i0 = blockIdx.y * BT, ni = min(BT, ck.nrow - i0);
+  if (ni <= 0) return;   // padding rows only: nothing to write
+  const int sl = blockIdx.z, n0 = sl * ST, nw = min(ST, N - n0);
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                 // (MAX_CHUNK,)
+  float* gs = cum + MAX_CHUNK;
+  float* qs = gs + MAX_CHUNK;        // (BT, LDS) q's slice, rows i
+  float* ks = qs + BT * LDS;         // (BT, LDS) k's slice, rows j
+  float* dys = ks + BT * LDS;        // (BT, LDS) a slice of dy, rows i
+  float* hs = dys + BT * LDS;        // (ST, LDS) H_{c-1}: the N slice by a P slice
+  float* dat = hs + ST * LDS;        // (BT, LDT) dA: rows i by rows j
+  load_decay(cum, gs, ld, lg, ck, S, H, chunk);
+  const size_t vsb = (size_t)S * H * P, vss = (size_t)H * P;
+  stage_rows(qs, q + n0, ck, i0, ni, nw, BT, LDS, q_sb, q_ss, q_sh);
+  float dq_acc[4][4];
+  fma_tile::zero(dq_acc);
+  for (int j0 = 0; j0 <= i0; j0 += BT) {
+    const int nj = min(BT, ck.nrow - j0);
+    __syncthreads();   // the last tile is consumed
+    stage_rows(ks, k + n0, ck, j0, nj, nw, BT, LDS, k_sb, k_ss, k_sh);
+    fma_tile::stage(dat, dam + ck.bhc * chunk * chunk + (size_t)i0 * chunk + j0, chunk, ni,
+                    nj, BT, LDT);
+    __syncthreads();
+    mm(dq_acc, dat, LDT, 1, ks, LDS, 1, nj);   // dq += dA K
+  }
+  // inter-chunk: z_i = H_{c-1} dy_i over the slice's rows of H, summed
+  // over P slice by slice
+  float z[4][4];
+  fma_tile::zero(z);
+  for (int p0 = 0; p0 < P; p0 += ST) {
+    const int pw = min(ST, P - p0);
+    __syncthreads();
+    stage_rows(dys, dy + p0, ck, i0, ni, pw, BT, LDS, vsb, vss, P);
+    fma_tile::stage(hs, hprev + ck.bhc * N * P + (size_t)n0 * P + p0, (size_t)P, nw, pw, ST,
+                    LDS);
+    __syncthreads();
+    mm(z, dys, LDS, 1, hs, 1, LDS, pw);   // (i, n) = sum_p dy_i[p] H[n][p]
+  }
+  const float none[4] = {0.f, 0.f, 0.f, 0.f};   // dl's row sums come from (S)
+  dq_inter(dq_acc, z, qs, LDS, cum, i0, ni, none,
+           rpart + (ck.bhc * parts_of(N, chunk).nr + sl) * chunk);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int ii = ty() + 16 * a, n = tx() + 16 * c;
+      if (ii < ni && n < nw)
+        dq[(((size_t)ck.b * S + ck.c0 + i0 + ii) * H + ck.h) * N + n0 + n] =
+            from_f<T>(dq_acc[a][c]);
+    }
+}
+
+// (4) cols, sliced: one block per (chunk, head, row tile, slice), the
+// slices N's (dk) then P's (dv).  dk_j over an N slice: sum_{i >= j} dA_ij
+// q_i + wk_j G_c v_j, with lk's partial of the slice, [.. < 30] wk_j
+// k_j.(G_c v_j) over its columns; dv_j over a P slice: sum_{i >= j} M_ij
+// dy_i + wk_j G_c^T k_j.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ssm_bwd_cols_sliced_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ lg, const float* __restrict__ dy,
+    const float* __restrict__ gbuf, const float* __restrict__ dam,
+    const float* __restrict__ mat, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ lpart, int S, int H, int N, int P, int chunk, int C, int q_sb,
+    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh) {
+  const Chunk ck = chunk_of(blockIdx.x, H, C, S, chunk);
+  const int j0 = blockIdx.y * BT, nj = min(BT, ck.nrow - j0);
+  if (nj <= 0) return;
+  const int ns = slices(N), sl = blockIdx.z;
+  const bool is_k = sl < ns;                  // dk's N slice, else dv's P slice
+  const int x0 = (is_k ? sl : sl - ns) * ST, xw = min(ST, (is_k ? N : P) - x0);
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                 // (MAX_CHUNK,)
+  float* gs = cum + MAX_CHUNK;
+  float* xs = gs + MAX_CHUNK;        // (BT, LDS) q's (dy's) slice, rows i
+  float* ts = xs + BT * LDS;         // (BT, LDT) dA (M): rows i by rows j
+  float* ys = ts + BT * LDT;         // (BT, LDS) a slice of v (k), rows j
+  float* gsm = ys + BT * LDS;        // (ST, LDS) G_c: an N slice by a P slice
+  float* ks = gsm + ST * LDS;        // (BT, LDS) k's slice, rows j (dk)
+  load_decay(cum, gs, ld, lg, ck, S, H, chunk);
+  const size_t vsb = (size_t)S * H * P, vss = (size_t)H * P;
+  if (is_k) stage_rows(ks, k + x0, ck, j0, nj, xw, BT, LDS, k_sb, k_ss, k_sh);
+  const float* tsrc = (is_k ? dam : mat) + ck.bhc * chunk * chunk + j0;
+  float acc[4][4];
+  fma_tile::zero(acc);
+  for (int i0 = j0; i0 < ck.nrow; i0 += BT) {
+    const int ni = min(BT, ck.nrow - i0);
+    __syncthreads();   // the last tile is consumed
+    if (is_k)
+      stage_rows(xs, q + x0, ck, i0, ni, xw, BT, LDS, q_sb, q_ss, q_sh);
+    else
+      stage_rows(xs, dy + x0, ck, i0, ni, xw, BT, LDS, vsb, vss, P);
+    fma_tile::stage(ts, tsrc + (size_t)i0 * chunk, chunk, ni, nj, BT, LDT);
+    __syncthreads();
+    mm(acc, ts, 1, LDT, xs, LDS, 1, ni);   // (j, x) += sum_i T[i][j] X[i][x]
+  }
+  // the chunk summary S_c = sum_j wk_j k_j v_j^T: dk_j += wk_j G_c v_j over
+  // P slice by slice, dv_j += wk_j G_c^T k_j over N slice by slice
+  float g[4][4];
+  fma_tile::zero(g);
+  const float* gb = gbuf + ck.bhc * N * P;
+  for (int y0 = 0; y0 < (is_k ? P : N); y0 += ST) {
+    const int yw = min(ST, (is_k ? P : N) - y0);
+    __syncthreads();
+    if (is_k) {
+      stage_rows(ys, v + y0, ck, j0, nj, yw, BT, LDS, vsb, vss, P);
+      fma_tile::stage(gsm, gb + (size_t)x0 * P + y0, (size_t)P, xw, yw, ST, LDS);
+    } else {
+      stage_rows(ys, k + y0, ck, j0, nj, yw, BT, LDS, k_sb, k_ss, k_sh);
+      fma_tile::stage(gsm, gb + (size_t)y0 * P + x0, (size_t)P, yw, xw, ST, LDS);
+    }
+    __syncthreads();
+    if (is_k)
+      mm(g, ys, LDS, 1, gsm, 1, LDS, yw);   // (j, n) = sum_p v_j[p] G[n][p]
+    else
+      mm(g, ys, LDS, 1, gsm, LDS, 1, yw);   // (j, p) = sum_n k_j[n] G[n][p]
+  }
+  const float total = cum[chunk - 1];
+  float* lp = lpart + (ck.bhc * ns + sl) * chunk;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int jj = ty() + 16 * a, j = j0 + min(jj, nj - 1);
+    const float lk = total - cum[j] + gs[j];
+    const float wk = expf(fminf(lk, 30.f));
+    float dwk = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (is_k) dwk = fmaf(ks[jj * LDS + tx() + 16 * c], g[a][c], dwk);
+      acc[a][c] = fmaf(wk, g[a][c], acc[a][c]);
+    }
+    dwk = row_sum(dwk);
+    if (is_k && tx() == 0 && jj < nj) lp[j] = lk < 30.f ? dwk * wk : 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int jj = ty() + 16 * a, x = tx() + 16 * c;
+      if (jj >= nj || x >= xw) continue;
+      const size_t row = ((size_t)ck.b * S + ck.c0 + j0 + jj) * H + ck.h;
+      if (is_k)
+        dk[row * N + x0 + x] = from_f<T>(acc[a][c]);
+      else
+        dv[row * P + x0 + x] = from_f<T>(acc[a][c]);
+    }
+}
+
+size_t scores_smem() {
+  return (2 * MAX_CHUNK + 2 * BT * LDS + BT * LDT) * sizeof(float);
+}
+// (3) and (4), sliced: three (BT, LDS) row slices, a (ST, LDS) state
+// slice and a (BT, LDT) tile each
+size_t walk_smem() {
+  return (2 * MAX_CHUNK + 3 * BT * LDS + ST * LDS + BT * LDT) * sizeof(float);
+}
+
+template <typename T>
+int launch_sliced(const void* q, const void* k, const void* v, const float* ld,
+                  const float* lg, const float* h0, const float* dy, const float* dfin,
+                  void* dq, void* dk, void* dv, float* dld, float* dlg, float* dh0,
+                  float* scratch, int B, int S, int H, int N, int P, int chunk, int q_sb,
+                  int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream) {
+  const int C = (S + chunk - 1) / chunk, NP = N * P;
+  const int nb = (NP + THREADS - 1) / THREADS, tiles = (chunk + BT - 1) / BT;
+  const Parts np = parts_of(N, chunk);
+  const size_t bhc = (size_t)B * H * C;
+  float* sums = scratch;                 // (B, H, C, N, P): S_c, then H_{c-1}
+  float* ubuf = sums + bhc * NP;         // (B, H, C, N, P): U_c, then G_c
+  float* totals = ubuf + bhc * NP;       // (B, H, C)
+  float* dtp = totals + bhc;             // (B, H, C, nb * 8): the warps' shares of dT_c
+  float* rpart = dtp + bhc * nb * (THREADS / 32);   // (B, H, C, nr, chunk)
+  float* cpart = rpart + bhc * np.nr * chunk;       // (B, H, C, nc, chunk)
+  float* lpart = cpart + bhc * np.nc * chunk;       // (B, H, C, nl, chunk)
+  float* dam = lpart + bhc * np.nl * chunk;         // (B, H, C, chunk, chunk): dA
+  float* mat = dam + bhc * chunk * chunk;           // (B, H, C, chunk, chunk): M
+  const size_t s1 = sums_smem(ST, chunk), s2 = scores_smem(), s3 = walk_smem(), s4 = s3;
+  int err = allow_smem(ssm_bwd_sums_kernel<T, ST>, s1);
+  if (!err) err = allow_smem(ssm_bwd_scores_kernel<T>, s2);
+  if (!err) err = allow_smem(ssm_bwd_rows_sliced_kernel<T>, s3);
+  if (!err) err = allow_smem(ssm_bwd_cols_sliced_kernel<T>, s4);
+  if (err) return err;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  ssm_bwd_sums_kernel<T, ST><<<dim3((unsigned)bhc, slices(N) * slices(P)), THREADS, s1,
+                               stream>>>(qt, kt, vt, ld, lg, dy, sums, ubuf, totals, S, H, N,
+                                         P, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  ssm_bwd_pass_kernel<<<dim3(B * H, nb), THREADS, 0, stream>>>(sums, ubuf, totals, h0, dfin,
+                                                               dh0, dtp, nullptr, nullptr, C,
+                                                               NP);
+  ssm_bwd_scores_kernel<T><<<dim3((unsigned)bhc, tiles * tiles), THREADS, s2, stream>>>(
+      qt, kt, vt, ld, lg, dy, dam, mat, rpart, cpart, S, H, N, P, chunk, C, q_sb, q_ss, q_sh,
+      k_sb, k_ss, k_sh);
+  ssm_bwd_rows_sliced_kernel<T><<<dim3((unsigned)bhc, tiles, slices(N)), THREADS, s3,
+                                  stream>>>(qt, kt, ld, lg, dy, sums, dam,
+                                            static_cast<T*>(dq), rpart, S, H, N, P, chunk, C,
+                                            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  ssm_bwd_cols_sliced_kernel<T><<<dim3((unsigned)bhc, tiles, slices(N) + slices(P)), THREADS,
+                                  s4, stream>>>(qt, kt, vt, ld, lg, dy, ubuf, dam, mat,
+                                                static_cast<T*>(dk), static_cast<T*>(dv),
+                                                lpart, S, H, N, P, chunk, C, q_sb, q_ss, q_sh,
+                                                k_sb, k_ss, k_sh);
+  ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(
+      rpart, cpart, lpart, dtp, dld, dlg, S, H, chunk, C, nb * (THREADS / 32), np.nr, np.nc,
+      np.nl);
   return (int)cudaGetLastError();
 }
 
@@ -601,6 +984,9 @@ int launch_w(const void* q, const void* k, const void* v, const float* ld, const
              float* dld, float* dlg, float* dh0, float* scratch, int B, int S, int H, int N,
              int P, int chunk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
              cudaStream_t stream) {
+  if (sliced(N, P))
+    return launch_sliced<T>(q, k, v, ld, lg, h0, dy, dfin, dq, dk, dv, dld, dlg, dh0, scratch,
+                            B, S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream);
   if (width_class(N, P) == 64)
     return launch<T, 64>(q, k, v, ld, lg, h0, dy, dfin, dq, dk, dv, dld, dlg, dh0, scratch, B,
                          S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream);
@@ -1165,8 +1551,8 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
   ssm_bwd_cols_mma_kernel<N, P><<<(unsigned)bhc, TC_THREADS, s3, stream>>>(
       qb, kb, vb, ld, lg, dy, gin, static_cast<bf16*>(dk), static_cast<bf16*>(dv), csum, lks, S,
       H, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
-  ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(rsum, csum, lks, dtp, dld, dlg, S,
-                                                          H, chunk, C, nb * (THREADS / 32));
+  ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(
+      rsum, csum, lks, dtp, dld, dlg, S, H, chunk, C, nb * (THREADS / 32), 1, 1, 1);
   return (int)cudaGetLastError();
 }
 
@@ -1175,16 +1561,23 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
 }  // namespace
 
 // Shared memory the largest of a body's blocks uses, in bytes (body 0 =
-// FMA, 1 = "mma"), or -1 for N or P over 128, or a width the "mma" body
-// has no instance of; the wrapper checks it before it launches.
+// FMA, 1 = "mma"), or -1 for a width no layout of the body takes: the
+// "mma" body's widths are its instances; the FMA body takes any N and P
+// (over 128 in slices) whose N x P state the pass can spread over its
+// grid.  The wrapper checks it before it launches.
 extern "C" int ssm_backward_smem_bytes(int body, int N, int P, int chunk) {
-  if (N > 128 || P > 128) return -1;
+  if (N < 1 || P < 1 || ((size_t)N * P + THREADS - 1) / THREADS > 65535) return -1;
   if (body == 1) {
     if (N != P || (N != 16 && N != 32 && N != 64 && N != 128)) return -1;
     return bmma::tile_bytes(N, P, (chunk + 15) & ~15);
   }
-  const int wn = width_class(N, P);
-  size_t a = sums_smem(wn, chunk), b = rows_smem(wn), c = cols_smem(wn);
+  size_t a, b, c;
+  if (sliced(N, P)) {
+    a = sums_smem(ST, chunk), b = scores_smem(), c = walk_smem();
+  } else {
+    const int wn = width_class(N, P);
+    a = sums_smem(wn, chunk), b = rows_smem(wn), c = cols_smem(wn);
+  }
   size_t m = a > b ? a : b;
   return (int)(m > c ? m : c);
 }
@@ -1195,9 +1588,11 @@ extern "C" int ssm_backward_smem_bytes(int body, int N, int P, int chunk) {
 // dq, dk (B, S, H, N) and dv (B, S, H, P) in the inputs' dtype, dld, dlg
 // (B, S, H) fp32 and (when h0 is given) dh0 (B, H, N, P) fp32.  scratch:
 // 2 B H C N P + B H C (1 + 8 cdiv(N P, 256) + 3 chunk) floats, C = cdiv(S,
-// chunk), and for body 1 ("mma": bf16, N = P in {16, 32, 64, 128}; q, k,
-// v, dy and scratch 16-byte aligned) 2 B H C N P floats more.  chunk <=
-// 128, N and P <= 128.  Returns 0 or the CUDA error of a launch.
+// chunk); for body 1 ("mma": bf16, N = P in {16, 32, 64, 128}; q, k, v, dy
+// and scratch 16-byte aligned) 2 B H C N P floats more; for the FMA body
+// at N or P over 128 (in slices) B H C (2 cdiv(chunk, 64) + 2 cdiv(N,
+// 64)) chunk floats in place of B H C 3 chunk, and B H C 2 chunk^2 more.
+// chunk <= 128 (and at most S).  Returns 0 or the CUDA error of a launch.
 extern "C" int ssm_scan_backward(const void* q, const void* k, const void* v, const void* ld,
                                  const void* lg, const void* h0, const void* dy,
                                  const void* dfin, void* dq, void* dk, void* dv, void* dld,
@@ -1205,7 +1600,8 @@ extern "C" int ssm_scan_backward(const void* q, const void* k, const void* v, co
                                  int H, int N, int P, int chunk, int q_sb, int q_ss, int q_sh,
                                  int k_sb, int k_ss, int k_sh, int body, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (chunk < 1 || chunk > MAX_CHUNK || N > 128 || P > 128) return (int)cudaErrorInvalidValue;
+  if (chunk < 1 || chunk > MAX_CHUNK || ssm_backward_smem_bytes(body, N, P, chunk) < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };

@@ -15,10 +15,12 @@ The backward is the CUDA kernel ``csrc/ssm_scan_backward.cu`` beside its
 plain version, with two bodies by the same rule
 (:func:`backward_body_for`): every call whose forward ran on ``mma`` takes
 its gradient on the tensor cores too (``mma``: the fp32 operands as bf16
-hi + lo pairs), the rest on FMA, for N and P up to 128.  :func:`ssm_scan` is
-differentiable: a call whose inputs require grad goes through
-:class:`_SsmScan`; every other call -- the serving paths -- launches the
-forward as it is."""
+hi + lo pairs), the rest on FMA, which stages whole rows of N and P up to
+128 and walks wider ones in slices of 64 columns (:func:`backward_sliced`:
+xlstm-125m's mLSTM, N = 384, P = 385), so any width fits.
+:func:`ssm_scan` is differentiable: a call whose inputs require grad goes
+through :class:`_SsmScan`; every other call -- the serving paths --
+launches the forward as it is."""
 from __future__ import annotations
 
 import ctypes
@@ -37,6 +39,7 @@ _BWD_THREADS = 256            # csrc/ssm_scan_backward.cu's block
 MAX_CHUNK = 128
 SMEM_LIMIT = 232_448          # shared memory one block may use on Hopper
 MMA_WIDTHS = (16, 32, 64, 128)    # the tensor-core body's instances, N = P
+SLICE = 64                    # columns of N or P the sliced backward stages at a time
 
 
 def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -57,8 +60,33 @@ def backward_body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     forward's rule (:func:`body_for`), so a call whose forward ran on
     ``"mma"`` has its backward there too: ``"mma"`` for bf16 q/k/v at N =
     P in ``MMA_WIDTHS``, each 16-byte aligned; ``"fma"`` for everything
-    else, every fp32 call among them."""
+    else, every fp32 call and every call at N or P over 128 (walked in
+    slices, :func:`backward_sliced`) among them."""
     return body_for(q, k, v)
+
+
+def backward_sliced(N: int, P: int) -> bool:
+    """Whether the backward's FMA body walks N and P in slices of
+    ``SLICE`` columns (N or P over 128), computing the chunk's scores once
+    into scratch, rather than staging whole rows."""
+    return N > 128 or P > 128
+
+
+def _backward_scratch(body: str, B, S, H, N, P, chunk) -> int:
+    """Floats of the backward's scratch (``csrc/ssm_scan_backward.cu``'s
+    layout): S_c then H_{c-1}, U_c then G_c (B, H, C, N, P); totals (B, H,
+    C); the state pass's per-warp shares of dT (B, H, C, 8 cdiv(N P,
+    256)); the row sums, column sums and summary terms (B, H, C, chunk),
+    one partial each, or, sliced, one a slice of N (rsum, lk) and a row
+    tile (rsum, csum), with dA and (QK^T o W) (B, H, C, chunk, chunk);
+    "mma" first H_{c-1} and G_c as bf16 hi / lo pairs (B, H, C, 2, N, P)."""
+    bhc = B * H * -(-S // chunk)
+    shares = -(-(N * P) // _BWD_THREADS) * (_BWD_THREADS // 32)
+    rows = 3 * chunk
+    if body == "fma" and backward_sliced(N, P):
+        rows = (2 * -(-chunk // SLICE) + 2 * -(-N // SLICE)) * chunk + 2 * chunk * chunk
+    pairs = 2 * bhc * N * P if body == "mma" else 0
+    return pairs + bhc * (2 * N * P + 1 + shares + rows)
 
 
 def _launch(q, k, v, log_decay, log_gate, *, chunk=128, initial_state=None,
@@ -174,11 +202,10 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
     lib = build.load("ssm_scan_backward", _BWD_ARGTYPES)
     smem = lib.ssm_backward_smem_bytes(int(body == "mma"), N, P, chunk)
     if not 0 <= smem <= SMEM_LIMIT:
-        raise ValueError(f"the backward takes N and P up to 128 in at most "
-                         f"{SMEM_LIMIT} bytes of shared memory a block: N={N} P={P} "
-                         f"chunk {chunk} ({smem}); wider scans (xlstm-125m's "
-                         f"mLSTM, N=384 P=385) get their backward with the "
-                         f"ssm family's training, the next part of the port")
+        raise ValueError(f"ssm_scan_backward: no layout of the {body!r} body takes "
+                         f"N={N} P={P} at chunk {chunk} (shared memory {smem}; -1: "
+                         f"the state's N x P over the pass's grid, or a width the body "
+                         f"has no instance of; a block may use {SMEM_LIMIT} bytes)")
     if body == "mma" and dy.data_ptr() % 16:
         dy = dy.clone()     # the body reads dy in 16-byte pieces
     strides = q.stride()[:3] + k.stride()[:3]
@@ -191,14 +218,7 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
     d_decay = torch.empty((B, S, H), dtype=torch.float32, device=dev)
     d_gate = torch.empty((B, S, H), dtype=torch.float32, device=dev)
     d_init = None if initial_state is None else torch.empty_like(initial_state)
-    # S_c then H_{c-1}, U_c then G_c (B, H, C, N, P); totals (B, H, C); the
-    # state pass's per-warp shares of dT (B, H, C, 8 cdiv(N P, 256)); row
-    # sums, column sums and summary terms (B, H, C, chunk); "mma" first
-    # H_{c-1} and G_c as bf16 hi / lo pairs (B, H, C, 2, N, P) each
-    bhc = B * H * -(-S // chunk)
-    shares = -(-(N * P) // _BWD_THREADS) * (_BWD_THREADS // 32)
-    pairs = 2 * bhc * N * P if body == "mma" else 0
-    scratch = torch.empty(pairs + bhc * (2 * N * P + 1 + shares + 3 * chunk),
+    scratch = torch.empty(_backward_scratch(body, B, S, H, N, P, chunk),
                           dtype=torch.float32, device=dev)
     BACKWARD.count_launch(body)
     err = lib.ssm_scan_backward(

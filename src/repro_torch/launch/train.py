@@ -1,10 +1,10 @@
 """Training launcher for the PyTorch/CUDA port (counterpart of
 ``repro/launch/train.py``, with ``--device``): the ported Trainer on one
 card, every weight product of the forward and backward through the K7
-matmul kernel, attention through K4 and (zamba2's Mamba-2 layers) the
-scan through K5, each with its backward kernel.  Prints the first and
-last loss, the step time, tokens/s, tokens/s/W against the card's power
-limit and the peak device memory.  It feeds ``SyntheticTokens``, as the
+matmul kernel, attention through K4 and (zamba2's Mamba-2 layers,
+xlstm's mLSTM blocks) the scan through K5, each with its backward
+kernel.  Prints the first and last loss, the step time, tokens/s,
+tokens/s/W against the card's power limit and the peak device memory.  It feeds ``SyntheticTokens``, as the
 reference's does; GoogLeNet, whose forward reads images, trains as the
 reference trains it: ``Trainer(cfg, iter(SyntheticImages(...)), tc)``
 (``chip_smoke.py`` phase 22c), every conv through K6 and its backward.
@@ -20,6 +20,13 @@ the launcher's default is 1, as the reference's):
   # zamba2-1.2b at full width, 3 steps of 8 x 512 in 8 microbatches:
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --steps 3 --batch 8 --seq 512 --accum 8
+  # xlstm-125m at full width (9 mLSTM blocks, their scans through K5 and
+  # its sliced backward; 3 sLSTM blocks), 3 steps of 8 x 512 in 8
+  # microbatches, or on the CPU at smoke size:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --steps 3 --batch 8 --seq 512 --accum 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --smoke --device cpu --steps 20 --batch 4 --seq 16
 """
 from __future__ import annotations
 

@@ -2,18 +2,28 @@
 mLSTM (matrix memory, chunkwise-parallel) and the sLSTM (scalar memory with
 recurrent weights, sequential).
 
-The mLSTM is a decayed outer-product recurrence, so its prefill
-(:func:`mlstm_forward`) runs the chunked scan through
+The mLSTM is a decayed outer-product recurrence, so its prefill and its
+training forward (:func:`mlstm_forward`) run the chunked scan through
 :func:`repro_torch.kernels.ssm_scan.ops.ssm_scan` -- the hand-written CUDA
 kernel (K5) on the card, its plain version on the CPU -- where the
 reference calls the scan's oracle, ``chunked_linear_attn``.  The
 max(|n.q|, 1) normalizer comes from a ones column appended to v, so the
 scan runs at P = head width + 1 (xlstm-125m: N = 384, P = 385, on K5's
-FMA body).  Decode (:func:`mlstm_step`) is one recurrence step in plain
-PyTorch, as in the reference, which has no kernel for it.
+FMA body).  In training, once q, k or v requires grad, the scan goes
+through ``_SsmScan`` and its gradient through K5's backward kernel, whose
+FMA body walks N and P in slices at these widths; the ones column's
+gradient carries d den into q, k and both gates, and ``_with_ones``'s
+concatenation hands v's gradient back without it.  Decode
+(:func:`mlstm_step`) is one recurrence step in plain PyTorch, as in the
+reference, which has no kernel for it.
 
 The sLSTM's hidden-to-gate recurrence runs as a loop of cell steps, the
-reference's ``lax.scan`` (no Pallas kernel there).  Its head-block-diagonal
+reference's ``lax.scan`` (no Pallas kernel there); in training autograd
+differentiates the loop as JAX differentiates the scan, each step's
+recurrent product through K7's backward (dX and dW; the first step's h is
+a constant, so dW alone there).  ``r``'s gradient reaches it through
+:func:`recurrent_weight`'s einsum, which keeps only the diagonal
+blocks.  Its head-block-diagonal
 recurrent product goes through K7 as one launch a step on the
 block-diagonal (D, 4 D) weight, built once a call by
 :func:`recurrent_weight`: one launch reads 4x the weight's nonzeros but

@@ -5,9 +5,14 @@ block with its own pre-norm and residual; a list of blocks, unrolled, as
 the reference's.
 
 Kernels on the path (the CUDA kernels on the card, their plain versions on
-the CPU): every mLSTM prefill's scan through ``ssm_scan`` (K5, one launch a
-block and prompt) and every weight product through ``matmul`` (K7).  The
-reference computes the scan with its plain ``chunked_linear_attn``.
+the CPU): every mLSTM prefill's and training forward's scan through
+``ssm_scan`` (K5, one launch a block and prompt or microbatch; in training
+its backward kernel once more) and every weight product through
+``matmul`` (K7, and its backward in training).  The reference computes
+the scan with its plain ``chunked_linear_attn``.  :func:`forward` is the
+training forward (``registry._rc_forward``): like the reference's it
+ignores ``remat`` and ``chunk``, so nothing is recomputed in the
+backward.
 
 Decode state: ``{"states": [MLSTMState | SLSTMState, ...], "length": (B,)
 int32}``, O(1) in the sequence length.  :func:`decode_step` returns new
@@ -46,6 +51,26 @@ def lm_table(cfg):
         "blocks": blocks,
         "ln_f": norm_table(cfg),
     }
+
+
+def training_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one training microbatch of ``seq`` tokens,
+    forward and backward, from the config: ``ssm_scan`` (K5) and its
+    backward once an mLSTM block; ``matmul`` (K7) for every weight product
+    -- seven an mLSTM block (up, q, k, v, w_i, w_f, down), four an sLSTM
+    block (w_in, up_gate, up, down) and its recurrent product once a token,
+    the LM head -- and twice again in the backward (dX, dW), but for the
+    first cell step's recurrent product, whose h is a constant (dW alone).
+    K7's come as ``"wide"`` (the mLSTM's up, q, k, v and down, the sLSTM's
+    four: bf16 operands TMA reads, so K7's tensor-core route at bf16
+    compute) and ``"narrow"`` (w_i and w_f, 4 columns; the fp32 recurrent
+    products; the fp32 LM head: its FMA route at any compute)."""
+    n_s = sum(_is_slstm(cfg, i) for i in range(cfg.num_layers))
+    n_m = cfg.num_layers - n_s
+    wide = 5 * n_m + 4 * n_s
+    narrow = 2 * n_m + seq * n_s + 1
+    return {"ssm_scan": n_m, "ssm_scan_backward": n_m,
+            "matmul": {"wide": 3 * wide, "narrow": 3 * narrow - n_s}}
 
 
 def init(cfg, generator: torch.Generator):
@@ -87,7 +112,9 @@ def _apply(cfg, params, tokens, *, states=None, step=False, collect=False):
 
 
 def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
-    """tokens (B, S) -> full logits (B, S, V) fp32 and the aux loss (0)."""
+    """tokens (B, S) -> full logits (B, S, V) fp32 and the aux loss (0):
+    the training forward, differentiable through K5 and K7 (``remat``
+    and ``chunk`` ignored, as the reference's)."""
     del positions, remat, chunk
     x, _ = _apply(cfg, params, tokens)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,

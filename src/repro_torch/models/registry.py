@@ -20,9 +20,9 @@ family, ``:121-140``, and the cnn family, ``:164-173``).
   init_decode_state(cfg, batch, max_len, cache_dtype, device=...)
                                                 -> contiguous decode state
   forward(cfg, params, batch, ...)              -> (logits, aux_loss)
-    (dense and hybrid: ``batch`` holds ``tokens`` [and ``positions``],
-    logits (B, S, V); cnn: ``batch`` holds ``images``, logits (B,
-    classes))
+    (dense, hybrid and ssm: ``batch`` holds ``tokens`` [and
+    ``positions``], logits (B, S, V); cnn: ``batch`` holds ``images``,
+    logits (B, classes)); the training forward of every family
 
 A family serves from the paged pool when it has ``init_paged_state``, and
 from contiguous caches when it has ``init_decode_state``; the dense family
@@ -122,6 +122,8 @@ HYBRID_FNS = ModelFns("hybrid", hybrid.init, _hy_decode, None, None,
 
 
 def _rc_forward(cfg, params, batch, *, remat=True, chunk=1024):
+    """The ssm family's training forward; ``remat`` and ``chunk`` are
+    ignored, as the reference's ``_rc_forward`` ignores them."""
     del remat, chunk
     return recurrent.forward(cfg, params, batch["tokens"])
 

@@ -9,7 +9,10 @@ with the distributed slice: here ``on_device_loss`` is called, then the
 state restored, as for a crash.
 
 It trains the dense family (the transformer LMs), the hybrid (zamba2:
-K5 and K4 with their backward kernels) and the CNN (GoogLeNet, fed by
+K5 and K4 with their backward kernels), the ssm family (xlstm-125m: each
+mLSTM block's scan through K5 and its backward, N and P walked in slices
+there, the sLSTM's cell steps differentiated by autograd, every weight
+product through K7 and its backward) and the CNN (GoogLeNet, fed by
 ``SyntheticImages`` as the reference's is: every convolution through K6
 and its backward kernel).  State lives on ``TrainerConfig.device``, the
 card by default.
@@ -30,7 +33,7 @@ from repro_torch.models.registry import fns_for
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.training.train_step import make_train_step
 
-TRAINED_FAMILIES = ("dense", "hybrid", "cnn")
+TRAINED_FAMILIES = ("dense", "hybrid", "ssm", "cnn")
 
 
 def _default_ckpt_dir() -> str:

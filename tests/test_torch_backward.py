@@ -88,12 +88,13 @@ SCAN_CASES = [  # (S, gate, initial state and d_final, a gate past the clamp)
     (64, True, False, True)]
 
 
-@pytest.mark.parametrize("S,gate,state,clamp", SCAN_CASES)
-def test_scan_backward_matches_jax_vjp(S, gate, state, clamp):
-    q, k, v, ld, lg, h0, dy, df = _scan_operands(S, gate=gate, clamp=clamp)
+def _scan_backward_vs_jax_vjp(operands, state, chunk):
+    """The plain backward against ``jax.vjp`` of the reference scan on the
+    same operands, each gradient within ``RTOL`` of its largest entry."""
+    q, k, v, ld, lg, h0, dy, df = operands
 
     def f(q, k, v, ld, lg, h0):
-        return JS.chunked_linear_attn(q, k, v, ld, lg, chunk=32, initial_state=h0,
+        return JS.chunked_linear_attn(q, k, v, ld, lg, chunk=chunk, initial_state=h0,
                                       return_final_state=True)
     args = [jnp.asarray(a) if a is not None else None for a in (q, k, v, ld, lg)]
     j0 = jnp.asarray(h0) if state else None
@@ -108,15 +109,37 @@ def test_scan_backward_matches_jax_vjp(S, gate, state, clamp):
     jd = vjp((jnp.asarray(dy), jnp.asarray(df) if state else jnp.zeros_like(fin)))
     T = torch.from_numpy
     td = ssm_scan_backward_ref(T(q), T(k), T(v), T(ld), None if lg is None else T(lg),
-                               T(dy), T(df) if state else None, chunk=32,
+                               T(dy), T(df) if state else None, chunk=chunk,
                                initial_state=T(h0) if state else None)
-    assert (td[4] is None) == (not gate) and (td[5] is None) == (not state)
+    assert (td[4] is None) == (lg is None) and (td[5] is None) == (not state)
     td = [t for t in td if t is not None]
     assert len(td) == len(jd)
     for t, j in zip(td, jd):
         assert _rel(t, j) <= RTOL
+
+
+@pytest.mark.parametrize("S,gate,state,clamp", SCAN_CASES)
+def test_scan_backward_matches_jax_vjp(S, gate, state, clamp):
+    operands = _scan_operands(S, gate=gate, clamp=clamp)
+    _scan_backward_vs_jax_vjp(operands, state, 32)
     if clamp:       # a step's own weight exp(min(g, 30)) clamps
-        assert (lg > 30.0).any()
+        assert (operands[4] > 30.0).any()
+
+
+@pytest.mark.parametrize("den_only", [False, True])
+def test_scan_backward_matches_jax_vjp_at_xlstm_widths(den_only):
+    """xlstm-125m's mLSTM widths (N = 384, P = 385: v's last column the
+    normalizer's ones, as ``xlstm._with_ones`` appends it), per-head q/k,
+    chunk 128, S = 200 (two chunks, the second ragged), with h0 and
+    d_final; ``den_only``: dy and d_final zero but in that last column, the
+    gradient of the normalizer alone, which reaches q, k and both gates."""
+    q, k, v, ld, lg, h0, dy, df = _scan_operands(200, seed=5, B=1, H=2, N=384, P=385)
+    q, k = q / 10.0, k / 10.0          # q.k of order 1, as k / sqrt(N) makes it
+    v[..., -1] = 1.0
+    if den_only:
+        dy[..., :-1] = 0.0
+        df[..., :-1] = 0.0
+    _scan_backward_vs_jax_vjp((q, k, v, ld, lg, h0, dy, df), True, 128)
 
 
 @pytest.mark.parametrize("S,state", [(45, True), (64, False)])

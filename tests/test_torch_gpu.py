@@ -56,8 +56,13 @@ body at xlstm-125m's widths (N = 384, P = 385, staged in slices of N) on
 the scan's limit, the same bits launch after launch; K5's bodies keep
 the bits they gave before the FMA body walked N in slices (sha1
 digests); an xlstm-125m prefill and the xlstm smoke engine launch
-exactly the kernels their configs say.  A kernel called on the card with an input that requires
-grad raises, naming where its gradient is (or that it has none).
+exactly the kernels their configs say.  K5's backward at xlstm-125m's
+widths on the FMA body's sliced layout (N and P in slices of 64) on
+``grad_tolerance_ratio``, the normalizer's one-column slice held on its
+own, two launches the same bits; an xlstm-125m training microbatch and a
+2-block full-width fp32 train step against the plain versions.  A
+kernel called on the card with an input that requires grad raises,
+naming where its gradient is (or that it has none).
 """
 import hashlib
 
@@ -69,6 +74,7 @@ from repro_torch.configs import registry as TR
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
 from repro_torch.models.googlenet import conv_shapes
+from repro_torch.models.recurrent import training_launches
 from repro_torch.models.registry import fns_for
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.sampler import greedy
@@ -1431,6 +1437,58 @@ def test_ssm_scan_backward_shared_memory_fits_each_instance(cuda):
     assert lib.ssm_backward_smem_bytes(1, 64, 64, 128) == 99_328
     assert lib.ssm_backward_smem_bytes(1, 32, 48, 128) == -1
     assert 0 < lib.ssm_backward_smem_bytes(0, 32, 48, 128) <= ops.SMEM_LIMIT
+    # xlstm-125m's widths on the FMA body's sliced layout (any N and P whose
+    # state the pass's grid spreads: 4096 x 4097 does not fit it)
+    assert lib.ssm_backward_smem_bytes(0, 384, 385, 128) == 84_224
+    assert lib.ssm_backward_smem_bytes(1, 384, 385, 128) == -1
+    assert lib.ssm_backward_smem_bytes(0, 4096, 4097, 128) == -1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,with_state", [(512, False), (300, True), (7, True), (200, False)])
+def test_ssm_scan_backward_sliced_body_matches_plain_at_the_mlstm_widths(cuda, dtype, S,
+                                                                         with_state):
+    """K5's backward at xlstm-125m's mLSTM widths (B=1, H=4, N=384, P=385,
+    per-head q/k, chunk 128) routed to the FMA body, which walks N and P in
+    slices of 64 (the last P slice one column wide): ragged S, under one
+    chunk, with and without h0 and d_final; every gradient within
+    ``grad_tolerance_ratio``, two launches the same bits."""
+    from repro_torch.kernels.ssm_scan.ops import backward_body_for, backward_sliced
+    args, h0 = _mlstm_operands(cuda, dtype, S, with_state=with_state, seed=S)
+    g = torch.Generator(cuda).manual_seed(S + 7)
+    dy = torch.randn((1, S, 4, 385), generator=g, device=cuda)
+    df = torch.randn((1, 4, 384, 385), generator=g, device=cuda) if with_state else None
+    bwd = dispatch.kernel_table()["ssm_scan_backward"]
+    assert backward_body_for(*args[:3]) == "fma" and backward_sliced(384, 385)
+    bwd.reset_counts()
+    first = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+    again = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+    ref = bwd.plain(*(t.float() for t in args), dy, df, chunk=128, initial_state=h0)
+    torch.cuda.synchronize()
+    assert bwd.body_launches == {"fma": 2}
+    assert [t is None for t in first] == [t is None for t in ref]
+    assert bwd.tolerance(first, ref) <= 1.0
+    assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_backward_sliced_body_carries_the_normalizer_column(cuda, dtype):
+    """dy and d_final zero but in P's last column, the one-column slice of
+    the normalizer (v's ones): its gradient alone reaches dq, dk, dv's last
+    column and both gates, each within ``grad_tolerance_ratio``, and is
+    not zero."""
+    args, h0 = _mlstm_operands(cuda, dtype, 300, with_state=True, seed=11)
+    g = torch.Generator(cuda).manual_seed(12)
+    dy = torch.zeros((1, 300, 4, 385), device=cuda)
+    dy[..., -1] = torch.randn((1, 300, 4), generator=g, device=cuda)
+    df = torch.zeros((1, 4, 384, 385), device=cuda)
+    df[..., -1] = torch.randn((1, 4, 384), generator=g, device=cuda)
+    bwd = dispatch.kernel_table()["ssm_scan_backward"]
+    out = bwd.launch(*args, dy, df, chunk=128, initial_state=h0)
+    ref = bwd.plain(*(t.float() for t in args), dy, df, chunk=128, initial_state=h0)
+    torch.cuda.synchronize()
+    assert bwd.tolerance(out, ref) <= 1.0
+    assert all(r.abs().max() > 0 for r in ref[:2] + ref[3:5])
 
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):
@@ -1501,6 +1559,87 @@ def test_hybrid_training_step_runs_the_kernels(cuda):
     assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+def _xlstm_counts(cfg, seq):
+    """K5 and its backward by body (N = 384, P = 385: "fma"), and K7's
+    launches, of one xlstm training microbatch of ``seq`` tokens, from
+    ``recurrent.training_launches``."""
+    n = training_launches(cfg, seq)
+    return ({"ssm_scan": {"fma": n["ssm_scan"]},
+             "ssm_scan_backward": {"fma": n["ssm_scan_backward"]}},
+            sum(n["matmul"].values()))
+
+
+def test_xlstm_microbatch_runs_the_sliced_backward(cuda):
+    """One microbatch of xlstm-125m at full width (12 blocks, bf16 compute),
+    1 x 256 tokens: K5 and its backward on "fma" 9 times each, K7 as the
+    config says, no plain call; the loss and every gradient leaf finite."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+    cfg = TR.config("xlstm-125m")
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    batch = {k: torch.as_tensor(v).to(cuda)
+             for k, v in next(SyntheticTokens(cfg, 1, 256, seed=5)).items()}
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    dispatch.reset_counts()
+    loss, _ = make_loss_fn(cfg)(params, batch)
+    grads = torch.autograd.grad(loss, ps)
+    torch.cuda.synchronize()
+    for p in ps:
+        p.requires_grad_(False)
+    table = dispatch.kernel_table()
+    bodies, k7 = _xlstm_counts(cfg, 256)
+    assert bodies == {"ssm_scan": {"fma": 9}, "ssm_scan_backward": {"fma": 9}}
+    assert {n: dict(table[n].body_launches) for n in bodies} == bodies
+    assert table["matmul"].launches == k7
+    assert all(t.plain_calls == 0 for t in table.values())
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_xlstm_training_step_matches_the_plain_versions(cuda):
+    """One fp32 train step of xlstm-125m at full width cut to 2 blocks (an
+    mLSTM, then an sLSTM), 1 x 200 tokens: through the kernels (K5 and its
+    sliced backward, K7 and its backward; exact counts, no plain call) and
+    through the plain versions, the loss within 1e-5 and every gradient
+    leaf but b_i within 1e-3 of its largest entry, as the hybrid step is
+    held; the mLSTM's b_i (d log_gate summed over the sequence: the sum
+    cancels 1e4-1e6 fold, so fp32 rounding moves it ~2e-3 of itself)
+    within 2^-6 of its own largest entry."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizers import adamw, constant, leaves
+    from repro_torch.training.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TR.config("xlstm-125m").replace(compute_dtype="float32", num_layers=2,
+                                          accum_steps=1)
+    batch = next(SyntheticTokens(cfg, 1, 200, seed=1))
+    bodies, k7 = _xlstm_counts(cfg, 200)
+    runs = []
+    for plain in (False, True):
+        params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+        b_i = [p is params["blocks"][0]["core"]["b_i"] for p in leaves(params)]
+        grads = []
+        step = make_train_step(cfg, adamw(constant(1e-3)),
+                               grad_transform=lambda g: grads.append(
+                                   [t.clone() for t in leaves(g)]) or g)
+        dispatch.reset_counts()
+        if plain:
+            with dispatch.plain_versions():
+                _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+        else:
+            _, _, m = step(params, adamw(constant(1e-3)).init(params), batch)
+            table = dispatch.kernel_table()
+            assert {n: dict(table[n].body_launches) for n in bodies} == bodies
+            assert table["matmul"].launches == k7
+            assert all(t.plain_calls == 0 for t in table.values())
+        runs.append((float(m["loss"]), grads[0]))
+    assert np.isfinite(runs[0][0])
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
+    for a, b, bias in zip(runs[0][1], runs[1][1], b_i):
+        assert (a - b).abs().max() <= (2.0 ** -6 if bias else 1e-3) * b.abs().max()
 
 
 def _conv_backward_cases():

@@ -551,11 +551,14 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     for arch in ("deepseek-moe-16b", "whisper-medium"):    # no model functions yet
         with pytest.raises(ValueError, match="is not ported"):
             fns_for(TR.smoke(arch))
-    # the ssm family serves, and trains only once K5's backward takes its widths
+    # the ssm family serves and trains (K5's backward walks N and P in slices)
     assert fns_for(TR.smoke("xlstm-125m")).family == "ssm"
-    with pytest.raises(NotImplementedError, match="training the 'ssm' family is not "
+    tr = Trainer(TR.smoke("xlstm-125m"), data,
+                 TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
+    assert tr.fns.family == "ssm" and tr.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="training the 'moe' family is not "
                                                   "ported"):
-        Trainer(TR.smoke("xlstm-125m"), data,
+        Trainer(TR.smoke("deepseek-moe-16b"), data,
                 TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
