@@ -336,6 +336,30 @@ Phases (each one raises on failure; the script then exits non-zero):
    in fp32, kernels against plain versions at depths 4 and 12
    (``TOL_XLSTM_PATH_REL``).
 
+25. deepseek-moe-16b (28 layers: a first dense layer of d_ff 10944, then
+   64 routed experts of d_ff 1408, top-6, and 2 shared experts; d_model
+   2048, vocab 102400; random weights from seed 0, the product weights
+   drawn a layer at a time and stored in bf16).  25a: K7's batched entry
+   (the E experts' products in one launch) against its plain version on
+   ``K7B_CASES`` -- a 256-row prefill chunk's expert products (64 experts
+   of 30 rows), a decode step's (4 rows), a ragged E, M, N and K, and an
+   fp32 case on the FMA body -- each launched twice for the same bits and
+   timed beside the plain version, one ``torch.bmm`` and the bound.  25b:
+   served at full width and depth, bf16, through the paged engine (4
+   slots, 256-row chunks, phase 4's 8 requests, 32 new tokens each):
+   tok/s, TTFT, TPOT, tok/s/W, peak memory, the pool's 229,376 B a token
+   and a profiled window's busy share; launches exact by body per model
+   call (K7 196 wgmma + 28 FMA, its batched entry 81 wgmma, K2 28 a
+   prefill chunk, K1 28 a decode step); no plain call.  25c: the fp32
+   path check at full width cut to 1 dense + 1 and + 3 MoE layers:
+   phase 6's request through the plain versions (routes recorded), the
+   kernels running free (their route differences and logits printed) and
+   the kernels replaying the plain routes (logits within phase 6's
+   ``TOL_PATH_REL``; each layer's own decision on those upstream routes
+   may differ from the plain run's only where the plain run's smallest
+   neighbouring log-probability gap among the top k + 1 is below
+   ``TOL_MOE_FLIP_GAP``).
+
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
 18 hold its launch counts too (exactly, where the engine's calls fix them;
@@ -351,7 +375,10 @@ K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
 K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d, 21d and 22d, K4's
 backward 15, 21d and 22d, K5 10, 21d, 22d and 23b, K5's backward 21d and
 22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
-18, 19a, 19c, 20a-d, 21d, 22c, 22d and 23b.  K5's entry also carries its
+18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b and 25b, K7's batched entry 25b
+(its entry also carries the decode step's shape: ``decode_ms``,
+``decode_plain_ms``, ``decode_library_ms``, ``decode_bound_ms``,
+``decode_bound_by``, ``decode_shape``).  K5's entry also carries its
 time at xlstm-125m's prefill shape (``xlstm_ms``, ``xlstm_plain_ms``,
 ``xlstm_bound_ms``, ``xlstm_bound_by``, ``xlstm_shape``).  The three backward kernels replace no
 Pallas kernel (the reference differentiates its plain functions and
@@ -641,6 +668,39 @@ CONV_BWD_EXTRA = (((8, 224, 224, 3), (7, 7, 3, 64), 2), ((3, 13, 11, 5), (3, 3, 
                   ((2, 10, 10, 33), (1, 1, 33, 17), 2), ((2, 9, 10, 16), (4, 2, 16, 24), 1))
 GOOGLENET_TRAIN_STEPS, GOOGLENET_BATCH, GOOGLENET_ACCUM = 4, 32, 4
 DOTS_TRAIN_STEPS = 2
+# Phase 25: deepseek-moe-16b (d_model 2048, 28 layers: a first dense layer
+# of d_ff 10944, then 64 routed experts of d_ff 1408, top-6, and 2 shared
+# experts fused into one SwiGLU of d_ff 2816).  K7's batched entry on its
+# expert products, (label, E, M, K, N, dtype): a 256-row prefill chunk
+# gives each expert 30 rows (capacity ceil(256 x 6 x 1.25 / 64)), a decode
+# step of 4 slots 4 rows (capacity 1 a slot); a ragged E, M (13 rows of a
+# 64-row tile), N and K; the fp32 products of phase 25c on the FMA body.
+# The first is the kernels line's; the decode gate/up shape rides along.
+K7B_CASES = (("prefill gate/up", 64, 30, 2048, 1408, "bfloat16"),
+             ("prefill down", 64, 30, 1408, 2048, "bfloat16"),
+             ("decode gate/up", 64, 4, 2048, 1408, "bfloat16"),
+             ("decode down", 64, 4, 1408, 2048, "bfloat16"),
+             ("ragged E=5 M=13 K=520 N=1000", 5, 13, 520, 1000, "bfloat16"),
+             ("fp32 prefill gate/up", 64, 30, 2048, 1408, "float32"))
+# the products of one model call: the dense layer's 7 and each MoE layer's
+# q k v o, router, shared gate / up / down on the 2-D entry; the experts'
+# gate / up / down on the batched entry; the fp32 LM head
+DEEPSEEK_LAYERS, DEEPSEEK_MOE_LAYERS = 28, 27
+DEEPSEEK_K7 = {"wgmma": 7 + 7 * DEEPSEEK_MOE_LAYERS, "fma": DEEPSEEK_MOE_LAYERS + 1}
+DEEPSEEK_K7B = {"wgmma": 3 * DEEPSEEK_MOE_LAYERS}
+DEEPSEEK_KV_BYTES = 2 * DEEPSEEK_LAYERS * 16 * 128 * 2      # K and V, bf16, a token
+# Phase 25c: the fp32 path check at full width cut to 1 dense + 3 MoE
+# layers, gated at depths 2 and 4 by phase 6's limits (TOL_PATH_REL).  On
+# the plain run's upstream routes the kernels' own decision may route a
+# token otherwise only where the plain run's top-(k+1) router
+# probabilities hold a neighbouring pair within this gap of
+# log-probability.  A flip of two experts needs their logits' difference
+# to move by the gap; the two runs' router logits differ by the rounding
+# of h carried through the layers' near-one-hot attention, 7.0e-4 at
+# depth 2 and 2.3e-2 at depth 4 (NVIDIA H100 80GB HBM3), so the gap is
+# twice the latter; a broken expert product moves them by 0.7-1.2.
+MOE_PATH_DEPTHS = (2, 4)
+TOL_MOE_FLIP_GAP = 5e-2
 
 
 def log(*a) -> None:
@@ -1247,11 +1307,13 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
-def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=4, new=16):
+def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=2, new=8):
     """Where the time goes: ``n`` requests of 512 prompt tokens, ``new`` new
     tokens each, under torch.profiler; device time by kernel name and the
     device's busy share of the wall time (one stream, so kernels do not
-    overlap)."""
+    overlap).  Reading the trace back costs ~16x the window, so the window
+    is short: 2 requests of 8 new tokens (a window of 4 of 16 took ~70 s
+    more of the script's time over phases 4, 4b and 17)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
     reqs = [Request(200 + i, rng.integers(0, eng.cfg.vocab_size, size=512)
@@ -4231,8 +4293,9 @@ def pass_times(torch, fn, tag: str, reps: int = 10) -> dict[str, tuple[float, in
     profiler recorded: ``reps`` calls under torch.profiler, the L2 flushed
     before each, the device spinning ~5 ms before the first so every call
     runs inside the collecting window.  Late in the whole script the
-    profiler has still recorded as few as 1-2 of 10 launches, so the mean
-    is over the launches recorded, and their count comes with it."""
+    profiler has still recorded as few as 1-2 of 10 launches, and once
+    none: the mean is over the launches recorded, their
+    count comes with it, and a kernel never recorded is absent."""
     import re
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
@@ -4250,9 +4313,17 @@ def pass_times(torch, fn, tag: str, reps: int = 10) -> dict[str, tuple[float, in
         if m:
             total[m.group(0)] = total.get(m.group(0), 0.0) + ms
             count[m.group(0)] = count.get(m.group(0), 0) + n
-    if not total:
-        raise AssertionError(f"pass_times: the profiler saw no {tag} kernel")
     return {name: (total[name] / count[name], count[name]) for name in total}
+
+
+def launch_times(t: dict) -> str:
+    """:func:`pass_times`' result as a line: each kernel's ms (launches
+    recorded) and their sum, or "not measured" where the profiler recorded
+    none of the launches (late in the whole script it has lost them all)."""
+    if not t:
+        return "not measured (the profiler recorded none of the launches)"
+    return (", ".join(f"{name} {ms:.4f}ms ({n})" for name, (ms, n) in t.items())
+            + f"; sum {sum(ms for ms, _ in t.values()):.4f}ms")
 
 
 def scan_backward_phase(torch, table) -> dict:
@@ -4311,9 +4382,7 @@ def scan_backward_phase(torch, table) -> dict:
     for body in dict.fromkeys((route, "fma")):
         t = pass_times(torch, lambda: bwd.launch(*args, dy, chunk=128, body=body), "ssm_bwd_")
         log(f"ssm_scan_backward {body} body by launch (profiler, 10 calls, L2 flushed; mean "
-            f"over the launches recorded): "
-            + ", ".join(f"{name} {ms:.4f}ms ({n})" for name, (ms, n) in t.items())
-            + f"; sum {sum(ms for ms, _ in t.values()):.4f}ms")
+            f"over the launches recorded): {launch_times(t)}")
     r["max_abs_err"] = max(errs[(torch.bfloat16, route)])
     r["max_abs_err_bf16_fma"] = max(errs[(torch.bfloat16, "fma")])
     r["max_abs_err_fp32"] = max(errs[(torch.float32, "fma")])
@@ -5296,9 +5365,7 @@ def xlstm_scan_backward_phase(torch, table) -> dict:
         f"{out['xlstm_fp32_bound_ms']:.4f}ms)")
     t = pass_times(torch, lambda: bwd.launch(*args, dy, chunk=128), "ssm_bwd_")
     log(f"ssm_scan_backward sliced fma body by launch (profiler, 10 calls, L2 flushed; mean "
-        f"over the launches recorded): "
-        + ", ".join(f"{name} {ms:.4f}ms ({n})" for name, (ms, n) in t.items())
-        + f"; sum {sum(ms for ms, _ in t.values()):.4f}ms")
+        f"over the launches recorded): {launch_times(t)}")
     return out
 
 
@@ -5550,6 +5617,327 @@ def xlstm_training_phase(torch, np, table) -> dict:
     return {n: sum(c.values()) for n, c in got.items()}
 
 
+def k7b_operands(torch, E, M, K, N, dtype, seed=0):
+    """x (E, M, K), w (E, K, N) row-major, w scaled by 1/sqrt(K), as expert
+    weights are."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn((E, M, K), generator=g, device="cuda").to(dt)
+    w = (torch.randn((E, K, N), generator=g, device="cuda") / K ** 0.5).to(dt)
+    return x, w
+
+
+def moe_kernel_phase(torch, table) -> dict:
+    """Phase 25a: K7's batched entry against its plain version (evaluated in
+    fp32 on the same values, ``dispatch.matmul_tolerance_ratio``) on
+    ``K7B_CASES``, each launched twice for the same bits; then each timed
+    beside the plain version, one ``torch.bmm`` on the same operands
+    (cuBLAS; TF32 off) and the bound: the expert weights' bytes (369 MB a
+    deepseek product, 0.110 ms at 3.35 TB/s) and the inputs and outputs."""
+    from repro_torch.kernels.matmul.ops import batched_body_for
+    kern = table["matmul_batched"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timer = Timer(torch, reps=10)
+    out = {}
+    for label, E, M, K, N, dtype in K7B_CASES:
+        x, w = k7b_operands(torch, E, M, K, N, dtype)
+        body = batched_body_for(x, w)
+        want = "fma" if dtype == "float32" else "wgmma"
+        got = kern.launch(x, w)
+        again = kern.launch(x, w)
+        ref = kern.plain(x.float(), w.float())
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs().max().item()
+        ratio = kern.tolerance(got, ref, K)
+        same = bool(torch.equal(got, again))
+        nbytes = x.element_size() * E * (M * K + K * N + M * N)   # each read / written once
+        flops = 2.0 * E * M * K * N
+        r = dict(ms=timer(lambda: kern.launch(x, w)),
+                 plain_ms=timer(lambda: kern.plain(x, w)),
+                 library_ms=timer(lambda: torch.bmm(x, w)),
+                 bytes=nbytes, flops=flops, max_abs_err=err,
+                 shape=f"{label}: E={E} M={M} K={K} N={N} {dtype} body={body}")
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops,
+                                             FP32_FLOPS if dtype == "float32" else BF16_FLOPS)
+        log(f"matmul_batched {r['shape']}: max_abs_err={err:.3e} err/limit={ratio:.3f} "
+            f"same bits twice={same}; kernel {r['ms']:.4f}ms plain {r['plain_ms']:.4f}ms "
+            f"torch.bmm {r['library_ms']:.4f}ms bound {r['bound_ms']:.4f}ms "
+            f"({r['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        if not (ratio <= 1.0 and same and body == want):
+            raise AssertionError(f"matmul_batched {label}: err/limit {ratio}, same bits "
+                                 f"{same}, body {body} (expected {want})")
+        out[label] = r
+        del x, w, got, again, ref
+    res = out[K7B_CASES[0][0]]
+    dec = out["decode gate/up"]
+    res.update(decode_ms=dec["ms"], decode_plain_ms=dec["plain_ms"],
+               decode_library_ms=dec["library_ms"], decode_bound_ms=dec["bound_ms"],
+               decode_bound_by=dec["bound_by"], decode_shape=dec["shape"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"matmul_batched": res}
+
+
+def moe_serving_phase(torch, np, table) -> dict:
+    """Phase 25b: deepseek-moe-16b at full width and depth (28 layers),
+    bf16, through the paged engine: 4 slots, 256-row prefill chunks, phase
+    4's 8 requests, 32 new tokens each.  Launches held exactly by body per
+    model call (a prefill chunk or a decode step): K7 224 (196 wgmma; 28
+    FMA: 27 routers and the fp32 LM head), its batched entry 81 (3 a MoE
+    layer), K2 28 a prefill chunk, K1 28 a decode step; no plain call, no
+    other kernel.  tok/s, TTFT, TPOT, tok/s/W, peak memory, the pool's
+    bytes a token and a profiled window's busy share.  Random weights from
+    seed 0, the product weights drawn a layer at a time and stored in bf16
+    (``init(cast_products=True)``), as the serving launcher loads them."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    name, watts = card_name_and_power_limit()
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = arch_registry.config("deepseek-moe-16b")
+    params = transformer.init(cfg, torch.Generator("cuda").manual_seed(0), cast_products=True)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    init_s, init_gib = time.monotonic() - t0, torch.cuda.max_memory_allocated() / 2**30
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        device="cuda")
+    del params
+    m = cfg.moe
+    log(f"moe serving: deepseek-moe-16b L={cfg.num_layers} (first {m.first_k_dense} dense, "
+        f"d_ff {m.d_ff_dense}) d_model={cfg.d_model} H={cfg.num_heads} K={cfg.num_kv_heads} "
+        f"D={cfg.resolved_head_dim} experts={m.num_experts} top-{m.top_k} d_ff_expert="
+        f"{m.d_ff_expert} shared={m.num_shared_experts} x {m.d_ff_shared} vocab="
+        f"{cfg.vocab_size} params={n_params} (products bf16, router / norms / embedding "
+        f"fp32); init {init_s:.1f}s, peak {init_gib:.2f} GiB after the load")
+    eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                       sampler=greedy())])                           # warm-up
+    reqs = serving_requests(cfg, np, Request, greedy)
+    chunks = [0]
+    prefill_paged = eng._prefill_paged
+
+    def counted_prefill(*a, **kw):
+        chunks[0] += 1
+        return prefill_paged(*a, **kw)
+    eng._prefill_paged = counted_prefill
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    eng._prefill_paged = prefill_paged
+    bodies, plain = launched_bodies(table)
+    calls = chunks[0] + stats.decode_steps
+    L = cfg.num_layers
+    want = {"paged_prefill_attention": {"mma": L * chunks[0]},
+            "paged_decode_attention": {"mma": L * stats.decode_steps},
+            "matmul": {b: n * calls for b, n in DEEPSEEK_K7.items()},
+            "matmul_batched": {b: n * calls for b, n in DEEPSEEK_K7B.items()}}
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"moe request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    state = eng._state
+    pool_bytes = sum(t.numel() * t.element_size() for t in state if t.dim() > 2)
+    pool_rows = state.k.shape[1] * state.k.shape[2]
+    leaks = eng.pool.leak_report()
+    log(f"moe serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
+        f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
+        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f} "
+        f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name}); "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB; KV pool "
+        f"{pool_bytes} B ({pool_rows} rows of {pool_bytes // pool_rows} B)")
+    log(f"moe serving: {chunks[0]} prefill chunks, {stats.decode_steps} decode steps, "
+        f"prefill_tokens={stats.prefill_tokens_computed}/{stats.prefill_tokens_total}; "
+        f"launches by body {bodies} (expected {want}) plain_calls={plain or 0} leaks={leaks}")
+    if bodies != want or plain or any(leaks.values()) \
+            or pool_bytes // pool_rows != DEEPSEEK_KV_BYTES:
+        raise AssertionError(f"moe serving: launches {bodies}, expected {want}; plain "
+                             f"calls {plain}; leaks {leaks}; {pool_bytes // pool_rows} B a "
+                             f"token (expected {DEEPSEEK_KV_BYTES})")
+    profile_phase(torch, np, eng, Request, greedy, "moe serving", n=1, new=8)
+    del eng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in bodies.items()}
+
+
+def poison_cached_memory(torch) -> None:
+    """Fill every block the caching allocator holds free with 0xFF bytes
+    (NaN in fp32, bf16 and fp16), so an output row that a kernel leaves
+    unwritten reads NaN, not the values an earlier run of the same layer
+    left in a block handed out again."""
+    sizes = sorted((b["size"] for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+                    if b["state"] == "inactive"), reverse=True)
+    held = [torch.full((n,), 255, dtype=torch.uint8, device="cuda") for n in sizes]
+    torch.cuda.synchronize()
+    del held
+
+
+def moe_path_rel(torch, np) -> dict:
+    """Phase 25c's measurements: phase 6's 300-token request (a 256-row
+    chunk, 44 rows seeded past it, one decode step) served in fp32 at full
+    width by ``ServingEngine``s cut to ``MOE_PATH_DEPTHS`` layers (1 dense
+    + 1 and 3 MoE): through the plain versions, every MoE layer's routes
+    and router logits recorded; through the kernels running free (printed:
+    their route differences and logits); and through the kernels
+    replaying the plain run's routes, each MoE layer routing on its own
+    activations first (its router launched as served), so its decisions
+    and router logits can be held against the plain run's on the same
+    upstream routes.  A free run's one near-tie flip changes that token's
+    activations by O(1), and with them later layers' routes of it and of
+    every later token that attends to it, at margins no bound holds; under
+    replay each layer decides on the plain run's upstream routes.  Before
+    each run the allocator's free blocks are filled with NaN
+    (:func:`poison_cached_memory`): an expert output the kernel never
+    writes must not read the rows an earlier run of the layer left there.
+
+    Returns, per depth: rel, the replayed run's logits against the plain
+    run's (largest difference over the largest logit, prefill and
+    decode); flips, for each token the replayed run's own decision routes
+    otherwise than the plain run, the plain run's smallest log-probability
+    gap between neighbours of its top k + 1; logit_diff, the largest
+    router-logit difference between the two; experts, how many experts a
+    layer call of the plain run routes to (least-most); the free run's route
+    differences and logits rel (printed); whether the replayed run
+    launched only kernels."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import moe as MOE
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import Sampler
+
+    class Record(Sampler):
+        def __init__(self):
+            self.seen = []
+
+        def sample(self, logits):
+            self.seen.append(np.array(logits[0], copy=True))
+            return np.full((len(logits),), 7)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = arch_registry.config("deepseek-moe-16b").replace(
+        compute_dtype="float32", num_layers=max(MOE_PATH_DEPTHS))
+    params = transformer.init(full, torch.Generator("cuda").manual_seed(0))
+    toks = np.random.default_rng(1).integers(0, full.vocab_size, size=300).astype(np.int32)
+    route = MOE.route
+    k = full.moe.top_k
+
+    def serve(cfg, p):
+        poison_cached_memory(torch)
+        eng = ServingEngine(cfg, p, max_len=320, batch_slots=1, prefill_chunk=256,
+                            cache_dtype="float32", device="cuda")
+        rec = Record()
+        eng.serve([Request(0, toks, max_new_tokens=2, sampler=rec)])
+        if any(eng.pool.leak_report().values()) or len(rec.seen) != 2:
+            raise AssertionError("moe path check: the request did not run clean")
+        return np.stack(rec.seen)
+
+    def router_logits(prm, x):      # the script's own fp32 product, never the port's
+        return x.float() @ prm["router"].float()
+
+    def recording(into):
+        def wrapped(cfg_moe, prm, x):
+            idx, prob, aux = route(cfg_moe, prm, x)
+            into.append((idx, prob, router_logits(prm, x)))
+            return idx, prob, aux
+        return wrapped
+
+    def replaying(routes, own):
+        it = iter(routes)
+
+        def wrapped(cfg_moe, prm, x):
+            idx, _, aux = route(cfg_moe, prm, x)     # the router's launch, as served
+            own.append((idx, router_logits(prm, x)))
+            plain_idx, prob, _ = next(it)
+            return plain_idx, prob, aux
+        return wrapped
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    out = {}
+    for depth in MOE_PATH_DEPTHS:
+        cfg = full.replace(num_layers=depth)
+        n_moe = depth - full.moe.first_k_dense
+        p = dict(params, blocks=tree_map(lambda t: t[:n_moe], params["blocks"]))
+        plain_routes, free_routes, own = [], [], []
+        with dispatch.plain_versions(), mock.patch.object(MOE, "route",
+                                                          recording(plain_routes)):
+            plain = serve(cfg, p)
+        with mock.patch.object(MOE, "route", recording(free_routes)):
+            free = serve(cfg, p)
+        dispatch.reset_counts()
+        with mock.patch.object(MOE, "route", replaying(plain_routes, own)):
+            kern = serve(cfg, p)
+        table = dispatch.kernel_table()
+        launched = all(table[n].launches > 0 for n in LM_KERNELS + ("matmul",
+                                                                    "matmul_batched")) \
+            and not any(t.plain_calls for t in table.values())
+        flips, logit_diff = [], 0.0
+        for (pi, _, pl), (oi, ol) in zip(plain_routes, own):
+            logit_diff = max(logit_diff, (ol - pl).abs().max().item())
+            differ = (pi != oi).any(-1)
+            if bool(differ.any()):
+                top = torch.topk(torch.log_softmax(pl, dim=-1), k + 1, dim=-1).values
+                flips += (top[..., :-1] - top[..., 1:]).min(-1).values[differ].tolist()
+        free_flips = sum(int((pi != fi).any(-1).sum())
+                         for (pi, _, _), (fi, _, _) in zip(plain_routes, free_routes))
+        experts = sorted({len(torch.unique(r[0])) for r in plain_routes})
+        out[depth] = dict(rel=max(rel(kern[i], plain[i]) for i in (0, 1)),
+                          experts=f"{experts[0]}-{experts[-1]} of {full.moe.num_experts} "
+                                  f"a layer call",
+                          top1=bool((kern.argmax(-1) == plain.argmax(-1)).all()),
+                          finite=bool(np.isfinite(kern).all()), flips=flips,
+                          logit_diff=logit_diff, free_flips=free_flips,
+                          free_rel=max(rel(free[i], plain[i]) for i in (0, 1)),
+                          routed=sum(int(r[0].numel()) // k for r in plain_routes),
+                          launched=launched)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_path_fails(r: dict, depth: int, factor: float = 1.0) -> bool:
+    """Whether phase 25c's check fails at ``depth`` (by ``factor`` past the
+    limit): logits not finite or past ``factor`` x ``TOL_PATH_REL``, or a
+    route decided otherwise (on the same upstream routes) where the plain
+    run had no near-tie."""
+    return not (r["finite"] and r["rel"] <= factor * TOL_PATH_REL[depth]
+                and all(g < TOL_MOE_FLIP_GAP for g in r["flips"]))
+
+
+def moe_path_check(torch, np) -> None:
+    """Phase 25c: the gate on :func:`moe_path_rel`."""
+    for depth, r in moe_path_rel(torch, np).items():
+        tol = TOL_PATH_REL[depth]
+        log(f"moe path check (fp32, full width, depth {depth}: 1 dense + {depth - 1} MoE): "
+            f"kernels replaying the plain routes vs plain rel {r['rel']:.3e} (tol {tol}) "
+            f"top1_agree={r['top1']} finite={r['finite']}; their own decisions on the same "
+            f"upstream routes: {len(r['flips'])} of {r['routed']} routed tokens routed "
+            f"otherwise, the plain run's smallest neighbouring top-(k+1) log-probability "
+            f"gaps there {[f'{g:.2e}' for g in r['flips']]} (each must be < "
+            f"{TOL_MOE_FLIP_GAP}), router logits at most {r['logit_diff']:.3e} apart; "
+            f"free-running kernels (printed): {r['free_flips']} tokens routed otherwise, "
+            f"logits rel {r['free_rel']:.3e}; experts routed to {r['experts']}; only "
+            f"kernels launched={r['launched']}")
+        if not r["launched"]:
+            raise AssertionError("moe path check: the kernel engine did not run through "
+                                 "K1, K2, K7 and its batched entry alone")
+        if moe_path_fails(r, depth):
+            raise AssertionError(f"moe path check, depth {depth}: {r}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5642,6 +6030,9 @@ def main() -> int:
                                               xlstm_scan_backward_phase, torch, table))
     timed("24b xlstm training path check", xlstm_train_path_check, torch, np)
     xlstm_trained = timed("24c xlstm training", xlstm_training_phase, torch, np, table)
+    results.update(timed("25a moe kernels", moe_kernel_phase, torch, table))
+    moe_served = timed("25b moe serving", moe_serving_phase, torch, np, table)
+    timed("25c moe path check", moe_path_check, torch, np)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -5651,8 +6042,10 @@ def main() -> int:
         launches[name] += count
     # GoogLeNet training's K6, its backward and K7 (22c); remat "dots" (22d)
     launches["conv2d_backward"] = 0
+    launches["matmul_batched"] = 0
     for name, count in (list(googlenet_trained.items()) + list(dots_trained.items())
-                        + list(xlstm.items()) + list(xlstm_trained.items())):
+                        + list(xlstm.items()) + list(xlstm_trained.items())
+                        + list(moe_served.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -5665,7 +6058,8 @@ def main() -> int:
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "paged_decode_attention:int8", "paged_prefill_attention:int8",
                  "decode_attention", "flash_attention", "flash_attention_backward",
-                 "ssm_scan", "ssm_scan_backward", "conv2d", "conv2d_backward", "matmul"):
+                 "ssm_scan", "ssm_scan_backward", "conv2d", "conv2d_backward", "matmul",
+                 "matmul_batched"):
         k, r = table[name.split(":")[0]], results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
@@ -5678,10 +6072,12 @@ def main() -> int:
             kernels[-1]["note"] = k.note
         for extra in ("fma_ms", "bf16_body_ms", "sdpa_dequantized_ms", "fp16_ms",
                       "fp16_library_ms", "fp16_bound_ms", "xlstm_ms", "xlstm_plain_ms",
-                      "xlstm_bound_ms", "xlstm_bound_by", "xlstm_shape"):
+                      "xlstm_bound_ms", "xlstm_bound_by", "xlstm_shape", "decode_ms",
+                      "decode_plain_ms", "decode_library_ms", "decode_bound_ms",
+                      "decode_bound_by", "decode_shape"):
             # the FMA body, the bf16 body on the dequantized pool, SDPA on it;
             # K6's backward at fp16 beside cuDNN's and its bound; K5 at
-            # xlstm-125m's widths
+            # xlstm-125m's widths; K7's batched entry at a decode step's shape
             if extra in r:
                 kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
@@ -5692,6 +6088,10 @@ def main() -> int:
         fma = f" (fma body {r['fma_ms']:.4f}ms)" if "fma_ms" in r else ""
         if "fma_bound_ms" in r:
             fma = f" (fma body {r['fma_ms']:.4f}ms, its bound {r['fma_bound_ms']:.4f}ms)"
+        if "decode_ms" in r:
+            fma += (f" (at {r['decode_shape']}: {r['decode_ms']:.4f}ms, plain "
+                    f"{r['decode_plain_ms']:.4f}ms, torch.bmm {r['decode_library_ms']:.4f}ms, "
+                    f"bound {r['decode_bound_ms']:.5f}ms ({r['decode_bound_by']}))")
         if "xlstm_ms" in r:
             fma += (f" (at {r['xlstm_shape']}: {r['xlstm_ms']:.4f}ms, plain "
                     f"{r['xlstm_plain_ms']:.4f}ms, bound {r['xlstm_bound_ms']:.5f}ms "

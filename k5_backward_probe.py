@@ -97,7 +97,7 @@ def time_layout(src: str, tag: str) -> None:
                               "ssm_bwd_")
             print(f"[{tag}] {str(dt)[6:]} FMA backward B=1 S=512 H=64 N=P=64 {what}: "
                   + " ".join(f"{m:.4f}" for m in ms) + " ms; by launch: "
-                  + ", ".join(f"{n} {m:.4f}ms ({c})" for n, (m, c) in t.items()), flush=True)
+                  + cs.launch_times(t), flush=True)
 
 
 def b_i() -> None:

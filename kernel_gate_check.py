@@ -67,7 +67,14 @@ pads in the ring dgrad's flipped conv (held on the cases whose SAME pads
 differ before and after); the dense decode
 kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 (K7) loses its first 32-deep slice of K in its FMA body, or its first
-64-deep K stage in its wgmma body.  Builds each kernel the file feeds
+64-deep K stage in its wgmma body; K7's batched entry (both bodies) reads
+expert 0's weights for every expert, writes each expert's output a row
+short of its stride, or skips the last expert, each held on chip_smoke's
+``K7B_CASES`` at fp32 and bf16 (every case of more than one expert must
+fail by 8x or more) and on phase 25c, deepseek-moe-16b's fp32 path check
+(``moe_path_gate``: 25c must fail, at one depth at least, its replayed
+logits not finite or 8x past the limit, or a route decided otherwise
+without a near-tie).  Builds each kernel the file feeds
 from the copy and runs chip_smoke's gate on that kernel's cases (fp32
 and bf16 for attention and the scan -- for an int8 loader the paged
 kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
@@ -185,6 +192,14 @@ K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
 MMA_TILE_LOOP = "for (int tile = 0; tile < ntiles; ++tile) {"
 MMA_SKIP_DIAGONAL = "for (int tile = 0; tile < ntiles - causal; ++tile) {"
 K7_STAGE = "for (int kk = 0; kk < WG_BK / 16; ++kk) {"
+# K7's batched entry (both bodies read their expert through these)
+K7B_EXPERT = "__device__ __forceinline__ int w_expert() { return blockIdx.z; }"
+K7B_EXPERT_0 = ("__device__ __forceinline__ int w_expert() { return 0; }  "
+                "// expert 0's weights for every expert")
+K7B_OUT = "  return (long long)blockIdx.z * M * N;"
+K7B_OUT_SHORT = "  return (long long)blockIdx.z * (M - 1) * N;  // the expert stride a row short"
+K7B_GRID = "  const int experts = E;                 // the grid's third dim: one expert a slice"
+K7B_SKIP_LAST = "  const int experts = E - 1;  // the last expert is skipped"
 K7_LOSE_STAGE = ("for (int kk = (kt == 0 && nk > 1) ? WG_BK / 16 : 0; kk < WG_BK / 16; "
                  "++kk) {  // stage 0 lost")
 K2_TILE_STEP = "mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
@@ -223,6 +238,12 @@ XLSTM_PATH = ("xlstm_path", (), None)
 # chip_smoke's phase 24b on a broken build: xlstm-125m's fp32 and bf16
 # training path check (K5's sliced backward, K7's), which must fail
 XLSTM_TRAIN = ("xlstm_train", (), None)
+# chip_smoke's phase 25c on a broken build: deepseek-moe-16b's fp32 path
+# check (K7's batched entry on its FMA body), which must fail
+MOE_PATH = ("moe_path", (), None)
+# K7's batched entry on chip_smoke's K7B_CASES shapes, fp32 (FMA) and bf16
+# (wgmma): every case of more than one expert must fail by 8x
+K7B = ("matmul_batched", ("float32", "bfloat16"), "E>1", 8)
 # K5's backward at xlstm-125m's widths (N = 384, P = 385, the sliced FMA
 # body): chip_smoke's XLSTM_BWD_CASES, fp32 and bf16, each must fail by 8x
 K5B_XLSTM = ("ssm_scan_backward@xlstm", ("float32", "bfloat16"), "fma", 8)
@@ -331,6 +352,13 @@ MUTANTS = (
     ("matmul.cu", K7_STAGE, K7_LOSE_STAGE,
      "wgmma body: loses its first 64-deep K stage when K > 64",
      (("matmul", ("bfloat16", "float16"), "wgmma"),)),
+    ("matmul.cu", K7B_EXPERT, K7B_EXPERT_0,
+     "batched entry (both bodies): every expert reads expert 0's weights", (K7B, MOE_PATH)),
+    ("matmul.cu", K7B_OUT, K7B_OUT_SHORT,
+     "batched entry (both bodies): the output's stride between experts is a row short",
+     (K7B, MOE_PATH)),
+    ("matmul.cu", K7B_GRID, K7B_SKIP_LAST,
+     "batched entry (both bodies): the grid skips the last expert", (K7B, MOE_PATH)),
 )
 
 
@@ -576,6 +604,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         return path_gate(torch, cs, build)
     if name == "xlstm_train":
         return train_gate(torch, cs, build)
+    if name == "moe_path":
+        return moe_path_gate(torch, cs, build)
     name, _, widths = name.partition("@")
     from repro_torch.kernels.conv2d.ops import backward_body_for as conv_backward_body_for
     from repro_torch.kernels.conv2d.ops import backward_splits
@@ -584,12 +614,13 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     from repro_torch.kernels.flash_attention.ops import backward_body_for as \
         flash_backward_body_for
     from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
+    from repro_torch.kernels.matmul.ops import batched_body_for
     from repro_torch.kernels.matmul.ops import body_for as matmul_body_for
     from repro_torch.kernels.prefill_attention.ops import body_for as prefill_body_for
     from repro_torch.kernels.ssm_scan.ops import backward_body_for as ssm_backward_body_for
     from repro_torch.kernels.ssm_scan.ops import body_for as ssm_body_for
-    build.build([name])
     kern = dispatch.kernel_table()[name]
+    build.build([Path(kern.source).stem])          # the batched entry is in matmul.cu
 
     def conv_tags(args, kw):
         body = conv_body_for(*args[:2])
@@ -612,6 +643,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
     # what a case runs: its body, and for K6 whether K is split (its
     # backward: which passes, dgrad at a stride, wgrad split)
     tags_of = {"matmul": lambda args, kw: {matmul_body_for(*args[:2])},
+               "matmul_batched": lambda args, kw: {batched_body_for(*args[:2])} | (
+                   {"E>1"} if args[0].shape[0] > 1 else set()),
                "flash_attention": lambda args, kw: {flash_body_for(args[0])},
                "decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
                "paged_decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
@@ -712,6 +745,12 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                       torch, M, K, N, layout, str(dt)[6:]), {})
                  for label, M, K, N, layout, _ in K7_CASES]
         dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    elif name == "matmul_batched":
+        cases = [(f"{label} E={E} M={M} K={K} N={N}",
+                  lambda dt, E=E, M=M, K=K, N=N: cs.k7b_operands(
+                      torch, E, M, K, N, str(dt)[6:]), {})
+                 for label, E, M, K, N, _ in cs.K7B_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
     elif name == "paged_decode_attention":
         cases = [(f"lengths={lengths}",
                   lambda dt, n=lengths: cs.decode_case(torch, n, dt), {"softcap": sc})
@@ -745,20 +784,22 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
             ref = kern.plain(*(a.float() if a is not None and a.is_floating_point() else a
                                for a in plain_args), **kw)
             torch.cuda.synchronize()
-            ratio = (kern.tolerance(out, ref, args[0].shape[1]) if name == "matmul"
+            ratio = (kern.tolerance(out, ref, args[0].shape[-1]) if name.startswith("matmul")
                      else kern.tolerance(out, ref))
-            if ratio > 1:
+            fails = not ratio <= 1               # the gate's test: NaN (an unwritten row) fails
+            if fails:
                 failed.append(ratio)
             long = not paged_fma or int(args[-1].max()) > 2 * BS
             if str(dtype)[6:] in must_fail and (not broken_body or broken_body in tags) \
                     and long:
                 served += 1
-                missed += not (ratio > 1 and ratio >= least)
+                missed += not (fails and not ratio < least)
             print(f"  {label} {str(dtype)[6:]}{f' runs {sorted(tags)}' if tags else ''}: "
-                  f"err/limit {ratio:.2f}{'' if ratio > 1 else '  (passes the gate)'}",
+                  f"err/limit {ratio:.2f}{'' if fails else '  (passes the gate)'}",
                   flush=True)
         print(f"  {str(dtype)[6:]}: {len(failed)} of {len(cases)} cases fail the "
-              f"gate, least err/limit among them {min(failed, default=0):.2f}"
+              f"gate, least err/limit among them "
+              f"{min((r for r in failed if r == r), default=float('nan')):.2f}"
               + (f"; {served} on the broken body, each of which must fail"
                  + (f" by {least:g}x or more" if least > 1 else "")
                  + f": {served - missed} do" if str(dtype)[6:] in must_fail else ""),
@@ -784,6 +825,30 @@ def path_gate(torch, cs, build) -> None:
               f"{r['rel'] / tol:.1f}x) finite={r['finite']} top1_agree={r['top1']} "
               f"K5 {r['scans']}: {'fails' if fails else 'passes'} the gate", flush=True)
     if missed:
+        raise SystemExit(1)
+
+
+def moe_path_gate(torch, cs, build) -> None:
+    """Phase 25c of chip_smoke on the broken build: deepseek-moe-16b's fp32
+    path check must fail (:func:`chip_smoke.moe_path_fails`) at one depth
+    at least -- its replayed logits not finite or by 8x the limit or more,
+    or a route decided otherwise on the same upstream routes where the
+    plain run had no near-tie.  A depth whose layers route no token to
+    the expert a mutant breaks cannot see it."""
+    import numpy as np
+    build.build(["matmul", "paged_prefill_attention", "paged_decode_attention"])
+    caught = False
+    for depth, r in cs.moe_path_rel(torch, np).items():
+        tol = cs.TOL_PATH_REL[depth]
+        fails = cs.moe_path_fails(r, depth, 8)
+        caught = caught or fails
+        far = [g for g in r["flips"] if g >= cs.TOL_MOE_FLIP_GAP]
+        print(f"  moe path check depth {depth}: replayed rel {r['rel']:.3e} (tol {tol}, "
+              f"{r['rel'] / tol:.1f}x) finite={r['finite']}; {len(r['flips'])} routes "
+              f"decided otherwise on the same upstream routes, {len(far)} without a "
+              f"near-tie; router logits {r['logit_diff']:.3e} apart; experts routed to "
+              f"{r['experts']}: {'fails' if fails else 'passes'} the gate", flush=True)
+    if not caught:
         raise SystemExit(1)
 
 

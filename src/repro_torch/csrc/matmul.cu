@@ -73,6 +73,24 @@
 //      order depends on k alone, never on the tile.
 //    - Epilogue: the fp32 accumulators, rounded once to the type, stored
 //      with masks on the ragged M and N edges.
+//
+// The batched entry (matmul_batched) computes out[e] = x[e] @ y[e] for
+// e in [0, E) in one launch: the E experts' products of a mixture-of-
+// experts layer (the reference's einsums "ecd,edf->ecf" and
+// "ecf,efd->ecd", src/repro/models/layers/moe.py:67-77, which run outside
+// any Pallas kernel: XLA's batched dot).  The grid gains a third dim over
+// E, and each body reads expert e's operands and writes its output:
+//    - FMA: each operand takes a batch stride (elements between experts);
+//      the output is (E, M, N) contiguous.
+//    - WGMMA: the tensor maps are rank 3 (inner, outer, expert) and each
+//      TMA box is 64 x 64 x 1, so the zeros past an expert's ragged M, N
+//      or K edge stay inside that expert (a rank-2 map over the stacked
+//      rows would read the next expert's rows into a partial tile).
+// Per expert the arithmetic is the 2-D entry's: the same tiles, the same
+// order of summation, so an E = 1 launch gives the 2-D entry's bits.
+// What bounds it: at the MoE layer's shapes (64 experts of 2048 x 1408,
+// 30 rows each in a 256-row prefill chunk, 4 in a decode step) the bytes
+// of the expert weights, 369 MB a product -- each weight is read once.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -84,6 +102,13 @@
 namespace {
 
 constexpr int BK = 32;          // depth of one K slice
+
+// The expert of this block (the grid's third dim; 0 in a 2-D launch), whose
+// weight y[e] it reads, and the offset of its output out[e] (M x N each).
+__device__ __forceinline__ int w_expert() { return blockIdx.z; }
+__device__ __forceinline__ long long out_offset(int M, int N) {
+  return (long long)blockIdx.z * M * N;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
@@ -119,7 +144,8 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) matmul_kernel(
     const T* __restrict__ x, int sxm, int sxk,      // (M, K) by strides
     const T* __restrict__ y, int syk, int syn,      // (K, N) by strides
     T* __restrict__ out,                            // (M, N) row-major
-    int M, int N, int K) {
+    int M, int N, int K,
+    long long bx, long long by) {                   // batch strides (batched entry)
   constexpr int TX = BN / TN;                       // threads along N
   constexpr int THREADS = (BM / TM) * TX;
   constexpr int A_PER = BM * BK / THREADS;          // x elements staged per thread
@@ -130,6 +156,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) matmul_kernel(
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  x += blockIdx.z * bx;
+  y += w_expert() * by;
+  out += out_offset(M, N);
   const bool x_k_unit = sxk == 1;                   // loader follows the unit stride
   const bool y_n_unit = syn == 1;
 
@@ -209,22 +238,27 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) matmul_kernel(
   }
 }
 
+// E experts (the grid's third dim), bx / by elements apart; a 2-D product
+// is E = 1.
 template <typename T, int BM, int BN, int TM, int TN>
 cudaError_t launch(const void* x, const void* y, void* out, int M, int N, int K,
-                   int sxm, int sxk, int syk, int syn, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                   int sxm, int sxk, int syk, int syn, cudaStream_t stream, int E,
+                   long long bx, long long by) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   matmul_kernel<T, BM, BN, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
       static_cast<const T*>(x), sxm, sxk, static_cast<const T*>(y), syk, syn,
-      static_cast<T*>(out), M, N, K);
+      static_cast<T*>(out), M, N, K, bx, by);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_tile(int narrow, const void* x, const void* y, void* out, int M,
                           int N, int K, int sxm, int sxk, int syk, int syn,
-                          cudaStream_t stream) {
-  if (narrow) return launch<T, 16, 32, 2, 2>(x, y, out, M, N, K, sxm, sxk, syk, syn, stream);
-  return launch<T, 128, 128, 8, 8>(x, y, out, M, N, K, sxm, sxk, syk, syn, stream);
+                          cudaStream_t stream, int E = 1, long long bx = 0,
+                          long long by = 0) {
+  if (narrow)
+    return launch<T, 16, 32, 2, 2>(x, y, out, M, N, K, sxm, sxk, syk, syn, stream, E, bx, by);
+  return launch<T, 128, 128, 8, 8>(x, y, out, M, N, K, sxm, sxk, syk, syn, stream, E, bx, by);
 }
 
 // ---------------------------------------------------------------------------
@@ -273,14 +307,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // One 64 x 64 box of the operand at (inner, outer) element coordinates
-// into shared memory, completing `bytes` on the barrier.
+// (of expert e, where the map is rank 3) into shared memory, completing
+// its bytes on the barrier.
+template <bool RANK3>
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
-      : "memory");
+                                         int inner, int outer, int e) {
+  if constexpr (RANK3) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer),
+        "r"(e)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
+        : "memory");
+  }
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`
@@ -351,7 +396,8 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 
 // The block: NC consumer warpgroups (64 rows each) and one producer warp.
 // A_MN: x is m-contiguous; B_MN: y is n-contiguous (else k-contiguous).
-template <typename T, int NC, int BN, int STAGES, bool A_MN, bool B_MN>
+// RANK3: the batched entry's rank-3 maps, expert blockIdx.z.
+template <typename T, int NC, int BN, int STAGES, bool A_MN, bool B_MN, bool RANK3>
 __global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
     T* __restrict__ out, int M, int N, int K) {
@@ -388,13 +434,17 @@ __global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
         mbar_expect_tx(&full[s], STAGE_BYTES);
 #pragma unroll
         for (int c = 0; c < A_BOXES; ++c) {
-          if (A_MN) tma_load(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0);
-          else tma_load(a + c * BOX_BYTES, &xmap, &full[s], k0, m0 + c * BOX);
+          if (A_MN)
+            tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0, blockIdx.z);
+          else
+            tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], k0, m0 + c * BOX, blockIdx.z);
         }
 #pragma unroll
         for (int j = 0; j < B_BOXES; ++j) {
-          if (B_MN) tma_load(b + j * BOX_BYTES, &ymap, &full[s], n0 + j * BOX, k0);
-          else tma_load(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX);
+          if (B_MN)
+            tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], n0 + j * BOX, k0, w_expert());
+          else
+            tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX, w_expert());
         }
       }
     }
@@ -434,6 +484,7 @@ __global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
     // 8 q + 2 (lane % 4) + e of row half h
     const int lane = threadIdx.x % 32, w = warp % 4;
     const bool pairs = N % 2 == 0;          // a row's even columns start 4-byte aligned
+    out += out_offset(M, N);
 #pragma unroll
     for (int j = 0; j < B_BOXES; ++j) {
 #pragma unroll
@@ -487,28 +538,31 @@ EncodeTiled encode_tiled() {
 
 constexpr int ENCODE_ERROR = 10000;   // returned as ENCODE_ERROR + the CUresult
 
-// A 2-D map of an operand: `inner` elements along its contiguous dim,
-// `outer` rows `stride` elements apart; 64 x 64 boxes, 128-byte swizzle,
-// zeros past the edges.  Returns the CUresult of the encoding.
+// A map of an operand: `inner` elements along its contiguous dim, `outer`
+// rows `stride` elements apart, and (rank 3, E > 0) E experts `bstride`
+// elements apart; 64 x 64 (x 1) boxes, 128-byte swizzle, zeros past the
+// edges -- of each expert, where the map is rank 3.  Returns the CUresult
+// of the encoding.
 int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int inner,
-             int outer, int stride) {
+             int outer, int stride, int E = 0, long long bstride = 0) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride * 2};
-  const cuuint32_t box[2] = {BOX, BOX};
-  const cuuint32_t elem[2] = {1, 1};
-  return (int)fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+  const cuuint32_t rank = E > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride * 2, (cuuint64_t)bstride * 2};
+  const cuuint32_t box[3] = {BOX, BOX, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return (int)fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <typename T, int NC, int BN, int STAGES, bool A_MN, bool B_MN>
+template <typename T, int NC, int BN, int STAGES, bool A_MN, bool B_MN, bool RANK3>
 cudaError_t launch_wgmma(const CUtensorMap& xm, const CUtensorMap& ym, void* out, int M,
-                         int N, int K, cudaStream_t stream) {
+                         int N, int K, int E, cudaStream_t stream) {
   constexpr int BM = NC * 64;
   constexpr int SMEM = STAGES * (BM + BN) * BOX * 2 + 1024 + 2 * STAGES * 8;
-  auto kernel = matmul_wgmma_kernel<T, NC, BN, STAGES, A_MN, B_MN>;
+  auto kernel = matmul_wgmma_kernel<T, NC, BN, STAGES, A_MN, B_MN, RANK3>;
   static bool ready = false;
   if (!ready) {
     const cudaError_t err =
@@ -516,24 +570,37 @@ cudaError_t launch_wgmma(const CUtensorMap& xm, const CUtensorMap& ym, void* out
     if (err != cudaSuccess) return err;
     ready = true;
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   kernel<<<grid, NC * 128 + 32, SMEM, stream>>>(xm, ym, static_cast<T*>(out), M, N, K);
   return cudaGetLastError();
 }
 
-template <typename T, bool A_MN, bool B_MN>
+template <typename T, bool A_MN, bool B_MN, bool RANK3>
 cudaError_t wgmma_tile(int narrow, const CUtensorMap& xm, const CUtensorMap& ym, void* out,
-                       int M, int N, int K, cudaStream_t s) {
-  if (narrow) return launch_wgmma<T, 1, 64, 4, A_MN, B_MN>(xm, ym, out, M, N, K, s);
-  return launch_wgmma<T, 2, 128, 3, A_MN, B_MN>(xm, ym, out, M, N, K, s);
+                       int M, int N, int K, int E, cudaStream_t s) {
+  if (narrow) return launch_wgmma<T, 1, 64, 4, A_MN, B_MN, RANK3>(xm, ym, out, M, N, K, E, s);
+  return launch_wgmma<T, 2, 128, 3, A_MN, B_MN, RANK3>(xm, ym, out, M, N, K, E, s);
+}
+
+template <typename T, bool RANK3>
+cudaError_t wgmma_layout(bool a_mn, bool b_mn, int narrow, const CUtensorMap& xm,
+                         const CUtensorMap& ym, void* out, int M, int N, int K, int E,
+                         cudaStream_t s) {
+  if (a_mn && b_mn) return wgmma_tile<T, true, true, RANK3>(narrow, xm, ym, out, M, N, K, E, s);
+  if (a_mn) return wgmma_tile<T, true, false, RANK3>(narrow, xm, ym, out, M, N, K, E, s);
+  if (b_mn) return wgmma_tile<T, false, true, RANK3>(narrow, xm, ym, out, M, N, K, E, s);
+  return wgmma_tile<T, false, false, RANK3>(narrow, xm, ym, out, M, N, K, E, s);
 }
 
 // The strides name each operand's contiguous dim: sxk == 1 for a
 // k-contiguous x (else sxm == 1), syk == 1 for a k-contiguous y (else
 // syn == 1); the other stride is a multiple of 8 elements (ops.py checks).
+// E > 0: the batched entry's E experts, sxe / sye elements apart (each a
+// multiple of 8), on rank-3 maps; E = 0: a 2-D product.
 template <typename T>
 int dispatch_wgmma(int narrow, const void* x, const void* y, void* out, int M, int N, int K,
-                   int sxm, int sxk, int syk, int syn, cudaStream_t s) {
+                   int sxm, int sxk, int syk, int syn, cudaStream_t s, int E = 0,
+                   long long sxe = 0, long long sye = 0) {
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -548,14 +615,14 @@ int dispatch_wgmma(int narrow, const void* x, const void* y, void* out, int M, i
     context_bound = true;
   }
   CUtensorMap xm, ym;
-  int res = a_mn ? make_map(&xm, x, type, M, K, sxk) : make_map(&xm, x, type, K, M, sxm);
+  int res = a_mn ? make_map(&xm, x, type, M, K, sxk, E, sxe)
+                 : make_map(&xm, x, type, K, M, sxm, E, sxe);
   if (res == CUDA_SUCCESS)
-    res = b_mn ? make_map(&ym, y, type, N, K, syk) : make_map(&ym, y, type, K, N, syn);
+    res = b_mn ? make_map(&ym, y, type, N, K, syk, E, sye)
+               : make_map(&ym, y, type, K, N, syn, E, sye);
   if (res != CUDA_SUCCESS) return ENCODE_ERROR + res;
-  if (a_mn && b_mn) return wgmma_tile<T, true, true>(narrow, xm, ym, out, M, N, K, s);
-  if (a_mn) return wgmma_tile<T, true, false>(narrow, xm, ym, out, M, N, K, s);
-  if (b_mn) return wgmma_tile<T, false, true>(narrow, xm, ym, out, M, N, K, s);
-  return wgmma_tile<T, false, false>(narrow, xm, ym, out, M, N, K, s);
+  if (E > 0) return wgmma_layout<T, true>(a_mn, b_mn, narrow, xm, ym, out, M, N, K, E, s);
+  return wgmma_layout<T, false>(a_mn, b_mn, narrow, xm, ym, out, M, N, K, 1, s);
 }
 
 }  // namespace
@@ -581,6 +648,39 @@ extern "C" int matmul(const void* x, const void* y, void* out, int dtype, int M,
     case 1:
       return dispatch_tile<__nv_bfloat16>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s);
     case 2: return dispatch_tile<__half>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The batched entry: out[e] = x[e] @ y[e] for e in [0, E), out (E, M, N)
+// contiguous.  x[e] starts sxe elements after x[e - 1], y[e] sye after
+// y[e - 1]; within an expert the strides, types and bodies are the 2-D
+// entry's.  Returns as `matmul` does.
+extern "C" int matmul_batched(const void* x, const void* y, void* out, int dtype, int E,
+                              int M, int N, int K, long long sxe, int sxm, int sxk,
+                              long long sye, int syk, int syn, int narrow, int body,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int experts = E;                 // the grid's third dim: one expert a slice
+  if (body == 1) {
+    if (dtype == 1)
+      return dispatch_wgmma<__nv_bfloat16>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s,
+                                           experts, sxe, sye);
+    if (dtype == 2)
+      return dispatch_wgmma<__half>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s,
+                                    experts, sxe, sye);
+    return cudaErrorInvalidValue;
+  }
+  switch (dtype) {
+    case 0:
+      return dispatch_tile<float>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s, experts,
+                                  sxe, sye);
+    case 1:
+      return dispatch_tile<__nv_bfloat16>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s,
+                                          experts, sxe, sye);
+    case 2:
+      return dispatch_tile<__half>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s, experts,
+                                   sxe, sye);
     default: return cudaErrorInvalidValue;
   }
 }

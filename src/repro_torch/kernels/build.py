@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LOGS: dict[str, str] = {}            # name -> nvcc output (kept beside the .so)
 CACHED: set[str] = set()             # names whose .so was built by an earlier run
 _LIBS: dict[str, ctypes.CDLL] = {}  # guarded-by: _LOCK (written)
+_TYPED: dict[str, set] = {}          # name -> its typed entry points; guarded-by: _LOCK (written)
 _LOCK = threading.Lock()
 
 
@@ -85,18 +86,23 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
     return {name: _target(name) for name in names}
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
+def load(name: str, argtypes: list, entry: str | None = None) -> ctypes.CDLL:
     """The built library of kernel ``name`` (building it on first use),
-    with the C entry point ``name`` typed as ``argtypes -> int``."""
+    with the C entry point ``entry`` (default ``name``; a source may have
+    more than one) typed as ``argtypes -> int``."""
+    entry = entry or name
     lib = _LIBS.get(name)
-    if lib is not None:
+    if lib is not None and entry in _TYPED.get(name, ()):
         return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
-            fn = getattr(lib, name)
+            _TYPED[name] = set()
+        if entry not in _TYPED[name]:
+            fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _TYPED[name].add(entry)
+        _LIBS[name] = lib
     return lib

@@ -8,7 +8,13 @@ the kernel as it is.  It has two bodies, and :func:`route` picks one
 before the launch: fp16 / bf16 operands that TMA can read go to the
 tensor cores (``wgmma``), everything else -- every fp32 product among
 them -- to plain FMA.  The plain version multiplies in fp32 and rounds
-once, as the kernel does."""
+once, as the kernel does.
+
+The batched entry (:func:`matmul_batched`, the C entry ``matmul_batched``
+of the same source, its own kernel-table entry ``"matmul_batched"``)
+computes ``out[e] = x[e] @ y[e]`` for the E experts of a mixture-of-experts
+layer in one launch: per expert the 2-D entry's route, tile rule and
+arithmetic, each operand with a stride between its experts."""
 from __future__ import annotations
 
 import ctypes
@@ -18,10 +24,15 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import matmul_tolerance_ratio, register_kernel
-from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.matmul.ref import matmul_batched_ref, matmul_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# matmul_batched: x y out, dtype E M N K, sxe, sxm sxk, sye, syk syn narrow body, stream
+_BATCHED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+MAX_EXPERTS = 65535    # the grid's third dim
 NARROW_M = 16          # at most this many rows: the narrow tile (decode)
 _INT_MAX = 2**31 - 1
 _TENSOR_CORE = (torch.bfloat16, torch.float16)
@@ -146,6 +157,78 @@ def _launch(x, y, *, tile: str | None = None):
     return out
 
 
+def route_batched(x: torch.Tensor, y: torch.Tensor):
+    """:func:`route` of one expert's product ``x[0] @ y[0]``, on the wgmma
+    body only where every expert's operands start 16-byte aligned too:
+    with more than one expert, each operand's stride between experts is a
+    positive multiple of ``TMA_ALIGN`` bytes."""
+    body, xs, ys = route(x[0], y[0])
+    if body == "wgmma" and any(
+            t.shape[0] > 1 and (t.stride(0) <= 0 or t.stride(0) * t.element_size() % TMA_ALIGN)
+            for t in (x, y)):
+        return "fma", None, None
+    return body, xs, ys
+
+
+def batched_body_for(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The body :func:`route_batched` names for the batched ``x @ y``."""
+    return route_batched(x, y)[0]
+
+
+def batch_stride(t: torch.Tensor, strides: tuple[int, int]) -> int:
+    """Elements between ``t``'s experts: its own stride where it has more
+    than one; where it has one, the extent of that expert's matrix at the
+    ``strides`` the body reads -- never followed, but a rank-3 tensor map
+    must hold a stride that is a multiple of 16 bytes."""
+    if t.shape[0] > 1:
+        return t.stride(0)
+    outer = 0 if strides[1] == 1 else 1
+    return t.shape[1 + outer] * strides[outer]
+
+
+def _launch_batched(x, y, *, tile: str | None = None):
+    """The batched entry: check the operands, allocate the (E, M, N) output
+    and launch one kernel over all E experts on the body
+    :func:`route_batched` names; ``tile`` as in the 2-D entry, and by
+    default :func:`narrow_tile` of one expert's M and N."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
+    if x.dim() != 3 or y.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must be 3-D: "
+                         f"(E, M, K) and (E, K, N)")
+    E, M, K = x.shape
+    E2, K2, N = y.shape
+    if E != E2 or K != K2:
+        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} do not chain")
+    if not 0 < E <= MAX_EXPERTS:
+        raise ValueError(f"the kernel takes 0 < E <= {MAX_EXPERTS} experts, not {E}")
+    if not (0 < M <= _INT_MAX and 0 < N <= _INT_MAX and K <= _INT_MAX):
+        raise ValueError(f"the kernel takes 0 < M, N and K < 2**31, not "
+                         f"M={M} N={N} K={K}")
+    sxm, sxk = operand_strides(x[0], "x[e]", device=dev, dtypes=tuple(_DTYPE_CODE))
+    syk, syn = operand_strides(y[0], "y[e]", device=dev, dtypes=(x.dtype,))
+    if tile not in (None, "wide", "narrow"):
+        raise ValueError(f"tile {tile!r}: 'wide', 'narrow' or None")
+    body, xs, ys = route_batched(x, y)
+    if body == "wgmma":
+        (sxm, sxk), (syk, syn) = xs, ys
+    sxe, sye = batch_stride(x, (sxm, sxk)), batch_stride(y, (syk, syn))
+    narrow = narrow_tile(M, N, body, sm_count(dev)) if tile is None else tile == "narrow"
+    out = torch.empty((E, M, N), dtype=x.dtype, device=dev)
+    lib = build.load("matmul", _BATCHED_ARGTYPES, "matmul_batched")
+    BATCHED.count_launch(body)
+    err = lib.matmul_batched(x.data_ptr(), y.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
+                             E, M, N, K, sxe, sxm, sxk, sye, syk, syn, int(narrow),
+                             int(body == "wgmma"), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        what = (f"cuTensorMapEncodeTiled returned {err - _ENCODE_ERROR}"
+                if err >= _ENCODE_ERROR else f"CUDA error {err}")
+        raise RuntimeError(f"matmul_batched ({body} body, E={E} M={M} K={K} N={N}, strides "
+                           f"x {(sxe, sxm, sxk)} y {(sye, syk, syn)}): {what}")
+    return out
+
+
 KERNEL = register_kernel(
     "matmul", _launch, matmul_ref,
     source="src/repro_torch/csrc/matmul.cu",
@@ -159,3 +242,20 @@ def matmul(x, y):
     rounded once.  CUDA tensors run the kernel, CPU tensors the plain
     version."""
     return KERNEL(x, y)
+
+
+BATCHED = register_kernel(
+    "matmul_batched", _launch_batched, matmul_batched_ref,
+    source="src/repro_torch/csrc/matmul.cu",
+    replaces="src/repro/kernels/matmul/kernel.py:36",
+    tolerance=matmul_tolerance_ratio,
+    note="K7's batched entry (matmul_batched in K7's source): the E experts' products "
+         "of an MoE layer in one launch, where the reference runs XLA's batched "
+         "einsums outside any Pallas kernel (src/repro/models/layers/moe.py:67-77)")
+
+
+def matmul_batched(x, y):
+    """x: (E, M, K) @ y: (E, K, N) -> (E, M, N) in x's type, each expert's
+    product summed in fp32 and rounded once.  CUDA tensors run the kernel
+    (one launch for every expert), CPU tensors the plain version."""
+    return BATCHED(x, y)

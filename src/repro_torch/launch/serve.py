@@ -2,8 +2,8 @@
 engine on one card, with throughput, serving-quality metrics (TTFT p50/p99,
 TPOT, slot occupancy) and tokens/s per watt against the card's power limit
 (counterpart of ``repro/launch/serve.py``, every flag of it).  The dense
-family serves from the paged KV pool (from contiguous per-slot caches with
-``--contiguous-kv``), the hybrid (zamba2) and the recurrent xLSTM from
+and MoE families serve from the paged KV pool (from contiguous per-slot
+caches with ``--contiguous-kv``), the hybrid (zamba2) and the recurrent xLSTM from
 contiguous per-slot state;
 contiguous caches hold ``prompt_len + new_tokens + 1`` rows.  With
 ``--draft-model`` greedy requests decode speculatively on the paged pool;
@@ -24,6 +24,7 @@ Example (on a machine with an NVIDIA card):
   # speculative decoding, the target drafting for itself (shared weights):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --draft-model qwen2.5-3b --spec-k 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
   # the host KV tier and a seeded fault plan:
@@ -54,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry as arch_registry
-from repro_torch.models.registry import fns_for
+from repro_torch.models import transformer
+from repro_torch.models.registry import TRANSFORMER_FNS, fns_for
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.router import ReplicaRouter
@@ -188,7 +190,13 @@ def main() -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device; pass --device cpu (with --smoke) to run "
                  "the plain versions on the CPU")
-    params = fns.init(cfg, torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(0)
+    # the transformer's product weights are stored in the compute dtype as
+    # they are drawn, a layer at a time (the numbers the engine's
+    # prepare_params gives): deepseek-moe-16b's fp32 tree (65.5 GB) would
+    # not fit the card beside its bf16 copy
+    params = (transformer.init(cfg, gen, cast_products=True)
+              if fns is TRANSFORMER_FNS else fns.init(cfg, gen))
     max_len = args.prompt_len + args.new_tokens + 1
     rng = np.random.default_rng(0)
     mk_sampler = (greedy if args.temperature == 0

@@ -2,7 +2,9 @@
 
 Every weight product of the port's models (attention projections, MLPs,
 the LM head, the Mamba-2 projections, the hybrid's shared-block input and
-GoogLeNet's classifier) goes through :func:`matmul`.  The Pallas K7 has no
+GoogLeNet's classifier) goes through :func:`matmul`; the experts' products
+of a mixture-of-experts layer go through :func:`batched_matmul`, K7's
+batched entry (forward only).  The Pallas K7 has no
 backward (nothing in the reference wraps it in a ``custom_vjp``: JAX
 differentiates its einsums), so the backward here is two more launches of
 the same kernel, each on strided views: ``dX = dY @ W^T`` and
@@ -25,6 +27,7 @@ import threading
 import torch
 
 from repro_torch.kernels.matmul.ops import matmul as _k7
+from repro_torch.kernels.matmul.ops import matmul_batched as _k7_batched
 
 # the store of the block running on this thread (the recompute of a
 # checkpointed block runs on autograd's thread, and enters it there)
@@ -99,3 +102,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     out = _Matmul.apply(_unit_strided(x.reshape(-1, x.shape[-1])), w)
     return out.reshape(*lead, w.shape[-1])
+
+
+def batched_matmul(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xs: (E, M, K) @ w: (E, K, N) -> (E, M, N) in xs's type, each expert's
+    product summed in fp32 and rounded once: one launch of K7's batched
+    entry for all E experts on the card, its plain version on the CPU.
+    Forward only: the batched entry has no backward yet, so on the card an
+    input that requires grad raises (``dispatch.Kernel``)."""
+    return _k7_batched(xs, w)

@@ -25,6 +25,7 @@ class ParamDef:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
     init: InitFn = truncated_normal_init
+    layer: "ParamDef | None" = None    # a stacked leaf's one-layer def
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -67,7 +68,7 @@ def stack_table(table: Table, num: int) -> Table:
         def init(gen, shape, dtype, _d=d):
             return torch.stack([_d.init(gen, _d.shape, dtype)
                                 for _ in range(num)])
-        return ParamDef((num, *d.shape), ("layers", *d.axes), init)
+        return ParamDef((num, *d.shape), ("layers", *d.axes), init, layer=d)
     return tree_map(_stack, table)
 
 
@@ -82,12 +83,37 @@ def cast_product_weights(params: Any, names: tuple[str, ...], dtype,
     def walk(tree, name=None):
         if isinstance(tree, Mapping):
             return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name) for v in tree)
         t = tree.to(device) if device is not None else tree
         return t.to(dt) if name in names else t
     return walk(params)
 
 
-def init_table(gen: torch.Generator, table: Table, dtype) -> Any:
-    """Initialize every leaf on ``gen``'s device, in table order."""
+def _draw(gen: torch.Generator, d: ParamDef, dtype, out_dtype) -> torch.Tensor:
+    """Leaf ``d`` drawn in ``dtype`` and stored in ``out_dtype``: a stacked
+    leaf a layer at a time, each layer cast before the next is drawn."""
+    if d.layer is None or out_dtype == dtype:
+        return d.init(gen, d.shape, dtype).to(out_dtype)
+    out = torch.empty(d.shape, dtype=out_dtype, device=gen.device)
+    for i in range(d.shape[0]):
+        out[i] = _draw(gen, d.layer, dtype, out_dtype)
+    return out
+
+
+def init_table(gen: torch.Generator, table: Table, dtype, cast=None) -> Any:
+    """Initialize every leaf on ``gen``'s device, in table order.  ``cast``
+    (names, dtype): the leaves of those names are stored in that dtype --
+    the numbers of :func:`cast_product_weights` after a plain init, drawn
+    from the generator in the same order, but a layer at a time, so the
+    whole tree is never resident in ``dtype``."""
     dt = dtype_of(dtype)
-    return tree_map(lambda d: d.init(gen, d.shape, dt), table)
+    names, out_dt = (cast[0], dtype_of(cast[1])) if cast else ((), dt)
+
+    def walk(tree, name=None):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name) for v in tree)
+        return _draw(gen, tree, dt, out_dt if name in names else dt)
+    return walk(table)

@@ -1,0 +1,149 @@
+"""Mixture-of-Experts: the router and the capacity dispatch (counterpart of
+``repro/models/layers/moe.py``).
+
+Routing (top-k and the Switch aux loss) is plain PyTorch around one weight
+product, the router's, in fp32 through K7 (its FMA body on the card).
+Every expert's three products run K7's batched entry
+(:func:`~repro_torch.models.layers.linear.batched_matmul`): one launch for
+all E experts, where a loop over the experts would make E launches a
+product.  Two dispatch strategies, as the reference's without a mesh:
+
+  * :func:`moe_einsum` -- the GShard capacity dispatch within each batch
+    row, the one the models run (:func:`moe_apply`).  The reference writes
+    it as one-hot einsums; here the same dispatch is an index scatter of
+    the kept tokens into the (E, B, C) expert rows and a gather back, which
+    gives the same numbers: each expert row holds one token or zeros, and
+    each token sums its kept terms once, in fp32, rounded once.
+  * :func:`moe_dense` -- every expert on every token, masked combine: the
+    O(E x T) oracle, for the tests.
+
+The reference's expert-parallel ``moe_ep`` (all-to-all under a mesh) is
+not ported: the port has no mesh.  DeepSeekMoE's shared experts and
+first-k dense layers live in the block
+(:mod:`repro_torch.models.transformer`), as in the reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers.linear import batched_matmul, matmul
+from repro_torch.models.layers.module import weight
+
+
+def moe_table(d_model: int, num_experts: int, d_ff_expert: int):
+    """Router and stacked expert SwiGLU weights, the reference's names and
+    shapes."""
+    e, d, f = num_experts, d_model, d_ff_expert
+    return {
+        "router": weight((d, e), ("embed", None), stddev=0.02),
+        "w_gate": weight((e, d, f), ("experts", "embed", "ff_expert")),
+        "w_up": weight((e, d, f), ("experts", "embed", "ff_expert")),
+        "w_down": weight((e, f, d), ("experts", "ff_expert", "embed")),
+    }
+
+
+def route(cfg_moe, params, x: torch.Tensor):
+    """Top-k routing decisions and the Switch-style load-balance aux loss.
+
+    x: (B, S, D) activations.  Returns idx (B, S, k) int64 expert ids, in
+    descending probability; prob (B, S, k) fp32 combine weights (divided by
+    their sum where ``norm_topk_prob``); the aux loss, a 0-dim fp32 tensor.
+    The router's logits are ``x.float() @ router.float()``: an fp32 product
+    through K7."""
+    e = cfg_moe.num_experts
+    logits = matmul(x.float(), params["router"].float())        # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    prob, idx = torch.topk(probs, cfg_moe.top_k, dim=-1)
+    if cfg_moe.norm_topk_prob:
+        prob = prob / torch.clamp(prob.sum(-1, keepdim=True), min=1e-9)
+    # aux = E * mean_e( frac_tokens(e) * mean_prob(e) )  (Switch eq. 4)
+    one_hot = F.one_hot(idx, e).float()                        # (B, S, k, E)
+    frac = one_hot.sum(2).mean((0, 1))                          # (E,)
+    mean_p = probs.mean((0, 1))                                 # (E,)
+    aux = e * (frac * mean_p).sum() / cfg_moe.top_k
+    return idx, prob.float(), aux * cfg_moe.router_aux_loss_weight
+
+
+def expert_ffn(w_gate, w_up, w_down, xs: torch.Tensor) -> torch.Tensor:
+    """xs: (E, C, D) -> (E, C, D); each expert's SwiGLU, its three products
+    one launch each of K7's batched entry.  ``.to(dt)`` is a no-op for
+    weights cast at load (:func:`transformer.prepare_params`)."""
+    dt = xs.dtype
+    g = batched_matmul(xs, w_gate.to(dt))
+    u = batched_matmul(xs, w_up.to(dt))
+    return batched_matmul(F.silu(g) * u, w_down.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# dense oracle
+# ---------------------------------------------------------------------------
+
+def moe_dense(cfg_moe, params, x, idx, prob):
+    """O(E x T) oracle: every expert on every token, masked combine in fp32
+    (the reference's ``moe_dense``)."""
+    B, S, D = x.shape
+    e = cfg_moe.num_experts
+    xs = x.reshape(1, B * S, D).expand(e, B * S, D)
+    ys = expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xs)
+    combine = (F.one_hot(idx, e).float() * prob[..., None]).sum(2)   # (B, S, E)
+    return torch.einsum("ebsd,bse->bsd", ys.reshape(e, B, S, D).float(),
+                        combine).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GShard capacity dispatch
+# ---------------------------------------------------------------------------
+
+def capacity_of(cfg_moe, S: int) -> int:
+    """Rows per (batch row, expert): ``max(1, ceil(S k cf / E))`` with S the
+    sequence length of the call -- 1 for a decode step (S = 1) and for a
+    speculative verify pass (S = k_spec + 1 = 4 at top-6 of 64), 30 for a
+    256-row prefill chunk of deepseek-moe-16b, its padding rows counted."""
+    return max(1, math.ceil(S * cfg_moe.top_k * cfg_moe.capacity_factor
+                            / cfg_moe.num_experts))
+
+
+def dispatch_slots(cfg_moe, idx: torch.Tensor, capacity: int):
+    """Where each choice goes: (slot, keep), both (B, S, k).
+
+    A choice (b, s, j) of expert e = idx[b, s, j] takes position ``pos``
+    among batch row b's choices of e in the flattened (s, j) order (within a
+    token, j runs in descending probability), and is kept where pos <
+    capacity -- the reference's cumsum over one-hot choices.  Its slot is
+    its row of the (E, B, C) expert input, flattened: (e B + b) C + pos."""
+    B, S, k = idx.shape
+    flat = F.one_hot(idx.reshape(B, S * k), cfg_moe.num_experts)   # (B, S*k, E)
+    pos = ((flat.cumsum(1) - 1) * flat).sum(-1).reshape(B, S, k)
+    b = torch.arange(B, device=idx.device).view(B, 1, 1)
+    return (idx * B + b) * capacity + pos, pos < capacity
+
+
+def moe_einsum(cfg_moe, params, x, idx, prob, *, capacity: int | None = None):
+    """Capacity dispatch within per-batch-row groups (the reference's
+    ``moe_einsum``).  x: (B, S, D); idx/prob: (B, S, k).  Each kept token
+    is copied into its expert's row, the E experts run on (E, B C, D) rows
+    (zeros where no token arrived), and each token sums ``prob`` (in x's
+    type) times its kept experts' rows in fp32, rounded once to x's type;
+    a dropped choice adds nothing."""
+    B, S, D = x.shape
+    e = cfg_moe.num_experts
+    if capacity is None:
+        capacity = capacity_of(cfg_moe, S)
+    slot, keep = dispatch_slots(cfg_moe, idx, capacity)
+    token = torch.arange(B * S, device=x.device).view(B, S, 1).expand_as(slot)
+    xs = x.new_zeros((e * B * capacity, D))
+    xs[slot[keep]] = x.reshape(B * S, D)[token[keep]]
+    ys = expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
+                    xs.view(e, B * capacity, D)).reshape(e * B * capacity, D)
+    rows = ys[torch.where(keep, slot, 0)].float()                # (B, S, k, D)
+    w = torch.where(keep, prob.to(x.dtype), 0).float()
+    out = torch.where(keep[..., None], rows * w[..., None], 0.0).sum(2)
+    return out.to(x.dtype)
+
+
+def moe_apply(cfg_moe, params, x, idx, prob):
+    """The reference's strategy choice without a mesh: :func:`moe_einsum`."""
+    return moe_einsum(cfg_moe, params, x, idx, prob)

@@ -1,6 +1,6 @@
 """Model API for the ported families (counterpart of
 ``repro/models/registry.py``: the dense transformer, ``:55-97``, with the
-training forward, the hybrid family, ``:100-118``, the recurrent (ssm)
+training forward, which serves the MoE family too, the hybrid family, ``:100-118``, the recurrent (ssm)
 family, ``:121-140``, and the cnn family, ``:164-173``).
 
   init(cfg, generator)                          -> params
@@ -163,13 +163,13 @@ def _gn_forward(cfg, params, batch, *, remat=True, chunk=1024):
 GOOGLENET_FNS = ModelFns("cnn", googlenet.init, None, None, None,
                          forward=_gn_forward)
 
-_BY_FAMILY = {"dense": TRANSFORMER_FNS, "hybrid": HYBRID_FNS,
-              "ssm": RECURRENT_FNS, "cnn": GOOGLENET_FNS}
+_BY_FAMILY = {"dense": TRANSFORMER_FNS, "moe": TRANSFORMER_FNS,
+              "hybrid": HYBRID_FNS, "ssm": RECURRENT_FNS, "cnn": GOOGLENET_FNS}
 
 
 def fns_for(cfg) -> ModelFns:
-    """The ported model functions: the dense, hybrid, ssm and cnn
-    families."""
+    """The ported model functions: the dense, moe, hybrid, ssm and cnn
+    families (moe through the transformer's, as the reference's)."""
     if cfg.family not in _BY_FAMILY:
         raise ValueError(f"family {cfg.family!r} is not ported yet; "
                          f"repro_torch runs {sorted(_BY_FAMILY)}")

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the training forward and serving from
 contiguous caches or a paged KV pool (counterpart of
-``repro/models/transformer.py``, dense family).
+``repro/models/transformer.py``, dense and MoE families).
 
 Entry points:
   * ``init``          -- parameters from a seeded ``torch.Generator``, with
@@ -30,7 +30,11 @@ their plain PyTorch versions on the CPU: ``prefill`` through the dense
 flash kernel (K4), a contiguous decode through the dense decode kernel
 (K3), the paged paths through K1 and K2.  Every weight product, in serving
 and in training, goes through the K7 matmul kernel
-(:mod:`repro_torch.models.layers.linear`).  Training attention goes
+(:mod:`repro_torch.models.layers.linear`); a mixture-of-experts block's
+experts run K7's batched entry, all experts in one launch a product
+(:mod:`repro_torch.models.layers.moe`), and DeepSeekMoE's first
+``first_k_dense`` layers are dense blocks of their own (``dense_blocks``)
+ahead of the stack, as the reference's.  Training attention goes
 through K4 as well, differentiable: its backward is a hand-written kernel
 (``csrc/flash_attention_backward.cu``), where the reference differentiates
 its plain ``chunked_attention``.  The caller picks the kernel by the
@@ -56,6 +60,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import paged_prefill_attention
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import linear
+from repro_torch.models.layers import moe as MOE
 from repro_torch.models.layers.embedding import embed, embedding_table
 from repro_torch.models.layers.embedding import logits as lm_logits
 from repro_torch.models.layers.mlp import swiglu, swiglu_table
@@ -203,41 +208,70 @@ def make_paged_cache(cfg, num_blocks: int, block_size: int, batch: int,
 # parameter tables
 # ---------------------------------------------------------------------------
 
-def block_table(cfg):
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks are not ported yet")
-    t = {"ln1": norm_table(cfg), "attn": A.attention_table(cfg),
-         "mlp": swiglu_table(cfg.d_model, cfg.d_ff)}
+def _ffn_table(cfg):
+    """Dense FFN, or the MoE table and the shared experts' SwiGLU (all
+    ``num_shared_experts`` fused into one of their summed width)."""
+    if cfg.moe is None:
+        return {"mlp": swiglu_table(cfg.d_model, cfg.d_ff)}
+    m = cfg.moe
+    t = {"moe": MOE.moe_table(cfg.d_model, m.num_experts, m.d_ff_expert)}
+    if m.num_shared_experts:
+        t["shared"] = swiglu_table(cfg.d_model,
+                                   m.num_shared_experts * m.d_ff_shared)
+    return t
+
+
+def block_table(cfg, *, dense_ffn: bool = False):
+    """One block's table; ``dense_ffn``: an MoE config's leading dense
+    layer, a SwiGLU of ``d_ff_dense`` (or ``d_ff``)."""
+    t = {"ln1": norm_table(cfg), "attn": A.attention_table(cfg)}
+    if dense_ffn:
+        t["mlp"] = swiglu_table(cfg.d_model, (cfg.moe.d_ff_dense or cfg.d_ff)
+                                if cfg.moe else cfg.d_ff)
+    else:
+        t.update(_ffn_table(cfg))
     if not cfg.parallel_block:
         t["ln2"] = norm_table(cfg)
     return t
 
 
 def lm_table(cfg):
-    return {
+    first_k = cfg.moe.first_k_dense if cfg.moe else 0
+    t = {
         "embed": embedding_table(cfg.vocab_size, cfg.d_model,
                                  cfg.tie_embeddings),
-        "blocks": stack_table(block_table(cfg), cfg.num_layers),
+        "blocks": stack_table(block_table(cfg), cfg.num_layers - first_k),
         "ln_f": norm_table(cfg),
     }
-
-
-def init(cfg, generator: torch.Generator):
-    """Parameters in ``cfg.param_dtype`` on ``generator``'s device."""
-    return init_table(generator, lm_table(cfg), cfg.param_dtype)
+    if first_k:
+        t["dense_blocks"] = [block_table(cfg, dense_ffn=True)
+                             for _ in range(first_k)]
+    return t
 
 
 _PRODUCT_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv",
                     "w_gate", "w_up", "w_down")
 
 
+def init(cfg, generator: torch.Generator, *, cast_products: bool = False):
+    """Parameters in ``cfg.param_dtype`` on ``generator``'s device.
+    ``cast_products``: the leaves :func:`prepare_params` casts are stored in
+    the compute dtype already, each drawn in ``param_dtype`` a layer at a
+    time and cast before the next draw -- the numbers of ``prepare_params``
+    after a plain init, without the ``param_dtype`` tree ever resident
+    (deepseek-moe-16b: 65.5 GB in fp32, 31.9 GB in bf16 for its products)."""
+    cast = (_PRODUCT_WEIGHTS, cfg.compute_dtype) if cast_products else None
+    return init_table(generator, lm_table(cfg), cfg.param_dtype, cast=cast)
+
+
 def prepare_params(cfg, params, device=None):
     """Move ``params`` to ``device`` and cast every weight that enters a
     matrix product (and the QKV biases added to its result) to the compute
-    dtype, once.  The reference casts these fp32 weights to the compute
-    dtype before every product; casting once at load gives the same
-    numbers.  Norm scales and the (tied) embedding stay in ``param_dtype``:
-    the reference computes norms and the LM head in fp32."""
+    dtype, once: the experts' stacked products too, the MoE router not (the
+    reference computes its logits in fp32).  The reference casts these fp32
+    weights to the compute dtype before every product; casting once at load
+    gives the same numbers.  Norm scales and the (tied) embedding stay in
+    ``param_dtype``: the reference computes norms and the LM head in fp32."""
     return cast_product_weights(params, _PRODUCT_WEIGHTS, cfg.compute_dtype,
                                 device)
 
@@ -344,9 +378,25 @@ def _flash_attend(cfg, q, k, v, chunk):
                            causal=True, chunk=chunk)
 
 
+def _ffn_apply(cfg, p, h, aux_out):
+    """The FFN half of a block: the dense SwiGLU, or the routed experts
+    (their capacity dispatch) plus the shared experts' SwiGLU, added after.
+    A routed block appends its aux loss to ``aux_out`` when it is a list."""
+    if "moe" not in p:
+        return swiglu(p["mlp"], h)
+    m = cfg.moe
+    idx, prob, aux = MOE.route(m, p["moe"], h)
+    if aux_out is not None:
+        aux_out.append(aux)
+    out = MOE.moe_apply(m, p["moe"], h, idx, prob)
+    if m.num_shared_experts:
+        out = out + swiglu(p["shared"], h)
+    return out
+
+
 def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
                 cache_scales=None, kv_len=None, block_tables=None,
-                paged_prefill=None, kv_out=None, chunk=1024):
+                paged_prefill=None, kv_out=None, aux_out=None, chunk=1024):
     """One transformer block.
 
     Without a cache: causal self-attention over the whole of x (B, S, D)
@@ -362,7 +412,8 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
     table's blocks.  With this layer's contiguous caches (no
     ``block_tables``): decode through ``seq_sharded_decode_attention``.
     ``cache_scales``: this layer's (k_scale, v_scale) when the cache or
-    pool is int8.
+    pool is int8.  ``aux_out``: a list that an MoE block's router appends
+    its aux loss to.
     """
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
@@ -384,9 +435,9 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
                              block_tables, kv_len, chunk)
     attn = A.attn_output(cfg, p["attn"], attn)
     if cfg.parallel_block:
-        return x + attn + swiglu(p["mlp"], h)
+        return x + attn + _ffn_apply(cfg, p, h, aux_out)
     x = x + attn
-    return x + swiglu(p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return x + _ffn_apply(cfg, p, apply_norm(cfg, p["ln2"], x), aux_out)
 
 
 def _unstack_layers(tree: Any, num: int) -> list:
@@ -401,9 +452,17 @@ def _unstack_layers(tree: Any, num: int) -> list:
     return list(tree.unbind(0))
 
 
-def _scan_blocks(cfg, stacked, x, positions, *, remat, chunk=1024):
-    """The homogeneous block stack without a cache (training; the
-    reference's ``lax.scan``, ``:411-462``).  ``cfg.remat``: ``"none"`` runs
+def _layers(cfg, params) -> list:
+    """Every layer's parameters in depth order: an MoE config's
+    ``dense_blocks`` (cache layers ``[0, first_k)``), then the stack's
+    ``num_layers - first_k`` layers."""
+    dense = list(params.get("dense_blocks", ()))
+    return dense + _unstack_layers(params["blocks"], cfg.num_layers - len(dense))
+
+
+def _scan_blocks(cfg, layers, x, positions, *, remat, aux_out=None, chunk=1024):
+    """Every layer without a cache (training; the reference's unrolled
+    dense blocks and its ``lax.scan``, ``:411-462``).  ``cfg.remat``: ``"none"`` runs
     the blocks as they are; ``"full"`` keeps only each block's input and
     recomputes the block in the backward (``jax.checkpoint`` with
     ``nothing_saveable``: here ``torch.utils.checkpoint``, non-reentrant);
@@ -411,63 +470,76 @@ def _scan_blocks(cfg, stacked, x, positions, *, remat, chunk=1024):
     product's output as well (:func:`linear.keep_products`): the recompute
     runs the norms, RoPE, activations and K4 again but launches no K7.  A
     value the reference does not know runs as ``"full"``, as its
-    ``_REMAT_POLICIES.get(cfg.remat, full)`` does."""
+    ``_REMAT_POLICIES.get(cfg.remat, full)`` does.  A recomputed MoE block
+    appends its aux loss to ``aux_out`` again in the backward, after the
+    forward has summed it."""
     policy = cfg.remat if remat else "none"
-    for p in _unstack_layers(stacked, cfg.num_layers):
+    for p in layers:
         if policy == "none":
-            x = block_apply(cfg, p, x, positions, chunk=chunk)
+            x = block_apply(cfg, p, x, positions, aux_out=aux_out, chunk=chunk)
         elif policy == "dots":
             x = checkpoint(_block_keeping_products, linear.KeptProducts(), cfg, p, x,
-                           positions, chunk, use_reentrant=False)
+                           positions, chunk, aux_out, use_reentrant=False)
         else:
-            x = checkpoint(block_apply, cfg, p, x, positions, chunk=chunk,
-                           use_reentrant=False)
+            x = checkpoint(block_apply, cfg, p, x, positions, aux_out=aux_out,
+                           chunk=chunk, use_reentrant=False)
     return x
 
 
-def _block_keeping_products(kept, cfg, p, x, positions, chunk):
+def _block_keeping_products(kept, cfg, p, x, positions, chunk, aux_out=None):
     """``block_apply`` with its weight products' outputs kept in ``kept``
     (``remat="dots"``)."""
     with linear.keep_products(kept):
-        return block_apply(cfg, p, x, positions, chunk=chunk)
+        return block_apply(cfg, p, x, positions, aux_out=aux_out, chunk=chunk)
 
 
 def _apply_backbone(cfg, params, tokens, positions, *, cache=None,
                     remat=False, collect_kv=False, paged_prefill=None,
                     chunk=1024):
-    """Embed, run every layer, and the final norm.  Returns (x, KVCache or
-    None).
+    """Embed, run every layer, and the final norm.  Returns (x, the summed
+    aux loss of the MoE blocks (0 without any), KVCache or None).
 
     Without a cache the layers run over the whole sequence: the training
     stack, or with ``collect_kv`` the prefill, whose attention runs the
     flash kernel and whose layers' fresh K/V come back stacked as a
     :class:`KVCache` of the prompt's rows.  With a cache each layer runs
     against its slice of the contiguous caches or paged pools and, int8,
-    of their scales (the reference's ``lax.scan`` over stacked layers)."""
+    of their scales (the reference's ``lax.scan`` over stacked layers).
+    An MoE config's dense blocks take cache layers ``[0, first_k)`` and the
+    stack ``[first_k, num_layers)``."""
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
-    blocks = params["blocks"]
+    layers = _layers(cfg, params)
+    aux: list = []
+
+    def aux_sum():
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in aux:                     # in depth order, as the reference
+            total = total + a
+        return total
+
     if cache is None and not collect_kv:
-        x = _scan_blocks(cfg, blocks, x, positions, remat=remat, chunk=chunk)
-        return apply_norm(cfg, params["ln_f"], x), None
+        x = _scan_blocks(cfg, layers, x, positions, remat=remat, aux_out=aux,
+                         chunk=chunk)
+        return apply_norm(cfg, params["ln_f"], x), aux_sum(), None
     if cache is None:
         kv: list = []
-        for p in _unstack_layers(blocks, cfg.num_layers):
-            x = block_apply(cfg, p, x, positions, kv_out=kv, chunk=chunk)
+        for p in layers:
+            x = block_apply(cfg, p, x, positions, kv_out=kv, aux_out=aux, chunk=chunk)
         B, S = tokens.shape
-        return apply_norm(cfg, params["ln_f"], x), KVCache(
+        return apply_norm(cfg, params["ln_f"], x), aux_sum(), KVCache(
             k=torch.stack([k for k, _ in kv]),
             v=torch.stack([v for _, v in kv]),
             length=torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device))
     quant = isinstance(cache, (QuantKVCache, QuantPagedKVCache))
     tables = getattr(cache, "block_tables", None)
-    for i, p in enumerate(_unstack_layers(blocks, cfg.num_layers)):
+    for i, p in enumerate(layers):
         scales = (cache.k_scale[i], cache.v_scale[i]) if quant else None
         x = block_apply(cfg, p, x, positions, cache_k=cache.k[i],
                         cache_v=cache.v[i], cache_scales=scales,
                         kv_len=cache.length, block_tables=tables,
-                        paged_prefill=paged_prefill, chunk=chunk)
-    return apply_norm(cfg, params["ln_f"], x), cache
+                        paged_prefill=paged_prefill, aux_out=aux, chunk=chunk)
+    return apply_norm(cfg, params["ln_f"], x), aux_sum(), cache
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +567,8 @@ def check_row_positions(positions: torch.Tensor) -> None:
 
 def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
     """Training forward.  tokens: (B, S) -> full logits (B, S, V) fp32 and
-    the aux loss (0: the dense family has no router).  ``params`` are the
+    the aux loss: the MoE blocks' router losses summed in depth order (0
+    for the dense family, which has no router).  ``params`` are the
     fp32 master weights: each product casts its weight to the compute
     dtype at use, as the reference does (under ``remat="full"`` the block's
     casts run again in the recompute; nothing is cached across steps).
@@ -505,11 +578,11 @@ def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
         positions = default_positions(cfg, tokens)
     else:
         check_row_positions(positions)
-    x, _ = _apply_backbone(cfg, params, tokens, positions, remat=remat,
-                           chunk=chunk)
+    x, aux, _ = _apply_backbone(cfg, params, tokens, positions, remat=remat,
+                                chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
-    return lg, torch.zeros((), dtype=torch.float32, device=lg.device)
+    return lg, aux
 
 
 def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",
@@ -523,8 +596,8 @@ def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",
     ``positions`` (RoPE's) must be each row's index, as the default is."""
     if positions is None:
         positions = default_positions(cfg, tokens)
-    x, cache = _apply_backbone(cfg, params, tokens, positions,
-                               collect_kv=True, chunk=chunk)
+    x, _, cache = _apply_backbone(cfg, params, tokens, positions,
+                                  collect_kv=True, chunk=chunk)
     B, Sq = tokens.shape
     max_len = max_len or Sq
     cdt = dtype_of(cache_dtype)
@@ -560,11 +633,11 @@ def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
     B, C = tokens.shape
     pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=tokens.device)[None]
-    x, _ = _apply_backbone(cfg, params, tokens, pos.expand(B, C),
-                           cache=cache, chunk=chunk,
-                           paged_prefill=dict(write_ids=write_ids,
-                                              table=table, q_start=q_start,
-                                              kv_len=kv_len))
+    x, _, _ = _apply_backbone(cfg, params, tokens, pos.expand(B, C),
+                              cache=cache, chunk=chunk,
+                              paged_prefill=dict(write_ids=write_ids,
+                                                 table=table, q_start=q_start,
+                                                 kv_len=kv_len))
     last = x[torch.arange(B, device=x.device), last_idx][:, None]
     lg = lm_logits(params["embed"], last, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
@@ -592,11 +665,11 @@ def verify_paged(cfg, params, tokens, cache, table, *, q_start, kv_len,
     B, C = tokens.shape
     pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=tokens.device)[None]
-    x, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
-                           chunk=chunk,
-                           paged_prefill=dict(write_ids=None, table=table,
-                                              q_start=q_start,
-                                              kv_len=kv_len))
+    x, _, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
+                              chunk=chunk,
+                              paged_prefill=dict(write_ids=None, table=table,
+                                                 q_start=q_start,
+                                                 kv_len=kv_len))
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg, cache
@@ -607,8 +680,8 @@ def decode_step(cfg, params, tokens, cache, *, chunk=2048):
     logits (B, V) fp32, and the cache with the new rows written in place
     and ``length`` advanced by one."""
     pos = cache.length[:, None]
-    x, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
-                           chunk=chunk)
+    x, _, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
+                              chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg[:, 0], cache._replace(length=cache.length + 1)

@@ -62,7 +62,15 @@ widths on the FMA body's sliced layout (N and P in slices of 64) on
 own, two launches the same bits; an xlstm-125m training microbatch and a
 2-block full-width fp32 train step against the plain versions.  A
 kernel called on the card with an input that requires grad raises,
-naming where its gradient is (or that it has none).
+naming where its gradient is (or that it has none).  K7's batched entry
+(the experts' products of an MoE layer) on K7's limit on both bodies,
+ragged E, M, N and K in three layouts; each expert's output bit for bit
+the 2-D entry's on that expert's operands (no expert's rows reach
+another's tiles), its two tiles the same bits; and one deepseek-moe-16b
+MoE layer at full width through the kernels against the plain versions
+on the same routes (fp32 within 1e-5 of the largest output; bf16 within
+2^-6 of it: an intermediate bf16 rounding of h that flips by one ulp
+moves an output by up to an ulp of the largest).
 """
 import hashlib
 
@@ -1787,3 +1795,94 @@ def test_qwen_microbatch_runs_the_backward_tensor_core_body(cuda):
         "flash_attention": {"mma": 2 * L}, "flash_attention_backward": {"mma": L}}
     assert all(t.plain_calls == 0 for t in table.values())
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+
+def _k7b_operands(dev, E, M, K, N, dtype, layout="", seed=0):
+    """(E, M, K) and (E, K, N) operands: row-major, or (``layout``) the
+    transpose of each expert's row-major (K, M) / (N, K) matrix, M padded to
+    8 elements in the buffer, as TMA reads them."""
+    g = torch.Generator(dev).manual_seed(seed)
+    if "x.T" in layout:
+        x = torch.randn((E, K, -(-M // 8) * 8), generator=g, device=dev).to(dtype)
+        x = x[:, :, :M].transpose(1, 2)
+    else:
+        x = torch.randn((E, M, K), generator=g, device=dev).to(dtype)
+    if "y.T" in layout:
+        y = torch.randn((E, N, K), generator=g, device=dev).to(dtype).transpose(1, 2)
+    else:
+        y = torch.randn((E, K, N), generator=g, device=dev).to(dtype)
+    return x, y
+
+
+K7B_SHAPES = [(1, 5, 37, 3), (3, 30, 300, 130), (5, 129, 70, 257), (64, 4, 2048, 1408),
+              (64, 30, 1408, 2048), (2, 1, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("E,M,K,N", K7B_SHAPES)
+@pytest.mark.parametrize("layout", ["", "y.T", "x.T y.T"])
+def test_matmul_batched_matches_plain(cuda, dtype, E, M, K, N, layout):
+    """Both bodies: fp32 and 16-bit rows TMA cannot read on FMA, the rest
+    on wgmma; one launch for every expert."""
+    from repro_torch.kernels.matmul.ops import batched_body_for
+    x, y = _k7b_operands(cuda, E, M, K, N, dtype, layout)
+    k = dispatch.kernel_table()["matmul_batched"]
+    body = batched_body_for(x, y)
+    rows_aligned = K % 8 == 0 and (N % 8 == 0 or "y.T" in layout)   # 16-byte rows
+    assert body == ("wgmma" if dtype != torch.float32 and rows_aligned else "fma")
+    dispatch.reset_counts()
+    out = k.launch(x, y)
+    ref = k.plain(x.float(), y.float())
+    torch.cuda.synchronize()
+    assert k.body_launches == {body: 1}
+    assert out.shape == (E, M, N) and out.dtype == dtype
+    assert k.tolerance(out, ref, K) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 2048), (torch.bfloat16, 2048),
+                                     (torch.bfloat16, 37)])
+@pytest.mark.parametrize("E,M,N", [(1, 30, 1408), (64, 30, 1408), (64, 4, 1408),
+                                   (3, 200, 300)])
+def test_matmul_batched_experts_equal_2d_bits(cuda, dtype, K, E, M, N):
+    """Each expert's output is the 2-D entry's bits on that expert's
+    operands (the same body, tile and order; no rows of a neighbouring
+    expert in a ragged tile), and the two tiles agree bit for bit."""
+    x, y = _k7b_operands(cuda, E, M, K, N, dtype, seed=3)
+    k = dispatch.kernel_table()["matmul_batched"]
+    k2 = dispatch.kernel_table()["matmul"]
+    out = k.launch(x, y)
+    for e in range(E):
+        assert torch.equal(out[e], k2.launch(x[e], y[e])), e
+    assert torch.equal(k.launch(x, y, tile="wide"), k.launch(x, y, tile="narrow"))
+
+
+@pytest.mark.parametrize("compute_dtype,limit", [("float32", 1e-5), ("bfloat16", 2.0 ** -6)])
+def test_moe_layer_at_deepseek_widths_matches_plain(cuda, compute_dtype, limit):
+    """One deepseek-moe-16b MoE layer (64 experts of 2048 x 1408, top-6, a
+    256-row prefill chunk: capacity 30) through the kernels -- the router
+    on K7's FMA body, the experts' three products one batched launch each
+    -- against the plain versions on the plain run's routes."""
+    from repro_torch.models.layers import moe as TM
+    from repro_torch.models.layers.module import init_table
+    cfg = TR.config("deepseek-moe-16b")
+    m = cfg.moe
+    dt = getattr(torch, compute_dtype)
+    g = torch.Generator(cuda).manual_seed(0)
+    p = init_table(g, TM.moe_table(cfg.d_model, m.num_experts, m.d_ff_expert), "float32",
+                   cast=(("w_gate", "w_up", "w_down"), compute_dtype))
+    x = torch.randn((1, 256, cfg.d_model), generator=g, device=cuda).to(dt)
+    with dispatch.plain_versions():
+        idx, prob, _ = TM.route(m, p, x)
+        want = TM.moe_einsum(m, p, x, idx, prob)
+    dispatch.reset_counts()
+    got = TM.moe_einsum(m, p, x, idx, prob)
+    kidx, _, _ = TM.route(m, p, x)
+    torch.cuda.synchronize()
+    table = dispatch.kernel_table()
+    assert table["matmul_batched"].launches == 3 and table["matmul"].body_launches == {"fma": 1}
+    assert all(t.plain_calls == 0 for t in table.values())
+    assert TM.capacity_of(m, 256) == 30
+    assert int((kidx != idx).any(-1).sum()) <= 1          # a near-tie may flip one token
+    rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert got.dtype == dt and rel <= limit

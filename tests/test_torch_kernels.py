@@ -234,8 +234,8 @@ def test_cpu_tensors_take_the_counted_plain_version():
     table = dispatch.kernel_table()
     assert set(table) == {"conv2d", "conv2d_backward", "decode_attention",
                           "flash_attention", "flash_attention_backward", "matmul",
-                          "paged_decode_attention", "paged_prefill_attention",
-                          "ssm_scan", "ssm_scan_backward"}
+                          "matmul_batched", "paged_decode_attention",
+                          "paged_prefill_attention", "ssm_scan", "ssm_scan_backward"}
     dec = table["paged_decode_attention"]
     dispatch.reset_counts()
     _, kp, vp, tables = _pool(1, "float32")

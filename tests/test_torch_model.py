@@ -1,7 +1,10 @@
 """The port's transformer against the JAX reference on the same weights
 (handed over through ``repro_torch.interop``): chunked paged prefill of
 two prompts -- the second seeded from the first one's prefix blocks --
-then batched decode steps, comparing logits *and* pool contents.
+then batched decode steps, comparing logits *and* pool contents -- the
+dense family's smoke configs and the moe family's (at bf16 the MoE
+configs' logits are held to accuracy parity with the reference, see the
+test).
 
 Tolerances: fp32 compute with an fp32 pool, rtol 1e-4 (same arithmetic,
 other summation order).  fp32 compute with an int8 pool: logits the same
@@ -90,9 +93,25 @@ def _schedule(vocab):
 # (qwen3-32b), bf16 params and a 128k-vocab-style head (llama3-405b), the
 # parallel block with LayerNorm and tied embeddings (command-r-plus-104b)
 DENSE = ["qwen2.5-3b", "qwen3-32b", "llama3-405b", "command-r-plus-104b"]
+# the moe family's: a first dense layer, shared experts and unnormalised
+# top-k (deepseek-moe-16b); qk_norm and normalised top-k (qwen3-moe)
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _products(cfg) -> tuple[int, int]:
+    """(K7 launches, K7 batched-entry launches) of one model call: a dense
+    block's 7 products; an MoE block's 4 attention products, its router
+    and its shared experts' 3, and its experts' 3 on the batched entry; the
+    LM head."""
+    if cfg.moe is None:
+        return 7 * cfg.num_layers + 1, 0
+    m = cfg.moe
+    moe_layers = cfg.num_layers - m.first_k_dense
+    per_moe = 4 + 1 + (3 if m.num_shared_experts else 0)
+    return 7 * m.first_k_dense + per_moe * moe_layers + 1, 3 * moe_layers
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_prefill_then_decode_matches_jax(compute_dtype, arch):
     jcfg = JR.smoke(arch).replace(compute_dtype=compute_dtype)
@@ -106,21 +125,37 @@ def test_prefill_then_decode_matches_jax(compute_dtype, arch):
     dispatch.reset_counts()
     tl, tc = _run(T, tcfg, tp, torch.from_numpy, steps)
     counts = {n: k.plain_calls for n, k in dispatch.kernel_table().items()}
+    products, batched = _products(tcfg)
     assert counts == {"paged_prefill_attention": 3 * tcfg.num_layers,
                       "paged_decode_attention": 3 * tcfg.num_layers,
                       "conv2d": 0, "conv2d_backward": 0, "decode_attention": 0,
                       "flash_attention": 0, "ssm_scan": 0,
                       "flash_attention_backward": 0, "ssm_scan_backward": 0,
-                      # 7 products a layer and the LM head, per call
-                      "matmul": 6 * (7 * tcfg.num_layers + 1)}
+                      # per call, 3 prefill chunks and 3 decode steps
+                      "matmul": 6 * products, "matmul_batched": 6 * batched}
 
     def close(t, j):
         if compute_dtype == "float32":
             np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
         else:
             assert np.abs(t - j).max() <= 5e-2 * np.abs(j).max()
-    for t, j in zip(tl, jl):
-        close(_f32(t), _f32(j))
+    if compute_dtype == "bfloat16" and tcfg.moe is not None:
+        # an MoE smoke model amplifies bf16 rounding further than the dense
+        # ones: the reference's own bf16 logits sit up to 0.22 of the
+        # largest from its fp32 ones on this schedule (deepseek's second
+        # decode step; the port's 0.12, on the same routes), so the two bf16
+        # runs' logits are held to accuracy parity: the port no further from
+        # the reference's fp32 logits than the reference's bf16 ones are,
+        # plus the limit above
+        f32 = jcfg.replace(compute_dtype="float32")
+        exact, _ = _run(JT, f32, jax_fns(f32).init(f32, jax.random.PRNGKey(0)),
+                        jnp.asarray, steps)
+        for t, j, x in zip(tl, jl, exact):
+            t, j, x = _f32(t), _f32(j), _f32(x)
+            assert np.abs(t - x).max() <= np.abs(j - x).max() + 5e-2 * np.abs(x).max()
+    else:
+        for t, j in zip(tl, jl):
+            close(_f32(t), _f32(j))
     # pools: every block but the trash block (padding rows race there)
     for name in ("k", "v"):
         close(_f32(getattr(tc, name))[:, 1:], _f32(getattr(jc, name))[:, 1:])

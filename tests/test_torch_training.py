@@ -548,7 +548,7 @@ def test_straggler_fault_is_nonfatal():
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg = TR.smoke("qwen2.5-3b")
     data = iter(SyntheticTokens(cfg, batch=2, seq_len=8))
-    for arch in ("deepseek-moe-16b", "whisper-medium"):    # no model functions yet
+    for arch in ("qwen2-vl-72b", "whisper-medium"):    # no model functions yet
         with pytest.raises(ValueError, match="is not ported"):
             fns_for(TR.smoke(arch))
     # the ssm family serves and trains (K5's backward walks N and P in slices)
