@@ -358,7 +358,36 @@ Phases (each one raises on failure; the script then exits non-zero):
    ``TOL_PATH_REL``; each layer's own decision on those upstream routes
    may differ from the plain run's only where the plain run's smallest
    neighbouring log-probability gap among the top k + 1 is below
-   ``TOL_MOE_FLIP_GAP``).
+   ``TOL_MOE_FLIP_GAP``); every expert receives a kept row in each MoE
+   layer, and the replayed run's MoE outputs, every row of every call,
+   are finite and within ``TOL_MOE_OUT_REL`` of the plain run's.
+
+26. deepseek-moe-16b training.  26a: the batched entry's backward
+   products, dX = dY @ W^T and dW = X^T @ dY on transposed views, against
+   the plain version on ``K7B_BWD_CASES`` -- a 512-token microbatch's 60
+   rows an expert for gate/up and down, dW contracting over 1, 7 and 61
+   rows, 5 experts of odd sizes on both bodies, fp32 on FMA -- each on its
+   route's body (wgmma for every 16-bit view TMA can read), launched twice
+   for the same bits, timed beside the plain version, ``torch.bmm`` on the
+   same views and the bound.  26b: the fp32 training path check at full
+   width cut to 1 dense + 1 and + 3 MoE layers, one 1 x 512 microbatch
+   under remat "full", the kernels replaying the plain run's routes: loss
+   and aux loss within ``TOL_TRAIN_LOSS_REL``; each gradient leaf no
+   farther from an fp64-products run than ``TOL_MOE_EXACT_RATIO``
+   times the plain run's, and at depth 2 within ``TOL_TRAIN_GRAD_REL`` of
+   the plain run's largest, each expert's slice within
+   ``TOL_MOE_EXPERT_GRAD_REL`` of its own; every expert receives a kept
+   row; the recompute routes as the forward; two kernel runs the same
+   bits; the allocator's free blocks filled with NaN before each run.
+   26c: deepseek-moe-16b at full width cut to 4 layers (1 dense + 3 MoE,
+   ~2.27 B parameters) trained by the port's ``Trainer`` (fp32 master
+   weights, bf16 compute, AdamW, remat "full"; 3 steps of 4 x 512 tokens
+   in 4 microbatches): losses finite, launches exact by body per
+   microbatch (``moe_train_counts``: K7 112 wgmma + 15 FMA, its batched
+   entry 36 wgmma, K4 8 and its backward 4 on mma), no plain call; step
+   time, tok/s, tok/s/W, peak memory, one profiled microbatch's busy share
+   beside CUDA events around it, and its recompute's routes equal to its
+   forward's.
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -372,13 +401,15 @@ and K2's int8 bodies as entries of their own (``...:int8``: their
 launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
-K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d, 21d and 22d, K4's
-backward 15, 21d and 22d, K5 10, 21d, 22d and 23b, K5's backward 21d and
+K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d, 21d, 22d and 26c,
+K4's backward 15, 21d, 22d and 26c, K5 10, 21d, 22d and 23b, K5's backward 21d and
 22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
-18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b and 25b, K7's batched entry 25b
-(its entry also carries the decode step's shape: ``decode_ms``,
-``decode_plain_ms``, ``decode_library_ms``, ``decode_bound_ms``,
-``decode_bound_by``, ``decode_shape``).  K5's entry also carries its
+18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b and 26c, K7's batched entry
+25b and 26c (its entry also carries the decode step's shape:
+``decode_ms``, ``decode_plain_ms``, ``decode_library_ms``,
+``decode_bound_ms``, ``decode_bound_by``, ``decode_shape``; and its two
+backward products at a training microbatch's, ``train_dx_*`` and
+``train_dw_*``).  K5's entry also carries its
 time at xlstm-125m's prefill shape (``xlstm_ms``, ``xlstm_plain_ms``,
 ``xlstm_bound_ms``, ``xlstm_bound_by``, ``xlstm_shape``).  The three backward kernels replace no
 Pallas kernel (the reference differentiates its plain functions and
@@ -701,6 +732,70 @@ DEEPSEEK_KV_BYTES = 2 * DEEPSEEK_LAYERS * 16 * 128 * 2      # K and V, bf16, a t
 # twice the latter; a broken expert product moves them by 0.7-1.2.
 MOE_PATH_DEPTHS = (2, 4)
 TOL_MOE_FLIP_GAP = 5e-2
+# Phase 25c also holds the replayed run's MoE layer outputs, every row of
+# every call (the padded chunk's rows too), against the plain run's,
+# relative to the largest.  At depth 2 the one MoE layer is the last, so
+# its output reaches the two logit rows the check reads and no other: a
+# lost expert whose tokens are other rows left those logits bit for bit
+# (a mutant of the batched entry that skips the last expert).  The right
+# kernels read 2.2e-4 at depth 2 and 8.6e-3 at depth 4 (NVIDIA H100 80GB
+# HBM3, 700.00 W); the limits are ~9x and ~6x those.  A lost expert's rows
+# move by O(1) or read NaN.
+TOL_MOE_OUT_REL = {2: 2e-3, 4: 5e-2}
+# Phase 26: deepseek-moe-16b training.  26a: the batched entry's backward
+# products on transposed views, (label, E, C, D, F, dtype): a product
+# y = x @ w of x (E, C, D) and w (E, D, F) gives dX = dY @ w^T (E, C, D)
+# and dW = x^T @ dY (E, D, F), whose contraction is the capacity C.  A
+# 512-token microbatch gives each expert 60 rows (ceil(512 x 6 x 1.25 /
+# 64)): gate/up (D 2048 -> F 1408) and down (1408 -> 2048); C = 1, 7 and
+# 61 (contractions under and past one 64-deep K step); 5 experts of sizes
+# TMA can read and of sizes it cannot (bf16 on the FMA body); fp32 on FMA.
+# The first is the kernels line's.
+K7B_BWD_CASES = (("train gate/up", 64, 60, 2048, 1408, "bfloat16"),
+                 ("train down", 64, 60, 1408, 2048, "bfloat16"),
+                 ("C=1", 64, 1, 2048, 1408, "bfloat16"),
+                 ("C=7", 64, 7, 1408, 2048, "bfloat16"),
+                 ("C=61", 64, 61, 2048, 1408, "bfloat16"),
+                 ("E=5 C=13 D=520 F=1000", 5, 13, 520, 1000, "bfloat16"),
+                 ("E=5 C=13 D=517 F=999", 5, 13, 517, 999, "bfloat16"),
+                 ("fp32 train gate/up", 64, 60, 2048, 1408, "float32"))
+# 26b: the fp32 training path check at full width cut to 1 dense + 1 and +
+# 3 MoE layers, one 1 x TRAIN_SEQ microbatch under remat "full", the
+# kernels replaying the plain run's routes (as 25c): the loss and aux loss
+# within TOL_TRAIN_LOSS_REL, each gradient leaf within TOL_TRAIN_GRAD_REL
+# of its largest entry (phase 14's limits), and each expert's slice of the
+# expert weights' gradients within TOL_MOE_EXPERT_GRAD_REL of that slice's
+# own largest entry, set before the first run: an expert's gradient sums
+# its C rows' products, so its rounding is a leaf's, but the slice of an
+# expert with few rows is read against a smaller largest entry; a lost or
+# misplaced expert moves its slice by O(1).
+MOE_TRAIN_DEPTHS = (2, 4)
+TOL_MOE_EXPERT_GRAD_REL = 1e-1
+# At depth 4 two right fp32 paths part further: the kernels' leaves read up
+# to 0.23 of their largest from the plain versions' (the first layer's MLP,
+# the deepest gradient; an expert slice 0.27), where depth 2 reads 1.1e-3;
+# the plain run itself sits 0.148 from a run whose weight products (2-D
+# and batched) are summed in fp64 and rounded once ("exact products"),
+# and two plain runs that differ only in the attention's KV tile 6.0e-3
+# apart (NVIDIA H100 80GB HBM3, 700.00 W): three layers of near-one-hot
+# attention amplify the products' rounding.  So each depth is held, as
+# phase 14 is, against the exact products: every leaf of the kernels no
+# more than TOL_MOE_EXACT_RATIO times as far from them as the plain
+# versions' (floored at 1e-7; an expert's slice is not: one of the 576
+# slices, each a sum over 60 rows, read 2.33x at depth 2).  At
+# depth 2 that is phase 14's 2.0 (the worst leaf read 0.86); at depth 4 the
+# deepest leaf read 3.11 (0.46 against the plain run's 0.148), so 8.  And
+# at the depths in MOE_TRAIN_ABSOLUTE every leaf within TOL_TRAIN_GRAD_REL
+# and every expert's slice within TOL_MOE_EXPERT_GRAD_REL of the plain
+# versions'.
+MOE_TRAIN_ABSOLUTE = (2,)
+TOL_MOE_EXACT_RATIO = {2: TOL_TRAIN_EXACT_RATIO, 4: 8.0}
+# 26c: deepseek-moe-16b cut to 1 dense + 3 MoE layers (full width), fp32
+# master weights, bf16 compute, AdamW, remat "full": MOE_TRAIN_STEPS steps
+# of MOE_TRAIN_BATCH x TRAIN_SEQ tokens in MOE_TRAIN_ACCUM microbatches
+# (xlstm's recipe in 24c).
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_ACCUM = 3, 4, 4
 
 
 def log(*a) -> None:
@@ -4295,8 +4390,8 @@ def pass_times(torch, fn, tag: str, reps: int = 10) -> dict[str, tuple[float, in
     runs inside the collecting window.  Late in the whole script the
     profiler has still recorded as few as 1-2 of 10 launches, and once
     none: the mean is over the launches recorded, their
-    count comes with it, and a kernel never recorded is absent."""
-    import re
+    count comes with it, and a kernel never recorded is absent
+    (:func:`per_launch`)."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     fn()
@@ -4307,10 +4402,19 @@ def pass_times(torch, fn, tag: str, reps: int = 10) -> dict[str, tuple[float, in
             flush.zero_()
             fn()
         torch.cuda.synchronize()
+    return per_launch(device_rows(prof), tag)
+
+
+def per_launch(rows, tag: str) -> dict[str, tuple[float, int]]:
+    """``device_rows``' rows ``(ms, calls, name)`` of the kernels whose name
+    holds ``tag``, summed by the name from ``tag`` on: ``{name: (ms per
+    launch, launches)}``.  A kernel with no row (the profiler recorded none
+    of its launches) is absent, never a zero."""
+    import re
     total, count = {}, {}
-    for ms, n, name in device_rows(prof):
+    for ms, n, name in rows:
         m = re.search(rf"{tag}\w*", name)
-        if m:
+        if m and n:
             total[m.group(0)] = total.get(m.group(0), 0.0) + ms
             count[m.group(0)] = count.get(m.group(0), 0) + n
     return {name: (total[name] / count[name], count[name]) for name in total}
@@ -5803,7 +5907,12 @@ def moe_path_rel(torch, np) -> dict:
     otherwise than the plain run, the plain run's smallest log-probability
     gap between neighbours of its top k + 1; logit_diff, the largest
     router-logit difference between the two; experts, how many experts a
-    layer call of the plain run routes to (least-most); the free run's route
+    layer call of the plain run routes to (least-most); missing, by MoE
+    layer the experts with no kept row in any of its calls (a broken
+    expert there would not show), and per_call, each call's rows and the
+    experts it leaves without a kept row; ys_rel and ys_finite, the replayed run's
+    MoE outputs (every row of every call, padding rows included) against
+    the plain run's, relative to the largest; the free run's route
     differences and logits rel (printed); whether the replayed run
     launched only kernels."""
     from unittest import mock
@@ -5865,19 +5974,30 @@ def moe_path_rel(torch, np) -> dict:
     def rel(a, b):
         return float(np.abs(a - b).max() / np.abs(b).max())
 
+    apply = MOE.moe_apply
+
+    def keeping(into):
+        def wrapped(*a, **kw):
+            y = apply(*a, **kw)
+            into.append(y.float())
+            return y
+        return wrapped
+
     out = {}
     for depth in MOE_PATH_DEPTHS:
         cfg = full.replace(num_layers=depth)
         n_moe = depth - full.moe.first_k_dense
         p = dict(params, blocks=tree_map(lambda t: t[:n_moe], params["blocks"]))
-        plain_routes, free_routes, own = [], [], []
-        with dispatch.plain_versions(), mock.patch.object(MOE, "route",
-                                                          recording(plain_routes)):
+        plain_routes, free_routes, own, plain_ys, kern_ys = [], [], [], [], []
+        with dispatch.plain_versions(), mock.patch.object(
+                MOE, "route", recording(plain_routes)), \
+                mock.patch.object(MOE, "moe_apply", keeping(plain_ys)):
             plain = serve(cfg, p)
         with mock.patch.object(MOE, "route", recording(free_routes)):
             free = serve(cfg, p)
         dispatch.reset_counts()
-        with mock.patch.object(MOE, "route", replaying(plain_routes, own)):
+        with mock.patch.object(MOE, "route", replaying(plain_routes, own)), \
+                mock.patch.object(MOE, "moe_apply", keeping(kern_ys)):
             kern = serve(cfg, p)
         table = dispatch.kernel_table()
         launched = all(table[n].launches > 0 for n in LM_KERNELS + ("matmul",
@@ -5893,7 +6013,20 @@ def moe_path_rel(torch, np) -> dict:
         free_flips = sum(int((pi != fi).any(-1).sum())
                          for (pi, _, _), (fi, _, _) in zip(plain_routes, free_routes))
         experts = sorted({len(torch.unique(r[0])) for r in plain_routes})
+        # the calls run layer by layer, n_moe a model call: the experts with
+        # no kept row in all of a layer's calls
+        kept, per_call = [set() for _ in range(n_moe)], []
+        for i, r in enumerate(plain_routes):
+            got = kept_experts(MOE, full.moe, r[0])
+            kept[i % n_moe] |= got
+            per_call.append((int(r[0].shape[1]),
+                             sorted(set(range(full.moe.num_experts)) - got)))
+        missing = [sorted(set(range(full.moe.num_experts)) - k) for k in kept]
+        ys_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(kern_ys, plain_ys))
         out[depth] = dict(rel=max(rel(kern[i], plain[i]) for i in (0, 1)),
+                          missing=missing, per_call=per_call, ys_rel=ys_rel,
+                          ys_finite=all(bool(torch.isfinite(y).all()) for y in kern_ys),
                           experts=f"{experts[0]}-{experts[-1]} of {full.moe.num_experts} "
                                   f"a layer call",
                           top1=bool((kern.argmax(-1) == plain.argmax(-1)).all()),
@@ -5910,11 +6043,14 @@ def moe_path_rel(torch, np) -> dict:
 
 def moe_path_fails(r: dict, depth: int, factor: float = 1.0) -> bool:
     """Whether phase 25c's check fails at ``depth`` (by ``factor`` past the
-    limit): logits not finite or past ``factor`` x ``TOL_PATH_REL``, or a
-    route decided otherwise (on the same upstream routes) where the plain
-    run had no near-tie."""
+    limit): logits or MoE outputs not finite or past ``factor`` x
+    ``TOL_PATH_REL``, a route decided otherwise (on the same upstream
+    routes) where the plain run had no near-tie, or an expert that no
+    token reaches in some layer (the check would not see it)."""
     return not (r["finite"] and r["rel"] <= factor * TOL_PATH_REL[depth]
-                and all(g < TOL_MOE_FLIP_GAP for g in r["flips"]))
+                and r["ys_finite"] and r["ys_rel"] <= factor * TOL_MOE_OUT_REL[depth]
+                and all(g < TOL_MOE_FLIP_GAP for g in r["flips"])
+                and not any(r["missing"]))
 
 
 def moe_path_check(torch, np) -> None:
@@ -5929,13 +6065,481 @@ def moe_path_check(torch, np) -> None:
             f"gaps there {[f'{g:.2e}' for g in r['flips']]} (each must be < "
             f"{TOL_MOE_FLIP_GAP}), router logits at most {r['logit_diff']:.3e} apart; "
             f"free-running kernels (printed): {r['free_flips']} tokens routed otherwise, "
-            f"logits rel {r['free_rel']:.3e}; experts routed to {r['experts']}; only "
-            f"kernels launched={r['launched']}")
+            f"logits rel {r['free_rel']:.3e}; experts routed to {r['experts']}; experts "
+            f"with no kept row by MoE layer {r['missing']} (by call, its rows and the "
+            f"experts it leaves without one: {r['per_call']}); the replayed MoE outputs "
+            f"(every row of every call) vs plain rel {r['ys_rel']:.3e} (tol "
+            f"{TOL_MOE_OUT_REL[depth]}) finite={r['ys_finite']}; only kernels launched="
+            f"{r['launched']}")
         if not r["launched"]:
             raise AssertionError("moe path check: the kernel engine did not run through "
                                  "K1, K2, K7 and its batched entry alone")
         if moe_path_fails(r, depth):
             raise AssertionError(f"moe path check, depth {depth}: {r}")
+
+
+# ---------------------------------------------------------------------------
+# deepseek-moe-16b training (phase 26)
+# ---------------------------------------------------------------------------
+
+
+def backward_products(x, w, dy) -> dict:
+    """The two launches of the batched entry in the backward of ``x @ w``
+    (``linear._BatchedMatmul``), each as its (x, y) operands: dX = dY @ w^T
+    and dW = x^T @ dY, on transposed views."""
+    return {"dX": (dy, w.transpose(1, 2)), "dW": (x.transpose(1, 2), dy)}
+
+
+def moe_backward_phase(torch, table) -> dict:
+    """Phase 26a: the batched entry's two backward products
+    (:func:`backward_products`) against the plain version (evaluated in
+    fp32 on the same values, ``dispatch.matmul_tolerance_ratio``) on
+    ``K7B_BWD_CASES``, each launched twice for the same bits and on the
+    body its route takes (16-bit views TMA can read on wgmma, every other
+    on FMA); then each timed (CUDA events, L2 flushed) beside the plain
+    version, one ``torch.bmm`` on the same views (TF32 off) and the bound:
+    each operand read once and the output written once, or 2 E M K N
+    operations.  Returns the first case's numbers for the kernels line."""
+    from repro_torch.kernels.matmul.ops import batched_body_for
+    kern = table["matmul_batched"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timer = Timer(torch, reps=10)
+    out = {}
+    for label, E, C, D, F, dtype in K7B_BWD_CASES:
+        x, w = k7b_operands(torch, E, C, D, F, dtype)
+        dy = k7b_operands(torch, E, C, F, 1, dtype, seed=1)[0]
+        want = "wgmma" if dtype != "float32" and D % 8 == 0 and F % 8 == 0 else "fma"
+        for which, (a, b) in backward_products(x, w, dy).items():
+            _, M, K = a.shape
+            N = b.shape[2]
+            body = batched_body_for(a, b)
+            got = kern.launch(a, b)
+            again = kern.launch(a, b)
+            ref = kern.plain(a.float(), b.float())
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs().max().item()
+            ratio = kern.tolerance(got, ref, K)
+            same = bool(torch.equal(got, again))
+            nbytes = a.element_size() * E * (M * K + K * N + M * N)
+            flops = 2.0 * E * M * K * N
+            r = dict(ms=timer(lambda: kern.launch(a, b)),
+                     plain_ms=timer(lambda: kern.plain(a, b)),
+                     library_ms=timer(lambda: torch.bmm(a, b)),
+                     bytes=nbytes, flops=flops, max_abs_err=err,
+                     shape=f"{label} {which}: E={E} M={M} K={K} N={N} {dtype} body={body}")
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes, flops, FP32_FLOPS if dtype == "float32" else BF16_FLOPS)
+            log(f"matmul_batched backward {r['shape']}: max_abs_err={err:.3e} "
+                f"err/limit={ratio:.3f} same bits twice={same}; kernel {r['ms']:.4f}ms "
+                f"plain {r['plain_ms']:.4f}ms torch.bmm {r['library_ms']:.4f}ms bound "
+                f"{r['bound_ms']:.4f}ms ({r['bound_by']}; {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP)")
+            if not (ratio <= 1.0 and same and body == want):
+                raise AssertionError(f"matmul_batched backward {label} {which}: err/limit "
+                                     f"{ratio}, same bits {same}, body {body} (expected "
+                                     f"{want})")
+            out[f"{label} {which}"] = r
+            del got, again, ref
+        del x, w, dy
+    res = {}
+    for which in ("dX", "dW"):
+        r = out[f"{K7B_BWD_CASES[0][0]} {which}"]
+        key = f"train_{which.lower()}"
+        res.update({f"{key}_ms": r["ms"], f"{key}_plain_ms": r["plain_ms"],
+                    f"{key}_library_ms": r["library_ms"], f"{key}_bound_ms": r["bound_ms"],
+                    f"{key}_bound_by": r["bound_by"], f"{key}_shape": r["shape"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def kept_experts(MOE, cfg_moe, idx) -> set:
+    """The experts that receive at least one kept row from the choices
+    ``idx`` (B, S, k) of one layer call, at the call's capacity."""
+    slot, keep = MOE.dispatch_slots(cfg_moe, idx, MOE.capacity_of(cfg_moe, idx.shape[1]))
+    return set(idx[keep].unique().tolist())
+
+
+def moe_train_rel(torch, np) -> dict:
+    """Phase 26b's measurements: one 1 x ``TRAIN_SEQ`` microbatch of
+    deepseek-moe-16b in fp32 at full width cut to ``MOE_TRAIN_DEPTHS``
+    layers (1 dense + 1 and + 3 MoE), remat "full", its loss and every
+    gradient (``torch.autograd.grad`` of the train step's loss, aux loss
+    included): through the plain versions, every router top-k recorded in
+    call order (the forward's, then the recompute's); then twice through
+    the kernels, each top-k replaced by the plain run's choices with their
+    probabilities gathered from the kernels' own (so the router's gradient
+    flows through them as through top-k's values), the kernels' own
+    choices recorded.  Before each run the allocator's free blocks are
+    filled with NaN (:func:`poison_cached_memory`).
+
+    Then two more runs on the same routes, for the gate's yardstick: the
+    plain versions with the plain attention's KV tile at 64 (another
+    summation order), and the kernels with every weight product summed in
+    fp64 and rounded once ("exact products", as phase 14).
+
+    Returns, per depth: loss_rel and aux_rel (relative); grad_rel, the
+    worst leaf's largest difference over its largest entry (and which
+    leaf); expert_rel, the worst (layer, expert) slice of the experts'
+    weights' gradients against its own largest entry; exact_ratio, the
+    worst leaf's distance from the exact-products run over the plain
+    run's (and which leaf; worst_ratios, the four worst); plain_spread, the two plain runs' worst leaf
+    apart; exact_plain, the plain run's worst leaf from the exact one;
+    absolute, whether the depth is also held to the absolute limits; missing, the
+    experts with no kept row in some MoE layer; flips, the plain run's
+    smallest neighbouring top-(k+1) log-probability gap of each token the
+    kernels' own choice routes otherwise; same, whether the two kernel runs
+    gave the same bits (loss and every gradient); finite; whether the
+    kernel runs launched kernels only."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import linear
+    from repro_torch.models.layers import moe as MOE
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = arch_registry.config("deepseek-moe-16b").replace(
+        compute_dtype="float32", num_layers=max(MOE_TRAIN_DEPTHS))
+    m = full.moe
+    params = transformer.init(full, torch.Generator("cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             next(SyntheticTokens(full, 1, TRAIN_SEQ, seed=5)).items()}
+    topk = torch.topk
+
+    def is_route(probs, k):
+        return k == m.top_k and probs.shape[-1] == m.num_experts
+
+    def recording(into):
+        def wrapped(probs, k, *a, **kw):
+            res = topk(probs, k, *a, **kw)
+            if is_route(probs, k):
+                into.append((res.indices, torch.log(probs.detach())))
+            return res
+        return wrapped
+
+    def replaying(routes, own):
+        it = iter(routes)
+
+        def wrapped(probs, k, *a, **kw):
+            if not is_route(probs, k):
+                return topk(probs, k, *a, **kw)
+            own.append(topk(probs.detach(), k, *a, **kw).indices)
+            idx = next(it)[0]
+            return torch.return_types.topk((probs.gather(-1, idx), idx))
+        return wrapped
+
+    def run(cfg, p, patch, chunk=4096):
+        poison_cached_memory(torch)
+        ps = leaves(p)
+        for t in ps:
+            t.requires_grad_(True)
+        with mock.patch.object(torch, "topk", patch):
+            total, metrics = make_loss_fn(cfg, chunk=chunk)(p, batch)
+            grads = torch.autograd.grad(total, ps)
+        for t in ps:
+            t.requires_grad_(False)
+        torch.cuda.synchronize()
+        return total.detach(), metrics["aux_loss"].detach(), grads
+
+    def rel(a, b):      # an expert no row reached has a zero gradient on both sides
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp(min=1e-30)).item()
+
+    def exact(x, y):
+        return (x.double() @ y.double()).to(x.dtype)
+
+    def exact_batched(x, y):
+        return torch.bmm(x.double(), y.double()).to(x.dtype)
+
+    def slices(names, grads):
+        """Every leaf, then every (layer, expert) slice of the experts' weights."""
+        for n, g in zip(names, grads):
+            yield n, g
+        for n, g in zip(names, grads):
+            if n in ("blocks.moe.w_gate", "blocks.moe.w_up", "blocks.moe.w_down"):
+                for layer in range(g.shape[0]):
+                    for e in range(g.shape[1]):
+                        yield f"{n}[{layer}, {e}]", g[layer, e]
+
+    out = {}
+    for depth in MOE_TRAIN_DEPTHS:
+        cfg = full.replace(num_layers=depth)
+        n_moe = depth - m.first_k_dense
+        p = dict(params, blocks=tree_map(lambda t: t[:n_moe].clone(), params["blocks"]))
+        names = [".".join(map(str, k)) for k in flat_keys(p)]
+        routes, own, own2 = [], [], []
+        with dispatch.plain_versions():
+            loss_p, aux_p, g_p = run(cfg, p, recording(routes))
+        dispatch.reset_counts()
+        loss_k, aux_k, g_k = run(cfg, p, replaying(routes, own))
+        table = dispatch.kernel_table()
+        launched = (all(table[n].launches > 0 for n in ("matmul", "matmul_batched",
+                                                         "flash_attention",
+                                                         "flash_attention_backward"))
+                    and not any(t.plain_calls for t in table.values()))
+        loss_k2, aux_k2, g_k2 = run(cfg, p, replaying(routes, own2))
+        same = bool(torch.equal(loss_k, loss_k2) and torch.equal(aux_k, aux_k2)
+                    and all(torch.equal(a, b) for a, b in zip(g_k, g_k2)))
+        del g_k2
+        with dispatch.plain_versions():       # the plain attention's KV tile 64, not 4096
+            g_p64 = run(cfg, p, replaying(routes, []), chunk=64)[2]
+        with mock.patch.object(linear, "_k7", exact), \
+                mock.patch.object(linear, "_k7_batched", exact_batched):
+            g_x = run(cfg, p, replaying(routes, []))[2]
+        grad, expert, ratios = (0.0, ""), (0.0, ""), []
+        for (n, a), (_, b), (_, x) in zip(slices(names, g_k), slices(names, g_p),
+                                          slices(names, g_x)):
+            r = (rel(a, b), n)
+            if "[" in n:
+                expert = max(expert, r)
+                continue
+            grad = max(grad, r)
+            ratios.append((rel(a, x) / max(rel(b, x), 1e-7), n))
+        ratio = max(ratios)
+        plain_spread = max(rel(a, b) for a, b in zip(g_p64, g_p))
+        exact_plain = max(rel(b, x) for b, x in zip(g_p, g_x))
+        del g_p64, g_x
+        # a layer's calls: the forward's n_moe, then the recompute's, last first
+        missing = []
+        for layer in range(n_moe):
+            got = kept_experts(MOE, m, routes[layer][0])
+            missing.append(sorted(set(range(m.num_experts)) - got))
+        flips = []                                  # the forward's calls
+        for (pi, plp), oi in zip(routes[:n_moe], own):
+            differ = (pi != oi).any(-1)
+            if bool(differ.any()):
+                top = torch.topk(plp, m.top_k + 1, dim=-1).values
+                flips += (top[..., :-1] - top[..., 1:]).min(-1).values[differ].tolist()
+        recompute_same = all(torch.equal(routes[i][0], routes[2 * n_moe - 1 - i][0])
+                             for i in range(n_moe))
+        out[depth] = dict(
+            loss_rel=abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+            aux_rel=abs(aux_k.item() - aux_p.item()) / abs(aux_p.item()),
+            loss=loss_p.item(), aux=aux_p.item(), grad_rel=grad[0], grad_leaf=grad[1],
+            depth=depth, expert_rel=expert[0], expert_slice=expert[1], exact_ratio=ratio[0],
+            exact_ratio_at=ratio[1], worst_ratios=sorted(ratios, reverse=True)[:4],
+            plain_spread=plain_spread, exact_plain=exact_plain,
+            absolute=depth in MOE_TRAIN_ABSOLUTE, missing=missing, flips=flips,
+            routed=TRAIN_SEQ * n_moe, calls=len(routes), recompute_same=recompute_same,
+            same=same, launched=launched,
+            finite=bool(torch.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k)))
+        del p, g_p, g_k
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def flat_keys(tree, prefix=()) -> list:
+    """The key paths of a tree's leaves, in ``leaves``' order."""
+    if isinstance(tree, dict):
+        return [k for key, v in tree.items() for k in flat_keys(v, prefix + (key,))]
+    if isinstance(tree, (list, tuple)):
+        return [k for i, v in enumerate(tree) for k in flat_keys(v, prefix + (i,))]
+    return [prefix]
+
+
+def moe_train_fails(r: dict) -> bool:
+    """Whether phase 26b's check fails at a depth: anything not finite, the
+    loss or aux loss past ``TOL_TRAIN_LOSS_REL``, a leaf farther than
+    ``TOL_MOE_EXACT_RATIO`` times the plain run's from the exact
+    products, at the ``MOE_TRAIN_ABSOLUTE`` depths a leaf past
+    ``TOL_TRAIN_GRAD_REL`` or an expert's slice past
+    ``TOL_MOE_EXPERT_GRAD_REL``, a route decided otherwise where the plain
+    run had no near-tie, an expert with no kept row, the recompute routing
+    otherwise than the forward, or two kernel runs apart."""
+    return not (r["finite"] and r["loss_rel"] <= TOL_TRAIN_LOSS_REL
+                and r["aux_rel"] <= TOL_TRAIN_LOSS_REL
+                and r["exact_ratio"] <= TOL_MOE_EXACT_RATIO[r["depth"]]
+                and (not r["absolute"] or (r["grad_rel"] <= TOL_TRAIN_GRAD_REL
+                                           and r["expert_rel"] <= TOL_MOE_EXPERT_GRAD_REL))
+                and all(g < TOL_MOE_FLIP_GAP for g in r["flips"])
+                and not any(r["missing"]) and r["recompute_same"] and r["same"])
+
+
+def moe_train_path_check(torch, np) -> None:
+    """Phase 26b: the gate on :func:`moe_train_rel`."""
+    for depth, r in moe_train_rel(torch, np).items():
+        log(f"moe training path check (fp32, full width, depth {depth}: 1 dense + "
+            f"{depth - 1} MoE, 1 x {TRAIN_SEQ} tokens, remat full): kernels replaying the "
+            f"plain routes vs plain: loss {r['loss']:.6f} rel {r['loss_rel']:.3e}, aux "
+            f"{r['aux']:.6e} rel {r['aux_rel']:.3e} (tol {TOL_TRAIN_LOSS_REL}); worst leaf "
+            f"{r['grad_leaf']} {r['grad_rel']:.3e} of its largest (tol "
+            f"{TOL_TRAIN_GRAD_REL}{'' if r['absolute'] else ', not gated here'}); worst "
+            f"expert slice {r['expert_slice']} {r['expert_rel']:.3e} of its own largest (tol "
+            f"{TOL_MOE_EXPERT_GRAD_REL}{'' if r['absolute'] else ', not gated here'}); vs "
+            f"exact products: plain's worst leaf {r['exact_plain']:.3e}, the kernels' "
+            f"distance over the plain run's, worst leaves "
+            f"{[(f'{v:.3f}', n) for v, n in r['worst_ratios']]} (tol "
+            f"{TOL_MOE_EXACT_RATIO[depth]}); two plain runs (KV tile 64 / 4096) "
+            f"{r['plain_spread']:.3e} apart; "
+            f"their own decisions: {len(r['flips'])} of {r['routed']} routed tokens "
+            f"otherwise, gaps {[f'{g:.2e}' for g in r['flips']]} (each must be < "
+            f"{TOL_MOE_FLIP_GAP}); experts with no kept row by MoE layer {r['missing']}; "
+            f"{r['calls']} router calls, the recompute's routes the forward's="
+            f"{r['recompute_same']}; two kernel runs the same bits={r['same']}; "
+            f"finite={r['finite']}; only kernels launched={r['launched']}")
+        if not r["launched"]:
+            raise AssertionError("moe training path check: the kernel run did not run "
+                                 "through K7, its batched entry and K4 alone")
+        if moe_train_fails(r):
+            raise AssertionError(f"moe training path check, depth {depth}: {r}")
+
+
+def moe_train_counts(cfg, micro: int) -> dict:
+    """Launches by body of ``micro`` training microbatches of the MoE
+    transformer at bf16 compute under remat "full", from the config: a
+    dense block's 7 weight products and an MoE block's 4 attention
+    products and its shared experts' 3 on wgmma, the router's fp32 product
+    on FMA, each launched in the forward, again in the recompute and twice
+    in the backward (dX, dW); the fp32 LM head on FMA in the forward and
+    twice in the backward; the experts' 3 products a MoE layer on the
+    batched entry's wgmma body, 4 times each; K4 a layer in the forward
+    and the recompute, its backward once, all on mma."""
+    m = cfg.moe
+    L, n_moe = cfg.num_layers, cfg.num_layers - m.first_k_dense
+    blocks = 7 * m.first_k_dense + (4 + (3 if m.num_shared_experts else 0)) * n_moe
+    return {"matmul": {"wgmma": 4 * blocks * micro, "fma": (4 * n_moe + 3) * micro},
+            "matmul_batched": {"wgmma": 4 * 3 * n_moe * micro},
+            "flash_attention": {"mma": 2 * L * micro},
+            "flash_attention_backward": {"mma": L * micro}}
+
+
+def moe_training_phase(torch, np, table) -> dict:
+    """Phase 26c: deepseek-moe-16b at full width cut to
+    ``MOE_TRAIN_LAYERS`` layers (1 dense + 3 MoE: ~2.27 B parameters), fp32
+    master weights, bf16 compute, AdamW with the launcher's recipe, remat
+    "full", trained by the port's ``Trainer`` for ``MOE_TRAIN_STEPS`` steps
+    of ``MOE_TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens in ``MOE_TRAIN_ACCUM``
+    microbatches.  Every loss and aux loss finite; launches exact by body
+    (:func:`moe_train_counts`), no plain call.  Step time (the mean of the
+    steps after the first), tokens/s, tokens/s/W against the power limit,
+    peak memory; then one microbatch under the profiler (device activity
+    only) beside CUDA events around it: device time by kernel, the busy
+    share, and the recompute's routes against the forward's.  Returns the
+    launches by kernel."""
+    import tempfile
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.layers import moe as MOE
+    from repro_torch.optim.optimizers import adamw, leaves, warmup_cosine
+    from repro_torch.training.train_step import make_loss_fn
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    name, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("deepseek-moe-16b").replace(num_layers=MOE_TRAIN_LAYERS)
+    want = moe_train_counts(cfg, MOE_TRAIN_ACCUM * MOE_TRAIN_STEPS)
+    data = SyntheticTokens(cfg, MOE_TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(num_steps=MOE_TRAIN_STEPS, ckpt_every=50, ckpt_dir=d,
+                           device="cuda")
+        tr = Trainer(cfg, iter(data), tc, accum=MOE_TRAIN_ACCUM,
+                     optimizer=adamw(warmup_cosine(3e-3, 20, MOE_TRAIN_STEPS)))
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counts()
+        t0 = time.monotonic()
+        hist = tr.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {n: dict(table[n].body_launches) for n in want}
+        plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    peak = torch.cuda.max_memory_allocated()
+    steps = [h for h in hist if "loss" in h]
+    losses, aux = [h["loss"] for h in steps], [h["aux_loss"] for h in steps]
+    times = [h["step_time_s"] for h in steps]
+    step = statistics.mean(times[1:])
+    tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    m = cfg.moe
+    log(f"moe training: deepseek-moe-16b cut to L={cfg.num_layers} (first {m.first_k_dense} "
+        f"dense, d_ff {m.d_ff_dense}; {cfg.num_layers - m.first_k_dense} MoE of "
+        f"{m.num_experts} experts top-{m.top_k} d_ff_expert {m.d_ff_expert} + "
+        f"{m.num_shared_experts} shared) d_model={cfg.d_model} vocab={cfg.vocab_size} "
+        f"params={n_params} fp32 master weights, {cfg.compute_dtype} compute, "
+        f"remat={cfg.remat}, adamw; {MOE_TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {MOE_TRAIN_ACCUM} microbatches; wall {wall:.1f}s (init "
+        f"included)")
+    log(f"moe training: losses={[round(v, 4) for v in losses]} aux={[f'{v:.4e}' for v in aux]} "
+        f"first_step={times[0]:.3f}s step={step:.3f}s tokens/s={tokens / step:.1f} "
+        f"tokens/s/W={tokens / step / watts:.4f} at power.limit {watts:.0f} W ({name}) "
+        f"max_memory_allocated={peak / 2**30:.2f}GiB (params+grads+adamw state "
+        f"{16 * n_params / 2**30:.2f}GiB)")
+    log(f"moe training: launches by body {got} (expected {want}: a microbatch "
+        f"{moe_train_counts(cfg, 1)}); plain_calls={plain or 0}")
+    if len(losses) != MOE_TRAIN_STEPS or not all(np.isfinite(losses + aux)):
+        raise AssertionError(f"moe training: losses {losses}, aux {aux}")
+    if got != want or plain:
+        raise AssertionError(f"moe training: launches {got}, expected {want}; plain calls "
+                             f"{plain}")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             next(SyntheticTokens(cfg, 1, TRAIN_SEQ, seed=9)).items()}
+    ps = leaves(tr.params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss_fn = make_loss_fn(cfg)
+    route, routes = MOE.route, []
+
+    def recording(cfg_moe, prm, x):
+        idx, prob, a = route(cfg_moe, prm, x)
+        routes.append(idx)
+        return idx, prob, a
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with mock.patch.object(MOE, "route", recording), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        start.record()
+        loss, _ = loss_fn(tr.params, batch)
+        torch.autograd.grad(loss, ps)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    for p in ps:
+        p.requires_grad_(False)
+    n_moe = cfg.num_layers - m.first_k_dense
+    recompute_same = len(routes) == 2 * n_moe and all(
+        torch.equal(routes[i], routes[2 * n_moe - 1 - i]) for i in range(n_moe))
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError("moe training profile: the profiler saw no device time")
+    by = {"K7 matmul": ("matmul_wgmma_kernel", "matmul_kernel"),
+          "K4": ("flash_kernel", "flash_mma_kernel"), "K4 backward": ("fa_bwd_",)}
+    parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
+             for k, v in by.items()}
+    log(f"moe training profile (one 1 x {TRAIN_SEQ} microbatch, forward, recompute and "
+        f"backward): wall={wall:.3f}s device_busy={busy:.3f}s (profiler; CUDA events from "
+        f"the first launch to the last {start.elapsed_time(end) / 1e3:.3f}s) busy_share="
+        f"{busy / wall:.3f} idle_share={1 - busy / wall:.3f}; "
+        + ", ".join(f"{k} {v:.3f}s ({v / busy:.3f} of device time)" for k, v in parts.items())
+        + f"; the recompute routed as the forward={recompute_same}")
+    for ms, count, key in rows[:12]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+    if not recompute_same:
+        raise AssertionError(f"moe training: the recompute routed otherwise than the "
+                             f"forward ({len(routes)} router calls)")
+    del tr, ps, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in got.items()}
+
+
+# the kernels line's keys of K7's batched entry at phase 26a's training shape
+TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
+    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"))
 
 
 def main() -> int:
@@ -6033,6 +6637,10 @@ def main() -> int:
     results.update(timed("25a moe kernels", moe_kernel_phase, torch, table))
     moe_served = timed("25b moe serving", moe_serving_phase, torch, np, table)
     timed("25c moe path check", moe_path_check, torch, np)
+    results["matmul_batched"].update(timed("26a moe backward kernels", moe_backward_phase,
+                                           torch, table))
+    timed("26b moe training path check", moe_train_path_check, torch, np)
+    moe_trained = timed("26c moe training", moe_training_phase, torch, np, table)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -6045,7 +6653,7 @@ def main() -> int:
     launches["matmul_batched"] = 0
     for name, count in (list(googlenet_trained.items()) + list(dots_trained.items())
                         + list(xlstm.items()) + list(xlstm_trained.items())
-                        + list(moe_served.items())):
+                        + list(moe_served.items()) + list(moe_trained.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -6074,10 +6682,11 @@ def main() -> int:
                       "fp16_library_ms", "fp16_bound_ms", "xlstm_ms", "xlstm_plain_ms",
                       "xlstm_bound_ms", "xlstm_bound_by", "xlstm_shape", "decode_ms",
                       "decode_plain_ms", "decode_library_ms", "decode_bound_ms",
-                      "decode_bound_by", "decode_shape"):
+                      "decode_bound_by", "decode_shape") + TRAIN_EXTRAS:
             # the FMA body, the bf16 body on the dequantized pool, SDPA on it;
             # K6's backward at fp16 beside cuDNN's and its bound; K5 at
             # xlstm-125m's widths; K7's batched entry at a decode step's shape
+            # and its backward products at a training microbatch's
             if extra in r:
                 kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
@@ -6092,6 +6701,12 @@ def main() -> int:
             fma += (f" (at {r['decode_shape']}: {r['decode_ms']:.4f}ms, plain "
                     f"{r['decode_plain_ms']:.4f}ms, torch.bmm {r['decode_library_ms']:.4f}ms, "
                     f"bound {r['decode_bound_ms']:.5f}ms ({r['decode_bound_by']}))")
+        for key in ("train_dx", "train_dw"):
+            if f"{key}_ms" in r:
+                fma += (f" (at {r[f'{key}_shape']}: {r[f'{key}_ms']:.4f}ms, plain "
+                        f"{r[f'{key}_plain_ms']:.4f}ms, torch.bmm "
+                        f"{r[f'{key}_library_ms']:.4f}ms, bound {r[f'{key}_bound_ms']:.5f}ms "
+                        f"({r[f'{key}_bound_by']}))")
         if "xlstm_ms" in r:
             fma += (f" (at {r['xlstm_shape']}: {r['xlstm_ms']:.4f}ms, plain "
                     f"{r['xlstm_plain_ms']:.4f}ms, bound {r['xlstm_bound_ms']:.5f}ms "

@@ -71,10 +71,16 @@ kernel's (K3's) FMA body skips the last live KV tile; the matmul kernel
 expert 0's weights for every expert, writes each expert's output a row
 short of its stride, or skips the last expert, each held on chip_smoke's
 ``K7B_CASES`` at fp32 and bf16 (every case of more than one expert must
-fail by 8x or more) and on phase 25c, deepseek-moe-16b's fp32 path check
+fail by 8x or more), on phase 25c, deepseek-moe-16b's fp32 path check
 (``moe_path_gate``: 25c must fail, at one depth at least, its replayed
-logits not finite or 8x past the limit, or a route decided otherwise
-without a near-tie).  Builds each kernel the file feeds
+logits or MoE outputs not finite or 8x past the limit, or a route decided
+otherwise without a near-tie), and on phase 26b, its fp32 training path
+check (``moe_train_gate``); and the batched entry's backward views break:
+a transposed operand (dX's w^T, dW's x^T) ignores its stride between
+experts, or dW's x^T reads NaN past the contraction's edge C (TMA's fill,
+the FMA loader's mask), each in both bodies, held on chip_smoke's
+``K7B_BWD_CASES`` at fp32 and bf16 (every case reading such a view must
+fail by 8x) and on phase 26b.  A mutant may be several edits of one file.  Builds each kernel the file feeds
 from the copy and runs chip_smoke's gate on that kernel's cases (fp32
 and bf16 for attention and the scan -- for an int8 loader the paged
 kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
@@ -200,6 +206,30 @@ K7B_OUT = "  return (long long)blockIdx.z * M * N;"
 K7B_OUT_SHORT = "  return (long long)blockIdx.z * (M - 1) * N;  // the expert stride a row short"
 K7B_GRID = "  const int experts = E;                 // the grid's third dim: one expert a slice"
 K7B_SKIP_LAST = "  const int experts = E - 1;  // the last expert is skipped"
+# K7's batched entry, the backward's views: dX reads w^T (k-contiguous), dW
+# x^T (m-contiguous), layouts no forward product gives it
+K7B_BATCH_STRIDES = (
+    ("  x += blockIdx.z * bx;\n  y += w_expert() * by;",
+     "  x += (sxk == 1 ? blockIdx.z : 0u) * bx;  // a transposed x reads expert 0\n"
+     "  y += (syn == 1 ? w_expert() : 0) * by;  // a transposed y reads expert 0"),
+    ("tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0, blockIdx.z);",
+     "tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0, 0);"
+     "  // a transposed x reads expert 0"),
+    ("tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX, w_expert());",
+     "tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX, 0);"
+     "  // a transposed y reads expert 0"))
+K7B_NAN_PAST_K = (
+    ("ra[i] = (m < M && k < K) ? to_f(x[(long long)m * sxm + (long long)k * sxk]) : 0.f;",
+     "ra[i] = (m < M && k < K) ? to_f(x[(long long)m * sxm + (long long)k * sxk]) "
+     ": (k >= K && !x_k_unit ? __int_as_float(0x7fc00000) : 0.f);  // NaN past K"),
+    ("int outer, int stride, int E = 0, long long bstride = 0) {",
+     "int outer, int stride, int E = 0, long long bstride = 0, bool nan_fill = false) {"),
+    ("CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);",
+     "CU_TENSOR_MAP_L2_PROMOTION_L2_256B, nan_fill ? "
+     "CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA : CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);"
+     "  // NaN past the edges"),
+    ("? make_map(&xm, x, type, M, K, sxk, E, sxe)",
+     "? make_map(&xm, x, type, M, K, sxk, E, sxe, E > 0)"))
 K7_LOSE_STAGE = ("for (int kk = (kt == 0 && nk > 1) ? WG_BK / 16 : 0; kk < WG_BK / 16; "
                  "++kk) {  // stage 0 lost")
 K2_TILE_STEP = "mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
@@ -244,6 +274,14 @@ MOE_PATH = ("moe_path", (), None)
 # K7's batched entry on chip_smoke's K7B_CASES shapes, fp32 (FMA) and bf16
 # (wgmma): every case of more than one expert must fail by 8x
 K7B = ("matmul_batched", ("float32", "bfloat16"), "E>1", 8)
+# its backward products on chip_smoke's K7B_BWD_CASES (phase 26a), fp32 and
+# bf16: every case with an operand read transposed (all but dW at C = 1,
+# whose x^T is one column), or every dW whose x^T is, by 8x
+K7B_BWD = ("matmul_batched@backward", ("float32", "bfloat16"), "T", 8)
+K7B_BWD_DW = ("matmul_batched@backward", ("float32", "bfloat16"), "xT", 8)
+# chip_smoke's phase 26b on a broken build: deepseek-moe-16b's fp32
+# training path check, which must fail
+MOE_TRAIN = ("moe_train", (), None)
 # K5's backward at xlstm-125m's widths (N = 384, P = 385, the sliced FMA
 # body): chip_smoke's XLSTM_BWD_CASES, fp32 and bf16, each must fail by 8x
 K5B_XLSTM = ("ssm_scan_backward@xlstm", ("float32", "bfloat16"), "fma", 8)
@@ -353,12 +391,22 @@ MUTANTS = (
      "wgmma body: loses its first 64-deep K stage when K > 64",
      (("matmul", ("bfloat16", "float16"), "wgmma"),)),
     ("matmul.cu", K7B_EXPERT, K7B_EXPERT_0,
-     "batched entry (both bodies): every expert reads expert 0's weights", (K7B, MOE_PATH)),
+     "batched entry (both bodies): every expert reads expert 0's weights",
+     (K7B, MOE_PATH, MOE_TRAIN)),
     ("matmul.cu", K7B_OUT, K7B_OUT_SHORT,
      "batched entry (both bodies): the output's stride between experts is a row short",
-     (K7B, MOE_PATH)),
+     (K7B, MOE_PATH, MOE_TRAIN)),
     ("matmul.cu", K7B_GRID, K7B_SKIP_LAST,
-     "batched entry (both bodies): the grid skips the last expert", (K7B, MOE_PATH)),
+     "batched entry (both bodies): the grid skips the last expert",
+     (K7B, MOE_PATH, MOE_TRAIN)),
+    ("matmul.cu", *zip(*K7B_BATCH_STRIDES),
+     "batched entry (both bodies), the backward's views: a transposed operand (dX's w^T, "
+     "dW's x^T) ignores its stride between experts and reads expert 0",
+     (K7B_BWD, MOE_TRAIN)),
+    ("matmul.cu", *zip(*K7B_NAN_PAST_K),
+     "batched entry (both bodies), dW's x^T: NaN past the contraction's edge C instead of "
+     "the zero fill (TMA's fill past each expert's edge, the FMA loader's mask)",
+     (K7B_BWD_DW, MOE_TRAIN)),
 )
 
 
@@ -579,9 +627,13 @@ def card_check() -> None:
                             ignore=shutil.ignore_patterns("__pycache__"))
             path = Path(d) / "src" / "repro_torch" / "csrc" / source
             code = path.read_text()
-            if code.count(text) != 1:
-                raise SystemExit(f"{source}: {text!r} not found once")
-            path.write_text(code.replace(text, broken))
+            # one edit, or several of one file (a tuple of texts and of replacements)
+            texts, brokens = ((text,), (broken,)) if isinstance(text, str) else (text, broken)
+            for t, b in zip(texts, brokens):
+                if code.count(t) != 1:
+                    raise SystemExit(f"{source}: {t!r} not found once")
+                code = code.replace(t, b)
+            path.write_text(code)
             for name, serves, body, *least in feeds:
                 print(f"=== mutant: {source} {what}; held on {name}", flush=True)
                 run = subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name,
@@ -606,6 +658,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         return train_gate(torch, cs, build)
     if name == "moe_path":
         return moe_path_gate(torch, cs, build)
+    if name == "moe_train":
+        return moe_train_gate(torch, cs, build)
     name, _, widths = name.partition("@")
     from repro_torch.kernels.conv2d.ops import backward_body_for as conv_backward_body_for
     from repro_torch.kernels.conv2d.ops import backward_splits
@@ -640,11 +694,20 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                 | ({"wgrad_gather_split"} if bodies[1] == "gather" and dw_splits > 1
                    else set()))
 
+    def transposed(x, y):
+        """The backward's views as the batched entry reads them: "xT" where x
+        is m-contiguous (dW's x^T past a contraction of one row), "T" where
+        either operand is read transposed (that, or dX's k-contiguous w^T)."""
+        xt = x.stride(2) != 1 and x.shape[2] > 1
+        yt = y.stride(2) != 1 and y.shape[2] > 1
+        return ({"xT"} if xt else set()) | ({"T"} if xt or yt else set())
+
     # what a case runs: its body, and for K6 whether K is split (its
     # backward: which passes, dgrad at a stride, wgrad split)
     tags_of = {"matmul": lambda args, kw: {matmul_body_for(*args[:2])},
                "matmul_batched": lambda args, kw: {batched_body_for(*args[:2])} | (
-                   {"E>1"} if args[0].shape[0] > 1 else set()),
+                   {"E>1"} if args[0].shape[0] > 1 else set()) | (
+                   transposed(*args[:2]) if widths == "backward" else set()),
                "flash_attention": lambda args, kw: {flash_body_for(args[0])},
                "decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
                "paged_decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
@@ -745,6 +808,16 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                       torch, M, K, N, layout, str(dt)[6:]), {})
                  for label, M, K, N, layout, _ in K7_CASES]
         dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    elif name == "matmul_batched" and widths == "backward":
+        def k7b_bwd_case(dt, E, C, D, F, which):
+            x, w = cs.k7b_operands(torch, E, C, D, F, dt)
+            dy = cs.k7b_operands(torch, E, C, F, 1, dt, seed=1)[0]
+            return cs.backward_products(x, w, dy)[which]
+        cases = [(f"{label} {which} E={E} C={C} D={D} F={F}",
+                  lambda dt, E=E, C=C, D=D, F=F, which=which: k7b_bwd_case(
+                      str(dt)[6:], E, C, D, F, which), {})
+                 for label, E, C, D, F, _ in cs.K7B_BWD_CASES for which in ("dX", "dW")]
+        dtypes = (torch.float32, torch.bfloat16)
     elif name == "matmul_batched":
         cases = [(f"{label} E={E} M={M} K={K} N={N}",
                   lambda dt, E=E, M=M, K=K, N=N: cs.k7b_operands(
@@ -844,10 +917,32 @@ def moe_path_gate(torch, cs, build) -> None:
         caught = caught or fails
         far = [g for g in r["flips"] if g >= cs.TOL_MOE_FLIP_GAP]
         print(f"  moe path check depth {depth}: replayed rel {r['rel']:.3e} (tol {tol}, "
-              f"{r['rel'] / tol:.1f}x) finite={r['finite']}; {len(r['flips'])} routes "
+              f"{r['rel'] / tol:.1f}x) finite={r['finite']}; MoE outputs rel "
+              f"{r['ys_rel']:.3e} finite={r['ys_finite']}; {len(r['flips'])} routes "
               f"decided otherwise on the same upstream routes, {len(far)} without a "
               f"near-tie; router logits {r['logit_diff']:.3e} apart; experts routed to "
-              f"{r['experts']}: {'fails' if fails else 'passes'} the gate", flush=True)
+              f"{r['experts']}, with no kept row by layer {r['missing']}: "
+              f"{'fails' if fails else 'passes'} the gate", flush=True)
+    if not caught:
+        raise SystemExit(1)
+
+
+def moe_train_gate(torch, cs, build) -> None:
+    """Phase 26b of chip_smoke on the broken build: deepseek-moe-16b's fp32
+    training path check (:func:`chip_smoke.moe_train_fails`) must fail at
+    one depth at least."""
+    import numpy as np
+    build.build(["matmul", "flash_attention", "flash_attention_backward"])
+    caught = False
+    for depth, r in cs.moe_train_rel(torch, np).items():
+        fails = cs.moe_train_fails(r)
+        caught = caught or fails
+        print(f"  moe training path check depth {depth}: loss rel {r['loss_rel']:.3e}, aux "
+              f"rel {r['aux_rel']:.3e}, worst leaf {r['grad_leaf']} {r['grad_rel']:.3e}, "
+              f"worst expert slice {r['expert_slice']} {r['expert_rel']:.3e}, finite="
+              f"{r['finite']}, {len(r['flips'])} routes decided otherwise, experts with no "
+              f"kept row {r['missing']}, same bits twice={r['same']}: "
+              f"{'fails' if fails else 'passes'} the gate", flush=True)
     if not caught:
         raise SystemExit(1)
 

@@ -249,6 +249,7 @@ BATCHED = register_kernel(
     source="src/repro_torch/csrc/matmul.cu",
     replaces="src/repro/kernels/matmul/kernel.py:36",
     tolerance=matmul_tolerance_ratio,
+    gradient="repro_torch.models.layers.linear.batched_matmul",
     note="K7's batched entry (matmul_batched in K7's source): the E experts' products "
          "of an MoE layer in one launch, where the reference runs XLA's batched "
          "einsums outside any Pallas kernel (src/repro/models/layers/moe.py:67-77)")

@@ -1,9 +1,10 @@
 """Training launcher for the PyTorch/CUDA port (counterpart of
 ``repro/launch/train.py``, with ``--device``): the ported Trainer on one
 card, every weight product of the forward and backward through the K7
-matmul kernel, attention through K4 and (zamba2's Mamba-2 layers,
-xlstm's mLSTM blocks) the scan through K5, each with its backward
-kernel.  Prints the first and last loss, the step time, tokens/s,
+matmul kernel (an MoE layer's expert products through its batched
+entry), attention through K4 and (zamba2's Mamba-2 layers, xlstm's mLSTM
+blocks) the scan through K5, each with its backward kernel.  An MoE
+config's router aux loss is added to the loss, as the reference's.  Prints the first and last loss, the step time, tokens/s,
 tokens/s/W against the card's power limit and the peak device memory.  It feeds ``SyntheticTokens``, as the
 reference's does; GoogLeNet, whose forward reads images, trains as the
 reference trains it: ``Trainer(cfg, iter(SyntheticImages(...)), tc)``
@@ -26,6 +27,11 @@ the launcher's default is 1, as the reference's):
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
       --steps 3 --batch 8 --seq 512 --accum 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --smoke --device cpu --steps 20 --batch 4 --seq 16
+  # deepseek-moe-16b's smoke config on the CPU (at full width its 28
+  # layers' fp32 state, ~262 GB, does not fit one card: chip_smoke.py
+  # phase 26c trains it cut to 4 layers through the Trainer):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b \\
       --smoke --device cpu --steps 20 --batch 4 --seq 16
 """
 from __future__ import annotations

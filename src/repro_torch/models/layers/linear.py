@@ -4,11 +4,11 @@ Every weight product of the port's models (attention projections, MLPs,
 the LM head, the Mamba-2 projections, the hybrid's shared-block input and
 GoogLeNet's classifier) goes through :func:`matmul`; the experts' products
 of a mixture-of-experts layer go through :func:`batched_matmul`, K7's
-batched entry (forward only).  The Pallas K7 has no
-backward (nothing in the reference wraps it in a ``custom_vjp``: JAX
-differentiates its einsums), so the backward here is two more launches of
-the same kernel, each on strided views: ``dX = dY @ W^T`` and
-``dW = X^T @ dY``.  On the CPU the same Function calls the plain version.
+batched entry.  The Pallas K7 has no backward (nothing in the reference
+wraps it in a ``custom_vjp``: JAX differentiates its einsums), so the
+backward here is two more launches of the same entry, each on strided
+views: ``dX = dY @ W^T`` and ``dW = X^T @ dY`` (per expert, for the
+batched entry).  On the CPU the same Functions call the plain versions.
 
 Under :func:`keep_products` (``remat="dots"``: the reference's
 ``dots_with_no_batch_dims_saveable``, which keeps the outputs of the
@@ -61,10 +61,10 @@ def keep_products(kept: KeptProducts):
 
 
 def _unit_strided(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as it is when one of its dims has a unit stride (what K7
-    reads); a contiguous copy otherwise (an incoming gradient that autograd
-    made by expanding a scalar has strides (0, 0))."""
-    if 1 in t.stride() or 1 in t.shape:
+    """``t`` as it is when one of its matrix dims (the last two) has a unit
+    stride (what K7 reads); a contiguous copy otherwise (an incoming
+    gradient that autograd made by expanding a scalar has zero strides)."""
+    if 1 in t.stride()[-2:] or 1 in t.shape[-2:]:
         return t
     return t.contiguous()
 
@@ -95,6 +95,27 @@ class _Matmul(torch.autograd.Function):
         return dx, dw
 
 
+class _BatchedMatmul(torch.autograd.Function):
+    """(E, M, K) @ (E, K, N) -> (E, M, N) in x's type, each expert's product
+    fp32-accumulated, forward and backward through K7's batched entry: the
+    backward's ``dX[e] = dY[e] @ W[e]^T`` and ``dW[e] = X[e]^T @ dY[e]``
+    are one launch each, on transposed views.  Never kept under
+    ``remat="dots"``: the recompute launches it again."""
+
+    @staticmethod
+    def forward(ctx, xs, w):
+        ctx.save_for_backward(xs, w)
+        return _k7_batched(xs, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w = ctx.saved_tensors
+        dy = _unit_strided(dy)
+        dx = _k7_batched(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        dw = _k7_batched(xs.transpose(1, 2), dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., K) @ w: (K, N) -> (..., N) in x's type; the leading dims
     flatten into the kernel's M.  ``w`` may be any view with a unit stride
@@ -108,6 +129,6 @@ def batched_matmul(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """xs: (E, M, K) @ w: (E, K, N) -> (E, M, N) in xs's type, each expert's
     product summed in fp32 and rounded once: one launch of K7's batched
     entry for all E experts on the card, its plain version on the CPU.
-    Forward only: the batched entry has no backward yet, so on the card an
-    input that requires grad raises (``dispatch.Kernel``)."""
-    return _k7_batched(xs, w)
+    Differentiable: the gradients are two more launches of the same entry
+    (:class:`_BatchedMatmul`)."""
+    return _BatchedMatmul.apply(_unit_strided(xs), w)

@@ -13,7 +13,12 @@ product.  Two dispatch strategies, as the reference's without a mesh:
     it as one-hot einsums; here the same dispatch is an index scatter of
     the kept tokens into the (E, B, C) expert rows and a gather back, which
     gives the same numbers: each expert row holds one token or zeros, and
-    each token sums its kept terms once, in fp32, rounded once.
+    each token sums its kept terms once, in fp32, rounded once.  Their
+    gradients are written out (:class:`_Dispatch`, :class:`_Combine`) as
+    the reference's einsums differentiate: a token sums the gradients of
+    its kept rows in fp32, in choice order, rounded once, and each kept
+    row's gradient is written once -- never an accumulating scatter in the
+    compute type, whose order on the card is not fixed.
   * :func:`moe_dense` -- every expert on every token, masked combine: the
     O(E x T) oracle, for the tests.
 
@@ -121,6 +126,54 @@ def dispatch_slots(cfg_moe, idx: torch.Tensor, capacity: int):
     return (idx * B + b) * capacity + pos, pos < capacity
 
 
+class _Dispatch(torch.autograd.Function):
+    """x (T, D) -> the (rows, D) expert input: row ``slot[t, j]`` holds token
+    t where ``keep[t, j]``, zeros elsewhere (a row holds at most one
+    token).  Backward: each token's kept rows of ``dxs`` summed in fp32 in
+    choice order and rounded once to x's type, a dropped choice adding
+    exactly zero -- the reference's contraction of ``einsum("bsec,bsd->
+    ebcd", disp_tok, x)`` over (e, c)."""
+
+    @staticmethod
+    def forward(ctx, x, slot, keep, rows):
+        ctx.save_for_backward(slot, keep)
+        token = torch.arange(x.shape[0], device=x.device).view(-1, 1).expand_as(slot)
+        xs = x.new_zeros((rows, x.shape[1]))
+        xs[slot[keep]] = x[token[keep]]
+        return xs
+
+    @staticmethod
+    def backward(ctx, dxs):
+        slot, keep = ctx.saved_tensors
+        g = dxs[torch.where(keep, slot, 0)].float()              # (T, k, D)
+        g = torch.where(keep[..., None], g, 0.0)
+        dx = g[:, 0]
+        for j in range(1, g.shape[1]):                           # choice order
+            dx = dx + g[:, j]
+        return dx.to(dxs.dtype), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """ys (rows, D) -> (T, k, D): each choice's expert row where ``keep``,
+    zeros where it was dropped.  Backward: each kept row's gradient
+    written once into a zero (rows, D) gradient, with no accumulation (the
+    kept choices' slots are distinct)."""
+
+    @staticmethod
+    def forward(ctx, ys, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        ctx.rows = ys.shape[0]
+        out = ys[torch.where(keep, slot, 0)]
+        return torch.where(keep[..., None], out, 0)
+
+    @staticmethod
+    def backward(ctx, drows):
+        slot, keep = ctx.saved_tensors
+        dys = drows.new_zeros((ctx.rows, drows.shape[-1]))
+        dys[slot[keep]] = drows[keep]
+        return dys, None, None
+
+
 def moe_einsum(cfg_moe, params, x, idx, prob, *, capacity: int | None = None):
     """Capacity dispatch within per-batch-row groups (the reference's
     ``moe_einsum``).  x: (B, S, D); idx/prob: (B, S, k).  Each kept token
@@ -133,15 +186,15 @@ def moe_einsum(cfg_moe, params, x, idx, prob, *, capacity: int | None = None):
     if capacity is None:
         capacity = capacity_of(cfg_moe, S)
     slot, keep = dispatch_slots(cfg_moe, idx, capacity)
-    token = torch.arange(B * S, device=x.device).view(B, S, 1).expand_as(slot)
-    xs = x.new_zeros((e * B * capacity, D))
-    xs[slot[keep]] = x.reshape(B * S, D)[token[keep]]
+    k = slot.shape[-1]
+    slot, keep = slot.reshape(B * S, k), keep.reshape(B * S, k)
+    xs = _Dispatch.apply(x.reshape(B * S, D), slot, keep, e * B * capacity)
     ys = expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
                     xs.view(e, B * capacity, D)).reshape(e * B * capacity, D)
-    rows = ys[torch.where(keep, slot, 0)].float()                # (B, S, k, D)
-    w = torch.where(keep, prob.to(x.dtype), 0).float()
-    out = torch.where(keep[..., None], rows * w[..., None], 0.0).sum(2)
-    return out.to(x.dtype)
+    rows = _Combine.apply(ys, slot, keep).float()                # (B S, k, D)
+    w = torch.where(keep, prob.reshape(B * S, k).to(x.dtype), 0).float()
+    out = (rows * w[..., None]).sum(1)
+    return out.to(x.dtype).reshape(B, S, D)
 
 
 def moe_apply(cfg_moe, params, x, idx, prob):

@@ -14,8 +14,11 @@ mLSTM block's scan through K5 and its backward, N and P walked in slices
 there, the sLSTM's cell steps differentiated by autograd, every weight
 product through K7 and its backward) and the CNN (GoogLeNet, fed by
 ``SyntheticImages`` as the reference's is: every convolution through K6
-and its backward kernel).  State lives on ``TrainerConfig.device``, the
-card by default.
+and its backward kernel) and the moe family (deepseek-moe-16b,
+qwen3-moe: the router's aux loss added to the loss, each expert product
+forward, in the recompute and in the backward through K7's batched entry,
+the capacity dispatch differentiated as the reference's einsums are).
+State lives on ``TrainerConfig.device``, the card by default.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.models.registry import fns_for
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.training.train_step import make_train_step
 
-TRAINED_FAMILIES = ("dense", "hybrid", "ssm", "cnn")
+TRAINED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "cnn")
 
 
 def _default_ckpt_dir() -> str:

@@ -70,9 +70,15 @@ another's tiles), its two tiles the same bits; and one deepseek-moe-16b
 MoE layer at full width through the kernels against the plain versions
 on the same routes (fp32 within 1e-5 of the largest output; bf16 within
 2^-6 of it: an intermediate bf16 rounding of h that flips by one ulp
-moves an output by up to an ulp of the largest).
+moves an output by up to an ulp of the largest).  The batched entry's
+backward (``linear.batched_matmul``): dX on w^T and dW on x^T on both
+bodies within K7's limit, the same bits twice, each expert's the 2-D
+entry's bits on its own views; one deepseek-moe-16b MoE layer's
+gradients (x, router, the three expert weights) through the kernels
+against the plain versions on the same routes.
 """
 import hashlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -1886,3 +1892,128 @@ def test_moe_layer_at_deepseek_widths_matches_plain(cuda, compute_dtype, limit):
     assert int((kidx != idx).any(-1).sum()) <= 1          # a near-tie may flip one token
     rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
     assert got.dtype == dt and rel <= limit
+
+
+def test_batched_entry_refuses_inputs_that_require_grad(cuda):
+    """K7's batched entry called directly with grad on raises, naming
+    ``linear.batched_matmul``, whose Function carries its gradient."""
+    from repro_torch.models.layers.linear import batched_matmul
+    x, y = _k7b_operands(cuda, 3, 5, 16, 24, torch.float32)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="linear.batched_matmul"):
+        dispatch.kernel_table()["matmul_batched"](x, y)
+    assert batched_matmul(x, y).grad_fn is not None
+
+
+# (E, C, D, F) of a product x (E, C, D) @ w (E, D, F) whose backward runs:
+# a training microbatch's 60 rows at deepseek's widths (gate/up, down),
+# contractions of 1 and 7 rows in dW, ragged sizes TMA can read and sizes
+# it cannot (FMA at 16 bits)
+K7B_BWD_SHAPES = [(64, 60, 2048, 1408), (64, 60, 1408, 2048), (64, 1, 2048, 1408),
+                  (8, 7, 264, 136), (5, 13, 520, 1000), (5, 13, 517, 999)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", K7B_BWD_SHAPES)
+def test_batched_matmul_backward_matches_plain(cuda, dtype, E, C, D, F):
+    """``linear.batched_matmul``'s gradients through the batched entry:
+    dX = dY @ w^T (w^T k-contiguous) and dW = x^T @ dY (x^T m-contiguous),
+    one launch each on the body the route names -- wgmma for 16-bit views
+    TMA can read, FMA for the rest -- each within K7's limit of the plain
+    version on the same operands, and the same bits on a second run."""
+    from repro_torch.kernels.matmul.ops import batched_body_for
+    from repro_torch.models.layers.linear import batched_matmul
+    x, w = _k7b_operands(cuda, E, C, D, F, dtype, seed=5)
+    dy = _k7b_operands(cuda, E, C, F, 1, dtype, seed=6)[0]
+    k = dispatch.kernel_table()["matmul_batched"]
+    want = "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "fma"
+    assert batched_body_for(dy, w.transpose(1, 2)) == batched_body_for(
+        x.transpose(1, 2), dy) == want
+    grads = []
+    for _ in range(2):
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        dispatch.reset_counts()
+        batched_matmul(xr, wr).backward(dy)
+        torch.cuda.synchronize()
+        assert k.body_launches == {want: 3} and k.plain_calls == 0
+        grads.append((xr.grad, wr.grad))
+    (dx, dw), (dx2, dw2) = grads
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.dtype == dw.dtype == dtype
+    assert k.tolerance(dx, k.plain(dy.float(), w.float().transpose(1, 2)), F) <= 1.0
+    assert k.tolerance(dw, k.plain(x.float().transpose(1, 2), dy.float()), C) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [(64, 60, 2048, 1408), (8, 7, 264, 136),
+                                     (5, 13, 517, 999)])
+def test_batched_backward_experts_equal_2d_bits(cuda, dtype, E, C, D, F):
+    """Each expert's dX and dW are the 2-D entry's bits on that expert's
+    views (w[e].T, x[e].T): the contraction's ragged edge C fills zeros
+    inside the expert, never the next expert's rows."""
+    x, w = _k7b_operands(cuda, E, C, D, F, dtype, seed=7)
+    dy = _k7b_operands(cuda, E, C, F, 1, dtype, seed=8)[0]
+    k = dispatch.kernel_table()["matmul_batched"]
+    k2 = dispatch.kernel_table()["matmul"]
+    dx = k.launch(dy, w.transpose(1, 2))
+    dw = k.launch(x.transpose(1, 2), dy)
+    for e in range(E):
+        assert torch.equal(dx[e], k2.launch(dy[e], w[e].T)), e
+        assert torch.equal(dw[e], k2.launch(x[e].T, dy[e])), e
+
+
+@pytest.mark.parametrize("compute_dtype,limit", [("float32", 1e-4), ("bfloat16", 2.0 ** -5)])
+def test_moe_layer_gradients_at_deepseek_widths_match_plain(cuda, compute_dtype, limit):
+    """One deepseek-moe-16b MoE layer (64 experts of 2048 x 1408, top-6, a
+    512-token microbatch: capacity 60) differentiated through the kernels
+    -- the router's three products on K7's FMA body, the experts' products
+    and their dX / dW on the batched entry -- against the plain versions on
+    the same routes: x's and every weight's gradient within ``limit`` of
+    its largest entry (fp32: sums in other orders through a softmax and a
+    SwiGLU; bf16: dW rounds once to bf16, 2^-8, on top of the forward's
+    2^-6 limit's ulp flips of h)."""
+    from repro_torch.models.layers import moe as TM
+    from repro_torch.models.layers.module import init_table
+    cfg = TR.config("deepseek-moe-16b")
+    m = cfg.moe
+    dt = getattr(torch, compute_dtype)
+    g = torch.Generator(cuda).manual_seed(0)
+    p = init_table(g, TM.moe_table(cfg.d_model, m.num_experts, m.d_ff_expert), "float32")
+    x0 = torch.randn((1, 512, cfg.d_model), generator=g, device=cuda).to(dt)
+    dy = torch.randn((1, 512, cfg.d_model), generator=g, device=cuda).to(dt)
+    with dispatch.plain_versions():
+        idx = TM.route(m, p, x0)[0]
+    topk = torch.topk
+
+    def replayed(probs, k, *a, **kw):      # both runs on the plain run's choices
+        if k == m.top_k and probs.shape[-1] == m.num_experts:
+            return probs.gather(-1, idx), idx
+        return topk(probs, k, *a, **kw)
+
+    def grads():
+        x = x0.clone().requires_grad_(True)
+        for t in p.values():
+            t.requires_grad_(True)
+            t.grad = None
+        with mock.patch.object(torch, "topk", replayed):
+            _, prob, aux = TM.route(m, p, x)
+        y = TM.moe_einsum(m, p, x, idx, prob)
+        torch.autograd.backward((y, aux), (dy, torch.ones_like(aux)))
+        out = {"x": x.grad, **{k: t.grad for k, t in p.items()}}
+        for t in p.values():
+            t.requires_grad_(False)
+        return out
+    with dispatch.plain_versions():
+        want = grads()
+    dispatch.reset_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    table = dispatch.kernel_table()
+    assert TM.capacity_of(m, 512) == 60
+    assert table["matmul_batched"].launches == 9 and table["matmul"].body_launches == {"fma": 3}
+    assert all(t.plain_calls == 0 for t in table.values())
+    slot, keep = TM.dispatch_slots(m, idx, 60)
+    assert len(idx[keep].unique()) == m.num_experts      # every expert's dW is checked
+    for k, v in want.items():
+        rel = ((got[k].float() - v.float()).abs().max() / v.float().abs().max()).item()
+        assert rel <= limit, (k, rel)

@@ -21,6 +21,7 @@ by an ulp).  After a train step the parameters are compared only where
 about lr * sign(g), so where a gradient entry is near zero, order noise in
 the gradient flips the step's sign.
 """
+import dataclasses
 import os
 import tempfile
 import threading
@@ -93,10 +94,12 @@ def _params(jcfg, seed=0):
 
 
 def _flat(tree, prefix=()):
-    """{path: leaf} of a nested dict."""
+    """{path: leaf} of nested dicts and lists (an MoE config's
+    ``dense_blocks`` is a list of blocks)."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(_flat(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = v
@@ -251,11 +254,37 @@ def test_schedules_and_clipping_match_jax():
 # one train step against the reference's
 # ---------------------------------------------------------------------------
 
-def _train_step_vs_jax(accum, remat="full", arch="qwen2.5-3b"):
+def _k7_calls(cfg, remat):
+    """(2-D, batched) K7 calls of one microbatch's forward and backward.
+    A dense block makes 7 weight products (q, k, v, o and the SwiGLU's
+    three); an MoE block 4 for attention, the router's, the shared experts'
+    3 where it has them, and 3 batched expert products.  Every product runs
+    again in the recompute under "full"; under "dots" the 2-D ones are
+    kept and only the batched ones run again (the reference's policy keeps
+    no product with a batch dim).  The LM head once; two products in the
+    backward of each."""
+    L = cfg.num_layers
+    if cfg.moe is None:
+        dense, moe_2d, n_moe = L, 0, 0
+    else:
+        dense, n_moe = cfg.moe.first_k_dense, L - cfg.moe.first_k_dense
+        moe_2d = 5 + (3 if cfg.moe.num_shared_experts else 0)
+    blocks_2d, batched = 7 * dense + moe_2d * n_moe, 3 * n_moe
+    again_2d = blocks_2d if remat == "full" else 0
+    again_batched = batched if remat in ("full", "dots") else 0
+    return (blocks_2d + again_2d + 1 + 2 * (blocks_2d + 1),
+            batched + again_batched + 2 * batched)
+
+
+def _train_step_vs_jax(accum, remat="full", arch="qwen2.5-3b", **moe_kw):
     """One train step of the port and of the reference at ``remat``: loss,
-    metrics, every gradient leaf, the updated parameters; K7's and K4's
-    plain calls exact."""
+    metrics (the MoE configs' aux loss among them), every gradient leaf,
+    the updated parameters; K7's (2-D and batched) and K4's plain calls
+    exact.  ``moe_kw`` overrides fields of an MoE config's ``moe``."""
     jcfg, tcfg = (c.replace(remat=remat) for c in _cfgs(arch))
+    if moe_kw:
+        jcfg, tcfg = (c.replace(moe=dataclasses.replace(c.moe, **moe_kw))
+                      for c in (jcfg, tcfg))
     jp, tp = _params(jcfg)
     batch = next(JaxSyntheticTokens(jcfg, 4, 16, seed=3))
     captured = {}
@@ -276,14 +305,12 @@ def _train_step_vs_jax(accum, remat="full", arch="qwen2.5-3b"):
     topt = TO.adamw(TO.constant(1e-3))
     tp2, ts, tm = tstep(tp, topt.init(tp), batch)
     L = tcfg.num_layers
-    # 7 products a layer, again in the recompute under "full" (under "dots"
-    # the recompute reuses them), the LM head once, and two products in
-    # the backward of each
-    per_micro = 7 * L * (2 if remat == "full" else 1) + 1 + 2 * (7 * L + 1)
     table = dispatch.kernel_table()
-    assert table["matmul"].plain_calls == accum * per_micro
-    # attention through K4: forward and recompute, and its backward, a layer
-    assert table["flash_attention"].plain_calls == accum * 2 * L
+    assert (table["matmul"].plain_calls, table["matmul_batched"].plain_calls) == tuple(
+        accum * n for n in _k7_calls(tcfg, remat))
+    # attention through K4: forward (and any recompute), and its backward,
+    # a layer
+    assert table["flash_attention"].plain_calls == accum * L * (1 if remat == "none" else 2)
     assert table["flash_attention_backward"].plain_calls == accum * L
     for k in ("loss", "nll", "accuracy", "aux_loss", "lr"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, atol=1e-7)
@@ -305,6 +332,30 @@ def _train_step_vs_jax(accum, remat="full", arch="qwen2.5-3b"):
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_step_loss_and_gradients_match_jax(accum, arch):
     _train_step_vs_jax(accum, arch=arch)
+
+
+# the moe family's smoke configs: DeepSeekMoE's dense first layer and shared
+# experts (deepseek-moe-16b), qk_norm and normalized top-k (qwen3-moe)
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_moe_train_step_matches_jax(accum, remat, arch):
+    """The router's aux loss in the loss, the capacity dispatch and the
+    experts' batched products differentiated: loss, nll and aux loss at
+    rtol 1e-5, each gradient leaf within ``GRAD_REL`` of its largest,
+    the update where |g| is live.  Under "dots" the batched products run
+    again in the recompute (the count says so)."""
+    _train_step_vs_jax(accum, remat, arch)
+
+
+def test_moe_train_step_with_dropped_choices_matches_jax():
+    """capacity_factor 0.5: two rows per (batch row, expert) for 32
+    choices, so choices drop, and a dropped choice adds nothing to the
+    output and nothing to the gradients, as the reference's ``keep`` mask."""
+    _train_step_vs_jax(1, "full", "deepseek-moe-16b", capacity_factor=0.5)
 
 
 def test_llama3_405b_configured_step_matches_jax():
@@ -473,6 +524,24 @@ def test_loss_decreases():
         assert losses[-1] < losses[0]
 
 
+def test_moe_loss_decreases():
+    """deepseek-moe-16b-smoke through the Trainer on the CPU: the loss (the
+    router's aux loss included) falls over a few steps."""
+    with tempfile.TemporaryDirectory() as d:
+        cfg = TR.smoke("deepseek-moe-16b")
+        tc = TrainerConfig(num_steps=12, ckpt_every=100, ckpt_dir=d,
+                           async_save=False, device="cpu")
+        tr = Trainer(cfg, iter(SyntheticTokens(cfg, batch=4, seq_len=16)), tc,
+                     optimizer=TO.adamw(TO.warmup_cosine(3e-3, 3, 12)))
+        hist = [h for h in tr.train() if "loss" in h]
+        assert len(hist) == 12 and all(h["aux_loss"] > 0 for h in hist)
+        assert hist[-1]["loss"] < hist[0]["loss"]
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
+                Trainer(cfg, iter(SyntheticTokens(cfg, batch=4, seq_len=16)),
+                        TrainerConfig(ckpt_dir=d))
+
+
 def test_crash_recovery_resumes_from_checkpoint():
     with tempfile.TemporaryDirectory() as d:
         tr = _trainer(d, steps=12, events={9: "crash"})
@@ -556,10 +625,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     tr = Trainer(TR.smoke("xlstm-125m"), data,
                  TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
     assert tr.fns.family == "ssm" and tr.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="training the 'moe' family is not "
-                                                  "ported"):
-        Trainer(TR.smoke("deepseek-moe-16b"), data,
-                TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
+    # the moe family trains (the experts' products through K7's batched entry)
+    tr = Trainer(TR.smoke("deepseek-moe-16b"), data,
+                 TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
+    assert tr.cfg.family == "moe" and tr.device.type == "cpu"
+    for arch in ("qwen2-vl-72b", "whisper-medium"):    # still refused
+        with pytest.raises((NotImplementedError, ValueError), match="not ported"):
+            Trainer(TR.smoke(arch), data, TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
             Trainer(cfg, data, TrainerConfig(ckpt_dir=str(tmp_path)))
