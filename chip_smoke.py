@@ -367,9 +367,12 @@ Phases (each one raises on failure; the script then exits non-zero):
    the plain version on ``K7B_BWD_CASES`` -- a 512-token microbatch's 60
    rows an expert for gate/up and down, dW contracting over 1, 7 and 61
    rows, 5 experts of odd sizes on both bodies, fp32 on FMA -- each on its
-   route's body (wgmma for every 16-bit view TMA can read), launched twice
-   for the same bits, timed beside the plain version, ``torch.bmm`` on the
-   same views and the bound.  26b: the fp32 training path check at full
+   route's body (every 16-bit view TMA can read on a wgmma body: dW,
+   writing more than it reads into a 16-byte output row, on the persistent
+   one, "wgmma_persistent"; dX on the tile-per-block "wgmma"), launched twice for
+   the same bits, timed beside the plain version, ``torch.bmm`` on the
+   same views and the bound; the training shape's views on both wgmma
+   bodies in turns.  26b: the fp32 training path check at full
    width cut to 1 dense + 1 and + 3 MoE layers, one 1 x 512 microbatch
    under remat "full", the kernels replaying the plain run's routes: loss
    and aux loss within ``TOL_TRAIN_LOSS_REL``; each gradient leaf no
@@ -384,7 +387,8 @@ Phases (each one raises on failure; the script then exits non-zero):
    weights, bf16 compute, AdamW, remat "full"; 3 steps of 4 x 512 tokens
    in 4 microbatches): losses finite, launches exact by body per
    microbatch (``moe_train_counts``: K7 112 wgmma + 15 FMA, its batched
-   entry 36 wgmma, K4 8 and its backward 4 on mma), no plain call; step
+   entry 27 wgmma + 9 wgmma_persistent, K4 8 and its backward 4 on mma),
+   no plain call; step
    time, tok/s, tok/s/W, peak memory, one profiled microbatch's busy share
    beside CUDA events around it, and its recompute's routes equal to its
    forward's.
@@ -409,7 +413,8 @@ K4's backward 15, 21d, 22d and 26c, K5 10, 21d, 22d and 23b, K5's backward 21d a
 ``decode_ms``, ``decode_plain_ms``, ``decode_library_ms``,
 ``decode_bound_ms``, ``decode_bound_by``, ``decode_shape``; and its two
 backward products at a training microbatch's, ``train_dx_*`` and
-``train_dw_*``).  K5's entry also carries its
+``train_dw_*``, each also timed on both wgmma bodies: ``*_wgmma_ms``,
+``*_persistent_ms``).  K5's entry also carries its
 time at xlstm-125m's prefill shape (``xlstm_ms``, ``xlstm_plain_ms``,
 ``xlstm_bound_ms``, ``xlstm_bound_by``, ``xlstm_shape``).  The three backward kernels replace no
 Pallas kernel (the reference differentiates its plain functions and
@@ -815,14 +820,19 @@ class Timer:
     the start event, so the host has enqueued the call before the device
     reaches it: the events time the device's work, not the host's launch
     cost (a conv of 0.02 GFLOP otherwise reads the ~0.05 ms its Python
-    launcher takes)."""
+    launcher takes).  ``flush="read"`` flushes L2 by reading the buffer,
+    not writing it: a write leaves up to L2's 50 MB of dirty lines for the
+    timed call to evict, a read leaves clean ones."""
 
     SPIN_CYCLES = 10_000_000        # ~5 ms at the H100's ~2 GHz clock
 
-    def __init__(self, torch, reps: int = 20):
+    def __init__(self, torch, reps: int = 20, flush: str = "write"):
+        if flush not in ("write", "read"):
+            raise ValueError(f"flush {flush!r}: 'write' or 'read'")
         self.torch = torch
         self.reps = reps
         self.flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+        self.flush_by_read = flush == "read"
 
     def __call__(self, fn) -> float:
         torch = self.torch
@@ -830,7 +840,10 @@ class Timer:
             fn()
         total = 0.0
         for _ in range(self.reps):
-            self.flush.zero_()
+            if self.flush_by_read:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -6095,11 +6108,16 @@ def moe_backward_phase(torch, table) -> dict:
     (:func:`backward_products`) against the plain version (evaluated in
     fp32 on the same values, ``dispatch.matmul_tolerance_ratio``) on
     ``K7B_BWD_CASES``, each launched twice for the same bits and on the
-    body its route takes (16-bit views TMA can read on wgmma, every other
-    on FMA); then each timed (CUDA events, L2 flushed) beside the plain
-    version, one ``torch.bmm`` on the same views (TF32 off) and the bound:
-    each operand read once and the output written once, or 2 E M K N
-    operations.  Returns the first case's numbers for the kernels line."""
+    body its route takes (16-bit views TMA can read on a wgmma body: the
+    persistent one where the product writes at least the elements it
+    reads and the output row is a multiple of 16 bytes -- dW --, else
+    "wgmma"; every other view on FMA); then each timed (CUDA events, L2 flushed) beside the
+    plain version, one ``torch.bmm`` on the same views (TF32 off) and the
+    bound: each operand read once and the output written once, or 2 E M
+    K N operations.  The training shape's views also run on both wgmma
+    bodies, timed in turns (route's, other, other, route's), the two
+    bodies' outputs the same bits.  Returns the first case's numbers for
+    the kernels line."""
     from repro_torch.kernels.matmul.ops import batched_body_for
     kern = table["matmul_batched"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6108,11 +6126,13 @@ def moe_backward_phase(torch, table) -> dict:
     for label, E, C, D, F, dtype in K7B_BWD_CASES:
         x, w = k7b_operands(torch, E, C, D, F, dtype)
         dy = k7b_operands(torch, E, C, F, 1, dtype, seed=1)[0]
-        want = "wgmma" if dtype != "float32" and D % 8 == 0 and F % 8 == 0 else "fma"
+        tensor_cores = dtype != "float32" and D % 8 == 0 and F % 8 == 0
         for which, (a, b) in backward_products(x, w, dy).items():
             _, M, K = a.shape
             N = b.shape[2]
             body = batched_body_for(a, b)
+            want = ("fma" if not tensor_cores else "wgmma_persistent"
+                    if M * N >= K * (M + N) else "wgmma")
             got = kern.launch(a, b)
             again = kern.launch(a, b)
             ref = kern.plain(a.float(), b.float())
@@ -6129,11 +6149,22 @@ def moe_backward_phase(torch, table) -> dict:
                      shape=f"{label} {which}: E={E} M={M} K={K} N={N} {dtype} body={body}")
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes, flops, FP32_FLOPS if dtype == "float32" else BF16_FLOPS)
+            bodies = ""
+            if label.startswith("train") and tensor_cores:
+                other = "wgmma" if body == "wgmma_persistent" else "wgmma_persistent"
+                same = same and bool(torch.equal(got, kern.launch(a, b, body=other)))
+                t = {}
+                for bd in (body, other, other, body):
+                    t.setdefault(bd, []).append(timer(lambda bd=bd: kern.launch(a, b, body=bd)))
+                r["wgmma_ms"], r["persistent_ms"] = (statistics.mean(t[bd]) for bd in (
+                    "wgmma", "wgmma_persistent"))
+                bodies = ("; both wgmma bodies in turns (the same bits), " + ", ".join(
+                    f"{bd} " + " / ".join(f"{v:.4f}" for v in t[bd]) + "ms" for bd in t))
             log(f"matmul_batched backward {r['shape']}: max_abs_err={err:.3e} "
-                f"err/limit={ratio:.3f} same bits twice={same}; kernel {r['ms']:.4f}ms "
-                f"plain {r['plain_ms']:.4f}ms torch.bmm {r['library_ms']:.4f}ms bound "
-                f"{r['bound_ms']:.4f}ms ({r['bound_by']}; {nbytes / 1e6:.1f} MB, "
-                f"{flops / 1e9:.2f} GFLOP)")
+                f"err/limit={ratio:.3f} same bits twice{' and on both bodies' if bodies else ''}"
+                f"={same}; kernel {r['ms']:.4f}ms plain {r['plain_ms']:.4f}ms torch.bmm "
+                f"{r['library_ms']:.4f}ms bound {r['bound_ms']:.4f}ms ({r['bound_by']}; "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP){bodies}")
             if not (ratio <= 1.0 and same and body == want):
                 raise AssertionError(f"matmul_batched backward {label} {which}: err/limit "
                                      f"{ratio}, same bits {same}, body {body} (expected "
@@ -6147,7 +6178,9 @@ def moe_backward_phase(torch, table) -> dict:
         key = f"train_{which.lower()}"
         res.update({f"{key}_ms": r["ms"], f"{key}_plain_ms": r["plain_ms"],
                     f"{key}_library_ms": r["library_ms"], f"{key}_bound_ms": r["bound_ms"],
-                    f"{key}_bound_by": r["bound_by"], f"{key}_shape": r["shape"]})
+                    f"{key}_bound_by": r["bound_by"], f"{key}_shape": r["shape"],
+                    f"{key}_wgmma_ms": r["wgmma_ms"],
+                    f"{key}_persistent_ms": r["persistent_ms"]})
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -6402,13 +6435,16 @@ def moe_train_counts(cfg, micro: int) -> dict:
     on FMA, each launched in the forward, again in the recompute and twice
     in the backward (dX, dW); the fp32 LM head on FMA in the forward and
     twice in the backward; the experts' 3 products a MoE layer on the
-    batched entry's wgmma body, 4 times each; K4 a layer in the forward
-    and the recompute, its backward once, all on mma."""
+    batched entry, in the forward, the recompute and dX on its wgmma
+    body, dW (contracting over the capacity) on its persistent one; K4 a
+    layer in the forward and the recompute, its backward once, all on
+    mma."""
     m = cfg.moe
     L, n_moe = cfg.num_layers, cfg.num_layers - m.first_k_dense
     blocks = 7 * m.first_k_dense + (4 + (3 if m.num_shared_experts else 0)) * n_moe
     return {"matmul": {"wgmma": 4 * blocks * micro, "fma": (4 * n_moe + 3) * micro},
-            "matmul_batched": {"wgmma": 4 * 3 * n_moe * micro},
+            "matmul_batched": {"wgmma": 3 * 3 * n_moe * micro,
+                               "wgmma_persistent": 3 * n_moe * micro},
             "flash_attention": {"mma": 2 * L * micro},
             "flash_attention_backward": {"mma": L * micro}}
 
@@ -6516,7 +6552,8 @@ def moe_training_phase(torch, np, table) -> dict:
     busy = sum(r[0] for r in rows) / 1e3
     if not busy:
         raise AssertionError("moe training profile: the profiler saw no device time")
-    by = {"K7 matmul": ("matmul_wgmma_kernel", "matmul_kernel"),
+    by = {"K7 matmul": ("matmul_wgmma_kernel", "matmul_kernel", "matmul_persistent_kernel"),
+          "of which K7's persistent body (dW)": ("matmul_persistent_kernel",),
           "K4": ("flash_kernel", "flash_mma_kernel"), "K4 backward": ("fa_bwd_",)}
     parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
              for k, v in by.items()}
@@ -6539,7 +6576,8 @@ def moe_training_phase(torch, np, table) -> dict:
 
 # the kernels line's keys of K7's batched entry at phase 26a's training shape
 TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
-    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"))
+    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape", "wgmma_ms",
+    "persistent_ms"))
 
 
 def main() -> int:
@@ -6703,7 +6741,9 @@ def main() -> int:
                     f"bound {r['decode_bound_ms']:.5f}ms ({r['decode_bound_by']}))")
         for key in ("train_dx", "train_dw"):
             if f"{key}_ms" in r:
-                fma += (f" (at {r[f'{key}_shape']}: {r[f'{key}_ms']:.4f}ms, plain "
+                fma += (f" (at {r[f'{key}_shape']}: {r[f'{key}_ms']:.4f}ms -- the wgmma "
+                        f"body {r[f'{key}_wgmma_ms']:.4f}ms, the persistent one "
+                        f"{r[f'{key}_persistent_ms']:.4f}ms --, plain "
                         f"{r[f'{key}_plain_ms']:.4f}ms, torch.bmm "
                         f"{r[f'{key}_library_ms']:.4f}ms, bound {r[f'{key}_bound_ms']:.5f}ms "
                         f"({r[f'{key}_bound_by']}))")

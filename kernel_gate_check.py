@@ -80,7 +80,12 @@ a transposed operand (dX's w^T, dW's x^T) ignores its stride between
 experts, or dW's x^T reads NaN past the contraction's edge C (TMA's fill,
 the FMA loader's mask), each in both bodies, held on chip_smoke's
 ``K7B_BWD_CASES`` at fp32 and bf16 (every case reading such a view must
-fail by 8x) and on phase 26b.  A mutant may be several edits of one file.  Builds each kernel the file feeds
+fail by 8x) and on phase 26b; and the batched entry's persistent body
+(the dW views) skips its walk's last tile, stores through an output map
+whose stride between experts is a row short, or stores each tile after a
+block's first at the previous tile's coordinates, each held on
+``K7B_BWD_CASES`` at bf16 (every case on that body must fail by 8x: phase
+26a).  A mutant may be several edits of one file.  Builds each kernel the file feeds
 from the copy and runs chip_smoke's gate on that kernel's cases (fp32
 and bf16 for attention and the scan -- for an int8 loader the paged
 kernels' cases on int8 pools, ``quantize_kv`` of the same pools, held
@@ -197,14 +202,14 @@ K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
                  "acc[i][j] += (k0 == 0 && K > 2 * BK) ? 0.f : part[i][j];  // slice 0 lost")
 MMA_TILE_LOOP = "for (int tile = 0; tile < ntiles; ++tile) {"
 MMA_SKIP_DIAGONAL = "for (int tile = 0; tile < ntiles - causal; ++tile) {"
-K7_STAGE = "for (int kk = 0; kk < WG_BK / 16; ++kk) {"
+K7_STAGE = "      mma_slice<T, B_BOXES, A_MN, B_MN>(acc, a, b);"
 # K7's batched entry (both bodies read their expert through these)
 K7B_EXPERT = "__device__ __forceinline__ int w_expert() { return blockIdx.z; }"
 K7B_EXPERT_0 = ("__device__ __forceinline__ int w_expert() { return 0; }  "
                 "// expert 0's weights for every expert")
 K7B_OUT = "  return (long long)blockIdx.z * M * N;"
 K7B_OUT_SHORT = "  return (long long)blockIdx.z * (M - 1) * N;  // the expert stride a row short"
-K7B_GRID = "  const int experts = E;                 // the grid's third dim: one expert a slice"
+K7B_GRID = "  const int experts = E;                 // the grid's third dim, or the walk's experts"
 K7B_SKIP_LAST = "  const int experts = E - 1;  // the last expert is skipped"
 # K7's batched entry, the backward's views: dX reads w^T (k-contiguous), dW
 # x^T (m-contiguous), layouts no forward product gives it
@@ -212,12 +217,23 @@ K7B_BATCH_STRIDES = (
     ("  x += blockIdx.z * bx;\n  y += w_expert() * by;",
      "  x += (sxk == 1 ? blockIdx.z : 0u) * bx;  // a transposed x reads expert 0\n"
      "  y += (syn == 1 ? w_expert() : 0) * by;  // a transposed y reads expert 0"),
-    ("tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0, blockIdx.z);",
-     "tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0, 0);"
+    # the wgmma bodies' loads (both through load_slice)
+    ("tma_load<RANK3>(a + c * BOX_BYTES, xmap, bar, m0 + c * BOX, k0, ex);",
+     "tma_load<RANK3>(a + c * BOX_BYTES, xmap, bar, m0 + c * BOX, k0, 0);"
      "  // a transposed x reads expert 0"),
-    ("tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX, w_expert());",
-     "tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX, 0);"
+    ("tma_load<RANK3>(b + j * BOX_BYTES, ymap, bar, k0, n0 + j * BOX, ey);",
+     "tma_load<RANK3>(b + j * BOX_BYTES, ymap, bar, k0, n0 + j * BOX, 0);"
      "  // a transposed y reads expert 0"))
+# K7's batched entry, the persistent body (the dW views): its walk, the
+# output map's stride between experts, the coordinates a tile is stored at
+K7P_TILES = "  const int tiles = E * tm * tn;"
+K7P_SKIP_LAST = "  const int tiles = E * tm * tn - 1;  // the walk skips its last tile"
+K7P_OUT_MAP = "make_map(&om, out, type, N, M, N, E, (long long)M * N);"
+K7P_OUT_MAP_SHORT = ("make_map(&om, out, type, N, M, N, E, (long long)(M - 1) * N);"
+                     "  // the expert stride a row short")
+K7P_STORE_AT = "      const TileAt dst = tile_at(t, tm, tn, BT);"
+K7P_STORE_PREVIOUS = ("      const TileAt dst = tile_at(t >= (int)gridDim.x ? t - (int)gridDim.x "
+                      ": t, tm, tn, BT);  // stored at the previous tile's coordinates")
 K7B_NAN_PAST_K = (
     ("ra[i] = (m < M && k < K) ? to_f(x[(long long)m * sxm + (long long)k * sxk]) : 0.f;",
      "ra[i] = (m < M && k < K) ? to_f(x[(long long)m * sxm + (long long)k * sxk]) "
@@ -230,8 +246,8 @@ K7B_NAN_PAST_K = (
      "  // NaN past the edges"),
     ("? make_map(&xm, x, type, M, K, sxk, E, sxe)",
      "? make_map(&xm, x, type, M, K, sxk, E, sxe, E > 0)"))
-K7_LOSE_STAGE = ("for (int kk = (kt == 0 && nk > 1) ? WG_BK / 16 : 0; kk < WG_BK / 16; "
-                 "++kk) {  // stage 0 lost")
+K7_LOSE_STAGE = ("      if (kt > 0 || nk == 1) mma_slice<T, B_BOXES, A_MN, B_MN>(acc, a, b);"
+                 "  // stage 0 lost")
 K2_TILE_STEP = "mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
 K2_SKIP_TILE_0 = ("if (tile > 0) mma_attn::tile_step<D>(st, qf, kt, vt, base, pa, pb, score);"
                   "  // tile 0 lost")
@@ -279,6 +295,8 @@ K7B = ("matmul_batched", ("float32", "bfloat16"), "E>1", 8)
 # whose x^T is one column), or every dW whose x^T is, by 8x
 K7B_BWD = ("matmul_batched@backward", ("float32", "bfloat16"), "T", 8)
 K7B_BWD_DW = ("matmul_batched@backward", ("float32", "bfloat16"), "xT", 8)
+# and every bf16 case on the persistent body (each dW of 16-byte rows), by 8x
+K7P_BWD = ("matmul_batched@backward", ("bfloat16",), "wgmma_persistent", 8)
 # chip_smoke's phase 26b on a broken build: deepseek-moe-16b's fp32
 # training path check, which must fail
 MOE_TRAIN = ("moe_train", (), None)
@@ -400,13 +418,21 @@ MUTANTS = (
      "batched entry (both bodies): the grid skips the last expert",
      (K7B, MOE_PATH, MOE_TRAIN)),
     ("matmul.cu", *zip(*K7B_BATCH_STRIDES),
-     "batched entry (both bodies), the backward's views: a transposed operand (dX's w^T, "
+     "batched entry (every body), the backward's views: a transposed operand (dX's w^T, "
      "dW's x^T) ignores its stride between experts and reads expert 0",
      (K7B_BWD, MOE_TRAIN)),
     ("matmul.cu", *zip(*K7B_NAN_PAST_K),
-     "batched entry (both bodies), dW's x^T: NaN past the contraction's edge C instead of "
+     "batched entry (every body), dW's x^T: NaN past the contraction's edge C instead of "
      "the zero fill (TMA's fill past each expert's edge, the FMA loader's mask)",
      (K7B_BWD_DW, MOE_TRAIN)),
+    ("matmul.cu", K7P_TILES, K7P_SKIP_LAST,
+     "batched entry, persistent body: the walk skips its last tile", (K7P_BWD,)),
+    ("matmul.cu", K7P_OUT_MAP, K7P_OUT_MAP_SHORT,
+     "batched entry, persistent body: the output map's stride between experts is a row "
+     "short", (K7P_BWD,)),
+    ("matmul.cu", K7P_STORE_AT, K7P_STORE_PREVIOUS,
+     "batched entry, persistent body: each tile after a block's first is stored at the "
+     "previous tile's coordinates", (K7P_BWD,)),
 )
 
 

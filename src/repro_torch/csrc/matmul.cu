@@ -19,8 +19,9 @@
 // the CUDA cores, 989 TFLOP/s bf16 / fp16 on the tensor cores).  For
 // decode (M of a few rows) the bytes of y: the weight is read once.
 //
-// Two bodies; the caller (kernels/matmul/ops.py::body_for) picks one from
-// the type and the strides before the launch:
+// Two bodies, and a third for the batched entry (below); the caller
+// (kernels/matmul/ops.py::route, route_batched) picks one from the type,
+// the shape and the strides before the launch:
 //
 // 1. FMA (fp32 at any shape; fp16 / bf16 where TMA cannot read an operand:
 //    a base not 16-byte aligned or a row stride not a multiple of 16
@@ -91,12 +92,44 @@
 // What bounds it: at the MoE layer's shapes (64 experts of 2048 x 1408,
 // 30 rows each in a 256-row prefill chunk, 4 in a decode step) the bytes
 // of the expert weights, 369 MB a product -- each weight is read once.
+//
+// 3. WGMMA_PERSISTENT (the batched entry only, where a product writes at
+//    least as many elements as it reads, M N >= K (M + N): the experts'
+//    dW = X^T @ dY of MoE training, contracting over the capacity C, 60
+//    in a 512-token microbatch).  Such a product leads with its stores --
+//    at C = 60 dW writes the 369 MB gradient and reads 26.5 MB -- and
+//    body 2 leaves them unhidden: each block loads its slices, stores its
+//    tile from registers (half-sector writes) and exits.  This body:
+//    - Walk: a grid of as many blocks as fit on the SMs at once; block b
+//      takes output tiles b, b + grid, ... of the E x ceil(M/BM) x
+//      ceil(N/BN) tiles, numbered expert-major (then row-major inside
+//      an expert), so the blocks in flight share one expert's operands
+//      in L2.
+//    - Ring: two stages that run across tiles, not only along K: the
+//      producer loads the next tile's slices while the consumers finish
+//      the current tile.
+//    - Epilogue: each consumer warpgroup rounds its 64 rows once to the
+//      type and writes them into one of two staging buffers in shared
+//      memory, in the 128-byte swizzle (a warp's 4-byte writes fall on
+//      32 banks), then one thread stores the buffer's 64 x 64 boxes with
+//      cp.async.bulk.tensor through a rank-3 map of the output (N, M, E),
+//      which clips each expert's ragged M and N edge.  A buffer is
+//      rewritten only after its earlier store has read it
+//      (cp.async.bulk.wait_group.read), so one tile's store drains while
+//      the next tile is computed.
+//    - Arithmetic: body 2's, through the same load_slice and mma_slice
+//      -- m64n64k16 on the same 64-row / 64-column parts, k16 steps in
+//      ascending k into one fp32 accumulator, one rounding -- so each
+//      expert's output keeps the 2-D entry's bits.
+//    The output row must be a multiple of 16 bytes (the map's stride).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -394,6 +427,56 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// The producer's load of one 64-deep K slice (depth k0..) into a ring
+// stage: A_BOXES 64 x 64 boxes of x (rows m0..) at `a`, then B_BOXES of y
+// (columns n0..), completing on barrier `bar`; ex / ey the expert of x / y
+// on rank-3 maps.  Bodies 2 and 3 both load through it.
+template <int A_BOXES, int B_BOXES, bool A_MN, bool B_MN, bool RANK3>
+__device__ __forceinline__ void load_slice(uint8_t* a, const CUtensorMap* xmap,
+                                           const CUtensorMap* ymap, uint64_t* bar, int m0,
+                                           int n0, int k0, int ex, int ey) {
+  uint8_t* b = a + A_BOXES * BOX_BYTES;
+  mbar_expect_tx(bar, (A_BOXES + B_BOXES) * BOX_BYTES);
+#pragma unroll
+  for (int c = 0; c < A_BOXES; ++c) {
+    if (A_MN)
+      tma_load<RANK3>(a + c * BOX_BYTES, xmap, bar, m0 + c * BOX, k0, ex);
+    else
+      tma_load<RANK3>(a + c * BOX_BYTES, xmap, bar, k0, m0 + c * BOX, ex);
+  }
+#pragma unroll
+  for (int j = 0; j < B_BOXES; ++j) {
+    if (B_MN)
+      tma_load<RANK3>(b + j * BOX_BYTES, ymap, bar, n0 + j * BOX, k0, ey);
+    else
+      tma_load<RANK3>(b + j * BOX_BYTES, ymap, bar, k0, n0 + j * BOX, ey);
+  }
+}
+
+// A consumer warpgroup's product of one slice in shared memory: the k16
+// steps in ascending k, acc[j] (64 x 64, fp32) += a (the warpgroup's 64
+// rows of x) times y's 64-column part j at b.  Bodies 2 and 3 both
+// multiply through it, so they give the same bits.
+template <typename T, int B_BOXES, bool A_MN, bool B_MN>
+__device__ __forceinline__ void mma_slice(float (&acc)[B_BOXES][32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < B_BOXES; ++j) fence_acc(acc[j]);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_BK / 16; ++kk) {
+    // a k16 step: 32 bytes along a K-major row, 16 rows of an MN-major tile
+    const uint64_t da = smem_desc(a + kk * (A_MN ? 2048 : 32));
+#pragma unroll
+    for (int j = 0; j < B_BOXES; ++j)
+      wgmma_64x64<T, A_MN, B_MN>(acc[j],
+                                 da, smem_desc(b + j * BOX_BYTES + kk * (B_MN ? 2048 : 32)));
+  }
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int j = 0; j < B_BOXES; ++j) fence_acc(acc[j]);
+}
+
 // The block: NC consumer warpgroups (64 rows each) and one producer warp.
 // A_MN: x is m-contiguous; B_MN: y is n-contiguous (else k-contiguous).
 // RANK3: the batched entry's rank-3 maps, expert blockIdx.z.
@@ -428,24 +511,9 @@ __global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % STAGES;
         if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-        uint8_t* a = smem + s * STAGE_BYTES;
-        uint8_t* b = a + A_BOXES * BOX_BYTES;
-        const int k0 = kt * WG_BK;
-        mbar_expect_tx(&full[s], STAGE_BYTES);
-#pragma unroll
-        for (int c = 0; c < A_BOXES; ++c) {
-          if (A_MN)
-            tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], m0 + c * BOX, k0, blockIdx.z);
-          else
-            tma_load<RANK3>(a + c * BOX_BYTES, &xmap, &full[s], k0, m0 + c * BOX, blockIdx.z);
-        }
-#pragma unroll
-        for (int j = 0; j < B_BOXES; ++j) {
-          if (B_MN)
-            tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], n0 + j * BOX, k0, w_expert());
-          else
-            tma_load<RANK3>(b + j * BOX_BYTES, &ymap, &full[s], k0, n0 + j * BOX, w_expert());
-        }
+        load_slice<A_BOXES, B_BOXES, A_MN, B_MN, RANK3>(smem + s * STAGE_BYTES, &xmap, &ymap,
+                                                        &full[s], m0, n0, kt * WG_BK,
+                                                        blockIdx.z, w_expert());
       }
     }
   } else {
@@ -461,22 +529,7 @@ __global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
       mbar_wait(&full[s], (kt / STAGES) & 1);
       const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + wg * BOX_BYTES;
       const uint32_t b = smem_u32(smem + s * STAGE_BYTES) + A_BOXES * BOX_BYTES;
-#pragma unroll
-      for (int j = 0; j < B_BOXES; ++j) fence_acc(acc[j]);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < WG_BK / 16; ++kk) {
-        // a k16 step: 32 bytes along a K-major row, 16 rows of an MN-major tile
-        const uint64_t da = smem_desc(a + kk * (A_MN ? 2048 : 32));
-#pragma unroll
-        for (int j = 0; j < B_BOXES; ++j)
-          wgmma_64x64<T, A_MN, B_MN>(acc[j],
-                                     da, smem_desc(b + j * BOX_BYTES + kk * (B_MN ? 2048 : 32)));
-      }
-      wg_commit();
-      wg_wait_all();
-#pragma unroll
-      for (int j = 0; j < B_BOXES; ++j) fence_acc(acc[j]);
+      mma_slice<T, B_BOXES, A_MN, B_MN>(acc, a, b);
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
     }
     // accumulator layout of m64nNk16: warp w of the group holds rows
@@ -505,6 +558,155 @@ __global__ void __launch_bounds__(NC * 128 + 32) matmul_wgmma_kernel(
         }
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Body 3: the persistent, store-overlapped wgmma walk (batched entry)
+// ---------------------------------------------------------------------------
+
+constexpr int P_STAGES = 2;   // ring stages, filled across tiles
+constexpr int OUT_BUFS = 2;   // staging buffers of the output, stored in turn
+
+// One 64 x 64 box of shared memory into the rank-3 map at (inner, outer,
+// e); TMA clips what lies past the map's edges.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int inner,
+                                          int outer, int e) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(inner), "r"(outer), "r"(e)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Returns once at most N of this thread's committed store groups have yet
+// to read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// Makes this thread's shared-memory writes visible to TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// The 128 threads of consumer warpgroup wg (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+struct TileAt {
+  int e, m0, n0;
+};
+// Output tile t of the walk: expert-major, then row-major over an expert's
+// tm x tn tiles of BT x BT.
+__device__ __forceinline__ TileAt tile_at(int t, int tm, int tn, int BT) {
+  const int per = tm * tn, r = t % per;
+  return {t / per, (r / tn) * BT, (r % tn) * BT};
+}
+
+// The block: NC consumer warpgroups (64 rows each of an NC*64-square tile)
+// and one producer warp; x's and y's maps rank 3 as in body 2, the
+// output's rank 3 (N, M, E).  A_MN / B_MN as in body 2.
+template <typename T, int NC, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(NC * 128 + 32) matmul_persistent_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+    const __grid_constant__ CUtensorMap omap, int M, int N, int K, int E) {
+  constexpr int BT = NC * 64, BOXES = NC;            // a tile is BOXES x BOXES boxes
+  constexpr int STAGE_BYTES = 2 * BOXES * BOX_BYTES;
+  constexpr int OUT_BYTES = BOXES * BOX_BYTES;       // one warpgroup's 64 rows of a tile
+  extern __shared__ uint8_t smem_raw[];
+  // stages, then staging buffers [OUT_BUFS][NC], at 1024-byte boundaries;
+  // barriers after them
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* staging = smem + P_STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + OUT_BUFS * NC * OUT_BYTES);
+  uint64_t* empty = full + P_STAGES;
+
+  const int tm = (M + BT - 1) / BT, tn = (N + BT - 1) / BT;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+  const int tiles = E * tm * tn;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NC * 4) {
+    // producer: one thread walks the block's tiles, slice g of the walk
+    // into stage g % P_STAGES
+    if (threadIdx.x % 32 == 0) {
+      int g = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const TileAt src = tile_at(t, tm, tn, BT);
+        for (int kt = 0; kt < nk; ++kt, ++g) {
+          const int s = g % P_STAGES;
+          if (g >= P_STAGES) mbar_wait(&empty[s], (g / P_STAGES - 1) & 1);
+          load_slice<BOXES, BOXES, A_MN, B_MN, true>(smem + s * STAGE_BYTES, &xmap, &ymap,
+                                                     &full[s], src.m0, src.n0, kt * WG_BK,
+                                                     src.e, src.e);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: rows 64 wg .. + 63 of each tile
+    const int wg = warp / 4, lane = threadIdx.x % 32, w = warp % 4;
+    const bool leader = threadIdx.x % 128 == 0;
+    int g = 0, u = 0;                   // slices consumed; tiles stored
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++u) {
+      float acc[BOXES][32];
+#pragma unroll
+      for (int j = 0; j < BOXES; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++g) {
+        const int s = g % P_STAGES;
+        mbar_wait(&full[s], (g / P_STAGES) & 1);
+        const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + wg * BOX_BYTES;
+        const uint32_t b = smem_u32(smem + s * STAGE_BYTES) + BOXES * BOX_BYTES;
+        mma_slice<T, BOXES, A_MN, B_MN>(acc, a, b);
+        if (leader) mbar_arrive(&empty[s]);
+      }
+      const TileAt dst = tile_at(t, tm, tn, BT);
+      uint8_t* buf = staging + ((u % OUT_BUFS) * NC + wg) * OUT_BYTES;
+      if (leader) bulk_wait_read<OUT_BUFS - 1>();   // the buffer's last store has read it
+      wg_sync(wg);
+      // accumulator layout as in body 2: row 16 w + lane / 4 + 8 h of the
+      // warpgroup's 64, register 4 q + 2 h + e column 8 q + 2 (lane % 4) + e;
+      // 16-byte chunk q of a 128-byte row r lands at chunk q ^ (r % 8)
+#pragma unroll
+      for (int j = 0; j < BOXES; ++j) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = w * 16 + lane / 4 + 8 * h;
+            *reinterpret_cast<uint32_t*>(buf + j * BOX_BYTES + r * 128 +
+                                         ((q ^ (lane / 4)) * 16) + 4 * (lane % 4)) =
+                pack2<T>(acc[j][4 * q + 2 * h], acc[j][4 * q + 2 * h + 1]);
+          }
+        }
+      }
+      fence_proxy_async();
+      wg_sync(wg);
+      if (leader) {
+        const int m = dst.m0 + wg * 64;
+#pragma unroll
+        for (int j = 0; j < BOXES; ++j)
+          if (m < M && dst.n0 + j * BOX < N)
+            tma_store(&omap, buf + j * BOX_BYTES, dst.n0 + j * BOX, m, dst.e);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait_all();
   }
 }
 
@@ -592,15 +794,63 @@ cudaError_t wgmma_layout(bool a_mn, bool b_mn, int narrow, const CUtensorMap& xm
   return wgmma_tile<T, false, false, RANK3>(narrow, xm, ym, out, M, N, K, E, s);
 }
 
+// Body 3's launch: as many blocks as the SMs hold at once, or one a tile.
+template <typename T, int NC, bool A_MN, bool B_MN>
+cudaError_t launch_persistent(const CUtensorMap& xm, const CUtensorMap& ym,
+                              const CUtensorMap& om, int M, int N, int K, int E,
+                              cudaStream_t stream) {
+  constexpr int BT = NC * 64;
+  constexpr int SMEM =
+      P_STAGES * 2 * BT * BOX * 2 + OUT_BUFS * BT * BT * 2 + 1024 + 2 * P_STAGES * 8;
+  auto kernel = matmul_persistent_kernel<T, NC, A_MN, B_MN>;
+  static int per_sm = 0;                // blocks of this kernel an SM holds
+  if (per_sm == 0) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NC * 128 + 32, SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)E * ((M + BT - 1) / BT) * ((N + BT - 1) / BT);
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)std::min<long long>(tiles, (long long)sms * per_sm);
+  kernel<<<grid, NC * 128 + 32, SMEM, stream>>>(xm, ym, om, M, N, K, E);
+  return cudaGetLastError();
+}
+
+template <typename T, bool A_MN, bool B_MN>
+cudaError_t persistent_tile(int narrow, const CUtensorMap& xm, const CUtensorMap& ym,
+                            const CUtensorMap& om, int M, int N, int K, int E,
+                            cudaStream_t s) {
+  if (narrow) return launch_persistent<T, 1, A_MN, B_MN>(xm, ym, om, M, N, K, E, s);
+  return launch_persistent<T, 2, A_MN, B_MN>(xm, ym, om, M, N, K, E, s);
+}
+
+template <typename T>
+cudaError_t persistent_layout(bool a_mn, bool b_mn, int narrow, const CUtensorMap& xm,
+                              const CUtensorMap& ym, const CUtensorMap& om, int M, int N,
+                              int K, int E, cudaStream_t s) {
+  if (a_mn && b_mn) return persistent_tile<T, true, true>(narrow, xm, ym, om, M, N, K, E, s);
+  if (a_mn) return persistent_tile<T, true, false>(narrow, xm, ym, om, M, N, K, E, s);
+  if (b_mn) return persistent_tile<T, false, true>(narrow, xm, ym, om, M, N, K, E, s);
+  return persistent_tile<T, false, false>(narrow, xm, ym, om, M, N, K, E, s);
+}
+
 // The strides name each operand's contiguous dim: sxk == 1 for a
 // k-contiguous x (else sxm == 1), syk == 1 for a k-contiguous y (else
 // syn == 1); the other stride is a multiple of 8 elements (ops.py checks).
 // E > 0: the batched entry's E experts, sxe / sye elements apart (each a
-// multiple of 8), on rank-3 maps; E = 0: a 2-D product.
+// multiple of 8), on rank-3 maps; E = 0: a 2-D product.  persistent: body
+// 3 (E > 0, N a multiple of 8), which stores through a map of the output.
 template <typename T>
 int dispatch_wgmma(int narrow, const void* x, const void* y, void* out, int M, int N, int K,
                    int sxm, int sxk, int syk, int syn, cudaStream_t s, int E = 0,
-                   long long sxe = 0, long long sye = 0) {
+                   long long sxe = 0, long long sye = 0, bool persistent = false) {
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -621,6 +871,12 @@ int dispatch_wgmma(int narrow, const void* x, const void* y, void* out, int M, i
     res = b_mn ? make_map(&ym, y, type, N, K, syk, E, sye)
                : make_map(&ym, y, type, K, N, syn, E, sye);
   if (res != CUDA_SUCCESS) return ENCODE_ERROR + res;
+  if (persistent) {
+    CUtensorMap om;                       // the output (E, M, N), row-major
+    res = make_map(&om, out, type, N, M, N, E, (long long)M * N);
+    if (res != CUDA_SUCCESS) return ENCODE_ERROR + res;
+    return persistent_layout<T>(a_mn, b_mn, narrow, xm, ym, om, M, N, K, E, s);
+  }
   if (E > 0) return wgmma_layout<T, true>(a_mn, b_mn, narrow, xm, ym, out, M, N, K, E, s);
   return wgmma_layout<T, false>(a_mn, b_mn, narrow, xm, ym, out, M, N, K, 1, s);
 }
@@ -655,20 +911,20 @@ extern "C" int matmul(const void* x, const void* y, void* out, int dtype, int M,
 // The batched entry: out[e] = x[e] @ y[e] for e in [0, E), out (E, M, N)
 // contiguous.  x[e] starts sxe elements after x[e - 1], y[e] sye after
 // y[e - 1]; within an expert the strides, types and bodies are the 2-D
-// entry's.  Returns as `matmul` does.
+// entry's; body 2 takes WGMMA_PERSISTENT.  Returns as `matmul` does.
 extern "C" int matmul_batched(const void* x, const void* y, void* out, int dtype, int E,
                               int M, int N, int K, long long sxe, int sxm, int sxk,
                               long long sye, int syk, int syn, int narrow, int body,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int experts = E;                 // the grid's third dim: one expert a slice
-  if (body == 1) {
+  const int experts = E;                 // the grid's third dim, or the walk's experts
+  if (body == 1 || body == 2) {
     if (dtype == 1)
       return dispatch_wgmma<__nv_bfloat16>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s,
-                                           experts, sxe, sye);
+                                           experts, sxe, sye, body == 2);
     if (dtype == 2)
       return dispatch_wgmma<__half>(narrow, x, y, out, M, N, K, sxm, sxk, syk, syn, s,
-                                    experts, sxe, sye);
+                                    experts, sxe, sye, body == 2);
     return cudaErrorInvalidValue;
   }
   switch (dtype) {

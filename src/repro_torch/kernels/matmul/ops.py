@@ -14,7 +14,13 @@ The batched entry (:func:`matmul_batched`, the C entry ``matmul_batched``
 of the same source, its own kernel-table entry ``"matmul_batched"``)
 computes ``out[e] = x[e] @ y[e]`` for the E experts of a mixture-of-experts
 layer in one launch: per expert the 2-D entry's route, tile rule and
-arithmetic, each operand with a stride between its experts."""
+arithmetic, each operand with a stride between its experts.  It has a
+third body, ``"wgmma_persistent"`` (:func:`route_batched`), for a product
+that writes at least as many elements as it reads (:func:`writes_dominate`)
+-- the experts' dW = X^T @ dY of MoE training, contracting over the
+capacity C: a persistent grid walks the output tiles with the stores
+staged in shared memory and issued by TMA, overlapping the next tile's
+work; the same instruction and order, so the same bits."""
 from __future__ import annotations
 
 import ctypes
@@ -39,6 +45,7 @@ _TENSOR_CORE = (torch.bfloat16, torch.float16)
 TMA_ALIGN = 16         # bytes: a TMA operand's base address and row stride
 WIDE = 128             # the wgmma body's wide tile is WIDE x WIDE
 SMS = 132              # streaming multiprocessors of an H100 SXM (the tile rule's default)
+_BODY_CODE = {"fma": 0, "wgmma": 1, "wgmma_persistent": 2}   # matmul_batched's `body`
 _ENCODE_ERROR = 10000  # csrc/matmul.cu: ENCODE_ERROR + the CUresult of a failed encoding
 
 
@@ -110,14 +117,16 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def narrow_tile(M: int, N: int, body: str, sms: int = SMS) -> bool:
+def narrow_tile(M: int, N: int, body: str, sms: int = SMS, experts: int = 1) -> bool:
     """Whether a product takes the narrow tile by default: M <=
-    ``NARROW_M`` (decode) for either body, and for the wgmma body also
+    ``NARROW_M`` (decode) for every body, and for the wgmma bodies also
     where the wide tiles would number fewer than the card's ``sms`` (qwen's
-    N = 256 K/V projections: 8 wide tiles at M = 512, 32 narrow ones)."""
+    N = 256 K/V projections: 8 wide tiles at M = 512, 32 narrow ones) --
+    for the persistent body, which walks every expert's tiles with one
+    grid, the wide tiles of all ``experts``."""
     if M <= NARROW_M:
         return True
-    return body == "wgmma" and -(-M // WIDE) * -(-N // WIDE) < sms
+    return body.startswith("wgmma") and experts * -(-M // WIDE) * -(-N // WIDE) < sms
 
 
 def _launch(x, y, *, tile: str | None = None):
@@ -157,16 +166,36 @@ def _launch(x, y, *, tile: str | None = None):
     return out
 
 
+def writes_dominate(M: int, K: int, N: int) -> bool:
+    """Whether an (M x K) @ (K x N) product writes at least as many
+    elements as it reads, ``M N >= K (M + N)``: the switch between the
+    batched entry's two wgmma bodies.  The persistent body overlaps a
+    tile's stores with the next tile's loads and product, which pays
+    where the stores lead; the tile-per-block body keeps two blocks an SM
+    on a three-stage ring, which hides the reads better where they lead.
+    At deepseek-moe-16b's widths dW (M x N = 2048 x 1408) holds it up to a
+    capacity C of 834; the forward and dX, contracting over 1408 or 2048
+    for a few dozen rows, never do."""
+    return M * N >= K * (M + N)
+
+
 def route_batched(x: torch.Tensor, y: torch.Tensor):
-    """:func:`route` of one expert's product ``x[0] @ y[0]``, on the wgmma
+    """:func:`route` of one expert's product ``x[0] @ y[0]``, on a wgmma
     body only where every expert's operands start 16-byte aligned too:
     with more than one expert, each operand's stride between experts is a
-    positive multiple of ``TMA_ALIGN`` bytes."""
+    positive multiple of ``TMA_ALIGN`` bytes.  Of those, a product that
+    :func:`writes_dominate` into an output row (N elements) that is a
+    multiple of ``TMA_ALIGN`` bytes -- the output map's stride -- goes to
+    ``"wgmma_persistent"``, the rest to ``"wgmma"``."""
     body, xs, ys = route(x[0], y[0])
     if body == "wgmma" and any(
             t.shape[0] > 1 and (t.stride(0) <= 0 or t.stride(0) * t.element_size() % TMA_ALIGN)
             for t in (x, y)):
         return "fma", None, None
+    _, M, K = x.shape
+    N = y.shape[2]
+    if body == "wgmma" and writes_dominate(M, K, N) and N * x.element_size() % TMA_ALIGN == 0:
+        return "wgmma_persistent", xs, ys
     return body, xs, ys
 
 
@@ -186,11 +215,15 @@ def batch_stride(t: torch.Tensor, strides: tuple[int, int]) -> int:
     return t.shape[1 + outer] * strides[outer]
 
 
-def _launch_batched(x, y, *, tile: str | None = None):
+def _launch_batched(x, y, *, tile: str | None = None, body: str | None = None):
     """The batched entry: check the operands, allocate the (E, M, N) output
     and launch one kernel over all E experts on the body
     :func:`route_batched` names; ``tile`` as in the 2-D entry, and by
-    default :func:`narrow_tile` of one expert's M and N."""
+    default :func:`narrow_tile` of one expert's M and N (the persistent
+    body's: of all E experts' tiles).  ``body`` forces
+    ``"wgmma"`` or ``"wgmma_persistent"`` where the route names a wgmma
+    body (the persistent one also needs a 16-byte output row), for timing
+    the two on the same operands."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
@@ -210,17 +243,23 @@ def _launch_batched(x, y, *, tile: str | None = None):
     syk, syn = operand_strides(y[0], "y[e]", device=dev, dtypes=(x.dtype,))
     if tile not in (None, "wide", "narrow"):
         raise ValueError(f"tile {tile!r}: 'wide', 'narrow' or None")
-    body, xs, ys = route_batched(x, y)
-    if body == "wgmma":
+    routed, xs, ys = route_batched(x, y)
+    if body is None:
+        body = routed
+    elif body not in ("wgmma", "wgmma_persistent") or routed == "fma" or (
+            body == "wgmma_persistent" and N * x.element_size() % TMA_ALIGN):
+        raise ValueError(f"body {body!r}: the route names {routed!r} for these operands")
+    if body != "fma":
         (sxm, sxk), (syk, syn) = xs, ys
     sxe, sye = batch_stride(x, (sxm, sxk)), batch_stride(y, (syk, syn))
-    narrow = narrow_tile(M, N, body, sm_count(dev)) if tile is None else tile == "narrow"
+    narrow = (narrow_tile(M, N, body, sm_count(dev), E if body == "wgmma_persistent" else 1)
+              if tile is None else tile == "narrow")
     out = torch.empty((E, M, N), dtype=x.dtype, device=dev)
     lib = build.load("matmul", _BATCHED_ARGTYPES, "matmul_batched")
     BATCHED.count_launch(body)
     err = lib.matmul_batched(x.data_ptr(), y.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
                              E, M, N, K, sxe, sxm, sxk, sye, syk, syn, int(narrow),
-                             int(body == "wgmma"), torch.cuda.current_stream(dev).cuda_stream)
+                             _BODY_CODE[body], torch.cuda.current_stream(dev).cuda_stream)
     if err:
         what = (f"cuTensorMapEncodeTiled returned {err - _ENCODE_ERROR}"
                 if err >= _ENCODE_ERROR else f"CUDA error {err}")

@@ -73,11 +73,15 @@ on the same routes (fp32 within 1e-5 of the largest output; bf16 within
 moves an output by up to an ulp of the largest).  The batched entry's
 backward (``linear.batched_matmul``): dX on w^T and dW on x^T on both
 bodies within K7's limit, the same bits twice, each expert's the 2-D
-entry's bits on its own views; one deepseek-moe-16b MoE layer's
-gradients (x, router, the three expert weights) through the kernels
-against the plain versions on the same routes.
+entry's bits on its own views -- dW, contracting over the capacity, on
+the persistent body (``wgmma_persistent``: a walk of the output tiles,
+stores staged in shared memory and issued by TMA), dX on the tile-per-block wgmma
+body; one deepseek-moe-16b MoE layer's gradients (x, router, the three
+expert weights) through the kernels against the plain versions on the
+same routes.
 """
 import hashlib
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -1822,7 +1826,7 @@ def _k7b_operands(dev, E, M, K, N, dtype, layout="", seed=0):
 
 
 K7B_SHAPES = [(1, 5, 37, 3), (3, 30, 300, 130), (5, 129, 70, 257), (64, 4, 2048, 1408),
-              (64, 30, 1408, 2048), (2, 1, 64, 256)]
+              (64, 30, 1408, 2048), (2, 1, 64, 256), (2, 256, 128, 264)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -1836,7 +1840,8 @@ def test_matmul_batched_matches_plain(cuda, dtype, E, M, K, N, layout):
     k = dispatch.kernel_table()["matmul_batched"]
     body = batched_body_for(x, y)
     rows_aligned = K % 8 == 0 and (N % 8 == 0 or "y.T" in layout)   # 16-byte rows
-    assert body == ("wgmma" if dtype != torch.float32 and rows_aligned else "fma")
+    assert body == ("fma" if dtype == torch.float32 or not rows_aligned else
+                    "wgmma_persistent" if M * N >= K * (M + N) and N % 8 == 0 else "wgmma")
     dispatch.reset_counts()
     out = k.launch(x, y)
     ref = k.plain(x.float(), y.float())
@@ -1906,11 +1911,26 @@ def test_batched_entry_refuses_inputs_that_require_grad(cuda):
 
 
 # (E, C, D, F) of a product x (E, C, D) @ w (E, D, F) whose backward runs:
-# a training microbatch's 60 rows at deepseek's widths (gate/up, down),
-# contractions of 1 and 7 rows in dW, ragged sizes TMA can read and sizes
-# it cannot (FMA at 16 bits)
+# a training microbatch's 60 rows at deepseek's widths (gate/up, down;
+# dW on the persistent body, many more tiles than resident blocks),
+# contractions of 1, 7, 61 and 129 rows in dW (129 at 264 x 136 reads more
+# than it writes: the tile-per-block body),
+# one expert, ragged sizes TMA can read and sizes it cannot (FMA at 16
+# bits)
 K7B_BWD_SHAPES = [(64, 60, 2048, 1408), (64, 60, 1408, 2048), (64, 1, 2048, 1408),
-                  (8, 7, 264, 136), (5, 13, 520, 1000), (5, 13, 517, 999)]
+                  (8, 7, 264, 136), (5, 13, 520, 1000), (5, 13, 517, 999),
+                  (64, 61, 2048, 1408), (1, 60, 2048, 1408), (4, 129, 264, 136)]
+
+
+def _k7b_bodies(dtype, C, D, F) -> dict:
+    """The batched entry's body for the forward, dX and dW of x (E, C, D)
+    @ w (E, D, F): FMA unless bf16 with 16-byte rows, then the persistent
+    body where the (M x K) @ (K x N) product writes at least the elements
+    it reads, else wgmma."""
+    if dtype != torch.bfloat16 or D % 8 or F % 8:
+        return {"fwd": "fma", "dX": "fma", "dW": "fma"}
+    return {v: "wgmma_persistent" if M * N >= K * (M + N) else "wgmma"
+            for v, (M, K, N) in (("fwd", (C, D, F)), ("dX", (C, F, D)), ("dW", (D, C, F)))}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1926,16 +1946,17 @@ def test_batched_matmul_backward_matches_plain(cuda, dtype, E, C, D, F):
     x, w = _k7b_operands(cuda, E, C, D, F, dtype, seed=5)
     dy = _k7b_operands(cuda, E, C, F, 1, dtype, seed=6)[0]
     k = dispatch.kernel_table()["matmul_batched"]
-    want = "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "fma"
-    assert batched_body_for(dy, w.transpose(1, 2)) == batched_body_for(
-        x.transpose(1, 2), dy) == want
+    want = _k7b_bodies(dtype, C, D, F)
+    assert batched_body_for(x, w) == want["fwd"]
+    assert batched_body_for(dy, w.transpose(1, 2)) == want["dX"]
+    assert batched_body_for(x.transpose(1, 2), dy) == want["dW"]
     grads = []
     for _ in range(2):
         xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         dispatch.reset_counts()
         batched_matmul(xr, wr).backward(dy)
         torch.cuda.synchronize()
-        assert k.body_launches == {want: 3} and k.plain_calls == 0
+        assert k.body_launches == dict(Counter(want.values())) and k.plain_calls == 0
         grads.append((xr.grad, wr.grad))
     (dx, dw), (dx2, dw2) = grads
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
@@ -1946,15 +1967,24 @@ def test_batched_matmul_backward_matches_plain(cuda, dtype, E, C, D, F):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,C,D,F", [(64, 60, 2048, 1408), (8, 7, 264, 136),
-                                     (5, 13, 517, 999)])
+                                     (5, 13, 517, 999), (64, 60, 1408, 2048),
+                                     (1, 60, 2048, 1408), (64, 1, 2048, 1408),
+                                     (64, 61, 2048, 1408), (5, 13, 520, 1000),
+                                     (64, 129, 2048, 1408)])
 def test_batched_backward_experts_equal_2d_bits(cuda, dtype, E, C, D, F):
     """Each expert's dX and dW are the 2-D entry's bits on that expert's
     views (w[e].T, x[e].T): the contraction's ragged edge C fills zeros
-    inside the expert, never the next expert's rows."""
+    inside the expert, never the next expert's rows.  At bf16 every dW
+    here but the unaligned one runs the persistent body: a walk of more
+    tiles than resident blocks, one expert, C = 1 and 61, C = 129 (three
+    slices a tile, the ring's parity across tiles), ragged M and N (N % 8
+    == 0) clipped by the output map inside each expert."""
     x, w = _k7b_operands(cuda, E, C, D, F, dtype, seed=7)
     dy = _k7b_operands(cuda, E, C, F, 1, dtype, seed=8)[0]
     k = dispatch.kernel_table()["matmul_batched"]
     k2 = dispatch.kernel_table()["matmul"]
+    from repro_torch.kernels.matmul.ops import batched_body_for
+    assert batched_body_for(x.transpose(1, 2), dy) == _k7b_bodies(dtype, C, D, F)["dW"]
     dx = k.launch(dy, w.transpose(1, 2))
     dw = k.launch(x.transpose(1, 2), dy)
     for e in range(E):

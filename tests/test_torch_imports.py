@@ -67,12 +67,12 @@ def test_no_source_imports_jax_or_repro():
 
 
 def test_chip_scripts_import_no_jax_or_repro():
-    """``chip_smoke.py``, ``kernel_gate_check.py`` and
-    ``k5_backward_probe.py`` run on the card's machine, where the port
-    stands alone."""
+    """``chip_smoke.py``, ``kernel_gate_check.py``, ``k5_backward_probe.py``
+    and ``k7b_probe.py`` run on the card's machine, where the port stands
+    alone."""
     offenders = []
     for path in (SRC.parent / "chip_smoke.py", SRC.parent / "kernel_gate_check.py",
-                 SRC.parent / "k5_backward_probe.py"):
+                 SRC.parent / "k5_backward_probe.py", SRC.parent / "k7b_probe.py"):
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]

@@ -23,8 +23,10 @@ from repro.kernels.matmul.kernel import matmul as jax_pallas_matmul
 from repro.kernels.matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.interop import tensor_from_numpy
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.matmul.ops import (body_for, matmul, narrow_tile, operand_strides,
-                                           route, tma_strides)
+from repro_torch.kernels.matmul.ops import (batched_body_for, body_for, matmul,
+                                           matmul_batched, narrow_tile, operand_strides,
+                                           route, route_batched, tma_strides,
+                                           writes_dominate)
 from repro_torch.models.layers import linear
 
 torch.set_num_threads(1)
@@ -256,3 +258,103 @@ def test_bodies_are_counted_apart():
     assert k7.launches == 3 and k7.body_launches == {"wgmma": 2, "fma": 1}
     dispatch.reset_counts()
     assert (k7.launches, k7.body_launches) == (0, {})
+
+
+def _views(E, C, D, F, dtype, dy_cols=None):
+    """The batched products of x (E, C, D) @ w (E, D, F) as the MoE layer
+    and its backward hand them to K7's batched entry: {view: (x, y)}, on
+    the meta device (the route reads shapes, strides and the base address
+    alone).  ``dy_cols``: dY's row stride, where it is a slice of a wider
+    buffer."""
+    x = torch.empty((E, C, D), dtype=dtype, device="meta")
+    w = torch.empty((E, D, F), dtype=dtype, device="meta")
+    dy = torch.empty((E, C, dy_cols or F), dtype=dtype, device="meta")[:, :, :F]
+    return {"fwd": (x, w), "dX": (dy, w.transpose(1, 2)), "dW": (x.transpose(1, 2), dy)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("E,C,D,F,view,want", [
+    (64, 60, 2048, 1408, "dW", "wgmma_persistent"),    # training gate/up
+    (64, 60, 1408, 2048, "dW", "wgmma_persistent"),    # training down
+    (1, 60, 2048, 1408, "dW", "wgmma_persistent"),
+    (64, 1, 2048, 1408, "dW", "wgmma_persistent"),
+    (64, 61, 2048, 1408, "dW", "wgmma_persistent"),
+    (64, 128, 2048, 1408, "dW", "wgmma_persistent"),
+    (64, 129, 2048, 1408, "dW", "wgmma_persistent"),
+    (64, 480, 2048, 1408, "dW", "wgmma_persistent"),   # 4096-token rows: writes 1.74x reads
+    (64, 834, 2048, 1408, "dW", "wgmma_persistent"),   # the last C that writes >= reads
+    (64, 835, 2048, 1408, "dW", "wgmma"),
+    (64, 960, 2048, 1408, "dW", "wgmma"),              # writes 0.87x reads
+    (4, 129, 264, 136, "dW", "wgmma"),                 # writes 0.70x reads
+    (5, 13, 520, 1000, "dW", "wgmma_persistent"),      # ragged M and N, N % 8 == 0
+    (64, 60, 2048, 1408, "dX", "wgmma"),
+    (64, 60, 1408, 2048, "dX", "wgmma"),
+    (64, 30, 2048, 1408, "fwd", "wgmma"),              # a prefill chunk's gate / up
+    (64, 4, 1408, 2048, "fwd", "wgmma"),               # a decode step's down
+    (2, 5, 64, 256, "fwd", "wgmma"),                   # K = 64, but reads 13x its writes
+    (64, 30, 64, 1408, "fwd", "wgmma"),                # reads 2.2x its writes
+    (64, 256, 128, 1408, "fwd", "wgmma_persistent"),   # writes 1.69x reads
+])
+def test_batched_route_names_the_persistent_body(dtype, E, C, D, F, view, want):
+    """K7's batched entry sends a view TMA can read to the persistent body
+    where it writes at least as many elements as it reads and its output
+    row is a multiple of 16 bytes -- the experts' dW at both training
+    shapes and up to C = 834 at their widths, a forward of a shallow
+    contraction into many rows -- and every other view TMA can read to
+    the tile-per-block wgmma body; both bodies read the operands at the
+    strides ``tma_strides`` gives."""
+    x, y = _views(E, C, D, F, dtype)[view]
+    assert route_batched(x, y) == (want, tma_strides(x[0]), tma_strides(y[0]))
+    assert batched_body_for(x, y) == want
+
+
+@pytest.mark.parametrize("dtype,F,dy_cols,view,want", [
+    (torch.bfloat16, 999, None, "dW", "fma"),    # dY's rows 1998 bytes: TMA cannot read it
+    (torch.bfloat16, 999, None, "dX", "fma"),
+    (torch.bfloat16, 999, 1008, "dW", "wgmma"),  # dY readable, the output row 1998 bytes
+    (torch.float16, 999, 1008, "dW", "wgmma"),
+    (torch.float32, 1408, None, "dW", "fma"),
+    (torch.float32, 1408, None, "dX", "fma"),
+    (torch.float32, 1408, None, "fwd", "fma"),
+])
+def test_batched_route_keeps_other_views_off_the_persistent_body(dtype, F, dy_cols, view, want):
+    """An output row that is not a multiple of 16 bytes (N = 999) stays on
+    the tile-per-block wgmma body where TMA can read the operands (dY a slice of a
+    padded buffer) and on FMA where it cannot; fp32 never leaves FMA."""
+    x, y = _views(64, 60, 2048, F, dtype, dy_cols)[view]
+    assert batched_body_for(x, y) == want
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (2048, 60, 1408, True), (2048, 834, 1408, True), (2048, 835, 1408, False),
+    (30, 2048, 1408, False), (4, 2048, 1408, False), (1, 1, 1, False), (2, 1, 2, True)])
+def test_writes_dominate_compares_elements_written_and_read(M, K, N, want):
+    """The switch between the batched entry's wgmma bodies: M N >= K (M + N)."""
+    assert writes_dominate(M, K, N) is want
+
+
+def test_persistent_tile_rule_counts_every_expert():
+    """The persistent body walks every expert's tiles with one grid, so
+    its narrow tile is for a launch whose wide tiles, over all experts,
+    are fewer than the SMs; the tile-per-block body counts one expert's."""
+    assert not narrow_tile(2048, 1408, "wgmma_persistent", 132, 64)    # 11,264 wide tiles
+    assert narrow_tile(264, 136, "wgmma_persistent", 132, 8)           # 48
+    assert not narrow_tile(264, 136, "wgmma_persistent", 132, 22)      # 132
+    assert narrow_tile(2048, 1408, "wgmma", 132) is False
+    assert narrow_tile(30, 1408, "wgmma", 132) and narrow_tile(4, 1408, "wgmma_persistent", 1)
+
+
+def test_batched_bodies_are_counted_apart():
+    """The batched entry counts its two wgmma bodies under their own
+    names; a CPU call counts only a plain call."""
+    k7b = dispatch.kernel_table()["matmul_batched"]
+    dispatch.reset_counts()
+    matmul_batched(torch.zeros((2, 3, 8), dtype=torch.bfloat16),
+                   torch.zeros((2, 8, 8), dtype=torch.bfloat16))
+    assert (k7b.launches, k7b.plain_calls, k7b.body_launches) == (0, 1, {})
+    for body in ("wgmma", "wgmma_persistent", "wgmma_persistent", "fma"):
+        k7b.count_launch(body)
+    assert k7b.launches == 4
+    assert k7b.body_launches == {"wgmma": 1, "wgmma_persistent": 2, "fma": 1}
+    dispatch.reset_counts()
+    assert (k7b.launches, k7b.body_launches) == (0, {})
