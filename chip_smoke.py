@@ -230,8 +230,7 @@ Phases (each one raises on failure; the script then exits non-zero):
    process-wide, so a comparison never wraps a running fleet), every
    model call on an executor thread.  20a: affinity and stealing on;
    ``FLEET_AFFINITY`` exactly; tok/s, TTFT, TPOT, steals, a profiled
-   window's busy share and peak memory beside phase 4's and beside one of
-   the engines behind a one-replica router (one executor thread).  20b:
+   window's busy share and peak memory beside phase 4's.  20b:
    ``prefill,decode`` on a bf16 and an int8 pool: 8 migrations of
    ``FLEET_MIGRATED_BLOCKS`` blocks and their bytes, no prompt token
    computed on the decode replica and no decode step on the prefill
@@ -267,7 +266,8 @@ Phases (each one raises on failure; the script then exits non-zero):
    on "mma" (the fp32 operands as bf16 hi + lo pairs) and on "fma", fp32
    on "fma", the route's body twice for the same bits; both bodies timed
    at S = 512 beside the plain version and the bound, and each body's
-   five launches timed apart under the profiler.  21c: zamba2-1.2b at
+   five passes timed apart with CUDA events (runs stopped after each pass
+   by ``last_pass``, differenced; ``pass_times``).  21c: zamba2-1.2b at
    full width cut to 7 layers (one segment, a 1-layer tail), fp32, one 1
    x 512 microbatch: loss and every
    gradient leaf through the kernels, the plain versions and fp64-summed
@@ -393,6 +393,38 @@ Phases (each one raises on failure; the script then exits non-zero):
    beside CUDA events around it, and its recompute's routes equal to its
    forward's.
 
+27. qwen2-vl-72b (M-RoPE sections (16, 24, 24), theta 1e6, qkv bias; d_model
+   8192, 64 / 8 heads of 128, d_ff 29568, vocab 152064) at full width, its
+   80 layers cut to 24 (42.1 GB of bf16 products drawn a layer at a time;
+   the fp32 embedding and head 2 x 4.98 GB).  27a: served through the
+   paged engine on phase 4's requests, 4 slots, block 16, 256-row chunks,
+   the positions three equal streams: launches exact by body per model
+   call (K2 24 a prefill chunk, K1 24 a decode step, all ``mma``; K7 168
+   wgmma and the fp32 head on FMA), no plain call; tok/s, TTFT, TPOT,
+   tok/s/W, peak memory, the pool's 98,304 B a token, a profiled window's
+   busy share.  27b: phase 6's fp32 path check at depths 1, 2 and 4 (its
+   limits), and one ``transformer.prefill`` at depth 2 whose position
+   streams 1 and 2 differ from stream 0, held to the same gate.
+28. whisper-medium at its full config (24 encoder and 24 decoder layers,
+   d_model 1024, 16 heads of 64, d_ff 4096, vocab 51865, 1500 frames; the
+   audio frontend a stub, frames of zeros).  28a: K4 non-causal with k and
+   v of their own length (``WHISPER_K4_CASES``: the encoder's 1500 x
+   1500, the cross-attention's 192 queries against 1500 and a ragged 1037
+   rows, one query row, 1501 rows) and K3 at the cross-attention's decode
+   shape (4 slots against 1500 rows; ragged lengths with NaN past them),
+   fp32 and bf16, against their plain versions (phase 3's limits); then
+   K4's encoder, cross and ragged cross shapes and K3's timed in bf16
+   beside the plain version, SDPA and the bound.  28b: the fp32 path check
+   of a 100-token request through the contiguous engine at (encoder,
+   decoder) depths (1, 1), (2, 2) and (4, 4), phase 6's limits.  28c:
+   served through the contiguous engine, 4 slots, ``max_len`` 256, 8
+   requests of decoder prompts in [16, 192] from seed 0, 32 new each:
+   launches exact by body (K4 72 a prefill: 24 encoder, 24 causal self,
+   24 cross; K3 48 a decode step: 24 self with the row write, 24 cross; K7
+   by ``whisper_counts``), no plain call; tok/s, TTFT, TPOT, tok/s/W, peak
+   memory, the cross caches' 147.5 MB a slot, a profiled window's busy
+   share.
+
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
 18 hold its launch counts too (exactly, where the engine's calls fix them;
@@ -404,11 +436,12 @@ the line before it is the kernel table (``{"kernels": [...]}``), with K1's
 and K2's int8 bodies as entries of their own (``...:int8``: their
 launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
-K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b and 20c,
-K3 phases 10, 17 and 20d, K4 phases 10, 15, 17, 20d, 21d, 22d and 26c,
+K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b, 20c and
+27a, K3 phases 10, 17, 20d and 28c, K4 phases 10, 15, 17, 20d, 21d, 22d,
+26c and 28c,
 K4's backward 15, 21d, 22d and 26c, K5 10, 21d, 22d and 23b, K5's backward 21d and
 22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
-18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b and 26c, K7's batched entry
+18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a and 28c, K7's batched entry
 25b and 26c (its entry also carries the decode step's shape:
 ``decode_ms``, ``decode_plain_ms``, ``decode_library_ms``,
 ``decode_bound_ms``, ``decode_bound_by``, ``decode_shape``; and its two
@@ -416,7 +449,12 @@ backward products at a training microbatch's, ``train_dx_*`` and
 ``train_dw_*``, each also timed on both wgmma bodies: ``*_wgmma_ms``,
 ``*_persistent_ms``).  K5's entry also carries its
 time at xlstm-125m's prefill shape (``xlstm_ms``, ``xlstm_plain_ms``,
-``xlstm_bound_ms``, ``xlstm_bound_by``, ``xlstm_shape``).  The three backward kernels replace no
+``xlstm_bound_ms``, ``xlstm_bound_by``, ``xlstm_shape``); K4's its times
+at whisper-medium's encoder and cross-attention shapes and K3's at its
+cross-decode shape (``whisper_encoder_*``, ``whisper_cross_*``,
+``whisper_cross_ragged_*``, ``whisper_cross_decode_*``: ``ms``,
+``plain_ms``, ``library_ms`` (SDPA), ``bound_ms``, ``bound_by``,
+``shape``).  The three backward kernels replace no
 Pallas kernel (the reference differentiates its plain functions and
 ``lax.conv_general_dilated``): their entries name the forward's Pallas
 kernel under ``replaces`` and say so under ``note``.
@@ -496,6 +534,7 @@ DECODE_TIMED = ((1056, 800, 512, 300), (4096,), (16384,))
 # products.
 TOL_PATH_REL = {1: 2e-5, 2: 1e-4, 4: 1e-2}
 TOL_PATH_EXACT_RATIO = 2.0
+PATH_LIMITS = {d: (TOL_PATH_REL[d], TOL_PATH_EXACT_RATIO) for d in TOL_PATH_REL}
 # The int8 path check (int8_path_check): after one layer the two sides'
 # int8 pools may differ only by one step, in at most this share of their
 # values (a value moves a step when one ulp of K / V crosses a rounding
@@ -642,6 +681,9 @@ K7_TIMED = (("training mlp up", 512, 2048, 11008, "rows", "bfloat16"),
 K7_HOST = (("qwen mlp up", 4, 2048, 11008), ("qwen k/v projection", 4, 2048, 256),
            ("zamba2 mamba in_proj", 4, 2048, 8384), ("zamba2 mlp down", 4, 8192, 2048))
 HOST_REPS = 200
+# how K5's backward's passes are timed apart (``pass_times``)
+PASS_TIMING = ("CUDA events, 10 calls of each run stopped after pass n by last_pass, L2 "
+               "flushed; a pass's time the difference of neighbouring runs")
 # The two tiles bit for bit: (M, K, N, the body the bf16 case must take).
 # N = 300 is a row of 600 bytes, which TMA cannot read: the FMA body.
 K7_TILING = ((1, 2048, 256, "wgmma"), (5, 11008, 2048, "wgmma"), (16, 2048, 11008, "wgmma"),
@@ -801,6 +843,52 @@ TOL_MOE_EXACT_RATIO = {2: TOL_TRAIN_EXACT_RATIO, 4: 8.0}
 # (xlstm's recipe in 24c).
 MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_ACCUM = 3, 4, 4
+# Phase 27: qwen2-vl-72b (M-RoPE, qkv bias, theta 1e6) at full width, its
+# 80 layers cut to 24 (42.1 GB of bf16 products; all 80 are ~140 GB).  A
+# model call makes 7 products a layer (wgmma) and the fp32 LM head (FMA);
+# K2 takes every prefill chunk's layers, K1 every decode step's (G = 8,
+# D = 128: the split body).  27b: phase 6's fp32 path check at depths 1, 2
+# and 4, and a prefill whose position streams differ (``streams_check``).
+VLM_LAYERS = 24
+VLM_KV_BYTES = 2 * VLM_LAYERS * 8 * 128 * 2               # K and V, bf16, a token
+VLM_PATH_DEPTHS = (1, 2, 4)
+# 27b and 28b hold three requests (token seeds PATH_SEEDS) at each depth,
+# {depth: (kernels-vs-plain rel or None, ratio)}: the kernels' logits
+# within rel of the plain versions' and no farther from an exact-products
+# run than ratio times the plain run.  Phase 6's limits (qwen2.5-3b's) do
+# not fit these widths; these were set from a run of these three requests
+# with the gates open (NVIDIA H100 80GB HBM3, 700.00 W).  qwen2-vl: the
+# kernels vs the plain versions read up to 1.6e-5 / 5.1e-4 / 6.5e-2 at
+# depths 1 / 2 / 4 (two plain runs apart only in the KV tile: up to
+# 1.0e-5 / 1.9e-4 / 2.5e-3), the ratio up to 1.57 / 2.77 (the streams
+# prefill) / 5.24: at depth 1 the kernels' fp32 path (K7's FMA body sums
+# K = 8192 and 29568) sits 1.4-1.6x as far from the exact products as the
+# plain versions' on each request, and each layer of the near-one-hot
+# attention amplifies the two runs' rounding by chance, one more than the
+# other.  whisper-medium: up to 3.2e-5 / 2.5e-3 /
+# 0.59, two plain runs up to 4.0e-6 / 3.0e-4 / 0.18 -- at depth 4 the random
+# model is chaotic, so the rel is printed, not gated -- and the ratio up to
+# 1.08 / 1.23 / 0.96.  A broken kernel moves a logit by O(1) at depth 1
+# (``kernel_gate_check.py``'s mutants fail their gates by 100-40000x).
+PATH_SEEDS = (1, 11, 21)
+VLM_PATH_LIMITS = {1: (1e-4, 2.0), 2: (2e-3, 4.0), 4: (2e-1, 8.0)}
+WHISPER_PATH_LIMITS = {1: (2e-4, 2.0), 2: (1e-2, 2.0), 4: (None, 2.0)}
+# Phase 28: whisper-medium at its full config (24 + 24 layers, d_model
+# 1024, 16 heads of 64, 1500 encoder frames).  28a: K4 non-causal at the
+# encoder's S = S_kv = 1500, the cross-attention's S = 192 queries against
+# S_kv = 1500 and a ragged 1037 rows, one query row, and S_kv one row past
+# 1500; H = K = 16, D = 64, B = 1.  K3 at the cross-attention's decode
+# shape, B = 4 slots against 1500 rows each, and at ragged lengths.
+WHISPER_K4_CASES = ((1500, 1500), (192, 1500), (192, 1037), (1, 1500), (300, 1501))
+WHISPER_K3_LENGTHS = ((1500, 1500, 1500, 1500), (1500, 1037, 1, 0))
+WHISPER_FRAMES, WHISPER_HEADS, WHISPER_D = 1500, 16, 64
+# 28b: the fp32 path check of one request (a 100-token decoder prompt and
+# one decode step) at (encoder, decoder) depths (1, 1), (2, 2) and (4, 4),
+# phase 6's limits by the decoder's depth.  28c: 8 requests of decoder
+# prompts drawn in [16, 192] from seed 0, 32 new each, 4 slots, max_len
+# 256 (inside Whisper's 448-token decoder context).
+WHISPER_PATH_DEPTHS = (1, 2, 4)
+WHISPER_PROMPT_RANGE, WHISPER_MAX_LEN = (16, 192), 256
 
 
 def log(*a) -> None:
@@ -1415,8 +1503,8 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
-def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=2, new=8):
-    """Where the time goes: ``n`` requests of 512 prompt tokens, ``new`` new
+def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=2, new=8, prompt=512):
+    """Where the time goes: ``n`` requests of ``prompt`` tokens, ``new`` new
     tokens each, under torch.profiler; device time by kernel name and the
     device's busy share of the wall time (one stream, so kernels do not
     overlap).  Reading the trace back costs ~16x the window, so the window
@@ -1424,7 +1512,7 @@ def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=2, new=8):
     more of the script's time over phases 4, 4b and 17)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
-    reqs = [Request(200 + i, rng.integers(0, eng.cfg.vocab_size, size=512)
+    reqs = [Request(200 + i, rng.integers(0, eng.cfg.vocab_size, size=prompt)
                     .astype(np.int32), max_new_tokens=new, sampler=greedy())
             for i in range(n)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1442,24 +1530,29 @@ def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=2, new=8):
     mine = {n: sum(r[0] for r in rows if n in r[2]) for n in
             ("decode_split_kernel", "decode_merge_kernel", "paged_decode_kernel",
              "paged_prefill_mma_kernel", "paged_prefill_kernel", "matmul_wgmma_kernel",
-             "matmul_kernel") + (("flash_mma_kernel",) if tag == "contiguous serving" else ())}
+             "matmul_kernel") + (("flash_mma_kernel",) if tag in ("contiguous serving",
+                                                                   "whisper serving") else ())}
     log(f"{label}: device ms " + " ".join(f"{n}={v:.3f}" for n, v in mine.items()))
     for ms, count, name in rows[:12]:
         log(f"{label}: {ms:10.3f} ms  {count:6d} calls  {name[:90]}")
 
 
-def path_check(torch, np, contiguous=False):
+def path_check(torch, np, contiguous=False, arch="qwen2.5-3b", depths=(1, 2, 4, 36),
+               limits=None, seeds=(1,), layers=None):
     """One 300-token request (a 256-row prefill chunk, then 44 rows seeded
     past it, then one decode step) served at full width in fp32 by a
     ``ServingEngine`` through the kernels and by one through the plain
-    versions (``dispatch.plain_versions()``), at depths 1, 2, 4 and 36.
-    ``contiguous`` (phase 17): the same request through the contiguous
-    engine (the whole prompt prefilled through K4, the decode step through
-    K3), at depths 1, 2 and 4, gated as phase 6.
+    versions (``dispatch.plain_versions()``), at ``depths`` (qwen2.5-3b's
+    1, 2, 4 and 36; ``arch`` qwen2-vl-72b at 1, 2 and 4, phase 27b, its
+    weights drawn for ``layers`` layers, not its 80).  ``contiguous`` (phase 17): the
+    same request through the contiguous engine (the whole prompt prefilled
+    through K4, the decode step through K3), gated as phase 6.
     The request's sampler records the prefill and the decode logits and
     answers a fixed token, so both engines decode the same token.
 
-    Depths 1, 2 and 4 are gated (``TOL_PATH_REL``, ``TOL_PATH_EXACT_RATIO``).  The reference's
+    Depths 1, 2 and 4 are gated (``TOL_PATH_REL``, ``TOL_PATH_EXACT_RATIO``;
+    ``limits``, {depth: (rel or None, ratio)}, another config's own, and
+    ``seeds``, the request's token draws, each held).  The reference's
     random init takes fan-in from the head axis, so attention logits have a
     std of several hundred and the softmax is near one-hot: every layer
     multiplies a rounding difference by a large factor.  So each depth also
@@ -1470,7 +1563,9 @@ def path_check(torch, np, contiguous=False):
     from a third run, the plain attention with every weight product summed
     in fp64 and rounded once ("exact products", as ``train_path_check``
     makes it): the accuracy both are held to.  Depth 36 is printed, not
-    gated."""
+    gated.  Under M-RoPE (qwen2-vl) one ``transformer.prefill`` call more,
+    at depth 2, whose position streams 1 and 2 differ from stream 0, is
+    held to the same gate (:func:`streams_check`)."""
     from unittest import mock
 
     from repro_torch.configs import registry as arch_registry
@@ -1490,15 +1585,17 @@ def path_check(torch, np, contiguous=False):
             return np.full((len(logits),), 7)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    full = arch_registry.config("qwen2.5-3b").replace(compute_dtype="float32")
+    full = arch_registry.config(arch).replace(compute_dtype="float32")
+    full = full.replace(num_layers=layers or full.num_layers)
     params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
-    toks = np.random.default_rng(1).integers(0, full.vocab_size, size=300).astype(np.int32)
+    limits = limits or PATH_LIMITS
 
     engine_kw = (dict(paged=False) if contiguous else dict(prefill_chunk=256))
     kernels = ("flash_attention", "decode_attention") if contiguous else LM_KERNELS
-    label = "contiguous path check" if contiguous else "path check"
+    label = ("contiguous path check" if contiguous else "path check") \
+        + ("" if arch == "qwen2.5-3b" else f" ({arch})")
 
-    def serve(cfg, p, chunk=512):
+    def serve(cfg, p, toks, chunk=512):
         """(prefill logits, decode logits) of the request, (2, V)."""
         eng = ServingEngine(cfg, p, max_len=320, batch_slots=1, chunk=chunk,
                             cache_dtype="float32", device="cuda", **engine_kw)
@@ -1512,11 +1609,13 @@ def path_check(torch, np, contiguous=False):
     def rel(a, b):
         return float(np.abs(a - b).max() / np.abs(b).max())
 
-    for depth in (1, 2, 4) if contiguous else (1, 2, 4, full.num_layers):
+    for seed, depth in ((s, d) for s in seeds for d in depths):
+        toks = np.random.default_rng(seed).integers(0, full.vocab_size,
+                                                    size=300).astype(np.int32)
         cfg = full.replace(num_layers=depth)
         p = dict(params, blocks=tree_map(lambda t: t[:depth], params["blocks"]))
         dispatch.reset_counts()
-        kern = serve(cfg, p)
+        kern = serve(cfg, p, toks)
         table = dispatch.kernel_table()
         launched = all(table[n].launches > 0 for n in kernels + ("matmul",)) and \
             not any(k.plain_calls for k in table.values())
@@ -1524,16 +1623,16 @@ def path_check(torch, np, contiguous=False):
             launched = launched and not any(table[n].launches for n in LM_KERNELS)
         exact_product = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
         with dispatch.plain_versions():
-            plain = serve(cfg, p)
-            plain64 = serve(cfg, p, chunk=64)
+            plain = serve(cfg, p, toks)
+            plain64 = serve(cfg, p, toks, chunk=64)
             with mock.patch.object(linear, "_k7", exact_product):
-                exact = serve(cfg, p)
-        tol = TOL_PATH_REL.get(depth)
+                exact = serve(cfg, p, toks)
+        tol, max_ratio = limits.get(depth, (None, None))
         r_pre, r_dec = rel(kern[0], plain[0]), rel(kern[1], plain[1])
         to_exact = [(rel(kern[i], exact[i]), rel(plain[i], exact[i])) for i in (0, 1)]
         ratio = max(k / max(p, 1e-7) for k, p in to_exact)
-        log(f"{label} (fp32, full width, depth {depth}): kernels vs plain "
-            f"rel prefill={r_pre:.3e} decode={r_dec:.3e} "
+        log(f"{label} (fp32, full width, depth {depth}, request seed {seed}): kernels vs "
+            f"plain rel prefill={r_pre:.3e} decode={r_dec:.3e} "
             f"top1_agree={bool((kern.argmax(-1) == plain.argmax(-1)).all())} "
             + (f"(tol {tol}); " if tol else "(not gated); ")
             + f"plain chunk 64 vs 512 rel prefill={rel(plain64[0], plain[0]):.3e} "
@@ -1542,18 +1641,68 @@ def path_check(torch, np, contiguous=False):
             f"vs exact products: kernels rel prefill={to_exact[0][0]:.3e} "
             f"decode={to_exact[1][0]:.3e}, plain rel prefill={to_exact[0][1]:.3e} "
             f"decode={to_exact[1][1]:.3e}, worst ratio {ratio:.3f}"
-            + (f" (tol {TOL_PATH_EXACT_RATIO})" if tol else ""))
+            + (f" (tol {max_ratio})" if max_ratio else ""))
         if not launched:
             raise AssertionError(f"{label}: the kernel engine did not run "
                                  f"through {kernels} and K7 alone")
-        if tol and not (np.isfinite(kern).all() and max(r_pre, r_dec) <= tol
-                        and ratio <= TOL_PATH_EXACT_RATIO):
-            raise AssertionError(f"{label}, depth {depth}: kernels and plain "
-                                 f"versions disagree ({r_pre}, {r_dec}; ratio to the exact "
-                                 f"products' distance {ratio})")
+        if max_ratio and not (np.isfinite(kern).all() and ratio <= max_ratio
+                              and (tol is None or max(r_pre, r_dec) <= tol)):
+            raise AssertionError(f"{label}, depth {depth}, request seed {seed}: kernels and "
+                                 f"plain versions disagree ({r_pre}, {r_dec}; ratio to the "
+                                 f"exact products' distance {ratio})")
+    if full.m_rope:
+        for seed in seeds:
+            streams_check(torch, np, full.replace(num_layers=2),
+                          dict(params, blocks=tree_map(lambda t: t[:2], params["blocks"])),
+                          rel, limits[2], seed + 4)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def streams_check(torch, np, cfg, params, rel, limit, seed) -> None:
+    """Phase 27b's M-RoPE call: ``transformer.prefill`` of a 300-token
+    prompt at ``cfg``'s depth (2), fp32, whose position streams 1 and 2
+    differ from stream 0 (each row's index, as K4 masks): last-position
+    logits through the kernels (K4 and K7) vs the plain versions, within
+    ``limit`` (rel, ratio), the path check's at that depth: the kernels no
+    farther from an exact-products run than ratio times the plain run.
+    ``seed`` draws the tokens and streams 1 and 2."""
+    from unittest import mock
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import linear
+    rng = np.random.default_rng(seed)
+    S = 300
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)), dtype=torch.int32,
+                        device="cuda")
+    pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(3, 1, S).clone()
+    pos[1:] = torch.tensor(rng.integers(0, 4 * S, (2, 1, S)), dtype=torch.int32,
+                           device="cuda")
+
+    def run():
+        return transformer.prefill(cfg, params, toks, pos)[0].cpu().numpy()
+    dispatch.reset_counts()
+    kern = run()
+    table = dispatch.kernel_table()
+    launched = {n: table[n].launches for n in ("flash_attention", "matmul")}
+    exact_product = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
+    with dispatch.plain_versions():
+        plain = run()
+        with mock.patch.object(linear, "_k7", exact_product):
+            exact = run()
+    r, (tol, max_ratio) = rel(kern, plain), limit
+    ratio = rel(kern, exact) / max(rel(plain, exact), 1e-7)
+    want = {"flash_attention": cfg.num_layers, "matmul": QWEN_PRODUCTS * cfg.num_layers + 1}
+    log(f"vlm path check: transformer.prefill at depth {cfg.num_layers}, fp32, streams 1 and "
+        f"2 apart from stream 0 (seed {seed}): kernels vs plain rel {r:.3e} (tol {tol}); vs "
+        f"exact products: kernels {rel(kern, exact):.3e}, plain {rel(plain, exact):.3e}, "
+        f"ratio {ratio:.3f} (tol {max_ratio}); launches {launched} (expected {want})")
+    if launched != want or not (np.isfinite(kern).all() and r <= tol
+                                and ratio <= max_ratio):
+        raise AssertionError(f"vlm path check, differing streams: rel {r}, ratio {ratio}, "
+                             f"launches {launched}")
 
 
 def int8_path_check(torch, np):
@@ -3868,14 +4017,15 @@ def fleet_profile(torch, np, router, Request, greedy) -> str:
 
 def mixed_fleet_phase(torch, np, cfg, params, baseline) -> tuple:
     """Phase 20a: two phase-4 engines behind ``ReplicaRouter`` (affinity and
-    stealing on) on phase 4's requests, then the same requests on one of
-    the engines behind a one-replica router.  Gated: every request DONE, 256
+    stealing on) on phase 4's requests.  Gated: every request DONE, 256
     tokens delivered; ``FLEET_AFFINITY`` exactly; K1 / K2 / K7 launches
     exact by body from both engines' calls, no plain call, model calls on
     the two executor threads only; both pools leak-free.  Printed beside
-    phase 4's and the one-replica router's: tok/s, TTFT, TPOT, steals,
-    the busy share of a profiled window, peak memory; greedy tokens equal
-    to phase 4's (not gated).
+    phase 4's: tok/s, TTFT, TPOT, steals, the busy share of a profiled
+    window, peak memory; greedy tokens equal to phase 4's (not gated).  One
+    engine behind a one-replica router is not run here: phase 19c serves
+    the same requests on one engine in service mode, on one executor
+    thread.
     Returns (the launches by kernel, the two engines)."""
     from repro_torch.launch.serve import card_name_and_power_limit
     from repro_torch.serving.engine import Request, ServingEngine
@@ -3902,12 +4052,6 @@ def mixed_fleet_phase(torch, np, cfg, params, baseline) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = fleet_profile(torch, np, router, Request, greedy)
     router.close()
-    # the same requests on one of the engines behind a one-replica router:
-    # service mode and the router's threads, but one executor thread
-    alone = ReplicaRouter(engines[:1])
-    one = alone.serve(serving_requests(cfg, np, Request, greedy))
-    torch.cuda.synchronize()
-    alone.close()
     base = baseline["stats"]
     w = run["windows"]
     log(f"20a mixed fleet (2 replicas on one card, affinity and stealing on): "
@@ -3922,9 +4066,6 @@ def mixed_fleet_phase(torch, np, cfg, params, baseline) -> tuple:
         f"pools); leaks={leaks}")
     log(f"20a: launches by body {run['bodies']} from {len(run['threads'])} executor threads, "
         f"plain calls 0; {prof}")
-    log(f"20a: one engine behind a one-replica router (one executor thread), the same "
-        f"requests: {serving_summary(one)}; fleet / that tok/s "
-        f"{stats.tokens_per_s / one.tokens_per_s:.3f}x")
     log(f"20a: phase 4 (one engine, blocking serve, the same requests) {serving_summary(base)}; "
         f"fleet / phase 4 tok/s {stats.tokens_per_s / base.tokens_per_s:.3f}x; greedy tokens "
         f"equal to phase 4's in {sum(a == b for a, b in zip(run['outputs'], baseline['outputs']))}"
@@ -4395,52 +4536,42 @@ def scan_backward_work(S, *, B=1, H=64, N=64, P=64, chunk=128, elem=2,
     return nbytes, flops
 
 
-def pass_times(torch, fn, tag: str, reps: int = 10) -> dict[str, tuple[float, int]]:
-    """Device ms per launch of each kernel ``fn`` launches whose name holds
-    ``tag``, keyed by the name from ``tag`` on, with the launches the
-    profiler recorded: ``reps`` calls under torch.profiler, the L2 flushed
-    before each, the device spinning ~5 ms before the first so every call
-    runs inside the collecting window.  Late in the whole script the
-    profiler has still recorded as few as 1-2 of 10 launches, and once
-    none: the mean is over the launches recorded, their
-    count comes with it, and a kernel never recorded is absent
-    (:func:`per_launch`)."""
-    from torch.profiler import ProfilerActivity, profile
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(Timer.SPIN_CYCLES)
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return per_launch(device_rows(prof), tag)
+def pass_times(torch, fn, passes, reps: int = 10) -> dict[str, float]:
+    """Device ms of each of a kernel's ``passes`` (its launches, in order):
+    ``fn(n)`` runs the launches up to pass n and stops (K5's backward's
+    ``last_pass``).  Each n = 1 .. len(passes) is timed with CUDA events,
+    ``reps`` calls, the L2 flushed before each (:class:`Timer`), and each
+    pass's time is the difference of neighbouring runs
+    (:func:`pass_deltas`).  No profiler: late in the whole script it lost
+    some or all of these launches."""
+    timer = Timer(torch, reps=reps)
+    rows = [(n, timer(lambda n=n: fn(n))) for n in range(1, len(passes) + 1)]
+    return pass_deltas(rows, passes)
 
 
-def per_launch(rows, tag: str) -> dict[str, tuple[float, int]]:
-    """``device_rows``' rows ``(ms, calls, name)`` of the kernels whose name
-    holds ``tag``, summed by the name from ``tag`` on: ``{name: (ms per
-    launch, launches)}``.  A kernel with no row (the profiler recorded none
-    of its launches) is absent, never a zero."""
-    import re
-    total, count = {}, {}
-    for ms, n, name in rows:
-        m = re.search(rf"{tag}\w*", name)
-        if m and n:
-            total[m.group(0)] = total.get(m.group(0), 0.0) + ms
-            count[m.group(0)] = count.get(m.group(0), 0) + n
-    return {name: (total[name] / count[name], count[name]) for name in total}
+def pass_deltas(rows, passes) -> dict[str, float]:
+    """``rows``: (n, ms of the run that stops after pass n), in any order,
+    for n = 1 .. k -> {name of pass n: its ms less pass n - 1's} in pass
+    order (pass 1: its own ms); no rows, {}.  A gap in n raises: the
+    difference would charge two passes to one."""
+    cum = dict(rows)
+    if sorted(cum) != list(range(1, len(cum) + 1)) or len(cum) > len(passes):
+        raise ValueError(f"runs stopped after passes {sorted(cum)}: want 1 .. k of "
+                         f"{len(passes)}")
+    out, before = {}, 0.0
+    for n in sorted(cum):
+        out[passes[n - 1]] = cum[n] - before
+        before = cum[n]
+    return out
 
 
 def launch_times(t: dict) -> str:
-    """:func:`pass_times`' result as a line: each kernel's ms (launches
-    recorded) and their sum, or "not measured" where the profiler recorded
-    none of the launches (late in the whole script it has lost them all)."""
+    """:func:`pass_times`' result as a line: each pass's ms and their sum,
+    or "none" for a kernel of no passes."""
     if not t:
-        return "not measured (the profiler recorded none of the launches)"
-    return (", ".join(f"{name} {ms:.4f}ms ({n})" for name, (ms, n) in t.items())
-            + f"; sum {sum(ms for ms, _ in t.values()):.4f}ms")
+        return "none"
+    return (", ".join(f"{name} {ms:.4f}ms" for name, ms in t.items())
+            + f"; sum {sum(t.values()):.4f}ms")
 
 
 def scan_backward_phase(torch, table) -> dict:
@@ -4451,10 +4582,10 @@ def scan_backward_phase(torch, table) -> dict:
     fp32 on "fma"), each bf16 case on "fma" too, the route's body launched
     twice for the same bits.  Then both bodies timed at zamba2-1.2b's
     training shape beside the plain version and the bound (no library call
-    computes it), and each body's five launches timed apart under the
-    profiler."""
+    computes it), and each body's five passes timed apart
+    (:func:`pass_times`)."""
     from repro_torch.kernels.dispatch import GRAD_RTOL
-    from repro_torch.kernels.ssm_scan.ops import backward_body_for
+    from repro_torch.kernels.ssm_scan.ops import backward_body_for, backward_passes
     bwd = table["ssm_scan_backward"]
     timer = Timer(torch)
     errs = {}
@@ -4497,9 +4628,9 @@ def scan_backward_phase(torch, table) -> dict:
         f"({r['bound_by']}, tensor cores; {nbytes} B, {flops} flop; the fma body's own at "
         f"67 TFLOP/s fp32 {r['fp32_rate_bound_ms']:.4f}ms)")
     for body in dict.fromkeys((route, "fma")):
-        t = pass_times(torch, lambda: bwd.launch(*args, dy, chunk=128, body=body), "ssm_bwd_")
-        log(f"ssm_scan_backward {body} body by launch (profiler, 10 calls, L2 flushed; mean "
-            f"over the launches recorded): {launch_times(t)}")
+        t = pass_times(torch, lambda n: bwd.launch(*args, dy, chunk=128, body=body, last_pass=n),
+                       backward_passes(body, 64, 64))
+        log(f"ssm_scan_backward {body} body by pass ({PASS_TIMING}): {launch_times(t)}")
     r["max_abs_err"] = max(errs[(torch.bfloat16, route)])
     r["max_abs_err_bf16_fma"] = max(errs[(torch.bfloat16, "fma")])
     r["max_abs_err_fp32"] = max(errs[(torch.float32, "fma")])
@@ -5434,7 +5565,8 @@ def xlstm_scan_backward_phase(torch, table) -> dict:
     version and the bound (no library call computes it), and its launches
     timed apart under the profiler."""
     from repro_torch.kernels.dispatch import GRAD_RTOL
-    from repro_torch.kernels.ssm_scan.ops import backward_body_for, backward_sliced
+    from repro_torch.kernels.ssm_scan.ops import (backward_body_for, backward_passes,
+                                                  backward_sliced)
     bwd = table["ssm_scan_backward"]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -5480,9 +5612,9 @@ def xlstm_scan_backward_phase(torch, table) -> dict:
         f"{out['xlstm_plain_ms']:.4f}ms library none bound {bound_ms:.5f}ms ({bound_by}, "
         f"tensor cores; {nbytes} B, {flops} flop; at the 67 TFLOP/s fp32 rate "
         f"{out['xlstm_fp32_bound_ms']:.4f}ms)")
-    t = pass_times(torch, lambda: bwd.launch(*args, dy, chunk=128), "ssm_bwd_")
-    log(f"ssm_scan_backward sliced fma body by launch (profiler, 10 calls, L2 flushed; mean "
-        f"over the launches recorded): {launch_times(t)}")
+    t = pass_times(torch, lambda n: bwd.launch(*args, dy, chunk=128, last_pass=n),
+                   backward_passes("fma", XLSTM_N, XLSTM_P))
+    log(f"ssm_scan_backward sliced fma body by pass ({PASS_TIMING}): {launch_times(t)}")
     return out
 
 
@@ -6575,9 +6707,377 @@ def moe_training_phase(torch, np, table) -> dict:
 
 
 # the kernels line's keys of K7's batched entry at phase 26a's training shape
+def vlm_serving_phase(torch, np, table) -> dict:
+    """Phase 27a: qwen2-vl-72b at full width cut to ``VLM_LAYERS`` layers,
+    bf16, through the paged engine: 4 slots, 256-row prefill chunks, phase
+    4's 8 requests, 32 new tokens each, M-RoPE on three equal streams (the
+    vision frontend is a stub).  Launches held exactly by body per model
+    call: K2 a layer a prefill chunk, K1 a layer a decode step, all
+    ``mma``; K7 7 a layer on wgmma and the fp32 LM head on FMA; no plain
+    call, no other kernel.  tok/s, TTFT, TPOT, tok/s/W, peak memory, the
+    pool's bytes a token, a profiled window's busy share.  Random weights
+    from seed 0, the product weights drawn a layer at a time and stored in
+    bf16 (``init(cast_products=True)``), as the serving launcher loads
+    them."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    name, watts = card_name_and_power_limit()
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = arch_registry.config("qwen2-vl-72b").replace(num_layers=VLM_LAYERS)
+    params = transformer.init(cfg, torch.Generator("cuda").manual_seed(0), cast_products=True)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    init_s, init_gib = time.monotonic() - t0, torch.cuda.max_memory_allocated() / 2**30
+    eng = ServingEngine(cfg, params, max_len=1024 + 32, batch_slots=4, prefill_chunk=256,
+                        device="cuda")
+    del params
+    log(f"vlm serving: qwen2-vl-72b L={cfg.num_layers} of 80 d_model={cfg.d_model} "
+        f"H={cfg.num_heads} K={cfg.num_kv_heads} D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} M-RoPE sections {cfg.m_rope_sections} theta "
+        f"{cfg.rope_theta:.0f} params={n_params} (products bf16, norms / embedding / head "
+        f"fp32); init {init_s:.1f}s, peak {init_gib:.2f} GiB after the load")
+    eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                       sampler=greedy())])                           # warm-up
+    reqs = serving_requests(cfg, np, Request, greedy)
+    chunks = [0]
+    prefill_paged = eng._prefill_paged
+
+    def counted_prefill(*a, **kw):
+        chunks[0] += 1
+        return prefill_paged(*a, **kw)
+    eng._prefill_paged = counted_prefill
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    eng._prefill_paged = prefill_paged
+    bodies, plain = launched_bodies(table)
+    calls = chunks[0] + stats.decode_steps
+    L = cfg.num_layers
+    want = {"paged_prefill_attention": {"mma": L * chunks[0]},
+            "paged_decode_attention": {"mma": L * stats.decode_steps},
+            "matmul": {"wgmma": QWEN_PRODUCTS * L * calls, "fma": calls}}
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"vlm request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    state = eng._state
+    pool_bytes = sum(t.numel() * t.element_size() for t in state if t.dim() > 2)
+    pool_rows = state.k.shape[1] * state.k.shape[2]
+    leaks = eng.pool.leak_report()
+    log(f"vlm serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
+        f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
+        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f} "
+        f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name}); "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB; KV pool "
+        f"{pool_bytes} B ({pool_rows} rows of {pool_bytes // pool_rows} B)")
+    log(f"vlm serving: {chunks[0]} prefill chunks, {stats.decode_steps} decode steps, "
+        f"prefill_tokens={stats.prefill_tokens_computed}/{stats.prefill_tokens_total}; "
+        f"launches by body {bodies} (expected {want}) plain_calls={plain or 0} leaks={leaks}")
+    if bodies != want or plain or any(leaks.values()) \
+            or pool_bytes // pool_rows != VLM_KV_BYTES:
+        raise AssertionError(f"vlm serving: launches {bodies}, expected {want}; plain "
+                             f"calls {plain}; leaks {leaks}; {pool_bytes // pool_rows} B a "
+                             f"token (expected {VLM_KV_BYTES})")
+    profile_phase(torch, np, eng, Request, greedy, "vlm serving", n=1, new=8)
+    del eng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in bodies.items()}
+
+
+def vlm_path_check(torch, np) -> None:
+    """Phase 27b: phase 6's engine-driven fp32 path check on qwen2-vl-72b's
+    widths at depths ``VLM_PATH_DEPTHS``, and the M-RoPE prefill whose
+    streams differ (:func:`streams_check`)."""
+    path_check(torch, np, arch="qwen2-vl-72b", depths=VLM_PATH_DEPTHS,
+               limits=VLM_PATH_LIMITS, seeds=PATH_SEEDS, layers=max(VLM_PATH_DEPTHS))
+
+
+def cross_case(torch, S, S_kv, dtype, *, B=1, H=WHISPER_HEADS, K=WHISPER_HEADS,
+               D=WHISPER_D, seed=0):
+    """q (B, S, H, D) against k, v (B, S_kv, K, D) of their own length."""
+    g = torch.Generator("cuda").manual_seed(seed + S + S_kv)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S_kv, K, D), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def whisper_kernel_phase(torch, table) -> dict:
+    """Phase 28a: K4 non-causal at whisper-medium's encoder and
+    cross-attention shapes (``WHISPER_K4_CASES``: S = S_kv = 1500, S = 192
+    against S_kv = 1500 and a ragged 1037, one query row, S_kv past a tile
+    by one) and K3 at the cross-attention's decode shape (B = 4 slots
+    against 1500 rows; ragged lengths, NaN in the rows past them) against
+    their plain versions evaluated in fp32 on the same values, at fp32
+    (FMA) and bf16 (``mma``; K4's K/V tiles staged only up to S_kv); then
+    K4's encoder, cross and ragged cross shapes and K3's timed in bf16
+    beside the plain version, SDPA on the same tensors and the bound.
+    Returns the kernels line's whisper extras of K4 and K3."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import dense_body_for
+    from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
+    fla, dec = table["flash_attention"], table["decode_attention"]
+    timer = Timer(torch)
+    H, D = WHISPER_HEADS, WHISPER_D
+    errs = {}
+
+    def poison_cache(args):
+        poison_cache_rows(torch, *args)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, S_kv in WHISPER_K4_CASES:
+            args = cross_case(torch, S, S_kv, dtype)
+            errs.setdefault(("flash_attention", dtype), []).append(hold(
+                torch, fla, args, f"B=1 S={S} S_kv={S_kv} H=K={H} D={D} non-causal "
+                f"body={flash_body_for(args[0])}", causal=False))
+        for lengths in WHISPER_K3_LENGTHS:
+            for poison in (None, poison_cache):
+                args = dense_decode_case(torch, lengths, dtype, S=WHISPER_FRAMES, H=H, K=H,
+                                         D=D)
+                errs.setdefault(("decode_attention", dtype), []).append(hold(
+                    torch, dec, args, f"B=4 S={WHISPER_FRAMES} H=K={H} D={D} lengths="
+                    f"{lengths} body={dense_body_for(args[0], args[1])}"
+                    f"{' NaN past the lengths' if poison else ''}", poison=poison))
+    out = {"flash_attention": {}, "decode_attention": {}}
+
+    def timed(kern, tag, args, lib, nbytes, flops, shape, **kw):
+        r = out[kern.name]
+        r[f"{tag}_ms"] = timer(lambda: kern.launch(*args, **kw))
+        r[f"{tag}_plain_ms"] = timer(lambda: kern.plain(*args, **kw))
+        r[f"{tag}_library_ms"] = timer(lib)
+        r[f"{tag}_bound_ms"], r[f"{tag}_bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        r[f"{tag}_shape"] = shape
+        log(f"{kern.name} timed {shape}: kernel {r[f'{tag}_ms']:.4f}ms plain "
+            f"{r[f'{tag}_plain_ms']:.4f}ms SDPA {r[f'{tag}_library_ms']:.4f}ms bound "
+            f"{r[f'{tag}_bound_ms']:.5f}ms ({r[f'{tag}_bound_by']}; {nbytes} B, {flops} flop)")
+    for tag, (S, S_kv) in (("whisper_encoder", (1500, 1500)), ("whisper_cross", (192, 1500)),
+                           ("whisper_cross_ragged", (192, 1037))):
+        q, k, v = cross_case(torch, S, S_kv, torch.bfloat16)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        timed(fla, tag, (q, k, v),
+              lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
+              2 * 2 * (S + S_kv) * H * D, 4 * H * D * S * S_kv,
+              f"B=1 S={S} S_kv={S_kv} H=K={H} D={D} non-causal bf16 body={flash_body_for(q)}",
+              causal=False)
+    q, k, v, lens = dense_decode_case(torch, WHISPER_K3_LENGTHS[0], torch.bfloat16,
+                                      S=WHISPER_FRAMES, H=H, K=H, D=D)
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+    B, rows = q.shape[0], sum(WHISPER_K3_LENGTHS[0])
+    timed(dec, "whisper_cross_decode", (q, k, v, lens),
+          lambda: F.scaled_dot_product_attention(q[:, :, None, :], kh, vh),
+          2 * (2 * B * H * D + 2 * rows * H * D) + 4 * B, 4 * H * D * rows,
+          f"B=4 S={WHISPER_FRAMES} H=K={H} D={D} lengths {WHISPER_FRAMES} bf16 "
+          f"body={dense_body_for(q, k)} ({-(-WHISPER_FRAMES // 64)} splits)")
+    for name in out:
+        out[name]["max_abs_err_whisper"] = max(errs[(name, torch.bfloat16)])
+        out[name]["max_abs_err_whisper_fp32"] = max(errs[(name, torch.float32)])
+    return out
+
+
+def whisper_config(arch_registry, depth=None, **kw):
+    """whisper-medium, its encoder and decoder cut to ``depth`` layers each
+    when given."""
+    import dataclasses
+    cfg = arch_registry.config("whisper-medium").replace(**kw)
+    if depth is None:
+        return cfg
+    return cfg.replace(num_layers=depth,
+                       encdec=dataclasses.replace(cfg.encdec, num_encoder_layers=depth))
+
+
+def whisper_counts(cfg, prefills: int, decode_steps: int) -> dict:
+    """Launches by body of ``prefills`` whisper prefills and
+    ``decode_steps`` decode steps at bf16 compute: K4 (encoder, decoder
+    self and cross) and K3 (self and cross) on ``mma``, K7's bf16 products
+    on wgmma and the fp32 LM head on FMA."""
+    L, E = cfg.num_layers, cfg.encdec.num_encoder_layers
+    return {"flash_attention": {"mma": (E + 2 * L) * prefills},
+            "decode_attention": {"mma": 2 * L * decode_steps},
+            "matmul": {"wgmma": (6 * E + 10 * L) * prefills + 8 * L * decode_steps,
+                       "fma": prefills + decode_steps}}
+
+
+def whisper_path_check(torch, np) -> None:
+    """Phase 28b: a request (a 100-token decoder prompt, the engine's zero
+    frames, one decode step) served at whisper-medium's widths in fp32 by a
+    contiguous ``ServingEngine`` through the kernels and by one through the
+    plain versions, at (encoder, decoder) depths ``WHISPER_PATH_DEPTHS``,
+    for each of ``PATH_SEEDS``' token draws; the prefill and decode logits
+    held to ``WHISPER_PATH_LIMITS`` (the kernels within rel of the plain
+    versions, where the depth has one, and no farther from an
+    exact-products run than ratio times the plain run), and a plain run
+    with a 64-row KV tile printed beside them."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import linear
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import Sampler
+
+    class Record(Sampler):
+        def __init__(self):
+            self.seen = []
+
+        def sample(self, logits):
+            self.seen.append(np.array(logits[0], copy=True))
+            return np.full((len(logits),), 7)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deepest = max(WHISPER_PATH_DEPTHS)
+    full = whisper_config(arch_registry, deepest, compute_dtype="float32")
+    params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
+
+    def serve(cfg, p, toks, chunk=1024):
+        eng = ServingEngine(cfg, p, max_len=128, batch_slots=1, chunk=chunk,
+                            cache_dtype="float32", device="cuda")
+        rec = Record()
+        eng.serve([Request(0, toks, max_new_tokens=2, sampler=rec)])
+        if len(rec.seen) != 2:
+            raise AssertionError("whisper path check: the request did not run clean")
+        return np.stack(rec.seen)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    exact_product = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
+    for seed, depth in ((s, d) for s in PATH_SEEDS for d in WHISPER_PATH_DEPTHS):
+        toks = np.random.default_rng(seed).integers(0, full.vocab_size,
+                                                    size=100).astype(np.int32)
+        cfg = whisper_config(arch_registry, depth, compute_dtype="float32")
+        p = dict(params, enc_blocks=tree_map(lambda t: t[:depth], params["enc_blocks"]),
+                 dec_blocks=tree_map(lambda t: t[:depth], params["dec_blocks"]))
+        dispatch.reset_counts()
+        kern = serve(cfg, p, toks)
+        bodies, plain_calls = launched_bodies(dispatch.kernel_table())
+        want = {"flash_attention": {"fma": 3 * depth}, "decode_attention": {"fma": 2 * depth},
+                "matmul": {"fma": 16 * depth + 1 + 8 * depth + 1}}
+        with dispatch.plain_versions():
+            plain = serve(cfg, p, toks)
+            plain64 = serve(cfg, p, toks, chunk=64)
+            with mock.patch.object(linear, "_k7", exact_product):
+                exact = serve(cfg, p, toks)
+        tol, max_ratio = WHISPER_PATH_LIMITS[depth]
+        r_pre, r_dec = rel(kern[0], plain[0]), rel(kern[1], plain[1])
+        to_exact = [(rel(kern[i], exact[i]), rel(plain[i], exact[i])) for i in (0, 1)]
+        ratio = max(k / max(q, 1e-7) for k, q in to_exact)
+        log(f"whisper path check (fp32, full width, encoder and decoder depth {depth}, "
+            f"request seed {seed}): kernels vs plain rel prefill={r_pre:.3e} "
+            f"decode={r_dec:.3e} top1_agree={bool((kern.argmax(-1) == plain.argmax(-1)).all())}"
+            f" ({f'tol {tol}' if tol else 'not gated'}); "
+            f"plain chunk 64 vs 1024 rel prefill={rel(plain64[0], plain[0]):.3e} "
+            f"decode={rel(plain64[1], plain[1]):.3e}; vs exact products: kernels rel "
+            f"prefill={to_exact[0][0]:.3e} decode={to_exact[1][0]:.3e}, plain rel "
+            f"prefill={to_exact[0][1]:.3e} decode={to_exact[1][1]:.3e}, worst ratio "
+            f"{ratio:.3f} (tol {max_ratio}); launches {bodies}")
+        if bodies != want or plain_calls:
+            raise AssertionError(f"whisper path check, depth {depth}: launches {bodies} "
+                                 f"(expected {want}), plain calls {plain_calls}")
+        if not (np.isfinite(kern).all() and ratio <= max_ratio
+                and (tol is None or max(r_pre, r_dec) <= tol)):
+            raise AssertionError(f"whisper path check, depth {depth}, request seed {seed}: "
+                                 f"kernels and plain versions disagree ({r_pre}, {r_dec}; "
+                                 f"ratio to the exact products' distance {ratio})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def whisper_requests(cfg, np, Request, greedy, seed=0):
+    rng = np.random.default_rng(seed)
+    lo, hi = WHISPER_PROMPT_RANGE
+    return [Request(i, rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32),
+                    max_new_tokens=32, sampler=greedy())
+            for i, n in enumerate(rng.integers(lo, hi + 1, size=8))]
+
+
+def whisper_serving_phase(torch, np, table) -> dict:
+    """Phase 28c: whisper-medium at its full config (nothing cut), random
+    weights from seed 0 in fp32, bf16 compute and caches, through the
+    contiguous engine: 4 slots, ``max_len`` 256, 8 requests of decoder
+    prompts from ``WHISPER_PROMPT_RANGE`` (seed 0), 32 new tokens each, the
+    engine's zero frames.  Launches held exactly by body
+    (:func:`whisper_counts`: K4 72 a prefill, K3 48 a decode step, K7 by
+    the code's count); no plain call, no other kernel.  tok/s, TTFT, TPOT,
+    tok/s/W, peak memory, the cross caches' bytes a slot and a profiled
+    window's busy share."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    name, watts = card_name_and_power_limit()
+    t0 = time.monotonic()
+    cfg = whisper_config(arch_registry)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+    eng = ServingEngine(cfg, params, max_len=WHISPER_MAX_LEN, batch_slots=4, device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"whisper serving: whisper-medium encoder {cfg.encdec.num_encoder_layers} + decoder "
+        f"{cfg.num_layers} layers d_model={cfg.d_model} H={cfg.num_heads} "
+        f"D={cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} frames="
+        f"{cfg.encdec.num_encoder_frames} params={n_params}; init {time.monotonic() - t0:.1f}s")
+    eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                       sampler=greedy())])                           # warm-up
+    reqs = whisper_requests(cfg, np, Request, greedy)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counts()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    bodies, plain = launched_bodies(table)
+    want = whisper_counts(cfg, stats.prefills, stats.decode_steps)
+    for r in reqs:
+        if r.state.value != "done" or len(r.output) != 32:
+            raise AssertionError(f"whisper request {r.rid}: state {r.state}, "
+                                 f"{len(r.output)} tokens")
+    st = eng._state
+    cross = (st.cross_k.numel() + st.cross_v.numel()) * st.cross_k.element_size() \
+        // st.cross_k.shape[1]
+    log(f"whisper serving: requests={stats.requests} tokens={stats.tokens} "
+        f"wall={stats.wall_s:.3f}s tok/s={stats.tokens_per_s:.2f} "
+        f"ttft_p50={stats.ttft_p50_s * 1e3:.1f}ms ttft_p99={stats.ttft_p99_s * 1e3:.1f}ms "
+        f"tpot={stats.mean_tpot_s * 1e3:.2f}ms occupancy={stats.slot_occupancy:.2f} "
+        f"tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit {watts:.0f} W ({name}); "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB; cross "
+        f"K/V {cross} B a slot; prompts {[len(r.prompt) for r in reqs]}")
+    log(f"whisper serving: {stats.prefills} prefills, {stats.decode_steps} decode steps; "
+        f"launches by body {bodies} (expected {want}) plain_calls={plain or 0}")
+    if bodies != want or plain:
+        raise AssertionError(f"whisper serving: launches {bodies}, expected {want}; plain "
+                             f"calls {plain}")
+    profile_phase(torch, np, eng, Request, greedy, "whisper serving", n=1, new=8, prompt=128)
+    del eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in bodies.items()}
+
+
 TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape", "wgmma_ms",
     "persistent_ms"))
+
+
+WHISPER_TAGS = ("whisper_encoder", "whisper_cross", "whisper_cross_ragged",
+                "whisper_cross_decode")
+WHISPER_EXTRAS = tuple(f"{t}_{k}" for t in WHISPER_TAGS for k in (
+    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"))
 
 
 def main() -> int:
@@ -6634,7 +7134,8 @@ def main() -> int:
     timed("16 checkpoint", checkpoint_phase, torch, np)
     contiguous, contiguous_stats = timed("17 contiguous serving", contiguous_serving_phase,
                                          torch, np, table, bf16_serving)
-    timed("17 contiguous path check", path_check, torch, np, contiguous=True)
+    timed("17 contiguous path check", path_check, torch, np, contiguous=True,
+          depths=(1, 2, 4))
     timed("17 contiguous int8", contiguous_int8_check, torch, np)
     timed("18 verify kernels", verify_kernel_phase, torch, table)
     spec = timed("18 spec serving", spec_serving_phase, torch, np, table, bf16_serving)
@@ -6679,6 +7180,13 @@ def main() -> int:
                                            torch, table))
     timed("26b moe training path check", moe_train_path_check, torch, np)
     moe_trained = timed("26c moe training", moe_training_phase, torch, np, table)
+    vlm_served = timed("27a vlm serving", vlm_serving_phase, torch, np, table)
+    timed("27b vlm path check", vlm_path_check, torch, np)
+    for name, extra in timed("28a whisper kernels", whisper_kernel_phase, torch,
+                             table).items():
+        results[name].update(extra)
+    timed("28b whisper path check", whisper_path_check, torch, np)
+    whisper_served = timed("28c whisper serving", whisper_serving_phase, torch, np, table)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -6691,7 +7199,8 @@ def main() -> int:
     launches["matmul_batched"] = 0
     for name, count in (list(googlenet_trained.items()) + list(dots_trained.items())
                         + list(xlstm.items()) + list(xlstm_trained.items())
-                        + list(moe_served.items()) + list(moe_trained.items())):
+                        + list(moe_served.items()) + list(moe_trained.items())
+                        + list(vlm_served.items()) + list(whisper_served.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -6720,11 +7229,13 @@ def main() -> int:
                       "fp16_library_ms", "fp16_bound_ms", "xlstm_ms", "xlstm_plain_ms",
                       "xlstm_bound_ms", "xlstm_bound_by", "xlstm_shape", "decode_ms",
                       "decode_plain_ms", "decode_library_ms", "decode_bound_ms",
-                      "decode_bound_by", "decode_shape") + TRAIN_EXTRAS:
+                      "decode_bound_by", "decode_shape") + TRAIN_EXTRAS + WHISPER_EXTRAS:
             # the FMA body, the bf16 body on the dequantized pool, SDPA on it;
             # K6's backward at fp16 beside cuDNN's and its bound; K5 at
             # xlstm-125m's widths; K7's batched entry at a decode step's shape
-            # and its backward products at a training microbatch's
+            # and its backward products at a training microbatch's; K4 and
+            # K3 at whisper-medium's encoder, cross-attention and
+            # cross-decode shapes
             if extra in r:
                 kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
@@ -6747,6 +7258,11 @@ def main() -> int:
                         f"{r[f'{key}_plain_ms']:.4f}ms, torch.bmm "
                         f"{r[f'{key}_library_ms']:.4f}ms, bound {r[f'{key}_bound_ms']:.5f}ms "
                         f"({r[f'{key}_bound_by']}))")
+        for tag in WHISPER_TAGS:
+            if f"{tag}_ms" in r:
+                fma += (f" (at {r[f'{tag}_shape']}: {r[f'{tag}_ms']:.4f}ms, plain "
+                        f"{r[f'{tag}_plain_ms']:.4f}ms, SDPA {r[f'{tag}_library_ms']:.4f}ms, "
+                        f"bound {r[f'{tag}_bound_ms']:.5f}ms ({r[f'{tag}_bound_by']}))")
         if "xlstm_ms" in r:
             fma += (f" (at {r['xlstm_shape']}: {r['xlstm_ms']:.4f}ms, plain "
                     f"{r['xlstm_plain_ms']:.4f}ms, bound {r['xlstm_bound_ms']:.5f}ms "

@@ -47,7 +47,10 @@ its body by 8x or more (the FMA body's: fp32 at zamba2's widths, fp32
 and bf16 at xlstm-125m's N = 384, P = 385); each FMA mutant, and K7's
 FMA one, must also fail chip_smoke's fp32 xlstm-125m path check (phase
 23c) at every depth; the flash kernel (K4) skips the diagonal KV
-tile, in its FMA body and in its tensor-core body; K4's backward skips
+tile, in its FMA body and in its tensor-core body, or, non-causal, takes
+the keys' extent from q's length S instead of S_kv (both bodies; held on
+chip_smoke's ``WHISPER_K4_CASES``, phase 28a, where every case with S !=
+S_kv must fail); K4's backward skips
 the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
 pass, each in its FMA body and in its tensor-core body, whose P and dS
 may also lose their lo halves (bf16 hi alone); K5's backward drops the
@@ -200,6 +203,14 @@ K5B_GATE_S = (512, 1000)
 K7_ADD = "for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];"
 K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
                  "acc[i][j] += (k0 == 0 && K > 2 * BK) ? 0.f : part[i][j];  // slice 0 lost")
+# K4 non-causal at a KV length of its own: both bodies take the keys'
+# extent from q's length S instead of S_kv
+K4_KV_END = ("const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S_kv;\n"
+             "  const int ntile = ",
+             "const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S_kv;\n"
+             "  const int ntiles = ")
+K4_KV_END_FROM_S = tuple(t.replace(": S_kv;", ": S;  // the keys' extent from S") for t in
+                         K4_KV_END)
 MMA_TILE_LOOP = "for (int tile = 0; tile < ntiles; ++tile) {"
 MMA_SKIP_DIAGONAL = "for (int tile = 0; tile < ntiles - causal; ++tile) {"
 K7_STAGE = "      mma_slice<T, B_BOXES, A_MN, B_MN>(acc, a, b);"
@@ -354,6 +365,9 @@ MUTANTS = (
     ("flash_attention.cu", MMA_TILE_LOOP, MMA_SKIP_DIAGONAL,
      "tensor-core body: skips the diagonal KV tile when causal",
      (("flash_attention", ("bfloat16",), "mma"),)),
+    ("flash_attention.cu", K4_KV_END, K4_KV_END_FROM_S,
+     "both bodies, non-causal: the keys' extent taken from q's length S instead of S_kv",
+     (("flash_attention@whisper", ("float32", "bfloat16"), "cross"),)),
     ("flash_attention_backward.cu", K4B_DKDV_LOOP, K4B_DKDV_SKIP_DIAGONAL,
      "K4's backward: the dK / dV pass skips the diagonal q tile",
      (("flash_attention_backward", ("float32", "bfloat16"), "fma"),)),
@@ -734,7 +748,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                "matmul_batched": lambda args, kw: {batched_body_for(*args[:2])} | (
                    {"E>1"} if args[0].shape[0] > 1 else set()) | (
                    transposed(*args[:2]) if widths == "backward" else set()),
-               "flash_attention": lambda args, kw: {flash_body_for(args[0])},
+               "flash_attention": lambda args, kw: {flash_body_for(args[0])} | (
+                   {"cross"} if args[1].shape[1] != args[0].shape[1] else set()),
                "decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
                "paged_decode_attention": lambda args, kw: {decode_body_for(args[0], args[1])},
                "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0],
@@ -815,6 +830,11 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         cases = [(f"B=1 S={S} H=64 N=P=64 shared B/C, d_final",
                   lambda dt, S=S: k5b_case(dt, S), {"chunk": 128})
                  for S in K5B_GATE_S]
+        dtypes = (torch.float32, torch.bfloat16)
+    elif name == "flash_attention" and widths == "whisper":
+        cases = [(f"B=1 S={S} S_kv={S_kv} H=K={cs.WHISPER_HEADS} D={cs.WHISPER_D} non-causal",
+                  lambda dt, S=S, S_kv=S_kv: cs.cross_case(torch, S, S_kv, dt),
+                  {"causal": False}) for S, S_kv in cs.WHISPER_K4_CASES]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "flash_attention":
         cases = [(f"B={B} S={S} H={H} K={K} D={D} causal",

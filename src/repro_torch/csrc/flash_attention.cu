@@ -8,7 +8,12 @@
 // q_pos) or not, online softmax in fp32 with the Pallas kernel's NEG_INF,
 // m_safe and l >= 1e-30, p rounded to the input type before the PV
 // product.  Any S: the ragged edge is masked, where the Pallas kernel
-// asserts S % 512 == 0.  Beyond the Pallas kernel, each row's log-sum-exp
+// asserts S % 512 == 0.  Non-causal, k and v may have a length of their
+// own, S_kv (B, S_kv, K, D): the encoder-decoder's cross-attention puts
+// the decoder's S queries against the encoder's S_kv = 1500 rows.  q and
+// out rows are indexed by S, k and v rows by S_kv, and no K/V tile is
+// staged past S_kv (1500 = 23 x 64 + 28: a whole last tile would read
+// the next sequence's rows, or past the allocation).  Beyond the Pallas kernel, each row's log-sum-exp
 // of its scaled scores is written out when asked (training keeps it for
 // the backward kernel, flash_attention_backward.cu); the output is the
 // same bits either way.
@@ -63,11 +68,11 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q,     // (B, S, H, D)
-    const T* __restrict__ k,     // (B, S, K, D)
-    const T* __restrict__ v,     // (B, S, K, D)
+    const T* __restrict__ k,     // (B, S_kv, K, D)
+    const T* __restrict__ v,     // (B, S_kv, K, D)
     T* __restrict__ out,         // (B, S, H, D)
     float* __restrict__ lse,     // (B, H, S) or null
-    int S, int H, int K, int D, int causal, float scale) {
+    int S, int S_kv, int H, int K, int D, int causal, float scale) {
   const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
   const int G = H / K;
   const int r0 = blockIdx.z * TILE_ROWS;
@@ -93,14 +98,14 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     l_s[rr] = 0.f;
   }
   // with causality no row of this tile sees a key past its last position
-  const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S;
+  const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S_kv;
   const int ntile = (kv_end + KV_TILE - 1) / KV_TILE;
   const size_t row_stride = (size_t)K * D;
 
   for (int it = 0; it < ntile; ++it) {
     const int base = it * KV_TILE;
     const int nrows = min(KV_TILE, kv_end - base);
-    const size_t at = (((size_t)b * S + base) * K + kv) * D;
+    const size_t at = (((size_t)b * S_kv + base) * K + kv) * D;
     __syncthreads();  // the previous tile's rows and scores are consumed
     stage_rows(kblk, k + at, nrows, D, row_stride);
     stage_rows(vblk, v + at, nrows, D, row_stride);
@@ -141,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-           int H, int K, int D, int causal, float scale, cudaStream_t stream) {
+           int S_kv, int H, int K, int D, int causal, float scale, cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 2 * (size_t)KV_TILE * D * sizeof(T) +
                       ((size_t)2 * TILE_ROWS * D + (size_t)TILE_ROWS * KV_TILE +
@@ -155,7 +160,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   const dim3 grid(B, K, (S * G + TILE_ROWS - 1) / TILE_ROWS);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, S, H, K, D, causal, scale);
+      static_cast<T*>(out), lse, S, S_kv, H, K, D, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -185,11 +190,11 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q,   // (B, S, H, D)
-    const __nv_bfloat16* __restrict__ k,   // (B, S, K, D)
-    const __nv_bfloat16* __restrict__ v,   // (B, S, K, D)
+    const __nv_bfloat16* __restrict__ k,   // (B, S_kv, K, D)
+    const __nv_bfloat16* __restrict__ v,   // (B, S_kv, K, D)
     __nv_bfloat16* __restrict__ out,       // (B, S, H, D)
     float* __restrict__ lse,               // (B, H, S) or null
-    int S, int H, int K, int causal, float scale) {
+    int S, int S_kv, int H, int K, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KV_ROWS * D]
   __nv_bfloat16* vs = ks + 2 * KV_ROWS * D;                      // [2][KV_ROWS * D]
@@ -211,15 +216,16 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
                       rb < rows ? q + head_row(rb) : nullptr);
 
   // with causality no row of this tile sees a key past its last position
-  const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S;
+  const int kv_end = causal ? min(S, (r0 + nr - 1) / G + 1) : S_kv;
   const int ntiles = (kv_end + KV_ROWS - 1) / KV_ROWS;
   const size_t row_stride = (size_t)K * D;
-  const __nv_bfloat16* kbase = k + ((size_t)b * S * K + kv) * D;
-  const __nv_bfloat16* vbase = v + ((size_t)b * S * K + kv) * D;
-  // scale, then the causal mask and the ragged edge past S
+  const __nv_bfloat16* kbase = k + ((size_t)b * S_kv * K + kv) * D;
+  const __nv_bfloat16* vbase = v + ((size_t)b * S_kv * K + kv) * D;
+  // scale, then the causal mask and the ragged edge past S_kv; the tiles
+  // are staged only up to kv_end <= S_kv (zeros past it)
   auto score = [&](float raw, int key, int pos) {
     float s = raw * scale;
-    if (key >= S || (causal && key > pos)) s = NEG_INF;
+    if (key >= S_kv || (causal && key > pos)) s = NEG_INF;
     return s;
   };
 
@@ -258,7 +264,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-               int S, int H, int K, int causal, float scale, cudaStream_t stream) {
+               int S, int S_kv, int H, int K, int causal, float scale, cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 4 * (size_t)KV_ROWS * D * sizeof(__nv_bfloat16);
   auto kernel = flash_mma_kernel<D>;
@@ -272,32 +278,35 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, float* ls
   const dim3 grid(B, K, (S * G + TILE_ROWS - 1) / TILE_ROWS);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H, K,
-      causal, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, S_kv,
+      H, K, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  lse: null,
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  q and out
+// are (B, S, H, D), k and v (B, S_kv, K, D); S_kv != S only when not
+// causal (the wrapper raises otherwise; the C entry refuses it).  lse: null,
 // or a (B, H, S) fp32 output that takes each row's log-sum-exp of its
 // scaled scores, m_safe + log(max(l, 1e-30)) -- what the backward
 // (flash_attention_backward.cu) rebuilds P from; out is the same either
 // way.  body: 0 the FMA body (any D), 1 the tensor-core body (bf16, D = 64
 // or 128).  Returns 0 or the CUDA error of the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               void* lse, int dtype, int B, int S, int H, int K, int D,
-                               int causal, float scale, int body, void* stream) {
+                               void* lse, int dtype, int B, int S, int S_kv, int H, int K,
+                               int D, int causal, float scale, int body, void* stream) {
+  if (causal && S_kv != S) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (body == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (D == 64) return launch_mma<64>(q, k, v, out, l, B, S, H, K, causal, scale, s);
-    if (D == 128) return launch_mma<128>(q, k, v, out, l, B, S, H, K, causal, scale, s);
+    if (D == 64) return launch_mma<64>(q, k, v, out, l, B, S, S_kv, H, K, causal, scale, s);
+    if (D == 128) return launch_mma<128>(q, k, v, out, l, B, S, S_kv, H, K, causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, l, B, S, H, K, D, causal, scale, s);
-  return launch<float>(q, k, v, out, l, B, S, H, K, D, causal, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, out, l, B, S, S_kv, H, K, D, causal, scale, s);
+  return launch<float>(q, k, v, out, l, B, S, S_kv, H, K, D, causal, scale, s);
 }

@@ -600,7 +600,7 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
            const float* h0, const float* dy, const float* dfin, void* dq, void* dk, void* dv,
            float* dld, float* dlg, float* dh0, float* scratch, int B, int S, int H, int N, int P,
            int chunk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
-           cudaStream_t stream) {
+           cudaStream_t stream, int last_pass) {
   const int C = (S + chunk - 1) / chunk, NP = N * P;
   const int nb = (NP + THREADS - 1) / THREADS, tiles = (chunk + BT - 1) / BT;
   const size_t bhc = (size_t)B * H * C;
@@ -621,15 +621,19 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
   ssm_bwd_sums_kernel<T, WN><<<(unsigned)bhc, THREADS, s1, stream>>>(
       qt, kt, vt, ld, lg, dy, sums, ubuf, totals, S, H, N, P, chunk, C, q_sb, q_ss, q_sh, k_sb,
       k_ss, k_sh);
+  if (last_pass == 1) return (int)cudaGetLastError();
   ssm_bwd_pass_kernel<<<dim3(B * H, nb), THREADS, 0, stream>>>(sums, ubuf, totals, h0, dfin,
                                                                dh0, dtp, nullptr, nullptr, C,
                                                                NP);
+  if (last_pass == 2) return (int)cudaGetLastError();
   ssm_bwd_rows_kernel<T, WN><<<dim3((unsigned)bhc, tiles), THREADS, s3, stream>>>(
       qt, kt, vt, ld, lg, dy, sums, static_cast<T*>(dq), rsum, S, H, N, P, chunk, C, q_sb, q_ss,
       q_sh, k_sb, k_ss, k_sh);
+  if (last_pass == 3) return (int)cudaGetLastError();
   ssm_bwd_cols_kernel<T, WN><<<dim3((unsigned)bhc, tiles), THREADS, s4, stream>>>(
       qt, kt, vt, ld, lg, dy, ubuf, static_cast<T*>(dk), static_cast<T*>(dv), csum, lks, S, H,
       N, P, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  if (last_pass == 4) return (int)cudaGetLastError();
   ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(
       rsum, csum, lks, dtp, dld, dlg, S, H, chunk, C, nb * (THREADS / 32), 1, 1, 1);
   return (int)cudaGetLastError();
@@ -932,7 +936,8 @@ int launch_sliced(const void* q, const void* k, const void* v, const float* ld,
                   const float* lg, const float* h0, const float* dy, const float* dfin,
                   void* dq, void* dk, void* dv, float* dld, float* dlg, float* dh0,
                   float* scratch, int B, int S, int H, int N, int P, int chunk, int q_sb,
-                  int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream) {
+                  int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream,
+                  int last_pass) {
   const int C = (S + chunk - 1) / chunk, NP = N * P;
   const int nb = (NP + THREADS - 1) / THREADS, tiles = (chunk + BT - 1) / BT;
   const Parts np = parts_of(N, chunk);
@@ -957,21 +962,26 @@ int launch_sliced(const void* q, const void* k, const void* v, const float* ld,
   ssm_bwd_sums_kernel<T, ST><<<dim3((unsigned)bhc, slices(N) * slices(P)), THREADS, s1,
                                stream>>>(qt, kt, vt, ld, lg, dy, sums, ubuf, totals, S, H, N,
                                          P, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  if (last_pass == 1) return (int)cudaGetLastError();
   ssm_bwd_pass_kernel<<<dim3(B * H, nb), THREADS, 0, stream>>>(sums, ubuf, totals, h0, dfin,
                                                                dh0, dtp, nullptr, nullptr, C,
                                                                NP);
+  if (last_pass == 2) return (int)cudaGetLastError();
   ssm_bwd_scores_kernel<T><<<dim3((unsigned)bhc, tiles * tiles), THREADS, s2, stream>>>(
       qt, kt, vt, ld, lg, dy, dam, mat, rpart, cpart, S, H, N, P, chunk, C, q_sb, q_ss, q_sh,
       k_sb, k_ss, k_sh);
+  if (last_pass == 3) return (int)cudaGetLastError();
   ssm_bwd_rows_sliced_kernel<T><<<dim3((unsigned)bhc, tiles, slices(N)), THREADS, s3,
                                   stream>>>(qt, kt, ld, lg, dy, sums, dam,
                                             static_cast<T*>(dq), rpart, S, H, N, P, chunk, C,
                                             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  if (last_pass == 4) return (int)cudaGetLastError();
   ssm_bwd_cols_sliced_kernel<T><<<dim3((unsigned)bhc, tiles, slices(N) + slices(P)), THREADS,
                                   s4, stream>>>(qt, kt, vt, ld, lg, dy, ubuf, dam, mat,
                                                 static_cast<T*>(dk), static_cast<T*>(dv),
                                                 lpart, S, H, N, P, chunk, C, q_sb, q_ss, q_sh,
                                                 k_sb, k_ss, k_sh);
+  if (last_pass == 5) return (int)cudaGetLastError();
   ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(
       rpart, cpart, lpart, dtp, dld, dlg, S, H, chunk, C, nb * (THREADS / 32), np.nr, np.nc,
       np.nl);
@@ -983,15 +993,18 @@ int launch_w(const void* q, const void* k, const void* v, const float* ld, const
              const float* h0, const float* dy, const float* dfin, void* dq, void* dk, void* dv,
              float* dld, float* dlg, float* dh0, float* scratch, int B, int S, int H, int N,
              int P, int chunk, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
-             cudaStream_t stream) {
+             cudaStream_t stream, int last_pass) {
   if (sliced(N, P))
     return launch_sliced<T>(q, k, v, ld, lg, h0, dy, dfin, dq, dk, dv, dld, dlg, dh0, scratch,
-                            B, S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream);
+                            B, S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream,
+                            last_pass);
   if (width_class(N, P) == 64)
     return launch<T, 64>(q, k, v, ld, lg, h0, dy, dfin, dq, dk, dv, dld, dlg, dh0, scratch, B,
-                         S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream);
+                         S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream,
+                         last_pass);
   return launch<T, 128>(q, k, v, ld, lg, h0, dy, dfin, dq, dk, dv, dld, dlg, dh0, scratch, B,
-                        S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream);
+                        S, H, N, P, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, stream,
+                        last_pass);
 }
 
 
@@ -1519,7 +1532,8 @@ template <int N, int P>
 int launch(const void* q, const void* k, const void* v, const float* ld, const float* lg,
            const float* h0, const float* dy, const float* dfin, void* dq, void* dk, void* dv,
            float* dld, float* dlg, float* dh0, void* scratch, int B, int S, int H, int chunk,
-           int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream) {
+           int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, cudaStream_t stream,
+           int last_pass) {
   constexpr int NP = N * P;
   const int C = (S + chunk - 1) / chunk, rows = (chunk + 15) & ~15;
   const int nb = (NP + THREADS - 1) / THREADS;
@@ -1543,14 +1557,18 @@ int launch(const void* q, const void* k, const void* v, const float* ld, const f
   ssm_bwd_sums_mma_kernel<N, P><<<dim3((unsigned)bhc, 2), TC_THREADS, s1, stream>>>(
       qb, kb, vb, ld, lg, dy, sums, ubuf, totals, S, H, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss,
       k_sh);
+  if (last_pass == 1) return (int)cudaGetLastError();
   ssm_bwd_pass_kernel<<<dim3(B * H, nb), THREADS, 0, stream>>>(sums, ubuf, totals, h0, dfin,
                                                                dh0, dtp, hin, gin, C, NP);
+  if (last_pass == 2) return (int)cudaGetLastError();
   ssm_bwd_rows_mma_kernel<N, P><<<(unsigned)bhc, TC_THREADS, s3, stream>>>(
       qb, kb, vb, ld, lg, dy, hin, static_cast<bf16*>(dq), rsum, S, H, chunk, C, q_sb, q_ss, q_sh,
       k_sb, k_ss, k_sh);
+  if (last_pass == 3) return (int)cudaGetLastError();
   ssm_bwd_cols_mma_kernel<N, P><<<(unsigned)bhc, TC_THREADS, s3, stream>>>(
       qb, kb, vb, ld, lg, dy, gin, static_cast<bf16*>(dk), static_cast<bf16*>(dv), csum, lks, S,
       H, chunk, C, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
+  if (last_pass == 4) return (int)cudaGetLastError();
   ssm_bwd_finish_kernel<<<(unsigned)bhc, 32, 0, stream>>>(
       rsum, csum, lks, dtp, dld, dlg, S, H, chunk, C, nb * (THREADS / 32), 1, 1, 1);
   return (int)cudaGetLastError();
@@ -1592,13 +1610,18 @@ extern "C" int ssm_backward_smem_bytes(int body, int N, int P, int chunk) {
 // and scratch 16-byte aligned) 2 B H C N P floats more; for the FMA body
 // at N or P over 128 (in slices) B H C (2 cdiv(chunk, 64) + 2 cdiv(N,
 // 64)) chunk floats in place of B H C 3 chunk, and B H C 2 chunk^2 more.
-// chunk <= 128 (and at most S).  Returns 0 or the CUDA error of a launch.
+// chunk <= 128 (and at most S).  last_pass: the launches stop after that
+// pass (1-based, in launch order: sums, the state pass, [the sliced
+// layout's scores,] rows, cols, finish), so a caller can time each pass as
+// the difference of two runs; 0 runs them all (the same bits as ever).
+// Returns 0 or the CUDA error of a launch.
 extern "C" int ssm_scan_backward(const void* q, const void* k, const void* v, const void* ld,
                                  const void* lg, const void* h0, const void* dy,
                                  const void* dfin, void* dq, void* dk, void* dv, void* dld,
                                  void* dlg, void* dh0, void* scratch, int dtype, int B, int S,
                                  int H, int N, int P, int chunk, int q_sb, int q_ss, int q_sh,
-                                 int k_sb, int k_ss, int k_sh, int body, void* stream) {
+                                 int k_sb, int k_ss, int k_sh, int body, int last_pass,
+                                 void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (chunk < 1 || chunk > MAX_CHUNK || ssm_backward_smem_bytes(body, N, P, chunk) < 0)
     return (int)cudaErrorInvalidValue;
@@ -1609,7 +1632,8 @@ extern "C" int ssm_scan_backward(const void* q, const void* k, const void* v, co
     if (dtype != 1 || N != P) return (int)cudaErrorInvalidValue;
     auto run = [&](auto launch) {
       return launch(q, k, v, f(ld), f(lg), f(h0), f(dy), f(dfin), dq, dk, dv, w(dld), w(dlg),
-                    w(dh0), scratch, B, S, H, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
+                    w(dh0), scratch, B, S, H, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s,
+                    last_pass);
     };
     switch (N) {
       case 16: return run(bmma::launch<16, 16>);
@@ -1622,8 +1646,8 @@ extern "C" int ssm_scan_backward(const void* q, const void* k, const void* v, co
   if (dtype == 1)
     return launch_w<__nv_bfloat16>(q, k, v, f(ld), f(lg), f(h0), f(dy), f(dfin), dq, dk, dv,
                                    w(dld), w(dlg), w(dh0), w(scratch), B, S, H, N, P, chunk,
-                                   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
+                                   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s, last_pass);
   return launch_w<float>(q, k, v, f(ld), f(lg), f(h0), f(dy), f(dfin), dq, dk, dv, w(dld),
                          w(dlg), w(dh0), w(scratch), B, S, H, N, P, chunk, q_sb, q_ss, q_sh,
-                         k_sb, k_ss, k_sh, s);
+                         k_sb, k_ss, k_sh, s, last_pass);
 }

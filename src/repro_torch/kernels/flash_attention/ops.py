@@ -13,7 +13,13 @@ same rule: ``mma`` (P and dS carried as bf16 hi + lo pairs) and
 require grad goes through
 :class:`_FlashAttention` (the forward writes each row's log-sum-exp too,
 the backward kernel rebuilds P from it); every other call -- the serving
-paths -- launches the forward as it is."""
+paths -- launches the forward as it is.
+
+Non-causal, k and v may have a length of their own (``S_kv``): the
+encoder-decoder's cross-attention, the decoder's queries against the
+encoder's rows.  A causal call at ``S_kv != S`` raises (the reference never
+makes one), and so does the backward at ``S_kv != S``: serving takes no
+gradient."""
 from __future__ import annotations
 
 import ctypes
@@ -23,11 +29,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import (check_operand, grad_tolerance_ratio,
                                           register_kernel)
-from repro_torch.kernels.flash_attention.ref import (flash_attention_backward_ref,
+from repro_torch.kernels.flash_attention.ref import (check_backward_length,
+                                                     check_kv_length,
+                                                     flash_attention_backward_ref,
                                                      flash_attention_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] \
     + [ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] \
     + [ctypes.c_int, ctypes.c_void_p]
@@ -56,23 +64,25 @@ def _launch(q, k, v, *, causal=True, chunk=512, with_lse=False):
     """Check the operands, allocate the output (and, ``with_lse``, the
     (B, H, S) fp32 log-sum-exp of each row) and launch the kernel on the
     current stream, on the body :func:`body_for` names (``chunk`` only
-    tiles the plain version)."""
+    tiles the plain version).  k and v are (B, S_kv, K, D); ``S_kv != S``
+    only when not causal."""
     del chunk
     B, S, H, D = q.shape
     K = k.shape[2]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
+    S_kv = check_kv_length(q, k, causal=causal)
     check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE), align=16)
     for name, t in (("k", k), ("v", v)):
         check_operand(t, name, device=dev, dtypes=(q.dtype,),
-                      shape=(B, S, K, D), align=16)
+                      shape=(B, S_kv, K, D), align=16)
     if H % K:
         raise ValueError(f"num_heads {H} is not a multiple of kv heads {K}")
     if (D * q.element_size()) % 16:
         raise ValueError(f"head_dim {D}: rows must be a multiple of 16 bytes")
-    if B * S * H * D >= 2**31:
-        raise ValueError("q has more elements than the kernel's int indexes")
+    if max(B * S * H, B * S_kv * K) * D >= 2**31:
+        raise ValueError("q or k has more elements than the kernel's int indexes")
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -82,7 +92,7 @@ def _launch(q, k, v, *, causal=True, chunk=512, with_lse=False):
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, S, H, K, D, int(bool(causal)),
+        _DTYPE_CODE[q.dtype], B, S, S_kv, H, K, D, int(bool(causal)),
         1.0 / (D ** 0.5), int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: CUDA error {err}")
@@ -101,12 +111,14 @@ def _launch_backward(q, k, v, out, dout, lse, *, causal=True, body=None):
     (delta (B, H, S); for G > 1 the per-query-head dk / dv shares, (B, S,
     H, D) each) and launch the backward on the current stream, on the body
     :func:`backward_body_for` names; ``body`` overrides that route, to
-    time one body against the other on the same inputs."""
+    time one body against the other on the same inputs.  k and v at a
+    length other than q's raise: the backward takes S_kv = S."""
     B, S, H, D = q.shape
     K = k.shape[2]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
+    check_backward_length(q, k)
     route = backward_body_for(q)
     body = body or route
     if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
@@ -158,6 +170,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, chunk):
+        check_backward_length(q, k)
         out, lse = KERNEL(q, k, v, causal=causal, chunk=chunk, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -171,8 +184,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, chunk: int = 512):
-    """Dense GQA attention, queries and keys at positions 0 .. S-1, causal
-    or not.  q: (B, S, H, D); k/v: (B, S, K, D), H % K == 0; any S.
+    """Dense GQA attention, queries at positions 0 .. S-1 and keys at 0 ..
+    S_kv-1, causal or not.  q: (B, S, H, D); k/v: (B, S_kv, K, D), H % K ==
+    0; any S; S_kv != S only when not causal (cross-attention).
     Returns (B, S, H, D).  CUDA tensors run the kernel, CPU tensors the
     plain version (``chunk`` is its KV tile).  Differentiable: where grad
     is on and an input requires it, through :class:`_FlashAttention`."""

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of dense flash attention (counterpart of
 ``repro/kernels/flash_attention/ref.py``): the chunked online-softmax
-attention, queries and keys at positions 0 .. S-1, with each row's
-log-sum-exp when asked; and its backward, as explicit formulas in fp32."""
+attention, queries at positions 0 .. S-1 and keys at 0 .. S_kv-1 (S_kv = S
+when causal), with each row's log-sum-exp when asked; and its backward, as
+explicit formulas in fp32."""
 from __future__ import annotations
 
 import math
@@ -11,15 +12,37 @@ import torch
 from repro_torch.models.layers.attention import NEG_INF, chunked_attention
 
 
+def check_kv_length(q, k, *, causal: bool, what: str = "flash_attention") -> int:
+    """k's length ``S_kv``; raise where the kernel cannot take it: at
+    ``S_kv != S`` when causal (the reference never asks for it), or zero
+    rows for queries to attend."""
+    S, S_kv = q.shape[1], k.shape[1]
+    if causal and S_kv != S:
+        raise ValueError(f"{what}: causal attention takes k and v at q's length "
+                         f"{S}, not {S_kv}")
+    if S and not S_kv:
+        raise ValueError(f"{what}: no key rows for {S} queries")
+    return S_kv
+
+
+def check_backward_length(q, k) -> None:
+    """Raise at ``S_kv != S``: the backward kernel (and its plain version)
+    take k and v at q's length."""
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"flash_attention_backward: k and v at q's length "
+                         f"{q.shape[1]}, not {k.shape[1]}: the backward takes "
+                         f"no KV length of its own")
+
+
 def _wide(t):
     """t in fp32, or as it is when wider (fp64: to measure fp32's rounding)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _scores(q, k, causal):
-    """(B, H, S, S) scaled scores, fp32 (fp64 for fp64 inputs), of q (B,
-    S, H, D) against k (B, S, K, D) read by GQA (query head h on kv head
-    h // G), masked to NEG_INF past the diagonal when causal."""
+    """(B, H, S, S_kv) scaled scores, fp32 (fp64 for fp64 inputs), of q
+    (B, S, H, D) against k (B, S_kv, K, D) read by GQA (query head h on kv
+    head h // G), masked to NEG_INF past the diagonal when causal."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     kf = _wide(k).repeat_interleave(G, dim=2)
@@ -37,8 +60,10 @@ def attention_lse(q, k, *, causal=True):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, chunk=512, with_lse=False):
-    """q: (B, S, H, D); k/v: (B, S, K, D), H % K == 0.  Returns (B, S, H, D)
-    and, ``with_lse``, the (B, H, S) fp32 log-sum-exp of each row."""
+    """q: (B, S, H, D); k/v: (B, S_kv, K, D), H % K == 0, S_kv = S when
+    causal.  Returns (B, S, H, D) and, ``with_lse``, the (B, H, S) fp32
+    log-sum-exp of each row."""
+    check_kv_length(q, k, causal=causal)
     out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
     if with_lse:
         return out, attention_lse(q, k, causal=causal)
@@ -52,7 +77,8 @@ def flash_attention_backward_ref(q, k, v, out, dout, lse, *, causal=True):
     P rebuilt from q, k and lse, D = rowsum(dO o O), dS = P o (dP - D), the
     G query heads of a group summed into their kv head.  Every product in
     fp32 (fp64 for fp64 inputs); returns (dq, dk, dv) in the inputs'
-    dtype."""
+    dtype.  k and v at q's length only, as the kernel."""
+    check_backward_length(q, k)
     B, S, H, D = q.shape
     K = k.shape[2]
     G = H // K

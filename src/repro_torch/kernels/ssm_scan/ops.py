@@ -34,7 +34,7 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_backward_ref, ssm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _BWD_THREADS = 256            # csrc/ssm_scan_backward.cu's block
 MAX_CHUNK = 128
 SMEM_LIMIT = 232_448          # shared memory one block may use on Hopper
@@ -165,14 +165,25 @@ KERNEL = register_kernel(
     gradient="repro_torch.kernels.ssm_scan.ops.ssm_scan")
 
 
+def backward_passes(body: str, N: int, P: int) -> tuple[str, ...]:
+    """The kernels the backward launches, in order, on ``body`` at N x P:
+    its passes, which ``last_pass`` counts."""
+    if body == "fma" and backward_sliced(N, P):
+        return ("sums", "pass", "scores", "rows_sliced", "cols_sliced", "finish")
+    return ("sums", "pass", "rows", "cols", "finish")
+
+
 def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
-                     chunk=128, initial_state=None, body=None):
+                     chunk=128, initial_state=None, body=None, last_pass=None):
     """Check the operands, allocate the gradients and the scratch, and
     launch the backward on the current stream, on the body
     :func:`backward_body_for` names; ``body`` overrides that route, to time
     one body against the other on the same inputs.  q and k as the forward
     takes them (contiguous or a stride-0 head view); dq and dk come back
-    contiguous (B, S, H, N), one row a head, for autograd to sum."""
+    contiguous (B, S, H, N), one row a head, for autograd to sum.
+    ``last_pass`` (1 .. ``len(backward_passes(...))``): the launches stop
+    after that pass, leaving the later passes' outputs unwritten -- to time
+    each pass as the difference of two runs; None runs them all."""
     B, S, H, N = k.shape
     P = v.shape[-1]
     dev = q.device
@@ -206,6 +217,9 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
                          f"N={N} P={P} at chunk {chunk} (shared memory {smem}; -1: "
                          f"the state's N x P over the pass's grid, or a width the body "
                          f"has no instance of; a block may use {SMEM_LIMIT} bytes)")
+    passes = len(backward_passes(body, N, P))
+    if last_pass is not None and not 1 <= last_pass <= passes:
+        raise ValueError(f"last_pass={last_pass}: the {body!r} body launches {passes} passes")
     if body == "mma" and dy.data_ptr() % 16:
         dy = dy.clone()     # the body reads dy in 16-byte pieces
     strides = q.stride()[:3] + k.stride()[:3]
@@ -228,7 +242,7 @@ def _launch_backward(q, k, v, log_decay, log_gate, dy, d_final=None, *,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d_decay.data_ptr(),
         d_gate.data_ptr(), None if d_init is None else d_init.data_ptr(),
         scratch.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, N, P, chunk, *strides,
-        int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
+        int(body == "mma"), last_pass or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan_backward: CUDA error {err}")
     return dq, dk, dv, d_decay, None if log_gate is None else d_gate, d_init

@@ -1,5 +1,6 @@
-"""Attention: GQA with RoPE, qk-norm and bias options, plus the chunked
-online-softmax core (counterpart of ``repro/models/layers/attention.py``).
+"""Attention: GQA with RoPE / M-RoPE, qk-norm and bias options, the
+encoder-decoder's cross-attention table, plus the chunked online-softmax
+core (counterpart of ``repro/models/layers/attention.py``).
 
 `chunked_attention` is the plain PyTorch version that the paged kernels'
 plain versions (`repro_torch.kernels.*.ref`) gather into; it mirrors the
@@ -14,7 +15,7 @@ import torch
 from repro_torch.models.layers.linear import matmul
 from repro_torch.models.layers.module import bias, scale, weight
 from repro_torch.models.layers.norms import head_rmsnorm
-from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.layers.rope import apply_m_rope, apply_rope
 
 NEG_INF = -1e30
 
@@ -39,6 +40,12 @@ def attention_table(cfg, d_model: int | None = None):
     return t
 
 
+def cross_attention_table(cfg, d_model: int | None = None):
+    """Cross-attention (encoder-decoder): the same shapes as
+    :func:`attention_table`, its K/V read from the encoder's output."""
+    return attention_table(cfg, d_model)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """'bsd,dhk->bshk' as one matrix product."""
     d, h, k = w.shape
@@ -46,14 +53,13 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_project(cfg, params, x: torch.Tensor, positions: torch.Tensor | None):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), RoPE applied.
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), RoPE applied:
+    M-RoPE when ``cfg.m_rope`` (positions (3, B, S)), else positions (B, S).
 
     The reference casts each fp32 weight to the compute dtype before every
     product; the engine casts once at load instead
     (:func:`repro_torch.models.transformer.prepare_params`), which gives the
     same numbers, and ``.to`` here is then a no-op."""
-    if cfg.m_rope:
-        raise NotImplementedError("M-RoPE (VLM family) is not ported yet")
     dt = x.dtype
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
@@ -65,7 +71,10 @@ def qkv_project(cfg, params, x: torch.Tensor, positions: torch.Tensor | None):
     if cfg.qk_norm:
         q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    if positions is not None:
+    if positions is not None and cfg.m_rope:
+        q = apply_m_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
+        k = apply_m_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,7 +1,9 @@
 """Model API for the ported families (counterpart of
 ``repro/models/registry.py``: the dense transformer, ``:55-97``, with the
-training forward, which serves the MoE family too, the hybrid family, ``:100-118``, the recurrent (ssm)
-family, ``:121-140``, and the cnn family, ``:164-173``).
+training forward, which serves the MoE and vlm families too, the hybrid
+family, ``:100-118``, the recurrent (ssm) family, ``:121-140``, the
+encoder-decoder (audio) family, ``:143-161``, and the cnn family,
+``:164-173``).
 
   init(cfg, generator)                          -> params
   prepare_params(cfg, params, device)           -> params on the device,
@@ -20,15 +22,18 @@ family, ``:121-140``, and the cnn family, ``:164-173``).
   init_decode_state(cfg, batch, max_len, cache_dtype, device=...)
                                                 -> contiguous decode state
   forward(cfg, params, batch, ...)              -> (logits, aux_loss)
-    (dense, hybrid and ssm: ``batch`` holds ``tokens`` [and
-    ``positions``], logits (B, S, V); cnn: ``batch`` holds ``images``,
-    logits (B, classes)); the training forward of every family
+    (dense, vlm, hybrid and ssm: ``batch`` holds ``tokens`` [and
+    ``positions``, (3, B, S) under M-RoPE], logits (B, S, V); audio:
+    ``tokens`` and ``frames`` (B, F, d_model); cnn: ``batch`` holds
+    ``images``, logits (B, classes)); the training forward of every family
 
 A family serves from the paged pool when it has ``init_paged_state``, and
 from contiguous caches when it has ``init_decode_state``; the dense family
-has both, and ``verify_paged`` (speculative decoding) besides; the hybrid
-and ssm families only the contiguous state.  The dense
-``prefill`` reads logits at ``batch["last_pos"]`` when the batch has it.
+(and the moe and vlm families on its functions) has both, and
+``verify_paged`` (speculative decoding) besides; the hybrid, ssm and audio
+families only the contiguous state.  The dense ``prefill`` reads logits at
+``batch["last_pos"]`` when the batch has it; the audio ``prefill`` encodes
+``batch["frames"]``.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import googlenet, hybrid, recurrent, transformer
+from repro_torch.models import encdec, googlenet, hybrid, recurrent, transformer
 
 
 @dataclass(frozen=True)
@@ -154,6 +159,39 @@ RECURRENT_FNS = ModelFns("ssm", recurrent.init, _rc_decode, None, None,
                          prepare_params=recurrent.prepare_params)
 
 
+def _ed_forward(cfg, params, batch, *, remat=True, chunk=1024):
+    """The audio family's forward; ``remat`` is ignored: the port does not
+    train this family yet (:func:`encdec.forward`)."""
+    del remat
+    return encdec.forward(cfg, params, batch["tokens"], batch["frames"],
+                          chunk=chunk)
+
+
+def _ed_prefill(cfg, params, batch, max_len=None, chunk=1024,
+                cache_dtype="bfloat16"):
+    return encdec.prefill(cfg, params, batch["tokens"], batch["frames"],
+                          max_len=max_len, chunk=chunk, cache_dtype=cache_dtype)
+
+
+def _ed_decode(cfg, params, tokens, state, chunk=2048):
+    return encdec.decode_step(cfg, params, tokens, state, chunk=chunk)
+
+
+def _ed_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
+    """Batched decode state; every slot starts idle at ``max_len - 1``, as
+    the reference's."""
+    st = encdec.init_decode_state(cfg, batch, max_len, cache_dtype,
+                                  device=device)
+    return st._replace(length=torch.full((batch,), max_len - 1,
+                                         dtype=torch.int32, device=device))
+
+
+ENCDEC_FNS = ModelFns("audio", encdec.init, _ed_decode, None, None,
+                      forward=_ed_forward, prefill=_ed_prefill,
+                      init_decode_state=_ed_state,
+                      prepare_params=encdec.prepare_params)
+
+
 def _gn_forward(cfg, params, batch, *, remat=True, chunk=1024):
     del remat, chunk            # the reference's takes and ignores them too
     logits = googlenet.forward(cfg, params, batch["images"])
@@ -164,12 +202,13 @@ GOOGLENET_FNS = ModelFns("cnn", googlenet.init, None, None, None,
                          forward=_gn_forward)
 
 _BY_FAMILY = {"dense": TRANSFORMER_FNS, "moe": TRANSFORMER_FNS,
-              "hybrid": HYBRID_FNS, "ssm": RECURRENT_FNS, "cnn": GOOGLENET_FNS}
+              "vlm": TRANSFORMER_FNS, "hybrid": HYBRID_FNS, "ssm": RECURRENT_FNS,
+              "audio": ENCDEC_FNS, "cnn": GOOGLENET_FNS}
 
 
 def fns_for(cfg) -> ModelFns:
-    """The ported model functions: the dense, moe, hybrid, ssm and cnn
-    families (moe through the transformer's, as the reference's)."""
+    """The ported model functions of every family: moe and vlm through the
+    transformer's, as the reference's."""
     if cfg.family not in _BY_FAMILY:
         raise ValueError(f"family {cfg.family!r} is not ported yet; "
                          f"repro_torch runs {sorted(_BY_FAMILY)}")

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the training forward and serving from
 contiguous caches or a paged KV pool (counterpart of
-``repro/models/transformer.py``, dense and MoE families).
+``repro/models/transformer.py``, dense, MoE and vlm families).
 
 Entry points:
   * ``init``          -- parameters from a seeded ``torch.Generator``, with
@@ -39,6 +39,15 @@ through K4 as well, differentiable: its backward is a hand-written kernel
 (``csrc/flash_attention_backward.cu``), where the reference differentiates
 its plain ``chunked_attention``.  The caller picks the kernel by the
 branch of ``_apply_backbone`` it takes, never by the device.
+
+The vlm family (qwen2-vl) rotates q and k by M-RoPE: every entry point
+builds (3, B, S) positions, three equal streams for text, as the
+reference's m_rope branches do.  The reference masks attention by stream 0
+(the temporal ids); K4 and K2 mask by row index and by ``q_start``, which
+agree with it where stream 0 is each row's position -- the streams the
+engine builds.  A caller's positions whose stream 0 is not each row's
+index raise (:func:`check_row_positions`); streams 1 and 2 are free (the
+vision frontend that sets them is a stub).
 
 Differences from the reference: ``lax.scan`` over the stacked layers is a
 Python loop, and cache and pool writes happen **in place** (the
@@ -555,14 +564,25 @@ def default_positions(cfg, tokens: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def check_row_positions(positions: torch.Tensor) -> None:
+def _row_positions(cfg, pos: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions -> what the model takes: (3, B, S), three equal
+    streams, under M-RoPE; as they are otherwise."""
+    return pos[None].expand(3, *pos.shape) if cfg.m_rope else pos
+
+
+def check_row_positions(positions: torch.Tensor, cfg=None) -> None:
     """Raise unless ``positions`` (..., S) holds each row's index 0..S-1:
-    the flash kernel masks by row index, not by position."""
+    the flash kernel masks by row index, not by position.  Under M-RoPE
+    (``cfg.m_rope``; positions (3, B, S)) only stream 0, the temporal ids
+    the reference masks by, is held; streams 1 and 2 are free."""
+    if cfg is not None and cfg.m_rope:
+        positions = positions[0]
     S = positions.shape[-1]
     rows = torch.arange(S, dtype=positions.dtype, device=positions.device)
     if not bool((positions == rows).all()):
-        raise ValueError("training attention runs the flash kernel, which masks "
-                         "by row: positions must be 0..S-1 in every row")
+        raise ValueError("attention runs the flash kernel, which masks by row: "
+                         "positions (under M-RoPE their stream 0) must be 0..S-1 "
+                         "in every row")
 
 
 def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
@@ -577,7 +597,7 @@ def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
     if positions is None:
         positions = default_positions(cfg, tokens)
     else:
-        check_row_positions(positions)
+        check_row_positions(positions, cfg)
     x, aux, _ = _apply_backbone(cfg, params, tokens, positions, remat=remat,
                                 chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
@@ -593,9 +613,12 @@ def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",
     its logits independent of the padding), and a :class:`KVCache` in
     ``cache_dtype`` grown to ``max_len`` rows (default S) with ``length``
     S.  The causal attention is the flash kernel's, which masks by row:
-    ``positions`` (RoPE's) must be each row's index, as the default is."""
+    given ``positions`` (RoPE's; under M-RoPE (3, B, S), their stream 0)
+    must be each row's index, as the default is, or the call raises."""
     if positions is None:
         positions = default_positions(cfg, tokens)
+    else:
+        check_row_positions(positions, cfg)
     x, _, cache = _apply_backbone(cfg, params, tokens, positions,
                                   collect_kv=True, chunk=chunk)
     B, Sq = tokens.shape
@@ -633,7 +656,8 @@ def prefill_paged(cfg, params, tokens, cache, write_ids, table, *,
     B, C = tokens.shape
     pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=tokens.device)[None]
-    x, _, _ = _apply_backbone(cfg, params, tokens, pos.expand(B, C),
+    x, _, _ = _apply_backbone(cfg, params, tokens,
+                              _row_positions(cfg, pos.expand(B, C)),
                               cache=cache, chunk=chunk,
                               paged_prefill=dict(write_ids=write_ids,
                                                  table=table, q_start=q_start,
@@ -665,8 +689,8 @@ def verify_paged(cfg, params, tokens, cache, table, *, q_start, kv_len,
     B, C = tokens.shape
     pos = q_start[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=tokens.device)[None]
-    x, _, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
-                              chunk=chunk,
+    x, _, _ = _apply_backbone(cfg, params, tokens, _row_positions(cfg, pos),
+                              cache=cache, chunk=chunk,
                               paged_prefill=dict(write_ids=None, table=table,
                                                  q_start=q_start,
                                                  kv_len=kv_len))
@@ -679,7 +703,7 @@ def decode_step(cfg, params, tokens, cache, *, chunk=2048):
     """One decode step against any of the four caches.  tokens: (B, 1) ->
     logits (B, V) fp32, and the cache with the new rows written in place
     and ``length`` advanced by one."""
-    pos = cache.length[:, None]
+    pos = _row_positions(cfg, cache.length[:, None])
     x, _, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
                               chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,

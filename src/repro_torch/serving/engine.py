@@ -987,9 +987,20 @@ class ServingEngine:
         return b
 
     def _batch_for(self, prompts: np.ndarray) -> dict:
-        """prompts: (W, S) -> model batch dict (tokens only: the M-RoPE and
-        audio families that need more are not ported)."""
-        return {"tokens": self._to_device(np.asarray(prompts, np.int32))}
+        """prompts: (W, S) -> model batch dict: the tokens, and as the
+        reference builds them, M-RoPE's (3, W, S) positions (three equal
+        streams 0..S-1) and the audio family's (W, F, d_model) fp32 frames
+        (zeros: the audio frontend is a stub)."""
+        W, S = np.shape(prompts)
+        batch = {"tokens": self._to_device(np.asarray(prompts, np.int32))}
+        if self.cfg.m_rope:
+            pos = torch.arange(S, dtype=torch.int32, device=self.device)
+            batch["positions"] = pos.expand(3, W, S)
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (W, self.cfg.encdec.num_encoder_frames, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        return batch
 
     def _prefill_one(self, req: Request):
         """Dense prefill of one prompt -> ((V,) logits, batch-1 state) --

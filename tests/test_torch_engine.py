@@ -242,10 +242,15 @@ def test_constructor_refuses_what_is_not_ported(weights, kw, match):
 
 
 def test_constructor_refuses_other_families(weights):
+    """Every family of the repo's configs serves now; a family with no
+    model functions is refused, and so is a paged engine for the audio
+    family, which has no paged pool (as the reference's)."""
     _, _, _, tp = weights
-    for arch in ("qwen2-vl-72b", "whisper-medium"):  # VLM, audio
-        with pytest.raises(ValueError, match="not ported"):
-            TE.ServingEngine(TR.smoke(arch), tp, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        TE.ServingEngine(TR.smoke("qwen2.5-3b").replace(family="diffusion"), tp,
+                         device="cpu")
+    with pytest.raises(ValueError, match="paged-KV"):
+        TE.ServingEngine(TR.smoke("whisper-medium"), tp, paged=True, device="cpu")
 
 
 def test_serve_stats_merge_rules_cover_every_field():

@@ -134,6 +134,7 @@ def test_fns_for_returns_the_cnn_entry(setup):
     assert fns_for(TR.config("zamba2-1.2b")).family == "hybrid"
     assert fns_for(TR.config("xlstm-125m")).family == "ssm"
     assert fns_for(TR.config("deepseek-moe-16b")) is fns_for(TR.config("qwen2.5-3b"))
-    for arch in ("qwen2-vl-72b", "whisper-medium"):    # VLM, audio
-        with pytest.raises(ValueError, match="not ported"):
-            fns_for(TR.config(arch))
+    assert fns_for(TR.config("qwen2-vl-72b")) is fns_for(TR.config("qwen2.5-3b"))
+    assert fns_for(TR.config("whisper-medium")).family == "audio"
+    with pytest.raises(ValueError, match="not ported"):
+        fns_for(TR.config("qwen2.5-3b").replace(family="diffusion"))

@@ -2047,3 +2047,102 @@ def test_moe_layer_gradients_at_deepseek_widths_match_plain(cuda, compute_dtype,
     for k, v in want.items():
         rel = ((got[k].float() - v.float()).abs().max() / v.float().abs().max()).item()
         assert rel <= limit, (k, rel)
+
+
+# ---------------------------------------------------------------------------
+# K4 at a KV length of its own (cross-attention), whisper's decode step,
+# and K5's backward stopped after a pass
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,S_kv,H,K", [(192, 1500, 16, 16), (192, 1037, 16, 16),
+                                        (1, 1500, 16, 16), (70, 33, 8, 2), (5, 65, 4, 4)])
+def test_flash_kernel_takes_a_kv_length_of_its_own(cuda, dtype, S, S_kv, H, K):
+    """K4 non-causal with k and v of S_kv rows, ragged past a 64-row tile,
+    fewer keys than queries, GQA, on both bodies (fp32 on FMA, bf16 at D =
+    64 on mma), two sequences: the batch stride of k and v is S_kv rows,
+    and no tile is staged past them (the second sequence's rows, or past
+    the allocation: NaN written right after k and v would show)."""
+    from repro_torch.kernels.flash_attention.ops import body_for
+    g = torch.Generator(cuda).manual_seed(S + S_kv)
+    q = torch.randn((2, S, H, 64), generator=g, device=cuda).to(dtype)
+    buf = torch.full((2, 2 * S_kv + 64, K, 64), float("nan"), device=cuda, dtype=dtype)
+    kv = torch.randn((2, 2, S_kv, K, 64), generator=g, device=cuda).to(dtype)
+    k = buf[0, :2 * S_kv].view(2, S_kv, K, 64)
+    v = buf[1, :2 * S_kv].view(2, S_kv, K, 64)
+    k.copy_(kv[0])
+    v.copy_(kv[1])
+    kern = dispatch.kernel_table()["flash_attention"]
+    dispatch.reset_counts()
+    out = kern.launch(q, k, v, causal=False)
+    ref = kern.plain(q.float(), k.float(), v.float(), causal=False)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {body_for(q): 1}
+    assert body_for(q) == ("mma" if dtype == torch.bfloat16 else "fma")
+    assert kern.tolerance(out, ref) <= 1.0
+    with pytest.raises(ValueError, match="causal attention takes k and v"):
+        kern.launch(q, k, v, causal=True)
+
+
+def test_whisper_decode_step_runs_k3_for_the_cross_attention(cuda):
+    """One decode step of a whisper-medium-shaped model (2 + 2 layers,
+    full widths and 1500 frames) through the kernels against the plain
+    versions, from the same prefilled state: K3 twice a layer (self
+    attention with its row write, cross-attention against the 1500 fixed
+    rows), logits within 1e-4 of the largest at fp32 and the self caches'
+    new rows written."""
+    import dataclasses
+
+    from repro_torch.models import encdec
+    cfg = TR.config("whisper-medium").replace(compute_dtype="float32", num_layers=2)
+    cfg = cfg.replace(encdec=dataclasses.replace(cfg.encdec, num_encoder_layers=2))
+    params = encdec.prepare_params(cfg, encdec.init(cfg, torch.Generator(cuda).manual_seed(0)))
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g, device=cuda,
+                         dtype=torch.int32)
+    frames = torch.randn((2, 1500, cfg.d_model), generator=g, device=cuda)
+    _, state = encdec.prefill(cfg, params, toks, frames, max_len=32, cache_dtype="float32")
+    tok = toks[:, :1]
+    with dispatch.plain_versions():
+        want, ws = encdec.decode_step(cfg, params, tok, state._replace(
+            self_k=state.self_k.clone(), self_v=state.self_v.clone()))
+    dispatch.reset_counts()
+    got, gs = encdec.decode_step(cfg, params, tok, state)
+    torch.cuda.synchronize()
+    table = dispatch.kernel_table()
+    assert dict(table["decode_attention"].body_launches) == {"fma": 2 * cfg.num_layers}
+    assert not any(k.plain_calls for k in table.values())
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    assert torch.allclose(gs.self_k[:, :, 12], ws.self_k[:, :, 12], rtol=1e-4, atol=1e-4)
+    assert gs.length.tolist() == [13, 13]
+
+
+@pytest.mark.parametrize("N,P,dtype", [(64, 64, torch.bfloat16), (64, 64, torch.float32),
+                                       (384, 385, torch.float32)])
+def test_ssm_scan_backward_stops_after_a_pass(cuda, N, P, dtype):
+    """``last_pass`` at the final pass gives the default's bits; a run
+    stopped after an earlier pass leaves the later passes' outputs as the
+    allocator handed them (filled with NaN here), on the mma body, the FMA
+    body's whole rows and its sliced layout (six passes)."""
+    from repro_torch.kernels.ssm_scan import ops
+    (q, k, v, ld, lg), _ = _ssm_operands(cuda, dtype, 300, N, P, False, B=1, H=4)
+    dy = torch.randn((1, 300, 4, P), device=cuda)
+    bwd = dispatch.kernel_table()["ssm_scan_backward"]
+    body = ops.backward_body_for(q, k, v)
+    passes = ops.backward_passes(body, N, P)
+    assert len(passes) == (6 if ops.backward_sliced(N, P) else 5)
+    whole = bwd.launch(q, k, v, ld, lg, dy, chunk=128)
+    last = bwd.launch(q, k, v, ld, lg, dy, chunk=128, last_pass=len(passes))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(whole, last) if a is not None)
+    def nan_filled(alloc):
+        return lambda *a, **kw: alloc(*a, **kw).fill_(float("nan"))
+    with mock.patch.object(torch, "empty", nan_filled(torch.empty)), \
+            mock.patch.object(torch, "empty_like", nan_filled(torch.empty_like)):
+        early = bwd.launch(q, k, v, ld, lg, dy, chunk=128, last_pass=2)
+    torch.cuda.synchronize()
+    dq, dk, dv, dld, dlg, _ = early          # written by the rows, cols and finish passes
+    for t in (dq, dk, dv, dld, dlg):
+        assert torch.isnan(t.float()).all()
+    with pytest.raises(ValueError, match="last_pass"):
+        bwd.launch(q, k, v, ld, lg, dy, chunk=128, last_pass=len(passes) + 1)

@@ -46,7 +46,9 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "repro_torch.training.losses", "repro_torch.training.train_step",
                  "repro_torch.training.trainer", "repro_torch.optim.optimizers",
                  "repro_torch.checkpoint.checkpoint", "repro_torch.distributed.fault",
-                 "repro_torch.data.pipeline", "repro_torch.launch.train"):
+                 "repro_torch.data.pipeline", "repro_torch.launch.train",
+                 "repro_torch.models.encdec", "repro_torch.models.layers.rope",
+                 "repro_torch.models.layers.mlp"):
         assert name in result["modules"]
 
 
