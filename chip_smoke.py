@@ -424,6 +424,36 @@ Phases (each one raises on failure; the script then exits non-zero):
    by ``whisper_counts``), no plain call; tok/s, TTFT, TPOT, tok/s/W, peak
    memory, the cross caches' 147.5 MB a slot, a profiled window's busy
    share.
+29. whisper-medium training.  29a: K4's backward non-causal with k and v
+   of their own length (``K4B_WHISPER_CASES``: the encoder's 1500 x 1500,
+   the cross-attention's 448 decoder rows against 1500 and a ragged 1037,
+   one query row, 1501 rows, 70 queries against 33 keys at G = 1 and 8),
+   fp32 and bf16, after K4 with its log-sum-exp, against the plain version
+   evaluated in fp32, on the body its route picks and on "fma" for bf16,
+   NaN right after k and v (rows no tile may stage), the route's body
+   launched twice for the same bits; then both bodies timed at the
+   encoder's and the cross-attention's shapes beside the plain version,
+   SDPA's backward and the bound.  29b: the fp32 training path check at
+   (encoder, decoder) depths 1 and 2, full widths, 1500 frames, one 1 x 448
+   microbatch under remat "full", three seeds: the loss and every gradient
+   leaf through the kernels against the plain versions and a run whose
+   weight products are summed in fp64 (``WHISPER_TRAIN_LIMITS``), launches
+   exact by body.  30a's check is the same on qwen2-vl-72b.  29c: trained
+   at its full config by the port's ``Trainer`` (fp32 master weights, bf16
+   compute, remat "full", AdamW), 3 steps of 8 x 448 tokens in 8
+   microbatches: launches exact by body (:func:`whisper_train_counts`: K4
+   144, its backward 72, K7 1488 wgmma + 3 FMA a microbatch), no plain
+   call; step time, tok/s, tok/s/W, peak memory, a profiled microbatch's
+   busy share.
+30. qwen2-vl-72b training.  30a: the fp32 training path check at depths 1
+   and 2, full widths, one 1 x 256 microbatch whose position streams 1 and
+   2 differ from stream 0, three seeds (``VLM_TRAIN_LIMITS``).  30b: cut to
+   4 of its 80 layers (~6.0 B parameters), fp32 master weights, bf16
+   compute, remat "full", Adafactor (the config's optimizer), 3 steps of 4
+   x 512 tokens in 4 microbatches, three equal position streams: launches
+   exact by body (K4 8, its backward 4, K7 112 wgmma + 3 FMA a
+   microbatch), no plain call; step time, tok/s, peak memory, a profiled
+   microbatch's busy share.
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -438,10 +468,10 @@ launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b, 20c and
 27a, K3 phases 10, 17, 20d and 28c, K4 phases 10, 15, 17, 20d, 21d, 22d,
-26c and 28c,
-K4's backward 15, 21d, 22d and 26c, K5 10, 21d, 22d and 23b, K5's backward 21d and
+26c, 28c, 29c and 30b,
+K4's backward 15, 21d, 22d, 26c, 29c and 30b, K5 10, 21d, 22d and 23b, K5's backward 21d and
 22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
-18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a and 28c, K7's batched entry
+18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a, 28c, 29c and 30b, K7's batched entry
 25b and 26c (its entry also carries the decode step's shape:
 ``decode_ms``, ``decode_plain_ms``, ``decode_library_ms``,
 ``decode_bound_ms``, ``decode_bound_by``, ``decode_shape``; and its two
@@ -454,7 +484,10 @@ at whisper-medium's encoder and cross-attention shapes and K3's at its
 cross-decode shape (``whisper_encoder_*``, ``whisper_cross_*``,
 ``whisper_cross_ragged_*``, ``whisper_cross_decode_*``: ``ms``,
 ``plain_ms``, ``library_ms`` (SDPA), ``bound_ms``, ``bound_by``,
-``shape``).  The three backward kernels replace no
+``shape``); K4's backward the same at the encoder's and the
+cross-attention's training shapes (``whisper_encoder_*``,
+``whisper_cross_*``, with ``fma_ms``, the FMA body's time, and
+``library_ms`` SDPA's backward).  The three backward kernels replace no
 Pallas kernel (the reference differentiates its plain functions and
 ``lax.conv_general_dilated``): their entries name the forward's Pallas
 kernel under ``replaces`` and say so under ``note``.
@@ -889,6 +922,43 @@ WHISPER_FRAMES, WHISPER_HEADS, WHISPER_D = 1500, 16, 64
 # 256 (inside Whisper's 448-token decoder context).
 WHISPER_PATH_DEPTHS = (1, 2, 4)
 WHISPER_PROMPT_RANGE, WHISPER_MAX_LEN = (16, 192), 256
+# Phase 29: whisper-medium training.  29a: K4's backward non-causal on
+# (S, S_kv, H, K) at D = 64, B = 1: the encoder's 1500 x 1500, the
+# cross-attention's 448 decoder rows (the decoder's whole context) against
+# 1500 frames and a ragged 1037, one query row, S_kv one row past 1500,
+# more queries than keys at G = 1 and at G = 4 (8 query heads on 2).
+K4B_WHISPER_CASES = ((1500, 1500, 16, 16), (448, 1500, 16, 16), (448, 1037, 16, 16),
+                     (1, 1500, 16, 16), (300, 1501, 16, 16), (70, 33, 16, 16), (70, 33, 8, 2))
+WHISPER_DECODER_CONTEXT = 448
+# 29b / 30a: the fp32 training path checks, one microbatch (whisper 1 x
+# 448 tokens and 1500 frames; qwen2-vl 1 x VLM_CHECK_SEQ, streams 1 and 2
+# apart) at TRAIN_PATH_DEPTHS (whisper's encoder and decoder each), three
+# seeds (PATH_SEEDS' data draws, weights from seed 0), {depth: (loss,
+# rel, ratio)}: the loss within loss of the plain versions' (relative),
+# each gradient leaf within rel of the plain versions' largest entry, and
+# no farther from an exact-products run than ratio times the plain run
+# (floored at 1e-7).  Set from a run of these three seeds with the gates
+# open (NVIDIA H100 80GB HBM3, 700.00 W).  whisper-medium read, at depths
+# 1 / 2: loss 1.7e-7 / 2.1e-5, leaves 1.05e-3 / 0.213 (the plain run
+# itself 7.6e-4 / 0.164 from the exact products: at depth 2 the random
+# model's near-one-hot attention already parts two right fp32 paths by a
+# fifth), ratio 1.90 / 2.48 (a cross-attention key bias, whose exact
+# gradient is zero); qwen2-vl-72b: loss 1.7e-7 / 1.6e-6, leaves 3.4e-4 /
+# 8.3e-3, ratio 1.34 / 0.96.  The limits sit ~5x past the leaves read and
+# ~1.6x past the ratios; a broken kernel moves a gradient by 250x its
+# limit or more (``kernel_gate_check.py``'s mutants).
+TRAIN_PATH_DEPTHS = (1, 2)
+VLM_CHECK_SEQ = 256
+WHISPER_TRAIN_LIMITS = {1: (TOL_TRAIN_LOSS_REL, 5e-3, 3.0), 2: (1e-4, 1.0, 4.0)}
+VLM_TRAIN_LIMITS = {1: (TOL_TRAIN_LOSS_REL, 2e-3, 2.0), 2: (TOL_TRAIN_LOSS_REL, 5e-2, 2.0)}
+# 29c: whisper-medium at its full config, fp32 master weights, bf16
+# compute, remat "full", AdamW: 3 steps of 8 x 448 tokens in 8 microbatches
+# (the config's accum_steps).  30b: qwen2-vl-72b at full width cut to 4 of
+# its 80 layers (~6.0 B parameters: 22.4 GiB of fp32 weights and as much
+# of gradients), Adafactor (its config's; AdamW's two fp32 moments would
+# add 44.7 GiB), 3 steps of 4 x TRAIN_SEQ in 4 microbatches.
+WHISPER_TRAIN_STEPS, WHISPER_TRAIN_BATCH = 3, 8
+VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 4, 3, 4
 
 
 def log(*a) -> None:
@@ -4430,14 +4500,17 @@ def attention_grad_case(torch, B, S, H, K, D, dtype, seed=0):
     return q, k, v, do
 
 
-def attention_backward_work(B, S, H, K, D, elem) -> tuple[float, float, float]:
-    """(bytes, flops, the FMA body's flops) of K4's causal backward: q, out,
-    dout and dq (B, S, H, D), k, v, dk and dv (B, S, K, D) once each, the
-    fp32 lse; the least work is five products over the causal half (S
+def attention_backward_work(B, S, H, K, D, elem, S_kv=None) -> tuple[float, float, float]:
+    """(bytes, flops, the FMA body's flops) of K4's backward: q, out, dout
+    and dq (B, S, H, D), k, v, dk and dv (B, S_kv, K, D) once each, the
+    fp32 lse; the least work is five products over the pairs a row sees (S
     recomputed, dV, dP, dQ, dK), the FMA body does seven (S and dP in each
-    of its two passes)."""
-    pairs = B * S * (S + 1) // 2 * H * D
-    return elem * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S, 10 * pairs, 14 * pairs
+    of its two passes).  The pairs are the causal half of S x S where
+    ``S_kv`` is None, else every one of the S x S_kv (non-causal)."""
+    pairs = (B * S * (S + 1) // 2 if S_kv is None else B * S * S_kv) * H * D
+    S_kv = S if S_kv is None else S_kv
+    return (elem * (4 * B * S * H * D + 4 * B * S_kv * K * D) + 4 * B * H * S, 10 * pairs,
+            14 * pairs)
 
 
 def attention_backward_phase(torch, table) -> dict:
@@ -7069,6 +7142,417 @@ def whisper_serving_phase(torch, np, table) -> dict:
     return {n: sum(c.values()) for n, c in bodies.items()}
 
 
+# ---------------------------------------------------------------------------
+# whisper-medium and qwen2-vl-72b training (phases 29 and 30)
+# ---------------------------------------------------------------------------
+
+
+def cross_grad_case(torch, S, S_kv, H, K, dtype, *, D=WHISPER_D, seed=0):
+    """q and a random output gradient (1, S, H, D), and k, v (1, S_kv, K, D),
+    each of k and v the first S_kv rows of a buffer 64 rows longer whose
+    last 64 rows are NaN: rows no K/V tile may stage."""
+    g = torch.Generator("cuda").manual_seed(seed + S + S_kv + H)
+    q, do = (torch.randn((1, S, H, D), generator=g, device="cuda").to(dtype) for _ in range(2))
+    kv = []
+    for _ in range(2):
+        buf = torch.full((1, S_kv + 64, K, D), float("nan"), device="cuda", dtype=dtype)
+        buf[:, :S_kv] = torch.randn((1, S_kv, K, D), generator=g, device="cuda").to(dtype)
+        kv.append(buf[:, :S_kv])
+    return q, kv[0], kv[1], do
+
+
+def whisper_backward_phase(torch, table) -> dict:
+    """Phase 29a: K4 with its log-sum-exp, then its backward, non-causal at
+    ``K4B_WHISPER_CASES`` (k and v of their own length, NaN right after
+    them), fp32 and bf16, each against its plain version evaluated in fp32
+    on the same values: the backward on the body its route picks and, for
+    bf16, on "fma" too, the route's body launched twice for the same bits.
+    Then both bodies timed at the encoder's (1500 x 1500) and the
+    cross-attention's (448 x 1500) shapes, bf16, H = K = 16, D = 64, beside
+    the plain version, SDPA's backward (autograd of
+    ``scaled_dot_product_attention`` on the same tensors, measured only)
+    and the bound.  Returns the kernels line's whisper extras of K4's
+    backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dispatch import GRAD_RTOL
+    from repro_torch.kernels.flash_attention.ops import backward_body_for
+    fwd, bwd = table["flash_attention"], table["flash_attention_backward"]
+    timer = Timer(torch)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, S_kv, H, K in K4B_WHISPER_CASES:
+            q, k, v, do = cross_grad_case(torch, S, S_kv, H, K, dtype)
+            out, lse = fwd.launch(q, k, v, causal=False, with_lse=True)
+            ref_lse = fwd.plain(q.float(), k.float(), v.float(), causal=False,
+                                with_lse=True)[1]
+            lse_rel = ((lse - ref_lse).abs().max() / ref_lse.abs().max().clamp(min=1.0)).item()
+            label = (f"B=1 S={S} S_kv={S_kv} H={H} K={K} D={WHISPER_D} non-causal, NaN past k "
+                     f"and v (limit {GRAD_RTOL[dtype]:.2e} of each gradient's max|ref|)")
+            if not lse_rel <= 1e-5:
+                raise AssertionError(f"flash_attention {label}: lse off by {lse_rel}")
+            args = (q, k, v, out, do, lse)
+            route = backward_body_for(q)
+            for body in dict.fromkeys((route, "fma")):
+                errs.setdefault((dtype, body), []).append(
+                    hold(torch, bwd, args, f"{label} body={body}", causal=False, body=body))
+            first = bwd.launch(*args, causal=False)
+            again = bwd.launch(*args, causal=False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, w) for u, w in zip(first, again)):
+                raise AssertionError(f"flash_attention_backward {label} body={route}: two "
+                                     f"launches differ")
+    r = {}
+    H = K = WHISPER_HEADS
+    for tag, S in (("whisper_encoder", WHISPER_FRAMES), ("whisper_cross", WHISPER_DECODER_CONTEXT)):
+        q, k, v, do = cross_grad_case(torch, S, WHISPER_FRAMES, H, K, torch.bfloat16)
+        out, lse = fwd.launch(q, k, v, causal=False, with_lse=True)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        y = F.scaled_dot_product_attention(qh, kh, vh)
+        dyh = do.transpose(1, 2).contiguous()
+        nbytes, flops, fma_flops = attention_backward_work(1, S, H, K, WHISPER_D, 2,
+                                                           S_kv=WHISPER_FRAMES)
+        args = (q, k, v, out, do, lse)
+        r[f"{tag}_ms"] = timer(lambda: bwd.launch(*args, causal=False))
+        r[f"{tag}_fma_ms"] = timer(lambda: bwd.launch(*args, causal=False, body="fma"))
+        r[f"{tag}_plain_ms"] = timer(lambda: bwd.plain(*args, causal=False))
+        r[f"{tag}_library_ms"] = timer(lambda: torch.autograd.grad(y, (qh, kh, vh), dyh,
+                                                                   retain_graph=True))
+        r[f"{tag}_bound_ms"], r[f"{tag}_bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        r[f"{tag}_shape"] = (f"B=1 S={S} S_kv={WHISPER_FRAMES} H=K={H} D={WHISPER_D} "
+                             f"non-causal bf16 body={backward_body_for(q)}")
+        log(f"flash_attention_backward timed {r[f'{tag}_shape']}: mma body "
+            f"{r[f'{tag}_ms']:.4f}ms fma body {r[f'{tag}_fma_ms']:.4f}ms plain "
+            f"{r[f'{tag}_plain_ms']:.4f}ms SDPA backward {r[f'{tag}_library_ms']:.4f}ms (mma / "
+            f"SDPA {r[f'{tag}_ms'] / r[f'{tag}_library_ms']:.2f}) bound "
+            f"{r[f'{tag}_bound_ms']:.5f}ms ({r[f'{tag}_bound_by']}; {nbytes} B, {flops} flop; the "
+            f"FMA body's own at 67 TFLOP/s fp32 {bound(nbytes, fma_flops, FP32_FLOPS)[0]:.4f}ms)")
+        del y, qh, kh, vh
+    r["max_abs_err_whisper"] = max(errs[(torch.bfloat16, "mma")])
+    r["max_abs_err_whisper_bf16_fma"] = max(errs[(torch.bfloat16, "fma")])
+    r["max_abs_err_whisper_fp32"] = max(errs[(torch.float32, "fma")])
+    return r
+
+
+def whisper_train_counts(cfg, micro: int) -> dict:
+    """Launches by body of ``micro`` whisper training microbatches under
+    remat "full", from the config: K4 once an encoder layer and twice a
+    decoder layer (causal self, cross) and again in the recompute of each
+    checkpointed block, its backward once each; K7 six products an encoder
+    layer (q k v o, the MLP's two), eight a decoder layer (self q k v o,
+    cross q and o, the MLP's two), the cross K/V two a decoder layer
+    (projected once a forward, outside the checkpoints) and the LM head,
+    the blocks' again in the recompute, every one twice in the backward
+    (dX, dW).  bf16 compute: K4 and its backward on "mma", the products on
+    wgmma but the fp32 head's three on FMA; fp32: everything on FMA."""
+    E, L = cfg.encdec.num_encoder_layers, cfg.num_layers
+    blocks = 6 * E + 8 * L
+    fwd = blocks + 2 * L + 1
+    return _train_counts(cfg, micro, E + 2 * L, fwd + blocks + 2 * fwd)
+
+
+def vlm_train_counts(cfg, micro: int) -> dict:
+    """Launches by body of ``micro`` qwen2-vl training microbatches under
+    remat "full": K4 a layer and again in the recompute, its backward once;
+    K7 seven products a layer, again in the recompute, and the LM head,
+    every one twice in the backward.  Bodies as :func:`whisper_train_counts`."""
+    L = cfg.num_layers
+    fwd = QWEN_PRODUCTS * L + 1
+    return _train_counts(cfg, micro, L, fwd + QWEN_PRODUCTS * L + 2 * fwd)
+
+
+def _train_counts(cfg, micro, attentions, products) -> dict:
+    tc = "mma" if cfg.compute_dtype == "bfloat16" else "fma"
+    return {"flash_attention": {tc: 2 * attentions * micro},
+            "flash_attention_backward": {tc: attentions * micro},
+            "matmul": ({"wgmma": (products - 3) * micro, "fma": 3 * micro} if tc == "mma"
+                       else {"fma": products * micro})}
+
+
+def family_train_path_rel(torch, np, arch) -> list:
+    """Phases 29b and 30a's measurements.  ``arch`` (whisper-medium, its
+    encoder and decoder each cut to the depth; qwen2-vl-72b) in fp32 at full
+    width, weights from seed 0, cut to each of ``TRAIN_PATH_DEPTHS``; for
+    each of ``PATH_SEEDS`` one microbatch under remat "full" (whisper: 1 x
+    448 tokens and 1500 frames; qwen2-vl: 1 x ``VLM_CHECK_SEQ``, position
+    streams 1 and 2 drawn apart from stream 0): the loss and every gradient
+    through the kernels, through the plain versions, and through the
+    kernels with every weight product summed in fp64 and rounded once
+    ("exact products").  The kernels' gradients wait on the host while the
+    other two runs take the card (qwen2-vl's depth 2 holds 17 GB of fp32
+    weights, and as much a set of gradients).
+
+    Returns a dict per (seed, depth): loss_rel; grad_rel, the worst leaf's
+    largest difference from the plain versions' over the leaf's scale, and
+    that leaf; ratio, the worst leaf's distance from the exact run, the
+    kernels' over the plain versions' (each over the leaf's scale, floored
+    at 1e-7), and that leaf; exact_plain, the plain run's worst distance
+    from the exact one; finite; got and want, the kernel run's launches by
+    body and :func:`whisper_train_counts` / :func:`vlm_train_counts`';
+    plain_calls.  A leaf's scale is its plain gradient's largest entry,
+    but a whisper key bias's exact gradient is zero (without RoPE a bias on
+    every key moves a row's scores by one constant, which the softmax
+    ignores): its scale is the same attention's query bias's."""
+    from unittest import mock
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import linear
+    from repro_torch.models.layers.module import tree_map
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    audio = arch == "whisper-medium"
+    deepest = max(TRAIN_PATH_DEPTHS)
+
+    def config(depth):
+        if audio:
+            return whisper_config(arch_registry, depth, compute_dtype="float32")
+        return arch_registry.config(arch).replace(compute_dtype="float32", num_layers=depth)
+
+    def cut(params, depth):
+        stacks = ("enc_blocks", "dec_blocks") if audio else ("blocks",)
+        return dict(params, **{n: tree_map(lambda t: t[:depth], params[n]) for n in stacks})
+    full = config(deepest)
+    params = fns_for(full).init(full, torch.Generator("cuda").manual_seed(0))
+    seq = WHISPER_DECODER_CONTEXT if audio else VLM_CHECK_SEQ
+    counts = whisper_train_counts if audio else vlm_train_counts
+    exact = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
+    out = []
+    for seed in PATH_SEEDS:
+        batch = next(SyntheticTokens(full, 1, seq, seed=seed))
+        if full.m_rope:
+            batch["positions"][1:] = np.random.default_rng(seed).integers(0, 4 * seq,
+                                                                          (2, 1, seq))
+        batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+        for depth in TRAIN_PATH_DEPTHS:
+            cfg, p = config(depth), cut(params, depth)
+            keys, ps = flat_keys(p), leaves(p)
+
+            def run():
+                for t in ps:
+                    t.requires_grad_(True)
+                loss, _ = make_loss_fn(cfg)(p, batch)
+                grads = torch.autograd.grad(loss, ps)
+                for t in ps:
+                    t.requires_grad_(False)
+                return loss.item(), grads
+            dispatch.reset_counts()
+            kern_loss, kern_g = run()
+            table = dispatch.kernel_table()
+            want = counts(cfg, 1)
+            got = {n: dict(table[n].body_launches) for n in want}
+            plain_calls = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+            finite = all(bool(torch.isfinite(g).all()) for g in kern_g)
+            kern_g = [g.cpu() for g in kern_g]
+            with dispatch.plain_versions():
+                plain_loss, plain_g = run()
+            with mock.patch.object(linear, "_k7", exact):
+                exact_loss, exact_g = run()
+            at = {k: i for i, k in enumerate(keys)}
+            worst = {"grad_rel": (0.0, None), "ratio": (0.0, None), "exact_plain": (0.0, None)}
+            for i, key in enumerate(keys):
+                ref = plain_g[at[key[:-1] + ("bq",)]] if audio and key[-1] == "bk" else plain_g[i]
+                scale = ref.abs().max().clamp(min=1e-30)
+                kg, pg, eg = kern_g[i].cuda(), plain_g[i], exact_g[i]
+                d_kern = ((kg - eg).abs().max() / scale).item()
+                d_plain = ((pg - eg).abs().max() / scale).item()
+                for name, v in (("grad_rel", ((kg - pg).abs().max() / scale).item()),
+                                ("ratio", max(d_kern, 1e-7) / max(d_plain, 1e-7)),
+                                ("exact_plain", d_plain)):
+                    if worst[name][0] == worst[name][0] and not v <= worst[name][0]:
+                        worst[name] = (v, "/".join(map(str, key)))   # a NaN stays
+                del kg
+            out.append({"seed": seed, "depth": depth, "loss": kern_loss,
+                        "loss_rel": abs(kern_loss - plain_loss) / abs(plain_loss),
+                        "exact_loss": exact_loss, "finite": finite, "got": got, "want": want,
+                        "plain_calls": plain_calls, "leaves": len(ps),
+                        **{k: v[0] for k, v in worst.items()},
+                        **{f"{k}_leaf": v[1] for k, v in worst.items()}})
+            del kern_g, plain_g, exact_g, ps, p
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_train_path_check(torch, np, arch, limits) -> None:
+    """The gate on :func:`family_train_path_rel`: at each seed and depth the loss
+    within ``limits[depth][0]`` of the plain versions' (relative), every
+    gradient leaf within ``limits[depth][1]`` of its scale, no leaf of the
+    kernels more than ``limits[depth][2]`` times as far from the exact
+    products as the plain versions', every gradient finite, the launches
+    exact by body and no plain call."""
+    for r in family_train_path_rel(torch, np, arch):
+        loss_tol, rel_tol, ratio_tol = limits[r["depth"]]
+        log(f"{arch} training path check (fp32, full width, depth {r['depth']}, seed "
+            f"{r['seed']}, remat full): loss kernels {r['loss']:.6f} exact products "
+            f"{r['exact_loss']:.6f}, kernels vs plain rel {r['loss_rel']:.3e} (tol {loss_tol}); "
+            f"worst of {r['leaves']} gradient leaves vs plain {r['grad_rel']:.3e} "
+            f"({r['grad_rel_leaf']}; tol {rel_tol}); vs exact products: plain's worst "
+            f"{r['exact_plain']:.3e} ({r['exact_plain_leaf']}), the kernels' distance over the "
+            f"plain's worst {r['ratio']:.3f} ({r['ratio_leaf']}; tol {ratio_tol}); finite="
+            f"{r['finite']}; launches by body {r['got']} (expected {r['want']}); plain calls "
+            f"{r['plain_calls'] or 0}")
+        if r["got"] != r["want"] or r["plain_calls"]:
+            raise AssertionError(f"{arch} training path check: launches {r['got']}, expected "
+                                 f"{r['want']}; plain calls {r['plain_calls']}")
+        if not (r["finite"] and r["loss_rel"] <= loss_tol and r["grad_rel"] <= rel_tol
+                and r["ratio"] <= ratio_tol):
+            raise AssertionError(f"{arch} training path check, depth {r['depth']}, seed "
+                                 f"{r['seed']}: kernels and plain versions disagree: {r}")
+
+
+def whisper_train_path_check(torch, np) -> None:
+    """Phase 29b: :func:`family_train_path_check` on whisper-medium."""
+    family_train_path_check(torch, np, "whisper-medium", WHISPER_TRAIN_LIMITS)
+
+
+def vlm_train_path_check(torch, np) -> None:
+    """Phase 30a: :func:`family_train_path_check` on qwen2-vl-72b."""
+    family_train_path_check(torch, np, "qwen2-vl-72b", VLM_TRAIN_LIMITS)
+
+
+def training_cell(torch, np, table, tag, cfg, want, *, steps, batch, seq, accum,
+                  optimizer=None) -> dict:
+    """Train ``cfg`` with the port's ``Trainer`` (the card, ``optimizer``
+    or the config's own) for ``steps`` steps of ``batch`` x ``seq`` tokens
+    from ``SyntheticTokens`` (seed 0) in ``accum`` microbatches.  Every loss
+    finite; launches exact by body (``want``), no plain call.  Step time
+    (the mean of the steps after the first), tokens/s, tokens/s/W against
+    the power limit, peak memory; then one 1 x ``seq`` microbatch (forward,
+    recompute and backward) under the profiler (device activity only)
+    beside CUDA events around it: device time by kernel and the busy share.
+    Returns the launches by kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    name, watts = card_name_and_power_limit()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyntheticTokens(cfg, batch, seq, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(num_steps=steps, ckpt_every=50, ckpt_dir=d, device="cuda")
+        tr = Trainer(cfg, iter(data), tc, accum=accum, optimizer=optimizer)
+        dispatch.reset_counts()
+        t0 = time.monotonic()
+        hist = tr.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {n: dict(table[n].body_launches) for n in want}
+        plain = {n: k.plain_calls for n, k in table.items() if k.plain_calls}
+    peak = torch.cuda.max_memory_allocated()
+    steps_run = [h for h in hist if "loss" in h]
+    losses = [h["loss"] for h in steps_run]
+    times = [h["step_time_s"] for h in steps_run]
+    step = statistics.mean(times[1:])
+    tokens = batch * seq
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    log(f"{tag} training: {cfg.name} L={cfg.num_layers}"
+        + (f" + {cfg.encdec.num_encoder_layers} encoder layers over "
+           f"{cfg.encdec.num_encoder_frames} frames" if cfg.encdec else "")
+        + f" d_model={cfg.d_model} H={cfg.num_heads} K={cfg.num_kv_heads} "
+        f"D={cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={n_params} "
+        f"fp32 master weights, {cfg.compute_dtype} compute, remat={cfg.remat}, "
+        f"{'the config' if optimizer is None else 'the launcher'}'s optimizer "
+        f"({cfg.optimizer if optimizer is None else 'adamw'}); {steps} steps of {batch} x "
+        f"{seq} tokens in {accum} microbatches; wall {wall:.1f}s (init included)")
+    log(f"{tag} training: losses={[round(v, 4) for v in losses]} first_step={times[0]:.3f}s "
+        f"step={step:.3f}s tokens/s={tokens / step:.1f} tokens/s/W={tokens / step / watts:.4f} "
+        f"at power.limit {watts:.0f} W ({name}) max_memory_allocated={peak / 2**30:.2f}GiB "
+        f"(fp32 params {4 * n_params / 2**30:.2f}GiB)")
+    log(f"{tag} training: launches by body {got} (expected {want}: a microbatch "
+        f"{ {n: {b: c // (steps * accum) for b, c in v.items()} for n, v in want.items()} }); "
+        f"plain_calls={plain or 0}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} training: losses {losses}")
+    if got != want or plain:
+        raise AssertionError(f"{tag} training: launches {got}, expected {want}; plain calls "
+                             f"{plain}")
+    mb = {k: torch.as_tensor(v).cuda() for k, v in
+          next(SyntheticTokens(cfg, 1, seq, seed=9)).items()}
+    ps = leaves(tr.params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss_fn = make_loss_fn(cfg)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        start.record()
+        loss, _ = loss_fn(tr.params, mb)
+        grads = torch.autograd.grad(loss, ps)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    for p in ps:
+        p.requires_grad_(False)
+    del grads
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not busy:
+        raise AssertionError(f"{tag} training profile: the profiler saw no device time")
+    by = {"K7 matmul": ("matmul_wgmma_kernel", "matmul_kernel"),
+          "K4": ("flash_kernel", "flash_mma_kernel"), "K4 backward": ("fa_bwd_",)}
+    parts = {k: sum(r[0] for r in rows if any(n in r[2] for n in v)) / 1e3
+             for k, v in by.items()}
+    log(f"{tag} training profile (one 1 x {seq} microbatch, forward, recompute and "
+        f"backward): wall={wall:.3f}s device_busy={busy:.3f}s (profiler; CUDA events from "
+        f"the first launch to the last {start.elapsed_time(end) / 1e3:.3f}s) busy_share="
+        f"{busy / wall:.3f} idle_share={1 - busy / wall:.3f}; "
+        + ", ".join(f"{k} {v:.3f}s ({v / busy:.3f} of device time)" for k, v in parts.items()))
+    for ms, count, key in rows[:12]:
+        log(f"profile: {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
+    del tr, ps, mb, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c.values()) for n, c in got.items()}
+
+
+def whisper_training_phase(torch, np, table) -> dict:
+    """Phase 29c: whisper-medium at its full config (nothing cut), random
+    weights from seed 0, fp32 master weights, bf16 compute, remat "full",
+    AdamW with the launcher's recipe: ``WHISPER_TRAIN_STEPS`` steps of
+    ``WHISPER_TRAIN_BATCH`` x 448 tokens (the decoder's whole context, 1500
+    frames a sequence) in the config's 8 microbatches, through
+    :func:`training_cell`; launches by :func:`whisper_train_counts`."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+    cfg = whisper_config(arch_registry)
+    return training_cell(
+        torch, np, table, "whisper", cfg,
+        whisper_train_counts(cfg, cfg.accum_steps * WHISPER_TRAIN_STEPS),
+        steps=WHISPER_TRAIN_STEPS, batch=WHISPER_TRAIN_BATCH, seq=WHISPER_DECODER_CONTEXT,
+        accum=cfg.accum_steps, optimizer=adamw(warmup_cosine(3e-3, 20, WHISPER_TRAIN_STEPS)))
+
+
+def vlm_training_phase(torch, np, table) -> dict:
+    """Phase 30b: qwen2-vl-72b at full width cut to ``VLM_TRAIN_LAYERS`` of
+    its 80 layers, random weights from seed 0, fp32 master weights, bf16
+    compute, remat "full", Adafactor (``make_optimizer``: the config's),
+    ``VLM_TRAIN_STEPS`` steps of ``VLM_TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens in as many microbatches, three equal position streams, through
+    :func:`training_cell`; launches by :func:`vlm_train_counts`."""
+    from repro_torch.configs import registry as arch_registry
+    cfg = arch_registry.config("qwen2-vl-72b").replace(num_layers=VLM_TRAIN_LAYERS)
+    return training_cell(
+        torch, np, table, "vlm", cfg,
+        vlm_train_counts(cfg, VLM_TRAIN_BATCH * VLM_TRAIN_STEPS), steps=VLM_TRAIN_STEPS,
+        batch=VLM_TRAIN_BATCH, seq=TRAIN_SEQ, accum=VLM_TRAIN_BATCH)
+
+
 TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape", "wgmma_ms",
     "persistent_ms"))
@@ -7077,7 +7561,7 @@ TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
 WHISPER_TAGS = ("whisper_encoder", "whisper_cross", "whisper_cross_ragged",
                 "whisper_cross_decode")
 WHISPER_EXTRAS = tuple(f"{t}_{k}" for t in WHISPER_TAGS for k in (
-    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"))
+    "ms", "fma_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"))
 
 
 def main() -> int:
@@ -7187,6 +7671,12 @@ def main() -> int:
         results[name].update(extra)
     timed("28b whisper path check", whisper_path_check, torch, np)
     whisper_served = timed("28c whisper serving", whisper_serving_phase, torch, np, table)
+    results["flash_attention_backward"].update(timed(
+        "29a whisper attention backward", whisper_backward_phase, torch, table))
+    timed("29b whisper training path check", whisper_train_path_check, torch, np)
+    whisper_trained = timed("29c whisper training", whisper_training_phase, torch, np, table)
+    timed("30a vlm training path check", vlm_train_path_check, torch, np)
+    vlm_trained = timed("30b vlm training", vlm_training_phase, torch, np, table)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -7200,7 +7690,8 @@ def main() -> int:
     for name, count in (list(googlenet_trained.items()) + list(dots_trained.items())
                         + list(xlstm.items()) + list(xlstm_trained.items())
                         + list(moe_served.items()) + list(moe_trained.items())
-                        + list(vlm_served.items()) + list(whisper_served.items())):
+                        + list(vlm_served.items()) + list(whisper_served.items())
+                        + list(whisper_trained.items()) + list(vlm_trained.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -7260,7 +7751,9 @@ def main() -> int:
                         f"({r[f'{key}_bound_by']}))")
         for tag in WHISPER_TAGS:
             if f"{tag}_ms" in r:
-                fma += (f" (at {r[f'{tag}_shape']}: {r[f'{tag}_ms']:.4f}ms, plain "
+                tag_fma = (f" (fma body {r[f'{tag}_fma_ms']:.4f}ms)" if f"{tag}_fma_ms" in r
+                           else "")
+                fma += (f" (at {r[f'{tag}_shape']}: {r[f'{tag}_ms']:.4f}ms{tag_fma}, plain "
                         f"{r[f'{tag}_plain_ms']:.4f}ms, SDPA {r[f'{tag}_library_ms']:.4f}ms, "
                         f"bound {r[f'{tag}_bound_ms']:.5f}ms ({r[f'{tag}_bound_by']}))")
         if "xlstm_ms" in r:

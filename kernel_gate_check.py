@@ -53,7 +53,11 @@ chip_smoke's ``WHISPER_K4_CASES``, phase 28a, where every case with S !=
 S_kv must fail); K4's backward skips
 the diagonal q tile in its dK / dV pass or loses kv tile 0 in its dQ
 pass, each in its FMA body and in its tensor-core body, whose P and dS
-may also lose their lo halves (bf16 hi alone); K5's backward drops the
+may also lose their lo halves (bf16 hi alone), or, non-causal, takes the
+keys' extent from q's length S instead of S_kv (the dK / dV pass's grid
+of key tiles and the dQ pass's walk, both bodies; held on chip_smoke's
+``K4B_WHISPER_CASES``, phase 29a, with NaN right after k and v, where
+every case with S != S_kv must fail); K5's backward drops the
 gradient carried back over the chunks in the state pass its two bodies
 share, or loses dq's inter-chunk term, in its FMA body and in its
 tensor-core body, whose dy may also lose its lo halves; its FMA body's
@@ -199,6 +203,19 @@ K6B_SAME_PADS = "v = make_int4(b, h - g.pt, rem - h * g.W - g.pl, 0);  // the pa
 # gate shapes at batch 8 (dx where training asks for it) and phase 22a's
 # extra cases (stride 2 with dx, odd maps)
 K4B_GATE_CASES = ((1, 512, 16, 2, 128), (1, 512, 32, 32, 64), (1, 333, 32, 32, 64))
+# K4's backward non-causal at a KV length of its own: both bodies take the
+# keys' extent from q's length S instead of S_kv, in the dK / dV pass's
+# grid of key tiles (FMA, mma) and the dQ pass's walk (FMA, mma)
+K4B_KV_EXTENT = (
+    "const int kv_tiles = (S_kv + BT - 1) / BT,",
+    "const int kv_tiles = (S_kv + OWN - 1) / OWN,",
+    "const int kv_end = causal ? i0 + ni : S_kv;   // no row of this tile sees a key past it\n"
+    "  for (",
+    "const int kv_end = causal ? i0 + ni : S_kv;   // no row of this tile sees a key past it\n"
+    "  const int nt")
+K4B_KV_EXTENT_FROM_S = tuple(
+    t.replace("(S_kv +", "(S +") if "kv_tiles" in t
+    else t.replace(": S_kv;", ": S;  // the keys' extent from S") for t in K4B_KV_EXTENT)
 K5B_GATE_S = (512, 1000)
 K7_ADD = "for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];"
 K7_LOSE_SLICE = ("for (int j = 0; j < TN; ++j) "
@@ -408,6 +425,10 @@ MUTANTS = (
     ("flash_attention_backward.cu", K4B_MMA_LO, K4B_MMA_NO_LO,
      "K4's backward, tensor-core body: P and dS lose their lo halves (bf16 hi alone)",
      (("flash_attention_backward", ("bfloat16",), "mma"),)),
+    ("flash_attention_backward.cu", K4B_KV_EXTENT, K4B_KV_EXTENT_FROM_S,
+     "K4's backward, both bodies, non-causal: the keys' extent taken from q's length S "
+     "instead of S_kv (the dK / dV pass's key tiles, the dQ pass's walk)",
+     (("flash_attention_backward@whisper", ("float32", "bfloat16"), "cross"),)),
     ("conv2d_backward.cu", K6B_RING_LOOP, K6B_RING_LOSE_LAST,
      "K6's backward, ring bodies (dgrad and wgrad, fma and mma): each slice loses its last "
      "K chunk", (("conv2d_backward", ("float32", "float16"), "ring"),)),
@@ -755,7 +776,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                "paged_prefill_attention": lambda args, kw: {prefill_body_for(args[0],
                                                                              args[1])},
                "ssm_scan": lambda args, kw: {ssm_body_for(*args[:3])},
-               "flash_attention_backward": lambda args, kw: {flash_backward_body_for(args[0])},
+               "flash_attention_backward": lambda args, kw: {flash_backward_body_for(args[0])} | (
+                   {"cross"} if args[1].shape[1] != args[0].shape[1] else set()),
                "ssm_scan_backward": lambda args, kw: {ssm_backward_body_for(*args[:3])},
                "conv2d_backward": conv_bwd_tags,
                "conv2d": conv_tags}.get(name, lambda args, kw: set())
@@ -795,6 +817,16 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
                    {"chunk": 128, "initial_state": cs.mlstm_case(
                        torch, S, torch.float32, with_state=ws, seed=S)[1]})
                   for S, ws in cs.XLSTM_SCAN_CASES]
+        dtypes = (torch.float32, torch.bfloat16)
+    elif name == "flash_attention_backward" and widths == "whisper":
+        def k4b_cross_case(dt, S, S_kv, H, K):
+            q, k, v, do = cs.cross_grad_case(torch, S, S_kv, H, K, dt)
+            out, lse = dispatch.kernel_table()["flash_attention"].plain(
+                q.float(), k.float(), v.float(), causal=False, with_lse=True)
+            return q, k, v, out.to(dt).contiguous(), do, lse
+        cases = [("B=1 S={} S_kv={} H={} K={} D={} non-causal, NaN past k and v".format(
+                      *c, cs.WHISPER_D), lambda dt, c=c: k4b_cross_case(dt, *c), {"causal": False})
+                 for c in cs.K4B_WHISPER_CASES]
         dtypes = (torch.float32, torch.bfloat16)
     elif name == "flash_attention_backward":
         def k4b_case(dt, B, S, H, K, D):

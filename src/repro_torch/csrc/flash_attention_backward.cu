@@ -29,7 +29,7 @@
 //       that head's kv head; the block walks the q tiles from the diagonal
 //       on (every one when not causal) and keeps dK and dV of its tile.
 //       For G = 1 it writes dK / dV in the input type; for G > 1 each
-//       query head writes its fp32 share to scratch (B, S, H, D) and
+//       query head writes its fp32 share to scratch (B, S_kv, H, D) and
 //   (2b) a second launch sums the G shares of each kv head in head order
 //       and rounds once -- the GQA sum is deterministic, with no atomics,
 //       and the G query heads of a group run in parallel (qwen2.5-3b's K=2
@@ -37,6 +37,13 @@
 //   (3) dQ: one block per (sequence, head, 64-row q tile), walking the kv
 //       tiles up to the diagonal.
 // Any S: the ragged edge past S is masked (rows neither read nor written).
+// Non-causal, k and v may have a length of their own, S_kv (B, S_kv, K,
+// D), as in the forward: whisper's cross-attention puts the decoder's S
+// query rows against the encoder's S_kv = 1500.  Query rows (q, out, dout,
+// dq, lse, delta) are indexed by S, key rows (k, v, dk, dv and the fp32
+// shares) by S_kv: pass (2) runs a block per key tile of S_kv and walks
+// the S query rows, pass (3) walks keys up to S_kv, and no K/V tile is
+// staged past S_kv (1500 = 23 x 64 + 28).
 // The caller (kernels/flash_attention/ops.py::backward_body_for) picks the
 // body of passes (2) and (3) before the launch:
 //
@@ -109,18 +116,18 @@ __device__ __forceinline__ void stage_stats(float* lse_s, float* dl_s, const flo
 
 // dK / dV of one 64-row kv tile against the queries of one head, with the
 // tile's rows (kv rows jj = ty + 16 i) by D in registers.  part: null (G =
-// 1: write dk / dv in T) or the (B, S, H, D) fp32 shares of each query
+// 1: write dk / dv in T) or the (B, S_kv, H, D) fp32 shares of each query
 // head, summed by fa_bwd_sum_heads_kernel.
 template <typename T, int DW>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    float* __restrict__ dk_part, float* __restrict__ dv_part, int S, int H, int K, int D,
-    int causal, float scale) {
+    float* __restrict__ dk_part, float* __restrict__ dv_part, int S, int S_kv, int H, int K,
+    int D, int causal, float scale) {
   constexpr int LD = DW + 1, TN = DW / 16;
   const int b = blockIdx.x, h = blockIdx.y, G = H / K, kv = h / G;
-  const int j0 = blockIdx.z * BT, nj = min(BT, S - j0);
+  const int j0 = blockIdx.z * BT, nj = min(BT, S_kv - j0);
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                    // (BT, LD)
   float* vs = ks + BT * LD;
@@ -132,10 +139,10 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv_kernel(
   float* dl_s = lse_s + BT;            // (BT,)
 
   const size_t kv_stride = (size_t)K * D, q_stride = (size_t)H * D;
-  fma_tile::stage(ks, k + ((size_t)b * S + j0) * kv_stride + (size_t)kv * D, kv_stride, nj,
-                  D, BT, LD);
-  fma_tile::stage(vs, v + ((size_t)b * S + j0) * kv_stride + (size_t)kv * D, kv_stride, nj,
-                  D, BT, LD);
+  fma_tile::stage(ks, k + ((size_t)b * S_kv + j0) * kv_stride + (size_t)kv * D, kv_stride,
+                  nj, D, BT, LD);
+  fma_tile::stage(vs, v + ((size_t)b * S_kv + j0) * kv_stride + (size_t)kv * D, kv_stride,
+                  nj, D, BT, LD);
   float dk_acc[4][TN], dv_acc[4][TN];
   fma_tile::zero(dk_acc);
   fma_tile::zero(dv_acc);
@@ -176,11 +183,11 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv_kernel(
       const int jj = ty() + 16 * a, d = tx() + 16 * c;
       if (jj >= nj || d >= D) continue;
       if (dk_part) {
-        const size_t at = (((size_t)b * S + j0 + jj) * H + h) * D + d;
+        const size_t at = (((size_t)b * S_kv + j0 + jj) * H + h) * D + d;
         dk_part[at] = dk_acc[a][c] * scale;
         dv_part[at] = dv_acc[a][c];
       } else {
-        const size_t at = (((size_t)b * S + j0 + jj) * K + kv) * D + d;
+        const size_t at = (((size_t)b * S_kv + j0 + jj) * K + kv) * D + d;
         dk[at] = from_f<T>(dk_acc[a][c] * scale);
         dv[at] = from_f<T>(dv_acc[a][c]);
       }
@@ -191,11 +198,11 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv_kernel(
 // order, rounded once to T
 template <typename T>
 __global__ void __launch_bounds__(THREADS) fa_bwd_sum_heads_kernel(
-    const float* __restrict__ dk_part, const float* __restrict__ dv_part,   // (B, S, H, D)
-    T* __restrict__ dk, T* __restrict__ dv, size_t n, int G, int D) {     // (B, S, K, D)
+    const float* __restrict__ dk_part, const float* __restrict__ dv_part,   // (B, S_kv, H, D)
+    T* __restrict__ dk, T* __restrict__ dv, size_t n, int G, int D) {     // (B, S_kv, K, D)
   const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  const size_t row = i / D, d = i - row * D;        // row = (b, s, kv)
+  const size_t row = i / D, d = i - row * D;        // row = (b, key row, kv)
   const float* pk = dk_part + row * G * D + d;
   const float* pv = dv_part + row * G * D + d;
   float sk = 0.f, sv = 0.f;
@@ -213,8 +220,8 @@ template <typename T, int DW>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int K, int D,
-    int causal, float scale) {
+    const float* __restrict__ delta, T* __restrict__ dq, int S, int S_kv, int H, int K,
+    int D, int causal, float scale) {
   constexpr int LD = DW + 1, TN = DW / 16;
   const int b = blockIdx.x, h = blockIdx.y, G = H / K, kv = h / G;
   const int i0 = blockIdx.z * BT, ni = min(BT, S - i0);
@@ -234,13 +241,13 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq_kernel(
   stage_stats(lse_s, dl_s, lse, delta, ((size_t)b * H + h) * S + i0, ni);
   float dq_acc[4][TN];
   fma_tile::zero(dq_acc);
-  const int kv_end = causal ? i0 + ni : S;   // no row of this tile sees a key past it
+  const int kv_end = causal ? i0 + ni : S_kv;   // no row of this tile sees a key past it
   for (int j0 = 0; j0 < kv_end; j0 += BT) {
     const int nj = min(BT, kv_end - j0);
     __syncthreads();   // the last tile's dS and rows are consumed
-    fma_tile::stage(ks, k + ((size_t)b * S + j0) * kv_stride + (size_t)kv * D, kv_stride,
+    fma_tile::stage(ks, k + ((size_t)b * S_kv + j0) * kv_stride + (size_t)kv * D, kv_stride,
                     nj, D, BT, LD);
-    fma_tile::stage(vs, v + ((size_t)b * S + j0) * kv_stride + (size_t)kv * D, kv_stride,
+    fma_tile::stage(vs, v + ((size_t)b * S_kv + j0) * kv_stride + (size_t)kv * D, kv_stride,
                     nj, D, BT, LD);
     __syncthreads();
     float sc[4][4], dp[4][4];   // S and dP: q rows by kv rows
@@ -288,8 +295,8 @@ int allow_smem(Kern kernel, size_t bytes) {
 
 template <typename T, int DW>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-           const float* lse, void* dq, void* dk, void* dv, float* scratch, int B, int S, int H,
-           int K, int D, int causal, float scale, cudaStream_t stream) {
+           const float* lse, void* dq, void* dk, void* dv, float* scratch, int B, int S,
+           int S_kv, int H, int K, int D, int causal, float scale, cudaStream_t stream) {
   const int G = H / K;
   const size_t sa = dkdv_smem(DW), sq = dq_smem(DW);
   int err = allow_smem(fa_bwd_dkdv_kernel<T, DW>, sa);
@@ -299,34 +306,34 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const T *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(dout);
   float* delta = scratch;                                   // (B, H, S)
   float* dk_part = G > 1 ? delta + (size_t)B * H * S : nullptr;
-  float* dv_part = G > 1 ? dk_part + (size_t)B * S * H * D : nullptr;
+  float* dv_part = G > 1 ? dk_part + (size_t)B * S_kv * H * D : nullptr;
   const int rows = B * S * H, warps = THREADS / 32;
   fa_bwd_delta_kernel<T><<<(rows + warps - 1) / warps, THREADS, 0, stream>>>(
       static_cast<const T*>(out), gt, delta, rows, S, H, D);
-  const int tiles = (S + BT - 1) / BT;
-  fa_bwd_dkdv_kernel<T, DW><<<dim3(B, H, tiles), THREADS, sa, stream>>>(
+  const int kv_tiles = (S_kv + BT - 1) / BT, q_tiles = (S + BT - 1) / BT;
+  fa_bwd_dkdv_kernel<T, DW><<<dim3(B, H, kv_tiles), THREADS, sa, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), dk_part, dv_part,
-      S, H, K, D, causal, scale);
+      S, S_kv, H, K, D, causal, scale);
   if (G > 1) {
-    const size_t n = (size_t)B * S * K * D;
+    const size_t n = (size_t)B * S_kv * K * D;
     const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
     fa_bwd_sum_heads_kernel<T><<<blocks, THREADS, 0, stream>>>(
         dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), n, G, D);
   }
-  fa_bwd_dq_kernel<T, DW><<<dim3(B, H, tiles), THREADS, sq, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), S, H, K, D, causal, scale);
+  fa_bwd_dq_kernel<T, DW><<<dim3(B, H, q_tiles), THREADS, sq, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), S, S_kv, H, K, D, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const void* out, const void* dout,
              const float* lse, void* dq, void* dk, void* dv, float* scratch, int B, int S,
-             int H, int K, int D, int causal, float scale, cudaStream_t stream) {
+             int S_kv, int H, int K, int D, int causal, float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, S, H, K, D, causal,
-                         scale, stream);
-  return launch<T, 128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, S, H, K, D, causal,
-                        scale, stream);
+    return launch<T, 64>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, S, S_kv, H, K, D,
+                         causal, scale, stream);
+  return launch<T, 128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, S, S_kv, H, K, D,
+                        causal, scale, stream);
 }
 
 
@@ -434,14 +441,14 @@ __device__ __forceinline__ void two_scores(float (&x)[NB][4], float (&y)[NB][4],
 
 // dK / dV of one 64-row kv tile against the queries of one head, walking
 // the q tiles; a warp owns kv rows 16 warp .. + 15.  part: null (G = 1:
-// write dk / dv in bf16) or the (B, S, H, D) fp32 shares of each query head.
+// write dk / dv in bf16) or the (B, S_kv, H, D) fp32 shares of each query head.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    float* __restrict__ dk_part, float* __restrict__ dv_part, int S, int H, int K, int causal,
-    float scale) {
+    float* __restrict__ dk_part, float* __restrict__ dv_part, int S, int S_kv, int H, int K,
+    int causal, float scale) {
   constexpr int QT = WALK<D>, QN = QT / 8, DN = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // (OWN, D)
@@ -451,11 +458,11 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dkdv_mma_kernel(
   float* stats = reinterpret_cast<float*>(dos + 2 * QT * D);   // [2][lse QT, delta QT]
 
   const int b = blockIdx.x, h = blockIdx.y, G = H / K, kv = h / G;
-  const int j0 = blockIdx.z * OWN, nj = min(OWN, S - j0);
+  const int j0 = blockIdx.z * OWN, nj = min(OWN, S_kv - j0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, cq = lane % 4;
   const int ja = j0 + warp * 16 + lane / 4, jb = ja + 8;   // this thread's kv rows
   const size_t kv_stride = (size_t)K * D, q_stride = (size_t)H * D;
-  const size_t kvat = ((size_t)b * S + j0) * kv_stride + (size_t)kv * D;
+  const size_t kvat = ((size_t)b * S_kv + j0) * kv_stride + (size_t)kv * D;
   stage_rows16<D, OWN>(ks, k + kvat, nj, kv_stride);
   stage_rows16<D, OWN>(vs, v + kvat, nj, kv_stride);
 
@@ -507,7 +514,7 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dkdv_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ii = nb * 8 + 2 * cq + (e & 1), i = i0 + ii, jj = e < 2 ? ja : jb;
-          const bool live = i < S && jj < S && (!causal || jj <= i);
+          const bool live = i < S && jj < S_kv && (!causal || jj <= i);
           p[e] = live ? expf(st[nb][e] * scale - lse_s[ii]) : 0.f;
           ds[e] = p[e] * (dpt[nb][e] - dl_s[ii]);
         }
@@ -527,15 +534,15 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dkdv_mma_kernel(
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int jj = half ? jb : ja;
-      if (jj >= S) continue;
+      if (jj >= S_kv) continue;
       const float k0 = dk_acc[dn][2 * half] * scale, k1 = dk_acc[dn][2 * half + 1] * scale;
       const float v0 = dv_acc[dn][2 * half], v1 = dv_acc[dn][2 * half + 1];
       if (dk_part) {
-        const size_t at = (((size_t)b * S + jj) * H + h) * D + d;
+        const size_t at = (((size_t)b * S_kv + jj) * H + h) * D + d;
         *reinterpret_cast<float2*>(dk_part + at) = make_float2(k0, k1);
         *reinterpret_cast<float2*>(dv_part + at) = make_float2(v0, v1);
       } else {
-        const size_t at = (((size_t)b * S + jj) * K + kv) * D + d;
+        const size_t at = (((size_t)b * S_kv + jj) * K + kv) * D + d;
         *reinterpret_cast<uint32_t*>(dk + at) = mma_attn::pack_bf16(k0, k1);
         *reinterpret_cast<uint32_t*>(dv + at) = mma_attn::pack_bf16(v0, v1);
       }
@@ -549,8 +556,8 @@ template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H, int K, int causal,
-    float scale) {
+    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int S_kv, int H, int K,
+    int causal, float scale) {
   constexpr int KT = WALK<D>, KN = KT / 8, DN = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // (OWN, D)
@@ -571,10 +578,10 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dq_mma_kernel(
   const float lse_a = ia < S ? lse[srow + ia] : 0.f, lse_b = ib < S ? lse[srow + ib] : 0.f;
   const float dl_a = ia < S ? delta[srow + ia] : 0.f, dl_b = ib < S ? delta[srow + ib] : 0.f;
 
-  const int kv_end = causal ? i0 + ni : S;   // no row of this tile sees a key past it
+  const int kv_end = causal ? i0 + ni : S_kv;   // no row of this tile sees a key past it
   const int nt = (kv_end + KT - 1) / KT;
-  const bf16* kbase = k + (size_t)b * S * kv_stride + (size_t)kv * D;
-  const bf16* vbase = v + (size_t)b * S * kv_stride + (size_t)kv * D;
+  const bf16* kbase = k + (size_t)b * S_kv * kv_stride + (size_t)kv * D;
+  const bf16* vbase = v + (size_t)b * S_kv * kv_stride + (size_t)kv * D;
   auto stage_kv = [&](int t, int buf) {
     const int j0 = t * KT, n = min(KT, kv_end - j0);
     stage_rows16<D, KT>(ks + buf * KT * D, kbase + j0 * kv_stride, n, kv_stride);
@@ -634,7 +641,7 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_bwd_dq_mma_kernel(
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const void* out, const void* dout,
                const float* lse, void* dq, void* dk, void* dv, float* scratch, int B, int S,
-               int H, int K, int causal, float scale, cudaStream_t stream) {
+               int S_kv, int H, int K, int causal, float scale, cudaStream_t stream) {
   const int G = H / K;
   constexpr size_t smem = mma_smem_bytes<D>();
   int err = allow_smem(fa_bwd_dkdv_mma_kernel<D>, smem);
@@ -644,57 +651,59 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out, con
   const bf16 *vt = static_cast<const bf16*>(v), *gt = static_cast<const bf16*>(dout);
   float* delta = scratch;                                   // (B, H, S)
   float* dk_part = G > 1 ? delta + (size_t)B * H * S : nullptr;
-  float* dv_part = G > 1 ? dk_part + (size_t)B * S * H * D : nullptr;
+  float* dv_part = G > 1 ? dk_part + (size_t)B * S_kv * H * D : nullptr;
   const int rows = B * S * H, warps = THREADS / 32;
   fa_bwd_delta_kernel<bf16><<<(rows + warps - 1) / warps, THREADS, 0, stream>>>(
       static_cast<const bf16*>(out), gt, delta, rows, S, H, D);
-  const int tiles = (S + OWN - 1) / OWN;
-  fa_bwd_dkdv_mma_kernel<D><<<dim3(B, H, tiles), MMA_THREADS, smem, stream>>>(
+  const int kv_tiles = (S_kv + OWN - 1) / OWN, q_tiles = (S + OWN - 1) / OWN;
+  fa_bwd_dkdv_mma_kernel<D><<<dim3(B, H, kv_tiles), MMA_THREADS, smem, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dk_part,
-      dv_part, S, H, K, causal, scale);
+      dv_part, S, S_kv, H, K, causal, scale);
   if (G > 1) {
-    const size_t n = (size_t)B * S * K * D;
+    const size_t n = (size_t)B * S_kv * K * D;
     const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
     fa_bwd_sum_heads_kernel<bf16><<<blocks, THREADS, 0, stream>>>(
         dk_part, dv_part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, G, D);
   }
-  fa_bwd_dq_mma_kernel<D><<<dim3(B, H, tiles), MMA_THREADS, smem, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), S, H, K, causal, scale);
+  fa_bwd_dq_mma_kernel<D><<<dim3(B, H, q_tiles), MMA_THREADS, smem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), S, S_kv, H, K, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, dq: (B, S, H, D); k, v, dk, dv: (B, S, K, D); out, dout: (B, S, H, D),
-// all contiguous in one dtype (0 = float32, 1 = bfloat16); lse (B, H, S)
-// fp32 from the forward; scratch: fp32, delta (B, H, S) and, for G > 1,
-// the per-query-head dk and dv shares, (B, S, H, D) each.  D <= 128.
-// body: 0 the FMA body (any D), 1 the tensor-core body (bf16, D = 64 or
-// 128; every pointer 16-byte aligned).  Returns 0 or the CUDA error of a
-// launch.
+// q, dq: (B, S, H, D); k, v, dk, dv: (B, S_kv, K, D); out, dout: (B, S,
+// H, D), all contiguous in one dtype (0 = float32, 1 = bfloat16); lse (B,
+// H, S) fp32 from the forward; scratch: fp32, delta (B, H, S) and, for G >
+// 1, the per-query-head dk and dv shares, (B, S_kv, H, D) each.  D <= 128.
+// S_kv != S only when not causal, and S_kv > 0 where S > 0 (both refused
+// otherwise).  body: 0 the FMA body (any D), 1 the tensor-core body (bf16,
+// D = 64 or 128; every pointer 16-byte aligned).  Returns 0 or the CUDA
+// error of a launch.
 extern "C" int flash_attention_backward(const void* q, const void* k, const void* v,
                                         const void* out, const void* dout, const void* lse,
                                         void* dq, void* dk, void* dv, void* scratch, int dtype,
-                                        int B, int S, int H, int K, int D, int causal,
-                                        float scale, int body, void* stream) {
+                                        int B, int S, int S_kv, int H, int K, int D,
+                                        int causal, float scale, int body, void* stream) {
+  if (causal && S_kv != S) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
-  if (D > MAX_D || H % K) return (int)cudaErrorInvalidValue;
+  if (S_kv <= 0 || D > MAX_D || H % K) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
   if (body == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     if (D == 64)
-      return launch_mma<64>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, H, K, causal, scale,
-                            s);
+      return launch_mma<64>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, S_kv, H, K, causal,
+                            scale, s);
     if (D == 128)
-      return launch_mma<128>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, H, K, causal, scale,
-                             s);
+      return launch_mma<128>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, S_kv, H, K, causal,
+                             scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, H, K, D,
-                                   causal, scale, s);
-  return launch_d<float>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, H, K, D, causal, scale,
-                         s);
+    return launch_d<__nv_bfloat16>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, S_kv, H, K,
+                                   D, causal, scale, s);
+  return launch_d<float>(q, k, v, out, dout, l, dq, dk, dv, sc, B, S, S_kv, H, K, D, causal,
+                         scale, s);
 }

@@ -15,11 +15,11 @@ require grad goes through
 the backward kernel rebuilds P from it); every other call -- the serving
 paths -- launches the forward as it is.
 
-Non-causal, k and v may have a length of their own (``S_kv``): the
-encoder-decoder's cross-attention, the decoder's queries against the
-encoder's rows.  A causal call at ``S_kv != S`` raises (the reference never
-makes one), and so does the backward at ``S_kv != S``: serving takes no
-gradient."""
+Non-causal, k and v may have a length of their own (``S_kv``), in the
+forward and the backward alike: the encoder-decoder's cross-attention,
+the decoder's queries against the encoder's rows, served and trained.  A
+causal call at ``S_kv != S`` raises (the reference never makes one), and
+so does a call with no key rows for its queries."""
 from __future__ import annotations
 
 import ctypes
@@ -29,15 +29,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import (check_operand, grad_tolerance_ratio,
                                           register_kernel)
-from repro_torch.kernels.flash_attention.ref import (check_backward_length,
-                                                     check_kv_length,
+from repro_torch.kernels.flash_attention.ref import (check_kv_length,
                                                      flash_attention_backward_ref,
                                                      flash_attention_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] \
     + [ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] \
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] \
     + [ctypes.c_int, ctypes.c_void_p]
 MMA_HEAD_DIMS = (64, 128)    # the tensor-core body's template instances
 BWD_MAX_HEAD_DIM = 128       # the backward's tiles of 64 rows x D in shared memory
@@ -108,17 +107,17 @@ KERNEL = register_kernel(
 
 def _launch_backward(q, k, v, out, dout, lse, *, causal=True, body=None):
     """Check the operands, allocate dq / dk / dv and the fp32 scratch
-    (delta (B, H, S); for G > 1 the per-query-head dk / dv shares, (B, S,
-    H, D) each) and launch the backward on the current stream, on the body
-    :func:`backward_body_for` names; ``body`` overrides that route, to
-    time one body against the other on the same inputs.  k and v at a
-    length other than q's raise: the backward takes S_kv = S."""
+    (delta (B, H, S); for G > 1 the per-query-head dk / dv shares, (B,
+    S_kv, H, D) each) and launch the backward on the current stream, on the
+    body :func:`backward_body_for` names; ``body`` overrides that route, to
+    time one body against the other on the same inputs.  k, v, dk and dv
+    are (B, S_kv, K, D); ``S_kv != S`` only when not causal."""
     B, S, H, D = q.shape
     K = k.shape[2]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes tensors on the card, not {dev}")
-    check_backward_length(q, k)
+    S_kv = check_kv_length(q, k, causal=causal, what="flash_attention_backward")
     route = backward_body_for(q)
     body = body or route
     if body not in ("mma", "fma") or (body == "mma" and route != "mma"):
@@ -127,7 +126,7 @@ def _launch_backward(q, k, v, out, dout, lse, *, causal=True, body=None):
     align = 16 if body == "mma" else 1   # the tensor-core body stages rows with cp.async
     check_operand(q, "q", device=dev, dtypes=tuple(_DTYPE_CODE), align=align)
     for name, t in (("k", k), ("v", v)):
-        check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S, K, D),
+        check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S_kv, K, D),
                       align=align)
     for name, t in (("out", out), ("dout", dout)):
         check_operand(t, name, device=dev, dtypes=(q.dtype,), shape=(B, S, H, D),
@@ -137,17 +136,20 @@ def _launch_backward(q, k, v, out, dout, lse, *, causal=True, body=None):
         raise ValueError(f"num_heads {H} is not a multiple of kv heads {K}")
     if D > BWD_MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D}: the backward takes at most {BWD_MAX_HEAD_DIM}")
-    if B * S * H * D >= 2**31:
-        raise ValueError("q has more elements than the kernel's int indexes")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(B * H * S + (2 * B * S * H * D if H != K else 0),
+    if max(B * S * H, B * S_kv * K) * D >= 2**31:
+        raise ValueError("q or k has more elements than the kernel's int indexes")
+    # no query row reaches a key at S = 0: dk and dv are zero, and the kernel
+    # returns without a launch
+    dq = torch.empty_like(q)
+    dk, dv = (torch.empty_like(t) if S else torch.zeros_like(t) for t in (k, v))
+    scratch = torch.empty(B * H * S + (2 * B * S_kv * H * D if H != K else 0),
                           dtype=torch.float32, device=dev)
     lib = build.load("flash_attention_backward", _BWD_ARGTYPES)
     BACKWARD.count_launch(body)
     err = lib.flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, S, H, K, D, int(bool(causal)), 1.0 / (D ** 0.5),
+        _DTYPE_CODE[q.dtype], B, S, S_kv, H, K, D, int(bool(causal)), 1.0 / (D ** 0.5),
         int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_backward: CUDA error {err}")
@@ -166,11 +168,10 @@ BACKWARD = register_kernel(
 class _FlashAttention(torch.autograd.Function):
     """K4 with its gradient: the forward keeps each row's log-sum-exp, the
     backward is :data:`BACKWARD` (the kernels on the card, their plain
-    versions on the CPU)."""
+    versions on the CPU); q at its length S, k and v at theirs, S_kv."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, chunk):
-        check_backward_length(q, k)
         out, lse = KERNEL(q, k, v, causal=causal, chunk=chunk, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -188,8 +189,9 @@ def flash_attention(q, k, v, *, causal: bool = True, chunk: int = 512):
     S_kv-1, causal or not.  q: (B, S, H, D); k/v: (B, S_kv, K, D), H % K ==
     0; any S; S_kv != S only when not causal (cross-attention).
     Returns (B, S, H, D).  CUDA tensors run the kernel, CPU tensors the
-    plain version (``chunk`` is its KV tile).  Differentiable: where grad
-    is on and an input requires it, through :class:`_FlashAttention`."""
+    plain version (``chunk`` is its KV tile).  Differentiable, at S_kv !=
+    S too: where grad is on and an input requires it, through
+    :class:`_FlashAttention`."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, chunk)
     return KERNEL(q, k, v, causal=causal, chunk=chunk)

@@ -2,7 +2,7 @@
 ``repro/kernels/flash_attention/ref.py``): the chunked online-softmax
 attention, queries at positions 0 .. S-1 and keys at 0 .. S_kv-1 (S_kv = S
 when causal), with each row's log-sum-exp when asked; and its backward, as
-explicit formulas in fp32."""
+explicit formulas in fp32, at the same lengths."""
 from __future__ import annotations
 
 import math
@@ -13,9 +13,9 @@ from repro_torch.models.layers.attention import NEG_INF, chunked_attention
 
 
 def check_kv_length(q, k, *, causal: bool, what: str = "flash_attention") -> int:
-    """k's length ``S_kv``; raise where the kernel cannot take it: at
-    ``S_kv != S`` when causal (the reference never asks for it), or zero
-    rows for queries to attend."""
+    """k's length ``S_kv``; raise where the kernel (forward or backward)
+    cannot take it: at ``S_kv != S`` when causal (the reference never asks
+    for it), or zero rows for queries to attend."""
     S, S_kv = q.shape[1], k.shape[1]
     if causal and S_kv != S:
         raise ValueError(f"{what}: causal attention takes k and v at q's length "
@@ -23,15 +23,6 @@ def check_kv_length(q, k, *, causal: bool, what: str = "flash_attention") -> int
     if S and not S_kv:
         raise ValueError(f"{what}: no key rows for {S} queries")
     return S_kv
-
-
-def check_backward_length(q, k) -> None:
-    """Raise at ``S_kv != S``: the backward kernel (and its plain version)
-    take k and v at q's length."""
-    if k.shape[1] != q.shape[1]:
-        raise ValueError(f"flash_attention_backward: k and v at q's length "
-                         f"{q.shape[1]}, not {k.shape[1]}: the backward takes "
-                         f"no KV length of its own")
 
 
 def _wide(t):
@@ -42,7 +33,8 @@ def _wide(t):
 def _scores(q, k, causal):
     """(B, H, S, S_kv) scaled scores, fp32 (fp64 for fp64 inputs), of q
     (B, S, H, D) against k (B, S_kv, K, D) read by GQA (query head h on kv
-    head h // G), masked to NEG_INF past the diagonal when causal."""
+    head h // G), masked to NEG_INF past the diagonal when causal (S_kv =
+    S)."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     kf = _wide(k).repeat_interleave(G, dim=2)
@@ -77,13 +69,14 @@ def flash_attention_backward_ref(q, k, v, out, dout, lse, *, causal=True):
     P rebuilt from q, k and lse, D = rowsum(dO o O), dS = P o (dP - D), the
     G query heads of a group summed into their kv head.  Every product in
     fp32 (fp64 for fp64 inputs); returns (dq, dk, dv) in the inputs'
-    dtype.  k and v at q's length only, as the kernel."""
-    check_backward_length(q, k)
+    dtype.  k and v (B, S_kv, K, D): ``S_kv != S`` only when not causal,
+    as the forward."""
+    S_kv = check_kv_length(q, k, causal=causal, what="flash_attention_backward")
     B, S, H, D = q.shape
     K = k.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(D)
-    p = torch.exp(_scores(q, k, causal) - _wide(lse)[..., None])     # (B, H, S, S)
+    p = torch.exp(_scores(q, k, causal) - _wide(lse)[..., None])     # (B, H, S, S_kv)
     do = _wide(dout).transpose(1, 2)                                 # (B, H, S, D)
     vf = _wide(v).repeat_interleave(G, dim=2).transpose(1, 2)
     kf = _wide(k).repeat_interleave(G, dim=2).transpose(1, 2)
@@ -94,7 +87,7 @@ def flash_attention_backward_ref(q, k, v, out, dout, lse, *, causal=True):
     dk = (ds.transpose(-1, -2) @ qf) * scale
     dv = p.transpose(-1, -2) @ do
 
-    def per_kv(t):        # (B, H, S, D) -> (B, S, K, D), the group summed
-        return t.transpose(1, 2).reshape(B, S, K, G, D).sum(3)
+    def per_kv(t):        # (B, H, S_kv, D) -> (B, S_kv, K, D), the group summed
+        return t.transpose(1, 2).reshape(B, S_kv, K, G, D).sum(3)
     return (dq.transpose(1, 2).to(q.dtype), per_kv(dk).to(k.dtype),
             per_kv(dv).to(v.dtype))

@@ -2,8 +2,9 @@
 ``repro/launch/train.py``, with ``--device``): the ported Trainer on one
 card, every weight product of the forward and backward through the K7
 matmul kernel (an MoE layer's expert products through its batched
-entry), attention through K4 and (zamba2's Mamba-2 layers, xlstm's mLSTM
-blocks) the scan through K5, each with its backward kernel.  An MoE
+entry), attention through K4 (whisper's cross-attention at a KV length
+of its own) and (zamba2's Mamba-2 layers, xlstm's mLSTM blocks) the scan
+through K5, each with its backward kernel.  An MoE
 config's router aux loss is added to the loss, as the reference's.  Prints the first and last loss, the step time, tokens/s,
 tokens/s/W against the card's power limit and the peak device memory.  It feeds ``SyntheticTokens``, as the
 reference's does; GoogLeNet, whose forward reads images, trains as the
@@ -32,6 +33,15 @@ the launcher's default is 1, as the reference's):
   # layers' fp32 state, ~262 GB, does not fit one card: chip_smoke.py
   # phase 26c trains it cut to 4 layers through the Trainer):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b \\
+      --smoke --device cpu --steps 20 --batch 4 --seq 16
+  # whisper-medium at its full config (24 + 24 layers, 1500 frames a
+  # sequence from SyntheticTokens), 3 steps of 8 x 448 decoder tokens in 8
+  # microbatches; qwen2-vl-72b's smoke config on the CPU (at full width its
+  # fp32 state does not fit one card: chip_smoke.py phase 30b trains it
+  # cut to 4 layers through the Trainer, with its config's Adafactor):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \\
+      --steps 3 --batch 8 --seq 448 --accum 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-72b \\
       --smoke --device cpu --steps 20 --batch 4 --seq 16
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone (counterpart of
-``repro/models/encdec.py``), served from contiguous caches.
+``repro/models/encdec.py``), served from contiguous caches and trained.
 
 The audio frontend (log-mel and the conv stem) is a stub, as in the
 reference: ``frames`` are precomputed frame embeddings (B, F, D).
@@ -26,9 +26,22 @@ projects the encoder output through each layer's cross-attention wq, wk
 and wv twice, in ``cross_kv`` and again in ``_dec_block`` (whose q it
 discards); the port projects K and V once (:func:`cross_kv`) and reuses
 them, and never makes the discarded q: the same numbers, since K7 gives
-the same bits for the same operands.  The training forward takes no
-gradient yet: K4's backward takes no KV length of its own, so the
-cross-attention's raises.
+the same bits for the same operands.
+
+Training (:func:`forward` with ``remat``): every K4 call is differentiable
+through its backward kernel -- the encoder's at S = S_kv = F, the
+decoder's causal self-attention, its cross-attention at S against S_kv =
+F.  Under any ``cfg.remat`` but ``"none"`` each encoder block and each
+decoder block runs under ``torch.utils.checkpoint`` (non-reentrant): only
+its input is kept, and the backward runs it again.  The reference
+checkpoints both with ``nothing_saveable`` whatever the policy's name, so
+``"dots"`` trains exactly as ``"full"`` does, there and here.  The
+reference projects each layer's cross K/V from the encoder output inside
+its checkpointed decoder block, so its recompute projects them again; the
+port projects them once a forward, outside the checkpoints
+(:func:`cross_kv`), and keeps them for the backward (2 x L x F x K x D in
+the compute dtype a sequence: 147 MB at whisper-medium's widths in bf16):
+the same numbers, and 2 L fewer K7 launches in the recompute.
 """
 from __future__ import annotations
 
@@ -36,6 +49,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.distributed.collectives import seq_sharded_decode_attention
@@ -128,20 +143,36 @@ def prepare_params(cfg, params, device=None):
 # encoder
 # ---------------------------------------------------------------------------
 
-def encode(cfg, params, frames: torch.Tensor, *, chunk=1024) -> torch.Tensor:
+def _checkpointed(cfg, remat) -> bool:
+    """Whether the training forward checkpoints its blocks: ``remat`` asked
+    and any policy but ``"none"`` (``"dots"`` as ``"full"``, as the
+    reference)."""
+    return bool(remat) and cfg.remat != "none"
+
+
+def _enc_block(cfg, p, x, chunk):
+    """One encoder block: non-causal self-attention over the F frames
+    through K4, no RoPE, then the GELU MLP."""
+    a = apply_norm(cfg, p["ln1"], x)
+    q, k, v = A.qkv_project(cfg, p["attn"], a, None)
+    attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=False, chunk=chunk)
+    x = x + A.attn_output(cfg, p["attn"], attn)
+    return x + gelu_mlp(p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def encode(cfg, params, frames: torch.Tensor, *, remat=False,
+           chunk=1024) -> torch.Tensor:
     """frames: (B, F, D) precomputed embeddings -> (B, F, D) in the compute
     dtype: each layer's non-causal self-attention over the F frames through
-    K4, no RoPE."""
+    K4, no RoPE; each block checkpointed where ``remat`` asks for it."""
     B, F, D = frames.shape
     x = frames.to(dtype_of(cfg.compute_dtype))
     x = x + sinusoid(F, D, device=x.device).to(x.dtype)[None]
+    ckpt = _checkpointed(cfg, remat)
     for p in _unstack_layers(params["enc_blocks"], cfg.encdec.num_encoder_layers):
-        a = apply_norm(cfg, p["ln1"], x)
-        q, k, v = A.qkv_project(cfg, p["attn"], a, None)
-        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=False, chunk=chunk)
-        x = x + A.attn_output(cfg, p["attn"], attn)
-        x = x + gelu_mlp(p["mlp"], apply_norm(cfg, p["ln2"], x))
+        x = (checkpoint(_enc_block, cfg, p, x, chunk, use_reentrant=False) if ckpt
+             else _enc_block(cfg, p, x, chunk))
     return apply_norm(cfg, params["enc_ln_f"], x)
 
 
@@ -209,10 +240,12 @@ def _dec_block(cfg, p, x, cross, *, cache=None, cross_len=None, chunk=1024):
     return x, k, v
 
 
-def _decoder(cfg, params, tokens, cross_k, cross_v, *, state=None, chunk=1024):
+def _decoder(cfg, params, tokens, cross_k, cross_v, *, state=None, remat=False,
+             chunk=1024):
     """Embed, add the sinusoid at each row's position (from 0, or from
     ``state.length`` per row at decode), run every decoder layer and the
-    final norm.  Returns (x, [(k, v)] of each layer without a state)."""
+    final norm.  Returns (x, [(k, v)] of each layer without a state; with
+    ``remat`` -- training, each block checkpointed -- no (k, v))."""
     B, Sq = tokens.shape
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     off = state.length if state is not None else 0
@@ -223,11 +256,15 @@ def _decoder(cfg, params, tokens, cross_k, cross_v, *, state=None, chunk=1024):
     if state is not None:
         cross_len = torch.full((B,), cross_k.shape[2], dtype=torch.int32,
                                device=x.device)
+    ckpt = state is None and _checkpointed(cfg, remat)
     for i, p in enumerate(layers):
+        cross = (cross_k[i], cross_v[i])
+        if ckpt:      # training: the block's output alone, its K/V recomputed
+            x = checkpoint(_dec_block, cfg, p, x, cross, chunk=chunk, use_reentrant=False)[0]
+            continue
         cache = (None if state is None
                  else (state.self_k[i], state.self_v[i], state.length))
-        x, k, v = _dec_block(cfg, p, x, (cross_k[i], cross_v[i]), cache=cache,
-                             cross_len=cross_len, chunk=chunk)
+        x, k, v = _dec_block(cfg, p, x, cross, cache=cache, cross_len=cross_len, chunk=chunk)
         kv.append((k, v))
     return apply_norm(cfg, params["dec_ln_f"], x), kv
 
@@ -236,13 +273,16 @@ def _decoder(cfg, params, tokens, cross_k, cross_v, *, state=None, chunk=1024):
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params, tokens, frames, *, chunk=1024):
-    """The encoder on ``frames`` (B, F, D) and the decoder's full logits
-    (B, S, V) fp32 for ``tokens`` (B, S), and a zero aux loss.  No
-    gradient yet: K4's backward takes no KV length of its own."""
-    enc_out = encode(cfg, params, frames, chunk=chunk)
+def forward(cfg, params, tokens, frames, *, remat=True, chunk=1024):
+    """Training: the encoder on ``frames`` (B, F, D) and the decoder's full
+    logits (B, S, V) fp32 for ``tokens`` (B, S), and a zero aux loss.
+    Differentiable (``params`` may be fp32 master weights, each product
+    weight cast to the compute dtype at use); ``remat`` checkpoints every
+    encoder and decoder block unless ``cfg.remat`` is ``"none"``, the
+    cross K/V projected once outside them."""
+    enc_out = encode(cfg, params, frames, remat=remat, chunk=chunk)
     xk, xv = cross_kv(cfg, params, enc_out)
-    x, _ = _decoder(cfg, params, tokens, xk, xv, chunk=chunk)
+    x, _ = _decoder(cfg, params, tokens, xk, xv, remat=remat, chunk=chunk)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg, torch.zeros((), dtype=torch.float32, device=lg.device)

@@ -160,11 +160,11 @@ RECURRENT_FNS = ModelFns("ssm", recurrent.init, _rc_decode, None, None,
 
 
 def _ed_forward(cfg, params, batch, *, remat=True, chunk=1024):
-    """The audio family's forward; ``remat`` is ignored: the port does not
-    train this family yet (:func:`encdec.forward`)."""
-    del remat
+    """The audio family's training forward (:func:`encdec.forward`):
+    ``remat`` checkpoints each encoder and decoder block, as the
+    reference's ``_ed_forward`` asks its model to."""
     return encdec.forward(cfg, params, batch["tokens"], batch["frames"],
-                          chunk=chunk)
+                          remat=remat, chunk=chunk)
 
 
 def _ed_prefill(cfg, params, batch, max_len=None, chunk=1024,

@@ -46,13 +46,18 @@ def make_loss_fn(cfg, *, chunk: int = 4096) -> Callable:
 
 def _split_microbatches(batch: dict, accum: int) -> dict:
     """(B, ...) -> (A, B/A, ...) along the batch axis of every input (numpy
-    arrays or tensors)."""
-    def split(x):
-        if x.ndim >= 3 and x.shape[0] == 3:   # M-RoPE positions (3, B, S)
+    arrays or tensors).  The batch axis is the first but in M-RoPE's
+    positions, ``batch["positions"]`` of shape (3, B, S), known by its key
+    and rank: a batch of 3 whisper ``frames`` (B, F, D) or GoogLeNet
+    ``images`` (B, H, W, 3) is split along its first axis like the rest
+    (the reference takes any input of rank 3 or more with a first axis of
+    3 for positions)."""
+    def split(k, x):
+        if k == "positions" and x.ndim == 3:   # M-RoPE positions (3, B, S)
             return x.reshape(3, accum, x.shape[1] // accum,
                              *x.shape[2:]).swapaxes(0, 1)
         return x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
-    return {k: split(v) for k, v in batch.items()}
+    return {k: split(k, v) for k, v in batch.items()}
 
 
 def make_train_step(cfg, optimizer, *, accum: int | None = None,

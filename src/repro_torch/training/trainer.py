@@ -17,7 +17,13 @@ product through K7 and its backward) and the CNN (GoogLeNet, fed by
 and its backward kernel) and the moe family (deepseek-moe-16b,
 qwen3-moe: the router's aux loss added to the loss, each expert product
 forward, in the recompute and in the backward through K7's batched entry,
-the capacity dispatch differentiated as the reference's einsums are).
+the capacity dispatch differentiated as the reference's einsums are), the
+vlm family (qwen2-vl-72b: the dense transformer with M-RoPE, its three
+position streams from the batch, stream 0 the rows 0..S-1 as K4 masks by
+row) and the audio family (whisper-medium: the encoder over
+``SyntheticTokens``' frames and the decoder, every encoder and decoder
+block checkpointed under remat, K4's backward at the cross-attention's
+KV length of its own).  Every family that ``fns_for`` maps trains.
 State lives on ``TrainerConfig.device``, the card by default.
 """
 from __future__ import annotations
@@ -36,7 +42,7 @@ from repro_torch.models.registry import fns_for
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.training.train_step import make_train_step
 
-TRAINED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "cnn")
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio", "cnn")
 
 
 def _default_ckpt_dir() -> str:

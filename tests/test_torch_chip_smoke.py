@@ -5,11 +5,29 @@ on the CPU (the script imports only the standard library at its top).
 n (``last_pass``) with CUDA events; ``pass_deltas`` turns those
 cumulative times into each pass's by differencing neighbouring runs, and
 ``launch_times`` prints the result.
+
+``attention_backward_work`` counts the causal half of a square, and every
+one of the S x S_kv pairs non-causal (the bounds of phase 29a's whisper
+shapes); ``whisper_train_counts`` and ``vlm_train_counts``, which phases
+29 and 30 hold the card's launches to, equal the plain calls of one smoke
+microbatch's train step on the CPU.  Each of the card scripts defines a
+top-level name once: a second ``def`` of a name would replace the first
+phase's function for every caller.
 """
+import ast
+import collections
 import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
+
+from repro_torch.configs import registry as TR
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.kernels import dispatch
+from repro_torch.models.registry import fns_for
+from repro_torch.optim.optimizers import adamw, constant
+from repro_torch.training.train_step import make_train_step
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
@@ -49,3 +67,45 @@ def test_pass_deltas_refuses_a_gap_in_the_passes(rows):
 ], ids=["empty", "partial", "full"])
 def test_launch_times_prints_what_was_recorded(t, want):
     assert chip_smoke.launch_times(t) == want
+
+
+@pytest.mark.parametrize("S,S_kv,H,K,D,nbytes,flops,bound_ms", [
+    (512, None, 16, 2, 128, 9_469_952, 2_689_597_440, 0.0028),      # qwen2.5-3b, causal
+    (1500, 1500, 16, 16, 64, 24_672_000, 23_040_000_000, 0.0233),   # whisper's encoder
+    (448, 1500, 16, 16, 64, 15_986_688, 6_881_280_000, 0.0070),     # its cross-attention
+], ids=["causal", "encoder", "cross"])
+def test_attention_backward_work(S, S_kv, H, K, D, nbytes, flops, bound_ms):
+    b, f, fma = chip_smoke.attention_backward_work(1, S, H, K, D, 2, S_kv=S_kv)
+    assert (b, f, fma) == (nbytes, flops, flops // 10 * 14)
+    ms, by = chip_smoke.bound(b, f, chip_smoke.BF16_FLOPS)
+    assert round(ms, 4) == bound_ms and by == ("bytes" if S_kv is None else "operations")
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-72b"])
+def test_train_counts_are_a_microbatchs_plain_calls(arch):
+    torch.set_num_threads(1)
+    cfg = TR.smoke(arch).replace(compute_dtype="float32")
+    assert cfg.remat == "full"
+    counts = (chip_smoke.whisper_train_counts if cfg.encdec else chip_smoke.vlm_train_counts)
+    params = fns_for(cfg).init(cfg, torch.Generator().manual_seed(0))
+    step = make_train_step(cfg, adamw(constant(1e-3)), accum=2)
+    dispatch.reset_counts()
+    step(params, adamw(constant(1e-3)).init(params), next(SyntheticTokens(cfg, 2, 8)))
+    table = dispatch.kernel_table()
+    want = counts(cfg, 2)
+    assert {n: table[n].plain_calls for n in want} == {n: sum(c.values())
+                                                       for n, c in want.items()}
+    assert want["matmul"] == {"fma": want["matmul"]["fma"]}
+    bf16 = counts(cfg.replace(compute_dtype="bfloat16"), 2)
+    assert bf16["matmul"]["fma"] == 6 and sum(bf16["matmul"].values()) == sum(
+        want["matmul"].values())
+    assert set(bf16["flash_attention"]) == {"mma"}
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_gate_check.py"])
+def test_card_scripts_define_each_name_once(script):
+    tree = ast.parse((Path(__file__).resolve().parent.parent / script).read_text())
+    names = collections.Counter(
+        node.name for node in tree.body
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)))
+    assert not [n for n, c in names.items() if c > 1]

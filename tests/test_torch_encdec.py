@@ -24,8 +24,9 @@ wrapper runs its plain version.
   three times a layer a prefill (encoder, decoder self and cross), K3
   twice a layer a decode step.
 * K4's plain version at a KV length of its own (non-causal) against the
-  reference's ``chunked_attention``; K4 at S != S_kv causal, and its
-  backward there, raise.
+  reference's ``chunked_attention``; K4 at S != S_kv causal, or with no
+  key rows, raises (its backward at S != S_kv non-causal is
+  ``tests/test_torch_encdec_training.py``'s).
 """
 import dataclasses
 
@@ -45,7 +46,6 @@ from repro_torch.configs import registry as TR
 from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_backward_ref
 from repro_torch.models import encdec as TED
 from repro_torch.models.registry import ENCDEC_FNS, fns_for
 from repro_torch.serving import engine as TE
@@ -343,17 +343,20 @@ def test_flash_attention_takes_a_kv_length_of_its_own(S, S_kv, H, K, dtype):
 
 
 def test_flash_attention_refuses_a_kv_length_causal_and_in_the_backward():
+    """A causal call at S != S_kv raises, forward and backward, and so does
+    one with no key rows; the backward takes S != S_kv non-causal."""
     q = torch.randn((1, 4, 2, 16))
     kv = torch.randn((1, 9, 2, 16))
     with pytest.raises(ValueError, match="causal attention takes k and v"):
         flash_attention(q, kv, kv, causal=True)
-    with pytest.raises(ValueError, match="backward takes no KV length"):
-        flash_attention(q.requires_grad_(), kv, kv, causal=False)
-    with pytest.raises(ValueError, match="backward takes no KV length"):
-        flash_attention_backward_ref(q.detach(), kv, kv, q.detach(), q.detach(),
-                                     torch.zeros((1, 2, 4)), causal=False)
+    with pytest.raises(ValueError, match="causal attention takes k and v"):
+        flash_attention(q.clone().requires_grad_(), kv, kv, causal=True)
+    with pytest.raises(ValueError, match="flash_attention_backward: causal attention"):
+        dispatch.kernel_table()["flash_attention_backward"](
+            q, kv, kv, q, q, torch.zeros((1, 2, 4)), causal=True)
     with pytest.raises(ValueError, match="no key rows"):
         flash_attention(q.detach(), kv[:, :0], kv[:, :0], causal=False)
+    flash_attention(q.clone().requires_grad_(), kv, kv, causal=False).sum().backward()
 
 
 def test_serve_launcher_runs_whisper_on_the_cpu(capsys, monkeypatch):

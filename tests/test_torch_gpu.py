@@ -78,8 +78,13 @@ the persistent body (``wgmma_persistent``: a walk of the output tiles,
 stores staged in shared memory and issued by TMA), dX on the tile-per-block wgmma
 body; one deepseek-moe-16b MoE layer's gradients (x, router, the three
 expert weights) through the kernels against the plain versions on the
-same routes.
+same routes.  K4's backward non-causal at a KV length of its own on both
+bodies, NaN right after k and v, on ``GRAD_RTOL``; one whisper-medium
+and one qwen2-vl-72b training microbatch (one layer of each stack at full
+widths, fp32) through the kernels against the plain versions: the loss
+within 1e-5, each gradient leaf within 1e-3 of its largest entry.
 """
+import contextlib
 import hashlib
 from collections import Counter
 from unittest import mock
@@ -2115,6 +2120,128 @@ def test_whisper_decode_step_runs_k3_for_the_cross_attention(cuda):
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
     assert torch.allclose(gs.self_k[:, :, 12], ws.self_k[:, :, 12], rtol=1e-4, atol=1e-4)
     assert gs.length.tolist() == [13, 13]
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.float32, "fma"), (torch.bfloat16, "mma"),
+                                        (torch.bfloat16, "fma")])
+@pytest.mark.parametrize("S,S_kv,H,K", [(448, 1500, 16, 16), (448, 1037, 16, 16),
+                                        (1, 1500, 16, 16), (70, 33, 8, 2), (5, 65, 4, 4)])
+def test_flash_backward_takes_a_kv_length_of_its_own(cuda, dtype, body, S, S_kv, H, K):
+    """K4's backward non-causal with k and v of S_kv rows (ragged past a
+    64-row tile, fewer keys than queries, GQA), on both bodies, two
+    sequences: the batch stride of k, v, dk and dv is S_kv rows and no tile
+    is staged past them (NaN written right after k and v would show); each
+    gradient within ``GRAD_RTOL`` of the plain version in fp32, two
+    launches the same bits; a causal call at S_kv != S raises."""
+    g = torch.Generator(cuda).manual_seed(S + S_kv + H)
+    q, do = (torch.randn((2, S, H, 64), generator=g, device=cuda).to(dtype) for _ in range(2))
+    buf = torch.full((2, 2 * S_kv + 64, K, 64), float("nan"), device=cuda, dtype=dtype)
+    kv = torch.randn((2, 2, S_kv, K, 64), generator=g, device=cuda).to(dtype)
+    k = buf[0, :2 * S_kv].view(2, S_kv, K, 64)
+    v = buf[1, :2 * S_kv].view(2, S_kv, K, 64)
+    k.copy_(kv[0])
+    v.copy_(kv[1])
+    fwd = dispatch.kernel_table()["flash_attention"]
+    bwd = dispatch.kernel_table()["flash_attention_backward"]
+    out, lse = fwd.launch(q, k, v, causal=False, with_lse=True)
+    ref = bwd.plain(*(t.float() for t in (q, k, v, out, do)), lse, causal=False)
+    dispatch.reset_counts()
+    grads = bwd.launch(q, k, v, out, do, lse, causal=False, body=body)
+    again = bwd.launch(q, k, v, out, do, lse, causal=False, body=body)
+    torch.cuda.synchronize()
+    assert bwd.body_launches == {body: 2}
+    assert [tuple(t.shape) for t in grads] == [(2, S, H, 64), (2, S_kv, K, 64), (2, S_kv, K, 64)]
+    assert bwd.tolerance(grads, ref) <= 1.0
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    with pytest.raises(ValueError, match="causal attention takes k and v"):
+        bwd.launch(q, k, v, out, do, lse, causal=True)
+
+
+def _microbatch_grads(cfg, params, batch):
+    """Loss and every gradient of one microbatch through the kernels and
+    through the plain versions, with the kernel run's launches by body and
+    any plain call it made."""
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.train_step import make_loss_fn
+    ps = leaves(params)
+    runs = []
+    for plain in (False, True):
+        for t in ps:
+            t.requires_grad_(True)
+        dispatch.reset_counts()
+        with dispatch.plain_versions() if plain else contextlib.nullcontext():
+            loss, _ = make_loss_fn(cfg)(params, batch)
+            grads = torch.autograd.grad(loss, ps)
+        table = dispatch.kernel_table()
+        runs.append((loss.item(), grads, {n: dict(t.body_launches) for n, t in table.items()
+                                          if t.launches},
+                     {n: t.plain_calls for n, t in table.items() if t.plain_calls}))
+        for t in ps:
+            t.requires_grad_(False)
+    return runs
+
+
+def _held_to_the_plain_versions(runs, keys, zero_bias=False):
+    """The kernels' loss within 1e-5 of the plain versions', each gradient
+    leaf within 1e-3 of the plain leaf's largest entry (a key bias's, whose
+    exact gradient is zero without RoPE, of its query bias's)."""
+    (kl, kg, _, _), (pl, pg, _, _) = runs
+    assert np.isfinite(kl) and abs(kl - pl) <= 1e-5 * abs(pl)
+    at = {k: i for i, k in enumerate(keys)}
+    for i, key in enumerate(keys):
+        ref = pg[at[key[:-1] + ("bq",)]] if zero_bias and key[-1] == "bk" else pg[i]
+        assert (kg[i] - pg[i]).abs().max() <= 1e-3 * ref.abs().max(), key
+
+
+def _keys(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [k for key, v in tree.items() for k in _keys(v, prefix + (key,))]
+    return [prefix]
+
+
+def test_whisper_microbatch_runs_the_kernels(cuda):
+    """One training microbatch of a whisper-medium-shaped model (1 encoder
+    and 1 decoder layer at full widths, 1500 frames, 64 decoder tokens,
+    fp32, remat "full") through the kernels against the plain versions:
+    K4 (encoder, causal self, cross at S_kv = 1500) twice a layer with the
+    recompute, its backward once each, K7 for every product, all on FMA,
+    no plain call; the loss and every gradient leaf agree."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    cfg = TR.config("whisper-medium").replace(compute_dtype="float32", num_layers=1)
+    cfg = cfg.replace(encdec=dataclasses.replace(cfg.encdec, num_encoder_layers=1))
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    batch = {k: torch.as_tensor(v).to(cuda)
+             for k, v in next(SyntheticTokens(cfg, 1, 64, seed=2)).items()}
+    assert tuple(batch["frames"].shape) == (1, 1500, 1024)
+    runs = _microbatch_grads(cfg, params, batch)
+    fwd = 6 + 8 + 2 + 1
+    assert runs[0][2] == {"flash_attention": {"fma": 6}, "flash_attention_backward": {"fma": 3},
+                          "matmul": {"fma": fwd + 14 + 2 * fwd}}
+    assert not runs[0][3]
+    _held_to_the_plain_versions(runs, _keys(params), zero_bias=True)
+
+
+def test_qwen2_vl_microbatch_runs_the_kernels(cuda):
+    """One training microbatch of qwen2-vl-72b at full widths cut to one
+    layer (fp32, remat "full", 1 x 64 tokens, position streams 1 and 2
+    drawn apart from stream 0) through the kernels against the plain
+    versions: K4 twice, its backward once, K7 for every product, all on
+    FMA, no plain call; the loss and every gradient leaf agree."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    cfg = TR.config("qwen2-vl-72b").replace(compute_dtype="float32", num_layers=1)
+    params = fns_for(cfg).init(cfg, torch.Generator(cuda).manual_seed(0))
+    batch = next(SyntheticTokens(cfg, 1, 64, seed=2))
+    batch["positions"][1:] = np.random.default_rng(2).integers(0, 256, (2, 1, 64))
+    batch = {k: torch.as_tensor(v).to(cuda) for k, v in batch.items()}
+    runs = _microbatch_grads(cfg, params, batch)
+    assert runs[0][2] == {"flash_attention": {"fma": 2}, "flash_attention_backward": {"fma": 1},
+                          "matmul": {"fma": 8 + 7 + 2 * 8}}
+    assert not runs[0][3]
+    _held_to_the_plain_versions(runs, _keys(params))
+    del params, runs
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("N,P,dtype", [(64, 64, torch.bfloat16), (64, 64, torch.float32),

@@ -76,8 +76,9 @@ def _close_rel(t, j, rel=REL):
 
 # the dense family's smoke configs: GQA with QKV bias (qwen2.5-3b), qk_norm
 # (qwen3-32b), llama3-405b, the parallel block with LayerNorm and tied
-# embeddings (command-r-plus-104b)
-DENSE = ["qwen2.5-3b", "qwen3-32b", "llama3-405b", "command-r-plus-104b"]
+# embeddings (command-r-plus-104b); and the vlm family's, the same
+# transformer under M-RoPE with three position streams (qwen2-vl-72b)
+DENSE = ["qwen2.5-3b", "qwen3-32b", "llama3-405b", "command-r-plus-104b", "qwen2-vl-72b"]
 
 
 def _cfgs(arch="qwen2.5-3b"):
@@ -617,8 +618,8 @@ def test_straggler_fault_is_nonfatal():
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg = TR.smoke("qwen2.5-3b")
     data = iter(SyntheticTokens(cfg, batch=2, seq_len=8))
-    # the vlm and audio families serve (their model functions exist) and
-    # do not train yet
+    # the vlm and audio families serve and train (whisper's cross-attention
+    # through K4's backward at a KV length of its own)
     assert fns_for(TR.smoke("qwen2-vl-72b")).family == "dense"
     assert fns_for(TR.smoke("whisper-medium")).family == "audio"
     # the ssm family serves and trains (K5's backward walks N and P in slices)
@@ -630,9 +631,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     tr = Trainer(TR.smoke("deepseek-moe-16b"), data,
                  TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
     assert tr.cfg.family == "moe" and tr.device.type == "cpu"
-    for arch in ("qwen2-vl-72b", "whisper-medium"):    # still refused
-        with pytest.raises((NotImplementedError, ValueError), match="not ported"):
-            Trainer(TR.smoke(arch), data, TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
+    for arch, family in (("qwen2-vl-72b", "vlm"), ("whisper-medium", "audio")):
+        tr = Trainer(TR.smoke(arch), data, TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
+        assert tr.cfg.family == family and tr.device.type == "cpu"
+    # a family no model function maps is refused
+    with pytest.raises((NotImplementedError, ValueError), match="not ported"):
+        Trainer(cfg.replace(family="diffusion"), data,
+                TrainerConfig(device="cpu", ckpt_dir=str(tmp_path)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
             Trainer(cfg, data, TrainerConfig(ckpt_dir=str(tmp_path)))
