@@ -454,6 +454,30 @@ Phases (each one raises on failure; the script then exits non-zero):
    exact by body (K4 8, its backward 4, K7 112 wgmma + 3 FMA a
    microbatch), no plain call; step time, tok/s, peak memory, a profiled
    microbatch's busy share.
+31. Serving under a device mesh.  31a: K3 with its row log-sum-exp
+   (``return_lse``: m and l beside the output) on ``LSE_DECODE_CASES``
+   (local lengths of 0, of S and past S; zamba2's and qwen2.5-3b's heads),
+   fp32 on FMA and bf16 on both bodies, as made and with NaN past the
+   lengths, the allocator's free blocks filled with NaN before each
+   launch: out, m and l held by ``dispatch.lse_tolerance_ratio``, out the
+   same bits as the call without the log-sum-exp, and those bits the
+   build's before it was added (``K3_PARENT_BITS``); timed with and
+   without it on both bodies beside the plain version and the bound.
+   31b: a 1056-row cache cut into 2, 4 and 8 slices, K3 with its
+   log-sum-exp on each at the shard's lengths, ``merge_lse``: held against
+   one call and the plain version, fp32 and bf16.  The policy's per-card
+   bytes of qwen2-vl-72b and qwen3-moe-235b-a22b on a 1 x 4 mesh
+   (``mesh_plan``, printed).  Then a ``torch.distributed`` world of one
+   rank on NCCL (a ``HashStore``) and a 1 x 1 DeviceMesh, destroyed at the
+   end: 31c, qwen2.5-3b at full width through the contiguous engine
+   without the mesh and then under it (``rules_for``'s decode rules:
+   ``kv_seq`` on model), phase 17's requests: the same greedy tokens,
+   launches exact by body (K3 36 a decode step, every one ``mma_lse``; K4
+   36 a prefill; K7 as phase 17), one all-gather a layer a decode step,
+   no plain call; TPOT, tok/s, peak memory side by side.  31d: ``moe_ep``
+   at deepseek-moe-16b's MoE widths on a 256-row chunk on the model group
+   of one rank, against its plain versions and, at capacity factor 8,
+   ``moe_dense``; K7's batched entry 3 ``wgmma`` launches a call.
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -467,11 +491,11 @@ and K2's int8 bodies as entries of their own (``...:int8``: their
 launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b, 20c and
-27a, K3 phases 10, 17, 20d and 28c, K4 phases 10, 15, 17, 20d, 21d, 22d,
-26c, 28c, 29c and 30b,
+27a, K3 phases 10, 17, 20d, 28c and 31c, K4 phases 10, 15, 17, 20d, 21d, 22d,
+26c, 28c, 29c, 30b and 31c,
 K4's backward 15, 21d, 22d, 26c, 29c and 30b, K5 10, 21d, 22d and 23b, K5's backward 21d and
 22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
-18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a, 28c, 29c and 30b, K7's batched entry
+18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a, 28c, 29c, 30b and 31c, K7's batched entry
 25b and 26c (its entry also carries the decode step's shape:
 ``decode_ms``, ``decode_plain_ms``, ``decode_library_ms``,
 ``decode_bound_ms``, ``decode_bound_by``, ``decode_shape``; and its two
@@ -484,7 +508,11 @@ at whisper-medium's encoder and cross-attention shapes and K3's at its
 cross-decode shape (``whisper_encoder_*``, ``whisper_cross_*``,
 ``whisper_cross_ragged_*``, ``whisper_cross_decode_*``: ``ms``,
 ``plain_ms``, ``library_ms`` (SDPA), ``bound_ms``, ``bound_by``,
-``shape``); K4's backward the same at the encoder's and the
+``shape``) and its times with its row log-sum-exp at phase 31a's timed
+case (``lse_ms``, ``lse_nolse_ms`` without it, ``lse_fma_ms``,
+``lse_fma_nolse_ms``, ``lse_plain_ms``, ``lse_library_ms`` none,
+``lse_bound_ms``, ``lse_bound_by``, ``lse_shape``, ``max_abs_err_lse``);
+K4's backward the same at the encoder's and the
 cross-attention's training shapes (``whisper_encoder_*``,
 ``whisper_cross_*``, with ``fma_ms``, the FMA body's time, and
 ``library_ms`` SDPA's backward).  The three backward kernels replace no
@@ -959,6 +987,42 @@ VLM_TRAIN_LIMITS = {1: (TOL_TRAIN_LOSS_REL, 2e-3, 2.0), 2: (TOL_TRAIN_LOSS_REL, 
 # add 44.7 GiB), 3 steps of 4 x TRAIN_SEQ in 4 microbatches.
 WHISPER_TRAIN_STEPS, WHISPER_TRAIN_BATCH = 3, 8
 VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 4, 3, 4
+# Phase 31: serving under a device mesh.  31a: K3 with its row log-sum-exp
+# (``return_lse``) on LSE_DECODE_CASES, (lengths, S, H, K, D): phase 9's
+# DENSE_DECODE_CASES, each with a sequence whose local length is 0 (a shard
+# with no live row) and lengths of S and past S, then qwen2.5-3b's heads at
+# S = MESH_MAX_LEN (31c's cache) and at 132 rows (one of 8 shards of it).
+# fp32 and bf16, both bodies, as made and with NaN in every cache row at or
+# past the length, the allocator's free blocks filled with NaN before each
+# launch (an m or l left unwritten reads NaN); out, m and l held by
+# ``dispatch.lse_tolerance_ratio``.  The fourth case is the timed one.
+LSE_DECODE_CASES = (((1033, 700, 257, 1200, 0), ZAMBA_MAX_LEN, 32, 32, 64),
+                    ((0, 1, 64, 65, ZAMBA_MAX_LEN), ZAMBA_MAX_LEN, 32, 32, 64),
+                    ((999, 1000, 5, 2000, 0), 1000, 32, 32, 64),
+                    ((1033, 700, 0, 1056, 1200), 1056, 16, 2, 128),
+                    ((132, 0, 200, 57), 132, 16, 2, 128))
+# return_lse=False keeps the bits of the build before the LSE was added:
+# sha1 over the outputs of LSE_DECODE_CASES in order (as made), by body and
+# type, read from that build on an NVIDIA H100 80GB HBM3 (``k3_digests``).
+K3_PARENT_BITS = {"fma float32": "5d128f92cbee81ea1f03912eb479ed842d6c04b5",
+                  "mma bfloat16": "bef5acbe8976d8eb271aff03a019eae9e17154de",
+                  "fma bfloat16": "1e46cf60feec21ea0e4f6deab4ea601f3d3fc474"}
+# 31b: the cache of MESH_MAX_LEN rows cut into M contiguous slices, K3 with
+# its log-sum-exp on each at the shard's lengths, merged (``merge_lse``):
+# held against one K3 call over the whole cache and against the plain
+# version, fp32 and bf16.
+MESH_MAX_LEN = 1056
+MESH_SPLITS = (2, 4, 8)
+MESH_SPLIT_LENGTHS = (1033, 700, 0, 1056, 1200, 5)
+# 31d: moe_ep at deepseek-moe-16b's MoE widths (d_model 2048, 64 experts of
+# d_ff 1408, top-6) on a MOE_EP_ROWS-row prefill chunk, bf16, on a model
+# group of 1: the kernels' output within TOL_MOE_EP_REL of the largest of
+# the plain versions' (both round each expert product to bf16: a rounding
+# that falls otherwise moves a row by 2^-8 of itself, and the SwiGLU carries
+# it through one more product); at capacity factor 8 (nothing drops) the
+# same against moe_dense through the kernels.
+MOE_EP_ROWS = 256
+TOL_MOE_EP_REL = 2.0 ** -6
 
 
 def log(*a) -> None:
@@ -1579,13 +1643,15 @@ def profile_phase(torch, np, eng, Request, greedy, tag="serving", n=2, new=8, pr
     device's busy share of the wall time (one stream, so kernels do not
     overlap).  Reading the trace back costs ~16x the window, so the window
     is short: 2 requests of 8 new tokens (a window of 4 of 16 took ~70 s
-    more of the script's time over phases 4, 4b and 17)."""
+    more of the script's time over phases 4, 4b and 17), and every profile
+    of the script records device activity alone: the host ops' records
+    are most of what is read back, and nothing here reads them."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
     reqs = [Request(200 + i, rng.integers(0, eng.cfg.vocab_size, size=prompt)
                     .astype(np.int32), max_new_tokens=new, sampler=greedy())
             for i in range(n)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         stats = eng.serve(reqs)
         torch.cuda.synchronize()
@@ -2186,7 +2252,7 @@ def hybrid_profile(torch, np, eng, Request, greedy):
     from torch.profiler import ProfilerActivity, profile
     reqs = zamba_requests(eng.cfg, np, Request, greedy, lens=(333, 401, 512, 600, 450, 300),
                           new=16, seed=2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         stats = eng.serve(reqs)
         torch.cuda.synchronize()
@@ -2505,7 +2571,7 @@ def googlenet_phase(torch, np, table) -> int:
                                      f"forwards")
             launches += r["launches"]
         # (e) one batch-8 forward under the profiler
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
             googlenet.forward(cfg, params, x8)
             torch.cuda.synchronize()
@@ -2890,7 +2956,7 @@ def training_phase(torch, np, table) -> dict:
     # where the time goes: one more step (8 microbatches) under the profiler
     tr = out["trainer"]
     batch = next(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         tr._step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
@@ -4073,7 +4139,7 @@ def fleet_profile(torch, np, router, Request, greedy) -> str:
     rng = np.random.default_rng(20)
     reqs = [Request(300 + i, rng.integers(0, router.replicas[0].cfg.vocab_size, size=512)
                     .astype(np.int32), max_new_tokens=8, sampler=greedy()) for i in range(2)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         router.serve(reqs)
         torch.cuda.synchronize()
@@ -4873,7 +4939,7 @@ def hybrid_training_phase(torch, np, table) -> dict:
                              f"calls {plain}")
     tr = out["trainer"]
     batch = next(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         tr._step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
@@ -5210,7 +5276,7 @@ def googlenet_training_phase(torch, np, table) -> dict:
         raise AssertionError(f"googlenet training: launches {got}, expected {want}; "
                              f"plain calls {plain}")
     batch = data.sample(GOOGLENET_BATCH)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         tr._step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
@@ -5537,7 +5603,7 @@ def xlstm_profile(torch, np, eng, Request, greedy):
     then 4 decode steps each."""
     from torch.profiler import ProfilerActivity, profile
     reqs = zamba_requests(eng.cfg, np, Request, greedy, lens=(256, 300), new=4, seed=2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         stats = eng.serve(reqs)
         torch.cuda.synchronize()
@@ -7553,9 +7619,421 @@ def vlm_training_phase(torch, np, table) -> dict:
         batch=VLM_TRAIN_BATCH, seq=TRAIN_SEQ, accum=VLM_TRAIN_BATCH)
 
 
+def shard_lengths(lengths, offset: int, s_loc: int) -> list:
+    """K3's lengths (rows below the length live, past S all) of the
+    slots ``[offset, offset + s_loc)`` of a cache cut into slices:
+    ``clamp(n - offset, 0, s_loc)`` for each sequence."""
+    return [max(0, min(n - offset, s_loc)) for n in lengths]
+
+
+def lse_parts(torch, parts) -> list:
+    """K3's per-shard results (out (B, H, D), m (B, H), l (B, H)) as the
+    partials ``merge_lse`` takes: out (B, 1, H, D), m and l (B, H, 1)."""
+    from repro_torch.models.layers.attention import AttnResiduals
+    return [AttnResiduals(out=o[:, None], m=m[..., None], l=l[..., None]) for o, m, l in parts]
+
+
+def lse_work(lengths, S, H, K, D, elem) -> tuple[float, float]:
+    """(bytes, flops) of one K3 call with its log-sum-exp: q and out, each
+    live K and V row once, the lengths, m and l (fp32); QK^T and PV over the
+    live rows."""
+    rows = sum(min(max(n, 0), S) for n in lengths)
+    B = len(lengths)
+    return elem * (2 * B * H * D + 2 * rows * K * D) + 4 * B + 8 * B * H, 4 * H * D * rows
+
+
+def k3_digests(torch, cases=LSE_DECODE_CASES) -> dict:
+    """sha1 of K3's outputs without the log-sum-exp on ``cases`` (as made,
+    in order), by body and type: what ``K3_PARENT_BITS`` pins."""
+    import hashlib
+    from repro_torch.kernels import dispatch
+    kern = dispatch.kernel_table()["decode_attention"]
+    out = {}
+    for dtype, body in ((torch.float32, "fma"), (torch.bfloat16, "mma"),
+                        (torch.bfloat16, "fma")):
+        h = hashlib.sha1()
+        for lengths, S, H, K, D in cases:
+            args = dense_decode_case(torch, lengths, dtype, S=S, H=H, K=K, D=D)
+            got = kern.launch(*args, body=body)
+            torch.cuda.synchronize()
+            h.update(bits(torch, got).cpu().numpy().tobytes())
+        out[f"{body} {str(dtype)[6:]}"] = h.hexdigest()
+    return out
+
+
+def lse_ratio(torch, kern, args, *, body, poison=None) -> tuple[float, float, bool]:
+    """K3 with ``return_lse`` on ``body`` against its plain version evaluated
+    in fp32 on the same values (``kern.tolerance``: out, and m and l where
+    the plain l > 0; l 0 and m at most NEG_INF / 2 where it is 0), the
+    allocator's free blocks filled with NaN just before the launch, after
+    ``poison(args)`` where given.  Returns (err/limit, the largest absolute
+    error of out, m and l, whether the same call without the log-sum-exp
+    gives out's bits)."""
+    ref = kern.plain(*(a.float() if a.is_floating_point() else a for a in args),
+                     return_lse=True)
+    if poison is not None:
+        poison(args)
+    poison_cached_memory(torch)
+    got = kern.launch(*args, return_lse=True, body=body)
+    alone = kern.launch(*args, body=body)
+    torch.cuda.synchronize()
+    ratio = kern.tolerance(got, ref)
+    live = ref[2] > 0
+    err = max((got[0].float() - ref[0]).abs().max().item(),
+              (got[1] - ref[1])[live].abs().max().item() if live.any() else 0.0,
+              (got[2] - ref[2]).abs().max().item())
+    return ratio, err, bool(torch.equal(got[0], alone))
+
+
+def hold_lse(torch, kern, args, label, *, body, poison=None) -> float:
+    """:func:`lse_ratio`, raising past the limit or where the call without
+    the log-sum-exp gives other bits.  Returns the largest absolute error."""
+    ratio, err, same = lse_ratio(torch, kern, args, body=body, poison=poison)
+    log(f"decode_attention lse {label} {str(args[0].dtype)[6:]} body={body}"
+        f"{' NaN past the lengths' if poison else ''}: max_abs_err={err:.3e} "
+        f"err/limit={ratio:.3f} out without the lse the same bits={same}")
+    if not (ratio <= 1.0 and same):
+        raise AssertionError(f"decode_attention lse {label} body={body}: err/limit {ratio}, "
+                             f"same bits without the lse {same}")
+    return err
+
+
+def lse_kernel_phase(torch, table) -> dict:
+    """Phase 31a: K3 with its row log-sum-exp on ``LSE_DECODE_CASES``, fp32
+    (the FMA body) and bf16 (the route's split body and the FMA body), each
+    as made and with NaN past the lengths (:func:`hold_lse`); without the
+    log-sum-exp K3 keeps ``K3_PARENT_BITS``.  Then the timed case, bf16, on
+    both bodies with and without the log-sum-exp (CUDA events, L2
+    flushed), beside the plain version and its bound.  Returns the
+    ``lse_*`` keys of K3's kernels-line entry."""
+    from repro_torch.kernels.decode_attention.ops import dense_body_for
+    kern = table["decode_attention"]
+
+    def poison(args):
+        torch.cuda.synchronize()
+        poison_cache_rows(torch, *args)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = []
+        for lengths, S, H, K, D in LSE_DECODE_CASES:
+            label = f"B={len(lengths)} S={S} H={H} K={K} D={D} lengths={lengths}"
+            made = dense_decode_case(torch, lengths, dtype, S=S, H=H, K=K, D=D)
+            for body in dict.fromkeys((dense_body_for(*made[:2]), "fma")):
+                for p in (None, poison):
+                    args = dense_decode_case(torch, lengths, dtype, S=S, H=H, K=K, D=D)
+                    worst.append(hold_lse(torch, kern, args, label, body=body, poison=p))
+        errs[dtype] = max(worst)
+    digests = k3_digests(torch)
+    log(f"decode_attention without the lse: output digests {digests}; the build before "
+        f"the lse {K3_PARENT_BITS}")
+    if K3_PARENT_BITS and digests != K3_PARENT_BITS:
+        raise AssertionError(f"decode_attention without the lse: bits {digests}, the build "
+                             f"before it gave {K3_PARENT_BITS}")
+    lengths, S, H, K, D = LSE_DECODE_CASES[3]
+    q, k, v, lens = dense_decode_case(torch, lengths, torch.bfloat16, S=S, H=H, K=K, D=D)
+    timer = Timer(torch)
+    nbytes, flops = lse_work(lengths, S, H, K, D, 2)
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
+    r = dict(lse_ms=timer(lambda: kern.launch(q, k, v, lens, return_lse=True)),
+             lse_nolse_ms=timer(lambda: kern.launch(q, k, v, lens)),
+             lse_fma_ms=timer(lambda: kern.launch(q, k, v, lens, return_lse=True, body="fma")),
+             lse_fma_nolse_ms=timer(lambda: kern.launch(q, k, v, lens, body="fma")),
+             lse_plain_ms=timer(lambda: kern.plain(q, k, v, lens, return_lse=True)),
+             lse_library_ms=None, lse_bound_ms=bms, lse_bound_by=by,
+             lse_shape=f"B={len(lengths)} S={S} H={H} K={K} D={D} lengths={lengths} bf16 "
+                       f"body={dense_body_for(q, k)}",
+             max_abs_err_lse=errs[torch.bfloat16], max_abs_err_lse_fp32=errs[torch.float32])
+    log(f"decode_attention lse timed at {r['lse_shape']}: with the lse {r['lse_ms']:.4f}ms, "
+        f"without {r['lse_nolse_ms']:.4f}ms (fma body {r['lse_fma_ms']:.4f}ms / "
+        f"{r['lse_fma_nolse_ms']:.4f}ms), plain {r['lse_plain_ms']:.4f}ms, bound "
+        f"{bms:.5f}ms ({by}; {nbytes} B, {flops} flop); no PyTorch call returns a decode "
+        f"step's row log-sum-exp: library none")
+    return r
+
+
+def mesh_split_rel(torch, table) -> list:
+    """Phase 31b's runs: a cache of ``MESH_MAX_LEN`` rows at qwen2.5-3b's
+    heads cut into M = 2, 4 and 8 contiguous slices, K3 with its
+    log-sum-exp on each slice at :func:`shard_lengths` (the allocator's free
+    blocks filled with NaN before each launch), the partials merged by
+    ``merge_lse``.  Returns (dtype, M, err/limit against one K3 call over
+    the whole cache, against the plain version evaluated in fp32, the
+    largest error against it, finite) for fp32 and bf16."""
+    from repro_torch.kernels.dispatch import tolerance_ratio
+    from repro_torch.models.layers.attention import merge_lse
+    kern = table["decode_attention"]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, lens = dense_decode_case(torch, MESH_SPLIT_LENGTHS, dtype, S=MESH_MAX_LEN,
+                                          H=16, K=2, D=128)
+        whole = kern.launch(q, k, v, lens)
+        ref = kern.plain(q.float(), k.float(), v.float(), lens)
+        for M in MESH_SPLITS:
+            s_loc = MESH_MAX_LEN // M
+            parts = []
+            for r in range(M):
+                sl = slice(r * s_loc, (r + 1) * s_loc)
+                local = torch.tensor(shard_lengths(MESH_SPLIT_LENGTHS, r * s_loc, s_loc),
+                                     dtype=torch.int32, device="cuda")
+                poison_cached_memory(torch)
+                parts.append(kern.launch(q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                                         local, return_lse=True))
+            merged = merge_lse(lse_parts(torch, parts))[:, 0]
+            torch.cuda.synchronize()
+            rows.append((dtype, M, tolerance_ratio(merged, whole), tolerance_ratio(merged, ref),
+                         (merged.float() - ref).abs().max().item(),
+                         bool(torch.isfinite(merged.float()).all())))
+    return rows
+
+
+def mesh_split_phase(torch, table) -> None:
+    """Phase 31b: the mesh branch's arithmetic with M > 1 on one card
+    (:func:`mesh_split_rel`): the merged output within the limit of one
+    call and of the plain version (``dispatch.tolerance_ratio``), fp32 and
+    bf16, no NaN (shards with no live row among them)."""
+    for dtype, M, vs_one, vs_plain, err, finite in mesh_split_rel(torch, table):
+        log(f"decode_attention split into {M} shards of {MESH_MAX_LEN // M} rows "
+            f"{str(dtype)[6:]} lengths={MESH_SPLIT_LENGTHS}: merged vs one call "
+            f"err/limit={vs_one:.3f}, vs plain err/limit={vs_plain:.3f}, "
+            f"max_abs_err={err:.3e} finite={finite}")
+        if not (finite and vs_one <= 1.0 and vs_plain <= 1.0):
+            raise AssertionError(f"decode_attention split into {M} {dtype}: vs one call "
+                                 f"{vs_one}, vs plain {vs_plain}, finite {finite}")
+
+
+def nccl_world(torch):
+    """A torch.distributed world of one rank on NCCL (a ``HashStore``: no
+    address) and a 1 x 1 DeviceMesh over it; raises if either fails."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return make_host_mesh(1, 1)
+
+
+def mesh_serving_phase(torch, np, table, mesh) -> dict:
+    """Phase 31c: qwen2.5-3b at full width, bf16, random weights from seed
+    0, through the contiguous engine (4 slots of ``MESH_MAX_LEN`` rows,
+    phase 17's requests), first without a mesh and then under ``mesh`` (1 x
+    1, NCCL) with ``rules_for``'s decode rules (``kv_seq`` on model).  The
+    mesh run's counts zeroed just before and read just after, held
+    exactly: K3 36 a decode step, every one with its log-sum-exp on the
+    split body (``mma_lse``), one all-gather a layer a decode step, K4 36 a
+    prefill, K7 by body, no plain call; its greedy tokens equal to the
+    run's without the mesh.  TPOT, tok/s and peak memory printed beside
+    each other.  Returns the mesh run's launches by kernel."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import rules_for, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.models.registry import fns_for
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    card, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("qwen2.5-3b")
+    rules = rules_for(cfg, ShapeConfig("serve", "decode", MESH_MAX_LEN, 4), mesh)
+    params = fns_for(cfg).init(cfg, torch.Generator("cuda").manual_seed(0))
+    L = cfg.num_layers
+    runs = {}
+    for tag in ("no mesh", "mesh"):
+        if tag == "mesh":
+            with use_rules(rules, mesh):
+                eng = ServingEngine(cfg, params, paged=False, max_len=MESH_MAX_LEN,
+                                    batch_slots=4, device="cuda")
+        else:
+            eng = ServingEngine(cfg, params, paged=False, max_len=MESH_MAX_LEN, batch_slots=4,
+                                device="cuda")
+        eng.serve([Request(100, np.arange(40, dtype=np.int32), max_new_tokens=4,
+                           sampler=greedy())])
+        reqs = serving_requests(cfg, np, Request, greedy)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counts()
+        collectives.reset_collective_counts()
+        stats = eng.serve(reqs)
+        torch.cuda.synchronize()
+        bodies, plain = launched_bodies(table)
+        runs[tag] = dict(stats=stats, bodies=bodies, plain=plain,
+                         gathers=collectives.collective_counts(),
+                         outputs=[list(r.output) for r in reqs],
+                         cache=tuple(eng._state.k.shape),
+                         peak=torch.cuda.max_memory_allocated())
+        log(f"mesh serving ({tag}{' 1 x 1 NCCL, kv_seq on ' + rules.rules['kv_seq'] if tag == 'mesh' else ''}): "
+            f"requests={stats.requests} tokens={stats.tokens} wall={stats.wall_s:.3f}s "
+            f"{serving_summary(stats)} tok/s/W={stats.tokens_per_s / watts:.4f} at power.limit "
+            f"{watts:.0f} W ({card}) max_memory_allocated={runs[tag]['peak'] / 2**30:.2f}GiB "
+            f"caches {runs[tag]['cache']}; launches by body {bodies} plain_calls={plain or 0} "
+            f"collectives {runs[tag]['gathers']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    m, base = runs["mesh"], runs["no mesh"]
+    calls = m["stats"].prefills + m["stats"].decode_steps
+    want = {"flash_attention": {"mma": L * m["stats"].prefills},
+            "decode_attention": {"mma_lse": L * m["stats"].decode_steps},
+            "matmul": {"wgmma": L * QWEN_PRODUCTS * calls, "fma": calls}}
+    same = sum(a == b for a, b in zip(m["outputs"], base["outputs"]))
+    log(f"mesh serving: greedy tokens equal to the run without the mesh in {same} of "
+        f"{len(m['outputs'])} requests; TPOT {m['stats'].mean_tpot_s * 1e3:.2f}ms vs "
+        f"{base['stats'].mean_tpot_s * 1e3:.2f}ms, tok/s {m['stats'].tokens_per_s:.2f} vs "
+        f"{base['stats'].tokens_per_s:.2f} (mesh vs none, {card}, {watts:.0f} W)")
+    if (m["bodies"] != want or m["plain"]
+            or m["gathers"] != {"all_gather": L * m["stats"].decode_steps}
+            or same != len(m["outputs"]) or m["cache"][2] != MESH_MAX_LEN):
+        raise AssertionError(f"mesh serving: launches {m['bodies']} (expected {want}), plain "
+                             f"{m['plain']}, collectives {m['gathers']}, {same} of "
+                             f"{len(m['outputs'])} requests with the same tokens, caches "
+                             f"{m['cache']}")
+    mesh_attention_cost(torch, mesh, rules, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(b.values()) for n, b in m["bodies"].items()}
+
+
+def mesh_attention_cost(torch, mesh, rules, cfg) -> None:
+    """The host's time per call of one layer's decode attention at 31c's
+    shape (4 slots, ``MESH_MAX_LEN`` rows, bf16), 20 calls back to back,
+    without the mesh and under it (K3 with its log-sum-exp, the
+    all-gather, the merge), and the merge alone; printed with what the
+    difference costs a decode step over the layers."""
+    from repro_torch.distributed.collectives import seq_sharded_decode_attention
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models.layers.attention import AttnResiduals, merge_lse
+    g = torch.Generator("cuda").manual_seed(0)
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((4, 1, H, D), generator=g, device="cuda").bfloat16()
+    ck, cv = (torch.randn((4, MESH_MAX_LEN, K, D), generator=g, device="cuda").bfloat16()
+              for _ in range(2))
+    nk, nv = (torch.randn((4, 1, K, D), generator=g, device="cuda").bfloat16() for _ in range(2))
+    lens = torch.tensor((1033, 700, 0, MESH_MAX_LEN - 1), dtype=torch.int32, device="cuda")
+
+    def call():
+        seq_sharded_decode_attention(q, ck, cv, nk, nv, lens)
+    alone, alone_wall = host_us(torch, call, reps=20)
+    with use_rules(rules, mesh):
+        meshed, meshed_wall = host_us(torch, call, reps=20)
+    part = [AttnResiduals(out=q, m=torch.zeros((4, H, 1), device="cuda"),
+                          l=torch.ones((4, H, 1), device="cuda"))]
+    merge, _ = host_us(torch, lambda: merge_lse(part), reps=20)
+    L = cfg.num_layers
+    log(f"mesh serving: host per layer of a decode step's attention (4 slots, "
+        f"{MESH_MAX_LEN} rows, bf16), 20 back to back: without the mesh {alone:.1f} us "
+        f"(wall {alone_wall:.1f}), under it {meshed:.1f} us (wall {meshed_wall:.1f}), the "
+        f"merge alone {merge:.1f} us; x {L} layers: {(meshed - alone) * L / 1e3:.2f} ms more "
+        f"host a decode step")
+
+
+def moe_ep_phase(torch, table, mesh) -> None:
+    """Phase 31d: ``moe_ep`` at deepseek-moe-16b's MoE widths on a
+    ``MOE_EP_ROWS``-row chunk, bf16, random weights and activations from
+    seed 0, called directly on the mesh's model group of one rank (the
+    engine keeps ``moe_einsum`` there, by the reference's rule): through
+    the kernels against its plain versions (``TOL_MOE_EP_REL``), K7's
+    batched entry 3 launches a call, each on ``wgmma`` at the two-level
+    capacities' shapes; at capacity factor 8 against ``moe_dense`` (the
+    oracle, on the plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import moe as MOE
+    m = arch_registry.config("deepseek-moe-16b").moe
+    D = arch_registry.config("deepseek-moe-16b").d_model
+    g = torch.Generator("cuda").manual_seed(0)
+    E, F = m.num_experts, m.d_ff_expert
+    params = {"router": torch.randn((D, E), generator=g, device="cuda") * 0.02,
+              "w_gate": (torch.randn((E, D, F), generator=g, device="cuda") / D ** 0.5).bfloat16(),
+              "w_up": (torch.randn((E, D, F), generator=g, device="cuda") / D ** 0.5).bfloat16(),
+              "w_down": (torch.randn((E, F, D), generator=g, device="cuda") / F ** 0.5).bfloat16()}
+    x = torch.randn((1, MOE_EP_ROWS, D), generator=g, device="cuda").bfloat16()
+    kern = table["matmul_batched"]
+    with torch.no_grad():
+        for cf in (m.capacity_factor, 8.0):
+            cfg = dataclasses.replace(m, capacity_factor=cf)
+            idx, prob, _ = MOE.route(cfg, params, x)
+            dispatch.reset_counts()
+            y = MOE.moe_ep(cfg, params, x, idx, prob, mesh=mesh, model_axis="model")
+            torch.cuda.synchronize()
+            bodies = dict(kern.body_launches)
+            with dispatch.plain_versions():
+                ref = MOE.moe_ep(cfg, params, x, idx, prob, mesh=mesh, model_axis="model")
+                dense = MOE.moe_dense(cfg, params, x, idx, prob)
+            torch.cuda.synchronize()
+            top = ref.float().abs().max().item()
+            rel = (y.float() - ref.float()).abs().max().item() / top
+            rel_dense = (y.float() - dense.float()).abs().max().item() / top
+            log(f"moe_ep deepseek-moe-16b widths, {MOE_EP_ROWS} rows, capacity factor {cf}, "
+                f"model group of 1: vs plain rel {rel:.3e} (limit {TOL_MOE_EP_REL}), vs "
+                f"moe_dense rel {rel_dense:.3e}; K7 batched launches by body {bodies}; "
+                f"finite={bool(torch.isfinite(y.float()).all())}")
+            if not (rel <= TOL_MOE_EP_REL and bodies == {"wgmma": 3}
+                    and (cf < 8.0 or rel_dense <= TOL_MOE_EP_REL)):
+                raise AssertionError(f"moe_ep at capacity factor {cf}: rel {rel}, vs dense "
+                                     f"{rel_dense}, launches {bodies}")
+    del params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_plan() -> None:
+    """Planning numbers for serving on a 1 x 4 mesh of H100s (analytic, the
+    policy's ``sharded_bytes_per_device``): bf16 weights and the decode
+    state of qwen2-vl-72b and qwen3-moe-235b-a22b under ``rules_for``'s
+    decode rules, at decode_32k (128 x 32768) and at 8 x 32768."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.specs import abstract_params, input_specs
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import MeshShape, rules_for
+    mesh = MeshShape(("data", "model"), (1, 4))
+    for arch in ("qwen2-vl-72b", "qwen3-moe-235b-a22b"):
+        cfg = arch_registry.config(arch).replace(param_dtype="bfloat16")
+        for B in (128, 8):
+            shape = ShapeConfig(f"decode_32k x{B}", "decode", 32768, B)
+            rules = rules_for(cfg, shape, mesh)
+            w = policy.sharded_bytes_per_device(abstract_params(cfg), policy.param_axes(cfg),
+                                                rules, mesh)
+            _, state = input_specs(cfg, shape)
+            kv = policy.sharded_bytes_per_device(state, policy.decode_state_axes(cfg), rules,
+                                                 mesh)
+            log(f"mesh plan 1 x 4: {arch} {B} x 32768 decode: bf16 weights {w / 2**30:.2f} "
+                f"GiB a card, decode state (bf16 KV) {kv / 2**30:.2f} GiB a card; rules "
+                f"kv_seq={rules.rules['kv_seq']} heads={rules.rules['heads']} "
+                f"embed={rules.rules['embed']} experts={rules.rules['experts']}")
+
+
+def mesh_phase(torch, np, table) -> tuple[dict, dict]:
+    """Phase 31: 31a, 31b, then 31c and 31d inside an NCCL world of one
+    rank, which is destroyed at the end (a failed init fails the phase).
+    Returns (K3's ``lse_*`` keys, 31c's launches by kernel)."""
+    import torch.distributed as dist
+    gc.collect()
+    torch.cuda.empty_cache()        # the NaN fill before each launch then fills little
+    lse = lse_kernel_phase(torch, table)
+    mesh_split_phase(torch, table)
+    mesh_plan()
+    mesh = nccl_world(torch)
+    try:
+        launches = mesh_serving_phase(torch, np, table, mesh)
+        moe_ep_phase(torch, table, mesh)
+    finally:
+        dist.destroy_process_group()
+    return lse, launches
+
+
 TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape", "wgmma_ms",
     "persistent_ms"))
+
+
+LSE_EXTRAS = ("lse_ms", "lse_nolse_ms", "lse_fma_ms", "lse_fma_nolse_ms", "lse_plain_ms",
+              "lse_library_ms", "lse_bound_ms", "lse_bound_by", "lse_shape", "max_abs_err_lse")
 
 
 WHISPER_TAGS = ("whisper_encoder", "whisper_cross", "whisper_cross_ragged",
@@ -7677,6 +8155,8 @@ def main() -> int:
     whisper_trained = timed("29c whisper training", whisper_training_phase, torch, np, table)
     timed("30a vlm training path check", vlm_train_path_check, torch, np)
     vlm_trained = timed("30b vlm training", vlm_training_phase, torch, np, table)
+    lse, mesh_served = timed("31 mesh serving", mesh_phase, torch, np, table)
+    results["decode_attention"].update(lse)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -7691,7 +8171,8 @@ def main() -> int:
                         + list(xlstm.items()) + list(xlstm_trained.items())
                         + list(moe_served.items()) + list(moe_trained.items())
                         + list(vlm_served.items()) + list(whisper_served.items())
-                        + list(whisper_trained.items()) + list(vlm_trained.items())):
+                        + list(whisper_trained.items()) + list(vlm_trained.items())
+                        + list(mesh_served.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -7720,13 +8201,14 @@ def main() -> int:
                       "fp16_library_ms", "fp16_bound_ms", "xlstm_ms", "xlstm_plain_ms",
                       "xlstm_bound_ms", "xlstm_bound_by", "xlstm_shape", "decode_ms",
                       "decode_plain_ms", "decode_library_ms", "decode_bound_ms",
-                      "decode_bound_by", "decode_shape") + TRAIN_EXTRAS + WHISPER_EXTRAS:
+                      "decode_bound_by", "decode_shape") + TRAIN_EXTRAS + WHISPER_EXTRAS \
+                + LSE_EXTRAS:
             # the FMA body, the bf16 body on the dequantized pool, SDPA on it;
             # K6's backward at fp16 beside cuDNN's and its bound; K5 at
             # xlstm-125m's widths; K7's batched entry at a decode step's shape
             # and its backward products at a training microbatch's; K4 and
             # K3 at whisper-medium's encoder, cross-attention and
-            # cross-decode shapes
+            # cross-decode shapes; K3 with its row log-sum-exp
             if extra in r:
                 kernels[-1][extra] = r[extra]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
@@ -7756,6 +8238,11 @@ def main() -> int:
                 fma += (f" (at {r[f'{tag}_shape']}: {r[f'{tag}_ms']:.4f}ms{tag_fma}, plain "
                         f"{r[f'{tag}_plain_ms']:.4f}ms, SDPA {r[f'{tag}_library_ms']:.4f}ms, "
                         f"bound {r[f'{tag}_bound_ms']:.5f}ms ({r[f'{tag}_bound_by']}))")
+        if "lse_ms" in r:
+            fma += (f" (with the row log-sum-exp at {r['lse_shape']}: {r['lse_ms']:.4f}ms, "
+                    f"without {r['lse_nolse_ms']:.4f}ms, fma body {r['lse_fma_ms']:.4f}ms / "
+                    f"{r['lse_fma_nolse_ms']:.4f}ms, plain {r['lse_plain_ms']:.4f}ms, library "
+                    f"none, bound {r['lse_bound_ms']:.5f}ms ({r['lse_bound_by']}))")
         if "xlstm_ms" in r:
             fma += (f" (at {r['xlstm_shape']}: {r['xlstm_ms']:.4f}ms, plain "
                     f"{r['xlstm_plain_ms']:.4f}ms, bound {r['xlstm_bound_ms']:.5f}ms "

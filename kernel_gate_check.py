@@ -283,6 +283,22 @@ SPLIT_MASK = "if (key >= nrows) x = NEG_INF;"
 SPLIT_SKIP_ROWS = "if (key >= nrows || key < 16) x = NEG_INF;  // first 16 rows lost"
 MERGE_LOOP = "for (int i = 0; i < ns; ++i) {"
 MERGE_DROP_SPLIT_0 = "for (int i = 1; i < ns; ++i) {  // split 0 lost"
+# K3's row log-sum-exp, each mutant in both bodies (the split body's merge
+# in decode_split.cuh, the FMA body in decode_attention.cu): the merged
+# denominator written before its terms are rescaled by exp(m_i - M) (the
+# FMA body: its running l never rescaled by exp(m_old - m_new)); an empty
+# row's m left unwritten
+LSE_DEN = (("decode_split.cuh", "l_out[bh] = den;"),
+           "corr_s[g] = softmax_update<T>(sc + g * KV_TILE, KV_TILE, m_s[g], l_s[g]);")
+LSE_DEN_UNSCALED = (
+    "{ float u = 0.f; for (int i = 0; i < ns; ++i) u += l[i]; l_out[bh] = u; }  // not rescaled",
+    "{ const float l0 = l_s[g]; corr_s[g] = softmax_update<T>(sc + g * KV_TILE, KV_TILE, "
+    "m_s[g], l_s[g]); l_s[g] += l0 * (1.f - corr_s[g]); }  // l not rescaled")
+LSE_M = (("decode_split.cuh", "m_out[bh] = M;"),
+         "m_out[(size_t)b * H + (size_t)kv * G + g] = m_s[g];")
+LSE_M_UNWRITTEN = ("if (den > 0.f) m_out[bh] = M;  // an empty row's m unwritten",
+                   "if (l_s[g] > 0.f) m_out[(size_t)b * H + (size_t)kv * G + g] = m_s[g];"
+                   "  // an empty row's m unwritten")
 INT8_SCALES = "ksc[it] = __ldg(k_scale + row), vsc[it] = __ldg(v_scale + row);"
 INT8_IGNORE_ROW_0_SCALE = ("ksc[it] = r ? __ldg(k_scale + row) : 1.f, "
                            "vsc[it] = r ? __ldg(v_scale + row) : 1.f;  // row 0's scale ignored")
@@ -437,6 +453,12 @@ MUTANTS = (
      "swapping them", (("conv2d_backward", ("float32", "float16"), "dgrad_asym"),)),
     ("decode_attention.cu", TILE_LOOP, SKIP_LAST_TILE, "FMA body: skips the last live KV tile",
      (("decode_attention", ("float32", "bfloat16"), "fma"),)),
+    ("decode_attention.cu", LSE_DEN, LSE_DEN_UNSCALED,
+     "row log-sum-exp, both bodies: the denominator written before it is rescaled",
+     (("decode_attention@lse", ("float32", "bfloat16"), ""),)),
+    ("decode_attention.cu", LSE_M, LSE_M_UNWRITTEN,
+     "row log-sum-exp, both bodies: an empty row's m left unwritten",
+     (("decode_attention@lse", ("float32", "bfloat16"), ""),)),
     ("matmul.cu", K7_ADD, K7_LOSE_SLICE,
      "FMA body: loses the first 32-deep slice of K when K > 64",
      (("matmul", ("float32", "bfloat16", "float16"), "fma"), XLSTM_PATH)),
@@ -686,15 +708,16 @@ def card_check() -> None:
         with tempfile.TemporaryDirectory() as d:
             shutil.copytree(ROOT / "src", Path(d) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
-            path = Path(d) / "src" / "repro_torch" / "csrc" / source
-            code = path.read_text()
-            # one edit, or several of one file (a tuple of texts and of replacements)
+            csrc = Path(d) / "src" / "repro_torch" / "csrc"
+            # one edit, or several (a tuple of texts and of replacements), of
+            # the source or, where a text is (file, text), of a file it includes
             texts, brokens = ((text,), (broken,)) if isinstance(text, str) else (text, broken)
             for t, b in zip(texts, brokens):
+                name, t = t if isinstance(t, tuple) else (source, t)
+                code = (csrc / name).read_text()
                 if code.count(t) != 1:
-                    raise SystemExit(f"{source}: {t!r} not found once")
-                code = code.replace(t, b)
-            path.write_text(code)
+                    raise SystemExit(f"{name}: {t!r} not found once")
+                (csrc / name).write_text(code.replace(t, b))
             for name, serves, body, *least in feeds:
                 print(f"=== mutant: {source} {what}; held on {name}", flush=True)
                 run = subprocess.run([sys.executable, __file__, "--card", "--mutant", d, name,
@@ -721,6 +744,8 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         return moe_path_gate(torch, cs, build)
     if name == "moe_train":
         return moe_train_gate(torch, cs, build)
+    if name == "decode_attention@lse":
+        return lse_gate(torch, cs, build, dispatch)
     name, _, widths = name.partition("@")
     from repro_torch.kernels.conv2d.ops import backward_body_for as conv_backward_body_for
     from repro_torch.kernels.conv2d.ops import backward_splits
@@ -958,6 +983,37 @@ def mutant_gate(d: str, name: str, serves: str = "", broken_body: str = "",
         if missed:
             caught = False
     if not caught:
+        raise SystemExit(1)
+
+
+def lse_gate(torch, cs, build, dispatch) -> None:
+    """Phases 31a and 31b of chip_smoke on the broken build: K3 with its
+    row log-sum-exp on ``LSE_DECODE_CASES`` (fp32 on the FMA body, bf16 on
+    the split body and the FMA body, the allocator's free blocks filled with
+    NaN before each launch) must fail every case on both bodies, and the
+    split-and-merge of phase 31b must fail for every M at fp32 (the FMA
+    body) and at bf16 (the split body)."""
+    from repro_torch.kernels.decode_attention.ops import dense_body_for
+    build.build(["decode_attention"])
+    kern = dispatch.kernel_table()["decode_attention"]
+    missed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for lengths, S, H, K, D in cs.LSE_DECODE_CASES:
+            args = cs.dense_decode_case(torch, lengths, dtype, S=S, H=H, K=K, D=D)
+            for body in dict.fromkeys((dense_body_for(*args[:2]), "fma")):
+                ratio, _, _ = cs.lse_ratio(torch, kern, args, body=body)
+                fails = not ratio <= 1
+                missed += not fails
+                print(f"  lse lengths={lengths} S={S} H={H} K={K} D={D} {str(dtype)[6:]} "
+                      f"body={body}: err/limit {ratio:.2f}"
+                      f"{'' if fails else '  (passes the gate)'}", flush=True)
+    for dtype, M, vs_one, vs_plain, _, finite in cs.mesh_split_rel(torch, dispatch.kernel_table()):
+        fails = not (finite and vs_one <= 1 and vs_plain <= 1)
+        missed += not fails
+        print(f"  split into {M} shards {str(dtype)[6:]}: vs one call {vs_one:.2f}, vs plain "
+              f"{vs_plain:.2f}, finite={finite}{'' if fails else '  (passes the gate)'}",
+              flush=True)
+    if missed:
         raise SystemExit(1)
 
 

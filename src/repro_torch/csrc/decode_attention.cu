@@ -7,8 +7,12 @@
 // contiguous cache k, v (B, S, K, D); GQA with G = H / K query heads per kv
 // head; scale 1/sqrt(D); rows at or past lengths[b] masked; online softmax
 // in fp32 with NEG_INF, m_safe and l >= 1e-30; p rounded to the cache type
-// before the PV product; fully masked rows give 0.  It returns the output
-// only, as the Pallas function does.  Any S (the Pallas kernel asserts
+// before the PV product; fully masked rows give 0.  It returns the output,
+// as the Pallas function does, and when asked its row log-sum-exp too: m,
+// the largest score (NEG_INF where no row is live), and l, the sum of
+// exp(s - m_safe), fp32 (B, H) each -- the residuals of the reference's
+// chunked_attention(..., return_residuals=True), which the sequence-
+// sharded decode merges across the shards of a cache.  Any S (the Pallas kernel asserts
 // S % bkv == 0), and lengths[b] > S is allowed: a serving engine's idle
 // slots count past the cache, and then every one of the S rows is live.
 //
@@ -51,6 +55,8 @@ __global__ void __launch_bounds__(THREADS) dense_decode_kernel(
     const T* __restrict__ v,              // (B, S, K, D)
     const int32_t* __restrict__ lengths,  // (B,)
     T* __restrict__ out,                  // (B, H, D)
+    float* __restrict__ m_out,            // (B, H) or null
+    float* __restrict__ l_out,            // (B, H) or null
     int S, int H, int K, int D, float scale) {
   const int b = blockIdx.x, kv = blockIdx.y, tid = threadIdx.x;
   const int G = H / K;
@@ -106,11 +112,18 @@ __global__ void __launch_bounds__(THREADS) dense_decode_kernel(
   T* ob = out + ((size_t)b * H + (size_t)kv * G) * D;
   for (int i = tid; i < G * D; i += blockDim.x)
     ob[i] = from_f<T>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+  if (m_out != nullptr) {
+    for (int g = tid; g < G; g += blockDim.x) {
+      m_out[(size_t)b * H + (size_t)kv * G + g] = m_s[g];
+      l_out[(size_t)b * H + (size_t)kv * G + g] = l_s[g];
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-           int B, int S, int H, int K, int D, float scale, cudaStream_t stream) {
+           float* m_out, float* l_out, int B, int S, int H, int K, int D, float scale,
+           cudaStream_t stream) {
   const int G = H / K;
   const size_t smem = 2 * (size_t)KV_TILE * D * sizeof(T) +
                       ((size_t)2 * G * D + (size_t)G * KV_TILE + 3 * (size_t)G) * sizeof(float);
@@ -122,23 +135,28 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   }
   kernel<<<dim3(B, K), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), S, H, K, D, scale);
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out), m_out, l_out, S, H, K, D,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, cache and out share it).  body: 0
-// the FMA body (any D, G), 1 the split body (bf16, D = 64 or 128, G <= 8),
+// dtype: 0 = float32, 1 = bfloat16 (q, cache and out share it).  m_out,
+// l_out: (B, H) fp32 for the row log-sum-exp, or both null.  body: 0 the
+// FMA body (any D, G), 1 the split body (bf16, D = 64 or 128, G <= 8),
 // which takes `splits` = cdiv(S, 64) and fp32 scratch of B * H * splits *
 // (D + 2) floats: m, then l, then acc.  Returns 0 or the CUDA error of a
 // launch.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out, void* scratch, int dtype, int B,
-                                int S, int H, int K, int D, int splits, float scale, int body,
-                                void* stream) {
+                                const void* lengths, void* out, void* m_out, void* l_out,
+                                void* scratch, int dtype, int B, int S, int H, int K, int D,
+                                int splits, float scale, int body, void* stream) {
   if (B == 0) return 0;
+  if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
   if (body == 1) {
     if (dtype != 1 || H / K > 8 || (long long)splits * decode_split::SPLIT_KEYS < S)
       return (int)cudaErrorInvalidValue;
@@ -147,13 +165,15 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
     float* f = static_cast<float*>(scratch);
     if (D == 64)
       return decode_split::launch_split<64>(q, decode_split::DenseRows<64>{kc, vc, S, K},
-                                            lengths, out, f, B, H, K, splits, scale, 0.f, s);
+                                            lengths, out, f, B, H, K, splits, scale, 0.f, s, mo,
+                                            lo);
     if (D == 128)
       return decode_split::launch_split<128>(q, decode_split::DenseRows<128>{kc, vc, S, K},
-                                             lengths, out, f, B, H, K, splits, scale, 0.f, s);
+                                             lengths, out, f, B, H, K, splits, scale, 0.f, s, mo,
+                                             lo);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, out, B, S, H, K, D, scale, s);
-  return launch<float>(q, k, v, lengths, out, B, S, H, K, D, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, lengths, out, mo, lo, B, S, H, K, D, scale, s);
+  return launch<float>(q, k, v, lengths, out, mo, lo, B, S, H, K, D, scale, s);
 }

@@ -25,7 +25,8 @@
 // - merge pass, one block per (sequence, query head): the log-sum-exp
 //   merge of the reference's merge_lse over the NS partials, M = max m_i,
 //   out = sum acc_i e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-30), the
-//   exponent clipped at 0 as there; a length-0 sequence gives 0.
+//   exponent clipped at 0 as there; a length-0 sequence gives 0.  K3 may
+//   ask for M and the merged denominator too (its row log-sum-exp).
 #pragma once
 
 #include "mma_attention.cuh"
@@ -234,11 +235,16 @@ __global__ void __launch_bounds__(MMA_THREADS) decode_split_kernel(
   }
 }
 
-// One block per (sequence, query head), a thread per output dim.
+// One block per (sequence, query head), a thread per output dim.  With
+// m_out / l_out (K3's row log-sum-exp, (B, H) fp32 each) it also writes
+// the merged M and denominator: the reference's chunked_attention
+// residuals m and l, M = NEG_INF and l = 0 where no row is live.
 static __global__ void decode_merge_kernel(const float* __restrict__ part_m,
                                            const float* __restrict__ part_l,
                                            const float* __restrict__ part_acc,
-                                           __nv_bfloat16* __restrict__ out, int D, int ns) {
+                                           __nv_bfloat16* __restrict__ out,
+                                           float* __restrict__ m_out,
+                                           float* __restrict__ l_out, int D, int ns) {
   const size_t bh = blockIdx.x;
   const float* m = part_m + bh * ns;
   const float* l = part_l + bh * ns;
@@ -253,15 +259,21 @@ static __global__ void decode_merge_kernel(const float* __restrict__ part_m,
       den = fmaf(l[i], w, den);
     }
     out[bh * D + d] = __float2bfloat16_rn(num / fmaxf(den, 1e-30f));
+    // den is the same in every thread: the one at d == 0 writes it
+    if (m_out != nullptr && d == 0) {
+      m_out[bh] = M;
+      l_out[bh] = den;
+    }
   }
 }
 
 // The split pass, then the merge, on `stream`.  `scratch` holds B * H * ns
-// * (D + 2) floats: m, then l, then acc.  Returns 0 or the CUDA error of a
-// launch.
+// * (D + 2) floats: m, then l, then acc.  m_out / l_out: (B, H) fp32 for
+// the row log-sum-exp, or null.  Returns 0 or the CUDA error of a launch.
 template <int D, typename Rows>
 int launch_split(const void* q, Rows rows, const void* lengths, void* out, float* scratch, int B,
-                 int H, int K, int ns, float scale, float softcap, cudaStream_t stream) {
+                 int H, int K, int ns, float scale, float softcap, cudaStream_t stream,
+                 float* m_out = nullptr, float* l_out = nullptr) {
   const size_t parts = (size_t)B * H * ns;
   float* part_m = scratch;
   float* part_l = part_m + parts;
@@ -272,7 +284,8 @@ int launch_split(const void* q, Rows rows, const void* lengths, void* out, float
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_merge_kernel<<<B * H, D, 0, stream>>>(part_m, part_l, part_acc,
-                                               static_cast<__nv_bfloat16*>(out), D, ns);
+                                               static_cast<__nv_bfloat16*>(out), m_out, l_out,
+                                               D, ns);
   return (int)cudaGetLastError();
 }
 

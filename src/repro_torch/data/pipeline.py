@@ -1,8 +1,8 @@
 """Deterministic synthetic sources and host-side prefetch (counterpart of
 ``repro/data/pipeline.py``: ``SyntheticTokens``, ``SyntheticImages`` and
 ``Prefetcher``, numpy only).  For the same seed each source yields the
-same bytes as the reference's copy.  ``shard_batch`` comes with the
-distributed slice."""
+same bytes as the reference's copy; ``shard_batch`` gives a rank its
+slice of a batch under the sharding rules."""
 from __future__ import annotations
 
 import queue
@@ -115,3 +115,21 @@ class Prefetcher:
         """Stop the worker and wait for it to end."""
         self._stop.set()
         self.thread.join()
+
+
+def shard_batch(batch: dict, mesh, rules, coordinate=None) -> dict:
+    """This rank's local slice of each input of a host batch under the
+    policy's batch sharding (the reference places the whole batch on the
+    mesh; each device then holds this slice).  M-RoPE's (3, B, S)
+    ``positions`` split along axis 1.  ``coordinate``: the rank's index
+    along each mesh axis (default the calling rank's)."""
+    from repro_torch.distributed.policy import batch_axes_for
+    from repro_torch.distributed.sharding import local_slice
+    out = {}
+    for k, v in batch.items():
+        # the policy's "positions" are M-RoPE's (3, B, S); any other
+        # positions shard as the tokens do
+        mrope = k == "positions" and v.ndim >= 3 and v.shape[0] == 3
+        axes = batch_axes_for(k if mrope or k != "positions" else "", v.ndim)
+        out[k] = v[local_slice(v.shape, rules.spec(list(axes)), mesh, coordinate)]
+    return out

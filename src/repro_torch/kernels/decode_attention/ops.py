@@ -12,7 +12,9 @@ call, the products on the tensor cores; one split body,
 every fp32 call among them -- runs the first, one-block-per-group FMA
 body.  The paged kernel also reads int8 pools with fp32 scales per (block,
 row, kv head), on the same two bodies by the same rule (``mma_i8``,
-``fma_i8``): each row is dequantized to q's type as it is staged."""
+``fma_i8``): each row is dequantized to q's type as it is staged.  The
+dense kernel also returns, when asked, each row's log-sum-exp (both
+bodies): what the sequence-sharded decode merges across its shards."""
 from __future__ import annotations
 
 import ctypes
@@ -23,12 +25,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       paged_decode_attention_ref)
 from repro_torch.kernels.dispatch import (check_operand, check_scales,
-                                          register_kernel)
+                                          lse_tolerance_ratio, register_kernel)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 \
     + [ctypes.c_int, ctypes.c_void_p]
-_DENSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 MMA_HEAD_DIMS = (64, 128)    # the split body's template instances
 MMA_MAX_GROUP = 8            # query heads per kv head: the n = 8 side of m16n8k16
@@ -148,11 +150,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                   v_scale=v_scale, softcap=softcap, chunk=chunk)
 
 
-def _launch_dense(q, k, v, lengths, *, chunk=1024, body=None):
-    """Check the operands, allocate the output (and, for the split body, its
-    fp32 scratch in one allocation) and launch the dense kernel on the
-    current stream, on the body :func:`dense_body_for` names; ``body``
-    overrides that route.  ``chunk`` only tiles the plain version.  The
+def _launch_dense(q, k, v, lengths, *, chunk=1024, return_lse=False, body=None):
+    """Check the operands, allocate the output (with ``return_lse`` the
+    row log-sum-exp's m and l too; for the split body its fp32 scratch in
+    one allocation) and launch the dense kernel on the current stream, on
+    the body :func:`dense_body_for` names; ``body`` overrides that route.
+    ``chunk`` only tiles the plain version.  The
     kernel reads q and the cache in one type: a cache in a narrower type
     than q (bf16 caches under an fp32 model, as the wave path builds them)
     is widened to q's first, exactly; p then stays in q's type where the
@@ -184,34 +187,43 @@ def _launch_dense(q, k, v, lengths, *, chunk=1024, body=None):
         raise ValueError(f"decode_attention: no {body!r} body for {q.dtype} "
                          f"at head_dim {D}, G {H // K}")
     out = torch.empty_like(q)
+    ml = (torch.empty((2, B, H), dtype=torch.float32, device=dev) if return_lse
+          else None)
     ns = max(1, num_splits(1, S))    # S = 0: one empty split, the output 0
     scratch = (torch.empty(B * H * ns * (D + 2), dtype=torch.float32,
                            device=dev) if body == "mma" else None)
     lib = build.load("decode_attention", _DENSE_ARGTYPES)
-    DENSE_KERNEL.count_launch(body)
+    # a launch that writes the log-sum-exp too counts under "<body>_lse"
+    DENSE_KERNEL.count_launch(body + "_lse" if return_lse else body)
     err = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), None if ml is None else ml[0].data_ptr(),
+        None if ml is None else ml[1].data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         _DTYPE_CODE[q.dtype], B, S, H, K, D, ns, 1.0 / (D ** 0.5),
         int(body == "mma"), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention: CUDA error {err}")
-    return out
+    return (out, ml[0], ml[1]) if return_lse else out
 
 
 DENSE_KERNEL = register_kernel(
     "decode_attention", _launch_dense, decode_attention_ref,
     source="src/repro_torch/csrc/decode_attention.cu",
-    replaces="src/repro/kernels/decode_attention/kernel.py:70")
+    replaces="src/repro/kernels/decode_attention/kernel.py:70",
+    tolerance=lse_tolerance_ratio)
 
 
-def decode_attention(q, k, v, lengths, *, chunk: int = 1024):
+def decode_attention(q, k, v, lengths, *, chunk: int = 1024, return_lse: bool = False):
     """One query token per sequence against a contiguous cache.
 
     q: (B, H, D); k/v: (B, S, K, D); lengths: (B,) int32 valid rows (any
-    value: rows at or past S never exist, so lengths > S attends all S).
-    Returns (B, H, D), the output only, as the Pallas function does.  CUDA
-    tensors run the kernel, CPU tensors the plain version (``chunk`` is its
-    KV tile).
+    value: rows at or past S never exist, so lengths > S attends all S;
+    below 1 none).  Returns (B, H, D), the output only, as the Pallas
+    function does; with ``return_lse`` (out, m, l), m and l fp32 (B, H):
+    the largest score (``NEG_INF`` where no row is live) and the sum of
+    exp(score - m) -- the reference's ``chunked_attention`` residuals, out
+    normalised by max(l, 1e-30).  CUDA tensors run the kernel, CPU tensors
+    the plain version (``chunk`` is its KV tile).
     """
-    return DENSE_KERNEL(q, k, v, lengths, chunk=chunk)
+    return DENSE_KERNEL(q, k, v, lengths, chunk=chunk, return_lse=return_lse)

@@ -9,16 +9,20 @@ import torch
 from repro_torch.models.layers.attention import chunked_attention
 
 
-def decode_attention_ref(q, k, v, lengths, *, chunk=1024):
+def decode_attention_ref(q, k, v, lengths, *, chunk=1024, return_lse=False):
     """q: (B, H, D); k/v: (B, S, K, D); lengths: (B,) valid rows per
-    sequence (past S: every row).  Returns (B, H, D)."""
+    sequence (past S: every row).  Returns (B, H, D); with ``return_lse``
+    (out, m, l), m and l the reference's residuals, fp32 (B, H)."""
     B, H, D = q.shape
     S = k.shape[1]
     out = chunked_attention(
         q[:, None], k, v, causal=False,
         q_positions=torch.zeros((B, 1), dtype=torch.int32, device=q.device),
         kv_positions=torch.arange(S, dtype=torch.int32, device=q.device),
-        kv_len=lengths, chunk=chunk)
+        kv_len=lengths, chunk=chunk, return_residuals=return_lse)
+    if return_lse:
+        out, res = out
+        return out[:, 0], res.m[..., 0], res.l[..., 0]
     return out[:, 0]
 
 

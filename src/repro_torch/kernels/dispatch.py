@@ -212,6 +212,43 @@ def tolerance_ratio(out, ref) -> float:
     return (err / limit.clamp(min=1e-30)).max().item()
 
 
+# K3's row log-sum-exp (``decode_attention(..., return_lse=True)``), each
+# of m and l against the plain version evaluated in fp32 on the same values:
+# both take the scores as fp32 sums of exact products (in other orders) and
+# sum p = exp(s - m) in fp32 before any rounding of p, so the two differ by
+# fp32 rounding alone: a few 2^-24 of |m|, and for l the split body's fast
+# exponential, whose argument rounds to ~2^-24 |s - m| (under 5e-6 of l for
+# every term that does not underflow).  Limit LSE_RTOL: |dm| <= LSE_RTOL
+# max(|m|, 1) and |dl| <= LSE_RTOL l, held where l > 0; where no row is live
+# (l = 0) the kernel's l must be 0 and its m at most NEG_INF / 2, as the
+# plain version's (a merge across shards reads them; NaN there fails).  A
+# partial that loses a 64-key split or is left unrescaled moves l by O(1).
+LSE_RTOL = 2.0 ** -14
+LSE_DEAD_M = -1e30 / 2
+
+
+def lse_tolerance_ratio(out, ref) -> float:
+    """:func:`tolerance_ratio` of the output; with the row log-sum-exp
+    (``out`` and ``ref`` each (out, m, l)) also m and l against
+    ``LSE_RTOL`` where the plain version's l > 0, and infinity where it is
+    0 and the kernel's l is not 0 or its m above ``LSE_DEAD_M``.  The
+    largest (<= 1 passes; NaN fails)."""
+    if not isinstance(out, tuple):
+        return tolerance_ratio(out, ref)
+    (o, m, l), (ro, rm, rl) = out, (r.float() for r in ref)
+    ratios = [tolerance_ratio(o, ro)]
+    live = rl > 0
+    if live.any():
+        ratios.append(((m - rm).abs() / (LSE_RTOL * rm.abs().clamp(min=1.0)))[live].max().item())
+        ratios.append(((l - rl).abs() / (LSE_RTOL * rl))[live].max().item())
+    dead = ~live
+    if dead.any() and not (bool((l[dead] == 0).all()) and bool((m[dead] <= LSE_DEAD_M).all())):
+        ratios.append(float("inf"))
+    if any(r != r for r in ratios):
+        return float("nan")
+    return max(ratios)
+
+
 # K6 conv2d, kernel vs plain version evaluated in fp32 on the same values.
 # The kernel sums in fp32 and rounds once to the output type, so the
 # difference is the rounding of the output (<= 2^-11 |ref| at fp16, 2^-8 at

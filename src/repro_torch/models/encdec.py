@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.distributed.collectives import seq_sharded_decode_attention
+from repro_torch.distributed.sharding import require_whole
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import attention as A
@@ -297,6 +298,7 @@ def prefill(cfg, params, tokens, frames, *, cache_dtype="bfloat16",
     ``length`` S.  The cross-attention reads K/V in the compute dtype here,
     the state's ``cache_dtype`` copies at decode, as the reference's."""
     B, Sq = tokens.shape
+    require_whole("kv_seq", "the decoder's self-attention cache")
     cdt = dtype_of(cache_dtype)
     enc_out = encode(cfg, params, frames, chunk=chunk)
     xk, xv = cross_kv(cfg, params, enc_out)
@@ -332,6 +334,7 @@ def init_decode_state(cfg, batch: int, max_len: int, cache_dtype="bfloat16", *,
                       device="cuda") -> EncDecState:
     """Zero caches for ``batch`` slots: self caches of ``max_len`` rows,
     cross K/V of the config's F encoder frames, ``length`` 0."""
+    require_whole("kv_seq", "the decoder's self-attention cache")
     cdt = dtype_of(cache_dtype)
     hd = cfg.resolved_head_dim
     L, F, K = cfg.num_layers, cfg.encdec.num_encoder_frames, cfg.num_kv_heads

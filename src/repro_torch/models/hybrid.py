@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.distributed.collectives import seq_sharded_decode_attention
+from repro_torch.distributed.sharding import require_whole
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import ssm as S
@@ -258,6 +259,7 @@ def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",
     """Prefill the prompt ``tokens`` (B, S) from position 0.  Returns ((B, V)
     fp32 logits of the last token, HybridState) with KV caches of
     ``cache_dtype`` grown to ``max_len`` rows (default S)."""
+    require_whole("kv_seq", "the hybrid's shared-attention cache")
     B, Sq = tokens.shape
     if positions is None:
         positions = torch.arange(Sq, dtype=torch.int32,
@@ -318,6 +320,7 @@ def decode_step(cfg, params, tokens, state: HybridState, *, chunk=2048):
 
 def init_decode_state(cfg, batch: int, max_len: int, cache_dtype="bfloat16",
                       *, device="cuda") -> HybridState:
+    require_whole("kv_seq", "the hybrid's shared-attention cache")
     n_seg, e, tail = _segments(cfg)
     s = cfg.ssm
     d_in = s.d_inner(cfg.d_model)

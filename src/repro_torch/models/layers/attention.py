@@ -4,11 +4,14 @@ core (counterpart of ``repro/models/layers/attention.py``).
 
 `chunked_attention` is the plain PyTorch version that the paged kernels'
 plain versions (`repro_torch.kernels.*.ref`) gather into; it mirrors the
-reference step for step, including where bf16 rounds.
+reference step for step, including where bf16 rounds, and returns, when
+asked, the log-sum-exp residuals that `merge_lse` combines across the
+shards of a sequence-sharded cache.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -80,6 +83,13 @@ def qkv_project(cfg, params, x: torch.Tensor, positions: torch.Tensor | None):
     return q, k, v
 
 
+class AttnResiduals(NamedTuple):
+    """Per-query-row log-sum-exp residuals for distributed (LSE) merging."""
+    out: torch.Tensor   # (B, Sq, H, D), normalized by its own l
+    m: torch.Tensor     # (B, H, Sq) running max
+    l: torch.Tensor     # (B, H, Sq) running sum
+
+
 def _mask_bias(q_pos, kv_pos, *, causal: bool, window: int,
                kv_len=None) -> torch.Tensor:
     """Additive mask bias (B, Sq, C) in fp32; 0 where attended."""
@@ -104,14 +114,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_len: torch.Tensor | None = None,
                       softcap: float = 0.0,
                       window: int = 0,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024,
+                      return_residuals: bool = False):
     """Online-softmax attention, scanning KV in chunks.
 
     q: (B, Sq, H, D); k/v: (B, Skv, K, D) with H % K == 0 (GQA: query head
     h reads kv head h // G).  q_positions: (B, Sq) absolute positions;
     kv_positions: (Skv,) or (B, Skv); kv_len: (B,) valid cache rows.
     Fully masked rows give 0 (the ``m_safe`` guard and the ``l`` floor).
-    Returns (B, Sq, H, D) in q.dtype.
+    Returns (B, Sq, H, D) in q.dtype; with ``return_residuals`` also
+    :class:`AttnResiduals` (m: the running max of the masked scores, l: the
+    sum of exp(s - m_safe), fp32 (B, H, Sq) each).
     """
     B, Sq, H, D = q.shape
     _, Skv, K, _ = k.shape
@@ -162,7 +175,31 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + pv.float()
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, K * G, Sq, D).transpose(1, 2).to(q.dtype)
+    out = out.reshape(B, K * G, Sq, D).transpose(1, 2).to(q.dtype)
+    if return_residuals:
+        return out, AttnResiduals(out=out, m=m.reshape(B, H, Sq),
+                                  l=l.reshape(B, H, Sq))
+    return out
+
+
+def merge_lse(parts: list[AttnResiduals]) -> torch.Tensor:
+    """Merge attention partials computed over disjoint KV shards (the
+    reference's ``merge_lse``).  Each part's ``out`` (in q's type) is
+    normalized by its own ``l``; in fp32 each is weighted by w_i = l_i
+    exp(min(m_i - m*, 0)) with m* the largest m, and the sum divided by
+    max(sum w_i, 1e-30): a shard with no live row (l = 0) adds nothing.
+    Returns (B, Sq, H, D) in the parts' type."""
+    m_star = parts[0].m
+    for p in parts[1:]:
+        m_star = torch.maximum(m_star, p.m)
+    num = 0.0
+    den = 0.0
+    for p in parts:
+        w = p.l * torch.exp(torch.clamp(p.m - m_star, max=0.0))   # (B, H, Sq)
+        w = w.transpose(1, 2)[..., None]
+        num = num + p.out.float() * w
+        den = den + w
+    return (num / torch.clamp(den, min=1e-30)).to(parts[0].out.dtype)
 
 
 def attn_output(cfg, params, attn: torch.Tensor) -> torch.Tensor:

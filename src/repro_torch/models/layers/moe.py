@@ -21,11 +21,18 @@ product.  Two dispatch strategies, as the reference's without a mesh:
     compute type, whose order on the card is not fixed.
   * :func:`moe_dense` -- every expert on every token, masked combine: the
     O(E x T) oracle, for the tests.
+  * :func:`moe_ep` -- expert parallelism under a mesh, the reference's
+    production dispatch: each rank of the ``experts`` mesh axis takes its
+    slice of the sequence, sends each kept choice and its local expert id
+    to the rank that owns its expert with fixed-capacity ``all_to_all``s,
+    runs its ``E / M`` local experts on K7's batched entry, and sends the
+    rows back with one more; the slices are then gathered back along the
+    axis.  Forward only: its gradient comes with the sharded trainer.
 
-The reference's expert-parallel ``moe_ep`` (all-to-all under a mesh) is
-not ported: the port has no mesh.  DeepSeekMoE's shared experts and
-first-k dense layers live in the block
-(:mod:`repro_torch.models.transformer`), as in the reference.
+:func:`moe_apply` picks ``moe_ep`` by the reference's rule and
+:func:`moe_einsum` otherwise.  DeepSeekMoE's shared experts and first-k
+dense layers live in the block (:mod:`repro_torch.models.transformer`), as
+in the reference.
 """
 from __future__ import annotations
 
@@ -34,6 +41,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (all_gather, all_to_all,
+                                                 require_process_group)
+from repro_torch.distributed.sharding import axis_sizes, current_mesh, current_rules
 from repro_torch.models.layers.linear import batched_matmul, matmul
 from repro_torch.models.layers.module import weight
 
@@ -197,6 +207,122 @@ def moe_einsum(cfg_moe, params, x, idx, prob, *, capacity: int | None = None):
     return out.to(x.dtype).reshape(B, S, D)
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism: all-to-all dispatch across the ranks of a mesh axis
+# ---------------------------------------------------------------------------
+
+def _positions_within(dest: torch.Tensor, num_dest: int):
+    """For each entry, its arrival rank among the entries of the same
+    destination, in index order.  dest: (N,) int in [0, num_dest).  Returns
+    (pos (N,), counts (num_dest,)), int64."""
+    n = dest.shape[0]
+    order = torch.argsort(dest, stable=True)
+    counts = torch.bincount(dest, minlength=num_dest)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(n, device=dest.device) - starts[dest[order]]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    return pos, counts
+
+
+def _scatter_rows(rows: torch.Tensor, slot: torch.Tensor, num: int) -> torch.Tensor:
+    """A (num, ...) buffer of zeros with ``rows[i]`` at ``slot[i]``; a slot
+    of ``num`` is dropped (the reference's write into one spare row, then
+    cut off)."""
+    buf = rows.new_zeros((num + 1, *rows.shape[1:]))
+    buf[slot] = rows
+    return buf[:num]
+
+
+def _gather_rows(rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """``rows[slot]``, zeros where ``slot`` is ``len(rows)`` (dropped)."""
+    return torch.cat([rows, rows.new_zeros((1, *rows.shape[1:]))])[slot]
+
+
+def _ep_local(x_loc, idx_loc, prob_loc, w_gate, w_up, w_down, *, cfg_moe, group,
+              model_size: int, rank: int):
+    """One rank's body: dispatch its tokens' choices to the experts'
+    owners, run its local experts, return the rows, combine (the
+    reference's ``_ep_local``)."""
+    Bl, Sl, D = x_loc.shape
+    k = cfg_moe.top_k
+    e_local = cfg_moe.num_experts // model_size
+    T = Bl * Sl
+    xf = x_loc.reshape(T, D)
+    ef = idx_loc.reshape(T * k).long()
+    pf = prob_loc.reshape(T * k)
+    tok_of = torch.arange(T, device=x_loc.device).repeat_interleave(k)
+
+    # first level: a fixed capacity of c_send rows for each destination rank
+    dest = ef // e_local
+    c_send = max(1, math.ceil(T * k * cfg_moe.capacity_factor / model_size))
+    pos, _ = _positions_within(dest, model_size)
+    keep = pos < c_send
+    slot = torch.where(keep, dest * c_send + pos, model_size * c_send)
+    R = model_size * c_send
+    recv = all_to_all(_scatter_rows(xf[tok_of], slot, R), group)
+    recv_eid = all_to_all(_scatter_rows(ef % e_local, slot, R), group)
+
+    # second level: a fixed capacity of c_exp rows for each local expert (an
+    # unfilled send row arrives as zeros for local expert 0 and takes a place)
+    c_exp = max(1, math.ceil(R * cfg_moe.capacity_factor / max(e_local, 1)))
+    pos2, _ = _positions_within(recv_eid, e_local)
+    keep2 = pos2 < c_exp
+    slot2 = torch.where(keep2, recv_eid * c_exp + pos2, e_local * c_exp)
+    buf = _scatter_rows(recv, slot2, e_local * c_exp)
+    mine = slice(rank * e_local, (rank + 1) * e_local)
+    ys = expert_ffn(w_gate[mine], w_up[mine], w_down[mine],
+                    buf.view(e_local, c_exp, D)).reshape(e_local * c_exp, D)
+
+    # the rows go back through the same slots
+    ret = all_to_all(_gather_rows(ys, slot2), group)
+    contrib = _gather_rows(ret, slot).float() * pf[:, None]
+    return contrib.view(T, k, D).sum(1).to(x_loc.dtype).view(Bl, Sl, D)
+
+
+def moe_ep(cfg_moe, params, x, idx, prob, *, mesh, model_axis: str):
+    """Expert-parallel dispatch over the mesh axis ``model_axis`` of M
+    ranks.  x: (B, S, D), idx / prob: (B, S, k): this rank's batch, the same
+    on every rank of the axis (S % M == 0, E % M == 0).  Each rank takes
+    the sequence slice ``[rank S / M, (rank + 1) S / M)`` (the reference's
+    reshard of ``seq`` onto the axis), runs :func:`_ep_local` -- its rows
+    and their local expert ids out and the rows back, three
+    ``all_to_all``s on the axis's group -- and the
+    slices are all-gathered back: returns (B, S, D) in x's type, the same
+    on every rank.  Forward only: an input that requires grad raises, as
+    does a mesh with no initialised process group."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *(params[n] for n in ("w_gate", "w_up", "w_down")))):
+        raise NotImplementedError("moe_ep has no backward yet: it comes with the "
+                                  "sharded trainer")
+    require_process_group()
+    M = axis_sizes(mesh)[model_axis]
+    rank = mesh.get_local_rank(model_axis)
+    group = mesh.get_group(model_axis)
+    B, S, D = x.shape
+    if S % M or cfg_moe.num_experts % M:
+        raise ValueError(f"moe_ep: S {S} and {cfg_moe.num_experts} experts must divide "
+                         f"into {M} ranks")
+    part = slice(rank * (S // M), (rank + 1) * (S // M))
+    y = _ep_local(x[:, part], idx[:, part], prob[:, part], params["w_gate"], params["w_up"],
+                  params["w_down"], cfg_moe=cfg_moe, group=group, model_size=M, rank=rank)
+    return torch.cat(all_gather(y, group), dim=1)
+
+
 def moe_apply(cfg_moe, params, x, idx, prob):
-    """The reference's strategy choice without a mesh: :func:`moe_einsum`."""
+    """The reference's strategy choice: :func:`moe_ep` under a mesh whose
+    ``experts`` axis (the current rules') has more than one rank and
+    divides both the sequence and the experts, :func:`moe_einsum`
+    otherwise (a decode step, one card).  Differentiable only through
+    ``moe_einsum``."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is not None and rules is not None:
+        model_axis = rules.rules.get("experts")
+        if isinstance(model_axis, str):
+            msize = axis_sizes(mesh).get(model_axis, 1)
+            S = x.shape[1]
+            if msize > 1 and S % msize == 0 and S >= msize \
+                    and cfg_moe.num_experts % msize == 0:
+                return moe_ep(cfg_moe, params, x, idx, prob, mesh=mesh,
+                              model_axis=model_axis)
     return moe_einsum(cfg_moe, params, x, idx, prob)

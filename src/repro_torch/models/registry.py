@@ -22,6 +22,8 @@ encoder-decoder (audio) family, ``:143-161``, and the cnn family,
   init_decode_state(cfg, batch, max_len, cache_dtype, device=...)
                                                 -> contiguous decode state
   forward(cfg, params, batch, ...)              -> (logits, aux_loss)
+  table(cfg)                                    -> the ParamDef table
+                                                   (the sharding policy's)
     (dense, vlm, hybrid and ssm: ``batch`` holds ``tokens`` [and
     ``positions``, (3, B, S) under M-RoPE], logits (B, S, V); audio:
     ``tokens`` and ``frames`` (B, F, d_model); cnn: ``batch`` holds
@@ -57,6 +59,7 @@ class ModelFns:
     init_decode_state: Callable[..., Any] | None = None
     prepare_params: Callable[..., Any] | None = None
     verify_paged: Callable[..., Any] | None = None
+    table: Callable[..., Any] | None = None    # cfg -> ParamDef table (the policy's)
 
 
 def _tf_decode(cfg, params, tokens, state, chunk=2048):
@@ -92,7 +95,8 @@ TRANSFORMER_FNS = ModelFns("dense", transformer.init, _tf_decode,
                            transformer.prefill_paged, forward=_tf_forward,
                            prefill=_tf_prefill, init_decode_state=_tf_state,
                            prepare_params=transformer.prepare_params,
-                           verify_paged=transformer.verify_paged)
+                           verify_paged=transformer.verify_paged,
+                           table=transformer.lm_table)
 
 
 def _hy_forward(cfg, params, batch, *, remat=True, chunk=1024):
@@ -123,7 +127,8 @@ def _hy_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
 HYBRID_FNS = ModelFns("hybrid", hybrid.init, _hy_decode, None, None,
                       forward=_hy_forward, prefill=_hy_prefill,
                       init_decode_state=_hy_state,
-                      prepare_params=hybrid.prepare_params)
+                      prepare_params=hybrid.prepare_params,
+                      table=hybrid.lm_table)
 
 
 def _rc_forward(cfg, params, batch, *, remat=True, chunk=1024):
@@ -156,7 +161,8 @@ def _rc_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
 RECURRENT_FNS = ModelFns("ssm", recurrent.init, _rc_decode, None, None,
                          forward=_rc_forward, prefill=_rc_prefill,
                          init_decode_state=_rc_state,
-                         prepare_params=recurrent.prepare_params)
+                         prepare_params=recurrent.prepare_params,
+                         table=recurrent.lm_table)
 
 
 def _ed_forward(cfg, params, batch, *, remat=True, chunk=1024):
@@ -189,7 +195,8 @@ def _ed_state(cfg, batch, max_len, cache_dtype="bfloat16", *, device="cuda"):
 ENCDEC_FNS = ModelFns("audio", encdec.init, _ed_decode, None, None,
                       forward=_ed_forward, prefill=_ed_prefill,
                       init_decode_state=_ed_state,
-                      prepare_params=encdec.prepare_params)
+                      prepare_params=encdec.prepare_params,
+                      table=encdec.lm_table)
 
 
 def _gn_forward(cfg, params, batch, *, remat=True, chunk=1024):
@@ -199,7 +206,7 @@ def _gn_forward(cfg, params, batch, *, remat=True, chunk=1024):
 
 
 GOOGLENET_FNS = ModelFns("cnn", googlenet.init, None, None, None,
-                         forward=_gn_forward)
+                         forward=_gn_forward, table=googlenet.model_table)
 
 _BY_FAMILY = {"dense": TRANSFORMER_FNS, "moe": TRANSFORMER_FNS,
               "vlm": TRANSFORMER_FNS, "hybrid": HYBRID_FNS, "ssm": RECURRENT_FNS,

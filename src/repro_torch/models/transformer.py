@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
 from repro_torch.distributed.collectives import seq_sharded_decode_attention
+from repro_torch.distributed.sharding import current_mesh, current_rules, seq_rows
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.dispatch import check_scales
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -171,9 +172,13 @@ def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                length: torch.Tensor | None = None, *, device="cuda"):
     """Contiguous caches of ``max_len`` rows for ``batch`` slots, zeros;
     ``length`` (B,) int32 (default 0); ``dtype`` "int8" gives a
-    :class:`QuantKVCache`."""
+    :class:`QuantKVCache`.  Under rules that put ``kv_seq`` on a mesh axis
+    of M ranks (:func:`~repro_torch.distributed.sharding.use_rules`) each
+    rank allocates its slots alone: ``max_len / M`` rows (M must divide
+    ``max_len``)."""
     L = num_layers if num_layers is not None else cfg.num_layers
-    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    rows, _ = seq_rows(max_len)
+    shape = (L, batch, rows, cfg.num_kv_heads, cfg.resolved_head_dim)
     ln = (torch.zeros((batch,), dtype=torch.int32, device=device)
           if length is None else length)
     if dtype == "int8":
@@ -419,7 +424,8 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
     (``paged_prefill`` a dict of write_ids/table/q_start/kv_len) write the
     chunk's KV rows straight into pool blocks and attend causally over the
     table's blocks.  With this layer's contiguous caches (no
-    ``block_tables``): decode through ``seq_sharded_decode_attention``.
+    ``block_tables``): decode through ``seq_sharded_decode_attention``
+    (under the current mesh, its rank's slots of a sequence-sharded cache).
     ``cache_scales``: this layer's (k_scale, v_scale) when the cache or
     pool is int8.  ``aux_out``: a list that an MoE block's router appends
     its aux loss to.
@@ -542,6 +548,12 @@ def _apply_backbone(cfg, params, tokens, positions, *, cache=None,
                               device=tokens.device))
     quant = isinstance(cache, (QuantKVCache, QuantPagedKVCache))
     tables = getattr(cache, "block_tables", None)
+    rules = current_rules()
+    if (tables is not None and current_mesh() is not None and rules
+            and rules.rules.get("kv_seq")):
+        raise NotImplementedError("the paged pool is not sequence-sharded: under rules "
+                                  "that shard kv_seq the dense transformer decodes from "
+                                  "contiguous caches")
     for i, p in enumerate(layers):
         scales = (cache.k_scale[i], cache.v_scale[i]) if quant else None
         x = block_apply(cfg, p, x, positions, cache_k=cache.k[i],
@@ -624,11 +636,13 @@ def prefill(cfg, params, tokens, positions=None, *, cache_dtype="bfloat16",
     B, Sq = tokens.shape
     max_len = max_len or Sq
     cdt = dtype_of(cache_dtype)
+    rows, offset = seq_rows(max_len)
+    live = max(0, min(Sq - offset, rows))       # the prompt's rows among this rank's
 
     def grow(c):
-        out = torch.zeros((*c.shape[:2], max_len, *c.shape[3:]), dtype=cdt,
+        out = torch.zeros((*c.shape[:2], rows, *c.shape[3:]), dtype=cdt,
                           device=c.device)
-        out[:, :, :Sq] = c
+        out[:, :, :live] = c[:, :, offset:offset + live]
         return out
     cache = cache._replace(k=grow(cache.k), v=grow(cache.v))
     last = (x[:, -1:] if last_pos is None
@@ -702,7 +716,10 @@ def verify_paged(cfg, params, tokens, cache, table, *, q_start, kv_len,
 def decode_step(cfg, params, tokens, cache, *, chunk=2048):
     """One decode step against any of the four caches.  tokens: (B, 1) ->
     logits (B, V) fp32, and the cache with the new rows written in place
-    and ``length`` advanced by one."""
+    and ``length`` advanced by one.  Under a mesh (the current one,
+    :func:`~repro_torch.distributed.sharding.use_rules`) each layer's
+    attention runs the sequence-sharded decode over it, on this rank's
+    slots of contiguous caches (the paged pools raise)."""
     pos = _row_positions(cfg, cache.length[:, None])
     x, _, _ = _apply_backbone(cfg, params, tokens, pos, cache=cache,
                               chunk=chunk)

@@ -5,8 +5,9 @@ The reference returns new parameters and state; here ``update`` writes
 both in place, under ``torch.no_grad()``, so a 3B-parameter model holds one
 copy of each (fp32 master weights, fp32 moments) and a few leaf-sized
 temporaries.  Each update keeps the reference's order of operations, so
-the two round alike.  The state's logical axes (``state_axes``) come with
-the distributed slice.
+the two round alike.  Each optimizer also derives the logical axes of its
+state from the parameters' (``state_axes``, the reference's trees), for
+the sharding policy (:mod:`repro_torch.distributed.policy`).
 """
 from __future__ import annotations
 
@@ -27,6 +28,18 @@ class Optimizer:
     # (grads, state, params) -> (params, state, metrics), params and state
     # updated in place
     update: Callable[[Pytree, Pytree, Pytree], tuple[Pytree, Pytree, dict]]
+    # param axes tree -> the state's axes tree (leaves: tuples of axis names)
+    state_axes: Callable[[Pytree], Pytree]
+
+
+def _map_axes(fn: Callable[[tuple], Any], axes_tree: Pytree) -> Pytree:
+    """Map ``fn`` over an axes tree, whose leaves are tuples of axis
+    names (dicts and lists are its containers)."""
+    if isinstance(axes_tree, Mapping):
+        return {k: _map_axes(fn, v) for k, v in axes_tree.items()}
+    if isinstance(axes_tree, list):
+        return [_map_axes(fn, v) for v in axes_tree]
+    return fn(tuple(axes_tree))
 
 
 def leaves(tree: Pytree) -> list[torch.Tensor]:
@@ -90,7 +103,10 @@ def adamw(schedule: Callable[[torch.Tensor], torch.Tensor], *,
             p.copy_(p32 - delta.add_(p32 * weight_decay).mul_(lr))
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer(init=init, update=update)
+    def state_axes(param_axes):
+        return {"mu": param_axes, "nu": param_axes, "step": ()}
+
+    return Optimizer(init=init, update=update, state_axes=state_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +162,15 @@ def adafactor(schedule: Callable[[torch.Tensor], torch.Tensor], *,
             p.copy_(p32 - lr * (delta + weight_decay * p32))
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer(init=init, update=update)
+    def state_axes(param_axes):
+        # the reference's rule: factored by the number of axes alone
+        def mk(ax):
+            if len(ax) >= 2:
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+        return {"v": _map_axes(mk, param_axes), "step": ()}
+
+    return Optimizer(init=init, update=update, state_axes=state_axes)
 
 
 def _per_param(v_tree: Pytree, params: Pytree) -> list[Pytree]:

@@ -89,6 +89,17 @@ host tier without prefix sharing.
 :meth:`ServingEngine.serve_wave` keeps the reference's lock-step wave
 decode (prompts of one length prefilled together through K4, decoded
 together through K3, on contiguous caches in bf16) for A/B comparison.
+
+Under a mesh: an engine built inside
+:func:`~repro_torch.distributed.sharding.use_rules` keeps those rules and
+mesh and runs its prefills, decode steps and state allocation under them,
+from whatever thread drives it.  Every rank of the mesh builds the same
+engine and serves the same requests (the rules' ``batch`` must be
+replicated), so every rank emits the same tokens; with ``kv_seq`` on a
+mesh axis each rank holds its slots of the contiguous caches and every
+decode step's attention merges the ranks' partials
+(:mod:`repro_torch.distributed.collectives`).  A paged engine under such
+rules raises: the pool is not sequence-sharded.
 """
 from __future__ import annotations
 
@@ -102,6 +113,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.offload import KVBlockTarget, OffloadEngine, WorkError
+from repro_torch.distributed.sharding import (axis_sizes, current_mesh, current_rules,
+                                              use_rules)
 from repro_torch.models.registry import fns_for
 from repro_torch.serving.faults import (DeadlineExceeded, ExecutorCrash,
                                         FaultError, FaultPlan, ShedError)
@@ -322,6 +335,27 @@ class ServeStats:
                 self.slo_tracked += 1
                 self.slo_misses += int(r.slo_miss is not False)
 
+
+
+def _check_mesh_engine(rules, mesh, paged: bool) -> None:
+    """Refuse what an engine under a mesh cannot serve: no rules, a
+    batch split over ranks (every rank serves every slot), a paged pool
+    under rules that shard ``kv_seq``."""
+    if rules is None:
+        raise ValueError("an engine under a mesh needs its sharding rules "
+                         "(use_rules(rules, mesh))")
+    entry = rules.rules.get("batch")
+    sizes = axis_sizes(mesh)
+    split = 1
+    for ax in (entry if isinstance(entry, tuple) else (entry,)) if entry else ():
+        split *= sizes.get(ax, 1)
+    if split > 1:
+        raise ValueError(f"the rules split the batch over {split} ranks; the engine "
+                         f"serves every slot on every rank (batch replicated)")
+    if paged and rules.rules.get("kv_seq") is not None:
+        raise ValueError("the paged pool is not sequence-sharded: under rules that "
+                         "shard kv_seq the engine serves from contiguous caches "
+                         "(paged=False)")
 
 
 def _leaf_pairs(big, small):
@@ -650,7 +684,12 @@ class ServingEngine:
         self.fns = fns_for(cfg)              # ValueError unless ported
         if paged is None:                    # auto: families with paged fns
             paged = self.fns.init_paged_state is not None
-        elif paged and self.fns.init_paged_state is None:
+        # the sharding rules and mesh current at construction, entered again
+        # around every model call (the context is per thread)
+        self._rules, self._mesh = current_rules(), current_mesh()
+        if self._mesh is not None:
+            _check_mesh_engine(self._rules, self._mesh, paged)
+        if paged and self.fns.init_paged_state is None:
             raise ValueError(f"family {cfg.family!r} has no paged-KV "
                              f"support (ModelFns.init_paged_state is None)")
         self.paged = paged
@@ -755,9 +794,9 @@ class ServingEngine:
         # reference jit entry per shape): the contiguous path's, in
         # _state_dtype, and the wave path's, in bf16 whatever cache_dtype
         # says, as the reference's fns.prefill builds them
-        self._prefill = lambda p, b, cache_dtype=self._state_dtype: \
-            fns.prefill(cfg, p, b, max_len=max_len, chunk=chunk,
-                        cache_dtype=cache_dtype)
+        self._prefill = self._sharded(
+            lambda p, b, cache_dtype=self._state_dtype: fns.prefill(
+                cfg, p, b, max_len=max_len, chunk=chunk, cache_dtype=cache_dtype))
         # executor host time of the tier's two executor-side halves (the
         # device-to-host copy itself runs on the transfer worker)
         self.spill_capture_s = 0.0  # owned-by: executor-thread
@@ -802,7 +841,7 @@ class ServingEngine:
         self.scheduler = ContinuousScheduler(batch_slots, pool=self.pool,
                                              preemption=preemption,
                                              spec_rows=self.spec_rows)
-        self._decode = lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk)
+        self._decode = self._sharded(lambda p, t, s: fns.decode(cfg, p, t, s, chunk=chunk))
         # distinct padded prefill shapes: the reference jit-compiles once
         # per shape; the same padding keeps this counter equal to its
         self._prefill_shapes: set = set()  # owned-by: executor-thread
@@ -823,6 +862,18 @@ class ServingEngine:
         self._has_deadlines = False
 
     # -- model plumbing --------------------------------------------------------
+
+    def _sharded(self, fn):
+        """``fn`` run under the rules and mesh the engine was built under
+        (``fn`` itself without a mesh)."""
+        if self._mesh is None:
+            return fn
+        rules, mesh = self._rules, self._mesh
+
+        def run(*args, **kw):
+            with use_rules(rules, mesh):
+                return fn(*args, **kw)
+        return run
 
     @property
     def prefill_compiles(self) -> int:
@@ -1022,8 +1073,8 @@ class ServingEngine:
                 self.cfg, self.pool.total_blocks, self.block_size,
                 self.slots, self.max_blocks, self.cache_dtype,
                 device=self.device)
-        return self.fns.init_decode_state(self.cfg, self.slots, self.max_len,
-                                          self._state_dtype, device=self.device)
+        return self._sharded(self.fns.init_decode_state)(
+            self.cfg, self.slots, self.max_len, self._state_dtype, device=self.device)
 
     def _to_device(self, a) -> torch.Tensor:
         """Copy a host array (or list) to the engine's device."""

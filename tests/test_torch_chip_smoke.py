@@ -13,6 +13,12 @@ shapes); ``whisper_train_counts`` and ``vlm_train_counts``, which phases
 microbatch's train step on the CPU.  Each of the card scripts defines a
 top-level name once: a second ``def`` of a name would replace the first
 phase's function for every caller.
+
+Phase 31's helpers: ``shard_lengths`` (K3's lengths among one slice of a
+cache) and ``lse_parts`` (K3's per-shard results as ``merge_lse``'s
+partials) carry out phase 31b's split-and-merge here with K3's plain
+version, which must equal one call over the whole cache; ``lse_work``
+counts what a call with the log-sum-exp moves and does.
 """
 import ast
 import collections
@@ -100,6 +106,47 @@ def test_train_counts_are_a_microbatchs_plain_calls(arch):
     assert bf16["matmul"]["fma"] == 6 and sum(bf16["matmul"].values()) == sum(
         want["matmul"].values())
     assert set(bf16["flash_attention"]) == {"mma"}
+
+
+@pytest.mark.parametrize("lengths,offset,s_loc,want", [
+    ((1033, 700, 0, 1056, 1200, 5), 0, 528, [528, 528, 0, 528, 528, 5]),
+    ((1033, 700, 0, 1056, 1200, 5), 528, 528, [505, 172, 0, 528, 528, 0]),
+    ((132, 0, 200, 57), 132, 132, [0, 0, 68, 0]),
+    ((-3, 7), 4, 4, [0, 3]),
+], ids=["first", "last", "third_of_eight", "negative"])
+def test_shard_lengths(lengths, offset, s_loc, want):
+    assert chip_smoke.shard_lengths(lengths, offset, s_loc) == want
+
+
+@pytest.mark.parametrize("M", [2, 4, 8])
+def test_split_and_merge_helpers_equal_one_call(M):
+    """Phase 31b on the CPU with K3's plain version: the slices' results
+    through ``lse_parts`` and ``merge_lse`` equal one call (fp32, 1e-6), and
+    the lengths stay K3's (rows below the length, past S all)."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers.attention import merge_lse
+    g = torch.Generator().manual_seed(0)
+    S, lengths = 96, (95, 40, 0, 96, 130, 5)
+    q = torch.randn((len(lengths), 16, 32), generator=g)
+    k, v = (torch.randn((len(lengths), S, 2, 32), generator=g) for _ in range(2))
+    s_loc = S // M
+    parts = [decode_attention_ref(q, k[:, r * s_loc:(r + 1) * s_loc],
+                                  v[:, r * s_loc:(r + 1) * s_loc],
+                                  torch.tensor(chip_smoke.shard_lengths(lengths, r * s_loc,
+                                                                        s_loc)),
+                                  chunk=16, return_lse=True) for r in range(M)]
+    merged = merge_lse(chip_smoke.lse_parts(torch, parts))
+    assert merged.shape == (len(lengths), 1, 16, 32)
+    want = decode_attention_ref(q, k, v, torch.tensor(lengths), chunk=16)
+    assert torch.isfinite(merged).all()
+    assert (merged[:, 0] - want).abs().max() <= 1e-6
+
+
+def test_lse_work():
+    nbytes, flops = chip_smoke.lse_work((1033, 700, 0, 1056, 1200), 1056, 16, 2, 128, 2)
+    rows = 1033 + 700 + 1056 + 1056
+    assert nbytes == 2 * (2 * 5 * 16 * 128 + 2 * rows * 2 * 128) + 4 * 5 + 8 * 5 * 16
+    assert flops == 4 * 16 * 128 * rows
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_gate_check.py"])

@@ -907,6 +907,86 @@ def test_dense_decode_split_equals_paged_split_on_a_trivial_table(cuda, D, H, K,
     assert torch.equal(dense, paged)
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports the standard
+    library alone)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.float32, "fma"), (torch.bfloat16, "mma"),
+                                        (torch.bfloat16, "fma")])
+@pytest.mark.parametrize("D,H,K,S,lengths", [(64, 32, 32, 1088, (1033, 700, 257, 1200, 0)),
+                                             (128, 16, 2, 1056, (1033, 700, 0, 1056, 1200)),
+                                             (128, 16, 2, 132, (132, 0, 200, 57)),
+                                             (64, 8, 2, 17, (0, 0, 3, 17))])
+def test_dense_decode_lse_matches_plain(cuda, dtype, body, D, H, K, S, lengths):
+    """K3 with its row log-sum-exp on both bodies against the plain version
+    evaluated in fp32 (``dispatch.lse_tolerance_ratio``: out; m and l where
+    the plain l > 0; where a sequence has no live row, l 0 and m at most
+    NEG_INF / 2), with NaN in every cache row at or past the length and in
+    the allocator's free blocks; out's bits those of the call without the
+    log-sum-exp, which counts under the body's own name."""
+    q, k, v, lens = _dense_case(cuda, lengths, S, H, K, D)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kern = dispatch.kernel_table()["decode_attention"]
+    ref = kern.plain(q.float(), k.float(), v.float(), lens, return_lse=True)
+    for b, n in enumerate(lengths):
+        k[b, min(n, S):] = float("nan")
+        v[b, min(n, S):] = float("nan")
+    _chip_smoke().poison_cached_memory(torch)      # an unwritten m or l reads NaN
+    dispatch.reset_counts()
+    out, m, l = kern.launch(q, k, v, lens, return_lse=True, body=body)
+    alone = kern.launch(q, k, v, lens, body=body)
+    torch.cuda.synchronize()
+    assert kern.body_launches == {body + "_lse": 1, body: 1}
+    assert m.shape == l.shape == (len(lengths), H) and m.dtype == l.dtype == torch.float32
+    assert kern.tolerance((out, m, l), ref) <= 1.0
+    assert torch.equal(out, alone)
+    for b, n in enumerate(lengths):
+        if n <= 0:
+            assert (out[b] == 0).all() and (l[b] == 0).all() and (m[b] <= -5e29).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [2, 4, 8])
+def test_dense_decode_split_and_merge_on_the_card(cuda, dtype, M):
+    """A 1056-row cache cut into M slices, K3 with its log-sum-exp on each at
+    the shard's lengths, ``merge_lse``: within the attention limit of one
+    call over the whole cache and of the plain version, no NaN."""
+    from repro_torch.models.layers.attention import merge_lse
+    cs = _chip_smoke()
+    lengths = cs.MESH_SPLIT_LENGTHS
+    q, k, v, lens = _dense_case(cuda, lengths, 1056, 16, 2, 128)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kern = dispatch.kernel_table()["decode_attention"]
+    whole = kern.launch(q, k, v, lens)
+    ref = kern.plain(q.float(), k.float(), v.float(), lens)
+    s_loc = 1056 // M
+    parts = [kern.launch(q, k[:, r * s_loc:(r + 1) * s_loc].contiguous(),
+                         v[:, r * s_loc:(r + 1) * s_loc].contiguous(),
+                         torch.tensor(cs.shard_lengths(lengths, r * s_loc, s_loc),
+                                      dtype=torch.int32, device=cuda), return_lse=True)
+             for r in range(M)]
+    merged = merge_lse(cs.lse_parts(torch, parts))[:, 0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(merged.float()).all()
+    assert dispatch.tolerance_ratio(merged, whole) <= 1.0
+    assert dispatch.tolerance_ratio(merged, ref) <= 1.0
+
+
+def test_dense_decode_without_lse_keeps_the_parent_bits(cuda):
+    """Without the log-sum-exp K3 gives the bits of the build before it was
+    added, on both bodies (``chip_smoke.K3_PARENT_BITS``)."""
+    cs = _chip_smoke()
+    assert cs.K3_PARENT_BITS and cs.k3_digests(torch) == cs.K3_PARENT_BITS
+
+
 def _int8_operands(kp, vp, dtype):
     from repro_torch.models.transformer import dequantize_kv, quantize_kv
     (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)

@@ -31,6 +31,7 @@ from repro.serving import engine as JE
 from repro.serving import sampler as JS
 from repro_torch.configs import registry as TR
 from repro_torch.distributed import collectives as TC
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.models import hybrid as TH
@@ -167,8 +168,11 @@ def test_contiguous_decode_attention_refuses_what_is_not_ported():
     c = torch.zeros((1, 8, 2, 16))
     n = torch.zeros((1, 1, 2, 16))
     lens = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TC.seq_sharded_decode_attention(q, c, c, n, n, lens, mesh=object())
+    # a mesh without sharding rules (the mesh branch itself is ported:
+    # test_torch_collectives_mesh.py)
+    with pytest.raises(ValueError, match="mesh"):
+        with use_rules(None, object()):
+            TC.seq_sharded_decode_attention(q, c, c, n, n, lens)
     # the int8 branch is ported (test_torch_contiguous.py); an int8 cache
     # without its scales is refused
     with pytest.raises(ValueError, match="int8 pool needs"):

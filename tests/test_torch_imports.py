@@ -48,7 +48,9 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "repro_torch.checkpoint.checkpoint", "repro_torch.distributed.fault",
                  "repro_torch.data.pipeline", "repro_torch.launch.train",
                  "repro_torch.models.encdec", "repro_torch.models.layers.rope",
-                 "repro_torch.models.layers.mlp"):
+                 "repro_torch.models.layers.mlp",
+                 "repro_torch.distributed.sharding", "repro_torch.distributed.policy",
+                 "repro_torch.launch.mesh", "repro_torch.configs.specs"):
         assert name in result["modules"]
 
 
