@@ -447,7 +447,7 @@ Phases (each one raises on failure; the script then exits non-zero):
    busy share.
 30. qwen2-vl-72b training.  30a: the fp32 training path check at depths 1
    and 2, full widths, one 1 x 256 microbatch whose position streams 1 and
-   2 differ from stream 0, three seeds (``VLM_TRAIN_LIMITS``).  30b: cut to
+   2 differ from stream 0, one seed (``VLM_TRAIN_LIMITS``).  30b: cut to
    4 of its 80 layers (~6.0 B parameters), fp32 master weights, bf16
    compute, remat "full", Adafactor (the config's optimizer), 3 steps of 4
    x 512 tokens in 4 microbatches, three equal position streams: launches
@@ -478,6 +478,29 @@ Phases (each one raises on failure; the script then exits non-zero):
    at deepseek-moe-16b's MoE widths on a 256-row chunk on the model group
    of one rank, against its plain versions and, at capacity factor 8,
    ``moe_dense``; K7's batched entry 3 ``wgmma`` launches a call.
+32. Training under a device mesh.  32b: K4 and its backward on a 1 x 4
+   rank's heads of qwen2.5-3b (4 query heads, the one KV head their group
+   reads, 2 x 512, bf16) and K7 on its slices (the SwiGLU's 2752 ``ff``
+   columns: gate / up, down, the backward's dX and dW on transposed views,
+   each on ``wgmma``; the LM head's 37984 vocabulary columns read from
+   the tied table's slice transposed, bf16 on ``wgmma`` and fp32 on FMA),
+   each against its plain version, timed beside the plain version, the
+   library call and the bound.  The policy's per-card bytes of
+   parameters, gradients and optimizer state of qwen2-vl-72b (80 layers)
+   and qwen3-moe-235b-a22b under the training rules on 16 x 16, 1 x 4 and
+   2 x 4 meshes (``mesh_train_plan``, printed).  Then an NCCL world of one
+   rank and a 1 x 1 mesh, destroyed at the end: 32a, qwen2.5-3b at full
+   width cut to 4 layers, 2 steps of 4 x 512 in 2 microbatches through the
+   ``Trainer`` without the mesh and then under ``rules_for``'s training
+   rules (heads, ``ff`` and the vocabulary on model, ``seq_sp``): the
+   same bits of every metric and updated parameter, the same launches by
+   body, no plain call, the collectives printed, step times side by side,
+   a block's host time with and without the mesh.  32c: ``moe_ep``'s
+   forward and backward at deepseek-moe-16b's MoE widths on a 256-row
+   chunk against its plain versions at capacity factors 1.25 and 8, and
+   at 8 (nothing drops) against ``moe_einsum``'s output and gradients
+   through the plain versions (``TOL_MOE_EP_GRAD_REL``); K7's batched
+   entry 3 + 6 launches a call.
 
 K7 also carries every weight product of phases 4-11, 17 and 18 (the
 serving paths and GoogLeNet's classifier): phases 4, 6, 8, 10, 11, 17 and
@@ -492,10 +515,10 @@ launches from phases 4b, 19a's and 20b's int8 runs, no library call).
 Each entry's ``launches`` sums the served and trained paths that ran it:
 K1 and K2 phases 4, 18, 19a (tiered and untiered), 19c, 20a, 20b, 20c and
 27a, K3 phases 10, 17, 20d, 28c and 31c, K4 phases 10, 15, 17, 20d, 21d, 22d,
-26c, 28c, 29c, 30b and 31c,
-K4's backward 15, 21d, 22d, 26c, 29c and 30b, K5 10, 21d, 22d and 23b, K5's backward 21d and
+26c, 28c, 29c, 30b, 31c and 32a,
+K4's backward 15, 21d, 22d, 26c, 29c, 30b and 32a, K5 10, 21d, 22d and 23b, K5's backward 21d and
 22d, K6 phases 8 and 22c, K6's backward 22c, K7 phases 4, 4b, 10, 15, 17,
-18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a, 28c, 29c, 30b and 31c, K7's batched entry
+18, 19a, 19c, 20a-d, 21d, 22c, 22d, 23b, 25b, 26c, 27a, 28c, 29c, 30b, 31c and 32a, K7's batched entry
 25b and 26c (its entry also carries the decode step's shape:
 ``decode_ms``, ``decode_plain_ms``, ``decode_library_ms``,
 ``decode_bound_ms``, ``decode_bound_by``, ``decode_shape``; and its two
@@ -512,7 +535,9 @@ cross-decode shape (``whisper_encoder_*``, ``whisper_cross_*``,
 case (``lse_ms``, ``lse_nolse_ms`` without it, ``lse_fma_ms``,
 ``lse_fma_nolse_ms``, ``lse_plain_ms``, ``lse_library_ms`` none,
 ``lse_bound_ms``, ``lse_bound_by``, ``lse_shape``, ``max_abs_err_lse``);
-K4's backward the same at the encoder's and the
+K4, its backward and K7 carry phase 32b's times at a 1 x 4 rank's shapes
+(``tp4_*``; K7's ``tp4_ff_*``, ``tp4_vocab_bfloat16_*``,
+``tp4_vocab_float32_*``); K4's backward the same at the encoder's and the
 cross-attention's training shapes (``whisper_encoder_*``,
 ``whisper_cross_*``, with ``fma_ms``, the FMA body's time, and
 ``library_ms`` SDPA's backward).  The three backward kernels replace no
@@ -524,6 +549,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -961,7 +987,9 @@ WHISPER_DECODER_CONTEXT = 448
 # 29b / 30a: the fp32 training path checks, one microbatch (whisper 1 x
 # 448 tokens and 1500 frames; qwen2-vl 1 x VLM_CHECK_SEQ, streams 1 and 2
 # apart) at TRAIN_PATH_DEPTHS (whisper's encoder and decoder each), three
-# seeds (PATH_SEEDS' data draws, weights from seed 0), {depth: (loss,
+# seeds for whisper and the first for qwen2-vl (PATH_SEEDS' data draws,
+# weights from seed 0; qwen2-vl's other two seeds' 48 s pay for phase
+# 32), {depth: (loss,
 # rel, ratio)}: the loss within loss of the plain versions' (relative),
 # each gradient leaf within rel of the plain versions' largest entry, and
 # no farther from an exact-products run than ratio times the plain run
@@ -1023,6 +1051,30 @@ MESH_SPLIT_LENGTHS = (1033, 700, 0, 1056, 1200, 5)
 # same against moe_dense through the kernels.
 MOE_EP_ROWS = 256
 TOL_MOE_EP_REL = 2.0 ** -6
+# Phase 32: training under a device mesh.  32a: qwen2.5-3b at full width cut
+# to MESH_TRAIN_LAYERS layers, MESH_TRAIN_STEPS steps of MESH_TRAIN_BATCH x
+# TRAIN_SEQ in MESH_TRAIN_ACCUM microbatches, with and without a 1 x 1 mesh.
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_ACCUM = 4, 2, 4, 2
+# 32b: a rank's shapes of qwen2.5-3b on a 1 x 4 mesh, a 2 x 512 microbatch:
+# K4 on 16 / 4 query heads against the one of 2 KV heads their group reads
+# (B, S, H, K, D); K7 (tag, M, K, N, layout, dtype, the body the route must
+# pick): the SwiGLU's ff slice 11008 / 4 = 2752 -- gate / up, down, the
+# backward's dX (dY @ W^T, W^T a view) and dW (X^T @ dY, X^T a view) -- and
+# the LM head's vocabulary slice 151936 / 4 = 37984 (the tied table's
+# slice read transposed in place), bf16 and fp32 (the model's head).
+MESH_SHARD_ATTENTION = (2, TRAIN_SEQ, 4, 1, 128)
+MESH_SHARD_K7 = (("tp4_ff", 1024, 2048, 2752, "rows", "bfloat16", "wgmma"),
+                 ("tp4_ff_down", 1024, 2752, 2048, "rows", "bfloat16", "wgmma"),
+                 ("tp4_ff_dx", 1024, 2752, 2048, "y.T", "bfloat16", "wgmma"),
+                 ("tp4_ff_dw", 2048, 1024, 2752, "x.T", "bfloat16", "wgmma"),
+                 ("tp4_vocab", 1024, 2048, 37984, "y.T", "bfloat16", "wgmma"),
+                 ("tp4_vocab", 1024, 2048, 37984, "y.T", "float32", "fma"))
+# 32c: moe_ep's output and gradients through the kernels against its plain
+# versions and, where nothing drops, moe_einsum's, bf16: TOL_MOE_EP_REL's
+# bf16 roundings, and against moe_einsum also its combine weight rounded to
+# bf16 first (the reference's einsum in x's type; moe_ep's stays fp32), 2^-9
+# of a row more.
+TOL_MOE_EP_GRAD_REL = 2.0 ** -6
 
 
 def log(*a) -> None:
@@ -6239,8 +6291,8 @@ def moe_path_rel(torch, np) -> dict:
         return x.float() @ prm["router"].float()
 
     def recording(into):
-        def wrapped(cfg_moe, prm, x):
-            idx, prob, aux = route(cfg_moe, prm, x)
+        def wrapped(cfg_moe, prm, x, **kw):
+            idx, prob, aux = route(cfg_moe, prm, x, **kw)
             into.append((idx, prob, router_logits(prm, x)))
             return idx, prob, aux
         return wrapped
@@ -6248,8 +6300,8 @@ def moe_path_rel(torch, np) -> dict:
     def replaying(routes, own):
         it = iter(routes)
 
-        def wrapped(cfg_moe, prm, x):
-            idx, _, aux = route(cfg_moe, prm, x)     # the router's launch, as served
+        def wrapped(cfg_moe, prm, x, **kw):
+            idx, _, aux = route(cfg_moe, prm, x, **kw)   # the router's launch, as served
             own.append((idx, router_logits(prm, x)))
             plain_idx, prob, _ = next(it)
             return plain_idx, prob, aux
@@ -6800,8 +6852,8 @@ def moe_training_phase(torch, np, table) -> dict:
     loss_fn = make_loss_fn(cfg)
     route, routes = MOE.route, []
 
-    def recording(cfg_moe, prm, x):
-        idx, prob, a = route(cfg_moe, prm, x)
+    def recording(cfg_moe, prm, x, **kw):
+        idx, prob, a = route(cfg_moe, prm, x, **kw)
         routes.append(idx)
         return idx, prob, a
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -7334,11 +7386,11 @@ def _train_counts(cfg, micro, attentions, products) -> dict:
                        else {"fma": products * micro})}
 
 
-def family_train_path_rel(torch, np, arch) -> list:
+def family_train_path_rel(torch, np, arch, seeds=PATH_SEEDS) -> list:
     """Phases 29b and 30a's measurements.  ``arch`` (whisper-medium, its
     encoder and decoder each cut to the depth; qwen2-vl-72b) in fp32 at full
     width, weights from seed 0, cut to each of ``TRAIN_PATH_DEPTHS``; for
-    each of ``PATH_SEEDS`` one microbatch under remat "full" (whisper: 1 x
+    each of ``seeds`` one microbatch under remat "full" (whisper: 1 x
     448 tokens and 1500 frames; qwen2-vl: 1 x ``VLM_CHECK_SEQ``, position
     streams 1 and 2 drawn apart from stream 0): the loss and every gradient
     through the kernels, through the plain versions, and through the
@@ -7387,7 +7439,7 @@ def family_train_path_rel(torch, np, arch) -> list:
     counts = whisper_train_counts if audio else vlm_train_counts
     exact = lambda x, y: (x.double() @ y.double()).to(x.dtype)   # noqa: E731
     out = []
-    for seed in PATH_SEEDS:
+    for seed in seeds:
         batch = next(SyntheticTokens(full, 1, seq, seed=seed))
         if full.m_rope:
             batch["positions"][1:] = np.random.default_rng(seed).integers(0, 4 * seq,
@@ -7446,14 +7498,14 @@ def family_train_path_rel(torch, np, arch) -> list:
     return out
 
 
-def family_train_path_check(torch, np, arch, limits) -> None:
+def family_train_path_check(torch, np, arch, limits, seeds=PATH_SEEDS) -> None:
     """The gate on :func:`family_train_path_rel`: at each seed and depth the loss
     within ``limits[depth][0]`` of the plain versions' (relative), every
     gradient leaf within ``limits[depth][1]`` of its scale, no leaf of the
     kernels more than ``limits[depth][2]`` times as far from the exact
     products as the plain versions', every gradient finite, the launches
     exact by body and no plain call."""
-    for r in family_train_path_rel(torch, np, arch):
+    for r in family_train_path_rel(torch, np, arch, seeds):
         loss_tol, rel_tol, ratio_tol = limits[r["depth"]]
         log(f"{arch} training path check (fp32, full width, depth {r['depth']}, seed "
             f"{r['seed']}, remat full): loss kernels {r['loss']:.6f} exact products "
@@ -7479,8 +7531,9 @@ def whisper_train_path_check(torch, np) -> None:
 
 
 def vlm_train_path_check(torch, np) -> None:
-    """Phase 30a: :func:`family_train_path_check` on qwen2-vl-72b."""
-    family_train_path_check(torch, np, "qwen2-vl-72b", VLM_TRAIN_LIMITS)
+    """Phase 30a: :func:`family_train_path_check` on qwen2-vl-72b, at the
+    first of ``PATH_SEEDS`` (its time pays for phase 32)."""
+    family_train_path_check(torch, np, "qwen2-vl-72b", VLM_TRAIN_LIMITS, PATH_SEEDS[:1])
 
 
 def training_cell(torch, np, table, tag, cfg, want, *, steps, batch, seq, accum,
@@ -8027,6 +8080,366 @@ def mesh_phase(torch, np, table) -> tuple[dict, dict]:
     return lse, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: training under a device mesh
+# ---------------------------------------------------------------------------
+
+def mesh_training_run(torch, table, cfg, rules=None, mesh=None) -> dict:
+    """``MESH_TRAIN_STEPS`` steps of ``MESH_TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens (``SyntheticTokens``, seed 0) in ``MESH_TRAIN_ACCUM``
+    microbatches through the ``Trainer`` (weights from its seed 0, AdamW,
+    remat "full"), without a mesh or under ``rules`` on ``mesh``; the
+    counts zeroed once the state is made and read after the last step.
+    Returns the history, the parameters, the launches by body, the plain
+    calls, the collectives, the state's bytes after the init and the peak
+    in the init and in the steps, each net of what the script held before
+    the run (an earlier run's parameters)."""
+    import tempfile
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # an earlier run's parameters, kept to compare
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(num_steps=MESH_TRAIN_STEPS, ckpt_every=50, ckpt_dir=d,
+                           device="cuda")
+        tr = Trainer(cfg, iter(SyntheticTokens(cfg, MESH_TRAIN_BATCH, TRAIN_SEQ, seed=0)),
+                     tc, accum=MESH_TRAIN_ACCUM, rules=rules, mesh=mesh)
+        tr.init_state()
+        torch.cuda.synchronize()
+        state = torch.cuda.memory_allocated() - held
+        init_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counts()
+        collectives.reset_collective_counts()
+        hist = tr.train()
+        torch.cuda.synchronize()
+    bodies, plain = launched_bodies(table)
+    out = dict(history=hist, params=tr.params, bodies=bodies, plain=plain,
+               collectives=collectives.collective_counts(), state=state,
+               init_peak=init_peak, peak=torch.cuda.max_memory_allocated() - held)
+    del tr
+    return out
+
+
+def mesh_layer_host_cost(torch, cfg, params, rules, mesh) -> None:
+    """The host's time per call of one block's training forward (1 x
+    ``TRAIN_SEQ`` rows, bf16 compute, grad off), 20 back to back, through
+    ``block_apply`` without the mesh and under it (with the plan: two
+    all-gathers and two reduce-scatters on the model group)."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers.module import tree_map
+    layer = T._layers(cfg, params)[0]
+    axes = tree_map(lambda d: d.axes, T.block_table(cfg))
+    g = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=g, device="cuda").bfloat16()
+    pos = T.default_positions(cfg, torch.zeros((1, TRAIN_SEQ), dtype=torch.int32,
+                                               device="cuda"))
+    with torch.no_grad():
+        alone, alone_wall = host_us(torch, lambda: T.block_apply(cfg, layer, x, pos),
+                                    reps=20)
+        with use_rules(rules, mesh):
+            tp = TP.plan(cfg)
+            meshed, meshed_wall = host_us(
+                torch, lambda: T.block_apply(cfg, layer, x, pos, tp=tp, axes=axes),
+                reps=20)
+    log(f"mesh training: host per block forward (1 x {TRAIN_SEQ}, bf16, grad off), 20 back "
+        f"to back: without the mesh {alone:.1f} us (wall {alone_wall:.1f}), under it "
+        f"{meshed:.1f} us (wall {meshed_wall:.1f}); x {cfg.num_layers} layers "
+        f"{(meshed - alone) * cfg.num_layers / 1e3:.2f} ms more host a forward")
+
+
+def mesh_training_phase(torch, np, table, mesh) -> dict:
+    """Phase 32a: qwen2.5-3b at full width cut to ``MESH_TRAIN_LAYERS``
+    layers, bf16 compute, through the ``Trainer`` without a mesh and then
+    on ``mesh`` (1 x 1, NCCL) under ``rules_for``'s training rules (heads,
+    ``ff`` and the vocabulary on model, ``seq_sp``): every collective has
+    one rank and the arithmetic is the same, so the losses, metrics, grad
+    norms and updated parameters are held to the bit; launches by body
+    equal to the run's without the mesh, no plain call; the mesh run's
+    collectives held to the count the sharded path's structure gives (none
+    without the mesh); step times and memory side by side; the host time of a
+    block's forward with and without the mesh.  Returns the mesh run's
+    launches by kernel."""
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch.serve import card_name_and_power_limit
+    from repro_torch.optim.optimizers import leaves
+    card, watts = card_name_and_power_limit()
+    cfg = arch_registry.config("qwen2.5-3b").replace(num_layers=MESH_TRAIN_LAYERS)
+    rules = rules_for(cfg, ShapeConfig("mesh_train", "train", TRAIN_SEQ, MESH_TRAIN_BATCH),
+                      mesh)
+    r = rules.rules
+    if not (r["seq_sp"] == r["vocab"] == r["heads"] == r["ff"] == "model"):
+        raise AssertionError(f"mesh training rules: {r}")
+    runs = {"no mesh": mesh_training_run(torch, table, cfg)}
+    runs["mesh"] = mesh_training_run(torch, table, cfg, rules, mesh)
+    for tag, run in runs.items():
+        times = [h["step_time_s"] for h in run["history"]]
+        log(f"mesh training ({tag}{', 1 x 1 NCCL' if tag == 'mesh' else ''}): {cfg.name} "
+            f"L={cfg.num_layers} full width, {MESH_TRAIN_STEPS} steps of {MESH_TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} in {MESH_TRAIN_ACCUM} microbatches: losses "
+            f"{[h['loss'] for h in run['history']]} grad_norms "
+            f"{[h['grad_norm'] for h in run['history']]} step times {times} s (first "
+            f"{times[0]:.3f}s, then {statistics.mean(times[1:]):.3f}s; {card}, {watts:.0f} W) "
+            f"state after init {run['state'] / 2**30:.2f}GiB, max_memory_allocated in the "
+            f"init {run['init_peak'] / 2**30:.2f}GiB, in the steps "
+            f"{run['peak'] / 2**30:.2f}GiB; launches by body "
+            f"{run['bodies']} plain_calls={run['plain'] or 0} collectives "
+            f"{run['collectives']}")
+    m, base = runs["mesh"], runs["no mesh"]
+    keys = ("loss", "nll", "accuracy", "aux_loss", "grad_norm", "lr")
+    same_metrics = all(a[k] == b[k] for a, b in zip(m["history"], base["history"])
+                       for k in keys)
+    diffs = [(a.float() - b.float()).abs().max().item()
+             for a, b in zip(leaves(m["params"]), leaves(base["params"]))]
+    same_params = all(torch.equal(a, b) for a, b in zip(leaves(m["params"]),
+                                                        leaves(base["params"])))
+    log(f"mesh training: metrics of every step the same bits as without the mesh: "
+        f"{same_metrics}; updated parameters the same bits: {same_params} (largest "
+        f"difference {max(diffs):.3e} over {len(diffs)} leaves); launches by body the same: "
+        f"{m['bodies'] == base['bodies']}")
+    # the sharded path's collectives, all on one rank: a microbatch gathers
+    # before each block's q / k / v and FFN (forward and recompute) and
+    # reduce-scatters after o and the FFN (the recompute stops before the
+    # last); the backward transposes each; the lookup reduce-scatters and
+    # the LM head gathers, each with its backward; the vocabulary-parallel
+    # cross-entropy all-reduces five times forward and two backward.  The
+    # step adds none: a mesh axis of one rank sums no gradient or metric.
+    n, L = MESH_TRAIN_STEPS * MESH_TRAIN_ACCUM, cfg.num_layers
+    want = {"all_gather": n * (6 * L + 2), "reduce_scatter": n * (5 * L + 2),
+            "all_reduce": n * 7}
+    log(f"mesh training: collectives {m['collectives']}, by the path's structure {want}: "
+        f"{m['collectives'] == want}")
+    if not (same_metrics and same_params and m["bodies"] == base["bodies"]
+            and not m["plain"] and not base["plain"] and m["collectives"] == want
+            and not base["collectives"]):
+        raise AssertionError(f"mesh training: metrics same {same_metrics}, params same "
+                             f"{same_params} ({max(diffs)}), launches {m['bodies']} vs "
+                             f"{base['bodies']}, plain {m['plain']} / {base['plain']}, "
+                             f"collectives {m['collectives']} (want {want}) / "
+                             f"{base['collectives']}")
+    mesh_layer_host_cost(torch, cfg, m["params"], rules, mesh)
+    out = {n: sum(b.values()) for n, b in m["bodies"].items()}
+    del runs, m, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_shard_kernel_phase(torch, table) -> dict:
+    """Phase 32b: the kernels at a rank's shapes of qwen2.5-3b on a 1 x 4
+    mesh (``MESH_SHARD_*``), each against its plain version evaluated in
+    fp32 on the same values, then timed beside the plain version, the
+    library call and the bound: K4 and its backward on the rank's 4 query
+    heads and the one KV head they read (a 2 x 512 microbatch, causal,
+    bf16); K7 on the SwiGLU's ``ff`` slice of 2752 columns (gate / up,
+    down, and the backward's dX and dW on transposed views), each on
+    ``wgmma``, and on the LM head's vocabulary slice of 37984 columns,
+    bf16 on ``wgmma`` and fp32 (the model's head) on FMA.  Returns the
+    kernels line's ``tp4_*`` extras of K4, its backward and K7."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import backward_body_for
+    from repro_torch.kernels.flash_attention.ops import body_for as flash_body_for
+    from repro_torch.kernels.matmul.ops import body_for
+    fwd, bwd, k7 = table["flash_attention"], table["flash_attention_backward"], table["matmul"]
+    timer = Timer(torch)
+    B, S, H, K, D = MESH_SHARD_ATTENTION
+    q, k, v, do = attention_grad_case(torch, B, S, H, K, D, torch.bfloat16)
+    shape = f"B={B} S={S} H={H} K={K} D={D} causal bf16"
+    err_f = hold(torch, fwd, (q, k, v), f"{shape} (a 1 x 4 rank of qwen2.5-3b)", causal=True)
+    out, lse = fwd.launch(q, k, v, causal=True, with_lse=True)
+    args = (q, k, v, out, do, lse)
+    err_b = hold(torch, bwd, args, f"{shape} body={backward_body_for(q)}", causal=True)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    y = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+    dyh = do.transpose(1, 2).contiguous()
+    res = {"flash_attention": {}, "flash_attention_backward": {}, "matmul": {}}
+
+    def keep(name, tag, ms, plain_ms, library_ms, nbytes, flops, peak, shape, err):
+        r = res[name]
+        r[f"{tag}_ms"], r[f"{tag}_plain_ms"], r[f"{tag}_library_ms"] = ms, plain_ms, library_ms
+        r[f"{tag}_bound_ms"], r[f"{tag}_bound_by"] = bound(nbytes, flops, peak)
+        r[f"{tag}_shape"], r[f"max_abs_err_{tag}"] = shape, err
+        log(f"{name} timed {shape} (a 1 x 4 rank): kernel {ms:.4f}ms plain {plain_ms:.4f}ms "
+            f"library {library_ms:.4f}ms bound {r[f'{tag}_bound_ms']:.5f}ms "
+            f"({r[f'{tag}_bound_by']}; {nbytes} B, {flops} flop)")
+    pairs = B * S * (S + 1) // 2 * H * D
+    keep("flash_attention", "tp4", timer(lambda: fwd.launch(q, k, v, causal=True)),
+         timer(lambda: fwd.plain(q, k, v, causal=True)),
+         timer(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                      enable_gqa=True)),
+         2 * (2 * B * S * H * D + 2 * B * S * K * D), 4 * pairs, BF16_FLOPS,
+         f"{shape} body={flash_body_for(q)}", err_f)
+    nbytes, flops, _ = attention_backward_work(B, S, H, K, D, 2)
+    keep("flash_attention_backward", "tp4", timer(lambda: bwd.launch(*args, causal=True)),
+         timer(lambda: bwd.plain(*args, causal=True)),
+         timer(lambda: torch.autograd.grad(y, (qh, kh, vh), dyh, retain_graph=True)),
+         nbytes, flops, BF16_FLOPS, f"{shape} body={backward_body_for(q)}", err_b)
+    del y, qh, kh, vh, q, k, v, do, out, lse, args
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for tag, M, Kd, N, layout, dtype, want in MESH_SHARD_K7:
+        x, w = k7_operands(torch, M, Kd, N, layout, dtype)
+        body = body_for(x, w)
+        err = hold_matmul(torch, k7, x, w, f"{tag} ({layout}, a 1 x 4 rank)")
+        if body != want:
+            raise AssertionError(f"matmul {tag} {dtype} ({layout}): body {body}, expected "
+                                 f"{want}")
+        if tag in ("tp4_ff", "tp4_vocab"):
+            nbytes, flops = k7_work(M, Kd, N, x.element_size())
+            keep("matmul", f"{tag}_{dtype}" if tag == "tp4_vocab" else tag,
+                 timer(lambda: k7.launch(x, w)), timer(lambda: k7.plain(x, w)),
+                 timer(lambda: torch.matmul(x, w)), nbytes, flops,
+                 FP32_FLOPS if dtype == "float32" else BF16_FLOPS,
+                 f"M={M} K={Kd} N={N} {dtype} ({layout}) body={body}", err)
+        del x, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_ep_backward_phase(torch, table, mesh) -> None:
+    """Phase 32c: ``moe_ep`` forward and backward at deepseek-moe-16b's MoE
+    widths on a ``MOE_EP_ROWS``-row chunk, bf16, on the mesh's model group
+    of one rank: its output and the gradients of x, the combine weights
+    and the three expert weights (the loss ``sum(y * dy)``, dy from seed
+    1) through the kernels, each within ``TOL_MOE_EP_GRAD_REL`` of the
+    plain versions' largest entry -- of ``moe_ep``'s own at the config's
+    capacity factor and at 8, and at 8 also of ``moe_einsum``'s: the two
+    dispatches are one function only where no choice drops (at 1.25 their
+    capacities differ, the reference's as well); K7's batched entry 3
+    launches forward and 6 backward a call, none on FMA."""
+    import dataclasses
+
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import moe as MOE
+    full = arch_registry.config("deepseek-moe-16b")
+    D = full.d_model
+    g = torch.Generator("cuda").manual_seed(0)
+    E, Fd = full.moe.num_experts, full.moe.d_ff_expert
+    params = {"router": torch.randn((D, E), generator=g, device="cuda") * 0.02,
+              "w_gate": (torch.randn((E, D, Fd), generator=g, device="cuda") / D ** 0.5).bfloat16(),
+              "w_up": (torch.randn((E, D, Fd), generator=g, device="cuda") / D ** 0.5).bfloat16(),
+              "w_down": (torch.randn((E, Fd, D), generator=g, device="cuda") / Fd ** 0.5).bfloat16()}
+    x = torch.randn((1, MOE_EP_ROWS, D), generator=g, device="cuda").bfloat16()
+    dy = torch.randn((1, MOE_EP_ROWS, D), generator=torch.Generator("cuda").manual_seed(1),
+                     device="cuda").bfloat16()
+    names = ("y", "x", "prob", "w_gate", "w_up", "w_down")
+    kern = table["matmul_batched"]
+    for cf in (full.moe.capacity_factor, 8.0):
+        m = dataclasses.replace(full.moe, capacity_factor=cf)
+        with torch.no_grad():
+            idx, prob, _ = MOE.route(m, params, x)
+
+        def run(fn):
+            leaves = {"x": x.clone().requires_grad_(), "prob": prob.clone().requires_grad_(),
+                      **{n: params[n].clone().requires_grad_() for n in names[3:]}}
+            y = fn({n: leaves[n] for n in names[3:]}, leaves["x"], leaves["prob"])
+            grads = torch.autograd.grad((y.float() * dy.float()).sum(),
+                                        [leaves[n] for n in names[1:]])
+            return dict(zip(names, (y.detach(), *grads)))
+        ep = lambda w, xx, pp: MOE.moe_ep(m, w, xx, idx, pp, mesh=mesh,  # noqa: E731
+                                          model_axis="model")
+        dispatch.reset_counts()
+        got = run(ep)
+        torch.cuda.synchronize()
+        bodies = dict(kern.body_launches)
+        with dispatch.plain_versions():
+            refs = {"moe_ep": run(ep)}
+            if cf == 8.0:
+                refs["moe_einsum"] = run(lambda w, xx, pp: MOE.moe_einsum(m, w, xx, idx, pp))
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got.values())
+        bad = []
+        for ref_name, ref in refs.items():
+            rel = {n: ((got[n].float() - ref[n].float()).abs().max()
+                       / ref[n].float().abs().max().clamp(min=1e-30)).item() for n in names}
+            log(f"moe_ep backward, deepseek-moe-16b widths, {MOE_EP_ROWS} rows, capacity "
+                f"factor {cf}, model group of 1: the kernels vs {ref_name}'s plain versions, "
+                f"largest difference over the largest entry: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                + f" (limit {TOL_MOE_EP_GRAD_REL}); K7 batched launches by body {bodies}; "
+                f"finite={finite}")
+            bad += [(ref_name, k, v) for k, v in rel.items() if not v <= TOL_MOE_EP_GRAD_REL]
+        if bad or not finite or sum(bodies.values()) != 9 or "fma" in bodies:
+            raise AssertionError(f"moe_ep backward at capacity factor {cf}: {bad}, "
+                                 f"launches {bodies}, finite {finite}")
+        del got, refs
+    del params, x, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_train_plan() -> None:
+    """Per-card bytes of the parameters, their gradients and AdamW's or
+    Adafactor's state (the config's optimizer) under ``rules_for``'s
+    training rules (analytic: the policy's ``sharded_bytes_per_device`` on
+    meta tensors; fp32 master weights and gradients), for qwen2-vl-72b at
+    80 layers and qwen3-moe-235b-a22b, on the production 16 x 16 mesh and
+    on 1 x 4 and 2 x 4 meshes of H100s, 4 x 4096 tokens; and the
+    ``Trainer``'s peak in its init there: the parameters' and state's
+    slices and the largest leaf it draws whole before it cuts it (one
+    layer of a stacked leaf)."""
+    import torch
+
+    from repro_torch.common import dtype_of
+    from repro_torch.configs import registry as arch_registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.specs import abstract_params
+    from repro_torch.distributed import policy
+    from repro_torch.distributed.sharding import MeshShape, rules_for
+    from repro_torch.models.registry import fns_for
+    from repro_torch.optim.optimizers import leaves, make_optimizer
+    for arch in ("qwen2-vl-72b", "qwen3-moe-235b-a22b"):
+        cfg = arch_registry.config(arch)
+        params = abstract_params(cfg)
+        opt = make_optimizer(cfg)
+        state = opt.init(params)
+        axes = policy.param_axes(cfg)
+        drawn = max(math.prod((d.layer or d).shape) for d in leaves(fns_for(cfg).table(cfg)))
+        drawn *= torch.empty((), dtype=dtype_of(cfg.param_dtype)).element_size()
+        for shape in ((16, 16), (1, 4), (2, 4)):
+            mesh = MeshShape(("data", "model"), shape)
+            rules = rules_for(cfg, ShapeConfig("train_4k", "train", 4096, 16 * shape[0]),
+                              mesh)
+            p = policy.sharded_bytes_per_device(params, axes, rules, mesh)
+            s = policy.sharded_bytes_per_device(state, opt.state_axes(axes), rules, mesh)
+            log(f"mesh train plan {shape[0]} x {shape[1]}: {arch} fp32 params "
+                f"{p / 2**30:.2f} GiB + gradients {p / 2**30:.2f} GiB + {cfg.optimizer} state "
+                f"{s / 2**30:.2f} GiB = {(2 * p + s) / 2**30:.2f} GiB a card (activations "
+                f"aside); the Trainer's init peaks at {(p + s + drawn) / 2**30:.2f} GiB "
+                f"(one leaf drawn whole, {drawn / 2**30:.2f} GiB); rules "
+                f"embed={rules.rules['embed']} heads={rules.rules['heads']} "
+                f"kv_heads={rules.rules['kv_heads']} ff={rules.rules['ff']} "
+                f"experts={rules.rules['experts']}")
+        del params, state
+    del torch
+
+
+def mesh_train_phase(torch, np, table) -> tuple[dict, dict]:
+    """Phase 32: 32b, the training plan, then 32a and 32c inside an NCCL
+    world of one rank, destroyed at the end.  Returns (32b's extras by
+    kernel, 32a's mesh launches by kernel)."""
+    import torch.distributed as dist
+    extras = mesh_shard_kernel_phase(torch, table)
+    mesh_train_plan()
+    mesh = nccl_world(torch)
+    try:
+        launches = mesh_training_phase(torch, np, table, mesh)
+        moe_ep_backward_phase(torch, table, mesh)
+    finally:
+        dist.destroy_process_group()
+    return extras, launches
+
+
 TRAIN_EXTRAS = tuple(f"train_{p}_{k}" for p in ("dx", "dw") for k in (
     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape", "wgmma_ms",
     "persistent_ms"))
@@ -8157,6 +8570,9 @@ def main() -> int:
     vlm_trained = timed("30b vlm training", vlm_training_phase, torch, np, table)
     lse, mesh_served = timed("31 mesh serving", mesh_phase, torch, np, table)
     results["decode_attention"].update(lse)
+    tp4, mesh_trained = timed("32 mesh training", mesh_train_phase, torch, np, table)
+    for name, extra in tp4.items():
+        results[name].update(extra)
     # the trained paths: qwen2.5-3b's K4 and its backward (phase 15), and
     # zamba2's K5, K4, their backward kernels and K7 (21d)
     launches["flash_attention"] += trained["flash_attention"]
@@ -8172,7 +8588,7 @@ def main() -> int:
                         + list(moe_served.items()) + list(moe_trained.items())
                         + list(vlm_served.items()) + list(whisper_served.items())
                         + list(whisper_trained.items()) + list(vlm_trained.items())
-                        + list(mesh_served.items())):
+                        + list(mesh_served.items()) + list(mesh_trained.items())):
         launches[name] += count
     # each entry counts every served or trained path that ran it
     launches["matmul"] += bf16_serving["matmul"] + int8_serving["matmul"] + hybrid["matmul"]
@@ -8211,6 +8627,10 @@ def main() -> int:
             # cross-decode shapes; K3 with its row log-sum-exp
             if extra in r:
                 kernels[-1][extra] = r[extra]
+        for extra, v in r.items():
+            # phase 32b: K4, its backward and K7 at a 1 x 4 rank's shapes
+            if extra.startswith(("tp4", "max_abs_err_tp4")):
+                kernels[-1][extra] = v
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}ms"
         if "sdpa_dequantized_ms" in r:
             lib += (f" (SDPA on the dequantized bf16 tensors, not the same function, "

@@ -1,5 +1,15 @@
-"""Explicit collectives: distributed flash-decode (log-sum-exp merge) over a
+"""Explicit collectives: the differentiable ones the sharded train step is
+built from, and distributed flash-decode (log-sum-exp merge) over a
 sequence-sharded KV cache (counterpart of ``repro/distributed/collectives.py``).
+
+The reference's GSPMD inserts and differentiates its collectives itself.
+Here each is a ``torch.autograd.Function`` whose backward is the
+transpose of its forward: :func:`all_reduce` (sum) is its own,
+:func:`all_gather_dim` and :func:`reduce_scatter_dim` are each other's,
+and :func:`all_to_all` is its own.  A gather whose consumer runs the same
+arithmetic on every rank (``consumer="replicated"``) holds the whole
+gradient on every rank already, and its backward is the rank's slice; a
+reduce-scatter there would count it once a rank.
 
 During decode the KV cache dominates memory.  Under rules that put the
 logical ``kv_seq`` axis on a mesh axis of M ranks, each rank holds a
@@ -57,7 +67,8 @@ _COUNTS = _Counts()
 
 def collective_counts() -> dict[str, int]:
     """Collectives issued since the last :func:`reset_collective_counts`,
-    by name ("all_gather", "all_to_all")."""
+    by name ("all_gather", "all_reduce", "reduce_scatter", "all_to_all"),
+    backward passes' included."""
     return _COUNTS.snapshot()
 
 
@@ -84,15 +95,168 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     return parts
 
 
-def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
-    """``t``'s equal blocks along dim 0 sent one to each rank of ``group``,
-    in group-rank order; returns the blocks received, in the same order
-    (one ``all_to_all_single``, counted)."""
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
     out = torch.empty_like(t)
     _COUNTS.add("all_to_all")
     dist.all_to_all_single(out, t.contiguous(), group=group)
     return out
+
+
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    import torch.distributed as dist
+    out = t.contiguous().clone()
+    _COUNTS.add("all_reduce")
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=group)
+    return out
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum the contiguous ``t`` over ``group`` in place, no gradient (one
+    ``all_reduce``, counted): the step's gradient sums."""
+    import torch.distributed as dist
+    _COUNTS.add("all_reduce")
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    _COUNTS.add("all_gather")
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide into {n} ranks")
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    _COUNTS.add("reduce_scatter")
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _rank_slice(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    step = t.shape[dim] // n
+    return t.narrow(dim, r * step, step).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    """Equal blocks along dim 0 swapped across the group; the backward
+    sends each block's gradient back the way it came: the same swap."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the group; the backward sums the gradient over it too
+    (each rank's input reaches every rank's output)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The group's slices concatenated along ``dim``.  Backward: a
+    reduce-scatter where each rank's consumer holds a partial sum of the
+    gradient, the rank's own slice where the consumer is replicated."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, replicated):
+        ctx.dim, ctx.group, ctx.replicated = dim, group, replicated
+        return _gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicated:
+            return _rank_slice(g, ctx.dim, ctx.group), None, None, None
+        return _scatter_dim(g, ctx.dim, ctx.group), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over the group, each rank keeping its slice along ``dim``;
+    backward: the slices' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s equal blocks along dim 0 sent one to each rank of ``group``,
+    in group-rank order; returns the blocks received, in the same order
+    (one ``all_to_all_single``, counted).  Differentiable: the backward is
+    the same swap of the gradient."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllToAll.apply(t, group)
+    return _all_to_all(t, group)
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (or, ``op="max"``, the maximum, no gradient) of ``t`` over
+    ``group``, on every rank (one ``all_reduce``, counted).  The sum is
+    differentiable: its backward all-reduces the gradient."""
+    if op == "sum" and torch.is_grad_enabled() and t.requires_grad:
+        return _AllReduce.apply(t, group)
+    return _all_reduce(t.detach() if op == "max" else t, group, op)
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group, *,
+                   consumer: str = "partial") -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along ``dim`` in
+    group-rank order (one ``all_gather``, counted).  ``consumer`` says what
+    the backward gets: "partial" -- each rank's gradient is its share of a
+    sum (the products that follow run on the rank's heads, columns or
+    vocabulary), so the backward reduce-scatters it; "replicated" -- every
+    rank computes the same thing from the whole, holds the whole gradient,
+    and the backward takes its slice."""
+    if consumer not in ("partial", "replicated"):
+        raise ValueError(f"consumer {consumer!r}")
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllGather.apply(t, dim, group, consumer == "replicated")
+    return _gather_dim(t, dim, group)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, each rank keeping its slice along
+    ``dim`` (one ``reduce_scatter``, counted); the backward all-gathers."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ReduceScatter.apply(t, dim, group)
+    return _scatter_dim(t, dim, group)
+
+
+def gather_whole(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t``'s slices along ``dim`` from every rank of ``group``, without a
+    gradient (checkpoints and tests gather a sharded tree back so)."""
+    with torch.no_grad():
+        return _gather_dim(t.detach(), dim, group)
 
 
 def _write_row(buf, row, lengths, offset: int, s_loc: int):

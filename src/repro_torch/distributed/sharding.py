@@ -9,10 +9,14 @@ reference's decisions.
 The reference hands its specs to GSPMD, which places every array.  The port
 runs explicit SPMD over ``torch.distributed``: every rank runs the same
 program on its local slice of whatever the rules shard (:func:`local_slice`,
-:func:`placements` for DTensor), and the code that crosses ranks calls the
-collectives itself (:mod:`repro_torch.distributed.collectives`,
-:func:`repro_torch.models.layers.moe.moe_ep`).  Weights stay replicated on
-every rank: :func:`constrain` is the identity.
+:func:`shard_tree`, :func:`placements` for DTensor), and the code that
+crosses ranks calls the collectives itself
+(:mod:`repro_torch.distributed.collectives`,
+:mod:`repro_torch.distributed.tensor_parallel`,
+:func:`repro_torch.models.layers.moe.moe_ep`).  :func:`constrain` is the
+identity: a layout change is an explicit collective in the layer that
+needs it.  Serving keeps the weights whole on every rank; training cuts
+them, their gradients and the optimizer state into each rank's slices.
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over an
 initialised world (:func:`repro_torch.launch.mesh.make_host_mesh`), or, for
@@ -26,6 +30,8 @@ import contextlib
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
@@ -114,11 +120,11 @@ def logical_to_spec(axes: Sequence[str | None],
 
 
 def constrain(x, *axes: str | None):
-    """The reference's sharding annotation.  The port keeps weights and
-    activations replicated on every rank outside the code that shards by
-    hand (the sequence-sharded decode, expert parallelism), so this is the
-    identity on a local tensor: the numbers the reference computes under
-    GSPMD are the same numbers."""
+    """The reference's sharding annotation.  Every port tensor is already
+    the rank's local slice, and the code that changes a layout calls its
+    collective itself (the sequence-sharded decode, tensor and sequence
+    parallelism, expert parallelism), so this is the identity: the
+    numbers the reference computes under GSPMD are the same numbers."""
     del axes
     return x
 
@@ -177,6 +183,56 @@ def placements(spec: tuple, mesh) -> list:
                 raise ValueError(f"mesh axis {names[i]!r} shards two dims")
             out[i] = Shard(dim)
     return out
+
+
+def _is_axes(a) -> bool:
+    """A leaf's logical axes: a plain tuple of names (NamedTuples and lists
+    are containers)."""
+    return (isinstance(a, tuple) and not hasattr(a, "_fields")
+            and all(x is None or isinstance(x, (str, tuple)) for x in a))
+
+
+def map_with_axes(fn, tree, axes_tree):
+    """``fn(leaf, axes)`` over a tree of tensors beside its axes tree."""
+    if _is_axes(axes_tree):
+        return fn(tree, axes_tree)
+    if isinstance(axes_tree, Mapping):
+        if set(tree) != set(axes_tree):
+            raise ValueError(f"keys {sorted(tree)} against axes {sorted(axes_tree)}")
+        return {k: map_with_axes(fn, tree[k], axes_tree[k]) for k in tree}
+    return type(tree)(map_with_axes(fn, t, a) for t, a in zip(tree, axes_tree, strict=True))
+
+
+def shard_tree(tree, axes_tree, rules: ShardingRules, mesh,
+               coordinate: Sequence[int] | None = None):
+    """The calling rank's slices of ``tree`` (tensors beside their logical
+    axes), each a contiguous clone: a view would keep the whole tensor's
+    storage alive, and the rank's bytes would not fall."""
+    return map_with_axes(lambda t, ax: local_part(t, ax, rules, mesh, coordinate),
+                         tree, axes_tree)
+
+
+def local_part(t: torch.Tensor, axes, rules: ShardingRules, mesh,
+               coordinate: Sequence[int] | None = None) -> torch.Tensor:
+    """The calling rank's slice of ``t`` (logical ``axes``), a contiguous
+    copy (:func:`shard_tree`'s leaf)."""
+    part = t[local_slice(t.shape, rules.spec(list(axes)), mesh, coordinate)]
+    return part.clone(memory_format=torch.contiguous_format)
+
+
+def gather_tree(tree, axes_tree, rules: ShardingRules, mesh):
+    """Undo :func:`shard_tree` on every rank: each leaf all-gathered along
+    every dim its spec shards, minor mesh axis first, so the whole tensor
+    comes back on every rank (one ``all_gather`` a sharded dim and mesh
+    axis; every rank of the mesh must call it)."""
+    from repro_torch.distributed.collectives import gather_whole
+
+    def whole(t, ax):
+        for dim, entry in enumerate(rules.spec(list(ax))):
+            for name in reversed(_mesh_axes(entry)):
+                t = gather_whole(t, dim, mesh.get_group(name))
+        return t
+    return map_with_axes(whole, tree, axes_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -293,16 +349,17 @@ def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh,
 def shard_of(mesh, rules: ShardingRules | None, logical: str) -> tuple[int, int]:
     """(number of shards, this rank's index) of the logical axis
     ``logical`` on ``mesh`` under ``rules``: (1, 0) without a mesh or where
-    the rules leave it unsharded.  Only a single mesh axis is taken."""
+    the rules leave it unsharded.  An entry that names several mesh axes,
+    such as ``("pod", "data")``, counts their shards together, major to
+    minor in the order named (:func:`local_slice`'s order)."""
     if mesh is None or rules is None:
         return 1, 0
-    entry = rules.rules.get(logical)
-    if entry is None:
-        return 1, 0
-    if not isinstance(entry, str):
-        raise ValueError(f"{logical!r} on {entry!r}: one mesh axis is taken here")
-    size = _mesh_axis_size(mesh, entry)
-    return size, (mesh.get_local_rank(entry) if size > 1 else 0)
+    parts, index = 1, 0
+    for ax in _mesh_axes(rules.rules.get(logical)):
+        size = _mesh_axis_size(mesh, ax)
+        parts, index = parts * size, index * size + (mesh.get_local_rank(ax)
+                                                     if size > 1 else 0)
+    return parts, index
 
 
 def seq_rows(n: int, logical: str = "kv_seq") -> tuple[int, int]:

@@ -55,22 +55,27 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def qkv_project(cfg, params, x: torch.Tensor, positions: torch.Tensor | None):
+def qkv_project(cfg, params, x: torch.Tensor, positions: torch.Tensor | None,
+                kv_span: slice | None = None):
     """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd), RoPE applied:
     M-RoPE when ``cfg.m_rope`` (positions (3, B, S)), else positions (B, S).
+    Under tensor parallelism ``params`` hold the rank's heads; where the
+    KV heads are replicated, ``kv_span`` names those the rank's query heads
+    read (their GQA group), and only they are projected.
 
     The reference casts each fp32 weight to the compute dtype before every
     product; the engine casts once at load instead
     (:func:`repro_torch.models.transformer.prepare_params`), which gives the
     same numbers, and ``.to`` here is then a no-op."""
     dt = x.dtype
+    kv = slice(None) if kv_span is None else kv_span
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(x, params["wk"][:, kv])
+    v = _proj(x, params["wv"][:, kv])
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        k = k + params["bk"][kv].to(dt)
+        v = v + params["bv"][kv].to(dt)
     if cfg.qk_norm:
         q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps)

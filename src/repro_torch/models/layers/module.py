@@ -90,23 +90,32 @@ def cast_product_weights(params: Any, names: tuple[str, ...], dtype,
     return walk(params)
 
 
-def _draw(gen: torch.Generator, d: ParamDef, dtype, out_dtype) -> torch.Tensor:
-    """Leaf ``d`` drawn in ``dtype`` and stored in ``out_dtype``: a stacked
-    leaf a layer at a time, each layer cast before the next is drawn."""
-    if d.layer is None or out_dtype == dtype:
-        return d.init(gen, d.shape, dtype).to(out_dtype)
-    out = torch.empty(d.shape, dtype=out_dtype, device=gen.device)
+def _draw(gen: torch.Generator, d: ParamDef, dtype, out_dtype,
+          place=None) -> torch.Tensor:
+    """Leaf ``d`` drawn in ``dtype`` and stored in ``out_dtype``, and cut by
+    ``place``: a stacked leaf a layer at a time, each layer cast and cut
+    before the next is drawn."""
+    if d.layer is None or (out_dtype == dtype and place is None):
+        t = d.init(gen, d.shape, dtype).to(out_dtype)
+        return t if place is None else place(t, d.axes)
+    out = None
     for i in range(d.shape[0]):
-        out[i] = _draw(gen, d.layer, dtype, out_dtype)
+        t = _draw(gen, d.layer, dtype, out_dtype, place)
+        if out is None:
+            out = torch.empty((d.shape[0], *t.shape), dtype=out_dtype, device=t.device)
+        out[i] = t
     return out
 
 
-def init_table(gen: torch.Generator, table: Table, dtype, cast=None) -> Any:
+def init_table(gen: torch.Generator, table: Table, dtype, cast=None,
+               place=None) -> Any:
     """Initialize every leaf on ``gen``'s device, in table order.  ``cast``
     (names, dtype): the leaves of those names are stored in that dtype --
     the numbers of :func:`cast_product_weights` after a plain init, drawn
     from the generator in the same order, but a layer at a time, so the
-    whole tree is never resident in ``dtype``."""
+    whole tree is never resident in ``dtype``.  ``place(leaf, axes)``: what
+    is kept of each drawn leaf, of a stacked leaf each layer (a mesh rank's
+    slice: then only one layer of one leaf is ever resident whole)."""
     dt = dtype_of(dtype)
     names, out_dt = (cast[0], dtype_of(cast[1])) if cast else ((), dt)
 
@@ -115,5 +124,5 @@ def init_table(gen: torch.Generator, table: Table, dtype, cast=None) -> Any:
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v, name) for v in tree)
-        return _draw(gen, tree, dt, out_dt if name in names else dt)
+        return _draw(gen, tree, dt, out_dt if name in names else dt, place)
     return walk(table)

@@ -27,7 +27,10 @@ product.  Two dispatch strategies, as the reference's without a mesh:
     to the rank that owns its expert with fixed-capacity ``all_to_all``s,
     runs its ``E / M`` local experts on K7's batched entry, and sends the
     rows back with one more; the slices are then gathered back along the
-    axis.  Forward only: its gradient comes with the sharded trainer.
+    axis (in training the rows stay the rank's: the stream is sequence
+    sharded already).  Differentiable: each all-to-all's backward is the
+    same swap of the gradient, and the local experts' dX / dW run K7's
+    batched entry.
 
 :func:`moe_apply` picks ``moe_ep`` by the reference's rule and
 :func:`moe_einsum` otherwise.  DeepSeekMoE's shared experts and first-k
@@ -41,8 +44,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import (all_gather, all_to_all,
+from repro_torch.distributed.collectives import (all_gather_dim, all_to_all,
                                                  require_process_group)
+from repro_torch.distributed.tensor_parallel import sum_over
 from repro_torch.distributed.sharding import axis_sizes, current_mesh, current_rules
 from repro_torch.models.layers.linear import batched_matmul, matmul
 from repro_torch.models.layers.module import weight
@@ -60,14 +64,17 @@ def moe_table(d_model: int, num_experts: int, d_ff_expert: int):
     }
 
 
-def route(cfg_moe, params, x: torch.Tensor):
+def route(cfg_moe, params, x: torch.Tensor, *, tp=None):
     """Top-k routing decisions and the Switch-style load-balance aux loss.
 
     x: (B, S, D) activations.  Returns idx (B, S, k) int64 expert ids, in
     descending probability; prob (B, S, k) fp32 combine weights (divided by
     their sum where ``norm_topk_prob``); the aux loss, a 0-dim fp32 tensor.
     The router's logits are ``x.float() @ router.float()``: an fp32 product
-    through K7."""
+    through K7.  Under a training plan ``tp`` x holds the rank's rows: the
+    token fractions and mean probabilities the aux loss multiplies are
+    summed over every rank's rows (:meth:`Plan.row_axes`) first, so the
+    aux loss is the whole batch's, the same on every rank."""
     e = cfg_moe.num_experts
     logits = matmul(x.float(), params["router"].float())        # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
@@ -76,8 +83,16 @@ def route(cfg_moe, params, x: torch.Tensor):
         prob = prob / torch.clamp(prob.sum(-1, keepdim=True), min=1e-9)
     # aux = E * mean_e( frac_tokens(e) * mean_prob(e) )  (Switch eq. 4)
     one_hot = F.one_hot(idx, e).float()                        # (B, S, k, E)
-    frac = one_hot.sum(2).mean((0, 1))                          # (E,)
-    mean_p = probs.mean((0, 1))                                 # (E,)
+    if tp is None:
+        frac = one_hot.sum(2).mean((0, 1))                      # (E,)
+        mean_p = probs.mean((0, 1))                             # (E,)
+    else:
+        axes = tp.row_axes()
+        n = x.shape[0] * x.shape[1]
+        for ax in axes:
+            n *= axis_sizes(tp.mesh)[ax]
+        frac = sum_over(one_hot.sum(2).sum((0, 1)), axes, tp.mesh) / n
+        mean_p = sum_over(probs.sum((0, 1)), axes, tp.mesh) / n
     aux = e * (frac * mean_p).sum() / cfg_moe.top_k
     return idx, prob.float(), aux * cfg_moe.router_aux_loss_weight
 
@@ -270,8 +285,10 @@ def _ep_local(x_loc, idx_loc, prob_loc, w_gate, w_up, w_down, *, cfg_moe, group,
     keep2 = pos2 < c_exp
     slot2 = torch.where(keep2, recv_eid * c_exp + pos2, e_local * c_exp)
     buf = _scatter_rows(recv, slot2, e_local * c_exp)
-    mine = slice(rank * e_local, (rank + 1) * e_local)
-    ys = expert_ffn(w_gate[mine], w_up[mine], w_down[mine],
+    if w_gate.shape[0] != e_local:       # whole weights: take the rank's experts
+        mine = slice(rank * e_local, (rank + 1) * e_local)
+        w_gate, w_up, w_down = w_gate[mine], w_up[mine], w_down[mine]
+    ys = expert_ffn(w_gate, w_up, w_down,
                     buf.view(e_local, c_exp, D)).reshape(e_local * c_exp, D)
 
     # the rows go back through the same slots
@@ -280,41 +297,45 @@ def _ep_local(x_loc, idx_loc, prob_loc, w_gate, w_up, w_down, *, cfg_moe, group,
     return contrib.view(T, k, D).sum(1).to(x_loc.dtype).view(Bl, Sl, D)
 
 
-def moe_ep(cfg_moe, params, x, idx, prob, *, mesh, model_axis: str):
+def moe_ep(cfg_moe, params, x, idx, prob, *, mesh, model_axis: str,
+           local_rows: bool = False):
     """Expert-parallel dispatch over the mesh axis ``model_axis`` of M
     ranks.  x: (B, S, D), idx / prob: (B, S, k): this rank's batch, the same
     on every rank of the axis (S % M == 0, E % M == 0).  Each rank takes
     the sequence slice ``[rank S / M, (rank + 1) S / M)`` (the reference's
     reshard of ``seq`` onto the axis), runs :func:`_ep_local` -- its rows
     and their local expert ids out and the rows back, three
-    ``all_to_all``s on the axis's group -- and the
-    slices are all-gathered back: returns (B, S, D) in x's type, the same
-    on every rank.  Forward only: an input that requires grad raises, as
-    does a mesh with no initialised process group."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *(params[n] for n in ("w_gate", "w_up", "w_down")))):
-        raise NotImplementedError("moe_ep has no backward yet: it comes with the "
-                                  "sharded trainer")
+    ``all_to_all``s on the axis's group -- and the slices are all-gathered
+    back: returns (B, S, D) in x's type, the same on every rank (the
+    gather's consumer is replicated, so its backward takes the rank's
+    slice).  ``local_rows``: x, idx and prob are the rank's slice already
+    (training's sequence-sharded stream) and so is the output.  The
+    expert weights are whole, or the rank's E / M experts (sharded
+    training).  Differentiable; a mesh with no initialised process group
+    raises."""
     require_process_group()
     M = axis_sizes(mesh)[model_axis]
     rank = mesh.get_local_rank(model_axis)
     group = mesh.get_group(model_axis)
     B, S, D = x.shape
-    if S % M or cfg_moe.num_experts % M:
+    if (not local_rows and S % M) or cfg_moe.num_experts % M:
         raise ValueError(f"moe_ep: S {S} and {cfg_moe.num_experts} experts must divide "
                          f"into {M} ranks")
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+    if local_rows:
+        return _ep_local(x, idx, prob, *w, cfg_moe=cfg_moe, group=group, model_size=M,
+                         rank=rank)
     part = slice(rank * (S // M), (rank + 1) * (S // M))
-    y = _ep_local(x[:, part], idx[:, part], prob[:, part], params["w_gate"], params["w_up"],
-                  params["w_down"], cfg_moe=cfg_moe, group=group, model_size=M, rank=rank)
-    return torch.cat(all_gather(y, group), dim=1)
+    y = _ep_local(x[:, part], idx[:, part], prob[:, part], *w, cfg_moe=cfg_moe,
+                  group=group, model_size=M, rank=rank)
+    return all_gather_dim(y, 1, group, consumer="replicated")
 
 
 def moe_apply(cfg_moe, params, x, idx, prob):
     """The reference's strategy choice: :func:`moe_ep` under a mesh whose
     ``experts`` axis (the current rules') has more than one rank and
     divides both the sequence and the experts, :func:`moe_einsum`
-    otherwise (a decode step, one card).  Differentiable only through
-    ``moe_einsum``."""
+    otherwise (a decode step, one card).  Differentiable."""
     mesh, rules = current_mesh(), current_rules()
     if mesh is not None and rules is not None:
         model_axis = rules.rules.get("experts")

@@ -62,6 +62,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import dtype_of
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.collectives import seq_sharded_decode_attention
 from repro_torch.distributed.sharding import current_mesh, current_rules, seq_rows
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
@@ -75,7 +76,7 @@ from repro_torch.models.layers.embedding import embed, embedding_table
 from repro_torch.models.layers.embedding import logits as lm_logits
 from repro_torch.models.layers.mlp import swiglu, swiglu_table
 from repro_torch.models.layers.module import (cast_product_weights, init_table,
-                                              stack_table)
+                                              stack_table, tree_map)
 from repro_torch.models.layers.norms import apply_norm, norm_table
 
 
@@ -392,25 +393,36 @@ def _flash_attend(cfg, q, k, v, chunk):
                            causal=True, chunk=chunk)
 
 
-def _ffn_apply(cfg, p, h, aux_out):
+def _ffn_apply(cfg, p, h, aux_out, tp=None):
     """The FFN half of a block: the dense SwiGLU, or the routed experts
     (their capacity dispatch) plus the shared experts' SwiGLU, added after.
-    A routed block appends its aux loss to ``aux_out`` when it is a list."""
+    A routed block appends its aux loss to ``aux_out`` when it is a list.
+    Under a training plan ``tp`` (``h`` in the stream's layout) the SwiGLU
+    reads the whole sequence (:func:`TP.enter`) on the rank's ``ff``
+    columns and leaves its partial sums in the stream's layout; the router
+    reads the rank's own rows with the load-balance sums taken over every
+    rank's rows, and on a model axis of more than one rank the routed
+    experts run expert-parallel on those rows (``moe_ep``)."""
     if "moe" not in p:
-        return swiglu(p["mlp"], h)
+        return TP.leave(tp, swiglu(p["mlp"], TP.enter(tp, h)))
     m = cfg.moe
-    idx, prob, aux = MOE.route(m, p["moe"], h)
+    idx, prob, aux = MOE.route(m, p["moe"], h, tp=tp)
     if aux_out is not None:
         aux_out.append(aux)
-    out = MOE.moe_apply(m, p["moe"], h, idx, prob)
+    if tp is not None and tp.model_size > 1:
+        out = MOE.moe_ep(m, p["moe"], h, idx, prob, mesh=tp.mesh, model_axis=tp.model,
+                         local_rows=True)
+    else:
+        out = MOE.moe_apply(m, p["moe"], h, idx, prob)
     if m.num_shared_experts:
-        out = out + swiglu(p["shared"], h)
+        out = out + TP.leave(tp, swiglu(p["shared"], TP.enter(tp, h)))
     return out
 
 
 def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
                 cache_scales=None, kv_len=None, block_tables=None,
-                paged_prefill=None, kv_out=None, aux_out=None, chunk=1024):
+                paged_prefill=None, kv_out=None, aux_out=None, chunk=1024,
+                tp=None, axes=None):
     """One transformer block.
 
     Without a cache: causal self-attention over the whole of x (B, S, D)
@@ -429,9 +441,19 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
     ``cache_scales``: this layer's (k_scale, v_scale) when the cache or
     pool is int8.  ``aux_out``: a list that an MoE block's router appends
     its aux loss to.
+
+    ``tp``: a training plan (no cache), ``x`` the stream in its layout (the
+    rank's S / M rows under ``seq_sp``), ``p`` the rank's slices of the
+    block's parameters, whose logical ``axes`` FSDP gathers here (so a
+    checkpointed block gathers again in its recompute).  The normed rows
+    are gathered before the q / k / v products, K4 runs on the rank's
+    heads (and, where the KV heads are whole, on those its heads read),
+    and the output product's partial sums go back to the stream's layout.
     """
+    p = TP.gather_params(tp, p, axes)
     h = apply_norm(cfg, p["ln1"], x)
-    q, k, v = A.qkv_project(cfg, p["attn"], h, positions)
+    q, k, v = A.qkv_project(cfg, p["attn"], TP.enter(tp, h), positions,
+                            kv_span=TP.kv_head_span(cfg, tp))
     if cache_k is None:
         attn = _flash_attend(cfg, q, k, v, chunk)
         if kv_out is not None:
@@ -448,11 +470,11 @@ def block_apply(cfg, p, x, positions, *, cache_k=None, cache_v=None,
     else:
         attn = _paged_attend(cfg, q, k, v, cache_k, cache_v, cache_scales,
                              block_tables, kv_len, chunk)
-    attn = A.attn_output(cfg, p["attn"], attn)
+    attn = TP.leave(tp, A.attn_output(cfg, p["attn"], attn))
     if cfg.parallel_block:
-        return x + attn + _ffn_apply(cfg, p, h, aux_out)
+        return x + attn + _ffn_apply(cfg, p, h, aux_out, tp)
     x = x + attn
-    return x + _ffn_apply(cfg, p, apply_norm(cfg, p["ln2"], x), aux_out)
+    return x + _ffn_apply(cfg, p, apply_norm(cfg, p["ln2"], x), aux_out, tp)
 
 
 def _unstack_layers(tree: Any, num: int) -> list:
@@ -475,7 +497,8 @@ def _layers(cfg, params) -> list:
     return dense + _unstack_layers(params["blocks"], cfg.num_layers - len(dense))
 
 
-def _scan_blocks(cfg, layers, x, positions, *, remat, aux_out=None, chunk=1024):
+def _scan_blocks(cfg, layers, x, positions, *, remat, aux_out=None, chunk=1024,
+                 tp=None, axes=None):
     """Every layer without a cache (training; the reference's unrolled
     dense blocks and its ``lax.scan``, ``:411-462``).  ``cfg.remat``: ``"none"`` runs
     the blocks as they are; ``"full"`` keeps only each block's input and
@@ -487,30 +510,34 @@ def _scan_blocks(cfg, layers, x, positions, *, remat, aux_out=None, chunk=1024):
     value the reference does not know runs as ``"full"``, as its
     ``_REMAT_POLICIES.get(cfg.remat, full)`` does.  A recomputed MoE block
     appends its aux loss to ``aux_out`` again in the backward, after the
-    forward has summed it."""
+    forward has summed it.  ``tp`` / ``axes``: a training plan and each
+    layer's parameter axes (:func:`block_apply`)."""
     policy = cfg.remat if remat else "none"
-    for p in layers:
+    for p, ax in zip(layers, axes or [None] * len(layers)):
         if policy == "none":
-            x = block_apply(cfg, p, x, positions, aux_out=aux_out, chunk=chunk)
+            x = block_apply(cfg, p, x, positions, aux_out=aux_out, chunk=chunk, tp=tp,
+                            axes=ax)
         elif policy == "dots":
             x = checkpoint(_block_keeping_products, linear.KeptProducts(), cfg, p, x,
-                           positions, chunk, aux_out, use_reentrant=False)
+                           positions, chunk, aux_out, tp, ax, use_reentrant=False)
         else:
             x = checkpoint(block_apply, cfg, p, x, positions, aux_out=aux_out,
-                           chunk=chunk, use_reentrant=False)
+                           chunk=chunk, tp=tp, axes=ax, use_reentrant=False)
     return x
 
 
-def _block_keeping_products(kept, cfg, p, x, positions, chunk, aux_out=None):
+def _block_keeping_products(kept, cfg, p, x, positions, chunk, aux_out=None, tp=None,
+                            axes=None):
     """``block_apply`` with its weight products' outputs kept in ``kept``
     (``remat="dots"``)."""
     with linear.keep_products(kept):
-        return block_apply(cfg, p, x, positions, aux_out=aux_out, chunk=chunk)
+        return block_apply(cfg, p, x, positions, aux_out=aux_out, chunk=chunk, tp=tp,
+                           axes=axes)
 
 
 def _apply_backbone(cfg, params, tokens, positions, *, cache=None,
                     remat=False, collect_kv=False, paged_prefill=None,
-                    chunk=1024):
+                    chunk=1024, tp=None):
     """Embed, run every layer, and the final norm.  Returns (x, the summed
     aux loss of the MoE blocks (0 without any), KVCache or None).
 
@@ -521,8 +548,11 @@ def _apply_backbone(cfg, params, tokens, positions, *, cache=None,
     against its slice of the contiguous caches or paged pools and, int8,
     of their scales (the reference's ``lax.scan`` over stacked layers).
     An MoE config's dense blocks take cache layers ``[0, first_k)`` and the
-    stack ``[first_k, num_layers)``."""
-    x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
+    stack ``[first_k, num_layers)``.  ``tp``: a training plan (no cache),
+    ``params`` the rank's slices with the embedding and final norm whole
+    for this forward (:func:`forward`); ``x`` comes back in the stream's
+    layout."""
+    x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype), tp)
     layers = _layers(cfg, params)
     aux: list = []
 
@@ -534,7 +564,7 @@ def _apply_backbone(cfg, params, tokens, positions, *, cache=None,
 
     if cache is None and not collect_kv:
         x = _scan_blocks(cfg, layers, x, positions, remat=remat, aux_out=aux,
-                         chunk=chunk)
+                         chunk=chunk, tp=tp, axes=_layer_axes(cfg) if tp else None)
         return apply_norm(cfg, params["ln_f"], x), aux_sum(), None
     if cache is None:
         kv: list = []
@@ -597,6 +627,14 @@ def check_row_positions(positions: torch.Tensor, cfg=None) -> None:
                          "in every row")
 
 
+def _layer_axes(cfg) -> list:
+    """Every layer's parameter axes, in :func:`_layers`' order."""
+    axes = tree_map(lambda d: d.axes, lm_table(cfg))
+    dense = list(axes.get("dense_blocks", ()))
+    return dense + [tree_map(lambda d: d.axes, block_table(cfg))] * (cfg.num_layers
+                                                                      - len(dense))
+
+
 def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
     """Training forward.  tokens: (B, S) -> full logits (B, S, V) fp32 and
     the aux loss: the MoE blocks' router losses summed in depth order (0
@@ -605,13 +643,29 @@ def forward(cfg, params, tokens, positions=None, *, remat=True, chunk=1024):
     dtype at use, as the reference does (under ``remat="full"`` the block's
     casts run again in the recompute; nothing is cached across steps).
     Attention runs K4 and its backward kernel; given ``positions`` must be
-    0..S-1, as every training batch's are."""
+    0..S-1, as every training batch's are.
+
+    Under the current mesh and rules (a training plan,
+    :mod:`repro_torch.distributed.tensor_parallel`) ``params`` are the
+    rank's slices, ``tokens`` / ``positions`` the data shard's whole rows,
+    and the logits come in the layout
+    :func:`~repro_torch.training.losses.lm_cross_entropy` takes with the
+    plan: every row on the rank's vocabulary slice where the rules slice
+    the vocabulary, else the stream's rows.  The aux loss is the same on
+    every rank."""
     if positions is None:
         positions = default_positions(cfg, tokens)
     else:
         check_row_positions(positions, cfg)
+    tp = TP.plan(cfg)
+    if tp is not None:             # FSDP: the embedding and final norm whole here
+        axes = tree_map(lambda d: d.axes, lm_table(cfg))
+        params = {**params, **{k: TP.gather_params(tp, params[k], axes[k])
+                               for k in ("embed", "ln_f")}}
     x, aux, _ = _apply_backbone(cfg, params, tokens, positions, remat=remat,
-                                chunk=chunk)
+                                chunk=chunk, tp=tp)
+    if tp is not None and tp.vocab:
+        x = TP.enter(tp, x)
     lg = lm_logits(params["embed"], x, cfg.tie_embeddings,
                    cfg.final_logit_softcap)
     return lg, aux

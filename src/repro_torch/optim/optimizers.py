@@ -8,6 +8,13 @@ temporaries.  Each update keeps the reference's order of operations, so
 the two round alike.  Each optimizer also derives the logical axes of its
 state from the parameters' (``state_axes``, the reference's trees), for
 the sharding policy (:mod:`repro_torch.distributed.policy`).
+
+On a training mesh the parameters, gradients and state are each rank's
+slices, and ``update`` takes their :class:`ShardLayout`: the global norm
+sums each leaf's squares over the mesh axes that slice it (a replicated
+leaf once), and Adafactor's factored row and column means and its update
+RMS are summed over the axes that slice the dims they average, so the
+clip and every step are the same on every rank and the reference's.
 """
 from __future__ import annotations
 
@@ -51,15 +58,94 @@ def leaves(tree: Pytree) -> list[torch.Tensor]:
     return [tree]
 
 
-def global_norm(tree: Pytree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
+@dataclass(frozen=True)
+class ShardLayout:
+    """Where each leaf of a parameter tree lies on a training mesh: the
+    spec of each leaf, in :func:`leaves` order, and the mesh.  Only mesh
+    axes of more than one rank count here.  Without a mesh (the default)
+    every leaf is whole and every mean the plain one."""
+    specs: tuple = ()
+    mesh: Any = None
+
+    @staticmethod
+    def of(params: Pytree, table: Pytree, rules, mesh) -> "ShardLayout":
+        """The layout of ``params`` from its ParamDef table under ``rules``."""
+        from repro_torch.distributed.sharding import map_with_axes
+        specs: list = []
+        map_with_axes(lambda t, ax: specs.append(rules.spec(list(ax))), params,
+                      tree_map(lambda d: d.axes, table))
+        return ShardLayout(tuple(specs), mesh)
+
+    def _sizes(self) -> dict:
+        return dict(zip(self.mesh.mesh_dim_names, tuple(self.mesh.shape)))
+
+    def _split(self, entry) -> tuple[str, ...]:
+        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        return tuple(ax for ax in names if self._sizes()[ax] > 1)
+
+    def dim_axes(self, i: int, dim: int, ndim: int) -> tuple[str, ...]:
+        """The mesh axes that slice dim ``dim`` of leaf ``i`` (``ndim`` dims)."""
+        if self.mesh is None:
+            return ()
+        spec, dim = self.specs[i], dim % ndim
+        return self._split(spec[dim] if dim < len(spec) else None)
+
+    def leaf_axes(self, i: int) -> tuple[str, ...]:
+        """The mesh axes that slice leaf ``i``."""
+        if self.mesh is None:
+            return ()
+        return tuple(ax for entry in self.specs[i] for ax in self._split(entry))
+
+    def sum_axes(self, i: int) -> tuple[str, ...]:
+        """The mesh axes leaf ``i``'s gradient is summed over: every one
+        that does not slice it (its copies there each hold a share)."""
+        if self.mesh is None:
+            return ()
+        named = self.leaf_axes(i)
+        return tuple(ax for ax, n in self._sizes().items() if n > 1 and ax not in named)
+
+    def mean(self, t: torch.Tensor, dim: int | None, axes, keepdim: bool = False):
+        """``t.mean(dim)`` (every dim for None) where the dims averaged are
+        sliced over ``axes``: the slices are equal, so the mean of the
+        ranks' means."""
+        m = t.mean() if dim is None else t.mean(dim, keepdim=keepdim)
+        if not axes:
+            return m
+        from repro_torch.distributed.tensor_parallel import sum_over
+        n = math.prod(self._sizes()[ax] for ax in axes)
+        return sum_over(m, axes, self.mesh) / n
+
+    def sum_leaves(self, values: list) -> list:
+        """Per-leaf 0-d values, each summed over the axes that slice its leaf
+        (one all-reduce a mesh axis, the leaves it does not slice masked
+        out of it)."""
+        if self.mesh is None:
+            return values
+        from repro_torch.distributed.tensor_parallel import sum_over
+        v = torch.stack(values)
+        for ax in self.mesh.mesh_dim_names:
+            on = [ax in self.leaf_axes(i) for i in range(len(self.specs))]
+            if not any(on):
+                continue
+            on = torch.tensor(on, device=v.device)
+            v = torch.where(on, sum_over(torch.where(on, v, 0), (ax,), self.mesh), v)
+        return list(v.unbind())
+
+
+_WHOLE = ShardLayout()
+
+
+def global_norm(tree: Pytree, layout: ShardLayout = _WHOLE) -> torch.Tensor:
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    return torch.sqrt(sum(layout.sum_leaves(sq)))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Pytree, max_norm: float):
+def clip_by_global_norm(grads: Pytree, max_norm: float,
+                        layout: ShardLayout = _WHOLE):
     """Scale ``grads`` in place so their global norm is at most
     ``max_norm``; returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, layout)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -88,8 +174,8 @@ def adamw(schedule: Callable[[torch.Tensor], torch.Tensor], *,
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    def update(grads, state, params, layout: ShardLayout = _WHOLE):
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, layout)
         s, dev = _next_step(state, params)
         lr = schedule(s).to(dev)
         c1, c2 = (1.0 - b1 ** s).to(dev), (1.0 - b2 ** s).to(dev)
@@ -133,22 +219,24 @@ def adafactor(schedule: Callable[[torch.Tensor], torch.Tensor], *,
         return {"v": tree_map(mk, params), "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    def update(grads, state, params, layout: ShardLayout = _WHOLE):
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, layout)
         s, dev = _next_step(state, params)
         lr = schedule(s).to(dev)
         # time-dependent decay (Adafactor beta2 schedule)
         beta2 = (1.0 - s ** (-decay)).to(dev)
         v_state = [leaves(v) for v in _per_param(state["v"], params)]
-        for p, g, v in zip(leaves(params), leaves(grads), v_state):
+        for i, (p, g, v) in enumerate(zip(leaves(params), leaves(grads), v_state)):
             g = g.float()               # per-leaf cast: no full fp32 copy
             g2 = g.square().add_(eps)
-            if _factored(p.shape):
+            nd = p.ndim
+            if len(v) == 2:             # factored by the whole leaf's shape at init
                 vr, vc = v
-                vr.copy_(beta2 * vr + (1 - beta2) * g2.mean(-1))
-                vc.copy_(beta2 * vc + (1 - beta2) * g2.mean(-2))
-                rfac = torch.rsqrt(vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
-                                   + eps)
+                row, col = layout.dim_axes(i, -2, nd), layout.dim_axes(i, -1, nd)
+                vr.copy_(beta2 * vr + (1 - beta2) * layout.mean(g2, -1, col))
+                vc.copy_(beta2 * vc + (1 - beta2) * layout.mean(g2, -2, row))
+                rmean = layout.mean(vr, -1, row, keepdim=True)
+                rfac = torch.rsqrt(vr / torch.clamp(rmean, min=eps) + eps)
                 cfac = torch.rsqrt(vc + eps)
                 delta = g * rfac[..., None] * cfac[..., None, :]
             else:
@@ -156,7 +244,7 @@ def adafactor(schedule: Callable[[torch.Tensor], torch.Tensor], *,
                 vv.copy_(beta2 * vv + (1 - beta2) * g2)
                 delta = g * torch.rsqrt(vv + eps)
             # update clipping by RMS
-            rms = torch.sqrt(delta.square().mean() + 1e-30)
+            rms = torch.sqrt(layout.mean(delta.square(), None, layout.leaf_axes(i)) + 1e-30)
             delta = delta / torch.clamp(rms / clip_threshold, min=1.0)
             p32 = p.float()
             p.copy_(p32 - lr * (delta + weight_decay * p32))

@@ -855,6 +855,7 @@ class ServingEngine:
         self._ctl_lock = threading.Lock()
         self._failure: BaseException | None = None  # guarded-by: self._ctl_lock
         self._failure_raised = False                # guarded-by: self._ctl_lock
+        self._spill_delays: dict[bytes, float] = {}  # guarded-by: self._ctl_lock; key -> kv.spill delay
         # True once any submitted request carried a deadline_s -- lets the
         # executor skip the per-step deadline sweep for deadline-free
         # workloads (monotonic bool; racing the writer only delays the
@@ -913,14 +914,9 @@ class ServingEngine:
         ``raise`` already raised :class:`FaultError`, ``drop`` is the
         caller's to interpret (lost result / lost transfer).  Called from
         the executor thread and from the KV transfer worker."""
-        plan = self.fault_plan
-        if plan is None:
-            return None
-        spec = plan.fire(site, rid=rid, replica=self.name)
+        spec = self._fire(site, rid)
         if spec is None:
             return None
-        with self._ctl_lock:          # probe fires on two threads
-            self.totals.faults_injected += 1
         if spec.action == "delay":
             time.sleep(spec.delay_s)
             return "delay"
@@ -928,13 +924,31 @@ class ServingEngine:
             raise FaultError(site, f"rid={rid}" if rid is not None else "")
         return "drop"
 
+    def _fire(self, site: str, rid=None):
+        """Fire the fault plan's probe at ``site`` and count a hit; returns
+        the spec that fired, or None.  Acting on it is the caller's."""
+        plan = self.fault_plan
+        if plan is None:
+            return None
+        spec = plan.fire(site, rid=rid, replica=self.name)
+        if spec is not None:
+            with self._ctl_lock:      # probe fires on two threads
+                self.totals.faults_injected += 1
+        return spec
+
     def _kv_fault_hook(self, item) -> bool:
-        """Transfer-worker probe (installed on the KVBlockTarget): map the
-        payload kind to its site; True drops the transfer -- a spill that
-        never lands (the pin is released via _spill_done) or a fetch that
-        reports a tier miss (the engine recomputes the block)."""
-        site = "kv.spill" if item.payload[0] == "spill" else "kv.fetch"
-        return self._fault(site) == "drop"
+        """Transfer-worker probe (installed on the KVBlockTarget).  A fetch
+        fires ``kv.fetch`` here; True drops it, and it reports a tier miss
+        (the engine recomputes the block).  A spill's ``kv.spill`` probe
+        already fired at submit (:meth:`_spill_block`): only a delay it
+        drew is slept here, so the transfer is what it slows."""
+        if item.payload[0] == "spill":
+            with self._ctl_lock:
+                delay = self._spill_delays.pop(item.payload[1], 0.0)
+            if delay:
+                time.sleep(delay)
+            return False
+        return self._fault("kv.fetch") == "drop"
 
     def _finish_failed(self, req: Request, exc: BaseException) -> None:
         """Move ``req`` to its terminal FAILED state and notify."""
@@ -1205,11 +1219,21 @@ class ServingEngine:
         if key in host:
             return False
         t0 = time.perf_counter()
-        host.begin_store(key)           # pin: tier eviction skips pendings
         leaves = self._read_block_slices(bid)
-        self._kv_io.submit(("spill", key, leaves),
-                           on_done=lambda item, key=key:
-                           self._spill_done(key, item))
+        # ``kv.spill`` fires here, on the executor thread, at submit.  A
+        # dropped spill never pins its key, so whether a later probe finds
+        # the key resident does not hang on when the transfer worker gets
+        # to the drop (the count the reference settles to when its worker
+        # keeps up).
+        spec = self._fire("kv.spill")
+        if spec is None or spec.action != "drop":
+            if spec is not None:
+                with self._ctl_lock:
+                    self._spill_delays[key] = spec.delay_s
+            host.begin_store(key)       # pin: tier eviction skips pendings
+            self._kv_io.submit(("spill", key, leaves),
+                               on_done=lambda item, key=key:
+                               self._spill_done(key, item))
         self.spill_capture_s += time.perf_counter() - t0
         self.totals.kv_spills += 1
         self.totals.spill_bytes += sum(int(v.nbytes) for v in leaves.values())

@@ -25,9 +25,21 @@ row) and the audio family (whisper-medium: the encoder over
 block checkpointed under remat, K4's backward at the cross-attention's
 KV length of its own).  Every family that ``fns_for`` maps trains.
 State lives on ``TrainerConfig.device``, the card by default.
+
+Under a mesh (``Trainer(..., rules=, mesh=)``) the state is drawn from
+the seed as without one, but each rank keeps only its slices, cut a leaf
+(of a stacked leaf, a layer) at a time as it is drawn
+(:meth:`Trainer._init_slices`); every step runs
+under ``use_rules(rules, mesh)`` (the sharded step of
+:mod:`repro_torch.training.train_step`).  Each rank checkpoints its slices
+in a directory of its own, named by its mesh coordinate, beside a
+``MESH.json`` with the mesh's axes and sizes; a restore on a mesh of
+another shape raises (re-meshing is ROADMAP item 11c).
 """
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import tempfile
 import time
@@ -38,6 +50,8 @@ import torch
 
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.distributed.fault import FaultSchedule, Heartbeat, SimulatedFault
+from repro_torch.distributed.sharding import local_part, shard_tree, use_rules
+from repro_torch.models.layers.module import init_table, tree_map
 from repro_torch.models.registry import fns_for
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.training.train_step import make_train_step
@@ -77,11 +91,14 @@ class Trainer:
                  *, optimizer: Optimizer | None = None,
                  fault_schedule: FaultSchedule | None = None,
                  accum: int | None = None,
-                 on_device_loss: Callable[[], None] | None = None):
+                 on_device_loss: Callable[[], None] | None = None,
+                 rules=None, mesh=None):
         if cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
                 f"training the {cfg.family!r} family is not ported; the port "
                 f"trains {list(TRAINED_FAMILIES)}")
+        if (rules is None) != (mesh is None):
+            raise ValueError("a mesh needs its rules, and rules their mesh")
         self.cfg = cfg
         self.tc = tc
         self.device = training_device(tc.device)
@@ -90,8 +107,13 @@ class Trainer:
         self.optimizer = optimizer or make_optimizer(cfg)
         self.faults = fault_schedule or FaultSchedule()
         self.heartbeat = Heartbeat()
-        self.ckpt = Checkpointer(tc.ckpt_dir, keep=tc.keep,
-                                 async_save=tc.async_save)
+        self.rules, self.mesh = rules, mesh
+        ckpt_dir = tc.ckpt_dir
+        if mesh is not None:
+            self._check_mesh_file()
+            coord = "_".join(str(c) for c in mesh.get_coordinate())
+            ckpt_dir = os.path.join(tc.ckpt_dir, f"rank_{coord}")
+        self.ckpt = Checkpointer(ckpt_dir, keep=tc.keep, async_save=tc.async_save)
         self.on_device_loss = on_device_loss
         self._step_fn = make_train_step(cfg, self.optimizer, accum=accum)
         self.step = 0
@@ -101,11 +123,61 @@ class Trainer:
 
     # -- state ------------------------------------------------------------------
 
+    def _mesh_shape(self) -> dict:
+        return {"axes": list(self.mesh.mesh_dim_names), "shape": list(self.mesh.shape)}
+
+    def _check_mesh_file(self) -> None:
+        """Raise where ``ckpt_dir`` holds checkpoints of another mesh's
+        slices; record this mesh's shape there otherwise."""
+        path = os.path.join(self.tc.ckpt_dir, "MESH.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                saved = json.load(f)
+            if saved != self._mesh_shape():
+                raise NotImplementedError(
+                    f"the checkpoints in {self.tc.ckpt_dir} hold the slices of a "
+                    f"{saved} mesh, not of {self._mesh_shape()}: restoring on another "
+                    f"mesh is elastic re-meshing (ROADMAP item 11c)")
+            return
+        os.makedirs(self.tc.ckpt_dir, exist_ok=True)
+        with open(path + f".tmp{os.getpid()}", "w") as f:
+            json.dump(self._mesh_shape(), f)
+        os.replace(path + f".tmp{os.getpid()}", path)
+
+    def _sharding(self):
+        """The rules and mesh as the current ones (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_rules(self.rules, self.mesh)
+
     def init_state(self) -> None:
         gen = torch.Generator(self.device).manual_seed(self.tc.seed)
-        self.params = self.fns.init(self.cfg, gen)
-        self.opt_state = self.optimizer.init(self.params)
+        if self.mesh is None:
+            self.params = self.fns.init(self.cfg, gen)
+            self.opt_state = self.optimizer.init(self.params)
+        else:
+            self.params, self.opt_state = self._init_slices(gen)
         self.step = 0
+
+    def _init_slices(self, gen: torch.Generator):
+        """The rank's slices of the seeded state, the whole never resident.
+        Each parameter is drawn as the family's ``init`` draws it
+        (``init_table`` on its table), a stacked leaf a layer at a time, and
+        cut to the rank's slice before the next draw.  The optimizer's state
+        starts at zero (AdamW's moments, Adafactor's factored or full second
+        moments): its ``init`` runs on the meta device at the whole shapes,
+        which gives the trees, the factoring and the shapes to cut, and the
+        slices are then made as zeros on the card."""
+        table = self.fns.table(self.cfg)
+        axes = tree_map(lambda d: d.axes, table)
+        params = init_table(gen, table, self.cfg.param_dtype,
+                            place=lambda t, ax: local_part(t, ax, self.rules, self.mesh))
+        whole = tree_map(lambda d: torch.empty(d.shape, device="meta"), table)
+        state = shard_tree(self.optimizer.init(whole), self.optimizer.state_axes(axes),
+                           self.rules, self.mesh)
+        state = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                         if t.is_meta else t, state)
+        return params, state
 
     def try_resume(self) -> bool:
         if self.params is None:
@@ -142,8 +214,9 @@ class Trainer:
         self.faults.check(self.step)
         batch = next(self.data_iter)
         t0 = time.monotonic()
-        self.params, self.opt_state, metrics = self._step_fn(
-            self.params, self.opt_state, batch)
+        with self._sharding():
+            self.params, self.opt_state, metrics = self._step_fn(
+                self.params, self.opt_state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}   # waits for the device
         metrics["step"] = self.step
         metrics["step_time_s"] = time.monotonic() - t0

@@ -285,14 +285,63 @@ def test_dropped_kv_transfers_degrade_without_leaking(weights):
     jeng, teng = _engines(weights, (jplan, tplan), **kw)
     jreqs = _churn_reqs(JE, JS, cfg.vocab_size)
     treqs = _churn_reqs(TE, TS, cfg.vocab_size)
-    jeng.serve(jreqs)
-    teng.serve(treqs)
+    # One request at a time, each engine's tier quiesced between.  The
+    # reference fires kv.spill on its transfer worker, and until the
+    # worker gets to a dropped spill its key stays pinned as resident: an
+    # admission probe that runs first submits a fetch for it, which moves
+    # kv.fetch's arrival window (kv_fetches 3, not 2).  Quiescing settles
+    # the reference; the port fires kv.spill at submit and needs no such
+    # schedule (test_dropped_spill_never_pins_its_key below).
+    for jr, tr in zip(jreqs, treqs):
+        jeng.serve([jr])
+        jeng.drain_tier_io()
+        teng.serve([tr])
+        teng.drain_tier_io()
     assert [r.output for r in treqs] == [r.output for r in ref]
     assert all(r.state is RequestState.DONE for r in treqs)
     assert tplan.fired >= 1 and tplan.fired == jplan.fired
     _assert_same(jeng, teng, jreqs, treqs)
     _assert_leak_free(teng)
     _assert_leak_free(ref_eng)
+
+
+@pytest.mark.parametrize("worker_lag_s", [0.0, 0.05])
+def test_dropped_spill_never_pins_its_key(weights, worker_lag_s):
+    """The port fires ``kv.spill`` on the executor thread when it submits
+    the spill, so a dropped spill never pins its key in the host tier.
+    Served all at once, with the transfer worker as fast as it runs or
+    lagging every transfer, the churn run under the drop plan fetches the
+    same four keys and restores the same two blocks: the count the
+    reference settles to when its worker keeps up."""
+    _, _, tcfg, tp = weights
+    plan = TF.FaultPlan([TF.FaultSpec("kv.spill", "drop", count=2),
+                         TF.FaultSpec("kv.fetch", "drop", after=1, count=2),
+                         TF.FaultSpec("kv.fetch", "delay", count=2,
+                                      delay_s=0.002)])
+    eng = TE.ServingEngine(tcfg, tp, fault_plan=plan, device="cpu",
+                           paged=True, cache_dtype="float32", max_len=24,
+                           batch_slots=1, block_size=8, pool_blocks=5,
+                           host_blocks=16)
+    hook, submit = eng._kv_target.fault_hook, eng._kv_io.submit_async
+    fetched = []
+
+    def lagging_hook(item):
+        time.sleep(worker_lag_s)
+        return hook(item)
+
+    def logging_submit(payload, *a, **kw):
+        fetched.append(payload[1])
+        return submit(payload, *a, **kw)
+    eng._kv_target.fault_hook = lagging_hook
+    eng._kv_io.submit_async = logging_submit
+    reqs = _churn_reqs(TE, TS, tcfg.vocab_size)
+    eng.serve(reqs)
+    assert all(r.state is RequestState.DONE for r in reqs)
+    assert eng.totals.faults_injected == 6 and eng.totals.kv_spills == 8
+    assert eng.totals.kv_fetches == 2 and len(fetched) == 4
+    assert eng.totals.prefill_tokens_computed == 112
+    _assert_leak_free(eng)
+    eng.close()
 
 
 CHAOS_SITES = ("engine.prefill", "engine.decode", "kv.spill", "kv.fetch")

@@ -2353,3 +2353,94 @@ def test_ssm_scan_backward_stops_after_a_pass(cuda, N, P, dtype):
         assert torch.isnan(t.float()).all()
     with pytest.raises(ValueError, match="last_pass"):
         bwd.launch(q, k, v, ld, lg, dy, chunk=128, last_pass=len(passes) + 1)
+
+
+# -- training under a device mesh ---------------------------------------------
+
+@pytest.mark.parametrize("M,K,N,layout", [(1024, 2048, 2752, ""), (1024, 2752, 2048, ""),
+                                          (1024, 2752, 2048, "y.T"), (2048, 1024, 2752, "x.T"),
+                                          (1024, 2048, 37984, "y.T")])
+def test_matmul_at_a_ranks_slices_keeps_the_wgmma_body(cuda, M, K, N, layout):
+    """K7 at a 1 x 4 rank's slices of qwen2.5-3b in bf16 -- the SwiGLU's
+    2752 ``ff`` columns (gate / up, down, the backward's dX on W^T and dW
+    on X^T) and the LM head's 37984 vocabulary columns read from the tied
+    table's slice transposed -- routes to ``wgmma``, within K7's limit."""
+    from repro_torch.kernels.matmul.ops import body_for
+    x, y = _k7_operands(cuda, M, K, N, torch.bfloat16, layout)
+    k = dispatch.kernel_table()["matmul"]
+    assert body_for(x, y) == "wgmma"
+    dispatch.reset_counts()
+    out = k.launch(x, y)
+    ref = k.plain(x.float(), y.float())
+    torch.cuda.synchronize()
+    assert k.body_launches == {"wgmma": 1}
+    assert k.tolerance(out, ref, K) <= 1.0
+
+
+def test_flash_kernel_on_a_ranks_heads_matches_plain(cuda):
+    """K4 and its backward on a 1 x 4 rank's heads of qwen2.5-3b: 4 query
+    heads against the one KV head their group reads (2 x 512, causal,
+    bf16), each against its plain version in fp32, on the mma bodies."""
+    g = torch.Generator(cuda).manual_seed(4)
+    q = torch.randn((2, 512, 4, 128), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((2, 512, 1, 128), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    do = torch.randn((2, 512, 4, 128), generator=g, device=cuda).bfloat16()
+    fwd = dispatch.kernel_table()["flash_attention"]
+    bwd = dispatch.kernel_table()["flash_attention_backward"]
+    dispatch.reset_counts()
+    out, lse = fwd.launch(q, k, v, causal=True, with_lse=True)
+    ref_out = fwd.plain(q.float(), k.float(), v.float(), causal=True)
+    grads = bwd.launch(q, k, v, out, do, lse, causal=True)
+    ref = bwd.plain(*(t.float() for t in (q, k, v, out, do)), lse, causal=True)
+    torch.cuda.synchronize()
+    assert fwd.body_launches == {"mma": 1} and bwd.body_launches == {"mma": 1}
+    assert fwd.tolerance(out, ref_out) <= 1.0
+    assert bwd.tolerance(grads, ref) <= 1.0
+
+
+def test_nccl_mesh_training_step_equals_unsharded(cuda, tmp_path):
+    """qwen2.5-3b-smoke (bf16 compute) trained 2 steps of 4 x 64 in 2
+    microbatches by the ``Trainer`` without a mesh and on a 1 x 1 NCCL
+    mesh under ``rules_for``'s training rules: every collective has one
+    rank and the arithmetic is the same, so every metric and updated
+    parameter is the same bits, with the same launches by body and no
+    plain call."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = TR.smoke("qwen2.5-3b")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(1, 1)
+        rules = rules_for(cfg, ShapeConfig("t", "train", 64, 4), mesh)
+        table = dispatch.kernel_table()
+        runs = []
+        for i, (r, m) in enumerate(((None, None), (rules, mesh))):
+            tc = TrainerConfig(num_steps=2, ckpt_every=50, ckpt_dir=str(tmp_path / str(i)),
+                               device="cuda")
+            tr = Trainer(cfg, iter(SyntheticTokens(cfg, 4, 64, seed=0)), tc, accum=2,
+                         rules=r, mesh=m)
+            tr.init_state()
+            dispatch.reset_counts()
+            collectives.reset_collective_counts()
+            hist = tr.train()
+            torch.cuda.synchronize()
+            runs.append((hist, tr.params, {n: dict(k.body_launches) for n, k in table.items()
+                                           if k.launches},
+                         {n: k.plain_calls for n, k in table.items() if k.plain_calls},
+                         collectives.collective_counts()))
+    finally:
+        dist.destroy_process_group()
+    (h0, p0, b0, plain0, _), (h1, p1, b1, plain1, c1) = runs
+    for a, b in zip(h0, h1):
+        assert all(a[k] == b[k] for k in ("loss", "nll", "accuracy", "grad_norm"))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(p0), leaves(p1)))
+    assert b0 == b1 and not plain0 and not plain1
+    assert c1["all_gather"] > 0 and c1["reduce_scatter"] > 0

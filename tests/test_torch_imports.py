@@ -50,7 +50,9 @@ def test_import_loads_no_jax_and_no_reference_module():
                  "repro_torch.models.encdec", "repro_torch.models.layers.rope",
                  "repro_torch.models.layers.mlp",
                  "repro_torch.distributed.sharding", "repro_torch.distributed.policy",
-                 "repro_torch.launch.mesh", "repro_torch.configs.specs"):
+                 "repro_torch.launch.mesh", "repro_torch.configs.specs",
+                 "repro_torch.distributed.tensor_parallel",
+                 "repro_torch.models.layers.embedding"):
         assert name in result["modules"]
 
 
